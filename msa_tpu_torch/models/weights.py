@@ -1,0 +1,150 @@
+"""MMBert parameter trees for the port: random init and the JAX bridge.
+
+The tree follows ``msa_tpu/models/mmbert.py::init_mmbert_params`` with two
+changes of layout for PyTorch:
+
+  * ``bert.layers`` is a list of per-layer dicts (JAX stacks them on a
+    leading [num_layers] axis);
+  * dense layers hold ``weight`` [out, in] and ``bias`` [out], as
+    ``torch.nn.functional.linear`` takes them (JAX: ``kernel`` [in, out]).
+    The joint projections ``joint.Wv`` / ``joint.Ws`` keep ``kernel``
+    [D, H]: the fused joint-embedding kernel reads them in that layout.
+
+Everything else (embedding tables with the padded vocab, LayerNorm
+``scale``/``bias``, the -1e9 padded ``cls.decoder_bias``) is as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..configs import MMBertConfig
+
+Params = Dict[str, Any]
+_LAYER_DENSE = ("q", "k", "v", "o", "wi", "wo")
+_LAYER_LN = ("attn_ln", "mlp_ln")
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+def _convert(node, device, linear: bool):
+    """Leaves to tensors; {kernel, bias} dicts to {weight, bias} when
+    ``linear``."""
+    if isinstance(node, Mapping):
+        if linear and set(node) == {"kernel", "bias"}:
+            return {"weight": _tensor(np.asarray(node["kernel"]).T, device),
+                    "bias": _tensor(node["bias"], device)}
+        return {k: _convert(v, device, linear) for k, v in node.items()}
+    return _tensor(node, device)
+
+
+def from_jax_params(tree: Mapping, device) -> Params:
+    """Load the JAX package's MMBert parameters (a tree of numpy arrays, e.g.
+    ``jax.device_get(params)``) into the port's layout on ``device``."""
+    tree = dict(tree)
+    bert = dict(tree["bert"])
+    stacked = bert.pop("layers")
+    n = int(np.asarray(stacked["q"]["kernel"]).shape[0])
+    layers = []
+    for i in range(n):
+        lp = {}
+        for name in _LAYER_DENSE:
+            lp[name] = {"weight": _tensor(np.asarray(stacked[name]["kernel"])[i].T,
+                                          device),
+                        "bias": _tensor(np.asarray(stacked[name]["bias"])[i],
+                                        device)}
+        for name in _LAYER_LN:
+            lp[name] = {k: _tensor(np.asarray(stacked[name][k])[i], device)
+                        for k in ("scale", "bias")}
+        layers.append(lp)
+    out = {k: _convert(v, device, linear=(k != "joint"))
+           for k, v in tree.items() if k != "bert"}
+    out["bert"] = {k: _convert(v, device, linear=True) for k, v in bert.items()}
+    out["bert"]["layers"] = layers
+    return out
+
+
+def init_params(cfg: MMBertConfig, generator: torch.Generator) -> Params:
+    """Random MMBert parameters with ``init_mmbert_params``'s shapes and
+    stds (normal(0, initializer_range) weights, zero biases, unit LN
+    scales), drawn from ``generator`` on its device.  The numbers differ
+    from JAX's (another generator); the layout does not."""
+    device = generator.device
+    bc = cfg.bert
+    h, i, std = bc.hidden_size, bc.intermediate_size, bc.initializer_range
+    vp = bc.padded_vocab_size
+
+    def normal(*shape):
+        return torch.empty(shape, device=device).normal_(
+            0.0, std, generator=generator)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+
+    def linear(d_in, d_out):
+        return {"weight": normal(d_out, d_in), "bias": zeros(d_out)}
+
+    def ln(d):
+        return {"scale": torch.ones(d, device=device), "bias": zeros(d)}
+
+    word = normal(vp, h)
+    word[bc.vocab_size:] = 0.0
+    decoder_bias = zeros(vp)
+    decoder_bias[bc.vocab_size:] = -1e9  # padded vocab never wins
+    layers = [{"q": linear(h, h), "k": linear(h, h), "v": linear(h, h),
+               "o": linear(h, h), "attn_ln": ln(h), "wi": linear(h, i),
+               "wo": linear(i, h), "mlp_ln": ln(h)}
+              for _ in range(bc.num_hidden_layers)]
+    out_dim = 1 if cfg.regression else cfg.num_labels
+    return {
+        "bert": {
+            "embeddings": {"word": word,
+                           "position": normal(bc.max_position_embeddings, h),
+                           "type": normal(bc.type_vocab_size, h),
+                           "ln": ln(h)},
+            "layers": layers,
+            "pooler": linear(h, h),
+        },
+        "joint": {"Wv": {"kernel": normal(cfg.visual_dim, h), "bias": zeros(h)},
+                  "Ws": {"kernel": normal(cfg.speech_dim, h), "bias": zeros(h)},
+                  "ln": ln(h)},
+        "cls": {"transform_dense": linear(h, h), "transform_ln": ln(h),
+                "decoder_bias": decoder_bias, "align": linear(h, 2),
+                "seq_relationship": linear(h, 2)},
+        "fusion": {"attn": linear(2 * h, h), "vt": linear(h, 1),
+                   "vv": linear(h, 1), "vs": linear(h, 1),
+                   "classifier1": linear(3 * h, h),
+                   "classifier2": linear(h, out_dim)},
+        "cpc": {"zt": linear(h, cfg.cpc_x_size), "zv": linear(h, cfg.cpc_x_size),
+                "za": linear(h, cfg.cpc_x_size)},
+    }
+
+
+def to_device(params: Params, device) -> Params:
+    """The same tree with every tensor on ``device``."""
+    if isinstance(params, dict):
+        return {k: to_device(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [to_device(v, device) for v in params]
+    return params.to(device)
+
+
+def cast_for_compute(params: Params, dtype: torch.dtype) -> Params:
+    """Cast what the forward casts anyway -- dense weights and biases, the
+    embedding tables -- to ``dtype`` once, so serving does not re-cast them
+    every batch.  LayerNorm parameters and the joint projections stay f32:
+    the forward reads them in f32."""
+    def walk(node, key=None):
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, dict):
+            if "weight" in node:  # dense layer
+                return {k: v.to(dtype) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
+        return node.to(dtype) if key in ("word", "position", "type") else node
+    return walk(params)

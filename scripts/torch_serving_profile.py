@@ -1,0 +1,190 @@
+#!/usr/bin/env python3
+"""Where the port's serving time goes on one NVIDIA GPU, and what the
+short-attention kernel is worth end to end.
+
+    python3 scripts/torch_serving_profile.py [--out FILE.json]
+
+Serves a ragged synthetic MOSI split through ``msa_tpu_torch``'s bf16
+``Predictor`` with a full-width bert-large MMBert (random weights from a
+seed; B=96, L=40, as chip_smoke.py drives it), then:
+
+  1. A/B, alternating in one process: samples/s with the short-attention
+     kernel (``use_flash_attention="auto"``) against the plain attention
+     on the card (``"never"``), order K P P K K P P K;
+  2. host enqueue against enqueue plus device time, per batch;
+  3. ``torch.profiler`` over a few batches: device kernel time per batch
+     by kernel name, in order, the kernels' sum and their union against
+     the wall time of the profiled region.
+
+Prints one line per result and, last, a JSON object with every number;
+``--out`` writes the same object to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BATCH = 96
+TEXT_LEN = 40
+# kernel-name families for the breakdown, checked in order
+FAMILIES = (
+    ("short_attention", r"short_attention_fwd_kernel"),
+    ("fused_joint_embed", r"fused_joint_embed_kernel"),
+    ("gemm", r"nvjet|gemm|cutlass|xmma|cublas"),
+    ("layer_norm", r"layer_norm|LayerNorm"),
+    ("gelu", r"gelu|GeluCUDA|tanh"),
+)
+
+
+def family(name: str) -> str:
+    for fam, pattern in FAMILIES:
+        if re.search(pattern, name):
+            return fam
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--samples", type=int, default=5 * BATCH - 23)
+    ap.add_argument("--reps", type=int, default=4,
+                    help="timed runs per arm of the A/B")
+    ap.add_argument("--profile-batches", type=int, default=3)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from msa_tpu_torch.configs import build_experiment
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params
+
+    if not torch.cuda.is_available():
+        print("torch_serving_profile: CUDA is not available", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    result = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "batch": BATCH,
+              "text_len": TEXT_LEN, "samples": args.samples}
+
+    exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
+    cfg = exp.model
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    split = synthetic_split(args.samples, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=0)
+
+    def predictor(use_flash):
+        e = dataclasses.replace(exp, train=dataclasses.replace(
+            exp.train, use_flash_attention=use_flash))
+        return Predictor(e, params, BATCH, "cuda")
+
+    arms = {"kernel": predictor("auto"), "plain": predictor("never")}
+    for pred in arms.values():
+        pred.predict_split(split)  # first use: kernels, cuBLAS handles
+
+    # 1. A/B
+    rates = {name: [] for name in arms}
+    for name in ("kernel", "plain", "plain", "kernel") * (args.reps // 2):
+        t0 = time.perf_counter()
+        arms[name].predict_split(split)  # ends in a device-to-host copy
+        rates[name].append(args.samples / (time.perf_counter() - t0))
+    result["ab_samples_per_s"] = rates
+    for name, r in rates.items():
+        print(f"A/B {name}: samples/s {r}", flush=True)
+
+    # 2. host enqueue against enqueue + device, one full batch
+    pred = arms["kernel"]
+    batch = [pred._upload(np.asarray(x)[:BATCH]) for x in (
+        split.input_ids, split.attention_mask, split.visual, split.speech)]
+    torch.cuda.synchronize()
+    enqueue, total = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        pred._forward(*batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue.append((t1 - t0) * 1e3)
+        total.append((time.perf_counter() - t0) * 1e3)
+    result["enqueue_ms_median"] = statistics.median(enqueue)
+    result["enqueue_plus_device_ms_median"] = statistics.median(total)
+    print(f"one batch: host enqueue {result['enqueue_ms_median']:.2f} ms "
+          f"(median of 7), enqueue + device "
+          f"{result['enqueue_plus_device_ms_median']:.2f} ms", flush=True)
+
+    # 3. profiler breakdown
+    n = args.profile_batches * BATCH
+    sub = [np.asarray(x)[:n] for x in (split.input_ids, split.attention_mask,
+                                       split.visual, split.speech)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred.predict_arrays(*sub)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    per_name, per_family = {}, {}
+    spans = []
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        per_name[e.name] = per_name.get(e.name, 0.0) + us
+        fam = family(e.name)
+        per_family[fam] = per_family.get(fam, 0.0) + us
+        spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    union, cur_start, cur_end = 0.0, *spans[0]
+    for start, end in spans[1:]:
+        if start > cur_end:
+            union += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    union += cur_end - cur_start
+    nb = args.profile_batches
+    kernel_ms = sum(per_name.values()) / 1e3
+    result["profile"] = {
+        "batches": nb, "wall_ms_per_batch": wall_ms / nb,
+        "kernel_ms_per_batch": kernel_ms / nb,
+        "kernel_union_ms_per_batch": union / 1e3 / nb,
+        "busy_share": union / 1e3 / wall_ms,
+        "family_ms_per_batch": {k: v / 1e3 / nb for k, v in sorted(
+            per_family.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms_per_batch": {k: v / 1e3 / nb for k, v in sorted(
+            per_name.items(), key=lambda kv: -kv[1])[:15]},
+    }
+    p = result["profile"]
+    print(f"profiler over {nb} batches: wall {p['wall_ms_per_batch']:.2f} "
+          f"ms/batch, kernels {p['kernel_ms_per_batch']:.2f} ms/batch "
+          f"(union {p['kernel_union_ms_per_batch']:.2f}), busy share "
+          f"{p['busy_share']:.3f} (profiler on)", flush=True)
+    for fam, ms in p["family_ms_per_batch"].items():
+        print(f"  {fam}: {ms:.3f} ms/batch ({100 * ms / p['kernel_ms_per_batch']:.1f} %)")
+    for name, ms in p["top_kernels_ms_per_batch"].items():
+        print(f"    {ms:8.3f} ms/batch  {name[:110]}")
+
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,238 @@
+"""msa_tpu_torch's Predictor and JSONL service against the JAX package.
+
+Tiny config (H=128, 2 heads, 2 layers), JAX parameters carried over by
+``from_jax_params``, a ragged synthetic split (10 samples, batch 4: the
+last batch is zero-padded).  f32 on both sides; tolerance atol = 1e-4 on
+the predictions (tanh outputs in [-1, 1]; what differs is summation
+order).  The no-jax check runs in a subprocess because this test process
+has jax imported (tests/conftest.py).
+
+bf16 against the JAX Predictor in bf16: the predictions may differ by at
+most BF16_NOISE_FACTOR times the gap between JAX's own bf16 and f32
+predictions (both sides round to bf16 at different points, which moves
+the result about as much as the rounding itself); classes must agree.
+"""
+
+import dataclasses
+import io
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from msa_tpu.configs import (
+    DataConfig, ExperimentConfig, MMBertConfig, TrainConfig, tiny_bert_config,
+)
+from msa_tpu.data.featurize import synthetic_split
+from msa_tpu.data.wordpiece import Tokenizer, make_test_vocab
+from msa_tpu.inference import Predictor as JaxPredictor
+from msa_tpu.models.mmbert import init_mmbert_params
+from msa_tpu_torch.cli.serve import serve_stream
+from msa_tpu_torch.inference import Predictor
+from msa_tpu_torch.models.weights import from_jax_params
+
+ATOL = 1e-4
+BF16_NOISE_FACTOR = 3.0
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def experiment(num_labels=1, vocab_size=120):
+    bert = tiny_bert_config(hidden_size=128, num_hidden_layers=2,
+                            num_attention_heads=2, intermediate_size=256,
+                            vocab_size=vocab_size)
+    return ExperimentConfig(
+        model_name="tiny",
+        model=MMBertConfig(bert=bert, visual_dim=5, speech_dim=7,
+                           num_labels=num_labels),
+        data=DataConfig(dataset="mosi", max_seq_length=12),
+        train=TrainConfig(compute_dtype="float32", data_parallel=1))
+
+
+def with_dtype(exp, compute_dtype):
+    return dataclasses.replace(
+        exp, train=dataclasses.replace(exp.train, compute_dtype=compute_dtype))
+
+
+def both_predictors(exp, batch_size=4, seed=0, jparams=None):
+    if jparams is None:
+        jparams = init_mmbert_params(jax.random.key(seed), exp.model)
+    params = from_jax_params(jax.device_get(jparams), torch.device("cpu"))
+    return (JaxPredictor(exp, jparams, batch_size=batch_size),
+            Predictor(exp, params, batch_size, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("num_labels", [1, 7, 3])
+def test_predictor_matches_jax_on_ragged_split(num_labels):
+    """num_labels 1: tanh regression; 7: raw regression output; 3:
+    argmax(sigmoid) classification."""
+    exp = experiment(num_labels)
+    jax_pred, pred = both_predictors(exp, seed=num_labels)
+    split = synthetic_split(10, 12, 5, 7, vocab_size=120,
+                            num_labels=num_labels, seed=num_labels)
+    ref = jax_pred.predict_split(split)
+    out = pred.predict_split(split)
+    assert out.shape == ref.shape == (10,)
+    if num_labels == 3:
+        np.testing.assert_array_equal(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+    if num_labels == 1:
+        assert (np.abs(out) <= 1.0).all()
+
+
+def test_predictor_padding_does_not_change_results():
+    """The zero-padded rows of the last batch do not leak into real rows:
+    batch 4 (ragged) and batch 16 (one padded batch) agree."""
+    exp = experiment()
+    _, pred = both_predictors(exp)
+    params = pred.params
+    split = synthetic_split(10, 12, 5, 7, vocab_size=120, seed=5)
+    wide = Predictor(exp, params, 16, torch.device("cpu"))
+    np.testing.assert_allclose(pred.predict_split(split),
+                               wide.predict_split(split), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("num_labels", [1, 7, 3])
+def test_predictor_bf16_matches_jax_bf16(num_labels):
+    """Both Predictors in bf16 on the same weights, ragged split.  The
+    fusion head's weights are scaled up so that predictions spread over
+    tanh's range: at init they are all ~1e-4, where any drift hides."""
+    exp = experiment(num_labels)
+    jparams = jax.device_get(init_mmbert_params(jax.random.key(num_labels),
+                                                exp.model))
+    fusion = jparams["fusion"]
+    for name in ("classifier1", "classifier2"):
+        fusion[name]["kernel"] = np.asarray(fusion[name]["kernel"]) * 100.0
+    split = synthetic_split(10, 12, 5, 7, vocab_size=120,
+                            num_labels=num_labels, seed=num_labels)
+    ref32 = both_predictors(exp, jparams=jparams)[0].predict_split(split)
+    jax_pred, pred = both_predictors(with_dtype(exp, "bfloat16"),
+                                     jparams=jparams)
+    assert pred.params["bert"]["layers"][0]["q"]["weight"].dtype == \
+        torch.bfloat16
+    ref = jax_pred.predict_split(split)
+    out = pred.predict_split(split)
+    assert out.shape == ref.shape == (10,)
+    if num_labels == 3:
+        np.testing.assert_array_equal(out, ref)
+        return
+    assert np.abs(ref32).max() > 0.1  # the head spreads the predictions
+    noise = np.abs(ref - ref32).max()
+    assert noise > 0
+    err = np.abs(out - ref).max()
+    assert err <= BF16_NOISE_FACTOR * noise, (
+        f"port vs JAX bf16 {err:.3g}, JAX bf16 vs f32 {noise:.3g}")
+
+
+def test_predictor_bf16_on_cpu_tracks_f32():
+    exp = experiment()
+    exp16 = with_dtype(exp, "bfloat16")
+    _, pred = both_predictors(exp)
+    pred16 = Predictor(exp16, pred.params, 4, torch.device("cpu"))
+    assert pred16.params["bert"]["layers"][0]["q"]["weight"].dtype == \
+        torch.bfloat16
+    assert pred16.params["bert"]["layers"][0]["attn_ln"]["scale"].dtype == \
+        torch.float32
+    split = synthetic_split(6, 12, 5, 7, vocab_size=120, seed=2)
+    # bf16 compute: ~3 significant digits through two layers
+    np.testing.assert_allclose(pred16.predict_split(split),
+                               pred.predict_split(split), atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("train_kw,kw", [
+    ({}, {"quantize": "int8"}),
+    ({"data_parallel": 2}, {}),
+    ({"model_parallel": 2}, {}),
+])
+def test_predictor_refuses_what_is_not_ported(train_kw, kw):
+    exp = experiment()
+    exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                             **train_kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Predictor(exp, {}, 4, torch.device("cpu"), **kw)
+
+
+def test_serve_stream_roundtrip_and_error_line():
+    """Mirrors tests/test_serve_cli.py: valid lines are answered with the
+    JAX Predictor's predictions for the same requests, an invalid line
+    (bad JSON, misaligned frames) yields an error line and the service
+    goes on."""
+    vocab = make_test_vocab(extra_words=["love", "hate", "this"])
+    exp = experiment(vocab_size=len(vocab))
+    jax_pred, pred = both_predictors(exp, batch_size=2)
+    reqs = [
+        {"id": "a", "words": ["love", "this", "movie"],
+         "visual": [[0.1] * 5] * 3, "speech": [[0.2] * 7] * 3},
+        {"id": "b", "words": ["hate", "this"]},  # modalities absent
+        "NOT JSON",
+        {"id": "x", "words": ["love", "this"], "visual": [[0.1] * 5] * 7},
+        {"id": "c", "words": ["movie"], "speech": [[0.3] * 7]},
+    ]
+    text = "".join((r if isinstance(r, str) else json.dumps(r)) + "\n"
+                   for r in reqs)
+    tokenizer = Tokenizer(vocab)
+    fout = io.StringIO()
+    counts = serve_stream(pred, tokenizer, io.StringIO(text), fout,
+                          batch_size=2, max_wait=0.05, drain_flush=True)
+    assert counts == {"answered": 3, "errors": 2}
+    lines = [json.loads(x) for x in fout.getvalue().splitlines()]
+    errors = {x["id"]: x["error"] for x in lines if "error" in x}
+    assert set(errors) == {None, "x"}
+    assert "one row per word" in errors["x"]
+    got = {x["id"]: x["prediction"] for x in lines if "prediction" in x}
+    assert set(got) == {"a", "b", "c"}
+
+    # the same requests through the JAX Predictor
+    from msa_tpu.cli.serve import featurize_request
+    splits = [featurize_request(r, tokenizer, 12, None, 5, 7)
+              for r in reqs if isinstance(r, dict) and r["id"] != "x"]
+    ref = jax_pred.predict_arrays(
+        *(np.concatenate([getattr(s, f) for s in splits])
+          for f in ("input_ids", "attention_mask", "visual", "speech")))
+    np.testing.assert_allclose([got[i] for i in "abc"], ref, atol=ATOL, rtol=0)
+
+
+def test_port_imports_and_serves_without_jax():
+    """Every msa_tpu_torch module imports, and a CPU Predictor runs, with
+    jax blocked (a subprocess: this process already imported jax)."""
+    code = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import numpy as np, torch
+import msa_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(msa_tpu_torch.__path__,
+                                               "msa_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from msa_tpu.configs import (DataConfig, ExperimentConfig, MMBertConfig,
+                             TrainConfig, tiny_bert_config)
+from msa_tpu.data.featurize import synthetic_split
+from msa_tpu_torch.inference import Predictor
+from msa_tpu_torch.models.weights import init_params
+exp = ExperimentConfig(
+    model_name="tiny",
+    model=MMBertConfig(bert=tiny_bert_config(hidden_size=128,
+                       num_attention_heads=2, vocab_size=120),
+                       visual_dim=5, speech_dim=7),
+    data=DataConfig(max_seq_length=12),
+    train=TrainConfig(compute_dtype="float32", data_parallel=1))
+params = init_params(exp.model, torch.Generator().manual_seed(0))
+out = Predictor(exp, params, 4, torch.device("cpu")).predict_split(
+    synthetic_split(5, 12, 5, 7, vocab_size=120))
+assert out.shape == (5,) and np.isfinite(out).all()
+assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
+                     if v is not None}
+print("modules", len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n = int(proc.stdout.split()[-1])
+    assert n >= 11  # _build, ops x3, models x3, inference, cli.serve, ...
