@@ -7,15 +7,32 @@ Run from the root of a checkout.  In order, and stopping at the first
 failure (no phase catches its own):
 
   1. requires CUDA and prints the card's name and power limit;
-  2. builds the CUDA kernels from msa_tpu_torch/csrc with nvcc (sm_90a);
-  3. holds each kernel against its plain PyTorch version on the card at
-     the serving shapes (and a few more), in bf16 and f32, and times both;
+  2. builds the CUDA kernels from msa_tpu_torch/csrc with nvcc (sm_90a),
+     one nvcc per source, all started together;
+  3. holds each kernel against its plain PyTorch version on the card, in
+     bf16 and f32, and times both (and, where one exists, the PyTorch
+     library call that computes the same function):
+     * the attention forward at the serving shapes (and a few more);
+     * the attention backward against autograd through the plain version,
+       at rate 0 and at rate 0.1 snapped to t/256, the plain version taking
+       the kernel's exported keep mask;
+     * the dropout mask: the export kernel against its plain Philox, the
+       keep share, the forward with dropout against the plain version given
+       that mask, and seed determinism;
+     * the fused joint embedding;
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
-     checks the predictions and that every batch launched each kernel the
-     expected number of times, then checks an f32 card run against the CPU
-     plain run on a few samples;
-  5. pushes JSONL requests (one of them invalid) through ``serve_stream``.
+     checks the predictions and the kernel launches per batch, then checks
+     an f32 card run against the CPU plain run on a few samples;
+  5. pushes JSONL requests (one of them invalid) through ``serve_stream``;
+  6. trains bert-large in bf16 at B=96, L=40 (MOSI widths, the default
+     dropouts, MLM on) through ``Trainer`` over a synthetic split, checks
+     finite losses, moved parameters and the kernel launches per step,
+     reports ms/step, samples/s, MFU and peak memory, and runs the
+     deterministic eval step on the trained weights;
+  7. runs two f32 train steps of a small model on the card (TF32 off) and
+     on the CPU from the same weights and MLM masks, and compares the
+     losses and the updated parameters.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -35,22 +52,56 @@ import time
 
 # Tolerances of the kernel-vs-plain comparisons on the card.
 #  * f32: both sides are f32 throughout and differ in summation order.
-#  * bf16: both round to bf16 at the end; the plain attention also rounds
-#    the probabilities to bf16 before the PV product (as the JAX reference
-#    does), the kernel keeps them in f32.  Allow about one bf16 ulp.
-#  * attention rows whose keys are all masked: every score carries the
-#    -10000 fill, whose f32 ulp (2^-10) quantises the scores differently in
-#    the kernel's base-2 domain and the plain natural one.
+#  * bf16 forward: both round to bf16 at the end; the plain attention also
+#    rounds the probabilities to bf16 before the PV product (as the JAX
+#    reference does), the kernel keeps them in f32.  About one bf16 ulp.
+#  * gradients: against autograd through the plain version in f32 on the
+#    same values (bf16 inputs widened exactly).  The kernels also compute in
+#    f32 from the inputs (delta = dO.o reads the forward's f32 output), so
+#    in bf16 they differ from it by the rounding of their bf16 outputs
+#    (2^-9 relative) and summation order: 1e-2 relative is ~5 ulps.  The
+#    plain version run in bf16 rounds dP = dO.V^T and the PV operands
+#    itself and lands further from the f32 result; its error is printed
+#    beside the kernels' as the yardstick.
+#  * rows whose keys are all masked: every score carries the -10000 fill,
+#    whose f32 ulp (2^-10) quantises the scores differently in the kernels'
+#    base-2 domain and the plain natural one.
 ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
+GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-2)}
 MASKED_ROW_ATOL = 1e-2
+MASKED_ROW_GRAD_ATOL = 5e-2
 EMBED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 # f32 Predictor on the card (TF32 off) against the CPU plain run: 24 layers
 # of f32 in another summation order.
 F32_PRED_ATOL = 1e-4
+# f32 train steps, card against CPU: losses in relative terms; parameters
+# after an Adam step, whose update g / (|g| + 1e-6) turns the summation-order
+# noise of a gradient near 1e-6 into a visible share of lr: a tenth of one
+# step's lr (5e-4).
+F32_LOSS_RTOL = 1e-4
+F32_PARAM_ATOL = 5e-5
+# the first step's gradients, card against CPU, per leaf in the 2-norm:
+# |g_card - g_cpu| <= RTOL |g_cpu| + FLOOR |whole gradient|.  Summation-
+# order noise in f32 sits near 1e-6 relative; a leaf off by a constant
+# factor is off by |factor - 1| relative.  The floor covers leaves whose
+# gradient is zero in exact arithmetic and f32 noise on the card and the
+# CPU (the attention key biases: softmax ignores a shift shared by a row).
+F32_GRAD_RTOL = 1e-4
+F32_GRAD_FLOOR = 1e-6
+ATTN_DROPOUT = 0.1  # snapped to 26/256 on the kernel path
+KEEP_SHARE_SIGMAS = 4.0
 
-BATCH = 96          # bench.py's serving batch
+BATCH = 96          # bench.py's batch
 TEXT_LEN = 40       # MOSI max_seq_length
 N_SERVE = 5 * BATCH - 23  # five batches, the last one ragged
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 8
+HIDDEN, HEADS = 1024, 16
+
+# H100 SXM (NVIDIA's data sheet): HBM rate and dense bf16 / f32 peaks, for
+# each kernel's bound (the larger of bytes / rate and FLOPs / peak).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -67,6 +118,15 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    """(least time in ms, what bounds it) for moving ``nbytes`` through HBM
+    and doing ``flops`` at the card's peak for ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def check_close(name, got, ref, atol, rtol, mask=None) -> float:
@@ -86,8 +146,28 @@ def check_close(name, got, ref, atol, rtol, mask=None) -> float:
     return float(err.max())
 
 
+def attention_inputs(gen, b, s, dtype):
+    import torch
+
+    q, k, v = (torch.randn(b, s, HIDDEN, device="cuda", generator=gen)
+               .to(dtype) for _ in range(3))
+    lengths = torch.randint(1, s + 1, (b,), device="cuda", generator=gen)
+    lengths[0] = 0  # a fully masked row, as the Predictor's padding
+    mask = (torch.arange(s, device="cuda")[None] < lengths[:, None])
+    bias = (1.0 - mask.float()) * -10000.0
+    return q, k, v, bias, lengths > 0
+
+
+def sdpa_args(q, k, v, bias):
+    """[B, S, H] -> SDPA's [B, heads, S, d] views and an additive mask."""
+    b, s, _ = q.shape
+    split = lambda x: x.view(b, s, HEADS, -1).transpose(1, 2)  # noqa: E731
+    return split(q), split(k), split(v), bias[:, None, None, :].to(q.dtype)
+
+
 def phase_attention(gen):
     import torch
+    import torch.nn.functional as F
 
     from msa_tpu_torch.ops.short_attention import (
         short_attention, short_attention_plain)
@@ -95,58 +175,221 @@ def phase_attention(gen):
     cases = [("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN),
              ("s77", 16, 77), ("s130", 8, 130), ("s512", 4, 512),
              ("s768", 4, 768)]  # 512 < S < 1024: XLA's range in JAX
-    hidden, heads = 1024, 16
     worst, times = 0.0, {}
     for label, b, s in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
-            q, k, v = (torch.randn(b, s, hidden, device="cuda", generator=gen)
-                       .to(dtype) for _ in range(3))
-            lengths = torch.randint(1, s + 1, (b,), device="cuda",
-                                    generator=gen)
-            lengths[0] = 0  # a fully masked row, as the Predictor's padding
-            mask = (torch.arange(s, device="cuda")[None] < lengths[:, None])
-            bias = (1.0 - mask.float()) * -10000.0
-            out = short_attention(q, k, v, bias, heads)
-            ref = short_attention_plain(q, k, v, bias, heads)
+            q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+            out = short_attention(q, k, v, bias, HEADS)
+            ref = short_attention_plain(q, k, v, bias, HEADS)
             torch.cuda.synchronize()
             atol, rtol = ATTN_TOL[dname]
-            live = lengths > 0
             err = check_close(f"short_attention {label} {dname}", out, ref,
                               atol, rtol, mask=live)
             err_masked = check_close(
                 f"short_attention {label} {dname} masked row", out, ref,
                 MASKED_ROW_ATOL, 0.0, mask=~live)
             worst = max(worst, err)
-            ms = cuda_ms(lambda: short_attention(q, k, v, bias, heads))
-            plain_ms = cuda_ms(lambda: short_attention_plain(q, k, v, bias, heads))
-            times[(label, dname)] = (ms, plain_ms)
-            print(f"short_attention [{b},{s},{hidden}] {dname}: max_abs_err "
+            ms = cuda_ms(lambda: short_attention(q, k, v, bias, HEADS))
+            plain_ms = cuda_ms(lambda: short_attention_plain(q, k, v, bias, HEADS))
+            sq, sk, sv, sm = sdpa_args(q, k, v, bias)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=sm))
+            itemsize = q.element_size()
+            nbytes = 4 * b * s * HIDDEN * itemsize + b * s * 4
+            bound = bound_ms(nbytes, 4 * b * s * s * HIDDEN, dname)
+            times[(label, dname)] = (ms, plain_ms, lib_ms, bound)
+            print(f"short_attention [{b},{s},{HIDDEN}] {dname}: max_abs_err "
                   f"{err:.3e} (atol {atol}, rtol {rtol}), masked row "
                   f"{err_masked:.3e} (atol {MASKED_ROW_ATOL}); kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+                  f"ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
     return worst, times
+
+
+def phase_attention_backward(gen):
+    """The backward kernel pair against autograd through the plain version,
+    at rate 0 and with dropout (the plain version given the exported mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+    from msa_tpu_torch.ops.short_attention import (
+        _forward_kernel, dropout_keep_mask, short_attention,
+        short_attention_backward, short_attention_plain)
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    cases = [("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN),
+             ("s130", 8, 130), ("s512", 4, 512), ("s768", 4, 768)]
+    worst, times = 0.0, {}
+    for label, b, s in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            for rate in (0.0, rate_on):
+                q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+                dout = torch.randn(b, s, HIDDEN, device="cuda",
+                                   generator=gen).to(dtype)
+                seed = 1234 + s
+                keep = (dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                        if rate else None)
+                grads = []  # kernels, plain in f32, plain in the dtype
+                for run in ("kernel", "plain32", "plain"):
+                    qq, kk, vv = (x.detach().float().requires_grad_()
+                                  if run == "plain32" else
+                                  x.detach().requires_grad_() for x in (q, k, v))
+                    out = (short_attention(qq, kk, vv, bias, HEADS, rate, seed)
+                           if run == "kernel" else short_attention_plain(
+                               qq, kk, vv, bias, HEADS, rate, keep))
+                    grads.append(torch.autograd.grad(
+                        out, (qq, kk, vv), dout.to(out.dtype)))
+                torch.cuda.synchronize()
+                atol, rtol = GRAD_TOL[dname]
+                case_err = plain_err = 0.0
+                for name, got, ref, alt in zip(("dq", "dk", "dv"), *grads):
+                    tag = (f"short_attention_backward {label} {dname} rate "
+                           f"{rate:g} {name}")
+                    case_err = max(case_err, check_close(
+                        tag, got, ref, atol, rtol, mask=live))
+                    check_close(tag + " masked row", got, ref,
+                                MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
+                    plain_err = max(plain_err, float(
+                        (alt.float() - ref)[live].abs().max()))
+                worst = max(worst, case_err)
+
+                # times: the backward pair alone against the plain backward
+                # alone (autograd through the plain version, graph kept)
+                _, lse, ctx32 = _forward_kernel(q, k, v, bias, HEADS, seed,
+                                                byte_threshold(rate), train=True)
+                ms = cuda_ms(lambda: short_attention_backward(
+                    q, k, v, bias, ctx32, lse, dout, HEADS, seed, rate))
+                qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+                out = short_attention_plain(qq, kk, vv, bias, HEADS, rate, keep)
+                plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                    out, (qq, kk, vv), dout, retain_graph=True))
+                lib_ms = lib_txt = None
+                if rate == 0.0:
+                    # the library yardstick: SDPA's backward alone, and its
+                    # forward + backward, with the additive mask, dropout 0
+                    sq, sk, sv, sm = sdpa_args(qq, kk, vv, bias)
+                    lib_out = F.scaled_dot_product_attention(sq, sk, sv,
+                                                             attn_mask=sm)
+                    lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+                    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                        lib_out, (qq, kk, vv), lib_do, retain_graph=True))
+                    fb_ms = cuda_ms(lambda: torch.autograd.grad(
+                        F.scaled_dot_product_attention(sq, sk, sv,
+                                                       attn_mask=sm),
+                        (qq, kk, vv), lib_do))
+                    lib_txt = f"sdpa bwd {lib_ms:.4f} ms, fwd+bwd {fb_ms:.4f} ms"
+                # the function's bytes: reads q, k, v, dO and the [B, S] f32
+                # bias once, writes dq, dk, dv once.  The f32 o and the row
+                # lse that this design saves from the forward are its own
+                # choice, so they are printed apart, not counted.  The
+                # products: the scores (recomputed: P is not an input),
+                # dP = dO.V^T, dV = P^T.dO, dQ = dS.K, dK = dS^T.Q
+                nbytes = 7 * q.element_size() * b * s * HIDDEN + b * s * 4
+                extra = 4 * b * s * HIDDEN + b * HEADS * s * 4
+                bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
+                times[(label, dname, rate)] = (ms, plain_ms, lib_ms, bound)
+                print(f"short_attention_backward [{b},{s},{HIDDEN}] {dname} "
+                      f"rate {rate:g}: max_abs_err {case_err:.3e} (atol {atol},"
+                      f" rtol {rtol}; the plain version in {dname}: "
+                      f"{plain_err:.3e}); kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, {lib_txt or 'no sdpa (dropout)'}, "
+                      f"bound {bound[0]:.4f} ms ({bound[1]}; the design's "
+                      f"f32 o and lse reads add {extra / HBM_BYTES_PER_S * 1e3:.4f}"
+                      " ms)", flush=True)
+    return worst, times
+
+
+def phase_dropout(gen):
+    """The keep mask on the card: the export kernel against its plain
+    Philox, its keep share, the forward with dropout against the plain
+    version given the mask, and determinism in the seed."""
+    import math
+
+    import torch
+
+    from msa_tpu_torch.ops.dropout import (
+        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.short_attention import (
+        dropout_keep_mask, short_attention, short_attention_plain)
+
+    b, s = 2 * BATCH, 2 * TEXT_LEN  # the joint shape
+    rate = quantize_dropout_rate(ATTN_DROPOUT)
+    seed = 987654321987
+    keep = dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+    plain = keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
+    torch.cuda.synchronize()
+    mismatches = int((keep != plain).sum())
+    if mismatches:
+        raise AssertionError(f"dropout mask: {mismatches} decisions differ "
+                             "from the plain Philox")
+    want = 1.0 - byte_threshold(rate) / 256
+    share = float(keep.float().mean())
+    sigma = math.sqrt(want * (1 - want) / keep.numel())
+    if abs(share - want) > KEEP_SHARE_SIGMAS * sigma:
+        raise AssertionError(f"keep share {share:.6f}, want {want:.6f} "
+                             f"+- {KEEP_SHARE_SIGMAS} x {sigma:.2e}")
+    again = dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+    other = dropout_keep_mask(seed + 1, rate, b, HEADS, s, "cuda")
+    if not torch.equal(keep, again) or torch.equal(keep, other):
+        raise AssertionError("dropout mask: not a function of the seed")
+    mask_ms = cuda_ms(lambda: dropout_keep_mask(seed, rate, b, HEADS, s, "cuda"))
+    plain_ms = cuda_ms(lambda: keep_mask_plain(seed, rate, b, HEADS, s,
+                                               device="cuda"))
+    bound = bound_ms(keep.numel(), 0, "bfloat16")  # writes one byte each
+    print(f"dropout_keep_mask [{b},{HEADS},{s},{s}] rate {rate}: bit-equal to "
+          f"the plain Philox; keep share {share:.6f} (want {want:.6f} +- "
+          f"{KEEP_SHARE_SIGMAS:g} sigma = {KEEP_SHARE_SIGMAS * sigma:.2e}); "
+          f"seed-deterministic; kernel {mask_ms:.4f} ms, plain {plain_ms:.4f}"
+          f" ms, bound {bound[0]:.4f} ms", flush=True)
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+        out = short_attention(q, k, v, bias, HEADS, rate, seed)
+        ref = short_attention_plain(q, k, v, bias, HEADS, rate, keep)
+        same = short_attention(q, k, v, bias, HEADS, rate, seed)
+        diff = short_attention(q, k, v, bias, HEADS, rate, seed + 1)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[dname]
+        err = check_close(f"short_attention dropout {dname}", out, ref, atol,
+                          rtol, mask=live)
+        check_close(f"short_attention dropout {dname} masked row", out, ref,
+                    MASKED_ROW_ATOL, 0.0, mask=~live)
+        if not torch.equal(out, same) or torch.equal(out, diff):
+            raise AssertionError("attention dropout: not a function of the seed")
+        worst = max(worst, err)
+        print(f"short_attention [{b},{s},{HIDDEN}] {dname} rate {rate}: "
+              f"max_abs_err {err:.3e} against the plain version given the "
+              "exported mask; same seed bit-equal, next seed differs",
+              flush=True)
+    return {"mismatches": mismatches, "ms": mask_ms, "plain_ms": plain_ms,
+            "bound": bound, "err": worst}
 
 
 def phase_joint_embed(gen):
     import torch
+    import torch.nn.functional as F
 
     from msa_tpu_torch.ops.fused_joint_embed import (
         fused_joint_embed, fused_joint_embed_plain)
 
-    hidden, eps = 1024, 1e-12
+    eps = 1e-12
     worst, times = 0.0, {}
     # MOSI (47, 74) and UR-FUNNY (371) widths at Lp = L, and one Lp != L
     for d, lp in ((47, TEXT_LEN), (74, TEXT_LEN), (371, TEXT_LEN), (74, 56)):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
-            text = torch.randn(BATCH, TEXT_LEN, hidden, device="cuda",
+            text = torch.randn(BATCH, TEXT_LEN, HIDDEN, device="cuda",
                                generator=gen).to(dtype)
             feats = torch.randn(BATCH, lp, d, device="cuda",
                                 generator=gen).to(dtype)
             feats[1, 30:] = 0.0  # padded frames
-            w = torch.randn(d, hidden, device="cuda", generator=gen) * 0.05
-            b, scale, bias = (torch.randn(hidden, device="cuda", generator=gen)
+            w = torch.randn(d, HIDDEN, device="cuda", generator=gen) * 0.05
+            b, scale, bias = (torch.randn(HIDDEN, device="cuda", generator=gen)
                               * s + m for s, m in ((0.02, 0.0), (0.1, 1.0),
                                                    (0.1, 0.0)))
             args = (text, feats, w, b, scale, bias, eps)
@@ -157,14 +400,57 @@ def phase_joint_embed(gen):
             err = check_close(f"fused_joint_embed D={d} {dname}", out, ref,
                               atol, rtol)
             worst = max(worst, err)
+            # the autograd wrapper (kernel forward, plain recompute for the
+            # backward) against plain autograd, every input's gradient
+            leaves = [x.detach().requires_grad_() for x in args[:6]]
+            dout = torch.randn(out.shape, device="cuda", generator=gen).to(dtype)
+            got = torch.autograd.grad(fused_joint_embed(*leaves, eps), leaves,
+                                      dout)
+            want = torch.autograd.grad(fused_joint_embed_plain(*leaves, eps),
+                                       leaves, dout)
+            grad_err = max(check_close(
+                f"fused_joint_embed D={d} {dname} grad {name}", g, r, atol, rtol)
+                for name, g, r in zip(("text", "feats", "w", "b", "scale",
+                                       "bias"), got, want))
             ms = cuda_ms(lambda: fused_joint_embed(*args))
             plain_ms = cuda_ms(lambda: fused_joint_embed_plain(*args))
-            times[(d, lp, dname)] = (ms, plain_ms)
-            print(f"fused_joint_embed [{BATCH},{TEXT_LEN}+{lp},{hidden}] "
+            wt = w.t().contiguous().to(dtype)
+            lib_ms = cuda_ms(lambda: F.layer_norm(torch.cat(
+                [text, torch.relu(F.linear(feats, wt, b.to(dtype)))], 1),
+                (HIDDEN,), scale.to(dtype), bias.to(dtype), eps))
+            itemsize = text.element_size()
+            nbytes = ((text.numel() + feats.numel() + out.numel()) * itemsize
+                      + (w.numel() + 3 * HIDDEN) * 4)
+            bound = bound_ms(nbytes, 2 * BATCH * lp * d * HIDDEN, dname)
+            times[(d, lp, dname)] = (ms, plain_ms, lib_ms, bound)
+            print(f"fused_joint_embed [{BATCH},{TEXT_LEN}+{lp},{HIDDEN}] "
                   f"D={d} {dname}: max_abs_err {err:.3e} (atol {atol}, rtol "
-                  f"{rtol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-                  flush=True)
+                  f"{rtol}), autograd wrapper's gradients {grad_err:.3e}; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"linear+layer_norm {lib_ms:.4f} ms, bound {bound[0]:.4f} "
+                  f"ms ({bound[1]})", flush=True)
     return worst, times
+
+
+def kernel_counts():
+    from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
+    from msa_tpu_torch.ops.short_attention import (
+        dropout_keep_mask, short_attention, short_attention_backward)
+
+    return {"short_attention": short_attention.launches,
+            "short_attention_backward": short_attention_backward.launches,
+            "dropout_keep_mask": dropout_keep_mask.launches,
+            "fused_joint_embed": fused_joint_embed.launches}
+
+
+def reset_counts():
+    from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
+    from msa_tpu_torch.ops.short_attention import (
+        dropout_keep_mask, short_attention, short_attention_backward)
+
+    for fn in (short_attention, short_attention_backward, dropout_keep_mask,
+               fused_joint_embed):
+        fn.launches = 0
 
 
 def phase_serving(exp, params):
@@ -173,8 +459,7 @@ def phase_serving(exp, params):
 
     from msa_tpu_torch.data import synthetic_split
     from msa_tpu_torch.inference import Predictor
-    from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
-    from msa_tpu_torch.ops.short_attention import short_attention
+    from msa_tpu_torch.models.weights import to_device
 
     cfg = exp.model
     split = synthetic_split(N_SERVE, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
@@ -183,23 +468,22 @@ def phase_serving(exp, params):
     n_batches = -(-N_SERVE // BATCH)
 
     warm = pred.predict_split(split)  # first use: cuBLAS handles, kernels
-    short_attention.launches = 0
-    fused_joint_embed.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = pred.predict_split(split)  # ends in a device-to-host copy
     seconds = time.perf_counter() - t0
-    launches = {"short_attention": short_attention.launches,
-                "fused_joint_embed": fused_joint_embed.launches}
+    launches = kernel_counts()
     t1 = time.perf_counter()
     pred.predict_split(split)
     seconds_again = time.perf_counter() - t1
 
     layers = cfg.bert.num_hidden_layers
     want = {"short_attention": 2 * layers * n_batches,
+            "short_attention_backward": 0, "dropout_keep_mask": 0,
             "fused_joint_embed": 2 * n_batches}
     if launches != want:
-        raise AssertionError(f"kernel launches {launches}, want {want} "
-                             f"({n_batches} batches)")
+        raise AssertionError(f"serving kernel launches {launches}, want "
+                             f"{want} ({n_batches} batches)")
     if out.shape != (N_SERVE,) or not np.isfinite(out).all():
         raise AssertionError(f"predictions: shape {out.shape}, finite "
                              f"{bool(np.isfinite(out).all())}")
@@ -222,7 +506,6 @@ def phase_serving(exp, params):
     sub = [np.asarray(x)[rows] for x in (split.input_ids, split.attention_mask,
                                           split.visual, split.speech)]
     gpu32 = Predictor(exp32, params, len(rows), "cuda").predict_arrays(*sub)
-    from msa_tpu_torch.models.weights import to_device
     cpu32 = Predictor(exp32, to_device(params, "cpu"), len(rows),
                       "cpu").predict_arrays(*sub)
     err32 = float(np.abs(gpu32 - cpu32).max())
@@ -279,6 +562,203 @@ def phase_service(pred):
           "flush at EOF)", flush=True)
 
 
+def phase_training():
+    """bert-large bf16 train steps at bench.py's shape, with dropout."""
+    import torch
+
+    from msa_tpu_torch.configs import build_experiment
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.training.trainer import Trainer
+
+    # bench.py's training configuration: MOSI widths, B=96, L=40, bf16, the
+    # default dropouts (hidden 0.1, attention 0.1, joint 0.5), MLM on,
+    # bf16 Adam moments
+    exp = build_experiment("mosi", "bert-large-uncased", num_labels=1,
+                           train_batch_size=BATCH, compute_dtype="bfloat16",
+                           warmup_proportion=0.01, adam_mu_dtype="bfloat16",
+                           adam_nu_dtype="bfloat16", data_parallel=1)
+    cfg = exp.model
+    trainer = Trainer(exp, "cuda")
+    state = trainer.init_state(0, total_steps=10_000)
+    split = synthetic_split(4 * BATCH, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=0)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, BATCH, drop_last=True))
+    watch = {"bert/layers/0/q/weight": state.params["bert"]["layers"][0]["q"]["weight"],
+             "joint/Wv/kernel": state.params["joint"]["Wv"]["kernel"],
+             "fusion/classifier2/weight": state.params["fusion"]["classifier2"]["weight"]}
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    for i in range(TRAIN_WARMUP):
+        state, metrics = trainer.train_step(state, batches[i % len(batches)], 1)
+        float(metrics["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_metrics = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        state, metrics = trainer.train_step(state, batches[i % len(batches)], 1)
+        step_metrics.append(metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    layers = cfg.bert.num_hidden_layers
+    want = {"short_attention": 2 * layers * TRAIN_STEPS,
+            "short_attention_backward": 2 * 2 * layers * TRAIN_STEPS,
+            "dropout_keep_mask": 0, "fused_joint_embed": 2 * TRAIN_STEPS}
+    if trainer.remat or launches != want:
+        raise AssertionError(f"training: remat {trainer.remat}, launches "
+                             f"{launches}, want {want} ({TRAIN_STEPS} steps)")
+    host = [{k: float(v) for k, v in m.items()} for m in step_metrics]
+    if not all(all(map(lambda x: x == x and abs(x) < float("inf"), m.values()))
+               for m in host):
+        raise AssertionError(f"training: non-finite metrics {host}")
+    if any(m["mlm_overflow"] for m in host) or not all(m["mlm_loss"] > 0
+                                                       for m in host):
+        raise AssertionError(f"training: MLM loss or gather cap {host}")
+    moved = {k: float((watch[k].detach() - before[k]).abs().max())
+             for k in watch}
+    if not all(x > 0 for x in moved.values()):
+        raise AssertionError(f"training: parameters did not move {moved}")
+    # the deterministic eval step on the trained weights (a ragged batch)
+    batch = dict(batches[0], weight=batches[0]["weight"].copy())
+    batch["weight"][-7:] = 0.0
+    losses = trainer.eval_step(state.params, batch, 0)
+    preds = losses["predictions"].float()
+    if preds.shape != (BATCH, 1) or not torch.isfinite(preds).all() or \
+            not torch.isfinite(losses["loss"]) or float(losses["mlm_loss"]):
+        raise AssertionError(f"eval step: predictions {tuple(preds.shape)}, "
+                             f"loss {float(losses['loss'])}, mlm "
+                             f"{float(losses['mlm_loss'])}")
+    ms_step = seconds * 1e3 / TRAIN_STEPS
+    sps = BATCH * TRAIN_STEPS / seconds
+    per_step = {k: v // TRAIN_STEPS for k, v in launches.items()}
+    print(f"training bf16 bert-large B={BATCH} L={TEXT_LEN} (dropout "
+          f"{cfg.bert.hidden_dropout_prob}/{cfg.bert.attention_probs_dropout_prob}"
+          f"/{cfg.joint_dropout_prob}, MLM on, remat off: activations "
+          f"~{trainer.activation_bytes() / 1e9:.1f} GB estimated): "
+          f"{TRAIN_STEPS} steps after {TRAIN_WARMUP} warm-up, "
+          f"{ms_step:.2f} ms/step, {sps:.2f} samples/s, MFU "
+          f"{trainer.mfu(sps):.4f} (of 989 TFLOP/s bf16), peak memory "
+          f"{peak / 2**30:.2f} GiB; launches per step {per_step}; losses "
+          f"{[round(m['loss'], 4) for m in host]}; max |update| {moved}; "
+          f"eval step loss {float(losses['loss']):.4f}", flush=True)
+    return launches, {"ms_step": ms_step, "samples_per_s": sps,
+                      "mfu": trainer.mfu(sps), "peak_bytes": peak}
+
+
+def phase_f32_train():
+    """Two f32 train steps of a small model, card against CPU, same weights
+    and injected MLM masks, dropout 0, TF32 off."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.configs import (
+        BertConfig, DataConfig, ExperimentConfig, MMBertConfig, TrainConfig)
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.models.weights import init_params, named_leaves
+    from msa_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bert = BertConfig(hidden_size=256, num_hidden_layers=4,
+                      num_attention_heads=4, intermediate_size=1024,
+                      hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    exp = ExperimentConfig(
+        model_name="small",
+        model=MMBertConfig(bert=bert, joint_dropout_prob=0.0),
+        data=DataConfig(max_seq_length=TEXT_LEN),
+        train=TrainConfig(compute_dtype="float32", train_batch_size=8,
+                          data_parallel=1, warmup_proportion=0.0))
+    params = init_params(exp.model, torch.Generator().manual_seed(3))
+    split = synthetic_split(16, TEXT_LEN, exp.model.visual_dim,
+                            exp.model.speech_dim, seed=4)
+    batches = list(MultimodalDataset(split, seed=5).epoch_batches(0, 8))
+    rng = np.random.default_rng(6)
+    for batch in batches:
+        ids = batch["text_ids"]
+        special = np.isin(ids, (0, 100, 101, 102, 103))
+        masked = (rng.random((ids.shape[0], 3, ids.shape[1])) < 0.15) & \
+            ~special[:, None]
+        batch["mlm_masked"] = masked
+        batch["mlm_replaced"] = (rng.random(masked.shape) < 0.8) & masked
+    runs = {}
+    for device in ("cuda", "cpu"):
+        trainer = Trainer(exp, device)
+        state = trainer.init_state(0, total_steps=4, params=params)
+        # the first step's per-leaf gradients, as the optimizer receives them
+        first_grads = {}
+        update = trainer.tx.step
+
+        def step(p, grads, opt_state, update=update, first_grads=first_grads):
+            if not first_grads:
+                first_grads.update({k: g.detach().cpu().clone()
+                                    for k, g in grads.items()})
+            return update(p, grads, opt_state)
+
+        trainer.tx.step = step
+        losses = []
+        for batch in batches:
+            state, metrics = trainer.train_step(state, batch, 7)
+            losses.append(float(metrics["loss"]))
+        runs[device] = (losses, dict(named_leaves(state.params)), first_grads)
+    (gl, gp, gg), (cl, cp, cg) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    param_err = max(float((gp[k].detach().cpu() - cp[k].detach()).abs().max())
+                    for k in cp)
+    moved = max(float((cp[k].detach() - v).abs().max())
+                for k, v in named_leaves(params))
+    # per leaf in the 2-norm (F32_GRAD_*); leaves the loss does not reach
+    # (the NSP head) are zero on both sides
+    if set(gg) != set(cg):
+        raise AssertionError("f32 train: the two runs' gradient leaves differ")
+    total = float(torch.linalg.vector_norm(
+        torch.stack([g.norm() for g in cg.values()])))
+    floor = F32_GRAD_FLOOR * total
+    grad_ratio, worst_leaf, rel_err = 0.0, None, 0.0
+    for k in cg:
+        ref_norm = float(cg[k].norm())
+        diff = float((gg[k] - cg[k]).norm())
+        ratio = diff / (F32_GRAD_RTOL * ref_norm + floor)
+        if ratio >= grad_ratio:
+            grad_ratio, worst_leaf = ratio, k
+        if ref_norm > 1e3 * floor:  # leaves clear of the noise floor
+            rel_err = max(rel_err, diff / ref_norm)
+    zero = [k for k in cg if not float(cg[k].norm())]
+    if not (loss_err <= F32_LOSS_RTOL and param_err <= F32_PARAM_ATOL
+            and moved > 5 * F32_PARAM_ATOL and grad_ratio <= 1.0
+            and len(zero) < len(cg) // 2):
+        raise AssertionError(
+            f"f32 train card vs CPU: loss rel err {loss_err:.3e} (rtol "
+            f"{F32_LOSS_RTOL}), param err {param_err:.3e} (atol "
+            f"{F32_PARAM_ATOL}), params moved {moved:.3e}, first-step "
+            f"gradients: {worst_leaf} at {grad_ratio:.3e} of its tolerance "
+            f"(rtol {F32_GRAD_RTOL}, floor {floor:.3e}), zero-gradient "
+            f"leaves {zero}")
+    print(f"f32 train steps (4 layers, H=256) card vs CPU plain: losses "
+          f"{[round(x, 6) for x in gl]} vs {[round(x, 6) for x in cl]}, max "
+          f"rel err {loss_err:.3e} (rtol {F32_LOSS_RTOL}); first-step "
+          f"gradients of {len(cg)} leaves: worst relative 2-norm error "
+          f"{rel_err:.3e} over leaves above 1e3 x the floor, worst leaf "
+          f"{worst_leaf} at {grad_ratio:.3e} of its tolerance (rtol "
+          f"{F32_GRAD_RTOL}, floor {F32_GRAD_FLOOR} x |g| = {floor:.3e}); "
+          f"params max |diff| {param_err:.3e} (atol {F32_PARAM_ATOL}) after "
+          f"moving up to {moved:.3e}", flush=True)
+    return loss_err, param_err
+
+
+def kernel_entry(name, source, replaces, launches, err, timing, by_path):
+    ms, plain_ms, lib_ms, (bound, bound_by) = timing
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "launches_by_path": by_path}
+
+
 def main() -> int:
     import torch
 
@@ -297,33 +777,52 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    for name in _build.KERNELS:
-        lib = _build.build(name)
+    for lib in _build.build_all().values():
         print(f"built {os.path.relpath(lib)}", flush=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_err, attn_times = phase_attention(gen)
+    bwd_err, bwd_times = phase_attention_backward(gen)
+    drop = phase_dropout(gen)
     embed_err, embed_times = phase_joint_embed(gen)
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
-    pred, launches = phase_serving(exp, params)
+    pred, serve_launches = phase_serving(exp, params)
     phase_service(pred)
+    del pred, params
+    torch.cuda.empty_cache()
+    train_launches, _ = phase_training()
+    torch.cuda.empty_cache()
+    phase_f32_train()
 
+    def paths(name):
+        return {"serving": serve_launches[name], "training": train_launches[name]}
+
+    joint = ("joint", "bfloat16")
     kernels = [
-        {"name": "short_attention", "route": "cuda",
-         "source": "msa_tpu_torch/csrc/short_attention.cu",
-         "replaces": "msa_tpu/ops/short_attention.py:303",
-         "launches": launches["short_attention"], "max_abs_err": attn_err,
-         "ms": attn_times[("joint", "bfloat16")][0],
-         "plain_ms": attn_times[("joint", "bfloat16")][1]},
-        {"name": "fused_joint_embed", "route": "cuda",
-         "source": "msa_tpu_torch/csrc/fused_joint_embed.cu",
-         "replaces": "msa_tpu/ops/fused_joint_embed.py:24",
-         "launches": launches["fused_joint_embed"], "max_abs_err": embed_err,
-         "ms": embed_times[(47, TEXT_LEN, "bfloat16")][0],
-         "plain_ms": embed_times[(47, TEXT_LEN, "bfloat16")][1]},
+        kernel_entry("short_attention", "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:303",
+                     train_launches["short_attention"], attn_err,
+                     attn_times[joint], paths("short_attention")),
+        kernel_entry("short_attention_backward",
+                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:336",
+                     train_launches["short_attention_backward"], bwd_err,
+                     bwd_times[joint + (0.0,)],
+                     paths("short_attention_backward")),
+        kernel_entry("dropout_keep_mask", "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:97",
+                     train_launches["dropout_keep_mask"],
+                     float(drop["mismatches"]),
+                     (drop["ms"], drop["plain_ms"], None, drop["bound"]),
+                     paths("dropout_keep_mask")),
+        kernel_entry("fused_joint_embed", "msa_tpu_torch/csrc/fused_joint_embed.cu",
+                     "msa_tpu/ops/fused_joint_embed.py:24",
+                     train_launches["fused_joint_embed"], embed_err,
+                     embed_times[(47, TEXT_LEN, "bfloat16")],
+                     paths("fused_joint_embed")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -62,27 +62,47 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    lib = library_path(name)
-    if lib.exists():
-        return lib
+    return build_all([name])[name]
+
+
+def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
+    """Compile every library of ``names`` not built yet, one ``nvcc`` per
+    source, all started together; raises if any fails."""
+    libs = {name: library_path(name) for name in names}
+    todo = [name for name, lib in libs.items() if not lib.exists()]
+    if not todo:
+        return libs
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name, then rename: a concurrent build never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
+        for name in todo:
+            # Compile to a private name, then rename: a concurrent build
+            # never loads a half-written library.
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            jobs.append((name, tmp, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, tmp, cmd, proc in jobs:
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu (exit "
+                              f"{proc.returncode}):\n{' '.join(cmd)}\n{output}")
+            else:
+                os.replace(tmp, libs[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return libs
 
 
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

@@ -2,8 +2,9 @@
 
 Counterpart of the service loop of ``msa_tpu/cli/serve.py`` around the
 port's :class:`msa_tpu_torch.inference.Predictor`.  The request schema,
-featurisation and line reader are the JAX package's own host code,
-imported: one JSON object per line,
+featurisation (:func:`featurize_request`) and line reader
+(:func:`_iter_lines`) are the port's own copies of that module's host
+code: one JSON object per line,
 
     {"id": "any", "words": ["i", "love", "it"],
      "visual": [[...frame...], ...], "speech": [[...frame...], ...]}
@@ -20,12 +21,109 @@ The command-line entry (``--checkpoint``) waits for the checkpoint port.
 from __future__ import annotations
 
 import json
+import os
+import select
 import time
 from typing import Dict
 
 import numpy as np
 
-from msa_tpu.cli.serve import _DRAINED, _iter_lines, featurize_request
+from ..data.featurize import featurize
+
+
+def featurize_request(req, tokenizer, L, Lp, vdim, sdim):
+    """One request -> a one-row :class:`FeaturizedSplit`.
+
+    ``visual``/``speech`` are optional (zero-filled when absent).  With a
+    word-aligned model (``Lp`` None) each must have exactly one row per
+    word: the featurizer replicates rows per sub-token by word index, so
+    extra rows would silently misalign (fewer already raise).
+    """
+    words = [str(w) for w in req["words"]]
+    visual = np.asarray(req.get("visual", []), np.float32).reshape(-1, vdim) \
+        if req.get("visual") else np.zeros((len(words), vdim), np.float32)
+    speech = np.asarray(req.get("speech", []), np.float32).reshape(-1, sdim) \
+        if req.get("speech") else np.zeros((len(words), sdim), np.float32)
+    if Lp is None:
+        for name, arr in (("visual", visual), ("speech", speech)):
+            if len(arr) != len(words):
+                raise ValueError(
+                    f"word-aligned model: {name} must have one row per word "
+                    f"(got {len(arr)} rows for {len(words)} words); resample "
+                    f"frames to word level or serve a frame-level "
+                    f"(pair_seq_length) checkpoint")
+    sample = ((words, visual, speech), [np.array([0.0])], req.get("id"))
+    return featurize([sample], tokenizer, L, vdim, sdim, "mosi", "sentiment",
+                     1, pair_seq_length=Lp)
+
+
+# Sentinel yielded by _iter_lines when the input fd is drained right after
+# complete lines arrived: the caller may flush its partial batch at once
+# instead of waiting out the max_wait deadline (light-load latency).
+_DRAINED = object()
+
+
+def _iter_lines(fin, max_wait, timeout_fn=None, drain_flush=False):
+    """Yield decoded lines from ``fin``; yield ``None`` when the flush
+    timer fires (the caller's cue to flush a partial batch).
+
+    The select timeout comes from ``timeout_fn()`` each iteration (the
+    caller points it at the OLDEST pending request's deadline; a plain idle
+    timer would be reset by every arrival); ``max_wait`` alone is the
+    fallback when no timeout_fn is given.  ``drain_flush=True`` also yields
+    :data:`_DRAINED` whenever the fd has no more data ready right after
+    complete lines were consumed.  The server is synchronous (a flush
+    blocks the read loop), so no batch is in flight whenever the generator
+    runs.
+
+    Timed mode reads the raw fd via select + os.read so a complete line is
+    never stranded inside Python's buffered reader while select blocks on
+    the fd.  Seekable files (and max_wait=0) use plain iteration: they are
+    always ready, so the timer is meaningless there.
+    """
+    timed = max_wait and max_wait > 0
+    if timed:
+        try:
+            timed = not fin.seekable()
+        except (AttributeError, OSError, ValueError):
+            pass
+        try:
+            fd = fin.fileno()
+        except (AttributeError, OSError, ValueError):
+            timed = False
+    if not timed:
+        yield from fin
+        return
+    buf = b""
+    check_drain = False
+    while True:
+        if check_drain:
+            # zero-timeout probe right after lines were consumed; only a
+            # NEGATIVE probe yields (the next iteration always reaches the
+            # blocking select below, so this is no busy loop)
+            check_drain = False
+            ready, _, _ = select.select([fd], [], [], 0.0)
+            if not ready:
+                yield _DRAINED
+                continue
+        else:
+            wait = timeout_fn() if timeout_fn is not None else max_wait
+            ready, _, _ = select.select([fd], [], [], max(wait, 0.0))
+            if not ready:
+                yield None
+                continue
+        chunk = os.read(fd, 1 << 16)
+        if not chunk:
+            if buf:
+                yield buf.decode("utf-8", "replace")
+            return
+        buf += chunk
+        got_line = False
+        while b"\n" in buf:
+            line, buf = buf.split(b"\n", 1)
+            yield line.decode("utf-8", "replace")
+            got_line = True
+        check_drain = drain_flush and got_line
 
 
 def serve_stream(predictor, tokenizer, fin, fout, *, batch_size: int,

@@ -1,35 +1,57 @@
-// Whole-sequence attention forward for short sequences (S < 1024, head dim 64).
+// Whole-sequence attention for short sequences (S < 1024, head dim 64):
+// forward with in-kernel attention-probs dropout, the backward pair, and a
+// keep-mask export.
 //
-// Replaces the TPU kernel msa_tpu/ops/short_attention.py::_fwd_kernel_v2
-// (entry short_attention_v2), forward only and without dropout: q, k, v and
-// the output ctx are [B, S, H] in natural layout, heads are sliced inside
-// the kernel, key_bias is an additive [B, S] f32 mask, the softmax runs in
-// f32 (base-2 fold: scores carry scale*log2e, exp2 replaces exp).
+// Replaces the TPU kernels msa_tpu/ops/short_attention.py::_fwd_kernel_v2
+// and ::_bwd_kernel_v2 (entry short_attention_v2): q, k, v, the output ctx
+// and the gradients are [B, S, H] in natural layout, heads are sliced
+// inside the kernels, key_bias is an additive [B, S] f32 mask, the softmax
+// runs in f32 (base-2 fold: scores carry scale*log2e, exp2 replaces exp;
+// the backward formulas are unchanged in natural units, so dq and dk scale
+// by the natural 1/sqrt(d)).
 //
-// What bounds it on the H100: bytes.  At the serving shapes (S = 40 / 80,
-// d = 64) a (batch, head) pair does 4*S*S*d FLOPs on 4*S*d elements of
-// q/k/v/o, i.e. S FLOPs per element -- far below the ~295 FLOP/byte the
-// card needs before its tensor cores, rather than memory, are the limit.
-// The design therefore aims at reading every q/k/v byte once and writing
-// ctx once, and keeps the whole softmax on chip:
+// What bounds them on the H100: bytes.  At the flagship shapes (S = 40 /
+// 80, d = 64) a (batch, head) pair does 4*S*S*d forward FLOPs on 4*S*d
+// elements of q/k/v/o -- S FLOPs per element, far below the ~295 FLOP/byte
+// at which the tensor cores, rather than memory, would be the limit.  So
+// every kernel reads each q/k/v/dO byte once from device memory, keeps the
+// softmax on chip and stores nothing of size [S, S]:
 //
-//   * one CTA per (query tile, head, batch row); a query tile holds up to
-//     128 rows, so S <= 128 is one tile and K/V are read exactly once;
-//   * two threads per query row, each owning half of the 64 head dims in
-//     registers (q pre-scaled, plus the f32 output accumulator);
-//   * K and V of the head are staged in shared memory as f32, 64 keys per
-//     tile (32 KB), so S = 512 streams 8 tiles with an online softmax
-//     instead of needing 256 KB of f32 K/V at once;
-//   * scores are taken 16 keys at a time: one running-max update and one
-//     rescale of the accumulator per 16 keys;
-//   * the two threads of a row own interleaved 16-byte chunks, so their
-//     shared-memory reads fall in different banks and global loads/stores
-//     are 16-byte vectors.
+//   * forward: one CTA per (query tile, head, batch row); a query tile holds
+//     up to 128 rows, so S <= 128 is one tile and K/V are read once.  Two
+//     threads per query row, each owning half of the 64 head dims in
+//     registers.  K and V are staged in shared memory as f32, 64 keys per
+//     tile, under an online softmax that takes 16 keys per update.  For the
+//     backward (training) it also writes the row's log2-sum-exp (lse) and
+//     the output in f32.
+//   * backward, a pair of launches in the flash-attention-2 manner (no
+//     [S, S] tensor, any S):
+//       - dq: the forward's layout.  Each query row recomputes its scores,
+//         p = exp2(s - lse), dp = dO.v and ds = p * (dpm - delta) with
+//         delta = dO.o (equal to sum_j p_ij * dpm_ij, dropout included), and
+//         accumulates dq in registers.  o is the forward's f32 output: the
+//         bf16-stored one would put its rounding (2^-9 of |dO.o|) into every
+//         ds.  It writes delta for the second launch.
+//       - dk/dv: one CTA per (key tile, head, batch row), two threads per
+//         key row holding k, v and the dk/dv accumulators; query tiles of 64
+//         rows (q pre-scaled, dO, lse, delta) are staged in shared memory.
+//   * the dot products run on the CUDA cores in f32; the tensor cores
+//     (mma.sync / wgmma) are later work.
 //
-// The TPU kernel's block-diagonal lane packing (_block_diag_rows) answers
-// the TPU's 128-lane matrix unit and has no counterpart here.  The dot
-// products run on the CUDA cores in f32; moving them to the tensor cores
-// (mma.sync / wgmma) is later work.
+// Dropout.  The TPU kernels draw from the TPU's own PRNG, which cannot be
+// reproduced here.  The port defines the keep decision of element
+// (b, head, i, j) of the [B, heads, S, S] probabilities by its index and the
+// seed alone, with Philox4x32-10 (Salmon et al., SC'11; the generator
+// behind curand's Philox): key = the 64-bit seed, counter = (j / 16,
+// (b * heads + head) * S + i, 0, 0); the four 32-bit outputs give 16 bytes,
+// byte (j % 16) deciding key j: keep iff byte >= t, for the rate snapped to
+// t/256 (four decisions per 32-bit draw, as the TPU kernel takes them).
+// Kept probabilities are scaled by 256 / (256 - t).  So the forward, both
+// backward launches and the export entry compute the same mask whatever
+// their tiling; ops/dropout.py holds the same rule in plain PyTorch.
+//
+// The TPU kernels' block-diagonal lane packing (_block_diag_rows) answers
+// the TPU's 128-lane matrix unit and has no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,13 +61,60 @@
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kKeyTile = 64;    // keys staged in shared memory per tile
+constexpr int kKeyTile = 64;    // forward / dq: keys staged per tile
+constexpr int kQueryTile = 64;  // dk/dv: queries staged per tile
 constexpr int kKeyChunk = 16;   // keys scored per online-softmax update
-constexpr int kMaxRows = 128;   // query rows per CTA
+constexpr int kMaxRows = 128;   // query (or key) rows per CTA
 constexpr int kMaxThreads = 2 * kMaxRows;
+constexpr int kGroup = 16;      // keys decided by one Philox draw
 constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kKeyTile % kKeyChunk == 0, "chunks must tile the key tile");
+static_assert(kKeyChunk == kGroup, "one Philox draw per key chunk");
+
+struct Dropout {
+  uint32_t key0, key1;  // the seed
+  int threshold;        // t: keep iff byte >= t; 0 = no dropout
+  float scale;          // 256 / (256 - t)
+};
+
+// Philox4x32-10: 10 rounds, the key bumped between rounds.
+__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
+                                               uint32_t k0, uint32_t k1) {
+  uint32_t c2 = 0u, c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t lo0 = 0xD2511F53u * c0;
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// Keep bits of the 16 keys [16 * group, 16 * group + 16) of probability row
+// `row` ((b * heads + head) * S + i): bit jj set iff key 16*group + jj is kept.
+__device__ __forceinline__ uint32_t keep_bits16(const Dropout& d, uint32_t group,
+                                                uint32_t row) {
+  const uint4 w = philox4x32_10(group, row, d.key0, d.key1);
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  const uint32_t t = (uint32_t)d.threshold;
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int jj = 0; jj < kGroup; ++jj) {
+    const uint32_t byte = (words[jj >> 2] >> (8 * (jj & 3))) & 0xFFu;
+    bits |= (byte >= t ? 1u : 0u) << jj;
+  }
+  return bits;
+}
 
 // 16-byte vector loads/stores between global memory (storage type) and f32.
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -76,18 +145,160 @@ __device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
   *reinterpret_cast<uint4*>(dst) = x;
 }
 
+// Per-thread layout shared by every kernel: the two threads of a row own
+// interleaved 16-byte chunks (chunk u of a thread is the head row's chunk
+// 2*u + half), so their shared-memory reads fall in different banks and
+// global accesses are 16-byte vectors.
 template <typename T>
+struct Layout {
+  static constexpr int kVec = 16 / sizeof(T);      // elements per 16 bytes
+  static constexpr int kChunks = kHeadDim / kVec;  // chunks per head row
+  static constexpr int kOwn = kChunks / 2;         // chunks per thread
+  static constexpr int kPart = kHeadDim / 2;       // head dims per thread
+};
+
+// Load this thread's half of a head row (zeros when !active), times `mult`.
+template <typename T>
+__device__ __forceinline__ void load_half(const T* row_ptr, int half, bool active,
+                                          float mult, float* dst) {
+  using L = Layout<T>;
+#pragma unroll
+  for (int u = 0; u < L::kOwn; ++u) {
+    float tmp[L::kVec];
+    if (active) {
+      load16(row_ptr + (2 * u + half) * L::kVec, tmp);
+    } else {
+#pragma unroll
+      for (int e = 0; e < L::kVec; ++e) tmp[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < L::kVec; ++e) dst[u * L::kVec + e] = tmp[e] * mult;
+  }
+}
+
+// The same halves of an f32 row (the dims this thread owns under T's layout).
+template <typename T>
+__device__ __forceinline__ void load_half_f32(const float* row_ptr, int half,
+                                              bool active, float* dst) {
+  using L = Layout<T>;
+#pragma unroll
+  for (int u = 0; u < L::kOwn; ++u) {
+#pragma unroll
+    for (int e = 0; e < L::kVec; e += 4) {
+      if (active) {
+        load16(row_ptr + (2 * u + half) * L::kVec + e, &dst[u * L::kVec + e]);
+      } else {
+        dst[u * L::kVec + e] = dst[u * L::kVec + e + 1] = 0.f;
+        dst[u * L::kVec + e + 2] = dst[u * L::kVec + e + 3] = 0.f;
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_half_f32(float* row_ptr, int half,
+                                               const float* src, float mult) {
+  using L = Layout<T>;
+#pragma unroll
+  for (int u = 0; u < L::kOwn; ++u) {
+#pragma unroll
+    for (int e = 0; e < L::kVec; e += 4) {
+      const float* x = &src[u * L::kVec + e];
+      const float y[4] = {x[0] * mult, x[1] * mult, x[2] * mult, x[3] * mult};
+      store16(row_ptr + (2 * u + half) * L::kVec + e, y);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_half(T* row_ptr, int half, const float* src,
+                                           float mult) {
+  using L = Layout<T>;
+#pragma unroll
+  for (int u = 0; u < L::kOwn; ++u) {
+    float tmp[L::kVec];
+#pragma unroll
+    for (int e = 0; e < L::kVec; ++e) tmp[e] = src[u * L::kVec + e] * mult;
+    store16(row_ptr + (2 * u + half) * L::kVec, tmp);
+  }
+}
+
+// Half-row dot product against a shared-memory f32 row (the two halves are
+// joined by the caller with one shuffle).
+template <typename T>
+__device__ __forceinline__ float dot_half(const float* mine, const float* srow,
+                                          int half) {
+  using L = Layout<T>;
+  float part = 0.f;
+#pragma unroll
+  for (int u = 0; u < L::kOwn; ++u) {
+#pragma unroll
+    for (int e = 0; e < L::kVec; e += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(srow + (2 * u + half) * L::kVec + e);
+      const float* m = &mine[u * L::kVec + e];
+      part = fmaf(m[0], x.x, part);
+      part = fmaf(m[1], x.y, part);
+      part = fmaf(m[2], x.z, part);
+      part = fmaf(m[3], x.w, part);
+    }
+  }
+  return part;
+}
+
+// acc += w * srow (this thread's half).
+template <typename T>
+__device__ __forceinline__ void axpy_half(float* acc, float w, const float* srow,
+                                          int half) {
+  using L = Layout<T>;
+#pragma unroll
+  for (int u = 0; u < L::kOwn; ++u) {
+#pragma unroll
+    for (int e = 0; e < L::kVec; e += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(srow + (2 * u + half) * L::kVec + e);
+      float* a = &acc[u * L::kVec + e];
+      a[0] = fmaf(w, x.x, a[0]);
+      a[1] = fmaf(w, x.y, a[1]);
+      a[2] = fmaf(w, x.z, a[2]);
+      a[3] = fmaf(w, x.w, a[3]);
+    }
+  }
+}
+
+// Stage rows [r0, r0 + n) of one head of x and of y ([B, S, H], storage
+// type) into shared memory as f32 [n, 64]; x times `x_mult` when kScaleX.
+// Both loads of an iteration are issued together, so two are in flight.
+template <typename T, bool kScaleX = false>
+__device__ __forceinline__ void stage_pair(const T* x, const T* y, size_t head_base,
+                                           int hidden, int r0, int n, float x_mult,
+                                           float* x_s, float* y_s) {
+  using L = Layout<T>;
+  for (int idx = threadIdx.x; idx < n * L::kChunks; idx += blockDim.x) {
+    const int j = idx / L::kChunks;
+    const int c = idx - j * L::kChunks;
+    const size_t off = head_base + (size_t)(r0 + j) * hidden + c * L::kVec;
+    float* xd = &x_s[j * kHeadDim + c * L::kVec];
+    load16(x + off, xd);
+    load16(y + off, &y_s[j * kHeadDim + c * L::kVec]);
+    if constexpr (kScaleX) {
+#pragma unroll
+      for (int e = 0; e < L::kVec; ++e) xd[e] *= x_mult;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+template <typename T, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const float* __restrict__ key_bias,
-                           T* __restrict__ out, int seq, int hidden,
-                           int rows_per_cta, float score_mult) {
-  constexpr int kVec = 16 / sizeof(T);         // elements per 16-byte access
-  constexpr int kChunks = kHeadDim / kVec;     // 16-byte chunks per head row
-  constexpr int kOwn = kChunks / 2;            // chunks owned by each thread
-  constexpr int kPart = kHeadDim / 2;          // head dims owned by each thread
-
+                           T* __restrict__ out, float* __restrict__ lse,
+                           float* __restrict__ out32, int seq, int hidden,
+                           int rows_per_cta, float score_mult, Dropout drop) {
+  using L = Layout<T>;
   __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
   __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
   __shared__ float bias_s[kKeyTile];
@@ -98,26 +309,15 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
   const bool active = row < seq;
   const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
   // This thread's half of the query row, pre-scaled into the log2 domain.
-  // Chunk u of the thread is the head row's chunk 2*u + half.
-  float qr[kPart];
-#pragma unroll
-  for (int u = 0; u < kOwn; ++u) {
-    float tmp[kVec];
-    if (active) {
-      load16(q + head_base + (size_t)row * hidden + (2 * u + half) * kVec, tmp);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) tmp[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) qr[u * kVec + e] = tmp[e] * score_mult;
-  }
+  float qr[L::kPart];
+  load_half(q + head_base + (size_t)row * hidden, half, active, score_mult, qr);
 
-  float acc[kPart];
+  float acc[L::kPart];
 #pragma unroll
-  for (int i = 0; i < kPart; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
   float run_max = -INFINITY;
   float run_sum = 0.f;
   const float* bias_row = key_bias + (size_t)b * seq;
@@ -125,13 +325,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
     __syncthreads();  // every thread is done with the previous tile
-    for (int idx = threadIdx.x; idx < kn * kChunks; idx += blockDim.x) {
-      const int j = idx / kChunks;
-      const int c = idx - j * kChunks;
-      const size_t off = head_base + (size_t)(k0 + j) * hidden + c * kVec;
-      load16(k + off, &k_s[j * kHeadDim + c * kVec]);
-      load16(v + off, &v_s[j * kHeadDim + c * kVec]);
-    }
+    stage_pair(k, v, head_base, hidden, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
       bias_s[j] = bias_row[k0 + j] * kLog2e;
     }
@@ -144,54 +338,32 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < kKeyChunk; ++jj) {
         const int j = j0 + jj;  // < kKeyTile: j0 <= kKeyTile - kKeyChunk
         float part = 0.f;
-        if (j < kn) {  // uniform across the CTA
-          const float* krow = &k_s[j * kHeadDim];
-#pragma unroll
-          for (int u = 0; u < kOwn; ++u) {
-#pragma unroll
-            for (int e = 0; e < kVec; e += 4) {
-              const float4 kk =
-                  *reinterpret_cast<const float4*>(krow + (2 * u + half) * kVec + e);
-              const float* qq = &qr[u * kVec + e];
-              part = fmaf(qq[0], kk.x, part);
-              part = fmaf(qq[1], kk.y, part);
-              part = fmaf(qq[2], kk.z, part);
-              part = fmaf(qq[3], kk.w, part);
-            }
-          }
-        }
+        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);  // uniform
         part += __shfl_xor_sync(0xffffffffu, part, 1);  // join the two halves
         s[jj] = (j < kn) ? part + bias_s[j] : -INFINITY;
         chunk_max = fmaxf(chunk_max, s[jj]);
       }
+      uint32_t keep = 0xFFFFu;
+      if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
 
       // Online softmax: chunk_max is finite (the chunk holds >= 1 key), so
       // new_max is too and exp2f(-inf - new_max) = 0 on the first chunk.
+      // The normaliser sums every probability; dropout only zeroes (and
+      // rescales) what reaches the PV product.
       const float new_max = fmaxf(run_max, chunk_max);
       const float corr = exp2f(run_max - new_max);
       run_sum *= corr;
 #pragma unroll
-      for (int i = 0; i < kPart; ++i) acc[i] *= corr;
+      for (int i = 0; i < L::kPart; ++i) acc[i] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kKeyChunk; ++jj) {
         const int j = j0 + jj;
         if (j < kn) {
           const float p = exp2f(s[jj] - new_max);
           run_sum += p;
-          const float* vrow = &v_s[j * kHeadDim];
-#pragma unroll
-          for (int u = 0; u < kOwn; ++u) {
-#pragma unroll
-            for (int e = 0; e < kVec; e += 4) {
-              const float4 vv =
-                  *reinterpret_cast<const float4*>(vrow + (2 * u + half) * kVec + e);
-              float* aa = &acc[u * kVec + e];
-              aa[0] = fmaf(p, vv.x, aa[0]);
-              aa[1] = fmaf(p, vv.y, aa[1]);
-              aa[2] = fmaf(p, vv.z, aa[2]);
-              aa[3] = fmaf(p, vv.w, aa[3]);
-            }
-          }
+          float pv = p;
+          if constexpr (kDropout) pv = ((keep >> jj) & 1u) ? p * drop.scale : 0.f;
+          axpy_half<T>(acc, pv, &v_s[j * kHeadDim], half);
         }
       }
       run_max = new_max;
@@ -199,51 +371,339 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (active) {
-    const float inv = 1.f / run_sum;
-#pragma unroll
-    for (int u = 0; u < kOwn; ++u) {
-      float tmp[kVec];
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) tmp[e] = acc[u * kVec + e] * inv;
-      store16(out + head_base + (size_t)row * hidden + (2 * u + half) * kVec, tmp);
+    store_half(out + head_base + (size_t)row * hidden, half, acc, 1.f / run_sum);
+    if constexpr (kTrain) {
+      if (half == 0) lse[prob_row] = run_max + log2f(run_sum);
+      if (out32 != nullptr) {
+        store_half_f32<T>(out32 + head_base + (size_t)row * hidden, half, acc,
+                          1.f / run_sum);
+      }
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward 1/2: dq (and delta = dO . o for the dk/dv launch)
+// ---------------------------------------------------------------------------
+
+template <typename T, bool kDropout>
+__global__ void __launch_bounds__(kMaxThreads)
+short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const float* __restrict__ key_bias,
+                              const float* __restrict__ o32,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              float* __restrict__ delta_out, T* __restrict__ dq,
+                              int seq, int hidden, int rows_per_cta,
+                              float score_mult, float scale, Dropout drop) {
+  using L = Layout<T>;
+  __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
+  __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
+  __shared__ float bias_s[kKeyTile];
+
+  const int b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int half = threadIdx.x & 1;
+  const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
+  const bool active = row < seq;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t row_off = head_base + (size_t)row * hidden;
+  const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
+
+  float qr[L::kPart], dor[L::kPart], acc[L::kPart];
+  load_half(q + row_off, half, active, score_mult, qr);
+  load_half(dout + row_off, half, active, 1.f, dor);
+  // delta = dO . o over the full head row; acc holds o for a moment.
+  load_half_f32<T>(o32 + row_off, half, active, acc);
+  float delta = 0.f;
+#pragma unroll
+  for (int i = 0; i < L::kPart; ++i) delta = fmaf(dor[i], acc[i], delta);
+  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
+#pragma unroll
+  for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
+  const float row_lse = active ? lse[prob_row] : 0.f;
+  if (active && half == 0) delta_out[prob_row] = delta;
+  const float* bias_row = key_bias + (size_t)b * seq;
+
+  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+    const int kn = min(kKeyTile, seq - k0);
+    __syncthreads();
+    stage_pair(k, v, head_base, hidden, k0, kn, 1.f, k_s, v_s);
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+      bias_s[j] = bias_row[k0 + j] * kLog2e;
+    }
+    __syncthreads();
+
+    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+      uint32_t keep = 0xFFFFu;
+      if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
+#pragma unroll 4
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        const int j = j0 + jj;
+        if (j >= kn) break;  // uniform across the CTA
+        float s = dot_half<T>(qr, &k_s[j * kHeadDim], half);
+        float dp = dot_half<T>(dor, &v_s[j * kHeadDim], half);
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+        const float p = exp2f(s + bias_s[j] - row_lse);
+        float dpm = dp;
+        if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
+        axpy_half<T>(acc, p * (dpm - delta), &k_s[j * kHeadDim], half);
+      }
+    }
+  }
+
+  if (active) store_half(dq + row_off, half, acc, scale);
+}
+
+// ---------------------------------------------------------------------------
+// Backward 2/2: dk and dv
+// ---------------------------------------------------------------------------
+
+template <typename T, bool kDropout>
+__global__ void __launch_bounds__(kMaxThreads)
+short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const float* __restrict__ key_bias,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv,
+                               int seq, int hidden, int rows_per_cta,
+                               float score_mult, float dk_mult, Dropout drop) {
+  using L = Layout<T>;
+  __shared__ __align__(16) float q_s[kQueryTile * kHeadDim];   // q * score_mult
+  __shared__ __align__(16) float do_s[kQueryTile * kHeadDim];
+  __shared__ float lse_s[kQueryTile];
+  __shared__ float delta_s[kQueryTile];
+  __shared__ uint32_t keep_s[kMaxRows / kGroup][kQueryTile];
+
+  const int b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int half = threadIdx.x & 1;
+  const int key0 = blockIdx.x * rows_per_cta;  // a multiple of 16
+  const int local = threadIdx.x >> 1;
+  const int key = key0 + local;
+  const bool active = key < seq;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t key_off = head_base + (size_t)key * hidden;
+  const uint32_t head_rows = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int groups = rows_per_cta / kGroup;
+
+  float kr[L::kPart], vr[L::kPart], dk_acc[L::kPart], dv_acc[L::kPart];
+  load_half(k + key_off, half, active, 1.f, kr);
+  load_half(v + key_off, half, active, 1.f, vr);
+#pragma unroll
+  for (int i = 0; i < L::kPart; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const float bias2 = active ? key_bias[(size_t)b * seq + key] * kLog2e : 0.f;
+
+  for (int i0 = 0; i0 < seq; i0 += kQueryTile) {
+    const int qn = min(kQueryTile, seq - i0);
+    __syncthreads();  // every thread is done with the previous tile
+    stage_pair<T, true>(q, dout, head_base, hidden, i0, qn, score_mult, q_s, do_s);
+    for (int i = threadIdx.x; i < qn; i += blockDim.x) {
+      lse_s[i] = lse[head_rows + i0 + i];
+      delta_s[i] = delta[head_rows + i0 + i];
+    }
+    if constexpr (kDropout) {
+      for (int idx = threadIdx.x; idx < groups * qn; idx += blockDim.x) {
+        const int g = idx / qn;
+        const int i = idx - g * qn;
+        keep_s[g][i] = keep_bits16(drop, (uint32_t)(key0 / kGroup + g),
+                                   head_rows + i0 + i);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int i = 0; i < qn; ++i) {
+      // the same products in the same order as the forward's score, so s is
+      // bit-identical to it (fmaf(q, k) == fmaf(k, q))
+      float s = dot_half<T>(kr, &q_s[i * kHeadDim], half);
+      float dp = dot_half<T>(vr, &do_s[i * kHeadDim], half);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      const float p = exp2f(s + bias2 - lse_s[i]);
+      float pd = p, dpm = dp;
+      if constexpr (kDropout) {
+        const bool kept = (keep_s[local / kGroup][i] >> (local % kGroup)) & 1u;
+        pd = kept ? p * drop.scale : 0.f;
+        dpm = kept ? dp * drop.scale : 0.f;
+      }
+      axpy_half<T>(dv_acc, pd, &do_s[i * kHeadDim], half);
+      axpy_half<T>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kHeadDim], half);
+    }
+  }
+
+  if (active) {
+    store_half(dk + key_off, half, dk_acc, dk_mult);
+    store_half(dv + key_off, half, dv_acc, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Keep-mask export
+// ---------------------------------------------------------------------------
+
+// One thread per (probability row, 16-key group): out[row * S + j] = keep.
+__global__ void dropout_keep_mask_kernel(uint8_t* __restrict__ out, int rows,
+                                         int seq, Dropout drop) {
+  const int groups = (seq + kGroup - 1) / kGroup;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)rows * groups) return;
+  const uint32_t row = (uint32_t)(idx / groups);
+  const uint32_t g = (uint32_t)(idx - (long long)row * groups);
+  const uint32_t bits = keep_bits16(drop, g, row);
+  uint8_t* dst = out + (size_t)row * seq + g * kGroup;
+  const int n = min(kGroup, seq - (int)g * kGroup);
+  for (int jj = 0; jj < n; ++jj) dst[jj] = (bits >> jj) & 1u;
+}
+
+// Balanced tiles of at most kMaxRows rows, rounded to 16 rows (one warp).
+void tiles(int seq, int* n_tiles, int* rows) {
+  *n_tiles = (seq + kMaxRows - 1) / kMaxRows;
+  *rows = ((seq + *n_tiles - 1) / *n_tiles + 15) / 16 * 16;
+}
+
+Dropout make_dropout(unsigned seed_lo, unsigned seed_hi, int threshold) {
+  Dropout d;
+  d.key0 = seed_lo;
+  d.key1 = seed_hi;
+  d.threshold = threshold;
+  d.scale = threshold > 0 ? 256.f / (float)(256 - threshold) : 1.f;
+  return d;
+}
+
+template <typename T, bool kDropout, bool kTrain>
+void launch_fwd(const void* q, const void* k, const void* v, const float* bias,
+                void* out, float* lse, float* out32, int batch, int seq, int hidden,
+                int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+  int n_tiles, rows;
+  tiles(seq, &n_tiles, &rows);
+  short_attention_fwd_kernel<T, kDropout, kTrain>
+      <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), bias, static_cast<T*>(out), lse, out32, seq,
+          hidden, rows, score_mult, drop);
+}
+
+template <typename T, bool kDropout>
+int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
+               const float* o32, const void* dout, const float* lse, float* delta,
+               void* dq, void* dk, void* dv, int batch, int seq, int hidden,
+               int num_heads, float scale, Dropout drop, cudaStream_t s) {
+  int n_tiles, rows;
+  tiles(seq, &n_tiles, &rows);
+  const dim3 grid(n_tiles, num_heads, batch);
+  const float score_mult = scale * kLog2e;
+  short_attention_bwd_dq_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      bias, o32, static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), seq, hidden, rows, score_mult, scale, drop);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // q is staged as q * score_mult, so dk = sum(ds * q_staged) / log2e
+  // (scale * score_mult / score_mult = scale in natural units).
+  short_attention_bwd_dkv_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      bias, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), seq, hidden, rows, score_mult, 1.f / kLog2e, drop);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).  The caller has checked shapes,
-// contiguity, 16-byte alignment, head_dim == 64 and seq < 1024 (the
-// kernel itself takes any seq: keys and queries are both tiled).
+// dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
+// dropout, else keep iff the element's Philox byte >= t (rate t/256).  The
+// training forward passes lse ([B, heads, S] f32, the log2-sum-exp of each
+// score row) and, for bf16, out32 ([B, S, H] f32, the output before its
+// rounding; null for f32, whose out is that already); the serving forward
+// passes both null and t = 0, which runs exactly the no-dropout, no-lse
+// kernel.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).  The caller has checked shapes, contiguity, 16-byte alignment,
+// head_dim == 64 and seq < 1024.
 extern "C" int msa_short_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* key_bias,
-                                       void* out, int batch, int seq,
+                                       void* out, void* lse, void* out32,
+                                       int batch, int seq,
                                        int hidden, int num_heads, int dtype,
-                                       float scale, void* stream) {
-  if (seq <= 0 || batch <= 0 || hidden != num_heads * kHeadDim) {
+                                       float scale, unsigned seed_lo,
+                                       unsigned seed_hi, int drop_threshold,
+                                       void* stream) {
+  if (seq <= 0 || batch <= 0 || hidden != num_heads * kHeadDim ||
+      drop_threshold < 0 || drop_threshold > 255 || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  // Balanced query tiles of at most kMaxRows rows, rounded to 16 rows
-  // (8 warps at most; 16 rows = one warp).
-  const int n_tiles = (seq + kMaxRows - 1) / kMaxRows;
-  const int rows = ((seq + n_tiles - 1) / n_tiles + 15) / 16 * 16;
-  const dim3 grid(n_tiles, num_heads, batch);
-  const dim3 block(2 * rows);
-  const float score_mult = scale * kLog2e;
+  const float* bias = static_cast<const float*>(key_bias);
+  float* l = static_cast<float*>(lse);
+  float* o32 = static_cast<float*>(out32);
+  const float sm = scale * kLog2e;
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bool drop = drop_threshold > 0;
+#define MSA_FWD(T, D, W) launch_fwd<T, D, W>(q, k, v, bias, out, l, o32, batch, \
+                                             seq, hidden, num_heads, sm, d, s)
   if (dtype == 0) {
-    short_attention_fwd_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(key_bias),
-        static_cast<float*>(out), seq, hidden, rows, score_mult);
-  } else if (dtype == 1) {
-    short_attention_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(key_bias),
-        static_cast<__nv_bfloat16*>(out), seq, hidden, rows, score_mult);
+    if (drop) { if (l) MSA_FWD(float, true, true); else MSA_FWD(float, true, false); }
+    else { if (l) MSA_FWD(float, false, true); else MSA_FWD(float, false, false); }
   } else {
+    if (drop) {
+      if (l) MSA_FWD(__nv_bfloat16, true, true); else MSA_FWD(__nv_bfloat16, true, false);
+    } else {
+      if (l) MSA_FWD(__nv_bfloat16, false, true); else MSA_FWD(__nv_bfloat16, false, false);
+    }
+  }
+#undef MSA_FWD
+  return (int)cudaGetLastError();
+}
+
+// The backward pair: dq (writing delta [B, heads, S] f32 scratch), then
+// dk/dv, both on `stream`.  o32 (the output in f32) and lse are the training
+// forward's outputs for the same q, k, v, key_bias, seed and threshold.
+extern "C" int msa_short_attention_bwd(const void* q, const void* k,
+                                       const void* v, const void* key_bias,
+                                       const void* o32, const void* dout,
+                                       const void* lse, void* delta, void* dq,
+                                       void* dk, void* dv, int batch, int seq,
+                                       int hidden, int num_heads, int dtype,
+                                       float scale, unsigned seed_lo,
+                                       unsigned seed_hi, int drop_threshold,
+                                       void* stream) {
+  if (seq <= 0 || batch <= 0 || hidden != num_heads * kHeadDim ||
+      drop_threshold < 0 || drop_threshold > 255 || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  const float* bias = static_cast<const float*>(key_bias);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bool drop = drop_threshold > 0;
+#define MSA_BWD(T, D) launch_bwd<T, D>(q, k, v, bias, static_cast<const float*>(o32), \
+                                       dout, l, dl, dq, dk, dv,                      \
+                                       batch, seq, hidden, num_heads, scale, d, s)
+  if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
+  return drop ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
+#undef MSA_BWD
+}
+
+// The keep mask the kernels above use, as a [B, heads, S, S] uint8 (0/1)
+// tensor for the given seed and threshold (1 <= t <= 255).
+extern "C" int msa_dropout_keep_mask(void* out, int batch, int num_heads,
+                                     int seq, unsigned seed_lo,
+                                     unsigned seed_hi, int drop_threshold,
+                                     void* stream) {
+  if (seq <= 0 || batch <= 0 || num_heads <= 0 || drop_threshold < 1 ||
+      drop_threshold > 255) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rows = batch * num_heads * seq;
+  const long long work = (long long)rows * ((seq + kGroup - 1) / kGroup);
+  const int threads = 256;
+  const int blocks = (int)((work + threads - 1) / threads);
+  dropout_keep_mask_kernel<<<blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(out), rows, seq,
+      make_dropout(seed_lo, seed_hi, drop_threshold));
   return (int)cudaGetLastError();
 }

@@ -1,24 +1,32 @@
 """BERT encoder core as plain functions over a parameter tree of tensors.
 
-Counterpart of ``msa_tpu/models/bert.py`` for the deterministic forward
-(serving): no dropout, no remat, no int8.  LayerNorm and softmax run in
-f32, matmuls in the compute dtype.  Layers are a list of per-layer dicts
-(the JAX tree stacks them on a leading axis and scans; PyTorch runs a
-loop).  Dense layers hold ``weight`` [out, in] and ``bias`` [out], as
-``torch.nn.functional.linear`` takes them (``models/weights.py`` transposes
-the JAX [in, out] kernels).
+Counterpart of ``msa_tpu/models/bert.py``: post-LN layers with LayerNorm
+and softmax in f32 and matmuls in the compute dtype, dropout at the
+embedding, attention-output and FFN-output sites (``ops/dropout.py``) and
+inside the attention kernels, and optional per-layer rematerialisation.
+Layers are a list of per-layer dicts (the JAX tree stacks them on a
+leading axis and scans; PyTorch runs a loop).  Dense layers hold ``weight``
+[out, in] and ``bias`` [out], as ``torch.nn.functional.linear`` takes them
+(``models/weights.py`` transposes the JAX [in, out] kernels).
+
+Randomness: a training forward takes a host ``torch.Generator`` and draws
+one integer seed per dropout site from it, in a fixed order; each site
+seeds its own draw (or the attention kernel's Philox mask) from that
+integer.  A layer therefore receives its seeds as arguments, and the
+recompute of a checkpointed layer reproduces its dropout exactly.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import BertConfig
-
 from ..ops.attention import multi_head_attention
+from ..ops.dropout import draw_seed, dropout, seeded_generator
 
 Params = Dict[str, Any]
 
@@ -41,37 +49,74 @@ def gelu(x: torch.Tensor, exact: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if tanh else "none")
 
 
+def site_dropout(x: torch.Tensor, rate: float,
+                 seed: Optional[int]) -> torch.Tensor:
+    """Hidden dropout at one site, drawing from a generator seeded with
+    ``seed`` on ``x``'s device; identity when ``seed`` is None."""
+    if seed is None or rate == 0.0:
+        return x
+    return dropout(x, rate, seeded_generator(seed, x.device))
+
+
 def bert_embeddings(params: Params, input_ids: torch.Tensor, cfg: BertConfig,
-                    *, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Word + position + type-0 embeddings -> LN.  [B, S, H].
+                    *, compute_dtype: torch.dtype = torch.float32,
+                    seed: Optional[int] = None) -> torch.Tensor:
+    """Word + position + type-0 embeddings -> LN -> dropout.  [B, S, H].
 
     Every token has segment 0: no caller of the JAX ``bert_embeddings``
     passes token types, and the joint passes zero them by definition.
+    ``seed`` None is the deterministic forward.
     """
     p = params["embeddings"]
     word = F.embedding(input_ids, p["word"]).to(compute_dtype)
     pos = p["position"][:input_ids.shape[-1]].to(compute_dtype)
     x = word + pos[None, :, :] + p["type"][0].to(compute_dtype)
-    return layer_norm(x, p["ln"], cfg.layer_norm_eps)
+    x = layer_norm(x, p["ln"], cfg.layer_norm_eps)
+    return site_dropout(x, cfg.hidden_dropout_prob, seed)
 
 
 def bert_layer(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
-               cfg: BertConfig, *, use_flash: str = "auto") -> torch.Tensor:
+               cfg: BertConfig, *, use_flash: str = "auto",
+               seeds: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """One post-LN transformer layer (the split q/k/v branch of the JAX
-    ``bert_encoder`` layer body)."""
+    ``bert_encoder`` layer body).  ``seeds``: (attention probs, attention
+    output, FFN output) dropout seeds; None is the deterministic layer."""
+    attn_seed, post_seed, mlp_seed = seeds if seeds is not None else (None,) * 3
     ctx = multi_head_attention(
         dense(h, lp["q"]), dense(h, lp["k"]), dense(h, lp["v"]), attn_bias,
-        num_heads=cfg.num_attention_heads, use_flash=use_flash)
-    h = layer_norm(h + dense(ctx, lp["o"]), lp["attn_ln"], cfg.layer_norm_eps)
+        num_heads=cfg.num_attention_heads,
+        dropout_rate=cfg.attention_probs_dropout_prob, seed=attn_seed,
+        deterministic=seeds is None, use_flash=use_flash)
+    attn_out = site_dropout(dense(ctx, lp["o"]), cfg.hidden_dropout_prob,
+                            post_seed)
+    h = layer_norm(h + attn_out, lp["attn_ln"], cfg.layer_norm_eps)
     up = gelu(dense(h, lp["wi"]), cfg.exact_gelu)
-    return layer_norm(h + dense(up, lp["wo"]), lp["mlp_ln"], cfg.layer_norm_eps)
+    down = site_dropout(dense(up, lp["wo"]), cfg.hidden_dropout_prob, mlp_seed)
+    return layer_norm(h + down, lp["mlp_ln"], cfg.layer_norm_eps)
 
 
 def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
-                 cfg: BertConfig, *, use_flash: str = "auto") -> torch.Tensor:
-    """``hidden`` [B, S, H]; ``attn_bias`` additive [B, 1, 1, S]."""
+                 cfg: BertConfig, *, use_flash: str = "auto",
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False) -> torch.Tensor:
+    """``hidden`` [B, S, H]; ``attn_bias`` additive [B, 1, 1, S].
+
+    ``generator``: a host generator for a training forward (three seeds per
+    layer are drawn from it, in layer order); None is deterministic.
+    ``remat=True`` checkpoints each layer (the JAX ``full`` policy): one
+    non-reentrant ``torch.utils.checkpoint`` per layer, which keeps only the
+    layer's input and recomputes the rest in the backward.
+    """
     for lp in params["layers"]:
-        hidden = bert_layer(lp, hidden, attn_bias, cfg, use_flash=use_flash)
+        seeds = (None if generator is None
+                 else tuple(draw_seed(generator) for _ in range(3)))
+        if remat:
+            hidden = checkpoint(bert_layer, lp, hidden, attn_bias, cfg,
+                                use_flash=use_flash, seeds=seeds,
+                                use_reentrant=False)
+        else:
+            hidden = bert_layer(lp, hidden, attn_bias, cfg,
+                                use_flash=use_flash, seeds=seeds)
     return hidden
 
 

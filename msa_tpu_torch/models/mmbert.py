@@ -1,20 +1,29 @@
-"""MMBert forward for serving: the tri-modal model over a tensor tree.
+"""MMBert: the tri-modal model and its joint loss over a tensor tree.
 
-Counterpart of ``msa_tpu/models/mmbert.py``'s deterministic forward with
-``mlm_scores=False``: a text pass over [B, L] and one stacked joint pass
-over [2B, L+Lp] (text+visual and text+speech views), then the align, NSP
-and gated-fusion heads.  The parameter layout is ``init_mmbert_params``'s
-(``models/weights.py`` builds or converts it).
+Counterpart of ``msa_tpu/models/mmbert.py`` with ``mlm_scores=False`` (the
+MLM CE is always computed at the gathered masked positions): a text pass
+over [B, L] and one stacked joint pass over [2B, L+Lp] (text+visual and
+text+speech views), then the align, NSP and gated-fusion heads, and
+``mmbert_loss`` = alpha * MLM + AP + label - beta * NCE.  The parameter
+layout is ``init_mmbert_params``'s (``models/weights.py`` builds or converts
+it).
+
+A training forward (``deterministic=False``) takes a host
+``torch.Generator`` and draws every dropout seed from it, in this order:
+the three embedding sites (text, text+visual, text+speech), the two joint
+embeddings, the text encoder's layers, the joint encoder's layers.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs import MMBertConfig
-
+from ..ops import losses as L
+from ..ops.dropout import draw_seed
 from ..ops.fused_joint_embed import fused_joint_embed
 from .bert import (
     Params,
@@ -23,23 +32,47 @@ from .bert import (
     bert_pooler,
     dense,
     extended_attention_mask,
+    gelu,
+    layer_norm,
+    site_dropout,
 )
 
 
 def joint_embed(params: Params, text_embeddings: torch.Tensor,
                 pair_features: torch.Tensor, proj_name: str,
-                cfg: MMBertConfig) -> torch.Tensor:
-    """LN(concat_seq(text_embeddings, relu(W.pair_features + b))) -> [B, L+Lp, H].
+                cfg: MMBertConfig, *, seed: Optional[int] = None
+                ) -> torch.Tensor:
+    """LN(concat_seq(text_embeddings, relu(W.pair_features + b))) -> dropout,
+    [B, L+Lp, H].
 
     The LayerNorm covers both halves (the text half is normalised twice, as
     in the reference).  The fused kernel runs on CUDA, its plain version on
-    the CPU (``ops/fused_joint_embed.py``).
+    the CPU (``ops/fused_joint_embed.py``); dropout (``joint_dropout_prob``)
+    stays a separate op, as in JAX.
     """
     jp = params["joint"]
-    return fused_joint_embed(
+    x = fused_joint_embed(
         text_embeddings, pair_features.to(text_embeddings.dtype),
         jp[proj_name]["kernel"], jp[proj_name]["bias"], jp["ln"]["scale"],
         jp["ln"]["bias"], cfg.bert.layer_norm_eps)
+    return site_dropout(x, cfg.joint_dropout_prob, seed)
+
+
+def mlm_logits(params: Params, sequence_output: torch.Tensor,
+               cfg: MMBertConfig) -> torch.Tensor:
+    """Tied-decoder MLM head: transform (dense + gelu + LN), then logits
+    against the (padded) word embedding table.  Returns float32 [.., Vp].
+
+    The decoder product runs in the compute dtype and its output is widened
+    to f32; JAX asks XLA for an f32 result of the same bf16 product, so in
+    bf16 the logits here carry one more bf16 rounding.
+    """
+    cp = params["cls"]
+    x = dense(sequence_output, cp["transform_dense"])
+    x = gelu(x, cfg.bert.exact_gelu)
+    x = layer_norm(x, cp["transform_ln"], cfg.bert.layer_norm_eps)
+    word = params["bert"]["embeddings"]["word"].to(x.dtype)
+    return F.linear(x, word).float() + cp["decoder_bias"].float()
 
 
 def pair_frame_mask(features: torch.Tensor) -> torch.Tensor:
@@ -64,32 +97,52 @@ def fusion_head(params: Params, pooled_t, pooled_v, pooled_s,
     return logits, temp
 
 
+def cpc_nce(params: Params, pooled_t, pooled_v, pooled_s, temp,
+            weights=None) -> torch.Tensor:
+    """Sum of the three InfoNCE terms."""
+    pp = params["cpc"]
+    return (L.infonce(pooled_t, dense(temp, pp["zt"]), weights)
+            + L.infonce(pooled_v, dense(temp, pp["zv"]), weights)
+            + L.infonce(pooled_s, dense(temp, pp["za"]), weights))
+
+
 def mmbert_forward(params: Params, text_ids: torch.Tensor,
                    text_mask: torch.Tensor, tv_ids: torch.Tensor,
                    ts_ids: torch.Tensor, visual: torch.Tensor,
                    speech: torch.Tensor, cfg: MMBertConfig, *,
                    compute_dtype: torch.dtype = torch.float32,
-                   use_flash: str = "auto") -> Dict[str, torch.Tensor]:
+                   use_flash: str = "auto", deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None,
+                   remat: bool = False) -> Dict[str, torch.Tensor]:
     """Three-view forward.  Returns every head output the serving path and
-    the loss read, without the MLM logits."""
+    the loss read, without MLM logits (the loss gathers them).
+
+    ``deterministic=False`` with a host ``generator`` applies every dropout;
+    ``remat`` checkpoints each encoder layer (``bert_encoder``).
+    """
     bert = params["bert"]
     bcfg = cfg.bert
     b = text_ids.shape[0]
-    emb_t = bert_embeddings(bert, text_ids, bcfg, compute_dtype=compute_dtype)
-    emb_tv = bert_embeddings(bert, tv_ids, bcfg, compute_dtype=compute_dtype)
-    emb_ts = bert_embeddings(bert, ts_ids, bcfg, compute_dtype=compute_dtype)
-    joint_v = joint_embed(params, emb_tv, visual, "Wv", cfg)
-    joint_s = joint_embed(params, emb_ts, speech, "Ws", cfg)
+    gen = None if deterministic else generator
+    seed = lambda: None if gen is None else draw_seed(gen)  # noqa: E731
+    emb_t = bert_embeddings(bert, text_ids, bcfg, compute_dtype=compute_dtype,
+                            seed=seed())
+    emb_tv = bert_embeddings(bert, tv_ids, bcfg, compute_dtype=compute_dtype,
+                             seed=seed())
+    emb_ts = bert_embeddings(bert, ts_ids, bcfg, compute_dtype=compute_dtype,
+                             seed=seed())
+    joint_v = joint_embed(params, emb_tv, visual, "Wv", cfg, seed=seed())
+    joint_s = joint_embed(params, emb_ts, speech, "Ws", cfg, seed=seed())
     mask_v = torch.cat([text_mask.to(torch.int32), pair_frame_mask(visual)], 1)
     mask_s = torch.cat([text_mask.to(torch.int32), pair_frame_mask(speech)], 1)
 
     # pass 1: text only [B, L]; pass 2: both joint views stacked [2B, L+Lp]
     seq_t = bert_encoder(bert, emb_t, extended_attention_mask(text_mask), bcfg,
-                         use_flash=use_flash)
+                         use_flash=use_flash, generator=gen, remat=remat)
     pooled_t = bert_pooler(bert, seq_t)
     seq_j = bert_encoder(bert, torch.cat([joint_v, joint_s], 0),
                          extended_attention_mask(torch.cat([mask_v, mask_s], 0)),
-                         bcfg, use_flash=use_flash)
+                         bcfg, use_flash=use_flash, generator=gen, remat=remat)
     pooled_j = bert_pooler(bert, seq_j)
     pooled_v, pooled_s = pooled_j[:b], pooled_j[b:]
 
@@ -107,4 +160,98 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
         "pooled_speech": pooled_s,
         "temp": temp,
         "logits": logits,
+    }
+
+
+def mlm_cap(batch: int, text_len: int) -> int:
+    """Masked positions gathered per view: ~2x the expected count (0.15 of
+    the positions) plus headroom, as ``mmbert_loss`` sizes it in JAX."""
+    return max(int(0.35 * batch * text_len) + 16, 32)
+
+
+def gathered_mlm_ce(params: Params, seq: torch.Tensor, labels: torch.Tensor,
+                    weights: Optional[torch.Tensor], cfg: MMBertConfig,
+                    cap: int) -> torch.Tensor:
+    """MLM CE at the masked positions only: up to ``cap`` of them (a static
+    count) are gathered and the [cap, H] x [H, V] decoder runs there.  The
+    loss equals the dense one whenever the masked count <= cap; positions
+    beyond the cap are dropped (``mmbert_loss`` counts them).  ``topk``
+    gathers in another order than JAX's ``top_k``; the loss is a sum over
+    the gathered set and does not depend on it.
+    """
+    b, s, h = seq.shape
+    flat_seq = seq.reshape(b * s, h)
+    flat_lab = labels.reshape(b * s)
+    is_masked = (flat_lab != L.IGNORE_INDEX).float()
+    idx = torch.topk(is_masked, min(cap, b * s)).indices
+    picked = is_masked[idx] > 0
+    sel_lab = torch.where(picked, flat_lab[idx], L.IGNORE_INDEX)
+    sel_w = None
+    if weights is not None:
+        sel_w = weights[:, None].expand(b, s).reshape(b * s)[idx]
+    return L.cross_entropy(mlm_logits(params, flat_seq[idx], cfg), sel_lab,
+                           sel_w)
+
+
+def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
+                mlm_labels_text: torch.Tensor, mlm_labels_tv: torch.Tensor,
+                mlm_labels_ts: torch.Tensor, ap_visual: torch.Tensor,
+                ap_speech: torch.Tensor, sentiment: torch.Tensor,
+                cfg: MMBertConfig, weights: Optional[torch.Tensor] = None,
+                compute_mlm: bool = True) -> Dict[str, torch.Tensor]:
+    """The joint loss.  ``compute_mlm=False`` skips the MLM CE (the
+    deterministic eval path, whose labels are all -100)."""
+    b, l = mlm_labels_text.shape
+    # the pair half carries no language, so no MLM supervision there
+    lp = outputs["seq_joint"].shape[1] - l
+    ignore = torch.full((b, lp), L.IGNORE_INDEX, dtype=mlm_labels_text.dtype,
+                        device=mlm_labels_text.device)
+    labels_v = torch.cat([mlm_labels_tv, ignore], dim=1)
+    labels_s = torch.cat([mlm_labels_ts, ignore], dim=1)
+
+    device = outputs["logits"].device
+    mlm_overflow = torch.zeros((), dtype=torch.int32, device=device)
+    if not compute_mlm:
+        text_mlm = visual_mlm = speech_mlm = torch.zeros((), device=device)
+    else:
+        seq_j = outputs["seq_joint"]
+        cap = mlm_cap(b, l)
+        text_mlm = gathered_mlm_ce(params, outputs["seq_text"],
+                                   mlm_labels_text, weights, cfg, cap)
+        visual_mlm = gathered_mlm_ce(params, seq_j[:b], labels_v, weights,
+                                     cfg, cap)
+        speech_mlm = gathered_mlm_ce(params, seq_j[b:], labels_s, weights,
+                                     cfg, cap)
+        # no silent caps: count the positions the gather dropped
+        for lab in (mlm_labels_text, labels_v, labels_s):
+            n_masked = (lab != L.IGNORE_INDEX).sum().to(torch.int32)
+            mlm_overflow = mlm_overflow + torch.clamp(n_masked - cap, min=0)
+    mlm = (text_mlm + visual_mlm + speech_mlm) / 3.0
+
+    ap = (L.cross_entropy(outputs["align_visual"], ap_visual, weights)
+          + L.cross_entropy(outputs["align_speech"], ap_speech, weights)) / 2.0
+
+    logits = outputs["logits"]
+    if cfg.regression:
+        preds = torch.tanh(logits) if cfg.num_labels == 1 else logits
+        label_loss = L.mse(preds.reshape(-1), sentiment, weights)
+        pred_out = preds
+    else:
+        label_loss = L.cross_entropy(logits, sentiment, weights)
+        pred_out = torch.argmax(torch.sigmoid(logits), dim=1)
+
+    nce = cpc_nce(params, outputs["pooled_text"], outputs["pooled_visual"],
+                  outputs["pooled_speech"], outputs["temp"], weights)
+    joint = cfg.alpha * mlm + ap + label_loss - cfg.beta * nce
+    return {
+        "loss": joint,
+        "mlm_loss": mlm,
+        "text_mlm_loss": text_mlm,
+        "visual_mlm_loss": visual_mlm,
+        "speech_mlm_loss": speech_mlm,
+        "ap_loss": ap,
+        "label_loss": label_loss,
+        "nce": nce,
+        "mlm_overflow": mlm_overflow,
+        "predictions": pred_out,
     }

@@ -29,7 +29,10 @@ _LAYER_LN = ("attn_ln", "mlp_ln")
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    """An f32 tensor, or bf16 where ``x`` is bf16 (numpy has no bf16 that
+    torch reads, so through f32, which holds every bf16 value exactly)."""
+    t = torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    return t.to(torch.bfloat16) if str(np.asarray(x).dtype) == "bfloat16" else t
 
 
 def _convert(node, device, linear: bool):
@@ -67,6 +70,57 @@ def from_jax_params(tree: Mapping, device) -> Params:
     out["bert"] = {k: _convert(v, device, linear=True) for k, v in bert.items()}
     out["bert"]["layers"] = layers
     return out
+
+
+def from_jax_opt_state(opt_state, device):
+    """Carry an optax AdamW state (the JAX package's ``make_optimizer``
+    chain, optionally inside ``optax.MultiSteps``; host numpy leaves, e.g.
+    ``jax.device_get(state.opt_state)``) into the port's
+    :class:`~msa_tpu_torch.training.optim.AdamWState` on ``device``.
+
+    The state is read by its fields, not by its classes: the
+    ``ScaleByAdamState`` (count, mu, nu) and, when present, the
+    ``MultiStepsState`` (mini_step, acc_grads).  mu and nu keep their
+    storage dtype.
+    """
+    from ..training.optim import AdamWState
+
+    def find(node, fields):
+        if all(hasattr(node, f) for f in fields):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                hit = find(child, fields)
+                if hit is not None:
+                    return hit
+        for name in ("inner_opt_state", "inner_state"):
+            if hasattr(node, name):
+                return find(getattr(node, name), fields)
+        return None
+
+    adam = find(opt_state, ("count", "mu", "nu"))
+    if adam is None:
+        raise ValueError("from_jax_opt_state: no Adam state (count, mu, nu) "
+                         "in the optimizer state")
+    multi = find(opt_state, ("mini_step", "acc_grads"))
+    return AdamWState(
+        count=int(np.asarray(adam.count)),
+        mu=from_jax_params(adam.mu, device),
+        nu=from_jax_params(adam.nu, device),
+        mini_step=0 if multi is None else int(np.asarray(multi.mini_step)),
+        acc=None if multi is None else from_jax_params(multi.acc_grads, device))
+
+
+def named_leaves(tree, prefix: str = ""):
+    """(path, tensor) pairs of a parameter tree, paths joined by '/'."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
 
 
 def init_params(cfg: MMBertConfig, generator: torch.Generator) -> Params:
@@ -125,13 +179,18 @@ def init_params(cfg: MMBertConfig, generator: torch.Generator) -> Params:
     }
 
 
+def map_tree(tree, fn):
+    """The same tree (dicts and lists) with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
 def to_device(params: Params, device) -> Params:
     """The same tree with every tensor on ``device``."""
-    if isinstance(params, dict):
-        return {k: to_device(v, device) for k, v in params.items()}
-    if isinstance(params, list):
-        return [to_device(v, device) for v in params]
-    return params.to(device)
+    return map_tree(params, lambda p: p.to(device))
 
 
 def cast_for_compute(params: Params, dtype: torch.dtype) -> Params:

@@ -1,17 +1,20 @@
 """Fused joint embedding: a hand-written CUDA kernel.
 
 Counterpart of ``msa_tpu/ops/fused_joint_embed.py::fused_joint_embed``
-(TPU kernel ``_kernel``), forward only.  For each batch row it writes
-``LN(text_emb)`` to rows [0, L) and ``LN(relu(feats @ W + b))`` to rows
-[L, L+Lp); the projection and the LayerNorm run in f32 and the output is
-stored in ``text_emb``'s dtype.  The kernel (``csrc/fused_joint_embed.cu``)
-takes H % 256 == 0 up to 2048 and D <= 1024 (the datasets' D is one of
-35, 47, 74, 81, 371); its header says what bounds it on the H100.
+(TPU kernel ``_kernel``).  For each batch row it writes ``LN(text_emb)`` to
+rows [0, L) and ``LN(relu(feats @ W + b))`` to rows [L, L+Lp); the
+projection and the LayerNorm run in f32 and the output is stored in
+``text_emb``'s dtype.  The kernel (``csrc/fused_joint_embed.cu``) takes
+H % 256 == 0 up to 2048 and D <= 1024 (the datasets' D is one of 35, 47,
+74, 81, 371); its header says what bounds it on the H100.
 
 :func:`fused_joint_embed` launches the kernel for CUDA tensors and runs
-:func:`fused_joint_embed_plain` for CPU tensors.  The kernel has no row
-limit (one block per output row), so JAX's VMEM-derived ``_MAX_FUSED_ROWS``
-has no counterpart here.
+:func:`fused_joint_embed_plain` for CPU tensors.  Under autograd on CUDA it
+is a ``torch.autograd.Function``: the forward is the kernel, the backward
+recomputes through the plain version under autograd -- as JAX's ``_bwd`` is
+the VJP of ``_ref_forward``, an XLA recompute and no Pallas kernel.  The
+kernel has no row limit (one block per output row), so JAX's VMEM-derived
+``_MAX_FUSED_ROWS`` has no counterpart here.
 """
 
 from __future__ import annotations
@@ -46,6 +49,27 @@ def fused_joint_embed_plain(text_emb, feats, w, b, scale, bias,
     return y.to(text_emb.dtype)
 
 
+class _FusedJointEmbed(torch.autograd.Function):
+    """Kernel forward; backward by recomputing the plain version."""
+
+    @staticmethod
+    def forward(ctx, text_emb, feats, w, b, scale, bias, eps):
+        ctx.save_for_backward(text_emb, feats, w, b, scale, bias)
+        ctx.eps = eps
+        return _kernel(text_emb, feats, w, b, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [x.detach().requires_grad_(need) for x, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = fused_joint_embed_plain(*inputs, ctx.eps)
+        wanted = [x for x in inputs if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(grads) if x.requires_grad else None for x in inputs),
+                None)
+
+
 def fused_joint_embed(text_emb: torch.Tensor, feats: torch.Tensor,
                       w: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -54,10 +78,17 @@ def fused_joint_embed(text_emb: torch.Tensor, feats: torch.Tensor,
     ``w`` is [D, H] (the JAX layout); ``b``, ``scale``, ``bias`` are [H].
     ``fused_joint_embed.launches`` counts kernel launches.
     """
+    args = (text_emb, feats, w, b, scale, bias)
+    if text_emb.device.type == "cpu":
+        return fused_joint_embed_plain(*args, eps)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return _FusedJointEmbed.apply(*args, eps)
+    return _kernel(*args, eps)
+
+
+def _kernel(text_emb, feats, w, b, scale, bias, eps):
     bsz, l, h = text_emb.shape
     lp, d = feats.shape[1], feats.shape[2]
-    if text_emb.device.type == "cpu":
-        return fused_joint_embed_plain(text_emb, feats, w, b, scale, bias, eps)
     if text_emb.device.type != "cuda":
         raise ValueError(
             f"fused_joint_embed: no kernel for device {text_emb.device}")

@@ -1,0 +1,356 @@
+"""Training / eval runtime on one device.
+
+Counterpart of ``msa_tpu/training/trainer.py``'s ``Trainer`` (its
+``_build_train_step``, ``_build_eval_step``, ``train_epoch`` and
+``eval_epoch``): one train step draws the three views' MLM masks (or takes
+injected ones), runs the three-pass forward with dropout, the joint loss,
+the backward and the AdamW update.  PyTorch runs eagerly, so there is no
+step to build: :meth:`Trainer.train_step` is the step.
+
+On a CUDA device the step runs the hand-written kernels (attention forward
+and backward with in-kernel dropout, the joint embedding); on the CPU their
+plain versions.  The device is the card unless the caller passes ``"cpu"``.
+``fit``, checkpoints and the command-line entries are not ported yet
+(ROADMAP: fit loop, checkpoints and CLIs).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..configs import ExperimentConfig
+from ..data.dataset import MultimodalDataset, prefetch
+from ..models.mmbert import mmbert_forward, mmbert_loss
+from ..models.weights import (cast_for_compute, init_params, map_tree,
+                              named_leaves)
+from ..ops import masking
+from ..ops.dropout import SEED_BITS, draw_seed, seeded_generator
+from ..utils.flops import H100_BF16_PEAK_FLOPS, mmbert_step_flops
+from .optim import make_optimizer
+from .train_state import TrainState
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_METRICS = ("loss", "mlm_loss", "ap_loss", "label_loss", "nce", "mlm_overflow")
+
+# The 'auto' remat policy: checkpoint nothing while the eager step's saved
+# activations fit comfortably on the card, else checkpoint every layer.
+# The estimate counts what autograd keeps per token and encoder layer in
+# the compute dtype's bytes, in units of H: the layer input (1, read by the
+# q/k/v products), q, k, v (3, kept by the attention kernel), ctx (1, and 2
+# more for the f32 copy the attention backward reads), the f32 input of both
+# LayerNorms (2 x 2), the LayerNorm output feeding the FFN (1), the FFN's
+# up-projection and its gelu (2 x 4), and two bool dropout masks (~1): ~21
+# elements of H, rounded up to 22.  bert-large at B=96 in bf16: 19,200
+# tokens x 22 x 2 B x 1024 x 24 layers = ~20.8 GB, i.e. roughly 0.9 GB per
+# layer.  "Fit comfortably" is half the card's memory:
+# the rest holds the f32 weights, their gradients, the Adam moments and the
+# optimizer's f32 temporaries (~20 B per parameter, 6.7 GB at bert-large),
+# the MLM head's logits and the allocator's slack.
+_ACT_ELEMENTS_PER_TOKEN_LAYER = 22
+_ACT_MEMORY_FRACTION = 0.5
+_NAMED_POLICIES = ("save_small", "save_wide", "save_attn", "save_ctx",
+                   "save_pack", "dots")
+
+
+def fold_in(base_seed: int, step: int) -> int:
+    """A seed for ``step`` derived from ``base_seed`` (the role of
+    ``jax.random.fold_in``), in [0, 2**62)."""
+    words = np.random.SeedSequence([int(base_seed), int(step)]).generate_state(
+        2, np.uint32)
+    return (int(words[0]) << 32 | int(words[1])) % (2 ** SEED_BITS)
+
+
+@dataclass
+class EpochMetrics:
+    loss: float = 0.0
+    mlm_loss: float = 0.0
+    ap_loss: float = 0.0
+    label_loss: float = 0.0
+    nce: float = 0.0
+    mlm_overflow: int = 0  # total gather-cap overflow; anything >0 is a bug
+    grad_norm: float = 0.0
+    grad_norm_steps: int = 0
+    steps: int = 0
+    samples: int = 0
+    seconds: float = 0.0
+
+    def update(self, m: Dict[str, Any], batch_size: int):
+        self.loss += float(m["loss"])
+        self.mlm_loss += float(m["mlm_loss"])
+        self.ap_loss += float(m["ap_loss"])
+        self.label_loss += float(m["label_loss"])
+        self.nce += float(m["nce"])
+        if "mlm_overflow" in m:
+            self.mlm_overflow += int(m["mlm_overflow"])
+        if "grad_norm" in m:
+            self.grad_norm += float(m["grad_norm"])
+            self.grad_norm_steps += 1
+        self.steps += 1
+        self.samples += batch_size
+
+    def averaged(self) -> Dict[str, float]:
+        s = max(self.steps, 1)
+        out = {"loss": self.loss / s, "mlm_loss": self.mlm_loss / s,
+               "ap_loss": self.ap_loss / s, "label_loss": self.label_loss / s,
+               "nce": self.nce / s, "mlm_overflow": self.mlm_overflow}
+        if self.grad_norm_steps:
+            out["grad_norm"] = self.grad_norm / self.grad_norm_steps
+        if self.seconds > 0:
+            out["samples_per_sec"] = self.samples / self.seconds
+        return out
+
+
+class Trainer:
+    """Owns the device, the optimizer and the train / eval steps."""
+
+    def __init__(self, config: ExperimentConfig, device="cuda",
+                 mask_token_id: int = masking.DEFAULT_MASK_ID,
+                 special_ids: Tuple[int, ...] = masking.DEFAULT_SPECIAL_IDS):
+        tc = config.train
+        if tc.data_parallel not in (-1, 1) or tc.model_parallel != 1:
+            raise NotImplementedError(
+                f"data_parallel={tc.data_parallel}, model_parallel="
+                f"{tc.model_parallel}: the port trains on one device "
+                "(ROADMAP: parallelism); -1 means that one device")
+        if tc.fuse_text_pass or tc.sequence_parallel:
+            raise NotImplementedError(
+                "fuse_text_pass / sequence_parallel are not ported yet "
+                "(ROADMAP: remaining surface, parallelism)")
+        if tc.compute_dtype not in _DTYPES:
+            raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
+        self.config = config
+        self.device = torch.device(device)
+        self.compute_dtype = _DTYPES[tc.compute_dtype]
+        self.mask_token_id = mask_token_id
+        self.special_ids = tuple(special_ids)
+        self.tx = None  # set in init_state
+        # Parity hook: a callable (epoch, batch_index, batch) -> dict with
+        # "mlm_masked"/"mlm_replaced" [B, 3, L] bools; when set, the step
+        # applies these MLM masks (ops/masking.py::apply_mlm_masks) instead
+        # of drawing them, so the JAX trainer and this one can consume
+        # identical masks.  train_step reads them from the batch.
+        self.mlm_mask_injector = None
+        self.remat = self._resolve_remat()
+
+    # ------------------------------------------------------------------
+    # State
+    # ------------------------------------------------------------------
+
+    def init_state(self, seed: int, total_steps: int,
+                   params=None) -> TrainState:
+        """Random parameters from ``seed`` (``models/weights.py``), or a copy
+        of ``params`` (e.g. ``from_jax_params``), as f32 masters on the
+        device, and a fresh optimizer state.  Replace ``opt_state`` (e.g.
+        with ``from_jax_opt_state``) to resume one."""
+        if params is None:
+            params = init_params(self.config.model, torch.Generator(
+                device=self.device).manual_seed(int(seed)))
+        params = map_tree(params, lambda p: p.detach().to(
+            self.device, torch.float32, copy=True).requires_grad_())
+        self.tx = make_optimizer(self.config.train, total_steps)
+        return TrainState(params=params, opt_state=self.tx.init(params))
+
+    # ------------------------------------------------------------------
+    # Steps
+    # ------------------------------------------------------------------
+
+    def _resolve_remat(self) -> bool:
+        """Whether the encoder layers are checkpointed.  ``remat=False``:
+        never; policy ``full``: always; ``auto``: see the estimate above --
+        on the CPU (tests, tiny models) never.  The named save_* policies
+        and the +drop / +probs rungs are not ported."""
+        tc = self.config.train
+        if not tc.remat:
+            return False
+        base = tc.remat_policy.split("+")[0]
+        if base in _NAMED_POLICIES or "+" in tc.remat_policy:
+            raise NotImplementedError(
+                f"remat_policy={tc.remat_policy!r}: the named remat policies "
+                "are not ported yet (ROADMAP: named remat policies); 'auto' "
+                "and 'full' are")
+        if base == "full":
+            return True
+        if base != "auto":
+            raise ValueError(f"unknown remat_policy {tc.remat_policy!r}")
+        if self.device.type != "cuda":
+            return False
+        return self.activation_bytes() > _ACT_MEMORY_FRACTION * \
+            torch.cuda.get_device_properties(self.device).total_memory
+
+    def activation_bytes(self) -> float:
+        """The eager step's saved activations, estimated (see above)."""
+        b = self.config.train.train_batch_size
+        l = self.config.data.max_seq_length
+        lp = self.config.data.pair_seq_length or l
+        bert = self.config.model.bert
+        tokens = b * l + 2 * b * (l + lp)
+        itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
+        return (tokens * _ACT_ELEMENTS_PER_TOKEN_LAYER * itemsize
+                * bert.hidden_size * bert.num_hidden_layers)
+
+    def upload(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A numpy batch (``MultimodalDataset.epoch_batches``) on the device."""
+        regression = self.config.model.regression
+        kinds = {"text_ids": torch.long, "text_mask": torch.int32,
+                 "visual": torch.float32, "speech": torch.float32,
+                 "visual_ap": torch.long, "speech_ap": torch.long,
+                 "target": torch.float32 if regression else torch.long,
+                 "weight": torch.float32, "mlm_masked": torch.bool,
+                 "mlm_replaced": torch.bool}
+        out = {}
+        for key, value in batch.items():
+            t = torch.as_tensor(np.asarray(value)).to(kinds[key])
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            out[key] = t.to(self.device, non_blocking=True)
+        return out
+
+    def _mlm_views(self, b, generator):
+        ids = b["text_ids"]
+        data = self.config.data
+        if data.mlm and "mlm_masked" in b:
+            m, r = b["mlm_masked"], b["mlm_replaced"]
+            return [masking.apply_mlm_masks(ids, m[:, i], r[:, i],
+                                            self.mask_token_id)
+                    for i in range(3)]
+        if data.mlm:
+            dev = seeded_generator(draw_seed(generator), self.device)
+            return [masking.mask_tokens(dev, ids, data.mlm_probability,
+                                        self.mask_token_id, self.special_ids)
+                    for _ in range(3)]
+        labels = torch.where(b["text_mask"] > 0, ids, masking.IGNORE_INDEX)
+        return [(ids, labels)] * 3
+
+    def train_step(self, state: TrainState, batch: Dict[str, Any],
+                   base_seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One step: forward with dropout, loss, backward, AdamW update (in
+        place).  The step's randomness comes from ``base_seed`` with the
+        step number folded in.  Returns (state, metrics); the metrics are
+        0-d device tensors (no host synchronisation)."""
+        if self.tx is None:
+            raise RuntimeError("train_step before init_state")
+        cfg = self.config.model
+        tc = self.config.train
+        b = self.upload(batch)
+        generator = torch.Generator().manual_seed(fold_in(base_seed, state.step))
+        (t_ids, t_lab), (tv_ids, tv_lab), (ts_ids, ts_lab) = \
+            self._mlm_views(b, generator)
+        paths, leaves = zip(*named_leaves(state.params))
+        with torch.enable_grad():
+            params = cast_for_compute(state.params, self.compute_dtype)
+            out = mmbert_forward(
+                params, t_ids, b["text_mask"], tv_ids, ts_ids, b["visual"],
+                b["speech"], cfg, compute_dtype=self.compute_dtype,
+                use_flash=tc.use_flash_attention, deterministic=False,
+                generator=generator, remat=self.remat)
+            losses = mmbert_loss(params, out, t_lab, tv_lab, ts_lab,
+                                 b["visual_ap"], b["speech_ap"], b["target"],
+                                 cfg, weights=b["weight"])
+            # parameters the loss does not reach (the NSP head) get zero
+            # gradients, as jax.grad gives them
+            grads = torch.autograd.grad(losses["loss"], leaves,
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        metrics = {k: losses[k].detach() for k in _METRICS}
+        if tc.log_grad_norm:
+            metrics["grad_norm"] = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(list(grads))))
+        self.tx.step(state.params, dict(zip(paths, grads)), state.opt_state)
+        state.step += 1
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, params, batch: Dict[str, Any],
+                  seed: int) -> Dict[str, torch.Tensor]:
+        """Deterministic forward + loss; no MLM masking unless
+        ``eval_masking`` (then the masks come from ``seed``)."""
+        cfg = self.config.model
+        tc = self.config.train
+        b = self.upload(batch)
+        ids = b["text_ids"]
+        if tc.eval_masking:
+            views = self._mlm_views({"text_ids": ids, "text_mask": b["text_mask"]},
+                                    torch.Generator().manual_seed(int(seed)))
+        else:
+            ignore = torch.full_like(ids, masking.IGNORE_INDEX)
+            views = [(ids, ignore)] * 3
+        (t_ids, t_lab), (tv_ids, tv_lab), (ts_ids, ts_lab) = views
+        params = cast_for_compute(params, self.compute_dtype)
+        out = mmbert_forward(params, t_ids, b["text_mask"], tv_ids, ts_ids,
+                             b["visual"], b["speech"], cfg,
+                             compute_dtype=self.compute_dtype,
+                             use_flash=tc.use_flash_attention)
+        return mmbert_loss(params, out, t_lab, tv_lab, ts_lab, b["visual_ap"],
+                           b["speech_ap"], b["target"], cfg,
+                           weights=b["weight"], compute_mlm=tc.eval_masking)
+
+    # ------------------------------------------------------------------
+    # Epochs
+    # ------------------------------------------------------------------
+
+    def train_epoch(self, state: TrainState, dataset: MultimodalDataset,
+                    epoch: int, base_seed: int
+                    ) -> Tuple[TrainState, EpochMetrics]:
+        tc = self.config.train
+        em = EpochMetrics()
+        t0 = time.perf_counter()
+        batches = prefetch(dataset.epoch_batches(
+            epoch, tc.train_batch_size, shuffle=True, force_aligned=False))
+        device_metrics: List[Dict[str, torch.Tensor]] = []
+        for i, batch in enumerate(batches):
+            if self.mlm_mask_injector is not None:
+                batch = dict(batch)
+                batch.update(self.mlm_mask_injector(epoch, i, batch))
+            state, metrics = self.train_step(state, batch, base_seed)
+            # metric scalars stay on the device: one transfer at epoch end
+            device_metrics.append(metrics)
+        for m in device_metrics:
+            em.update({k: v.item() for k, v in m.items()}, tc.train_batch_size)
+        em.seconds = time.perf_counter() - t0
+        return state, em
+
+    def eval_epoch(self, state: TrainState, dataset: MultimodalDataset,
+                   epoch: int, base_seed: int, batch_size: int
+                   ) -> Tuple[EpochMetrics, np.ndarray, np.ndarray]:
+        tc = self.config.train
+        em = EpochMetrics()
+        device_losses, masks, labels = [], [], []
+        t0 = time.perf_counter()
+        for bi, batch in enumerate(dataset.epoch_batches(
+                epoch, batch_size, shuffle=False,
+                force_aligned=not tc.eval_random_pairs)):
+            w = batch["weight"] > 0
+            # epoch and batch index fold into the seed, so eval_masking draws
+            # fresh masks per batch
+            seed = fold_in(fold_in(base_seed, epoch), bi)
+            device_losses.append(self.eval_step(state.params, batch, seed))
+            masks.append(w)
+            labels.append(batch["target"][w])
+        preds: List[np.ndarray] = []
+        for losses, w in zip(device_losses, masks):
+            host = {k: v.cpu().numpy() for k, v in losses.items()}
+            em.update(host, int(w.sum()))
+            p = host["predictions"]
+            preds.append(p.reshape(p.shape[0], -1)[: len(w)][w])
+        em.seconds = time.perf_counter() - t0
+        return em, np.concatenate(preds), np.concatenate(labels)
+
+    # ------------------------------------------------------------------
+    # Perf accounting
+    # ------------------------------------------------------------------
+
+    def step_flops(self) -> float:
+        return mmbert_step_flops(self.config.model,
+                                 self.config.train.train_batch_size,
+                                 self.config.data.max_seq_length,
+                                 pair_seq=self.config.data.pair_seq_length)
+
+    def mfu(self, samples_per_sec: float) -> float:
+        """Model FLOP utilisation against the H100's dense bf16 peak."""
+        steps_per_sec = samples_per_sec / self.config.train.train_batch_size
+        return self.step_flops() * steps_per_sec / H100_BF16_PEAK_FLOPS

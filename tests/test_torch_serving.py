@@ -14,9 +14,11 @@ the result about as much as the rounding itself); classes must agree.
 """
 
 import dataclasses
+import glob
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -199,40 +201,70 @@ def test_serve_stream_roundtrip_and_error_line():
 
 
 def test_port_imports_and_serves_without_jax():
-    """Every msa_tpu_torch module imports, and a CPU Predictor runs, with
-    jax blocked (a subprocess: this process already imported jax)."""
+    """Every msa_tpu_torch module imports, a CPU Predictor serves and a
+    Trainer takes a train step, with jax AND the JAX package blocked (a
+    subprocess: this process already imported both).  The port reaches its
+    configs and data through its own copies."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["msa_tpu"] = None
 import numpy as np, torch
 import msa_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(msa_tpu_torch.__path__,
                                                "msa_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-from msa_tpu.configs import (DataConfig, ExperimentConfig, MMBertConfig,
-                             TrainConfig, tiny_bert_config)
-from msa_tpu.data.featurize import synthetic_split
+from msa_tpu_torch.configs import (DataConfig, ExperimentConfig, MMBertConfig,
+                                   TrainConfig, tiny_bert_config)
+from msa_tpu_torch.data import MultimodalDataset, synthetic_split
 from msa_tpu_torch.inference import Predictor
 from msa_tpu_torch.models.weights import init_params
+from msa_tpu_torch.training.trainer import Trainer
 exp = ExperimentConfig(
     model_name="tiny",
     model=MMBertConfig(bert=tiny_bert_config(hidden_size=128,
                        num_attention_heads=2, vocab_size=120),
                        visual_dim=5, speech_dim=7),
     data=DataConfig(max_seq_length=12),
-    train=TrainConfig(compute_dtype="float32", data_parallel=1))
+    train=TrainConfig(compute_dtype="float32", data_parallel=1,
+                      train_batch_size=4))
 params = init_params(exp.model, torch.Generator().manual_seed(0))
-out = Predictor(exp, params, 4, torch.device("cpu")).predict_split(
-    synthetic_split(5, 12, 5, 7, vocab_size=120))
+split = synthetic_split(5, 12, 5, 7, vocab_size=120)
+out = Predictor(exp, params, 4, torch.device("cpu")).predict_split(split)
 assert out.shape == (5,) and np.isfinite(out).all()
-assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
-                     if v is not None}
+trainer = Trainer(exp, "cpu", mask_token_id=4, special_ids=(0, 2, 3, 4))
+state = trainer.init_state(0, 10, params=params)
+batch = next(MultimodalDataset(split).epoch_batches(0, 4))
+state, metrics = trainer.train_step(state, batch, base_seed=1)
+assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
+assert not loaded & {"jax", "msa_tpu"}, loaded & {"jax", "msa_tpu"}
 print("modules", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, env=env, cwd=REPO, timeout=120)
+                          text=True, env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 11  # _build, ops x3, models x3, inference, cli.serve, ...
+    # _build, configs, data x5, ops x7, models x3, training x3, utils x2,
+    # inference, cli x2
+    assert n >= 25
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """No file of msa_tpu_torch/, and not chip_smoke.py, imports jax or
+    msa_tpu (the port keeps its own copies of the host modules)."""
+    pattern = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|msa_tpu)(?:\.|\s|$)", re.MULTILINE)
+    files = sorted(glob.glob(os.path.join(REPO, "msa_tpu_torch", "**", "*.py"),
+                             recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    offenders = {}
+    for path in files:
+        with open(path) as f:
+            hits = pattern.findall(f.read())
+        if hits:
+            offenders[os.path.relpath(path, REPO)] = hits
+    assert not offenders, offenders
