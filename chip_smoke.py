@@ -20,11 +20,23 @@ failure (no phase catches its own):
        keep share, the forward with dropout against the plain version given
        that mask, and seed determinism;
      * the fused joint embedding;
+     * the fused residual + LayerNorm + int8 quantize, static and dynamic,
+       at the int8 serving path's row counts;
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
      an f32 card run against the CPU plain run on a few samples;
   5. pushes JSONL requests (one of them invalid) through ``serve_stream``;
+  5b. serves the same split with the same weights in the ``int8`` and
+     ``int8_static`` modes (static scales calibrated on a slice of it),
+     checks the kernel launches per batch and the int8 GEMM against the
+     CPU's (bit-equal), reports samples/s beside bf16's and the gap to the
+     bf16 predictions, and checks f32 int8 card runs against the CPU
+     (depth cut to INT8_F32_LAYERS);
+  5c. writes the weights as a checkpoint with the port's
+     ``save_checkpoint`` and runs ``python -m msa_tpu_torch.cli.serve
+     --quantize int8_static`` on it as a subprocess, checking its answers
+     against the in-process ``Predictor.from_checkpoint``;
   6. trains bert-large in bf16 at B=96, L=40 (MOSI widths, the default
      dropouts, MLM on) through ``Trainer`` over a synthetic split, checks
      finite losses, moved parameters and the kernel launches per step,
@@ -88,6 +100,26 @@ F32_PARAM_ATOL = 5e-5
 # CPU (the attention key biases: softmax ignores a shift shared by a row).
 F32_GRAD_RTOL = 1e-4
 F32_GRAD_FLOOR = 1e-6
+# ln_quant kernels against their plain version (the CPU test's bounds): h
+# in f32 within 1e-6; in bf16 within one bf16 ulp (at most 2^-7 of the
+# value), since a 1-ulp difference of the f32 LayerNorm (summation order)
+# can flip h's rounding; xi differs in under 0.5 % of the elements and by
+# at most one level (flipped ties); the dynamic row scale within 1e-5
+# relative in f32 and one bf16 ulp of the row's largest |h| in bf16.
+LN_QUANT_H_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (1e-6, 2.0**-7)}
+LN_QUANT_ROW_RTOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+LN_QUANT_XI_SHARE = 0.005
+# f32 int8 Predictor on the card against the CPU: both quantize the same
+# f32 weights bit-equally and the int8 products are exact (checked apart,
+# bit-equal), but f32 summation order upstream of each activation quantize
+# flips the ties within ~1e-6 of a rounding boundary by one level.  Over
+# six full-width layers those flips move the predictions by ~1.5e-3; a
+# layout or scale fault moves them by the order of the quantization's own
+# effect (~3e-2 against bf16) or of their spread (~0.3).
+INT8_F32_PRED_ATOL = 5e-3
+INT8_F32_LAYERS = 6   # depth of the f32 int8 card-vs-CPU check (CPU time)
+CLI_REQUESTS = 21     # valid JSONL lines of the service CLI phase
+CLI_BATCH = 8
 ATTN_DROPOUT = 0.1  # snapped to 26/256 on the kernel path
 KEEP_SHARE_SIGMAS = 4.0
 
@@ -98,6 +130,11 @@ TRAIN_WARMUP = 2
 TRAIN_STEPS = 8
 HIDDEN, HEADS = 1024, 16
 
+# cycles of the spin kernel that holds the stream while cuda_ms queues its
+# timed calls: ~25 ms at the H100's clock, longer than the host takes to
+# queue 20 calls of any function timed here
+HOLD_CYCLES = 50_000_000
+
 # H100 SXM (NVIDIA's data sheet): HBM rate and dense bf16 / f32 peaks, for
 # each kernel's bound (the larger of bytes / rate and FLOPs / peak).
 HBM_BYTES_PER_S = 3.35e12
@@ -105,6 +142,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn``.  A spin kernel holds the stream while
+    the host queues every timed call, so the host's launch overhead (tens
+    of microseconds per wrapper call) does not pace a short kernel."""
     import torch
 
     for _ in range(3):
@@ -112,6 +152,7 @@ def cuda_ms(fn, iters: int = 20) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -432,24 +473,90 @@ def phase_joint_embed(gen):
     return worst, times
 
 
-def kernel_counts():
+def phase_ln_quant(gen):
+    """The fused residual + LayerNorm + int8 quantize kernels against the
+    plain composition, at the int8 serving path's row counts."""
+    import torch
+
+    from msa_tpu_torch.ops.ln_quant import (
+        ln_quant_dynamic, ln_quant_plain, ln_quant_static)
+
+    eps = 1e-12
+    worst, times = {"static": 0.0, "dynamic": 0.0}, {}
+    for label, rows in (("text", BATCH * TEXT_LEN),
+                        ("joint", 2 * BATCH * 2 * TEXT_LEN)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            x, res = (torch.randn(rows, HIDDEN, device="cuda", generator=gen)
+                      .to(dtype) for _ in range(2))
+            scale = 1.0 + 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)
+            bias = 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)
+            # a calibrated-like scale: |h| reaches ~5, so the largest values
+            # saturate at +-127
+            ascale = torch.tensor(4.0 / 127, device="cuda")
+            for mode in ("static", "dynamic"):
+                args = (x, res, scale, bias, eps)
+                if mode == "static":
+                    h, xi = ln_quant_static(*args, ascale)
+                    row = None
+                    rh, rxi, _ = ln_quant_plain(*args, ascale)
+                else:
+                    h, xi, row = ln_quant_dynamic(*args)
+                    rh, rxi, rrow = ln_quant_plain(*args)
+                torch.cuda.synchronize()
+                tag = f"ln_quant_{mode} [{rows},{HIDDEN}] {dname}"
+                atol, rtol = LN_QUANT_H_TOL[dname]
+                err = check_close(tag + " h", h, rh, atol, rtol)
+                diff = (xi.int() - rxi.int()).abs()
+                share = float((diff > 0).float().mean())
+                if share >= LN_QUANT_XI_SHARE or int(diff.max()) > 1:
+                    raise AssertionError(
+                        f"{tag} xi: {share:.2e} of the elements differ (want "
+                        f"< {LN_QUANT_XI_SHARE}), max {int(diff.max())} levels")
+                if row is not None:
+                    check_close(tag + " row", row, rrow, 0.0,
+                                LN_QUANT_ROW_RTOL[dname])
+                worst[mode] = max(worst[mode], err)
+                if mode == "static":
+                    ms = cuda_ms(lambda: ln_quant_static(*args, ascale))
+                    plain_ms = cuda_ms(lambda: ln_quant_plain(*args, ascale))
+                else:
+                    ms = cuda_ms(lambda: ln_quant_dynamic(*args))
+                    plain_ms = cuda_ms(lambda: ln_quant_plain(*args))
+                # reads x, res and the f32 LN parameters, writes h and xi
+                # (and the f32 row scales); ~10 f32 operations per element
+                nbytes = (rows * HIDDEN * (3 * x.element_size() + 1)
+                          + 2 * HIDDEN * 4 + (4 * rows if row is not None else 4))
+                bound = bound_ms(nbytes, 10 * rows * HIDDEN, "float32")
+                times[(mode, label, dname)] = (ms, plain_ms, None, bound)
+                print(f"{tag}: h max_abs_err {err:.3e} (atol {atol}, rtol "
+                      f"{rtol}), xi differs in {share:.2e} of the elements "
+                      f"(< {LN_QUANT_XI_SHARE}, max 1 level); kernel {ms:.4f} "
+                      f"ms, plain {plain_ms:.4f} ms, no single library call, "
+                      f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return worst, times
+
+
+def kernel_counters():
     from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
+    from msa_tpu_torch.ops.ln_quant import ln_quant_dynamic, ln_quant_static
     from msa_tpu_torch.ops.short_attention import (
         dropout_keep_mask, short_attention, short_attention_backward)
 
-    return {"short_attention": short_attention.launches,
-            "short_attention_backward": short_attention_backward.launches,
-            "dropout_keep_mask": dropout_keep_mask.launches,
-            "fused_joint_embed": fused_joint_embed.launches}
+    return {"short_attention": short_attention,
+            "short_attention_backward": short_attention_backward,
+            "dropout_keep_mask": dropout_keep_mask,
+            "fused_joint_embed": fused_joint_embed,
+            "ln_quant_static": ln_quant_static,
+            "ln_quant_dynamic": ln_quant_dynamic}
+
+
+def kernel_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def reset_counts():
-    from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
-    from msa_tpu_torch.ops.short_attention import (
-        dropout_keep_mask, short_attention, short_attention_backward)
-
-    for fn in (short_attention, short_attention_backward, dropout_keep_mask,
-               fused_joint_embed):
+    for fn in kernel_counters().values():
         fn.launches = 0
 
 
@@ -478,9 +585,7 @@ def phase_serving(exp, params):
     seconds_again = time.perf_counter() - t1
 
     layers = cfg.bert.num_hidden_layers
-    want = {"short_attention": 2 * layers * n_batches,
-            "short_attention_backward": 0, "dropout_keep_mask": 0,
-            "fused_joint_embed": 2 * n_batches}
+    want = serving_launches(layers, n_batches)
     if launches != want:
         raise AssertionError(f"serving kernel launches {launches}, want "
                              f"{want} ({n_batches} batches)")
@@ -515,7 +620,226 @@ def phase_serving(exp, params):
     print(f"f32 card vs CPU plain on {len(rows)} samples: max |diff| "
           f"{err32:.3e} (atol {F32_PRED_ATOL}); bf16 vs f32 on the card "
           f"{float(np.abs(out[rows] - gpu32).max()):.3e}", flush=True)
-    return pred, launches
+    return pred, split, launches
+
+
+def serving_launches(layers, n_batches, quantize=None):
+    """Kernel launches of ``n_batches`` serving batches: per encoder call
+    one attention forward per layer and, int8_static, two ln_quant per
+    layer (mlp_in and the closing LayerNorm), int8 one (mlp_in)."""
+    per_call = {None: (0, 0), "int8": (0, 1), "int8_static": (2, 0)}
+    static, dynamic = per_call[quantize]
+    return {"short_attention": 2 * layers * n_batches,
+            "short_attention_backward": 0, "dropout_keep_mask": 0,
+            "fused_joint_embed": 2 * n_batches,
+            "ln_quant_static": 2 * static * layers * n_batches,
+            "ln_quant_dynamic": 2 * dynamic * layers * n_batches}
+
+
+def phase_int8_serving(exp, params, pred16, split):
+    """The int8 and int8_static Predictors on the bf16 phase's weights."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import to_device
+    from msa_tpu_torch.ops.quant import int8_mm
+
+    layers = exp.model.bert.num_hidden_layers
+    n_batches = -(-N_SERVE // BATCH)
+    calib = dataclasses.replace(split, **{
+        f: getattr(split, f)[:2 * BATCH] for f in (
+            "input_ids", "attention_mask", "visual", "speech", "target")})
+    preds = {"bf16": pred16,
+             "int8": Predictor(exp, params, BATCH, "cuda", quantize="int8"),
+             "int8_static": Predictor(exp, params, BATCH, "cuda",
+                                      quantize="int8_static",
+                                      calibration=calib)}
+    outs, launches = {}, {}
+    for mode, pred in preds.items():
+        pred.predict_split(split)  # warm: cuBLAS int8 handles
+        reset_counts()
+        outs[mode] = pred.predict_split(split)
+        launches[mode] = kernel_counts()
+        want = serving_launches(layers, n_batches,
+                                None if mode == "bf16" else mode)
+        if launches[mode] != want:
+            raise AssertionError(f"{mode} serving kernel launches "
+                                 f"{launches[mode]}, want {want}")
+        out = outs[mode]
+        if out.shape != (N_SERVE,) or not np.isfinite(out).all() or \
+                np.abs(out).max() > 1.0:
+            raise AssertionError(f"{mode} predictions: shape {out.shape}, "
+                                 f"max |p| {np.abs(out).max()}")
+    # the int8 GEMM (cuBLAS through torch._int_mm) against the CPU's on the
+    # path's weights: integer products, so bit-equal; 5 rows take the
+    # zero-row padding that cuBLAS needs below 17
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layer = preds["int8"].params["bert"]["layers"][0]
+    for name in ("q", "wi", "wo"):
+        w = layer[name]["qweight"]
+        for rows in (5, 8 * TEXT_LEN):
+            xi = torch.randint(-127, 128, (rows, w.shape[1]), device="cuda",
+                               dtype=torch.int8, generator=gen)
+            if not torch.equal(int8_mm(xi, w).cpu(), int8_mm(xi.cpu(), w.cpu())):
+                raise AssertionError(f"int8 GEMM {name} [{rows},{w.shape[1]}]"
+                                     f"x[{w.shape[1]},{w.shape[0]}]: card and "
+                                     "CPU products differ")
+    print("int8 GEMM (torch._int_mm) on the card bit-equal to the CPU's for "
+          "q, wi and wo at 5 and 320 rows", flush=True)
+
+    rates = {mode: [] for mode in preds}
+    for mode in ("bf16", "int8", "int8_static", "int8_static", "int8", "bf16"):
+        t0 = time.perf_counter()
+        preds[mode].predict_split(split)  # ends in a device-to-host copy
+        rates[mode].append(N_SERVE / (time.perf_counter() - t0))
+    for mode in ("int8", "int8_static"):
+        gap = float(np.abs(outs[mode] - outs["bf16"]).max())
+        corr = float(np.corrcoef(outs[mode], outs["bf16"])[0, 1])
+        print(f"serving {mode} bert-large B={BATCH} L={TEXT_LEN}: samples/s "
+              f"{[round(r, 2) for r in rates[mode]]} (bf16 "
+              f"{[round(r, 2) for r in rates['bf16']]}, same process, order "
+              f"bf16 int8 int8_static int8_static int8 bf16); launches per "
+              f"batch {({k: v // n_batches for k, v in launches[mode].items()})};"
+              f" against bf16: max |diff| {gap:.3e}, correlation {corr:.6f} "
+              f"(random weights: predictions spread {float(np.ptp(outs['bf16'])):.3e})",
+              flush=True)
+
+    # f32 on the card (no TF32) against the CPU plain run, depth cut
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bert = dataclasses.replace(exp.model.bert, num_hidden_layers=INT8_F32_LAYERS)
+    exp32 = dataclasses.replace(
+        exp, model=dataclasses.replace(exp.model, bert=bert),
+        train=dataclasses.replace(exp.train, compute_dtype="float32"))
+    cut = dict(params, bert=dict(params["bert"],
+                                 layers=params["bert"]["layers"][:INT8_F32_LAYERS]))
+    rows = [0, N_SERVE - 1]
+    sub = [np.asarray(x)[rows] for x in (split.input_ids, split.attention_mask,
+                                          split.visual, split.speech)]
+    calib32 = dataclasses.replace(calib, **{
+        f: np.asarray(getattr(split, f))[rows] for f in (
+            "input_ids", "attention_mask", "visual", "speech", "target")})
+    errs = {}
+    for mode in ("int8", "int8_static"):
+        kw = {"quantize": mode,
+              "calibration": calib32 if mode == "int8_static" else None}
+        gpu = Predictor(exp32, cut, len(rows), "cuda", **kw).predict_arrays(*sub)
+        cpu = Predictor(exp32, to_device(cut, "cpu"), len(rows), "cpu",
+                        **kw).predict_arrays(*sub)
+        errs[mode] = float(np.abs(gpu - cpu).max())
+        if not errs[mode] <= INT8_F32_PRED_ATOL:
+            raise AssertionError(f"f32 {mode} card vs CPU predictions differ "
+                                 f"by {errs[mode]:.3e} > {INT8_F32_PRED_ATOL}")
+    print(f"f32 int8 / int8_static card vs CPU plain ({INT8_F32_LAYERS} "
+          f"layers at full width, {len(rows)} samples): max |diff| "
+          f"{errs['int8']:.3e} / {errs['int8_static']:.3e} (atol "
+          f"{INT8_F32_PRED_ATOL})", flush=True)
+    return launches, rates
+
+
+def cli_requests(cfg, n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ["love", "hate", "this", "movie", "the", "plot", "was", "great"]
+    reqs = []
+    for i in range(n):
+        k = int(rng.integers(1, 12))
+        req = {"id": f"r{i}", "words": [words[j] for j in
+                                        rng.integers(0, len(words), k)]}
+        if i % 3 != 2:
+            req["visual"] = rng.standard_normal((k, cfg.visual_dim)).round(3).tolist()
+        if i % 3 != 1:
+            req["speech"] = rng.standard_normal((k, cfg.speech_dim)).round(3).tolist()
+        reqs.append(json.dumps(req))
+    return reqs
+
+
+def phase_service_cli(exp, params):
+    """The service CLI in a subprocess on a checkpoint the port wrote,
+    against the in-process Predictor.from_checkpoint on the same lines."""
+    import numpy as np
+
+    from msa_tpu_torch.cli.serve import read_calibration, serve_stream
+    from msa_tpu_torch.data import FastTokenizer, make_test_vocab
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.training.checkpoint import save_checkpoint
+    from msa_tpu_torch.training.optim import make_optimizer
+    from msa_tpu_torch.training.train_state import TrainState
+
+    cfg = exp.model
+    # bf16 Adam moments keep the file at ~2.7 GB
+    exp = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16"))
+    reqs = cli_requests(cfg, CLI_REQUESTS, seed=11)
+    reqs.insert(5, "NOT JSON")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        state = TrainState(params=params,
+                           opt_state=make_optimizer(exp.train, 1).init(params))
+        run = os.path.join(tmp, "run")
+        save_checkpoint(os.path.join(run, "epoch_000"), state, exp, epoch=0)
+        del state
+        size = os.path.getsize(os.path.join(run, "epoch_000", "state.msgpack"))
+        save_s = time.perf_counter() - t0
+        vocab = make_test_vocab(extra_words=["love", "hate", "this", "movie",
+                                             "plot", "great"])
+        paths = {k: os.path.join(tmp, k) for k in (
+            "vocab.txt", "requests.jsonl", "calibration.jsonl", "cli.jsonl",
+            "in_process.jsonl")}
+        with open(paths["vocab.txt"], "w") as f:
+            f.writelines(tok + "\n" for tok in sorted(vocab, key=vocab.get))
+        with open(paths["requests.jsonl"], "w") as f:
+            f.write("\n".join(reqs) + "\n")
+        with open(paths["calibration.jsonl"], "w") as f:
+            f.write("\n".join(cli_requests(cfg, 2 * CLI_BATCH, seed=12)) + "\n")
+        cmd = [sys.executable, "-m", "msa_tpu_torch.cli.serve", "--checkpoint",
+               run, "--vocab", paths["vocab.txt"], "--batch_size",
+               str(CLI_BATCH), "--quantize", "int8_static", "--calibration",
+               paths["calibration.jsonl"], "--input", paths["requests.jsonl"],
+               "--output", paths["cli.jsonl"]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                              timeout=600, env=dict(os.environ, PYTHONPATH=repo))
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"service CLI exit {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        with open(paths["cli.jsonl"]) as f:
+            lines = [json.loads(x) for x in f.read().splitlines()]
+
+        tokenizer = FastTokenizer(paths["vocab.txt"])
+        pred = Predictor.from_checkpoint(
+            run, batch_size=CLI_BATCH, device="cuda", quantize="int8_static",
+            calibration=read_calibration(paths["calibration.jsonl"], tokenizer,
+                                         exp))
+        with open(paths["requests.jsonl"]) as fin, \
+                open(paths["in_process.jsonl"], "w") as fout:
+            counts = serve_stream(pred, tokenizer, fin, fout,
+                                  batch_size=CLI_BATCH, max_wait=0.05,
+                                  drain_flush=True)
+        with open(paths["in_process.jsonl"]) as f:
+            ref = [json.loads(x) for x in f.read().splitlines()]
+    answers = {x["id"]: x["prediction"] for x in lines if "prediction" in x}
+    errors = [x for x in lines if "error" in x]
+    want = {x["id"]: x["prediction"] for x in ref if "prediction" in x}
+    if len(answers) != CLI_REQUESTS or len(errors) != 1 or \
+            errors[0]["id"] is not None or set(answers) != set(want) or \
+            counts != {"answered": CLI_REQUESTS, "errors": 1}:
+        raise AssertionError(f"service CLI: {len(answers)} answers, errors "
+                             f"{errors}, in-process counts {counts}")
+    diff = max(abs(answers[k] - want[k]) for k in want)
+    # the same code on the same card and lines, batched alike: equal
+    if diff != 0.0 or not all(np.isfinite(list(answers.values()))):
+        raise AssertionError(f"service CLI answers differ from the in-process "
+                             f"Predictor by {diff:.3e}")
+    print(f"service CLI (python -m msa_tpu_torch.cli.serve --quantize "
+          f"int8_static, batch {CLI_BATCH}) on a port-written bert-large "
+          f"checkpoint ({size / 1e9:.2f} GB, written in {save_s:.1f} s): exit 0"
+          f" in {cli_s:.1f} s, {len(answers)} answered, 1 error line, answers "
+          f"equal to the in-process Predictor.from_checkpoint", flush=True)
 
 
 def phase_service(pred):
@@ -608,7 +932,8 @@ def phase_training():
     layers = cfg.bert.num_hidden_layers
     want = {"short_attention": 2 * layers * TRAIN_STEPS,
             "short_attention_backward": 2 * 2 * layers * TRAIN_STEPS,
-            "dropout_keep_mask": 0, "fused_joint_embed": 2 * TRAIN_STEPS}
+            "dropout_keep_mask": 0, "fused_joint_embed": 2 * TRAIN_STEPS,
+            "ln_quant_static": 0, "ln_quant_dynamic": 0}
     if trainer.remat or launches != want:
         raise AssertionError(f"training: remat {trainer.remat}, launches "
                              f"{launches}, want {want} ({TRAIN_STEPS} steps)")
@@ -786,19 +1111,25 @@ def main() -> int:
     bwd_err, bwd_times = phase_attention_backward(gen)
     drop = phase_dropout(gen)
     embed_err, embed_times = phase_joint_embed(gen)
+    lnq_err, lnq_times = phase_ln_quant(gen)
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
-    pred, serve_launches = phase_serving(exp, params)
+    pred, split, serve_launches = phase_serving(exp, params)
     phase_service(pred)
-    del pred, params
+    int8_launches, _ = phase_int8_serving(exp, params, pred, split)
+    del pred
+    phase_service_cli(exp, params)
+    del params
     torch.cuda.empty_cache()
     train_launches, _ = phase_training()
     torch.cuda.empty_cache()
     phase_f32_train()
 
     def paths(name):
-        return {"serving": serve_launches[name], "training": train_launches[name]}
+        return {"serving": serve_launches[name], "training": train_launches[name],
+                "serving_int8": int8_launches["int8"][name],
+                "serving_int8_static": int8_launches["int8_static"][name]}
 
     joint = ("joint", "bfloat16")
     kernels = [
@@ -823,6 +1154,16 @@ def main() -> int:
                      train_launches["fused_joint_embed"], embed_err,
                      embed_times[(47, TEXT_LEN, "bfloat16")],
                      paths("fused_joint_embed")),
+        kernel_entry("ln_quant_static", "msa_tpu_torch/csrc/ln_quant.cu",
+                     "msa_tpu/ops/ln_quant.py:36",
+                     int8_launches["int8_static"]["ln_quant_static"],
+                     lnq_err["static"],
+                     lnq_times[("static",) + joint], paths("ln_quant_static")),
+        kernel_entry("ln_quant_dynamic", "msa_tpu_torch/csrc/ln_quant.cu",
+                     "msa_tpu/ops/ln_quant.py:51",
+                     int8_launches["int8"]["ln_quant_dynamic"],
+                     lnq_err["dynamic"],
+                     lnq_times[("dynamic",) + joint], paths("ln_quant_dynamic")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,15 @@
 """Streaming inference service: JSONL requests in, predictions out.
 
-Counterpart of the service loop of ``msa_tpu/cli/serve.py`` around the
-port's :class:`msa_tpu_torch.inference.Predictor`.  The request schema,
-featurisation (:func:`featurize_request`) and line reader
-(:func:`_iter_lines`) are the port's own copies of that module's host
-code: one JSON object per line,
+Counterpart of ``msa_tpu/cli/serve.py`` around the port's
+:class:`msa_tpu_torch.inference.Predictor`:
+
+    python -m msa_tpu_torch.cli.serve --checkpoint model_save/<run> \
+        --vocab vocab.txt [--quantize int8|int8_static --calibration reqs.jsonl] \
+        [--device cpu] < requests.jsonl > predictions.jsonl
+
+The request schema, featurisation (:func:`featurize_request`) and line
+reader (:func:`_iter_lines`) are the port's own copies of that module's
+host code: one JSON object per line,
 
     {"id": "any", "words": ["i", "love", "it"],
      "visual": [[...frame...], ...], "speech": [[...frame...], ...]}
@@ -14,21 +19,53 @@ with ``visual``/``speech`` optional.  Lines are micro-batched up to
 request is ``max_wait`` seconds old, or (``drain_flush``) as soon as the
 input is drained.  Each answer echoes ``id`` and adds ``prediction``; an
 invalid line yields ``{"id": ..., "error": ...}`` and the service goes on.
-
-The command-line entry (``--checkpoint``) waits for the checkpoint port.
+The service runs on the card unless ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import select
+import sys
 import time
 from typing import Dict
 
 import numpy as np
 
-from ..data.featurize import featurize
+from ..data.featurize import FeaturizedSplit, featurize
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--checkpoint", required=True,
+                   help="run dir (latest epoch) or direct epoch dir")
+    p.add_argument("--model_num", type=int, default=None,
+                   help="select a specific retained epoch checkpoint")
+    p.add_argument("--vocab", required=True, help="BERT wordpiece vocab.txt")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--quantize", choices=["int8", "int8_static"], default=None,
+                   help="int8-quantize the encoder projections; "
+                        "'int8_static' uses static activation scales "
+                        "calibrated on --calibration")
+    p.add_argument("--calibration", default=None,
+                   help="JSONL requests file (same schema as serving input) "
+                        "used to calibrate int8_static activation scales")
+    p.add_argument("--max_wait", type=float, default=0.05,
+                   help="flush a partial batch once its OLDEST request is "
+                        "this many seconds old (0 flushes only on a full "
+                        "batch or EOF)")
+    p.add_argument("--drain_flush", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="flush a partial batch as soon as the input fd is "
+                        "drained instead of waiting out --max_wait")
+    p.add_argument("--input", default=None, help="JSONL file (default: stdin)")
+    p.add_argument("--output", default=None,
+                   help="JSONL file (default: stdout)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to serve on (default: cuda)")
+    return p
 
 
 def featurize_request(req, tokenizer, L, Lp, vdim, sdim):
@@ -192,3 +229,63 @@ def serve_stream(predictor, tokenizer, fin, fout, *, batch_size: int,
             flush()
     flush()
     return counts
+
+
+def read_calibration(path: str, tokenizer, config) -> FeaturizedSplit:
+    """The requests of a JSONL file as one FeaturizedSplit."""
+    L, Lp = config.data.max_seq_length, config.data.pair_seq_length
+    vdim, sdim = config.model.visual_dim, config.model.speech_dim
+    splits = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                splits.append(featurize_request(json.loads(line), tokenizer,
+                                                L, Lp, vdim, sdim))
+    if not splits:
+        raise SystemExit(f"empty calibration file {path}")
+    return FeaturizedSplit(
+        **{name: np.concatenate([getattr(s, name) for s in splits])
+           for name in ("input_ids", "attention_mask", "visual", "speech",
+                        "target")},
+        segments=[], words=[])
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    from ..data.fast_wordpiece import FastTokenizer
+    from ..inference import Predictor
+    from ..training.checkpoint import load_config, resolve_checkpoint
+
+    if args.quantize == "int8_static" and not args.calibration:
+        raise SystemExit("--quantize int8_static needs --calibration "
+                         "<requests.jsonl>")
+    tokenizer = FastTokenizer(args.vocab)
+    calibration = None
+    if args.quantize == "int8_static":
+        config = load_config(resolve_checkpoint(args.checkpoint,
+                                                args.model_num))
+        if config is None:
+            raise SystemExit(f"no config.json in {args.checkpoint}")
+        calibration = read_calibration(args.calibration, tokenizer, config)
+    predictor = Predictor.from_checkpoint(
+        args.checkpoint, batch_size=args.batch_size, device=args.device,
+        model_num=args.model_num, quantize=args.quantize,
+        calibration=calibration)
+    fin = open(args.input) if args.input else sys.stdin
+    fout = open(args.output, "w") if args.output else sys.stdout
+    try:
+        serve_stream(predictor, tokenizer, fin, fout,
+                     batch_size=args.batch_size, max_wait=args.max_wait,
+                     drain_flush=args.drain_flush)
+    finally:
+        if args.input:
+            fin.close()
+        if args.output:
+            fout.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

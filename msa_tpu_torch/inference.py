@@ -1,10 +1,12 @@
 """Batched inference / serving API on PyTorch.
 
-Counterpart of ``msa_tpu/inference.py::Predictor``: put the parameters on
-the device once, then serve fixed-shape batches (a ragged final batch is
-zero-padded to the batch size and the padding is dropped from the output).
-On CUDA the forward runs the hand-written kernels (``msa_tpu_torch.ops``);
-on the CPU their plain versions.
+Counterpart of ``msa_tpu/inference.py``: put the parameters on the device
+once, then serve fixed-shape batches (a ragged final batch is zero-padded
+to the batch size and the padding is dropped from the output).  On CUDA the
+forward runs the hand-written kernels (``msa_tpu_torch.ops``); on the CPU
+their plain versions.  ``quantize`` selects the int8 serving modes
+(``ops/quant.py``), with static activation scales from
+:func:`calibrate_act_stats` for ``int8_static``.
 """
 
 from __future__ import annotations
@@ -17,23 +19,100 @@ from .data import FeaturizedSplit
 
 from .models.mmbert import mmbert_forward
 from .models.weights import cast_for_compute, to_device
+from .ops.quant import FUSE_QKV_NOT_PORTED, quantize_bert_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+QUANTIZE_MODES = ("int8", "int8_static")
+
+
+def _upload(x: np.ndarray, device: torch.device,
+            dtype: torch.dtype) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if t.is_floating_point():
+        # bf16 on the wire: the forward casts the features to the compute
+        # dtype on arrival anyway, so casting on the host is identical and
+        # halves the bytes moved
+        t = t.to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _serving_forward(params, config: ExperimentConfig, dtype: torch.dtype,
+                     ids, mask, visual, speech, collect_act_stats=False):
+    ids = ids.long()
+    return mmbert_forward(params, ids, mask, ids, ids, visual, speech,
+                          config.model, compute_dtype=dtype,
+                          use_flash=config.train.use_flash_attention,
+                          collect_act_stats=collect_act_stats)
+
+
+@torch.inference_mode()
+def calibrate_act_stats(config: ExperimentConfig, params, split: FeaturizedSplit,
+                        batch_size: int = 8, max_batches: int = 4):
+    """Absmax activation statistics for int8 static-scale quantization.
+
+    Runs the deterministic serving forward with ``collect_act_stats=True``
+    over up to ``max_batches`` batches of ``split`` on the device that holds
+    ``params`` (the port's tree, in the compute dtype) and returns the
+    elementwise max: {"attn_in"|"ctx"|"mlp_in"|"ffn_act": [L] f32 tensor},
+    what :func:`~msa_tpu_torch.ops.quant.quantize_bert_params` takes.
+    """
+    n = len(split)
+    if n == 0:
+        raise ValueError("empty calibration split")
+    dtype = _DTYPES[config.train.compute_dtype]
+    device = params["bert"]["embeddings"]["word"].device
+    agg = None
+    for start in range(0, min(n, batch_size * max_batches), batch_size):
+        end = min(start + batch_size, n)
+
+        def prep(x):
+            x = np.asarray(x[start:end])
+            if len(x) < batch_size:
+                # fill by REPEATING real rows, not zeros: an all-zero row
+                # has an all-zero attention mask, and its degenerate
+                # activations would loosen the static scales; max() over
+                # repeats changes nothing
+                reps = -(-batch_size // len(x))
+                x = np.concatenate([x] * reps)[:batch_size]
+            return _upload(x, device, dtype)
+
+        stats = _serving_forward(
+            params, config, dtype, prep(split.input_ids),
+            prep(split.attention_mask), prep(split.visual), prep(split.speech),
+            collect_act_stats=True)["act_stats"]
+        agg = stats if agg is None else {
+            k: torch.maximum(v, stats[k]) for k, v in agg.items()}
+    return agg
 
 
 class Predictor:
     """Sentiment predictions from aligned tri-modal inputs."""
 
-    def __init__(self, config: ExperimentConfig, params, batch_size: int,
-                 device, *, quantize: str | None = None):
+    def __init__(self, config: ExperimentConfig, params, batch_size: int = 8,
+                 device="cuda", *, quantize: str | None = None,
+                 calibration: FeaturizedSplit | None = None,
+                 fuse_qkv: bool = False):
         """``params``: the port's tree (``models/weights.py``), on any
         device; it is copied to ``device`` and its dense weights cast to the
-        compute dtype once."""
+        compute dtype once.  ``device`` is the card unless the caller asks
+        for the CPU.
+
+        ``quantize="int8"`` quantizes the encoder's six projections once
+        (per-channel int8 weights, per-row activation scales);
+        ``"int8_static"`` also calibrates static activation scales on
+        ``calibration`` (a FeaturizedSplit), which it requires.
+        """
         tc = config.train
-        if quantize is not None:
-            raise NotImplementedError(
-                f"quantize={quantize!r}: int8 serving is not ported yet "
-                "(ROADMAP: int8 serving)")
+        if fuse_qkv:
+            raise NotImplementedError(FUSE_QKV_NOT_PORTED)
+        if quantize not in (None,) + QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
+        if quantize == "int8_static" and calibration is None:
+            raise ValueError(
+                "quantize='int8_static' needs calibration= a FeaturizedSplit "
+                "to derive static activation scales")
         if tc.data_parallel not in (-1, 1) or tc.model_parallel != 1:
             raise NotImplementedError(
                 f"data_parallel={tc.data_parallel}, model_parallel="
@@ -44,28 +123,50 @@ class Predictor:
         self.config = config
         self.batch_size = int(batch_size)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Predictor: device 'cuda' asked for, but CUDA is not "
+                "available; pass device='cpu' to serve on the CPU")
         self.dtype = _DTYPES[tc.compute_dtype]
-        self.params = cast_for_compute(to_device(params, self.device),
-                                       self.dtype)
+        self.quantize = quantize
+        params = to_device(params, self.device)
+        if quantize is not None:
+            stats = None
+            if quantize == "int8_static":
+                stats = calibrate_act_stats(
+                    config, cast_for_compute(params, self.dtype), calibration,
+                    batch_size=self.batch_size)
+            # from the f32 weights, as JAX quantizes them
+            params = quantize_bert_params(params, act_stats=stats)
+        self.params = cast_for_compute(params, self.dtype)
+
+    @classmethod
+    def from_checkpoint(cls, directory: str, batch_size: int = 8,
+                        device="cuda", model_num: int | None = None,
+                        quantize: str | None = None,
+                        calibration: FeaturizedSplit | None = None
+                        ) -> "Predictor":
+        """A Predictor over the parameters of a checkpoint (a run directory,
+        whose newest or ``model_num``-th epoch is taken, or an epoch
+        directory), with the experiment config saved beside them."""
+        from .training.checkpoint import (
+            load_config, load_params, resolve_checkpoint)
+
+        directory = resolve_checkpoint(directory, model_num)
+        config = load_config(directory)
+        if config is None:
+            raise FileNotFoundError(f"no config.json in {directory}")
+        return cls(config, load_params(directory, "cpu"), batch_size, device,
+                   quantize=quantize, calibration=calibration)
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if t.is_floating_point():
-            # bf16 on the wire: the forward casts the features to the
-            # compute dtype on arrival anyway, so casting on the host is
-            # identical and halves the bytes moved
-            t = t.to(self.dtype)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return _upload(x, self.device, self.dtype)
 
     @torch.inference_mode()
     def _forward(self, ids, mask, visual, speech) -> torch.Tensor:
         cfg = self.config.model
-        ids = ids.long()
-        out = mmbert_forward(self.params, ids, mask, ids, ids, visual, speech,
-                             cfg, compute_dtype=self.dtype,
-                             use_flash=self.config.train.use_flash_attention)
+        out = _serving_forward(self.params, self.config, self.dtype, ids,
+                               mask, visual, speech)
         logits = out["logits"]
         if cfg.regression:  # num_labels 1 or 7: one regression output
             preds = torch.tanh(logits) if cfg.num_labels == 1 else logits

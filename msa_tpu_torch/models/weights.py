@@ -12,6 +12,9 @@ changes of layout for PyTorch:
 
 Everything else (embedding tables with the padded vocab, LayerNorm
 ``scale``/``bias``, the -1e9 padded ``cls.decoder_bias``) is as in JAX.
+``from_jax_params`` / ``from_jax_opt_state`` carry a JAX tree into this
+layout and ``to_jax_params`` / ``to_jax_opt_state`` carry it back (the
+layout of ``flax.serialization.to_state_dict``, for checkpoints).
 """
 
 from __future__ import annotations
@@ -28,9 +31,17 @@ _LAYER_DENSE = ("q", "k", "v", "o", "wi", "wo")
 _LAYER_LN = ("attn_ln", "mlp_ln")
 
 
+def _arr(x):
+    """A leaf as an array that indexes and transposes: torch tensors (the
+    checkpoint codec's bf16 leaves) as they are, anything else as numpy."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _tensor(x, device) -> torch.Tensor:
     """An f32 tensor, or bf16 where ``x`` is bf16 (numpy has no bf16 that
     torch reads, so through f32, which holds every bf16 value exactly)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
     t = torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
     return t.to(torch.bfloat16) if str(np.asarray(x).dtype) == "bfloat16" else t
 
@@ -40,7 +51,7 @@ def _convert(node, device, linear: bool):
     ``linear``."""
     if isinstance(node, Mapping):
         if linear and set(node) == {"kernel", "bias"}:
-            return {"weight": _tensor(np.asarray(node["kernel"]).T, device),
+            return {"weight": _tensor(_arr(node["kernel"]).T, device),
                     "bias": _tensor(node["bias"], device)}
         return {k: _convert(v, device, linear) for k, v in node.items()}
     return _tensor(node, device)
@@ -52,17 +63,17 @@ def from_jax_params(tree: Mapping, device) -> Params:
     tree = dict(tree)
     bert = dict(tree["bert"])
     stacked = bert.pop("layers")
-    n = int(np.asarray(stacked["q"]["kernel"]).shape[0])
+    n = int(_arr(stacked["q"]["kernel"]).shape[0])
     layers = []
     for i in range(n):
         lp = {}
         for name in _LAYER_DENSE:
-            lp[name] = {"weight": _tensor(np.asarray(stacked[name]["kernel"])[i].T,
+            lp[name] = {"weight": _tensor(_arr(stacked[name]["kernel"])[i].T,
                                           device),
-                        "bias": _tensor(np.asarray(stacked[name]["bias"])[i],
+                        "bias": _tensor(_arr(stacked[name]["bias"])[i],
                                         device)}
         for name in _LAYER_LN:
-            lp[name] = {k: _tensor(np.asarray(stacked[name][k])[i], device)
+            lp[name] = {k: _tensor(_arr(stacked[name][k])[i], device)
                         for k in ("scale", "bias")}
         layers.append(lp)
     out = {k: _convert(v, device, linear=(k != "joint"))
@@ -75,7 +86,8 @@ def from_jax_params(tree: Mapping, device) -> Params:
 def from_jax_opt_state(opt_state, device):
     """Carry an optax AdamW state (the JAX package's ``make_optimizer``
     chain, optionally inside ``optax.MultiSteps``; host numpy leaves, e.g.
-    ``jax.device_get(state.opt_state)``) into the port's
+    ``jax.device_get(state.opt_state)``, or its state dict as a checkpoint
+    holds it) into the port's
     :class:`~msa_tpu_torch.training.optim.AdamWState` on ``device``.
 
     The state is read by its fields, not by its classes: the
@@ -86,16 +98,23 @@ def from_jax_opt_state(opt_state, device):
     from ..training.optim import AdamWState
 
     def find(node, fields):
-        if all(hasattr(node, f) for f in fields):
-            return node
-        if isinstance(node, (tuple, list)):
-            for child in node:
-                hit = find(child, fields)
-                if hit is not None:
-                    return hit
-        for name in ("inner_opt_state", "inner_state"):
-            if hasattr(node, name):
-                return find(getattr(node, name), fields)
+        """The first node, depth first, with all ``fields`` (as attributes
+        or as keys), as a dict of them."""
+        if isinstance(node, Mapping):
+            if all(f in node for f in fields):
+                return {f: node[f] for f in fields}
+            children = node.values()
+        elif all(hasattr(node, f) for f in fields):
+            return {f: getattr(node, f) for f in fields}
+        elif isinstance(node, (tuple, list)):
+            children = node
+        else:
+            children = [getattr(node, name) for name in
+                        ("inner_opt_state", "inner_state") if hasattr(node, name)]
+        for child in children:
+            hit = find(child, fields)
+            if hit is not None:
+                return hit
         return None
 
     adam = find(opt_state, ("count", "mu", "nu"))
@@ -104,11 +123,77 @@ def from_jax_opt_state(opt_state, device):
                          "in the optimizer state")
     multi = find(opt_state, ("mini_step", "acc_grads"))
     return AdamWState(
-        count=int(np.asarray(adam.count)),
-        mu=from_jax_params(adam.mu, device),
-        nu=from_jax_params(adam.nu, device),
-        mini_step=0 if multi is None else int(np.asarray(multi.mini_step)),
-        acc=None if multi is None else from_jax_params(multi.acc_grads, device))
+        count=int(np.asarray(adam["count"])),
+        mu=from_jax_params(adam["mu"], device),
+        nu=from_jax_params(adam["nu"], device),
+        mini_step=0 if multi is None else int(np.asarray(multi["mini_step"])),
+        acc=None if multi is None else from_jax_params(multi["acc_grads"],
+                                                       device))
+
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous()
+
+
+def to_jax_params(params: Params) -> Dict[str, Any]:
+    """The port's parameter tree in the JAX package's layout, as CPU
+    tensors: layers stacked on a leading axis, dense ``weight`` [out, in]
+    back to ``kernel`` [in, out].  The inverse of :func:`from_jax_params`."""
+    def convert(node, linear: bool):
+        if isinstance(node, Mapping):
+            if linear and set(node) == {"weight", "bias"}:
+                return {"kernel": _cpu(node["weight"].t()),
+                        "bias": _cpu(node["bias"])}
+            return {k: convert(v, linear) for k, v in node.items()}
+        return _cpu(node)
+
+    layers = params["bert"]["layers"]
+    stacked = {}
+    for name in _LAYER_DENSE:
+        stacked[name] = {
+            "kernel": torch.stack([_cpu(lp[name]["weight"].t()) for lp in layers]),
+            "bias": torch.stack([_cpu(lp[name]["bias"]) for lp in layers])}
+    for name in _LAYER_LN:
+        stacked[name] = {k: torch.stack([_cpu(lp[name][k]) for lp in layers])
+                         for k in ("scale", "bias")}
+    bert = {k: convert(v, True) for k, v in params["bert"].items()
+            if k != "layers"}
+    bert["layers"] = stacked
+    out = {"bert": bert}
+    out.update({k: convert(v, k != "joint") for k, v in params.items()
+                if k != "bert"})
+    return out
+
+
+def to_jax_opt_state(state, train_cfg) -> Dict[str, Any]:
+    """The port's :class:`AdamWState` as ``flax.serialization.to_state_dict``
+    lays out the optax state of ``make_optimizer(train_cfg, ...)``: tuples
+    become {"0": ..., "1": ...}, named tuples their fields, ``EmptyState``
+    {}.  The chain is [clip_by_global_norm]? then ``optax.adamw`` (itself
+    scale_by_adam, masked add_decayed_weights, scale_by_learning_rate) when
+    nu is f32, else those three flattened into the chain; inside
+    ``MultiSteps`` when accumulating."""
+    def scalar(v):
+        return np.asarray(v, dtype=np.int32)
+
+    adam = [{"count": scalar(state.count), "mu": to_jax_params(state.mu),
+             "nu": to_jax_params(state.nu)},
+            {"inner_state": {}},             # masked add_decayed_weights
+            {"count": scalar(state.count)}]  # scale_by_schedule
+    parts = [{}] if train_cfg.max_grad_norm and train_cfg.max_grad_norm > 0 \
+        else []
+    if train_cfg.adam_nu_dtype == "float32":
+        parts.append({str(i): p for i, p in enumerate(adam)})
+    else:
+        parts.extend(adam)
+    chain = {str(i): p for i, p in enumerate(parts)}
+    if train_cfg.gradient_accumulation_steps <= 1:
+        return chain
+    return {"mini_step": scalar(state.mini_step),
+            "gradient_step": scalar(state.count),
+            "inner_opt_state": chain,
+            "acc_grads": to_jax_params(state.acc),
+            "skip_state": {}}
 
 
 def named_leaves(tree, prefix: str = ""):

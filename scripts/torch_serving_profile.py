@@ -2,11 +2,13 @@
 """Where the port's serving time goes on one NVIDIA GPU, and what the
 short-attention kernel is worth end to end.
 
-    python3 scripts/torch_serving_profile.py [--out FILE.json]
+    python3 scripts/torch_serving_profile.py [--quantize int8|int8_static]
+                                             [--out FILE.json]
 
-Serves a ragged synthetic MOSI split through ``msa_tpu_torch``'s bf16
-``Predictor`` with a full-width bert-large MMBert (random weights from a
-seed; B=96, L=40, as chip_smoke.py drives it), then:
+Serves a ragged synthetic MOSI split through ``msa_tpu_torch``'s
+``Predictor`` (bf16, or an int8 mode with static scales calibrated on the
+split's first two batches) with a full-width bert-large MMBert (random
+weights from a seed; B=96, L=40, as chip_smoke.py drives it), then:
 
   1. A/B, alternating in one process: samples/s with the short-attention
      kernel (``use_flash_attention="auto"``) against the plain attention
@@ -14,7 +16,11 @@ seed; B=96, L=40, as chip_smoke.py drives it), then:
   2. host enqueue against enqueue plus device time, per batch;
   3. ``torch.profiler`` over a few batches: device kernel time per batch
      by kernel name, in order, the kernels' sum and their union against
-     the wall time of the profiled region.
+     the wall time of the profiled region;
+  4. with ``--quantize``: each piece of the int8 projections (quantize
+     pass, int8 GEMM, dequant epilogue, ln_quant) timed alone at the
+     path's shapes with CUDA events and summed per batch, beside the bf16
+     GEMMs they replace.
 
 Prints one line per result and, last, a JSON object with every number;
 ``--out`` writes the same object to a file.
@@ -39,6 +45,8 @@ TEXT_LEN = 40
 FAMILIES = (
     ("short_attention", r"short_attention_fwd_kernel"),
     ("fused_joint_embed", r"fused_joint_embed_kernel"),
+    ("ln_quant", r"ln_quant_kernel"),
+    ("int8_gemm", r"s8|i8|int8|imma"),
     ("gemm", r"nvjet|gemm|cutlass|xmma|cublas"),
     ("layer_norm", r"layer_norm|LayerNorm"),
     ("gelu", r"gelu|GeluCUDA|tanh"),
@@ -52,12 +60,90 @@ def family(name: str) -> str:
     return "other"
 
 
+# cycles of the spin kernel that holds the stream while cuda_ms queues its
+# timed calls: ~25 ms at the H100's clock, longer than the host takes to
+# queue 20 calls of any function timed here
+HOLD_CYCLES = 50_000_000
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn``.  A spin kernel holds the stream while
+    the host queues every timed call, so the host's launch overhead (tens
+    of microseconds per wrapper call) does not pace a short kernel."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def int8_pieces(quantize: str, layers: int, hidden: int, ffn: int) -> dict:
+    """ms per batch of each piece of the int8 projections, each timed alone
+    at the path's row counts and multiplied by its count per batch (per
+    encoder call and layer: q, k, v, o at [H, H], wi [H, 4H], wo [4H, H];
+    quantize passes on the q/k/v input (one for the three), o's and wo's,
+    per row in ``int8``; on o's and wo's at a static scale in
+    ``int8_static``), beside the bf16 GEMMs."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops.ln_quant import ln_quant
+    from msa_tpu_torch.ops.quant import int8_matmul_pre, int8_mm, quantize_act
+
+    static = quantize == "int8_static"
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ascale = torch.tensor(4.0 / 127, device="cuda")
+    # (K, N, projections of that shape per layer)
+    projections = ((hidden, hidden, 4), (hidden, ffn, 1), (ffn, hidden, 1))
+    quantized_inputs = {hidden: 1 if static else 2, ffn: 1}
+    out = {"quantize": 0.0, "int8_gemm": 0.0, "dequant_epilogue": 0.0,
+           "ln_quant": 0.0, "bf16_gemm": 0.0}
+    for rows in (BATCH * TEXT_LEN, 2 * BATCH * 2 * TEXT_LEN):
+        for k, count in quantized_inputs.items():
+            x = torch.randn(rows, k, device="cuda", generator=gen).bfloat16()
+            sc = ascale if static else None
+            out["quantize"] += count * layers * cuda_ms(
+                lambda: quantize_act(x, sc))
+        for k, n, count in projections:
+            x = torch.randn(rows, k, device="cuda", generator=gen).bfloat16()
+            xi, row = quantize_act(x, ascale if static else None)
+            w = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                              device="cuda", generator=gen)
+            qs, b = torch.rand(n, device="cuda"), torch.zeros(n, device="cuda")
+            gemm = cuda_ms(lambda: int8_mm(xi, w))
+            both = cuda_ms(lambda: int8_matmul_pre(xi, row, w, qs, b,
+                                                   torch.bfloat16))
+            wb = torch.randn(n, k, device="cuda", generator=gen).bfloat16()
+            out["int8_gemm"] += count * layers * gemm
+            out["dequant_epilogue"] += count * layers * (both - gemm)
+            out["bf16_gemm"] += count * layers * cuda_ms(
+                lambda: F.linear(x, wb, b.bfloat16()))
+        x, res = (torch.randn(rows, hidden, device="cuda", generator=gen)
+                  .bfloat16() for _ in range(2))
+        ln = {"scale": torch.ones(hidden, device="cuda"),
+              "bias": torch.zeros(hidden, device="cuda")}
+        sites = 2 if static else 1
+        out["ln_quant"] += sites * layers * cuda_ms(
+            lambda: ln_quant(x, res, ln, 1e-12, ascale if static else None))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--samples", type=int, default=5 * BATCH - 23)
     ap.add_argument("--reps", type=int, default=4,
                     help="timed runs per arm of the A/B")
     ap.add_argument("--profile-batches", type=int, default=3)
+    ap.add_argument("--quantize", choices=["int8", "int8_static"], default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -80,7 +166,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "batch": BATCH,
-              "text_len": TEXT_LEN, "samples": args.samples}
+              "text_len": TEXT_LEN, "samples": args.samples,
+              "quantize": args.quantize}
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     cfg = exp.model
@@ -89,10 +176,16 @@ def main() -> int:
                             cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
                             seed=0)
 
+    calibration = dataclasses.replace(split, **{
+        f: getattr(split, f)[:2 * BATCH] for f in (
+            "input_ids", "attention_mask", "visual", "speech", "target")})
+
     def predictor(use_flash):
         e = dataclasses.replace(exp, train=dataclasses.replace(
             exp.train, use_flash_attention=use_flash))
-        return Predictor(e, params, BATCH, "cuda")
+        return Predictor(e, params, BATCH, "cuda", quantize=args.quantize,
+                         calibration=calibration
+                         if args.quantize == "int8_static" else None)
 
     arms = {"kernel": predictor("auto"), "plain": predictor("never")}
     for pred in arms.values():
@@ -178,6 +271,16 @@ def main() -> int:
         print(f"  {fam}: {ms:.3f} ms/batch ({100 * ms / p['kernel_ms_per_batch']:.1f} %)")
     for name, ms in p["top_kernels_ms_per_batch"].items():
         print(f"    {ms:8.3f} ms/batch  {name[:110]}")
+
+    # 4. the int8 projections piece by piece
+    if args.quantize:
+        bc = cfg.bert
+        pieces = int8_pieces(args.quantize, bc.num_hidden_layers,
+                             bc.hidden_size, bc.intermediate_size)
+        result["int8_pieces_ms_per_batch"] = pieces
+        print(f"{args.quantize} projections, each piece timed alone, ms per "
+              "batch (both encoder calls): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in pieces.items()), flush=True)
 
     if args.out:
         with open(args.out, "w") as f:

@@ -148,7 +148,7 @@ def test_predictor_bf16_on_cpu_tracks_f32():
 
 
 @pytest.mark.parametrize("train_kw,kw", [
-    ({}, {"quantize": "int8"}),
+    ({}, {"fuse_qkv": True}),
     ({"data_parallel": 2}, {}),
     ({"model_parallel": 2}, {}),
 ])
@@ -158,6 +158,18 @@ def test_predictor_refuses_what_is_not_ported(train_kw, kw):
                                                              **train_kw))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(exp, {}, 4, torch.device("cpu"), **kw)
+
+
+def test_predictor_runs_on_the_card_unless_asked_for_the_cpu():
+    """``Predictor(config, params)`` defaults to batch 8 on CUDA; without a
+    card that raises instead of quietly serving on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default would serve on it")
+    exp = experiment()
+    _, pred = both_predictors(exp)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(exp, pred.params)
+    assert Predictor(exp, pred.params, device="cpu").batch_size == 8
 
 
 def test_serve_stream_roundtrip_and_error_line():
@@ -201,14 +213,15 @@ def test_serve_stream_roundtrip_and_error_line():
 
 
 def test_port_imports_and_serves_without_jax():
-    """Every msa_tpu_torch module imports, a CPU Predictor serves and a
-    Trainer takes a train step, with jax AND the JAX package blocked (a
-    subprocess: this process already imported both).  The port reaches its
-    configs and data through its own copies."""
+    """Every msa_tpu_torch module imports, a CPU Predictor serves (bf16 and
+    int8) and a Trainer takes a train step, with jax, the JAX package, flax
+    and msgpack blocked (a subprocess: this process already imported them).
+    The port reaches its configs and data through its own copies."""
     code = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["msa_tpu"] = None
+BLOCKED = {"jax", "msa_tpu", "flax", "msgpack"}
+for name in BLOCKED:
+    sys.modules[name] = None
 import numpy as np, torch
 import msa_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(msa_tpu_torch.__path__,
@@ -233,13 +246,25 @@ params = init_params(exp.model, torch.Generator().manual_seed(0))
 split = synthetic_split(5, 12, 5, 7, vocab_size=120)
 out = Predictor(exp, params, 4, torch.device("cpu")).predict_split(split)
 assert out.shape == (5,) and np.isfinite(out).all()
+out = Predictor(exp, params, 4, "cpu", quantize="int8_static",
+                calibration=split).predict_split(split)
+assert out.shape == (5,) and np.isfinite(out).all()
 trainer = Trainer(exp, "cpu", mask_token_id=4, special_ids=(0, 2, 3, 4))
 state = trainer.init_state(0, 10, params=params)
 batch = next(MultimodalDataset(split).epoch_batches(0, 4))
 state, metrics = trainer.train_step(state, batch, base_seed=1)
 assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+import tempfile
+from msa_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint(d, state, exp, epoch=1)
+    back, meta = load_checkpoint(d, "cpu")
+    assert back.step == 1 and back.opt_state.count == 1 and meta["epoch"] == 1
+    out = Predictor.from_checkpoint(d, 4, "cpu",
+                                    quantize="int8").predict_split(split)
+    assert out.shape == (5,) and np.isfinite(out).all()
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
-assert not loaded & {"jax", "msa_tpu"}, loaded & {"jax", "msa_tpu"}
+assert not loaded & BLOCKED, loaded & BLOCKED
 print("modules", len(names))
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -247,16 +272,18 @@ print("modules", len(names))
                           text=True, env=env, cwd=REPO, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    # _build, configs, data x5, ops x7, models x3, training x3, utils x2,
+    # _build, configs, data x5, ops x9, models x3, training x5, utils x2,
     # inference, cli x2
-    assert n >= 25
+    assert n >= 29
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    """No file of msa_tpu_torch/, and not chip_smoke.py, imports jax or
-    msa_tpu (the port keeps its own copies of the host modules)."""
+    """No file of msa_tpu_torch/, and not chip_smoke.py, imports jax,
+    msa_tpu, flax or msgpack (the port keeps its own copies of the host
+    modules and its own checkpoint codec)."""
     pattern = re.compile(
-        r"^\s*(?:import|from)\s+(?:jax|msa_tpu)(?:\.|\s|$)", re.MULTILINE)
+        r"^\s*(?:import|from)\s+(?:jax|msa_tpu|flax|msgpack)(?:\.|\s|$)",
+        re.MULTILINE)
     files = sorted(glob.glob(os.path.join(REPO, "msa_tpu_torch", "**", "*.py"),
                              recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
