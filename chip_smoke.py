@@ -22,6 +22,11 @@ failure (no phase catches its own):
      * the fused joint embedding;
      * the fused residual + LayerNorm + int8 quantize, static and dynamic,
        at the int8 serving path's row counts;
+     * the flash2 forward (frame-level joint shape [32, 1024] in bf16, f32,
+       a ragged S=1030, S=4096), and its fused and split backward, each
+       forced, against autograd through the plain version and against each
+       other, with and without dropout, and its dropout against the short
+       kernel's at S=768 under one seed;
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
@@ -33,7 +38,11 @@ failure (no phase catches its own):
      CPU's (bit-equal), reports samples/s beside bf16's and the gap to the
      bf16 predictions, and checks f32 int8 card runs against the CPU
      (depth cut to INT8_F32_LAYERS);
-  5c. writes the weights as a checkpoint with the port's
+  5c. serves a frame-level split (B=16, L=40, Lp=984: joint pass [32,
+     1024]) with the same weights through the bf16 ``Predictor``, checks
+     the launches per batch (flash2 for the joint pass, the short kernel
+     for the text pass) and an f32 card run against the CPU at cut depth;
+  5d. writes the weights as a checkpoint with the port's
      ``save_checkpoint`` and runs ``python -m msa_tpu_torch.cli.serve
      --quantize int8_static`` on it as a subprocess, checking its answers
      against the in-process ``Predictor.from_checkpoint``;
@@ -42,9 +51,14 @@ failure (no phase catches its own):
      finite losses, moved parameters and the kernel launches per step,
      reports ms/step, samples/s, MFU and peak memory, and runs the
      deterministic eval step on the trained weights;
+  6b. trains bert-large in bf16 in frame-level mode (B=16, L=40, Lp=984)
+     for 2+4 steps with the fused flash2 backward, and one step at Lp=4056
+     (S=4096, depth cut to 2 layers), where the split backward runs,
+     checking the launches per step, losses and moved parameters;
   7. runs two f32 train steps of a small model on the card (TF32 off) and
      on the CPU from the same weights and MLM masks, and compares the
-     losses and the updated parameters.
+     losses, the first step's gradients and the updated parameters; then
+     the same in frame-level mode at S=1024 (flash2 in f32).
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -78,6 +92,10 @@ import time
 #  * rows whose keys are all masked: every score carries the -10000 fill,
 #    whose f32 ulp (2^-10) quantises the scores differently in the kernels'
 #    base-2 domain and the plain natural one.
+#  * flash2's fused backward sums dq over key blocks by f32 atomics, in an
+#    order that changes from run to run: S/64 partial sums in f32, ~1e-7
+#    relative, far inside the gradient tolerances; fused and split agree
+#    within them too.
 ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-2)}
 MASKED_ROW_ATOL = 1e-2
@@ -122,6 +140,19 @@ CLI_REQUESTS = 21     # valid JSONL lines of the service CLI phase
 CLI_BATCH = 8
 ATTN_DROPOUT = 0.1  # snapped to 26/256 on the kernel path
 KEEP_SHARE_SIGMAS = 4.0
+
+# frame-level mode (benchmarks/bench_frame_level.py's shape): B=16, L=40,
+# Lp=984 native-rate frames, so the joint pass is [32, 1024]
+FRAME_BATCH = 16
+FRAME_PAIR_LEN = 984
+FRAME_SERVE = 3 * FRAME_BATCH - 5   # three batches, the last one ragged
+FRAME_WARMUP = 2
+FRAME_STEPS = 4
+FRAME_F32_LAYERS = 2  # depth of the f32 frame-level card-vs-CPU check
+# the long-S step: S = 4096, where JAX's rule takes the split backward
+LONG_PAIR_LEN = 4056
+LONG_BATCH = 8
+LONG_LAYERS = 2
 
 BATCH = 96          # bench.py's batch
 TEXT_LEN = 40       # MOSI max_seq_length
@@ -420,13 +451,17 @@ def phase_joint_embed(gen):
 
     eps = 1e-12
     worst, times = 0.0, {}
-    # MOSI (47, 74) and UR-FUNNY (371) widths at Lp = L, and one Lp != L
-    for d, lp in ((47, TEXT_LEN), (74, TEXT_LEN), (371, TEXT_LEN), (74, 56)):
+    # MOSI (47, 74) and UR-FUNNY (371) widths at Lp = L, one Lp != L, and
+    # the frame-level rows (B=16 x Lp=984) at the MOSI widths
+    for d, lp, batch in ((47, TEXT_LEN, BATCH), (74, TEXT_LEN, BATCH),
+                         (371, TEXT_LEN, BATCH), (74, 56, BATCH),
+                         (47, FRAME_PAIR_LEN, FRAME_BATCH),
+                         (74, FRAME_PAIR_LEN, FRAME_BATCH)):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
-            text = torch.randn(BATCH, TEXT_LEN, HIDDEN, device="cuda",
+            text = torch.randn(batch, TEXT_LEN, HIDDEN, device="cuda",
                                generator=gen).to(dtype)
-            feats = torch.randn(BATCH, lp, d, device="cuda",
+            feats = torch.randn(batch, lp, d, device="cuda",
                                 generator=gen).to(dtype)
             feats[1, 30:] = 0.0  # padded frames
             w = torch.randn(d, HIDDEN, device="cuda", generator=gen) * 0.05
@@ -462,9 +497,9 @@ def phase_joint_embed(gen):
             itemsize = text.element_size()
             nbytes = ((text.numel() + feats.numel() + out.numel()) * itemsize
                       + (w.numel() + 3 * HIDDEN) * 4)
-            bound = bound_ms(nbytes, 2 * BATCH * lp * d * HIDDEN, dname)
+            bound = bound_ms(nbytes, 2 * batch * lp * d * HIDDEN, dname)
             times[(d, lp, dname)] = (ms, plain_ms, lib_ms, bound)
-            print(f"fused_joint_embed [{BATCH},{TEXT_LEN}+{lp},{HIDDEN}] "
+            print(f"fused_joint_embed [{batch},{TEXT_LEN}+{lp},{HIDDEN}] "
                   f"D={d} {dname}: max_abs_err {err:.3e} (atol {atol}, rtol "
                   f"{rtol}), autograd wrapper's gradients {grad_err:.3e}; "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -537,7 +572,172 @@ def phase_ln_quant(gen):
     return worst, times
 
 
+def phase_flash2(gen):
+    """The flash2 forward against its plain version: the frame-level joint
+    shape, f32, a ragged S with padded keys, and S = 4096."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops.flash2 import flash_attention2, flash_attention2_plain
+
+    cases = [("frame", 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN, torch.bfloat16),
+             ("frame", 2, TEXT_LEN + FRAME_PAIR_LEN, torch.float32),
+             ("s1030", 4, 1030, torch.bfloat16), ("s1030", 4, 1030, torch.float32),
+             ("s4096", 2, 4096, torch.bfloat16)]
+    worst, times = 0.0, {}
+    for label, b, s, dtype in cases:
+        dname = str(dtype).split(".")[1]
+        q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+        out = flash_attention2(q, k, v, bias, HEADS)
+        ref = flash_attention2_plain(q, k, v, bias, HEADS)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[dname]
+        err = check_close(f"flash_attention2 {label} {dname}", out, ref, atol,
+                          rtol, mask=live)
+        err_masked = check_close(f"flash_attention2 {label} {dname} masked row",
+                                 out, ref, MASKED_ROW_ATOL, 0.0, mask=~live)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: flash_attention2(q, k, v, bias, HEADS))
+        plain_ms = cuda_ms(lambda: flash_attention2_plain(q, k, v, bias, HEADS),
+                           iters=5)
+        sq, sk, sv, sm = sdpa_args(q, k, v, bias)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=sm))
+        nbytes = 4 * b * s * HIDDEN * q.element_size() + b * s * 4
+        bound = bound_ms(nbytes, 4 * b * s * s * HIDDEN, dname)
+        times[(label, dname)] = (ms, plain_ms, lib_ms, bound)
+        print(f"flash_attention2 [{b},{s},{HIDDEN}] {dname}: max_abs_err "
+              f"{err:.3e} (atol {atol}, rtol {rtol}), masked row "
+              f"{err_masked:.3e} (atol {MASKED_ROW_ATOL}); kernel {ms:.4f} ms"
+              f" ({4 * b * s * s * HIDDEN / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound[0]:.4f}"
+              f" ms ({bound[1]})", flush=True)
+    return worst, times
+
+
+def phase_flash2_backward(gen):
+    """The fused and the split flash2 backward, each forced, against autograd
+    through the plain version in f32 and against each other on the same
+    inputs; with dropout at B=2 (the plain version given keep_mask_plain);
+    and the flash2 forward's dropout against the short kernel's at S=768."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops.dropout import (
+        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.flash2 import (
+        _forward_kernel, flash_attention2, flash_attention2_backward,
+        flash_attention2_plain)
+    from msa_tpu_torch.ops.short_attention import short_attention
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    s_frame = TEXT_LEN + FRAME_PAIR_LEN
+    # (label, B, S, dtype, rate, the route timed)
+    cases = [("frame", 2 * FRAME_BATCH, s_frame, torch.bfloat16, 0.0, True),
+             ("s4096", 2, 4096, torch.bfloat16, 0.0, False),
+             ("frame", 2, s_frame, torch.float32, 0.0, False),
+             ("frame", 2, s_frame, torch.bfloat16, rate_on, True),
+             ("frame", 2, s_frame, torch.float32, rate_on, False)]
+    worst = {True: 0.0, False: 0.0}
+    times = {}
+    for label, b, s, dtype, rate, timed in cases:
+        dname = str(dtype).split(".")[1]
+        q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+        dout = torch.randn(b, s, HIDDEN, device="cuda", generator=gen).to(dtype)
+        seed = 4321 + s
+        threshold = byte_threshold(rate)
+        keep = (keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
+                if rate else None)
+        out, lse, ctx32 = _forward_kernel(q, k, v, bias, HEADS, seed,
+                                          threshold, train=True)
+        o32 = out if ctx32 is None else ctx32
+        got = {fused: flash_attention2_backward(
+            q, k, v, bias, o32, lse, dout, HEADS, seed, rate, fused=fused)
+            for fused in (True, False)}
+        refs = []  # autograd through the plain version in f32, in the dtype
+        for run_dtype in (torch.float32, dtype):
+            qq, kk, vv = (x.detach().to(run_dtype).requires_grad_()
+                          for x in (q, k, v))
+            o = flash_attention2_plain(qq, kk, vv, bias, HEADS, rate, keep)
+            refs.append(torch.autograd.grad(o, (qq, kk, vv), dout.to(run_dtype)))
+            if run_dtype == torch.float32:
+                ref_out = o.detach()
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[dname]
+        check_close(f"flash_attention2 {label} {dname} rate {rate:g} forward",
+                    out, ref_out, atol, rtol, mask=live)
+        gatol, grtol = GRAD_TOL[dname]
+        errs = {}
+        for fused in (True, False):
+            route = "fused" if fused else "split"
+            errs[fused] = 0.0
+            for name, g, r in zip(("dq", "dk", "dv"), got[fused], refs[0]):
+                tag = (f"flash2_bwd_{route} {label} [{b},{s}] {dname} rate "
+                       f"{rate:g} {name}")
+                errs[fused] = max(errs[fused], check_close(
+                    tag, g, r, gatol, grtol, mask=live))
+                check_close(tag + " masked row", g, r, MASKED_ROW_GRAD_ATOL,
+                            0.0, mask=~live)
+            worst[fused] = max(worst[fused], errs[fused])
+        between = max(check_close(
+            f"flash2 fused vs split {label} {dname} rate {rate:g} {name}",
+            gf, gs, gatol, grtol, mask=live)
+            for name, gf, gs in zip(("dq", "dk", "dv"), got[True], got[False]))
+        plain_err = max(float((a.float() - r)[live].abs().max())
+                        for a, r in zip(refs[1], refs[0]))
+        timing = ""
+        if rate == 0.0:
+            ms, other_ms = (cuda_ms(lambda: flash_attention2_backward(
+                q, k, v, bias, o32, lse, dout, HEADS, seed, rate,
+                fused=route), iters=10) for route in (timed, not timed))
+            qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+            o = flash_attention2_plain(qq, kk, vv, bias, HEADS)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                o, (qq, kk, vv), dout, retain_graph=True), iters=5)
+            sq, sk, sv, sm = sdpa_args(qq, kk, vv, bias)
+            lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+            lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                lib_out, (qq, kk, vv), lib_do, retain_graph=True), iters=10)
+            # bytes and products as for the short backward (see there)
+            nbytes = 7 * q.element_size() * b * s * HIDDEN + b * s * 4
+            bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
+            times[(label, dname, timed)] = (ms, plain_ms, lib_ms, bound)
+            timing = (f"; {'fused' if timed else 'split'} kernel {ms:.4f} ms "
+                      f"({10 * b * s * s * HIDDEN / ms / 1e9:.1f} TFLOP/s; the "
+                      f"{'split' if timed else 'fused'} route {other_ms:.4f} "
+                      f"ms), plain "
+                      f"{plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
+                      f"{bound[0]:.4f} ms ({bound[1]})")
+        print(f"flash2 backward [{b},{s},{HIDDEN}] {dname} rate {rate:g}: "
+              f"max_abs_err fused {errs[True]:.3e}, split {errs[False]:.3e} "
+              f"(atol {gatol}, rtol {grtol}; the plain version in {dname}: "
+              f"{plain_err:.3e}); fused vs split {between:.3e}{timing}",
+              flush=True)
+
+    # the same seed draws the same mask in both kernel families (S=768 is
+    # the short kernel's range; flash2 takes any S)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        q, k, v, bias, live = attention_inputs(gen, 4, 768, dtype)
+        a = flash_attention2(q, k, v, bias, HEADS, rate_on, 99)
+        b_ = short_attention(q, k, v, bias, HEADS, rate_on, 99)
+        c = flash_attention2(q, k, v, bias, HEADS, rate_on, 100)
+        torch.cuda.synchronize()
+        atol, rtol = ATTN_TOL[dname]
+        err = check_close(f"flash2 vs short dropout S=768 {dname}", a, b_,
+                          atol, rtol, mask=live)
+        if torch.allclose(a.float(), c.float(), atol=atol, rtol=rtol):
+            raise AssertionError("flash2 dropout: not a function of the seed")
+        print(f"flash2 vs short_attention with dropout {rate_on} at [4,768,"
+              f"{HIDDEN}] {dname}, same seed: max_abs_err {err:.3e}; the next"
+              " seed differs", flush=True)
+    return worst, times
+
+
 def kernel_counters():
+    from msa_tpu_torch.ops.flash2 import (
+        flash2_bwd_fused, flash2_bwd_split, flash_attention2)
     from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
     from msa_tpu_torch.ops.ln_quant import ln_quant_dynamic, ln_quant_static
     from msa_tpu_torch.ops.short_attention import (
@@ -548,11 +748,21 @@ def kernel_counters():
             "dropout_keep_mask": dropout_keep_mask,
             "fused_joint_embed": fused_joint_embed,
             "ln_quant_static": ln_quant_static,
-            "ln_quant_dynamic": ln_quant_dynamic}
+            "ln_quant_dynamic": ln_quant_dynamic,
+            "flash_attention2": flash_attention2,
+            "flash2_bwd_fused": flash2_bwd_fused,
+            "flash2_bwd_split": flash2_bwd_split}
 
 
 def kernel_counts():
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def expect_counts(**nonzero):
+    """Every counter 0 except those given."""
+    want = dict.fromkeys(kernel_counters(), 0)
+    want.update(nonzero)
+    return want
 
 
 def reset_counts():
@@ -629,11 +839,10 @@ def serving_launches(layers, n_batches, quantize=None):
     layer (mlp_in and the closing LayerNorm), int8 one (mlp_in)."""
     per_call = {None: (0, 0), "int8": (0, 1), "int8_static": (2, 0)}
     static, dynamic = per_call[quantize]
-    return {"short_attention": 2 * layers * n_batches,
-            "short_attention_backward": 0, "dropout_keep_mask": 0,
-            "fused_joint_embed": 2 * n_batches,
-            "ln_quant_static": 2 * static * layers * n_batches,
-            "ln_quant_dynamic": 2 * dynamic * layers * n_batches}
+    return expect_counts(short_attention=2 * layers * n_batches,
+                         fused_joint_embed=2 * n_batches,
+                         ln_quant_static=2 * static * layers * n_batches,
+                         ln_quant_dynamic=2 * dynamic * layers * n_batches)
 
 
 def phase_int8_serving(exp, params, pred16, split):
@@ -842,15 +1051,18 @@ def phase_service_cli(exp, params):
           f"equal to the in-process Predictor.from_checkpoint", flush=True)
 
 
-def phase_service(pred):
+def phase_service(pred, frames=None):
+    """JSONL lines through ``serve_stream``; ``frames``: a frame-level
+    model's native-rate rows per request (any count; past Lp they are cut),
+    else one row per word."""
     import numpy as np
 
     from msa_tpu_torch.cli.serve import serve_stream
     from msa_tpu_torch.data import FastTokenizer, make_test_vocab
 
     cfg = pred.config.model
-    vis = lambda n: [[0.1] * cfg.visual_dim] * n  # noqa: E731
-    spc = lambda n: [[0.2] * cfg.speech_dim] * n  # noqa: E731
+    vis = lambda n: [[0.1] * cfg.visual_dim] * (frames or n)  # noqa: E731
+    spc = lambda n: [[0.2] * cfg.speech_dim] * (frames or n)  # noqa: E731
     reqs = [
         json.dumps({"id": "a", "words": ["love", "this", "movie"],
                     "visual": vis(3), "speech": spc(3)}),
@@ -881,7 +1093,8 @@ def phase_service(pred):
         raise AssertionError(f"service: counts {counts}, lines {lines}")
     if not all(np.isfinite(p) and abs(p) <= 1.0 for p in answers.values()):
         raise AssertionError(f"service predictions {answers}")
-    print(f"serve_stream: answered {counts['answered']}, errors "
+    mode = "" if frames is None else f" (frame level, {frames} frames a request)"
+    print(f"serve_stream{mode}: answered {counts['answered']}, errors "
           f"{counts['errors']}, {seconds * 1e3:.1f} ms for the stream (one "
           "flush at EOF)", flush=True)
 
@@ -930,10 +1143,9 @@ def phase_training():
     peak = torch.cuda.max_memory_allocated()
 
     layers = cfg.bert.num_hidden_layers
-    want = {"short_attention": 2 * layers * TRAIN_STEPS,
-            "short_attention_backward": 2 * 2 * layers * TRAIN_STEPS,
-            "dropout_keep_mask": 0, "fused_joint_embed": 2 * TRAIN_STEPS,
-            "ln_quant_static": 0, "ln_quant_dynamic": 0}
+    want = expect_counts(short_attention=2 * layers * TRAIN_STEPS,
+                         short_attention_backward=2 * 2 * layers * TRAIN_STEPS,
+                         fused_joint_embed=2 * TRAIN_STEPS)
     if trainer.remat or launches != want:
         raise AssertionError(f"training: remat {trainer.remat}, launches "
                              f"{launches}, want {want} ({TRAIN_STEPS} steps)")
@@ -975,9 +1187,182 @@ def phase_training():
                       "mfu": trainer.mfu(sps), "peak_bytes": peak}
 
 
-def phase_f32_train():
+def frame_experiment(pair_len, layers=None, **train):
+    """bert-large MMBert on MOSI widths in frame-level mode (``pair_len``
+    native-rate frames per modality), depth cut to ``layers`` if given."""
+    from msa_tpu_torch.configs import build_experiment
+
+    exp = build_experiment("mosi", "bert-large-uncased", num_labels=1, **train)
+    data = dataclasses.replace(exp.data, pair_seq_length=pair_len)
+    bert = exp.model.bert
+    if layers is not None:
+        bert = dataclasses.replace(bert, num_hidden_layers=layers)
+    return dataclasses.replace(exp, data=data, model=dataclasses.replace(
+        exp.model, bert=bert))
+
+
+def cut_depth(params, layers):
+    return dict(params, bert=dict(params["bert"],
+                                  layers=params["bert"]["layers"][:layers]))
+
+
+def phase_frame_serving(params):
+    """The bf16 Predictor in frame-level mode (B=16, L=40, Lp=984: the joint
+    pass is [32, 1024], the flash2 forward's range) on the bf16 phase's
+    weights, then an f32 card run against the CPU at cut depth."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import to_device
+
+    exp = frame_experiment(FRAME_PAIR_LEN)
+    cfg = exp.model
+    split = synthetic_split(FRAME_SERVE, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=1, pair_seq_length=FRAME_PAIR_LEN)
+    pred = Predictor(exp, params, FRAME_BATCH, "cuda")
+    n_batches = -(-FRAME_SERVE // FRAME_BATCH)
+    pred.predict_split(split)  # warm
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pred.predict_split(split)  # ends in a device-to-host copy
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    t1 = time.perf_counter()
+    pred.predict_split(split)
+    seconds_again = time.perf_counter() - t1
+    layers = cfg.bert.num_hidden_layers
+    want = expect_counts(short_attention=layers * n_batches,
+                         flash_attention2=layers * n_batches,
+                         fused_joint_embed=2 * n_batches)
+    if launches != want:
+        raise AssertionError(f"frame-level serving launches {launches}, want "
+                             f"{want} ({n_batches} batches)")
+    if out.shape != (FRAME_SERVE,) or not np.isfinite(out).all() or \
+            np.abs(out).max() > 1.0:
+        raise AssertionError(f"frame-level predictions: shape {out.shape}, "
+                             f"max |p| {np.abs(out).max()}")
+    per_batch = {k: v // n_batches for k, v in launches.items() if v}
+    print(f"frame-level serving bf16 bert-large B={FRAME_BATCH} L={TEXT_LEN} "
+          f"Lp={FRAME_PAIR_LEN} (joint pass [{2 * FRAME_BATCH},"
+          f"{TEXT_LEN + FRAME_PAIR_LEN}]): {FRAME_SERVE} samples in "
+          f"{n_batches} batches, {FRAME_SERVE / seconds:.2f} samples/s "
+          f"({seconds * 1e3 / n_batches:.1f} ms per batch; again "
+          f"{FRAME_SERVE / seconds_again:.2f} samples/s); launches per batch "
+          f"{per_batch}", flush=True)
+    phase_service(pred, frames=FRAME_PAIR_LEN + 200)
+
+    # f32 on the card (no TF32) against the CPU plain run, depth cut
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp32 = frame_experiment(FRAME_PAIR_LEN, FRAME_F32_LAYERS,
+                             compute_dtype="float32")
+    cut = cut_depth(params, FRAME_F32_LAYERS)
+    rows = [0, FRAME_SERVE - 1]
+    sub = [np.asarray(x)[rows] for x in (split.input_ids, split.attention_mask,
+                                          split.visual, split.speech)]
+    gpu32 = Predictor(exp32, cut, len(rows), "cuda").predict_arrays(*sub)
+    cpu32 = Predictor(exp32, to_device(cut, "cpu"), len(rows),
+                      "cpu").predict_arrays(*sub)
+    err32 = float(np.abs(gpu32 - cpu32).max())
+    if not err32 <= F32_PRED_ATOL:
+        raise AssertionError(f"frame-level f32 card vs CPU predictions differ "
+                             f"by {err32:.3e} > {F32_PRED_ATOL}")
+    print(f"frame-level f32 card vs CPU plain ({FRAME_F32_LAYERS} layers at "
+          f"full width, {len(rows)} samples): max |diff| {err32:.3e} (atol "
+          f"{F32_PRED_ATOL})", flush=True)
+    return launches, FRAME_SERVE / seconds
+
+
+def phase_frame_training(pair_len, batch, layers, warmup, steps, label):
+    """bf16 train steps in frame-level mode (MOSI widths, the default
+    dropouts, MLM on, bf16 Adam moments): finite losses, moved parameters
+    and the kernel launches per step, with the joint pass's backward on the
+    route JAX's rule gives its length."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.ops.flash2 import use_fused_backward
+    from msa_tpu_torch.training.trainer import Trainer
+
+    exp = frame_experiment(pair_len, layers, train_batch_size=batch,
+                           compute_dtype="bfloat16", warmup_proportion=0.01,
+                           adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                           data_parallel=1)
+    cfg = exp.model
+    trainer = Trainer(exp, "cuda")
+    state = trainer.init_state(0, total_steps=10_000)
+    split = synthetic_split(2 * batch, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=2, pair_seq_length=pair_len)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, batch, drop_last=True))
+    watch = {"bert/layers/0/q/weight": state.params["bert"]["layers"][0]["q"]["weight"],
+             "joint/Wv/kernel": state.params["joint"]["Wv"]["kernel"]}
+    before = {k: v.detach().clone() for k, v in watch.items()}
+    for i in range(warmup):
+        state, metrics = trainer.train_step(state, batches[i % len(batches)], 1)
+        float(metrics["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_metrics = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, metrics = trainer.train_step(state, batches[i % len(batches)], 1)
+        step_metrics.append(metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n = cfg.bert.num_hidden_layers
+    seq = TEXT_LEN + pair_len
+    fused = use_fused_backward(seq, cfg.bert.hidden_size,
+                               cfg.bert.num_attention_heads, torch.bfloat16)
+    want = expect_counts(short_attention=n * steps,
+                         short_attention_backward=2 * n * steps,
+                         flash_attention2=n * steps,
+                         flash2_bwd_fused=n * steps if fused else 0,
+                         flash2_bwd_split=0 if fused else 2 * n * steps,
+                         fused_joint_embed=2 * steps)
+    if trainer.remat or launches != want:
+        raise AssertionError(f"{label} training: remat {trainer.remat}, "
+                             f"launches {launches}, want {want}")
+    host = [{k: float(v) for k, v in m.items()} for m in step_metrics]
+    if not all(all(x == x and abs(x) < float("inf") for x in m.values())
+               for m in host):
+        raise AssertionError(f"{label} training: non-finite metrics {host}")
+    if any(m["mlm_overflow"] for m in host) or not all(m["mlm_loss"] > 0
+                                                       for m in host):
+        raise AssertionError(f"{label} training: MLM loss or gather cap {host}")
+    moved = {k: float((watch[k].detach() - before[k]).abs().max())
+             for k in watch}
+    if not all(x > 0 for x in moved.values()):
+        raise AssertionError(f"{label} training: parameters did not move {moved}")
+    ms_step = seconds * 1e3 / steps
+    sps = batch * steps / seconds
+    per_step = {k: v // steps for k, v in launches.items() if v}
+    print(f"{label} training bf16 bert-large ({n} layers) B={batch} "
+          f"L={TEXT_LEN} Lp={pair_len} (joint pass [{2 * batch},{seq}], "
+          f"{'fused' if fused else 'split'} flash2 backward; remat off: "
+          f"activations ~{trainer.activation_bytes() / 1e9:.1f} GB estimated):"
+          f" {steps} steps after {warmup} warm-up, {ms_step:.2f} ms/step, "
+          f"{sps:.2f} samples/s, MFU {trainer.mfu(sps):.4f} (of 989 TFLOP/s "
+          f"bf16), peak memory {peak / 2**30:.2f} GiB; launches per step "
+          f"{per_step}; losses {[round(m['loss'], 4) for m in host]}; max "
+          f"|update| {moved}", flush=True)
+    return launches, {"ms_step": ms_step, "samples_per_s": sps,
+                      "mfu": trainer.mfu(sps), "peak_bytes": peak}
+
+
+def phase_f32_train(pair_len=None, batch_size=8):
     """Two f32 train steps of a small model, card against CPU, same weights
-    and injected MLM masks, dropout 0, TF32 off."""
+    and injected MLM masks, dropout 0, TF32 off.  ``pair_len``: frame-level
+    mode with that many frames (at L + Lp = 1024 the joint pass runs the
+    flash2 kernels in f32)."""
     import numpy as np
     import torch
 
@@ -987,6 +1372,7 @@ def phase_f32_train():
     from msa_tpu_torch.models.weights import init_params, named_leaves
     from msa_tpu_torch.training.trainer import Trainer
 
+    mode = "" if pair_len is None else f", frame level L={TEXT_LEN} Lp={pair_len}"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bert = BertConfig(hidden_size=256, num_hidden_layers=4,
@@ -995,13 +1381,16 @@ def phase_f32_train():
     exp = ExperimentConfig(
         model_name="small",
         model=MMBertConfig(bert=bert, joint_dropout_prob=0.0),
-        data=DataConfig(max_seq_length=TEXT_LEN),
-        train=TrainConfig(compute_dtype="float32", train_batch_size=8,
+        data=DataConfig(max_seq_length=TEXT_LEN, pair_seq_length=pair_len),
+        train=TrainConfig(compute_dtype="float32",
+                          train_batch_size=batch_size,
                           data_parallel=1, warmup_proportion=0.0))
     params = init_params(exp.model, torch.Generator().manual_seed(3))
-    split = synthetic_split(16, TEXT_LEN, exp.model.visual_dim,
-                            exp.model.speech_dim, seed=4)
-    batches = list(MultimodalDataset(split, seed=5).epoch_batches(0, 8))
+    split = synthetic_split(2 * batch_size, TEXT_LEN, exp.model.visual_dim,
+                            exp.model.speech_dim, seed=4,
+                            pair_seq_length=pair_len)
+    batches = list(MultimodalDataset(split, seed=5).epoch_batches(
+        0, batch_size))
     rng = np.random.default_rng(6)
     for batch in batches:
         ids = batch["text_ids"]
@@ -1057,13 +1446,14 @@ def phase_f32_train():
             and moved > 5 * F32_PARAM_ATOL and grad_ratio <= 1.0
             and len(zero) < len(cg) // 2):
         raise AssertionError(
-            f"f32 train card vs CPU: loss rel err {loss_err:.3e} (rtol "
+            f"f32 train{mode} card vs CPU: loss rel err {loss_err:.3e} (rtol "
             f"{F32_LOSS_RTOL}), param err {param_err:.3e} (atol "
             f"{F32_PARAM_ATOL}), params moved {moved:.3e}, first-step "
             f"gradients: {worst_leaf} at {grad_ratio:.3e} of its tolerance "
             f"(rtol {F32_GRAD_RTOL}, floor {floor:.3e}), zero-gradient "
             f"leaves {zero}")
-    print(f"f32 train steps (4 layers, H=256) card vs CPU plain: losses "
+    print(f"f32 train steps (4 layers, H=256, B={batch_size}{mode}) card vs CPU "
+          f"plain: losses "
           f"{[round(x, 6) for x in gl]} vs {[round(x, 6) for x in cl]}, max "
           f"rel err {loss_err:.3e} (rtol {F32_LOSS_RTOL}); first-step "
           f"gradients of {len(cg)} leaves: worst relative 2-norm error "
@@ -1113,23 +1503,38 @@ def main() -> int:
     embed_err, embed_times = phase_joint_embed(gen)
     lnq_err, lnq_times = phase_ln_quant(gen)
 
+    f2_err, f2_times = phase_flash2(gen)
+    f2_bwd_err, f2_bwd_times = phase_flash2_backward(gen)
+
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
     pred, split, serve_launches = phase_serving(exp, params)
     phase_service(pred)
     int8_launches, _ = phase_int8_serving(exp, params, pred, split)
     del pred
+    frame_serve_launches, _ = phase_frame_serving(params)
     phase_service_cli(exp, params)
     del params
     torch.cuda.empty_cache()
     train_launches, _ = phase_training()
     torch.cuda.empty_cache()
+    frame_train_launches, _ = phase_frame_training(
+        FRAME_PAIR_LEN, FRAME_BATCH, None, FRAME_WARMUP, FRAME_STEPS,
+        "frame-level")
+    torch.cuda.empty_cache()
+    long_launches, _ = phase_frame_training(
+        LONG_PAIR_LEN, LONG_BATCH, LONG_LAYERS, 1, 1, "long-S")
+    torch.cuda.empty_cache()
     phase_f32_train()
+    phase_f32_train(pair_len=FRAME_PAIR_LEN, batch_size=4)
 
     def paths(name):
         return {"serving": serve_launches[name], "training": train_launches[name],
                 "serving_int8": int8_launches["int8"][name],
-                "serving_int8_static": int8_launches["int8_static"][name]}
+                "serving_int8_static": int8_launches["int8_static"][name],
+                "frame_serving": frame_serve_launches[name],
+                "frame_training": frame_train_launches[name],
+                "long_training": long_launches[name]}
 
     joint = ("joint", "bfloat16")
     kernels = [
@@ -1164,6 +1569,20 @@ def main() -> int:
                      int8_launches["int8"]["ln_quant_dynamic"],
                      lnq_err["dynamic"],
                      lnq_times[("dynamic",) + joint], paths("ln_quant_dynamic")),
+        kernel_entry("flash2_fwd", "msa_tpu_torch/csrc/flash2.cu",
+                     "msa_tpu/ops/flash2.py:121",
+                     frame_train_launches["flash_attention2"], f2_err,
+                     f2_times[("frame", "bfloat16")], paths("flash_attention2")),
+        kernel_entry("flash2_bwd_fused", "msa_tpu_torch/csrc/flash2.cu",
+                     "msa_tpu/ops/flash2.py:355",
+                     frame_train_launches["flash2_bwd_fused"], f2_bwd_err[True],
+                     f2_bwd_times[("frame", "bfloat16", True)],
+                     paths("flash2_bwd_fused")),
+        kernel_entry("flash2_bwd_split", "msa_tpu_torch/csrc/flash2.cu",
+                     "msa_tpu/ops/flash2.py:224",
+                     long_launches["flash2_bwd_split"], f2_bwd_err[False],
+                     f2_bwd_times[("s4096", "bfloat16", False)],
+                     paths("flash2_bwd_split")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

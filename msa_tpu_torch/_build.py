@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/msa_tpu_torch/<name>-<hash>.so`` at the repository root, where
-``<hash>`` covers the source text and the compiler flags: a library is
-rebuilt only when its source (or the flags) change.  Building a file with a
-C interface takes seconds, against minutes for an extension that includes
-PyTorch's headers.  The build happens at first use, never at import, and a
-failed build raises -- nothing falls back to the plain PyTorch versions.
+``<hash>`` covers the source text, the shared headers ``csrc/*.cuh`` and
+the compiler flags: a library is rebuilt only when one of them changes.
+Building a file with a C interface takes seconds, against minutes for an
+extension that includes PyTorch's headers.  The build happens at first
+use, never at import, and a failed build raises -- nothing falls back to
+the plain PyTorch versions.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers in ``msa_tpu_torch.ops`` raise on a non-zero code.
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "msa_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("short_attention", "fused_joint_embed", "ln_quant")
+KERNELS = ("short_attention", "fused_joint_embed", "ln_quant", "flash2")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
 
 _lock = threading.Lock()
@@ -54,8 +55,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -38,17 +38,10 @@
 //   * the dot products run on the CUDA cores in f32; the tensor cores
 //     (mma.sync / wgmma) are later work.
 //
-// Dropout.  The TPU kernels draw from the TPU's own PRNG, which cannot be
-// reproduced here.  The port defines the keep decision of element
-// (b, head, i, j) of the [B, heads, S, S] probabilities by its index and the
-// seed alone, with Philox4x32-10 (Salmon et al., SC'11; the generator
-// behind curand's Philox): key = the 64-bit seed, counter = (j / 16,
-// (b * heads + head) * S + i, 0, 0); the four 32-bit outputs give 16 bytes,
-// byte (j % 16) deciding key j: keep iff byte >= t, for the rate snapped to
-// t/256 (four decisions per 32-bit draw, as the TPU kernel takes them).
-// Kept probabilities are scaled by 256 / (256 - t).  So the forward, both
-// backward launches and the export entry compute the same mask whatever
-// their tiling; ops/dropout.py holds the same rule in plain PyTorch.
+// Dropout: the rule of dropout.cuh (Philox4x32-10 of the seed and the
+// element's index), so the forward, both backward launches, the export
+// entry and flash2.cu's kernels compute the same mask whatever their
+// tiling; ops/dropout.py holds the same rule in plain PyTorch.
 //
 // The TPU kernels' block-diagonal lane packing (_block_diag_rows) answers
 // the TPU's 128-lane matrix unit and has no counterpart here.
@@ -58,7 +51,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout.cuh"
+
 namespace {
+
+using msa_dropout::Dropout;
+using msa_dropout::keep_bits16;
+using msa_dropout::kGroup;
+using msa_dropout::make_dropout;
 
 constexpr int kHeadDim = 64;
 constexpr int kKeyTile = 64;    // forward / dq: keys staged per tile
@@ -66,55 +66,10 @@ constexpr int kQueryTile = 64;  // dk/dv: queries staged per tile
 constexpr int kKeyChunk = 16;   // keys scored per online-softmax update
 constexpr int kMaxRows = 128;   // query (or key) rows per CTA
 constexpr int kMaxThreads = 2 * kMaxRows;
-constexpr int kGroup = 16;      // keys decided by one Philox draw
 constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kKeyTile % kKeyChunk == 0, "chunks must tile the key tile");
 static_assert(kKeyChunk == kGroup, "one Philox draw per key chunk");
-
-struct Dropout {
-  uint32_t key0, key1;  // the seed
-  int threshold;        // t: keep iff byte >= t; 0 = no dropout
-  float scale;          // 256 / (256 - t)
-};
-
-// Philox4x32-10: 10 rounds, the key bumped between rounds.
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                               uint32_t k0, uint32_t k1) {
-  uint32_t c2 = 0u, c3 = 0u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-// Keep bits of the 16 keys [16 * group, 16 * group + 16) of probability row
-// `row` ((b * heads + head) * S + i): bit jj set iff key 16*group + jj is kept.
-__device__ __forceinline__ uint32_t keep_bits16(const Dropout& d, uint32_t group,
-                                                uint32_t row) {
-  const uint4 w = philox4x32_10(group, row, d.key0, d.key1);
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-  const uint32_t t = (uint32_t)d.threshold;
-  uint32_t bits = 0u;
-#pragma unroll
-  for (int jj = 0; jj < kGroup; ++jj) {
-    const uint32_t byte = (words[jj >> 2] >> (8 * (jj & 3))) & 0xFFu;
-    bits |= (byte >= t ? 1u : 0u) << jj;
-  }
-  return bits;
-}
 
 // 16-byte vector loads/stores between global memory (storage type) and f32.
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -564,15 +519,6 @@ __global__ void dropout_keep_mask_kernel(uint8_t* __restrict__ out, int rows,
 void tiles(int seq, int* n_tiles, int* rows) {
   *n_tiles = (seq + kMaxRows - 1) / kMaxRows;
   *rows = ((seq + *n_tiles - 1) / *n_tiles + 15) / 16 * 16;
-}
-
-Dropout make_dropout(unsigned seed_lo, unsigned seed_hi, int threshold) {
-  Dropout d;
-  d.key0 = seed_lo;
-  d.key1 = seed_hi;
-  d.threshold = threshold;
-  d.scale = threshold > 0 ? 256.f / (float)(256 - threshold) : 1.f;
-  return d;
 }
 
 template <typename T, bool kDropout, bool kTrain>

@@ -1,17 +1,22 @@
 """Multi-head attention: dispatch between the CUDA kernels and plain PyTorch.
 
 Counterpart of ``msa_tpu/ops/attention.py::multi_head_attention``, keyed on
-the tensor's device instead of ``on_tpu``:
+the tensor's device instead of ``on_tpu`` (:func:`attention_route`):
 
-  * CUDA, S < 1024: the short-attention kernels (``ops/short_attention.py``),
-    forward and backward, with attention dropout inside the kernels at the
-    rate snapped to t/256 (as JAX snaps it for its kernel);
-  * CUDA, S >= 1024: ``NotImplementedError`` -- the blockwise flash2
-    kernels are not ported yet (ROADMAP, frame-level slice);
-  * CPU: the plain path; dropout there is a bernoulli mask at the unsnapped
-    rate, like ``_xla_attention`` (what JAX does off the TPU);
-  * ``use_flash="never"``: the plain path on every device, as in JAX.
+  * CUDA, ``use_flash="auto"``: the short-attention kernels
+    (``ops/short_attention.py``) for S < 1024, the blockwise flash2 kernels
+    (``ops/flash2.py``) from S = 1024, JAX's ``_FLASH_MIN_SEQ``.  JAX hands
+    512 < S < 1024 to XLA's plain attention here (its short kernel stops at
+    512); the port's short kernels take that range, since a kernel beats
+    the plain path on the card;
+  * CUDA, ``use_flash="always"``: short for S <= 512, flash2 above, JAX's
+    own ``always`` split;
+  * ``use_flash="never"``, or CPU tensors: the plain path.  Dropout there
+    is a bernoulli mask at the unsnapped rate, like ``_xla_attention``
+    (what JAX does off the TPU).
 
+Both kernel families take attention dropout inside the kernels, at the rate
+snapped to t/256 (as JAX snaps it for its kernels), with one mask rule.
 Dropout is active when ``deterministic`` is False, ``dropout_rate`` > 0 and
 a ``seed`` is given; the seed keys the kernels' Philox mask, or seeds the
 generator of the plain path's bernoulli draw.
@@ -24,10 +29,24 @@ from typing import Optional
 import torch
 
 from .dropout import quantize_dropout_rate, seeded_generator
-from .short_attention import MAX_SEQ as SHORT_MAX_SEQ
+from .flash2 import flash_attention2
 from .short_attention import short_attention, short_attention_plain
 
 USE_FLASH = ("auto", "always", "never")
+FLASH_MIN_SEQ = 1024        # "auto": flash2 from here (JAX's _FLASH_MIN_SEQ)
+ALWAYS_SHORT_MAX_SEQ = 512  # "always": short up to here (JAX's _SHORT_MAX_SEQ)
+
+
+def attention_route(use_flash: str, seq: int, on_cuda: bool) -> str:
+    """Which attention runs: "short", "flash2" or "plain"."""
+    if use_flash not in USE_FLASH:
+        raise ValueError(f"use_flash must be one of {USE_FLASH}, "
+                         f"got {use_flash!r}")
+    if use_flash == "never" or not on_cuda:
+        return "plain"
+    if use_flash == "always":
+        return "short" if seq <= ALWAYS_SHORT_MAX_SEQ else "flash2"
+    return "short" if seq < FLASH_MIN_SEQ else "flash2"
 
 
 def _plain_with_dropout(q, k, v, key_bias, num_heads, rate, seed):
@@ -43,22 +62,16 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          deterministic: bool = True,
                          use_flash: str = "auto") -> torch.Tensor:
     """q/k/v [B, S, H], bias [B, 1, 1, S] additive key mask -> [B, S, H]."""
-    if use_flash not in USE_FLASH:
-        raise ValueError(f"use_flash must be one of {USE_FLASH}, "
-                         f"got {use_flash!r}")
+    route = attention_route(use_flash, q.shape[1], q.is_cuda)
     key_bias = bias[:, 0, 0, :]
     dropout = (not deterministic) and dropout_rate > 0.0 and seed is not None
-    if use_flash == "never" or not q.is_cuda:
+    if route == "plain":
         if dropout:
             return _plain_with_dropout(q, k, v, key_bias, num_heads,
                                        dropout_rate, seed)
         return short_attention_plain(q, k, v, key_bias, num_heads)
-    if q.shape[1] > SHORT_MAX_SEQ:
-        raise NotImplementedError(
-            f"attention at S={q.shape[1]} > {SHORT_MAX_SEQ} needs the flash2 "
-            "kernel, which is not ported yet (ROADMAP: frame-level slice); "
-            "use_flash='never' runs the plain path")
+    kernel = short_attention if route == "short" else flash_attention2
     if dropout:
-        return short_attention(q, k, v, key_bias, num_heads,
-                               quantize_dropout_rate(dropout_rate), seed)
-    return short_attention(q, k, v, key_bias, num_heads)
+        return kernel(q, k, v, key_bias, num_heads,
+                      quantize_dropout_rate(dropout_rate), seed)
+    return kernel(q, k, v, key_bias, num_heads)

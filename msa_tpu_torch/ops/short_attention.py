@@ -10,8 +10,9 @@ f32 mask, the softmax runs in f32, no gradient flows to the bias or the
 seed.  The kernels (``csrc/short_attention.cu``) take float32 and bfloat16,
 S < 1024 and head dim 64 (bert-base and bert-large); the source's header
 says what bounds them on the H100 and how they are laid out.  JAX hands
-512 < S < 1024 to XLA; here the kernels cover it.  S >= 1024 is the
-blockwise flash2 kernels' range, not ported yet.
+512 < S < 1024 to XLA under ``use_flash="auto"``; here these kernels take
+it (``ops/attention.py`` routes), and S >= 1024 goes to the blockwise
+flash2 kernels (``ops/flash2.py``).
 
 Dropout takes a rate snapped to t/256 and a 64-bit seed; the keep mask is
 the function of (seed, element index) that ``ops/dropout.py`` defines, so
@@ -82,7 +83,9 @@ def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.reshape(b, s, h)
 
 
-def _check(q, k, v, key_bias, num_heads, what):
+def _check(q, k, v, key_bias, num_heads, what, max_seq=MAX_SEQ):
+    """Raise unless q, k, v and key_bias fit the attention kernels (the
+    flash2 wrappers share it with ``max_seq=None``)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     b, s, h = q.shape
@@ -92,8 +95,8 @@ def _check(q, k, v, key_bias, num_heads, what):
     if h % num_heads or h // num_heads != HEAD_DIM:
         raise ValueError(f"{what}: head dim {h / num_heads:g} not supported "
                          f"(the kernels take {HEAD_DIM})")
-    if s > MAX_SEQ:
-        raise ValueError(f"{what}: S={s} > {MAX_SEQ}")
+    if max_seq is not None and s > max_seq:
+        raise ValueError(f"{what}: S={s} > {max_seq}")
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{what}: {name} {tuple(x.shape)} {x.dtype} "
@@ -103,11 +106,11 @@ def _check(q, k, v, key_bias, num_heads, what):
                          f"{key_bias.device}, want ({b}, {s}) on {q.device}")
 
 
-def _aligned(*xs):
+def _aligned(*xs, what="short_attention"):
     out = [x.contiguous() for x in xs]
     for x in out:
         if x.data_ptr() % 16:
-            raise ValueError("short_attention: tensors must be 16-byte aligned")
+            raise ValueError(f"{what}: tensors must be 16-byte aligned")
     return out
 
 
@@ -119,12 +122,15 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
-    """Launch the forward kernel; returns (ctx, lse, ctx32).  ``train``:
-    also the row lse [B, heads, S] and the output in f32 (``ctx`` itself for
-    f32 inputs), which the backward reads; else both are None."""
+def launch_forward(entry, what, q, k, v, key_bias, num_heads, seed,
+                   threshold, train):
+    """Launch an attention forward kernel through its C ``entry`` (the
+    short and the flash2 forwards share one signature); returns (ctx, lse,
+    ctx32).  ``train``: also the row lse [B, heads, S] (log2 units) and the
+    output in f32 (``ctx`` itself for f32 inputs), which the backward
+    reads; else both are None."""
     b, s, h = q.shape
-    q, k, v = _aligned(q, k, v)
+    q, k, v = _aligned(q, k, v, what=what)
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     lse = out32 = None
@@ -133,16 +139,24 @@ def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
                           device=q.device)
         out32 = out if q.dtype == torch.float32 else torch.empty(
             q.shape, dtype=torch.float32, device=q.device)
-    lib = _build.load("short_attention", _SIGNATURES)
-    code = lib.msa_short_attention_fwd(
+    code = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
         None if out32 is None or out32 is out else out32.data_ptr(), b, s, h,
         num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM),
         *_seed_words(seed), threshold, _stream(q))
-    _build.check(code, "short_attention")
-    short_attention.launches += 1
+    _build.check(code, what)
     return out, lse, out32
+
+
+def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
+    """The short forward kernel (:func:`launch_forward`)."""
+    lib = _build.load("short_attention", _SIGNATURES)
+    result = launch_forward(lib.msa_short_attention_fwd, "short_attention",
+                            q, k, v, key_bias, num_heads, seed, threshold,
+                            train)
+    short_attention.launches += 1
+    return result
 
 
 def short_attention_backward(q, k, v, key_bias, out32, lse, dout,

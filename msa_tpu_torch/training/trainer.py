@@ -8,10 +8,11 @@ the backward and the AdamW update.  PyTorch runs eagerly, so there is no
 step to build: :meth:`Trainer.train_step` is the step.
 
 On a CUDA device the step runs the hand-written kernels (attention forward
-and backward with in-kernel dropout, the joint embedding); on the CPU their
-plain versions.  The device is the card unless the caller passes ``"cpu"``.
-``fit``, checkpoints and the command-line entries are not ported yet
-(ROADMAP: fit loop, checkpoints and CLIs).
+and backward with in-kernel dropout -- the short kernels, or flash2 for a
+frame-level joint pass at S >= 1024 -- and the joint embedding); on the CPU
+their plain versions.  The device is the card unless the caller passes
+``"cpu"``.  ``fit`` and the command-line entries are not ported yet
+(ROADMAP: fit loop and CLIs; checkpoints are ``training/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -47,7 +48,10 @@ _METRICS = ("loss", "mlm_loss", "ap_loss", "label_loss", "nce", "mlm_overflow")
 # up-projection and its gelu (2 x 4), and two bool dropout masks (~1): ~21
 # elements of H, rounded up to 22.  bert-large at B=96 in bf16: 19,200
 # tokens x 22 x 2 B x 1024 x 24 layers = ~20.8 GB, i.e. roughly 0.9 GB per
-# layer.  "Fit comfortably" is half the card's memory:
+# layer; in frame-level mode at B=16, L=40, Lp=984, 33,408 tokens: ~36.1
+# GB (36.0 GiB peak measured on an 80 GB H100, no checkpointing; the
+# flash2 kernels keep no [S, S] tensor).  "Fit comfortably" is half the
+# card's memory:
 # the rest holds the f32 weights, their gradients, the Adam moments and the
 # optimizer's f32 temporaries (~20 B per parameter, 6.7 GB at bert-large),
 # the MLM head's logits and the allocator's slack.

@@ -4,14 +4,18 @@ short-attention kernel is worth end to end.
 
     python3 scripts/torch_serving_profile.py [--quantize int8|int8_static]
                                              [--out FILE.json]
+    python3 scripts/torch_serving_profile.py --pair-seq-length 984 --batch 16
 
 Serves a ragged synthetic MOSI split through ``msa_tpu_torch``'s
 ``Predictor`` (bf16, or an int8 mode with static scales calibrated on the
 split's first two batches) with a full-width bert-large MMBert (random
-weights from a seed; B=96, L=40, as chip_smoke.py drives it), then:
+weights from a seed; B=96, L=40, as chip_smoke.py drives it; with
+``--pair-seq-length Lp`` in frame-level mode, Lp frames per modality, so
+the joint pass runs at S = 40 + Lp and, from 1024, on the flash2 kernel),
+then:
 
-  1. A/B, alternating in one process: samples/s with the short-attention
-     kernel (``use_flash_attention="auto"``) against the plain attention
+  1. A/B, alternating in one process: samples/s with the attention
+     kernels (``use_flash_attention="auto"``) against the plain attention
      on the card (``"never"``), order K P P K K P P K;
   2. host enqueue against enqueue plus device time, per batch;
   3. ``torch.profiler`` over a few batches: device kernel time per batch
@@ -44,6 +48,7 @@ TEXT_LEN = 40
 # kernel-name families for the breakdown, checked in order
 FAMILIES = (
     ("short_attention", r"short_attention_fwd_kernel"),
+    ("flash2", r"flash2_fwd_kernel"),
     ("fused_joint_embed", r"fused_joint_embed_kernel"),
     ("ln_quant", r"ln_quant_kernel"),
     ("int8_gemm", r"s8|i8|int8|imma"),
@@ -86,7 +91,8 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def int8_pieces(quantize: str, layers: int, hidden: int, ffn: int) -> dict:
+def int8_pieces(quantize: str, layers: int, hidden: int, ffn: int,
+                batch: int, pair_len=None) -> dict:
     """ms per batch of each piece of the int8 projections, each timed alone
     at the path's row counts and multiplied by its count per batch (per
     encoder call and layer: q, k, v, o at [H, H], wi [H, 4H], wo [4H, H];
@@ -107,7 +113,8 @@ def int8_pieces(quantize: str, layers: int, hidden: int, ffn: int) -> dict:
     quantized_inputs = {hidden: 1 if static else 2, ffn: 1}
     out = {"quantize": 0.0, "int8_gemm": 0.0, "dequant_epilogue": 0.0,
            "ln_quant": 0.0, "bf16_gemm": 0.0}
-    for rows in (BATCH * TEXT_LEN, 2 * BATCH * 2 * TEXT_LEN):
+    joint = TEXT_LEN + (pair_len or TEXT_LEN)
+    for rows in (batch * TEXT_LEN, 2 * batch * joint):
         for k, count in quantized_inputs.items():
             x = torch.randn(rows, k, device="cuda", generator=gen).bfloat16()
             sc = ascale if static else None
@@ -139,13 +146,20 @@ def int8_pieces(quantize: str, layers: int, hidden: int, ffn: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--samples", type=int, default=5 * BATCH - 23)
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--pair-seq-length", type=int, default=None,
+                    help="frame-level mode: Lp frames per modality")
+    ap.add_argument("--samples", type=int, default=None,
+                    help="default: five batches, the last one ragged")
     ap.add_argument("--reps", type=int, default=4,
                     help="timed runs per arm of the A/B")
     ap.add_argument("--profile-batches", type=int, default=3)
     ap.add_argument("--quantize", choices=["int8", "int8_static"], default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    batch_size = args.batch
+    if args.samples is None:
+        args.samples = 5 * batch_size - 23
 
     sys.path.insert(0, REPO)
     import numpy as np
@@ -165,25 +179,28 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     result = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "batch": BATCH,
-              "text_len": TEXT_LEN, "samples": args.samples,
+              "cuda": torch.version.cuda, "batch": batch_size,
+              "text_len": TEXT_LEN, "pair_seq_length": args.pair_seq_length,
+              "samples": args.samples,
               "quantize": args.quantize}
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
+    exp = dataclasses.replace(exp, data=dataclasses.replace(
+        exp.data, pair_seq_length=args.pair_seq_length))
     cfg = exp.model
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     split = synthetic_split(args.samples, TEXT_LEN, cfg.visual_dim,
                             cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
-                            seed=0)
+                            seed=0, pair_seq_length=args.pair_seq_length)
 
     calibration = dataclasses.replace(split, **{
-        f: getattr(split, f)[:2 * BATCH] for f in (
+        f: getattr(split, f)[:2 * batch_size] for f in (
             "input_ids", "attention_mask", "visual", "speech", "target")})
 
     def predictor(use_flash):
         e = dataclasses.replace(exp, train=dataclasses.replace(
             exp.train, use_flash_attention=use_flash))
-        return Predictor(e, params, BATCH, "cuda", quantize=args.quantize,
+        return Predictor(e, params, batch_size, "cuda", quantize=args.quantize,
                          calibration=calibration
                          if args.quantize == "int8_static" else None)
 
@@ -203,7 +220,7 @@ def main() -> int:
 
     # 2. host enqueue against enqueue + device, one full batch
     pred = arms["kernel"]
-    batch = [pred._upload(np.asarray(x)[:BATCH]) for x in (
+    batch = [pred._upload(np.asarray(x)[:batch_size]) for x in (
         split.input_ids, split.attention_mask, split.visual, split.speech)]
     torch.cuda.synchronize()
     enqueue, total = [], []
@@ -221,7 +238,7 @@ def main() -> int:
           f"{result['enqueue_plus_device_ms_median']:.2f} ms", flush=True)
 
     # 3. profiler breakdown
-    n = args.profile_batches * BATCH
+    n = args.profile_batches * batch_size
     sub = [np.asarray(x)[:n] for x in (split.input_ids, split.attention_mask,
                                        split.visual, split.speech)]
     torch.cuda.synchronize()
@@ -276,7 +293,8 @@ def main() -> int:
     if args.quantize:
         bc = cfg.bert
         pieces = int8_pieces(args.quantize, bc.num_hidden_layers,
-                             bc.hidden_size, bc.intermediate_size)
+                             bc.hidden_size, bc.intermediate_size, batch_size,
+                             args.pair_seq_length)
         result["int8_pieces_ms_per_batch"] = pieces
         print(f"{args.quantize} projections, each piece timed alone, ms per "
               "batch (both encoder calls): " + ", ".join(

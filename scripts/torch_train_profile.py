@@ -3,17 +3,24 @@
 short-attention kernels are worth end to end.
 
     python3 scripts/torch_train_profile.py [--out FILE.json]
+    python3 scripts/torch_train_profile.py --pair-seq-length 984 --batch 16
 
 Trains a full-width bert-large MMBert (random weights from a seed) through
 ``msa_tpu_torch``'s ``Trainer`` at bench.py's shape, as chip_smoke.py does:
 MOSI widths, B=96, L=40, bf16 compute with bf16 Adam moments, the default
-dropouts, MLM on.  Then:
+dropouts, MLM on.  ``--pair-seq-length Lp`` trains in frame-level mode (Lp
+frames per modality: the joint pass runs at S = 40 + Lp, from 1024 on the
+flash2 kernels).  Then:
 
-  1. A/B, alternating in one process: ms/step with the short-attention
-     kernels (``use_flash_attention="auto"``: forward and backward kernels,
+  1. A/B, alternating in one process: ms/step with the attention kernels
+     (``use_flash_attention="auto"``: forward and backward kernels,
      dropout inside them) against the plain attention on the card
      (``"never"``: the plain version under autograd, dropout a bernoulli
-     mask), order K P P K ...;
+     mask), order K P P K ...  In frame-level mode the plain attention's
+     saved probabilities do not fit on the card (~6 GB per layer at
+     [32, 1024]), so the A/B is between the flash2 backward routes: the
+     JAX package's (``fused``, at S = 1024 and 2048) against the split
+     pair forced (``split``);
   2. host enqueue of one step against enqueue plus device time;
   3. ``torch.profiler`` over a few steps: device kernel time per step by
      kernel family and by name, the kernels' union against the wall time.
@@ -41,6 +48,8 @@ TEXT_LEN = 40
 FAMILIES = (
     ("attention_fwd", r"short_attention_fwd_kernel"),
     ("attention_bwd", r"short_attention_bwd_d(q|kv)_kernel"),
+    ("flash2_fwd", r"flash2_fwd_kernel"),
+    ("flash2_bwd", r"flash2_bwd_d(q|kv)_kernel"),
     ("fused_joint_embed", r"fused_joint_embed_kernel"),
     ("gemm", r"nvjet|gemm|cutlass|xmma|cublas|sm90_"),
     ("optimizer", r"multi_tensor_apply|foreach|Foreach"),
@@ -65,6 +74,9 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5,
                     help="train steps per timed run")
     ap.add_argument("--profile-steps", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--pair-seq-length", type=int, default=None,
+                    help="frame-level mode: Lp frames per modality")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -73,6 +85,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from msa_tpu_torch.configs import build_experiment
+    from msa_tpu_torch.ops import flash2
     from msa_tpu_torch.data import MultimodalDataset, synthetic_split
     from msa_tpu_torch.models.weights import init_params
     from msa_tpu_torch.training.trainer import Trainer
@@ -85,20 +98,23 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     result = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "batch": BATCH,
-              "text_len": TEXT_LEN}
+              "cuda": torch.version.cuda, "batch": args.batch,
+              "text_len": TEXT_LEN, "pair_seq_length": args.pair_seq_length}
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1,
-                           train_batch_size=BATCH, compute_dtype="bfloat16",
+                           train_batch_size=args.batch,
+                           compute_dtype="bfloat16",
                            warmup_proportion=0.01, adam_mu_dtype="bfloat16",
                            adam_nu_dtype="bfloat16", data_parallel=1)
+    exp = dataclasses.replace(exp, data=dataclasses.replace(
+        exp.data, pair_seq_length=args.pair_seq_length))
     cfg = exp.model
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    split = synthetic_split(4 * BATCH, TEXT_LEN, cfg.visual_dim,
+    split = synthetic_split(4 * args.batch, TEXT_LEN, cfg.visual_dim,
                             cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
-                            seed=0)
+                            seed=0, pair_seq_length=args.pair_seq_length)
     batches = list(MultimodalDataset(split, seed=0).epoch_batches(
-        0, BATCH, drop_last=True))
+        0, args.batch, drop_last=True))
 
     def arm(use_flash):
         e = dataclasses.replace(exp, train=dataclasses.replace(
@@ -106,15 +122,27 @@ def main() -> int:
         trainer = Trainer(e, "cuda")
         return trainer, trainer.init_state(0, 10_000, params=params)
 
-    arms = {"kernel": arm("auto"), "plain": arm("never")}
+    if args.pair_seq_length is None:
+        main_arm, other = "kernel", "plain"
+        arms = {"kernel": arm("auto"), "plain": arm("never")}
+    else:  # both on the kernels; "split" forces the split flash2 backward
+        main_arm, other = "fused", "split"
+        arms = {"fused": arm("auto"), "split": arm("auto")}
+    jax_route = flash2.use_fused_backward
     step_no = [0]
 
     def run(name, steps):
         trainer, state = arms[name]
-        for _ in range(steps):
-            state, metrics = trainer.train_step(
-                state, batches[step_no[0] % len(batches)], 1)
-            step_no[0] += 1
+        flash2.use_fused_backward = ((lambda *a: False) if name == "split"
+                                     else jax_route)
+        try:
+            for _ in range(steps):
+                state, metrics = trainer.train_step(
+                    state, batches[step_no[0] % len(batches)], 1)
+                step_no[0] += 1
+        finally:
+            flash2.use_fused_backward = jax_route
+        arms[name] = (trainer, state)
         return metrics
 
     for name in arms:  # first use: kernels, cuBLAS handles, allocator
@@ -122,7 +150,7 @@ def main() -> int:
 
     # 1. A/B
     ms = {name: [] for name in arms}
-    for name in ("kernel", "plain", "plain", "kernel") * (args.reps // 2):
+    for name in (main_arm, other, other, main_arm) * (args.reps // 2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(name, args.steps)
@@ -131,7 +159,7 @@ def main() -> int:
     result["ab_ms_per_step"] = ms
     for name, r in ms.items():
         print(f"A/B {name}: ms/step {r}", flush=True)
-    del arms["plain"]
+    del arms[other]
     torch.cuda.empty_cache()
 
     # 2. host enqueue against enqueue + device, one step
@@ -139,7 +167,7 @@ def main() -> int:
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run("kernel", 1)
+        run(main_arm, 1)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         enqueue.append((t1 - t0) * 1e3)
@@ -155,7 +183,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run("kernel", args.profile_steps)
+        run(main_arm, args.profile_steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]

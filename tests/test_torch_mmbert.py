@@ -64,11 +64,16 @@ def make_inputs(b=3, l=12, lp=12, seed=0):
     return ids, mask, tv, vis, spc
 
 
-@pytest.mark.parametrize("num_labels,lp", [(1, 12), (7, 12), (1, 20)])
+@pytest.mark.parametrize("num_labels,lp", [(1, 12), (7, 12), (1, 20),
+                                            (1, 520)])
 def test_mmbert_forward_matches_jax(num_labels, lp):
+    """lp=520 is frame-level mode at L=16: the joint pass runs at S=536,
+    which JAX's use_flash="always" sends through its flash2 kernels (in
+    interpret mode) and the port, on the CPU, through the plain attention."""
     cfg = tiny_cfg(num_labels)
     jparams = init_mmbert_params(jax.random.key(num_labels), cfg)
-    ids, mask, tv, vis, spc = make_inputs(lp=lp)
+    l = 16 if lp > 512 else 12
+    ids, mask, tv, vis, spc = make_inputs(l=l, lp=lp)
 
     fwd = jax.jit(lambda p, *a: jax_mmbert_forward(
         p, *a, cfg, deterministic=True, compute_dtype=jnp.float32,
@@ -86,7 +91,7 @@ def test_mmbert_forward_matches_jax(num_labels, lp):
                                    atol=ATOL, rtol=RTOL, err_msg=name)
     # num_labels 1 and 7 are both one-output regression heads
     assert out["logits"].shape == (3, 1)
-    assert out["seq_joint"].shape == (6, 12 + lp, 128)
+    assert out["seq_joint"].shape == (6, l + lp, 128)
 
 
 @pytest.mark.parametrize("num_labels", [1, 7])

@@ -24,6 +24,7 @@ from msa_tpu.ops.fused_joint_embed import fused_joint_embed as jax_joint_embed
 from msa_tpu.ops.short_attention import short_attention_v2
 from msa_tpu_torch import _build
 from msa_tpu_torch.ops.attention import multi_head_attention
+from msa_tpu_torch.ops.flash2 import flash_attention2
 from msa_tpu_torch.ops.fused_joint_embed import (
     fused_joint_embed, fused_joint_embed_plain)
 from msa_tpu_torch.ops.short_attention import (
@@ -128,13 +129,14 @@ def test_fused_joint_embed_bf16_keeps_dtype_and_f32_projection():
     torch.testing.assert_close(out.float(), ref, atol=BF16_TOL, rtol=BF16_TOL)
 
 
-@pytest.mark.parametrize("fn", ["attention", "joint"])
+@pytest.mark.parametrize("fn", ["attention", "joint", "flash2"])
 def test_wrappers_raise_on_devices_without_kernel(fn):
     """Only CPU tensors take the plain version; another device raises
     instead of falling back (here: the meta device)."""
-    if fn == "attention":
+    if fn in ("attention", "flash2"):
         q = torch.empty(2, 8, 128, device="meta")
-        call = lambda: short_attention(  # noqa: E731
+        attend = short_attention if fn == "attention" else flash_attention2
+        call = lambda: attend(  # noqa: E731
             q, q, q, torch.empty(2, 8, device="meta"), 2)
     else:
         t = torch.empty(2, 8, 256, device="meta")
@@ -171,10 +173,24 @@ def test_library_path_tracks_source_hash(monkeypatch, tmp_path):
     assert _build.library_path("k") != first
 
 
+def test_library_path_tracks_shared_headers(monkeypatch, tmp_path):
+    """An edit to a header in csrc/ (dropout.cuh, which both attention
+    sources include) rebuilds every library instead of reusing a stale one."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('#include "rule.cuh"\n')
+    (src / "rule.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    first = _build.library_path("k")
+    (src / "rule.cuh").write_text("// v2\n")
+    assert _build.library_path("k") != first
+
+
 def test_every_kernel_has_a_source_with_a_c_entry_point():
     entries = {"short_attention": "msa_short_attention_fwd",
                "fused_joint_embed": "msa_fused_joint_embed",
-               "ln_quant": "msa_ln_quant_static"}
+               "ln_quant": "msa_ln_quant_static",
+               "flash2": "msa_flash2_fwd"}
     assert set(_build.KERNELS) == set(entries)
     for name, entry in entries.items():
         text = (_build.CSRC / f"{name}.cu").read_text()

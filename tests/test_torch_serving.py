@@ -44,7 +44,7 @@ BF16_NOISE_FACTOR = 3.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def experiment(num_labels=1, vocab_size=120):
+def experiment(num_labels=1, vocab_size=120, pair_seq_length=None):
     bert = tiny_bert_config(hidden_size=128, num_hidden_layers=2,
                             num_attention_heads=2, intermediate_size=256,
                             vocab_size=vocab_size)
@@ -52,7 +52,8 @@ def experiment(num_labels=1, vocab_size=120):
         model_name="tiny",
         model=MMBertConfig(bert=bert, visual_dim=5, speech_dim=7,
                            num_labels=num_labels),
-        data=DataConfig(dataset="mosi", max_seq_length=12),
+        data=DataConfig(dataset="mosi", max_seq_length=12,
+                        pair_seq_length=pair_seq_length),
         train=TrainConfig(compute_dtype="float32", data_parallel=1))
 
 
@@ -86,6 +87,27 @@ def test_predictor_matches_jax_on_ragged_split(num_labels):
         np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
     if num_labels == 1:
         assert (np.abs(out) <= 1.0).all()
+
+
+@pytest.mark.parametrize("num_labels", [1, 3])
+def test_predictor_frame_level_matches_jax(num_labels):
+    """Frame-level mode: 30 native-rate frames per modality beside 12 text
+    tokens (joint pass [2B, 42]), a ragged split whose frame counts vary,
+    f32 within the same atol as the word-aligned case."""
+    exp = experiment(num_labels, pair_seq_length=30)
+    jax_pred, pred = both_predictors(exp, seed=num_labels)
+    split = synthetic_split(10, 12, 5, 7, vocab_size=120,
+                            num_labels=num_labels, seed=num_labels,
+                            pair_seq_length=30)
+    assert split.visual.shape == (10, 30, 5)
+    assert (np.abs(split.visual).sum(-1) == 0).any()  # padded frames
+    ref = jax_pred.predict_split(split)
+    out = pred.predict_split(split)
+    assert out.shape == ref.shape == (10,)
+    if num_labels == 3:
+        np.testing.assert_array_equal(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
 
 
 def test_predictor_padding_does_not_change_results():
@@ -206,6 +228,42 @@ def test_serve_stream_roundtrip_and_error_line():
     from msa_tpu.cli.serve import featurize_request
     splits = [featurize_request(r, tokenizer, 12, None, 5, 7)
               for r in reqs if isinstance(r, dict) and r["id"] != "x"]
+    ref = jax_pred.predict_arrays(
+        *(np.concatenate([getattr(s, f) for s in splits])
+          for f in ("input_ids", "attention_mask", "visual", "speech")))
+    np.testing.assert_allclose([got[i] for i in "abc"], ref, atol=ATOL, rtol=0)
+
+
+def test_serve_stream_frame_level_matches_jax():
+    """A frame-level model takes native-rate frames: any number of rows per
+    request (up to Lp; more are cut to Lp), answered as the JAX Predictor
+    answers the same requests featurized by JAX's service."""
+    vocab = make_test_vocab(extra_words=["love", "hate", "this"])
+    exp = experiment(vocab_size=len(vocab), pair_seq_length=16)
+    jax_pred, pred = both_predictors(exp, batch_size=2)
+    reqs = [
+        {"id": "a", "words": ["love", "this", "movie"],
+         "visual": [[0.1 * i] * 5 for i in range(1, 10)],
+         "speech": [[0.2] * 7] * 4},
+        {"id": "b", "words": ["hate", "this"]},  # modalities absent
+        {"id": "c", "words": ["movie"], "speech": [[0.3] * 7] * 21},  # > Lp
+        "NOT JSON",
+    ]
+    text = "".join((r if isinstance(r, str) else json.dumps(r)) + "\n"
+                   for r in reqs)
+    tokenizer = Tokenizer(vocab)
+    fout = io.StringIO()
+    counts = serve_stream(pred, tokenizer, io.StringIO(text), fout,
+                          batch_size=2, max_wait=0.05, drain_flush=True)
+    assert counts == {"answered": 3, "errors": 1}
+    lines = [json.loads(x) for x in fout.getvalue().splitlines()]
+    got = {x["id"]: x["prediction"] for x in lines if "prediction" in x}
+    assert set(got) == {"a", "b", "c"}
+
+    from msa_tpu.cli.serve import featurize_request
+    splits = [featurize_request(r, tokenizer, 12, 16, 5, 7)
+              for r in reqs if isinstance(r, dict)]
+    assert splits[0].visual.shape == (1, 16, 5)
     ref = jax_pred.predict_arrays(
         *(np.concatenate([getattr(s, f) for s in splits])
           for f in ("input_ids", "attention_mask", "visual", "speech")))

@@ -56,7 +56,8 @@ MASK_ID = 4
 L, B, VOCAB = 12, 4, 120
 
 
-def experiment(compute_dtype="float32", num_labels=1, **train):
+def experiment(compute_dtype="float32", num_labels=1, pair_seq_length=None,
+               **train):
     bert = dataclasses.replace(
         tiny_bert_config(hidden_size=128, num_hidden_layers=2,
                          num_attention_heads=2, intermediate_size=256,
@@ -69,7 +70,8 @@ def experiment(compute_dtype="float32", num_labels=1, **train):
         model_name="tiny",
         model=MMBertConfig(bert=bert, visual_dim=5, speech_dim=7,
                            num_labels=num_labels, joint_dropout_prob=0.0),
-        data=DataConfig(max_seq_length=L), train=TrainConfig(**train))
+        data=DataConfig(max_seq_length=L, pair_seq_length=pair_seq_length),
+        train=TrainConfig(**train))
 
 
 def port_experiment(exp):
@@ -92,8 +94,9 @@ def mlm_masks(epoch, bi, batch):
             "mlm_replaced": (rng.random(masked.shape) < 0.8) & masked}
 
 
-def batches(n_steps):
-    split = synthetic_split(B * n_steps, L, 5, 7, vocab_size=VOCAB, seed=3)
+def batches(n_steps, pair_seq_length=None):
+    split = synthetic_split(B * n_steps, L, 5, 7, vocab_size=VOCAB, seed=3,
+                            pair_seq_length=pair_seq_length)
     out = []
     for i, batch in enumerate(JaxDataset(split, seed=1).epoch_batches(0, B)):
         batch = dict(batch)
@@ -105,8 +108,8 @@ def batches(n_steps):
 STEPS = 4
 
 
-def run_jax(compute_dtype):
-    exp = experiment(compute_dtype)
+def run_jax(compute_dtype, pair_seq_length=None):
+    exp = experiment(compute_dtype, pair_seq_length=pair_seq_length)
     trainer = JaxTrainer(exp, mesh=make_mesh(1, 1), mask_token_id=MASK_ID,
                          special_ids=SPECIAL_IDS)
     trainer.mlm_mask_injector = mlm_masks
@@ -115,7 +118,7 @@ def run_jax(compute_dtype):
     step = trainer._build_train_step()
     rng = trainer.rng(1)
     history = []
-    for batch in batches(STEPS):
+    for batch in batches(STEPS, pair_seq_length):
         state, metrics = step(state, trainer._shard_batch(batch), rng)
         history.append({k: float(v) for k, v in jax.device_get(metrics).items()})
     return start, history, tree_np(state.params)
@@ -126,14 +129,15 @@ def jax_runs():
     return {dt: run_jax(dt) for dt in ("float32", "bfloat16")}
 
 
-def run_port(compute_dtype, start):
+def run_port(compute_dtype, start, pair_seq_length=None):
     params, opt_state = start
-    trainer = Trainer(port_experiment(experiment(compute_dtype)), "cpu",
+    exp = experiment(compute_dtype, pair_seq_length=pair_seq_length)
+    trainer = Trainer(port_experiment(exp), "cpu",
                       mask_token_id=MASK_ID, special_ids=SPECIAL_IDS)
     state = trainer.init_state(0, STEPS, params=from_jax_params(params, "cpu"))
     state.opt_state = from_jax_opt_state(opt_state, "cpu")
     history = []
-    for batch in batches(STEPS):
+    for batch in batches(STEPS, pair_seq_length):
         state, metrics = trainer.train_step(state, batch, base_seed=1)
         history.append({k: float(v) for k, v in metrics.items()})
     return history, dict(named_leaves(state.params))
@@ -164,6 +168,26 @@ def test_train_step_matches_jax_f32(jax_runs):
     moved = max(float((ref[k] - v).abs().max())
                 for k, v in jax_leaves(start[0]).items())
     assert moved > 1e-4  # the steps really moved the weights
+    for k, v in params.items():
+        torch.testing.assert_close(v.detach(), ref[k], atol=1e-5, rtol=0,
+                                   msg=k)
+
+
+def test_train_step_frame_level_matches_jax_f32():
+    """Frame-level mode (L=12 text tokens, Lp=24 native-rate frames per
+    modality: the joint pass runs over 36 tokens, the pair frames carry no
+    MLM labels and their padding mask comes from all-zero frames): four f32
+    steps against JAX's, with the bounds of the word-aligned test above."""
+    start, ref_hist, ref_params = run_jax("float32", pair_seq_length=24)
+    hist, params = run_port("float32", start, pair_seq_length=24)
+    for got, want in zip(hist, ref_hist):
+        for k in METRICS:
+            assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-6), k
+        assert got["mlm_overflow"] == want["mlm_overflow"] == 0
+    ref = jax_leaves(ref_params)
+    moved = max(float((ref[k] - v).abs().max())
+                for k, v in jax_leaves(start[0]).items())
+    assert moved > 1e-4
     for k, v in params.items():
         torch.testing.assert_close(v.detach(), ref[k], atol=1e-5, rtol=0,
                                    msg=k)
