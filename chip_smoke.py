@@ -27,6 +27,12 @@ failure (no phase catches its own):
        forced, against autograd through the plain version and against each
        other, with and without dropout, and its dropout against the short
        kernel's at S=768 under one seed;
+     * the '+probs' (v2s) and 'save_pack' (v2p) pairs at the text and
+       joint shapes: the v2s forward's ctx and signed probs (their signs
+       the exported keep mask) and its backward from its own probs against
+       the plain versions, v2s's ctx against v2's; the packed forward and
+       backward bit-equal to v2's kernels on the thirds and against the
+       plain packed backward;
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
@@ -55,6 +61,23 @@ failure (no phase catches its own):
      for 2+4 steps with the fused flash2 backward, and one step at Lp=4056
      (S=4096, depth cut to 2 layers), where the split backward runs,
      checking the launches per step, losses and moved parameters;
+  6c. trains bert-large bf16 at B=96 under each remat rung (none, full,
+     full+drop, dots, save_small, save_wide, save_attn, save_attn+drop,
+     save_ctx, save_ctx+drop, save_pack, save_attn+drop+probs) from the
+     same weights and seed: losses against the no-remat run's, ms/step,
+     peak memory and launches per step ('full' and 'dots' run each
+     attention forward twice, every save_* rung once; '+probs' runs only
+     the v2s pair, 'save_pack' only the packed pair); then frame level
+     (B=16, Lp=984) under none, save_attn+drop and save_ctx, flash2's
+     forward not re-run;
+  6d. 'auto': no checkpointing at B=96, JAX's ladder (save_attn+drop) at
+     the smallest batch whose activation estimate passes half the card's
+     memory, and one step there;
+  6e. the training entry point: ``python -m msa_tpu_torch.cli.train``'s
+     flow at bert-large B=96 for two epochs with checkpoints, ``--resume``
+     from the first epoch's checkpoint (its second epoch ends on the
+     uninterrupted run's parameters bit for bit), then ``cli.sample`` and
+     ``cli.score`` on the result;
   7. runs two f32 train steps of a small model on the card (TF32 off) and
      on the CPU from the same weights and MLM masks, and compares the
      losses, the first step's gradients and the updated parameters; then
@@ -153,6 +176,19 @@ FRAME_F32_LAYERS = 2  # depth of the f32 frame-level card-vs-CPU check
 LONG_PAIR_LEN = 4056
 LONG_BATCH = 8
 LONG_LAYERS = 2
+
+REMAT_RUNGS = ("none", "full", "full+drop", "dots", "save_small", "save_wide",
+               "save_attn", "save_attn+drop", "save_ctx", "save_ctx+drop",
+               "save_pack", "save_attn+drop+probs")
+REMAT_WARMUP, REMAT_STEPS = 1, 6
+FRAME_RUNGS = ("none", "save_attn+drop", "save_ctx")
+# rungs' bf16 losses against the no-remat run's: the first step's equal
+# (v2s within PROBS_LOSS_RTOL: its ctx rounds in another place), the next
+# ones within REMAT_LOSS_RTOL (the backward's summation order moves the
+# updates by bf16 roundings)
+PROBS_LOSS_RTOL = 2e-3
+REMAT_LOSS_RTOL = 2e-2
+CLI_SYNTHETIC = 2 * 96  # cli.train: two steps an epoch at B=96
 
 BATCH = 96          # bench.py's batch
 TEXT_LEN = 40       # MOSI max_seq_length
@@ -741,10 +777,16 @@ def kernel_counters():
     from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
     from msa_tpu_torch.ops.ln_quant import ln_quant_dynamic, ln_quant_static
     from msa_tpu_torch.ops.short_attention import (
-        dropout_keep_mask, short_attention, short_attention_backward)
+        dropout_keep_mask, short_attention, short_attention_backward,
+        short_attention_packed, short_attention_packed_backward,
+        short_attention_probs, short_attention_probs_backward)
 
     return {"short_attention": short_attention,
             "short_attention_backward": short_attention_backward,
+            "short_attention_probs": short_attention_probs,
+            "short_attention_probs_backward": short_attention_probs_backward,
+            "short_attention_packed": short_attention_packed,
+            "short_attention_packed_backward": short_attention_packed_backward,
             "dropout_keep_mask": dropout_keep_mask,
             "fused_joint_embed": fused_joint_embed,
             "ln_quant_static": ln_quant_static,
@@ -1103,17 +1145,10 @@ def phase_training():
     """bert-large bf16 train steps at bench.py's shape, with dropout."""
     import torch
 
-    from msa_tpu_torch.configs import build_experiment
     from msa_tpu_torch.data import MultimodalDataset, synthetic_split
     from msa_tpu_torch.training.trainer import Trainer
 
-    # bench.py's training configuration: MOSI widths, B=96, L=40, bf16, the
-    # default dropouts (hidden 0.1, attention 0.1, joint 0.5), MLM on,
-    # bf16 Adam moments
-    exp = build_experiment("mosi", "bert-large-uncased", num_labels=1,
-                           train_batch_size=BATCH, compute_dtype="bfloat16",
-                           warmup_proportion=0.01, adam_mu_dtype="bfloat16",
-                           adam_nu_dtype="bfloat16", data_parallel=1)
+    exp = train_experiment(BATCH)
     cfg = exp.model
     trainer = Trainer(exp, "cuda")
     state = trainer.init_state(0, total_steps=10_000)
@@ -1146,8 +1181,8 @@ def phase_training():
     want = expect_counts(short_attention=2 * layers * TRAIN_STEPS,
                          short_attention_backward=2 * 2 * layers * TRAIN_STEPS,
                          fused_joint_embed=2 * TRAIN_STEPS)
-    if trainer.remat or launches != want:
-        raise AssertionError(f"training: remat {trainer.remat}, launches "
+    if trainer.remat_policy != "none" or launches != want:
+        raise AssertionError(f"training: remat {trainer.remat_policy}, launches "
                              f"{launches}, want {want} ({TRAIN_STEPS} steps)")
     host = [{k: float(v) for k, v in m.items()} for m in step_metrics]
     if not all(all(map(lambda x: x == x and abs(x) < float("inf"), m.values()))
@@ -1328,8 +1363,8 @@ def phase_frame_training(pair_len, batch, layers, warmup, steps, label):
                          flash2_bwd_fused=n * steps if fused else 0,
                          flash2_bwd_split=0 if fused else 2 * n * steps,
                          fused_joint_embed=2 * steps)
-    if trainer.remat or launches != want:
-        raise AssertionError(f"{label} training: remat {trainer.remat}, "
+    if trainer.remat_policy != "none" or launches != want:
+        raise AssertionError(f"{label} training: remat {trainer.remat_policy}, "
                              f"launches {launches}, want {want}")
     host = [{k: float(v) for k, v in m.items()} for m in step_metrics]
     if not all(all(x == x and abs(x) < float("inf") for x in m.values())
@@ -1465,6 +1500,456 @@ def phase_f32_train(pair_len=None, batch_size=8):
     return loss_err, param_err
 
 
+def phase_probs_packed(gen):
+    """The '+probs' (v2s) and 'save_pack' (v2p) pairs against their plain
+    versions, at the text and joint shapes, bf16 and f32, rate 0 and with
+    dropout: the v2s forward's ctx and signed probs (whose signs are the
+    exported keep mask's bits; its ctx also against v2's at the same seed),
+    its backward against the plain backward on the same inputs (its own
+    probs), the packed forward and backward against v2's kernels on the
+    thirds (bit-equal: the same kernels at row stride 3H) and against the
+    plain packed backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    worst = dict.fromkeys(("probs", "probs_bwd", "packed", "packed_bwd"), 0.0)
+    times = {}
+    for label, b, s in (("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            atol, rtol = ATTN_TOL[dname]
+            gatol, grtol = GRAD_TOL[dname]
+            for rate in (0.0, rate_on):
+                q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+                dout = torch.randn(b, s, HIDDEN, device="cuda",
+                                   generator=gen).to(dtype)
+                seed, t = 4321 + s, byte_threshold(rate)
+                keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                        if rate else None)
+                wide = [x.float() for x in (q, k, v, dout)]
+                tag = f"{label} {dname} rate {rate:g}"
+
+                # v2s forward: ctx, signed probs, agreement with v2
+                ctx, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS,
+                                                      seed, rate)
+                ref_ctx, ref_probs = sa.short_attention_probs_plain(
+                    *wide[:3], bias, HEADS, rate, keep)
+                v2_ctx = sa.short_attention(q, k, v, bias, HEADS, rate, seed)
+                torch.cuda.synchronize()
+                err = check_close(f"short_attention_probs {tag} ctx", ctx,
+                                  ref_ctx, atol, rtol, mask=live)
+                check_close(f"short_attention_probs {tag} ctx masked row", ctx,
+                            ref_ctx, MASKED_ROW_ATOL, 0.0, mask=~live)
+                err = max(err, check_close(f"short_attention_probs {tag} probs",
+                                           probs[live], ref_probs[live], atol,
+                                           rtol))
+                v2_err = check_close(f"short_attention_probs {tag} vs v2", ctx,
+                                     v2_ctx, atol, rtol, mask=live)
+                if rate:
+                    ps = probs[..., :s].float()
+                    wrong = int((((ps > 0) != keep) & (ps != 0)).sum())
+                    if wrong:
+                        raise AssertionError(f"short_attention_probs {tag}: "
+                                             f"{wrong} signs differ from the "
+                                             "exported keep mask")
+                worst["probs"] = max(worst["probs"], err)
+
+                # v2s backward from the kernel's own probs
+                grads = sa.short_attention_probs_backward(q, k, v, probs, dout,
+                                                          HEADS, rate)
+                refs = sa.short_attention_probs_backward_plain(
+                    *wide[:3], probs.float(), wide[3], HEADS, rate)
+                torch.cuda.synchronize()
+                berr = 0.0
+                for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                    btag = f"short_attention_probs_backward {tag} {name}"
+                    berr = max(berr, check_close(btag, g, r, gatol, grtol,
+                                                 mask=live))
+                    check_close(btag + " masked row", g, r,
+                                MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
+                worst["probs_bwd"] = max(worst["probs_bwd"], berr)
+
+                # v2p: the v2 kernels on the thirds of one buffer, bit-equal
+                qkv = torch.cat([q, k, v], dim=-1)
+                packed = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t,
+                                                   True)
+                plain2 = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
+                dqkv = sa.short_attention_packed_backward(
+                    qkv, bias, packed[2], packed[1], dout, HEADS, seed, rate)
+                v2_grads = sa.short_attention_backward(
+                    q, k, v, bias, plain2[2], plain2[1], dout, HEADS, seed, rate)
+                ref_dqkv = sa.short_attention_packed_backward_plain(
+                    qkv.float(), bias, wide[3], HEADS, rate, keep)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, c) for a, c in zip(packed, plain2)) \
+                        or not torch.equal(dqkv, torch.cat(v2_grads, dim=-1)):
+                    raise AssertionError(f"short_attention_packed {tag}: not "
+                                         "bit-equal to v2 on the thirds")
+                perr = check_close(f"short_attention_packed {tag}", packed[0],
+                                   ref_ctx, atol, rtol, mask=live)
+                pberr = check_close(f"short_attention_packed_backward {tag}",
+                                    dqkv, ref_dqkv, gatol, grtol, mask=live)
+                worst["packed"] = max(worst["packed"], perr)
+                worst["packed_bwd"] = max(worst["packed_bwd"], pberr)
+                print(f"v2s / v2p [{b},{s},{HIDDEN}] {tag}: probs forward "
+                      f"max_abs_err {err:.3e} (ctx vs v2 {v2_err:.3e}), "
+                      f"backward {berr:.3e}; packed forward and backward "
+                      f"bit-equal to v2 on the thirds, against the plain "
+                      f"version {perr:.3e} / {pberr:.3e} (atol {atol} / "
+                      f"{gatol})", flush=True)
+                if rate:
+                    continue
+
+                # times at rate 0: kernel, plain, SDPA, bound
+                it = q.element_size()
+                sq, sk, sv, sm = sdpa_args(q, k, v, bias)
+                lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=sm))
+                qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+                lq, lk, lv, lm = sdpa_args(qq, kk, vv, bias)
+                lib_out = F.scaled_dot_product_attention(lq, lk, lv,
+                                                         attn_mask=lm)
+                lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+                lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, (qq, kk, vv), lib_do, retain_graph=True))
+                qkv_g = qkv.detach().requires_grad_()
+                pout = sa.short_attention_packed_plain(qkv_g, bias, HEADS)
+                probs_bytes = b * HEADS * s * s * it  # the S x S it must write
+                fwd_flops, io = 4 * b * s * s * HIDDEN, b * s * HIDDEN * it
+                times[("probs", label, dname)] = (
+                    cuda_ms(lambda: sa._probs_forward_kernel(
+                        q, k, v, bias, HEADS, seed, 0.0)),
+                    cuda_ms(lambda: sa.short_attention_probs_plain(
+                        q, k, v, bias, HEADS)), lib_fwd,
+                    bound_ms(4 * io + b * s * 4 + probs_bytes, fwd_flops, dname))
+                times[("probs_bwd", label, dname)] = (
+                    cuda_ms(lambda: sa.short_attention_probs_backward(
+                        q, k, v, probs, dout, HEADS, 0.0)),
+                    cuda_ms(lambda: sa.short_attention_probs_backward_plain(
+                        q, k, v, probs, dout, HEADS, 0.0)), lib_bwd,
+                    bound_ms(7 * io + probs_bytes, 2 * fwd_flops, dname))
+                times[("packed", label, dname)] = (
+                    cuda_ms(lambda: sa._packed_forward_kernel(
+                        qkv, bias, HEADS, seed, 0, False)),
+                    cuda_ms(lambda: sa.short_attention_packed_plain(
+                        qkv, bias, HEADS)), lib_fwd,
+                    bound_ms(4 * io + b * s * 4, fwd_flops, dname))
+                times[("packed_bwd", label, dname)] = (
+                    cuda_ms(lambda: sa.short_attention_packed_backward(
+                        qkv, bias, packed[2], packed[1], dout, HEADS, seed,
+                        0.0)),
+                    cuda_ms(lambda: torch.autograd.grad(
+                        pout, qkv_g, dout, retain_graph=True)), lib_bwd,
+                    bound_ms(7 * io + b * s * 4, 2.5 * fwd_flops, dname))
+                for name in ("probs", "probs_bwd", "packed", "packed_bwd"):
+                    ms, plain_ms, lib_ms, bound = times[(name, label, dname)]
+                    print(f"  {name} [{b},{s},{HIDDEN}] {dname}: kernel "
+                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                          f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                          f"({bound[1]})", flush=True)
+    return worst, times
+
+
+def rung_launches(policy, layers, steps, frame=False, fused=True):
+    """Kernel launches of ``steps`` train steps under the remat ``policy``:
+    one attention per layer and encoder call, run again in the backward by
+    'full' and 'dots' (their regions recompute it); '+probs' runs the v2s
+    pair and 'save_pack' the packed pair on the short route (all of it
+    word-aligned; the text pass in frame-level mode, whose joint pass runs
+    flash2, never re-run under a save_* policy)."""
+    again = 2 if policy.split("+")[0] in ("full", "dots") else 1
+    short_calls = layers if frame else 2 * layers
+    counts = {"fused_joint_embed": 2}
+    if "+probs" in policy:
+        counts.update(short_attention_probs=again * short_calls,
+                      short_attention_probs_backward=2 * short_calls)
+    elif policy == "save_pack":
+        counts.update(short_attention_packed=short_calls,
+                      short_attention_packed_backward=2 * short_calls)
+    else:
+        counts.update(short_attention=again * short_calls,
+                      short_attention_backward=2 * short_calls)
+    if frame:
+        counts.update(flash_attention2=again * layers,
+                      flash2_bwd_fused=layers if fused else 0,
+                      flash2_bwd_split=0 if fused else 2 * layers)
+    return expect_counts(**{k: v * steps for k, v in counts.items()})
+
+
+def run_rungs(exp, params, batches, rungs, warmup, steps, label, frame=False):
+    """Each remat rung from the same weights, batches and seed: its losses,
+    ms/step, peak memory, the bytes autograd keeps for the backward (by
+    storage, in the warm-up step; the bf16 weight copies included) and the
+    launches, against the first rung ("none")."""
+    import torch
+
+    from msa_tpu_torch.ops.flash2 import use_fused_backward
+    from msa_tpu_torch.training.trainer import Trainer
+
+    layers = exp.model.bert.num_hidden_layers
+    seq = TEXT_LEN + (exp.data.pair_seq_length or TEXT_LEN)
+    fused = use_fused_backward(seq, HIDDEN, HEADS, torch.bfloat16)
+    out = {}
+    for rung in rungs:
+        e = dataclasses.replace(exp, train=dataclasses.replace(
+            exp.train, remat=rung != "none",
+            remat_policy="auto" if rung == "none" else rung))
+        trainer = Trainer(e, "cuda")
+        if trainer.remat_policy != rung:
+            raise AssertionError(f"{label} {rung}: resolved to "
+                                 f"{trainer.remat_policy}")
+        state = trainer.init_state(0, total_steps=10_000, params=params)
+        losses, saved = [], {}
+
+        def pack(t, saved=saved):  # what autograd keeps, by storage
+            saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t
+
+        for i in range(warmup):
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                state, m = trainer.train_step(state, batches[i % len(batches)],
+                                              1)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        metrics = []
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + steps):
+            state, m = trainer.train_step(state, batches[i % len(batches)], 1)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses += [float(m["loss"]) for m in metrics]
+        want = rung_launches(rung, layers, steps, frame, fused)
+        if launches != want:
+            raise AssertionError(f"{label} {rung}: launches {launches}, want "
+                                 f"{want}")
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"{label} {rung}: losses {losses}")
+        out[rung] = {"losses": losses, "ms_step": seconds * 1e3 / steps,
+                     "peak_bytes": peak, "saved_bytes": sum(saved.values()),
+                     "launches": launches,
+                     "per_step": {k: v // steps for k, v in launches.items()
+                                  if v}}
+        del state, trainer
+        torch.cuda.empty_cache()
+    ref = out[rungs[0]]["losses"]
+    for rung, r in out.items():
+        # the forward of every rung does the same arithmetic (a region's
+        # forward runs the same kernels), except v2s, whose ctx is the PV
+        # product of normalised probabilities; later steps add the
+        # backward's summation order (dots sums the post-attention
+        # LayerNorm's gradient from two regions)
+        first = abs(r["losses"][0] - ref[0]) / abs(ref[0])
+        drift = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+        r["first_rel"], r["max_rel"] = first, drift
+        if ("+probs" not in rung and first != 0.0) or \
+                first > PROBS_LOSS_RTOL or drift > REMAT_LOSS_RTOL:
+            raise AssertionError(f"{label} {rung}: losses {r['losses']} "
+                                 f"against {ref}")
+        print(f"{label} remat {rung}: {r['ms_step']:.2f} ms/step, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, saved for the backward "
+              f"{r['saved_bytes'] / 2**30:.2f} GiB, launches per step "
+              f"{r['per_step']}; losses {[round(x, 5) for x in r['losses']]} "
+              f"(first step rel diff {first:.2e}, max {drift:.2e} against "
+              f"{rungs[0]})", flush=True)
+    return out
+
+
+def phase_remat_rungs():
+    """bert-large bf16 at B=96, L=40 (bench.py's training shape) under each
+    remat rung, from the same weights and seed."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.models.weights import init_params
+
+    exp = train_experiment(BATCH)
+    params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(1))
+    cfg = exp.model
+    split = synthetic_split(4 * BATCH, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=0)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, BATCH, drop_last=True))
+    return run_rungs(exp, params, batches, REMAT_RUNGS, REMAT_WARMUP,
+                     REMAT_STEPS, f"B={BATCH}")
+
+
+def phase_frame_rungs():
+    """Frame level (B=16, L=40, Lp=984) under the save_* rungs: flash2's
+    forward is not re-run (its residuals, ctx and lse, stay saved)."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.models.weights import init_params
+
+    exp = frame_experiment(FRAME_PAIR_LEN, None, train_batch_size=FRAME_BATCH,
+                           compute_dtype="bfloat16", warmup_proportion=0.01,
+                           adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                           data_parallel=1)
+    cfg = exp.model
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(2))
+    split = synthetic_split(2 * FRAME_BATCH, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=2, pair_seq_length=FRAME_PAIR_LEN)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, FRAME_BATCH, drop_last=True))
+    return run_rungs(exp, params, batches, FRAME_RUNGS, 1, 2,
+                     f"frame-level B={FRAME_BATCH} Lp={FRAME_PAIR_LEN}",
+                     frame=True)
+
+
+def phase_auto():
+    """'auto' on this card: no checkpointing at B=96; at the smallest batch
+    (a multiple of 32) whose activation estimate passes half the card's
+    memory, JAX's ladder, whose first rung fits an 80 GB card; one step
+    there."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.training.trainer import Trainer
+
+    memory = torch.cuda.get_device_properties(0).total_memory
+    small = Trainer(train_experiment(BATCH), "cuda")
+    if small.remat_policy != "none":
+        raise AssertionError(f"auto at B={BATCH}: {small.remat_policy}")
+    batch = BATCH
+    while Trainer(train_experiment(batch), "cuda").activation_bytes() <= \
+            0.5 * memory:
+        batch += 32
+    trainer = Trainer(train_experiment(batch), "cuda")
+    if trainer.remat_policy != "save_attn+drop":
+        raise AssertionError(f"auto at B={batch}: {trainer.remat_policy}")
+    cfg = trainer.config.model
+    state = trainer.init_state(0, total_steps=10_000)
+    split = synthetic_split(batch, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=5)
+    (b,) = list(MultimodalDataset(split, seed=0).epoch_batches(0, batch))
+    state, m = trainer.train_step(state, b, 1)  # warm-up
+    float(m["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, b, 1)
+    loss = float(m["loss"])
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    want = rung_launches("save_attn+drop", cfg.bert.num_hidden_layers, 1)
+    if launches != want or not loss == loss:
+        raise AssertionError(f"auto B={batch}: launches {launches}, loss {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"auto: B={BATCH} -> none ({small.activation_bytes() / 1e9:.1f} GB "
+          f"estimated); B={batch} ({trainer.activation_bytes() / 1e9:.1f} GB "
+          f"> half of {memory / 1e9:.1f} GB) -> {trainer.remat_policy}: one "
+          f"step {seconds * 1e3:.1f} ms, peak {peak / 2**30:.2f} GiB, loss "
+          f"{loss:.4f}", flush=True)
+    del state, trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_entry_point():
+    """python -m msa_tpu_torch.cli.train at bert-large on the card (through
+    its ``run``, the CLI's flow): two epochs with checkpoints, then
+    --resume from the first epoch's checkpoint, whose second epoch must end
+    on the uninterrupted run's parameters bit for bit; then cli.sample on
+    the checkpoint and cli.score on the saved predictions."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.cli import sample, score, train
+    from msa_tpu_torch.models.weights import named_leaves
+    from msa_tpu_torch.training.checkpoint import (
+        epoch_dir, list_epoch_checkpoints)
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the CLI logs under ./logs
+        try:
+            argv = ["--model", "bert-large-uncased", "--dataset", "mosi",
+                    "--synthetic", str(CLI_SYNTHETIC), "--n_epochs", "2",
+                    "--train_batch_size", str(BATCH), "--val_batch_size",
+                    str(BATCH), "--test_batch_size", str(BATCH),
+                    "--checkpoint_root", os.path.join(tmp, "model_save"),
+                    "--numpy_root", os.path.join(tmp, "numpy_save"),
+                    "--device", "cuda"]
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer, state, result = train.run(
+                train.build_parser().parse_args(argv))
+            fit_s = time.perf_counter() - t0
+            launches = kernel_counts()
+            steps = state.step
+            run = os.path.join(tmp, "model_save",
+                               sorted(os.listdir(os.path.join(tmp, "model_save")))[-1])
+            epochs = list_epoch_checkpoints(run)
+            if trainer.remat_policy != "none" or 0 not in epochs or \
+                    len(result.history) != 2:
+                raise AssertionError(f"cli.train: remat {trainer.remat_policy}"
+                                     f", checkpoints {epochs}, history "
+                                     f"{len(result.history)}")
+            want = rung_launches("none", 24, steps)
+            # the eval passes: one forward per layer and encoder call
+            evals = 2 * -(-(CLI_SYNTHETIC // 8) // BATCH) * 2
+            want["short_attention"] += 2 * 24 * evals
+            want["fused_joint_embed"] += 2 * evals
+            if launches != want:
+                raise AssertionError(f"cli.train launches {launches}, want {want}")
+            t0 = time.perf_counter()
+            _, resumed, rresult = train.run(train.build_parser().parse_args(
+                argv + ["--resume", epoch_dir(run, 0)]))
+            resume_s = time.perf_counter() - t0
+            got = dict(named_leaves(resumed.params))
+            differ = [k for k, v in named_leaves(state.params)
+                      if not torch.equal(v, got[k])]
+            if differ or resumed.step != steps:
+                raise AssertionError(f"resume: {len(differ)} leaves differ "
+                                     f"({differ[:3]}), step {resumed.step}")
+            del state, resumed, trainer
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            preds, labels = sample.main(["--checkpoint", run, "--synthetic",
+                                         str(BATCH), "--batch_size",
+                                         str(BATCH), "--device", "cuda"])
+            sample_s = time.perf_counter() - t0
+            np_root = os.path.join(tmp, "numpy_save")
+            report = score.main(["--path", sorted(os.listdir(np_root))[-1],
+                                 "--numpy_root", np_root])
+            if preds.shape[0] != BATCH or not np.isfinite(preds).all() or \
+                    not np.isfinite(report["mae"]):
+                raise AssertionError(f"cli.sample / cli.score: {preds.shape}, "
+                                     f"mae {report['mae']}")
+        finally:
+            os.chdir(cwd)
+    print(f"cli.train bert-large B={BATCH}, {CLI_SYNTHETIC} synthetic samples,"
+          f" 2 epochs ({steps} steps): {fit_s:.1f} s, checkpoints at epochs "
+          f"{[e + 1 for e in epochs]}, best epoch {result.best_epoch + 1}; "
+          f"--resume from epoch 1: {resume_s:.1f} s, epoch-2 parameters "
+          f"bit-equal to the uninterrupted run's; cli.sample {sample_s:.1f} s "
+          f"(ACC/MAE/F1 printed above), cli.score MAE {report['mae']:.4f}",
+          flush=True)
+    return launches
+
+
+def train_experiment(batch):
+    """bench.py's training configuration at ``batch``: MOSI widths, L=40,
+    bf16, the default dropouts (hidden 0.1, attention 0.1, joint 0.5), MLM
+    on, bf16 Adam moments."""
+    from msa_tpu_torch.configs import build_experiment
+
+    return build_experiment("mosi", "bert-large-uncased", num_labels=1,
+                            train_batch_size=batch, compute_dtype="bfloat16",
+                            warmup_proportion=0.01, adam_mu_dtype="bfloat16",
+                            adam_nu_dtype="bfloat16", data_parallel=1)
+
+
 def kernel_entry(name, source, replaces, launches, err, timing, by_path):
     ms, plain_ms, lib_ms, (bound, bound_by) = timing
     return {"name": name, "route": "cuda", "source": source,
@@ -1505,6 +1990,7 @@ def main() -> int:
 
     f2_err, f2_times = phase_flash2(gen)
     f2_bwd_err, f2_bwd_times = phase_flash2_backward(gen)
+    pp_err, pp_times = phase_probs_packed(gen)
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
@@ -1525,6 +2011,10 @@ def main() -> int:
     long_launches, _ = phase_frame_training(
         LONG_PAIR_LEN, LONG_BATCH, LONG_LAYERS, 1, 1, "long-S")
     torch.cuda.empty_cache()
+    rungs = phase_remat_rungs()
+    frame_rungs = phase_frame_rungs()
+    auto_launches = phase_auto()
+    cli_launches = phase_entry_point()
     phase_f32_train()
     phase_f32_train(pair_len=FRAME_PAIR_LEN, batch_size=4)
 
@@ -1534,7 +2024,15 @@ def main() -> int:
                 "serving_int8_static": int8_launches["int8_static"][name],
                 "frame_serving": frame_serve_launches[name],
                 "frame_training": frame_train_launches[name],
-                "long_training": long_launches[name]}
+                "long_training": long_launches[name],
+                "remat_rungs": sum(r["launches"][name] for r in rungs.values()),
+                "frame_remat_rungs": sum(r["launches"][name]
+                                         for r in frame_rungs.values()),
+                "auto_big_batch": auto_launches[name],
+                "cli_train": cli_launches[name]}
+
+    def rung(policy, name):  # launches per step under that rung
+        return rungs[policy]["per_step"].get(name, 0)
 
     joint = ("joint", "bfloat16")
     kernels = [
@@ -1583,6 +2081,31 @@ def main() -> int:
                      long_launches["flash2_bwd_split"], f2_bwd_err[False],
                      f2_bwd_times[("s4096", "bfloat16", False)],
                      paths("flash2_bwd_split")),
+        kernel_entry("short_attention_probs",
+                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:858",
+                     rung("save_attn+drop+probs", "short_attention_probs"),
+                     pp_err["probs"], pp_times[("probs",) + joint],
+                     paths("short_attention_probs")),
+        kernel_entry("short_attention_probs_backward",
+                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:895",
+                     rung("save_attn+drop+probs",
+                          "short_attention_probs_backward"),
+                     pp_err["probs_bwd"], pp_times[("probs_bwd",) + joint],
+                     paths("short_attention_probs_backward")),
+        kernel_entry("short_attention_packed",
+                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:471",
+                     rung("save_pack", "short_attention_packed"),
+                     pp_err["packed"], pp_times[("packed",) + joint],
+                     paths("short_attention_packed")),
+        kernel_entry("short_attention_packed_backward",
+                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:505",
+                     rung("save_pack", "short_attention_packed_backward"),
+                     pp_err["packed_bwd"], pp_times[("packed_bwd",) + joint],
+                     paths("short_attention_packed_backward")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

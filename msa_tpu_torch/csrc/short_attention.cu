@@ -3,7 +3,14 @@
 // keep-mask export.
 //
 // Replaces the TPU kernels msa_tpu/ops/short_attention.py::_fwd_kernel_v2
-// and ::_bwd_kernel_v2 (entry short_attention_v2): q, k, v, the output ctx
+// and ::_bwd_kernel_v2 (entry short_attention_v2), and two variants of the
+// pair that the remat policies call: _fwd_kernel_v2p / _bwd_kernel_v2p
+// (entry short_attention_v2p, 'save_pack': the same kernels reading q, k, v
+// as the thirds of one packed [B, S, 3H] buffer at row stride 3H and writing
+// one packed dqkv) and _fwd_kernel_v2s / _bwd_kernel_v2s (entry
+// short_attention_v2s, '+probs': a forward that also writes the signed
+// softmax probabilities and a backward that reads them, see the section
+// below).  q, k, v, the output ctx
 // and the gradients are [B, S, H] in natural layout, heads are sliced
 // inside the kernels, key_bias is an additive [B, S] f32 mask, the softmax
 // runs in f32 (base-2 fold: scores carry scale*log2e, exp2 replaces exp;
@@ -219,21 +226,23 @@ __device__ __forceinline__ void axpy_half(float* acc, float w, const float* srow
   }
 }
 
-// Stage rows [r0, r0 + n) of one head of x and of y ([B, S, H], storage
-// type) into shared memory as f32 [n, 64]; x times `x_mult` when kScaleX.
-// Both loads of an iteration are issued together, so two are in flight.
+// Stage rows [r0, r0 + n) of one head of x and of y (row strides x_stride
+// and y_stride elements; x_base and y_base point at the head's row 0) into
+// shared memory as f32 [n, 64]; x times `x_mult` when kScaleX.  Both loads
+// of an iteration are issued together, so two are in flight.
 template <typename T, bool kScaleX = false>
-__device__ __forceinline__ void stage_pair(const T* x, const T* y, size_t head_base,
-                                           int hidden, int r0, int n, float x_mult,
+__device__ __forceinline__ void stage_pair(const T* x, const T* y, size_t x_base,
+                                           int x_stride, size_t y_base, int y_stride,
+                                           int r0, int n, float x_mult,
                                            float* x_s, float* y_s) {
   using L = Layout<T>;
   for (int idx = threadIdx.x; idx < n * L::kChunks; idx += blockDim.x) {
     const int j = idx / L::kChunks;
     const int c = idx - j * L::kChunks;
-    const size_t off = head_base + (size_t)(r0 + j) * hidden + c * L::kVec;
     float* xd = &x_s[j * kHeadDim + c * L::kVec];
-    load16(x + off, xd);
-    load16(y + off, &y_s[j * kHeadDim + c * L::kVec]);
+    load16(x + x_base + (size_t)(r0 + j) * x_stride + c * L::kVec, xd);
+    load16(y + y_base + (size_t)(r0 + j) * y_stride + c * L::kVec,
+           &y_s[j * kHeadDim + c * L::kVec]);
     if constexpr (kScaleX) {
 #pragma unroll
       for (int e = 0; e < L::kVec; ++e) xd[e] *= x_mult;
@@ -241,10 +250,14 @@ __device__ __forceinline__ void stage_pair(const T* x, const T* y, size_t head_b
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
 
+// `stride` is the row stride of q, k and v in elements: H for three [B, S, H]
+// tensors, 3H for the thirds of one packed [B, S, 3H] q|k|v (the caller
+// offsets k and v by H and 2H).  out and out32 are [B, S, H].
 template <typename T, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -252,7 +265,8 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const float* __restrict__ key_bias,
                            T* __restrict__ out, float* __restrict__ lse,
                            float* __restrict__ out32, int seq, int hidden,
-                           int rows_per_cta, float score_mult, Dropout drop) {
+                           int stride, int rows_per_cta, float score_mult,
+                           Dropout drop) {
   using L = Layout<T>;
   __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
   __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
@@ -263,12 +277,13 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = threadIdx.x & 1;
   const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
   const bool active = row < seq;
-  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kHeadDim;
+  const size_t out_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
   // This thread's half of the query row, pre-scaled into the log2 domain.
   float qr[L::kPart];
-  load_half(q + head_base + (size_t)row * hidden, half, active, score_mult, qr);
+  load_half(q + in_base + (size_t)row * stride, half, active, score_mult, qr);
 
   float acc[L::kPart];
 #pragma unroll
@@ -280,7 +295,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
     __syncthreads();  // every thread is done with the previous tile
-    stage_pair(k, v, head_base, hidden, k0, kn, 1.f, k_s, v_s);
+    stage_pair(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
       bias_s[j] = bias_row[k0 + j] * kLog2e;
     }
@@ -326,11 +341,11 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (active) {
-    store_half(out + head_base + (size_t)row * hidden, half, acc, 1.f / run_sum);
+    store_half(out + out_base + (size_t)row * hidden, half, acc, 1.f / run_sum);
     if constexpr (kTrain) {
       if (half == 0) lse[prob_row] = run_max + log2f(run_sum);
       if (out32 != nullptr) {
-        store_half_f32<T>(out32 + head_base + (size_t)row * hidden, half, acc,
+        store_half_f32<T>(out32 + out_base + (size_t)row * hidden, half, acc,
                           1.f / run_sum);
       }
     }
@@ -341,6 +356,9 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward 1/2: dq (and delta = dO . o for the dk/dv launch)
 // ---------------------------------------------------------------------------
 
+// q, k, v and dq have row stride `stride` (H, or 3H in the packed layout,
+// where dq, dk and dv are the thirds of one [B, S, 3H] gradient); o32 and
+// dout are [B, S, H].
 template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -350,7 +368,7 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ dout,
                               const float* __restrict__ lse,
                               float* __restrict__ delta_out, T* __restrict__ dq,
-                              int seq, int hidden, int rows_per_cta,
+                              int seq, int hidden, int stride, int rows_per_cta,
                               float score_mult, float scale, Dropout drop) {
   using L = Layout<T>;
   __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
@@ -362,12 +380,14 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = threadIdx.x & 1;
   const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
   const bool active = row < seq;
-  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
-  const size_t row_off = head_base + (size_t)row * hidden;
+  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kHeadDim;
+  const size_t in_off = in_base + (size_t)row * stride;
+  const size_t row_off = (size_t)b * seq * hidden + (size_t)head * kHeadDim +
+                         (size_t)row * hidden;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
   float qr[L::kPart], dor[L::kPart], acc[L::kPart];
-  load_half(q + row_off, half, active, score_mult, qr);
+  load_half(q + in_off, half, active, score_mult, qr);
   load_half(dout + row_off, half, active, 1.f, dor);
   // delta = dO . o over the full head row; acc holds o for a moment.
   load_half_f32<T>(o32 + row_off, half, active, acc);
@@ -384,7 +404,7 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
     __syncthreads();
-    stage_pair(k, v, head_base, hidden, k0, kn, 1.f, k_s, v_s);
+    stage_pair(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
       bias_s[j] = bias_row[k0 + j] * kLog2e;
     }
@@ -409,7 +429,7 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  if (active) store_half(dq + row_off, half, acc, scale);
+  if (active) store_half(dq + in_off, half, acc, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -425,7 +445,7 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                T* __restrict__ dk, T* __restrict__ dv,
-                               int seq, int hidden, int rows_per_cta,
+                               int seq, int hidden, int stride, int rows_per_cta,
                                float score_mult, float dk_mult, Dropout drop) {
   using L = Layout<T>;
   __shared__ __align__(16) float q_s[kQueryTile * kHeadDim];   // q * score_mult
@@ -441,8 +461,9 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int local = threadIdx.x >> 1;
   const int key = key0 + local;
   const bool active = key < seq;
-  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
-  const size_t key_off = head_base + (size_t)key * hidden;
+  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kHeadDim;
+  const size_t do_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t key_off = in_base + (size_t)key * stride;
   const uint32_t head_rows = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
   const int groups = rows_per_cta / kGroup;
 
@@ -456,7 +477,8 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i0 = 0; i0 < seq; i0 += kQueryTile) {
     const int qn = min(kQueryTile, seq - i0);
     __syncthreads();  // every thread is done with the previous tile
-    stage_pair<T, true>(q, dout, head_base, hidden, i0, qn, score_mult, q_s, do_s);
+    stage_pair<T, true>(q, dout, in_base, stride, do_base, hidden, i0, qn,
+                        score_mult, q_s, do_s);
     for (int i = threadIdx.x; i < qn; i += blockDim.x) {
       lse_s[i] = lse[head_rows + i0 + i];
       delta_s[i] = delta[head_rows + i0 + i];
@@ -498,6 +520,324 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The '+probs' pair (v2s): a forward that also writes the signed
+// probabilities, and a backward that reads them instead of recomputing
+// ---------------------------------------------------------------------------
+//
+// Probs layout: [B, heads, S, Sp] in the storage type, Sp = S rounded up to
+// 16 (one Philox group): entry (b, head, i, j) is keep ? p : -p, p the
+// normalised softmax probability before dropout; columns j >= S hold +-0.
+// JAX's v2s layout, [B, S, G * hpg * round_up(S, 128)], answers the TPU's
+// 128-lane tiles; each row here is 16-key aligned, so a thread writes and
+// reads its row in 16-byte vectors.  A probability that rounds to +-0 loses
+// its sign, which is harmless: it contributes 0 to every gradient term, and
+// the backward tests keep with ps > 0.
+//
+// The forward has no final row lse until it has seen every key, and 64
+// query rows' [S] score rows do not fit in shared memory at S < 1024, so it
+// makes two sweeps over the keys: the first runs the online max / sum to
+// the row's lse (scores only), the second recomputes each score, writes
+// ps = keep ? p : -p with p = exp2(s - lse), and accumulates ctx from
+// pd = keep ? p / (1 - rate) : 0 in f32 (never from the rounded ps).
+//
+// What bounds the pair: bytes, as the v2 pair, plus the probs, which are
+// S / 32 times the q/k/v/o bytes at bf16 (heads * S * 2 B per token against
+// 4 * H * 2 B): at the joint shape [192, 80] 39 MB written and read back,
+// about as many as q, k, v and o together.  The backward saves the score
+// recompute (a quarter of its products) and the Philox draws; the forward
+// pays a second pass over K for them.  The dk/dv launch stages a
+// [32 queries, <= 128 keys] block of the probs in shared memory, read row
+// by row (coalesced) and used column-wise.
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Store 8 consecutive values (16-byte aligned) in the storage type.
+template <typename T>
+__device__ __forceinline__ void store8(T* dst, const float* src) {
+#pragma unroll
+  for (int e = 0; e < 8; e += Layout<T>::kVec) store16(dst + e, src + e);
+}
+
+// Load 16 consecutive values (16-byte aligned) of the storage type as f32.
+template <typename T>
+__device__ __forceinline__ void load_group(const T* src, float* dst) {
+#pragma unroll
+  for (int e = 0; e < kGroup; e += Layout<T>::kVec) load16(src + e, dst + e);
+}
+
+__host__ __device__ __forceinline__ int probs_width(int seq) {
+  return (seq + kGroup - 1) / kGroup * kGroup;
+}
+
+// Stage rows [r0, r0 + n) of one head of x into shared memory as f32.
+template <typename T>
+__device__ __forceinline__ void stage_one(const T* x, size_t base, int stride, int r0,
+                                          int n, float* x_s) {
+  using L = Layout<T>;
+  for (int idx = threadIdx.x; idx < n * L::kChunks; idx += blockDim.x) {
+    const int j = idx / L::kChunks;
+    const int c = idx - j * L::kChunks;
+    load16(x + base + (size_t)(r0 + j) * stride + c * L::kVec,
+           &x_s[j * kHeadDim + c * L::kVec]);
+  }
+}
+
+template <typename T, bool kDropout>
+__global__ void __launch_bounds__(kMaxThreads)
+short_attention_probs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const float* __restrict__ key_bias,
+                                 T* __restrict__ out, T* __restrict__ probs,
+                                 int seq, int hidden, int rows_per_cta,
+                                 float score_mult, Dropout drop) {
+  using L = Layout<T>;
+  __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
+  __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
+  __shared__ float bias_s[kKeyTile];
+
+  const int b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int half = threadIdx.x & 1;
+  const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
+  const bool active = row < seq;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
+  T* probs_row = probs + (size_t)prob_row * probs_width(seq);
+  const float* bias_row = key_bias + (size_t)b * seq;
+
+  float qr[L::kPart];
+  load_half(q + head_base + (size_t)row * hidden, half, active, score_mult, qr);
+
+  // Sweep 1: the row's lse (log2 units) by the online max / sum.
+  float run_max = -INFINITY;
+  float run_sum = 0.f;
+  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+    const int kn = min(kKeyTile, seq - k0);
+    __syncthreads();
+    stage_one(k, head_base, hidden, k0, kn, k_s);
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+      bias_s[j] = bias_row[k0 + j] * kLog2e;
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+      float s[kKeyChunk];
+      float chunk_max = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        const int j = j0 + jj;
+        float part = 0.f;
+        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        s[jj] = (j < kn) ? part + bias_s[j] : -INFINITY;
+        chunk_max = fmaxf(chunk_max, s[jj]);
+      }
+      const float new_max = fmaxf(run_max, chunk_max);
+      run_sum *= exp2f(run_max - new_max);
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) run_sum += exp2f(s[jj] - new_max);
+      run_max = new_max;
+    }
+  }
+  const float row_lse = run_max + log2f(run_sum);
+
+  // Sweep 2: the same scores again, the signed probs and ctx.
+  float acc[L::kPart];
+#pragma unroll
+  for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
+  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+    const int kn = min(kKeyTile, seq - k0);
+    __syncthreads();
+    stage_pair(k, v, head_base, hidden, head_base, hidden, k0, kn, 1.f, k_s, v_s);
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+      bias_s[j] = bias_row[k0 + j] * kLog2e;
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+      float p[kKeyChunk];
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        const int j = j0 + jj;
+        float part = 0.f;
+        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        p[jj] = (j < kn) ? exp2f(part + bias_s[j] - row_lse) : 0.f;
+      }
+      uint32_t keep = 0xFFFFu;
+      if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
+      if (active) {
+        float signed_p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int jj = 8 * half + e;
+          signed_p[e] = ((keep >> jj) & 1u) ? p[jj] : -p[jj];
+        }
+        store8(probs_row + k0 + j0 + 8 * half, signed_p);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        const int j = j0 + jj;
+        if (j < kn) {
+          float pd = p[jj];
+          if constexpr (kDropout) pd = ((keep >> jj) & 1u) ? p[jj] * drop.scale : 0.f;
+          axpy_half<T>(acc, pd, &v_s[j * kHeadDim], half);
+        }
+      }
+    }
+  }
+  if (active) store_half(out + head_base + (size_t)row * hidden, half, acc, 1.f);
+}
+
+// dq from the stashed probs: one CTA per (query tile, head, batch row), two
+// threads per query row.  Sweep 1 over the keys sums delta = sum_j p * dpm
+// (dp = dO . v_j, dpm its dropout-masked, rescaled value); sweep 2 forms
+// ds = p * (dpm - delta) and accumulates dq = scale * sum_j ds k_j.  delta
+// goes to scratch for the dk/dv launch.  No score, softmax or Philox draw.
+template <typename T, bool kDropout>
+__global__ void __launch_bounds__(kMaxThreads)
+short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                                const T* __restrict__ probs,
+                                const T* __restrict__ dout,
+                                float* __restrict__ delta_out, T* __restrict__ dq,
+                                int seq, int hidden, int rows_per_cta, float scale,
+                                float drop_scale) {
+  using L = Layout<T>;
+  __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
+  __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
+
+  const int b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int half = threadIdx.x & 1;
+  const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
+  const bool active = row < seq;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t row_off = head_base + (size_t)row * hidden;
+  const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
+  const T* probs_row = probs + (size_t)prob_row * probs_width(seq);
+
+  float dor[L::kPart], acc[L::kPart];
+  load_half(dout + row_off, half, active, 1.f, dor);
+#pragma unroll
+  for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
+
+  float delta = 0.f;
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+      const int kn = min(kKeyTile, seq - k0);
+      __syncthreads();
+      if (sweep == 0) {
+        stage_one(v, head_base, hidden, k0, kn, v_s);
+      } else {
+        stage_pair(k, v, head_base, hidden, head_base, hidden, k0, kn, 1.f, k_s, v_s);
+      }
+      __syncthreads();
+      for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+        float ps[kGroup];
+        if (active) {
+          load_group(probs_row + k0 + j0, ps);
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < kGroup; ++jj) ps[jj] = 0.f;
+        }
+#pragma unroll 4
+        for (int jj = 0; jj < kKeyChunk; ++jj) {
+          const int j = j0 + jj;
+          if (j >= kn) break;  // uniform across the CTA
+          float dp = dot_half<T>(dor, &v_s[j * kHeadDim], half);
+          dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+          const float p = fabsf(ps[jj]);
+          float dpm = dp;
+          if constexpr (kDropout) dpm = ps[jj] > 0.f ? dp * drop_scale : 0.f;
+          if (sweep == 0) {
+            delta = fmaf(p, dpm, delta);
+          } else {
+            axpy_half<T>(acc, p * (dpm - delta), &k_s[j * kHeadDim], half);
+          }
+        }
+      }
+    }
+  }
+  if (active) {
+    if (half == 0) delta_out[prob_row] = delta;
+    store_half(dq + row_off, half, acc, scale);
+  }
+}
+
+// dk and dv from the stashed probs: one CTA per (key tile, head, batch row),
+// two threads per key row holding v and the dk / dv accumulators.  Query
+// tiles of kProbsQueryTile rows (q, dO, delta and the [tile, keys] block of
+// the probs, read row by row, coalesced) are staged in shared memory.
+constexpr int kProbsQueryTile = 32;
+
+template <typename T, bool kDropout>
+__global__ void __launch_bounds__(kMaxThreads)
+short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ v,
+                                 const T* __restrict__ probs,
+                                 const T* __restrict__ dout,
+                                 const float* __restrict__ delta,
+                                 T* __restrict__ dk, T* __restrict__ dv, int seq,
+                                 int hidden, int rows_per_cta, float scale,
+                                 float drop_scale) {
+  using L = Layout<T>;
+  __shared__ __align__(16) float q_s[kProbsQueryTile * kHeadDim];
+  __shared__ __align__(16) float do_s[kProbsQueryTile * kHeadDim];
+  __shared__ float p_s[kProbsQueryTile][kMaxRows];
+  __shared__ float delta_s[kProbsQueryTile];
+
+  const int b = blockIdx.z;
+  const int head = blockIdx.y;
+  const int half = threadIdx.x & 1;
+  const int key0 = blockIdx.x * rows_per_cta;
+  const int local = threadIdx.x >> 1;
+  const int key = key0 + local;
+  const bool active = key < seq;
+  const int width = probs_width(seq);
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t key_off = head_base + (size_t)key * hidden;
+  const uint32_t head_rows = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int keys_here = min(rows_per_cta, seq - key0);
+
+  float vr[L::kPart], dk_acc[L::kPart], dv_acc[L::kPart];
+  load_half(v + key_off, half, active, 1.f, vr);
+#pragma unroll
+  for (int i = 0; i < L::kPart; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int i0 = 0; i0 < seq; i0 += kProbsQueryTile) {
+    const int qn = min(kProbsQueryTile, seq - i0);
+    __syncthreads();
+    stage_pair(q, dout, head_base, hidden, head_base, hidden, i0, qn, 1.f, q_s, do_s);
+    for (int idx = threadIdx.x; idx < qn * keys_here; idx += blockDim.x) {
+      const int i = idx / keys_here;
+      const int j = idx - i * keys_here;
+      p_s[i][j] = to_float(probs[(size_t)(head_rows + i0 + i) * width + key0 + j]);
+    }
+    for (int i = threadIdx.x; i < qn; i += blockDim.x) delta_s[i] = delta[head_rows + i0 + i];
+    __syncthreads();
+
+#pragma unroll 2
+    for (int i = 0; i < qn; ++i) {
+      float dp = dot_half<T>(vr, &do_s[i * kHeadDim], half);
+      dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+      const float ps = active ? p_s[i][local] : 0.f;
+      const float p = fabsf(ps);
+      float pd = p, dpm = dp;
+      if constexpr (kDropout) {
+        const bool kept = ps > 0.f;
+        pd = kept ? p * drop_scale : 0.f;
+        dpm = kept ? dp * drop_scale : 0.f;
+      }
+      axpy_half<T>(dv_acc, pd, &do_s[i * kHeadDim], half);
+      axpy_half<T>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kHeadDim], half);
+    }
+  }
+
+  if (active) {
+    store_half(dk + key_off, half, dk_acc, scale);
+    store_half(dv + key_off, half, dv_acc, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Keep-mask export
 // ---------------------------------------------------------------------------
 
@@ -524,21 +864,22 @@ void tiles(int seq, int* n_tiles, int* rows) {
 template <typename T, bool kDropout, bool kTrain>
 void launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                 void* out, float* lse, float* out32, int batch, int seq, int hidden,
-                int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+                int stride, int num_heads, float score_mult, Dropout drop,
+                cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   short_attention_fwd_kernel<T, kDropout, kTrain>
       <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), bias, static_cast<T*>(out), lse, out32, seq,
-          hidden, rows, score_mult, drop);
+          hidden, stride, rows, score_mult, drop);
 }
 
 template <typename T, bool kDropout>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                const float* o32, const void* dout, const float* lse, float* delta,
                void* dq, void* dk, void* dv, int batch, int seq, int hidden,
-               int num_heads, float scale, Dropout drop, cudaStream_t s) {
+               int stride, int num_heads, float scale, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
@@ -546,7 +887,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   short_attention_bwd_dq_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, o32, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), seq, hidden, rows, score_mult, scale, drop);
+      static_cast<T*>(dq), seq, hidden, stride, rows, score_mult, scale, drop);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // q is staged as q * score_mult, so dk = sum(ds * q_staged) / log2e
@@ -554,8 +895,100 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   short_attention_bwd_dkv_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), seq, hidden, rows, score_mult, 1.f / kLog2e, drop);
+      static_cast<T*>(dv), seq, hidden, stride, rows, score_mult, 1.f / kLog2e, drop);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool kDropout>
+void launch_probs_fwd(const void* q, const void* k, const void* v, const float* bias,
+                      void* out, void* probs, int batch, int seq, int hidden,
+                      int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+  int n_tiles, rows;
+  tiles(seq, &n_tiles, &rows);
+  short_attention_probs_fwd_kernel<T, kDropout>
+      <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), bias, static_cast<T*>(out),
+          static_cast<T*>(probs), seq, hidden, rows, score_mult, drop);
+}
+
+template <typename T, bool kDropout>
+int launch_probs_bwd(const void* q, const void* k, const void* v, const void* probs,
+                     const void* dout, float* delta, void* dq, void* dk, void* dv,
+                     int batch, int seq, int hidden, int num_heads, float scale,
+                     float drop_scale, cudaStream_t s) {
+  int n_tiles, rows;
+  tiles(seq, &n_tiles, &rows);
+  const dim3 grid(n_tiles, num_heads, batch);
+  short_attention_probs_dq_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
+      static_cast<T*>(dq), seq, hidden, rows, scale, drop_scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  short_attention_probs_dkv_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(v),
+      static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), seq, hidden, rows, scale,
+      drop_scale);
+  return (int)cudaGetLastError();
+}
+
+bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype,
+              int drop_threshold) {
+  return seq <= 0 || batch <= 0 || hidden != num_heads * kHeadDim ||
+         drop_threshold < 0 || drop_threshold > 255 || (dtype != 0 && dtype != 1);
+}
+
+// The third `part` (0, 1, 2 = q, k, v) of a packed [B, S, 3H] buffer.
+const void* third(const void* qkv, int part, int hidden, int dtype) {
+  return static_cast<const char*>(qkv) + (size_t)part * hidden * (dtype ? 2 : 4);
+}
+
+int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
+                 void* out, void* lse, void* out32, int batch, int seq, int hidden,
+                 int stride, int num_heads, int dtype, float scale, unsigned seed_lo,
+                 unsigned seed_hi, int drop_threshold, void* stream) {
+  const float* bias = static_cast<const float*>(key_bias);
+  float* l = static_cast<float*>(lse);
+  float* o32 = static_cast<float*>(out32);
+  const float sm = scale * kLog2e;
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bool drop = drop_threshold > 0;
+#define MSA_FWD(T, D, W) launch_fwd<T, D, W>(q, k, v, bias, out, l, o32, batch, \
+                                             seq, hidden, stride, num_heads, sm, d, s)
+  if (dtype == 0) {
+    if (drop) { if (l) MSA_FWD(float, true, true); else MSA_FWD(float, true, false); }
+    else { if (l) MSA_FWD(float, false, true); else MSA_FWD(float, false, false); }
+  } else {
+    if (drop) {
+      if (l) MSA_FWD(__nv_bfloat16, true, true); else MSA_FWD(__nv_bfloat16, true, false);
+    } else {
+      if (l) MSA_FWD(__nv_bfloat16, false, true); else MSA_FWD(__nv_bfloat16, false, false);
+    }
+  }
+#undef MSA_FWD
+  return (int)cudaGetLastError();
+}
+
+int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
+                 const void* o32, const void* dout, const void* lse, void* delta,
+                 void* dq, void* dk, void* dv, int batch, int seq, int hidden,
+                 int stride, int num_heads, int dtype, float scale, unsigned seed_lo,
+                 unsigned seed_hi, int drop_threshold, void* stream) {
+  const float* bias = static_cast<const float*>(key_bias);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bool drop = drop_threshold > 0;
+#define MSA_BWD(T, D) launch_bwd<T, D>(q, k, v, bias, static_cast<const float*>(o32), \
+                                       dout, l, dl, dq, dk, dv, batch, seq, hidden,   \
+                                       stride, num_heads, scale, d, s)
+  if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
+  return drop ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
+#undef MSA_BWD
 }
 
 }  // namespace
@@ -577,31 +1010,12 @@ extern "C" int msa_short_attention_fwd(const void* q, const void* k,
                                        float scale, unsigned seed_lo,
                                        unsigned seed_hi, int drop_threshold,
                                        void* stream) {
-  if (seq <= 0 || batch <= 0 || hidden != num_heads * kHeadDim ||
-      drop_threshold < 0 || drop_threshold > 255 || (dtype != 0 && dtype != 1)) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* bias = static_cast<const float*>(key_bias);
-  float* l = static_cast<float*>(lse);
-  float* o32 = static_cast<float*>(out32);
-  const float sm = scale * kLog2e;
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
-#define MSA_FWD(T, D, W) launch_fwd<T, D, W>(q, k, v, bias, out, l, o32, batch, \
-                                             seq, hidden, num_heads, sm, d, s)
-  if (dtype == 0) {
-    if (drop) { if (l) MSA_FWD(float, true, true); else MSA_FWD(float, true, false); }
-    else { if (l) MSA_FWD(float, false, true); else MSA_FWD(float, false, false); }
-  } else {
-    if (drop) {
-      if (l) MSA_FWD(__nv_bfloat16, true, true); else MSA_FWD(__nv_bfloat16, true, false);
-    } else {
-      if (l) MSA_FWD(__nv_bfloat16, false, true); else MSA_FWD(__nv_bfloat16, false, false);
-    }
-  }
-#undef MSA_FWD
-  return (int)cudaGetLastError();
+  return fwd_dispatch(q, k, v, key_bias, out, lse, out32, batch, seq, hidden, hidden,
+                      num_heads, dtype, scale, seed_lo, seed_hi, drop_threshold,
+                      stream);
 }
 
 // The backward pair: dq (writing delta [B, heads, S] f32 scratch), then
@@ -616,22 +1030,103 @@ extern "C" int msa_short_attention_bwd(const void* q, const void* k,
                                        float scale, unsigned seed_lo,
                                        unsigned seed_hi, int drop_threshold,
                                        void* stream) {
-  if (seq <= 0 || batch <= 0 || hidden != num_heads * kHeadDim ||
-      drop_threshold < 0 || drop_threshold > 255 || (dtype != 0 && dtype != 1)) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return bwd_dispatch(q, k, v, key_bias, o32, dout, lse, delta, dq, dk, dv, batch,
+                      seq, hidden, hidden, num_heads, dtype, scale, seed_lo, seed_hi,
+                      drop_threshold, stream);
+}
+
+// The packed pair (TPU kernels _fwd_kernel_v2p / _bwd_kernel_v2p): q, k and
+// v are the thirds of one contiguous [B, S, 3H] qkv, read in place at row
+// stride 3H; out, out32 and dout are [B, S, H]; the backward writes dq, dk
+// and dv into the thirds of one [B, S, 3H] dqkv.  Otherwise the same
+// kernels, arguments and dropout as msa_short_attention_fwd / _bwd.
+extern "C" int msa_short_attention_packed_fwd(const void* qkv, const void* key_bias,
+                                              void* out, void* lse, void* out32,
+                                              int batch, int seq, int hidden,
+                                              int num_heads, int dtype, float scale,
+                                              unsigned seed_lo, unsigned seed_hi,
+                                              int drop_threshold, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return fwd_dispatch(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
+                      third(qkv, 2, hidden, dtype), key_bias, out, lse, out32, batch,
+                      seq, hidden, 3 * hidden, num_heads, dtype, scale, seed_lo,
+                      seed_hi, drop_threshold, stream);
+}
+
+extern "C" int msa_short_attention_packed_bwd(const void* qkv, const void* key_bias,
+                                              const void* o32, const void* dout,
+                                              const void* lse, void* delta,
+                                              void* dqkv, int batch, int seq,
+                                              int hidden, int num_heads, int dtype,
+                                              float scale, unsigned seed_lo,
+                                              unsigned seed_hi, int drop_threshold,
+                                              void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  void* dq = const_cast<void*>(third(dqkv, 0, hidden, dtype));
+  void* dk = const_cast<void*>(third(dqkv, 1, hidden, dtype));
+  void* dv = const_cast<void*>(third(dqkv, 2, hidden, dtype));
+  return bwd_dispatch(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
+                      third(qkv, 2, hidden, dtype), key_bias, o32, dout, lse, delta,
+                      dq, dk, dv, batch, seq, hidden, 3 * hidden, num_heads, dtype,
+                      scale, seed_lo, seed_hi, drop_threshold, stream);
+}
+
+// The '+probs' forward (TPU kernel _fwd_kernel_v2s): out [B, S, H] and the
+// signed probs [B, heads, S, round_up(S, 16)] in the storage type, under the
+// same dropout rule and seed as msa_short_attention_fwd.
+extern "C" int msa_short_attention_probs_fwd(const void* q, const void* k,
+                                             const void* v, const void* key_bias,
+                                             void* out, void* probs, int batch,
+                                             int seq, int hidden, int num_heads,
+                                             int dtype, float scale,
+                                             unsigned seed_lo, unsigned seed_hi,
+                                             int drop_threshold, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  const float sm = scale * kLog2e;
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_BWD(T, D) launch_bwd<T, D>(q, k, v, bias, static_cast<const float*>(o32), \
-                                       dout, l, dl, dq, dk, dv,                      \
-                                       batch, seq, hidden, num_heads, scale, d, s)
-  if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
-  return drop ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
-#undef MSA_BWD
+#define MSA_PFWD(T, D) launch_probs_fwd<T, D>(q, k, v, bias, out, probs, batch, seq, \
+                                              hidden, num_heads, sm, d, s)
+  if (dtype == 0) { if (drop) MSA_PFWD(float, true); else MSA_PFWD(float, false); }
+  else { if (drop) MSA_PFWD(__nv_bfloat16, true); else MSA_PFWD(__nv_bfloat16, false); }
+#undef MSA_PFWD
+  return (int)cudaGetLastError();
+}
+
+// The '+probs' backward (TPU kernel _bwd_kernel_v2s): dq (writing delta
+// [B, heads, S] f32 scratch), then dk/dv, from q, k, v, the forward's signed
+// probs and dout alone.  drop_threshold gives the rescale 256 / (256 - t).
+extern "C" int msa_short_attention_probs_bwd(const void* q, const void* k,
+                                             const void* v, const void* probs,
+                                             const void* dout, void* delta, void* dq,
+                                             void* dk, void* dv, int batch, int seq,
+                                             int hidden, int num_heads, int dtype,
+                                             float scale, int drop_threshold,
+                                             void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  float* dl = static_cast<float*>(delta);
+  const float ds = make_dropout(0, 0, drop_threshold).scale;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bool drop = drop_threshold > 0;
+#define MSA_PBWD(T, D) launch_probs_bwd<T, D>(q, k, v, probs, dout, dl, dq, dk, dv, \
+                                              batch, seq, hidden, num_heads, scale, \
+                                              ds, s)
+  if (dtype == 0) return drop ? MSA_PBWD(float, true) : MSA_PBWD(float, false);
+  return drop ? MSA_PBWD(__nv_bfloat16, true) : MSA_PBWD(__nv_bfloat16, false);
+#undef MSA_PBWD
 }
 
 // The keep mask the kernels above use, as a [B, heads, S, S] uint8 (0/1)

@@ -3,7 +3,8 @@
 Counterpart of ``msa_tpu/models/bert.py``: post-LN layers with LayerNorm
 and softmax in f32 and matmuls in the compute dtype, dropout at the
 embedding, attention-output and FFN-output sites (``ops/dropout.py``) and
-inside the attention kernels, and optional per-layer rematerialisation.
+inside the attention kernels, and the named rematerialisation policies
+(:func:`remat_layer`).
 Layers are a list of per-layer dicts (the JAX tree stacks them on a
 leading axis and scans; PyTorch runs a loop).  Dense layers hold ``weight``
 [out, in] and ``bias`` [out], as ``torch.nn.functional.linear`` takes them
@@ -16,6 +17,38 @@ one integer seed per dropout site from it, in a fixed order; each site
 seeds its own draw (or the attention kernel's Philox mask) from that
 integer.  A layer therefore receives its seeds as arguments, and the
 recompute of a checkpointed layer reproduces its dropout exactly.
+
+Rematerialisation (``remat_policy``, JAX's ``jax.checkpoint`` policies of
+``bert_encoder``): each policy saves what JAX's saves and recomputes the
+rest.  The layer is split into regions; a region that the policy
+recomputes runs under its own non-reentrant ``torch.utils.checkpoint``,
+whose inputs -- the values the policy saves -- stay alive until the
+backward, and what a policy saves stays outside the regions.  JAX's names
+map to the port's values as follows:
+
+* ``attn_io``: q, k, v (the attention Function keeps them);
+* ``attn_ctx`` / ``attn_lse``: the attention output and the kernel's own
+  residuals (the f32 output and the row lse of the short and flash2
+  kernels), kept by its autograd Function, so a policy that saves them
+  never re-runs the attention forward;
+* ``narrow``: the attention projection's output and the post-attention
+  LayerNorm's output; ``ffn_wide``: the FFN's up-projection and its gelu;
+* ``drop_mask`` (``+drop``): the two hidden-dropout bool masks, drawn
+  before the layer and handed to the regions, so a recompute draws
+  nothing; without it a recompute redraws them from the site's seed;
+* ``attn_probs`` (``+probs``): the signed probabilities of the short
+  kernel (``short_attention_probs``), whose backward then reads them;
+* ``attn_pack`` (``save_pack``): the packed [*, 3H] q|k|v of
+  ``short_attention_packed``.
+
+``+probs`` and ``save_pack`` change kernels only on the short-attention
+route (``ops/attention.py::attention_route``); elsewhere -- the flash2
+route, the plain route of the CPU or ``use_flash="never"`` -- they act as
+their base (``save_pack`` as ``save_attn``), as JAX's do where its short
+kernel does not run.  Selective activation checkpointing
+(``create_selective_checkpoint_contexts``) sees only dispatcher ops and
+could not cache the attention kernels, which are ctypes calls inside
+autograd Functions; hence the regions.
 """
 
 from __future__ import annotations
@@ -27,12 +60,21 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import BertConfig
-from ..ops.attention import multi_head_attention
-from ..ops.dropout import draw_seed, dropout, seeded_generator
+from ..ops.attention import (attention_route, multi_head_attention,
+                             packed_attention)
+from ..ops.dropout import (apply_dropout_mask, draw_seed, dropout,
+                           dropout_mask, seeded_generator)
 from ..ops.ln_quant import ln_quant
 from ..ops.quant import int8_dense, int8_matmul_pre, quantize_act
 
 STATS = ("attn_in", "ctx", "mlp_in", "ffn_act")
+# JAX's remat policy bases (msa_tpu/models/bert.py); "none" is the port's
+# no-checkpointing rung.  "+drop" / "+probs" compose only with the bases in
+# SUFFIX_BASES, as in JAX.
+REMAT_BASES = ("full", "dots", "save_small", "save_wide", "save_attn",
+               "save_ctx", "save_pack")
+SUFFIX_BASES = ("full", "save_small", "save_attn", "save_ctx", "save_pack",
+                "save_wide")
 
 Params = Dict[str, Any]
 
@@ -58,13 +100,23 @@ def gelu(x: torch.Tensor, exact: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if tanh else "none")
 
 
-def site_dropout(x: torch.Tensor, rate: float,
-                 seed: Optional[int]) -> torch.Tensor:
-    """Hidden dropout at one site, drawing from a generator seeded with
-    ``seed`` on ``x``'s device; identity when ``seed`` is None."""
-    if seed is None or rate == 0.0:
+def site_dropout(x: torch.Tensor, rate: float, site) -> torch.Tensor:
+    """Hidden dropout at one site.  ``site``: None (identity), an int seed
+    (the mask is drawn from a generator seeded with it on ``x``'s device)
+    or a bool keep mask from :func:`site_mask` (applied, nothing drawn)."""
+    if site is None or rate == 0.0:
         return x
-    return dropout(x, rate, seeded_generator(seed, x.device))
+    if isinstance(site, torch.Tensor):
+        return apply_dropout_mask(x, site, rate)
+    return dropout(x, rate, seeded_generator(site, x.device))
+
+
+def site_mask(shape, rate: float, seed: Optional[int], device):
+    """The keep mask :func:`site_dropout` would draw from ``seed`` for a
+    tensor of ``shape`` (None when there is no dropout)."""
+    if seed is None or rate == 0.0:
+        return None
+    return dropout_mask(shape, rate, seeded_generator(seed, device), device)
 
 
 def bert_embeddings(params: Params, input_ids: torch.Tensor, cfg: BertConfig,
@@ -88,6 +140,43 @@ def _absmax(x: torch.Tensor) -> torch.Tensor:
     return x.abs().amax().float()  # exact in any float dtype
 
 
+def _qkv(lp: Params, h: torch.Tensor):
+    return dense(h, lp["q"]), dense(h, lp["k"]), dense(h, lp["v"])
+
+
+def _attend(q, k, v, attn_bias, cfg: BertConfig, use_flash: str,
+            seed: Optional[int], **kernel):
+    return multi_head_attention(
+        q, k, v, attn_bias, num_heads=cfg.num_attention_heads,
+        dropout_rate=cfg.attention_probs_dropout_prob, seed=seed,
+        deterministic=seed is None, use_flash=use_flash, **kernel)
+
+
+def _attn_ln(lp: Params, h, attn_out, cfg: BertConfig, drop):
+    """The post-attention LayerNorm over the residual and the dropped
+    attention projection."""
+    return layer_norm(h + site_dropout(attn_out, cfg.hidden_dropout_prob,
+                                       drop),
+                      lp["attn_ln"], cfg.layer_norm_eps)
+
+
+def _ffn_ln(lp: Params, h1, down, cfg: BertConfig, drop):
+    """The closing LayerNorm over the residual and the dropped FFN output."""
+    return layer_norm(h1 + site_dropout(down, cfg.hidden_dropout_prob, drop),
+                      lp["mlp_ln"], cfg.layer_norm_eps)
+
+
+def _ffn(lp: Params, h1, cfg: BertConfig, drop):
+    up = gelu(dense(h1, lp["wi"]), cfg.exact_gelu)
+    return _ffn_ln(lp, h1, dense(up, lp["wo"]), cfg, drop)
+
+
+def _post_attention(lp: Params, h, ctx, cfg: BertConfig, drop1, drop2):
+    """The layer from the attention output on."""
+    return _ffn(lp, _attn_ln(lp, h, dense(ctx, lp["o"]), cfg, drop1), cfg,
+                drop2)
+
+
 def bert_layer(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
                cfg: BertConfig, *, use_flash: str = "auto",
                seeds: Optional[Tuple[int, int, int]] = None,
@@ -98,25 +187,104 @@ def bert_layer(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
     ``stats``: lists that gain this layer's absmax of each int8 site's
     input (``STATS``), for static-scale calibration."""
     attn_seed, post_seed, mlp_seed = seeds if seeds is not None else (None,) * 3
-    if stats is not None:
-        stats["attn_in"].append(_absmax(h))
-    ctx = multi_head_attention(
-        dense(h, lp["q"]), dense(h, lp["k"]), dense(h, lp["v"]), attn_bias,
-        num_heads=cfg.num_attention_heads,
-        dropout_rate=cfg.attention_probs_dropout_prob, seed=attn_seed,
-        deterministic=seeds is None, use_flash=use_flash)
-    if stats is not None:
-        stats["ctx"].append(_absmax(ctx))
-    attn_out = site_dropout(dense(ctx, lp["o"]), cfg.hidden_dropout_prob,
-                            post_seed)
-    h = layer_norm(h + attn_out, lp["attn_ln"], cfg.layer_norm_eps)
-    if stats is not None:
-        stats["mlp_in"].append(_absmax(h))
+    if stats is None:
+        return _post_attention(
+            lp, h, _attend(*_qkv(lp, h), attn_bias, cfg, use_flash, attn_seed),
+            cfg, post_seed, mlp_seed)
+    stats["attn_in"].append(_absmax(h))
+    ctx = _attend(*_qkv(lp, h), attn_bias, cfg, use_flash, attn_seed)
+    stats["ctx"].append(_absmax(ctx))
+    h = _attn_ln(lp, h, dense(ctx, lp["o"]), cfg, post_seed)
+    stats["mlp_in"].append(_absmax(h))
     up = gelu(dense(h, lp["wi"]), cfg.exact_gelu)
-    if stats is not None:
-        stats["ffn_act"].append(_absmax(up))
-    down = site_dropout(dense(up, lp["wo"]), cfg.hidden_dropout_prob, mlp_seed)
-    return layer_norm(h + down, lp["mlp_ln"], cfg.layer_norm_eps)
+    stats["ffn_act"].append(_absmax(up))
+    return _ffn_ln(lp, h, dense(up, lp["wo"]), cfg, mlp_seed)
+
+
+def parse_remat_policy(policy: str) -> Tuple[str, bool, bool]:
+    """(base, +drop, +probs) of a policy name, the suffixes in any order,
+    as JAX parses them; raises for an unknown base or a suffix on a base
+    that cannot honour it ("dots", "auto")."""
+    base, save_drop, save_probs = policy, False, False
+    while True:
+        if base.endswith("+drop"):
+            save_drop, base = True, base[:-len("+drop")]
+        elif base.endswith("+probs"):
+            save_probs, base = True, base[:-len("+probs")]
+        else:
+            break
+    if (save_drop or save_probs) and base not in SUFFIX_BASES:
+        raise ValueError(
+            f"remat_policy suffix (+drop/+probs) does not compose with base "
+            f"{base!r}; use one of the save_* named policies or 'full'")
+    if base not in REMAT_BASES + ("none",):
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return base, save_drop, save_probs
+
+
+def _region(fn, *args):
+    """A region the policy recomputes: its inputs are saved, nothing else.
+    Every random draw in a region is seeded from its arguments (or reads a
+    saved mask), so the global RNG states need not be stashed and
+    restored around the recompute."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def remat_layer(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
+                cfg: BertConfig, policy: str, *, use_flash: str = "auto",
+                seeds: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """:func:`bert_layer` under the remat ``policy`` (a JAX policy name;
+    see the module docstring): the same values, with what the policy does
+    not save recomputed in the backward."""
+    base, save_drop, save_probs = parse_remat_policy(policy)
+    attn_seed, drop1, drop2 = seeds if seeds is not None else (None,) * 3
+    if save_drop:  # 'drop_mask': draw both masks now, save them
+        rate = cfg.hidden_dropout_prob
+        drop1 = site_mask(h.shape, rate, drop1, h.device)
+        drop2 = site_mask(h.shape, rate, drop2, h.device)
+    route = attention_route(use_flash, h.shape[1], h.is_cuda)
+    stash = save_probs and route == "short"
+
+    def attend(q, k, v, **kernel):
+        return _attend(q, k, v, attn_bias, cfg, use_flash, attn_seed,
+                       stash_probs=stash, **kernel)
+
+    if base == "full":
+        return _region(lambda x, d1, d2: _post_attention(
+            lp, x, attend(*_qkv(lp, x)), cfg, d1, d2), h, drop1, drop2)
+    if base == "dots":  # every matmul output; the attention is re-run
+        q, k, v = _qkv(lp, h)
+        attn_out = _region(lambda *qkv: dense(attend(*qkv), lp["o"]), q, k, v)
+        up = _region(lambda x, a: dense(_attn_ln(lp, x, a, cfg, drop1),
+                                        lp["wi"]), h, attn_out)
+        down = _region(lambda u: dense(gelu(u, cfg.exact_gelu), lp["wo"]), up)
+        return _region(lambda x, a, dn: _ffn_ln(
+            lp, _attn_ln(lp, x, a, cfg, drop1), dn, cfg, drop2),
+            h, attn_out, down)
+
+    if base == "save_pack" and route == "short":
+        qkv = torch.cat(_qkv(lp, h), dim=-1)  # 'attn_pack'
+        ctx = packed_attention(
+            qkv, attn_bias, num_heads=cfg.num_attention_heads,
+            dropout_rate=cfg.attention_probs_dropout_prob, seed=attn_seed,
+            deterministic=attn_seed is None)
+    elif base == "save_ctx" and route == "plain":
+        # no kernel residuals to keep: the plain attention is recomputed
+        ctx = _region(lambda x: attend(*_qkv(lp, x)), h)
+    elif base == "save_ctx":  # q, k, v recomputed, the kernel never re-run
+        ctx = attend(*_qkv(lp, h), recompute=lambda: _qkv(lp, h))
+    else:
+        ctx = attend(*_qkv(lp, h))
+    if base in ("save_attn", "save_ctx", "save_pack"):
+        return _region(lambda x, c, d1, d2: _post_attention(
+            lp, x, c, cfg, d1, d2), h, ctx, drop1, drop2)
+    h1 = _region(lambda x, a, d1: _attn_ln(lp, x, a, cfg, d1), h,
+                 dense(ctx, lp["o"]), drop1)
+    if base == "save_small":
+        return _region(lambda x, d2: _ffn(lp, x, cfg, d2), h1, drop2)
+    up = gelu(dense(h1, lp["wi"]), cfg.exact_gelu)  # save_wide
+    return _region(lambda x, u, d2: _ffn_ln(lp, x, dense(u, lp["wo"]), cfg,
+                                            d2), h1, up, drop2)
 
 
 def bert_layer_int8(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
@@ -162,14 +330,13 @@ def bert_layer_int8(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
 def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
                  cfg: BertConfig, *, use_flash: str = "auto",
                  generator: Optional[torch.Generator] = None,
-                 remat: bool = False, collect_act_stats: bool = False):
+                 remat_policy: str = "none", collect_act_stats: bool = False):
     """``hidden`` [B, S, H]; ``attn_bias`` additive [B, 1, 1, S].
 
     ``generator``: a host generator for a training forward (three seeds per
     layer are drawn from it, in layer order); None is deterministic.
-    ``remat=True`` checkpoints each layer (the JAX ``full`` policy): one
-    non-reentrant ``torch.utils.checkpoint`` per layer, which keeps only the
-    layer's input and recomputes the rest in the backward.
+    ``remat_policy``: "none" (nothing checkpointed) or a JAX policy name,
+    applied to every layer by :func:`remat_layer`.
 
     ``collect_act_stats=True`` (int8 static-scale calibration) returns
     ``(hidden, stats)``: {"attn_in", "ctx", "mlp_in", "ffn_act"} -> [L] f32
@@ -182,6 +349,9 @@ def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
     discarded, as JAX's scan computes it).
     """
     layers = params["layers"]
+    remat = remat_policy != "none"
+    if remat:
+        parse_remat_policy(remat_policy)
     if generator is None and not remat and not collect_act_stats and \
             "qweight" in layers[0]["wi"]:
         n = len(layers)
@@ -197,9 +367,8 @@ def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
         seeds = (None if generator is None
                  else tuple(draw_seed(generator) for _ in range(3)))
         if remat:
-            hidden = checkpoint(bert_layer, lp, hidden, attn_bias, cfg,
-                                use_flash=use_flash, seeds=seeds, stats=stats,
-                                use_reentrant=False)
+            hidden = remat_layer(lp, hidden, attn_bias, cfg, remat_policy,
+                                 use_flash=use_flash, seeds=seeds)
         else:
             hidden = bert_layer(lp, hidden, attn_bias, cfg,
                                 use_flash=use_flash, seeds=seeds, stats=stats)

@@ -113,13 +113,14 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
                    compute_dtype: torch.dtype = torch.float32,
                    use_flash: str = "auto", deterministic: bool = True,
                    generator: Optional[torch.Generator] = None,
-                   remat: bool = False,
+                   remat_policy: str = "none",
                    collect_act_stats: bool = False) -> Dict[str, torch.Tensor]:
     """Three-view forward.  Returns every head output the serving path and
     the loss read, without MLM logits (the loss gathers them).
 
     ``deterministic=False`` with a host ``generator`` applies every dropout;
-    ``remat`` checkpoints each encoder layer (``bert_encoder``).
+    ``remat_policy`` ("none" or a JAX policy name) applies to every layer
+    of both encoder calls (``bert_encoder``).
     ``collect_act_stats=True`` (int8 static-scale calibration) adds
     "act_stats": the per-layer absmax of each quantized projection's input,
     the elementwise max over the text and joint passes (``ops/quant.py``).
@@ -142,14 +143,16 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
 
     # pass 1: text only [B, L]; pass 2: both joint views stacked [2B, L+Lp]
     seq_t = bert_encoder(bert, emb_t, extended_attention_mask(text_mask), bcfg,
-                         use_flash=use_flash, generator=gen, remat=remat,
+                         use_flash=use_flash, generator=gen,
+                         remat_policy=remat_policy,
                          collect_act_stats=collect_act_stats)
     if collect_act_stats:
         seq_t, act_stats = seq_t
     pooled_t = bert_pooler(bert, seq_t)
     seq_j = bert_encoder(bert, torch.cat([joint_v, joint_s], 0),
                          extended_attention_mask(torch.cat([mask_v, mask_s], 0)),
-                         bcfg, use_flash=use_flash, generator=gen, remat=remat,
+                         bcfg, use_flash=use_flash, generator=gen,
+                         remat_policy=remat_policy,
                          collect_act_stats=collect_act_stats)
     if collect_act_stats:
         seq_j, stats_j = seq_j

@@ -15,6 +15,9 @@ Everything else (embedding tables with the padded vocab, LayerNorm
 ``from_jax_params`` / ``from_jax_opt_state`` carry a JAX tree into this
 layout and ``to_jax_params`` / ``to_jax_opt_state`` carry it back (the
 layout of ``flax.serialization.to_state_dict``, for checkpoints).
+``load_pretrained_bert`` merges an HF-style BERT state dict (a local file,
+``load_torch_checkpoint``) into fresh parameters, as the JAX package's
+``models/weights.py`` does.
 """
 
 from __future__ import annotations
@@ -39,10 +42,13 @@ def _arr(x):
 
 def _tensor(x, device) -> torch.Tensor:
     """An f32 tensor, or bf16 where ``x`` is bf16 (numpy has no bf16 that
-    torch reads, so through f32, which holds every bf16 value exactly)."""
+    torch reads, so through f32, which holds every bf16 value exactly), in
+    the row-major layout of a fresh tensor: a transposed kernel kept in its
+    transposed strides would run other GEMM kernels, so a model loaded from
+    a checkpoint would not take bit for bit the steps of the one saved."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
-    t = torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+        return x.to(device).contiguous()
+    t = torch.from_numpy(np.array(x, dtype=np.float32, order="C")).to(device)
     return t.to(torch.bfloat16) if str(np.asarray(x).dtype) == "bfloat16" else t
 
 
@@ -206,6 +212,109 @@ def named_leaves(tree, prefix: str = ""):
             yield from named_leaves(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
+
+
+# ---------------------------------------------------------------------------
+# Pretrained BERT weights (HF BertModel / BertForPreTraining state dicts)
+# ---------------------------------------------------------------------------
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _hf_dense(sd, prefix):
+    # torch Linear weight is [out, in]; the JAX layout's kernel [in, out]
+    return {"kernel": _np(sd[f"{prefix}.weight"]).T,
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _hf_ln(sd, prefix):
+    return {"scale": _np(sd[f"{prefix}.weight"]),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _hf_bert(sd, cfg, prefix):
+    """An HF BertModel state dict (under ``prefix``) as the JAX package's
+    BERT tree (``convert_bert_state_dict``): stacked layers, the word
+    table zero-padded to the padded vocab."""
+    word = _np(sd[f"{prefix}embeddings.word_embeddings.weight"])
+    padded = np.zeros((cfg.padded_vocab_size,) + word.shape[1:], word.dtype)
+    padded[:word.shape[0]] = word
+    emb = {"word": padded,
+           "position": _np(sd[f"{prefix}embeddings.position_embeddings.weight"]),
+           "type": _np(sd[f"{prefix}embeddings.token_type_embeddings.weight"]),
+           "ln": _hf_ln(sd, f"{prefix}embeddings.LayerNorm")}
+    names = {"q": "attention.self.query", "k": "attention.self.key",
+             "v": "attention.self.value", "o": "attention.output.dense",
+             "wi": "intermediate.dense", "wo": "output.dense"}
+    lns = {"attn_ln": "attention.output.LayerNorm",
+           "mlp_ln": "output.LayerNorm"}
+    per_layer = []
+    for i in range(cfg.num_hidden_layers):
+        base = f"{prefix}encoder.layer.{i}."
+        lp = {k: _hf_dense(sd, base + n) for k, n in names.items()}
+        lp.update({k: _hf_ln(sd, base + n) for k, n in lns.items()})
+        per_layer.append(lp)
+    layers = {k: {f: np.stack([lp[k][f] for lp in per_layer])
+                  for f in per_layer[0][k]} for k in per_layer[0]}
+    out = {"embeddings": emb, "layers": layers}
+    if f"{prefix}pooler.dense.weight" in sd:
+        out["pooler"] = _hf_dense(sd, f"{prefix}pooler.dense")
+    return out
+
+
+def load_pretrained_bert(state_dict: Mapping[str, Any], cfg: MMBertConfig,
+                         params: Params) -> Params:
+    """Merge an HF BertForPreTraining (or BertModel) state dict into fresh
+    MMBert ``params`` of the port's layout (JAX ``load_pretrained_bert``):
+    the encoder, embeddings and, when present, the pooler and the MLM / NSP
+    heads are replaced; the custom heads keep their initialisation."""
+    sd = dict(state_dict)
+    device = params["bert"]["embeddings"]["word"].device
+    bert_prefix = "bert." if any(k.startswith("bert.") for k in sd) else ""
+    out = dict(params)
+    out["bert"] = from_jax_params(
+        {"bert": _hf_bert(sd, cfg.bert, bert_prefix)}, device)["bert"]
+    if "pooler" not in out["bert"]:
+        out["bert"]["pooler"] = params["bert"]["pooler"]
+    cls = dict(params["cls"])
+    if "cls.predictions.bias" in sd or "predictions.bias" in sd:
+        head = "cls." if "cls.predictions.bias" in sd else ""
+        bias = _np(sd[f"{head}predictions.bias"])
+        decoder_bias = np.full((cfg.bert.padded_vocab_size,), -1e9, bias.dtype)
+        decoder_bias[:bias.shape[0]] = bias
+        heads = {"transform_dense": _hf_dense(
+                     sd, f"{head}predictions.transform.dense"),
+                 "transform_ln": _hf_ln(
+                     sd, f"{head}predictions.transform.LayerNorm"),
+                 "decoder_bias": decoder_bias}
+        if f"{head}seq_relationship.weight" in sd:
+            heads["seq_relationship"] = _hf_dense(sd, f"{head}seq_relationship")
+        cls.update(_convert(heads, device, linear=True))
+    out["cls"] = cls
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A torch ``state_dict`` file as numpy arrays (host-side)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def resolve_pretrained(path: str) -> Dict[str, np.ndarray]:
+    """The state dict of a local torch file.  The port resolves no model
+    names: the JAX package looks names up through ``transformers`` (its
+    cache or the network); here a name that is not a file raises."""
+    import os
+
+    if os.path.exists(path):
+        return load_torch_checkpoint(path)
+    raise FileNotFoundError(
+        f"'{path}' is not a local state-dict file, and the port resolves no "
+        "model names.  On a networked machine run "
+        "scripts/fetch_bert_weights.py and pass the exported .pt file.")
 
 
 def init_params(cfg: MMBertConfig, generator: torch.Generator) -> Params:

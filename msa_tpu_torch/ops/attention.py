@@ -20,6 +20,12 @@ snapped to t/256 (as JAX snaps it for its kernels), with one mask rule.
 Dropout is active when ``deterministic`` is False, ``dropout_rate`` > 0 and
 a ``seed`` is given; the seed keys the kernels' Philox mask, or seeds the
 generator of the plain path's bernoulli draw.
+
+Two remat rungs pick other kernels on the ``short`` route only, as JAX
+dispatches its v2s / v2p entries only where its short kernel runs:
+``stash_probs=True`` (``+probs``) takes ``short_attention_probs``, and
+:func:`packed_attention` (``save_pack``) ``short_attention_packed``.  On
+the flash2 and plain routes both behave as their base.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch
 
 from .dropout import quantize_dropout_rate, seeded_generator
 from .flash2 import flash_attention2
-from .short_attention import short_attention, short_attention_plain
+from .short_attention import (short_attention, short_attention_packed,
+                              short_attention_plain, short_attention_probs)
 
 USE_FLASH = ("auto", "always", "never")
 FLASH_MIN_SEQ = 1024        # "auto": flash2 from here (JAX's _FLASH_MIN_SEQ)
@@ -60,8 +67,14 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          bias: torch.Tensor, *, num_heads: int,
                          dropout_rate: float = 0.0, seed: Optional[int] = None,
                          deterministic: bool = True,
-                         use_flash: str = "auto") -> torch.Tensor:
-    """q/k/v [B, S, H], bias [B, 1, 1, S] additive key mask -> [B, S, H]."""
+                         use_flash: str = "auto", stash_probs: bool = False,
+                         recompute=None) -> torch.Tensor:
+    """q/k/v [B, S, H], bias [B, 1, 1, S] additive key mask -> [B, S, H].
+
+    ``stash_probs``: the ``+probs`` kernels on the short route.
+    ``recompute``: on a kernel route, a callable giving (q, k, v) back in
+    the backward instead of saving them (``ops/short_attention.py``); the
+    plain route ignores it."""
     route = attention_route(use_flash, q.shape[1], q.is_cuda)
     key_bias = bias[:, 0, 0, :]
     dropout = (not deterministic) and dropout_rate > 0.0 and seed is not None
@@ -70,8 +83,25 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return _plain_with_dropout(q, k, v, key_bias, num_heads,
                                        dropout_rate, seed)
         return short_attention_plain(q, k, v, key_bias, num_heads)
-    kernel = short_attention if route == "short" else flash_attention2
-    if dropout:
-        return kernel(q, k, v, key_bias, num_heads,
-                      quantize_dropout_rate(dropout_rate), seed)
-    return kernel(q, k, v, key_bias, num_heads)
+    if route == "flash2":
+        kernel = flash_attention2
+    else:
+        kernel = short_attention_probs if stash_probs else short_attention
+    rate = quantize_dropout_rate(dropout_rate) if dropout else 0.0
+    return kernel(q, k, v, key_bias, num_heads, rate,
+                  seed if dropout else None, recompute=recompute)
+
+
+def packed_attention(qkv: torch.Tensor, bias: torch.Tensor, *,
+                     num_heads: int, dropout_rate: float = 0.0,
+                     seed: Optional[int] = None,
+                     deterministic: bool = True) -> torch.Tensor:
+    """The short route's packed attention (``save_pack``): qkv [B, S, 3H]
+    (q|k|v thirds), bias [B, 1, 1, S] -> [B, S, H] by
+    ``short_attention_packed``, whose gradient of ``qkv`` is one
+    [B, S, 3H] tensor.  The caller has checked that the route is short."""
+    dropout = (not deterministic) and dropout_rate > 0.0 and seed is not None
+    return short_attention_packed(
+        qkv, bias[:, 0, 0, :], num_heads,
+        quantize_dropout_rate(dropout_rate) if dropout else 0.0,
+        seed if dropout else None)

@@ -111,18 +111,36 @@ def keep_mask_plain(seed: int, rate: float, batch: int, num_heads: int,
     return keep.reshape(batch, num_heads, seq, seq)
 
 
+def dropout_mask(shape, rate: float, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """The keep mask (bool) of hidden dropout on a tensor of ``shape``,
+    drawn from ``generator`` (on ``device``) as :func:`dropout` draws it:
+    random bytes against the t/256 threshold for [..., S, H] with S >= 256,
+    else a bernoulli draw at the unsnapped rate."""
+    if len(shape) >= 3 and shape[-2] >= BITS_DROPOUT_MIN_SEQ:
+        t = byte_threshold(quantize_dropout_rate(rate))
+        return torch.randint(0, DROP_QUANT, shape, generator=generator,
+                             device=device, dtype=torch.uint8) >= t
+    return torch.empty(shape, device=device).bernoulli_(
+        1.0 - rate, generator=generator).bool()
+
+
+def apply_dropout_mask(x: torch.Tensor, keep: torch.Tensor,
+                       rate: float) -> torch.Tensor:
+    """``x`` with :func:`dropout_mask`'s ``keep`` applied: kept values
+    rescaled by 256 / (256 - t) on the byte rule, 1 / (1 - rate) else."""
+    if x.dim() >= 3 and x.shape[-2] >= BITS_DROPOUT_MIN_SEQ:
+        t = byte_threshold(quantize_dropout_rate(rate))
+        return torch.where(keep, x * (DROP_QUANT / (DROP_QUANT - t)),
+                           0.0).to(x.dtype)
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator) -> torch.Tensor:
     """Hidden dropout (``_dropout`` of the JAX package), drawing only from
     ``generator`` (on ``x``'s device).  Identity at rate 0."""
     if rate == 0.0:
         return x
-    if x.dim() >= 3 and x.shape[-2] >= BITS_DROPOUT_MIN_SEQ:
-        t = byte_threshold(quantize_dropout_rate(rate))
-        bits = torch.randint(0, DROP_QUANT, x.shape, generator=generator,
-                             device=x.device, dtype=torch.uint8)
-        return torch.where(bits >= t, x * (DROP_QUANT / (DROP_QUANT - t)),
-                           0.0).to(x.dtype)
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
-        1.0 - rate, generator=generator).bool()
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+    return apply_dropout_mask(
+        x, dropout_mask(x.shape, rate, generator, x.device), rate)

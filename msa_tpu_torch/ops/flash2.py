@@ -51,6 +51,8 @@ from .short_attention import (
     _seed_words,
     _stream,
     launch_forward,
+    save_inputs,
+    saved_inputs,
     short_attention_plain,
 )
 
@@ -216,26 +218,26 @@ class _FlashAttention2(torch.autograd.Function):
     no gradient for the bias or seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, num_heads, seed, rate):
+    def forward(ctx, q, k, v, key_bias, num_heads, seed, rate, recompute):
         out, lse, out32 = _forward_kernel(q, k, v, key_bias, num_heads, seed,
                                           byte_threshold(rate), train=True)
-        ctx.save_for_backward(q, k, v, key_bias, out32, lse)
+        save_inputs(ctx, recompute, q, k, v, key_bias, out32, lse)
         ctx.args = (num_heads, seed, rate)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_bias, out32, lse = ctx.saved_tensors
+        q, k, v, key_bias, out32, lse = saved_inputs(ctx)
         num_heads, seed, rate = ctx.args
         dq, dk, dv = flash_attention2_backward(q, k, v, key_bias, out32, lse,
                                                dout, num_heads, seed, rate)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      key_bias: torch.Tensor, num_heads: int,
-                     rate: float = 0.0, seed: Optional[int] = None
-                     ) -> torch.Tensor:
+                     rate: float = 0.0, seed: Optional[int] = None,
+                     recompute=None) -> torch.Tensor:
     """q/k/v: [B, S, H]; key_bias: [B, S] additive mask.  Returns ctx [B, S, H].
 
     ``rate``: attention-probs dropout, a multiple of 1/256
@@ -243,7 +245,9 @@ def flash_attention2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [0, 2**62)).  CUDA tensors launch the kernels (or raise): the forward
     alone when no gradient is needed, else the autograd pair.  CPU tensors
     take the plain version, at rate 0 only: dropout off the card is
-    ``multi_head_attention``'s bernoulli mask.
+    ``multi_head_attention``'s bernoulli mask.  ``recompute``: a callable
+    giving (q, k, v) back in the backward instead of saving them
+    (``ops/short_attention.py``).
     """
     if rate > 0.0 and seed is None:
         raise ValueError("flash_attention2: dropout needs a seed")
@@ -257,7 +261,8 @@ def flash_attention2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, key_bias, num_heads, "flash_attention2", max_seq=None)
     seed = 0 if seed is None else int(seed)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _FlashAttention2.apply(q, k, v, key_bias, num_heads, seed, rate)
+        return _FlashAttention2.apply(q, k, v, key_bias, num_heads, seed, rate,
+                                      recompute)
     return _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold,
                            train=False)[0]
 

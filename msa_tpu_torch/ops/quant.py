@@ -34,9 +34,9 @@ PROJ_STAT = {"q": "attn_in", "k": "attn_in", "v": "attn_in",
              "o": "ctx", "wi": "mlp_in", "wo": "ffn_act"}
 
 FUSE_QKV_NOT_PORTED = (
-    "fuse_qkv=True feeds the packed short-attention kernel (kernel row 6, "
-    "msa_tpu/ops/short_attention.py:471 _fwd_kernel_v2p), which is not "
-    "ported yet (ROADMAP.md: kernel rows 4-14)")
+    "fuse_qkv=True (one fused [*, 3H] int8 q|k|v projection feeding the "
+    "packed short-attention kernel, ops/short_attention.py::"
+    "short_attention_packed) is not ported yet (ROADMAP.md: the next slice)")
 
 # cuBLAS's int8 GEMM (``torch._int_mm`` on CUDA) takes more than 16 rows
 _INT_MM_MIN_ROWS = 17

@@ -24,11 +24,26 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   ``torch.autograd.Function`` whose backward is
   :func:`short_attention_backward` (two launches: dq, then dk/dv).  CPU
   tensors run :func:`short_attention_plain` at rate 0;
+* :func:`short_attention_probs` -- the ``+probs`` remat rung (JAX
+  ``short_attention_v2s``): under autograd the forward kernel also writes
+  the signed probabilities (:func:`probs_width` says their layout) and the
+  backward (:func:`short_attention_probs_backward`) reads them instead of
+  recomputing scores, softmax and dropout.  Without gradient it is the
+  plain forward kernel;
+* :func:`short_attention_packed` -- the ``save_pack`` rung (JAX
+  ``short_attention_v2p``): q, k, v as the thirds of one [B, S, 3H] tensor,
+  read in place; the backward (:func:`short_attention_packed_backward`)
+  writes one [B, S, 3H] gradient;
 * :func:`dropout_keep_mask` -- the [B, heads, S, S] keep mask for a seed
   (plain version: ``ops.dropout.keep_mask_plain``).
 
-``short_attention.launches``, ``short_attention_backward.launches`` and
-``dropout_keep_mask.launches`` count kernel launches.
+Each kernel entry has a plain version beside it (``*_plain``), which CPU
+tensors run.  ``short_attention``, ``short_attention_probs`` and
+``flash_attention2`` take ``recompute``: a callable returning (q, k, v),
+called in the backward in place of saving q, k and v (the ``save_ctx``
+rung recomputes the projections, never the attention forward).
+
+``<entry>.launches`` counts each entry's kernel launches.
 """
 
 from __future__ import annotations
@@ -54,8 +69,17 @@ _SIGNATURES = {
                                 _I, _F, _U, _U, _I, _P),
     "msa_short_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
+    "msa_short_attention_packed_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _F, _U, _U, _I, _P),
+    "msa_short_attention_packed_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _F, _U, _U, _I, _P),
+    "msa_short_attention_probs_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _F, _U, _U, _I, _P),
+    "msa_short_attention_probs_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _F, _I, _P),
     "msa_dropout_keep_mask": (_P, _I, _I, _I, _U, _U, _I, _P),
 }
+PROBS_GROUP = 16  # keys per Philox draw: the probs rows are padded to it
 
 
 def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,21 +95,28 @@ def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     input dtype for the PV product.
     """
     b, s, h = q.shape
+    probs = _scores_plain(q, k, key_bias, num_heads)
+    if keep is not None:
+        probs = torch.where(keep, probs / (1.0 - rate), 0.0)
+    ctx = torch.einsum("bnqk,bknd->bqnd", probs.to(q.dtype),
+                       v.reshape(b, s, num_heads, h // num_heads))
+    return ctx.reshape(b, s, h)
+
+
+def _scores_plain(q, k, key_bias, num_heads):
+    """f32 softmax probabilities [B, heads, S, S] (``_xla_attention``)."""
+    b, s, h = q.shape
     d = h // num_heads
     split = lambda x: x.reshape(b, s, num_heads, d)  # noqa: E731
     scores = torch.einsum("bqnd,bknd->bnqk", split(q).float(),
                           split(k).float())
     scores = scores / math.sqrt(d) + key_bias.float()[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1)
-    if keep is not None:
-        probs = torch.where(keep, probs / (1.0 - rate), 0.0)
-    ctx = torch.einsum("bnqk,bknd->bqnd", probs.to(q.dtype), split(v))
-    return ctx.reshape(b, s, h)
+    return torch.softmax(scores, dim=-1)
 
 
 def _check(q, k, v, key_bias, num_heads, what, max_seq=MAX_SEQ):
-    """Raise unless q, k, v and key_bias fit the attention kernels (the
-    flash2 wrappers share it with ``max_seq=None``)."""
+    """Raise unless q, k, v and key_bias (None: not checked) fit the
+    attention kernels (the flash2 wrappers share it with ``max_seq=None``)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     b, s, h = q.shape
@@ -101,7 +132,8 @@ def _check(q, k, v, key_bias, num_heads, what, max_seq=MAX_SEQ):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{what}: {name} {tuple(x.shape)} {x.dtype} "
                              f"{x.device} does not match q")
-    if key_bias.shape != (b, s) or key_bias.device != q.device:
+    if key_bias is not None and (key_bias.shape != (b, s)
+                                 or key_bias.device != q.device):
         raise ValueError(f"{what}: key_bias {tuple(key_bias.shape)} on "
                          f"{key_bias.device}, want ({b}, {s}) on {q.device}")
 
@@ -192,6 +224,22 @@ def short_attention_backward(q, k, v, key_bias, out32, lse, dout,
     return dq, dk, dv
 
 
+def save_inputs(ctx, recompute, q, k, v, *rest):
+    """Save (q, k, v, *rest) for the backward, or only ``rest`` with the
+    ``recompute`` callable that gives q, k, v back (``save_ctx``)."""
+    ctx.recompute = recompute
+    ctx.save_for_backward(*rest) if recompute is not None else \
+        ctx.save_for_backward(q, k, v, *rest)
+
+
+def saved_inputs(ctx):
+    """(q, k, v, *rest) as :func:`save_inputs` saved them."""
+    if ctx.recompute is None:
+        return ctx.saved_tensors
+    with torch.no_grad():
+        return (*ctx.recompute(), *ctx.saved_tensors)
+
+
 class _ShortAttention(torch.autograd.Function):
     """Forward kernel + backward kernel pair.  Saves q, k, v, the bias, the
     output (in f32) and the row lse -- the seed and rate ride as Python
@@ -199,26 +247,26 @@ class _ShortAttention(torch.autograd.Function):
     or seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_bias, num_heads, seed, rate):
+    def forward(ctx, q, k, v, key_bias, num_heads, seed, rate, recompute):
         out, lse, out32 = _forward_kernel(q, k, v, key_bias, num_heads, seed,
                                           byte_threshold(rate), train=True)
-        ctx.save_for_backward(q, k, v, key_bias, out32, lse)
+        save_inputs(ctx, recompute, q, k, v, key_bias, out32, lse)
         ctx.args = (num_heads, seed, rate)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_bias, out32, lse = ctx.saved_tensors
+        q, k, v, key_bias, out32, lse = saved_inputs(ctx)
         num_heads, seed, rate = ctx.args
         dq, dk, dv = short_attention_backward(q, k, v, key_bias, out32, lse,
                                               dout, num_heads, seed, rate)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_bias: torch.Tensor, num_heads: int,
-                    rate: float = 0.0, seed: Optional[int] = None
-                    ) -> torch.Tensor:
+                    rate: float = 0.0, seed: Optional[int] = None,
+                    recompute=None) -> torch.Tensor:
     """q/k/v: [B, S, H]; key_bias: [B, S] additive mask.  Returns ctx [B, S, H].
 
     ``rate``: attention-probs dropout, a multiple of 1/256
@@ -228,6 +276,7 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     take the plain version, at rate 0 only: dropout off the card is
     ``multi_head_attention``'s bernoulli mask, and the kernels' mask is
     ``short_attention_plain`` given ``ops.dropout.keep_mask_plain``.
+    ``recompute``: see the module docstring.
     """
     if rate > 0.0 and seed is None:
         raise ValueError("short_attention: dropout needs a seed")
@@ -241,7 +290,8 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, key_bias, num_heads, "short_attention")
     seed = 0 if seed is None else int(seed)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return _ShortAttention.apply(q, k, v, key_bias, num_heads, seed, rate)
+        return _ShortAttention.apply(q, k, v, key_bias, num_heads, seed, rate,
+                                     recompute)
     return _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold,
                            train=False)[0]
 
@@ -269,6 +319,340 @@ def dropout_keep_mask(seed: int, rate: float, batch: int, num_heads: int,
     return out.bool()
 
 
+# ---------------------------------------------------------------------------
+# '+probs' (JAX short_attention_v2s): stash the signed probabilities
+# ---------------------------------------------------------------------------
+
+
+def probs_width(seq: int) -> int:
+    """Columns of a stashed-probs row: S rounded up to 16.  The probs are
+    [B, heads, S, probs_width(S)] in the compute dtype, entry (b, h, i, j)
+    keep ? p : -p (p the softmax probability before dropout), zero past S.
+    JAX's layout is [B, S, heads * round_up(S, 128)] (head h's row i at
+    columns h * round_up(S, 128) + j)."""
+    return -(-seq // PROBS_GROUP) * PROBS_GROUP
+
+
+def short_attention_probs_plain(q, k, v, key_bias, num_heads: int,
+                                rate: float = 0.0,
+                                keep: Optional[torch.Tensor] = None):
+    """The plain version of the ``+probs`` forward: (ctx [B, S, H], signed
+    probs [B, heads, S, probs_width(S)] in q's dtype).  ``keep`` (a [B,
+    heads, S, S] bool mask) applies dropout: ctx reads the kept
+    probabilities divided by ``1 - rate``, as :func:`short_attention_plain`."""
+    b, s, h = q.shape
+    p = _scores_plain(q, k, key_bias, num_heads)
+    pd = p if keep is None else torch.where(keep, p / (1.0 - rate), 0.0)
+    ctx = torch.einsum("bnqk,bknd->bqnd", pd.to(q.dtype),
+                       v.reshape(b, s, num_heads, h // num_heads))
+    signed = p if keep is None else torch.where(keep, p, -p)
+    probs = signed.new_zeros((b, num_heads, s, probs_width(s)))
+    probs[..., :s] = signed
+    return ctx.reshape(b, s, h), probs.to(q.dtype)
+
+
+def short_attention_probs_backward_plain(q, k, v, probs, dout, num_heads: int,
+                                         rate: float = 0.0):
+    """dq, dk, dv from the signed probs (JAX ``_bwd_kernel_v2s``), in f32:
+    p = |ps|, keep = ps > 0, pd and dpm the kept p and dP = dO.V^T over
+    ``1 - rate``, delta = sum_j p * dpm per row, dS = p * (dpm - delta)."""
+    b, s, h = q.shape
+    d = h // num_heads
+    split = lambda x: x.reshape(b, s, num_heads, d).float()  # noqa: E731
+    ps = probs[..., :s].float()
+    p = ps.abs()
+    dp = torch.einsum("bqnd,bknd->bnqk", split(dout), split(v))
+    if rate > 0.0:
+        keep = ps > 0.0
+        pd = torch.where(keep, p, 0.0) / (1.0 - rate)
+        dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
+    else:
+        pd, dpm = p, dp
+    delta = (p * dpm).sum(-1, keepdim=True)
+    ds = p * (dpm - delta)
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, split(k)) * scale
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, split(q)) * scale
+    dv = torch.einsum("bnqk,bqnd->bknd", pd, split(dout))
+    return tuple(x.reshape(b, s, h).to(q.dtype) for x in (dq, dk, dv))
+
+
+def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
+                                   rate: float = 0.0):
+    """dq, dk, dv of :func:`short_attention_probs` from the forward's signed
+    probs (CUDA only): two launches, dq (which writes delta = sum p * dpm)
+    then dk/dv.  No score, softmax or Philox draw is recomputed."""
+    _check(q, k, v, None, num_heads, "short_attention_probs_backward")
+    b, s, h = q.shape
+    if probs.shape != (b, num_heads, s, probs_width(s)) or \
+            probs.dtype != q.dtype or dout.shape != q.shape:
+        raise ValueError("short_attention_probs_backward: probs "
+                         f"{tuple(probs.shape)} {probs.dtype} / dout "
+                         f"{tuple(dout.shape)} do not fit q {tuple(q.shape)}")
+    q, k, v, probs, dout = _aligned(q, k, v, probs, dout.to(q.dtype))
+    delta = torch.empty((b, num_heads, s), dtype=torch.float32,
+                        device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _build.load("short_attention", _SIGNATURES)
+    code = lib.msa_short_attention_probs_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(),
+        dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
+        1.0 / math.sqrt(HEAD_DIM), byte_threshold(rate), _stream(q))
+    _build.check(code, "short_attention_probs_backward")
+    short_attention_probs_backward.launches += 2
+    return dq, dk, dv
+
+
+def _probs_forward_kernel(q, k, v, key_bias, num_heads, seed, rate):
+    b, s, h = q.shape
+    q, k, v = _aligned(q, k, v, what="short_attention_probs")
+    key_bias = key_bias.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    probs = torch.empty((b, num_heads, s, probs_width(s)), dtype=q.dtype,
+                        device=q.device)
+    lib = _build.load("short_attention", _SIGNATURES)
+    code = lib.msa_short_attention_probs_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+        out.data_ptr(), probs.data_ptr(), b, s, h, num_heads,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
+        byte_threshold(rate), _stream(q))
+    _build.check(code, "short_attention_probs")
+    short_attention_probs.launches += 1
+    return out, probs
+
+
+class _ShortAttentionProbs(torch.autograd.Function):
+    """The v2s pair: the forward kernel writes ctx and the signed probs, the
+    backward kernels read q, k, v, the probs and dout.  On CPU tensors the
+    plain versions of both (rate 0)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, num_heads, seed, rate, recompute):
+        if q.is_cuda:
+            out, probs = _probs_forward_kernel(q, k, v, key_bias, num_heads,
+                                               seed, rate)
+        else:
+            out, probs = short_attention_probs_plain(q, k, v, key_bias,
+                                                     num_heads)
+        save_inputs(ctx, recompute, q, k, v, probs)
+        ctx.args = (num_heads, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, probs = saved_inputs(ctx)
+        num_heads, rate = ctx.args
+        entry = (short_attention_probs_backward if q.is_cuda
+                 else short_attention_probs_backward_plain)
+        return (*entry(q, k, v, probs, dout, num_heads, rate),
+                None, None, None, None, None)
+
+
+def short_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          key_bias: torch.Tensor, num_heads: int,
+                          rate: float = 0.0, seed: Optional[int] = None,
+                          recompute=None) -> torch.Tensor:
+    """:func:`short_attention` with the ``+probs`` backward (JAX
+    ``short_attention_v2s``): the same forward math and dropout mask; when a
+    gradient is needed the forward also stashes the signed probabilities
+    and the backward reads them.  Without gradient it runs the plain
+    forward kernel (``short_attention``) and writes no probs.  CPU tensors
+    run the plain versions, at rate 0 only."""
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    if not needs_grad:
+        return short_attention(q, k, v, key_bias, num_heads, rate, seed)
+    if rate > 0.0 and seed is None:
+        raise ValueError("short_attention_probs: dropout needs a seed")
+    if q.device.type == "cpu":
+        if byte_threshold(rate):
+            raise ValueError("short_attention_probs: in-kernel dropout needs "
+                             "CUDA tensors; on the CPU give "
+                             "short_attention_probs_plain a keep mask")
+    else:
+        _check(q, k, v, key_bias, num_heads, "short_attention_probs")
+    return _ShortAttentionProbs.apply(q, k, v, key_bias, num_heads,
+                                      0 if seed is None else int(seed), rate,
+                                      recompute)
+
+
+# ---------------------------------------------------------------------------
+# 'save_pack' (JAX short_attention_v2p): packed [B, S, 3H] q|k|v
+# ---------------------------------------------------------------------------
+
+
+def _thirds(qkv):
+    h = qkv.shape[-1] // 3
+    return qkv[..., :h], qkv[..., h:2 * h], qkv[..., 2 * h:]
+
+
+def short_attention_packed_plain(qkv, key_bias, num_heads: int,
+                                 rate: float = 0.0,
+                                 keep: Optional[torch.Tensor] = None):
+    """The plain version of :func:`short_attention_packed`:
+    :func:`short_attention_plain` on the thirds of ``qkv``."""
+    return short_attention_plain(*_thirds(qkv), key_bias, num_heads, rate,
+                                 keep)
+
+
+def short_attention_packed_backward_plain(qkv, key_bias, dout,
+                                          num_heads: int, rate: float = 0.0,
+                                          keep: Optional[torch.Tensor] = None):
+    """The packed gradient [B, S, 3H] of :func:`short_attention_packed_plain`
+    in f32 math (JAX ``_bwd_kernel_v2p``: delta = dO.o per head row), dq,
+    dk and dv written into the thirds of one buffer."""
+    b, s, h3 = qkv.shape
+    h = h3 // 3
+    d = h // num_heads
+    q, k, v = (x.reshape(b, s, num_heads, d).float() for x in _thirds(qkv))
+    p = _scores_plain(*_thirds(qkv)[:2], key_bias, num_heads)
+    do = dout.reshape(b, s, num_heads, d).float()
+    dp = torch.einsum("bqnd,bknd->bnqk", do, v)
+    if keep is not None:
+        pd = torch.where(keep, p, 0.0) / (1.0 - rate)
+        dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
+    else:
+        pd, dpm = p, dp
+    o = torch.einsum("bnqk,bknd->bqnd", pd, v)
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]   # [B, heads, S, 1]
+    ds = p * (dpm - delta)
+    scale = 1.0 / math.sqrt(d)
+    dqkv = torch.empty_like(qkv)
+    for i, g in enumerate((torch.einsum("bnqk,bknd->bqnd", ds, k) * scale,
+                           torch.einsum("bnqk,bqnd->bknd", ds, q) * scale,
+                           torch.einsum("bnqk,bqnd->bknd", pd, do))):
+        dqkv[..., i * h:(i + 1) * h] = g.reshape(b, s, h)
+    return dqkv
+
+
+def _check_packed(qkv, key_bias, num_heads, what):
+    b, s, h3 = qkv.shape
+    if h3 % 3:
+        raise ValueError(f"{what}: last dim {h3} is not 3H")
+    q, k, v = _thirds(qkv)
+    _check(q, k, v, key_bias, num_heads, what)
+
+
+def _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold, train):
+    """The packed forward; (ctx, lse, out32) as :func:`launch_forward`."""
+    b, s, h3 = qkv.shape
+    h = h3 // 3
+    (qkv,) = _aligned(qkv, what="short_attention_packed")
+    key_bias = key_bias.to(torch.float32).contiguous()
+    out = torch.empty((b, s, h), dtype=qkv.dtype, device=qkv.device)
+    lse = out32 = None
+    if train:
+        lse = torch.empty((b, num_heads, s), dtype=torch.float32,
+                          device=qkv.device)
+        out32 = out if qkv.dtype == torch.float32 else torch.empty(
+            out.shape, dtype=torch.float32, device=qkv.device)
+    lib = _build.load("short_attention", _SIGNATURES)
+    code = lib.msa_short_attention_packed_fwd(
+        qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        None if out32 is None or out32 is out else out32.data_ptr(), b, s, h,
+        num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        *_seed_words(seed), threshold, _stream(qkv))
+    _build.check(code, "short_attention_packed")
+    short_attention_packed.launches += 1
+    return out, lse, out32
+
+
+def short_attention_packed_backward(qkv, key_bias, out32, lse, dout,
+                                    num_heads: int, seed: int = 0,
+                                    rate: float = 0.0) -> torch.Tensor:
+    """dqkv [B, S, 3H] of :func:`short_attention_packed` (CUDA only): the
+    backward pair of :func:`short_attention_backward` reading the thirds of
+    ``qkv`` in place and writing dq, dk, dv into the thirds of one buffer."""
+    _check_packed(qkv, key_bias, num_heads, "short_attention_packed_backward")
+    b, s, h3 = qkv.shape
+    h = h3 // 3
+    if out32.shape != (b, s, h) or out32.dtype != torch.float32 or \
+            dout.shape != (b, s, h) or lse.shape != (b, num_heads, s):
+        raise ValueError("short_attention_packed_backward: out32/dout/lse "
+                         f"{tuple(out32.shape)} {out32.dtype}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)} do not fit "
+                         f"qkv {tuple(qkv.shape)}")
+    qkv, out32, dout = _aligned(qkv, out32, dout.to(qkv.dtype))
+    key_bias = key_bias.to(torch.float32).contiguous()
+    lse = lse.contiguous()
+    delta = torch.empty_like(lse)
+    dqkv = torch.empty_like(qkv)
+    lib = _build.load("short_attention", _SIGNATURES)
+    code = lib.msa_short_attention_packed_bwd(
+        qkv.data_ptr(), key_bias.data_ptr(), out32.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+        b, s, h, num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        *_seed_words(seed), byte_threshold(rate), _stream(qkv))
+    _build.check(code, "short_attention_packed_backward")
+    short_attention_packed_backward.launches += 2
+    return dqkv
+
+
+class _ShortAttentionPacked(torch.autograd.Function):
+    """The v2p pair.  Saves qkv, the bias, the output in f32 and the row lse
+    (the kernel's residuals); the gradient of qkv is one [B, S, 3H] tensor.
+    On CPU tensors the plain versions of both (rate 0)."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_bias, num_heads, seed, rate):
+        if qkv.is_cuda:
+            out, lse, out32 = _packed_forward_kernel(
+                qkv, key_bias, num_heads, seed, byte_threshold(rate), True)
+            ctx.save_for_backward(qkv, key_bias, out32, lse)
+        else:
+            out = short_attention_packed_plain(qkv, key_bias, num_heads)
+            ctx.save_for_backward(qkv, key_bias)
+        ctx.args = (num_heads, seed, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        num_heads, seed, rate = ctx.args
+        if ctx.saved_tensors[0].is_cuda:
+            qkv, key_bias, out32, lse = ctx.saved_tensors
+            dqkv = short_attention_packed_backward(
+                qkv, key_bias, out32, lse, dout, num_heads, seed, rate)
+        else:
+            qkv, key_bias = ctx.saved_tensors
+            dqkv = short_attention_packed_backward_plain(qkv, key_bias, dout,
+                                                         num_heads)
+        return dqkv, None, None, None, None
+
+
+def short_attention_packed(qkv: torch.Tensor, key_bias: torch.Tensor,
+                           num_heads: int, rate: float = 0.0,
+                           seed: Optional[int] = None) -> torch.Tensor:
+    """Attention on one packed qkv [B, S, 3H] (q|k|v thirds) -> ctx [B, S, H]
+    (JAX ``short_attention_v2p``): the kernels of :func:`short_attention`
+    read the thirds in place (row stride 3H), with the same dropout mask at
+    a seed, and the backward returns one packed dqkv.  CPU tensors run the
+    plain versions, at rate 0 only."""
+    if rate > 0.0 and seed is None:
+        raise ValueError("short_attention_packed: dropout needs a seed")
+    threshold = byte_threshold(rate)
+    seed = 0 if seed is None else int(seed)
+    if qkv.device.type == "cpu":
+        if threshold:
+            raise ValueError("short_attention_packed: in-kernel dropout needs "
+                             "CUDA tensors; on the CPU give "
+                             "short_attention_packed_plain a keep mask")
+    else:
+        _check_packed(qkv, key_bias, num_heads, "short_attention_packed")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _ShortAttentionPacked.apply(qkv, key_bias, num_heads, seed,
+                                           rate)
+    if qkv.device.type == "cpu":
+        return short_attention_packed_plain(qkv, key_bias, num_heads)
+    return _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold,
+                                  train=False)[0]
+
+
 short_attention.launches = 0
 short_attention_backward.launches = 0
 dropout_keep_mask.launches = 0
+short_attention_probs.launches = 0
+short_attention_probs_backward.launches = 0
+short_attention_packed.launches = 0
+short_attention_packed_backward.launches = 0

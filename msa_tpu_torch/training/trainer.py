@@ -11,25 +11,30 @@ On a CUDA device the step runs the hand-written kernels (attention forward
 and backward with in-kernel dropout -- the short kernels, or flash2 for a
 frame-level joint pass at S >= 1024 -- and the joint embedding); on the CPU
 their plain versions.  The device is the card unless the caller passes
-``"cpu"``.  ``fit`` and the command-line entries are not ported yet
-(ROADMAP: fit loop and CLIs; checkpoints are ``training/checkpoint.py``).
+``"cpu"``.  :meth:`Trainer.fit` is the epoch loop with model selection,
+patience, one checkpoint per improvement and resume (``fit`` of the JAX
+package); ``cli/train.py`` drives it.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import ExperimentConfig
 from ..data.dataset import MultimodalDataset, prefetch
+from ..metrics.scores import test_ce_score, test_mse_score
+from ..models.bert import parse_remat_policy
 from ..models.mmbert import mmbert_forward, mmbert_loss
 from ..models.weights import (cast_for_compute, init_params, map_tree,
                               named_leaves)
 from ..ops import masking
+from ..ops.attention import FLASH_MIN_SEQ
 from ..ops.dropout import SEED_BITS, draw_seed, seeded_generator
 from ..utils.flops import H100_BF16_PEAK_FLOPS, mmbert_step_flops
 from .optim import make_optimizer
@@ -38,27 +43,49 @@ from .train_state import TrainState
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _METRICS = ("loss", "mlm_loss", "ap_loss", "label_loss", "nce", "mlm_overflow")
 
-# The 'auto' remat policy: checkpoint nothing while the eager step's saved
-# activations fit comfortably on the card, else checkpoint every layer.
-# The estimate counts what autograd keeps per token and encoder layer in
-# the compute dtype's bytes, in units of H: the layer input (1, read by the
-# q/k/v products), q, k, v (3, kept by the attention kernel), ctx (1, and 2
-# more for the f32 copy the attention backward reads), the f32 input of both
-# LayerNorms (2 x 2), the LayerNorm output feeding the FFN (1), the FFN's
+# The 'auto' remat policy, first rung: checkpoint nothing while the eager
+# step's saved activations fit comfortably on the card.  The estimate counts
+# what autograd keeps per token and encoder layer in the compute dtype's
+# bytes, in units of H: the layer input (1, read by the q/k/v products), q,
+# k, v (3, kept by the attention kernel), ctx (1, and 2 more for the f32
+# copy the attention backward reads), the f32 input of both LayerNorms
+# (2 x 2), the LayerNorm output feeding the FFN (1), the FFN's
 # up-projection and its gelu (2 x 4), and two bool dropout masks (~1): ~21
 # elements of H, rounded up to 22.  bert-large at B=96 in bf16: 19,200
 # tokens x 22 x 2 B x 1024 x 24 layers = ~20.8 GB, i.e. roughly 0.9 GB per
 # layer; in frame-level mode at B=16, L=40, Lp=984, 33,408 tokens: ~36.1
 # GB (36.0 GiB peak measured on an 80 GB H100, no checkpointing; the
 # flash2 kernels keep no [S, S] tensor).  "Fit comfortably" is half the
-# card's memory:
-# the rest holds the f32 weights, their gradients, the Adam moments and the
-# optimizer's f32 temporaries (~20 B per parameter, 6.7 GB at bert-large),
-# the MLM head's logits and the allocator's slack.
+# card's memory: the rest holds the f32 weights, their gradients, the Adam
+# moments and the optimizer's f32 temporaries (~20 B per parameter, 6.7 GB
+# at bert-large), the MLM head's logits and the allocator's slack.
 _ACT_ELEMENTS_PER_TOKEN_LAYER = 22
 _ACT_MEMORY_FRACTION = 0.5
-_NAMED_POLICIES = ("save_small", "save_wide", "save_attn", "save_ctx",
-                   "save_pack", "dots")
+# Below that rung, JAX's ladder (msa_tpu/training/trainer.py
+# _resolve_remat_policy): the first policy whose stash fits the budget,
+# JAX's fractions of the card's memory -- 6/16, or 10/16 in frame-level
+# mode on the flash2 route (both calibrated on the TPU; no port run has
+# recalibrated them).  JAX counts its stash in units of one [tokens, H]
+# bf16 tensor per layer: 6 (save_attn+drop), 5, 3, 2 (save_ctx).  The
+# port's stash per token, layer and element of H, in bytes, with `it` the
+# compute dtype's size: the layer input (it), q, k, v (3 it), ctx (it),
+# the attention kernels' f32 output, which their backward reads (4 B in
+# bf16; in f32 it is ctx itself), and under '+drop' the two bool masks
+# (2 B).  In bf16 units: 8, 7, 5 and 4; the row lse (heads / H of a unit)
+# is left out.
+_REMAT_STASH_FRACTION = 6.0 / 16.0
+_REMAT_STASH_FRACTION_FRAME = 10.0 / 16.0
+_REMAT_LADDER = (  # (policy, its q/k/v/ctx/input tensors, masks?)
+    ("save_attn+drop", 5, True), ("save_attn", 5, False),
+    ("save_ctx+drop", 2, True), ("save_ctx", 2, False))
+
+
+def _card_memory(device: torch.device) -> Optional[float]:
+    """The card's memory in bytes; None off the card (the CPU: 'auto'
+    checkpoints nothing there)."""
+    if device.type != "cuda":
+        return None
+    return float(torch.cuda.get_device_properties(device).total_memory)
 
 
 def fold_in(base_seed: int, step: int) -> int:
@@ -109,6 +136,44 @@ class EpochMetrics:
         return out
 
 
+@dataclass
+class FitResult:
+    """The selection state of :meth:`Trainer.fit` (JAX ``FitResult``)."""
+    best_epoch: int = -1
+    best_acc: float = 0.0
+    best_mae: float = float("inf")
+    best_f1: float = 0.0
+    best_preds: Optional[np.ndarray] = None
+    best_labels: Optional[np.ndarray] = None
+    history: List[Dict[str, Any]] = field(default_factory=list)
+
+    def to_meta(self) -> Dict[str, Any]:
+        """JSON-serializable selection state (preds/labels go to .npy)."""
+        return {
+            "best_epoch": int(self.best_epoch),
+            "best_acc": float(self.best_acc),
+            "best_mae": float(self.best_mae),
+            "best_f1": float(self.best_f1),
+            "history": self.history,
+        }
+
+    @classmethod
+    def from_meta(cls, meta: Dict[str, Any],
+                  directory: Optional[str] = None) -> "FitResult":
+        r = cls(best_epoch=int(meta.get("best_epoch", -1)),
+                best_acc=float(meta.get("best_acc", 0.0)),
+                best_mae=float(meta.get("best_mae", float("inf"))),
+                best_f1=float(meta.get("best_f1", 0.0)),
+                history=list(meta.get("history", [])))
+        if directory is not None:
+            for attr, name in (("best_preds", "predict.npy"),
+                               ("best_labels", "target.npy")):
+                path = os.path.join(directory, name)
+                if os.path.exists(path):
+                    setattr(r, attr, np.load(path))
+        return r
+
+
 class Trainer:
     """Owns the device, the optimizer and the train / eval steps."""
 
@@ -139,7 +204,8 @@ class Trainer:
         # of drawing them, so the JAX trainer and this one can consume
         # identical masks.  train_step reads them from the batch.
         self.mlm_mask_injector = None
-        self.remat = self._resolve_remat()
+        # "none" or a JAX policy name, resolved once (models/bert.py)
+        self.remat_policy = self._resolve_remat_policy()
 
     # ------------------------------------------------------------------
     # State
@@ -163,28 +229,41 @@ class Trainer:
     # Steps
     # ------------------------------------------------------------------
 
-    def _resolve_remat(self) -> bool:
-        """Whether the encoder layers are checkpointed.  ``remat=False``:
-        never; policy ``full``: always; ``auto``: see the estimate above --
-        on the CPU (tests, tiny models) never.  The named save_* policies
-        and the +drop / +probs rungs are not ported."""
+    def _frame_level_flash(self) -> bool:
+        """Frame-level mode with the joint pass on the flash2 route."""
+        data = self.config.data
+        return (data.pair_seq_length is not None
+                and data.max_seq_length + data.pair_seq_length >= FLASH_MIN_SEQ
+                and self.config.train.use_flash_attention != "never")
+
+    def _resolve_remat_policy(self) -> str:
+        """The remat policy of the step: "none" when ``remat`` is off, a
+        named policy as given (validated), and for ``auto``: "none" while
+        :meth:`activation_bytes` fits half the card (always on the CPU),
+        else the first rung of JAX's ladder whose stash fits its budget
+        (see above), else "full"."""
         tc = self.config.train
         if not tc.remat:
-            return False
-        base = tc.remat_policy.split("+")[0]
-        if base in _NAMED_POLICIES or "+" in tc.remat_policy:
-            raise NotImplementedError(
-                f"remat_policy={tc.remat_policy!r}: the named remat policies "
-                "are not ported yet (ROADMAP: named remat policies); 'auto' "
-                "and 'full' are")
-        if base == "full":
-            return True
-        if base != "auto":
-            raise ValueError(f"unknown remat_policy {tc.remat_policy!r}")
-        if self.device.type != "cuda":
-            return False
-        return self.activation_bytes() > _ACT_MEMORY_FRACTION * \
-            torch.cuda.get_device_properties(self.device).total_memory
+            return "none"
+        if tc.remat_policy != "auto":
+            if parse_remat_policy(tc.remat_policy)[0] == "none":
+                raise ValueError(f"unknown remat_policy {tc.remat_policy!r}")
+            return tc.remat_policy
+        memory = _card_memory(self.device)
+        if memory is None or \
+                self.activation_bytes() <= _ACT_MEMORY_FRACTION * memory:
+            return "none"
+        budget = memory * (_REMAT_STASH_FRACTION_FRAME
+                           if self._frame_level_flash()
+                           else _REMAT_STASH_FRACTION)
+        it = torch.empty((), dtype=self.compute_dtype).element_size()
+        out32 = 4 if self.compute_dtype != torch.float32 else 0
+        per_element = self.activation_bytes() / (
+            _ACT_ELEMENTS_PER_TOKEN_LAYER * it)  # tokens x H x layers
+        for policy, tensors, masks in _REMAT_LADDER:
+            if per_element * (tensors * it + out32 + 2 * masks) < budget:
+                return policy
+        return "full"
 
     def activation_bytes(self) -> float:
         """The eager step's saved activations, estimated (see above)."""
@@ -251,7 +330,7 @@ class Trainer:
                 params, t_ids, b["text_mask"], tv_ids, ts_ids, b["visual"],
                 b["speech"], cfg, compute_dtype=self.compute_dtype,
                 use_flash=tc.use_flash_attention, deterministic=False,
-                generator=generator, remat=self.remat)
+                generator=generator, remat_policy=self.remat_policy)
             losses = mmbert_loss(params, out, t_lab, tv_lab, ts_lab,
                                  b["visual_ap"], b["speech_ap"], b["target"],
                                  cfg, weights=b["weight"])
@@ -343,6 +422,104 @@ class Trainer:
             preds.append(p.reshape(p.shape[0], -1)[: len(w)][w])
         em.seconds = time.perf_counter() - t0
         return em, np.concatenate(preds), np.concatenate(labels)
+
+    # ------------------------------------------------------------------
+    # Fit
+    # ------------------------------------------------------------------
+
+    def fit(self, state: TrainState, train_ds: MultimodalDataset,
+            val_ds: MultimodalDataset, test_ds: MultimodalDataset,
+            logger=None, checkpoint_dir: Optional[str] = None,
+            base_seed: Optional[int] = None, start_epoch: int = 0,
+            resume_result: Optional[FitResult] = None
+            ) -> Tuple[TrainState, FitResult]:
+        """Train ``n_epochs`` (from ``start_epoch``), selecting on the val
+        split (or the test split, ``select_on="test"``), with patience and
+        one checkpoint per improvement (``epoch_NNN`` under
+        ``checkpoint_dir``, with ``predict.npy`` / ``target.npy`` and the
+        selection state in meta.json's ``fit``).  ``resume_result``
+        restores that state, so a resumed run continues the same fit.
+        ``base_seed`` (default: the config's seed) keys every step's
+        randomness with the step number folded in, so a run resumed from a
+        checkpoint takes the uninterrupted run's steps."""
+        from .checkpoint import epoch_dir, save_checkpoint
+
+        tc = self.config.train
+        log = logger.info if logger else (
+            lambda *a: print(a[0] % tuple(a[1:]) if a[1:] else a[0]))
+        base_seed = tc.seed if base_seed is None else base_seed
+        scorer = test_mse_score if self.config.model.regression else test_ce_score
+
+        result = resume_result if resume_result is not None else FitResult()
+        # epochs already run without improvement (0 when resuming from the
+        # best checkpoint, which is where resume normally starts)
+        patience = max(0, start_epoch - result.best_epoch - 1) \
+            if result.history else 0
+        for epoch in range(start_epoch, tc.n_epochs):
+            patience += 1
+            state, tm = self.train_epoch(state, train_ds, epoch, base_seed)
+            t = tm.averaged()
+            log("[Train Epoch %d] Joint %.4f AP %.4f MLM %.4f Label %.4f NCE "
+                "%.4f (%.1f samples/s)", epoch + 1, t["loss"], t["ap_loss"],
+                t["mlm_loss"], t["label_loss"], t["nce"],
+                t.get("samples_per_sec", 0.0))
+            if "grad_norm" in t:
+                log("[Train Epoch %d] grad_norm %.4f", epoch + 1, t["grad_norm"])
+            if t["mlm_overflow"]:
+                log("WARNING: MLM gather cap overflowed by %d positions this "
+                    "epoch -- raise the cap (losses underweighted MLM)",
+                    int(t["mlm_overflow"]))
+
+            vm, vpreds, vlabels = self.eval_epoch(state, val_ds, epoch,
+                                                  base_seed, tc.val_batch_size)
+            if len(vpreds) > 1 and float(np.std(np.asarray(
+                    vpreds, np.float64))) < 1e-6:
+                log("WARNING: validation predictions are constant (%.4f) -- "
+                    "saturated head? try lower --beta / --learning_rate",
+                    float(np.asarray(vpreds).reshape(-1)[0]))
+            val_acc, val_mae, val_f1 = scorer(vpreds, vlabels)
+            v = vm.averaged()
+            log("[Val Epoch %d] Loss %.4f ACC %.4f MAE %.4f F1 %.4f",
+                epoch + 1, v["loss"], val_acc, val_mae, val_f1)
+
+            _, tpreds, tlabels = self.eval_epoch(state, test_ds, epoch,
+                                                 base_seed, tc.test_batch_size)
+            test_acc, test_mae, test_f1 = scorer(tpreds, tlabels)
+            log("[Epoch %d] Test_ACC %.4f Test_MAE %.4f Test_F1 %.4f",
+                epoch + 1, test_acc, test_mae, test_f1)
+
+            select_acc = val_acc if tc.select_on == "val" else test_acc
+            result.history.append({
+                "epoch": epoch + 1, "train": t, "val_acc": val_acc,
+                "val_mae": val_mae, "test_acc": test_acc, "test_mae": test_mae,
+                "test_f1": test_f1,
+            })
+
+            if select_acc > result.best_acc:
+                result.best_epoch = epoch
+                result.best_acc = select_acc
+                result.best_mae = test_mae
+                result.best_f1 = test_f1
+                result.best_preds = tpreds
+                result.best_labels = tlabels
+                patience = 0
+                if checkpoint_dir:
+                    # one retained checkpoint per improvement, carrying the
+                    # selection state for an exact resume
+                    d = epoch_dir(checkpoint_dir, epoch)
+                    save_checkpoint(d, state, self.config, epoch,
+                                    extra={"fit": result.to_meta()})
+                    np.save(os.path.join(d, "predict.npy"), tpreds)
+                    np.save(os.path.join(d, "target.npy"), tlabels)
+
+            if patience >= tc.patience:
+                log("Early stopping at epoch %d", epoch + 1)
+                break
+
+        log("[Best Epoch %d] ACC %.4f MAE %.4f F1 %.4f",
+            result.best_epoch + 1, result.best_acc, result.best_mae,
+            result.best_f1)
+        return state, result
 
     # ------------------------------------------------------------------
     # Perf accounting
