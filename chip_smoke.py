@@ -33,6 +33,12 @@ failure (no phase catches its own):
        the plain versions, v2s's ctx against v2's; the packed forward and
        backward bit-equal to v2's kernels on the thirds and against the
        plain packed backward;
+     * the fused AdamW on bert-large's leaf shapes, every pair of
+       moment dtypes, with and without a clip scale, an odd length and an
+       unaligned leaf, timed beside ``torch.optim.AdamW(fused=True)``; the
+       v3 backward pair (``USE_V3_BWD``) against its plain version and the
+       v2 pair at the text and joint shapes, its recomputed lse against the
+       forward's;
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
@@ -43,7 +49,10 @@ failure (no phase catches its own):
      checks the kernel launches per batch and the int8 GEMM against the
      CPU's (bit-equal), reports samples/s beside bf16's and the gap to the
      bf16 predictions, and checks f32 int8 card runs against the CPU
-     (depth cut to INT8_F32_LAYERS);
+     (depth cut to INT8_F32_LAYERS); then both modes with
+     ``fuse_qkv=True``: 48 packed attention forwards a batch and no v2,
+     samples/s in turns with the split projections, the predictions'
+     agreement;
   5c. serves a frame-level split (B=16, L=40, Lp=984: joint pass [32,
      1024]) with the same weights through the bf16 ``Predictor``, checks
      the launches per batch (flash2 for the joint pass, the short kernel
@@ -69,7 +78,10 @@ failure (no phase catches its own):
      attention forward twice, every save_* rung once; '+probs' runs only
      the v2s pair, 'save_pack' only the packed pair); then frame level
      (B=16, Lp=984) under none, save_attn+drop and save_ctx, flash2's
-     forward not re-run;
+     forward not re-run; then B=96 with ``fused_optimizer=True``
+     against the foreach AdamW under none and full (one fused AdamW launch
+     per leaf and step), and with ``USE_V3_BWD`` against v2 under none and
+     save_attn (ms/step, peak, bytes kept, losses);
   6d. 'auto': no checkpointing at B=96, JAX's ladder (save_attn+drop) at
      the smallest batch whose activation estimate passes half the card's
      memory, and one step there;
@@ -189,6 +201,40 @@ FRAME_RUNGS = ("none", "save_attn+drop", "save_ctx")
 PROBS_LOSS_RTOL = 2e-3
 REMAT_LOSS_RTOL = 2e-2
 CLI_SYNTHETIC = 2 * 96  # cli.train: two steps an epoch at B=96
+
+# fused AdamW kernel against its plain version: p within 1e-6 relative,
+# each moment within one ulp of its dtype (both sides compute the same
+# separately rounded f32 expression, so bit-equality is expected; the
+# phase prints whether it held).  Its bound counts 16 f32 operations an
+# element (5 products and 3 sums for the moments, 2 quotients, a root, the
+# eps sum, the decay product, the sum, the lr product and the difference).
+ADAMW_P_RTOL = 1e-6
+ULP = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7}
+ADAMW_OPS = 16
+# fused_optimizer and USE_V3_BWD train runs: 1 warm-up + 3 timed steps
+# each, from the same weights and seed as the run they are compared with.
+# The first step's loss is bit-equal (the same forward before any update);
+# the later ones within PR6_LOSS_RTOL: the two optimizers round the update
+# differently in f32 (the foreach path divides by a host scalar as a
+# multiply by its reciprocal and widens/narrows the bf16 moments in
+# separate passes; v3 takes delta from the bf16 ctx instead of the f32
+# output), and bf16 training carries such roundings into the loss as the
+# remat rungs' backward orders do (REMAT_LOSS_RTOL).
+PR6_WARMUP, PR6_STEPS = 1, 3
+PR6_LOSS_RTOL = 2e-2
+# fuse_qkv serving against the split projections, bf16: int8 (per-row
+# scales) computes the same int8 products, scales and epilogue per element
+# and the packed kernel is bit-equal to v2 on the thirds, so the
+# predictions are equal.  int8_static's split path takes each layer's
+# q/k/v input from the fused LayerNorm + quantize kernel, the fused path
+# (JAX's too) from the plain LayerNorm and a standalone quantize: h
+# differs by a bf16 ulp here and there (LN_QUANT_H_TOL), which flips
+# quantization ties by a whole level (a static scale is max|h| / 127),
+# i.e. draws another realisation of the quantization noise.  Each
+# realisation sits within the quantization's own effect of the bf16
+# predictions, so the two within twice the split path's measured gap to
+# bf16; a layout or scale fault moves them by their spread.  The fused
+# path's arithmetic is held apart by the f32 card-vs-CPU check.
 
 BATCH = 96          # bench.py's batch
 TEXT_LEN = 40       # MOSI max_seq_length
@@ -774,15 +820,19 @@ def phase_flash2_backward(gen):
 def kernel_counters():
     from msa_tpu_torch.ops.flash2 import (
         flash2_bwd_fused, flash2_bwd_split, flash_attention2)
+    from msa_tpu_torch.ops.fused_adamw import fused_adamw_leaf
     from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
     from msa_tpu_torch.ops.ln_quant import ln_quant_dynamic, ln_quant_static
     from msa_tpu_torch.ops.short_attention import (
         dropout_keep_mask, short_attention, short_attention_backward,
         short_attention_packed, short_attention_packed_backward,
-        short_attention_probs, short_attention_probs_backward)
+        short_attention_probs, short_attention_probs_backward,
+        short_attention_v3_backward)
 
     return {"short_attention": short_attention,
             "short_attention_backward": short_attention_backward,
+            "short_attention_v3_backward": short_attention_v3_backward,
+            "fused_adamw_leaf": fused_adamw_leaf,
             "short_attention_probs": short_attention_probs,
             "short_attention_probs_backward": short_attention_probs_backward,
             "short_attention_packed": short_attention_packed,
@@ -875,16 +925,60 @@ def phase_serving(exp, params):
     return pred, split, launches
 
 
-def serving_launches(layers, n_batches, quantize=None):
+def serving_launches(layers, n_batches, quantize=None, fuse_qkv=False):
     """Kernel launches of ``n_batches`` serving batches: per encoder call
-    one attention forward per layer and, int8_static, two ln_quant per
-    layer (mlp_in and the closing LayerNorm), int8 one (mlp_in)."""
-    per_call = {None: (0, 0), "int8": (0, 1), "int8_static": (2, 0)}
+    one attention forward per layer (the packed one under ``fuse_qkv``)
+    and, int8_static, two ln_quant per layer (mlp_in and the closing
+    LayerNorm; under ``fuse_qkv`` mlp_in only, as in JAX), int8 one
+    (mlp_in)."""
+    per_call = {None: (0, 0), "int8": (0, 1),
+                "int8_static": (1 if fuse_qkv else 2, 0)}
     static, dynamic = per_call[quantize]
-    return expect_counts(short_attention=2 * layers * n_batches,
+    attention = 2 * layers * n_batches
+    return expect_counts(short_attention=0 if fuse_qkv else attention,
+                         short_attention_packed=attention if fuse_qkv else 0,
                          fused_joint_embed=2 * n_batches,
                          ln_quant_static=2 * static * layers * n_batches,
                          ln_quant_dynamic=2 * dynamic * layers * n_batches)
+
+
+def int8_f32_gaps(exp, params, split, calib, fuse_qkv=False):
+    """f32 int8 and int8_static Predictors on the card (no TF32) against the
+    CPU's plain run on two samples, depth cut to INT8_F32_LAYERS: the
+    largest |difference| per mode, each within INT8_F32_PRED_ATOL."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bert = dataclasses.replace(exp.model.bert, num_hidden_layers=INT8_F32_LAYERS)
+    exp32 = dataclasses.replace(
+        exp, model=dataclasses.replace(exp.model, bert=bert),
+        train=dataclasses.replace(exp.train, compute_dtype="float32"))
+    cut = dict(params, bert=dict(params["bert"],
+                                 layers=params["bert"]["layers"][:INT8_F32_LAYERS]))
+    rows = [0, N_SERVE - 1]
+    sub = [np.asarray(x)[rows] for x in (split.input_ids, split.attention_mask,
+                                          split.visual, split.speech)]
+    calib32 = dataclasses.replace(calib, **{
+        f: np.asarray(getattr(split, f))[rows] for f in (
+            "input_ids", "attention_mask", "visual", "speech", "target")})
+    errs = {}
+    for mode in ("int8", "int8_static"):
+        kw = {"quantize": mode, "fuse_qkv": fuse_qkv,
+              "calibration": calib32 if mode == "int8_static" else None}
+        gpu = Predictor(exp32, cut, len(rows), "cuda", **kw).predict_arrays(*sub)
+        cpu = Predictor(exp32, to_device(cut, "cpu"), len(rows), "cpu",
+                        **kw).predict_arrays(*sub)
+        errs[mode] = float(np.abs(gpu - cpu).max())
+        if not errs[mode] <= INT8_F32_PRED_ATOL:
+            raise AssertionError(f"f32 {mode} (fuse_qkv {fuse_qkv}) card vs "
+                                 f"CPU predictions differ by {errs[mode]:.3e} "
+                                 f"> {INT8_F32_PRED_ATOL}")
+    return errs
 
 
 def phase_int8_serving(exp, params, pred16, split):
@@ -893,7 +987,6 @@ def phase_int8_serving(exp, params, pred16, split):
     import torch
 
     from msa_tpu_torch.inference import Predictor
-    from msa_tpu_torch.models.weights import to_device
     from msa_tpu_torch.ops.quant import int8_mm
 
     layers = exp.model.bert.num_hidden_layers
@@ -956,37 +1049,12 @@ def phase_int8_serving(exp, params, pred16, split):
               f"(random weights: predictions spread {float(np.ptp(outs['bf16'])):.3e})",
               flush=True)
 
-    # f32 on the card (no TF32) against the CPU plain run, depth cut
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    bert = dataclasses.replace(exp.model.bert, num_hidden_layers=INT8_F32_LAYERS)
-    exp32 = dataclasses.replace(
-        exp, model=dataclasses.replace(exp.model, bert=bert),
-        train=dataclasses.replace(exp.train, compute_dtype="float32"))
-    cut = dict(params, bert=dict(params["bert"],
-                                 layers=params["bert"]["layers"][:INT8_F32_LAYERS]))
-    rows = [0, N_SERVE - 1]
-    sub = [np.asarray(x)[rows] for x in (split.input_ids, split.attention_mask,
-                                          split.visual, split.speech)]
-    calib32 = dataclasses.replace(calib, **{
-        f: np.asarray(getattr(split, f))[rows] for f in (
-            "input_ids", "attention_mask", "visual", "speech", "target")})
-    errs = {}
-    for mode in ("int8", "int8_static"):
-        kw = {"quantize": mode,
-              "calibration": calib32 if mode == "int8_static" else None}
-        gpu = Predictor(exp32, cut, len(rows), "cuda", **kw).predict_arrays(*sub)
-        cpu = Predictor(exp32, to_device(cut, "cpu"), len(rows), "cpu",
-                        **kw).predict_arrays(*sub)
-        errs[mode] = float(np.abs(gpu - cpu).max())
-        if not errs[mode] <= INT8_F32_PRED_ATOL:
-            raise AssertionError(f"f32 {mode} card vs CPU predictions differ "
-                                 f"by {errs[mode]:.3e} > {INT8_F32_PRED_ATOL}")
+    errs = int8_f32_gaps(exp, params, split, calib)
     print(f"f32 int8 / int8_static card vs CPU plain ({INT8_F32_LAYERS} "
-          f"layers at full width, {len(rows)} samples): max |diff| "
+          f"layers at full width, 2 samples): max |diff| "
           f"{errs['int8']:.3e} / {errs['int8_static']:.3e} (atol "
           f"{INT8_F32_PRED_ATOL})", flush=True)
-    return launches, rates
+    return launches, rates, preds, outs, calib
 
 
 def cli_requests(cfg, n, seed):
@@ -1680,66 +1748,81 @@ def rung_launches(policy, layers, steps, frame=False, fused=True):
     return expect_counts(**{k: v * steps for k, v in counts.items()})
 
 
+def train_run(exp, params, batches, warmup, steps, label):
+    """``warmup`` + ``steps`` train steps of ``exp`` from ``params`` (the
+    same batches and seed for every caller): the losses, ms/step over the
+    timed steps, peak memory, the bytes autograd keeps for the backward (by
+    storage, in the warm-up steps; the bf16 weight copies included), the
+    kernel launches of the timed steps and the trainer's remat policy."""
+    import torch
+
+    from msa_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(exp, "cuda")
+    state = trainer.init_state(0, total_steps=10_000, params=params)
+    losses, saved = [], {}
+
+    def pack(t):  # what autograd keeps, by storage
+        saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    for i in range(warmup):
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            state, m = trainer.train_step(state, batches[i % len(batches)], 1)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics = []
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        state, m = trainer.train_step(state, batches[i % len(batches)], 1)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(m["loss"]) for m in metrics]
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    policy = trainer.remat_policy
+    del state, trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms_step": seconds * 1e3 / steps,
+            "peak_bytes": peak, "saved_bytes": sum(saved.values()),
+            "launches": launches, "remat_policy": policy,
+            "per_step": {k: v // steps for k, v in launches.items() if v}}
+
+
+def with_rung(exp, rung, **train):
+    """``exp`` under the remat ``rung`` ("none": no checkpointing)."""
+    return dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, remat=rung != "none",
+        remat_policy="auto" if rung == "none" else rung, **train))
+
+
 def run_rungs(exp, params, batches, rungs, warmup, steps, label, frame=False):
     """Each remat rung from the same weights, batches and seed: its losses,
-    ms/step, peak memory, the bytes autograd keeps for the backward (by
-    storage, in the warm-up step; the bf16 weight copies included) and the
-    launches, against the first rung ("none")."""
+    ms/step, peak memory, the bytes autograd keeps for the backward and the
+    launches (:func:`train_run`), against the first rung ("none")."""
     import torch
 
     from msa_tpu_torch.ops.flash2 import use_fused_backward
-    from msa_tpu_torch.training.trainer import Trainer
 
     layers = exp.model.bert.num_hidden_layers
     seq = TEXT_LEN + (exp.data.pair_seq_length or TEXT_LEN)
     fused = use_fused_backward(seq, HIDDEN, HEADS, torch.bfloat16)
     out = {}
     for rung in rungs:
-        e = dataclasses.replace(exp, train=dataclasses.replace(
-            exp.train, remat=rung != "none",
-            remat_policy="auto" if rung == "none" else rung))
-        trainer = Trainer(e, "cuda")
-        if trainer.remat_policy != rung:
+        r = out[rung] = train_run(with_rung(exp, rung), params, batches,
+                                  warmup, steps, f"{label} {rung}")
+        if r["remat_policy"] != rung:
             raise AssertionError(f"{label} {rung}: resolved to "
-                                 f"{trainer.remat_policy}")
-        state = trainer.init_state(0, total_steps=10_000, params=params)
-        losses, saved = [], {}
-
-        def pack(t, saved=saved):  # what autograd keeps, by storage
-            saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
-            return t
-
-        for i in range(warmup):
-            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-                state, m = trainer.train_step(state, batches[i % len(batches)],
-                                              1)
-            losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        metrics = []
-        t0 = time.perf_counter()
-        for i in range(warmup, warmup + steps):
-            state, m = trainer.train_step(state, batches[i % len(batches)], 1)
-            metrics.append(m)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = kernel_counts()
-        peak = torch.cuda.max_memory_allocated()
-        losses += [float(m["loss"]) for m in metrics]
+                                 f"{r['remat_policy']}")
         want = rung_launches(rung, layers, steps, frame, fused)
-        if launches != want:
-            raise AssertionError(f"{label} {rung}: launches {launches}, want "
-                                 f"{want}")
-        if not all(x == x and abs(x) < float("inf") for x in losses):
-            raise AssertionError(f"{label} {rung}: losses {losses}")
-        out[rung] = {"losses": losses, "ms_step": seconds * 1e3 / steps,
-                     "peak_bytes": peak, "saved_bytes": sum(saved.values()),
-                     "launches": launches,
-                     "per_step": {k: v // steps for k, v in launches.items()
-                                  if v}}
-        del state, trainer
-        torch.cuda.empty_cache()
+        if r["launches"] != want:
+            raise AssertionError(f"{label} {rung}: launches {r['launches']}, "
+                                 f"want {want}")
     ref = out[rungs[0]]["losses"]
     for rung, r in out.items():
         # the forward of every rung does the same arithmetic (a region's
@@ -1766,18 +1849,7 @@ def run_rungs(exp, params, batches, rungs, warmup, steps, label, frame=False):
 def phase_remat_rungs():
     """bert-large bf16 at B=96, L=40 (bench.py's training shape) under each
     remat rung, from the same weights and seed."""
-    import torch
-
-    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
-    from msa_tpu_torch.models.weights import init_params
-
-    exp = train_experiment(BATCH)
-    params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(1))
-    cfg = exp.model
-    split = synthetic_split(4 * BATCH, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
-                            vocab_size=cfg.bert.vocab_size, seed=0)
-    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
-        0, BATCH, drop_last=True))
+    exp, params, batches = train_inputs(1)
     return run_rungs(exp, params, batches, REMAT_RUNGS, REMAT_WARMUP,
                      REMAT_STEPS, f"B={BATCH}")
 
@@ -1938,6 +2010,372 @@ def phase_entry_point():
     return launches
 
 
+def phase_fused_adamw(gen):
+    """The fused AdamW kernel against its plain version on bert-large's
+    leaf shapes (the word embedding, an FFN weight, a bias, the regression
+    head's [1] bias, an odd length and a leaf 4 bytes off 16-byte
+    alignment: the scalar path), each pair of moment dtypes, with and
+    without a clip scale; then its time on the word-embedding leaf and an
+    FFN weight against its bound, the plain version and
+    ``torch.optim.AdamW(fused=True)`` on the same leaf (with f32 moments:
+    its bytes are the f32 kernel's)."""
+    import torch
+
+    from msa_tpu_torch.ops.fused_adamw import (
+        fused_adamw_leaf, fused_adamw_leaf_plain)
+
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    hyper = (3e-4, 0.01, 1.0 - 0.9 ** 7, 1.0 - 0.999 ** 7)  # lr, wd, c1, c2
+    shapes = {"word": (30592, HIDDEN), "wi": (4 * HIDDEN, HIDDEN),
+              "bias": (HIDDEN,), "head": (1,), "odd": (1001,),
+              "unaligned": (4097,)}
+    worst, exact = 0.0, True
+    for label, shape in shapes.items():
+        for mu_name, mu_dt in dts.items():
+            for nu_name, nu_dt in dts.items():
+                def draw(scale, shift=0):
+                    x = torch.randn(shape[0] + shift, *shape[1:], device="cuda",
+                                    generator=gen) * scale
+                    return x[shift:] if shift else x
+                shift = 1 if label == "unaligned" else 0  # 4 bytes off
+                p, g = draw(1.0, shift), draw(1e-2, shift)
+                mu = draw(1e-3, shift).to(mu_dt)
+                nu = (draw(1e-3, shift) ** 2).to(nu_dt)
+                for clip in (None, torch.tensor(0.25, device="cuda")):
+                    want = fused_adamw_leaf_plain(p, g, mu, nu, *hyper,
+                                                  clip_scale=clip)
+                    got = [p.clone(), mu.clone(), nu.clone()]
+                    if shift:  # keep the clones off 16-byte alignment
+                        got = [torch.empty(x.numel() + 1, dtype=x.dtype,
+                                           device="cuda")[1:].copy_(x)
+                               for x in got]
+                    fused_adamw_leaf(got[0], g, got[1], got[2], *hyper,
+                                     clip_scale=clip)
+                    torch.cuda.synchronize()
+                    tag = (f"fused_adamw {label} {list(shape)} mu {mu_name} "
+                           f"nu {nu_name} clip {clip is not None}")
+                    worst = max(worst, check_close(tag + " p", got[0], want[0],
+                                                   0.0, ADAMW_P_RTOL))
+                    check_close(tag + " mu", got[1], want[1], 1e-30,
+                                ULP[mu_name])
+                    check_close(tag + " nu", got[2], want[2], 1e-30,
+                                ULP[nu_name])
+                    exact &= all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"fused_adamw against its plain version on {len(shapes)} leaf "
+          f"shapes x 4 moment dtypes x clip on/off: p max_abs_err {worst:.3e} "
+          f"(rtol {ADAMW_P_RTOL}), moments within one ulp; bit-equal "
+          f"everywhere: {exact}", flush=True)
+
+    times = {}
+    for label in ("word", "wi"):
+        n = shapes[label][0] * shapes[label][1]
+        p = torch.randn(shapes[label], device="cuda", generator=gen)
+        g = torch.randn(shapes[label], device="cuda", generator=gen) * 1e-2
+        m16, n16 = (torch.zeros_like(p, dtype=torch.bfloat16) for _ in range(2))
+        m32, n32 = (torch.zeros_like(p) for _ in range(2))
+        ms = cuda_ms(lambda: fused_adamw_leaf(p, g, m16, n16, *hyper))
+        ms32 = cuda_ms(lambda: fused_adamw_leaf(p, g, m32, n32, *hyper))
+        plain_ms = cuda_ms(lambda: fused_adamw_leaf_plain(p, g, m16, n16,
+                                                          *hyper))
+        lib_p = torch.nn.Parameter(p.clone())
+        lib_p.grad = g.clone()
+        lib = torch.optim.AdamW([lib_p], lr=hyper[0], betas=(0.9, 0.999),
+                                eps=1e-6, weight_decay=hyper[1], fused=True)
+        lib_ms = cuda_ms(lib.step)
+        bound = bound_ms(20 * n, ADAMW_OPS * n, "float32")
+        bound32 = bound_ms(28 * n, ADAMW_OPS * n, "float32")
+        times[label] = (ms, plain_ms, lib_ms, bound)
+        print(f"fused_adamw {label} {list(shapes[label])}: kernel {ms:.4f} ms "
+              f"with bf16 moments (bound {bound[0]:.4f} ms, 20 B/element, "
+              f"{bound[1]}), {ms32:.4f} ms with f32 moments (bound "
+              f"{bound32[0]:.4f} ms, 28 B/element); plain {plain_ms:.4f} ms; "
+              f"torch.optim.AdamW(fused=True), f32 moments, {lib_ms:.4f} ms",
+              flush=True)
+        del lib, lib_p
+    return worst, times
+
+
+def phase_v3_kernels(gen):
+    """The v3 backward pair against its plain version (delta from the ctx
+    in its own dtype), at the text and joint shapes, bf16 and f32, rate 0
+    and with dropout (the plain version given the exported keep mask), and
+    against the v2 pair on the same inputs; the row lse the v3 dq launch
+    recomputes against the forward's, bit for bit; times at rate 0 beside
+    v2's and SDPA's backward."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch import _build
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    worst, times = 0.0, {}
+    for label, b, s in (("text", BATCH, TEXT_LEN),
+                        ("joint", 2 * BATCH, 2 * TEXT_LEN)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            atol, rtol = GRAD_TOL[dname]
+            for rate in (0.0, rate_on):
+                q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+                dout = torch.randn(b, s, HIDDEN, device="cuda",
+                                   generator=gen).to(dtype)
+                seed, t = 999 + s, byte_threshold(rate)
+                keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                        if rate else None)
+                out, lse, out32 = sa._forward_kernel(q, k, v, bias, HEADS, seed,
+                                                     t, True)
+                v3 = sa.short_attention_v3_backward(q, k, v, bias, out, dout,
+                                                    HEADS, seed, rate)
+                ref = sa.short_attention_v3_backward_plain(
+                    q.float(), k.float(), v.float(), bias, out, dout.float(),
+                    HEADS, rate, keep)
+                v2 = sa.short_attention_backward(q, k, v, bias, out32, lse,
+                                                 dout, HEADS, seed, rate)
+                # the C entry once more, keeping its scratch: the recomputed lse
+                scratch = [torch.empty_like(lse) for _ in range(2)]
+                grads = [torch.empty_like(q) for _ in range(3)]
+                _build.check(_build.load("short_attention", sa._SIGNATURES)
+                             .msa_short_attention_v3_bwd(
+                                 *(x.data_ptr() for x in (q, k, v, bias, out,
+                                                          dout, *scratch,
+                                                          *grads)),
+                                 b, s, HIDDEN, HEADS, sa._DTYPES[dtype],
+                                 1.0 / math.sqrt(sa.HEAD_DIM),
+                                 *sa._seed_words(seed),
+                                 t, sa._stream(q)), "v3 scratch check")
+                torch.cuda.synchronize()
+                tag = f"short_attention_v3_backward {label} {dname} rate {rate:g}"
+                if not torch.equal(scratch[0], lse):
+                    raise AssertionError(f"{tag}: the recomputed row lse is not "
+                                         "the forward's bit for bit")
+                if not all(torch.equal(a, c) for a, c in zip(grads, v3)):
+                    raise AssertionError(f"{tag}: two launches differ")
+                # v3 against v2: each pair is within (atol, rtol) of its
+                # own f32 reference, and the two references differ only by
+                # v3's delta reading o rounded to the dtype: the same plain
+                # version fed the f32 output shows by how much (nothing in
+                # f32), and that gap is allowed on top of twice the bound
+                ref32 = sa.short_attention_v3_backward_plain(
+                    q.float(), k.float(), v.float(), bias, out32, dout.float(),
+                    HEADS, rate, keep)
+                err = v2_err = 0.0
+                for name, g3, r, g2, r32 in zip(("dq", "dk", "dv"), v3, ref, v2,
+                                                ref32):
+                    err = max(err, check_close(f"{tag} {name}", g3, r, atol,
+                                               rtol, mask=live))
+                    check_close(f"{tag} {name} masked row", g3, r,
+                                MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
+                    gap = (g3.float() - g2.float()).abs()[live]
+                    allowed = (2 * (atol + rtol * g2.float().abs())
+                               + (r.float() - r32.float()).abs())[live]
+                    if (gap > allowed).any():
+                        raise AssertionError(
+                            f"{tag} {name} vs v2: {int((gap > allowed).sum())} "
+                            "elements beyond twice the bound plus the gap "
+                            "o's rounding makes in the plain version")
+                    v2_err = max(v2_err, float(gap.max()))
+                worst = max(worst, err)
+                line = (f"short_attention_v3_backward [{b},{s},{HIDDEN}] {dname} "
+                        f"rate {rate:g}: max_abs_err {err:.3e} (atol {atol}, "
+                        f"rtol {rtol}), against v2 {v2_err:.3e} (twice "
+                        "those and o's rounding), lse "
+                        "recomputed bit-equal")
+                if rate == 0.0:
+                    ms = cuda_ms(lambda: sa.short_attention_v3_backward(
+                        q, k, v, bias, out, dout, HEADS, seed, 0.0))
+                    v2_ms = cuda_ms(lambda: sa.short_attention_backward(
+                        q, k, v, bias, out32, lse, dout, HEADS, seed, 0.0))
+                    plain_ms = cuda_ms(lambda: sa.short_attention_v3_backward_plain(
+                        q, k, v, bias, out, dout, HEADS))
+                    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+                    sq, sk, sv, sm = sdpa_args(qq, kk, vv, bias)
+                    lib_out = F.scaled_dot_product_attention(sq, sk, sv,
+                                                             attn_mask=sm)
+                    lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+                    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                        lib_out, (qq, kk, vv), lib_do, retain_graph=True))
+                    # reads q, k, v, o (the ctx: an input of this function)
+                    # and dO, the [B, S] f32 bias; writes dq, dk, dv.  The
+                    # products: scores, dP, dV, dQ, dK (the lse sweep's
+                    # second score pass is the design's own)
+                    nbytes = 8 * q.element_size() * b * s * HIDDEN + b * s * 4
+                    bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
+                    times[(label, dname)] = (ms, plain_ms, lib_ms, bound)
+                    line += (f"; kernel {ms:.4f} ms (v2 pair {v2_ms:.4f} ms), "
+                             f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} "
+                             f"ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                print(line, flush=True)
+    return worst, times
+
+
+def train_inputs(seed):
+    """bench.py's training configuration at B=96, bert-large weights from
+    ``seed`` and two batches of a synthetic split (the rung phases')."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.models.weights import init_params
+
+    exp = train_experiment(BATCH)
+    params = init_params(exp.model,
+                         torch.Generator(device="cuda").manual_seed(seed))
+    cfg = exp.model
+    split = synthetic_split(4 * BATCH, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=0)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, BATCH, drop_last=True))
+    return exp, params, batches
+
+
+def compare_runs(label, base, other, name):
+    """``other``'s losses against ``base``'s: the first step bit-equal, the
+    rest within PR6_LOSS_RTOL; returns the largest relative gap."""
+    first, rest = base["losses"][0], other["losses"][0]
+    drift = max(abs(a - b) / abs(b)
+                for a, b in zip(other["losses"], base["losses"]))
+    if first != rest or drift > PR6_LOSS_RTOL:
+        raise AssertionError(f"{label} {name}: losses {other['losses']} "
+                             f"against {base['losses']}")
+    return drift
+
+
+def phase_fused_train(exp, params, batches):
+    """bert-large bf16 B=96 with fused_optimizer=True against the foreach
+    AdamW, from the same weights and seed, with no checkpointing and under
+    'full' (where the optimizer's f32 temporaries set the peak): ms/step,
+    one fused AdamW launch per leaf and step, peak memory and losses."""
+    from msa_tpu_torch.models.weights import named_leaves
+
+    layers = exp.model.bert.num_hidden_layers
+    leaves = sum(1 for _ in named_leaves(params))
+    out = {}
+    for rung in ("none", "full"):
+        for fused in (False, True):
+            label = f"B={BATCH} {rung} fused_optimizer={fused}"
+            r = out[(rung, fused)] = train_run(
+                with_rung(exp, rung, fused_optimizer=fused), params, batches,
+                PR6_WARMUP, PR6_STEPS, label)
+            want = rung_launches(rung, layers, PR6_STEPS)
+            want["fused_adamw_leaf"] = leaves * PR6_STEPS if fused else 0
+            if r["launches"] != want:
+                raise AssertionError(f"{label}: launches {r['launches']}, "
+                                     f"want {want}")
+        base, fused = out[(rung, False)], out[(rung, True)]
+        drift = compare_runs(f"B={BATCH} {rung}", base, fused,
+                             "fused_optimizer")
+        print(f"fused_optimizer B={BATCH} remat {rung}: {fused['ms_step']:.2f} "
+              f"ms/step against {base['ms_step']:.2f} (foreach AdamW), peak "
+              f"{fused['peak_bytes'] / 2**30:.2f} GiB against "
+              f"{base['peak_bytes'] / 2**30:.2f}; fused_adamw launches per "
+              f"step {fused['per_step']['fused_adamw_leaf']} ({leaves} leaves); "
+              f"losses {[round(x, 5) for x in fused['losses']]} against "
+              f"{[round(x, 5) for x in base['losses']]} (max rel {drift:.2e}, "
+              f"bound {PR6_LOSS_RTOL})", flush=True)
+    return out
+
+
+def phase_v3_train(exp, params, batches):
+    """bert-large bf16 B=96 with the short-attention backward switched to
+    v3 (``ops.short_attention.USE_V3_BWD``) against v2, from the same
+    weights and seed, with no checkpointing and under save_attn: ms/step,
+    peak memory, the bytes kept for the backward, launches and losses.
+    The switch is restored whatever happens."""
+    from msa_tpu_torch.ops import short_attention as sa
+
+    layers = exp.model.bert.num_hidden_layers
+    out = {}
+    try:
+        for rung in ("none", "save_attn"):
+            for v3 in (False, True):
+                sa.USE_V3_BWD = v3
+                label = f"B={BATCH} {rung} v3={v3}"
+                r = out[(rung, v3)] = train_run(
+                    with_rung(exp, rung), params, batches, PR6_WARMUP,
+                    PR6_STEPS, label)
+                want = rung_launches(rung, layers, PR6_STEPS)
+                if v3:
+                    want["short_attention_v3_backward"] = want.pop(
+                        "short_attention_backward")
+                    want["short_attention_backward"] = 0
+                if r["launches"] != want:
+                    raise AssertionError(f"{label}: launches {r['launches']}, "
+                                         f"want {want}")
+    finally:
+        sa.USE_V3_BWD = False
+    for rung in ("none", "save_attn"):
+        base, v3 = out[(rung, False)], out[(rung, True)]
+        drift = compare_runs(f"B={BATCH} {rung}", base, v3, "v3 backward")
+        print(f"v3 backward B={BATCH} remat {rung}: {v3['ms_step']:.2f} ms/step "
+              f"against {base['ms_step']:.2f} (v2), peak "
+              f"{v3['peak_bytes'] / 2**30:.2f} GiB against "
+              f"{base['peak_bytes'] / 2**30:.2f}, kept for the backward "
+              f"{v3['saved_bytes'] / 2**30:.2f} GiB against "
+              f"{base['saved_bytes'] / 2**30:.2f} "
+              f"({(base['saved_bytes'] - v3['saved_bytes']) / 1e9:.2f} GB "
+              f"less); launches per step {v3['per_step']}; losses "
+              f"{[round(x, 5) for x in v3['losses']]} (max rel {drift:.2e} "
+              f"against v2, bound {PR6_LOSS_RTOL})", flush=True)
+    return out
+
+
+def phase_fuse_qkv(exp, params, split, preds, outs, calib):
+    """int8 and int8_static serving at B=96 with fuse_qkv=True (one [*, 3H]
+    int8 projection per layer feeding the packed attention kernel) against
+    the split projections' Predictors of the int8 phase (``outs``: their
+    predictions and bf16's): launches per batch, samples/s in turns, the
+    predictions' agreement, and f32 card runs against the CPU."""
+    import numpy as np
+
+    from msa_tpu_torch.inference import Predictor
+
+    layers = exp.model.bert.num_hidden_layers
+    n_batches = -(-N_SERVE // BATCH)
+    launches, rates = {}, {}
+    for mode in ("int8", "int8_static"):
+        fused = Predictor(exp, params, BATCH, "cuda", quantize=mode,
+                          calibration=calib if mode == "int8_static" else None,
+                          fuse_qkv=True)
+        fused.predict_split(split)  # warm
+        reset_counts()
+        out = fused.predict_split(split)
+        launches[mode] = kernel_counts()
+        want = serving_launches(layers, n_batches, mode, fuse_qkv=True)
+        if launches[mode] != want:
+            raise AssertionError(f"{mode} fuse_qkv serving launches "
+                                 f"{launches[mode]}, want {want}")
+        gap = float(np.abs(out - outs[mode]).max())
+        bound = (0.0 if mode == "int8" else
+                 2 * float(np.abs(outs[mode] - outs["bf16"]).max()))
+        if out.shape != (N_SERVE,) or not np.isfinite(out).all() or gap > bound:
+            raise AssertionError(f"{mode} fuse_qkv predictions: shape "
+                                 f"{out.shape}, max |diff| to the split "
+                                 f"projections {gap:.3e} > {bound}")
+        rates[mode] = {"split": [], "fused": []}
+        for kind in ("split", "fused", "fused", "split"):
+            pred = preds[mode] if kind == "split" else fused
+            t0 = time.perf_counter()
+            pred.predict_split(split)  # ends in a device-to-host copy
+            rates[mode][kind].append(N_SERVE / (time.perf_counter() - t0))
+        print(f"serving {mode} fuse_qkv bert-large B={BATCH} L={TEXT_LEN}: "
+              f"samples/s {[round(r, 2) for r in rates[mode]['fused']]} "
+              f"against split {[round(r, 2) for r in rates[mode]['split']]} "
+              f"(same process, order split fused fused split); launches per "
+              f"batch {({k: v // n_batches for k, v in launches[mode].items() if v})}; "
+              f"max |diff| to the split projections {gap:.3e} (bound "
+              f"{bound:.3e}), correlation "
+              f"{float(np.corrcoef(out, outs[mode])[0, 1]):.6f}", flush=True)
+        del fused
+    errs = int8_f32_gaps(exp, params, split, calib, fuse_qkv=True)
+    print(f"f32 int8 / int8_static fuse_qkv card vs CPU plain "
+          f"({INT8_F32_LAYERS} layers at full width, 2 samples): max |diff| "
+          f"{errs['int8']:.3e} / {errs['int8_static']:.3e} (atol "
+          f"{INT8_F32_PRED_ATOL})", flush=True)
+    return launches, rates
+
+
 def train_experiment(batch):
     """bench.py's training configuration at ``batch``: MOSI widths, L=40,
     bf16, the default dropouts (hidden 0.1, attention 0.1, joint 0.5), MLM
@@ -1991,13 +2429,19 @@ def main() -> int:
     f2_err, f2_times = phase_flash2(gen)
     f2_bwd_err, f2_bwd_times = phase_flash2_backward(gen)
     pp_err, pp_times = phase_probs_packed(gen)
+    adamw_err, adamw_times = phase_fused_adamw(gen)
+    v3_err, v3_times = phase_v3_kernels(gen)
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
     pred, split, serve_launches = phase_serving(exp, params)
     phase_service(pred)
-    int8_launches, _ = phase_int8_serving(exp, params, pred, split)
+    int8_launches, _, int8_preds, int8_outs, calib = phase_int8_serving(
+        exp, params, pred, split)
     del pred
+    fuse_launches, _ = phase_fuse_qkv(exp, params, split, int8_preds,
+                                      int8_outs, calib)
+    del int8_preds
     frame_serve_launches, _ = phase_frame_serving(params)
     phase_service_cli(exp, params)
     del params
@@ -2012,6 +2456,11 @@ def main() -> int:
         LONG_PAIR_LEN, LONG_BATCH, LONG_LAYERS, 1, 1, "long-S")
     torch.cuda.empty_cache()
     rungs = phase_remat_rungs()
+    pr6_inputs = train_inputs(3)
+    fused_runs = phase_fused_train(*pr6_inputs)
+    v3_runs = phase_v3_train(*pr6_inputs)
+    del pr6_inputs
+    torch.cuda.empty_cache()
     frame_rungs = phase_frame_rungs()
     auto_launches = phase_auto()
     cli_launches = phase_entry_point()
@@ -2029,7 +2478,13 @@ def main() -> int:
                 "frame_remat_rungs": sum(r["launches"][name]
                                          for r in frame_rungs.values()),
                 "auto_big_batch": auto_launches[name],
-                "cli_train": cli_launches[name]}
+                "cli_train": cli_launches[name],
+                "serving_int8_fuse_qkv": fuse_launches["int8"][name],
+                "serving_int8_static_fuse_qkv":
+                    fuse_launches["int8_static"][name],
+                "fused_optimizer_train": sum(r["launches"][name]
+                                             for r in fused_runs.values()),
+                "v3_train": sum(r["launches"][name] for r in v3_runs.values())}
 
     def rung(policy, name):  # launches per step under that rung
         return rungs[policy]["per_step"].get(name, 0)
@@ -2106,6 +2561,17 @@ def main() -> int:
                      rung("save_pack", "short_attention_packed_backward"),
                      pp_err["packed_bwd"], pp_times[("packed_bwd",) + joint],
                      paths("short_attention_packed_backward")),
+        kernel_entry("fused_adamw", "msa_tpu_torch/csrc/fused_adamw.cu",
+                     "msa_tpu/ops/fused_adamw.py:41",
+                     fused_runs[("none", True)]["launches"]["fused_adamw_leaf"],
+                     adamw_err, adamw_times["word"], paths("fused_adamw_leaf")),
+        kernel_entry("short_attention_v3_backward",
+                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu/ops/short_attention.py:392",
+                     v3_runs[("none", True)]["launches"][
+                         "short_attention_v3_backward"],
+                     v3_err, v3_times[joint],
+                     paths("short_attention_v3_backward")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

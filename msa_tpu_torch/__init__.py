@@ -14,5 +14,6 @@ Ported so far:
   ``models.mmbert.mmbert_forward``;
 * training -- ``training.trainer.Trainer``: the train step (MLM masking,
   dropout, the joint loss, the backward through the attention kernels,
-  AdamW) and the eval step.
+  AdamW, or the fused AdamW kernel under ``fused_optimizer``) and the eval
+  step, ``fit`` and the CLIs, the named remat policies.
 """

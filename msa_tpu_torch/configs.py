@@ -251,9 +251,9 @@ class TrainConfig:
     # (tests/test_nu16_quality.py).  float32 default here for bit-exact
     # torch AdamW parity; bench.py flips it (like mu) for the perf config.
     adam_nu_dtype: str = "float32"
-    # Run the AdamW update as one fused Pallas pass per tensor
-    # (training/optim.py::FusedAdamW); semantics identical to the optax
-    # path.  Measured SLOWER on the v5e flagship step (315.2 vs 311.4 ms,
+    # Run the AdamW update as one fused kernel pass per tensor
+    # (training/optim.py::FusedAdamW, csrc/fused_adamw.cu in this port);
+    # semantics identical to the optax path.  Measured SLOWER on the v5e flagship step (315.2 vs 311.4 ms,
     # BENCH.md round 2: XLA's update fusions overlap with the backward
     # while per-tensor custom-calls serialize), so it defaults off; kept
     # for regimes with many small tensors.  Requires

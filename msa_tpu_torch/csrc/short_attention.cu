@@ -3,8 +3,11 @@
 // keep-mask export.
 //
 // Replaces the TPU kernels msa_tpu/ops/short_attention.py::_fwd_kernel_v2
-// and ::_bwd_kernel_v2 (entry short_attention_v2), and two variants of the
-// pair that the remat policies call: _fwd_kernel_v2p / _bwd_kernel_v2p
+// and ::_bwd_kernel_v2 (entry short_attention_v2), its A/B backward
+// ::_bwd_kernel_v3 (under the module switch _USE_V3_BWD: delta from the
+// ctx in its own dtype, the row lse recomputed; see
+// msa_short_attention_v3_bwd), and two variants of the pair that the remat
+// policies call: _fwd_kernel_v2p / _bwd_kernel_v2p
 // (entry short_attention_v2p, 'save_pack': the same kernels reading q, k, v
 // as the thirds of one packed [B, S, 3H] buffer at row stride 3H and writing
 // one packed dqkv) and _fwd_kernel_v2s / _bwd_kernel_v2s (entry
@@ -251,6 +254,61 @@ __device__ __forceinline__ void stage_pair(const T* x, const T* y, size_t x_base
 }
 
 
+// Stage rows [r0, r0 + n) of one head of x into shared memory as f32.
+template <typename T>
+__device__ __forceinline__ void stage_one(const T* x, size_t base, int stride, int r0,
+                                          int n, float* x_s) {
+  using L = Layout<T>;
+  for (int idx = threadIdx.x; idx < n * L::kChunks; idx += blockDim.x) {
+    const int j = idx / L::kChunks;
+    const int c = idx - j * L::kChunks;
+    load16(x + base + (size_t)(r0 + j) * stride + c * L::kVec,
+           &x_s[j * kHeadDim + c * L::kVec]);
+  }
+}
+
+// The log2-sum-exp of one query row's scores (qr holds this thread's half
+// of q * scale * log2e) over every key, by the forward's online max / sum:
+// the same products, chunks and order, so the same bits as the forward's
+// lse.  Every thread of the CTA calls it (it stages K through k_s).
+template <typename T>
+__device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int stride,
+                               int seq, const float* bias_row, int half, float* k_s,
+                               float* bias_s) {
+  float run_max = -INFINITY;
+  float run_sum = 0.f;
+  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+    const int kn = min(kKeyTile, seq - k0);
+    __syncthreads();
+    stage_one(k, base, stride, k0, kn, k_s);
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+      bias_s[j] = bias_row[k0 + j] * kLog2e;
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+      float s[kKeyChunk];
+      float chunk_max = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        const int j = j0 + jj;
+        float part = 0.f;
+        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        s[jj] = (j < kn) ? part + bias_s[j] : -INFINITY;
+        chunk_max = fmaxf(chunk_max, s[jj]);
+      }
+      const float new_max = fmaxf(run_max, chunk_max);
+      run_sum = __fmul_rn(run_sum, exp2f(run_max - new_max));
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        run_sum = __fadd_rn(run_sum, exp2f(s[jj] - new_max));  // + 0 past kn
+      }
+      run_max = new_max;
+    }
+  }
+  return run_max + log2f(run_sum);
+}
+
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
@@ -320,9 +378,11 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // new_max is too and exp2f(-inf - new_max) = 0 on the first chunk.
       // The normaliser sums every probability; dropout only zeroes (and
       // rescales) what reaches the PV product.
+      // run_sum's products and sums are rounded one by one (no FMA
+      // contraction), so row_lse_sweep reproduces the lse bit for bit.
       const float new_max = fmaxf(run_max, chunk_max);
       const float corr = exp2f(run_max - new_max);
-      run_sum *= corr;
+      run_sum = __fmul_rn(run_sum, corr);
 #pragma unroll
       for (int i = 0; i < L::kPart; ++i) acc[i] *= corr;
 #pragma unroll
@@ -330,7 +390,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = j0 + jj;
         if (j < kn) {
           const float p = exp2f(s[jj] - new_max);
-          run_sum += p;
+          run_sum = __fadd_rn(run_sum, p);
           float pv = p;
           if constexpr (kDropout) pv = ((keep >> jj) & 1u) ? p * drop.scale : 0.f;
           axpy_half<T>(acc, pv, &v_s[j * kHeadDim], half);
@@ -357,16 +417,21 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 // q, k, v and dq have row stride `stride` (H, or 3H in the packed layout,
-// where dq, dk and dv are the thirds of one [B, S, 3H] gradient); o32 and
-// dout are [B, S, H].
-template <typename T, bool kDropout>
+// where dq, dk and dv are the thirds of one [B, S, 3H] gradient); o and
+// dout are [B, S, H].  v2 (kV3 false): o is the forward's f32 output and
+// lse its row lse, read.  v3 (the TPU kernel _bwd_kernel_v3): o is the ctx
+// in the storage type T, and the kernel recomputes each row's lse from the
+// scores (row_lse_sweep, one more pass over K) and writes it to `lse` for
+// the dk/dv launch; neither the f32 output nor the lse is kept from the
+// forward.
+template <typename T, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
                               const float* __restrict__ key_bias,
-                              const float* __restrict__ o32,
+                              const void* __restrict__ o,
                               const T* __restrict__ dout,
-                              const float* __restrict__ lse,
+                              float* __restrict__ lse,
                               float* __restrict__ delta_out, T* __restrict__ dq,
                               int seq, int hidden, int stride, int rows_per_cta,
                               float score_mult, float scale, Dropout drop) {
@@ -390,16 +455,26 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_half(q + in_off, half, active, score_mult, qr);
   load_half(dout + row_off, half, active, 1.f, dor);
   // delta = dO . o over the full head row; acc holds o for a moment.
-  load_half_f32<T>(o32 + row_off, half, active, acc);
+  if constexpr (kV3) {
+    load_half(static_cast<const T*>(o) + row_off, half, active, 1.f, acc);
+  } else {
+    load_half_f32<T>(static_cast<const float*>(o) + row_off, half, active, acc);
+  }
   float delta = 0.f;
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) delta = fmaf(dor[i], acc[i], delta);
   delta += __shfl_xor_sync(0xffffffffu, delta, 1);
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
-  const float row_lse = active ? lse[prob_row] : 0.f;
   if (active && half == 0) delta_out[prob_row] = delta;
   const float* bias_row = key_bias + (size_t)b * seq;
+  float row_lse;
+  if constexpr (kV3) {
+    row_lse = row_lse_sweep<T>(qr, k, in_base, stride, seq, bias_row, half, k_s, bias_s);
+    if (active && half == 0) lse[prob_row] = row_lse;
+  } else {
+    row_lse = active ? lse[prob_row] : 0.f;
+  }
 
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
@@ -570,19 +645,6 @@ __host__ __device__ __forceinline__ int probs_width(int seq) {
   return (seq + kGroup - 1) / kGroup * kGroup;
 }
 
-// Stage rows [r0, r0 + n) of one head of x into shared memory as f32.
-template <typename T>
-__device__ __forceinline__ void stage_one(const T* x, size_t base, int stride, int r0,
-                                          int n, float* x_s) {
-  using L = Layout<T>;
-  for (int idx = threadIdx.x; idx < n * L::kChunks; idx += blockDim.x) {
-    const int j = idx / L::kChunks;
-    const int c = idx - j * L::kChunks;
-    load16(x + base + (size_t)(r0 + j) * stride + c * L::kVec,
-           &x_s[j * kHeadDim + c * L::kVec]);
-  }
-}
-
 template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_probs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -610,36 +672,8 @@ short_attention_probs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
   load_half(q + head_base + (size_t)row * hidden, half, active, score_mult, qr);
 
   // Sweep 1: the row's lse (log2 units) by the online max / sum.
-  float run_max = -INFINITY;
-  float run_sum = 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, seq - k0);
-    __syncthreads();
-    stage_one(k, head_base, hidden, k0, kn, k_s);
-    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-      bias_s[j] = bias_row[k0 + j] * kLog2e;
-    }
-    __syncthreads();
-    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
-      float s[kKeyChunk];
-      float chunk_max = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kKeyChunk; ++jj) {
-        const int j = j0 + jj;
-        float part = 0.f;
-        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        s[jj] = (j < kn) ? part + bias_s[j] : -INFINITY;
-        chunk_max = fmaxf(chunk_max, s[jj]);
-      }
-      const float new_max = fmaxf(run_max, chunk_max);
-      run_sum *= exp2f(run_max - new_max);
-#pragma unroll
-      for (int jj = 0; jj < kKeyChunk; ++jj) run_sum += exp2f(s[jj] - new_max);
-      run_max = new_max;
-    }
-  }
-  const float row_lse = run_max + log2f(run_sum);
+  const float row_lse = row_lse_sweep<T>(qr, k, head_base, hidden, seq, bias_row, half,
+                                         k_s, bias_s);
 
   // Sweep 2: the same scores again, the signed probs and ctx.
   float acc[L::kPart];
@@ -875,18 +909,18 @@ void launch_fwd(const void* q, const void* k, const void* v, const float* bias,
           hidden, stride, rows, score_mult, drop);
 }
 
-template <typename T, bool kDropout>
+template <typename T, bool kDropout, bool kV3>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
-               const float* o32, const void* dout, const float* lse, float* delta,
+               const void* o, const void* dout, float* lse, float* delta,
                void* dq, void* dk, void* dv, int batch, int seq, int hidden,
                int stride, int num_heads, float scale, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
   const float score_mult = scale * kLog2e;
-  short_attention_bwd_dq_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dq_kernel<T, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, o32, static_cast<const T*>(dout), lse, delta,
+      bias, o, static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), seq, hidden, stride, rows, score_mult, scale, drop);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -972,20 +1006,23 @@ int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
   return (int)cudaGetLastError();
 }
 
+// o: the f32 output (v2) or the ctx in the storage type (v3); lse: read
+// (v2) or written (v3).
+template <bool kV3>
 int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
-                 const void* o32, const void* dout, const void* lse, void* delta,
+                 const void* o, const void* dout, void* lse, void* delta,
                  void* dq, void* dk, void* dv, int batch, int seq, int hidden,
                  int stride, int num_heads, int dtype, float scale, unsigned seed_lo,
                  unsigned seed_hi, int drop_threshold, void* stream) {
   const float* bias = static_cast<const float*>(key_bias);
-  const float* l = static_cast<const float*>(lse);
+  float* l = static_cast<float*>(lse);
   float* dl = static_cast<float*>(delta);
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_BWD(T, D) launch_bwd<T, D>(q, k, v, bias, static_cast<const float*>(o32), \
-                                       dout, l, dl, dq, dk, dv, batch, seq, hidden,   \
-                                       stride, num_heads, scale, d, s)
+#define MSA_BWD(T, D) launch_bwd<T, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
+                                            batch, seq, hidden, stride, num_heads,    \
+                                            scale, d, s)
   if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
   return drop ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
 #undef MSA_BWD
@@ -1033,9 +1070,33 @@ extern "C" int msa_short_attention_bwd(const void* q, const void* k,
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  return bwd_dispatch(q, k, v, key_bias, o32, dout, lse, delta, dq, dk, dv, batch,
-                      seq, hidden, hidden, num_heads, dtype, scale, seed_lo, seed_hi,
-                      drop_threshold, stream);
+  return bwd_dispatch<false>(q, k, v, key_bias, o32, dout, const_cast<void*>(lse), delta,
+                             dq, dk, dv, batch, seq, hidden, hidden, num_heads, dtype,
+                             scale, seed_lo, seed_hi, drop_threshold, stream);
+}
+
+// The v3 backward pair (TPU kernel _bwd_kernel_v3): the v2 pair with delta =
+// dO . o taken from the ctx `out` in the storage type (the forward's own
+// output, not an f32 copy) and each row's lse recomputed from the scores by
+// the dq launch, which writes it and delta to the [B, heads, S] f32 scratch
+// `lse` and `delta` for the dk/dv launch.  The forward keeps no f32 output
+// and no lse.  Same arguments and dropout as msa_short_attention_bwd
+// otherwise.
+extern "C" int msa_short_attention_v3_bwd(const void* q, const void* k,
+                                          const void* v, const void* key_bias,
+                                          const void* out, const void* dout,
+                                          void* lse, void* delta, void* dq,
+                                          void* dk, void* dv, int batch, int seq,
+                                          int hidden, int num_heads, int dtype,
+                                          float scale, unsigned seed_lo,
+                                          unsigned seed_hi, int drop_threshold,
+                                          void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return bwd_dispatch<true>(q, k, v, key_bias, out, dout, lse, delta, dq, dk, dv, batch,
+                            seq, hidden, hidden, num_heads, dtype, scale, seed_lo,
+                            seed_hi, drop_threshold, stream);
 }
 
 // The packed pair (TPU kernels _fwd_kernel_v2p / _bwd_kernel_v2p): q, k and
@@ -1072,10 +1133,11 @@ extern "C" int msa_short_attention_packed_bwd(const void* qkv, const void* key_b
   void* dq = const_cast<void*>(third(dqkv, 0, hidden, dtype));
   void* dk = const_cast<void*>(third(dqkv, 1, hidden, dtype));
   void* dv = const_cast<void*>(third(dqkv, 2, hidden, dtype));
-  return bwd_dispatch(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
-                      third(qkv, 2, hidden, dtype), key_bias, o32, dout, lse, delta,
-                      dq, dk, dv, batch, seq, hidden, 3 * hidden, num_heads, dtype,
-                      scale, seed_lo, seed_hi, drop_threshold, stream);
+  return bwd_dispatch<false>(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
+                             third(qkv, 2, hidden, dtype), key_bias, o32, dout,
+                             const_cast<void*>(lse), delta, dq, dk, dv, batch, seq, hidden,
+                             3 * hidden, num_heads, dtype, scale, seed_lo, seed_hi,
+                             drop_threshold, stream);
 }
 
 // The '+probs' forward (TPU kernel _fwd_kernel_v2s): out [B, S, H] and the

@@ -19,7 +19,7 @@ from .data import FeaturizedSplit
 
 from .models.mmbert import mmbert_forward
 from .models.weights import cast_for_compute, to_device
-from .ops.quant import FUSE_QKV_NOT_PORTED, quantize_bert_params
+from .ops.quant import quantize_bert_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 QUANTIZE_MODES = ("int8", "int8_static")
@@ -103,10 +103,11 @@ class Predictor:
         (per-channel int8 weights, per-row activation scales);
         ``"int8_static"`` also calibrates static activation scales on
         ``calibration`` (a FeaturizedSplit), which it requires.
+        ``fuse_qkv`` (int8 modes; ignored without ``quantize``, as in JAX)
+        fuses each layer's q, k and v into one [*, 3H] int8 projection that
+        feeds the packed attention kernel (``ops/quant.py``).
         """
         tc = config.train
-        if fuse_qkv:
-            raise NotImplementedError(FUSE_QKV_NOT_PORTED)
         if quantize not in (None,) + QUANTIZE_MODES:
             raise ValueError(f"unknown quantize mode: {quantize!r}")
         if quantize == "int8_static" and calibration is None:
@@ -136,8 +137,10 @@ class Predictor:
                 stats = calibrate_act_stats(
                     config, cast_for_compute(params, self.dtype), calibration,
                     batch_size=self.batch_size)
-            # from the f32 weights, as JAX quantizes them
-            params = quantize_bert_params(params, act_stats=stats)
+            # from the f32 weights, as JAX quantizes them; calibration ran
+            # on the unfused tree
+            params = quantize_bert_params(params, act_stats=stats,
+                                          fuse_qkv=fuse_qkv)
         self.params = cast_for_compute(params, self.dtype)
 
     @classmethod

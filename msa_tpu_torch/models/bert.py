@@ -141,6 +141,8 @@ def _absmax(x: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(lp: Params, h: torch.Tensor):
+    if "qkv" in lp:  # the fused int8 projection (ops/quant.py fuse_qkv)
+        return dense(h, lp["qkv"]).chunk(3, dim=-1)
     return dense(h, lp["q"]), dense(h, lp["k"]), dense(h, lp["v"])
 
 
@@ -304,17 +306,35 @@ def bert_layer_int8(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
     * otherwise (per-row scales) q, k and v share one quantize of h: three
       would give the same int8 view, as XLA's CSE makes of JAX's three
       ``int8_dense`` calls.
+    * a fused "qkv" entry (``fuse_qkv``): one quantize of h (at its static
+      scale, or per row) and one [*, 3H] int8 product.  On the short route
+      the packed attention kernel reads its thirds in place (JAX's
+      ``int8_qkv_direct``); elsewhere the thirds are sliced out.
     """
     eps = cfg.layer_norm_eps
-    if xi_attn is None:
-        xi_attn, row = quantize_act(h)
+    if "qkv" in lp:
+        fused = lp["qkv"]
+        xi_attn, row = quantize_act(h, fused.get("ascale"))
+        qkv = int8_matmul_pre(xi_attn, row, fused["qweight"], fused["qscale"],
+                              fused["bias"], h.dtype)
+        if attention_route(use_flash, h.shape[1], h.is_cuda) == "short":
+            ctx = packed_attention(qkv, attn_bias,
+                                   num_heads=cfg.num_attention_heads)
+        else:
+            ctx = multi_head_attention(*qkv.chunk(3, dim=-1), attn_bias,
+                                       num_heads=cfg.num_attention_heads,
+                                       use_flash=use_flash)
     else:
-        row = lp["q"]["ascale"]
-    q, k, v = (int8_matmul_pre(xi_attn, row, lp[n]["qweight"], lp[n]["qscale"],
-                               lp[n]["bias"], h.dtype) for n in ("q", "k", "v"))
-    ctx = multi_head_attention(q, k, v, attn_bias,
-                               num_heads=cfg.num_attention_heads,
-                               use_flash=use_flash)
+        if xi_attn is None:
+            xi_attn, row = quantize_act(h)
+        else:
+            row = lp["q"]["ascale"]
+        q, k, v = (int8_matmul_pre(xi_attn, row, lp[n]["qweight"],
+                                   lp[n]["qscale"], lp[n]["bias"], h.dtype)
+                   for n in ("q", "k", "v"))
+        ctx = multi_head_attention(q, k, v, attn_bias,
+                                   num_heads=cfg.num_attention_heads,
+                                   use_flash=use_flash)
     wi = lp["wi"]
     h, xi, row = ln_quant(h, dense(ctx, lp["o"]), lp["attn_ln"], eps,
                           wi.get("ascale"))
@@ -343,10 +363,11 @@ def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
     absmax of the inputs of each quantized projection class.
 
     int8 parameters on the deterministic path, without remat or stats,
-    take :func:`bert_layer_int8`; with static scales, each layer's closing
-    LayerNorm also emits the next layer's int8 view (layer 0's is one
-    standalone quantize; the last layer's, at layer 0's scale, is
-    discarded, as JAX's scan computes it).
+    take :func:`bert_layer_int8`; with static scales and split q, k, v,
+    each layer's closing LayerNorm also emits the next layer's int8 view
+    (layer 0's is one standalone quantize; the last layer's, at layer 0's
+    scale, is discarded, as JAX's scan computes it).  With a fused "qkv"
+    entry each layer quantizes its own input, as JAX's fused path does.
     """
     layers = params["layers"]
     remat = remat_policy != "none"
@@ -355,7 +376,8 @@ def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
     if generator is None and not remat and not collect_act_stats and \
             "qweight" in layers[0]["wi"]:
         n = len(layers)
-        chain = "ascale" in layers[0]["q"]  # static scales, every projection
+        # static scales on every projection, split q/k/v
+        chain = "ascale" in layers[0].get("q", {})
         xi = quantize_act(hidden, layers[0]["q"]["ascale"])[0] if chain else None
         for i, lp in enumerate(layers):
             hidden, xi = bert_layer_int8(

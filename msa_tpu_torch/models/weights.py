@@ -178,9 +178,14 @@ def to_jax_opt_state(state, train_cfg) -> Dict[str, Any]:
     {}.  The chain is [clip_by_global_norm]? then ``optax.adamw`` (itself
     scale_by_adam, masked add_decayed_weights, scale_by_learning_rate) when
     nu is f32, else those three flattened into the chain; inside
-    ``MultiSteps`` when accumulating."""
+    ``MultiSteps`` when accumulating.  Under ``fused_optimizer`` it is JAX
+    ``FusedAdamW``'s state, {"count", "mu", "nu"}."""
     def scalar(v):
         return np.asarray(v, dtype=np.int32)
+
+    if train_cfg.fused_optimizer:
+        return {"count": scalar(state.count), "mu": to_jax_params(state.mu),
+                "nu": to_jax_params(state.nu)}
 
     adam = [{"count": scalar(state.count), "mu": to_jax_params(state.mu),
              "nu": to_jax_params(state.nu)},

@@ -33,11 +33,6 @@ QUANT_LAYER_KEYS = ("q", "k", "v", "o", "wi", "wo")
 PROJ_STAT = {"q": "attn_in", "k": "attn_in", "v": "attn_in",
              "o": "ctx", "wi": "mlp_in", "wo": "ffn_act"}
 
-FUSE_QKV_NOT_PORTED = (
-    "fuse_qkv=True (one fused [*, 3H] int8 q|k|v projection feeding the "
-    "packed short-attention kernel, ops/short_attention.py::"
-    "short_attention_packed) is not ported yet (ROADMAP.md: the next slice)")
-
 # cuBLAS's int8 GEMM (``torch._int_mm`` on CUDA) takes more than 16 rows
 _INT_MM_MIN_ROWS = 17
 
@@ -135,9 +130,13 @@ def quantize_bert_params(params, act_stats=None, margin: float = 1.0,
     as it was), plus "ascale" (this layer's 0-d static scale) when
     ``act_stats`` is given; everything else is untouched.
     ``models/bert.py::dense`` dispatches on "qweight".
+
+    ``fuse_qkv``: each layer's q, k and v entries become one "qkv" entry,
+    as JAX's: qweight [3H, H] (q|k|v on the output axis), qscale and bias
+    [3H], and q's static scale as the shared "ascale" (q, k and v read
+    the same calibrated input).  ``models/bert.py::bert_layer_int8`` runs
+    it as one int8 product feeding the packed attention.
     """
-    if fuse_qkv:
-        raise NotImplementedError(FUSE_QKV_NOT_PORTED)
     ascales = (None if act_stats is None
                else act_scales_from_stats(act_stats, margin))
     layers = []
@@ -150,5 +149,12 @@ def quantize_bert_params(params, act_stats=None, margin: float = 1.0,
             if ascales is not None:
                 entry["ascale"] = ascales[key][i].to(qscale.device)
             lp[key] = entry
+        if fuse_qkv:
+            q, k, v = lp.pop("q"), lp.pop("k"), lp.pop("v")
+            fused = {name: torch.cat([q[name], k[name], v[name]], dim=0)
+                     for name in ("qweight", "qscale", "bias")}
+            if "ascale" in q:
+                fused["ascale"] = q["ascale"]
+            lp["qkv"] = fused
         layers.append(lp)
     return {**params, "bert": {**params["bert"], "layers": layers}}

@@ -22,8 +22,12 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
 
 * :func:`short_attention` -- the forward; under autograd on CUDA it is a
   ``torch.autograd.Function`` whose backward is
-  :func:`short_attention_backward` (two launches: dq, then dk/dv).  CPU
-  tensors run :func:`short_attention_plain` at rate 0;
+  :func:`short_attention_backward` (two launches: dq, then dk/dv), or,
+  with the module switch ``USE_V3_BWD`` on (JAX's ``_USE_V3_BWD``,
+  ``_bwd_kernel_v3``), :func:`short_attention_v3_backward`, which reads the
+  ctx instead of the forward's f32 output and lse.  CPU tensors run
+  :func:`short_attention_plain` at rate 0 (under ``USE_V3_BWD`` with
+  :func:`short_attention_v3_backward_plain` as its backward);
 * :func:`short_attention_probs` -- the ``+probs`` remat rung (JAX
   ``short_attention_v2s``): under autograd the forward kernel also writes
   the signed probabilities (:func:`probs_width` says their layout) and the
@@ -69,6 +73,8 @@ _SIGNATURES = {
                                 _I, _F, _U, _U, _I, _P),
     "msa_short_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
+    "msa_short_attention_v3_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
     "msa_short_attention_packed_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                        _I, _F, _U, _U, _I, _P),
     "msa_short_attention_packed_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -80,6 +86,12 @@ _SIGNATURES = {
     "msa_dropout_keep_mask": (_P, _I, _I, _I, _U, _U, _I, _P),
 }
 PROBS_GROUP = 16  # keys per Philox draw: the probs rows are padded to it
+# JAX's module switch _USE_V3_BWD: the training forward keeps the ctx
+# itself instead of its f32 copy and the row lse, and the backward is
+# short_attention_v3_backward (delta = dO . o from the ctx in its own
+# dtype, the lse recomputed).  Read when the forward runs; tests and
+# chip_smoke.py flip it as JAX's test flips its own.
+USE_V3_BWD = False
 
 
 def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -224,6 +236,64 @@ def short_attention_backward(q, k, v, key_bias, out32, lse, dout,
     return dq, dk, dv
 
 
+def short_attention_v3_backward_plain(q, k, v, key_bias, out, dout,
+                                      num_heads: int, rate: float = 0.0,
+                                      keep: Optional[torch.Tensor] = None):
+    """dq, dk, dv of :func:`short_attention_plain` by JAX's
+    ``_bwd_kernel_v3`` rule, in f32: p the softmax recomputed from q and k,
+    dP = dO.V^T, with ``keep`` pd and dpm the kept p and dP over ``1 -
+    rate``, delta_i = dO_i . o_i per head from ``out`` (the forward's ctx in
+    its own dtype, widened), dS = p * (dpm - delta)."""
+    b, s, h = q.shape
+    d = h // num_heads
+    split = lambda x: x.reshape(b, s, num_heads, d).float()  # noqa: E731
+    p = _scores_plain(q, k, key_bias, num_heads)
+    do = split(dout)
+    dp = torch.einsum("bqnd,bknd->bnqk", do, split(v))
+    if keep is not None:
+        pd = torch.where(keep, p, 0.0) / (1.0 - rate)
+        dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
+    else:
+        pd, dpm = p, dp
+    delta = (do * split(out)).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dpm - delta)
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, split(k)) * scale
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, split(q)) * scale
+    dv = torch.einsum("bnqk,bqnd->bknd", pd, do)
+    return tuple(x.reshape(b, s, h).to(q.dtype) for x in (dq, dk, dv))
+
+
+def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
+                                seed: int = 0,
+                                rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """dq, dk, dv of :func:`short_attention` by the v3 kernels (CUDA only):
+    ``out`` is the forward's ctx in q's dtype for the same inputs, seed and
+    rate.  Two launches: dq, which recomputes each row's lse and writes it
+    and delta = dO . o to scratch, then dk/dv."""
+    _check(q, k, v, key_bias, num_heads, "short_attention_v3_backward")
+    b, s, h = q.shape
+    if out.shape != q.shape or out.dtype != q.dtype or dout.shape != q.shape:
+        raise ValueError("short_attention_v3_backward: out/dout "
+                         f"{tuple(out.shape)} {out.dtype}, {tuple(dout.shape)} "
+                         f"do not fit q {tuple(q.shape)} {q.dtype}")
+    q, k, v, out, dout = _aligned(q, k, v, out, dout.to(q.dtype))
+    key_bias = key_bias.to(torch.float32).contiguous()
+    lse, delta = (torch.empty((b, num_heads, s), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _build.load("short_attention", _SIGNATURES)
+    code = lib.msa_short_attention_v3_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
+        byte_threshold(rate), _stream(q))
+    _build.check(code, "short_attention_v3_backward")
+    short_attention_v3_backward.launches += 2
+    return dq, dk, dv
+
+
 def save_inputs(ctx, recompute, q, k, v, *rest):
     """Save (q, k, v, *rest) for the backward, or only ``rest`` with the
     ``recompute`` callable that gives q, k, v back (``save_ctx``)."""
@@ -244,23 +314,43 @@ class _ShortAttention(torch.autograd.Function):
     """Forward kernel + backward kernel pair.  Saves q, k, v, the bias, the
     output (in f32) and the row lse -- the seed and rate ride as Python
     numbers -- as ``_v2_fwd`` saves its residuals; no gradient for the bias
-    or seed."""
+    or seed.  Under ``USE_V3_BWD`` (read here, in the forward) it saves the
+    ctx itself instead of out32 and lse, and the backward is the v3 pair;
+    on CPU tensors (rate 0) the plain forward and the v3 plain backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, num_heads, seed, rate, recompute):
-        out, lse, out32 = _forward_kernel(q, k, v, key_bias, num_heads, seed,
-                                          byte_threshold(rate), train=True)
-        save_inputs(ctx, recompute, q, k, v, key_bias, out32, lse)
+        ctx.v3 = USE_V3_BWD
         ctx.args = (num_heads, seed, rate)
+        if not q.is_cuda:
+            out = short_attention_plain(q, k, v, key_bias, num_heads)
+            save_inputs(ctx, recompute, q, k, v, key_bias, out)
+            return out
+        out, lse, out32 = _forward_kernel(q, k, v, key_bias, num_heads, seed,
+                                          byte_threshold(rate),
+                                          train=not ctx.v3)
+        if ctx.v3:
+            save_inputs(ctx, recompute, q, k, v, key_bias, out)
+        else:
+            save_inputs(ctx, recompute, q, k, v, key_bias, out32, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_bias, out32, lse = saved_inputs(ctx)
         num_heads, seed, rate = ctx.args
-        dq, dk, dv = short_attention_backward(q, k, v, key_bias, out32, lse,
-                                              dout, num_heads, seed, rate)
-        return dq, dk, dv, None, None, None, None, None
+        if ctx.v3:
+            q, k, v, key_bias, out = saved_inputs(ctx)
+            if q.is_cuda:
+                grads = short_attention_v3_backward(
+                    q, k, v, key_bias, out, dout, num_heads, seed, rate)
+            else:
+                grads = short_attention_v3_backward_plain(
+                    q, k, v, key_bias, out, dout, num_heads)
+        else:
+            q, k, v, key_bias, out32, lse = saved_inputs(ctx)
+            grads = short_attention_backward(q, k, v, key_bias, out32, lse,
+                                             dout, num_heads, seed, rate)
+        return (*grads, None, None, None, None, None)
 
 
 def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -281,15 +371,20 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rate > 0.0 and seed is None:
         raise ValueError("short_attention: dropout needs a seed")
     threshold = byte_threshold(rate)
+    needs_grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
     if q.device.type == "cpu":
         if threshold:
             raise ValueError(
                 "short_attention: in-kernel dropout needs CUDA tensors; on the "
                 "CPU give short_attention_plain a keep mask")
+        if USE_V3_BWD and needs_grad:  # the v3 backward's plain version
+            return _ShortAttention.apply(q, k, v, key_bias, num_heads, 0, rate,
+                                         recompute)
         return short_attention_plain(q, k, v, key_bias, num_heads)
     _check(q, k, v, key_bias, num_heads, "short_attention")
     seed = 0 if seed is None else int(seed)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+    if needs_grad:
         return _ShortAttention.apply(q, k, v, key_bias, num_heads, seed, rate,
                                      recompute)
     return _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold,
@@ -500,30 +595,14 @@ def short_attention_packed_backward_plain(qkv, key_bias, dout,
                                           num_heads: int, rate: float = 0.0,
                                           keep: Optional[torch.Tensor] = None):
     """The packed gradient [B, S, 3H] of :func:`short_attention_packed_plain`
-    in f32 math (JAX ``_bwd_kernel_v2p``: delta = dO.o per head row), dq,
-    dk and dv written into the thirds of one buffer."""
-    b, s, h3 = qkv.shape
-    h = h3 // 3
-    d = h // num_heads
-    q, k, v = (x.reshape(b, s, num_heads, d).float() for x in _thirds(qkv))
-    p = _scores_plain(*_thirds(qkv)[:2], key_bias, num_heads)
-    do = dout.reshape(b, s, num_heads, d).float()
-    dp = torch.einsum("bqnd,bknd->bnqk", do, v)
-    if keep is not None:
-        pd = torch.where(keep, p, 0.0) / (1.0 - rate)
-        dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
-    else:
-        pd, dpm = p, dp
-    o = torch.einsum("bnqk,bknd->bqnd", pd, v)
-    delta = (do * o).sum(-1).transpose(1, 2)[..., None]   # [B, heads, S, 1]
-    ds = p * (dpm - delta)
-    scale = 1.0 / math.sqrt(d)
-    dqkv = torch.empty_like(qkv)
-    for i, g in enumerate((torch.einsum("bnqk,bknd->bqnd", ds, k) * scale,
-                           torch.einsum("bnqk,bqnd->bknd", ds, q) * scale,
-                           torch.einsum("bnqk,bqnd->bknd", pd, do))):
-        dqkv[..., i * h:(i + 1) * h] = g.reshape(b, s, h)
-    return dqkv
+    in f32 math (JAX ``_bwd_kernel_v2p``: delta = dO.o per head row, o the
+    f32 output): :func:`short_attention_v3_backward_plain` on the thirds,
+    dq, dk and dv written into the thirds of one buffer."""
+    q, k, v = (x.float() for x in _thirds(qkv))
+    out = short_attention_plain(q, k, v, key_bias, num_heads, rate, keep)
+    grads = short_attention_v3_backward_plain(q, k, v, key_bias, out, dout,
+                                              num_heads, rate, keep)
+    return torch.cat(grads, dim=-1).to(qkv.dtype)
 
 
 def _check_packed(qkv, key_bias, num_heads, what):
@@ -651,6 +730,7 @@ def short_attention_packed(qkv: torch.Tensor, key_bias: torch.Tensor,
 
 short_attention.launches = 0
 short_attention_backward.launches = 0
+short_attention_v3_backward.launches = 0
 dropout_keep_mask.launches = 0
 short_attention_probs.launches = 0
 short_attention_probs_backward.launches = 0

@@ -18,6 +18,10 @@ tree:
 The update is applied to the parameters in place (they are the trainer's
 own f32 master tensors), which saves a second copy of them.  The count
 lives on the host, so the schedule costs no device round trip.
+
+``TrainConfig.fused_optimizer`` selects :class:`FusedAdamW` instead
+(:func:`make_fused_optimizer`, JAX's ``FusedAdamW``): one fused kernel
+launch per leaf, no accumulation.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from ..configs import TrainConfig
 from ..models.weights import map_tree, named_leaves
+from ..ops.fused_adamw import fused_adamw_leaf
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -157,15 +162,65 @@ class AdamW:
         state.count = t
 
 
+class FusedAdamW(AdamW):
+    """AdamW as one fused kernel launch per leaf (``ops/fused_adamw.py``),
+    the counterpart of ``msa_tpu/training/optim.py::FusedAdamW``: optax's
+    semantics (the schedule, bias correction, eps outside the root, the
+    decay mask) with JAX's own clip rule, scale = min(1, max_grad_norm /
+    (global norm + 1e-12)), computed on the device and handed to every
+    launch.  The moments update in f32 inside the kernel and are stored
+    in ``mu_dtype`` / ``nu_dtype``: no f32 copy of a moment or an update
+    is ever materialised.  No gradient accumulation.
+
+    The same in-place ``step(params, grads, state)`` and
+    :class:`AdamWState` (``acc`` None) as :class:`AdamW`.  JAX computes
+    lr, c1 and c2 in f32 on the device; here they are computed on the host
+    in double and rounded once to f32 where they enter the kernel, so they
+    can differ from JAX's by one f32 ulp."""
+
+    @torch.no_grad()
+    def step(self, params, grads: Dict[str, torch.Tensor],
+             state: AdamWState) -> None:
+        """Apply one update in place, one kernel launch per leaf."""
+        named = list(named_leaves(params))
+        g = [grads[path].float() for path, _ in named]
+        scale = None
+        if self.max_grad_norm and self.max_grad_norm > 0:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            scale = torch.clamp(torch.div(torch.full_like(
+                norm, self.max_grad_norm), norm + 1e-12), max=1.0)
+        t = state.count + 1
+        lr = self.schedule(state.count)
+        c1, c2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        mu = dict(named_leaves(state.mu))
+        nu = dict(named_leaves(state.nu))
+        for (path, p), gp in zip(named, g):
+            fused_adamw_leaf(p, gp, mu[path], nu[path], lr,
+                             0.0 if no_decay(path) else self.weight_decay,
+                             c1, c2, b1=self.b1, b2=self.b2, eps=self.eps,
+                             clip_scale=scale)
+        state.count = t
+
+
 def make_optimizer(cfg: TrainConfig, total_steps: int) -> AdamW:
-    """The JAX ``make_optimizer``'s AdamW, from the same config fields."""
-    if cfg.fused_optimizer:
-        raise NotImplementedError(
-            "fused_optimizer=True: the fused AdamW kernel (kernel row 14) is "
-            "not ported yet (ROADMAP: kernel rows 4-14)")
+    """The JAX ``make_optimizer``'s AdamW, from the same config fields
+    (``fused_optimizer`` is the trainer's choice: :func:`make_fused_optimizer`)."""
     return AdamW(
         linear_warmup_decay(cfg.learning_rate, total_steps,
                             cfg.warmup_proportion),
         weight_decay=cfg.weight_decay, max_grad_norm=cfg.max_grad_norm,
         mu_dtype=cfg.adam_mu_dtype, nu_dtype=cfg.adam_nu_dtype,
         accumulation_steps=cfg.gradient_accumulation_steps)
+
+
+def make_fused_optimizer(cfg: TrainConfig, total_steps: int) -> FusedAdamW:
+    """The JAX ``make_fused_optimizer``: :class:`FusedAdamW` from the same
+    config fields; gradient accumulation raises, as in JAX."""
+    if cfg.gradient_accumulation_steps > 1:
+        raise ValueError("fused_optimizer does not support gradient "
+                         "accumulation; use the optax path")
+    return FusedAdamW(
+        linear_warmup_decay(cfg.learning_rate, total_steps,
+                            cfg.warmup_proportion),
+        weight_decay=cfg.weight_decay, max_grad_norm=cfg.max_grad_norm,
+        mu_dtype=cfg.adam_mu_dtype, nu_dtype=cfg.adam_nu_dtype)

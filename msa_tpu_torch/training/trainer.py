@@ -37,7 +37,7 @@ from ..ops import masking
 from ..ops.attention import FLASH_MIN_SEQ
 from ..ops.dropout import SEED_BITS, draw_seed, seeded_generator
 from ..utils.flops import H100_BF16_PEAK_FLOPS, mmbert_step_flops
-from .optim import make_optimizer
+from .optim import make_fused_optimizer, make_optimizer
 from .train_state import TrainState
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -215,14 +215,17 @@ class Trainer:
                    params=None) -> TrainState:
         """Random parameters from ``seed`` (``models/weights.py``), or a copy
         of ``params`` (e.g. ``from_jax_params``), as f32 masters on the
-        device, and a fresh optimizer state.  Replace ``opt_state`` (e.g.
+        device, and a fresh optimizer state (``FusedAdamW`` under
+        ``fused_optimizer``, as JAX picks it).  Replace ``opt_state`` (e.g.
         with ``from_jax_opt_state``) to resume one."""
         if params is None:
             params = init_params(self.config.model, torch.Generator(
                 device=self.device).manual_seed(int(seed)))
         params = map_tree(params, lambda p: p.detach().to(
             self.device, torch.float32, copy=True).requires_grad_())
-        self.tx = make_optimizer(self.config.train, total_steps)
+        tc = self.config.train
+        self.tx = (make_fused_optimizer if tc.fused_optimizer
+                   else make_optimizer)(tc, total_steps)
         return TrainState(params=params, opt_state=self.tx.init(params))
 
     # ------------------------------------------------------------------

@@ -30,7 +30,7 @@ from msa_tpu.data.wordpiece import make_test_vocab
 from msa_tpu.inference import Predictor as JaxPredictor
 from msa_tpu.models.mmbert import init_mmbert_params
 from msa_tpu.training import checkpoint as jax_ckpt
-from msa_tpu.training.optim import make_optimizer
+from msa_tpu.training.optim import make_fused_optimizer, make_optimizer
 from msa_tpu.training.train_state import TrainState as JaxTrainState
 from msa_tpu_torch.cli.serve import main as serve_main
 from msa_tpu_torch.configs import ExperimentConfig as PortExperimentConfig
@@ -119,27 +119,39 @@ def experiment(vocab_size=120, **train_kw):
 
 
 # the optax state's shapes: optax.adamw inside the chain (nu f32), the
-# casted Adam flattened into it with clipping (nu bf16), MultiSteps
+# casted Adam flattened into it with clipping (nu bf16), MultiSteps; and
+# FusedAdamW's {"count", "mu", "nu"} (fused_optimizer, bf16 moments)
 OPTIMIZERS = {
     "adamw": {},
     "clip_bf16_moments": {"max_grad_norm": 1.0, "adam_mu_dtype": "bfloat16",
                           "adam_nu_dtype": "bfloat16"},
     "accumulate": {"gradient_accumulation_steps": 2},
+    "fused": {"fused_optimizer": True, "max_grad_norm": 1.0,
+              "adam_mu_dtype": "bfloat16", "adam_nu_dtype": "bfloat16"},
 }
+
+
+def jax_optimizer(train, total_steps):
+    """(init, update) of the optimizer JAX's Trainer builds for ``train``:
+    ``update(grads, state, params) -> state``."""
+    if train.fused_optimizer:
+        tx = make_fused_optimizer(train, total_steps, use_pallas=False)
+        return tx.init, jax.jit(lambda g, s, p: tx.apply(p, g, s)[1])
+    tx = make_optimizer(train, total_steps)
+    return tx.init, jax.jit(lambda g, s, p: tx.update(g, s, p)[1])
 
 
 def jax_state(exp, steps=3, seed=0):
     """A JAX TrainState after ``steps`` optimizer updates on random
     gradients (non-zero moments; with accumulation, a pending mini-step)."""
     params = jax.device_get(init_mmbert_params(jax.random.key(seed), exp.model))
-    tx = make_optimizer(exp.train, 100)
-    opt_state = tx.init(params)
-    update = jax.jit(tx.update)
+    init, update = jax_optimizer(exp.train, 100)
+    opt_state = init(params)
     rng = np.random.default_rng(seed)
     for _ in range(steps):
         grads = jax.tree.map(
             lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
-        _, opt_state = update(grads, opt_state, params)
+        opt_state = update(grads, opt_state, params)
     return JaxTrainState(params=params, opt_state=jax.device_get(opt_state),
                          step=np.asarray(steps, np.int32))
 
@@ -147,8 +159,8 @@ def jax_state(exp, steps=3, seed=0):
 def jax_template(exp):
     """The template JAX's Predictor.from_checkpoint restores into."""
     params = init_mmbert_params(jax.random.key(0), exp.model)
-    tx = make_optimizer(exp.train, 1)
-    return JaxTrainState(params=params, opt_state=tx.init(params),
+    return JaxTrainState(params=params,
+                         opt_state=jax_optimizer(exp.train, 1)[0](params),
                          step=jnp.zeros((), jnp.int32))
 
 
@@ -182,8 +194,8 @@ def test_jax_checkpoint_loads_in_the_port(tmp_path, optimizer):
     else:
         assert got.acc is None
     mu = dict(named_leaves(got.mu))["bert/layers/0/q/weight"]
-    assert mu.dtype == (torch.bfloat16 if optimizer == "clip_bf16_moments"
-                        else torch.float32)
+    assert mu.dtype == (torch.bfloat16 if "adam_mu_dtype" in
+                        OPTIMIZERS[optimizer] else torch.float32)
     assert ckpt.load_config(str(tmp_path)) == \
         PortExperimentConfig.from_json(exp.to_json())
     assert_same_leaves(ckpt.load_params(str(tmp_path), "cpu"), loaded.params)
@@ -206,7 +218,10 @@ def test_port_checkpoint_loads_in_jax(tmp_path, optimizer):
         assert np.asarray(got).dtype == np.asarray(want).dtype
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
     assert jax_ckpt.load_config(str(tmp_path / "port")) == exp
-    JaxPredictor.from_checkpoint(str(tmp_path / "port"), batch_size=4)
+    if not exp.train.fused_optimizer:
+        # JAX's Predictor restores into make_optimizer's state, which is
+        # not FusedAdamW's: it reads no fused checkpoint, JAX's own either
+        JaxPredictor.from_checkpoint(str(tmp_path / "port"), batch_size=4)
 
 
 def test_resolve_checkpoint_and_model_num_as_jax(tmp_path):

@@ -190,7 +190,8 @@ def test_every_kernel_has_a_source_with_a_c_entry_point():
     entries = {"short_attention": "msa_short_attention_fwd",
                "fused_joint_embed": "msa_fused_joint_embed",
                "ln_quant": "msa_ln_quant_static",
-               "flash2": "msa_flash2_fwd"}
+               "flash2": "msa_flash2_fwd",
+               "fused_adamw": "msa_fused_adamw"}
     assert set(_build.KERNELS) == set(entries)
     for name, entry in entries.items():
         text = (_build.CSRC / f"{name}.cu").read_text()

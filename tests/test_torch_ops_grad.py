@@ -287,13 +287,16 @@ def test_c_entry_points_match_their_ctypes_signatures():
 
     from msa_tpu_torch import _build
     from msa_tpu_torch.ops import flash2 as f2
+    from msa_tpu_torch.ops import fused_adamw as fa
     from msa_tpu_torch.ops import ln_quant as lnq
     from msa_tpu_torch.ops import short_attention as sa
 
     bound = {"short_attention": sa._SIGNATURES,
              "fused_joint_embed": fje._SIGNATURES,
              "ln_quant": lnq._SIGNATURES,
-             "flash2": f2._SIGNATURES}
+             "flash2": f2._SIGNATURES,
+             "fused_adamw": fa._SIGNATURES}
+    assert "msa_short_attention_v3_bwd" in sa._SIGNATURES
     assert set(bound) == set(_build.KERNELS)
     for name, signatures in bound.items():
         text = (_build.CSRC / f"{name}.cu").read_text()

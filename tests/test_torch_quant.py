@@ -41,6 +41,7 @@ from msa_tpu.models.mmbert import mmbert_forward as jax_mmbert_forward
 from msa_tpu.ops import quant as jq
 from msa_tpu.ops.ln_quant import ln_quant as jax_ln_quant
 import msa_tpu_torch.models.bert as port_bert
+import msa_tpu_torch.ops.attention as port_attention
 from msa_tpu_torch.configs import ExperimentConfig as PortExperimentConfig
 from msa_tpu_torch.inference import Predictor, calibrate_act_stats
 from msa_tpu_torch.models.mmbert import mmbert_forward
@@ -154,8 +155,43 @@ def test_quantize_bert_params_bit_equal_to_jax(jparams):
 
 
 def test_quantize_bert_params_refuses_fused_qkv(jparams):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tq.quantize_bert_params(from_jax_params(jparams, "cpu"), fuse_qkv=True)
+    """fuse_qkv=True, which the port used to refuse, now builds JAX's fused
+    entry: each layer's q, k, v replaced by one "qkv" whose qweight
+    ([3H, H], the port's [out, in]), qscale and bias are q|k|v on the
+    output axis and whose static scale is q's; bit-equal to JAX's tree,
+    with per-row and with static scales."""
+    for static in (False, True):
+        check_fused_tree(jparams, static)
+
+
+def check_fused_tree(jparams, static):
+    stats = {k: np.asarray([1.5 + i, 2.5 * (i + 1)], np.float32)
+             for i, k in enumerate(STATS)} if static else None
+    ref = jax.device_get(jq.quantize_bert_params(
+        jparams, act_stats=None if stats is None else {
+            k: jnp.asarray(v) for k, v in stats.items()}, fuse_qkv=True))
+    out = tq.quantize_bert_params(
+        from_jax_params(jparams, "cpu"),
+        act_stats=None if stats is None else torch_stats(stats), fuse_qkv=True)
+    jl = ref["bert"]["layers"]["qkv"]
+    for i, layer in enumerate(out["bert"]["layers"]):
+        assert not {"q", "k", "v"} & set(layer)
+        got = layer["qkv"]
+        assert set(got) == {"qweight", "qscale", "bias"} | (
+            {"ascale"} if static else set())
+        assert got["qweight"].shape == (3 * 128, 128)
+        np.testing.assert_array_equal(got["qweight"].numpy(),
+                                      np.asarray(jl["qkernel"][i]).T)
+        np.testing.assert_array_equal(got["qscale"].numpy(),
+                                      np.asarray(jl["qscale"][i]))
+        np.testing.assert_array_equal(got["bias"].numpy(),
+                                      np.asarray(jl["bias"][i]))
+        if static:
+            assert float(got["ascale"]) == float(np.asarray(jl["ascale"][i]))
+        for key in ("o", "wi", "wo"):
+            np.testing.assert_array_equal(
+                layer[key]["qweight"].numpy(),
+                np.asarray(ref["bert"]["layers"][key]["qkernel"][i]).T)
 
 
 def test_act_scales_from_stats_match_jax():
@@ -372,6 +408,41 @@ def test_predictor_int8_bf16_matches_jax_bf16(jparams, split, mode,
     err = np.abs(out - ref).max()
     assert err <= BF16_NOISE_FACTOR * noise, (
         f"port vs JAX bf16 {err:.3g}, JAX bf16 vs f32 {noise:.3g}")
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8_static"])
+def test_predictor_fuse_qkv_matches_jax(jparams, split, mode, monkeypatch):
+    """Predictor(fuse_qkv=True) in f32 against JAX's fused Predictor
+    (calibrated on the unfused tree, as JAX does) within 1e-5, and against
+    the port's split projections within PRED_ATOL (the int32 products are
+    exact and the scales the same).  On the CPU the attention takes the
+    plain route, fed the fused product's thirds; with the short route
+    forced, the packed attention reads the fused product itself (its plain
+    version here; on the card its kernel) and the predictions do not
+    move."""
+    exp = experiment()
+    kw = quantize_kwargs(mode, split)
+    ref = JaxPredictor(exp, jparams, batch_size=4, fuse_qkv=True,
+                       **kw).predict_split(split)
+    params = from_jax_params(jparams, "cpu")
+    pred = Predictor(port_config(exp), params, 4, "cpu", fuse_qkv=True, **kw)
+    layer = pred.params["bert"]["layers"][0]
+    assert "qkv" in layer and "q" not in layer
+    assert ("ascale" in layer["qkv"]) == (mode == "int8_static")
+    out = pred.predict_split(split)
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+    split_out = Predictor(port_config(exp), params, 4, "cpu",
+                          **kw).predict_split(split)
+    np.testing.assert_allclose(out, split_out, atol=PRED_ATOL, rtol=0)
+    packed = []
+    monkeypatch.setattr(port_bert, "attention_route",
+                        lambda use_flash, seq, on_cuda: "short")
+    monkeypatch.setattr(port_bert, "packed_attention",
+                        lambda *a, **k: packed.append(1) or
+                        port_attention.packed_attention(*a, **k))
+    np.testing.assert_allclose(pred.predict_split(split), out, atol=PRED_ATOL,
+                               rtol=0)
+    assert len(packed) == 2 * 2 * 3  # layers x passes x batches
 
 
 def test_predictor_quantize_arguments(jparams, split):

@@ -175,9 +175,23 @@ def test_predictor_bf16_on_cpu_tracks_f32():
     ({"model_parallel": 2}, {}),
 ])
 def test_predictor_refuses_what_is_not_ported(train_kw, kw):
+    """Data and model parallelism raise.  fuse_qkv, refused until it was
+    ported, is taken: with an int8 mode each layer gets one fused "qkv"
+    projection; without ``quantize`` it is ignored, as in JAX."""
     exp = experiment()
     exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
                                                              **train_kw))
+    if kw.get("fuse_qkv"):
+        _, pred = both_predictors(exp)
+        h = exp.model.bert.hidden_size
+        layer = Predictor(exp, pred.params, 4, "cpu", quantize="int8",
+                          **kw).params["bert"]["layers"][0]
+        assert layer["qkv"]["qweight"].shape == (3 * h, h)
+        assert not {"q", "k", "v"} & set(layer)
+        layer = Predictor(exp, pred.params, 4, "cpu", **kw).params["bert"][
+            "layers"][0]
+        assert "qkv" not in layer and "weight" in layer["q"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Predictor(exp, {}, 4, torch.device("cpu"), **kw)
 
