@@ -39,6 +39,16 @@ failure (no phase catches its own):
        v3 backward pair (``USE_V3_BWD``) against its plain version and the
        v2 pair at the text and joint shapes, its recomputed lse against the
        forward's;
+     * the head-split flash attention (``ops.attention.flash_attention``,
+       [B, heads, S, 64]) at the frame-level joint shape [32, 16, 1024],
+       an odd S=1000 and S=4096, bf16 and f32: the forward and its
+       natural-log lse, the backward pair against its plain rule and
+       against autograd, with and without dropout, and against flash2 in
+       natural layout at the same seed; timed beside SDPA on [B, heads, S,
+       d];
+     * the v1 short attention (``short_attention_v1``) at the text and
+       joint shapes: forward, backward, the same against v2 at one seed,
+       and the bytes it keeps for the backward (its inputs) against v2's;
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
@@ -85,6 +95,12 @@ failure (no phase catches its own):
   6d. 'auto': no checkpointing at B=96, JAX's ladder (save_attn+drop) at
      the smallest batch whose activation estimate passes half the card's
      memory, and one step there;
+  6d'. the frame-level path with ``ops.attention.USE_FLASH2 = False`` (the
+     joint pass on the head-split kernels): serving against the flash2
+     Predictor on the same weights (24 head-split forwards a batch), 1+3
+     train steps against flash2 from the same weights and seeds (24
+     forwards and 24 + 24 backward launches a step), one step under
+     save_ctx, and the f32 frame-level train steps card against CPU;
   6e. the training entry point: ``python -m msa_tpu_torch.cli.train``'s
      flow at bert-large B=96 for two epochs with checkpoints, ``--resume``
      from the first epoch's checkpoint (its second epoch ends on the
@@ -222,6 +238,21 @@ ADAMW_OPS = 16
 # remat rungs' backward orders do (REMAT_LOSS_RTOL).
 PR6_WARMUP, PR6_STEPS = 1, 3
 PR6_LOSS_RTOL = 2e-2
+# the head-split flash attention's row lse (natural-log units) against the
+# plain logsumexp: the same f32 scores summed in another order, and the
+# kernel's base-2 statistics converted by ln 2 (an ulp or two of |lse| ~ 8
+# on live rows); rows with every key masked sit near -10000, where an f32
+# ulp is 2^-10, under MASKED_ROW_ATOL.
+FLASH_LSE_ATOL, FLASH_LSE_RTOL = 1e-4, 1e-5
+# frame_flash against the default flash2 path from the same weights: the
+# head-split kernels are flash2's with another addressing
+# (csrc/flash_kernels.cuh), so the serving predictions are expected
+# bit-equal; the bound only has to catch a layout fault, which moves
+# predictions by their spread (~0.3).  Training: the warm-up step's loss
+# bit-equal (same forward, same masks), later ones within the remat rungs'
+# REMAT_LOSS_RTOL (the backward reads bf16 o for delta here, flash2 its f32
+# output, and bf16 training carries such roundings into the loss).
+FRAME_FLASH_PRED_ATOL = 1e-2
 # fuse_qkv serving against the split projections, bf16: int8 (per-row
 # scales) computes the same int8 products, scales and epilogue per element
 # and the packed kernel is bit-equal to v2 on the thirds, so the
@@ -298,6 +329,19 @@ def check_close(name, got, ref, atol, rtol, mask=None) -> float:
             f"{name}: {int(bad.sum())} elements outside atol={atol} "
             f"rtol={rtol}; max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def check_within(name, got, want, atol, rtol, gap, mask) -> float:
+    """|got - want| within twice (atol + rtol |want|) plus ``gap`` (what a
+    rounding the kernel shares with its plain rule moves in that rule) on
+    ``mask``; returns the largest difference."""
+    diff = (got.float() - want.float()).abs()[mask]
+    allowed = (2 * (atol + rtol * want.float().abs()) + gap)[mask]
+    if (diff > allowed).any():
+        raise AssertionError(f"{name}: {int((diff > allowed).sum())} elements "
+                             "beyond twice the bound plus the rounding gap; "
+                             f"max abs diff {float(diff.max()):.3e}")
+    return float(diff.max())
 
 
 def attention_inputs(gen, b, s, dtype):
@@ -818,6 +862,8 @@ def phase_flash2_backward(gen):
 
 
 def kernel_counters():
+    from msa_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_backward)
     from msa_tpu_torch.ops.flash2 import (
         flash2_bwd_fused, flash2_bwd_split, flash_attention2)
     from msa_tpu_torch.ops.fused_adamw import fused_adamw_leaf
@@ -827,6 +873,7 @@ def kernel_counters():
         dropout_keep_mask, short_attention, short_attention_backward,
         short_attention_packed, short_attention_packed_backward,
         short_attention_probs, short_attention_probs_backward,
+        short_attention_v1, short_attention_v1_backward,
         short_attention_v3_backward)
 
     return {"short_attention": short_attention,
@@ -843,7 +890,11 @@ def kernel_counters():
             "ln_quant_dynamic": ln_quant_dynamic,
             "flash_attention2": flash_attention2,
             "flash2_bwd_fused": flash2_bwd_fused,
-            "flash2_bwd_split": flash2_bwd_split}
+            "flash2_bwd_split": flash2_bwd_split,
+            "flash_attention": flash_attention,
+            "flash_attention_backward": flash_attention_backward,
+            "short_attention_v1": short_attention_v1,
+            "short_attention_v1_backward": short_attention_v1_backward}
 
 
 def kernel_counts():
@@ -2211,6 +2262,445 @@ def phase_v3_kernels(gen):
     return worst, times
 
 
+def split_heads(x):
+    """[B, S, H] -> the head-split [B, heads, S, d] layout (a copy)."""
+    b, s, h = x.shape
+    return x.view(b, s, HEADS, h // HEADS).transpose(1, 2).contiguous()
+
+
+def merge_heads(x):
+    b, n, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, n * d)
+
+
+def phase_flash_attention(gen):
+    """The head-split flash attention (row 13) against its plain version:
+    the forward and its natural-log lse at the frame-level joint shape
+    [32, 16, 1024, 64] (bf16), long S (4096) and an odd S (1000, padded
+    keys), bf16 and f32; the backward pair, run through autograd, against
+    its plain version on the same inputs (JAX's rule: p from the lse, delta
+    = rowsum(dO o) with o the forward's output in its dtype), and against
+    autograd through the plain forward in f32 within twice the tolerance
+    plus the gap that o's rounding makes in the plain rule (as v3's); with
+    and without dropout (the plain versions given keep_mask_plain: forward
+    and backward draw that mask), and against flash2 in natural layout at
+    the same seed (same mask) within the same allowance; a second seed gives
+    another mask.  Times beside the bound, the plain version and SDPA on [B,
+    heads, S, d] with the additive mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops.dropout import (
+        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.flash2 import flash_attention2
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    s_frame = TEXT_LEN + FRAME_PAIR_LEN
+    # (label, B, S, dtype, rate, timed)
+    cases = [("frame", 2 * FRAME_BATCH, s_frame, torch.bfloat16, 0.0, True),
+             ("frame", 2, s_frame, torch.float32, 0.0, False),
+             ("s1000", 4, 1000, torch.bfloat16, 0.0, False),
+             ("s1000", 4, 1000, torch.float32, 0.0, False),
+             ("s4096", 2, 4096, torch.bfloat16, 0.0, False),
+             ("frame", 2, s_frame, torch.bfloat16, rate_on, False),
+             ("frame", 2, s_frame, torch.float32, rate_on, False)]
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for label, b, s, dtype, rate, timed in cases:
+        dname = str(dtype).split(".")[1]
+        x, y, z, bias, live = attention_inputs(gen, b, s, dtype)
+        q, k, v = (split_heads(t) for t in (x, y, z))
+        dout = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        seed = 2718 + s
+        keep = (keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
+                if rate else None)
+        out, lse = A._forward_kernel(q, k, v, bias, seed, byte_threshold(rate),
+                                     train=True)
+        # the backward pair through autograd, from its own training forward
+        xq, xk, xv = (t.detach().requires_grad_() for t in (q, k, v))
+        out_ag = A.flash_attention(xq, xk, xv, bias, rate, seed)
+        grads = torch.autograd.grad(out_ag, (xq, xk, xv), dout)
+        qq, kk, vv = (t.detach().float().requires_grad_() for t in (q, k, v))
+        ref, ref_lse = A.flash_attention_plain(qq, kk, vv, bias, rate, keep,
+                                               with_lse=True)
+        auto = torch.autograd.grad(ref, (qq, kk, vv), dout.float())
+        # the plain rule in f32 math, pd and dS rounded to the dtype before
+        # their products as the kernels (and JAX's) round them
+        refs = A.flash_attention_backward_plain(q, k, v, bias, out, lse, dout,
+                                                rate, keep)
+        # what o's rounding to the dtype moves in the plain rule (0 in f32)
+        o_gap = [(a.float() - c.float()).abs() for a, c in zip(
+            refs, A.flash_attention_backward_plain(
+                q, k, v, bias, ref.detach(), lse, dout, rate, keep))]
+        torch.cuda.synchronize()
+        if not torch.equal(out_ag, out):
+            raise AssertionError(f"flash_attention {label}: the autograd "
+                                 "forward differs from the kernel's")
+        tag = f"flash_attention {label} [{b},{HEADS},{s},64] {dname} rate {rate:g}"
+        atol, rtol = ATTN_TOL[dname]
+        err = check_close(tag, out, ref, atol, rtol, mask=live)
+        check_close(tag + " masked row", out, ref, MASKED_ROW_ATOL, 0.0,
+                    mask=~live)
+        lse_err = check_close(tag + " lse", lse, ref_lse, FLASH_LSE_ATOL,
+                              FLASH_LSE_RTOL, mask=live)
+        check_close(tag + " lse masked row", lse, ref_lse, MASKED_ROW_ATOL, 0.0,
+                    mask=~live)
+        gatol, grtol = GRAD_TOL[dname]
+        gerr = auto_err = 0.0
+        for name, g, r, a, gap in zip(("dq", "dk", "dv"), grads, refs, auto,
+                                      o_gap):
+            gerr = max(gerr, check_close(f"{tag} {name}", g, r, gatol, grtol,
+                                         mask=live))
+            check_close(f"{tag} {name} masked row", g, r, MASKED_ROW_GRAD_ATOL,
+                        0.0, mask=~live)
+            auto_err = max(auto_err, check_within(
+                f"{tag} {name} against autograd", g, a, gatol, grtol, gap, live))
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["bwd"] = max(worst["bwd"], gerr)
+        line = (f"{tag}: max_abs_err {err:.3e} (atol {atol}, rtol {rtol}), lse "
+                f"{lse_err:.3e} (atol {FLASH_LSE_ATOL}, rtol {FLASH_LSE_RTOL}), "
+                f"gradients {gerr:.3e} against the plain rule (atol {gatol}, "
+                f"rtol {grtol}), {auto_err:.3e} against autograd through the "
+                f"plain forward (o's rounding gap up to "
+                f"{max(float(x[live].max()) for x in o_gap):.3e})")
+        if rate:
+            # flash2 in natural layout at the same seed draws the same mask:
+            # the same output, and gradients within the tolerance (flash2's
+            # delta reads its f32 output, this pair's its output in dtype)
+            xx, yy, zz = (t.detach().requires_grad_() for t in (x, y, z))
+            o2 = flash_attention2(xx, yy, zz, bias, HEADS, rate, seed)
+            g2 = torch.autograd.grad(o2, (xx, yy, zz), merge_heads(dout))
+            o3 = A.flash_attention(q, k, v, bias, rate, seed + 1)
+            torch.cuda.synchronize()
+            f2_err = check_close(tag + " against flash2", merge_heads(out), o2,
+                                 atol, rtol, mask=live)
+            for name, g, r, gap in zip(("dq", "dk", "dv"), grads, g2, o_gap):
+                f2_err = max(f2_err, check_within(
+                    f"{tag} {name} against flash2", g, split_heads(r), gatol,
+                    grtol, gap, live))
+            if torch.allclose(out.float(), o3.float(), atol=atol, rtol=rtol):
+                raise AssertionError(f"{tag}: the mask is not a function of "
+                                     "the seed")
+            line += (f"; against flash2 at the same seed {f2_err:.3e}, the "
+                     "next seed differs")
+        if timed:
+            sq, sk, sv = (t.detach().requires_grad_() for t in (q, k, v))
+            sm = bias[:, None, None, :].to(dtype)
+            ms = cuda_ms(lambda: A.flash_attention(q, k, v, bias))
+            plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, bias),
+                               iters=5)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sm))
+            split_ms = cuda_ms(lambda: [split_heads(t) for t in (x, y, z)])
+            merge_ms = cuda_ms(lambda: merge_heads(out))
+            bwd_ms = cuda_ms(lambda: A.flash_attention_backward(
+                q, k, v, bias, out, lse, dout, seed, 0.0), iters=10)
+            pq, pk, pv = (t.detach().requires_grad_() for t in (q, k, v))
+            po = A.flash_attention_plain(pq, pk, pv, bias)
+            bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                po, (pq, pk, pv), dout, retain_graph=True), iters=5)
+            lo = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+            bwd_lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                lo, (sq, sk, sv), dout, retain_graph=True), iters=10)
+            flops = 4 * b * s * s * HIDDEN
+            nbytes = 4 * b * s * HIDDEN * q.element_size() + b * s * 4
+            bound = bound_ms(nbytes, flops, dname)
+            # the backward reads q, k, v, o and dO, the bias and the row lse
+            # (o and lse are inputs of JAX's _flash_dq_kernel / _dkv_kernel),
+            # writes dq, dk, dv; products: scores, dP, dV, dQ, dK
+            bwd_bytes = (8 * q.element_size() * b * s * HIDDEN + b * s * 4
+                         + b * HEADS * s * 4)
+            bwd_bound = bound_ms(bwd_bytes, 10 * b * s * s * HIDDEN, dname)
+            times["fwd"] = (ms, plain_ms, lib_ms, bound)
+            times["bwd"] = (bwd_ms, bwd_plain_ms, bwd_lib_ms, bwd_bound)
+            line += (f"; forward {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                     f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                     f"{bound[0]:.4f} ms ({bound[1]}); the route's head split "
+                     f"of q, k, v {split_ms:.4f} ms and merge {merge_ms:.4f} "
+                     f"ms; backward pair {bwd_ms:.4f} ms "
+                     f"({2.5 * flops / bwd_ms / 1e9:.1f} TFLOP/s), plain "
+                     f"{bwd_plain_ms:.4f} ms, sdpa bwd {bwd_lib_ms:.4f} ms, "
+                     f"bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+        print(line, flush=True)
+    return worst, times
+
+
+def saved_bytes(fn):
+    """Bytes (by storage) that autograd keeps for the backward of ``fn()``."""
+    import torch
+
+    saved = {}
+
+    def pack(t):
+        saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, sum(saved.values())
+
+
+def phase_short_v1(gen):
+    """The v1 short attention (row 7) against its plain version at the text
+    and joint shapes ([96, 40, 1024], [192, 80, 1024], 16 heads), bf16 and
+    f32: the forward; the backward, run through autograd, against its plain
+    version (JAX's _bwd_kernel rule: dS and the dropped p rounded to the
+    dtype before their products), and against autograd through the plain
+    forward in f32 and the v2 kernels (which round neither) within twice
+    the tolerance plus the gap those roundings make in the plain rule, at
+    rate 0 and with dropout (the plain versions given keep_mask_plain; v2
+    at the same seed draws the same mask); the bytes autograd keeps for the
+    backward against v2's (v1 keeps its inputs only).  Times beside the
+    bound, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import keep_mask_plain, quantize_dropout_rate
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+    for label, b, s in (("text", BATCH, TEXT_LEN),
+                        ("joint", 2 * BATCH, 2 * TEXT_LEN)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            atol, rtol = ATTN_TOL[dname]
+            gatol, grtol = GRAD_TOL[dname]
+            for rate in (0.0, rate_on):
+                q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+                dout = torch.randn(b, s, HIDDEN, device="cuda",
+                                   generator=gen).to(dtype)
+                seed = 31 + s
+                keep = (keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
+                        if rate else None)
+                runs = {}
+                for name, entry in (("v1", sa.short_attention_v1),
+                                    ("v2", sa.short_attention)):
+                    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+                    out, kept = saved_bytes(lambda: entry(
+                        qq, kk, vv, bias, HEADS, rate, seed if rate else None))
+                    runs[name] = (out, kept, *torch.autograd.grad(
+                        out, (qq, kk, vv), dout))
+                qq, kk, vv = (x.detach().float().requires_grad_()
+                              for x in (q, k, v))
+                ref = sa.short_attention_plain(qq, kk, vv, bias, HEADS, rate, keep)
+                auto = torch.autograd.grad(ref, (qq, kk, vv), dout.float())
+                refs = sa.short_attention_v1_backward_plain(
+                    q, k, v, bias, dout, HEADS, rate, keep)
+                torch.cuda.synchronize()
+                tag = f"short_attention_v1 {label} [{b},{s},{HIDDEN}] {dname} rate {rate:g}"
+                out, kept, *grads = runs["v1"]
+                err = check_close(tag, out, ref, atol, rtol, mask=live)
+                check_close(tag + " masked row", out, ref, MASKED_ROW_ATOL, 0.0,
+                            mask=~live)
+                gerr = auto_err = 0.0
+                v2_out, v2_kept, *v2_grads = runs["v2"]
+                v2_err = check_close(tag + " against v2", out, v2_out, atol,
+                                     rtol, mask=live)
+                for name, g, r, a, g2 in zip(("dq", "dk", "dv"), grads, refs,
+                                             auto, v2_grads):
+                    gerr = max(gerr, check_close(f"{tag} {name}", g, r, gatol,
+                                                 grtol, mask=live))
+                    check_close(f"{tag} {name} masked row", g, r,
+                                MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
+                    gap = (r.float() - a).abs()  # the operands' rounding
+                    auto_err = max(auto_err, check_within(
+                        f"{tag} {name} against autograd", g, a, gatol, grtol,
+                        gap, live))
+                    v2_err = max(v2_err, check_within(
+                        f"{tag} {name} against v2", g, g2, gatol, grtol, gap,
+                        live))
+                inputs = 3 * q.numel() * q.element_size() + bias.numel() * 4
+                if kept != inputs or not kept < v2_kept:
+                    raise AssertionError(f"{tag}: keeps {kept} bytes for the "
+                                         f"backward (its inputs: {inputs}; v2 "
+                                         f"{v2_kept})")
+                worst["fwd"] = max(worst["fwd"], err)
+                worst["bwd"] = max(worst["bwd"], gerr)
+                line = (f"{tag}: max_abs_err {err:.3e} (atol {atol}, rtol "
+                        f"{rtol}), gradients {gerr:.3e} against the plain rule "
+                        f"(atol {gatol}, rtol {grtol}), {auto_err:.3e} against "
+                        f"autograd (twice that plus the rounding gap); against "
+                        f"v2 at the same seed {v2_err:.3e}; "
+                        f"kept for the backward {kept / 2**20:.2f} MiB (its "
+                        f"inputs) against v2's {v2_kept / 2**20:.2f} MiB")
+                if rate == 0.0:
+                    ms = cuda_ms(lambda: sa.short_attention_v1(
+                        q, k, v, bias, HEADS))
+                    v2_ms = cuda_ms(lambda: sa.short_attention(
+                        q, k, v, bias, HEADS))
+                    plain_ms = cuda_ms(lambda: sa.short_attention_plain(
+                        q, k, v, bias, HEADS))
+                    sq, sk, sv, sm = sdpa_args(q, k, v, bias)
+                    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, attn_mask=sm))
+                    bwd_ms = cuda_ms(lambda: sa.short_attention_v1_backward(
+                        q, k, v, bias, dout, HEADS))
+                    pq, pk, pv = (x.detach().requires_grad_() for x in (q, k, v))
+                    po = sa.short_attention_plain(pq, pk, pv, bias, HEADS)
+                    bwd_plain_ms = cuda_ms(lambda: torch.autograd.grad(
+                        po, (pq, pk, pv), dout, retain_graph=True))
+                    sq, sk, sv, sm = sdpa_args(pq, pk, pv, bias)
+                    lo = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+                    lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+                    bwd_lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                        lo, (pq, pk, pv), lib_do, retain_graph=True))
+                    itemsize = q.element_size()
+                    bound = bound_ms(4 * b * s * HIDDEN * itemsize + b * s * 4,
+                                     4 * b * s * s * HIDDEN, dname)
+                    # reads q, k, v, dO and the bias, writes dq, dk, dv (v1
+                    # takes nothing else); products: scores, dP, dV, dQ, dK
+                    bwd_bound = bound_ms(7 * b * s * HIDDEN * itemsize + b * s * 4,
+                                         10 * b * s * s * HIDDEN, dname)
+                    times[("fwd", label, dname)] = (ms, plain_ms, lib_ms, bound)
+                    times[("bwd", label, dname)] = (bwd_ms, bwd_plain_ms,
+                                                    bwd_lib_ms, bwd_bound)
+                    line += (f"; forward {ms:.4f} ms (v2 {v2_ms:.4f} ms), plain "
+                             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                             f"{bound[0]:.4f} ms ({bound[1]}); backward "
+                             f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
+                             f"sdpa bwd {bwd_lib_ms:.4f} ms, bound "
+                             f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+                print(line, flush=True)
+    return worst, times
+
+
+def head_split_counts(want, layers, steps):
+    """Launches ``want`` (the joint pass on flash2) with the joint pass on
+    the head-split kernels instead: its forwards as flash_attention and a
+    backward pair (dq, dk/dv) per layer and step."""
+    want = dict(want, flash_attention=want["flash_attention2"],
+                flash_attention_backward=2 * layers * steps)
+    want["flash_attention2"] = want["flash2_bwd_fused"] = 0
+    want["flash2_bwd_split"] = 0
+    return want
+
+
+def phase_frame_flash():
+    """The frame-level path (B=16, L=40, Lp=984: joint pass [32, 1024]) at
+    full width with ``ops.attention.USE_FLASH2 = False``, the joint pass on
+    the head-split kernels between head transposes: serving against the
+    default flash2 Predictor on the same weights (24 head-split forwards a
+    batch); 1 warm-up + 3 train steps with the default dropouts against
+    flash2 from the same weights, batches and seeds (24 forwards and 24 + 24
+    backward launches a step); one step under save_ctx (``recompute=``); and
+    the f32 frame-level train steps, card against CPU.  The switch is
+    restored whatever happens."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params
+    from msa_tpu_torch.ops import attention as A
+
+    exp = frame_experiment(FRAME_PAIR_LEN, None, train_batch_size=FRAME_BATCH,
+                           compute_dtype="bfloat16", warmup_proportion=0.01,
+                           adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                           data_parallel=1)
+    cfg = exp.model
+    layers = cfg.bert.num_hidden_layers
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4))
+    serve = synthetic_split(FRAME_SERVE, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=6, pair_seq_length=FRAME_PAIR_LEN)
+    train = synthetic_split(2 * FRAME_BATCH, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=7, pair_seq_length=FRAME_PAIR_LEN)
+    batches = list(MultimodalDataset(train, seed=0).epoch_batches(
+        0, FRAME_BATCH, drop_last=True))
+    n_batches = -(-FRAME_SERVE // FRAME_BATCH)
+    out = {}
+    try:
+        preds, rates = {}, {}
+        for flash2 in (True, False):
+            A.USE_FLASH2 = flash2
+            pred = Predictor(exp, params, FRAME_BATCH, "cuda")
+            pred.predict_split(serve)  # warm
+            reset_counts()
+            t0 = time.perf_counter()
+            preds[flash2] = pred.predict_split(serve)
+            rates[flash2] = FRAME_SERVE / (time.perf_counter() - t0)
+            launches = kernel_counts()
+            del pred
+            if flash2:
+                continue
+            want = expect_counts(short_attention=layers * n_batches,
+                                 flash_attention=layers * n_batches,
+                                 fused_joint_embed=2 * n_batches)
+            if launches != want:
+                raise AssertionError(f"frame_flash serving launches "
+                                     f"{launches}, want {want}")
+            out["serving"] = launches
+        gap = float(np.abs(preds[False] - preds[True]).max())
+        if not np.isfinite(preds[False]).all() or gap > FRAME_FLASH_PRED_ATOL:
+            raise AssertionError(f"frame_flash serving: max |diff| to flash2's "
+                                 f"predictions {gap:.3e} > {FRAME_FLASH_PRED_ATOL}")
+        print(f"frame_flash serving bf16 bert-large B={FRAME_BATCH} "
+              f"Lp={FRAME_PAIR_LEN}, USE_FLASH2=False: {rates[False]:.2f} "
+              f"samples/s against flash2's {rates[True]:.2f}; launches per batch "
+              f"{({k: v // n_batches for k, v in out['serving'].items() if v})}; "
+              f"max |diff| to flash2's predictions {gap:.3e} (atol "
+              f"{FRAME_FLASH_PRED_ATOL}; bit-equal: {gap == 0.0})", flush=True)
+
+        runs = {}
+        for flash2, rung, warmup, steps in ((True, "none", 1, 3),
+                                            (False, "none", 1, 3),
+                                            (False, "save_ctx", 1, 1)):
+            A.USE_FLASH2 = flash2
+            label = f"frame_flash {rung} USE_FLASH2={flash2}"
+            r = runs[(flash2, rung)] = train_run(
+                with_rung(exp, rung), params, batches, warmup, steps, label)
+            want = rung_launches(rung, layers, steps, frame=True)
+            if not flash2:
+                want = head_split_counts(want, layers, steps)
+            if r["remat_policy"] != rung or r["launches"] != want:
+                raise AssertionError(f"{label}: remat {r['remat_policy']}, "
+                                     f"launches {r['launches']}, want {want}")
+        base = runs[(True, "none")]
+        for key in ((False, "none"), (False, "save_ctx")):
+            r = runs[key]
+            # the same forward kernels and masks: the warm-up step's loss is
+            # bit-equal; later steps carry the backward's roundings (bf16 o
+            # in delta here, the f32 output in flash2's)
+            drift = max(abs(a - b) / abs(b)
+                        for a, b in zip(r["losses"], base["losses"]))
+            if r["losses"][0] != base["losses"][0] or \
+                    drift > REMAT_LOSS_RTOL:
+                raise AssertionError(f"frame_flash {key}: losses "
+                                     f"{r['losses']} against flash2's "
+                                     f"{base['losses']}")
+            r["max_rel"] = drift
+        hs = runs[(False, "none")]
+        for key, r in runs.items():
+            print(f"frame_flash training bf16 bert-large B={FRAME_BATCH} "
+                  f"Lp={FRAME_PAIR_LEN} remat {key[1]} USE_FLASH2={key[0]}: "
+                  f"{r['ms_step']:.2f} ms/step, "
+                  f"{FRAME_BATCH * 1e3 / r['ms_step']:.2f} samples/s, peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB, kept for the backward "
+                  f"{r['saved_bytes'] / 2**30:.2f} GiB; launches per step "
+                  f"{r['per_step']}; losses {[round(x, 5) for x in r['losses']]}"
+                  + ("" if key[0] else f" (max rel {r['max_rel']:.2e} against "
+                     f"flash2, bound {REMAT_LOSS_RTOL})"), flush=True)
+        out["training"] = hs["launches"]
+        out["save_ctx"] = runs[(False, "save_ctx")]["launches"]
+        out["runs"] = runs
+        out["serving_rates"] = rates
+
+        A.USE_FLASH2 = False
+        reset_counts()
+        phase_f32_train(pair_len=FRAME_PAIR_LEN, batch_size=4)
+        f32 = kernel_counts()
+        if not f32["flash_attention"] or not f32["flash_attention_backward"] \
+                or f32["flash_attention2"]:
+            raise AssertionError(f"frame_flash f32 train: launches {f32}")
+    finally:
+        A.USE_FLASH2 = True
+    return out
+
+
 def train_inputs(seed):
     """bench.py's training configuration at B=96, bert-large weights from
     ``seed`` and two batches of a synthetic split (the rung phases')."""
@@ -2431,6 +2921,8 @@ def main() -> int:
     pp_err, pp_times = phase_probs_packed(gen)
     adamw_err, adamw_times = phase_fused_adamw(gen)
     v3_err, v3_times = phase_v3_kernels(gen)
+    fa_err, fa_times = phase_flash_attention(gen)
+    v1_err, v1_times = phase_short_v1(gen)
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
@@ -2462,6 +2954,9 @@ def main() -> int:
     del pr6_inputs
     torch.cuda.empty_cache()
     frame_rungs = phase_frame_rungs()
+    torch.cuda.empty_cache()
+    frame_flash = phase_frame_flash()
+    torch.cuda.empty_cache()
     auto_launches = phase_auto()
     cli_launches = phase_entry_point()
     phase_f32_train()
@@ -2484,7 +2979,10 @@ def main() -> int:
                     fuse_launches["int8_static"][name],
                 "fused_optimizer_train": sum(r["launches"][name]
                                              for r in fused_runs.values()),
-                "v3_train": sum(r["launches"][name] for r in v3_runs.values())}
+                "v3_train": sum(r["launches"][name] for r in v3_runs.values()),
+                "frame_flash_serving": frame_flash["serving"][name],
+                "frame_flash_training": frame_flash["training"][name],
+                "frame_flash_save_ctx": frame_flash["save_ctx"][name]}
 
     def rung(policy, name):  # launches per step under that rung
         return rungs[policy]["per_step"].get(name, 0)
@@ -2572,6 +3070,28 @@ def main() -> int:
                          "short_attention_v3_backward"],
                      v3_err, v3_times[joint],
                      paths("short_attention_v3_backward")),
+        kernel_entry("flash_attention_fwd",
+                     "msa_tpu_torch/csrc/flash_attention.cu",
+                     "msa_tpu/ops/attention.py:117",
+                     frame_flash["training"]["flash_attention"], fa_err["fwd"],
+                     fa_times["fwd"], paths("flash_attention")),
+        kernel_entry("flash_attention_bwd",
+                     "msa_tpu_torch/csrc/flash_attention.cu",
+                     "msa_tpu/ops/attention.py:171",
+                     frame_flash["training"]["flash_attention_backward"],
+                     fa_err["bwd"], fa_times["bwd"],
+                     paths("flash_attention_backward")),
+        kernel_entry("short_attention_v1_fwd",
+                     "msa_tpu_torch/csrc/short_attention_v1.cu",
+                     "msa_tpu/ops/short_attention.py:139",
+                     train_launches["short_attention_v1"], v1_err["fwd"],
+                     v1_times[("fwd",) + joint], paths("short_attention_v1")),
+        kernel_entry("short_attention_v1_bwd",
+                     "msa_tpu_torch/csrc/short_attention_v1.cu",
+                     "msa_tpu/ops/short_attention.py:177",
+                     train_launches["short_attention_v1_backward"],
+                     v1_err["bwd"], v1_times[("bwd",) + joint],
+                     paths("short_attention_v1_backward")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

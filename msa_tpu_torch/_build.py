@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "msa_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("short_attention", "fused_joint_embed", "ln_quant", "flash2",
-           "fused_adamw")
+           "fused_adamw", "flash_attention", "short_attention_v1")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
 
 _lock = threading.Lock()

@@ -39,7 +39,13 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   read in place; the backward (:func:`short_attention_packed_backward`)
   writes one [B, S, 3H] gradient;
 * :func:`dropout_keep_mask` -- the [B, heads, S, S] keep mask for a seed
-  (plain version: ``ops.dropout.keep_mask_plain``).
+  (plain version: ``ops.dropout.keep_mask_plain``);
+* :func:`short_attention_v1` -- JAX's ``short_attention``, the v1 pair
+  (``_fwd_kernel`` / ``_bwd_kernel``, ``csrc/short_attention_v1.cu``, S <=
+  128): the same function as :func:`short_attention`, but the pair keeps
+  only its inputs.  The forward writes ctx alone and the backward
+  (:func:`short_attention_v1_backward`, one launch) recomputes the softmax
+  and takes delta = rowsum(p * dpm).  No model path calls it, as in JAX.
 
 Each kernel entry has a plain version beside it (``*_plain``), which CPU
 tensors run.  ``short_attention``, ``short_attention_probs`` and
@@ -85,6 +91,13 @@ _SIGNATURES = {
                                       _I, _I, _I, _I, _F, _I, _P),
     "msa_dropout_keep_mask": (_P, _I, _I, _I, _U, _U, _I, _P),
 }
+_V1_SIGNATURES = {
+    "msa_short_attention_v1_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                   _U, _U, _I, _P),
+    "msa_short_attention_v1_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _I, _F, _U, _U, _I, _P),
+}
+V1_MAX_SEQ = 128  # the v1 kernels hold a head's K and V in shared memory
 PROBS_GROUP = 16  # keys per Philox draw: the probs rows are padded to it
 # JAX's module switch _USE_V3_BWD: the training forward keeps the ctx
 # itself instead of its f32 copy and the row lse, and the backward is
@@ -449,22 +462,33 @@ def short_attention_probs_plain(q, k, v, key_bias, num_heads: int,
 def short_attention_probs_backward_plain(q, k, v, probs, dout, num_heads: int,
                                          rate: float = 0.0):
     """dq, dk, dv from the signed probs (JAX ``_bwd_kernel_v2s``), in f32:
-    p = |ps|, keep = ps > 0, pd and dpm the kept p and dP = dO.V^T over
-    ``1 - rate``, delta = sum_j p * dpm per row, dS = p * (dpm - delta)."""
+    p = |ps|, keep = ps > 0, then :func:`_grads_from_probs_plain`."""
+    s = q.shape[1]
+    ps = probs[..., :s].float()
+    return _grads_from_probs_plain(q, k, v, ps.abs(), dout, num_heads, rate,
+                                   ps > 0.0 if rate > 0.0 else None)
+
+
+def _grads_from_probs_plain(q, k, v, p, dout, num_heads, rate, keep,
+                            operand_dtype=None):
+    """dq, dk, dv in f32 from the softmax probabilities ``p`` [B, heads, S,
+    S] (JAX ``_bwd_kernel`` and ``_bwd_kernel_v2s``): pd and dpm the kept p
+    and dP = dO.V^T over ``1 - rate`` (``keep`` None: all kept), delta =
+    sum_j p * dpm per row, dS = p * (dpm - delta); with ``operand_dtype``
+    pd and dS rounded to it before their products."""
     b, s, h = q.shape
     d = h // num_heads
     split = lambda x: x.reshape(b, s, num_heads, d).float()  # noqa: E731
-    ps = probs[..., :s].float()
-    p = ps.abs()
     dp = torch.einsum("bqnd,bknd->bnqk", split(dout), split(v))
-    if rate > 0.0:
-        keep = ps > 0.0
+    if keep is not None:
         pd = torch.where(keep, p, 0.0) / (1.0 - rate)
         dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
     else:
         pd, dpm = p, dp
     delta = (p * dpm).sum(-1, keepdim=True)
     ds = p * (dpm - delta)
+    if operand_dtype is not None:
+        ds, pd = (x.to(operand_dtype).float() for x in (ds, pd))
     scale = 1.0 / math.sqrt(d)
     dq = torch.einsum("bnqk,bknd->bqnd", ds, split(k)) * scale
     dk = torch.einsum("bnqk,bqnd->bknd", ds, split(q)) * scale
@@ -728,6 +752,130 @@ def short_attention_packed(qkv: torch.Tensor, key_bias: torch.Tensor,
                                   train=False)[0]
 
 
+# ---------------------------------------------------------------------------
+# v1 (JAX short_attention): the pair that keeps only its inputs
+# ---------------------------------------------------------------------------
+
+
+def short_attention_v1_backward_plain(q, k, v, key_bias, dout, num_heads: int,
+                                      rate: float = 0.0,
+                                      keep: Optional[torch.Tensor] = None):
+    """dq, dk, dv of :func:`short_attention_plain` by JAX's ``_bwd_kernel``
+    (v1), in f32, from the inputs alone: p the softmax recomputed from q, k
+    and the bias, then :func:`_grads_from_probs_plain` (delta = sum_j p *
+    dpm, not dO . o), dS and the dropped p rounded to q's dtype before their
+    products as that kernel rounds them (``.astype``; nothing changes in
+    f32); ``keep`` a [B, heads, S, S] bool mask."""
+    p = _scores_plain(q, k, key_bias, num_heads)
+    return _grads_from_probs_plain(q, k, v, p, dout, num_heads, rate, keep,
+                                   q.dtype)
+
+
+def _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, threshold):
+    b, s, h = q.shape
+    q, k, v = _aligned(q, k, v, what="short_attention_v1")
+    key_bias = key_bias.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    lib = _build.load("short_attention_v1", _V1_SIGNATURES)
+    code = lib.msa_short_attention_v1_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+        out.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
+        1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed), threshold, _stream(q))
+    _build.check(code, "short_attention_v1")
+    short_attention_v1.launches += 1
+    return out
+
+
+def short_attention_v1_backward(q, k, v, key_bias, dout, num_heads: int,
+                                seed: int = 0,
+                                rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
+    """dq, dk, dv of :func:`short_attention_v1` (CUDA only) from q, k, v,
+    the bias and dout alone, for the forward's seed and rate: one launch
+    that recomputes each row's max, sum and probabilities."""
+    _check(q, k, v, key_bias, num_heads, "short_attention_v1_backward",
+           max_seq=V1_MAX_SEQ)
+    b, s, h = q.shape
+    if dout.shape != q.shape:
+        raise ValueError(f"short_attention_v1_backward: dout "
+                         f"{tuple(dout.shape)} does not fit q {tuple(q.shape)}")
+    q, k, v, dout = _aligned(q, k, v, dout.to(q.dtype),
+                             what="short_attention_v1_backward")
+    key_bias = key_bias.to(torch.float32).contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _build.load("short_attention_v1", _V1_SIGNATURES)
+    code = lib.msa_short_attention_v1_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
+        num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        *_seed_words(seed), byte_threshold(rate), _stream(q))
+    _build.check(code, "short_attention_v1_backward")
+    short_attention_v1_backward.launches += 1
+    return dq, dk, dv
+
+
+class _ShortAttentionV1(torch.autograd.Function):
+    """The v1 pair: saves q, k, v and the bias -- its inputs, as ``_short_fwd``
+    saves (q, k, v, key_bias, seed) -- and nothing the forward computed; the
+    seed and rate ride as Python numbers.  On CPU tensors (rate 0) the plain
+    forward and the v1 plain backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, num_heads, seed, rate):
+        if q.is_cuda:
+            out = _v1_forward_kernel(q, k, v, key_bias, num_heads, seed,
+                                     byte_threshold(rate))
+        else:
+            out = short_attention_plain(q, k, v, key_bias, num_heads)
+        ctx.save_for_backward(q, k, v, key_bias)
+        ctx.args = (num_heads, seed, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_bias = ctx.saved_tensors
+        num_heads, seed, rate = ctx.args
+        if q.is_cuda:
+            grads = short_attention_v1_backward(q, k, v, key_bias, dout,
+                                                num_heads, seed, rate)
+        else:
+            grads = short_attention_v1_backward_plain(q, k, v, key_bias, dout,
+                                                      num_heads)
+        return (*grads, None, None, None, None)
+
+
+def short_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       key_bias: torch.Tensor, num_heads: int,
+                       rate: float = 0.0,
+                       seed: Optional[int] = None) -> torch.Tensor:
+    """The counterpart of JAX's ``short_attention``
+    (``msa_tpu/ops/short_attention.py:667``, the v1 pair; this module's
+    :func:`short_attention` is JAX's ``short_attention_v2``).  q/k/v: [B, S,
+    H] with S <= 128 on CUDA; key_bias: [B, S] additive mask.  Returns ctx
+    [B, S, H], the same function as :func:`short_attention` with the same
+    dropout mask at a seed.  Under autograd it keeps only its inputs, and
+    its backward recomputes everything from them.  CUDA tensors launch the
+    kernels (or raise); CPU tensors run :func:`short_attention_plain` and,
+    under autograd, :func:`short_attention_v1_backward_plain`, at rate 0
+    only."""
+    if rate > 0.0 and seed is None:
+        raise ValueError("short_attention_v1: dropout needs a seed")
+    threshold = byte_threshold(rate)
+    if q.device.type == "cpu":
+        if threshold:
+            raise ValueError("short_attention_v1: in-kernel dropout needs CUDA "
+                             "tensors; on the CPU give short_attention_plain a "
+                             "keep mask")
+    else:
+        _check(q, k, v, key_bias, num_heads, "short_attention_v1",
+               max_seq=V1_MAX_SEQ)
+    seed = 0 if seed is None else int(seed)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _ShortAttentionV1.apply(q, k, v, key_bias, num_heads, seed, rate)
+    if q.device.type == "cpu":
+        return short_attention_plain(q, k, v, key_bias, num_heads)
+    return _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, threshold)
+
+
 short_attention.launches = 0
 short_attention_backward.launches = 0
 short_attention_v3_backward.launches = 0
@@ -736,3 +884,5 @@ short_attention_probs.launches = 0
 short_attention_probs_backward.launches = 0
 short_attention_packed.launches = 0
 short_attention_packed_backward.launches = 0
+short_attention_v1.launches = 0
+short_attention_v1_backward.launches = 0

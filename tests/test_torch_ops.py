@@ -14,6 +14,8 @@ Tolerances:
     and the output to bf16, at different points.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -191,9 +193,15 @@ def test_every_kernel_has_a_source_with_a_c_entry_point():
                "fused_joint_embed": "msa_fused_joint_embed",
                "ln_quant": "msa_ln_quant_static",
                "flash2": "msa_flash2_fwd",
-               "fused_adamw": "msa_fused_adamw"}
+               "fused_adamw": "msa_fused_adamw",
+               "flash_attention": "msa_flash_attention_fwd",
+               "short_attention_v1": "msa_short_attention_v1_fwd"}
     assert set(_build.KERNELS) == set(entries)
     for name, entry in entries.items():
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {entry}(' in text
+        # the launch may sit in a csrc header the source includes
+        # (flash_kernels.cuh holds flash2's and the head-split launchers)
+        included = re.findall(r'#include "([^"]+)"', text)
+        text += "".join((_build.CSRC / h).read_text() for h in included)
         assert "return (int)cudaGetLastError();" in text

@@ -286,6 +286,7 @@ def test_c_entry_points_match_their_ctypes_signatures():
     import re
 
     from msa_tpu_torch import _build
+    from msa_tpu_torch.ops import attention as attn
     from msa_tpu_torch.ops import flash2 as f2
     from msa_tpu_torch.ops import fused_adamw as fa
     from msa_tpu_torch.ops import ln_quant as lnq
@@ -295,7 +296,9 @@ def test_c_entry_points_match_their_ctypes_signatures():
              "fused_joint_embed": fje._SIGNATURES,
              "ln_quant": lnq._SIGNATURES,
              "flash2": f2._SIGNATURES,
-             "fused_adamw": fa._SIGNATURES}
+             "fused_adamw": fa._SIGNATURES,
+             "flash_attention": attn._SIGNATURES,
+             "short_attention_v1": sa._V1_SIGNATURES}
     assert "msa_short_attention_v3_bwd" in sa._SIGNATURES
     assert set(bound) == set(_build.KERNELS)
     for name, signatures in bound.items():
