@@ -8,7 +8,9 @@ failure (no phase catches its own):
 
   1. requires CUDA and prints the card's name and power limit;
   2. builds the CUDA kernels from msa_tpu_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all started together;
+     one nvcc per source, all started together, and prints what ptxas
+     reports (registers, static shared memory, spills) for the bf16
+     tensor-core forwards of the v1 and v2s short attention;
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -32,7 +34,8 @@ failure (no phase catches its own):
        the exported keep mask) and its backward from its own probs against
        the plain versions, v2s's ctx against v2's; the packed forward and
        backward bit-equal to v2's kernels on the thirds and against the
-       plain packed backward;
+       plain packed backward; the bf16 v2s forward (tensor cores) also at
+       S = 12, 128 and, in its two-sweep form, 200 and 1000;
      * the fused AdamW on bert-large's leaf shapes, every pair of
        moment dtypes, with and without a clip scale, an odd length and an
        unaligned leaf, timed beside ``torch.optim.AdamW(fused=True)``; the
@@ -49,6 +52,7 @@ failure (no phase catches its own):
      * the v1 short attention (``short_attention_v1``) at the text and
        joint shapes: forward, backward, the same against v2 at one seed,
        and the bytes it keeps for the backward (its inputs) against v2's;
+       its bf16 forward (tensor cores) also at S = 8 and 128;
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
@@ -118,6 +122,7 @@ beside it, the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import io
 import json
@@ -131,7 +136,8 @@ import time
 #  * f32: both sides are f32 throughout and differ in summation order.
 #  * bf16 forward: both round to bf16 at the end; the plain attention also
 #    rounds the probabilities to bf16 before the PV product (as the JAX
-#    reference does), the kernel keeps them in f32.  About one bf16 ulp.
+#    reference does), as do the tensor-core forwards (v1, v2s); the
+#    CUDA-core kernels keep them in f32.  About one bf16 ulp.
 #  * gradients: against autograd through the plain version in f32 on the
 #    same values (bf16 inputs widened exactly).  The kernels also compute in
 #    f32 from the inputs (delta = dO.o reads the forward's f32 output), so
@@ -1619,6 +1625,80 @@ def phase_f32_train(pair_len=None, batch_size=8):
     return loss_err, param_err
 
 
+def rounded_rule_ctx(q, k, v, bias, rate, keep):
+    """ctx by the rule of JAX's v1 and v2s forwards and of the port's
+    tensor-core forwards, evaluated in f32: the f32 softmax, the dropped
+    probabilities rounded to q's dtype before P V (``p.astype(v.dtype)``,
+    ``pd.astype(vg.dtype)``; the plain versions' ``.to(q.dtype)``), the
+    product and the result left in f32."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    b, s, h = q.shape
+    p = sa._scores_plain(q, k, bias, HEADS)
+    if keep is not None:
+        p = torch.where(keep, p / (1.0 - rate), 0.0)
+    ctx = torch.einsum("bnqk,bknd->bqnd", p.to(q.dtype).float(),
+                       v.float().view(b, s, HEADS, -1))
+    return ctx.reshape(b, s, h)
+
+
+def check_masked_rows(tag, out, q, k, v, bias, live, rate, keep):
+    """Fully masked rows of a bf16 forward that rounds p to bf16 before P V
+    (v1, v2s) at a few keys, against the plain version in f32 within twice
+    MASKED_ROW_ATOL plus the gap that rounding makes in the plain rule
+    (:func:`check_within`).  Under the -10000 fill the kernel and the rule
+    quantise p differently (MASKED_ROW_ATOL's reason), so each rounds some
+    p to the neighbouring bf16 value; with a few keys the p are large and
+    one such step moves ctx by up to 2^-8 |v|.  Returns (largest
+    difference, the rule's largest gap to f32) there."""
+    f32 = rounded_rule_ctx(q.float(), k.float(), v.float(), bias, rate, keep)
+    gap = (rounded_rule_ctx(q, k, v, bias, rate, keep) - f32).abs()
+    diff = check_within(f"{tag} masked row", out, f32, MASKED_ROW_ATOL, 0.0,
+                        gap, ~live)
+    return diff, float(gap[~live].max())
+
+
+def check_probs_forward(tag, q, k, v, bias, live, seed, rate, keep,
+                        few_keys=False):
+    """The v2s forward kernel's ctx and signed probs against the plain
+    version on the same values in f32 (ctx on live rows at ATTN_TOL, on
+    fully masked rows at MASKED_ROW_ATOL, or with ``few_keys`` by
+    :func:`check_masked_rows`) and, with dropout, the probs' signs against
+    the keep mask; returns (ctx, probs, the plain ctx, max abs err, the
+    masked rows' (difference, rule gap) or None)."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    dname = str(q.dtype).split(".")[1]
+    atol, rtol = ATTN_TOL[dname]
+    s = q.shape[1]
+    ctx, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS, seed, rate)
+    ref_ctx, ref_probs = sa.short_attention_probs_plain(
+        q.float(), k.float(), v.float(), bias, HEADS, rate, keep)
+    torch.cuda.synchronize()
+    err = check_close(f"short_attention_probs {tag} ctx", ctx, ref_ctx, atol,
+                      rtol, mask=live)
+    masked = None
+    if few_keys:
+        masked = check_masked_rows(f"short_attention_probs {tag} ctx", ctx, q,
+                                   k, v, bias, live, rate, keep)
+    else:
+        check_close(f"short_attention_probs {tag} ctx masked row", ctx,
+                    ref_ctx, MASKED_ROW_ATOL, 0.0, mask=~live)
+    err = max(err, check_close(f"short_attention_probs {tag} probs",
+                               probs[live], ref_probs[live], atol, rtol))
+    if rate:
+        ps = probs[..., :s].float()
+        wrong = int((((ps > 0) != keep) & (ps != 0)).sum())
+        if wrong:
+            raise AssertionError(f"short_attention_probs {tag}: {wrong} signs "
+                                 "differ from the exported keep mask")
+    return ctx, probs, ref_ctx, err, masked
+
+
 def phase_probs_packed(gen):
     """The '+probs' (v2s) and 'save_pack' (v2p) pairs against their plain
     versions, at the text and joint shapes, bf16 and f32, rate 0 and with
@@ -1627,7 +1707,11 @@ def phase_probs_packed(gen):
     its backward against the plain backward on the same inputs (its own
     probs), the packed forward and backward against v2's kernels on the
     thirds (bit-equal: the same kernels at row stride 3H) and against the
-    plain packed backward."""
+    plain packed backward.  Then the bf16 v2s forward (tensor cores) at
+    the shapes that reach its other forms: S = 12 (one ragged 16-key tile),
+    128 (the widest whole-row form) and 200, 1000 (the two-sweep form, with
+    query tiles and a ragged last key tile).  Times the kernels at rate 0
+    beside the plain versions, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1653,28 +1737,12 @@ def phase_probs_packed(gen):
                 tag = f"{label} {dname} rate {rate:g}"
 
                 # v2s forward: ctx, signed probs, agreement with v2
-                ctx, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS,
-                                                      seed, rate)
-                ref_ctx, ref_probs = sa.short_attention_probs_plain(
-                    *wide[:3], bias, HEADS, rate, keep)
+                ctx, probs, ref_ctx, err, _ = check_probs_forward(
+                    tag, q, k, v, bias, live, seed, rate, keep)
                 v2_ctx = sa.short_attention(q, k, v, bias, HEADS, rate, seed)
                 torch.cuda.synchronize()
-                err = check_close(f"short_attention_probs {tag} ctx", ctx,
-                                  ref_ctx, atol, rtol, mask=live)
-                check_close(f"short_attention_probs {tag} ctx masked row", ctx,
-                            ref_ctx, MASKED_ROW_ATOL, 0.0, mask=~live)
-                err = max(err, check_close(f"short_attention_probs {tag} probs",
-                                           probs[live], ref_probs[live], atol,
-                                           rtol))
                 v2_err = check_close(f"short_attention_probs {tag} vs v2", ctx,
                                      v2_ctx, atol, rtol, mask=live)
-                if rate:
-                    ps = probs[..., :s].float()
-                    wrong = int((((ps > 0) != keep) & (ps != 0)).sum())
-                    if wrong:
-                        raise AssertionError(f"short_attention_probs {tag}: "
-                                             f"{wrong} signs differ from the "
-                                             "exported keep mask")
                 worst["probs"] = max(worst["probs"], err)
 
                 # v2s backward from the kernel's own probs
@@ -1721,6 +1789,12 @@ def phase_probs_packed(gen):
                       f"version {perr:.3e} / {pberr:.3e} (atol {atol} / "
                       f"{gatol})", flush=True)
                 if rate:
+                    if dname == "bfloat16":  # the form the '+probs' rung runs
+                        ms = cuda_ms(lambda: sa._probs_forward_kernel(
+                            q, k, v, bias, HEADS, seed, rate))
+                        print(f"  probs [{b},{s},{HIDDEN}] {dname} rate "
+                              f"{rate:g}: kernel (tensor cores) {ms:.4f} ms",
+                              flush=True)
                     continue
 
                 # times at rate 0: kernel, plain, SDPA, bound
@@ -1766,10 +1840,29 @@ def phase_probs_packed(gen):
                     bound_ms(7 * io + b * s * 4, 2.5 * fwd_flops, dname))
                 for name in ("probs", "probs_bwd", "packed", "packed_bwd"):
                     ms, plain_ms, lib_ms, bound = times[(name, label, dname)]
+                    cores = ("tensor cores" if name == "probs" and
+                             dname == "bfloat16" else "CUDA cores")
                     print(f"  {name} [{b},{s},{HIDDEN}] {dname}: kernel "
-                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                          f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+                          f"({cores}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                          f"sdpa {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
                           f"({bound[1]})", flush=True)
+    # a generator of their own: the later phases draw the inputs they drew
+    # before these shapes were added
+    edge_gen = torch.Generator(device="cuda").manual_seed(5)
+    for s in (12, 128, 200, 1000):
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
+                                                   torch.bfloat16)
+            seed = 4321 + s
+            keep = (sa.dropout_keep_mask(seed, rate, 4, HEADS, s, "cuda")
+                    if rate else None)
+            tag = f"[4,{s},{HIDDEN}] bfloat16 rate {rate:g}"
+            err, (diff, gap) = check_probs_forward(
+                tag, q, k, v, bias, live, seed, rate, keep, few_keys=True)[3:]
+            worst["probs"] = max(worst["probs"], err)
+            print(f"v2s forward (tensor cores) {tag}: max_abs_err {err:.3e}; "
+                  f"masked rows {diff:.3e} from f32 (the rounding rule "
+                  f"{gap:.3e})", flush=True)
     return worst, times
 
 
@@ -1878,7 +1971,8 @@ def run_rungs(exp, params, batches, rungs, warmup, steps, label, frame=False):
     for rung, r in out.items():
         # the forward of every rung does the same arithmetic (a region's
         # forward runs the same kernels), except v2s, whose ctx is the PV
-        # product of normalised probabilities; later steps add the
+        # product of normalised probabilities rounded to bf16 (the tensor-
+        # core forward) where v2 normalises after it; later steps add the
         # backward's summation order (dots sums the post-attention
         # LayerNorm's gradient from two regions)
         first = abs(r["losses"][0] - ref[0]) / abs(ref[0])
@@ -2452,7 +2546,9 @@ def phase_short_v1(gen):
     rate 0 and with dropout (the plain versions given keep_mask_plain; v2
     at the same seed draws the same mask); the bytes autograd keeps for the
     backward against v2's (v1 keeps its inputs only).  Times beside the
-    bound, the plain version and SDPA."""
+    bound, the plain version and SDPA.  Then the bf16 forward (tensor
+    cores) at S = 8 (one ragged 16-key tile) and 128 (eight tiles, the
+    widest) against the plain version and v2."""
     import torch
     import torch.nn.functional as F
 
@@ -2557,13 +2653,41 @@ def phase_short_v1(gen):
                     times[("fwd", label, dname)] = (ms, plain_ms, lib_ms, bound)
                     times[("bwd", label, dname)] = (bwd_ms, bwd_plain_ms,
                                                     bwd_lib_ms, bwd_bound)
-                    line += (f"; forward {ms:.4f} ms (v2 {v2_ms:.4f} ms), plain "
-                             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                    cores = ("tensor cores" if dname == "bfloat16"
+                             else "CUDA cores")
+                    line += (f"; forward ({cores}) {ms:.4f} ms (v2 {v2_ms:.4f} "
+                             f"ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                              f"{bound[0]:.4f} ms ({bound[1]}); backward "
                              f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
                              f"sdpa bwd {bwd_lib_ms:.4f} ms, bound "
                              f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
                 print(line, flush=True)
+    atol, rtol = ATTN_TOL["bfloat16"]
+    edge_gen = torch.Generator(device="cuda").manual_seed(6)  # see phase_probs_packed
+    for s in (8, 128):
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
+                                                   torch.bfloat16)
+            seed = 31 + s
+            keep = (keep_mask_plain(seed, rate, 4, HEADS, s, device="cuda")
+                    if rate else None)
+            out = sa.short_attention_v1(q, k, v, bias, HEADS, rate,
+                                        seed if rate else None)
+            v2_out = sa.short_attention(q, k, v, bias, HEADS, rate,
+                                        seed if rate else None)
+            ref = sa.short_attention_plain(q.float(), k.float(), v.float(),
+                                           bias, HEADS, rate, keep)
+            torch.cuda.synchronize()
+            tag = f"short_attention_v1 [4,{s},{HIDDEN}] bfloat16 rate {rate:g}"
+            err = check_close(tag, out, ref, atol, rtol, mask=live)
+            diff, gap = check_masked_rows(tag, out, q, k, v, bias, live, rate,
+                                          keep)
+            v2_err = check_close(tag + " against v2", out, v2_out, atol, rtol,
+                                 mask=live)
+            worst["fwd"] = max(worst["fwd"], err)
+            print(f"{tag} (tensor cores): max_abs_err {err:.3e}, against v2 "
+                  f"{v2_err:.3e}; masked rows {diff:.3e} from f32 (the "
+                  f"rounding rule {gap:.3e})", flush=True)
     return worst, times
 
 
@@ -2878,6 +3002,42 @@ def train_experiment(batch):
                             adam_nu_dtype="bfloat16", data_parallel=1)
 
 
+# The sources of the bf16 tensor-core forwards (v1, v2s) and the dynamic
+# shared memory their launchers ask for, by kernel (the padded rows of Q, K,
+# V and the bias; the two-sweep form: its Q tile and stage, the K and V
+# rings and their bias at 128 rows).
+TC_SOURCES = ("short_attention", "short_attention_v1")
+
+
+def tc_dynamic_smem(kernel):
+    import re
+
+    if "tc_long" in kernel:
+        return (2 * 128 + 4 * 64) * 144 + 2 * 64 * 4
+    kt = int(re.search(r"ILi(\d+)E", kernel).group(1))
+    return 3 * 16 * kt * 144 + 16 * kt * 4
+
+
+def report_tc_resources(usage):
+    """Print ptxas's registers, static shared memory and spills for each
+    instantiation of the tensor-core forwards, as kernel<16-key tiles,
+    dropout> (kernel<dropout> for the two-sweep form)."""
+    tc = [u for u in usage if "_fwd_tc" in u["kernel"]]
+    if not tc:
+        raise AssertionError("ptxas reported no tensor-core forward kernel")
+    import re
+
+    for u in tc:
+        m = re.search(r"(short_(?:v1|attention_probs)_fwd_tc(?:_long)?_kernel)"
+                      r"I((?:L[ib]\d+E)+)E", u["kernel"])
+        args = ", ".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+        name = f"{m.group(1)}<{args}>"
+        print(f"ptxas {u['source']} {name}: {u['registers']} registers, "
+              f"{u['static_smem']} B static + {tc_dynamic_smem(u['kernel'])} B "
+              f"dynamic smem, stack {u['stack']} B, spill stores "
+              f"{u['spill_stores']} B, loads {u['spill_loads']} B", flush=True)
+
+
 def kernel_entry(name, source, replaces, launches, err, timing, by_path):
     ms, plain_ms, lib_ms, (bound, bound_by) = timing
     return {"name": name, "route": "cuda", "source": source,
@@ -2905,9 +3065,12 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    for lib in _build.build_all().values():
-        print(f"built {os.path.relpath(lib)}", flush=True)
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        usage = pool.submit(_build.resource_usage, TC_SOURCES)
+        for lib in _build.build_all().values():
+            print(f"built {os.path.relpath(lib)}", flush=True)
+        print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+        report_tc_resources(usage.result())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_err, attn_times = phase_attention(gen)

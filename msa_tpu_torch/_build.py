@@ -18,12 +18,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "msa_tpu_torch"
@@ -107,6 +108,47 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return libs
+
+
+def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
+    """What ``ptxas -v`` reports for every kernel of the sources ``names``
+    (compiled with the build's flags to a scratch library, one ``nvcc`` per
+    source, all started together): dicts of source, kernel (its mangled
+    name), registers, static shared memory, stack frame and spill bytes.
+    Dynamic shared memory is the launcher's and is not in it."""
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, f"{name}.so"), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for name in names]
+        outputs = [(name, proc.communicate()[0], proc.returncode)
+                   for name, proc in procs]
+    found = []
+    for name, text, code in outputs:
+        if code != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{text}")
+        entry = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = {"source": f"{name}.cu", "kernel": m.group(1)}
+                found.append(entry)
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                entry["static_smem"] = int(smem.group(1)) if smem else 0
+    return found
 
 
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

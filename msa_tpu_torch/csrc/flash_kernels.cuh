@@ -12,7 +12,8 @@
 // Inside, both run the softmax in base 2 (scores carry scale * log2e, exp2
 // replaces exp); the head-split kernels convert their lse at the store
 // and the load.  flash2.cu's header says how the kernels are laid out and
-// what bounds them.
+// what bounds them.  The bf16 tile products, copies and dropout words are
+// mma_tiles.cuh's, shared with the short-attention forwards.
 
 #pragma once
 
@@ -24,21 +25,28 @@
 #include <type_traits>
 
 #include "dropout.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
 using msa_dropout::Dropout;
 using msa_dropout::keep_bits16;
 using msa_dropout::make_dropout;
+using msa_mma::cp_async16;
+using msa_mma::cp_async_commit;
+using msa_mma::cp_async_wait;
+using msa_mma::Frag;
+using msa_mma::keep_words_qmajor;
+using msa_mma::kD;                     // head dim
+using msa_mma::kFull;
+using msa_mma::kNT;                    // 8-column tiles of a [16 x 64] fragment
+using msa_mma::MmaBf16;
 
-constexpr int kD = 64;                 // head dim
 constexpr int kBlock = 64;             // rows of a block and of a loop tile
 constexpr int kWarps = kBlock / 16;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kNT = kBlock / 8;        // 8-column tiles of a [16 x 64] fragment
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr unsigned kFull = 0xffffffffu;
 
 // Element offset of row 0 of (batch row b, head) and the row stride:
 // natural layout [B, S, hidden] or head-split [B, heads, S, 64].
@@ -60,134 +68,7 @@ using OutT = std::conditional_t<kHeadSplit, typename P::T, float>;
 
 static_assert(msa_dropout::kGroup == 16, "one Philox draw per 16 keys");
 static_assert(kThreads == 2 * kBlock, "row_delta takes two threads per row");
-
-// A [16 x 64] f32 tile held by one warp in mma.sync's accumulator layout:
-// lane (g = lane / 4, c = lane % 4) holds x[n][0..1] at row g, columns
-// 8n + 2c + {0, 1}, and x[n][2..3] at row g + 8, the same columns.
-struct Frag {
-  float x[kNT][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
-  }
-};
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !ok (the
-// source address is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a . b on the tensor cores: m16n8k16, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// ---------------------------------------------------------------------------
-// Tile products of one warp.  Operands in shared memory are row-major
-// [64][kStride] tiles of the storage type; a product's output is a Frag.
-//   nt(a, m0, b, c):  c  = a[m0 .. m0+16) . b^T         (over the 64 columns)
-//   nn(f, b, c):      c += f . b                         (f's columns are k)
-//   tn(at, m0, b, c): c  = at[:, m0 .. m0+16)^T . b      (over the 64 rows)
-// ---------------------------------------------------------------------------
-
-struct MmaBf16 {
-  using T = __nv_bfloat16;
-  static constexpr int kStride = kD + 8;  // 144-byte rows: ldmatrix conflict-free
-  static constexpr int kStageFloats = 0;
-
-  __device__ static void nt(const T* a, int m0, const T* b, Frag& c, float*) {
-    const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-    c.zero();
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_x4(af, a + (m0 + r + 8 * (i & 1)) * kStride + kk * 16 + 8 * (i >> 1));
-#pragma unroll
-      for (int n = 0; n < kNT; n += 2) {
-        uint32_t bf[4];
-        ldsm_x4(bf, b + (n * 8 + r + 8 * (i >> 1)) * kStride + kk * 16 + 8 * (i & 1));
-        mma_bf16(c.x[n], af, bf[0], bf[1]);
-        mma_bf16(c.x[n + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-
-  // B operand of k-step kk for column tiles n, n + 1 from a row-major [k][n]
-  // tile (ldmatrix.trans gives each lane b[k = 2c + e][n = g]).
-  __device__ static void load_b_kn(const T* b, int kk, int n, uint32_t* bf) {
-    const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-    ldsm_x4_trans(bf, b + (kk * 16 + r + 8 * (i & 1)) * kStride + n * 8 + 8 * (i >> 1));
-  }
-
-  __device__ static void nn(const Frag& f, const T* b, Frag& c, float*) {
-#pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      // the accumulator layout of column tiles 2kk, 2kk+1 is the A layout
-      const uint32_t af[4] = {pack_bf16(f.x[2 * kk][0], f.x[2 * kk][1]),
-                              pack_bf16(f.x[2 * kk][2], f.x[2 * kk][3]),
-                              pack_bf16(f.x[2 * kk + 1][0], f.x[2 * kk + 1][1]),
-                              pack_bf16(f.x[2 * kk + 1][2], f.x[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < kNT; n += 2) {
-        uint32_t bf[4];
-        load_b_kn(b, kk, n, bf);
-        mma_bf16(c.x[n], af, bf[0], bf[1]);
-        mma_bf16(c.x[n + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-
-  __device__ static void tn(const T* at, int m0, const T* b, Frag& c, float*) {
-    const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-    c.zero();
-#pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_x4_trans(af, at + (kk * 16 + r + 8 * (i >> 1)) * kStride + m0 + 8 * (i & 1));
-#pragma unroll
-      for (int n = 0; n < kNT; n += 2) {
-        uint32_t bf[4];
-        load_b_kn(b, kk, n, bf);
-        mma_bf16(c.x[n], af, bf[0], bf[1]);
-        mma_bf16(c.x[n + 1], af, bf[2], bf[3]);
-      }
-    }
-  }
-};
+static_assert(kNT == kBlock / 8, "a fragment spans one block of keys");
 
 // f32: the same products on the CUDA cores, each lane computing the
 // elements its Frag holds.  nn stages f in the warp's shared scratch.
@@ -354,19 +235,6 @@ __device__ __forceinline__ float row_delta(const typename P::T* do_s, const OT* 
   sum += __shfl_xor_sync(kFull, sum, 1);
   *row_out = half == 0 ? j : -1;
   return sum;
-}
-
-// Keep words for a query-major fragment (rows = queries q_row, q_row + 8 of
-// probability rows row_base + ..., columns = keys [k0, k0 + 64)): word gi
-// holds, for keys k0 + 16 gi + jj, bit jj (row g) and bit 16 + jj (row g+8).
-__device__ __forceinline__ void keep_words_qmajor(const Dropout& drop, uint32_t prob_row,
-                                                  int k0, uint32_t* w) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t grp = (uint32_t)k0 / 16u + (uint32_t)(lane & 3);
-  const uint32_t mine = keep_bits16(drop, grp, prob_row) |
-                        (keep_bits16(drop, grp, prob_row + 8u) << 16);
-#pragma unroll
-  for (int gi = 0; gi < 4; ++gi) w[gi] = __shfl_sync(kFull, mine, (lane & ~3) | gi);
 }
 
 // ---------------------------------------------------------------------------

@@ -45,8 +45,8 @@
 //       - dk/dv: one CTA per (key tile, head, batch row), two threads per
 //         key row holding k, v and the dk/dv accumulators; query tiles of 64
 //         rows (q pre-scaled, dO, lse, delta) are staged in shared memory.
-//   * the dot products run on the CUDA cores in f32; the tensor cores
-//     (mma.sync / wgmma) are later work.
+//   * the dot products run on the CUDA cores in f32, except the bf16 '+probs'
+//     forward (v2s), which runs on the tensor cores (see its section).
 //
 // Dropout: the rule of dropout.cuh (Philox4x32-10 of the seed and the
 // element's index), so the forward, both backward launches, the export
@@ -62,9 +62,12 @@
 #include <stdint.h>
 
 #include "dropout.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
+namespace tc = msa_mma;
+using bf16 = __nv_bfloat16;
 using msa_dropout::Dropout;
 using msa_dropout::keep_bits16;
 using msa_dropout::kGroup;
@@ -608,21 +611,32 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // its sign, which is harmless: it contributes 0 to every gradient term, and
 // the backward tests keep with ps > 0.
 //
-// The forward has no final row lse until it has seen every key, and 64
-// query rows' [S] score rows do not fit in shared memory at S < 1024, so it
-// makes two sweeps over the keys: the first runs the online max / sum to
-// the row's lse (scores only), the second recomputes each score, writes
-// ps = keep ? p : -p with p = exp2(s - lse), and accumulates ctx from
-// pd = keep ? p / (1 - rate) : 0 in f32 (never from the rounded ps).
+// The forward writes ps = keep ? p : -p with p = exp2(s - lse), lse the
+// row's log2-sum-exp, and accumulates ctx from pd = keep ? p / (1 - rate)
+// : 0 (never from the rounded ps).  It has no final lse until it has seen
+// every key:
+//
+//   * bf16, on the tensor cores (mma_tiles.cuh; one warp per 16 query
+//     rows, Q, K and V staged in bf16 by cp.async, S = Q K^T and ctx += P V
+//     by mma.sync, pd rounded to bf16 in the pack that feeds P V, as JAX's
+//     _fwd_kernel_v2s rounds pd.astype(vg.dtype)).  At S <= 128 one CTA per
+//     (head, batch row) holds the head's K and V and each warp its whole
+//     score row in registers, so the lse comes from the row itself and K
+//     and V are read once.  Above, one CTA per (query tile of <= 128 rows,
+//     head, batch row) sweeps the keys twice in 64-key tiles through a
+//     two-stage cp.async ring: the online max / sum to the lse, then the
+//     scores again, the probs and ctx.  A warp writes its [16 x 64] block of
+//     the probs, and ctx, through shared memory in 16-byte row vectors.
+//   * f32, on the CUDA cores (two threads per query row, K and V staged as
+//     f32): the same two sweeps, ctx from pd in f32.
 //
 // What bounds the pair: bytes, as the v2 pair, plus the probs, which are
 // S / 32 times the q/k/v/o bytes at bf16 (heads * S * 2 B per token against
 // 4 * H * 2 B): at the joint shape [192, 80] 39 MB written and read back,
 // about as many as q, k, v and o together.  The backward saves the score
-// recompute (a quarter of its products) and the Philox draws; the forward
-// pays a second pass over K for them.  The dk/dv launch stages a
-// [32 queries, <= 128 keys] block of the probs in shared memory, read row
-// by row (coalesced) and used column-wise.
+// recompute (a quarter of its products) and the Philox draws.  The dk/dv
+// launch stages a [32 queries, <= 128 keys] block of the probs in shared
+// memory, read row by row (coalesced) and used column-wise.
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -645,14 +659,16 @@ __host__ __device__ __forceinline__ int probs_width(int seq) {
   return (seq + kGroup - 1) / kGroup * kGroup;
 }
 
-template <typename T, bool kDropout>
+// f32, on the CUDA cores.
+template <bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_probs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                 const T* __restrict__ v,
+short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v,
                                  const float* __restrict__ key_bias,
-                                 T* __restrict__ out, T* __restrict__ probs,
+                                 float* __restrict__ out, float* __restrict__ probs,
                                  int seq, int hidden, int rows_per_cta,
                                  float score_mult, Dropout drop) {
+  using T = float;
   using L = Layout<T>;
   __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
   __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
@@ -720,6 +736,257 @@ short_attention_probs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
     }
   }
   if (active) store_half(out + head_base + (size_t)row * hidden, half, acc, 1.f);
+}
+
+// ---- bf16, on the tensor cores ----
+
+// p = exp2(s - lse) in place; then, after the signed probs are out (with
+// the same keep words), pd = keep ? p * scale : 0.
+template <int kN>
+__device__ __forceinline__ void probs_from_lse(float (&s)[kN][4], const float* lse) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[n][x] = exp2f(s[n][x] - lse[x >> 1]);
+  }
+}
+template <int kN, bool kDropout>
+__device__ __forceinline__ void drop_probs(float (&p)[kN][4], const uint32_t* keep,
+                                           float scale) {
+  if constexpr (kDropout) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        p[n][x] = tc::kept_at(keep, n, x & 1, x >> 1) ? p[n][x] * scale : 0.f;
+      }
+    }
+  }
+}
+
+// The warp's signed probs keep ? p : -p of column tiles [0, kN) as bf16,
+// 64 keys at a time through its [16][kStride] stage, into dst (its first
+// row and key; row stride ld) in 16-byte row vectors: `rows` valid rows and
+// `chunks` valid 8-key chunks from the first key.
+template <int kN, bool kDropout>
+__device__ __forceinline__ void store_signed_probs(const float (&p)[kN][4],
+                                                   const uint32_t* keep, bf16* stage,
+                                                   bf16* dst, int ld, int rows, int chunks) {
+  const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < kN; h += tc::kNT) {
+#pragma unroll
+    for (int j = 0; j < tc::kNT; ++j) {
+      if (h + j >= kN) break;  // known at compile time once unrolled
+      float x[4];
+#pragma unroll
+      for (int xx = 0; xx < 4; ++xx) {
+        const bool kept = !kDropout || tc::kept_at(keep, h + j, xx & 1, xx >> 1);
+        x[xx] = kept ? p[h + j][xx] : -p[h + j][xx];
+      }
+      *reinterpret_cast<uint32_t*>(stage + g * tc::kStride + j * 8 + 2 * c) =
+          tc::pack_bf16(x[0], x[1]);
+      *reinterpret_cast<uint32_t*>(stage + (g + 8) * tc::kStride + j * 8 + 2 * c) =
+          tc::pack_bf16(x[2], x[3]);
+    }
+    __syncwarp();
+    tc::stage_to_rows(stage, dst + h * 8, ld, rows, min(chunks - h, tc::kNT));
+    __syncwarp();  // the stage is written again next
+  }
+}
+
+// Q, K and V rows (seq rounded up to 16) and the key bias.
+int probs_tc_smem_bytes(int seq) {
+  const int rows = (seq + 15) / 16 * 16;
+  return 3 * rows * tc::kStride * (int)sizeof(bf16) + rows * (int)sizeof(float);
+}
+
+// S <= 128: one CTA per (head, batch row) (grid (1, heads, B)), kKT 16-key
+// tiles of the padded sequence (seq <= 16 kKT), one warp per 16 query rows,
+// each warp's whole score row in registers.
+template <int kKT, bool kDropout>
+__global__ void __launch_bounds__(32 * kKT)
+short_attention_probs_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                    const bf16* __restrict__ v,
+                                    const float* __restrict__ key_bias,
+                                    bf16* __restrict__ out, bf16* __restrict__ probs,
+                                    int seq, int hidden, float score_mult, Dropout drop) {
+  constexpr int kPadded = 16 * kKT;  // query rows and keys, padded; the probs width
+  constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + kPadded * tc::kStride;
+  bf16* v_s = k_s + kPadded * tc::kStride;
+  float* bias_s = reinterpret_cast<float*>(v_s + kPadded * tc::kStride);
+
+  const int b = blockIdx.z, head = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int rows = seq - warp * 16;  // this warp's rows below seq
+
+  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, base, hidden,
+                 kPadded, seq);  // V lands during the softmax
+  tc::cp_async_wait<1>();
+  __syncthreads();
+
+  // the row lse (log2 units) from the whole row: its max, then the sum
+  float s[kN][4], lse[2], sum[2] = {0.f, 0.f};
+  tc::mma_nt<kN>(q_s, warp * 16, k_s, s);
+  tc::scores_log2<kN>(s, bias_s, score_mult);
+  tc::row_max<kN>(s, lse);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) sum[x >> 1] += exp2f(s[n][x] - lse[x >> 1]);
+  }
+  lse[0] += log2f(tc::quad_sum(sum[0]));
+  lse[1] += log2f(tc::quad_sum(sum[1]));
+  probs_from_lse<kN>(s, lse);
+
+  uint32_t keep[8] = {};
+  if constexpr (kDropout) {
+    const uint32_t prob_row = row_base + warp * 16 + (lane >> 2);
+    tc::keep_words_qmajor(drop, prob_row, 0, keep);
+    if constexpr (kKT > 4) tc::keep_words_qmajor(drop, prob_row, 64, keep + 4);
+  }
+  // the warp's own Q rows are its stage from here on
+  bf16* stage = q_s + warp * 16 * tc::kStride;
+  __syncwarp();
+  store_signed_probs<kN, kDropout>(s, keep, stage,
+                                   probs + (size_t)(row_base + warp * 16) * kPadded,
+                                   kPadded, rows, kN);
+  drop_probs<kN, kDropout>(s, keep, drop.scale);
+
+  tc::cp_async_wait<0>();
+  __syncthreads();  // V has landed
+  float acc[tc::kNT][4];
+#pragma unroll
+  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  tc::mma_nn<kN>(s, v_s, acc);
+  tc::store_tile(acc, stage, out + base + (size_t)warp * 16 * hidden, hidden, rows);
+}
+
+// 128 < S < 1024: one CTA per (query tile, head, batch row), 2 * rows_per_cta
+// threads; Q tile, K and V rings of two 64-key tiles, the key bias of
+// each, and a [16][kStride] stage a warp.
+constexpr int kRingTile = 64;
+
+int probs_tc_long_smem_bytes(int rows_per_cta) {
+  return (2 * rows_per_cta + 4 * kRingTile) * tc::kStride * (int)sizeof(bf16) +
+         2 * kRingTile * (int)sizeof(float);
+}
+
+__device__ __forceinline__ void load_bias_tile(float* dst, const float* bias_row, int k0,
+                                               int seq) {
+  for (int j = threadIdx.x; j < kRingTile; j += blockDim.x) {
+    dst[j] = k0 + j < seq ? bias_row[k0 + j] * kLog2e : -INFINITY;
+  }
+}
+
+template <bool kDropout>
+__global__ void __launch_bounds__(kMaxThreads)
+short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
+                                         const bf16* __restrict__ k,
+                                         const bf16* __restrict__ v,
+                                         const float* __restrict__ key_bias,
+                                         bf16* __restrict__ out, bf16* __restrict__ probs,
+                                         int seq, int hidden, int rows_per_cta,
+                                         float score_mult, Dropout drop) {
+  constexpr int kTile = kRingTile * tc::kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // two buffers
+  bf16* v_s = k_s + 2 * kTile;                // two buffers
+  bf16* q_s = v_s + 2 * kTile;                // [rows_per_cta][kStride]
+  bf16* stage_s = q_s + rows_per_cta * tc::kStride;
+  float* bias_s = reinterpret_cast<float*>(stage_s + rows_per_cta * tc::kStride);  // [2][64]
+
+  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * rows_per_cta;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const float* bias_row = key_bias + (size_t)b * seq;
+  const int sp = probs_width(seq);
+  const int n_tiles = (seq + kRingTile - 1) / kRingTile;
+  const int w0 = q0 + warp * 16;  // this warp's first row
+  bf16* stage = stage_s + warp * 16 * tc::kStride;
+
+  tc::stage_rows(q_s, q, base, hidden, q0, rows_per_cta, seq);
+  tc::stage_rows(k_s, k, base, hidden, 0, kRingTile, seq);
+  tc::cp_async_commit();
+  load_bias_tile(bias_s, bias_row, 0, seq);
+
+  // Sweep 1: the row lse (log2 units) by the online max / sum.  Every tile
+  // holds a key < seq, so the running max is finite from the first tile.
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy overlaps this tile's math
+      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, hidden, (t + 1) * kRingTile,
+                     kRingTile, seq);
+      tc::cp_async_commit();
+      load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, (t + 1) * kRingTile, seq);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[tc::kNT][4];
+    tc::mma_nt<tc::kNT>(q_s, warp * 16, k_s + buf * kTile, s);
+    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
+    float mx[2];
+    tc::row_max<tc::kNT>(s, mx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      l_run[r] *= exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < tc::kNT; ++n) {
+        l_run[r] += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  const float lse[2] = {m_run[0] + log2f(tc::quad_sum(l_run[0])),
+                        m_run[1] + log2f(tc::quad_sum(l_run[1]))};
+
+  // Sweep 2: the scores again, the signed probs and ctx.
+  tc::stage_rows(k_s, k, base, hidden, 0, kRingTile, seq);
+  tc::stage_rows(v_s, v, base, hidden, 0, kRingTile, seq);
+  tc::cp_async_commit();
+  load_bias_tile(bias_s, bias_row, 0, seq);
+  float acc[tc::kNT][4];
+#pragma unroll
+  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, k0 = t * kRingTile;
+    if (t + 1 < n_tiles) {
+      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, hidden, k0 + kRingTile, kRingTile,
+                     seq);
+      tc::stage_rows(v_s + (buf ^ 1) * kTile, v, base, hidden, k0 + kRingTile, kRingTile,
+                     seq);
+      tc::cp_async_commit();
+      load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, k0 + kRingTile, seq);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[tc::kNT][4];
+    tc::mma_nt<tc::kNT>(q_s, warp * 16, k_s + buf * kTile, s);
+    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
+    probs_from_lse<tc::kNT>(s, lse);
+    uint32_t keep[4] = {};
+    if constexpr (kDropout) tc::keep_words_qmajor(drop, row_base + w0 + (lane >> 2), k0, keep);
+    store_signed_probs<tc::kNT, kDropout>(s, keep, stage,
+                                          probs + (size_t)(row_base + w0) * sp + k0, sp,
+                                          seq - w0, (sp - k0) / 8);
+    drop_probs<tc::kNT, kDropout>(s, keep, drop.scale);
+    tc::mma_nn<tc::kNT>(s, v_s + buf * kTile, acc);
+    __syncthreads();  // every warp is done with this buffer
+  }
+  tc::store_tile(acc, stage, out + base + (size_t)w0 * hidden, hidden, seq - w0);
 }
 
 // dq from the stashed probs: one CTA per (query tile, head, batch row), two
@@ -933,17 +1200,69 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kDropout>
+template <bool kDropout>
 void launch_probs_fwd(const void* q, const void* k, const void* v, const float* bias,
                       void* out, void* probs, int batch, int seq, int hidden,
                       int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
-  short_attention_probs_fwd_kernel<T, kDropout>
+  short_attention_probs_fwd_kernel<kDropout>
       <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), bias, static_cast<T*>(out),
-          static_cast<T*>(probs), seq, hidden, rows, score_mult, drop);
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), bias, static_cast<float*>(out),
+          static_cast<float*>(probs), seq, hidden, rows, score_mult, drop);
+}
+
+// Kernels above 48 KB of dynamic shared memory must opt in.
+template <auto kKernel>
+cudaError_t allow_smem(int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int kKT, bool kDropout>
+int launch_probs_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
+                        void* out, void* probs, int batch, int seq, int hidden,
+                        int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+  constexpr auto kernel = short_attention_probs_fwd_tc_kernel<kKT, kDropout>;
+  const int bytes = probs_tc_smem_bytes(seq);
+  const cudaError_t err = allow_smem<kernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(1, num_heads, batch), 32 * kKT, bytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<bf16*>(out), static_cast<bf16*>(probs), seq, hidden, score_mult,
+      drop);
+  return (int)cudaGetLastError();
+}
+
+// bf16: the tensor-core forward, its whole-row form for the 16-key tiles
+// seq needs up to 128 keys, else the two-sweep form.
+template <bool kDropout>
+int launch_probs_fwd_tc_for(const void* q, const void* k, const void* v, const float* bias,
+                            void* out, void* probs, int batch, int seq, int hidden,
+                            int num_heads, float score_mult, Dropout drop,
+                            cudaStream_t s) {
+#define MSA_TC(KT)                                                                    \
+  case KT:                                                                            \
+    return launch_probs_fwd_tc<KT, kDropout>(q, k, v, bias, out, probs, batch, seq,   \
+                                             hidden, num_heads, score_mult, drop, s)
+  switch ((seq + 15) / 16) {
+    MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
+    MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);
+    default: break;
+  }
+#undef MSA_TC
+  int n_tiles, rows;
+  tiles(seq, &n_tiles, &rows);
+  constexpr auto kernel = short_attention_probs_fwd_tc_long_kernel<kDropout>;
+  const int bytes = probs_tc_long_smem_bytes(rows);
+  const cudaError_t err = allow_smem<kernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(n_tiles, num_heads, batch), 2 * rows, bytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<bf16*>(out), static_cast<bf16*>(probs), seq, hidden, rows,
+      score_mult, drop);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool kDropout>
@@ -1158,12 +1477,15 @@ extern "C" int msa_short_attention_probs_fwd(const void* q, const void* k,
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_PFWD(T, D) launch_probs_fwd<T, D>(q, k, v, bias, out, probs, batch, seq, \
-                                              hidden, num_heads, sm, d, s)
-  if (dtype == 0) { if (drop) MSA_PFWD(float, true); else MSA_PFWD(float, false); }
-  else { if (drop) MSA_PFWD(__nv_bfloat16, true); else MSA_PFWD(__nv_bfloat16, false); }
+  // f32 on the CUDA cores, bf16 on the tensor cores
+#define MSA_PFWD(F, D) F<D>(q, k, v, bias, out, probs, batch, seq, hidden, num_heads, sm, d, s)
+  if (dtype == 0) {
+    if (drop) MSA_PFWD(launch_probs_fwd, true); else MSA_PFWD(launch_probs_fwd, false);
+    return (int)cudaGetLastError();
+  }
+  return drop ? MSA_PFWD(launch_probs_fwd_tc_for, true)
+              : MSA_PFWD(launch_probs_fwd_tc_for, false);
 #undef MSA_PFWD
-  return (int)cudaGetLastError();
 }
 
 // The '+probs' backward (TPU kernel _bwd_kernel_v2s): dq (writing delta

@@ -6,7 +6,11 @@ pairs on the CPU, against the JAX package.
   (Pallas in interpret mode) at rate 0, and the signed-probs backward
   against autograd through the plain attention with a keep mask.
   Tolerances: f32 forward 1e-5, gradients 1e-4 (the same math, summed in
-  another order; JAX's kernels in base-2 softmax blocks).
+  another order; JAX's kernels in base-2 softmax blocks); the bf16 v2s
+  forward 2e-2 absolute and relative (both sides round pd and the outputs
+  to bf16, from probabilities a base-2 and a natural softmax compute a
+  few f32 ulps apart: an occasional one-ulp step of a bf16 value of order
+  one).
 * Every policy of JAX's own policy tests (tests/test_remat_policies.py),
   plus ``save_pack``: the port's loss and gradients equal its no-remat step
   within 1e-6 (f32, every dropout on, the plain paths of the CPU: the
@@ -55,6 +59,7 @@ from msa_tpu_torch.training.trainer import Trainer
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
+BF16_TOL = 2e-2
 SAME_TOL = 1e-6
 JAX_RTOL = 1e-5
 HEADS = 2
@@ -88,21 +93,34 @@ def probs_to_jax(probs, s):
     return out.reshape(b, s, heads * sp)
 
 
-@pytest.mark.parametrize("s", [12, 40])
-def test_probs_plain_forward_matches_jax_v2s(s):
+@pytest.mark.parametrize("s, dtype", [
+    pytest.param(12, "float32", id="12"), pytest.param(40, "float32", id="40"),
+    pytest.param(12, "bfloat16", id="12-bfloat16"),
+    pytest.param(40, "bfloat16", id="40-bfloat16")])
+def test_probs_plain_forward_matches_jax_v2s(s, dtype):
     """ctx and the signed probs of the plain v2s forward against JAX's v2s
-    forward kernel (interpret mode), rate 0."""
+    forward kernel (interpret mode), rate 0, both sides on the same values
+    in ``dtype``.  In bf16 both round pd to bf16 before the PV product
+    (JAX's ``pd.astype(vg.dtype)``), the rule the port's tensor-core
+    forward follows."""
     q, k, v, _, bias = attention_inputs(3, s, 128, seed=s)
-    jout, jprobs = _v2s_fwd_call(*(jnp.asarray(x) for x in (q, k, v, bias)),
-                                 None, HEADS, 0.0, True)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    jout, jprobs = _v2s_fwd_call(jq, jk, jv, jnp.asarray(bias), None, HEADS,
+                                 0.0, True)
     ctx, probs = short_attention_probs_plain(
-        *(torch.from_numpy(x) for x in (q, k, v, bias)), HEADS)
+        *(torch.from_numpy(np.array(x, np.float32)).to(tdt)
+          for x in (jq, jk, jv)), torch.from_numpy(bias), HEADS)
     assert probs.shape == (3, HEADS, s, probs_width(s))
+    assert ctx.dtype == probs.dtype == tdt
     assert not probs[..., s:].any()  # the 16-key padding holds zeros
-    np.testing.assert_allclose(ctx.numpy(), np.asarray(jout), atol=FWD_TOL,
-                               rtol=FWD_TOL)
-    np.testing.assert_allclose(probs_to_jax(probs.numpy(), s),
-                               np.asarray(jprobs), atol=FWD_TOL, rtol=FWD_TOL)
+    tol = FWD_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(ctx.float().numpy(), np.asarray(jout, np.float32),
+                               atol=tol, rtol=tol)
+    np.testing.assert_allclose(probs_to_jax(probs.float().numpy(), s),
+                               np.asarray(jprobs, np.float32), atol=tol,
+                               rtol=tol)
 
 
 @pytest.mark.parametrize("s", [12, 40])
