@@ -250,6 +250,14 @@ PR6_LOSS_RTOL = 2e-2
 # on live rows); rows with every key masked sit near -10000, where an f32
 # ulp is 2^-10, under MASKED_ROW_ATOL.
 FLASH_LSE_ATOL, FLASH_LSE_RTOL = 1e-4, 1e-5
+# the v3 backward's recomputed row lse (log2 units) against the forward's:
+# the CUDA-core pair sums the forward's products in its order (bit-equal);
+# the tensor-core kernel takes its scores from mma.sync (q . k, then times
+# scale * log2e, where the forward scales q first) and sums the whole row
+# at once, so its lse moves by an ulp or two of the scores: ~1e-6 on live
+# rows (|lse| < ~10), and on rows with every key masked (lse near -14427,
+# an f32 ulp of 2^-10) by about one ulp of |lse|, ~1e-7 relative.
+V3_TC_LSE_TOL = (1e-5, 1e-6)  # (atol, rtol)
 # frame_flash against the default flash2 path from the same weights: the
 # head-split kernels are flash2's with another addressing
 # (csrc/flash_kernels.cuh), so the serving predictions are expected
@@ -2240,21 +2248,96 @@ def phase_fused_adamw(gen):
     return worst, times
 
 
-def phase_v3_kernels(gen):
-    """The v3 backward pair against its plain version (delta from the ctx
-    in its own dtype), at the text and joint shapes, bf16 and f32, rate 0
-    and with dropout (the plain version given the exported keep mask), and
-    against the v2 pair on the same inputs; the row lse the v3 dq launch
-    recomputes against the forward's, bit for bit; times at rate 0 beside
-    v2's and SDPA's backward."""
+def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
+                      few_keys=False):
+    """One v3 backward case: the kernel (tensor cores for bf16 at S <= 128,
+    else the CUDA-core pair) against its plain rule with the kernel's
+    roundings (dS and the dropped p to the dtype, delta from the ctx in its
+    dtype) at GRAD_TOL on live rows; fully masked rows against that rule at
+    MASKED_ROW_GRAD_ATOL or, with ``few_keys``, against the rule in f32
+    within twice it plus the roundings' gap (:func:`check_within`); against
+    the v2 pair on the same inputs within twice GRAD_TOL plus that gap; the
+    row lse it writes to scratch against the forward's (bit-equal on the
+    CUDA cores, within V3_TC_LSE_TOL on the tensor cores); two launches
+    bit-equal.  Returns (max abs err, against v2, lse difference, out,
+    lse, out32) for the timings."""
     import math
 
     import torch
-    import torch.nn.functional as F
 
     from msa_tpu_torch import _build
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+    from msa_tpu_torch.ops.dropout import byte_threshold
+
+    b, s, _ = q.shape
+    dname = str(q.dtype).split(".")[1]
+    atol, rtol = GRAD_TOL[dname]
+    t = byte_threshold(rate)
+    keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+            if rate else None)
+    out, lse, out32 = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
+    v3 = sa.short_attention_v3_backward(q, k, v, bias, out, dout, HEADS, seed,
+                                        rate)
+    ref = sa.short_attention_v3_backward_plain(q, k, v, bias, out, dout, HEADS,
+                                               rate, keep)
+    # the rule in f32 throughout: no rounding of dS and p, o the f32 output
+    ref32 = sa.short_attention_v3_backward_plain(
+        q.float(), k.float(), v.float(), bias, out32, dout.float(), HEADS,
+        rate, keep)
+    v2 = sa.short_attention_backward(q, k, v, bias, out32, lse, dout, HEADS,
+                                     seed, rate)
+    # the C entry once more, keeping its scratch: the recomputed lse
+    scratch = [torch.empty_like(lse) for _ in range(2)]
+    grads = [torch.empty_like(q) for _ in range(3)]
+    _build.check(_build.load("short_attention", sa._SIGNATURES)
+                 .msa_short_attention_v3_bwd(
+                     *(x.data_ptr() for x in (q, k, v, bias, out, dout,
+                                              *scratch, *grads)),
+                     b, s, HIDDEN, HEADS, sa._DTYPES[q.dtype],
+                     1.0 / math.sqrt(sa.HEAD_DIM), *sa._seed_words(seed), t,
+                     sa._stream(q)), "v3 scratch check")
+    torch.cuda.synchronize()
+    if sa.v3_backward_launches(s, q.dtype) == 1:
+        lse_err = check_close(f"{tag} lse", scratch[0], lse, *V3_TC_LSE_TOL)
+    else:
+        if not torch.equal(scratch[0], lse):
+            raise AssertionError(f"{tag}: the recomputed row lse is not "
+                                 "the forward's bit for bit")
+        lse_err = 0.0
+    if not all(torch.equal(a, c) for a, c in zip(grads, v3)):
+        raise AssertionError(f"{tag}: two launches differ")
+    err = v2_err = 0.0
+    for name, g3, r, g2, r32 in zip(("dq", "dk", "dv"), v3, ref, v2, ref32):
+        err = max(err, check_close(f"{tag} {name}", g3, r, atol, rtol,
+                                   mask=live))
+        gap = (r.float() - r32.float()).abs()  # the roundings' share
+        if few_keys:
+            check_within(f"{tag} {name} masked row", g3, r32,
+                         MASKED_ROW_GRAD_ATOL, 0.0, gap, ~live)
+        else:
+            check_close(f"{tag} {name} masked row", g3, r,
+                        MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
+        # v2 is within (atol, rtol) of the f32 rule; v3 of the rounded one
+        v2_err = max(v2_err, check_within(f"{tag} {name} vs v2", g3, g2,
+                                          atol, rtol, gap, live))
+    return err, v2_err, lse_err, out, lse, out32
+
+
+def phase_v3_kernels(gen):
+    """The v3 backward against its plain version (delta from the ctx in
+    its own dtype, dS and the dropped p rounded to it), at the text and
+    joint shapes, bf16 (tensor cores, one launch) and f32 (the CUDA-core
+    pair), rate 0 and with dropout (the plain version given the exported
+    keep mask), and against the v2 pair on the same inputs; the row lse it
+    recomputes against the forward's (:func:`check_v3_backward`); times at
+    rate 0 beside v2's and SDPA's backward.  Then bf16 at B = 4 and S = 8,
+    12, 128 (one, a ragged and eight 16-key tiles) and 200 (the CUDA-core
+    pair), from a generator of its own."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
 
     rate_on = quantize_dropout_rate(ATTN_DROPOUT)
     worst, times = 0.0, {}
@@ -2263,71 +2346,22 @@ def phase_v3_kernels(gen):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             atol, rtol = GRAD_TOL[dname]
+            cores = ("tensor cores" if sa.v3_backward_launches(s, dtype) == 1
+                     else "CUDA cores")
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
                                    generator=gen).to(dtype)
-                seed, t = 999 + s, byte_threshold(rate)
-                keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
-                        if rate else None)
-                out, lse, out32 = sa._forward_kernel(q, k, v, bias, HEADS, seed,
-                                                     t, True)
-                v3 = sa.short_attention_v3_backward(q, k, v, bias, out, dout,
-                                                    HEADS, seed, rate)
-                ref = sa.short_attention_v3_backward_plain(
-                    q.float(), k.float(), v.float(), bias, out, dout.float(),
-                    HEADS, rate, keep)
-                v2 = sa.short_attention_backward(q, k, v, bias, out32, lse,
-                                                 dout, HEADS, seed, rate)
-                # the C entry once more, keeping its scratch: the recomputed lse
-                scratch = [torch.empty_like(lse) for _ in range(2)]
-                grads = [torch.empty_like(q) for _ in range(3)]
-                _build.check(_build.load("short_attention", sa._SIGNATURES)
-                             .msa_short_attention_v3_bwd(
-                                 *(x.data_ptr() for x in (q, k, v, bias, out,
-                                                          dout, *scratch,
-                                                          *grads)),
-                                 b, s, HIDDEN, HEADS, sa._DTYPES[dtype],
-                                 1.0 / math.sqrt(sa.HEAD_DIM),
-                                 *sa._seed_words(seed),
-                                 t, sa._stream(q)), "v3 scratch check")
-                torch.cuda.synchronize()
+                seed = 999 + s
                 tag = f"short_attention_v3_backward {label} {dname} rate {rate:g}"
-                if not torch.equal(scratch[0], lse):
-                    raise AssertionError(f"{tag}: the recomputed row lse is not "
-                                         "the forward's bit for bit")
-                if not all(torch.equal(a, c) for a, c in zip(grads, v3)):
-                    raise AssertionError(f"{tag}: two launches differ")
-                # v3 against v2: each pair is within (atol, rtol) of its
-                # own f32 reference, and the two references differ only by
-                # v3's delta reading o rounded to the dtype: the same plain
-                # version fed the f32 output shows by how much (nothing in
-                # f32), and that gap is allowed on top of twice the bound
-                ref32 = sa.short_attention_v3_backward_plain(
-                    q.float(), k.float(), v.float(), bias, out32, dout.float(),
-                    HEADS, rate, keep)
-                err = v2_err = 0.0
-                for name, g3, r, g2, r32 in zip(("dq", "dk", "dv"), v3, ref, v2,
-                                                ref32):
-                    err = max(err, check_close(f"{tag} {name}", g3, r, atol,
-                                               rtol, mask=live))
-                    check_close(f"{tag} {name} masked row", g3, r,
-                                MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
-                    gap = (g3.float() - g2.float()).abs()[live]
-                    allowed = (2 * (atol + rtol * g2.float().abs())
-                               + (r.float() - r32.float()).abs())[live]
-                    if (gap > allowed).any():
-                        raise AssertionError(
-                            f"{tag} {name} vs v2: {int((gap > allowed).sum())} "
-                            "elements beyond twice the bound plus the gap "
-                            "o's rounding makes in the plain version")
-                    v2_err = max(v2_err, float(gap.max()))
+                err, v2_err, lse_err, out, lse, out32 = check_v3_backward(
+                    tag, q, k, v, bias, live, dout, seed, rate)
                 worst = max(worst, err)
                 line = (f"short_attention_v3_backward [{b},{s},{HIDDEN}] {dname} "
-                        f"rate {rate:g}: max_abs_err {err:.3e} (atol {atol}, "
-                        f"rtol {rtol}), against v2 {v2_err:.3e} (twice "
-                        "those and o's rounding), lse "
-                        "recomputed bit-equal")
+                        f"({cores}) rate {rate:g}: max_abs_err {err:.3e} (atol "
+                        f"{atol}, rtol {rtol}), against v2 {v2_err:.3e} (twice "
+                        f"those and the roundings' gap), lse {lse_err:.3e} "
+                        "from the forward's")
                 if rate == 0.0:
                     ms = cuda_ms(lambda: sa.short_attention_v3_backward(
                         q, k, v, bias, out, dout, HEADS, seed, 0.0))
@@ -2344,15 +2378,33 @@ def phase_v3_kernels(gen):
                         lib_out, (qq, kk, vv), lib_do, retain_graph=True))
                     # reads q, k, v, o (the ctx: an input of this function)
                     # and dO, the [B, S] f32 bias; writes dq, dk, dv.  The
-                    # products: scores, dP, dV, dQ, dK (the lse sweep's
-                    # second score pass is the design's own)
+                    # products: scores, dP, dV, dQ, dK (the CUDA-core
+                    # pair's second score pass is the design's own)
                     nbytes = 8 * q.element_size() * b * s * HIDDEN + b * s * 4
                     bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
                     times[(label, dname)] = (ms, plain_ms, lib_ms, bound)
                     line += (f"; kernel {ms:.4f} ms (v2 pair {v2_ms:.4f} ms), "
                              f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} "
-                             f"ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                             f"ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+                             f"{bound[0] / ms:.1%} of it reached)")
                 print(line, flush=True)
+    edge_gen = torch.Generator(device="cuda").manual_seed(10)  # see phase_probs_packed
+    for s in (8, 12, 128, 200):
+        cores = ("tensor cores" if sa.v3_backward_launches(s, torch.bfloat16) == 1
+                 else "CUDA cores")
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
+                                                   torch.bfloat16)
+            dout = torch.randn(4, s, HIDDEN, device="cuda",
+                               generator=edge_gen).to(torch.bfloat16)
+            tag = f"short_attention_v3_backward [4,{s},{HIDDEN}] bfloat16 rate {rate:g}"
+            err, v2_err, lse_err, *_ = check_v3_backward(
+                tag, q, k, v, bias, live, dout, 999 + s, rate, few_keys=True)
+            worst = max(worst, err)
+            print(f"{tag} ({cores}): max_abs_err {err:.3e}, against v2 "
+                  f"{v2_err:.3e}, lse {lse_err:.3e} from the forward's; "
+                  "masked rows within twice MASKED_ROW_GRAD_ATOL and the "
+                  "roundings' gap of the f32 rule", flush=True)
     return worst, times
 
 
@@ -2546,9 +2598,11 @@ def phase_short_v1(gen):
     rate 0 and with dropout (the plain versions given keep_mask_plain; v2
     at the same seed draws the same mask); the bytes autograd keeps for the
     backward against v2's (v1 keeps its inputs only).  Times beside the
-    bound, the plain version and SDPA.  Then the bf16 forward (tensor
-    cores) at S = 8 (one ragged 16-key tile) and 128 (eight tiles, the
-    widest) against the plain version and v2."""
+    bound, the plain version and SDPA (bf16 on the tensor cores, f32 on the
+    CUDA cores).  Then the bf16 forward at S = 8 (one ragged 16-key tile)
+    and 128 (eight tiles, the widest) against the plain version and v2,
+    and the bf16 backward at S = 8, 12 and 128 (:func:`check_v1_backward`),
+    each from a generator of its own."""
     import torch
     import torch.nn.functional as F
 
@@ -2658,9 +2712,10 @@ def phase_short_v1(gen):
                     line += (f"; forward ({cores}) {ms:.4f} ms (v2 {v2_ms:.4f} "
                              f"ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                              f"{bound[0]:.4f} ms ({bound[1]}); backward "
-                             f"{bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms, "
-                             f"sdpa bwd {bwd_lib_ms:.4f} ms, bound "
-                             f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+                             f"({cores}) {bwd_ms:.4f} ms, plain "
+                             f"{bwd_plain_ms:.4f} ms, sdpa bwd {bwd_lib_ms:.4f} "
+                             f"ms, bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]}, "
+                             f"{bwd_bound[0] / bwd_ms:.1%} of it reached)")
                 print(line, flush=True)
     atol, rtol = ATTN_TOL["bfloat16"]
     edge_gen = torch.Generator(device="cuda").manual_seed(6)  # see phase_probs_packed
@@ -2688,7 +2743,64 @@ def phase_short_v1(gen):
             print(f"{tag} (tensor cores): max_abs_err {err:.3e}, against v2 "
                   f"{v2_err:.3e}; masked rows {diff:.3e} from f32 (the "
                   f"rounding rule {gap:.3e})", flush=True)
+    bwd_gen = torch.Generator(device="cuda").manual_seed(9)
+    for s in (8, 12, 128):
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(bwd_gen, 4, s,
+                                                   torch.bfloat16)
+            dout = torch.randn(4, s, HIDDEN, device="cuda",
+                               generator=bwd_gen).to(torch.bfloat16)
+            worst["bwd"] = max(worst["bwd"], check_v1_backward(
+                q, k, v, bias, live, dout, 31 + s, rate))
     return worst, times
+
+
+def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
+    """The bf16 v1 backward kernel (tensor cores) at a few keys: against
+    its plain rule (dS and the dropped p rounded to bf16) at GRAD_TOL on
+    live rows; against autograd through the plain forward in f32 (fully
+    masked rows at MASKED_ROW_GRAD_ATOL) and against v2's backward at the
+    same seed within twice the tolerance plus the gap the roundings make in
+    the plain rule (:func:`check_within`).  Returns the max abs err."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
+
+    b, s, _ = q.shape
+    atol, rtol = GRAD_TOL["bfloat16"]
+    keep = (keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
+            if rate else None)
+    grads = sa.short_attention_v1_backward(q, k, v, bias, dout, HEADS, seed,
+                                           rate)
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    v2_out = sa.short_attention(qq, kk, vv, bias, HEADS, rate,
+                                seed if rate else None)
+    v2 = torch.autograd.grad(v2_out, (qq, kk, vv), dout)
+    qq, kk, vv = (x.detach().float().requires_grad_() for x in (q, k, v))
+    ref = sa.short_attention_plain(qq, kk, vv, bias, HEADS, rate, keep)
+    auto = torch.autograd.grad(ref, (qq, kk, vv), dout.float())
+    refs = sa.short_attention_v1_backward_plain(q, k, v, bias, dout, HEADS,
+                                                rate, keep)
+    torch.cuda.synchronize()
+    tag = f"short_attention_v1_backward [{b},{s},{HIDDEN}] bfloat16 rate {rate:g}"
+    err = auto_err = v2_err = masked = 0.0
+    for name, g, r, a, g2 in zip(("dq", "dk", "dv"), grads, refs, auto, v2):
+        err = max(err, check_close(f"{tag} {name}", g, r, atol, rtol,
+                                   mask=live))
+        gap = (r.float() - a).abs()  # the operands' rounding
+        masked = max(masked, check_within(f"{tag} {name} masked row", g, a,
+                                          MASKED_ROW_GRAD_ATOL, 0.0, gap,
+                                          ~live))
+        auto_err = max(auto_err, check_within(f"{tag} {name} against autograd",
+                                              g, a, atol, rtol, gap, live))
+        v2_err = max(v2_err, check_within(f"{tag} {name} against v2", g, g2,
+                                          atol, rtol, gap, live))
+    print(f"{tag} (tensor cores): max_abs_err {err:.3e} against the plain "
+          f"rule, {auto_err:.3e} against autograd, {v2_err:.3e} against v2 "
+          f"(twice the tolerance plus the rounding gap); masked rows "
+          f"{masked:.3e} from f32", flush=True)
+    return err
 
 
 def head_split_counts(want, layers, steps):
@@ -2897,6 +3009,8 @@ def phase_v3_train(exp, params, batches):
     weights and seed, with no checkpointing and under save_attn: ms/step,
     peak memory, the bytes kept for the backward, launches and losses.
     The switch is restored whatever happens."""
+    import torch
+
     from msa_tpu_torch.ops import short_attention as sa
 
     layers = exp.model.bert.num_hidden_layers
@@ -2910,10 +3024,11 @@ def phase_v3_train(exp, params, batches):
                     with_rung(exp, rung), params, batches, PR6_WARMUP,
                     PR6_STEPS, label)
                 want = rung_launches(rung, layers, PR6_STEPS)
-                if v3:
-                    want["short_attention_v3_backward"] = want.pop(
-                        "short_attention_backward")
+                if v3:  # one v3 backward per v2 pair: text and joint pass
                     want["short_attention_backward"] = 0
+                    want["short_attention_v3_backward"] = layers * PR6_STEPS * sum(
+                        sa.v3_backward_launches(s, torch.bfloat16)
+                        for s in (TEXT_LEN, 2 * TEXT_LEN))
                 if r["launches"] != want:
                     raise AssertionError(f"{label}: launches {r['launches']}, "
                                          f"want {want}")
@@ -3002,11 +3117,14 @@ def train_experiment(batch):
                             adam_nu_dtype="bfloat16", data_parallel=1)
 
 
-# The sources of the bf16 tensor-core forwards (v1, v2s) and the dynamic
-# shared memory their launchers ask for, by kernel (the padded rows of Q, K,
-# V and the bias; the two-sweep form: its Q tile and stage, the K and V
-# rings and their bias at 128 rows).
+# The sources of the bf16 tensor-core kernels (the v1 and v2s forwards, the
+# v1 and v3 backwards of short_bwd_tc.cuh) and the dynamic shared memory
+# their launchers ask for, by kernel: the padded rows of Q, K, V and the
+# bias; the two-sweep form: its Q tile and stage, the K and V rings and
+# their bias at 128 rows; the backward: Q, K, V and dO rows, the pd and dS
+# tiles and the bias.
 TC_SOURCES = ("short_attention", "short_attention_v1")
+TC_BWD_NO_SPILL_TILES = 5  # the backward holds two score rows a warp
 
 
 def tc_dynamic_smem(kernel):
@@ -3014,28 +3132,38 @@ def tc_dynamic_smem(kernel):
 
     if "tc_long" in kernel:
         return (2 * 128 + 4 * 64) * 144 + 2 * 64 * 4
-    kt = int(re.search(r"ILi(\d+)E", kernel).group(1))
-    return 3 * 16 * kt * 144 + 16 * kt * 4
+    rows = 16 * int(re.search(r"ILi(\d+)E", kernel).group(1))
+    if "short_bwd_tc" in kernel:
+        return 4 * rows * 144 + 2 * rows * (rows + 8) * 2 + rows * 4
+    return 3 * rows * 144 + rows * 4
 
 
 def report_tc_resources(usage):
     """Print ptxas's registers, static shared memory and spills for each
-    instantiation of the tensor-core forwards, as kernel<16-key tiles,
-    dropout> (kernel<dropout> for the two-sweep form)."""
-    tc = [u for u in usage if "_fwd_tc" in u["kernel"]]
-    if not tc:
-        raise AssertionError("ptxas reported no tensor-core forward kernel")
+    instantiation of the tensor-core kernels, as kernel<16-key tiles,
+    dropout> (kernel<dropout> for the two-sweep form; the backward
+    kernel<16-key tiles, dropout, v3>), and fail if a backward of at most
+    TC_BWD_NO_SPILL_TILES tiles spills or has a stack frame."""
     import re
 
+    tc = [u for u in usage if "_fwd_tc" in u["kernel"] or
+          "short_bwd_tc" in u["kernel"]]
+    if not any("short_bwd_tc" in u["kernel"] for u in tc):
+        raise AssertionError("ptxas reported no tensor-core backward kernel")
     for u in tc:
-        m = re.search(r"(short_(?:v1|attention_probs)_fwd_tc(?:_long)?_kernel)"
-                      r"I((?:L[ib]\d+E)+)E", u["kernel"])
-        args = ", ".join(re.findall(r"L[ib](\d+)E", m.group(2)))
-        name = f"{m.group(1)}<{args}>"
+        m = re.search(r"(short_(?:v1|attention_probs)_fwd_tc(?:_long)?_kernel|"
+                      r"short_bwd_tc_kernel)I((?:L[ib]\d+E)+)E", u["kernel"])
+        args = re.findall(r"L[ib](\d+)E", m.group(2))
+        name = f"{m.group(1)}<{', '.join(args)}>"
         print(f"ptxas {u['source']} {name}: {u['registers']} registers, "
               f"{u['static_smem']} B static + {tc_dynamic_smem(u['kernel'])} B "
               f"dynamic smem, stack {u['stack']} B, spill stores "
               f"{u['spill_stores']} B, loads {u['spill_loads']} B", flush=True)
+        if (m.group(1) == "short_bwd_tc_kernel"
+                and int(args[0]) <= TC_BWD_NO_SPILL_TILES
+                and (u["stack"] or u["spill_stores"] or u["spill_loads"])):
+            raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
+                                 "keeps a stack frame")
 
 
 def kernel_entry(name, source, replaces, launches, err, timing, by_path):
@@ -3227,7 +3355,7 @@ def main() -> int:
                      fused_runs[("none", True)]["launches"]["fused_adamw_leaf"],
                      adamw_err, adamw_times["word"], paths("fused_adamw_leaf")),
         kernel_entry("short_attention_v3_backward",
-                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:392",
                      v3_runs[("none", True)]["launches"][
                          "short_attention_v3_backward"],
@@ -3250,7 +3378,7 @@ def main() -> int:
                      train_launches["short_attention_v1"], v1_err["fwd"],
                      v1_times[("fwd",) + joint], paths("short_attention_v1")),
         kernel_entry("short_attention_v1_bwd",
-                     "msa_tpu_torch/csrc/short_attention_v1.cu",
+                     "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:177",
                      train_launches["short_attention_v1_backward"],
                      v1_err["bwd"], v1_times[("bwd",) + joint],

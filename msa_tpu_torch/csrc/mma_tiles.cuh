@@ -1,7 +1,7 @@
 // Warp-level tensor-core tiles for head dim 64: the mma.sync primitives that
 // the attention kernels of the port share (flash_kernels.cuh for rows 10-13,
 // short_attention.cu and short_attention_v1.cu for the bf16 short-attention
-// forwards).
+// forwards, short_bwd_tc.cuh for the bf16 v1 and v3 backwards).
 //
 // A warp owns 16 query rows.  Operands in shared memory are row-major bf16
 // rows of kStride elements (64 values and 8 of padding: 144-byte rows, so
@@ -86,6 +86,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Tile products of one warp, bf16 operands of row stride kStride.
 //   mma_nt<kN>(a, m0, b, c): c  = a[m0 .. m0+16) . b[0 .. 8kN)^T  (over 64 columns)
 //   mma_nn<kN>(f, b, c):     c += f . b[0 .. 8kN)                  (f [16 x 8kN])
+//   mma_tn<kK>(at, lda, m0, b, c): below load_b_kn
 // kN (8-column tiles of the [16 x 8kN] side) is even: 16 keys a k-step.
 // ---------------------------------------------------------------------------
 
@@ -139,6 +140,29 @@ __device__ __forceinline__ void mma_nn(const float (&f)[kN][4], const __nv_bfloa
   }
 }
 
+// c = at[0 .. 16kK)[:, m0 .. m0+16)^T . b[0 .. 16kK): at a row-major [k][m]
+// tile of row stride lda (16-byte rows, an odd multiple of 16 bytes apart
+// for conflict-free ldmatrix), b a [k][64] tile of row stride kStride.
+template <int kK>
+__device__ __forceinline__ void mma_tn(const __nv_bfloat16* at, int lda, int m0,
+                                       const __nv_bfloat16* b, float (&c)[kNT][4]) {
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+    uint32_t af[4];
+    ldsm_x4_trans(af, at + (kk * 16 + r + 8 * (i >> 1)) * lda + m0 + 8 * (i & 1));
+#pragma unroll
+    for (int n = 0; n < kNT; n += 2) {
+      uint32_t bf[4];
+      load_b_kn(b, kk, n, bf);
+      mma_bf16(c[n], af, bf[0], bf[1]);
+      mma_bf16(c[n + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
 // The products on [16 x 64] fragments and [64][kStride] tiles, as the
 // flash kernels' policy P takes them (the f32 policy, SimtF32 in
 // flash_kernels.cuh, stages through its float* scratch; this one has none).
@@ -159,20 +183,7 @@ struct MmaBf16 {
   }
 
   __device__ static void tn(const T* at, int m0, const T* b, Frag& c, float*) {
-    const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-    c.zero();
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_x4_trans(af, at + (kk * 16 + r + 8 * (i >> 1)) * kStride + m0 + 8 * (i & 1));
-#pragma unroll
-      for (int n = 0; n < kNT; n += 2) {
-        uint32_t bf[4];
-        load_b_kn(b, kk, n, bf);
-        mma_bf16(c.x[n], af, bf[0], bf[1]);
-        mma_bf16(c.x[n + 1], af, bf[2], bf[3]);
-      }
-    }
+    mma_tn<kD / 16>(at, kStride, m0, b, c.x);
   }
 };
 
@@ -194,16 +205,18 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
 }
 
 // Column tiles [0, kN) of a warp's [16 x 8kN] f32 tile (accumulator layout)
-// as bf16 into columns 8n of the warp's [16][kStride] stage (kN <= 8).
+// times mult, as bf16 into columns 8n of the warp's [16][kStride] stage
+// (kN <= 8).
 template <int kN>
-__device__ __forceinline__ void frag_to_stage(const float (&f)[kN][4], __nv_bfloat16* stage) {
+__device__ __forceinline__ void frag_to_stage(const float (&f)[kN][4], __nv_bfloat16* stage,
+                                              float mult) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int n = 0; n < kN; ++n) {
     *reinterpret_cast<uint32_t*>(stage + g * kStride + n * 8 + 2 * c) =
-        pack_bf16(f[n][0], f[n][1]);
+        pack_bf16(f[n][0] * mult, f[n][1] * mult);
     *reinterpret_cast<uint32_t*>(stage + (g + 8) * kStride + n * 8 + 2 * c) =
-        pack_bf16(f[n][2], f[n][3]);
+        pack_bf16(f[n][2] * mult, f[n][3] * mult);
   }
 }
 
@@ -243,11 +256,13 @@ __device__ __forceinline__ void stage_to_rows(const __nv_bfloat16* stage, __nv_b
   }
 }
 
-// A warp's [16 x 64] f32 tile (accumulator layout) as bf16 through its
-// stage into rows [0, rows) of dst (row stride ld), 16-byte vectors.
+// A warp's [16 x 64] f32 tile (accumulator layout) times mult as bf16
+// through its stage into rows [0, rows) of dst (row stride ld), 16-byte
+// vectors.
 __device__ __forceinline__ void store_tile(const float (&f)[kNT][4], __nv_bfloat16* stage,
-                                           __nv_bfloat16* dst, size_t ld, int rows) {
-  frag_to_stage<kNT>(f, stage);
+                                           __nv_bfloat16* dst, size_t ld, int rows,
+                                           float mult = 1.f) {
+  frag_to_stage<kNT>(f, stage, mult);
   __syncwarp();
   stage_to_rows(stage, dst, ld, rows, kNT);
 }

@@ -46,7 +46,12 @@
 //         key row holding k, v and the dk/dv accumulators; query tiles of 64
 //         rows (q pre-scaled, dO, lse, delta) are staged in shared memory.
 //   * the dot products run on the CUDA cores in f32, except the bf16 '+probs'
-//     forward (v2s), which runs on the tensor cores (see its section).
+//     forward (v2s), which runs on the tensor cores (see its section), and
+//     the bf16 v3 backward at S <= 128, one launch on the tensor cores from
+//     the template it shares with v1's backward (short_bwd_tc.cuh).  The v3
+//     pair on the CUDA cores (f32, and bf16 above 128 keys) rounds dS and
+//     the dropped p to the storage type before their products as
+//     _bwd_kernel_v3 does; the v2, v2p and v2s pairs take them in f32.
 //
 // Dropout: the rule of dropout.cuh (Philox4x32-10 of the seed and the
 // element's index), so the forward, both backward launches, the export
@@ -63,6 +68,7 @@
 
 #include "dropout.cuh"
 #include "mma_tiles.cuh"
+#include "short_bwd_tc.cuh"
 
 namespace {
 
@@ -83,6 +89,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kKeyTile % kKeyChunk == 0, "chunks must tile the key tile");
 static_assert(kKeyChunk == kGroup, "one Philox draw per key chunk");
+
+// x rounded to the storage type T and widened back (the TPU kernels'
+// .astype before a product).
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (sizeof(T) == 2) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
 
 // 16-byte vector loads/stores between global memory (storage type) and f32.
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -502,7 +519,9 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = exp2f(s + bias_s[j] - row_lse);
         float dpm = dp;
         if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
-        axpy_half<T>(acc, p * (dpm - delta), &k_s[j * kHeadDim], half);
+        float ds = p * (dpm - delta);
+        if constexpr (kV3) ds = round_to<T>(ds);  // as _bwd_kernel_v3 rounds dS
+        axpy_half<T>(acc, ds, &k_s[j * kHeadDim], half);
       }
     }
   }
@@ -514,7 +533,9 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward 2/2: dk and dv
 // ---------------------------------------------------------------------------
 
-template <typename T, bool kDropout>
+// kV3: dS and the dropped p rounded to T before their products, as
+// _bwd_kernel_v3 rounds them (the v2 kernels take them in f32).
+template <typename T, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v,
@@ -586,8 +607,13 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = kept ? p * drop.scale : 0.f;
         dpm = kept ? dp * drop.scale : 0.f;
       }
+      float ds = p * (dpm - delta_s[i]);
+      if constexpr (kV3) {
+        pd = round_to<T>(pd);
+        ds = round_to<T>(ds);
+      }
       axpy_half<T>(dv_acc, pd, &do_s[i * kHeadDim], half);
-      axpy_half<T>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kHeadDim], half);
+      axpy_half<T>(dk_acc, ds, &q_s[i * kHeadDim], half);
     }
   }
 
@@ -1193,7 +1219,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   if (err != cudaSuccess) return (int)err;
   // q is staged as q * score_mult, so dk = sum(ds * q_staged) / log2e
   // (scale * score_mult / score_mult = scale in natural units).
-  short_attention_bwd_dkv_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dkv_kernel<T, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), seq, hidden, stride, rows, score_mult, 1.f / kLog2e, drop);
@@ -1326,7 +1352,8 @@ int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 }
 
 // o: the f32 output (v2) or the ctx in the storage type (v3); lse: read
-// (v2) or written (v3).
+// (v2) or written (v3).  bf16 v3 at S <= 128 is one launch on the tensor
+// cores (short_bwd_tc.cuh); everything else is the CUDA-core pair.
 template <bool kV3>
 int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
                  const void* o, const void* dout, void* lse, void* delta,
@@ -1343,6 +1370,15 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
                                             batch, seq, hidden, stride, num_heads,    \
                                             scale, d, s)
   if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
+  if constexpr (kV3) {
+    if (seq <= msa_short_bwd::kMaxSeq) {
+#define MSA_TC(D)                                                                          \
+  msa_short_bwd::launch<D, true>(q, k, v, bias, o, dout, dq, dk, dv, l, dl, batch, seq,    \
+                                 hidden, num_heads, scale * kLog2e, scale, d, s)
+      return drop ? MSA_TC(true) : MSA_TC(false);
+#undef MSA_TC
+    }
+  }
   return drop ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
 #undef MSA_BWD
 }
@@ -1394,13 +1430,15 @@ extern "C" int msa_short_attention_bwd(const void* q, const void* k,
                              scale, seed_lo, seed_hi, drop_threshold, stream);
 }
 
-// The v3 backward pair (TPU kernel _bwd_kernel_v3): the v2 pair with delta =
-// dO . o taken from the ctx `out` in the storage type (the forward's own
-// output, not an f32 copy) and each row's lse recomputed from the scores by
-// the dq launch, which writes it and delta to the [B, heads, S] f32 scratch
-// `lse` and `delta` for the dk/dv launch.  The forward keeps no f32 output
-// and no lse.  Same arguments and dropout as msa_short_attention_bwd
-// otherwise.
+// The v3 backward (TPU kernel _bwd_kernel_v3): delta = dO . o taken from the
+// ctx `out` in the storage type (the forward's own output, not an f32 copy),
+// each row's lse recomputed from the scores, and dS and the dropped p
+// rounded to the storage type before their products.  The forward keeps no
+// f32 output and no lse.  bf16 at S <= 128: one tensor-core launch
+// (short_bwd_tc.cuh), which also writes the lse and delta to the [B, heads,
+// S] f32 scratch `lse` and `delta`.  Otherwise the v2 pair's two launches,
+// the dq launch writing the lse and delta there for the dk/dv launch.  Same
+// arguments and dropout as msa_short_attention_bwd otherwise.
 extern "C" int msa_short_attention_v3_bwd(const void* q, const void* k,
                                           const void* v, const void* key_bias,
                                           const void* out, const void* dout,

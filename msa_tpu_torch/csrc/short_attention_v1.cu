@@ -37,12 +37,15 @@
 //     and the sum), the dropped p packed to bf16 as the A operand of P V,
 //     and ctx stored in 16-byte row vectors through the warp's own Q rows.
 //     No operand is read twice from shared memory by the CUDA cores.
-//   * The f32 forward and the backward (both dtypes) run on the CUDA cores
-//     in f32 (on the tensor cores f32 would be TF32, three decimal digits):
-//     K and V staged once as f32 (rows padded to 65 floats, so a warp's 32
-//     keys read 32 banks), query tiles of 32 rows whose [32, S] score rows
-//     also stay in shared memory (S <= 128 keeps a CTA within 116 KB).  The
-//     backward keeps each key's dk and dv in the registers of two threads
+//   * The bf16 backward runs on the tensor cores too: short_bwd_tc.cuh, the
+//     template it shares with the v3 backward of short_attention.cu (delta
+//     from the score row here), one launch.
+//   * The f32 forward and backward run on the CUDA cores in f32 (on the
+//     tensor cores f32 would be TF32, three decimal digits): K and V staged
+//     once as f32 (rows padded to 65 floats, so a warp's 32 keys read 32
+//     banks), query tiles of 32 rows whose [32, S] score rows also stay in
+//     shared memory (S <= 128 keeps a CTA within 116 KB).  The backward
+//     keeps each key's dk and dv in the registers of two threads
 //     (interleaved dims) across all query tiles and writes dq per tile: one
 //     launch, no atomics, no [S, S] tensor in device memory.
 //
@@ -58,6 +61,7 @@
 
 #include "dropout.cuh"
 #include "mma_tiles.cuh"
+#include "short_bwd_tc.cuh"
 
 namespace {
 
@@ -311,7 +315,8 @@ short_v1_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Backward: dq, dk, dv in one launch, from the inputs alone
+// Backward: dq, dk, dv in one launch, from the inputs alone, on the CUDA
+// cores; the entry takes it for f32 only (bf16: short_bwd_tc.cuh)
 // ---------------------------------------------------------------------------
 
 int bwd_smem_bytes(int seq) {
@@ -530,7 +535,8 @@ extern "C" int msa_short_attention_v1_fwd(const void* q, const void* k, const vo
 }
 
 // dq, dk, dv from q, k, v, key_bias and dout alone, for the same seed and
-// threshold as the forward.
+// threshold as the forward: f32 on the CUDA cores, bf16 on the tensor cores
+// (short_bwd_tc.cuh, delta = rowsum(p * dpm)).  One launch either way.
 extern "C" int msa_short_attention_v1_bwd(const void* q, const void* k, const void* v,
                                           const void* key_bias, const void* dout, void* dq,
                                           void* dk, void* dv, int batch, int seq, int hidden,
@@ -548,6 +554,10 @@ extern "C" int msa_short_attention_v1_bwd(const void* q, const void* k, const vo
   launch_bwd<T, D>(q, k, v, bias, dout, dq, dk, dv, batch, seq, hidden, num_heads, sm, \
                    scale, d, s)
   if (dtype == 0) return drop_threshold ? MSA_BWD(float, true) : MSA_BWD(float, false);
-  return drop_threshold ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
 #undef MSA_BWD
+#define MSA_TC(D)                                                                              \
+  msa_short_bwd::launch<D, false>(q, k, v, bias, nullptr, dout, dq, dk, dv, nullptr, nullptr, \
+                                  batch, seq, hidden, num_heads, sm, scale, d, s)
+  return drop_threshold ? MSA_TC(true) : MSA_TC(false);
+#undef MSA_TC
 }

@@ -1,0 +1,288 @@
+// The bf16 short-attention backward on the tensor cores, S <= 128, head dim
+// 64: dq, dk and dv of one (head, batch row) in one launch, with no [S, S]
+// tensor in device memory.  One template serves two TPU kernels of
+// msa_tpu/ops/short_attention.py, which differ only in delta:
+//
+//   * v1, _bwd_kernel (:177; short_attention_v1.cu): delta = rowsum(p * dpm)
+//     (:216), a quad sum over the score row in registers;
+//   * v3, _bwd_kernel_v3 (:392; short_attention.cu, msa_short_attention_v3_bwd
+//     at S <= 128): delta = dO . o (:435-439), o the forward's ctx in bf16,
+//     read row by row.  It also writes each row's lse (log2 units) and delta
+//     to the entry's [B, heads, S] scratch, which nothing of this route reads
+//     again: the entry keeps the CUDA-core pair's signature.
+//
+// Both round as the TPU kernels do: scores and dP accumulate in f32 from
+// bf16 operands; dS = p (dpm - delta) and the dropped p are rounded to bf16
+// before dQ = dS K, dK = dS^T Q and dV = pd^T dO.
+//
+// What bounds it on the H100: bytes (at S = 80 a (batch, head) pair does
+// 10 * S * S * 64 FLOPs on 7-8 * S * 64 bf16 elements, ~100 FLOPs an
+// element, far below the ~295 FLOPs a byte where the tensor cores would be
+// the limit).  So every operand is read once and nothing of size [S, S]
+// leaves the SM:
+//
+//   * one CTA of kKT = ceil(S / 16) warps; Q, K, V and dO staged once in
+//     bf16 by cp.async (144-byte rows, zero-filled past S); padded keys
+//     score -inf (not the -10000 fill), so a fully masked row keeps its
+//     softmax;
+//   * warp w owns query rows [16w, 16w + 16): the scores Q K^T, the row max
+//     and sum, p, dP = dO V^T, the keep words, pd and dpm live in its
+//     registers (two [16 x S] f32 rows); it writes pd and dS as bf16 into
+//     two shared [16 kKT][16 kKT + 8] tiles (a row stride of an odd
+//     multiple of 16 bytes: ldmatrix reads them conflict-free) and forms
+//     dQ = dS K from its registers;
+//   * after one __syncthreads warp w forms dK and dV rows [16w, 16w + 16) as
+//     dS^T Q and pd^T dO over every query row (msa_mma::mma_tn), and stores
+//     dq, dk and dv in 16-byte row vectors through its own K and V rows,
+//     which no warp reads after the barrier.
+//
+// Query rows past S add nothing to dK and dV: their dO rows are zero, so
+// dP, dpm, delta and dS vanish there, and their pd meets a zero dO row in
+// pd^T dO.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "dropout.cuh"
+#include "mma_tiles.cuh"
+
+namespace msa_short_bwd {
+
+namespace tc = msa_mma;
+using bf16 = __nv_bfloat16;
+using msa_dropout::Dropout;
+
+constexpr int kMaxSeq = 128;  // 8 16-key tiles: a warp's score row in registers
+
+// Q, K, V and dO rows, the pd and dS tiles, the key bias, at kKT tiles.
+__host__ __device__ constexpr int tile_smem_bytes(int kKT) {
+  return 4 * 16 * kKT * tc::kStride * (int)sizeof(bf16) +
+         2 * 16 * kKT * (16 * kKT + 8) * (int)sizeof(bf16) + 16 * kKT * (int)sizeof(float);
+}
+inline int smem_bytes(int seq) { return tile_smem_bytes((seq + 15) / 16); }
+
+// The CTAs an SM holds by shared memory (228 KB, 1 KB reserved a CTA),
+// given to __launch_bounds__ so that ptxas may use the registers that
+// occupancy leaves (its default picks fewer and spilled at 3-4 tiles).
+__host__ __device__ constexpr int ctas_by_smem(int kKT) {
+  return 233472 / (tile_smem_bytes(kKT) + 1024);
+}
+
+// kKT: 16-key tiles of the padded sequence (seq <= 16 kKT), one warp per 16
+// query rows.  kV3: delta from o (and lse / delta written out), else from
+// the score row.  o, lse and delta_out are read / written under kV3 only.
+template <int kKT, bool kDropout, bool kV3>
+__global__ void __launch_bounds__(32 * kKT, ctas_by_smem(kKT))
+short_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    float* __restrict__ lse, float* __restrict__ delta_out, int seq,
+                    int hidden, float score_mult, float scale, Dropout drop) {
+  constexpr int kPadded = 16 * kKT;  // query rows and keys, padded
+  constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
+  constexpr int kLd = kPadded + 8;   // row stride of the pd and dS tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + kPadded * tc::kStride;
+  bf16* v_s = k_s + kPadded * tc::kStride;
+  bf16* do_s = v_s + kPadded * tc::kStride;
+  bf16* pd_s = do_s + kPadded * tc::kStride;  // [query][key]
+  bf16* ds_s = pd_s + kPadded * kLd;          // [query][key]
+  float* bias_s = reinterpret_cast<float*>(ds_s + kPadded * kLd);
+
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int row0 = warp * 16;
+  const int rows = seq - row0;  // this warp's rows below seq (>= 1)
+  const size_t base = (size_t)b * seq * hidden + (size_t)head * tc::kD;
+  const uint32_t row_base = ((uint32_t)b * gridDim.x + head) * (uint32_t)seq;
+
+  // cp.async groups: Q and K | V | dO
+  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, base, hidden,
+                 kPadded, seq);
+  tc::stage_rows(do_s, dout, base, hidden, 0, kPadded, seq);
+  tc::cp_async_commit();
+
+  // v3: lane l loads half l % 2 of o's row row0 + l / 2 while the rows land
+  const int drow = row0 + (lane >> 1);
+  uint4 ow[4];
+  if constexpr (kV3) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ow[u] = drow < seq ? *reinterpret_cast<const uint4*>(o + base + (size_t)drow * hidden +
+                                                           (lane & 1) * 32 + u * 8)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  tc::cp_async_wait<2>();
+  __syncthreads();  // Q, K and the bias
+
+  // Scores in the log2 domain, the row max and sum, p = e * (1 / sum).
+  float s[kN][4], mx[2], sum[2] = {0.f, 0.f};
+  tc::mma_nt<kN>(q_s, row0, k_s, s);
+  tc::scores_log2<kN>(s, bias_s, score_mult);
+  tc::row_max<kN>(s, mx);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      s[n][x] = exp2f(s[n][x] - mx[x >> 1]);
+      sum[x >> 1] += s[n][x];
+    }
+  }
+  sum[0] = tc::quad_sum(sum[0]);
+  sum[1] = tc::quad_sum(sum[1]);
+  if constexpr (kV3) {
+    if (c == 0 && g < rows) lse[row_base + row0 + g] = mx[0] + log2f(sum[0]);
+    if (c == 0 && g + 8 < rows) lse[row_base + row0 + g + 8] = mx[1] + log2f(sum[1]);
+  }
+  sum[0] = 1.f / sum[0];
+  sum[1] = 1.f / sum[1];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[n][x] *= sum[x >> 1];
+  }
+  uint32_t keep[8] = {};
+  if constexpr (kDropout) {
+    const uint32_t prob_row = row_base + row0 + g;
+    tc::keep_words_qmajor(drop, prob_row, 0, keep);
+    if constexpr (kKT > 4) tc::keep_words_qmajor(drop, prob_row, 64, keep + 4);
+  }
+
+  tc::cp_async_wait<0>();
+  __syncthreads();  // V and dO
+
+  // v3: delta = dO . o in f32 over the head row (the bf16 products are
+  // exact), from o's half row in registers and dO's in shared memory; a
+  // bf16 widens to f32 by a shift of its bits
+  float delta[2];
+  if constexpr (kV3) {
+    const bf16* dor = do_s + drow * tc::kStride + (lane & 1) * 32;
+    float part = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint4 dw = *reinterpret_cast<const uint4*>(dor + u * 8);
+      const uint32_t dws[4] = {dw.x, dw.y, dw.z, dw.w};
+      const uint32_t ows[4] = {ow[u].x, ow[u].y, ow[u].z, ow[u].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        part = fmaf(__uint_as_float(dws[e] << 16), __uint_as_float(ows[e] << 16), part);
+        part = fmaf(__uint_as_float(dws[e] & 0xffff0000u),
+                    __uint_as_float(ows[e] & 0xffff0000u), part);
+      }
+    }
+    part += __shfl_xor_sync(tc::kFull, part, 1);
+    if ((lane & 1) == 0 && drow < seq) delta_out[row_base + drow] = part;
+    delta[0] = __shfl_sync(tc::kFull, part, 2 * g);
+    delta[1] = __shfl_sync(tc::kFull, part, 2 * g + 16);
+  }
+
+  // dP = dO V^T, then dpm = the kept dP over 1 - rate, in place.
+  float dp[kN][4];
+  tc::mma_nt<kN>(do_s, row0, v_s, dp);
+  float part[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      if constexpr (kDropout) {
+        dp[n][x] = tc::kept_at(keep, n, x & 1, x >> 1) ? dp[n][x] * drop.scale : 0.f;
+      }
+      if constexpr (!kV3) part[x >> 1] = fmaf(s[n][x], dp[n][x], part[x >> 1]);
+    }
+  }
+  if constexpr (!kV3) {
+    delta[0] = tc::quad_sum(part[0]);
+    delta[1] = tc::quad_sum(part[1]);
+  }
+
+  // pd and dS = p (dpm - delta) as bf16 into the shared tiles (rows g and
+  // g + 8 of the warp's block); dS stays in s for dQ.
+  bf16* pd_row = pd_s + (row0 + g) * kLd + 2 * c;
+  bf16* ds_row = ds_s + (row0 + g) * kLd + 2 * c;
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    float pd[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float p = s[n][x];
+      pd[x] = p;
+      if constexpr (kDropout) pd[x] = tc::kept_at(keep, n, x & 1, x >> 1) ? p * drop.scale : 0.f;
+      s[n][x] = p * (dp[n][x] - delta[x >> 1]);
+    }
+    *reinterpret_cast<uint32_t*>(pd_row + n * 8) = tc::pack_bf16(pd[0], pd[1]);
+    *reinterpret_cast<uint32_t*>(pd_row + 8 * kLd + n * 8) = tc::pack_bf16(pd[2], pd[3]);
+    *reinterpret_cast<uint32_t*>(ds_row + n * 8) = tc::pack_bf16(s[n][0], s[n][1]);
+    *reinterpret_cast<uint32_t*>(ds_row + 8 * kLd + n * 8) = tc::pack_bf16(s[n][2], s[n][3]);
+  }
+
+  // dQ = dS K (dS packed to bf16 as the A operand: the values of ds_s)
+  float acc[tc::kNT][4];
+#pragma unroll
+  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  tc::mma_nn<kN>(s, k_s, acc);
+  __syncthreads();  // pd_s and ds_s are whole; no warp reads K or V again
+
+  bf16* stage_k = k_s + row0 * tc::kStride;  // the warp's own K and V rows
+  bf16* stage_v = v_s + row0 * tc::kStride;
+  const size_t out0 = base + (size_t)row0 * hidden;
+  tc::store_tile(acc, stage_k, dq + out0, hidden, rows, scale);
+
+  // dK rows [row0, row0 + 16) = dS[:, keys]^T Q, dV rows = pd[:, keys]^T dO
+  tc::mma_tn<kKT>(ds_s, kLd, row0, q_s, acc);
+  tc::store_tile(acc, stage_v, dk + out0, hidden, rows, scale);
+  tc::mma_tn<kKT>(pd_s, kLd, row0, do_s, acc);
+  __syncwarp();  // every lane is done reading dq from stage_k
+  tc::store_tile(acc, stage_k, dv + out0, hidden, rows);
+}
+
+template <int kKT, bool kDropout, bool kV3>
+int launch_tiles(const void* q, const void* k, const void* v, const float* bias, const void* o,
+                 const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
+                 int batch, int seq, int hidden, int num_heads, float score_mult, float scale,
+                 Dropout drop, cudaStream_t s) {
+  constexpr auto kernel = short_bwd_tc_kernel<kKT, kDropout, kV3>;
+  const int bytes = smem_bytes(seq);
+  if (bytes > 48 * 1024) {  // above 48 KB of dynamic shared memory: opt in
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3(num_heads, batch), 32 * kKT, bytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, seq, hidden, score_mult,
+      scale, drop);
+  return (int)cudaGetLastError();
+}
+
+// One launch for the 16-key tiles seq needs (1 .. 8); the caller has
+// checked 0 < seq <= kMaxSeq.  o, lse and delta: v3's ctx and scratch (null for
+// v1).
+template <bool kDropout, bool kV3>
+int launch(const void* q, const void* k, const void* v, const float* bias, const void* o,
+           const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta, int batch,
+           int seq, int hidden, int num_heads, float score_mult, float scale, Dropout drop,
+           cudaStream_t s) {
+#define MSA_TC(KT)                                                                         \
+  case KT:                                                                                 \
+    return launch_tiles<KT, kDropout, kV3>(q, k, v, bias, o, dout, dq, dk, dv, lse, delta, \
+                                           batch, seq, hidden, num_heads, score_mult,      \
+                                           scale, drop, s)
+  switch ((seq + 15) / 16) {
+    MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
+    MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);
+  }
+#undef MSA_TC
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace msa_short_bwd

@@ -25,7 +25,8 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   :func:`short_attention_backward` (two launches: dq, then dk/dv), or,
   with the module switch ``USE_V3_BWD`` on (JAX's ``_USE_V3_BWD``,
   ``_bwd_kernel_v3``), :func:`short_attention_v3_backward`, which reads the
-  ctx instead of the forward's f32 output and lse.  CPU tensors run
+  ctx instead of the forward's f32 output and lse (one tensor-core launch
+  for bf16 at S <= 128, else dq and dk/dv).  CPU tensors run
   :func:`short_attention_plain` at rate 0 (under ``USE_V3_BWD`` with
   :func:`short_attention_v3_backward_plain` as its backward);
 * :func:`short_attention_probs` -- the ``+probs`` remat rung (JAX
@@ -98,6 +99,9 @@ _V1_SIGNATURES = {
                                    _I, _I, _F, _U, _U, _I, _P),
 }
 V1_MAX_SEQ = 128  # the v1 kernels hold a head's K and V in shared memory
+# the bf16 v3 backward runs on the tensor cores up to here, in one launch
+# (csrc/short_bwd_tc.cuh: a warp holds its whole score row in registers)
+V3_TC_MAX_SEQ = 128
 PROBS_GROUP = 16  # keys per Philox draw: the probs rows are padded to it
 # JAX's module switch _USE_V3_BWD: the training forward keeps the ctx
 # itself instead of its f32 copy and the row lse, and the backward is
@@ -249,32 +253,29 @@ def short_attention_backward(q, k, v, key_bias, out32, lse, dout,
     return dq, dk, dv
 
 
+def v3_backward_launches(seq: int, dtype: torch.dtype) -> int:
+    """Kernel launches of one :func:`short_attention_v3_backward` call: 1 for
+    bf16 at S <= 128 (the tensor-core kernel), else 2 (the CUDA-core dq and
+    dk/dv pair)."""
+    return 1 if dtype == torch.bfloat16 and seq <= V3_TC_MAX_SEQ else 2
+
+
 def short_attention_v3_backward_plain(q, k, v, key_bias, out, dout,
                                       num_heads: int, rate: float = 0.0,
                                       keep: Optional[torch.Tensor] = None):
     """dq, dk, dv of :func:`short_attention_plain` by JAX's
     ``_bwd_kernel_v3`` rule, in f32: p the softmax recomputed from q and k,
-    dP = dO.V^T, with ``keep`` pd and dpm the kept p and dP over ``1 -
-    rate``, delta_i = dO_i . o_i per head from ``out`` (the forward's ctx in
-    its own dtype, widened), dS = p * (dpm - delta)."""
+    then :func:`_grads_from_probs_plain` with delta_i = dO_i . o_i per head
+    from ``out`` (the forward's ctx in its own dtype, widened), dS and the
+    dropped p rounded to q's dtype before their products as that kernel
+    rounds them (nothing changes in f32); ``keep`` a [B, heads, S, S] bool
+    mask."""
     b, s, h = q.shape
-    d = h // num_heads
-    split = lambda x: x.reshape(b, s, num_heads, d).float()  # noqa: E731
+    split = lambda x: x.reshape(b, s, num_heads, h // num_heads).float()  # noqa: E731
+    delta = (split(dout) * split(out)).sum(-1).transpose(1, 2)[..., None]
     p = _scores_plain(q, k, key_bias, num_heads)
-    do = split(dout)
-    dp = torch.einsum("bqnd,bknd->bnqk", do, split(v))
-    if keep is not None:
-        pd = torch.where(keep, p, 0.0) / (1.0 - rate)
-        dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
-    else:
-        pd, dpm = p, dp
-    delta = (do * split(out)).sum(-1).transpose(1, 2)[..., None]
-    ds = p * (dpm - delta)
-    scale = 1.0 / math.sqrt(d)
-    dq = torch.einsum("bnqk,bknd->bqnd", ds, split(k)) * scale
-    dk = torch.einsum("bnqk,bqnd->bknd", ds, split(q)) * scale
-    dv = torch.einsum("bnqk,bqnd->bknd", pd, do)
-    return tuple(x.reshape(b, s, h).to(q.dtype) for x in (dq, dk, dv))
+    return _grads_from_probs_plain(q, k, v, p, dout, num_heads, rate, keep,
+                                   q.dtype, delta)
 
 
 def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
@@ -282,8 +283,9 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
                                 rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """dq, dk, dv of :func:`short_attention` by the v3 kernels (CUDA only):
     ``out`` is the forward's ctx in q's dtype for the same inputs, seed and
-    rate.  Two launches: dq, which recomputes each row's lse and writes it
-    and delta = dO . o to scratch, then dk/dv."""
+    rate.  bf16 at S <= 128: one tensor-core launch; otherwise two, dq
+    (which recomputes each row's lse and writes it and delta = dO . o to
+    scratch) then dk/dv (:func:`v3_backward_launches`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_v3_backward")
     b, s, h = q.shape
     if out.shape != q.shape or out.dtype != q.dtype or dout.shape != q.shape:
@@ -303,7 +305,7 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
         _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_v3_backward")
-    short_attention_v3_backward.launches += 2
+    short_attention_v3_backward.launches += v3_backward_launches(s, q.dtype)
     return dq, dk, dv
 
 
@@ -470,12 +472,13 @@ def short_attention_probs_backward_plain(q, k, v, probs, dout, num_heads: int,
 
 
 def _grads_from_probs_plain(q, k, v, p, dout, num_heads, rate, keep,
-                            operand_dtype=None):
+                            operand_dtype=None, delta=None):
     """dq, dk, dv in f32 from the softmax probabilities ``p`` [B, heads, S,
-    S] (JAX ``_bwd_kernel`` and ``_bwd_kernel_v2s``): pd and dpm the kept p
-    and dP = dO.V^T over ``1 - rate`` (``keep`` None: all kept), delta =
-    sum_j p * dpm per row, dS = p * (dpm - delta); with ``operand_dtype``
-    pd and dS rounded to it before their products."""
+    S] (JAX ``_bwd_kernel``, ``_bwd_kernel_v2s`` and ``_bwd_kernel_v3``): pd
+    and dpm the kept p and dP = dO.V^T over ``1 - rate`` (``keep`` None: all
+    kept), delta = sum_j p * dpm per row unless given ([B, heads, S, 1]),
+    dS = p * (dpm - delta); with ``operand_dtype`` pd and dS rounded to it
+    before their products."""
     b, s, h = q.shape
     d = h // num_heads
     split = lambda x: x.reshape(b, s, num_heads, d).float()  # noqa: E731
@@ -485,7 +488,8 @@ def _grads_from_probs_plain(q, k, v, p, dout, num_heads, rate, keep,
         dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
     else:
         pd, dpm = p, dp
-    delta = (p * dpm).sum(-1, keepdim=True)
+    if delta is None:
+        delta = (p * dpm).sum(-1, keepdim=True)
     ds = p * (dpm - delta)
     if operand_dtype is not None:
         ds, pd = (x.to(operand_dtype).float() for x in (ds, pd))
