@@ -10,11 +10,16 @@ failure (no phase catches its own):
   2. builds the CUDA kernels from msa_tpu_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together, and prints what ptxas
      reports (registers, static shared memory, spills) for the bf16
-     tensor-core forwards of the v1 and v2s short attention;
+     tensor-core kernels of the short attention (the v1, v2, v2p and v2s
+     forwards, the v1 and v3 backwards);
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
-     * the attention forward at the serving shapes (and a few more);
+     * the attention forward at the serving shapes (and a few more), its
+       serving and training forms (ctx, the f32 output, the row lse) and
+       the packed forward (v2p) at rate 0 and with dropout, each call's form
+       (bf16: tensor cores, whole row up to 128 keys, two sweeps above);
+       bf16 also at S = 12, 128, 130, 200 and 1000;
      * the attention backward against autograd through the plain version,
        at rate 0 and at rate 0.1 snapped to t/256, the plain version taking
        the kernel's exported keep mask;
@@ -127,6 +132,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -136,12 +142,13 @@ import time
 #  * f32: both sides are f32 throughout and differ in summation order.
 #  * bf16 forward: both round to bf16 at the end; the plain attention also
 #    rounds the probabilities to bf16 before the PV product (as the JAX
-#    reference does), as do the tensor-core forwards (v1, v2s); the
-#    CUDA-core kernels keep them in f32.  About one bf16 ulp.
+#    reference does), as do the bf16 forwards (v1, v2, v2p and v2s, all on
+#    the tensor cores).  About one bf16 ulp.
 #  * gradients: against autograd through the plain version in f32 on the
 #    same values (bf16 inputs widened exactly).  The kernels also compute in
-#    f32 from the inputs (delta = dO.o reads the forward's f32 output), so
-#    in bf16 they differ from it by the rounding of their bf16 outputs
+#    f32 from the inputs (the v2 pair recomputes p from the forward's lse
+#    and sums delta = rowsum(p * dpm) itself, as JAX's v2 backward does),
+#    so in bf16 they differ from it by the rounding of their bf16 outputs
 #    (2^-9 relative) and summation order: 1e-2 relative is ~5 ulps.  The
 #    plain version run in bf16 rounds dP = dO.V^T and the PV operands
 #    itself and lands further from the f32 result; its error is printed
@@ -251,13 +258,23 @@ PR6_LOSS_RTOL = 2e-2
 # ulp is 2^-10, under MASKED_ROW_ATOL.
 FLASH_LSE_ATOL, FLASH_LSE_RTOL = 1e-4, 1e-5
 # the v3 backward's recomputed row lse (log2 units) against the forward's:
-# the CUDA-core pair sums the forward's products in its order (bit-equal);
-# the tensor-core kernel takes its scores from mma.sync (q . k, then times
-# scale * log2e, where the forward scales q first) and sums the whole row
-# at once, so its lse moves by an ulp or two of the scores: ~1e-6 on live
-# rows (|lse| < ~10), and on rows with every key masked (lse near -14427,
-# an f32 ulp of 2^-10) by about one ulp of |lse|, ~1e-7 relative.
+# in f32 the CUDA-core pair sums the CUDA-core forward's products in its
+# order (bit-equal).  In bf16 the forward runs on the tensor cores: up to
+# 128 keys the tensor-core v3 kernel forms its lse as the whole-row forward
+# does; above, the CUDA-core pair sums q pre-scaled, 16 keys an update,
+# where the forward took mma.sync scores (q . k, then times scale * log2e)
+# in 64-key tiles, so the lse moves by an ulp or two of the scores: ~1e-6
+# on live rows (|lse| < ~10), and on rows with every key masked (lse near
+# -14427, an f32 ulp of 2^-10) by about one ulp of |lse|, ~1e-7 relative.
 V3_TC_LSE_TOL = (1e-5, 1e-6)  # (atol, rtol)
+# the short forward's training-form lse (log2 units) against the plain
+# logsumexp of the f32 scores over ln 2: the kernel's scores come from the
+# tensor cores (bf16) or the CUDA cores (f32) in another summation order
+# and its statistics in base 2, ~1e-6 on live rows (|lse| < ~15); on rows
+# with every key masked the scores and lse sit near -14427, where an f32
+# ulp is 2^-10 and the two sides quantise each score apart: about an ulp
+# of |lse|, inside the relative bound.
+TRAIN_LSE_TOL = (1e-4, 1e-6)  # (atol, rtol)
 # frame_flash against the default flash2 path from the same weights: the
 # head-split kernels are flash2's with another addressing
 # (csrc/flash_kernels.cuh), so the serving predictions are expected
@@ -377,13 +394,84 @@ def sdpa_args(q, k, v, bias):
     return split(q), split(k), split(v), bias[:, None, None, :].to(q.dtype)
 
 
+def fwd_form(s, dtype):
+    """The form the short forward takes for (S, dtype): csrc/short_attention.cu
+    ::fwd_dispatch."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return "CUDA cores"
+    return "tensor cores, whole row" if s <= 128 else "tensor cores, two-sweep"
+
+
+def check_train_forward(tag, q, k, v, bias, live, seed, rate, keep,
+                        few_keys=False):
+    """The short forward's serving and training forms (v2), and the packed
+    forward (v2p) on the thirds of one [B, S, 3H] buffer, at one seed: the
+    training form's ctx, out32 (ATTN_TOL on live rows) and lse
+    (TRAIN_LSE_TOL) against ``short_attention_train_forward_plain`` (given
+    the exported keep mask); fully masked rows of ctx and out32 against it
+    at MASKED_ROW_ATOL or, with ``few_keys``, ctx by
+    :func:`check_masked_rows`; the serving ctx equal to the training ctx,
+    bf16's ctx equal to out32 rounded, v2p equal to v2 in every output, bit
+    for bit.  Returns (max abs err of ctx and out32, of lse on rows with a
+    live key, the masked rows' (difference, rule gap) or None)."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import byte_threshold
+
+    dname = str(q.dtype).split(".")[1]
+    atol, rtol = ATTN_TOL[dname]
+    t = byte_threshold(rate)
+    serve = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, False)[0]
+    ctx, lse, out32 = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
+    qkv = torch.cat([q, k, v], dim=-1)
+    packed = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, True)
+    packed_serve = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, False)[0]
+    rctx, rlse, rout32 = sa.short_attention_train_forward_plain(
+        q, k, v, bias, HEADS, rate, keep)
+    torch.cuda.synchronize()
+    if not torch.equal(serve, ctx):
+        raise AssertionError(f"{tag}: serving and training ctx differ")
+    if q.dtype == torch.bfloat16 and not torch.equal(ctx, out32.to(q.dtype)):
+        raise AssertionError(f"{tag}: ctx is not out32 rounded")
+    if not (all(torch.equal(a, c) for a, c in zip(packed, (ctx, lse, out32)))
+            and torch.equal(packed_serve, serve)):
+        raise AssertionError(f"{tag}: v2p not bit-equal to v2 on the thirds")
+    err = max(check_close(f"{tag} ctx", ctx, rctx, atol, rtol, mask=live),
+              check_close(f"{tag} out32", out32, rout32, atol, rtol,
+                          mask=live))
+    check_close(f"{tag} lse", lse, rlse, *TRAIN_LSE_TOL)
+    lse_err = float((lse - rlse)[live].abs().max())  # fully masked rows apart
+    masked = None
+    if few_keys:
+        masked = check_masked_rows(tag, ctx, q, k, v, bias, live, rate, keep)
+    else:
+        for name, got, ref in (("ctx", ctx, rctx), ("out32", out32, rout32)):
+            check_close(f"{tag} {name} masked row", got, ref, MASKED_ROW_ATOL,
+                        0.0, mask=~live)
+    return err, lse_err, masked
+
+
 def phase_attention(gen):
+    """The short forward (v2) at the serving shapes and a few more, bf16
+    and f32: the serving form against the plain version (and SDPA's time),
+    the training form (ctx, out32, lse) and the packed forward
+    (:func:`check_train_forward`) at rate 0 and with dropout, each call's
+    form and the training form's time beside the serving form's (v2p's
+    both forms too).  Then bf16
+    at B = 4 and S = 12, 128 (whole rows), 130, 200, 1000 (two sweeps), rate
+    0 and 26/256, from a generator of its own."""
     import torch
     import torch.nn.functional as F
 
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
     from msa_tpu_torch.ops.short_attention import (
+        _forward_kernel, _packed_forward_kernel, dropout_keep_mask,
         short_attention, short_attention_plain)
 
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
     cases = [("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN),
              ("s77", 16, 77), ("s130", 8, 130), ("s512", 4, 512),
              ("s768", 4, 768)]  # 512 < S < 1024: XLA's range in JAX
@@ -402,20 +490,68 @@ def phase_attention(gen):
                 f"short_attention {label} {dname} masked row", out, ref,
                 MASKED_ROW_ATOL, 0.0, mask=~live)
             worst = max(worst, err)
+            train_err = lse_err = 0.0
+            for rate in (0.0, rate_on):
+                seed = 2024 + s
+                keep = (dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                        if rate else None)
+                e, le, _ = check_train_forward(
+                    f"short_attention training form {label} {dname} rate "
+                    f"{rate:g}", q, k, v, bias, live, seed, rate, keep)
+                train_err, lse_err = max(train_err, e), max(lse_err, le)
+            worst = max(worst, train_err)
             ms = cuda_ms(lambda: short_attention(q, k, v, bias, HEADS))
+            train_ms = cuda_ms(lambda: _forward_kernel(q, k, v, bias, HEADS, 0,
+                                                       0, True))
+            qkv = torch.cat([q, k, v], dim=-1)
+            packed_ms = [cuda_ms(lambda: _packed_forward_kernel(
+                qkv, bias, HEADS, 0, 0, train)) for train in (False, True)]
             plain_ms = cuda_ms(lambda: short_attention_plain(q, k, v, bias, HEADS))
             sq, sk, sv, sm = sdpa_args(q, k, v, bias)
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 sq, sk, sv, attn_mask=sm))
             itemsize = q.element_size()
             nbytes = 4 * b * s * HIDDEN * itemsize + b * s * 4
-            bound = bound_ms(nbytes, 4 * b * s * s * HIDDEN, dname)
+            flops = 4 * b * s * s * HIDDEN
+            bound = bound_ms(nbytes, flops, dname)
+            # the training form also writes the row lse and, for bf16, the
+            # f32 output (f32's ctx is that output)
+            extra = b * HEADS * s * 4 + (4 * b * s * HIDDEN if itemsize == 2 else 0)
+            train_bound = bound_ms(nbytes + extra, flops, dname)
             times[(label, dname)] = (ms, plain_ms, lib_ms, bound)
-            print(f"short_attention [{b},{s},{HIDDEN}] {dname}: max_abs_err "
-                  f"{err:.3e} (atol {atol}, rtol {rtol}), masked row "
-                  f"{err_masked:.3e} (atol {MASKED_ROW_ATOL}); kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
-                  f"ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+            print(f"short_attention [{b},{s},{HIDDEN}] {dname} "
+                  f"({fwd_form(s, dtype)}): max_abs_err {err:.3e} (atol "
+                  f"{atol}, rtol {rtol}), masked row {err_masked:.3e} (atol "
+                  f"{MASKED_ROW_ATOL}); training form (rate 0 and "
+                  f"{rate_on:g}) ctx and out32 {train_err:.3e}, lse "
+                  f"{lse_err:.3e} on live rows (all rows within atol "
+                  f"{TRAIN_LSE_TOL[0]}, rtol {TRAIN_LSE_TOL[1]}), v2p "
+                  f"bit-equal; kernel {ms:.4f} ms "
+                  f"(training form {train_ms:.4f} ms, bound "
+                  f"{train_bound[0]:.4f} ms; v2p {packed_ms[0]:.4f} / "
+                  f"{packed_ms[1]:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+                  f"{bound[0] / ms:.1%} of it reached)", flush=True)
+    # a generator of their own: the later phases draw the inputs they drew
+    # before these shapes were added
+    edge_gen = torch.Generator(device="cuda").manual_seed(11)
+    for s in (12, 128, 130, 200, 1000):
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
+                                                   torch.bfloat16)
+            seed = 2024 + s
+            keep = (dropout_keep_mask(seed, rate, 4, HEADS, s, "cuda")
+                    if rate else None)
+            tag = f"short_attention [4,{s},{HIDDEN}] bfloat16 rate {rate:g}"
+            err, lse_err, (diff, gap) = check_train_forward(
+                tag, q, k, v, bias, live, seed, rate, keep, few_keys=True)
+            worst = max(worst, err)
+            print(f"{tag} ({fwd_form(s, torch.bfloat16)}): ctx and out32 "
+                  f"max_abs_err {err:.3e}, lse {lse_err:.3e} on live rows; "
+                  f"serving ctx = "
+                  f"training ctx = out32 rounded, v2p bit-equal; masked rows "
+                  f"{diff:.3e} from f32 (the rounding rule {gap:.3e})",
+                  flush=True)
     return worst, times
 
 
@@ -494,13 +630,14 @@ def phase_attention_backward(gen):
                         (qq, kk, vv), lib_do))
                     lib_txt = f"sdpa bwd {lib_ms:.4f} ms, fwd+bwd {fb_ms:.4f} ms"
                 # the function's bytes: reads q, k, v, dO and the [B, S] f32
-                # bias once, writes dq, dk, dv once.  The f32 o and the row
-                # lse that this design saves from the forward are its own
-                # choice, so they are printed apart, not counted.  The
-                # products: the scores (recomputed: P is not an input),
-                # dP = dO.V^T, dV = P^T.dO, dQ = dS.K, dK = dS^T.Q
+                # bias once, writes dq, dk, dv once.  The row lse that this
+                # design reads from the forward (and delta, which the dq
+                # launch hands to dk/dv) are its own choice, so the lse is
+                # printed apart, not counted.  The products: the scores
+                # (recomputed: P is not an input), dP = dO.V^T, dV = P^T.dO,
+                # dQ = dS.K, dK = dS^T.Q
                 nbytes = 7 * q.element_size() * b * s * HIDDEN + b * s * 4
-                extra = 4 * b * s * HIDDEN + b * HEADS * s * 4
+                extra = b * HEADS * s * 4
                 bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
                 times[(label, dname, rate)] = (ms, plain_ms, lib_ms, bound)
                 print(f"short_attention_backward [{b},{s},{HIDDEN}] {dname} "
@@ -509,8 +646,8 @@ def phase_attention_backward(gen):
                       f"{plain_err:.3e}); kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, {lib_txt or 'no sdpa (dropout)'}, "
                       f"bound {bound[0]:.4f} ms ({bound[1]}; the design's "
-                      f"f32 o and lse reads add {extra / HBM_BYTES_PER_S * 1e3:.4f}"
-                      " ms)", flush=True)
+                      f"lse read adds {extra / HBM_BYTES_PER_S * 1e3:.4f} ms)",
+                      flush=True)
     return worst, times
 
 
@@ -1715,10 +1852,11 @@ def phase_probs_packed(gen):
     its backward against the plain backward on the same inputs (its own
     probs), the packed forward and backward against v2's kernels on the
     thirds (bit-equal: the same kernels at row stride 3H) and against the
-    plain packed backward.  Then the bf16 v2s forward (tensor cores) at
-    the shapes that reach its other forms: S = 12 (one ragged 16-key tile),
-    128 (the widest whole-row form) and 200, 1000 (the two-sweep form, with
-    query tiles and a ragged last key tile).  Times the kernels at rate 0
+    plain packed backward; whether v2's ctx equals v1's bit for bit (printed:
+    in bf16 both are short_fwd_tc.cuh's template).  Then the bf16 v2s
+    forward (tensor cores) at the shapes that reach its other forms: S = 12
+    (one ragged 16-key tile), 128 (the widest whole-row form) and 200, 1000
+    (the two-sweep form, with query tiles and a ragged last key tile).  Times the kernels at rate 0
     beside the plain versions, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
@@ -1748,9 +1886,11 @@ def phase_probs_packed(gen):
                 ctx, probs, ref_ctx, err, _ = check_probs_forward(
                     tag, q, k, v, bias, live, seed, rate, keep)
                 v2_ctx = sa.short_attention(q, k, v, bias, HEADS, rate, seed)
+                v1_ctx = sa.short_attention_v1(q, k, v, bias, HEADS, rate, seed)
                 torch.cuda.synchronize()
                 v2_err = check_close(f"short_attention_probs {tag} vs v2", ctx,
                                      v2_ctx, atol, rtol, mask=live)
+                v1_same = torch.equal(v1_ctx, v2_ctx)
                 worst["probs"] = max(worst["probs"], err)
 
                 # v2s backward from the kernel's own probs
@@ -1795,7 +1935,8 @@ def phase_probs_packed(gen):
                       f"backward {berr:.3e}; packed forward and backward "
                       f"bit-equal to v2 on the thirds, against the plain "
                       f"version {perr:.3e} / {pberr:.3e} (atol {atol} / "
-                      f"{gatol})", flush=True)
+                      f"{gatol}); v2's ctx {'equals' if v1_same else 'differs from'}"
+                      " v1's bit for bit", flush=True)
                 if rate:
                     if dname == "bfloat16":  # the form the '+probs' rung runs
                         ms = cuda_ms(lambda: sa._probs_forward_kernel(
@@ -1848,7 +1989,7 @@ def phase_probs_packed(gen):
                     bound_ms(7 * io + b * s * 4, 2.5 * fwd_flops, dname))
                 for name in ("probs", "probs_bwd", "packed", "packed_bwd"):
                     ms, plain_ms, lib_ms, bound = times[(name, label, dname)]
-                    cores = ("tensor cores" if name == "probs" and
+                    cores = ("tensor cores" if name in ("probs", "packed") and
                              dname == "bfloat16" else "CUDA cores")
                     print(f"  {name} [{b},{s},{HIDDEN}] {dname}: kernel "
                           f"({cores}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -2257,10 +2398,11 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
     MASKED_ROW_GRAD_ATOL or, with ``few_keys``, against the rule in f32
     within twice it plus the roundings' gap (:func:`check_within`); against
     the v2 pair on the same inputs within twice GRAD_TOL plus that gap; the
-    row lse it writes to scratch against the forward's (bit-equal on the
-    CUDA cores, within V3_TC_LSE_TOL on the tensor cores); two launches
-    bit-equal.  Returns (max abs err, against v2, lse difference, out,
-    lse, out32) for the timings."""
+    row lse it writes to scratch against the forward's (bit-equal in f32,
+    where both are the CUDA cores' sums; in bf16, where the forward runs on
+    the tensor cores, within V3_TC_LSE_TOL); two launches bit-equal.
+    Returns (max abs err, against v2, lse difference, out, lse, out32) for
+    the timings."""
     import math
 
     import torch
@@ -2280,10 +2422,12 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
                                         rate)
     ref = sa.short_attention_v3_backward_plain(q, k, v, bias, out, dout, HEADS,
                                                rate, keep)
-    # the rule in f32 throughout: no rounding of dS and p, o the f32 output
+    # the rule in f32 throughout: no rounding of dS and p, o the plain f32
+    # output (the kernel's out32 rounds p to bf16 before P V)
+    wide = [x.float() for x in (q, k, v)]
     ref32 = sa.short_attention_v3_backward_plain(
-        q.float(), k.float(), v.float(), bias, out32, dout.float(), HEADS,
-        rate, keep)
+        *wide, bias, sa.short_attention_plain(*wide, bias, HEADS, rate, keep),
+        dout.float(), HEADS, rate, keep)
     v2 = sa.short_attention_backward(q, k, v, bias, out32, lse, dout, HEADS,
                                      seed, rate)
     # the C entry once more, keeping its scratch: the recomputed lse
@@ -2297,7 +2441,7 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
                      1.0 / math.sqrt(sa.HEAD_DIM), *sa._seed_words(seed), t,
                      sa._stream(q)), "v3 scratch check")
     torch.cuda.synchronize()
-    if sa.v3_backward_launches(s, q.dtype) == 1:
+    if q.dtype == torch.bfloat16:
         lse_err = check_close(f"{tag} lse", scratch[0], lse, *V3_TC_LSE_TOL)
     else:
         if not torch.equal(scratch[0], lse):
@@ -3117,21 +3261,26 @@ def train_experiment(batch):
                             adam_nu_dtype="bfloat16", data_parallel=1)
 
 
-# The sources of the bf16 tensor-core kernels (the v1 and v2s forwards, the
-# v1 and v3 backwards of short_bwd_tc.cuh) and the dynamic shared memory
-# their launchers ask for, by kernel: the padded rows of Q, K, V and the
-# bias; the two-sweep form: its Q tile and stage, the K and V rings and
-# their bias at 128 rows; the backward: Q, K, V and dO rows, the pd and dS
+# The sources of the bf16 tensor-core kernels (the v1, v2 and v2p forwards
+# of short_fwd_tc.cuh and the two-sweep v2 form, the v2s forwards, the v1
+# and v3 backwards of short_bwd_tc.cuh) and the dynamic shared memory their
+# launchers ask for, by kernel: the padded rows of Q, K, V and the bias; the
+# two-sweep forms at 128 rows: the Q tile (v2s also its stage), the K and V
+# rings and their bias; the backward: Q, K, V and dO rows, the pd and dS
 # tiles and the bias.
 TC_SOURCES = ("short_attention", "short_attention_v1")
-TC_BWD_NO_SPILL_TILES = 5  # the backward holds two score rows a warp
+# whole-row forwards and backwards up to this many 16-key tiles must not
+# spill (the backward holds two score rows a warp, the forward one)
+TC_NO_SPILL_TILES = 5
+TC_KERNEL = re.compile(
+    r"(short_fwd_tc_kernel|short_bwd_tc_kernel|short_attention_fwd_tc_long_kernel|"
+    r"short_attention_probs_fwd_tc(?:_long)?_kernel)I((?:L[ib]\d+E)+)E")
 
 
 def tc_dynamic_smem(kernel):
-    import re
-
     if "tc_long" in kernel:
-        return (2 * 128 + 4 * 64) * 144 + 2 * 64 * 4
+        q_rows = 2 * 128 if "probs" in kernel else 128
+        return (q_rows + 4 * 64) * 144 + 2 * 64 * 4
     rows = 16 * int(re.search(r"ILi(\d+)E", kernel).group(1))
     if "short_bwd_tc" in kernel:
         return 4 * rows * 144 + 2 * rows * (rows + 8) * 2 + rows * 4
@@ -3141,26 +3290,26 @@ def tc_dynamic_smem(kernel):
 def report_tc_resources(usage):
     """Print ptxas's registers, static shared memory and spills for each
     instantiation of the tensor-core kernels, as kernel<16-key tiles,
-    dropout> (kernel<dropout> for the two-sweep form; the backward
-    kernel<16-key tiles, dropout, v3>), and fail if a backward of at most
-    TC_BWD_NO_SPILL_TILES tiles spills or has a stack frame."""
-    import re
-
-    tc = [u for u in usage if "_fwd_tc" in u["kernel"] or
-          "short_bwd_tc" in u["kernel"]]
-    if not any("short_bwd_tc" in u["kernel"] for u in tc):
-        raise AssertionError("ptxas reported no tensor-core backward kernel")
+    dropout, training form> (kernel<dropout[, training form]> for the
+    two-sweep forms; v2s's kernel<16-key tiles, dropout>; the backward
+    kernel<16-key tiles, dropout, v3>), and fail if a whole-row forward or
+    backward of at most TC_NO_SPILL_TILES tiles spills or has a stack
+    frame."""
+    tc = [u for u in usage if TC_KERNEL.search(u["kernel"])]
+    for name in ("short_fwd_tc_kernel", "short_bwd_tc_kernel",
+                 "short_attention_fwd_tc_long_kernel"):
+        if not any(name in u["kernel"] for u in tc):
+            raise AssertionError(f"ptxas reported no {name}")
     for u in tc:
-        m = re.search(r"(short_(?:v1|attention_probs)_fwd_tc(?:_long)?_kernel|"
-                      r"short_bwd_tc_kernel)I((?:L[ib]\d+E)+)E", u["kernel"])
+        m = TC_KERNEL.search(u["kernel"])
         args = re.findall(r"L[ib](\d+)E", m.group(2))
         name = f"{m.group(1)}<{', '.join(args)}>"
         print(f"ptxas {u['source']} {name}: {u['registers']} registers, "
               f"{u['static_smem']} B static + {tc_dynamic_smem(u['kernel'])} B "
               f"dynamic smem, stack {u['stack']} B, spill stores "
               f"{u['spill_stores']} B, loads {u['spill_loads']} B", flush=True)
-        if (m.group(1) == "short_bwd_tc_kernel"
-                and int(args[0]) <= TC_BWD_NO_SPILL_TILES
+        if (m.group(1) in ("short_fwd_tc_kernel", "short_bwd_tc_kernel")
+                and int(args[0]) <= TC_NO_SPILL_TILES
                 and (u["stack"] or u["spill_stores"] or u["spill_loads"])):
             raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
                                  "keeps a stack frame")
@@ -3280,7 +3429,7 @@ def main() -> int:
 
     joint = ("joint", "bfloat16")
     kernels = [
-        kernel_entry("short_attention", "msa_tpu_torch/csrc/short_attention.cu",
+        kernel_entry("short_attention", "msa_tpu_torch/csrc/short_fwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:303",
                      train_launches["short_attention"], attn_err,
                      attn_times[joint], paths("short_attention")),
@@ -3339,7 +3488,7 @@ def main() -> int:
                      pp_err["probs_bwd"], pp_times[("probs_bwd",) + joint],
                      paths("short_attention_probs_backward")),
         kernel_entry("short_attention_packed",
-                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu_torch/csrc/short_fwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:471",
                      rung("save_pack", "short_attention_packed"),
                      pp_err["packed"], pp_times[("packed",) + joint],
@@ -3373,7 +3522,7 @@ def main() -> int:
                      fa_err["bwd"], fa_times["bwd"],
                      paths("flash_attention_backward")),
         kernel_entry("short_attention_v1_fwd",
-                     "msa_tpu_torch/csrc/short_attention_v1.cu",
+                     "msa_tpu_torch/csrc/short_fwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:139",
                      train_launches["short_attention_v1"], v1_err["fwd"],
                      v1_times[("fwd",) + joint], paths("short_attention_v1")),

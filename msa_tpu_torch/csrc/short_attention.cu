@@ -27,27 +27,35 @@
 // every kernel reads each q/k/v/dO byte once from device memory, keeps the
 // softmax on chip and stores nothing of size [S, S]:
 //
-//   * forward: one CTA per (query tile, head, batch row); a query tile holds
-//     up to 128 rows, so S <= 128 is one tile and K/V are read once.  Two
-//     threads per query row, each owning half of the 64 head dims in
-//     registers.  K and V are staged in shared memory as f32, 64 keys per
-//     tile, under an online softmax that takes 16 keys per update.  For the
-//     backward (training) it also writes the row's log2-sum-exp (lse) and
-//     the output in f32.
+//   * forward, bf16 (v2 and v2p): on the tensor cores.  S <= 128 is the
+//     whole-row template of short_fwd_tc.cuh (one CTA per (head, batch
+//     row), each warp's score row in registers, K and V read once); above,
+//     the two-sweep form below v2s's (the same ring without the probs).
+//     Both round the dropped p to bf16 before P V as _fwd_kernel_v2 does.
+//     For the backward (training) they also write the row's log2-sum-exp
+//     (lse) and the output in f32 (out32), from the accumulator that gives
+//     the bf16 ctx.
+//   * forward, f32: on the CUDA cores (on the tensor cores f32 would be
+//     TF32, three decimal digits).  One CTA per (query tile, head, batch
+//     row); a query tile holds up to 128 rows, so S <= 128 is one tile and
+//     K/V are read once.  Two threads per query row, each owning half of
+//     the 64 head dims in registers.  K and V are staged in shared memory
+//     as f32, 64 keys per tile, under an online softmax that takes 16 keys
+//     per update; the training form also writes the lse.
 //   * backward, a pair of launches in the flash-attention-2 manner (no
 //     [S, S] tensor, any S):
 //       - dq: the forward's layout.  Each query row recomputes its scores,
-//         p = exp2(s - lse), dp = dO.v and ds = p * (dpm - delta) with
-//         delta = dO.o (equal to sum_j p_ij * dpm_ij, dropout included), and
-//         accumulates dq in registers.  o is the forward's f32 output: the
-//         bf16-stored one would put its rounding (2^-9 of |dO.o|) into every
-//         ds.  It writes delta for the second launch.
+//         p = exp2(s - lse) (the forward's lse) and dp = dO.v, and sums
+//         delta = sum_j p_ij * dpm_ij (dropout included: _bwd_kernel_v2's
+//         rule) in the same pass as dq = sum_j p (dpm - delta) k_j, taken as
+//         sum_j p dpm k_j - delta * sum_j p k_j in registers.  Not dO.o: the
+//         forward's output carries the bf16 rounding of p before P V, which
+//         would reach every ds.  It writes delta for the second launch.
 //       - dk/dv: one CTA per (key tile, head, batch row), two threads per
 //         key row holding k, v and the dk/dv accumulators; query tiles of 64
 //         rows (q pre-scaled, dO, lse, delta) are staged in shared memory.
-//   * the dot products run on the CUDA cores in f32, except the bf16 '+probs'
-//     forward (v2s), which runs on the tensor cores (see its section), and
-//     the bf16 v3 backward at S <= 128, one launch on the tensor cores from
+//   * the backward dot products run on the CUDA cores in f32, except the
+//     bf16 v3 backward at S <= 128, one launch on the tensor cores from
 //     the template it shares with v1's backward (short_bwd_tc.cuh).  The v3
 //     pair on the CUDA cores (f32, and bf16 above 128 keys) rounds dS and
 //     the dropped p to the storage type before their products as
@@ -69,6 +77,7 @@
 #include "dropout.cuh"
 #include "mma_tiles.cuh"
 #include "short_bwd_tc.cuh"
+#include "short_fwd_tc.cuh"
 
 namespace {
 
@@ -158,25 +167,6 @@ __device__ __forceinline__ void load_half(const T* row_ptr, int half, bool activ
     }
 #pragma unroll
     for (int e = 0; e < L::kVec; ++e) dst[u * L::kVec + e] = tmp[e] * mult;
-  }
-}
-
-// The same halves of an f32 row (the dims this thread owns under T's layout).
-template <typename T>
-__device__ __forceinline__ void load_half_f32(const float* row_ptr, int half,
-                                              bool active, float* dst) {
-  using L = Layout<T>;
-#pragma unroll
-  for (int u = 0; u < L::kOwn; ++u) {
-#pragma unroll
-    for (int e = 0; e < L::kVec; e += 4) {
-      if (active) {
-        load16(row_ptr + (2 * u + half) * L::kVec + e, &dst[u * L::kVec + e]);
-      } else {
-        dst[u * L::kVec + e] = dst[u * L::kVec + e + 1] = 0.f;
-        dst[u * L::kVec + e + 2] = dst[u * L::kVec + e + 3] = 0.f;
-      }
-    }
   }
 }
 
@@ -288,9 +278,10 @@ __device__ __forceinline__ void stage_one(const T* x, size_t base, int stride, i
 }
 
 // The log2-sum-exp of one query row's scores (qr holds this thread's half
-// of q * scale * log2e) over every key, by the forward's online max / sum:
-// the same products, chunks and order, so the same bits as the forward's
-// lse.  Every thread of the CTA calls it (it stages K through k_s).
+// of q * scale * log2e) over every key, by the CUDA-core forward's online
+// max / sum: the same products, chunks and order, so the same bits as the
+// f32 forward's lse.  Every thread of the CTA calls it (it stages K
+// through k_s).
 template <typename T>
 __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int stride,
                                int seq, const float* bias_row, int half, float* k_s,
@@ -330,12 +321,13 @@ __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int str
 }
 
 // ---------------------------------------------------------------------------
-// Forward
+// Forward, f32 (bf16: short_fwd_tc.cuh and the two-sweep form below)
 // ---------------------------------------------------------------------------
 
 // `stride` is the row stride of q, k and v in elements: H for three [B, S, H]
 // tensors, 3H for the thirds of one packed [B, S, 3H] q|k|v (the caller
-// offsets k and v by H and 2H).  out and out32 are [B, S, H].
+// offsets k and v by H and 2H).  out and out32 are [B, S, H].  Launched for
+// T = float only.
 template <typename T, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -433,17 +425,21 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Backward 1/2: dq (and delta = dO . o for the dk/dv launch)
+// Backward 1/2: dq (and delta for the dk/dv launch)
 // ---------------------------------------------------------------------------
 
 // q, k, v and dq have row stride `stride` (H, or 3H in the packed layout,
 // where dq, dk and dv are the thirds of one [B, S, 3H] gradient); o and
-// dout are [B, S, H].  v2 (kV3 false): o is the forward's f32 output and
-// lse its row lse, read.  v3 (the TPU kernel _bwd_kernel_v3): o is the ctx
-// in the storage type T, and the kernel recomputes each row's lse from the
-// scores (row_lse_sweep, one more pass over K) and writes it to `lse` for
-// the dk/dv launch; neither the f32 output nor the lse is kept from the
-// forward.
+// dout are [B, S, H].  v2 (kV3 false, the TPU kernel _bwd_kernel_v2): lse
+// is the forward's row lse, read, and delta = sum_j p_j * dpm_j (:375),
+// summed in the same pass as dq = scale * (sum_j p_j dpm_j k_j - delta *
+// sum_j p_j k_j); o is not read (the forward's f32 output carries the bf16
+// rounding of p that the bf16 forwards apply before P V, and dO . o would
+// put it into every ds).  v3 (the TPU kernel _bwd_kernel_v3): o is the ctx
+// in the storage type T, delta = dO . o, and the kernel recomputes each
+// row's lse from the scores (row_lse_sweep, one more pass over K) and
+// writes it to `lse` for the dk/dv launch; neither the f32 output nor the
+// lse is kept from the forward.
 template <typename T, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -472,29 +468,28 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
   float qr[L::kPart], dor[L::kPart], acc[L::kPart];
+  float pk[kV3 ? 1 : L::kPart];  // v2: sum_j p_j k_j
   load_half(q + in_off, half, active, score_mult, qr);
   load_half(dout + row_off, half, active, 1.f, dor);
-  // delta = dO . o over the full head row; acc holds o for a moment.
-  if constexpr (kV3) {
-    load_half(static_cast<const T*>(o) + row_off, half, active, 1.f, acc);
-  } else {
-    load_half_f32<T>(static_cast<const float*>(o) + row_off, half, active, acc);
-  }
   float delta = 0.f;
-#pragma unroll
-  for (int i = 0; i < L::kPart; ++i) delta = fmaf(dor[i], acc[i], delta);
-  delta += __shfl_xor_sync(0xffffffffu, delta, 1);
-#pragma unroll
-  for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
-  if (active && half == 0) delta_out[prob_row] = delta;
   const float* bias_row = key_bias + (size_t)b * seq;
   float row_lse;
   if constexpr (kV3) {
+    // delta = dO . o over the full head row; acc holds o for a moment.
+    load_half(static_cast<const T*>(o) + row_off, half, active, 1.f, acc);
+#pragma unroll
+    for (int i = 0; i < L::kPart; ++i) delta = fmaf(dor[i], acc[i], delta);
+    delta += __shfl_xor_sync(0xffffffffu, delta, 1);
+    if (active && half == 0) delta_out[prob_row] = delta;
     row_lse = row_lse_sweep<T>(qr, k, in_base, stride, seq, bias_row, half, k_s, bias_s);
     if (active && half == 0) lse[prob_row] = row_lse;
   } else {
+#pragma unroll
+    for (int i = 0; i < L::kPart; ++i) pk[i] = 0.f;
     row_lse = active ? lse[prob_row] : 0.f;
   }
+#pragma unroll
+  for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
 
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
@@ -519,13 +514,24 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = exp2f(s + bias_s[j] - row_lse);
         float dpm = dp;
         if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
-        float ds = p * (dpm - delta);
-        if constexpr (kV3) ds = round_to<T>(ds);  // as _bwd_kernel_v3 rounds dS
-        axpy_half<T>(acc, ds, &k_s[j * kHeadDim], half);
+        if constexpr (kV3) {
+          // dS rounded as _bwd_kernel_v3 rounds it
+          axpy_half<T>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kHeadDim], half);
+        } else {
+          const float pdpm = p * dpm;
+          delta += pdpm;
+          axpy_half<T>(acc, pdpm, &k_s[j * kHeadDim], half);
+          axpy_half<T>(pk, p, &k_s[j * kHeadDim], half);
+        }
       }
     }
   }
 
+  if constexpr (!kV3) {
+#pragma unroll
+    for (int i = 0; i < L::kPart; ++i) acc[i] = fmaf(-delta, pk[i], acc[i]);
+    if (active && half == 0) delta_out[prob_row] = delta;
+  }
   if (active) store_half(dq + in_off, half, acc, scale);
 }
 
@@ -910,6 +916,90 @@ __device__ __forceinline__ void load_bias_tile(float* dst, const float* bias_row
   }
 }
 
+// Sweep 1 of the two-sweep forms: the online row max and sum (this lane's
+// part; the caller sums the quad) of the warp's rows m0 .. m0 + 16 of q_s
+// over every key, K (row 0 at k + base, row stride ld) through the ring of
+// two 64-key tiles at k_s, their bias at bias_s.  The caller has staged Q
+// without committing it.  Every tile holds a key < seq, so the running max
+// is finite from the first tile.  Returns with every warp done with the
+// ring.
+__device__ __forceinline__ void ring_row_stats(const bf16* q_s, int m0, bf16* k_s,
+                                               float* bias_s, const bf16* k, size_t base,
+                                               int ld, const float* bias_row, int seq,
+                                               float score_mult, float* m_run, float* l_run) {
+  constexpr int kTile = kRingTile * tc::kStride;
+  const int n_tiles = (seq + kRingTile - 1) / kRingTile;
+  tc::stage_rows(k_s, k, base, ld, 0, kRingTile, seq);
+  tc::cp_async_commit();
+  load_bias_tile(bias_s, bias_row, 0, seq);
+  m_run[0] = m_run[1] = -INFINITY;
+  l_run[0] = l_run[1] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy overlaps this tile's math
+      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, ld, (t + 1) * kRingTile, kRingTile,
+                     seq);
+      tc::cp_async_commit();
+      load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, (t + 1) * kRingTile, seq);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[tc::kNT][4];
+    tc::mma_nt<tc::kNT>(q_s, m0, k_s + buf * kTile, s);
+    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
+    float mx[2];
+    tc::row_max<tc::kNT>(s, mx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      l_run[r] *= exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < tc::kNT; ++n) {
+        l_run[r] += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+}
+
+// Sweep 2: K and V through the same ring, the scores of the warp's rows in
+// the log2 domain for each 64-key tile handed to tile(s, k0, v_tile), which
+// forms P from them and adds P V.  Returns with every warp done with the
+// ring and with its own Q rows.
+template <class Tile>
+__device__ __forceinline__ void ring_sweep(const bf16* q_s, int m0, bf16* k_s, bf16* v_s,
+                                           float* bias_s, const bf16* k, const bf16* v,
+                                           size_t base, int ld, const float* bias_row,
+                                           int seq, float score_mult, Tile&& tile) {
+  constexpr int kTile = kRingTile * tc::kStride;
+  const int n_tiles = (seq + kRingTile - 1) / kRingTile;
+  tc::stage_rows(k_s, k, base, ld, 0, kRingTile, seq);
+  tc::stage_rows(v_s, v, base, ld, 0, kRingTile, seq);
+  tc::cp_async_commit();
+  load_bias_tile(bias_s, bias_row, 0, seq);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1, k0 = t * kRingTile;
+    if (t + 1 < n_tiles) {
+      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, ld, k0 + kRingTile, kRingTile, seq);
+      tc::stage_rows(v_s + (buf ^ 1) * kTile, v, base, ld, k0 + kRingTile, kRingTile, seq);
+      tc::cp_async_commit();
+      load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, k0 + kRingTile, seq);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[tc::kNT][4];
+    tc::mma_nt<tc::kNT>(q_s, m0, k_s + buf * kTile, s);
+    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
+    tile(s, k0, v_s + buf * kTile);
+    __syncthreads();  // every warp is done with this buffer
+  }
+}
+
 template <bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
@@ -933,86 +1023,109 @@ short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
   const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
   const float* bias_row = key_bias + (size_t)b * seq;
   const int sp = probs_width(seq);
-  const int n_tiles = (seq + kRingTile - 1) / kRingTile;
   const int w0 = q0 + warp * 16;  // this warp's first row
   bf16* stage = stage_s + warp * 16 * tc::kStride;
 
+  // Sweep 1: the row lse (log2 units) by the online max / sum.
   tc::stage_rows(q_s, q, base, hidden, q0, rows_per_cta, seq);
-  tc::stage_rows(k_s, k, base, hidden, 0, kRingTile, seq);
-  tc::cp_async_commit();
-  load_bias_tile(bias_s, bias_row, 0, seq);
-
-  // Sweep 1: the row lse (log2 units) by the online max / sum.  Every tile
-  // holds a key < seq, so the running max is finite from the first tile.
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {  // the next tile's copy overlaps this tile's math
-      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, hidden, (t + 1) * kRingTile,
-                     kRingTile, seq);
-      tc::cp_async_commit();
-      load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, (t + 1) * kRingTile, seq);
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[tc::kNT][4];
-    tc::mma_nt<tc::kNT>(q_s, warp * 16, k_s + buf * kTile, s);
-    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
-    float mx[2];
-    tc::row_max<tc::kNT>(s, mx);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      l_run[r] *= exp2f(m_run[r] - m_new);
-      m_run[r] = m_new;
-#pragma unroll
-      for (int n = 0; n < tc::kNT; ++n) {
-        l_run[r] += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
-      }
-    }
-    __syncthreads();  // every warp is done with this buffer
-  }
+  float m_run[2], l_run[2];
+  ring_row_stats(q_s, warp * 16, k_s, bias_s, k, base, hidden, bias_row, seq, score_mult,
+                 m_run, l_run);
   const float lse[2] = {m_run[0] + log2f(tc::quad_sum(l_run[0])),
                         m_run[1] + log2f(tc::quad_sum(l_run[1]))};
 
   // Sweep 2: the scores again, the signed probs and ctx.
-  tc::stage_rows(k_s, k, base, hidden, 0, kRingTile, seq);
-  tc::stage_rows(v_s, v, base, hidden, 0, kRingTile, seq);
-  tc::cp_async_commit();
-  load_bias_tile(bias_s, bias_row, 0, seq);
   float acc[tc::kNT][4];
 #pragma unroll
   for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1, k0 = t * kRingTile;
-    if (t + 1 < n_tiles) {
-      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, hidden, k0 + kRingTile, kRingTile,
-                     seq);
-      tc::stage_rows(v_s + (buf ^ 1) * kTile, v, base, hidden, k0 + kRingTile, kRingTile,
-                     seq);
-      tc::cp_async_commit();
-      load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, k0 + kRingTile, seq);
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    float s[tc::kNT][4];
-    tc::mma_nt<tc::kNT>(q_s, warp * 16, k_s + buf * kTile, s);
-    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
-    probs_from_lse<tc::kNT>(s, lse);
-    uint32_t keep[4] = {};
-    if constexpr (kDropout) tc::keep_words_qmajor(drop, row_base + w0 + (lane >> 2), k0, keep);
-    store_signed_probs<tc::kNT, kDropout>(s, keep, stage,
-                                          probs + (size_t)(row_base + w0) * sp + k0, sp,
-                                          seq - w0, (sp - k0) / 8);
-    drop_probs<tc::kNT, kDropout>(s, keep, drop.scale);
-    tc::mma_nn<tc::kNT>(s, v_s + buf * kTile, acc);
-    __syncthreads();  // every warp is done with this buffer
-  }
+  ring_sweep(q_s, warp * 16, k_s, v_s, bias_s, k, v, base, hidden, bias_row, seq, score_mult,
+             [&](float (&s)[tc::kNT][4], int k0, const bf16* v_tile) {
+               probs_from_lse<tc::kNT>(s, lse);
+               uint32_t keep[4] = {};
+               if constexpr (kDropout) {
+                 tc::keep_words_qmajor(drop, row_base + w0 + (lane >> 2), k0, keep);
+               }
+               store_signed_probs<tc::kNT, kDropout>(
+                   s, keep, stage, probs + (size_t)(row_base + w0) * sp + k0, sp, seq - w0,
+                   (sp - k0) / 8);
+               drop_probs<tc::kNT, kDropout>(s, keep, drop.scale);
+               tc::mma_nn<tc::kNT>(s, v_tile, acc);
+             });
   tc::store_tile(acc, stage, out + base + (size_t)w0 * hidden, hidden, seq - w0);
+}
+
+// ---- the v2 / v2p forward, bf16, 128 < S < 1024 ----
+//
+// short_fwd_tc.cuh's rule in the two-sweep form: one CTA per (query tile of
+// <= 128 rows, head, batch row), 2 * rows_per_cta threads, one warp per 16
+// query rows, v2s's ring without its probs.  Sweep 1: the online row max
+// and sum (ring_row_stats); sweep 2: the scores again, p = exp2(s - max) *
+// (1 / sum), the dropout, p rounded to bf16 in the pack that feeds P V.  q,
+// k, v at row stride ld; out, out32 [B, S, hidden] and lse [B, heads, S]
+// (kTrain).  Shared memory: the K and V rings and their bias, and the Q
+// tile, whose warp rows are the store stage once both sweeps are done.
+int fwd_tc_long_smem_bytes(int rows_per_cta) {
+  return (rows_per_cta + 4 * kRingTile) * tc::kStride * (int)sizeof(bf16) +
+         2 * kRingTile * (int)sizeof(float);
+}
+
+template <bool kDropout, bool kTrain>
+__global__ void __launch_bounds__(kMaxThreads)
+short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v,
+                                   const float* __restrict__ key_bias, bf16* __restrict__ out,
+                                   float* __restrict__ lse, float* __restrict__ out32,
+                                   int seq, int ld, int hidden, int rows_per_cta,
+                                   float score_mult, Dropout drop) {
+  constexpr int kTile = kRingTile * tc::kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // two buffers
+  bf16* v_s = k_s + 2 * kTile;                // two buffers
+  bf16* q_s = v_s + 2 * kTile;                // [rows_per_cta][kStride]
+  float* bias_s = reinterpret_cast<float*>(q_s + rows_per_cta * tc::kStride);  // [2][64]
+
+  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * rows_per_cta;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t in_base = (size_t)b * seq * ld + (size_t)head * kHeadDim;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const float* bias_row = key_bias + (size_t)b * seq;
+  const int w0 = q0 + warp * 16;  // this warp's first row
+
+  tc::stage_rows(q_s, q, in_base, ld, q0, rows_per_cta, seq);
+  float mx[2], sum[2];
+  ring_row_stats(q_s, warp * 16, k_s, bias_s, k, in_base, ld, bias_row, seq, score_mult, mx,
+                 sum);
+  sum[0] = tc::quad_sum(sum[0]);
+  sum[1] = tc::quad_sum(sum[1]);
+  const float lse2[2] = {mx[0] + log2f(sum[0]), mx[1] + log2f(sum[1])};
+  sum[0] = 1.f / sum[0];
+  sum[1] = 1.f / sum[1];
+
+  float acc[tc::kNT][4];
+#pragma unroll
+  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  ring_sweep(q_s, warp * 16, k_s, v_s, bias_s, k, v, in_base, ld, bias_row, seq, score_mult,
+             [&](float (&s)[tc::kNT][4], int k0, const bf16* v_tile) {
+#pragma unroll
+               for (int n = 0; n < tc::kNT; ++n) {
+#pragma unroll
+                 for (int x = 0; x < 4; ++x) {
+                   s[n][x] = exp2f(s[n][x] - mx[x >> 1]) * sum[x >> 1];
+                 }
+               }
+               uint32_t keep[4] = {};
+               if constexpr (kDropout) {
+                 tc::keep_words_qmajor(drop, row_base + w0 + (lane >> 2), k0, keep);
+               }
+               drop_probs<tc::kNT, kDropout>(s, keep, drop.scale);
+               tc::mma_nn<tc::kNT>(s, v_tile, acc);
+             });
+
+  const size_t out0 = (size_t)b * seq * hidden + (size_t)head * kHeadDim + (size_t)w0 * hidden;
+  tc::store_tile(acc, q_s + warp * 16 * tc::kStride, out + out0, hidden, seq - w0);
+  if constexpr (kTrain) {
+    msa_short_fwd::store_train(acc, lse2, lse + row_base + w0, out32 + out0, hidden, seq - w0);
+  }
 }
 
 // dq from the stashed probs: one CTA per (query tile, head, batch row), two
@@ -1324,6 +1437,26 @@ const void* third(const void* qkv, int part, int hidden, int dtype) {
   return static_cast<const char*>(qkv) + (size_t)part * hidden * (dtype ? 2 : 4);
 }
 
+template <bool kDropout, bool kTrain>
+int launch_fwd_tc_long(const void* q, const void* k, const void* v, const float* bias,
+                       void* out, float* lse, float* out32, int batch, int seq, int ld,
+                       int hidden, int num_heads, float score_mult, Dropout drop,
+                       cudaStream_t s) {
+  int n_tiles, rows;
+  tiles(seq, &n_tiles, &rows);
+  constexpr auto kernel = short_attention_fwd_tc_long_kernel<kDropout, kTrain>;
+  const int bytes = fwd_tc_long_smem_bytes(rows);
+  const cudaError_t err = allow_smem<kernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(n_tiles, num_heads, batch), 2 * rows, bytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<bf16*>(out), lse, out32, seq, ld, hidden, rows, score_mult, drop);
+  return (int)cudaGetLastError();
+}
+
+// f32 on the CUDA cores; bf16 on the tensor cores, the whole-row template
+// (short_fwd_tc.cuh) up to 128 keys, else the two-sweep form.  lse non-null
+// asks for the training form, which for bf16 also writes out32.
 int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
                  void* out, void* lse, void* out32, int batch, int seq, int hidden,
                  int stride, int num_heads, int dtype, float scale, unsigned seed_lo,
@@ -1335,20 +1468,23 @@ int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_FWD(T, D, W) launch_fwd<T, D, W>(q, k, v, bias, out, l, o32, batch, \
-                                             seq, hidden, stride, num_heads, sm, d, s)
   if (dtype == 0) {
-    if (drop) { if (l) MSA_FWD(float, true, true); else MSA_FWD(float, true, false); }
-    else { if (l) MSA_FWD(float, false, true); else MSA_FWD(float, false, false); }
-  } else {
-    if (drop) {
-      if (l) MSA_FWD(__nv_bfloat16, true, true); else MSA_FWD(__nv_bfloat16, true, false);
-    } else {
-      if (l) MSA_FWD(__nv_bfloat16, false, true); else MSA_FWD(__nv_bfloat16, false, false);
-    }
-  }
+#define MSA_FWD(D, W) launch_fwd<float, D, W>(q, k, v, bias, out, l, o32, batch, seq, \
+                                              hidden, stride, num_heads, sm, d, s)
+    if (drop) { if (l) MSA_FWD(true, true); else MSA_FWD(true, false); }
+    else { if (l) MSA_FWD(false, true); else MSA_FWD(false, false); }
 #undef MSA_FWD
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  if ((l == nullptr) != (o32 == nullptr)) return (int)cudaErrorInvalidValue;
+#define MSA_TC(F, D, W) F<D, W>(q, k, v, bias, out, l, o32, batch, seq, stride, hidden, \
+                                num_heads, sm, d, s)
+#define MSA_TC_ALL(F) (drop ? (l ? MSA_TC(F, true, true) : MSA_TC(F, true, false)) \
+                            : (l ? MSA_TC(F, false, true) : MSA_TC(F, false, false)))
+  return seq <= msa_short_fwd::kMaxSeq ? MSA_TC_ALL(msa_short_fwd::launch)
+                                       : MSA_TC_ALL(launch_fwd_tc_long);
+#undef MSA_TC_ALL
+#undef MSA_TC
 }
 
 // o: the f32 output (v2) or the ctx in the storage type (v3); lse: read
@@ -1391,9 +1527,10 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 // score row) and, for bf16, out32 ([B, S, H] f32, the output before its
 // rounding; null for f32, whose out is that already); the serving forward
 // passes both null and t = 0, which runs exactly the no-dropout, no-lse
-// kernel.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success).  The caller has checked shapes, contiguity, 16-byte alignment,
-// head_dim == 64 and seq < 1024.
+// kernel.  bf16 runs on the tensor cores (fwd_dispatch), f32 on the CUDA
+// cores; both forms give the same out.  Launches once on `stream` and
+// returns cudaGetLastError() (0 on success).  The caller has checked
+// shapes, contiguity, 16-byte alignment, head_dim == 64 and seq < 1024.
 extern "C" int msa_short_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* key_bias,
                                        void* out, void* lse, void* out32,

@@ -28,15 +28,11 @@
 // below the ~295 FLOPs per byte where the tensor cores would be the
 // limit).  Both kernels take one CTA per (head, batch row).
 //
-//   * The bf16 forward runs on the tensor cores (mma_tiles.cuh): one warp
-//     per 16 query rows, the head's Q, K and V staged once in bf16 by
-//     cp.async (rows of 144 bytes, keys zero-padded to a multiple of 16,
-//     their scores -inf), S = Q K^T by mma.sync into registers (the whole
-//     score row: S <= 128 keys is 16 n-tiles, 64 f32 a lane), the softmax
-//     there (the four lanes of a quad share a row: two shuffles for the max
-//     and the sum), the dropped p packed to bf16 as the A operand of P V,
-//     and ctx stored in 16-byte row vectors through the warp's own Q rows.
-//     No operand is read twice from shared memory by the CUDA cores.
+//   * The bf16 forward runs on the tensor cores: the stride-H serving form
+//     of short_fwd_tc.cuh, the template the v2 and v2p forwards of
+//     short_attention.cu share (one warp per 16 query rows, Q, K and V
+//     staged once in bf16 by cp.async, the whole score row in registers,
+//     P V by mma.sync), one launch.
 //   * The bf16 backward runs on the tensor cores too: short_bwd_tc.cuh, the
 //     template it shares with the v3 backward of short_attention.cu (delta
 //     from the score row here), one launch.
@@ -62,11 +58,9 @@
 #include "dropout.cuh"
 #include "mma_tiles.cuh"
 #include "short_bwd_tc.cuh"
+#include "short_fwd_tc.cuh"
 
 namespace {
-
-namespace tc = msa_mma;
-using bf16 = __nv_bfloat16;
 
 using msa_dropout::Dropout;
 using msa_dropout::keep_bits16;
@@ -227,94 +221,6 @@ short_v1_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Forward, bf16: ctx only, on the tensor cores
-// ---------------------------------------------------------------------------
-
-// Q, K and V rows (seq rounded up to 16, zero-filled past seq) and the
-// key bias.
-int tc_smem_bytes(int seq) {
-  const int rows = (seq + 15) / 16 * 16;
-  return 3 * rows * tc::kStride * (int)sizeof(bf16) + rows * (int)sizeof(float);
-}
-
-// kKT: 16-key tiles of the padded sequence (seq <= 16 kKT), one warp per
-// 16 query rows.  v1's order: the row max, the sum, p = exp2(s - max) /
-// sum (as a product with 1 / sum), the dropout (kept p times 256 / (256 -
-// t)), then the rounding to bf16 in the pack that feeds P V
-// (p.astype(v.dtype)).
-template <int kKT, bool kDropout>
-__global__ void __launch_bounds__(32 * kKT)
-short_v1_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                       bf16* __restrict__ out, int seq, int hidden, float score_mult,
-                       Dropout drop) {
-  constexpr int kPadded = 16 * kKT;  // query rows and keys, padded
-  constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
-  extern __shared__ __align__(16) float smem[];  // one type for every kernel here
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kPadded * tc::kStride;
-  bf16* v_s = k_s + kPadded * tc::kStride;
-  float* bias_s = reinterpret_cast<float*>(v_s + kPadded * tc::kStride);
-
-  const int head = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t base = (size_t)b * seq * hidden + (size_t)head * kD;
-  const uint32_t row_base = ((uint32_t)b * gridDim.x + head) * (uint32_t)seq;
-
-  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, base, hidden,
-                 kPadded, seq);  // V lands during the softmax
-  tc::cp_async_wait<1>();
-  __syncthreads();
-
-  // Scores in the log2 domain; keys past seq are -inf, so every row's max
-  // is finite.
-  float s[kN][4], mx[2], sum[2] = {0.f, 0.f};
-  tc::mma_nt<kN>(q_s, warp * 16, k_s, s);
-  tc::scores_log2<kN>(s, bias_s, score_mult);
-  tc::row_max<kN>(s, mx);
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      s[n][x] = exp2f(s[n][x] - mx[x >> 1]);
-      sum[x >> 1] += s[n][x];
-    }
-  }
-  // one division a row: p = e * (1 / sum)
-  sum[0] = 1.f / tc::quad_sum(sum[0]);
-  sum[1] = 1.f / tc::quad_sum(sum[1]);
-  uint32_t keep[8] = {};
-  if constexpr (kDropout) {
-    const uint32_t prob_row = row_base + warp * 16 + (lane >> 2);
-    tc::keep_words_qmajor(drop, prob_row, 0, keep);
-    if constexpr (kKT > 4) tc::keep_words_qmajor(drop, prob_row, 64, keep + 4);
-  }
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const float p = s[n][x] * sum[x >> 1];
-      if constexpr (kDropout) {
-        s[n][x] = tc::kept_at(keep, n, x & 1, x >> 1) ? p * drop.scale : 0.f;
-      } else {
-        s[n][x] = p;
-      }
-    }
-  }
-
-  tc::cp_async_wait<0>();
-  __syncthreads();  // V has landed; every warp is done with its Q rows
-  float acc[tc::kNT][4];
-#pragma unroll
-  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  tc::mma_nn<kN>(s, v_s, acc);
-
-  // ctx through the warp's own Q rows, out in 16-byte row vectors
-  tc::store_tile(acc, q_s + warp * 16 * tc::kStride, out + base + (size_t)warp * 16 * hidden,
-                 hidden, seq - warp * 16);
-}
-
-// ---------------------------------------------------------------------------
 // Backward: dq, dk, dv in one launch, from the inputs alone, on the CUDA
 // cores; the entry takes it for f32 only (bf16: short_bwd_tc.cuh)
 // ---------------------------------------------------------------------------
@@ -460,37 +366,6 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* bias, v
   return (int)cudaGetLastError();
 }
 
-template <int kKT, bool kDropout>
-int launch_fwd_tc(const void* q, const void* k, const void* v, const float* bias, void* out,
-                  int batch, int seq, int hidden, int num_heads, float score_mult,
-                  Dropout drop, cudaStream_t s) {
-  constexpr auto kernel = short_v1_fwd_tc_kernel<kKT, kDropout>;
-  const int bytes = tc_smem_bytes(seq);
-  cudaError_t err = allow_smem<kernel>(bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(num_heads, batch), 32 * kKT, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, static_cast<bf16*>(out), seq, hidden, score_mult, drop);
-  return (int)cudaGetLastError();
-}
-
-// The tensor-core forward for the 16-key tiles seq needs (1 .. 8).
-template <bool kDropout>
-int launch_fwd_tc_for(const void* q, const void* k, const void* v, const float* bias,
-                      void* out, int batch, int seq, int hidden, int num_heads,
-                      float score_mult, Dropout drop, cudaStream_t s) {
-#define MSA_TC(KT)                                                                  \
-  case KT:                                                                          \
-    return launch_fwd_tc<KT, kDropout>(q, k, v, bias, out, batch, seq, hidden,       \
-                                       num_heads, score_mult, drop, s)
-  switch ((seq + 15) / 16) {
-    MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
-    MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);
-  }
-#undef MSA_TC
-  return (int)cudaErrorInvalidValue;
-}
-
 template <typename T, bool kDropout>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                const void* dout, void* dq, void* dk, void* dv, int batch, int seq, int hidden,
@@ -525,13 +400,15 @@ extern "C" int msa_short_attention_v1_fwd(const void* q, const void* k, const vo
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   const float sm = scale * kLog2e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  // f32 on the CUDA cores, bf16 on the tensor cores
-#define MSA_FWD(F, D) F<D>(q, k, v, bias, out, batch, seq, hidden, num_heads, sm, d, s)
-  if (dtype == 0) {
-    return drop_threshold ? MSA_FWD(launch_fwd, true) : MSA_FWD(launch_fwd, false);
-  }
-  return drop_threshold ? MSA_FWD(launch_fwd_tc_for, true) : MSA_FWD(launch_fwd_tc_for, false);
+  // f32 on the CUDA cores, bf16 on the tensor cores (short_fwd_tc.cuh)
+#define MSA_FWD(D) launch_fwd<D>(q, k, v, bias, out, batch, seq, hidden, num_heads, sm, d, s)
+  if (dtype == 0) return drop_threshold ? MSA_FWD(true) : MSA_FWD(false);
 #undef MSA_FWD
+#define MSA_TC(D)                                                                             \
+  msa_short_fwd::launch<D, false>(q, k, v, bias, out, nullptr, nullptr, batch, seq, hidden, \
+                                  hidden, num_heads, sm, d, s)
+  return drop_threshold ? MSA_TC(true) : MSA_TC(false);
+#undef MSA_TC
 }
 
 // dq, dk, dv from q, k, v, key_bias and dout alone, for the same seed and

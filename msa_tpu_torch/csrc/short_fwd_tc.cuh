@@ -1,0 +1,214 @@
+// The bf16 short-attention forward on the tensor cores, S <= 128, head dim
+// 64: one (head, batch row) a CTA, the whole score row of each query in
+// registers.  One template serves the forwards of three TPU kernels of
+// msa_tpu/ops/short_attention.py, which compute one function:
+//
+//   * v2, _fwd_kernel_v2 (:303; short_attention.cu, msa_short_attention_fwd):
+//     q, k, v at row stride H; the training form (kTrain) also writes each
+//     row's lse (log2 units), which the v2 backward reads, and the output
+//     in f32 (out32);
+//   * v2p, _fwd_kernel_v2p (:471; msa_short_attention_packed_fwd): the same
+//     on the thirds of one packed [B, S, 3H] qkv, read at row stride 3H;
+//   * v1, _fwd_kernel (:139; short_attention_v1.cu): the stride-H serving
+//     form.
+//
+// ctx, out32 ([B, S, H]) and lse ([B, heads, S]) never take the input
+// stride.  The rule is JAX's (:279-287, :326-332): the row max, the sum,
+// p = exp2(s - max) / sum (a product with 1 / sum), the dropout (kept p
+// times 256 / (256 - t)), then p rounded to bf16 in the pack that feeds
+// P V (p.astype(v.dtype)), the product accumulated in f32.  The bf16 ctx
+// and out32 come from one accumulator, so ctx == bf16(out32), and the
+// serving and training forms give the same ctx bit for bit.
+//
+// What bounds it on the H100: bytes (at S = 80 a (batch, head) pair does
+// 4 * S * S * 64 FLOPs on 4 * S * 64 bf16 elements, 80 FLOPs an element,
+// far below the ~295 FLOPs a byte where the tensor cores would be the
+// limit; the training form adds 4 bytes an element of out32).  So every
+// operand is read once and nothing of size [S, S] leaves the SM:
+//
+//   * kKT = ceil(S / 16) warps, one per 16 query rows; Q, K and V staged
+//     once in bf16 by cp.async (144-byte rows, zero-filled past S; V lands
+//     during the softmax); padded keys score -inf (not the -10000 fill), so
+//     a fully masked row keeps its softmax;
+//   * S = Q K^T by mma.sync into registers (the whole row: S <= 128 keys is
+//     16 n-tiles, 64 f32 a lane), max and sum by two quad shuffles each,
+//     the keep words of dropout.cuh's rule for prob_row = (b * heads +
+//     head) * S + row (so v1, v2, v2p, v2s and the keep-mask export draw
+//     one mask at a seed), the dropped p packed to bf16 as the A operand
+//     of P V;
+//   * ctx stored in 16-byte row vectors through the warp's own Q rows,
+//     out32 straight from the accumulator layout in 8-byte vectors, the lse
+//     by the lanes that hold rows g and g + 8 (c == 0).
+//
+// __launch_bounds__ names the threads only: the CTAs shared memory allows
+// (6 at 5 tiles) would cap a thread at 64-68 registers, below the score
+// row and the accumulator it holds (the backward's bound, short_bwd_tc.cuh,
+// names them: its shared tiles allow fewer CTAs).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "dropout.cuh"
+#include "mma_tiles.cuh"
+
+namespace msa_short_fwd {
+
+namespace tc = msa_mma;
+using bf16 = __nv_bfloat16;
+using msa_dropout::Dropout;
+
+constexpr int kMaxSeq = 128;  // 8 16-key tiles: a warp's score row in registers
+
+// Q, K and V rows and the key bias, at kKT tiles.
+__host__ __device__ constexpr int tile_smem_bytes(int kKT) {
+  return 3 * 16 * kKT * tc::kStride * (int)sizeof(bf16) + 16 * kKT * (int)sizeof(float);
+}
+
+// The training outputs of a warp's rows [0, rows): lse[g] and lse[g + 8]
+// from the lanes with c == 0 (constant indices into lse2: indexed by the
+// row loop, ptxas kept it on a stack frame), and out32 (row stride ld)
+// straight from the accumulator layout, two values a store.
+__device__ __forceinline__ void store_train(const float (&acc)[tc::kNT][4], const float* lse2,
+                                            float* lse, float* out32, size_t ld, int rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  if (c == 0) {
+    if (g < rows) lse[g] = lse2[0];
+    if (g + 8 < rows) lse[g + 8] = lse2[1];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (g + 8 * r >= rows) continue;
+    float* p = out32 + (size_t)(g + 8 * r) * ld + 2 * c;
+#pragma unroll
+    for (int n = 0; n < tc::kNT; ++n) {
+      *reinterpret_cast<float2*>(p + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// kKT: 16-key tiles of the padded sequence (seq <= 16 kKT).  q, k, v at row
+// stride ld; out, out32 [B, S, hidden]; lse [B, heads, S].  lse and out32
+// are written under kTrain only.
+template <int kKT, bool kDropout, bool kTrain>
+__global__ void __launch_bounds__(32 * kKT)
+short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                    bf16* __restrict__ out, float* __restrict__ lse,
+                    float* __restrict__ out32, int seq, int ld, int hidden,
+                    float score_mult, Dropout drop) {
+  constexpr int kPadded = 16 * kKT;  // query rows and keys, padded
+  constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + kPadded * tc::kStride;
+  bf16* v_s = k_s + kPadded * tc::kStride;
+  float* bias_s = reinterpret_cast<float*>(v_s + kPadded * tc::kStride);
+
+  const int head = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = warp * 16;
+  const size_t in_base = (size_t)b * seq * ld + (size_t)head * tc::kD;
+  const size_t out_base = (size_t)b * seq * hidden + (size_t)head * tc::kD;
+  const uint32_t row_base = ((uint32_t)b * gridDim.x + head) * (uint32_t)seq;
+
+  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, in_base, ld,
+                 kPadded, seq);  // V lands during the softmax
+  tc::cp_async_wait<1>();
+  __syncthreads();
+
+  // Scores in the log2 domain; keys past seq are -inf, so every row's max
+  // is finite.
+  float s[kN][4], mx[2], sum[2] = {0.f, 0.f};
+  tc::mma_nt<kN>(q_s, row0, k_s, s);
+  tc::scores_log2<kN>(s, bias_s, score_mult);
+  tc::row_max<kN>(s, mx);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      s[n][x] = exp2f(s[n][x] - mx[x >> 1]);
+      sum[x >> 1] += s[n][x];
+    }
+  }
+  sum[0] = tc::quad_sum(sum[0]);
+  sum[1] = tc::quad_sum(sum[1]);
+  const float lse2[2] = {mx[0] + log2f(sum[0]), mx[1] + log2f(sum[1])};
+  // one division a row: p = e * (1 / sum)
+  sum[0] = 1.f / sum[0];
+  sum[1] = 1.f / sum[1];
+  uint32_t keep[8] = {};
+  if constexpr (kDropout) {
+    const uint32_t prob_row = row_base + row0 + (lane >> 2);
+    tc::keep_words_qmajor(drop, prob_row, 0, keep);
+    if constexpr (kKT > 4) tc::keep_words_qmajor(drop, prob_row, 64, keep + 4);
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float p = s[n][x] * sum[x >> 1];
+      if constexpr (kDropout) {
+        s[n][x] = tc::kept_at(keep, n, x & 1, x >> 1) ? p * drop.scale : 0.f;
+      } else {
+        s[n][x] = p;
+      }
+    }
+  }
+
+  tc::cp_async_wait<0>();
+  __syncthreads();  // V has landed; every warp is done with its Q rows
+  float acc[tc::kNT][4];
+#pragma unroll
+  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  tc::mma_nn<kN>(s, v_s, acc);
+
+  // ctx through the warp's own Q rows, out in 16-byte row vectors
+  const int rows = seq - row0;  // this warp's rows below seq (>= 1)
+  const size_t out0 = out_base + (size_t)row0 * hidden;
+  tc::store_tile(acc, q_s + row0 * tc::kStride, out + out0, hidden, rows);
+  if constexpr (kTrain) {
+    store_train(acc, lse2, lse + row_base + row0, out32 + out0, hidden, rows);
+  }
+}
+
+template <int kKT, bool kDropout, bool kTrain>
+int launch_tiles(const void* q, const void* k, const void* v, const float* bias, void* out,
+                 float* lse, float* out32, int batch, int seq, int ld, int hidden,
+                 int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+  constexpr auto kernel = short_fwd_tc_kernel<kKT, kDropout, kTrain>;
+  constexpr int bytes = tile_smem_bytes(kKT);
+  if (bytes > 48 * 1024) {  // above 48 KB of dynamic shared memory: opt in
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3(num_heads, batch), 32 * kKT, bytes, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      bias, static_cast<bf16*>(out), lse, out32, seq, ld, hidden, score_mult, drop);
+  return (int)cudaGetLastError();
+}
+
+// One launch for the 16-key tiles seq needs (1 .. 8); the caller has
+// checked 0 < seq <= kMaxSeq.  lse and out32: the training outputs (read
+// under kTrain only).
+template <bool kDropout, bool kTrain>
+int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
+           float* lse, float* out32, int batch, int seq, int ld, int hidden, int num_heads,
+           float score_mult, Dropout drop, cudaStream_t s) {
+#define MSA_TC(KT)                                                                        \
+  case KT:                                                                                \
+    return launch_tiles<KT, kDropout, kTrain>(q, k, v, bias, out, lse, out32, batch, seq, \
+                                              ld, hidden, num_heads, score_mult, drop, s)
+  switch ((seq + 15) / 16) {
+    MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
+    MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);
+  }
+#undef MSA_TC
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace msa_short_fwd

@@ -49,10 +49,13 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   and takes delta = rowsum(p * dpm).  No model path calls it, as in JAX.
 
 Each kernel entry has a plain version beside it (``*_plain``), which CPU
-tensors run.  ``short_attention``, ``short_attention_probs`` and
-``flash_attention2`` take ``recompute``: a callable returning (q, k, v),
-called in the backward in place of saving q, k and v (the ``save_ctx``
-rung recomputes the projections, never the attention forward).
+tensors run; the training forward's outputs (ctx, the row lse and the f32
+output the backward reads) have theirs in
+:func:`short_attention_train_forward_plain`.  ``short_attention``,
+``short_attention_probs`` and ``flash_attention2`` take ``recompute``: a
+callable returning (q, k, v), called in the backward in place of saving q,
+k and v (the ``save_ctx`` rung recomputes the projections, never the
+attention forward).
 
 ``<entry>.launches`` counts each entry's kernel launches.
 """
@@ -132,15 +135,47 @@ def short_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.reshape(b, s, h)
 
 
-def _scores_plain(q, k, key_bias, num_heads):
-    """f32 softmax probabilities [B, heads, S, S] (``_xla_attention``)."""
+def short_attention_train_forward_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        key_bias: torch.Tensor, num_heads: int, rate: float = 0.0,
+        keep: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the training forward (:func:`launch_forward`
+    with ``train``): (ctx, lse, out32).
+
+    Scores and softmax in f32; ``lse`` [B, heads, S] f32 is each row's log2
+    of the sum of exp2 of its scores in the log2 domain (logsumexp / ln 2);
+    ``out32`` [B, S, H] f32 is the dropped probabilities (``keep`` a [B,
+    heads, S, S] bool mask, kept p over ``1 - rate``) rounded to q's dtype
+    times v, summed in f32, as JAX's ``_fwd_kernel_v2`` forms ctx before its
+    cast; ``ctx`` is ``out32`` in q's dtype.  The oracle of the kernels'
+    training form; no model path calls it.
+    """
+    b, s, h = q.shape
+    logits = _logits_plain(q, k, key_bias, num_heads)
+    lse = torch.logsumexp(logits, dim=-1) / math.log(2.0)
+    p = torch.softmax(logits, dim=-1)
+    if keep is not None:
+        p = torch.where(keep, p / (1.0 - rate), 0.0)
+    out32 = torch.einsum("bnqk,bknd->bqnd", p.to(q.dtype).float(),
+                         v.float().reshape(b, s, num_heads, h // num_heads))
+    out32 = out32.reshape(b, s, h)
+    return out32.to(q.dtype), lse, out32
+
+
+def _logits_plain(q, k, key_bias, num_heads):
+    """f32 scores [B, heads, S, S] in natural units, the key bias added."""
     b, s, h = q.shape
     d = h // num_heads
     split = lambda x: x.reshape(b, s, num_heads, d)  # noqa: E731
     scores = torch.einsum("bqnd,bknd->bnqk", split(q).float(),
                           split(k).float())
-    scores = scores / math.sqrt(d) + key_bias.float()[:, None, None, :]
-    return torch.softmax(scores, dim=-1)
+    return scores / math.sqrt(d) + key_bias.float()[:, None, None, :]
+
+
+def _scores_plain(q, k, key_bias, num_heads):
+    """f32 softmax probabilities [B, heads, S, S] (``_xla_attention``)."""
+    return torch.softmax(_logits_plain(q, k, key_bias, num_heads), dim=-1)
 
 
 def _check(q, k, v, key_bias, num_heads, what, max_seq=MAX_SEQ):
@@ -189,7 +224,10 @@ def launch_forward(entry, what, q, k, v, key_bias, num_heads, seed,
     short and the flash2 forwards share one signature); returns (ctx, lse,
     ctx32).  ``train``: also the row lse [B, heads, S] (log2 units) and the
     output in f32 (``ctx`` itself for f32 inputs), which the backward
-    reads; else both are None."""
+    reads; else both are None.  The short forward runs bf16 on the tensor
+    cores (whole rows in registers up to 128 keys, two sweeps above) and
+    f32 on the CUDA cores; its training form's plain version is
+    :func:`short_attention_train_forward_plain`."""
     b, s, h = q.shape
     q, k, v = _aligned(q, k, v, what=what)
     key_bias = key_bias.to(torch.float32).contiguous()
@@ -226,7 +264,10 @@ def short_attention_backward(q, k, v, key_bias, out32, lse, dout,
     """dq, dk, dv of :func:`short_attention` (CUDA only): ``out32`` (the
     output in f32) and ``lse`` are the training forward's outputs for the
     same inputs, seed and rate.  Two launches, dq then dk/dv; no [S, S]
-    tensor is stored."""
+    tensor is stored.  The kernels read the lse and take delta =
+    rowsum(p * dpm), JAX's ``_bwd_kernel_v2`` rule; ``out32`` is checked
+    but not read (dO . out32 would carry the forward's bf16 rounding of p
+    into every dS)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_backward")
     b, s, h = q.shape
     threshold = byte_threshold(rate)
@@ -642,7 +683,8 @@ def _check_packed(qkv, key_bias, num_heads, what):
 
 
 def _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold, train):
-    """The packed forward; (ctx, lse, out32) as :func:`launch_forward`."""
+    """The packed forward; (ctx, lse, out32) as :func:`launch_forward`: the
+    same kernels reading the thirds of ``qkv`` at row stride 3H."""
     b, s, h3 = qkv.shape
     h = h3 // 3
     (qkv,) = _aligned(qkv, what="short_attention_packed")
