@@ -11,18 +11,20 @@ failure (no phase catches its own):
      one nvcc per source, all started together, and prints what ptxas
      reports (registers, static shared memory, spills) for the bf16
      tensor-core kernels of the short attention (the v1, v2, v2p and v2s
-     forwards, the v1 and v3 backwards);
+     forwards, the v1, v2, v2p and v3 backwards);
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
      * the attention forward at the serving shapes (and a few more), its
-       serving and training forms (ctx, the f32 output, the row lse) and
-       the packed forward (v2p) at rate 0 and with dropout, each call's form
-       (bf16: tensor cores, whole row up to 128 keys, two sweeps above);
-       bf16 also at S = 12, 128, 130, 200 and 1000;
-     * the attention backward against autograd through the plain version,
-       at rate 0 and at rate 0.1 snapped to t/256, the plain version taking
-       the kernel's exported keep mask;
+       serving and training forms (ctx, the row lse) and the packed forward
+       (v2p) at rate 0 and with dropout, each call's form (bf16: tensor
+       cores, whole row up to 128 keys, two sweeps above); bf16 also at S =
+       12, 128, 130, 200 and 1000;
+     * the attention backward (bf16 at S <= 128 on the tensor cores, else
+       the CUDA-core pair) through autograd of the entry, against its plain
+       rule with JAX's roundings and against autograd through the plain
+       version in f32, at rate 0 and at rate 0.1 snapped to t/256, the plain
+       versions taking the kernel's exported keep mask;
      * the dropout mask: the export kernel against its plain Philox, the
        keep share, the forward with dropout against the plain version given
        that mask, and seed determinism;
@@ -37,15 +39,18 @@ failure (no phase catches its own):
      * the '+probs' (v2s) and 'save_pack' (v2p) pairs at the text and
        joint shapes: the v2s forward's ctx and signed probs (their signs
        the exported keep mask) and its backward from its own probs against
-       the plain versions, v2s's ctx against v2's; the packed forward and
-       backward bit-equal to v2's kernels on the thirds and against the
-       plain packed backward; the bf16 v2s forward (tensor cores) also at
-       S = 12, 128 and, in its two-sweep form, 200 and 1000;
+       the plain versions (the backward's rounded rule, and autograd in
+       f32), v2s's ctx against v2's; the packed forward bit-equal to v2's
+       and the packed backward to v3's on the thirds, both against the
+       plain versions (the backward's rounded rule, and autograd in f32),
+       also at [8, 130] (the CUDA-core backward); the bf16 v2s forward
+       (tensor cores) also at S = 12, 128 and, in its two-sweep form, 200
+       and 1000;
      * the fused AdamW on bert-large's leaf shapes, every pair of
        moment dtypes, with and without a clip scale, an odd length and an
        unaligned leaf, timed beside ``torch.optim.AdamW(fused=True)``; the
        v3 backward pair (``USE_V3_BWD``) against its plain version and the
-       v2 pair at the text and joint shapes, its recomputed lse against the
+       v2 backward at the text and joint shapes, its recomputed lse against the
        forward's;
      * the head-split flash attention (``ops.attention.flash_attention``,
        [B, heads, S, 64]) at the frame-level joint shape [32, 16, 1024],
@@ -144,15 +149,16 @@ import time
 #    rounds the probabilities to bf16 before the PV product (as the JAX
 #    reference does), as do the bf16 forwards (v1, v2, v2p and v2s, all on
 #    the tensor cores).  About one bf16 ulp.
-#  * gradients: against autograd through the plain version in f32 on the
-#    same values (bf16 inputs widened exactly).  The kernels also compute in
-#    f32 from the inputs (the v2 pair recomputes p from the forward's lse
-#    and sums delta = rowsum(p * dpm) itself, as JAX's v2 backward does),
-#    so in bf16 they differ from it by the rounding of their bf16 outputs
-#    (2^-9 relative) and summation order: 1e-2 relative is ~5 ulps.  The
-#    plain version run in bf16 rounds dP = dO.V^T and the PV operands
-#    itself and lands further from the f32 result; its error is printed
-#    beside the kernels' as the yardstick.
+#  * gradients: every backward kernel rounds dS and the dropped p to bf16
+#    before their products, as JAX's do, so each is held against its plain
+#    rule with those roundings (evaluated in f32 on the same values) at
+#    the tolerance: the rest differs by the rounding of the bf16 outputs
+#    (2^-9 relative) and summation order, 1e-2 relative is ~5 ulps.  And
+#    against autograd through the plain version in f32 (bf16 inputs
+#    widened exactly) within twice the tolerance plus the gap the roundings
+#    make in the rule (check_within): at a row with few live keys many
+#    large p's sum into a small dv, and their bf16 rounding alone passes
+#    1e-2 there.
 #  * rows whose keys are all masked: every score carries the -10000 fill,
 #    whose f32 ulp (2^-10) quantises the scores differently in the kernels'
 #    base-2 domain and the plain natural one.
@@ -408,14 +414,13 @@ def check_train_forward(tag, q, k, v, bias, live, seed, rate, keep,
                         few_keys=False):
     """The short forward's serving and training forms (v2), and the packed
     forward (v2p) on the thirds of one [B, S, 3H] buffer, at one seed: the
-    training form's ctx, out32 (ATTN_TOL on live rows) and lse
-    (TRAIN_LSE_TOL) against ``short_attention_train_forward_plain`` (given
-    the exported keep mask); fully masked rows of ctx and out32 against it
-    at MASKED_ROW_ATOL or, with ``few_keys``, ctx by
-    :func:`check_masked_rows`; the serving ctx equal to the training ctx,
-    bf16's ctx equal to out32 rounded, v2p equal to v2 in every output, bit
-    for bit.  Returns (max abs err of ctx and out32, of lse on rows with a
-    live key, the masked rows' (difference, rule gap) or None)."""
+    training form's ctx (ATTN_TOL on live rows) and lse (TRAIN_LSE_TOL)
+    against ``short_attention_train_forward_plain`` (given the exported
+    keep mask); fully masked rows of ctx against it at MASKED_ROW_ATOL or,
+    with ``few_keys``, by :func:`check_masked_rows`; the serving ctx equal
+    to the training ctx, v2p equal to v2 in both outputs, bit for bit.
+    Returns (max abs err of ctx, of lse on rows with a live key, the masked
+    rows' (difference, rule gap) or None)."""
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
@@ -425,39 +430,34 @@ def check_train_forward(tag, q, k, v, bias, live, seed, rate, keep,
     atol, rtol = ATTN_TOL[dname]
     t = byte_threshold(rate)
     serve = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, False)[0]
-    ctx, lse, out32 = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
+    ctx, lse = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
     qkv = torch.cat([q, k, v], dim=-1)
     packed = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, True)
     packed_serve = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, False)[0]
-    rctx, rlse, rout32 = sa.short_attention_train_forward_plain(
+    rctx, rlse = sa.short_attention_train_forward_plain(
         q, k, v, bias, HEADS, rate, keep)
     torch.cuda.synchronize()
     if not torch.equal(serve, ctx):
         raise AssertionError(f"{tag}: serving and training ctx differ")
-    if q.dtype == torch.bfloat16 and not torch.equal(ctx, out32.to(q.dtype)):
-        raise AssertionError(f"{tag}: ctx is not out32 rounded")
-    if not (all(torch.equal(a, c) for a, c in zip(packed, (ctx, lse, out32)))
+    if not (all(torch.equal(a, c) for a, c in zip(packed, (ctx, lse)))
             and torch.equal(packed_serve, serve)):
         raise AssertionError(f"{tag}: v2p not bit-equal to v2 on the thirds")
-    err = max(check_close(f"{tag} ctx", ctx, rctx, atol, rtol, mask=live),
-              check_close(f"{tag} out32", out32, rout32, atol, rtol,
-                          mask=live))
+    err = check_close(f"{tag} ctx", ctx, rctx, atol, rtol, mask=live)
     check_close(f"{tag} lse", lse, rlse, *TRAIN_LSE_TOL)
     lse_err = float((lse - rlse)[live].abs().max())  # fully masked rows apart
     masked = None
     if few_keys:
         masked = check_masked_rows(tag, ctx, q, k, v, bias, live, rate, keep)
     else:
-        for name, got, ref in (("ctx", ctx, rctx), ("out32", out32, rout32)):
-            check_close(f"{tag} {name} masked row", got, ref, MASKED_ROW_ATOL,
-                        0.0, mask=~live)
+        check_close(f"{tag} ctx masked row", ctx, rctx, MASKED_ROW_ATOL, 0.0,
+                    mask=~live)
     return err, lse_err, masked
 
 
 def phase_attention(gen):
     """The short forward (v2) at the serving shapes and a few more, bf16
     and f32: the serving form against the plain version (and SDPA's time),
-    the training form (ctx, out32, lse) and the packed forward
+    the training form (ctx, lse) and the packed forward
     (:func:`check_train_forward`) at rate 0 and with dropout, each call's
     form and the training form's time beside the serving form's (v2p's
     both forms too).  Then bf16
@@ -514,16 +514,14 @@ def phase_attention(gen):
             nbytes = 4 * b * s * HIDDEN * itemsize + b * s * 4
             flops = 4 * b * s * s * HIDDEN
             bound = bound_ms(nbytes, flops, dname)
-            # the training form also writes the row lse and, for bf16, the
-            # f32 output (f32's ctx is that output)
-            extra = b * HEADS * s * 4 + (4 * b * s * HIDDEN if itemsize == 2 else 0)
-            train_bound = bound_ms(nbytes + extra, flops, dname)
+            # the training form also writes the row lse
+            train_bound = bound_ms(nbytes + b * HEADS * s * 4, flops, dname)
             times[(label, dname)] = (ms, plain_ms, lib_ms, bound)
             print(f"short_attention [{b},{s},{HIDDEN}] {dname} "
                   f"({fwd_form(s, dtype)}): max_abs_err {err:.3e} (atol "
                   f"{atol}, rtol {rtol}), masked row {err_masked:.3e} (atol "
                   f"{MASKED_ROW_ATOL}); training form (rate 0 and "
-                  f"{rate_on:g}) ctx and out32 {train_err:.3e}, lse "
+                  f"{rate_on:g}) ctx {train_err:.3e}, lse "
                   f"{lse_err:.3e} on live rows (all rows within atol "
                   f"{TRAIN_LSE_TOL[0]}, rtol {TRAIN_LSE_TOL[1]}), v2p "
                   f"bit-equal; kernel {ms:.4f} ms "
@@ -546,25 +544,51 @@ def phase_attention(gen):
             err, lse_err, (diff, gap) = check_train_forward(
                 tag, q, k, v, bias, live, seed, rate, keep, few_keys=True)
             worst = max(worst, err)
-            print(f"{tag} ({fwd_form(s, torch.bfloat16)}): ctx and out32 "
+            print(f"{tag} ({fwd_form(s, torch.bfloat16)}): ctx "
                   f"max_abs_err {err:.3e}, lse {lse_err:.3e} on live rows; "
-                  f"serving ctx = "
-                  f"training ctx = out32 rounded, v2p bit-equal; masked rows "
+                  f"serving ctx = training ctx, v2p bit-equal; masked rows "
                   f"{diff:.3e} from f32 (the rounding rule {gap:.3e})",
                   flush=True)
     return worst, times
 
 
+def check_rounded_backward(tag, grads, rule, rule32, auto, live, atol, rtol):
+    """A backward kernel's dq, dk, dv against its plain rule with the
+    kernel's roundings (``rule``: dS and the dropped p rounded to the
+    dtype) at (atol, rtol) on live rows and MASKED_ROW_GRAD_ATOL on fully
+    masked rows, and against autograd through the plain forward in f32
+    (``auto``) on live rows within twice the tolerance plus the gap those
+    roundings make in the rule (|rule - rule32|, ``rule32`` the rule in f32
+    throughout; :func:`check_within`).  Returns (max abs err against the
+    rule, largest difference to autograd)."""
+    err = auto_err = 0.0
+    for name, g, r, r32, a in zip(("dq", "dk", "dv"), grads, rule, rule32,
+                                  auto):
+        err = max(err, check_close(f"{tag} {name}", g, r, atol, rtol,
+                                   mask=live))
+        check_close(f"{tag} {name} masked row", g, r, MASKED_ROW_GRAD_ATOL,
+                    0.0, mask=~live)
+        gap = (r.float() - r32.float()).abs()
+        auto_err = max(auto_err, check_within(
+            f"{tag} {name} against autograd", g, a, atol, rtol, gap, live))
+    return err, auto_err
+
+
 def phase_attention_backward(gen):
-    """The backward kernel pair against autograd through the plain version,
-    at rate 0 and with dropout (the plain version given the exported mask)."""
+    """The v2 backward (row 3; bf16 at S <= 128 one tensor-core launch of
+    short_bwd_tc.cuh, else the CUDA-core pair), run through autograd of
+    ``short_attention`` (so through the forward form and the tensors its
+    route keeps), at rate 0 and with dropout, held by
+    :func:`check_rounded_backward` against JAX's ``_bwd_kernel_v2`` rule
+    (``short_attention_v1_backward_plain``, dS and the dropped p rounded,
+    given the exported keep mask) and against autograd through the plain
+    version in f32.  Times the backward alone beside the plain backward,
+    SDPA's and the bound."""
     import torch
     import torch.nn.functional as F
 
+    from msa_tpu_torch.ops import short_attention as sa
     from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
-    from msa_tpu_torch.ops.short_attention import (
-        _forward_kernel, dropout_keep_mask, short_attention,
-        short_attention_backward, short_attention_plain)
 
     rate_on = quantize_dropout_rate(ATTN_DROPOUT)
     cases = [("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN),
@@ -573,45 +597,42 @@ def phase_attention_backward(gen):
     for label, b, s in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
+            tc = sa.tensor_core_backward(s, dtype)
+            cores = "tensor cores" if tc else "CUDA cores"
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
                                    generator=gen).to(dtype)
                 seed = 1234 + s
-                keep = (dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
                         if rate else None)
-                grads = []  # kernels, plain in f32, plain in the dtype
-                for run in ("kernel", "plain32", "plain"):
-                    qq, kk, vv = (x.detach().float().requires_grad_()
-                                  if run == "plain32" else
-                                  x.detach().requires_grad_() for x in (q, k, v))
-                    out = (short_attention(qq, kk, vv, bias, HEADS, rate, seed)
-                           if run == "kernel" else short_attention_plain(
-                               qq, kk, vv, bias, HEADS, rate, keep))
-                    grads.append(torch.autograd.grad(
-                        out, (qq, kk, vv), dout.to(out.dtype)))
+                qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+                grads = torch.autograd.grad(
+                    sa.short_attention(qq, kk, vv, bias, HEADS, rate, seed),
+                    (qq, kk, vv), dout)
+                wide = [x.detach().float().requires_grad_() for x in (q, k, v)]
+                auto = torch.autograd.grad(sa.short_attention_plain(
+                    *wide, bias, HEADS, rate, keep), wide, dout.float())
+                rule = sa.short_attention_v1_backward_plain(
+                    q, k, v, bias, dout, HEADS, rate, keep)
+                rule32 = sa.short_attention_v1_backward_plain(
+                    *wide, bias, dout.float(), HEADS, rate, keep)
                 torch.cuda.synchronize()
                 atol, rtol = GRAD_TOL[dname]
-                case_err = plain_err = 0.0
-                for name, got, ref, alt in zip(("dq", "dk", "dv"), *grads):
-                    tag = (f"short_attention_backward {label} {dname} rate "
-                           f"{rate:g} {name}")
-                    case_err = max(case_err, check_close(
-                        tag, got, ref, atol, rtol, mask=live))
-                    check_close(tag + " masked row", got, ref,
-                                MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
-                    plain_err = max(plain_err, float(
-                        (alt.float() - ref)[live].abs().max()))
+                case_err, auto_err = check_rounded_backward(
+                    f"short_attention_backward {label} {dname} rate {rate:g}",
+                    grads, rule, rule32, auto, live, atol, rtol)
                 worst = max(worst, case_err)
 
-                # times: the backward pair alone against the plain backward
-                # alone (autograd through the plain version, graph kept)
-                _, lse, ctx32 = _forward_kernel(q, k, v, bias, HEADS, seed,
-                                                byte_threshold(rate), train=True)
-                ms = cuda_ms(lambda: short_attention_backward(
-                    q, k, v, bias, ctx32, lse, dout, HEADS, seed, rate))
+                # times: the backward alone against the plain backward alone
+                # (autograd through the plain version, graph kept)
+                lse = sa._forward_kernel(q, k, v, bias, HEADS, seed,
+                                         byte_threshold(rate), not tc)[1]
+                ms = cuda_ms(lambda: sa.short_attention_backward(
+                    q, k, v, bias, lse, dout, HEADS, seed, rate))
                 qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
-                out = short_attention_plain(qq, kk, vv, bias, HEADS, rate, keep)
+                out = sa.short_attention_plain(qq, kk, vv, bias, HEADS, rate,
+                                               keep)
                 plain_ms = cuda_ms(lambda: torch.autograd.grad(
                     out, (qq, kk, vv), dout, retain_graph=True))
                 lib_ms = lib_txt = None
@@ -630,23 +651,26 @@ def phase_attention_backward(gen):
                         (qq, kk, vv), lib_do))
                     lib_txt = f"sdpa bwd {lib_ms:.4f} ms, fwd+bwd {fb_ms:.4f} ms"
                 # the function's bytes: reads q, k, v, dO and the [B, S] f32
-                # bias once, writes dq, dk, dv once.  The row lse that this
-                # design reads from the forward (and delta, which the dq
-                # launch hands to dk/dv) are its own choice, so the lse is
-                # printed apart, not counted.  The products: the scores
-                # (recomputed: P is not an input), dP = dO.V^T, dV = P^T.dO,
-                # dQ = dS.K, dK = dS^T.Q
+                # bias once, writes dq, dk, dv once.  The row lse that the
+                # CUDA-core pair reads from the forward (and delta, which its
+                # dq launch hands to dk/dv) are that design's own choice, so
+                # the lse is printed apart, not counted.  The products: the
+                # scores (recomputed: P is not an input), dP = dO.V^T, dV =
+                # P^T.dO, dQ = dS.K, dK = dS^T.Q
                 nbytes = 7 * q.element_size() * b * s * HIDDEN + b * s * 4
                 extra = b * HEADS * s * 4
                 bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
                 times[(label, dname, rate)] = (ms, plain_ms, lib_ms, bound)
                 print(f"short_attention_backward [{b},{s},{HIDDEN}] {dname} "
-                      f"rate {rate:g}: max_abs_err {case_err:.3e} (atol {atol},"
-                      f" rtol {rtol}; the plain version in {dname}: "
-                      f"{plain_err:.3e}); kernel {ms:.4f} ms, plain "
+                      f"({cores}) rate {rate:g}: max_abs_err {case_err:.3e} "
+                      f"against the rounded rule (atol {atol}, rtol {rtol}), "
+                      f"{auto_err:.3e} against f32 autograd (twice that plus "
+                      f"the rounding gap); kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, {lib_txt or 'no sdpa (dropout)'}, "
-                      f"bound {bound[0]:.4f} ms ({bound[1]}; the design's "
-                      f"lse read adds {extra / HBM_BYTES_PER_S * 1e3:.4f} ms)",
+                      f"bound {bound[0]:.4f} ms ({bound[1]}, "
+                      f"{bound[0] / ms:.1%} of it reached"
+                      + ("" if tc else f"; the lse read adds "
+                         f"{extra / HBM_BYTES_PER_S * 1e3:.4f} ms") + ")",
                       flush=True)
     return worst, times
 
@@ -1448,9 +1472,7 @@ def phase_training():
     peak = torch.cuda.max_memory_allocated()
 
     layers = cfg.bert.num_hidden_layers
-    want = expect_counts(short_attention=2 * layers * TRAIN_STEPS,
-                         short_attention_backward=2 * 2 * layers * TRAIN_STEPS,
-                         fused_joint_embed=2 * TRAIN_STEPS)
+    want = rung_launches("none", layers, TRAIN_STEPS)
     if trainer.remat_policy != "none" or launches != want:
         raise AssertionError(f"training: remat {trainer.remat_policy}, launches "
                              f"{launches}, want {want} ({TRAIN_STEPS} steps)")
@@ -1627,12 +1649,7 @@ def phase_frame_training(pair_len, batch, layers, warmup, steps, label):
     seq = TEXT_LEN + pair_len
     fused = use_fused_backward(seq, cfg.bert.hidden_size,
                                cfg.bert.num_attention_heads, torch.bfloat16)
-    want = expect_counts(short_attention=n * steps,
-                         short_attention_backward=2 * n * steps,
-                         flash_attention2=n * steps,
-                         flash2_bwd_fused=n * steps if fused else 0,
-                         flash2_bwd_split=0 if fused else 2 * n * steps,
-                         fused_joint_embed=2 * steps)
+    want = rung_launches("none", n, steps, frame=True, fused=fused)
     if trainer.remat_policy != "none" or launches != want:
         raise AssertionError(f"{label} training: remat {trainer.remat_policy}, "
                              f"launches {launches}, want {want}")
@@ -1844,25 +1861,76 @@ def check_probs_forward(tag, q, k, v, bias, live, seed, rate, keep,
     return ctx, probs, ref_ctx, err, masked
 
 
+def check_packed(tag, q, k, v, bias, live, dout, seed, rate, keep):
+    """The packed pair (v2p) on the thirds of one [B, S, 3H] qkv: its
+    forward bit-equal to v2's in both forms, its backward (row 6; JAX's
+    ``_bwd_kernel_v2p`` rule, v3's: delta from the ctx, dS and pd rounded)
+    bit-equal to the v3 backward on the thirds (the same kernels at row
+    stride 3H) and held by :func:`check_rounded_backward` against the
+    repaired plain packed rule given the kernel's ctx and against autograd
+    through the plain packed forward in f32; the ctx against the plain
+    version at ATTN_TOL on live rows.  Returns (qkv, ctx, forward error,
+    backward error against the rule, against autograd)."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import byte_threshold
+
+    dname = str(q.dtype).split(".")[1]
+    t = byte_threshold(rate)
+    qkv = torch.cat([q, k, v], dim=-1)
+    packed = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, True)
+    serve = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, False)[0]
+    plain2 = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
+    out = packed[0]
+    dqkv = sa.short_attention_packed_backward(qkv, bias, out, dout, HEADS,
+                                              seed, rate)
+    v3 = sa.short_attention_v3_backward(q, k, v, bias, out, dout, HEADS, seed,
+                                        rate)
+    rule = sa.short_attention_packed_backward_plain(qkv, bias, dout, HEADS,
+                                                    rate, keep, out=out)
+    wide = qkv.detach().float().requires_grad_()
+    plain32 = sa.short_attention_packed_plain(wide, bias, HEADS, rate, keep)
+    (auto,) = torch.autograd.grad(plain32, wide, dout.float())
+    rule32 = sa.short_attention_packed_backward_plain(
+        wide.detach(), bias, dout.float(), HEADS, rate, keep)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(packed, plain2)) or \
+            not torch.equal(serve, out) or \
+            not torch.equal(dqkv, torch.cat(v3, dim=-1)):
+        raise AssertionError(f"short_attention_packed {tag}: not bit-equal to "
+                             "v2's forward and v3's backward on the thirds")
+    atol, rtol = ATTN_TOL[dname]
+    ferr = check_close(f"short_attention_packed {tag}", out, plain32, atol,
+                       rtol, mask=live)
+    berr, auto_err = check_rounded_backward(
+        f"short_attention_packed_backward {tag}", sa._thirds(dqkv),
+        sa._thirds(rule), sa._thirds(rule32), sa._thirds(auto), live,
+        *GRAD_TOL[dname])
+    return qkv, out, ferr, berr, auto_err
+
+
 def phase_probs_packed(gen):
     """The '+probs' (v2s) and 'save_pack' (v2p) pairs against their plain
     versions, at the text and joint shapes, bf16 and f32, rate 0 and with
     dropout: the v2s forward's ctx and signed probs (whose signs are the
     exported keep mask's bits; its ctx also against v2's at the same seed),
-    its backward against the plain backward on the same inputs (its own
-    probs), the packed forward and backward against v2's kernels on the
-    thirds (bit-equal: the same kernels at row stride 3H) and against the
-    plain packed backward; whether v2's ctx equals v1's bit for bit (printed:
-    in bf16 both are short_fwd_tc.cuh's template).  Then the bf16 v2s
-    forward (tensor cores) at the shapes that reach its other forms: S = 12
-    (one ragged 16-key tile), 128 (the widest whole-row form) and 200, 1000
-    (the two-sweep form, with query tiles and a ragged last key tile).  Times the kernels at rate 0
-    beside the plain versions, SDPA and the bound."""
+    its backward (row 5's, dS and pd rounded as JAX's ``_bwd_kernel_v2s``)
+    from its own probs by :func:`check_rounded_backward` against the plain
+    backward on the same inputs and against autograd through the plain
+    forward in f32; the packed pair by :func:`check_packed`; whether v2's
+    ctx equals v1's bit for bit (printed: in bf16 both are short_fwd_tc.cuh's
+    template).  Then the packed pair at [8, 130] (the CUDA-core backward
+    route) and the bf16 v2s forward (tensor cores) at the shapes that reach
+    its other forms: S = 12 (one ragged 16-key tile), 128 (the widest
+    whole-row form) and 200, 1000 (the two-sweep form, with query tiles and
+    a ragged last key tile), each from a generator of its own.  Times the
+    kernels at rate 0 beside the plain versions, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
 
     rate_on = quantize_dropout_rate(ATTN_DROPOUT)
     worst = dict.fromkeys(("probs", "probs_bwd", "packed", "packed_bwd"), 0.0)
@@ -1876,7 +1944,7 @@ def phase_probs_packed(gen):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
                                    generator=gen).to(dtype)
-                seed, t = 4321 + s, byte_threshold(rate)
+                seed = 4321 + s
                 keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
                         if rate else None)
                 wide = [x.float() for x in (q, k, v, dout)]
@@ -1896,47 +1964,38 @@ def phase_probs_packed(gen):
                 # v2s backward from the kernel's own probs
                 grads = sa.short_attention_probs_backward(q, k, v, probs, dout,
                                                           HEADS, rate)
-                refs = sa.short_attention_probs_backward_plain(
-                    *wide[:3], probs.float(), wide[3], HEADS, rate)
+                # the rule on the kernel's probs, and in f32 throughout: on
+                # the f32 softmax's probs, dS and pd unrounded
+                rule = sa.short_attention_probs_backward_plain(
+                    q, k, v, probs, dout, HEADS, rate)
+                rule32 = sa.short_attention_probs_backward_plain(
+                    *wide[:3], sa.short_attention_probs_plain(
+                        *wide[:3], bias, HEADS, rate, keep)[1], wide[3], HEADS,
+                    rate)
+                qq, kk, vv = (x.detach().requires_grad_() for x in wide[:3])
+                auto = torch.autograd.grad(sa.short_attention_plain(
+                    qq, kk, vv, bias, HEADS, rate, keep), (qq, kk, vv), wide[3])
                 torch.cuda.synchronize()
-                berr = 0.0
-                for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
-                    btag = f"short_attention_probs_backward {tag} {name}"
-                    berr = max(berr, check_close(btag, g, r, gatol, grtol,
-                                                 mask=live))
-                    check_close(btag + " masked row", g, r,
-                                MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
+                berr, bauto = check_rounded_backward(
+                    f"short_attention_probs_backward {tag}", grads, rule,
+                    rule32, auto, live, gatol, grtol)
                 worst["probs_bwd"] = max(worst["probs_bwd"], berr)
 
-                # v2p: the v2 kernels on the thirds of one buffer, bit-equal
-                qkv = torch.cat([q, k, v], dim=-1)
-                packed = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t,
-                                                   True)
-                plain2 = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
-                dqkv = sa.short_attention_packed_backward(
-                    qkv, bias, packed[2], packed[1], dout, HEADS, seed, rate)
-                v2_grads = sa.short_attention_backward(
-                    q, k, v, bias, plain2[2], plain2[1], dout, HEADS, seed, rate)
-                ref_dqkv = sa.short_attention_packed_backward_plain(
-                    qkv.float(), bias, wide[3], HEADS, rate, keep)
-                torch.cuda.synchronize()
-                if not all(torch.equal(a, c) for a, c in zip(packed, plain2)) \
-                        or not torch.equal(dqkv, torch.cat(v2_grads, dim=-1)):
-                    raise AssertionError(f"short_attention_packed {tag}: not "
-                                         "bit-equal to v2 on the thirds")
-                perr = check_close(f"short_attention_packed {tag}", packed[0],
-                                   ref_ctx, atol, rtol, mask=live)
-                pberr = check_close(f"short_attention_packed_backward {tag}",
-                                    dqkv, ref_dqkv, gatol, grtol, mask=live)
+                # v2p: v2's forward and v3's backward on the thirds
+                qkv, pctx, perr, pberr, pauto = check_packed(
+                    tag, q, k, v, bias, live, dout, seed, rate, keep)
                 worst["packed"] = max(worst["packed"], perr)
                 worst["packed_bwd"] = max(worst["packed_bwd"], pberr)
                 print(f"v2s / v2p [{b},{s},{HIDDEN}] {tag}: probs forward "
                       f"max_abs_err {err:.3e} (ctx vs v2 {v2_err:.3e}), "
-                      f"backward {berr:.3e}; packed forward and backward "
-                      f"bit-equal to v2 on the thirds, against the plain "
-                      f"version {perr:.3e} / {pberr:.3e} (atol {atol} / "
-                      f"{gatol}); v2's ctx {'equals' if v1_same else 'differs from'}"
-                      " v1's bit for bit", flush=True)
+                      f"backward {berr:.3e} against the rounded rule, "
+                      f"{bauto:.3e} against f32 autograd; packed forward "
+                      f"bit-equal to v2's and backward to v3's on the thirds, "
+                      f"against the plain versions {perr:.3e} / {pberr:.3e} "
+                      f"(atol {atol} / {gatol}), backward {pauto:.3e} against "
+                      f"f32 autograd; v2's ctx "
+                      f"{'equals' if v1_same else 'differs from'} v1's bit "
+                      "for bit", flush=True)
                 if rate:
                     if dname == "bfloat16":  # the form the '+probs' rung runs
                         ms = cuda_ms(lambda: sa._probs_forward_kernel(
@@ -1980,23 +2039,45 @@ def phase_probs_packed(gen):
                     cuda_ms(lambda: sa.short_attention_packed_plain(
                         qkv, bias, HEADS)), lib_fwd,
                     bound_ms(4 * io + b * s * 4, fwd_flops, dname))
+                # the packed backward reads qkv, o, dO and the bias and
+                # writes dqkv: v3's bytes and products
                 times[("packed_bwd", label, dname)] = (
                     cuda_ms(lambda: sa.short_attention_packed_backward(
-                        qkv, bias, packed[2], packed[1], dout, HEADS, seed,
-                        0.0)),
+                        qkv, bias, pctx, dout, HEADS, seed, 0.0)),
                     cuda_ms(lambda: torch.autograd.grad(
                         pout, qkv_g, dout, retain_graph=True)), lib_bwd,
-                    bound_ms(7 * io + b * s * 4, 2.5 * fwd_flops, dname))
+                    bound_ms(8 * io + b * s * 4, 2.5 * fwd_flops, dname))
+                tc = {"probs": dname == "bfloat16", "packed": dname == "bfloat16",
+                      "probs_bwd": False,
+                      "packed_bwd": sa.tensor_core_backward(s, dtype)}
                 for name in ("probs", "probs_bwd", "packed", "packed_bwd"):
                     ms, plain_ms, lib_ms, bound = times[(name, label, dname)]
-                    cores = ("tensor cores" if name in ("probs", "packed") and
-                             dname == "bfloat16" else "CUDA cores")
+                    cores = "tensor cores" if tc[name] else "CUDA cores"
                     print(f"  {name} [{b},{s},{HIDDEN}] {dname}: kernel "
                           f"({cores}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                           f"sdpa {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
                           f"({bound[1]})", flush=True)
-    # a generator of their own: the later phases draw the inputs they drew
+    # generators of their own: the later phases draw the inputs they drew
     # before these shapes were added
+    long_gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(long_gen, 8, 130, dtype)
+            dout = torch.randn(8, 130, HIDDEN, device="cuda",
+                               generator=long_gen).to(dtype)
+            seed = 4321 + 130
+            keep = (sa.dropout_keep_mask(seed, rate, 8, HEADS, 130, "cuda")
+                    if rate else None)
+            tag = f"[8,130,{HIDDEN}] {dname} rate {rate:g}"
+            _, _, perr, pberr, pauto = check_packed(
+                tag, q, k, v, bias, live, dout, seed, rate, keep)
+            worst["packed"] = max(worst["packed"], perr)
+            worst["packed_bwd"] = max(worst["packed_bwd"], pberr)
+            print(f"v2p {tag} (backward on the CUDA cores): forward bit-equal "
+                  f"to v2's and backward to v3's on the thirds, against the "
+                  f"plain versions {perr:.3e} / {pberr:.3e}, backward "
+                  f"{pauto:.3e} against f32 autograd", flush=True)
     edge_gen = torch.Generator(device="cuda").manual_seed(5)
     for s in (12, 128, 200, 1000):
         for rate in (0.0, rate_on):
@@ -2016,24 +2097,32 @@ def phase_probs_packed(gen):
 
 
 def rung_launches(policy, layers, steps, frame=False, fused=True):
-    """Kernel launches of ``steps`` train steps under the remat ``policy``:
-    one attention per layer and encoder call, run again in the backward by
-    'full' and 'dots' (their regions recompute it); '+probs' runs the v2s
-    pair and 'save_pack' the packed pair on the short route (all of it
-    word-aligned; the text pass in frame-level mode, whose joint pass runs
-    flash2, never re-run under a save_* policy)."""
+    """Kernel launches of ``steps`` bf16 train steps under the remat
+    ``policy`` ("none": no checkpointing): one attention per layer and
+    encoder call, run again in the backward by 'full' and 'dots' (their
+    regions recompute it); '+probs' runs the v2s pair and 'save_pack' the
+    packed pair on the short route (all of it word-aligned; the text pass
+    in frame-level mode, whose joint pass runs flash2, never re-run under a
+    save_* policy).  The v2 and v2p backwards take one launch at S <= 128,
+    the v2s backward two."""
+    import torch
+
+    from msa_tpu_torch.ops.short_attention import backward_launches
+
     again = 2 if policy.split("+")[0] in ("full", "dots") else 1
-    short_calls = layers if frame else 2 * layers
+    seqs = (TEXT_LEN,) if frame else (TEXT_LEN, 2 * TEXT_LEN)
+    short_calls = layers * len(seqs)
+    bwd = layers * sum(backward_launches(s, torch.bfloat16) for s in seqs)
     counts = {"fused_joint_embed": 2}
     if "+probs" in policy:
         counts.update(short_attention_probs=again * short_calls,
                       short_attention_probs_backward=2 * short_calls)
     elif policy == "save_pack":
         counts.update(short_attention_packed=short_calls,
-                      short_attention_packed_backward=2 * short_calls)
+                      short_attention_packed_backward=bwd)
     else:
         counts.update(short_attention=again * short_calls,
-                      short_attention_backward=2 * short_calls)
+                      short_attention_backward=bwd)
     if frame:
         counts.update(flash_attention2=again * layers,
                       flash2_bwd_fused=layers if fused else 0,
@@ -2397,12 +2486,12 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
     dtype) at GRAD_TOL on live rows; fully masked rows against that rule at
     MASKED_ROW_GRAD_ATOL or, with ``few_keys``, against the rule in f32
     within twice it plus the roundings' gap (:func:`check_within`); against
-    the v2 pair on the same inputs within twice GRAD_TOL plus that gap; the
+    the v2 backward on the same inputs within twice GRAD_TOL plus that gap; the
     row lse it writes to scratch against the forward's (bit-equal in f32,
     where both are the CUDA cores' sums; in bf16, where the forward runs on
     the tensor cores, within V3_TC_LSE_TOL); two launches bit-equal.
-    Returns (max abs err, against v2, lse difference, out, lse, out32) for
-    the timings."""
+    Returns (max abs err, against v2, lse difference, out, lse) for the
+    timings."""
     import math
 
     import torch
@@ -2417,19 +2506,19 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
     t = byte_threshold(rate)
     keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
             if rate else None)
-    out, lse, out32 = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
+    out, lse = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
     v3 = sa.short_attention_v3_backward(q, k, v, bias, out, dout, HEADS, seed,
                                         rate)
     ref = sa.short_attention_v3_backward_plain(q, k, v, bias, out, dout, HEADS,
                                                rate, keep)
     # the rule in f32 throughout: no rounding of dS and p, o the plain f32
-    # output (the kernel's out32 rounds p to bf16 before P V)
+    # output (the kernel's ctx rounds p to bf16 before P V)
     wide = [x.float() for x in (q, k, v)]
     ref32 = sa.short_attention_v3_backward_plain(
         *wide, bias, sa.short_attention_plain(*wide, bias, HEADS, rate, keep),
         dout.float(), HEADS, rate, keep)
-    v2 = sa.short_attention_backward(q, k, v, bias, out32, lse, dout, HEADS,
-                                     seed, rate)
+    v2 = sa.short_attention_backward(q, k, v, bias, lse, dout, HEADS, seed,
+                                     rate)
     # the C entry once more, keeping its scratch: the recomputed lse
     scratch = [torch.empty_like(lse) for _ in range(2)]
     grads = [torch.empty_like(q) for _ in range(3)]
@@ -2461,10 +2550,10 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
         else:
             check_close(f"{tag} {name} masked row", g3, r,
                         MASKED_ROW_GRAD_ATOL, 0.0, mask=~live)
-        # v2 is within (atol, rtol) of the f32 rule; v3 of the rounded one
+        # both round dS and pd; they differ in how delta is taken
         v2_err = max(v2_err, check_within(f"{tag} {name} vs v2", g3, g2,
                                           atol, rtol, gap, live))
-    return err, v2_err, lse_err, out, lse, out32
+    return err, v2_err, lse_err, out, lse
 
 
 def phase_v3_kernels(gen):
@@ -2472,7 +2561,7 @@ def phase_v3_kernels(gen):
     its own dtype, dS and the dropped p rounded to it), at the text and
     joint shapes, bf16 (tensor cores, one launch) and f32 (the CUDA-core
     pair), rate 0 and with dropout (the plain version given the exported
-    keep mask), and against the v2 pair on the same inputs; the row lse it
+    keep mask), and against the v2 backward on the same inputs; the row lse it
     recomputes against the forward's (:func:`check_v3_backward`); times at
     rate 0 beside v2's and SDPA's backward.  Then bf16 at B = 4 and S = 8,
     12, 128 (one, a ragged and eight 16-key tiles) and 200 (the CUDA-core
@@ -2490,7 +2579,7 @@ def phase_v3_kernels(gen):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             atol, rtol = GRAD_TOL[dname]
-            cores = ("tensor cores" if sa.v3_backward_launches(s, dtype) == 1
+            cores = ("tensor cores" if sa.tensor_core_backward(s, dtype)
                      else "CUDA cores")
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
@@ -2498,7 +2587,7 @@ def phase_v3_kernels(gen):
                                    generator=gen).to(dtype)
                 seed = 999 + s
                 tag = f"short_attention_v3_backward {label} {dname} rate {rate:g}"
-                err, v2_err, lse_err, out, lse, out32 = check_v3_backward(
+                err, v2_err, lse_err, out, lse = check_v3_backward(
                     tag, q, k, v, bias, live, dout, seed, rate)
                 worst = max(worst, err)
                 line = (f"short_attention_v3_backward [{b},{s},{HIDDEN}] {dname} "
@@ -2510,7 +2599,7 @@ def phase_v3_kernels(gen):
                     ms = cuda_ms(lambda: sa.short_attention_v3_backward(
                         q, k, v, bias, out, dout, HEADS, seed, 0.0))
                     v2_ms = cuda_ms(lambda: sa.short_attention_backward(
-                        q, k, v, bias, out32, lse, dout, HEADS, seed, 0.0))
+                        q, k, v, bias, lse, dout, HEADS, seed, 0.0))
                     plain_ms = cuda_ms(lambda: sa.short_attention_v3_backward_plain(
                         q, k, v, bias, out, dout, HEADS))
                     qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
@@ -2527,14 +2616,14 @@ def phase_v3_kernels(gen):
                     nbytes = 8 * q.element_size() * b * s * HIDDEN + b * s * 4
                     bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
                     times[(label, dname)] = (ms, plain_ms, lib_ms, bound)
-                    line += (f"; kernel {ms:.4f} ms (v2 pair {v2_ms:.4f} ms), "
+                    line += (f"; kernel {ms:.4f} ms (v2 {v2_ms:.4f} ms), "
                              f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} "
                              f"ms, bound {bound[0]:.4f} ms ({bound[1]}, "
                              f"{bound[0] / ms:.1%} of it reached)")
                 print(line, flush=True)
     edge_gen = torch.Generator(device="cuda").manual_seed(10)  # see phase_probs_packed
     for s in (8, 12, 128, 200):
-        cores = ("tensor cores" if sa.v3_backward_launches(s, torch.bfloat16) == 1
+        cores = ("tensor cores" if sa.tensor_core_backward(s, torch.bfloat16)
                  else "CUDA cores")
         for rate in (0.0, rate_on):
             q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
@@ -2740,8 +2829,11 @@ def phase_short_v1(gen):
     forward in f32 and the v2 kernels (which round neither) within twice
     the tolerance plus the gap those roundings make in the plain rule, at
     rate 0 and with dropout (the plain versions given keep_mask_plain; v2
-    at the same seed draws the same mask); the bytes autograd keeps for the
-    backward against v2's (v1 keeps its inputs only).  Times beside the
+    at the same seed draws the same mask; in bf16 v2's gradients are v1's
+    bit for bit, one instantiation of short_bwd_tc.cuh); the bytes autograd
+    keeps for the backward against v2's (v1 keeps its inputs only, as v2
+    does where its backward is the tensor-core launch; elsewhere v2 also
+    keeps the row lse).  Times beside the
     bound, the plain version and SDPA (bf16 on the tensor cores, f32 on the
     CUDA cores).  Then the bf16 forward at S = 8 (one ragged 16-key tile)
     and 128 (eight tiles, the widest) against the plain version and v2,
@@ -2807,17 +2899,24 @@ def phase_short_v1(gen):
                         f"{tag} {name} against v2", g, g2, gatol, grtol, gap,
                         live))
                 inputs = 3 * q.numel() * q.element_size() + bias.numel() * 4
-                if kept != inputs or not kept < v2_kept:
+                v2_inputs = inputs + (0 if sa.tensor_core_backward(s, dtype)
+                                      else b * HEADS * s * 4)
+                if kept != inputs or v2_kept != v2_inputs:
                     raise AssertionError(f"{tag}: keeps {kept} bytes for the "
                                          f"backward (its inputs: {inputs}; v2 "
-                                         f"{v2_kept})")
+                                         f"{v2_kept}, want {v2_inputs})")
+                if dtype == torch.bfloat16 and not all(
+                        torch.equal(g, g2) for g, g2 in zip(grads, v2_grads)):
+                    raise AssertionError(f"{tag}: v2's bf16 gradients are not "
+                                         "v1's bit for bit")
                 worst["fwd"] = max(worst["fwd"], err)
                 worst["bwd"] = max(worst["bwd"], gerr)
                 line = (f"{tag}: max_abs_err {err:.3e} (atol {atol}, rtol "
                         f"{rtol}), gradients {gerr:.3e} against the plain rule "
                         f"(atol {gatol}, rtol {grtol}), {auto_err:.3e} against "
                         f"autograd (twice that plus the rounding gap); against "
-                        f"v2 at the same seed {v2_err:.3e}; "
+                        f"v2 at the same seed {v2_err:.3e}"
+                        f"{' (bit-equal gradients)' if dtype == torch.bfloat16 else ''}; "
                         f"kept for the backward {kept / 2**20:.2f} MiB (its "
                         f"inputs) against v2's {v2_kept / 2**20:.2f} MiB")
                 if rate == 0.0:
@@ -2903,9 +3002,10 @@ def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
     """The bf16 v1 backward kernel (tensor cores) at a few keys: against
     its plain rule (dS and the dropped p rounded to bf16) at GRAD_TOL on
     live rows; against autograd through the plain forward in f32 (fully
-    masked rows at MASKED_ROW_GRAD_ATOL) and against v2's backward at the
-    same seed within twice the tolerance plus the gap the roundings make in
-    the plain rule (:func:`check_within`).  Returns the max abs err."""
+    masked rows at MASKED_ROW_GRAD_ATOL) within twice the tolerance plus
+    the gap the roundings make in the plain rule (:func:`check_within`);
+    v2's backward at the same seed (the same instantiation of
+    short_bwd_tc.cuh) bit for bit.  Returns the max abs err."""
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
@@ -2928,8 +3028,10 @@ def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
                                                 rate, keep)
     torch.cuda.synchronize()
     tag = f"short_attention_v1_backward [{b},{s},{HIDDEN}] bfloat16 rate {rate:g}"
-    err = auto_err = v2_err = masked = 0.0
-    for name, g, r, a, g2 in zip(("dq", "dk", "dv"), grads, refs, auto, v2):
+    if not all(torch.equal(g, g2) for g, g2 in zip(grads, v2)):
+        raise AssertionError(f"{tag}: v2's gradients are not v1's bit for bit")
+    err = auto_err = masked = 0.0
+    for name, g, r, a in zip(("dq", "dk", "dv"), grads, refs, auto):
         err = max(err, check_close(f"{tag} {name}", g, r, atol, rtol,
                                    mask=live))
         gap = (r.float() - a).abs()  # the operands' rounding
@@ -2938,11 +3040,9 @@ def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
                                           ~live))
         auto_err = max(auto_err, check_within(f"{tag} {name} against autograd",
                                               g, a, atol, rtol, gap, live))
-        v2_err = max(v2_err, check_within(f"{tag} {name} against v2", g, g2,
-                                          atol, rtol, gap, live))
     print(f"{tag} (tensor cores): max_abs_err {err:.3e} against the plain "
-          f"rule, {auto_err:.3e} against autograd, {v2_err:.3e} against v2 "
-          f"(twice the tolerance plus the rounding gap); masked rows "
+          f"rule, {auto_err:.3e} against autograd (twice the tolerance plus "
+          f"the rounding gap); v2's gradients bit-equal; masked rows "
           f"{masked:.3e} from f32", flush=True)
     return err
 
@@ -3153,8 +3253,6 @@ def phase_v3_train(exp, params, batches):
     weights and seed, with no checkpointing and under save_attn: ms/step,
     peak memory, the bytes kept for the backward, launches and losses.
     The switch is restored whatever happens."""
-    import torch
-
     from msa_tpu_torch.ops import short_attention as sa
 
     layers = exp.model.bert.num_hidden_layers
@@ -3168,11 +3266,10 @@ def phase_v3_train(exp, params, batches):
                     with_rung(exp, rung), params, batches, PR6_WARMUP,
                     PR6_STEPS, label)
                 want = rung_launches(rung, layers, PR6_STEPS)
-                if v3:  # one v3 backward per v2 pair: text and joint pass
+                if v3:  # the v3 backward in place of v2's, as many launches
+                    want["short_attention_v3_backward"] = \
+                        want["short_attention_backward"]
                     want["short_attention_backward"] = 0
-                    want["short_attention_v3_backward"] = layers * PR6_STEPS * sum(
-                        sa.v3_backward_launches(s, torch.bfloat16)
-                        for s in (TEXT_LEN, 2 * TEXT_LEN))
                 if r["launches"] != want:
                     raise AssertionError(f"{label}: launches {r['launches']}, "
                                          f"want {want}")
@@ -3187,8 +3284,8 @@ def phase_v3_train(exp, params, batches):
               f"{base['peak_bytes'] / 2**30:.2f}, kept for the backward "
               f"{v3['saved_bytes'] / 2**30:.2f} GiB against "
               f"{base['saved_bytes'] / 2**30:.2f} "
-              f"({(base['saved_bytes'] - v3['saved_bytes']) / 1e9:.2f} GB "
-              f"less); launches per step {v3['per_step']}; losses "
+              f"({(v3['saved_bytes'] - base['saved_bytes']) / 1e9:+.2f} GB); "
+              f"launches per step {v3['per_step']}; losses "
               f"{[round(x, 5) for x in v3['losses']]} (max rel {drift:.2e} "
               f"against v2, bound {PR6_LOSS_RTOL})", flush=True)
     return out
@@ -3434,7 +3531,7 @@ def main() -> int:
                      train_launches["short_attention"], attn_err,
                      attn_times[joint], paths("short_attention")),
         kernel_entry("short_attention_backward",
-                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:336",
                      train_launches["short_attention_backward"], bwd_err,
                      bwd_times[joint + (0.0,)],
@@ -3494,7 +3591,7 @@ def main() -> int:
                      pp_err["packed"], pp_times[("packed",) + joint],
                      paths("short_attention_packed")),
         kernel_entry("short_attention_packed_backward",
-                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:505",
                      rung("save_pack", "short_attention_packed_backward"),
                      pp_err["packed_bwd"], pp_times[("packed_bwd",) + joint],

@@ -32,9 +32,8 @@
 //     row), each warp's score row in registers, K and V read once); above,
 //     the two-sweep form below v2s's (the same ring without the probs).
 //     Both round the dropped p to bf16 before P V as _fwd_kernel_v2 does.
-//     For the backward (training) they also write the row's log2-sum-exp
-//     (lse) and the output in f32 (out32), from the accumulator that gives
-//     the bf16 ctx.
+//     The training form also writes the row's log2-sum-exp (lse), which
+//     only the CUDA-core v2 backward pair reads.
 //   * forward, f32: on the CUDA cores (on the tensor cores f32 would be
 //     TF32, three decimal digits).  One CTA per (query tile, head, batch
 //     row); a query tile holds up to 128 rows, so S <= 128 is one tile and
@@ -42,24 +41,28 @@
 //     the 64 head dims in registers.  K and V are staged in shared memory
 //     as f32, 64 keys per tile, under an online softmax that takes 16 keys
 //     per update; the training form also writes the lse.
-//   * backward, a pair of launches in the flash-attention-2 manner (no
-//     [S, S] tensor, any S):
+//   * backward, bf16 at S <= 128 (v2, v2p and v3): one launch on the
+//     tensor cores, the template short_bwd_tc.cuh shares with v1's
+//     backward, which recomputes each row's max and sum from q and k; v2
+//     takes v1's rule, v2p and v3 take delta from the ctx.  Nothing of
+//     the forward but (for v2p and v3) its ctx is read.
+//   * backward, f32 and bf16 above 128 keys: a pair of launches in the
+//     flash-attention-2 manner (no [S, S] tensor, any S):
 //       - dq: the forward's layout.  Each query row recomputes its scores,
-//         p = exp2(s - lse) (the forward's lse) and dp = dO.v, and sums
-//         delta = sum_j p_ij * dpm_ij (dropout included: _bwd_kernel_v2's
-//         rule) in the same pass as dq = sum_j p (dpm - delta) k_j, taken as
-//         sum_j p dpm k_j - delta * sum_j p k_j in registers.  Not dO.o: the
-//         forward's output carries the bf16 rounding of p before P V, which
-//         would reach every ds.  It writes delta for the second launch.
+//         p = exp2(s - lse) and dp = dO.v.  v2: the lse is the training
+//         forward's, delta = sum_j p_ij * dpm_ij (dropout included:
+//         _bwd_kernel_v2's rule), in f32 summed in the same pass as dq =
+//         sum_j p dpm k_j - delta * sum_j p k_j, in bf16 in a first sweep
+//         (dS is rounded, so delta must come first).  v2p and v3: delta =
+//         dO . o from the ctx, the lse recomputed (one more pass over K).
+//         It writes delta (and v3's lse) for the second launch.
 //       - dk/dv: one CTA per (key tile, head, batch row), two threads per
 //         key row holding k, v and the dk/dv accumulators; query tiles of 64
 //         rows (q pre-scaled, dO, lse, delta) are staged in shared memory.
-//   * the backward dot products run on the CUDA cores in f32, except the
-//     bf16 v3 backward at S <= 128, one launch on the tensor cores from
-//     the template it shares with v1's backward (short_bwd_tc.cuh).  The v3
-//     pair on the CUDA cores (f32, and bf16 above 128 keys) rounds dS and
-//     the dropped p to the storage type before their products as
-//     _bwd_kernel_v3 does; the v2, v2p and v2s pairs take them in f32.
+//     The pair runs its dot products on the CUDA cores in f32.
+//   * every backward (v2, v2p, v2s and v3; the tensor cores and the CUDA
+//     cores) rounds dS and the dropped p to the storage type before their
+//     products, as the TPU kernels' .astype does (nothing changes in f32).
 //
 // Dropout: the rule of dropout.cuh (Philox4x32-10 of the seed and the
 // element's index), so the forward, both backward launches, the export
@@ -167,21 +170,6 @@ __device__ __forceinline__ void load_half(const T* row_ptr, int half, bool activ
     }
 #pragma unroll
     for (int e = 0; e < L::kVec; ++e) dst[u * L::kVec + e] = tmp[e] * mult;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_half_f32(float* row_ptr, int half,
-                                               const float* src, float mult) {
-  using L = Layout<T>;
-#pragma unroll
-  for (int u = 0; u < L::kOwn; ++u) {
-#pragma unroll
-    for (int e = 0; e < L::kVec; e += 4) {
-      const float* x = &src[u * L::kVec + e];
-      const float y[4] = {x[0] * mult, x[1] * mult, x[2] * mult, x[3] * mult};
-      store16(row_ptr + (2 * u + half) * L::kVec + e, y);
-    }
   }
 }
 
@@ -326,16 +314,15 @@ __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int str
 
 // `stride` is the row stride of q, k and v in elements: H for three [B, S, H]
 // tensors, 3H for the thirds of one packed [B, S, 3H] q|k|v (the caller
-// offsets k and v by H and 2H).  out and out32 are [B, S, H].  Launched for
-// T = float only.
+// offsets k and v by H and 2H).  out is [B, S, H].  Launched for T = float
+// only.
 template <typename T, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const float* __restrict__ key_bias,
-                           T* __restrict__ out, float* __restrict__ lse,
-                           float* __restrict__ out32, int seq, int hidden,
-                           int stride, int rows_per_cta, float score_mult,
+                           T* __restrict__ out, float* __restrict__ lse, int seq,
+                           int hidden, int stride, int rows_per_cta, float score_mult,
                            Dropout drop) {
   using L = Layout<T>;
   __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
@@ -416,10 +403,6 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     store_half(out + out_base + (size_t)row * hidden, half, acc, 1.f / run_sum);
     if constexpr (kTrain) {
       if (half == 0) lse[prob_row] = run_max + log2f(run_sum);
-      if (out32 != nullptr) {
-        store_half_f32<T>(out32 + out_base + (size_t)row * hidden, half, acc,
-                          1.f / run_sum);
-      }
     }
   }
 }
@@ -431,15 +414,15 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // q, k, v and dq have row stride `stride` (H, or 3H in the packed layout,
 // where dq, dk and dv are the thirds of one [B, S, 3H] gradient); o and
 // dout are [B, S, H].  v2 (kV3 false, the TPU kernel _bwd_kernel_v2): lse
-// is the forward's row lse, read, and delta = sum_j p_j * dpm_j (:375),
-// summed in the same pass as dq = scale * (sum_j p_j dpm_j k_j - delta *
-// sum_j p_j k_j); o is not read (the forward's f32 output carries the bf16
-// rounding of p that the bf16 forwards apply before P V, and dO . o would
-// put it into every ds).  v3 (the TPU kernel _bwd_kernel_v3): o is the ctx
-// in the storage type T, delta = dO . o, and the kernel recomputes each
-// row's lse from the scores (row_lse_sweep, one more pass over K) and
-// writes it to `lse` for the dk/dv launch; neither the f32 output nor the
-// lse is kept from the forward.
+// is the training forward's row lse, read, o is not read, and delta =
+// sum_j p_j * dpm_j (:375).  In f32, where rounding dS changes nothing,
+// delta is summed in the same pass as dq = scale * (sum_j p_j dpm_j k_j -
+// delta * sum_j p_j k_j); in bf16 dS = p (dpm - delta) is rounded before
+// dS K (:378), so a first sweep sums delta and a second forms dq.  v3 (the
+// TPU kernels _bwd_kernel_v3 and _bwd_kernel_v2p): o is the ctx in the
+// storage type T, delta = dO . o, and the kernel recomputes each row's lse
+// from the scores (row_lse_sweep, one more pass over K) and writes it to
+// `lse` for the dk/dv launch; the forward keeps nothing but its ctx.
 template <typename T, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -467,8 +450,11 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          (size_t)row * hidden;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
+  // v2 in f32: one pass, dq from sum_j p_j dpm_j k_j and sum_j p_j k_j
+  constexpr bool kOnePass = !kV3 && sizeof(T) == 4;
+  constexpr int kSweeps = (kV3 || kOnePass) ? 1 : 2;
   float qr[L::kPart], dor[L::kPart], acc[L::kPart];
-  float pk[kV3 ? 1 : L::kPart];  // v2: sum_j p_j k_j
+  float pk[kOnePass ? L::kPart : 1];  // sum_j p_j k_j
   load_half(q + in_off, half, active, score_mult, qr);
   load_half(dout + row_off, half, active, 1.f, dor);
   float delta = 0.f;
@@ -485,51 +471,57 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (active && half == 0) lse[prob_row] = row_lse;
   } else {
 #pragma unroll
-    for (int i = 0; i < L::kPart; ++i) pk[i] = 0.f;
+    for (int i = 0; i < (kOnePass ? L::kPart : 1); ++i) pk[i] = 0.f;
     row_lse = active ? lse[prob_row] : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, seq - k0);
-    __syncthreads();
-    stage_pair(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
-    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-      bias_s[j] = bias_row[k0 + j] * kLog2e;
-    }
-    __syncthreads();
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
+    for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+      const int kn = min(kKeyTile, seq - k0);
+      __syncthreads();
+      stage_pair(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
+      for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+        bias_s[j] = bias_row[k0 + j] * kLog2e;
+      }
+      __syncthreads();
 
-    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
-      uint32_t keep = 0xFFFFu;
-      if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
+      for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+        uint32_t keep = 0xFFFFu;
+        if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
 #pragma unroll 4
-      for (int jj = 0; jj < kKeyChunk; ++jj) {
-        const int j = j0 + jj;
-        if (j >= kn) break;  // uniform across the CTA
-        float s = dot_half<T>(qr, &k_s[j * kHeadDim], half);
-        float dp = dot_half<T>(dor, &v_s[j * kHeadDim], half);
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-        const float p = exp2f(s + bias_s[j] - row_lse);
-        float dpm = dp;
-        if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
-        if constexpr (kV3) {
-          // dS rounded as _bwd_kernel_v3 rounds it
-          axpy_half<T>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kHeadDim], half);
-        } else {
-          const float pdpm = p * dpm;
-          delta += pdpm;
-          axpy_half<T>(acc, pdpm, &k_s[j * kHeadDim], half);
-          axpy_half<T>(pk, p, &k_s[j * kHeadDim], half);
+        for (int jj = 0; jj < kKeyChunk; ++jj) {
+          const int j = j0 + jj;
+          if (j >= kn) break;  // uniform across the CTA
+          float s = dot_half<T>(qr, &k_s[j * kHeadDim], half);
+          float dp = dot_half<T>(dor, &v_s[j * kHeadDim], half);
+          s += __shfl_xor_sync(0xffffffffu, s, 1);
+          dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+          const float p = exp2f(s + bias_s[j] - row_lse);
+          float dpm = dp;
+          if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
+          if constexpr (kOnePass) {
+            const float pdpm = p * dpm;
+            delta += pdpm;
+            axpy_half<T>(acc, pdpm, &k_s[j * kHeadDim], half);
+            axpy_half<T>(pk, p, &k_s[j * kHeadDim], half);
+          } else if (kV3 || sweep == 1) {
+            // dS rounded as the TPU kernels round it
+            axpy_half<T>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kHeadDim], half);
+          } else {
+            delta += p * dpm;
+          }
         }
       }
     }
   }
 
-  if constexpr (!kV3) {
+  if constexpr (kOnePass) {
 #pragma unroll
     for (int i = 0; i < L::kPart; ++i) acc[i] = fmaf(-delta, pk[i], acc[i]);
+  }
+  if constexpr (!kV3) {
     if (active && half == 0) delta_out[prob_row] = delta;
   }
   if (active) store_half(dq + in_off, half, acc, scale);
@@ -539,9 +531,10 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward 2/2: dk and dv
 // ---------------------------------------------------------------------------
 
-// kV3: dS and the dropped p rounded to T before their products, as
-// _bwd_kernel_v3 rounds them (the v2 kernels take them in f32).
-template <typename T, bool kDropout, bool kV3>
+// dS and the dropped p rounded to T before their products, as the TPU
+// kernels round them (nothing changes in f32); lse and delta are the dq
+// launch's (v2: the forward's lse).
+template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v,
@@ -613,13 +606,8 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = kept ? p * drop.scale : 0.f;
         dpm = kept ? dp * drop.scale : 0.f;
       }
-      float ds = p * (dpm - delta_s[i]);
-      if constexpr (kV3) {
-        pd = round_to<T>(pd);
-        ds = round_to<T>(ds);
-      }
-      axpy_half<T>(dv_acc, pd, &do_s[i * kHeadDim], half);
-      axpy_half<T>(dk_acc, ds, &q_s[i * kHeadDim], half);
+      axpy_half<T>(dv_acc, round_to<T>(pd), &do_s[i * kHeadDim], half);
+      axpy_half<T>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kHeadDim], half);
     }
   }
 
@@ -662,7 +650,7 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //   * f32, on the CUDA cores (two threads per query row, K and V staged as
 //     f32): the same two sweeps, ctx from pd in f32.
 //
-// What bounds the pair: bytes, as the v2 pair, plus the probs, which are
+// What bounds the pair: bytes, as the v2 backward, plus the probs, which are
 // S / 32 times the q/k/v/o bytes at bf16 (heads * S * 2 B per token against
 // 4 * H * 2 B): at the joint shape [192, 80] 39 MB written and read back,
 // about as many as q, k, v and o together.  The backward saves the score
@@ -1061,7 +1049,7 @@ short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
 // query rows, v2s's ring without its probs.  Sweep 1: the online row max
 // and sum (ring_row_stats); sweep 2: the scores again, p = exp2(s - max) *
 // (1 / sum), the dropout, p rounded to bf16 in the pack that feeds P V.  q,
-// k, v at row stride ld; out, out32 [B, S, hidden] and lse [B, heads, S]
+// k, v at row stride ld; out [B, S, hidden] and lse [B, heads, S]
 // (kTrain).  Shared memory: the K and V rings and their bias, and the Q
 // tile, whose warp rows are the store stage once both sweeps are done.
 int fwd_tc_long_smem_bytes(int rows_per_cta) {
@@ -1074,9 +1062,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    const bf16* __restrict__ v,
                                    const float* __restrict__ key_bias, bf16* __restrict__ out,
-                                   float* __restrict__ lse, float* __restrict__ out32,
-                                   int seq, int ld, int hidden, int rows_per_cta,
-                                   float score_mult, Dropout drop) {
+                                   float* __restrict__ lse, int seq, int ld, int hidden,
+                                   int rows_per_cta, float score_mult, Dropout drop) {
   constexpr int kTile = kRingTile * tc::kStride;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // two buffers
@@ -1097,7 +1084,10 @@ short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __res
                  sum);
   sum[0] = tc::quad_sum(sum[0]);
   sum[1] = tc::quad_sum(sum[1]);
-  const float lse2[2] = {mx[0] + log2f(sum[0]), mx[1] + log2f(sum[1])};
+  if constexpr (kTrain) {
+    msa_short_fwd::store_lse(mx[0] + log2f(sum[0]), mx[1] + log2f(sum[1]),
+                             lse + row_base + w0, seq - w0);
+  }
   sum[0] = 1.f / sum[0];
   sum[1] = 1.f / sum[1];
 
@@ -1123,16 +1113,14 @@ short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __res
 
   const size_t out0 = (size_t)b * seq * hidden + (size_t)head * kHeadDim + (size_t)w0 * hidden;
   tc::store_tile(acc, q_s + warp * 16 * tc::kStride, out + out0, hidden, seq - w0);
-  if constexpr (kTrain) {
-    msa_short_fwd::store_train(acc, lse2, lse + row_base + w0, out32 + out0, hidden, seq - w0);
-  }
 }
 
 // dq from the stashed probs: one CTA per (query tile, head, batch row), two
 // threads per query row.  Sweep 1 over the keys sums delta = sum_j p * dpm
 // (dp = dO . v_j, dpm its dropout-masked, rescaled value); sweep 2 forms
-// ds = p * (dpm - delta) and accumulates dq = scale * sum_j ds k_j.  delta
-// goes to scratch for the dk/dv launch.  No score, softmax or Philox draw.
+// ds = p * (dpm - delta), rounds it to T as _bwd_kernel_v2s does (:931),
+// and accumulates dq = scale * sum_j ds k_j.  delta goes to scratch for the
+// dk/dv launch.  No score, softmax or Philox draw.
 template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v,
@@ -1191,7 +1179,7 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
           if (sweep == 0) {
             delta = fmaf(p, dpm, delta);
           } else {
-            axpy_half<T>(acc, p * (dpm - delta), &k_s[j * kHeadDim], half);
+            axpy_half<T>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kHeadDim], half);
           }
         }
       }
@@ -1206,7 +1194,8 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
 // dk and dv from the stashed probs: one CTA per (key tile, head, batch row),
 // two threads per key row holding v and the dk / dv accumulators.  Query
 // tiles of kProbsQueryTile rows (q, dO, delta and the [tile, keys] block of
-// the probs, read row by row, coalesced) are staged in shared memory.
+// the probs, read row by row, coalesced) are staged in shared memory.  dS
+// and the dropped p are rounded to T before their products (:931, :935).
 constexpr int kProbsQueryTile = 32;
 
 template <typename T, bool kDropout>
@@ -1266,8 +1255,8 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
         pd = kept ? p * drop_scale : 0.f;
         dpm = kept ? dp * drop_scale : 0.f;
       }
-      axpy_half<T>(dv_acc, pd, &do_s[i * kHeadDim], half);
-      axpy_half<T>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kHeadDim], half);
+      axpy_half<T>(dv_acc, round_to<T>(pd), &do_s[i * kHeadDim], half);
+      axpy_half<T>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kHeadDim], half);
     }
   }
 
@@ -1303,16 +1292,15 @@ void tiles(int seq, int* n_tiles, int* rows) {
 
 template <typename T, bool kDropout, bool kTrain>
 void launch_fwd(const void* q, const void* k, const void* v, const float* bias,
-                void* out, float* lse, float* out32, int batch, int seq, int hidden,
-                int stride, int num_heads, float score_mult, Dropout drop,
-                cudaStream_t s) {
+                void* out, float* lse, int batch, int seq, int hidden, int stride,
+                int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   short_attention_fwd_kernel<T, kDropout, kTrain>
       <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), bias, static_cast<T*>(out), lse, out32, seq,
-          hidden, stride, rows, score_mult, drop);
+          static_cast<const T*>(v), bias, static_cast<T*>(out), lse, seq, hidden,
+          stride, rows, score_mult, drop);
 }
 
 template <typename T, bool kDropout, bool kV3>
@@ -1332,7 +1320,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   if (err != cudaSuccess) return (int)err;
   // q is staged as q * score_mult, so dk = sum(ds * q_staged) / log2e
   // (scale * score_mult / score_mult = scale in natural units).
-  short_attention_bwd_dkv_kernel<T, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dkv_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), seq, hidden, stride, rows, score_mult, 1.f / kLog2e, drop);
@@ -1439,9 +1427,8 @@ const void* third(const void* qkv, int part, int hidden, int dtype) {
 
 template <bool kDropout, bool kTrain>
 int launch_fwd_tc_long(const void* q, const void* k, const void* v, const float* bias,
-                       void* out, float* lse, float* out32, int batch, int seq, int ld,
-                       int hidden, int num_heads, float score_mult, Dropout drop,
-                       cudaStream_t s) {
+                       void* out, float* lse, int batch, int seq, int ld, int hidden,
+                       int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   constexpr auto kernel = short_attention_fwd_tc_long_kernel<kDropout, kTrain>;
@@ -1450,34 +1437,32 @@ int launch_fwd_tc_long(const void* q, const void* k, const void* v, const float*
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(n_tiles, num_heads, batch), 2 * rows, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, static_cast<bf16*>(out), lse, out32, seq, ld, hidden, rows, score_mult, drop);
+      bias, static_cast<bf16*>(out), lse, seq, ld, hidden, rows, score_mult, drop);
   return (int)cudaGetLastError();
 }
 
 // f32 on the CUDA cores; bf16 on the tensor cores, the whole-row template
 // (short_fwd_tc.cuh) up to 128 keys, else the two-sweep form.  lse non-null
-// asks for the training form, which for bf16 also writes out32.
+// asks for the training form.
 int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
-                 void* out, void* lse, void* out32, int batch, int seq, int hidden,
-                 int stride, int num_heads, int dtype, float scale, unsigned seed_lo,
-                 unsigned seed_hi, int drop_threshold, void* stream) {
+                 void* out, void* lse, int batch, int seq, int hidden, int stride,
+                 int num_heads, int dtype, float scale, unsigned seed_lo, unsigned seed_hi,
+                 int drop_threshold, void* stream) {
   const float* bias = static_cast<const float*>(key_bias);
   float* l = static_cast<float*>(lse);
-  float* o32 = static_cast<float*>(out32);
   const float sm = scale * kLog2e;
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
   if (dtype == 0) {
-#define MSA_FWD(D, W) launch_fwd<float, D, W>(q, k, v, bias, out, l, o32, batch, seq, \
-                                              hidden, stride, num_heads, sm, d, s)
+#define MSA_FWD(D, W) launch_fwd<float, D, W>(q, k, v, bias, out, l, batch, seq, hidden, \
+                                              stride, num_heads, sm, d, s)
     if (drop) { if (l) MSA_FWD(true, true); else MSA_FWD(true, false); }
     else { if (l) MSA_FWD(false, true); else MSA_FWD(false, false); }
 #undef MSA_FWD
     return (int)cudaGetLastError();
   }
-  if ((l == nullptr) != (o32 == nullptr)) return (int)cudaErrorInvalidValue;
-#define MSA_TC(F, D, W) F<D, W>(q, k, v, bias, out, l, o32, batch, seq, stride, hidden, \
+#define MSA_TC(F, D, W) F<D, W>(q, k, v, bias, out, l, batch, seq, stride, hidden, \
                                 num_heads, sm, d, s)
 #define MSA_TC_ALL(F) (drop ? (l ? MSA_TC(F, true, true) : MSA_TC(F, true, false)) \
                             : (l ? MSA_TC(F, false, true) : MSA_TC(F, false, false)))
@@ -1487,9 +1472,16 @@ int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 #undef MSA_TC
 }
 
-// o: the f32 output (v2) or the ctx in the storage type (v3); lse: read
-// (v2) or written (v3).  bf16 v3 at S <= 128 is one launch on the tensor
-// cores (short_bwd_tc.cuh); everything else is the CUDA-core pair.
+// Whether the bf16 backward at this S is one tensor-core launch
+// (short_bwd_tc.cuh); else the CUDA-core pair.
+bool tc_backward(int dtype, int seq) { return dtype == 1 && seq <= msa_short_bwd::kMaxSeq; }
+
+// kV3: delta from o, the ctx in the storage type, and the lse recomputed
+// and written to `lse` (v3, v2p); else v1's rule (v2), o unread and, for
+// the CUDA-core pair, `lse` the training forward's, read.  delta: scratch
+// of the CUDA-core pair.  The tensor-core launch reads neither lse nor
+// delta (v3's writes them).  q, k, v, dq, dk and dv at row stride
+// `stride`.
 template <bool kV3>
 int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
                  const void* o, const void* dout, void* lse, void* delta,
@@ -1505,16 +1497,16 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 #define MSA_BWD(T, D) launch_bwd<T, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
                                             batch, seq, hidden, stride, num_heads,    \
                                             scale, d, s)
-  if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
-  if constexpr (kV3) {
-    if (seq <= msa_short_bwd::kMaxSeq) {
+  const bool tc = tc_backward(dtype, seq);
+  if ((kV3 || !tc) && (l == nullptr || dl == nullptr)) return (int)cudaErrorInvalidValue;
+  if (tc) {
 #define MSA_TC(D)                                                                          \
-  msa_short_bwd::launch<D, true>(q, k, v, bias, o, dout, dq, dk, dv, l, dl, batch, seq,    \
-                                 hidden, num_heads, scale * kLog2e, scale, d, s)
-      return drop ? MSA_TC(true) : MSA_TC(false);
+  msa_short_bwd::launch<D, kV3>(q, k, v, bias, o, dout, dq, dk, dv, l, dl, batch, seq,     \
+                                stride, hidden, num_heads, scale * kLog2e, scale, d, s)
+    return drop ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
-    }
   }
+  if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
   return drop ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
 #undef MSA_BWD
 }
@@ -1524,17 +1516,15 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 // dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
 // dropout, else keep iff the element's Philox byte >= t (rate t/256).  The
 // training forward passes lse ([B, heads, S] f32, the log2-sum-exp of each
-// score row) and, for bf16, out32 ([B, S, H] f32, the output before its
-// rounding; null for f32, whose out is that already); the serving forward
-// passes both null and t = 0, which runs exactly the no-dropout, no-lse
-// kernel.  bf16 runs on the tensor cores (fwd_dispatch), f32 on the CUDA
-// cores; both forms give the same out.  Launches once on `stream` and
-// returns cudaGetLastError() (0 on success).  The caller has checked
-// shapes, contiguity, 16-byte alignment, head_dim == 64 and seq < 1024.
+// score row), which the CUDA-core backward pair reads; the serving forward
+// passes it null, which runs exactly the no-lse kernel.  bf16 runs on the
+// tensor cores (fwd_dispatch), f32 on the CUDA cores; both forms give the
+// same out.  Launches once on `stream` and returns cudaGetLastError() (0 on
+// success).  The caller has checked shapes, contiguity, 16-byte alignment,
+// head_dim == 64 and seq < 1024.
 extern "C" int msa_short_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* key_bias,
-                                       void* out, void* lse, void* out32,
-                                       int batch, int seq,
+                                       void* out, void* lse, int batch, int seq,
                                        int hidden, int num_heads, int dtype,
                                        float scale, unsigned seed_lo,
                                        unsigned seed_hi, int drop_threshold,
@@ -1542,40 +1532,43 @@ extern "C" int msa_short_attention_fwd(const void* q, const void* k,
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  return fwd_dispatch(q, k, v, key_bias, out, lse, out32, batch, seq, hidden, hidden,
-                      num_heads, dtype, scale, seed_lo, seed_hi, drop_threshold,
-                      stream);
+  return fwd_dispatch(q, k, v, key_bias, out, lse, batch, seq, hidden, hidden, num_heads,
+                      dtype, scale, seed_lo, seed_hi, drop_threshold, stream);
 }
 
-// The backward pair: dq (writing delta [B, heads, S] f32 scratch), then
-// dk/dv, both on `stream`.  o32 (the output in f32) and lse are the training
-// forward's outputs for the same q, k, v, key_bias, seed and threshold.
+// The v2 backward (TPU kernel _bwd_kernel_v2): dq, dk and dv from q, k, v,
+// key_bias and dout for the forward's seed and threshold, delta =
+// rowsum(p * dpm), dS and the dropped p rounded to the storage type before
+// their products.  bf16 at S <= 128: one tensor-core launch
+// (short_bwd_tc.cuh), which recomputes each row's max and sum; lse and
+// delta may be null.  Otherwise the CUDA-core pair: dq (writing delta, [B,
+// heads, S] f32 scratch) then dk/dv, both reading lse, the training
+// forward's for the same q, k, key_bias.
 extern "C" int msa_short_attention_bwd(const void* q, const void* k,
                                        const void* v, const void* key_bias,
-                                       const void* o32, const void* dout,
-                                       const void* lse, void* delta, void* dq,
-                                       void* dk, void* dv, int batch, int seq,
-                                       int hidden, int num_heads, int dtype,
-                                       float scale, unsigned seed_lo,
-                                       unsigned seed_hi, int drop_threshold,
-                                       void* stream) {
+                                       const void* dout, const void* lse,
+                                       void* delta, void* dq, void* dk, void* dv,
+                                       int batch, int seq, int hidden,
+                                       int num_heads, int dtype, float scale,
+                                       unsigned seed_lo, unsigned seed_hi,
+                                       int drop_threshold, void* stream) {
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  return bwd_dispatch<false>(q, k, v, key_bias, o32, dout, const_cast<void*>(lse), delta,
+  return bwd_dispatch<false>(q, k, v, key_bias, nullptr, dout, const_cast<void*>(lse), delta,
                              dq, dk, dv, batch, seq, hidden, hidden, num_heads, dtype,
                              scale, seed_lo, seed_hi, drop_threshold, stream);
 }
 
 // The v3 backward (TPU kernel _bwd_kernel_v3): delta = dO . o taken from the
-// ctx `out` in the storage type (the forward's own output, not an f32 copy),
-// each row's lse recomputed from the scores, and dS and the dropped p
-// rounded to the storage type before their products.  The forward keeps no
-// f32 output and no lse.  bf16 at S <= 128: one tensor-core launch
-// (short_bwd_tc.cuh), which also writes the lse and delta to the [B, heads,
-// S] f32 scratch `lse` and `delta`.  Otherwise the v2 pair's two launches,
-// the dq launch writing the lse and delta there for the dk/dv launch.  Same
-// arguments and dropout as msa_short_attention_bwd otherwise.
+// ctx `out` in the storage type (the forward's own output), each row's lse
+// recomputed from the scores, and dS and the dropped p rounded to the
+// storage type before their products.  The forward keeps nothing but its
+// ctx.  bf16 at S <= 128: one tensor-core launch (short_bwd_tc.cuh), which
+// also writes the lse and delta to the [B, heads, S] f32 scratch `lse` and
+// `delta`.  Otherwise the CUDA-core pair's two launches, the dq launch
+// writing the lse and delta there for the dk/dv launch.  Same arguments
+// and dropout as msa_short_attention_bwd otherwise.
 extern "C" int msa_short_attention_v3_bwd(const void* q, const void* k,
                                           const void* v, const void* key_bias,
                                           const void* out, const void* dout,
@@ -1595,28 +1588,15 @@ extern "C" int msa_short_attention_v3_bwd(const void* q, const void* k,
 
 // The packed pair (TPU kernels _fwd_kernel_v2p / _bwd_kernel_v2p): q, k and
 // v are the thirds of one contiguous [B, S, 3H] qkv, read in place at row
-// stride 3H; out, out32 and dout are [B, S, H]; the backward writes dq, dk
-// and dv into the thirds of one [B, S, 3H] dqkv.  Otherwise the same
-// kernels, arguments and dropout as msa_short_attention_fwd / _bwd.
+// stride 3H; out and dout are [B, S, H].  The forward is
+// msa_short_attention_fwd on the thirds.  The backward takes
+// _bwd_kernel_v2p's rule, the v3 backward's: delta = dO . o from the ctx
+// `out` in the storage type, the lse recomputed (lse and delta are [B,
+// heads, S] f32 scratch), dS and pd rounded; it writes dq, dk and dv into
+// the thirds of one [B, S, 3H] dqkv.  bf16 at S <= 128 is one tensor-core
+// launch at row stride 3H, else the CUDA-core pair.
 extern "C" int msa_short_attention_packed_fwd(const void* qkv, const void* key_bias,
-                                              void* out, void* lse, void* out32,
-                                              int batch, int seq, int hidden,
-                                              int num_heads, int dtype, float scale,
-                                              unsigned seed_lo, unsigned seed_hi,
-                                              int drop_threshold, void* stream) {
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return fwd_dispatch(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
-                      third(qkv, 2, hidden, dtype), key_bias, out, lse, out32, batch,
-                      seq, hidden, 3 * hidden, num_heads, dtype, scale, seed_lo,
-                      seed_hi, drop_threshold, stream);
-}
-
-extern "C" int msa_short_attention_packed_bwd(const void* qkv, const void* key_bias,
-                                              const void* o32, const void* dout,
-                                              const void* lse, void* delta,
-                                              void* dqkv, int batch, int seq,
+                                              void* out, void* lse, int batch, int seq,
                                               int hidden, int num_heads, int dtype,
                                               float scale, unsigned seed_lo,
                                               unsigned seed_hi, int drop_threshold,
@@ -1624,14 +1604,29 @@ extern "C" int msa_short_attention_packed_bwd(const void* qkv, const void* key_b
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
+  return fwd_dispatch(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
+                      third(qkv, 2, hidden, dtype), key_bias, out, lse, batch, seq, hidden,
+                      3 * hidden, num_heads, dtype, scale, seed_lo, seed_hi,
+                      drop_threshold, stream);
+}
+
+extern "C" int msa_short_attention_packed_bwd(const void* qkv, const void* key_bias,
+                                              const void* out, const void* dout,
+                                              void* lse, void* delta, void* dqkv,
+                                              int batch, int seq, int hidden,
+                                              int num_heads, int dtype, float scale,
+                                              unsigned seed_lo, unsigned seed_hi,
+                                              int drop_threshold, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+    return (int)cudaErrorInvalidValue;
+  }
   void* dq = const_cast<void*>(third(dqkv, 0, hidden, dtype));
   void* dk = const_cast<void*>(third(dqkv, 1, hidden, dtype));
   void* dv = const_cast<void*>(third(dqkv, 2, hidden, dtype));
-  return bwd_dispatch<false>(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
-                             third(qkv, 2, hidden, dtype), key_bias, o32, dout,
-                             const_cast<void*>(lse), delta, dq, dk, dv, batch, seq, hidden,
-                             3 * hidden, num_heads, dtype, scale, seed_lo, seed_hi,
-                             drop_threshold, stream);
+  return bwd_dispatch<true>(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
+                            third(qkv, 2, hidden, dtype), key_bias, out, dout, lse, delta,
+                            dq, dk, dv, batch, seq, hidden, 3 * hidden, num_heads, dtype,
+                            scale, seed_lo, seed_hi, drop_threshold, stream);
 }
 
 // The '+probs' forward (TPU kernel _fwd_kernel_v2s): out [B, S, H] and the

@@ -404,9 +404,9 @@ extern "C" int msa_short_attention_v1_fwd(const void* q, const void* k, const vo
 #define MSA_FWD(D) launch_fwd<D>(q, k, v, bias, out, batch, seq, hidden, num_heads, sm, d, s)
   if (dtype == 0) return drop_threshold ? MSA_FWD(true) : MSA_FWD(false);
 #undef MSA_FWD
-#define MSA_TC(D)                                                                             \
-  msa_short_fwd::launch<D, false>(q, k, v, bias, out, nullptr, nullptr, batch, seq, hidden, \
-                                  hidden, num_heads, sm, d, s)
+#define MSA_TC(D)                                                                      \
+  msa_short_fwd::launch<D, false>(q, k, v, bias, out, nullptr, batch, seq, hidden, hidden, \
+                                  num_heads, sm, d, s)
   return drop_threshold ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
 }
@@ -434,7 +434,7 @@ extern "C" int msa_short_attention_v1_bwd(const void* q, const void* k, const vo
 #undef MSA_BWD
 #define MSA_TC(D)                                                                              \
   msa_short_bwd::launch<D, false>(q, k, v, bias, nullptr, dout, dq, dk, dv, nullptr, nullptr, \
-                                  batch, seq, hidden, num_heads, sm, scale, d, s)
+                                  batch, seq, hidden, hidden, num_heads, sm, scale, d, s)
   return drop_threshold ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
 }

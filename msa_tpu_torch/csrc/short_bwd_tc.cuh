@@ -1,15 +1,27 @@
 // The bf16 short-attention backward on the tensor cores, S <= 128, head dim
 // 64: dq, dk and dv of one (head, batch row) in one launch, with no [S, S]
-// tensor in device memory.  One template serves two TPU kernels of
-// msa_tpu/ops/short_attention.py, which differ only in delta:
+// tensor in device memory.  One template serves four TPU kernels of
+// msa_tpu/ops/short_attention.py, which differ only in delta and in the
+// row stride of q, k, v and their gradients:
 //
-//   * v1, _bwd_kernel (:177; short_attention_v1.cu): delta = rowsum(p * dpm)
-//     (:216), a quad sum over the score row in registers;
-//   * v3, _bwd_kernel_v3 (:392; short_attention.cu, msa_short_attention_v3_bwd
-//     at S <= 128): delta = dO . o (:435-439), o the forward's ctx in bf16,
-//     read row by row.  It also writes each row's lse (log2 units) and delta
-//     to the entry's [B, heads, S] scratch, which nothing of this route reads
-//     again: the entry keeps the CUDA-core pair's signature.
+//   * v1, _bwd_kernel (:177; short_attention_v1.cu) and v2, _bwd_kernel_v2
+//     (:336; short_attention.cu, msa_short_attention_bwd at S <= 128), one
+//     rule: delta = rowsum(p * dpm) (:216, :375), a quad sum over the score
+//     row in registers;
+//   * v3, _bwd_kernel_v3 (:392; msa_short_attention_v3_bwd at S <= 128) and
+//     v2p, _bwd_kernel_v2p (:505; msa_short_attention_packed_bwd at S <=
+//     128), one rule: delta = dO . o (:435-439, :544-548), o the forward's
+//     ctx in bf16, read row by row.  It also writes each row's lse (log2
+//     units) and delta to the entry's [B, heads, S] scratch, which nothing
+//     of this route reads again: the entries keep the CUDA-core pair's
+//     signatures.
+//
+// q, k, v, dq, dk and dv take the row stride ld: H for [B, S, H] tensors
+// (v1, v2, v3), 3H for the thirds of one packed [B, S, 3H] qkv and dqkv
+// (v2p).  o and dO are [B, S, H].  The scores are not rescaled from a
+// forward's lse: each row's max and sum are recomputed here, as every one
+// of the four TPU kernels recomputes its softmax, so the forward keeps
+// nothing but its ctx.
 //
 // Both round as the TPU kernels do: scores and dP accumulate in f32 from
 // bf16 operands; dS = p (dpm - delta) and the dropped p are rounded to bf16
@@ -75,13 +87,14 @@ __host__ __device__ constexpr int ctas_by_smem(int kKT) {
 // kKT: 16-key tiles of the padded sequence (seq <= 16 kKT), one warp per 16
 // query rows.  kV3: delta from o (and lse / delta written out), else from
 // the score row.  o, lse and delta_out are read / written under kV3 only.
+// q, k, v, dq, dk, dv at row stride ld; o and dout at hidden.
 template <int kKT, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(32 * kKT, ctas_by_smem(kKT))
 short_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ key_bias,
                     const bf16* __restrict__ o, const bf16* __restrict__ dout,
                     bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    float* __restrict__ lse, float* __restrict__ delta_out, int seq,
+                    float* __restrict__ lse, float* __restrict__ delta_out, int seq, int ld,
                     int hidden, float score_mult, float scale, Dropout drop) {
   constexpr int kPadded = 16 * kKT;  // query rows and keys, padded
   constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
@@ -100,11 +113,12 @@ short_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2, c = lane & 3;
   const int row0 = warp * 16;
   const int rows = seq - row0;  // this warp's rows below seq (>= 1)
-  const size_t base = (size_t)b * seq * hidden + (size_t)head * tc::kD;
+  const size_t in_base = (size_t)b * seq * ld + (size_t)head * tc::kD;
+  const size_t base = (size_t)b * seq * hidden + (size_t)head * tc::kD;  // o, dO
   const uint32_t row_base = ((uint32_t)b * gridDim.x + head) * (uint32_t)seq;
 
   // cp.async groups: Q and K | V | dO
-  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, base, hidden,
+  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, in_base, ld,
                  kPadded, seq);
   tc::stage_rows(do_s, dout, base, hidden, 0, kPadded, seq);
   tc::cp_async_commit();
@@ -233,22 +247,22 @@ short_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   bf16* stage_k = k_s + row0 * tc::kStride;  // the warp's own K and V rows
   bf16* stage_v = v_s + row0 * tc::kStride;
-  const size_t out0 = base + (size_t)row0 * hidden;
-  tc::store_tile(acc, stage_k, dq + out0, hidden, rows, scale);
+  const size_t out0 = in_base + (size_t)row0 * ld;
+  tc::store_tile(acc, stage_k, dq + out0, ld, rows, scale);
 
   // dK rows [row0, row0 + 16) = dS[:, keys]^T Q, dV rows = pd[:, keys]^T dO
   tc::mma_tn<kKT>(ds_s, kLd, row0, q_s, acc);
-  tc::store_tile(acc, stage_v, dk + out0, hidden, rows, scale);
+  tc::store_tile(acc, stage_v, dk + out0, ld, rows, scale);
   tc::mma_tn<kKT>(pd_s, kLd, row0, do_s, acc);
   __syncwarp();  // every lane is done reading dq from stage_k
-  tc::store_tile(acc, stage_k, dv + out0, hidden, rows);
+  tc::store_tile(acc, stage_k, dv + out0, ld, rows);
 }
 
 template <int kKT, bool kDropout, bool kV3>
 int launch_tiles(const void* q, const void* k, const void* v, const float* bias, const void* o,
                  const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-                 int batch, int seq, int hidden, int num_heads, float score_mult, float scale,
-                 Dropout drop, cudaStream_t s) {
+                 int batch, int seq, int ld, int hidden, int num_heads, float score_mult,
+                 float scale, Dropout drop, cudaStream_t s) {
   constexpr auto kernel = short_bwd_tc_kernel<kKT, kDropout, kV3>;
   const int bytes = smem_bytes(seq);
   if (bytes > 48 * 1024) {  // above 48 KB of dynamic shared memory: opt in
@@ -259,23 +273,24 @@ int launch_tiles(const void* q, const void* k, const void* v, const float* bias,
   kernel<<<dim3(num_heads, batch), 32 * kKT, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       bias, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, seq, hidden, score_mult,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, seq, ld, hidden, score_mult,
       scale, drop);
   return (int)cudaGetLastError();
 }
 
 // One launch for the 16-key tiles seq needs (1 .. 8); the caller has
-// checked 0 < seq <= kMaxSeq.  o, lse and delta: v3's ctx and scratch (null for
-// v1).
+// checked 0 < seq <= kMaxSeq.  o, lse and delta: the v3 rule's ctx and
+// scratch (null for v1's rule).  ld: the row stride of q, k, v and of dq,
+// dk, dv (hidden, or 3 * hidden for the thirds of a packed buffer).
 template <bool kDropout, bool kV3>
 int launch(const void* q, const void* k, const void* v, const float* bias, const void* o,
            const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta, int batch,
-           int seq, int hidden, int num_heads, float score_mult, float scale, Dropout drop,
-           cudaStream_t s) {
+           int seq, int ld, int hidden, int num_heads, float score_mult, float scale,
+           Dropout drop, cudaStream_t s) {
 #define MSA_TC(KT)                                                                         \
   case KT:                                                                                 \
     return launch_tiles<KT, kDropout, kV3>(q, k, v, bias, o, dout, dq, dk, dv, lse, delta, \
-                                           batch, seq, hidden, num_heads, score_mult,      \
+                                           batch, seq, ld, hidden, num_heads, score_mult,  \
                                            scale, drop, s)
   switch ((seq + 15) / 16) {
     MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);

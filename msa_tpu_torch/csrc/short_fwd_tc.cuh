@@ -5,26 +5,31 @@
 //
 //   * v2, _fwd_kernel_v2 (:303; short_attention.cu, msa_short_attention_fwd):
 //     q, k, v at row stride H; the training form (kTrain) also writes each
-//     row's lse (log2 units), which the v2 backward reads, and the output
-//     in f32 (out32);
+//     row's lse (log2 units);
 //   * v2p, _fwd_kernel_v2p (:471; msa_short_attention_packed_fwd): the same
 //     on the thirds of one packed [B, S, 3H] qkv, read at row stride 3H;
 //   * v1, _fwd_kernel (:139; short_attention_v1.cu): the stride-H serving
 //     form.
 //
-// ctx, out32 ([B, S, H]) and lse ([B, heads, S]) never take the input
-// stride.  The rule is JAX's (:279-287, :326-332): the row max, the sum,
-// p = exp2(s - max) / sum (a product with 1 / sum), the dropout (kept p
-// times 256 / (256 - t)), then p rounded to bf16 in the pack that feeds
-// P V (p.astype(v.dtype)), the product accumulated in f32.  The bf16 ctx
-// and out32 come from one accumulator, so ctx == bf16(out32), and the
-// serving and training forms give the same ctx bit for bit.
+// Under autograd the v2 and v2p forwards run the serving form here: their
+// backwards at S <= 128 (short_bwd_tc.cuh) recompute the row statistics,
+// as JAX's do, so nothing of the forward but ctx is kept.  The training
+// form's lse serves the CUDA-core backward pair, which runs where this
+// template does not (f32, and bf16 above 128 keys), and the checks.
+//
+// ctx ([B, S, H]) and lse ([B, heads, S]) never take the input stride.
+// The rule is JAX's (:279-287, :326-332): the row max, the sum, p =
+// exp2(s - max) / sum (a product with 1 / sum), the dropout (kept p times
+// 256 / (256 - t)), then p rounded to bf16 in the pack that feeds P V
+// (p.astype(v.dtype)), the product accumulated in f32 and rounded once to
+// the bf16 ctx, so the serving and training forms give the same ctx bit
+// for bit.
 //
 // What bounds it on the H100: bytes (at S = 80 a (batch, head) pair does
 // 4 * S * S * 64 FLOPs on 4 * S * 64 bf16 elements, 80 FLOPs an element,
 // far below the ~295 FLOPs a byte where the tensor cores would be the
-// limit; the training form adds 4 bytes an element of out32).  So every
-// operand is read once and nothing of size [S, S] leaves the SM:
+// limit).  So every operand is read once and nothing of size [S, S] leaves
+// the SM:
 //
 //   * kKT = ceil(S / 16) warps, one per 16 query rows; Q, K and V staged
 //     once in bf16 by cp.async (144-byte rows, zero-filled past S; V lands
@@ -36,9 +41,8 @@
 //     head) * S + row (so v1, v2, v2p, v2s and the keep-mask export draw
 //     one mask at a seed), the dropped p packed to bf16 as the A operand
 //     of P V;
-//   * ctx stored in 16-byte row vectors through the warp's own Q rows,
-//     out32 straight from the accumulator layout in 8-byte vectors, the lse
-//     by the lanes that hold rows g and g + 8 (c == 0).
+//   * ctx stored in 16-byte row vectors through the warp's own Q rows; the
+//     lse, before P V, by the lanes that hold rows g and g + 8 (c == 0).
 //
 // __launch_bounds__ names the threads only: the CTAs shared memory allows
 // (6 at 5 tiles) would cap a thread at 64-68 registers, below the score
@@ -68,38 +72,25 @@ __host__ __device__ constexpr int tile_smem_bytes(int kKT) {
   return 3 * 16 * kKT * tc::kStride * (int)sizeof(bf16) + 16 * kKT * (int)sizeof(float);
 }
 
-// The training outputs of a warp's rows [0, rows): lse[g] and lse[g + 8]
-// from the lanes with c == 0 (constant indices into lse2: indexed by the
-// row loop, ptxas kept it on a stack frame), and out32 (row stride ld)
-// straight from the accumulator layout, two values a store.
-__device__ __forceinline__ void store_train(const float (&acc)[tc::kNT][4], const float* lse2,
-                                            float* lse, float* out32, size_t ld, int rows) {
+// The training output of a warp's rows [0, rows): lse[g] = lse0 and
+// lse[g + 8] = lse1 from the lanes with c == 0.
+__device__ __forceinline__ void store_lse(float lse0, float lse1, float* lse, int rows) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   if (c == 0) {
-    if (g < rows) lse[g] = lse2[0];
-    if (g + 8 < rows) lse[g + 8] = lse2[1];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (g + 8 * r >= rows) continue;
-    float* p = out32 + (size_t)(g + 8 * r) * ld + 2 * c;
-#pragma unroll
-    for (int n = 0; n < tc::kNT; ++n) {
-      *reinterpret_cast<float2*>(p + 8 * n) = make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
-    }
+    if (g < rows) lse[g] = lse0;
+    if (g + 8 < rows) lse[g + 8] = lse1;
   }
 }
 
 // kKT: 16-key tiles of the padded sequence (seq <= 16 kKT).  q, k, v at row
-// stride ld; out, out32 [B, S, hidden]; lse [B, heads, S].  lse and out32
-// are written under kTrain only.
+// stride ld; out [B, S, hidden]; lse [B, heads, S], written under kTrain
+// only.
 template <int kKT, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(32 * kKT)
 short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                    bf16* __restrict__ out, float* __restrict__ lse,
-                    float* __restrict__ out32, int seq, int ld, int hidden,
-                    float score_mult, Dropout drop) {
+                    bf16* __restrict__ out, float* __restrict__ lse, int seq, int ld,
+                    int hidden, float score_mult, Dropout drop) {
   constexpr int kPadded = 16 * kKT;  // query rows and keys, padded
   constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -136,7 +127,9 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   sum[0] = tc::quad_sum(sum[0]);
   sum[1] = tc::quad_sum(sum[1]);
-  const float lse2[2] = {mx[0] + log2f(sum[0]), mx[1] + log2f(sum[1])};
+  const int rows = seq - row0;  // this warp's rows below seq (>= 1)
+  [[maybe_unused]] const float lse_lo = mx[0] + log2f(sum[0]);
+  [[maybe_unused]] const float lse_hi = mx[1] + log2f(sum[1]);
   // one division a row: p = e * (1 / sum)
   sum[0] = 1.f / sum[0];
   sum[1] = 1.f / sum[1];
@@ -146,6 +139,9 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::keep_words_qmajor(drop, prob_row, 0, keep);
     if constexpr (kKT > 4) tc::keep_words_qmajor(drop, prob_row, 64, keep + 4);
   }
+  // the lse goes out here: stored at the row sums or after P V it left a
+  // 4-byte spill at 3-4 tiles (chip_smoke.py's ptxas check)
+  if constexpr (kTrain) store_lse(lse_lo, lse_hi, lse + row_base + row0, rows);
 #pragma unroll
   for (int n = 0; n < kN; ++n) {
 #pragma unroll
@@ -167,18 +163,14 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::mma_nn<kN>(s, v_s, acc);
 
   // ctx through the warp's own Q rows, out in 16-byte row vectors
-  const int rows = seq - row0;  // this warp's rows below seq (>= 1)
   const size_t out0 = out_base + (size_t)row0 * hidden;
   tc::store_tile(acc, q_s + row0 * tc::kStride, out + out0, hidden, rows);
-  if constexpr (kTrain) {
-    store_train(acc, lse2, lse + row_base + row0, out32 + out0, hidden, rows);
-  }
 }
 
 template <int kKT, bool kDropout, bool kTrain>
 int launch_tiles(const void* q, const void* k, const void* v, const float* bias, void* out,
-                 float* lse, float* out32, int batch, int seq, int ld, int hidden,
-                 int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+                 float* lse, int batch, int seq, int ld, int hidden, int num_heads,
+                 float score_mult, Dropout drop, cudaStream_t s) {
   constexpr auto kernel = short_fwd_tc_kernel<kKT, kDropout, kTrain>;
   constexpr int bytes = tile_smem_bytes(kKT);
   if (bytes > 48 * 1024) {  // above 48 KB of dynamic shared memory: opt in
@@ -188,20 +180,20 @@ int launch_tiles(const void* q, const void* k, const void* v, const float* bias,
   }
   kernel<<<dim3(num_heads, batch), 32 * kKT, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      bias, static_cast<bf16*>(out), lse, out32, seq, ld, hidden, score_mult, drop);
+      bias, static_cast<bf16*>(out), lse, seq, ld, hidden, score_mult, drop);
   return (int)cudaGetLastError();
 }
 
 // One launch for the 16-key tiles seq needs (1 .. 8); the caller has
-// checked 0 < seq <= kMaxSeq.  lse and out32: the training outputs (read
-// under kTrain only).
+// checked 0 < seq <= kMaxSeq.  lse: the training output (written under
+// kTrain only).
 template <bool kDropout, bool kTrain>
 int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
-           float* lse, float* out32, int batch, int seq, int ld, int hidden, int num_heads,
+           float* lse, int batch, int seq, int ld, int hidden, int num_heads,
            float score_mult, Dropout drop, cudaStream_t s) {
-#define MSA_TC(KT)                                                                        \
-  case KT:                                                                                \
-    return launch_tiles<KT, kDropout, kTrain>(q, k, v, bias, out, lse, out32, batch, seq, \
+#define MSA_TC(KT)                                                                 \
+  case KT:                                                                         \
+    return launch_tiles<KT, kDropout, kTrain>(q, k, v, bias, out, lse, batch, seq, \
                                               ld, hidden, num_heads, score_mult, drop, s)
   switch ((seq + 15) / 16) {
     MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);

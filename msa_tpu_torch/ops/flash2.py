@@ -130,10 +130,12 @@ def flash_attention2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
     """The flash2 forward kernel (``short_attention.launch_forward``: the
-    two forwards share one C signature); returns (ctx, lse, ctx32)."""
+    two forwards share one C signature, flash2's with the f32 output its
+    backward reads); returns (ctx, lse, ctx32)."""
     lib = _build.load("flash2", _SIGNATURES)
     result = launch_forward(lib.msa_flash2_fwd, "flash_attention2", q, k, v,
-                            key_bias, num_heads, seed, threshold, train)
+                            key_bias, num_heads, seed, threshold, train,
+                            out32=True)
     flash_attention2.launches += 1
     return result
 

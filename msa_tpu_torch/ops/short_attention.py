@@ -22,11 +22,14 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
 
 * :func:`short_attention` -- the forward; under autograd on CUDA it is a
   ``torch.autograd.Function`` whose backward is
-  :func:`short_attention_backward` (two launches: dq, then dk/dv), or,
+  :func:`short_attention_backward` (JAX's ``_bwd_kernel_v2`` rule), or,
   with the module switch ``USE_V3_BWD`` on (JAX's ``_USE_V3_BWD``,
   ``_bwd_kernel_v3``), :func:`short_attention_v3_backward`, which reads the
-  ctx instead of the forward's f32 output and lse (one tensor-core launch
-  for bf16 at S <= 128, else dq and dk/dv).  CPU tensors run
+  ctx.  Both are one tensor-core launch for bf16 at S <= 128, which
+  recomputes the softmax, so the pair keeps q, k, v and the bias (v3 also
+  the ctx); elsewhere (f32, bf16 above 128 keys) the dq and dk/dv pair on
+  the CUDA cores, v2's reading the row lse that its training forward
+  writes and keeps (:func:`tensor_core_backward`).  CPU tensors run
   :func:`short_attention_plain` at rate 0 (under ``USE_V3_BWD`` with
   :func:`short_attention_v3_backward_plain` as its backward);
 * :func:`short_attention_probs` -- the ``+probs`` remat rung (JAX
@@ -37,8 +40,9 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   plain forward kernel;
 * :func:`short_attention_packed` -- the ``save_pack`` rung (JAX
   ``short_attention_v2p``): q, k, v as the thirds of one [B, S, 3H] tensor,
-  read in place; the backward (:func:`short_attention_packed_backward`)
-  writes one [B, S, 3H] gradient;
+  read in place; the backward (:func:`short_attention_packed_backward`,
+  JAX's ``_bwd_kernel_v2p``: the v3 rule on the ctx) writes one [B, S, 3H]
+  gradient;
 * :func:`dropout_keep_mask` -- the [B, heads, S, S] keep mask for a seed
   (plain version: ``ops.dropout.keep_mask_plain``);
 * :func:`short_attention_v1` -- JAX's ``short_attention``, the v1 pair
@@ -49,9 +53,10 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   and takes delta = rowsum(p * dpm).  No model path calls it, as in JAX.
 
 Each kernel entry has a plain version beside it (``*_plain``), which CPU
-tensors run; the training forward's outputs (ctx, the row lse and the f32
-output the backward reads) have theirs in
-:func:`short_attention_train_forward_plain`.  ``short_attention``,
+tensors run; the training forward's outputs (ctx and the row lse) have
+theirs in :func:`short_attention_train_forward_plain`.  Every backward rule
+rounds dS and the dropped p to the input dtype before their products, as
+JAX's kernels do.  ``short_attention``,
 ``short_attention_probs`` and ``flash_attention2`` take ``recompute``: a
 callable returning (q, k, v), called in the backward in place of saving q,
 k and v (the ``save_ctx`` rung recomputes the projections, never the
@@ -79,14 +84,14 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    "msa_short_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _F, _U, _U, _I, _P),
-    "msa_short_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
+    "msa_short_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _U, _U, _I, _P),
+    "msa_short_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _F, _U, _U, _I, _P),
     "msa_short_attention_v3_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
-    "msa_short_attention_packed_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _F, _U, _U, _I, _P),
+    "msa_short_attention_packed_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _F, _U, _U, _I, _P),
     "msa_short_attention_packed_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _I, _F, _U, _U, _I, _P),
     "msa_short_attention_probs_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -102,15 +107,16 @@ _V1_SIGNATURES = {
                                    _I, _I, _F, _U, _U, _I, _P),
 }
 V1_MAX_SEQ = 128  # the v1 kernels hold a head's K and V in shared memory
-# the bf16 v3 backward runs on the tensor cores up to here, in one launch
-# (csrc/short_bwd_tc.cuh: a warp holds its whole score row in registers)
-V3_TC_MAX_SEQ = 128
+# the bf16 v2, v2p and v3 backwards run on the tensor cores up to here, in
+# one launch (csrc/short_bwd_tc.cuh: a warp holds its whole score row in
+# registers)
+TC_BWD_MAX_SEQ = 128
 PROBS_GROUP = 16  # keys per Philox draw: the probs rows are padded to it
 # JAX's module switch _USE_V3_BWD: the training forward keeps the ctx
-# itself instead of its f32 copy and the row lse, and the backward is
-# short_attention_v3_backward (delta = dO . o from the ctx in its own
-# dtype, the lse recomputed).  Read when the forward runs; tests and
-# chip_smoke.py flip it as JAX's test flips its own.
+# itself, and the backward is short_attention_v3_backward (delta = dO . o
+# from the ctx in its own dtype, the lse recomputed).  Read when the
+# forward runs; tests and chip_smoke.py flip it as JAX's test flips its
+# own.
 USE_V3_BWD = False
 
 
@@ -139,17 +145,16 @@ def short_attention_train_forward_plain(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         key_bias: torch.Tensor, num_heads: int, rate: float = 0.0,
         keep: Optional[torch.Tensor] = None
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the training forward (:func:`launch_forward`
-    with ``train``): (ctx, lse, out32).
+    with ``train``): (ctx, lse).
 
     Scores and softmax in f32; ``lse`` [B, heads, S] f32 is each row's log2
     of the sum of exp2 of its scores in the log2 domain (logsumexp / ln 2);
-    ``out32`` [B, S, H] f32 is the dropped probabilities (``keep`` a [B,
-    heads, S, S] bool mask, kept p over ``1 - rate``) rounded to q's dtype
-    times v, summed in f32, as JAX's ``_fwd_kernel_v2`` forms ctx before its
-    cast; ``ctx`` is ``out32`` in q's dtype.  The oracle of the kernels'
-    training form; no model path calls it.
+    ``ctx`` is the dropped probabilities (``keep`` a [B, heads, S, S] bool
+    mask, kept p over ``1 - rate``) rounded to q's dtype times v, summed in
+    f32 and rounded once to q's dtype, as JAX's ``_fwd_kernel_v2`` forms
+    it.  The oracle of the kernels' training form; no model path calls it.
     """
     b, s, h = q.shape
     logits = _logits_plain(q, k, key_bias, num_heads)
@@ -157,10 +162,9 @@ def short_attention_train_forward_plain(
     p = torch.softmax(logits, dim=-1)
     if keep is not None:
         p = torch.where(keep, p / (1.0 - rate), 0.0)
-    out32 = torch.einsum("bnqk,bknd->bqnd", p.to(q.dtype).float(),
-                         v.float().reshape(b, s, num_heads, h // num_heads))
-    out32 = out32.reshape(b, s, h)
-    return out32.to(q.dtype), lse, out32
+    ctx = torch.einsum("bnqk,bknd->bqnd", p.to(q.dtype).float(),
+                       v.float().reshape(b, s, num_heads, h // num_heads))
+    return ctx.reshape(b, s, h).to(q.dtype), lse
 
 
 def _logits_plain(q, k, key_bias, num_heads):
@@ -218,87 +222,107 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def launch_forward(entry, what, q, k, v, key_bias, num_heads, seed,
-                   threshold, train):
+                   threshold, train, out32=False):
     """Launch an attention forward kernel through its C ``entry`` (the
-    short and the flash2 forwards share one signature); returns (ctx, lse,
-    ctx32).  ``train``: also the row lse [B, heads, S] (log2 units) and the
-    output in f32 (``ctx`` itself for f32 inputs), which the backward
-    reads; else both are None.  The short forward runs bf16 on the tensor
-    cores (whole rows in registers up to 128 keys, two sweeps above) and
-    f32 on the CUDA cores; its training form's plain version is
+    short and the flash2 forwards share one signature, flash2's with an
+    f32 output after the lse); returns (ctx, lse, ctx32).  ``train``: also
+    the row lse [B, heads, S] (log2 units), which the backward reads, else
+    None.  ``out32`` (flash2): the entry takes an f32 output, which in
+    training it also writes (``ctx`` itself for f32 inputs) for its
+    backward; else ctx32 is None.  The short forward runs bf16 on the
+    tensor cores (whole rows in registers up to 128 keys, two sweeps above)
+    and f32 on the CUDA cores; its training form's plain version is
     :func:`short_attention_train_forward_plain`."""
     b, s, h = q.shape
     q, k, v = _aligned(q, k, v, what=what)
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
-    lse = out32 = None
+    lse = ctx32 = None
     if train:
         lse = torch.empty((b, num_heads, s), dtype=torch.float32,
                           device=q.device)
-        out32 = out if q.dtype == torch.float32 else torch.empty(
-            q.shape, dtype=torch.float32, device=q.device)
+        if out32:
+            ctx32 = out if q.dtype == torch.float32 else torch.empty(
+                q.shape, dtype=torch.float32, device=q.device)
+    f32 = (None if ctx32 is out else _ptr(ctx32),) if out32 else ()
     code = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(),
-        None if out32 is None or out32 is out else out32.data_ptr(), b, s, h,
+        out.data_ptr(), _ptr(lse), *f32, b, s, h,
         num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM),
         *_seed_words(seed), threshold, _stream(q))
     _build.check(code, what)
-    return out, lse, out32
+    return out, lse, ctx32
 
 
 def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
-    """The short forward kernel (:func:`launch_forward`)."""
+    """The short forward kernel (:func:`launch_forward`): (ctx, lse), the
+    lse None unless ``train``."""
     lib = _build.load("short_attention", _SIGNATURES)
-    result = launch_forward(lib.msa_short_attention_fwd, "short_attention",
-                            q, k, v, key_bias, num_heads, seed, threshold,
-                            train)
+    out, lse, _ = launch_forward(lib.msa_short_attention_fwd,
+                                 "short_attention", q, k, v, key_bias,
+                                 num_heads, seed, threshold, train)
     short_attention.launches += 1
-    return result
+    return out, lse
 
 
-def short_attention_backward(q, k, v, key_bias, out32, lse, dout,
-                             num_heads: int, seed: int = 0,
+def tensor_core_backward(seq: int, dtype: torch.dtype) -> bool:
+    """Whether the v2, v2p and v3 backwards at (S, dtype) are one
+    tensor-core launch (bf16 at S <= 128, ``csrc/short_bwd_tc.cuh``, which
+    recomputes each row's softmax: the forward keeps no lse for it), else
+    the CUDA-core dq and dk/dv pair (``csrc/short_attention.cu::
+    bwd_dispatch`` takes the same rule)."""
+    return dtype == torch.bfloat16 and seq <= TC_BWD_MAX_SEQ
+
+
+def backward_launches(seq: int, dtype: torch.dtype) -> int:
+    """Kernel launches of one :func:`short_attention_backward`,
+    :func:`short_attention_packed_backward` or
+    :func:`short_attention_v3_backward` call (:func:`tensor_core_backward`)."""
+    return 1 if tensor_core_backward(seq, dtype) else 2
+
+
+def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
+                             seed: int = 0,
                              rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
-    """dq, dk, dv of :func:`short_attention` (CUDA only): ``out32`` (the
-    output in f32) and ``lse`` are the training forward's outputs for the
-    same inputs, seed and rate.  Two launches, dq then dk/dv; no [S, S]
-    tensor is stored.  The kernels read the lse and take delta =
-    rowsum(p * dpm), JAX's ``_bwd_kernel_v2`` rule; ``out32`` is checked
-    but not read (dO . out32 would carry the forward's bf16 rounding of p
-    into every dS)."""
+    """dq, dk, dv of :func:`short_attention` (CUDA only) by JAX's
+    ``_bwd_kernel_v2`` rule, for the forward's seed and rate: p recomputed,
+    delta = rowsum(p * dpm), dS and the dropped p rounded to q's dtype
+    before their products (plain version:
+    :func:`short_attention_v1_backward_plain`).  No [S, S] tensor is
+    stored.  bf16 at S <= 128: one tensor-core launch, which recomputes
+    each row's max and sum from q and k (``lse`` is not read and may be
+    None).  Otherwise two launches, dq then dk/dv, which read ``lse``, the
+    training forward's row lse for the same inputs
+    (:func:`tensor_core_backward`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_backward")
     b, s, h = q.shape
-    threshold = byte_threshold(rate)
-    if out32.shape != q.shape or out32.dtype != torch.float32 or \
-            dout.shape != q.shape or lse.shape != (b, num_heads, s):
-        raise ValueError("short_attention_backward: out32/dout/lse "
-                         f"{tuple(out32.shape)} {out32.dtype}, "
-                         f"{tuple(dout.shape)}, {tuple(lse.shape)} do not fit "
-                         f"q {tuple(q.shape)}")
-    q, k, v, out32, dout = _aligned(q, k, v, out32, dout.to(q.dtype))
+    tc = tensor_core_backward(s, q.dtype)
+    if dout.shape != q.shape or not tc and (
+            lse is None or lse.shape != (b, num_heads, s)):
+        raise ValueError("short_attention_backward: dout/lse "
+                         f"{tuple(dout.shape)}, "
+                         f"{None if lse is None else tuple(lse.shape)} do not "
+                         f"fit q {tuple(q.shape)} {q.dtype}")
+    q, k, v, dout = _aligned(q, k, v, dout.to(q.dtype))
     key_bias = key_bias.to(torch.float32).contiguous()
-    lse = lse.contiguous()
-    delta = torch.empty_like(lse)
+    lse = None if tc else lse.contiguous()
+    delta = None if tc else torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
-        threshold, _stream(q))
+        dout.data_ptr(), _ptr(lse), _ptr(delta), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
+        1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed), byte_threshold(rate),
+        _stream(q))
     _build.check(code, "short_attention_backward")
-    short_attention_backward.launches += 2
+    short_attention_backward.launches += backward_launches(s, q.dtype)
     return dq, dk, dv
-
-
-def v3_backward_launches(seq: int, dtype: torch.dtype) -> int:
-    """Kernel launches of one :func:`short_attention_v3_backward` call: 1 for
-    bf16 at S <= 128 (the tensor-core kernel), else 2 (the CUDA-core dq and
-    dk/dv pair)."""
-    return 1 if dtype == torch.bfloat16 and seq <= V3_TC_MAX_SEQ else 2
 
 
 def short_attention_v3_backward_plain(q, k, v, key_bias, out, dout,
@@ -326,7 +350,7 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
     ``out`` is the forward's ctx in q's dtype for the same inputs, seed and
     rate.  bf16 at S <= 128: one tensor-core launch; otherwise two, dq
     (which recomputes each row's lse and writes it and delta = dO . o to
-    scratch) then dk/dv (:func:`v3_backward_launches`)."""
+    scratch) then dk/dv (:func:`tensor_core_backward`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_v3_backward")
     b, s, h = q.shape
     if out.shape != q.shape or out.dtype != q.dtype or dout.shape != q.shape:
@@ -346,7 +370,7 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
         _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_v3_backward")
-    short_attention_v3_backward.launches += v3_backward_launches(s, q.dtype)
+    short_attention_v3_backward.launches += backward_launches(s, q.dtype)
     return dq, dk, dv
 
 
@@ -367,12 +391,15 @@ def saved_inputs(ctx):
 
 
 class _ShortAttention(torch.autograd.Function):
-    """Forward kernel + backward kernel pair.  Saves q, k, v, the bias, the
-    output (in f32) and the row lse -- the seed and rate ride as Python
-    numbers -- as ``_v2_fwd`` saves its residuals; no gradient for the bias
-    or seed.  Under ``USE_V3_BWD`` (read here, in the forward) it saves the
-    ctx itself instead of out32 and lse, and the backward is the v3 pair;
-    on CPU tensors (rate 0) the plain forward and the v3 plain backward."""
+    """Forward kernel + backward kernel pair.  Saves q, k, v and the bias --
+    the seed and rate ride as Python numbers -- and, where the CUDA-core
+    pair runs the backward (:func:`tensor_core_backward` false), the row
+    lse of the training forward; bf16 at S <= 128 runs the serving forward
+    and keeps what JAX's ``_v2_fwd`` keeps and the ``_bwd_kernel_v2`` it
+    pairs with reads.  No gradient for the bias or seed.  Under
+    ``USE_V3_BWD`` (read here, in the forward) it saves the ctx instead of
+    the lse, and the backward is the v3 pair; on CPU tensors (rate 0) the
+    plain forward and the v3 plain backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, num_heads, seed, rate, recompute):
@@ -382,30 +409,25 @@ class _ShortAttention(torch.autograd.Function):
             out = short_attention_plain(q, k, v, key_bias, num_heads)
             save_inputs(ctx, recompute, q, k, v, key_bias, out)
             return out
-        out, lse, out32 = _forward_kernel(q, k, v, key_bias, num_heads, seed,
-                                          byte_threshold(rate),
-                                          train=not ctx.v3)
-        if ctx.v3:
-            save_inputs(ctx, recompute, q, k, v, key_bias, out)
-        else:
-            save_inputs(ctx, recompute, q, k, v, key_bias, out32, lse)
+        train = not (ctx.v3 or tensor_core_backward(q.shape[1], q.dtype))
+        out, lse = _forward_kernel(q, k, v, key_bias, num_heads, seed,
+                                   byte_threshold(rate), train)
+        save_inputs(ctx, recompute, q, k, v, key_bias, out if ctx.v3 else lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         num_heads, seed, rate = ctx.args
-        if ctx.v3:
-            q, k, v, key_bias, out = saved_inputs(ctx)
-            if q.is_cuda:
-                grads = short_attention_v3_backward(
-                    q, k, v, key_bias, out, dout, num_heads, seed, rate)
-            else:
-                grads = short_attention_v3_backward_plain(
-                    q, k, v, key_bias, out, dout, num_heads)
+        q, k, v, key_bias, saved = saved_inputs(ctx)
+        if not ctx.v3:  # saved: the lse, or None
+            grads = short_attention_backward(q, k, v, key_bias, saved, dout,
+                                             num_heads, seed, rate)
+        elif q.is_cuda:  # saved: the ctx
+            grads = short_attention_v3_backward(
+                q, k, v, key_bias, saved, dout, num_heads, seed, rate)
         else:
-            q, k, v, key_bias, out32, lse = saved_inputs(ctx)
-            grads = short_attention_backward(q, k, v, key_bias, out32, lse,
-                                             dout, num_heads, seed, rate)
+            grads = short_attention_v3_backward_plain(
+                q, k, v, key_bias, saved, dout, num_heads)
         return (*grads, None, None, None, None, None)
 
 
@@ -505,11 +527,13 @@ def short_attention_probs_plain(q, k, v, key_bias, num_heads: int,
 def short_attention_probs_backward_plain(q, k, v, probs, dout, num_heads: int,
                                          rate: float = 0.0):
     """dq, dk, dv from the signed probs (JAX ``_bwd_kernel_v2s``), in f32:
-    p = |ps|, keep = ps > 0, then :func:`_grads_from_probs_plain`."""
+    p = |ps|, keep = ps > 0, then :func:`_grads_from_probs_plain` with dS
+    and the dropped p rounded to q's dtype before their products, as that
+    kernel rounds them (nothing changes in f32)."""
     s = q.shape[1]
     ps = probs[..., :s].float()
     return _grads_from_probs_plain(q, k, v, ps.abs(), dout, num_heads, rate,
-                                   ps > 0.0 if rate > 0.0 else None)
+                                   ps > 0.0 if rate > 0.0 else None, q.dtype)
 
 
 def _grads_from_probs_plain(q, k, v, p, dout, num_heads, rate, keep,
@@ -662,16 +686,21 @@ def short_attention_packed_plain(qkv, key_bias, num_heads: int,
 
 def short_attention_packed_backward_plain(qkv, key_bias, dout,
                                           num_heads: int, rate: float = 0.0,
-                                          keep: Optional[torch.Tensor] = None):
+                                          keep: Optional[torch.Tensor] = None,
+                                          out: Optional[torch.Tensor] = None):
     """The packed gradient [B, S, 3H] of :func:`short_attention_packed_plain`
-    in f32 math (JAX ``_bwd_kernel_v2p``: delta = dO.o per head row, o the
-    f32 output): :func:`short_attention_v3_backward_plain` on the thirds,
-    dq, dk and dv written into the thirds of one buffer."""
-    q, k, v = (x.float() for x in _thirds(qkv))
-    out = short_attention_plain(q, k, v, key_bias, num_heads, rate, keep)
+    by JAX's ``_bwd_kernel_v2p`` rule, the v3 one: q, k and v the thirds of
+    ``qkv`` in its dtype, ``out`` the forward's ctx in that dtype (None:
+    :func:`short_attention_plain`'s), then
+    :func:`short_attention_v3_backward_plain` (delta = dO . o per head row,
+    dS and the dropped p rounded to qkv's dtype), dq, dk and dv written into
+    the thirds of one buffer."""
+    q, k, v = _thirds(qkv)
+    if out is None:
+        out = short_attention_plain(q, k, v, key_bias, num_heads, rate, keep)
     grads = short_attention_v3_backward_plain(q, k, v, key_bias, out, dout,
                                               num_heads, rate, keep)
-    return torch.cat(grads, dim=-1).to(qkv.dtype)
+    return torch.cat(grads, dim=-1)
 
 
 def _check_packed(qkv, key_bias, num_heads, what):
@@ -683,90 +712,85 @@ def _check_packed(qkv, key_bias, num_heads, what):
 
 
 def _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold, train):
-    """The packed forward; (ctx, lse, out32) as :func:`launch_forward`: the
-    same kernels reading the thirds of ``qkv`` at row stride 3H."""
+    """The packed forward; (ctx, lse) as :func:`_forward_kernel`: the same
+    kernels reading the thirds of ``qkv`` at row stride 3H."""
     b, s, h3 = qkv.shape
-    h = h3 // 3
     (qkv,) = _aligned(qkv, what="short_attention_packed")
     key_bias = key_bias.to(torch.float32).contiguous()
-    out = torch.empty((b, s, h), dtype=qkv.dtype, device=qkv.device)
-    lse = out32 = None
-    if train:
-        lse = torch.empty((b, num_heads, s), dtype=torch.float32,
-                          device=qkv.device)
-        out32 = out if qkv.dtype == torch.float32 else torch.empty(
-            out.shape, dtype=torch.float32, device=qkv.device)
+    out = torch.empty((b, s, h3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, num_heads, s), dtype=torch.float32,
+                      device=qkv.device) if train else None
     lib = _build.load("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_packed_fwd(
-        qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        None if out32 is None or out32 is out else out32.data_ptr(), b, s, h,
-        num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), _ptr(lse), b, s,
+        h3 // 3, num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
         *_seed_words(seed), threshold, _stream(qkv))
     _build.check(code, "short_attention_packed")
     short_attention_packed.launches += 1
-    return out, lse, out32
+    return out, lse
 
 
-def short_attention_packed_backward(qkv, key_bias, out32, lse, dout,
-                                    num_heads: int, seed: int = 0,
+def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
+                                    seed: int = 0,
                                     rate: float = 0.0) -> torch.Tensor:
-    """dqkv [B, S, 3H] of :func:`short_attention_packed` (CUDA only): the
-    backward pair of :func:`short_attention_backward` reading the thirds of
-    ``qkv`` in place and writing dq, dk, dv into the thirds of one buffer."""
+    """dqkv [B, S, 3H] of :func:`short_attention_packed` (CUDA only) by
+    JAX's ``_bwd_kernel_v2p`` rule (v3's, :func:`short_attention_v3_backward`):
+    ``out`` is the forward's ctx in qkv's dtype for the same inputs, seed
+    and rate, delta = dO . o, the lse recomputed, dS and the dropped p
+    rounded; q, k and v are read as the thirds of ``qkv`` in place and dq,
+    dk, dv written into the thirds of one buffer.  bf16 at S <= 128: one
+    tensor-core launch at row stride 3H; otherwise the CUDA-core pair
+    (:func:`tensor_core_backward`)."""
     _check_packed(qkv, key_bias, num_heads, "short_attention_packed_backward")
     b, s, h3 = qkv.shape
-    h = h3 // 3
-    if out32.shape != (b, s, h) or out32.dtype != torch.float32 or \
-            dout.shape != (b, s, h) or lse.shape != (b, num_heads, s):
-        raise ValueError("short_attention_packed_backward: out32/dout/lse "
-                         f"{tuple(out32.shape)} {out32.dtype}, "
-                         f"{tuple(dout.shape)}, {tuple(lse.shape)} do not fit "
-                         f"qkv {tuple(qkv.shape)}")
-    qkv, out32, dout = _aligned(qkv, out32, dout.to(qkv.dtype))
+    if out.shape != (b, s, h3 // 3) or out.dtype != qkv.dtype or \
+            dout.shape != out.shape:
+        raise ValueError("short_attention_packed_backward: out/dout "
+                         f"{tuple(out.shape)} {out.dtype}, {tuple(dout.shape)} "
+                         f"do not fit qkv {tuple(qkv.shape)} {qkv.dtype}")
+    qkv, out, dout = _aligned(qkv, out, dout.to(qkv.dtype))
     key_bias = key_bias.to(torch.float32).contiguous()
-    lse = lse.contiguous()
-    delta = torch.empty_like(lse)
+    lse, delta = (torch.empty((b, num_heads, s), dtype=torch.float32,
+                              device=qkv.device) for _ in range(2))
     dqkv = torch.empty_like(qkv)
     lib = _build.load("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_packed_bwd(
-        qkv.data_ptr(), key_bias.data_ptr(), out32.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
-        b, s, h, num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, s, h3 // 3,
+        num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
         *_seed_words(seed), byte_threshold(rate), _stream(qkv))
     _build.check(code, "short_attention_packed_backward")
-    short_attention_packed_backward.launches += 2
+    short_attention_packed_backward.launches += backward_launches(s, qkv.dtype)
     return dqkv
 
 
 class _ShortAttentionPacked(torch.autograd.Function):
-    """The v2p pair.  Saves qkv, the bias, the output in f32 and the row lse
-    (the kernel's residuals); the gradient of qkv is one [B, S, 3H] tensor.
-    On CPU tensors the plain versions of both (rate 0)."""
+    """The v2p pair.  The forward runs the serving form and saves qkv, the
+    bias and the ctx, as JAX's ``_v2p_fwd`` saves its residuals; the
+    gradient of qkv is one [B, S, 3H] tensor.  On CPU tensors the plain
+    versions of both (rate 0)."""
 
     @staticmethod
     def forward(ctx, qkv, key_bias, num_heads, seed, rate):
         if qkv.is_cuda:
-            out, lse, out32 = _packed_forward_kernel(
-                qkv, key_bias, num_heads, seed, byte_threshold(rate), True)
-            ctx.save_for_backward(qkv, key_bias, out32, lse)
+            out = _packed_forward_kernel(qkv, key_bias, num_heads, seed,
+                                         byte_threshold(rate), False)[0]
         else:
             out = short_attention_packed_plain(qkv, key_bias, num_heads)
-            ctx.save_for_backward(qkv, key_bias)
+        ctx.save_for_backward(qkv, key_bias, out)
         ctx.args = (num_heads, seed, rate)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         num_heads, seed, rate = ctx.args
-        if ctx.saved_tensors[0].is_cuda:
-            qkv, key_bias, out32, lse = ctx.saved_tensors
+        qkv, key_bias, out = ctx.saved_tensors
+        if qkv.is_cuda:
             dqkv = short_attention_packed_backward(
-                qkv, key_bias, out32, lse, dout, num_heads, seed, rate)
+                qkv, key_bias, out, dout, num_heads, seed, rate)
         else:
-            qkv, key_bias = ctx.saved_tensors
-            dqkv = short_attention_packed_backward_plain(qkv, key_bias, dout,
-                                                         num_heads)
+            dqkv = short_attention_packed_backward_plain(
+                qkv, key_bias, dout, num_heads, out=out)
         return dqkv, None, None, None, None
 
 

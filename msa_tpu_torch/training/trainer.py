@@ -69,10 +69,11 @@ _ACT_MEMORY_FRACTION = 0.5
 # bf16 tensor per layer: 6 (save_attn+drop), 5, 3, 2 (save_ctx).  The
 # port's stash per token, layer and element of H, in bytes, with `it` the
 # compute dtype's size: the layer input (it), q, k, v (3 it), ctx (it),
-# the attention kernels' f32 output, which their backward reads (4 B in
-# bf16; in f32 it is ctx itself), and under '+drop' the two bool masks
-# (2 B).  In bf16 units: 8, 7, 5 and 4; the row lse (heads / H of a unit)
-# is left out.
+# under '+drop' the two bool masks (2 B), and on the tokens of a flash2
+# joint pass the f32 output its backward reads (4 B in bf16; in f32 it is
+# ctx itself).  The short route keeps no f32 output.  In bf16 units: JAX's
+# 6, 5, 3 and 2 on the short route, 8, 7, 5 and 4 on flash2's; the row lse
+# (heads / H of a unit) is left out.
 _REMAT_STASH_FRACTION = 6.0 / 16.0
 _REMAT_STASH_FRACTION_FRAME = 10.0 / 16.0
 _REMAT_LADDER = (  # (policy, its q/k/v/ctx/input tensors, masks?)
@@ -260,7 +261,9 @@ class Trainer:
                            if self._frame_level_flash()
                            else _REMAT_STASH_FRACTION)
         it = torch.empty((), dtype=self.compute_dtype).element_size()
-        out32 = 4 if self.compute_dtype != torch.float32 else 0
+        text, joint = self._tokens()
+        out32 = (4 * joint / (text + joint) if self._frame_level_flash()
+                 and self.compute_dtype != torch.float32 else 0)
         per_element = self.activation_bytes() / (
             _ACT_ELEMENTS_PER_TOKEN_LAYER * it)  # tokens x H x layers
         for policy, tensors, masks in _REMAT_LADDER:
@@ -268,13 +271,17 @@ class Trainer:
                 return policy
         return "full"
 
-    def activation_bytes(self) -> float:
-        """The eager step's saved activations, estimated (see above)."""
+    def _tokens(self) -> Tuple[int, int]:
+        """(text pass, joint passes) tokens of one step."""
         b = self.config.train.train_batch_size
         l = self.config.data.max_seq_length
         lp = self.config.data.pair_seq_length or l
+        return b * l, 2 * b * (l + lp)
+
+    def activation_bytes(self) -> float:
+        """The eager step's saved activations, estimated (see above)."""
         bert = self.config.model.bert
-        tokens = b * l + 2 * b * (l + lp)
+        tokens = sum(self._tokens())
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
         return (tokens * _ACT_ELEMENTS_PER_TOKEN_LAYER * itemsize
                 * bert.hidden_size * bert.num_hidden_layers)

@@ -13,7 +13,7 @@
 * The v3 rule in f32 equals the v1 rule (delta = rowsum(p * dpm), not
   dO . o) within 2e-6, with and without a keep mask: one gradient, delta
   taken two ways.
-* ``v3_backward_launches``: one launch for bf16 at S <= 128 (the
+* ``backward_launches``: one launch for bf16 at S <= 128 (the
   tensor-core kernel), two otherwise.
 * The port's switch ``USE_V3_BWD``: ``short_attention`` on CPU tensors
   runs the v3 plain backward (the same values as autograd through the
@@ -96,7 +96,7 @@ def test_v3_plain_equals_v1_plain_in_f32(rate):
 def test_v3_backward_launches(dtype, seq, launches):
     """bf16 at S <= 128 is one tensor-core launch; f32 and bf16 above 128
     keys are the CUDA-core dq and dk/dv pair."""
-    assert sa.v3_backward_launches(seq, dtype) == launches
+    assert sa.backward_launches(seq, dtype) == launches
 
 
 def test_v3_switch_on_cpu_tensors(monkeypatch):
