@@ -2,16 +2,21 @@
 """Smoke test of the PyTorch/CUDA port (msa_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-times ROOT
 
-Run from the root of a checkout.  In order, and stopping at the first
-failure (no phase catches its own):
+Run from the root of a checkout.  ``--flash-times ROOT`` only times the
+flash backwards (:func:`time_flash_backwards`) of the checkout at ROOT
+(this one's or another's, whose kernels build into ROOT/build/), so two
+trees are timed by the same code in one run.  With no argument,  In order, and stopping at the first
+failure (no phase catches its own), the script:
 
   1. requires CUDA and prints the card's name and power limit;
   2. builds the CUDA kernels from msa_tpu_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all started together, and prints what ptxas
-     reports (registers, static shared memory, spills) for the bf16
-     tensor-core kernels of the short attention (the v1, v2, v2p and v2s
-     forwards, the v1, v2, v2p and v3 backwards);
+     one nvcc per source, all started together, prints each source's nvcc
+     wall time and what ptxas reports (registers, static shared memory,
+     spills) for the bf16 tensor-core kernels of the short attention (the
+     v1, v2, v2p and v2s forwards, the v1, v2, v2p, v3 and v2s backwards,
+     each at head dim 32 and 64);
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -33,9 +38,11 @@ failure (no phase catches its own):
        at the int8 serving path's row counts;
      * the flash2 forward (frame-level joint shape [32, 1024] in bf16, f32,
        a ragged S=1030, S=4096), and its fused and split backward, each
-       forced, against autograd through the plain version and against each
-       other, with and without dropout, and its dropout against the short
-       kernel's at S=768 under one seed;
+       forced, against JAX's rule with its roundings
+       (``flash_attention2_backward_plain``), against autograd through the
+       plain version in f32 and against each other, with and without
+       dropout, and its dropout against the short kernel's at S=768 under
+       one seed;
      * the '+probs' (v2s) and 'save_pack' (v2p) pairs at the text and
        joint shapes: the v2s forward's ctx and signed probs (their signs
        the exported keep mask) and its backward from its own probs against
@@ -45,7 +52,8 @@ failure (no phase catches its own):
        plain versions (the backward's rounded rule, and autograd in f32),
        also at [8, 130] (the CUDA-core backward); the bf16 v2s forward
        (tensor cores) also at S = 12, 128 and, in its two-sweep form, 200
-       and 1000;
+       and 1000, and its backward from those probs at S = 12, 128 (tensor
+       cores) and 200 (the CUDA-core pair);
      * the fused AdamW on bert-large's leaf shapes, every pair of
        moment dtypes, with and without a clip scale, an odd length and an
        unaligned leaf, timed beside ``torch.optim.AdamW(fused=True)``; the
@@ -63,6 +71,16 @@ failure (no phase catches its own):
        joint shapes: forward, backward, the same against v2 at one seed,
        and the bytes it keeps for the backward (its inputs) against v2's;
        its bf16 forward (tensor cores) also at S = 8 and 128;
+  3b. probes flash2's fused-backward dq at [32, 1024] bf16 on four more
+     inputs: its distance to f32 autograd and to the rounded rule; times
+     the flash backwards (flash2 fused and split, the head-split pair) at
+     [32, 1024, 1024] bf16, rate 0 and the training dropout;
+  3c. runs every kernel phase of 3 (but the dropout export and AdamW)
+     again at head dim 32 (H = 64, 2 heads), ln_quant and the joint embed
+     at H = 64;
+  3d. JAX's ``tiny`` preset (head dim 32) through ``cli.train --model
+     tiny``, the bf16, int8 and int8_static ``Predictor`` and the
+     frame-level path (serving, 1 + 2 train steps on flash2 at d = 32);
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
@@ -133,6 +151,7 @@ beside it, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import io
 import json
@@ -236,6 +255,9 @@ FRAME_RUNGS = ("none", "save_attn+drop", "save_ctx")
 PROBS_LOSS_RTOL = 2e-3
 REMAT_LOSS_RTOL = 2e-2
 CLI_SYNTHETIC = 2 * 96  # cli.train: two steps an epoch at B=96
+# the tiny preset's served predictions must spread at least this much, or
+# the int8 and f32 comparisons would compare constants
+TINY_PRED_SPREAD = 1e-2
 
 # fused AdamW kernel against its plain version: p within 1e-6 relative,
 # each moment within one ulp of its dtype (both sides compute the same
@@ -391,6 +413,20 @@ def attention_inputs(gen, b, s, dtype):
     mask = (torch.arange(s, device="cuda")[None] < lengths[:, None])
     bias = (1.0 - mask.float()) * -10000.0
     return q, k, v, bias, lengths > 0
+
+
+@contextlib.contextmanager
+def head_widths(hidden, heads):
+    """The phases' attention width and head count (the module's HIDDEN and
+    HEADS, which every kernel phase reads) set to ``hidden`` and ``heads``
+    for the block, restored after it."""
+    global HIDDEN, HEADS
+    saved = HIDDEN, HEADS
+    HIDDEN, HEADS = hidden, heads
+    try:
+        yield
+    finally:
+        HIDDEN, HEADS = saved
 
 
 def sdpa_args(q, k, v, bias):
@@ -809,9 +845,10 @@ def phase_joint_embed(gen):
     return worst, times
 
 
-def phase_ln_quant(gen):
+def phase_ln_quant(gen, cases=None):
     """The fused residual + LayerNorm + int8 quantize kernels against the
-    plain composition, at the int8 serving path's row counts."""
+    plain composition, at the int8 serving path's row counts (``cases``:
+    (label, rows) pairs in their place)."""
     import torch
 
     from msa_tpu_torch.ops.ln_quant import (
@@ -819,8 +856,8 @@ def phase_ln_quant(gen):
 
     eps = 1e-12
     worst, times = {"static": 0.0, "dynamic": 0.0}, {}
-    for label, rows in (("text", BATCH * TEXT_LEN),
-                        ("joint", 2 * BATCH * 2 * TEXT_LEN)):
+    for label, rows in cases or (("text", BATCH * TEXT_LEN),
+                                 ("joint", 2 * BATCH * 2 * TEXT_LEN)):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             x, res = (torch.randn(rows, HIDDEN, device="cuda", generator=gen)
@@ -916,19 +953,68 @@ def phase_flash2(gen):
     return worst, times
 
 
+def check_flash2_backward(tag, q, k, v, bias, live, dout, seed, rate, keep):
+    """flash2's fused and split backwards, each forced, from the training
+    forward's f32 output and lse: each held by :func:`check_rounded_backward`
+    against JAX's rule with its roundings (``flash_attention2_backward_plain``
+    given out32, the lse and the keep mask: dS and pd rounded, under dropout
+    dO * (1 / (1 - rate)) rounded before dP and dV) at GRAD_TOL, and
+    against autograd through the plain version in f32 within twice it plus
+    the gap those roundings make in the rule; fused and split against each
+    other at GRAD_TOL; the forward against the plain version at ATTN_TOL.
+    Returns (errors against the rule by route, against autograd by route,
+    fused vs split, out32, lse)."""
+    import torch
+
+    from msa_tpu_torch.ops.dropout import byte_threshold
+    from msa_tpu_torch.ops.flash2 import (
+        _forward_kernel, flash_attention2_backward,
+        flash_attention2_backward_plain, flash_attention2_plain)
+
+    dname = str(q.dtype).split(".")[1]
+    out, lse, ctx32 = _forward_kernel(q, k, v, bias, HEADS, seed,
+                                      byte_threshold(rate), train=True)
+    o32 = out if ctx32 is None else ctx32
+    got = {fused: flash_attention2_backward(
+        q, k, v, bias, o32, lse, dout, HEADS, seed, rate, fused=fused)
+        for fused in (True, False)}
+    wide = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref_out = flash_attention2_plain(*wide, bias, HEADS, rate, keep)
+    auto = torch.autograd.grad(ref_out, wide, dout.float())
+    rule = flash_attention2_backward_plain(q, k, v, bias, o32, lse, dout,
+                                           HEADS, rate, keep)
+    rule32 = flash_attention2_backward_plain(
+        *(x.detach() for x in wide), bias, o32, lse, dout.float(), HEADS, rate,
+        keep)
+    torch.cuda.synchronize()
+    atol, rtol = ATTN_TOL[dname]
+    check_close(f"{tag} forward", out, ref_out.detach(), atol, rtol, mask=live)
+    gatol, grtol = GRAD_TOL[dname]
+    errs, autos = {}, {}
+    for fused in (True, False):
+        route = "fused" if fused else "split"
+        errs[fused], autos[fused] = check_rounded_backward(
+            f"flash2_bwd_{route} {tag}", got[fused], rule, rule32, auto, live,
+            gatol, grtol)
+    between = max(check_close(f"flash2 fused vs split {tag} {name}", gf, gs,
+                              gatol, grtol, mask=live)
+                  for name, gf, gs in zip(("dq", "dk", "dv"), got[True],
+                                          got[False]))
+    return errs, autos, between, o32, lse
+
+
 def phase_flash2_backward(gen):
-    """The fused and the split flash2 backward, each forced, against autograd
-    through the plain version in f32 and against each other on the same
-    inputs; with dropout at B=2 (the plain version given keep_mask_plain);
+    """The fused and the split flash2 backward, each forced, by
+    :func:`check_flash2_backward` (against JAX's rounded rule at GRAD_TOL,
+    against f32 autograd within twice it plus the rule's gap, against each
+    other); with dropout at B=2 (the plain versions given keep_mask_plain);
     and the flash2 forward's dropout against the short kernel's at S=768."""
     import torch
     import torch.nn.functional as F
 
-    from msa_tpu_torch.ops.dropout import (
-        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.dropout import keep_mask_plain, quantize_dropout_rate
     from msa_tpu_torch.ops.flash2 import (
-        _forward_kernel, flash_attention2, flash_attention2_backward,
-        flash_attention2_plain)
+        flash_attention2, flash_attention2_backward, flash_attention2_plain)
     from msa_tpu_torch.ops.short_attention import short_attention
 
     rate_on = quantize_dropout_rate(ATTN_DROPOUT)
@@ -946,46 +1032,14 @@ def phase_flash2_backward(gen):
         q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
         dout = torch.randn(b, s, HIDDEN, device="cuda", generator=gen).to(dtype)
         seed = 4321 + s
-        threshold = byte_threshold(rate)
         keep = (keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
                 if rate else None)
-        out, lse, ctx32 = _forward_kernel(q, k, v, bias, HEADS, seed,
-                                          threshold, train=True)
-        o32 = out if ctx32 is None else ctx32
-        got = {fused: flash_attention2_backward(
-            q, k, v, bias, o32, lse, dout, HEADS, seed, rate, fused=fused)
-            for fused in (True, False)}
-        refs = []  # autograd through the plain version in f32, in the dtype
-        for run_dtype in (torch.float32, dtype):
-            qq, kk, vv = (x.detach().to(run_dtype).requires_grad_()
-                          for x in (q, k, v))
-            o = flash_attention2_plain(qq, kk, vv, bias, HEADS, rate, keep)
-            refs.append(torch.autograd.grad(o, (qq, kk, vv), dout.to(run_dtype)))
-            if run_dtype == torch.float32:
-                ref_out = o.detach()
-        torch.cuda.synchronize()
-        atol, rtol = ATTN_TOL[dname]
-        check_close(f"flash_attention2 {label} {dname} rate {rate:g} forward",
-                    out, ref_out, atol, rtol, mask=live)
-        gatol, grtol = GRAD_TOL[dname]
-        errs = {}
+        tag = f"{label} [{b},{s},{HIDDEN}] {dname} rate {rate:g}"
+        errs, autos, between, o32, lse = check_flash2_backward(
+            tag, q, k, v, bias, live, dout, seed, rate, keep)
         for fused in (True, False):
-            route = "fused" if fused else "split"
-            errs[fused] = 0.0
-            for name, g, r in zip(("dq", "dk", "dv"), got[fused], refs[0]):
-                tag = (f"flash2_bwd_{route} {label} [{b},{s}] {dname} rate "
-                       f"{rate:g} {name}")
-                errs[fused] = max(errs[fused], check_close(
-                    tag, g, r, gatol, grtol, mask=live))
-                check_close(tag + " masked row", g, r, MASKED_ROW_GRAD_ATOL,
-                            0.0, mask=~live)
             worst[fused] = max(worst[fused], errs[fused])
-        between = max(check_close(
-            f"flash2 fused vs split {label} {dname} rate {rate:g} {name}",
-            gf, gs, gatol, grtol, mask=live)
-            for name, gf, gs in zip(("dq", "dk", "dv"), got[True], got[False]))
-        plain_err = max(float((a.float() - r)[live].abs().max())
-                        for a, r in zip(refs[1], refs[0]))
+        gatol, grtol = GRAD_TOL[dname]
         timing = ""
         if rate == 0.0:
             ms, other_ms = (cuda_ms(lambda: flash_attention2_backward(
@@ -1012,9 +1066,10 @@ def phase_flash2_backward(gen):
                       f"{bound[0]:.4f} ms ({bound[1]})")
         print(f"flash2 backward [{b},{s},{HIDDEN}] {dname} rate {rate:g}: "
               f"max_abs_err fused {errs[True]:.3e}, split {errs[False]:.3e} "
-              f"(atol {gatol}, rtol {grtol}; the plain version in {dname}: "
-              f"{plain_err:.3e}); fused vs split {between:.3e}{timing}",
-              flush=True)
+              f"against the rounded rule (atol {gatol}, rtol {grtol}); "
+              f"against f32 autograd fused {autos[True]:.3e}, split "
+              f"{autos[False]:.3e} (twice that plus the rule's rounding gap); "
+              f"fused vs split {between:.3e}{timing}", flush=True)
 
     # the same seed draws the same mask in both kernel families (S=768 is
     # the short kernel's range; flash2 takes any S)
@@ -1034,6 +1089,265 @@ def phase_flash2_backward(gen):
               f"{HIDDEN}] {dname}, same seed: max_abs_err {err:.3e}; the next"
               " seed differs", flush=True)
     return worst, times
+
+
+def probe_flash2_dq():
+    """flash2's fused-backward dq at the frame-level joint shape [32, 1024]
+    bf16, rate 0, on inputs from four generators of their own: how far it
+    lies from f32 autograd (elements beyond GRAD_TOL, the check it was held
+    to before it was held to the rounded rule) and from the rounded rule.
+    The new checks of :func:`check_flash2_backward` hold; the old one is
+    reported, not enforced."""
+    import torch
+
+    from msa_tpu_torch.ops.flash2 import (
+        flash_attention2_backward, flash_attention2_backward_plain,
+        flash_attention2_plain, _forward_kernel)
+
+    atol, rtol = GRAD_TOL["bfloat16"]
+    b, s = 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN
+    for seed in (101, 102, 103, 104):
+        pgen = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v, bias, live = attention_inputs(pgen, b, s, torch.bfloat16)
+        dout = torch.randn(b, s, HIDDEN, device="cuda",
+                           generator=pgen).to(torch.bfloat16)
+        out, lse, o32 = _forward_kernel(q, k, v, bias, HEADS, 0, 0, train=True)
+        dq = flash_attention2_backward(q, k, v, bias, o32, lse, dout, HEADS,
+                                       fused=True)[0].float()
+        wide = [x.detach().float().requires_grad_() for x in (q, k, v)]
+        auto = torch.autograd.grad(flash_attention2_plain(
+            *wide, bias, HEADS), wide[0], dout.float())[0]
+        rule = flash_attention2_backward_plain(q, k, v, bias, o32, lse, dout,
+                                               HEADS)[0].float()
+        rule32 = flash_attention2_backward_plain(
+            *(x.detach() for x in wide), bias, o32, lse, dout.float(),
+            HEADS)[0]
+        torch.cuda.synchronize()
+        line = []
+        for name, ref in (("f32 autograd", auto), ("the rounded rule", rule)):
+            err = (dq - ref).abs()[live]
+            beyond = int((err > atol + rtol * ref.abs()[live]).sum())
+            line.append(f"{name}: max {float(err.max()):.3e}, {beyond} "
+                        "elements beyond GRAD_TOL")
+        gap = float((rule - rule32).abs()[live].max())
+        print(f"flash2 fused dq probe [{b},{s},{HIDDEN}] bfloat16 generator "
+              f"{seed}: against {'; against '.join(line)}; the rule's "
+              f"rounding gap to f32 {gap:.3e}", flush=True)
+        check_flash2_backward(f"probe generator {seed}", q, k, v, bias, live,
+                              dout, 0, 0.0, None)
+
+
+def time_flash_backwards():
+    """Device ms of the flash backwards at the frame-level joint shape [2 x
+    FRAME_BATCH, 1024, 1024] bf16 (16 heads), at rate 0 and at the training
+    dropout: flash2's fused and split routes and the head-split pair (row
+    13), each from its own training forward's output and lse at that rate.
+    It calls only entry points that every tree of the port has had since
+    row 13 was ported, so ``--flash-times ROOT`` times another checkout's
+    kernels by this code.  Prints and returns {label: ms}."""
+    import torch
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops import flash2 as F2
+    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+
+    b, s, h, heads = 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN, 1024, 16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, dout = (torch.randn(b, s, h, device="cuda", generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    bias = torch.zeros(b, s, device="cuda")
+    qh, kh, vh, doh = (x.view(b, s, heads, -1).transpose(1, 2).contiguous()
+                       for x in (q, k, v, dout))
+    times = {}
+    for rate in (0.0, quantize_dropout_rate(ATTN_DROPOUT)):
+        t = byte_threshold(rate)
+        _, lse, out32 = F2._forward_kernel(q, k, v, bias, heads, 7, t, True)
+        for fused in (True, False):
+            times[f"flash2 {'fused' if fused else 'split'} rate {rate:g}"] = \
+                cuda_ms(lambda: F2.flash_attention2_backward(
+                    q, k, v, bias, out32, lse, dout, heads, 7, rate,
+                    fused=fused), iters=10)
+        out, lse_h = A._forward_kernel(qh, kh, vh, bias, 7, t, True)
+        times[f"row 13 rate {rate:g}"] = cuda_ms(
+            lambda: A.flash_attention_backward(qh, kh, vh, bias, out, lse_h,
+                                               doh, 7, rate), iters=10)
+    print(f"flash backwards [{b},{s},{h}] bfloat16, ms: "
+          f"{json.dumps(times)}", flush=True)
+    return times
+
+
+def phase_head_dim_32():
+    """Every attention kernel at head dim 32 and ln_quant and the joint
+    embed at H = 64 (the tiny preset's widths: H = 64, 2 heads): the kernel
+    phases above, run again under :func:`head_widths` from a generator of
+    their own, with their checks and tolerances (each phase's shapes: the
+    short forwards and backwards at the text and joint shapes, bf16 and f32,
+    and at the edge lengths each phase runs -- v2s's forward at 12-1000 and
+    its backward at 12, 128 and 200; flash2 and the head-split flash attention
+    at [B, 1024, 2 x 32], S = 1000 / 1030 and 4096; ln_quant also at an odd
+    row count).  Returns each phase's (worst error, times)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    out = {}
+    t0 = time.perf_counter()
+    with head_widths(64, 2):
+        print(f"head dim 32: H={HIDDEN}, {HEADS} heads", flush=True)
+        out["attention"] = phase_attention(gen)
+        out["attention_backward"] = phase_attention_backward(gen)
+        out["joint_embed"] = phase_joint_embed(gen)
+        out["ln_quant"] = phase_ln_quant(gen, (
+            ("text", BATCH * TEXT_LEN), ("joint", 2 * BATCH * 2 * TEXT_LEN),
+            ("odd", 1001)))
+        out["flash2"] = phase_flash2(gen)
+        out["flash2_backward"] = phase_flash2_backward(gen)
+        out["probs_packed"] = phase_probs_packed(gen)
+        out["v3"] = phase_v3_kernels(gen)
+        out["flash_attention"] = phase_flash_attention(gen)
+        out["v1"] = phase_short_v1(gen)
+    print(f"head dim 32: every kernel check passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_tiny_preset():
+    """JAX's ``tiny`` preset (H = 64, 2 heads: head dim 32) on the card
+    through the hand-written kernels: ``cli.train --model tiny`` (its
+    flow, one epoch on a synthetic MOSI split; launches per step and eval
+    pass as at bert-large), the trained weights served by the bf16, int8
+    and int8_static ``Predictor`` (launches per batch, finite predictions,
+    an f32 card run against the CPU's), then the frame-level path (L = 40,
+    Lp = 984: the joint pass [2B, 1024] on flash2 at head dim 32; the
+    preset's 128 positions embed the text alone): serving and 1 + 2 train
+    steps."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.cli import train
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params, to_device
+
+    n_train, batch, layers = 256, 32, 2
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the CLI logs under ./logs
+        try:
+            argv = ["--model", "tiny", "--dataset", "mosi", "--synthetic",
+                    str(n_train), "--n_epochs", "1", "--train_batch_size",
+                    str(batch), "--val_batch_size", str(batch),
+                    "--test_batch_size", str(batch), "--checkpoint_root",
+                    os.path.join(tmp, "model_save"), "--numpy_root",
+                    os.path.join(tmp, "numpy_save"), "--device", "cuda"]
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer, state, result = train.run(
+                train.build_parser().parse_args(argv))
+            fit_s = time.perf_counter() - t0
+            launches = kernel_counts()
+        finally:
+            os.chdir(cwd)
+    exp = trainer.config
+    cfg = exp.model
+    if cfg.bert.head_dim != 32 or trainer.remat_policy != "none":
+        raise AssertionError(f"tiny: head dim {cfg.bert.head_dim}, remat "
+                             f"{trainer.remat_policy}")
+    steps = state.step
+    want = rung_launches("none", layers, steps)
+    evals = 2 * -(-(n_train // 8) // batch)  # val and test, one epoch
+    want["short_attention"] += 2 * layers * evals
+    want["fused_joint_embed"] += 2 * evals
+    if launches != want:
+        raise AssertionError(f"tiny cli.train launches {launches}, want {want}")
+    losses = [float(h["train"]["loss"]) for h in result.history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"tiny cli.train: epoch losses {losses}")
+    del state, trainer
+    # serving: random weights from a seed at initializer range 0.1 (at the
+    # preset's 0.02 the tiny model's predictions spread ~2.5e-7, and one
+    # epoch of the CLI's defaults saturates its head: either would compare
+    # nothing)
+    params = init_params(dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, initializer_range=0.1)), torch.Generator(
+            device="cuda").manual_seed(0))
+
+    n_serve = 3 * batch - 5
+    split = synthetic_split(n_serve, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=7)
+    calib = dataclasses.replace(split, **{
+        f: getattr(split, f)[:batch] for f in (
+            "input_ids", "attention_mask", "visual", "speech", "target")})
+    n_batches = -(-n_serve // batch)
+    outs, per_batch = {}, {}
+    for mode in (None, "int8", "int8_static"):
+        pred = Predictor(exp, params, batch, "cuda", quantize=mode,
+                         calibration=calib if mode == "int8_static" else None)
+        pred.predict_split(split)  # warm
+        reset_counts()
+        out = pred.predict_split(split)
+        got = kernel_counts()
+        if got != serving_launches(layers, n_batches, mode):
+            raise AssertionError(f"tiny serving {mode}: launches {got}")
+        if out.shape != (n_serve,) or not np.isfinite(out).all() or \
+                np.abs(out).max() > 1.0:
+            raise AssertionError(f"tiny serving {mode}: predictions "
+                                 f"{out.shape}, max |p| {np.abs(out).max()}")
+        outs[mode or "bf16"] = out
+        per_batch[mode or "bf16"] = {k: v // n_batches for k, v in got.items()
+                                     if v}
+    if not np.ptp(outs["bf16"]) > TINY_PRED_SPREAD:
+        raise AssertionError(f"tiny serving: predictions spread "
+                             f"{float(np.ptp(outs['bf16'])):.3e}, too little "
+                             "to compare")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    exp32 = dataclasses.replace(
+        exp, train=dataclasses.replace(exp.train, compute_dtype="float32"))
+    rows = [0, n_serve - 1]
+    sub = [np.asarray(x)[rows] for x in (split.input_ids, split.attention_mask,
+                                          split.visual, split.speech)]
+    gpu32 = Predictor(exp32, params, len(rows), "cuda").predict_arrays(*sub)
+    cpu32 = Predictor(exp32, to_device(params, "cpu"), len(rows),
+                      "cpu").predict_arrays(*sub)
+    err32 = float(np.abs(gpu32 - cpu32).max())
+    if not err32 <= F32_PRED_ATOL:
+        raise AssertionError(f"tiny f32 card vs CPU predictions differ by "
+                             f"{err32:.3e} > {F32_PRED_ATOL}")
+    print(f"tiny preset (H={cfg.bert.hidden_size}, "
+          f"{cfg.bert.num_attention_heads} heads, head dim "
+          f"{cfg.bert.head_dim}, {layers} layers): cli.train {steps} "
+          f"steps at B={batch} in {fit_s:.1f} s (epoch losses {losses}), "
+          f"launches {dict((k, v) for k, v in launches.items() if v)}; served "
+          f"{n_serve} samples in bf16 / int8 / int8_static, launches per batch "
+          f"{per_batch}; int8 / int8_static against bf16 max |diff| "
+          f"{float(np.abs(outs['int8'] - outs['bf16']).max()):.3e} / "
+          f"{float(np.abs(outs['int8_static'] - outs['bf16']).max()):.3e} "
+          f"(bf16 predictions spread {float(np.ptp(outs['bf16'])):.3e}); f32 "
+          f"card vs CPU {err32:.3e} (atol {F32_PRED_ATOL})", flush=True)
+
+    # frame level: the joint pass [2B, 1024] runs flash2 at head dim 32
+    fexp = frame_experiment(FRAME_PAIR_LEN, model="tiny")
+    fsplit = synthetic_split(FRAME_SERVE, TEXT_LEN, cfg.visual_dim,
+                             cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                             seed=8, pair_seq_length=FRAME_PAIR_LEN)
+    fpred = Predictor(fexp, params, FRAME_BATCH, "cuda")
+    fpred.predict_split(fsplit)  # warm
+    reset_counts()
+    fout = fpred.predict_split(fsplit)
+    got = kernel_counts()
+    nb = -(-FRAME_SERVE // FRAME_BATCH)
+    fwant = expect_counts(short_attention=layers * nb,
+                          flash_attention2=layers * nb,
+                          fused_joint_embed=2 * nb)
+    if got != fwant or fout.shape != (FRAME_SERVE,) or \
+            not np.isfinite(fout).all():
+        raise AssertionError(f"tiny frame-level serving: launches {got}, want "
+                             f"{fwant}; predictions {fout.shape}")
+    print(f"tiny frame-level serving B={FRAME_BATCH} L={TEXT_LEN} "
+          f"Lp={FRAME_PAIR_LEN}: {FRAME_SERVE} samples, launches per batch "
+          f"{dict((k, v // nb) for k, v in got.items() if v)}", flush=True)
+    phase_frame_training(FRAME_PAIR_LEN, FRAME_BATCH, None, 1, 2,
+                         "tiny frame-level", model="tiny")
 
 
 def kernel_counters():
@@ -1514,12 +1828,14 @@ def phase_training():
                       "mfu": trainer.mfu(sps), "peak_bytes": peak}
 
 
-def frame_experiment(pair_len, layers=None, **train):
-    """bert-large MMBert on MOSI widths in frame-level mode (``pair_len``
-    native-rate frames per modality), depth cut to ``layers`` if given."""
+def frame_experiment(pair_len, layers=None, model="bert-large-uncased",
+                     **train):
+    """MMBert (bert-large, or the preset ``model``) on MOSI widths in
+    frame-level mode (``pair_len`` native-rate frames per modality), depth
+    cut to ``layers`` if given."""
     from msa_tpu_torch.configs import build_experiment
 
-    exp = build_experiment("mosi", "bert-large-uncased", num_labels=1, **train)
+    exp = build_experiment("mosi", model, num_labels=1, **train)
     data = dataclasses.replace(exp.data, pair_seq_length=pair_len)
     bert = exp.model.bert
     if layers is not None:
@@ -1603,7 +1919,8 @@ def phase_frame_serving(params):
     return launches, FRAME_SERVE / seconds
 
 
-def phase_frame_training(pair_len, batch, layers, warmup, steps, label):
+def phase_frame_training(pair_len, batch, layers, warmup, steps, label,
+                         model="bert-large-uncased"):
     """bf16 train steps in frame-level mode (MOSI widths, the default
     dropouts, MLM on, bf16 Adam moments): finite losses, moved parameters
     and the kernel launches per step, with the joint pass's backward on the
@@ -1614,7 +1931,7 @@ def phase_frame_training(pair_len, batch, layers, warmup, steps, label):
     from msa_tpu_torch.ops.flash2 import use_fused_backward
     from msa_tpu_torch.training.trainer import Trainer
 
-    exp = frame_experiment(pair_len, layers, train_batch_size=batch,
+    exp = frame_experiment(pair_len, layers, model, train_batch_size=batch,
                            compute_dtype="bfloat16", warmup_proportion=0.01,
                            adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
                            data_parallel=1)
@@ -1667,7 +1984,7 @@ def phase_frame_training(pair_len, batch, layers, warmup, steps, label):
     ms_step = seconds * 1e3 / steps
     sps = batch * steps / seconds
     per_step = {k: v // steps for k, v in launches.items() if v}
-    print(f"{label} training bf16 bert-large ({n} layers) B={batch} "
+    print(f"{label} training bf16 {model} ({n} layers) B={batch} "
           f"L={TEXT_LEN} Lp={pair_len} (joint pass [{2 * batch},{seq}], "
           f"{'fused' if fused else 'split'} flash2 backward; remat off: "
           f"activations ~{trainer.activation_bytes() / 1e9:.1f} GB estimated):"
@@ -1861,6 +2178,35 @@ def check_probs_forward(tag, q, k, v, bias, live, seed, rate, keep,
     return ctx, probs, ref_ctx, err, masked
 
 
+def check_probs_backward(tag, q, k, v, bias, live, probs, dout, rate, keep):
+    """Row 5's backward (dS and pd rounded as JAX's ``_bwd_kernel_v2s``)
+    from the v2s forward kernel's own signed probs, by
+    :func:`check_rounded_backward`: against the plain backward on the same
+    probs at GRAD_TOL, and against autograd through the plain forward in
+    f32 within twice it plus the rule's rounding gap (``rule32``: the plain
+    backward on the f32 softmax's probs, dS and pd unrounded).  Returns
+    (max abs err against the rule, against autograd)."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    wide = [x.float() for x in (q, k, v, dout)]
+    grads = sa.short_attention_probs_backward(q, k, v, probs, dout, HEADS,
+                                              rate)
+    rule = sa.short_attention_probs_backward_plain(q, k, v, probs, dout,
+                                                   HEADS, rate)
+    rule32 = sa.short_attention_probs_backward_plain(
+        *wide[:3], sa.short_attention_probs_plain(
+            *wide[:3], bias, HEADS, rate, keep)[1], wide[3], HEADS, rate)
+    qq, kk, vv = (x.detach().requires_grad_() for x in wide[:3])
+    auto = torch.autograd.grad(sa.short_attention_plain(
+        qq, kk, vv, bias, HEADS, rate, keep), (qq, kk, vv), wide[3])
+    torch.cuda.synchronize()
+    return check_rounded_backward(
+        f"short_attention_probs_backward {tag}", grads, rule, rule32, auto,
+        live, *GRAD_TOL[str(q.dtype).split(".")[1]])
+
+
 def check_packed(tag, q, k, v, bias, live, dout, seed, rate, keep):
     """The packed pair (v2p) on the thirds of one [B, S, 3H] qkv: its
     forward bit-equal to v2's in both forms, its backward (row 6; JAX's
@@ -1924,8 +2270,11 @@ def phase_probs_packed(gen):
     route) and the bf16 v2s forward (tensor cores) at the shapes that reach
     its other forms: S = 12 (one ragged 16-key tile), 128 (the widest
     whole-row form) and 200, 1000 (the two-sweep form, with query tiles and
-    a ragged last key tile), each from a generator of its own.  Times the
-    kernels at rate 0 beside the plain versions, SDPA and the bound."""
+    a ragged last key tile), each from a generator of its own; at S = 12,
+    128 and 200 also row 5's backward from those probs, rate 0 and with
+    dropout (one ragged tile and the widest tensor-core form; at 200 the
+    bf16 CUDA-core pair).  Times the kernels at rate 0 beside the plain
+    versions, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1939,7 +2288,7 @@ def phase_probs_packed(gen):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             atol, rtol = ATTN_TOL[dname]
-            gatol, grtol = GRAD_TOL[dname]
+            gatol = GRAD_TOL[dname][0]
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
@@ -1947,7 +2296,6 @@ def phase_probs_packed(gen):
                 seed = 4321 + s
                 keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
                         if rate else None)
-                wide = [x.float() for x in (q, k, v, dout)]
                 tag = f"{label} {dname} rate {rate:g}"
 
                 # v2s forward: ctx, signed probs, agreement with v2
@@ -1962,23 +2310,8 @@ def phase_probs_packed(gen):
                 worst["probs"] = max(worst["probs"], err)
 
                 # v2s backward from the kernel's own probs
-                grads = sa.short_attention_probs_backward(q, k, v, probs, dout,
-                                                          HEADS, rate)
-                # the rule on the kernel's probs, and in f32 throughout: on
-                # the f32 softmax's probs, dS and pd unrounded
-                rule = sa.short_attention_probs_backward_plain(
-                    q, k, v, probs, dout, HEADS, rate)
-                rule32 = sa.short_attention_probs_backward_plain(
-                    *wide[:3], sa.short_attention_probs_plain(
-                        *wide[:3], bias, HEADS, rate, keep)[1], wide[3], HEADS,
-                    rate)
-                qq, kk, vv = (x.detach().requires_grad_() for x in wide[:3])
-                auto = torch.autograd.grad(sa.short_attention_plain(
-                    qq, kk, vv, bias, HEADS, rate, keep), (qq, kk, vv), wide[3])
-                torch.cuda.synchronize()
-                berr, bauto = check_rounded_backward(
-                    f"short_attention_probs_backward {tag}", grads, rule,
-                    rule32, auto, live, gatol, grtol)
+                berr, bauto = check_probs_backward(tag, q, k, v, bias, live,
+                                                   probs, dout, rate, keep)
                 worst["probs_bwd"] = max(worst["probs_bwd"], berr)
 
                 # v2p: v2's forward and v3's backward on the thirds
@@ -2048,7 +2381,7 @@ def phase_probs_packed(gen):
                         pout, qkv_g, dout, retain_graph=True)), lib_bwd,
                     bound_ms(8 * io + b * s * 4, 2.5 * fwd_flops, dname))
                 tc = {"probs": dname == "bfloat16", "packed": dname == "bfloat16",
-                      "probs_bwd": False,
+                      "probs_bwd": sa.tensor_core_backward(s, dtype),
                       "packed_bwd": sa.tensor_core_backward(s, dtype)}
                 for name in ("probs", "probs_bwd", "packed", "packed_bwd"):
                     ms, plain_ms, lib_ms, bound = times[(name, label, dname)]
@@ -2079,6 +2412,7 @@ def phase_probs_packed(gen):
                   f"plain versions {perr:.3e} / {pberr:.3e}, backward "
                   f"{pauto:.3e} against f32 autograd", flush=True)
     edge_gen = torch.Generator(device="cuda").manual_seed(5)
+    dout_gen = torch.Generator(device="cuda").manual_seed(6)
     for s in (12, 128, 200, 1000):
         for rate in (0.0, rate_on):
             q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
@@ -2087,12 +2421,23 @@ def phase_probs_packed(gen):
             keep = (sa.dropout_keep_mask(seed, rate, 4, HEADS, s, "cuda")
                     if rate else None)
             tag = f"[4,{s},{HIDDEN}] bfloat16 rate {rate:g}"
-            err, (diff, gap) = check_probs_forward(
-                tag, q, k, v, bias, live, seed, rate, keep, few_keys=True)[3:]
+            _, probs, _, err, (diff, gap) = check_probs_forward(
+                tag, q, k, v, bias, live, seed, rate, keep, few_keys=True)
             worst["probs"] = max(worst["probs"], err)
-            print(f"v2s forward (tensor cores) {tag}: max_abs_err {err:.3e}; "
-                  f"masked rows {diff:.3e} from f32 (the rounding rule "
-                  f"{gap:.3e})", flush=True)
+            line = (f"v2s forward (tensor cores) {tag}: max_abs_err {err:.3e}; "
+                    f"masked rows {diff:.3e} from f32 (the rounding rule "
+                    f"{gap:.3e})")
+            if s <= 200:  # the backward's one-tile, widest and CUDA-core forms
+                dout = torch.randn(4, s, HIDDEN, device="cuda",
+                                   generator=dout_gen).to(torch.bfloat16)
+                berr, bauto = check_probs_backward(tag, q, k, v, bias, live,
+                                                   probs, dout, rate, keep)
+                worst["probs_bwd"] = max(worst["probs_bwd"], berr)
+                cores = ("tensor cores" if sa.tensor_core_backward(
+                    s, torch.bfloat16) else "CUDA cores")
+                line += (f"; backward ({cores}) {berr:.3e} against the rounded "
+                         f"rule, {bauto:.3e} against f32 autograd")
+            print(line, flush=True)
     return worst, times
 
 
@@ -2103,8 +2448,8 @@ def rung_launches(policy, layers, steps, frame=False, fused=True):
     regions recompute it); '+probs' runs the v2s pair and 'save_pack' the
     packed pair on the short route (all of it word-aligned; the text pass
     in frame-level mode, whose joint pass runs flash2, never re-run under a
-    save_* policy).  The v2 and v2p backwards take one launch at S <= 128,
-    the v2s backward two."""
+    save_* policy).  The v2, v2p and v2s backwards take one launch at S <=
+    128 in bf16."""
     import torch
 
     from msa_tpu_torch.ops.short_attention import backward_launches
@@ -2116,7 +2461,7 @@ def rung_launches(policy, layers, steps, frame=False, fused=True):
     counts = {"fused_joint_embed": 2}
     if "+probs" in policy:
         counts.update(short_attention_probs=again * short_calls,
-                      short_attention_probs_backward=2 * short_calls)
+                      short_attention_probs_backward=bwd)
     elif policy == "save_pack":
         counts.update(short_attention_packed=short_calls,
                       short_attention_packed_backward=bwd)
@@ -2527,7 +2872,7 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
                      *(x.data_ptr() for x in (q, k, v, bias, out, dout,
                                               *scratch, *grads)),
                      b, s, HIDDEN, HEADS, sa._DTYPES[q.dtype],
-                     1.0 / math.sqrt(sa.HEAD_DIM), *sa._seed_words(seed), t,
+                     sa.softmax_scale(HIDDEN, HEADS), *sa._seed_words(seed), t,
                      sa._stream(q)), "v3 scratch check")
     torch.cuda.synchronize()
     if q.dtype == torch.bfloat16:
@@ -2716,7 +3061,8 @@ def phase_flash_attention(gen):
         if not torch.equal(out_ag, out):
             raise AssertionError(f"flash_attention {label}: the autograd "
                                  "forward differs from the kernel's")
-        tag = f"flash_attention {label} [{b},{HEADS},{s},64] {dname} rate {rate:g}"
+        tag = (f"flash_attention {label} [{b},{HEADS},{s},{HIDDEN // HEADS}] "
+               f"{dname} rate {rate:g}")
         atol, rtol = ATTN_TOL[dname]
         err = check_close(tag, out, ref, atol, rtol, mask=live)
         check_close(tag + " masked row", out, ref, MASKED_ROW_ATOL, 0.0,
@@ -3359,8 +3705,9 @@ def train_experiment(batch):
 
 
 # The sources of the bf16 tensor-core kernels (the v1, v2 and v2p forwards
-# of short_fwd_tc.cuh and the two-sweep v2 form, the v2s forwards, the v1
-# and v3 backwards of short_bwd_tc.cuh) and the dynamic shared memory their
+# of short_fwd_tc.cuh and the two-sweep v2 form, the v2s forwards, the v1,
+# v2, v2p, v3 and v2s backwards of short_bwd_tc.cuh, each at head dim 32
+# and 64) and the dynamic shared memory their
 # launchers ask for, by kernel: the padded rows of Q, K, V and the bias; the
 # two-sweep forms at 128 rows: the Q tile (v2s also its stage), the K and V
 # rings and their bias; the backward: Q, K, V and dO rows, the pd and dS
@@ -3375,23 +3722,27 @@ TC_KERNEL = re.compile(
 
 
 def tc_dynamic_smem(kernel):
+    args = [int(a) for a in re.findall(r"L[ib](\d+)E", TC_KERNEL.search(
+        kernel).group(2))]
+    row = 2 * (args[0] + 8)  # bytes of a staged head row at head dim args[0]
     if "tc_long" in kernel:
         q_rows = 2 * 128 if "probs" in kernel else 128
-        return (q_rows + 4 * 64) * 144 + 2 * 64 * 4
-    rows = 16 * int(re.search(r"ILi(\d+)E", kernel).group(1))
+        return (q_rows + 4 * 64) * row + 2 * 64 * 4
+    rows = 16 * args[1]
     if "short_bwd_tc" in kernel:
-        return 4 * rows * 144 + 2 * rows * (rows + 8) * 2 + rows * 4
-    return 3 * rows * 144 + rows * 4
+        return 4 * rows * row + 2 * rows * (rows + 8) * 2 + rows * 4
+    return 3 * rows * row + rows * 4
 
 
 def report_tc_resources(usage):
     """Print ptxas's registers, static shared memory and spills for each
-    instantiation of the tensor-core kernels, as kernel<16-key tiles,
-    dropout, training form> (kernel<dropout[, training form]> for the
-    two-sweep forms; v2s's kernel<16-key tiles, dropout>; the backward
-    kernel<16-key tiles, dropout, v3>), and fail if a whole-row forward or
-    backward of at most TC_NO_SPILL_TILES tiles spills or has a stack
-    frame."""
+    instantiation of the tensor-core kernels, as kernel<head dim, 16-key
+    tiles, dropout, training form> (kernel<head dim, dropout[, training
+    form]> for the two-sweep forms; v2s's kernel<head dim, 16-key tiles,
+    dropout>; the backward kernel<head dim, 16-key tiles, dropout, rule:
+    0 recompute, 1 from o, 2 from the probs>), and fail if a whole-row
+    forward or backward of at most TC_NO_SPILL_TILES tiles spills or has a
+    stack frame."""
     tc = [u for u in usage if TC_KERNEL.search(u["kernel"])]
     for name in ("short_fwd_tc_kernel", "short_bwd_tc_kernel",
                  "short_attention_fwd_tc_long_kernel"):
@@ -3406,7 +3757,7 @@ def report_tc_resources(usage):
               f"dynamic smem, stack {u['stack']} B, spill stores "
               f"{u['spill_stores']} B, loads {u['spill_loads']} B", flush=True)
         if (m.group(1) in ("short_fwd_tc_kernel", "short_bwd_tc_kernel")
-                and int(args[0]) <= TC_NO_SPILL_TILES
+                and int(args[1]) <= TC_NO_SPILL_TILES
                 and (u["stack"] or u["spill_stores"] or u["spill_loads"])):
             raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
                                  "keeps a stack frame")
@@ -3424,9 +3775,16 @@ def kernel_entry(name, source, replaces, launches, err, timing, by_path):
 def main() -> int:
     import torch
 
+    if len(sys.argv) not in (1, 3) or sys.argv[1:2] not in ([], ["--flash-times"]):
+        print("usage: chip_smoke.py [--flash-times ROOT]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3:  # the flash backwards of the tree at ROOT only
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        time_flash_backwards()
+        return 0
     from msa_tpu_torch import _build
     from msa_tpu_torch.configs import build_experiment
     from msa_tpu_torch.models.weights import init_params
@@ -3439,11 +3797,15 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
+    nvcc_s = {}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         usage = pool.submit(_build.resource_usage, TC_SOURCES)
-        for lib in _build.build_all().values():
+        for lib in _build.build_all(seconds=nvcc_s).values():
             print(f"built {os.path.relpath(lib)}", flush=True)
-        print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"kernel build: {time.perf_counter() - t0:.1f} s; nvcc wall s "
+              f"per source (all started together, beside the ptxas report's "
+              f"{len(TC_SOURCES)}): "
+              f"{ {k: round(v, 1) for k, v in nvcc_s.items()} }", flush=True)
         report_tc_resources(usage.result())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3460,6 +3822,10 @@ def main() -> int:
     v3_err, v3_times = phase_v3_kernels(gen)
     fa_err, fa_times = phase_flash_attention(gen)
     v1_err, v1_times = phase_short_v1(gen)
+    probe_flash2_dq()
+    time_flash_backwards()
+    phase_head_dim_32()
+    phase_tiny_preset()
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
@@ -3578,7 +3944,7 @@ def main() -> int:
                      pp_err["probs"], pp_times[("probs",) + joint],
                      paths("short_attention_probs")),
         kernel_entry("short_attention_probs_backward",
-                     "msa_tpu_torch/csrc/short_attention.cu",
+                     "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:895",
                      rung("save_attn+drop+probs",
                           "short_attention_probs_backward"),

@@ -23,8 +23,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "msa_tpu_torch"
@@ -70,9 +72,11 @@ def build(name: str) -> Path:
     return build_all([name])[name]
 
 
-def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
+def build_all(names: Sequence[str] = KERNELS,
+              seconds: Optional[Dict[str, float]] = None) -> Dict[str, Path]:
     """Compile every library of ``names`` not built yet, one ``nvcc`` per
-    source, all started together; raises if any fails."""
+    source, all started together; raises if any fails.  ``seconds``, if
+    given, receives each compiled source's nvcc wall time."""
     libs = {name: library_path(name) for name in names}
     todo = [name for name, lib in libs.items() if not lib.exists()]
     if not todo:
@@ -80,6 +84,12 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
+    t0 = time.perf_counter()
+
+    def finish(job):  # output and the wall time at which nvcc ended
+        out = job[3].communicate()[0]
+        return out, time.perf_counter() - t0
+
     try:
         for name in todo:
             # Compile to a private name, then rename: a concurrent build
@@ -91,8 +101,11 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []
-        for name, tmp, cmd, proc in jobs:
-            output = proc.communicate()[0]
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            results = list(pool.map(finish, jobs))
+        for (name, tmp, cmd, proc), (output, wall) in zip(jobs, results):
+            if seconds is not None:
+                seconds[name] = wall
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {name}.cu (exit "
                               f"{proc.returncode}):\n{' '.join(cmd)}\n{output}")

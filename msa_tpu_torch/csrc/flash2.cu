@@ -1,5 +1,5 @@
 // Blockwise attention for long sequences (the frame-level path, S >= 1024;
-// the kernels take any S >= 1), head dim 64: the forward with in-kernel
+// the kernels take any S >= 1), head dim 32 or 64: the forward with in-kernel
 // attention-probs dropout, the fused single-sweep backward and the split
 // backward (dq, then dk/dv).
 //
@@ -14,15 +14,16 @@
 // 1/sqrt(d)), no gradient flows to the bias or the seed.
 //
 // What bounds them on the H100: operations.  A (batch, head) pair does
-// 4*S*S*d forward FLOPs on 4*S*d elements of q/k/v/o: at S = 1024, d = 64,
+// 4*S*S*d forward FLOPs on 4*S*d elements of q/k/v/o: at S = 1024,
 // ~1,000 FLOPs per element, ~500 per bf16 byte, above the ~295 FLOPs per
 // byte at which the tensor cores rather than memory are the limit.  So the
 // bf16 products run on the tensor cores (mma.sync.m16n8k16, bf16 in, f32
 // accumulate) in the flash-attention-2 layout:
 //
 //   * 4 warps per CTA, 16 rows per warp, 64-row blocks; every tile product
-//     is a warp's [16 x 64] by [64 x 64], its operands read from shared
-//     memory with ldmatrix (rows padded to 144 bytes: conflict-free);
+//     is a warp's [16 x 64] by [64 x d] or [16 x d] by [d x 64], its
+//     operands read from shared memory with ldmatrix (rows padded by 16
+//     bytes: conflict-free);
 //   * the scores, probabilities and gradients of a tile stay in the mma
 //     accumulator registers; a probability tile becomes the A operand of
 //     the next product without leaving them (flash-attention-2's register
@@ -46,8 +47,13 @@
 //     fused kernel's loop without dQ, reading delta; no atomics).
 //
 // f32 inputs (the tests and the f32 checks) run the same kernels with the
-// tile products on the CUDA cores in full f32 (SimtF32 below): the same
-// fragment layout, so the softmax, masking, dropout and lse code is shared.
+// tile products on the CUDA cores in full f32 (SimtF32): the same fragment
+// layout, so the softmax, masking, dropout and lse code is shared.
+//
+// Under dropout the backwards fold 1 / (1 - rate) into the staged dO tile,
+// rounded to the storage type, after delta = rowsum(dO o) is taken from
+// the unscaled dO, and round the kept p unscaled: dP and dV arrive
+// pre-scaled, as in JAX's _dq_kernel, _dkv_kernel and _bwd_fused_kernel.
 //
 // Dropout: the rule of dropout.cuh, so these kernels, the short-attention
 // kernels and ops/dropout.py agree on every keep decision.  A thread that
@@ -71,9 +77,10 @@
 // training forward passes lse ([B, heads, S] f32, the log2-sum-exp of each
 // score row) and, for bf16, out32 ([B, S, H] f32, the output before its
 // rounding; null for f32, whose out is that already); the serving forward
-// passes both null.  Every entry launches on `stream` and returns
-// cudaGetLastError() (0 on success).  The caller has checked shapes,
-// contiguity, 16-byte alignment and head_dim == 64.
+// passes both null.  The head dim hidden / num_heads is 32 or 64.  Every
+// entry launches on `stream` and returns cudaGetLastError() (0 on
+// success).  The caller has checked shapes, contiguity and 16-byte
+// alignment.
 extern "C" int msa_flash2_fwd(const void* q, const void* k, const void* v,
                               const void* key_bias, void* out, void* lse, void* out32,
                               int batch, int seq, int hidden, int num_heads, int dtype,
@@ -89,15 +96,19 @@ extern "C" int msa_flash2_fwd(const void* q, const void* k, const void* v,
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_FWD(P, D, W) \
-  launch_fwd<P, false, D, W>(q, k, v, bias, out, l, o32, batch, seq, hidden, num_heads, sm, d, s)
-  if (dtype == 0) {
-    if (drop) return l ? MSA_FWD(SimtF32, true, true) : MSA_FWD(SimtF32, true, false);
-    return l ? MSA_FWD(SimtF32, false, true) : MSA_FWD(SimtF32, false, false);
-  }
-  if (drop) return l ? MSA_FWD(MmaBf16, true, true) : MSA_FWD(MmaBf16, true, false);
-  return l ? MSA_FWD(MmaBf16, false, true) : MSA_FWD(MmaBf16, false, false);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+#define MSA_FWD(P, D, W)                                                                    \
+  launch_fwd<P<kD>, false, D, W>(q, k, v, bias, out, l, o32, batch, seq, hidden, num_heads, \
+                                 sm, d, s)
+    if (dtype == 0) {
+      if (drop) return l ? MSA_FWD(SimtF32, true, true) : MSA_FWD(SimtF32, true, false);
+      return l ? MSA_FWD(SimtF32, false, true) : MSA_FWD(SimtF32, false, false);
+    }
+    if (drop) return l ? MSA_FWD(MmaBf16, true, true) : MSA_FWD(MmaBf16, true, false);
+    return l ? MSA_FWD(MmaBf16, false, true) : MSA_FWD(MmaBf16, false, false);
 #undef MSA_FWD
+  });
 }
 
 // The fused backward: one launch writing dk and dv and adding dq (times
@@ -120,12 +131,15 @@ extern "C" int msa_flash2_bwd_fused(const void* q, const void* k, const void* v,
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_FUSED(P, D)                                                                  \
-  launch_dkv<P, false, D, true>(q, k, v, bias, o, dout, l, nullptr, dq, dk, dv, batch, seq, \
-                                hidden, num_heads, scale, d, s)
-  if (dtype == 0) return drop ? MSA_FUSED(SimtF32, true) : MSA_FUSED(SimtF32, false);
-  return drop ? MSA_FUSED(MmaBf16, true) : MSA_FUSED(MmaBf16, false);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+#define MSA_FUSED(P, D)                                                                   \
+  launch_dkv<P<kD>, false, D, true>(q, k, v, bias, o, dout, l, nullptr, dq, dk, dv, batch, \
+                                    seq, hidden, num_heads, scale, d, s)
+    if (dtype == 0) return drop ? MSA_FUSED(SimtF32, true) : MSA_FUSED(SimtF32, false);
+    return drop ? MSA_FUSED(MmaBf16, true) : MSA_FUSED(MmaBf16, false);
 #undef MSA_FUSED
+  });
 }
 
 // The split backward: dq (writing delta, [B, heads, S] f32 scratch), then
@@ -146,10 +160,13 @@ extern "C" int msa_flash2_bwd_split(const void* q, const void* k, const void* v,
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_SPLIT(P, D)                                                                \
-  launch_split<P, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, seq, hidden, \
-                            num_heads, scale, d, s)
-  if (dtype == 0) return drop ? MSA_SPLIT(SimtF32, true) : MSA_SPLIT(SimtF32, false);
-  return drop ? MSA_SPLIT(MmaBf16, true) : MSA_SPLIT(MmaBf16, false);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+#define MSA_SPLIT(P, D)                                                              \
+  launch_split<P<kD>, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, seq, \
+                                hidden, num_heads, scale, d, s)
+    if (dtype == 0) return drop ? MSA_SPLIT(SimtF32, true) : MSA_SPLIT(SimtF32, false);
+    return drop ? MSA_SPLIT(MmaBf16, true) : MSA_SPLIT(MmaBf16, false);
 #undef MSA_SPLIT
+  });
 }

@@ -1,4 +1,4 @@
-// Head-split flash attention, head dim 64: the forward with in-kernel
+// Head-split flash attention, head dim 32 or 64: the forward with in-kernel
 // attention-probs dropout, then the backward as a pair of launches, dq (one
 // CTA per query block) and dk/dv (one CTA per key block).
 //
@@ -6,25 +6,27 @@
 // _flash_attention :265, the S >= 1024 route of multi_head_attention when
 // _USE_FLASH2 is False): _flash_kernel (:117), _flash_dq_kernel (:171) and
 // _flash_dkv_kernel (:211).  The same contract: q, k, v, the output and the
-// gradients are [B, heads, S, 64] (the caller splits and merges the heads),
+// gradients are [B, heads, S, d] (the caller splits and merges the heads),
 // key_bias is an additive [B, S] f32 mask, the softmax runs in f32 and
 // normalises every probability while dropout zeroes what reaches the PV
 // product (out = acc / (l * (1 - rate))), the row lse is m + log(l) in
 // natural-log units, [B, heads, S] f32, and the backward recomputes p from
 // it, with delta = rowsum(dO o) read from the output in its own dtype, as
-// _flash_dq_kernel and _flash_dkv_kernel read o_ref.  No gradient flows to
+// _flash_dq_kernel and _flash_dkv_kernel read o_ref.  Under dropout dV
+// takes the kept p unscaled, rounded, and its f32 sum times 1 / (1 - rate),
+// as _flash_dkv_kernel orders it (:242-244).  No gradient flows to
 // the bias or the seed.  Keys past S carry -inf, JAX's NEG_INF padding; any
 // S >= 1.
 //
-// What bounds them on the H100: operations, as flash2's (4*S*S*64 FLOPs a
-// (batch, head) pair on 4*S*64 elements: ~500 FLOPs per bf16 byte at S =
+// What bounds them on the H100: operations, as flash2's (4*S*S*d FLOPs a
+// (batch, head) pair on 4*S*d elements: ~500 FLOPs per bf16 byte at S =
 // 1024, above the ~295 at which the tensor cores are the limit).  The
 // kernels are flash2.cu's (flash_kernels.cuh) with the head-split layout:
 // bf16 products on the tensor cores (mma.sync.m16n8k16, f32 accumulate),
 // f32 ones on the CUDA cores, 64-row blocks of 4 warps, the softmax in
 // registers in base 2 (the lse is converted to natural-log units at its
 // store and back at its loads).  A head's rows are contiguous here (row
-// stride 128 bytes in bf16), so each tile is one 8 KB block of memory.
+// stride 2d bytes in bf16), so each tile is one block of memory.
 // Both TPU kernels sum delta for every tile they visit; here the dq launch
 // sums it once a row and writes it to scratch for the dk/dv launch (the
 // same values: each dk/dv block would otherwise re-read o for every query
@@ -42,15 +44,15 @@
 // dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
 // dropout, else keep iff the element's Philox byte >= t (rate t/256).  The
 // training forward passes lse ([B, heads, S] f32, natural-log units); the
-// serving forward passes null.  Every entry launches on `stream` and
-// returns cudaGetLastError() (0 on success).  The caller has checked
-// shapes, contiguity and 16-byte alignment.
+// serving forward passes null.  head_dim: 32 or 64.  Every entry launches
+// on `stream` and returns cudaGetLastError() (0 on success).  The caller
+// has checked shapes, contiguity and 16-byte alignment.
 extern "C" int msa_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* key_bias, void* out, void* lse,
-                                       int batch, int num_heads, int seq, int dtype,
-                                       float scale, unsigned seed_lo, unsigned seed_hi,
-                                       int drop_threshold, void* stream) {
-  const int hidden = num_heads * kD;
+                                       int batch, int num_heads, int seq, int head_dim,
+                                       int dtype, float scale, unsigned seed_lo,
+                                       unsigned seed_hi, int drop_threshold, void* stream) {
+  const int hidden = num_heads * head_dim;
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -60,15 +62,19 @@ extern "C" int msa_flash_attention_fwd(const void* q, const void* k, const void*
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_FWD(P, D, W) \
-  launch_fwd<P, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq, hidden, num_heads, sm, d, s)
-  if (dtype == 0) {
-    if (drop) return l ? MSA_FWD(SimtF32, true, true) : MSA_FWD(SimtF32, true, false);
-    return l ? MSA_FWD(SimtF32, false, true) : MSA_FWD(SimtF32, false, false);
-  }
-  if (drop) return l ? MSA_FWD(MmaBf16, true, true) : MSA_FWD(MmaBf16, true, false);
-  return l ? MSA_FWD(MmaBf16, false, true) : MSA_FWD(MmaBf16, false, false);
+  return tc::by_head_dim(head_dim, [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+#define MSA_FWD(P, D, W)                                                                     \
+  launch_fwd<P<kD>, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq, hidden, num_heads, \
+                                sm, d, s)
+    if (dtype == 0) {
+      if (drop) return l ? MSA_FWD(SimtF32, true, true) : MSA_FWD(SimtF32, true, false);
+      return l ? MSA_FWD(SimtF32, false, true) : MSA_FWD(SimtF32, false, false);
+    }
+    if (drop) return l ? MSA_FWD(MmaBf16, true, true) : MSA_FWD(MmaBf16, true, false);
+    return l ? MSA_FWD(MmaBf16, false, true) : MSA_FWD(MmaBf16, false, false);
 #undef MSA_FWD
+  });
 }
 
 // The backward pair on `stream`: dq (writing delta, [B, heads, S] f32
@@ -78,10 +84,10 @@ extern "C" int msa_flash_attention_bwd(const void* q, const void* k, const void*
                                        const void* key_bias, const void* out,
                                        const void* dout, const void* lse, void* delta,
                                        void* dq, void* dk, void* dv, int batch,
-                                       int num_heads, int seq, int dtype, float scale,
-                                       unsigned seed_lo, unsigned seed_hi,
+                                       int num_heads, int seq, int head_dim, int dtype,
+                                       float scale, unsigned seed_lo, unsigned seed_hi,
                                        int drop_threshold, void* stream) {
-  const int hidden = num_heads * kD;
+  const int hidden = num_heads * head_dim;
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -91,10 +97,13 @@ extern "C" int msa_flash_attention_bwd(const void* q, const void* k, const void*
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_BWD(P, D)                                                              \
-  launch_split<P, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, batch, seq, \
-                           hidden, num_heads, scale, d, s)
-  if (dtype == 0) return drop ? MSA_BWD(SimtF32, true) : MSA_BWD(SimtF32, false);
-  return drop ? MSA_BWD(MmaBf16, true) : MSA_BWD(MmaBf16, false);
+  return tc::by_head_dim(head_dim, [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+#define MSA_BWD(P, D)                                                                  \
+  launch_split<P<kD>, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, batch, seq, \
+                               hidden, num_heads, scale, d, s)
+    if (dtype == 0) return drop ? MSA_BWD(SimtF32, true) : MSA_BWD(SimtF32, false);
+    return drop ? MSA_BWD(MmaBf16, true) : MSA_BWD(MmaBf16, false);
 #undef MSA_BWD
+  });
 }

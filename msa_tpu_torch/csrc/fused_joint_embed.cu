@@ -12,8 +12,11 @@
 // touches.  The TPU kernel keeps the projection and the concatenation out
 // of HBM; this one does the same per output row:
 //
-//   * one CTA of 256 threads per output row, each thread owning H/256
-//     columns (strided by 256, so every global access is coalesced);
+//   * one CTA of 256 threads per output row, each thread owning the
+//     columns t, t + 256, ... below H, every global access coalesced; H a
+//     multiple of 256 (bert-large, bert-base) gives every thread H / 256
+//     of them, any other H <= 2048 (kRagged) some threads fewer (the tiny
+//     preset's H = 64: a quarter of the threads, one column each);
 //   * a frame row's features are staged once in shared memory and the
 //     projection row is accumulated in registers (no [B, Lp, H] projection
 //     tensor, no concatenation copy);
@@ -59,7 +62,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return warp_sum(lane < kThreads / 32 ? red[lane] : 0.f);
 }
 
-template <typename T>
+template <typename T, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
 fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats,
                          const float* __restrict__ w, const float* __restrict__ b,
@@ -73,8 +76,10 @@ fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats
   const int rows = text_len + pair_len;
   const int bi = blockIdx.y;
   const int r = blockIdx.x;
-  const int nv = hidden / kThreads;
   const int t = threadIdx.x;
+  // columns this thread owns: t + i * kThreads for i < nv
+  const int nv = !kRagged ? hidden / kThreads
+                          : t < hidden ? (hidden - t + kThreads - 1) / kThreads : 0;
 
   float x[kMaxPerThread];
   if (r < text_len) {  // uniform across the CTA
@@ -129,15 +134,15 @@ fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats
 
 // dtype: 0 = float32, 1 = bfloat16 (text, feats and out share it; w, b,
 // gamma, beta are f32).  Launches on `stream` and returns cudaGetLastError().
-// The caller has checked shapes, contiguity, hidden % 256 == 0,
-// hidden <= 2048 and feat_dim <= 1024.
+// The caller has checked shapes, contiguity, hidden <= 2048 and
+// feat_dim <= 1024.
 extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
                                      const void* w, const void* b,
                                      const void* gamma, const void* beta,
                                      void* out, int batch, int text_len,
                                      int pair_len, int feat_dim, int hidden,
                                      float eps, int dtype, void* stream) {
-  if (batch <= 0 || text_len + pair_len <= 0 || hidden % kThreads != 0 ||
+  if (batch <= 0 || text_len + pair_len <= 0 || hidden <= 0 ||
       hidden > kThreads * kMaxPerThread || feat_dim <= 0 || feat_dim > kMaxFeat) {
     return (int)cudaErrorInvalidValue;
   }
@@ -147,17 +152,18 @@ extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
   const float* bf = static_cast<const float*>(b);
   const float* gf = static_cast<const float*>(gamma);
   const float* ef = static_cast<const float*>(beta);
+  const bool ragged = hidden % kThreads != 0;
+#define MSA_EMBED(T, R)                                                                  \
+  fused_joint_embed_kernel<T, R><<<grid, kThreads, 0, s>>>(                              \
+      static_cast<const T*>(text), static_cast<const T*>(feats), wf, bf, gf, ef,         \
+      static_cast<T*>(out), text_len, pair_len, feat_dim, hidden, eps)
   if (dtype == 0) {
-    fused_joint_embed_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(text), static_cast<const float*>(feats), wf, bf,
-        gf, ef, static_cast<float*>(out), text_len, pair_len, feat_dim, hidden, eps);
+    if (ragged) MSA_EMBED(float, true); else MSA_EMBED(float, false);
   } else if (dtype == 1) {
-    fused_joint_embed_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(text),
-        static_cast<const __nv_bfloat16*>(feats), wf, bf, gf, ef,
-        static_cast<__nv_bfloat16*>(out), text_len, pair_len, feat_dim, hidden, eps);
+    if (ragged) MSA_EMBED(__nv_bfloat16, true); else MSA_EMBED(__nv_bfloat16, false);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef MSA_EMBED
   return (int)cudaGetLastError();
 }

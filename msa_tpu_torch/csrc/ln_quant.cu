@@ -18,11 +18,15 @@
 // What bounds it on the H100: bytes.  Per element it reads x and res and
 // writes h and xi (7 bytes in bf16) for some ten flops.  The TPU kernel's
 // point, one pass over HBM instead of an LN pass plus a quantize pass that
-// re-reads h, is kept: one warp owns one row, holds it in registers
-// (H / 32 values a lane, 32 at H = 1024), reduces with warp shuffles (no
+// re-reads h, is kept: a team of kLanes lanes of one warp (32, 16 or 8:
+// the most that divide the row's 8-value chunks) owns one row, holds it in
+// registers (H / kLanes values a lane: 32 at H = 1024, 8 at H = 64, where
+// a warp takes four rows), reduces with shuffles inside the team (no
 // shared memory, no block barrier) and writes both outputs from the
 // registers.  Every access is a 16-byte vector (8 bf16 or 2 x 4 f32; 8
-// bytes of int8), neighbouring lanes on neighbouring addresses.
+// bytes of int8), neighbouring lanes on neighbouring addresses.  H is a
+// multiple of 64 up to 512, of 128 up to 1024, or of 256 up to 2048 (at
+// most 8 chunks a lane).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,10 +35,9 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;  // one warp per row
-constexpr int kThreads = kWarp * kRowsPerBlock;
+constexpr int kThreads = 256;     // eight warps
 constexpr int kVec = 8;           // elements a lane moves per access
-constexpr int kMaxChunks = 8;     // H = 256 * chunks <= 2048
+constexpr int kMaxChunks = 8;     // chunks a lane holds: H <= 8 * kVec * kLanes
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[kVec]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -54,55 +57,68 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[kVec]) 
   }
 }
 
-// Stores v in the output dtype and replaces v by the stored (rounded) values.
-__device__ __forceinline__ void store8(float* p, float (&v)[kVec]) {
+// v rounded to the output dtype T and widened back (the stored values).
+template <typename T>
+__device__ __forceinline__ void round8(float (&v)[kVec]) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) v[i] = __bfloat162float(__float2bfloat16_rn(v[i]));
+  }
+}
+
+// Stores v (already rounded to the output dtype) in that dtype.
+__device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, float (&v)[kVec]) {
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kVec]) {
   uint4 u;
   __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
-  for (int i = 0; i < kVec / 2; ++i) {
-    h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
+  for (int i = 0; i < kVec / 2; ++i) h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// Sum and max over the kLanes lanes of a row's team (lanes that differ in
+// their low log2(kLanes) bits).
+template <int kLanes>
+__device__ __forceinline__ float team_sum(float v) {
 #pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = kLanes / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
+template <int kLanes>
+__device__ __forceinline__ float team_max(float v) {
 #pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  for (int off = kLanes / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
-template <typename T, int kChunks, bool kDynamic>
+template <typename T, int kLanes, int kChunks, bool kDynamic>
 __global__ void __launch_bounds__(kThreads)
 ln_quant_kernel(const T* __restrict__ x, const T* __restrict__ res,
                 const float* __restrict__ gamma, const float* __restrict__ beta,
                 const float* __restrict__ ascale, T* __restrict__ h,
                 int8_t* __restrict__ xi, float* __restrict__ row, int n_rows,
                 float eps) {
-  constexpr int kHidden = kChunks * kWarp * kVec;
-  const int lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x / kWarp;
-  if (r >= n_rows) return;  // the whole warp: no barrier below spans warps
-  const size_t base = (size_t)r * kHidden;
+  constexpr int kHidden = kChunks * kLanes * kVec;
+  constexpr int kRowsPerBlock = kThreads / kLanes;
+  const int lane = threadIdx.x % kLanes;  // within the row's team
+  const int warp_row0 = blockIdx.x * kRowsPerBlock + (threadIdx.x / kWarp) * (kWarp / kLanes);
+  if (warp_row0 >= n_rows) return;  // the whole warp: no barrier below spans warps
+  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x / kLanes;
+  // a team past the last row works on that row and stores nothing: every
+  // lane of the warp takes part in the shuffles
+  const bool active = r < n_rows;
+  const size_t base = (size_t)(active ? r : n_rows - 1) * kHidden;
 
   float v[kChunks][kVec];
   float sum = 0.f;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    const int col = (c * kWarp + lane) * kVec;
+    const int col = (c * kLanes + lane) * kVec;
     float a[kVec];
     load8(x + base + col, v[c]);
     load8(res + base + col, a);
@@ -112,7 +128,7 @@ ln_quant_kernel(const T* __restrict__ x, const T* __restrict__ res,
       sum += v[c][i];
     }
   }
-  const float mean = warp_sum(sum) / kHidden;
+  const float mean = team_sum<kLanes>(sum) / kHidden;
   float sq = 0.f;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
@@ -122,86 +138,101 @@ ln_quant_kernel(const T* __restrict__ x, const T* __restrict__ res,
       sq = fmaf(d, d, sq);
     }
   }
-  const float rstd = rsqrtf(warp_sum(sq) / kHidden + eps);
+  const float rstd = rsqrtf(team_sum<kLanes>(sq) / kHidden + eps);
 
   float amax = 0.f;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    const int col = (c * kWarp + lane) * kVec;
+    const int col = (c * kLanes + lane) * kVec;
     float g[kVec], b[kVec];
     load8(gamma + col, g);
     load8(beta + col, b);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) v[c][i] = (v[c][i] - mean) * rstd * g[i] + b[i];
-    store8(h + base + col, v[c]);  // v now holds h as stored
+    round8<T>(v[c]);  // v now holds h as stored
+    if (active) store8(h + base + col, v[c]);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) amax = fmaxf(amax, fabsf(v[c][i]));
   }
 
   float s;
   if (kDynamic) {
-    s = warp_max(amax) / 127.0f + 1e-12f;
-    if (lane == 0) row[r] = s;
+    s = team_max<kLanes>(amax) / 127.0f + 1e-12f;
+    if (active && lane == 0) row[r] = s;
   } else {
     s = *ascale;
   }
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    const int col = (c * kWarp + lane) * kVec;
+    const int col = (c * kLanes + lane) * kVec;
     union { int8_t q[kVec]; uint2 u; } out;
 #pragma unroll
     for (int i = 0; i < kVec; ++i) {
       const float q = fminf(fmaxf(rintf(v[c][i] / s), -127.f), 127.f);
       out.q[i] = (int8_t)__float2int_rn(q);
     }
-    *reinterpret_cast<uint2*>(xi + base + col) = out.u;
+    if (active) *reinterpret_cast<uint2*>(xi + base + col) = out.u;
   }
 }
 
+// The lanes of a row's team: the most of 32, 16, 8 that divide the row's
+// chunks (H / 8), with at most kMaxChunks chunks a lane; 0 if none fits.
+int team_lanes(int hidden) {
+  if (hidden <= 0 || hidden % (8 * kVec)) return 0;
+  for (int lanes = kWarp; lanes >= 8; lanes /= 2) {
+    const int chunks = hidden / kVec;
+    if (chunks % lanes == 0) return chunks / lanes <= kMaxChunks ? lanes : 0;
+  }
+  return 0;
+}
+
+template <typename T, int kLanes, int kChunks, bool kDynamic>
+int launch_rows(const void* x, const void* res, const float* gamma, const float* beta,
+                const float* ascale, void* h, int8_t* xi, float* row, int n_rows, float eps,
+                cudaStream_t s) {
+  constexpr int kRowsPerBlock = kThreads / kLanes;
+  ln_quant_kernel<T, kLanes, kChunks, kDynamic>
+      <<<(n_rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0, s>>>(
+          static_cast<const T*>(x), static_cast<const T*>(res), gamma, beta, ascale,
+          static_cast<T*>(h), xi, row, n_rows, eps);
+  return (int)cudaGetLastError();
+}
+
+// One launch for hidden = kVec * lanes * chunks (team_lanes(hidden) lanes;
+// 16 and 8 lanes only with an odd number of chunks, else a larger team
+// divides them).
 template <typename T, bool kDynamic>
 int launch(const void* x, const void* res, const float* gamma, const float* beta,
            const float* ascale, void* h, int8_t* xi, float* row, int n_rows,
            int hidden, float eps, cudaStream_t s) {
-  const dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(res);
-  T* ht = static_cast<T*>(h);
-  switch (hidden / (kWarp * kVec)) {
-#define MSA_LN_QUANT_CASE(C)                                                      \
-  case C:                                                                         \
-    ln_quant_kernel<T, C, kDynamic><<<grid, kThreads, 0, s>>>(                    \
-        xt, rt, gamma, beta, ascale, ht, xi, row, n_rows, eps);                   \
-    break;
-    MSA_LN_QUANT_CASE(1)
-    MSA_LN_QUANT_CASE(2)
-    MSA_LN_QUANT_CASE(3)
-    MSA_LN_QUANT_CASE(4)
-    MSA_LN_QUANT_CASE(5)
-    MSA_LN_QUANT_CASE(6)
-    MSA_LN_QUANT_CASE(7)
-    MSA_LN_QUANT_CASE(8)
+  const int lanes = team_lanes(hidden);
+  const int chunks = lanes ? hidden / (kVec * lanes) : 0;
+#define MSA_LN_QUANT_CASE(L, C)                                                       \
+  if (lanes == L && chunks == C)                                                      \
+    return launch_rows<T, L, C, kDynamic>(x, res, gamma, beta, ascale, h, xi, row,    \
+                                          n_rows, eps, s);
+  MSA_LN_QUANT_CASE(32, 1) MSA_LN_QUANT_CASE(32, 2) MSA_LN_QUANT_CASE(32, 3)
+  MSA_LN_QUANT_CASE(32, 4) MSA_LN_QUANT_CASE(32, 5) MSA_LN_QUANT_CASE(32, 6)
+  MSA_LN_QUANT_CASE(32, 7) MSA_LN_QUANT_CASE(32, 8)
+  MSA_LN_QUANT_CASE(16, 1) MSA_LN_QUANT_CASE(16, 3) MSA_LN_QUANT_CASE(16, 5)
+  MSA_LN_QUANT_CASE(16, 7)
+  MSA_LN_QUANT_CASE(8, 1) MSA_LN_QUANT_CASE(8, 3) MSA_LN_QUANT_CASE(8, 5)
+  MSA_LN_QUANT_CASE(8, 7)
 #undef MSA_LN_QUANT_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 int check_args(int n_rows, int hidden) {
-  if (n_rows <= 0 || hidden <= 0 || hidden % (kWarp * kVec) != 0 ||
-      hidden > kMaxChunks * kWarp * kVec) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return 0;
+  return n_rows <= 0 || team_lanes(hidden) == 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // namespace
 
 // x, res, h: [n_rows, hidden] in `dtype` (0 = float32, 1 = bfloat16); gamma,
 // beta: [hidden] f32; ascale: one f32 on the device; xi: [n_rows, hidden]
-// int8.  The caller has checked contiguity, 16-byte alignment and
-// hidden % 256 == 0, hidden <= 2048.  Launches on `stream` and returns
-// cudaGetLastError().
+// int8.  hidden: a multiple of 64 up to 512, of 128 up to 1024, or of 256
+// up to 2048.  The caller has checked contiguity and 16-byte alignment.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int msa_ln_quant_static(const void* x, const void* res,
                                    const void* gamma, const void* beta,
                                    const void* ascale, void* h, void* xi,

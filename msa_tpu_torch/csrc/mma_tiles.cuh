@@ -1,11 +1,14 @@
-// Warp-level tensor-core tiles for head dim 64: the mma.sync primitives that
-// the attention kernels of the port share (flash_kernels.cuh for rows 10-13,
+// Warp-level tensor-core tiles for a head dim kD of 32 or 64 (a template
+// parameter of every tile function): the mma.sync primitives that the
+// attention kernels of the port share (flash_kernels.cuh for rows 10-13,
 // short_attention.cu and short_attention_v1.cu for the bf16 short-attention
-// forwards, short_bwd_tc.cuh for the bf16 v1 and v3 backwards).
+// forwards, short_bwd_tc.cuh for the bf16 short-attention backwards).
 //
 // A warp owns 16 query rows.  Operands in shared memory are row-major bf16
-// rows of kStride elements (64 values and 8 of padding: 144-byte rows, so
-// the eight row addresses of an ldmatrix fall in distinct banks).  Products
+// rows of kStride<kD> elements (kD values and 8 of padding: 144-byte rows
+// at 64, 80-byte rows at 32; an odd multiple of 16 bytes, so the eight row
+// addresses of an ldmatrix fall in distinct banks).  Q K^T takes kD / 16
+// k-steps, and P V, dQ, dK and dV fill kD / 8 column tiles.  Products
 // are m16n8k16 (bf16 in, f32 accumulate); their outputs stay in registers
 // in mma.sync's accumulator layout, and that layout, packed to bf16, is the
 // A operand of the next product (the probabilities are rounded there).
@@ -17,24 +20,53 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dropout.cuh"
 
 namespace msa_mma {
 
-constexpr int kD = 64;                 // head dim: depth of nt, width of nn
-constexpr int kNT = kD / 8;            // 8-column tiles of a [16 x 64] fragment
-constexpr int kStride = kD + 8;        // 144-byte rows: ldmatrix conflict-free
+template <int kD>
+inline constexpr int kNT = kD / 8;      // 8-column tiles of a [16 x kD] fragment
+template <int kD>
+inline constexpr int kStride = kD + 8;  // bf16 row stride of a staged head row
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A [16 x 64] f32 tile held by one warp in mma.sync's accumulator layout:
+// The head dims the tiles take: 16-wide k-steps, column tiles in pairs,
+// staged rows an odd multiple of 16 bytes apart.
+template <int kD>
+constexpr bool head_dim_ok() {
+  return kD % 16 == 0 && (kStride<kD> * 2 / 16) % 2 == 1;
+}
+static_assert(head_dim_ok<32>() && head_dim_ok<64>(), "staged rows conflict-free");
+
+// The head dim hidden / num_heads if the kernels take it (32 or 64), else 0.
+inline int head_dim_of(int hidden, int num_heads) {
+  if (num_heads <= 0 || hidden % num_heads) return 0;
+  const int d = hidden / num_heads;
+  return d == 32 || d == 64 ? d : 0;
+}
+
+// The host side's switch to the head dims the kernels are instantiated
+// for: f(std::integral_constant<int, d>{}) for d = 32 or 64, else
+// cudaErrorInvalidValue.
+template <class F>
+int by_head_dim(int d, F&& f) {
+  if (d == 32) return f(std::integral_constant<int, 32>{});
+  if (d == 64) return f(std::integral_constant<int, 64>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// A [16 x 8kN] f32 tile held by one warp in mma.sync's accumulator layout:
 // lane (g = lane / 4, c = lane % 4) holds x[n][0..1] at row g, columns
 // 8n + 2c + {0, 1}, and x[n][2..3] at row g + 8, the same columns.
+template <int kN>
 struct Frag {
-  float x[kNT][4];
+  float x[kN][4];
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int n = 0; n < kNT; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+    for (int n = 0; n < kN; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
   }
 };
 
@@ -83,28 +115,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// Tile products of one warp, bf16 operands of row stride kStride.
-//   mma_nt<kN>(a, m0, b, c): c  = a[m0 .. m0+16) . b[0 .. 8kN)^T  (over 64 columns)
-//   mma_nn<kN>(f, b, c):     c += f . b[0 .. 8kN)                  (f [16 x 8kN])
-//   mma_tn<kK>(at, lda, m0, b, c): below load_b_kn
+// Tile products of one warp, bf16 operands of row stride kStride<kD>.
+//   mma_nt<kD, kN>(a, m0, b, c): c  = a[m0 .. m0+16) . b[0 .. 8kN)^T  (over kD columns)
+//   mma_nn<kD, kN>(f, b, c):     c += f . b[0 .. 8kN)                  (f [16 x 8kN])
+//   mma_tn<kD, kK>(at, lda, m0, b, c): below load_b_kn
 // kN (8-column tiles of the [16 x 8kN] side) is even: 16 keys a k-step.
 // ---------------------------------------------------------------------------
 
-template <int kN>
+template <int kD, int kN>
 __device__ __forceinline__ void mma_nt(const __nv_bfloat16* a, int m0,
                                        const __nv_bfloat16* b, float (&c)[kN][4]) {
   static_assert(kN % 2 == 0, "column tiles come in pairs");
+  constexpr int ld = kStride<kD>;
   const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
 #pragma unroll
   for (int n = 0; n < kN; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
     uint32_t af[4];
-    ldsm_x4(af, a + (m0 + r + 8 * (i & 1)) * kStride + kk * 16 + 8 * (i >> 1));
+    ldsm_x4(af, a + (m0 + r + 8 * (i & 1)) * ld + kk * 16 + 8 * (i >> 1));
 #pragma unroll
     for (int n = 0; n < kN; n += 2) {
       uint32_t bf[4];
-      ldsm_x4(bf, b + (n * 8 + r + 8 * (i >> 1)) * kStride + kk * 16 + 8 * (i & 1));
+      ldsm_x4(bf, b + (n * 8 + r + 8 * (i >> 1)) * ld + kk * 16 + 8 * (i & 1));
       mma_bf16(c[n], af, bf[0], bf[1]);
       mma_bf16(c[n + 1], af, bf[2], bf[3]);
     }
@@ -112,16 +145,18 @@ __device__ __forceinline__ void mma_nt(const __nv_bfloat16* a, int m0,
 }
 
 // B operand of k-step kk for column tiles n, n + 1 from a row-major [k][n]
-// tile (ldmatrix.trans gives each lane b[k = 2c + e][n = g]).
+// tile of row stride kStride<kD> (ldmatrix.trans gives each lane b[k = 2c +
+// e][n = g]).
+template <int kD>
 __device__ __forceinline__ void load_b_kn(const __nv_bfloat16* b, int kk, int n,
                                           uint32_t* bf) {
   const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-  ldsm_x4_trans(bf, b + (kk * 16 + r + 8 * (i & 1)) * kStride + n * 8 + 8 * (i >> 1));
+  ldsm_x4_trans(bf, b + (kk * 16 + r + 8 * (i & 1)) * kStride<kD> + n * 8 + 8 * (i >> 1));
 }
 
-template <int kN>
+template <int kD, int kN>
 __device__ __forceinline__ void mma_nn(const float (&f)[kN][4], const __nv_bfloat16* b,
-                                       float (&c)[kNT][4]) {
+                                       float (&c)[kNT<kD>][4]) {
   static_assert(kN % 2 == 0, "column tiles come in pairs");
 #pragma unroll
   for (int kk = 0; kk < kN / 2; ++kk) {
@@ -131,9 +166,9 @@ __device__ __forceinline__ void mma_nn(const float (&f)[kN][4], const __nv_bfloa
                             pack_bf16(f[2 * kk + 1][0], f[2 * kk + 1][1]),
                             pack_bf16(f[2 * kk + 1][2], f[2 * kk + 1][3])};
 #pragma unroll
-    for (int n = 0; n < kNT; n += 2) {
+    for (int n = 0; n < kNT<kD>; n += 2) {
       uint32_t bf[4];
-      load_b_kn(b, kk, n, bf);
+      load_b_kn<kD>(b, kk, n, bf);
       mma_bf16(c[n], af, bf[0], bf[1]);
       mma_bf16(c[n + 1], af, bf[2], bf[3]);
     }
@@ -142,99 +177,79 @@ __device__ __forceinline__ void mma_nn(const float (&f)[kN][4], const __nv_bfloa
 
 // c = at[0 .. 16kK)[:, m0 .. m0+16)^T . b[0 .. 16kK): at a row-major [k][m]
 // tile of row stride lda (16-byte rows, an odd multiple of 16 bytes apart
-// for conflict-free ldmatrix), b a [k][64] tile of row stride kStride.
-template <int kK>
+// for conflict-free ldmatrix), b a [k][kD] tile of row stride kStride<kD>.
+template <int kD, int kK>
 __device__ __forceinline__ void mma_tn(const __nv_bfloat16* at, int lda, int m0,
-                                       const __nv_bfloat16* b, float (&c)[kNT][4]) {
+                                       const __nv_bfloat16* b, float (&c)[kNT<kD>][4]) {
   const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
 #pragma unroll
-  for (int n = 0; n < kNT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+  for (int n = 0; n < kNT<kD>; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < kK; ++kk) {
     uint32_t af[4];
     ldsm_x4_trans(af, at + (kk * 16 + r + 8 * (i >> 1)) * lda + m0 + 8 * (i & 1));
 #pragma unroll
-    for (int n = 0; n < kNT; n += 2) {
+    for (int n = 0; n < kNT<kD>; n += 2) {
       uint32_t bf[4];
-      load_b_kn(b, kk, n, bf);
+      load_b_kn<kD>(b, kk, n, bf);
       mma_bf16(c[n], af, bf[0], bf[1]);
       mma_bf16(c[n + 1], af, bf[2], bf[3]);
     }
   }
 }
 
-// The products on [16 x 64] fragments and [64][kStride] tiles, as the
-// flash kernels' policy P takes them (the f32 policy, SimtF32 in
-// flash_kernels.cuh, stages through its float* scratch; this one has none).
-//   nt(a, m0, b, c):  c  = a[m0 .. m0+16) . b^T         (over the 64 columns)
-//   nn(f, b, c):      c += f . b                         (f's columns are k)
-//   tn(at, m0, b, c): c  = at[:, m0 .. m0+16)^T . b      (over the 64 rows)
-struct MmaBf16 {
-  using T = __nv_bfloat16;
-  static constexpr int kStride = msa_mma::kStride;
-  static constexpr int kStageFloats = 0;
-
-  __device__ static void nt(const T* a, int m0, const T* b, Frag& c, float*) {
-    mma_nt<kNT>(a, m0, b, c.x);
-  }
-
-  __device__ static void nn(const Frag& f, const T* b, Frag& c, float*) {
-    mma_nn<kNT>(f.x, b, c.x);
-  }
-
-  __device__ static void tn(const T* at, int m0, const T* b, Frag& c, float*) {
-    mma_tn<kD / 16>(at, kStride, m0, b, c.x);
-  }
-};
-
 // ---------------------------------------------------------------------------
 // Moving bf16 rows between device memory and shared memory
 // ---------------------------------------------------------------------------
 
 // Rows [r0, r0 + n) of one head (row 0 at src + base, row stride ld) into
-// dst (row stride kStride) by every thread of the block; rows >= seq are
-// zero-filled.  Asynchronous: the caller commits and waits.
+// dst (row stride kStride<kD>) by every thread of the block; rows >= seq
+// are zero-filled.  Asynchronous: the caller commits and waits.
+template <int kD>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            size_t base, int ld, int r0, int n, int seq) {
-  for (int idx = threadIdx.x; idx < n * (kD / 8); idx += blockDim.x) {
-    const int r = idx >> 3, ch = idx & 7;
+  constexpr int kChunks = kD / 8;  // 16-byte chunks of a head row
+  for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, ch = idx % kChunks;
     const bool ok = r0 + r < seq;
-    cp_async16(dst + r * kStride + ch * 8,
+    cp_async16(dst + r * kStride<kD> + ch * 8,
                src + base + (size_t)(ok ? r0 + r : 0) * ld + ch * 8, ok);
   }
 }
 
 // Column tiles [0, kN) of a warp's [16 x 8kN] f32 tile (accumulator layout)
-// times mult, as bf16 into columns 8n of the warp's [16][kStride] stage
-// (kN <= 8).
-template <int kN>
+// times mult, as bf16 into columns 8n of the warp's [16][kStride<kD>] stage
+// (kN <= kD / 8).
+template <int kD, int kN>
 __device__ __forceinline__ void frag_to_stage(const float (&f)[kN][4], __nv_bfloat16* stage,
                                               float mult) {
+  static_assert(kN <= kNT<kD>, "a stage row holds kD columns");
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
 #pragma unroll
   for (int n = 0; n < kN; ++n) {
-    *reinterpret_cast<uint32_t*>(stage + g * kStride + n * 8 + 2 * c) =
+    *reinterpret_cast<uint32_t*>(stage + g * kStride<kD> + n * 8 + 2 * c) =
         pack_bf16(f[n][0] * mult, f[n][1] * mult);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kStride + n * 8 + 2 * c) =
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kStride<kD> + n * 8 + 2 * c) =
         pack_bf16(f[n][2] * mult, f[n][3] * mult);
   }
 }
 
 // One head's rows for the short-attention forwards that hold every key:
 // Q and K (one cp.async group), then V (the next), rows [0, rows) of
-// [rows][kStride] tiles, zero-filled past seq, and the key bias times
+// [rows][kStride<kD>] tiles, zero-filled past seq, and the key bias times
 // log2e into bias_s (-inf past seq: no keys, where a masked key has the
 // -10000 fill).  The caller waits (cp_async_wait<1> for Q and K, <0> for
 // V), each wait followed by __syncthreads.
+template <int kD>
 __device__ __forceinline__ void stage_head(__nv_bfloat16* q_s, __nv_bfloat16* k_s,
                                            __nv_bfloat16* v_s, float* bias_s,
                                            const __nv_bfloat16* q, const __nv_bfloat16* k,
                                            const __nv_bfloat16* v, const float* bias_row,
                                            size_t base, int ld, int rows, int seq) {
-  stage_rows(q_s, q, base, ld, 0, rows, seq);
-  stage_rows(k_s, k, base, ld, 0, rows, seq);
+  stage_rows<kD>(q_s, q, base, ld, 0, rows, seq);
+  stage_rows<kD>(k_s, k, base, ld, 0, rows, seq);
   cp_async_commit();
-  stage_rows(v_s, v, base, ld, 0, rows, seq);
+  stage_rows<kD>(v_s, v, base, ld, 0, rows, seq);
   cp_async_commit();
   for (int j = threadIdx.x; j < rows; j += blockDim.x) {
     bias_s[j] = j < seq ? bias_row[j] * kLog2e : -INFINITY;
@@ -243,28 +258,31 @@ __device__ __forceinline__ void stage_head(__nv_bfloat16* q_s, __nv_bfloat16* k_
 
 // A warp's staged rows out to device memory in 16-byte vectors: chunk ch
 // (8 values) of stage row r to dst + r * ld + 8 * ch, for rows r < rows and
-// chunks ch < chunks.  The caller has written the stage and __syncwarp'd.
+// chunks ch < chunks (<= kD / 8).  The caller has written the stage and
+// __syncwarp'd.
+template <int kD>
 __device__ __forceinline__ void stage_to_rows(const __nv_bfloat16* stage, __nv_bfloat16* dst,
                                               size_t ld, int rows, int chunks) {
   const int lane = threadIdx.x & 31;
-  for (int idx = lane; idx < 16 * kNT; idx += 32) {
-    const int r = idx >> 3, ch = idx & 7;
+  for (int idx = lane; idx < 16 * kNT<kD>; idx += 32) {
+    const int r = idx / kNT<kD>, ch = idx % kNT<kD>;
     if (r < rows && ch < chunks) {
       *reinterpret_cast<uint4*>(dst + r * ld + ch * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * kStride + ch * 8);
+          *reinterpret_cast<const uint4*>(stage + r * kStride<kD> + ch * 8);
     }
   }
 }
 
-// A warp's [16 x 64] f32 tile (accumulator layout) times mult as bf16
+// A warp's [16 x kD] f32 tile (accumulator layout) times mult as bf16
 // through its stage into rows [0, rows) of dst (row stride ld), 16-byte
 // vectors.
-__device__ __forceinline__ void store_tile(const float (&f)[kNT][4], __nv_bfloat16* stage,
+template <int kD>
+__device__ __forceinline__ void store_tile(const float (&f)[kNT<kD>][4], __nv_bfloat16* stage,
                                            __nv_bfloat16* dst, size_t ld, int rows,
                                            float mult = 1.f) {
-  frag_to_stage<kNT>(f, stage, mult);
+  frag_to_stage<kD, kNT<kD>>(f, stage, mult);
   __syncwarp();
-  stage_to_rows(stage, dst, ld, rows, kNT);
+  stage_to_rows<kD>(stage, dst, ld, rows, kNT<kD>);
 }
 
 // ---------------------------------------------------------------------------

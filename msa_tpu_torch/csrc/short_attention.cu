@@ -1,4 +1,6 @@
-// Whole-sequence attention for short sequences (S < 1024, head dim 64):
+// Whole-sequence attention for short sequences (S < 1024, head dim 32 or
+// 64, a template parameter kD of every kernel, picked by the C entries from
+// hidden / num_heads):
 // forward with in-kernel attention-probs dropout, the backward pair, and a
 // keep-mask export.
 //
@@ -21,9 +23,10 @@
 // by the natural 1/sqrt(d)).
 //
 // What bounds them on the H100: bytes.  At the flagship shapes (S = 40 /
-// 80, d = 64) a (batch, head) pair does 4*S*S*d forward FLOPs on 4*S*d
-// elements of q/k/v/o -- S FLOPs per element, far below the ~295 FLOP/byte
-// at which the tensor cores, rather than memory, would be the limit.  So
+// 80, d = 64; the tiny preset's d = 32) a (batch, head) pair does 4*S*S*d
+// forward FLOPs on 4*S*d elements of q/k/v/o -- S FLOPs per element, far
+// below the ~295 FLOP/byte at which the tensor cores, rather than memory,
+// would be the limit.  So
 // every kernel reads each q/k/v/dO byte once from device memory, keeps the
 // softmax on chip and stores nothing of size [S, S]:
 //
@@ -38,14 +41,15 @@
 //     TF32, three decimal digits).  One CTA per (query tile, head, batch
 //     row); a query tile holds up to 128 rows, so S <= 128 is one tile and
 //     K/V are read once.  Two threads per query row, each owning half of
-//     the 64 head dims in registers.  K and V are staged in shared memory
+//     the d head dims in registers.  K and V are staged in shared memory
 //     as f32, 64 keys per tile, under an online softmax that takes 16 keys
 //     per update; the training form also writes the lse.
-//   * backward, bf16 at S <= 128 (v2, v2p and v3): one launch on the
+//   * backward, bf16 at S <= 128 (v2, v2p, v3 and v2s): one launch on the
 //     tensor cores, the template short_bwd_tc.cuh shares with v1's
 //     backward, which recomputes each row's max and sum from q and k; v2
-//     takes v1's rule, v2p and v3 take delta from the ctx.  Nothing of
-//     the forward but (for v2p and v3) its ctx is read.
+//     takes v1's rule, v2p and v3 take delta from the ctx, v2s reads p
+//     from its stashed probs.  Nothing of the forward but (for v2p and v3)
+//     its ctx or (v2s) its probs is read.
 //   * backward, f32 and bf16 above 128 keys: a pair of launches in the
 //     flash-attention-2 manner (no [S, S] tensor, any S):
 //       - dq: the forward's layout.  Each query row recomputes its scores,
@@ -91,7 +95,6 @@ using msa_dropout::keep_bits16;
 using msa_dropout::kGroup;
 using msa_dropout::make_dropout;
 
-constexpr int kHeadDim = 64;
 constexpr int kKeyTile = 64;    // forward / dq: keys staged per tile
 constexpr int kQueryTile = 64;  // dk/dv: queries staged per tile
 constexpr int kKeyChunk = 16;   // keys scored per online-softmax update
@@ -142,23 +145,24 @@ __device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
   *reinterpret_cast<uint4*>(dst) = x;
 }
 
-// Per-thread layout shared by every kernel: the two threads of a row own
-// interleaved 16-byte chunks (chunk u of a thread is the head row's chunk
-// 2*u + half), so their shared-memory reads fall in different banks and
-// global accesses are 16-byte vectors.
-template <typename T>
+// Per-thread layout shared by every CUDA-core kernel, head dim kD: the two
+// threads of a row own interleaved 16-byte chunks (chunk u of a thread is
+// the head row's chunk 2*u + half), so their shared-memory reads fall in
+// different banks and global accesses are 16-byte vectors.
+template <typename T, int kD>
 struct Layout {
-  static constexpr int kVec = 16 / sizeof(T);      // elements per 16 bytes
-  static constexpr int kChunks = kHeadDim / kVec;  // chunks per head row
-  static constexpr int kOwn = kChunks / 2;         // chunks per thread
-  static constexpr int kPart = kHeadDim / 2;       // head dims per thread
+  static constexpr int kVec = 16 / sizeof(T);  // elements per 16 bytes
+  static constexpr int kChunks = kD / kVec;    // chunks per head row
+  static constexpr int kOwn = kChunks / 2;     // chunks per thread
+  static constexpr int kPart = kD / 2;         // head dims per thread
+  static_assert(kChunks % 2 == 0, "the two threads of a row own kOwn chunks each");
 };
 
 // Load this thread's half of a head row (zeros when !active), times `mult`.
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void load_half(const T* row_ptr, int half, bool active,
                                           float mult, float* dst) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
 #pragma unroll
   for (int u = 0; u < L::kOwn; ++u) {
     float tmp[L::kVec];
@@ -173,10 +177,10 @@ __device__ __forceinline__ void load_half(const T* row_ptr, int half, bool activ
   }
 }
 
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void store_half(T* row_ptr, int half, const float* src,
                                            float mult) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
 #pragma unroll
   for (int u = 0; u < L::kOwn; ++u) {
     float tmp[L::kVec];
@@ -188,10 +192,10 @@ __device__ __forceinline__ void store_half(T* row_ptr, int half, const float* sr
 
 // Half-row dot product against a shared-memory f32 row (the two halves are
 // joined by the caller with one shuffle).
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ float dot_half(const float* mine, const float* srow,
                                           int half) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
   float part = 0.f;
 #pragma unroll
   for (int u = 0; u < L::kOwn; ++u) {
@@ -209,10 +213,10 @@ __device__ __forceinline__ float dot_half(const float* mine, const float* srow,
 }
 
 // acc += w * srow (this thread's half).
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void axpy_half(float* acc, float w, const float* srow,
                                           int half) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
 #pragma unroll
   for (int u = 0; u < L::kOwn; ++u) {
 #pragma unroll
@@ -229,21 +233,21 @@ __device__ __forceinline__ void axpy_half(float* acc, float w, const float* srow
 
 // Stage rows [r0, r0 + n) of one head of x and of y (row strides x_stride
 // and y_stride elements; x_base and y_base point at the head's row 0) into
-// shared memory as f32 [n, 64]; x times `x_mult` when kScaleX.  Both loads
+// shared memory as f32 [n, kD]; x times `x_mult` when kScaleX.  Both loads
 // of an iteration are issued together, so two are in flight.
-template <typename T, bool kScaleX = false>
+template <typename T, int kD, bool kScaleX = false>
 __device__ __forceinline__ void stage_pair(const T* x, const T* y, size_t x_base,
                                            int x_stride, size_t y_base, int y_stride,
                                            int r0, int n, float x_mult,
                                            float* x_s, float* y_s) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
   for (int idx = threadIdx.x; idx < n * L::kChunks; idx += blockDim.x) {
     const int j = idx / L::kChunks;
     const int c = idx - j * L::kChunks;
-    float* xd = &x_s[j * kHeadDim + c * L::kVec];
+    float* xd = &x_s[j * kD + c * L::kVec];
     load16(x + x_base + (size_t)(r0 + j) * x_stride + c * L::kVec, xd);
     load16(y + y_base + (size_t)(r0 + j) * y_stride + c * L::kVec,
-           &y_s[j * kHeadDim + c * L::kVec]);
+           &y_s[j * kD + c * L::kVec]);
     if constexpr (kScaleX) {
 #pragma unroll
       for (int e = 0; e < L::kVec; ++e) xd[e] *= x_mult;
@@ -253,15 +257,15 @@ __device__ __forceinline__ void stage_pair(const T* x, const T* y, size_t x_base
 
 
 // Stage rows [r0, r0 + n) of one head of x into shared memory as f32.
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void stage_one(const T* x, size_t base, int stride, int r0,
                                           int n, float* x_s) {
-  using L = Layout<T>;
+  using L = Layout<T, kD>;
   for (int idx = threadIdx.x; idx < n * L::kChunks; idx += blockDim.x) {
     const int j = idx / L::kChunks;
     const int c = idx - j * L::kChunks;
     load16(x + base + (size_t)(r0 + j) * stride + c * L::kVec,
-           &x_s[j * kHeadDim + c * L::kVec]);
+           &x_s[j * kD + c * L::kVec]);
   }
 }
 
@@ -270,7 +274,7 @@ __device__ __forceinline__ void stage_one(const T* x, size_t base, int stride, i
 // max / sum: the same products, chunks and order, so the same bits as the
 // f32 forward's lse.  Every thread of the CTA calls it (it stages K
 // through k_s).
-template <typename T>
+template <typename T, int kD>
 __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int stride,
                                int seq, const float* bias_row, int half, float* k_s,
                                float* bias_s) {
@@ -279,7 +283,7 @@ __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int str
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
     __syncthreads();
-    stage_one(k, base, stride, k0, kn, k_s);
+    stage_one<T, kD>(k, base, stride, k0, kn, k_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
       bias_s[j] = bias_row[k0 + j] * kLog2e;
     }
@@ -291,7 +295,7 @@ __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int str
       for (int jj = 0; jj < kKeyChunk; ++jj) {
         const int j = j0 + jj;
         float part = 0.f;
-        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);
+        if (j < kn) part = dot_half<T, kD>(qr, &k_s[j * kD], half);
         part += __shfl_xor_sync(0xffffffffu, part, 1);
         s[jj] = (j < kn) ? part + bias_s[j] : -INFINITY;
         chunk_max = fmaxf(chunk_max, s[jj]);
@@ -316,7 +320,7 @@ __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int str
 // tensors, 3H for the thirds of one packed [B, S, 3H] q|k|v (the caller
 // offsets k and v by H and 2H).  out is [B, S, H].  Launched for T = float
 // only.
-template <typename T, bool kDropout, bool kTrain>
+template <typename T, int kD, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
@@ -324,9 +328,9 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            T* __restrict__ out, float* __restrict__ lse, int seq,
                            int hidden, int stride, int rows_per_cta, float score_mult,
                            Dropout drop) {
-  using L = Layout<T>;
-  __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
-  __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
+  using L = Layout<T, kD>;
+  __shared__ __align__(16) float k_s[kKeyTile * kD];
+  __shared__ __align__(16) float v_s[kKeyTile * kD];
   __shared__ float bias_s[kKeyTile];
 
   const int b = blockIdx.z;
@@ -334,13 +338,13 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = threadIdx.x & 1;
   const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
   const bool active = row < seq;
-  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kHeadDim;
-  const size_t out_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kD;
+  const size_t out_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
   // This thread's half of the query row, pre-scaled into the log2 domain.
   float qr[L::kPart];
-  load_half(q + in_base + (size_t)row * stride, half, active, score_mult, qr);
+  load_half<T, kD>(q + in_base + (size_t)row * stride, half, active, score_mult, qr);
 
   float acc[L::kPart];
 #pragma unroll
@@ -352,7 +356,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
     __syncthreads();  // every thread is done with the previous tile
-    stage_pair(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
+    stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
       bias_s[j] = bias_row[k0 + j] * kLog2e;
     }
@@ -365,7 +369,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < kKeyChunk; ++jj) {
         const int j = j0 + jj;  // < kKeyTile: j0 <= kKeyTile - kKeyChunk
         float part = 0.f;
-        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);  // uniform
+        if (j < kn) part = dot_half<T, kD>(qr, &k_s[j * kD], half);  // uniform
         part += __shfl_xor_sync(0xffffffffu, part, 1);  // join the two halves
         s[jj] = (j < kn) ? part + bias_s[j] : -INFINITY;
         chunk_max = fmaxf(chunk_max, s[jj]);
@@ -392,7 +396,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           run_sum = __fadd_rn(run_sum, p);
           float pv = p;
           if constexpr (kDropout) pv = ((keep >> jj) & 1u) ? p * drop.scale : 0.f;
-          axpy_half<T>(acc, pv, &v_s[j * kHeadDim], half);
+          axpy_half<T, kD>(acc, pv, &v_s[j * kD], half);
         }
       }
       run_max = new_max;
@@ -400,7 +404,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (active) {
-    store_half(out + out_base + (size_t)row * hidden, half, acc, 1.f / run_sum);
+    store_half<T, kD>(out + out_base + (size_t)row * hidden, half, acc, 1.f / run_sum);
     if constexpr (kTrain) {
       if (half == 0) lse[prob_row] = run_max + log2f(run_sum);
     }
@@ -423,7 +427,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // storage type T, delta = dO . o, and the kernel recomputes each row's lse
 // from the scores (row_lse_sweep, one more pass over K) and writes it to
 // `lse` for the dk/dv launch; the forward keeps nothing but its ctx.
-template <typename T, bool kDropout, bool kV3>
+template <typename T, int kD, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v,
@@ -434,9 +438,9 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               float* __restrict__ delta_out, T* __restrict__ dq,
                               int seq, int hidden, int stride, int rows_per_cta,
                               float score_mult, float scale, Dropout drop) {
-  using L = Layout<T>;
-  __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
-  __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
+  using L = Layout<T, kD>;
+  __shared__ __align__(16) float k_s[kKeyTile * kD];
+  __shared__ __align__(16) float v_s[kKeyTile * kD];
   __shared__ float bias_s[kKeyTile];
 
   const int b = blockIdx.z;
@@ -444,9 +448,9 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int half = threadIdx.x & 1;
   const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
   const bool active = row < seq;
-  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kHeadDim;
+  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kD;
   const size_t in_off = in_base + (size_t)row * stride;
-  const size_t row_off = (size_t)b * seq * hidden + (size_t)head * kHeadDim +
+  const size_t row_off = (size_t)b * seq * hidden + (size_t)head * kD +
                          (size_t)row * hidden;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
@@ -455,19 +459,19 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kSweeps = (kV3 || kOnePass) ? 1 : 2;
   float qr[L::kPart], dor[L::kPart], acc[L::kPart];
   float pk[kOnePass ? L::kPart : 1];  // sum_j p_j k_j
-  load_half(q + in_off, half, active, score_mult, qr);
-  load_half(dout + row_off, half, active, 1.f, dor);
+  load_half<T, kD>(q + in_off, half, active, score_mult, qr);
+  load_half<T, kD>(dout + row_off, half, active, 1.f, dor);
   float delta = 0.f;
   const float* bias_row = key_bias + (size_t)b * seq;
   float row_lse;
   if constexpr (kV3) {
     // delta = dO . o over the full head row; acc holds o for a moment.
-    load_half(static_cast<const T*>(o) + row_off, half, active, 1.f, acc);
+    load_half<T, kD>(static_cast<const T*>(o) + row_off, half, active, 1.f, acc);
 #pragma unroll
     for (int i = 0; i < L::kPart; ++i) delta = fmaf(dor[i], acc[i], delta);
     delta += __shfl_xor_sync(0xffffffffu, delta, 1);
     if (active && half == 0) delta_out[prob_row] = delta;
-    row_lse = row_lse_sweep<T>(qr, k, in_base, stride, seq, bias_row, half, k_s, bias_s);
+    row_lse = row_lse_sweep<T, kD>(qr, k, in_base, stride, seq, bias_row, half, k_s, bias_s);
     if (active && half == 0) lse[prob_row] = row_lse;
   } else {
 #pragma unroll
@@ -481,7 +485,7 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
       const int kn = min(kKeyTile, seq - k0);
       __syncthreads();
-      stage_pair(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
+      stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
       for (int j = threadIdx.x; j < kn; j += blockDim.x) {
         bias_s[j] = bias_row[k0 + j] * kLog2e;
       }
@@ -494,8 +498,8 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int jj = 0; jj < kKeyChunk; ++jj) {
           const int j = j0 + jj;
           if (j >= kn) break;  // uniform across the CTA
-          float s = dot_half<T>(qr, &k_s[j * kHeadDim], half);
-          float dp = dot_half<T>(dor, &v_s[j * kHeadDim], half);
+          float s = dot_half<T, kD>(qr, &k_s[j * kD], half);
+          float dp = dot_half<T, kD>(dor, &v_s[j * kD], half);
           s += __shfl_xor_sync(0xffffffffu, s, 1);
           dp += __shfl_xor_sync(0xffffffffu, dp, 1);
           const float p = exp2f(s + bias_s[j] - row_lse);
@@ -504,11 +508,11 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if constexpr (kOnePass) {
             const float pdpm = p * dpm;
             delta += pdpm;
-            axpy_half<T>(acc, pdpm, &k_s[j * kHeadDim], half);
-            axpy_half<T>(pk, p, &k_s[j * kHeadDim], half);
+            axpy_half<T, kD>(acc, pdpm, &k_s[j * kD], half);
+            axpy_half<T, kD>(pk, p, &k_s[j * kD], half);
           } else if (kV3 || sweep == 1) {
             // dS rounded as the TPU kernels round it
-            axpy_half<T>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kHeadDim], half);
+            axpy_half<T, kD>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kD], half);
           } else {
             delta += p * dpm;
           }
@@ -524,7 +528,7 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (!kV3) {
     if (active && half == 0) delta_out[prob_row] = delta;
   }
-  if (active) store_half(dq + in_off, half, acc, scale);
+  if (active) store_half<T, kD>(dq + in_off, half, acc, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -534,7 +538,7 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dS and the dropped p rounded to T before their products, as the TPU
 // kernels round them (nothing changes in f32); lse and delta are the dq
 // launch's (v2: the forward's lse).
-template <typename T, bool kDropout>
+template <typename T, int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                const T* __restrict__ v,
@@ -545,9 +549,9 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                T* __restrict__ dk, T* __restrict__ dv,
                                int seq, int hidden, int stride, int rows_per_cta,
                                float score_mult, float dk_mult, Dropout drop) {
-  using L = Layout<T>;
-  __shared__ __align__(16) float q_s[kQueryTile * kHeadDim];   // q * score_mult
-  __shared__ __align__(16) float do_s[kQueryTile * kHeadDim];
+  using L = Layout<T, kD>;
+  __shared__ __align__(16) float q_s[kQueryTile * kD];   // q * score_mult
+  __shared__ __align__(16) float do_s[kQueryTile * kD];
   __shared__ float lse_s[kQueryTile];
   __shared__ float delta_s[kQueryTile];
   __shared__ uint32_t keep_s[kMaxRows / kGroup][kQueryTile];
@@ -559,15 +563,15 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int local = threadIdx.x >> 1;
   const int key = key0 + local;
   const bool active = key < seq;
-  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kHeadDim;
-  const size_t do_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kD;
+  const size_t do_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const size_t key_off = in_base + (size_t)key * stride;
   const uint32_t head_rows = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
   const int groups = rows_per_cta / kGroup;
 
   float kr[L::kPart], vr[L::kPart], dk_acc[L::kPart], dv_acc[L::kPart];
-  load_half(k + key_off, half, active, 1.f, kr);
-  load_half(v + key_off, half, active, 1.f, vr);
+  load_half<T, kD>(k + key_off, half, active, 1.f, kr);
+  load_half<T, kD>(v + key_off, half, active, 1.f, vr);
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const float bias2 = active ? key_bias[(size_t)b * seq + key] * kLog2e : 0.f;
@@ -575,7 +579,7 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i0 = 0; i0 < seq; i0 += kQueryTile) {
     const int qn = min(kQueryTile, seq - i0);
     __syncthreads();  // every thread is done with the previous tile
-    stage_pair<T, true>(q, dout, in_base, stride, do_base, hidden, i0, qn,
+    stage_pair<T, kD, true>(q, dout, in_base, stride, do_base, hidden, i0, qn,
                         score_mult, q_s, do_s);
     for (int i = threadIdx.x; i < qn; i += blockDim.x) {
       lse_s[i] = lse[head_rows + i0 + i];
@@ -595,8 +599,8 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < qn; ++i) {
       // the same products in the same order as the forward's score, so s is
       // bit-identical to it (fmaf(q, k) == fmaf(k, q))
-      float s = dot_half<T>(kr, &q_s[i * kHeadDim], half);
-      float dp = dot_half<T>(vr, &do_s[i * kHeadDim], half);
+      float s = dot_half<T, kD>(kr, &q_s[i * kD], half);
+      float dp = dot_half<T, kD>(vr, &do_s[i * kD], half);
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       const float p = exp2f(s + bias2 - lse_s[i]);
@@ -606,14 +610,14 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = kept ? p * drop.scale : 0.f;
         dpm = kept ? dp * drop.scale : 0.f;
       }
-      axpy_half<T>(dv_acc, round_to<T>(pd), &do_s[i * kHeadDim], half);
-      axpy_half<T>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kHeadDim], half);
+      axpy_half<T, kD>(dv_acc, round_to<T>(pd), &do_s[i * kD], half);
+      axpy_half<T, kD>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kD], half);
     }
   }
 
   if (active) {
-    store_half(dk + key_off, half, dk_acc, dk_mult);
-    store_half(dv + key_off, half, dv_acc, 1.f);
+    store_half<T, kD>(dk + key_off, half, dk_acc, dk_mult);
+    store_half<T, kD>(dv + key_off, half, dv_acc, 1.f);
   }
 }
 
@@ -645,8 +649,8 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //     and V are read once.  Above, one CTA per (query tile of <= 128 rows,
 //     head, batch row) sweeps the keys twice in 64-key tiles through a
 //     two-stage cp.async ring: the online max / sum to the lse, then the
-//     scores again, the probs and ctx.  A warp writes its [16 x 64] block of
-//     the probs, and ctx, through shared memory in 16-byte row vectors.
+//     scores again, the probs and ctx.  A warp writes its probs (d keys at
+//     a time) and ctx through shared memory in 16-byte row vectors.
 //   * f32, on the CUDA cores (two threads per query row, K and V staged as
 //     f32): the same two sweeps, ctx from pd in f32.
 //
@@ -665,14 +669,14 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 template <typename T>
 __device__ __forceinline__ void store8(T* dst, const float* src) {
 #pragma unroll
-  for (int e = 0; e < 8; e += Layout<T>::kVec) store16(dst + e, src + e);
+  for (int e = 0; e < 8; e += 16 / (int)sizeof(T)) store16(dst + e, src + e);
 }
 
 // Load 16 consecutive values (16-byte aligned) of the storage type as f32.
 template <typename T>
 __device__ __forceinline__ void load_group(const T* src, float* dst) {
 #pragma unroll
-  for (int e = 0; e < kGroup; e += Layout<T>::kVec) load16(src + e, dst + e);
+  for (int e = 0; e < kGroup; e += 16 / (int)sizeof(T)) load16(src + e, dst + e);
 }
 
 __host__ __device__ __forceinline__ int probs_width(int seq) {
@@ -680,7 +684,7 @@ __host__ __device__ __forceinline__ int probs_width(int seq) {
 }
 
 // f32, on the CUDA cores.
-template <bool kDropout>
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v,
@@ -689,9 +693,9 @@ short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __res
                                  int seq, int hidden, int rows_per_cta,
                                  float score_mult, Dropout drop) {
   using T = float;
-  using L = Layout<T>;
-  __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
-  __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
+  using L = Layout<T, kD>;
+  __shared__ __align__(16) float k_s[kKeyTile * kD];
+  __shared__ __align__(16) float v_s[kKeyTile * kD];
   __shared__ float bias_s[kKeyTile];
 
   const int b = blockIdx.z;
@@ -699,16 +703,16 @@ short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __res
   const int half = threadIdx.x & 1;
   const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
   const bool active = row < seq;
-  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
   T* probs_row = probs + (size_t)prob_row * probs_width(seq);
   const float* bias_row = key_bias + (size_t)b * seq;
 
   float qr[L::kPart];
-  load_half(q + head_base + (size_t)row * hidden, half, active, score_mult, qr);
+  load_half<T, kD>(q + head_base + (size_t)row * hidden, half, active, score_mult, qr);
 
   // Sweep 1: the row's lse (log2 units) by the online max / sum.
-  const float row_lse = row_lse_sweep<T>(qr, k, head_base, hidden, seq, bias_row, half,
+  const float row_lse = row_lse_sweep<T, kD>(qr, k, head_base, hidden, seq, bias_row, half,
                                          k_s, bias_s);
 
   // Sweep 2: the same scores again, the signed probs and ctx.
@@ -718,7 +722,7 @@ short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __res
   for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
     const int kn = min(kKeyTile, seq - k0);
     __syncthreads();
-    stage_pair(k, v, head_base, hidden, head_base, hidden, k0, kn, 1.f, k_s, v_s);
+    stage_pair<T, kD>(k, v, head_base, hidden, head_base, hidden, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
       bias_s[j] = bias_row[k0 + j] * kLog2e;
     }
@@ -729,7 +733,7 @@ short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __res
       for (int jj = 0; jj < kKeyChunk; ++jj) {
         const int j = j0 + jj;
         float part = 0.f;
-        if (j < kn) part = dot_half<T>(qr, &k_s[j * kHeadDim], half);
+        if (j < kn) part = dot_half<T, kD>(qr, &k_s[j * kD], half);
         part += __shfl_xor_sync(0xffffffffu, part, 1);
         p[jj] = (j < kn) ? exp2f(part + bias_s[j] - row_lse) : 0.f;
       }
@@ -750,12 +754,12 @@ short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __res
         if (j < kn) {
           float pd = p[jj];
           if constexpr (kDropout) pd = ((keep >> jj) & 1u) ? p[jj] * drop.scale : 0.f;
-          axpy_half<T>(acc, pd, &v_s[j * kHeadDim], half);
+          axpy_half<T, kD>(acc, pd, &v_s[j * kD], half);
         }
       }
     }
   }
-  if (active) store_half(out + head_base + (size_t)row * hidden, half, acc, 1.f);
+  if (active) store_half<T, kD>(out + head_base + (size_t)row * hidden, half, acc, 1.f);
 }
 
 // ---- bf16, on the tensor cores ----
@@ -785,18 +789,19 @@ __device__ __forceinline__ void drop_probs(float (&p)[kN][4], const uint32_t* ke
 }
 
 // The warp's signed probs keep ? p : -p of column tiles [0, kN) as bf16,
-// 64 keys at a time through its [16][kStride] stage, into dst (its first
-// row and key; row stride ld) in 16-byte row vectors: `rows` valid rows and
-// `chunks` valid 8-key chunks from the first key.
-template <int kN, bool kDropout>
+// kD keys at a time through its [16][kStride<kD>] stage, into dst (its
+// first row and key; row stride ld) in 16-byte row vectors: `rows` valid
+// rows and `chunks` valid 8-key chunks from the first key.
+template <int kD, int kN, bool kDropout>
 __device__ __forceinline__ void store_signed_probs(const float (&p)[kN][4],
                                                    const uint32_t* keep, bf16* stage,
                                                    bf16* dst, int ld, int rows, int chunks) {
+  constexpr int kW = tc::kNT<kD>;  // 8-key tiles a stage row holds
   const int g = (threadIdx.x & 31) >> 2, c = threadIdx.x & 3;
 #pragma unroll
-  for (int h = 0; h < kN; h += tc::kNT) {
+  for (int h = 0; h < kN; h += kW) {
 #pragma unroll
-    for (int j = 0; j < tc::kNT; ++j) {
+    for (int j = 0; j < kW; ++j) {
       if (h + j >= kN) break;  // known at compile time once unrolled
       float x[4];
 #pragma unroll
@@ -804,27 +809,28 @@ __device__ __forceinline__ void store_signed_probs(const float (&p)[kN][4],
         const bool kept = !kDropout || tc::kept_at(keep, h + j, xx & 1, xx >> 1);
         x[xx] = kept ? p[h + j][xx] : -p[h + j][xx];
       }
-      *reinterpret_cast<uint32_t*>(stage + g * tc::kStride + j * 8 + 2 * c) =
+      *reinterpret_cast<uint32_t*>(stage + g * tc::kStride<kD> + j * 8 + 2 * c) =
           tc::pack_bf16(x[0], x[1]);
-      *reinterpret_cast<uint32_t*>(stage + (g + 8) * tc::kStride + j * 8 + 2 * c) =
+      *reinterpret_cast<uint32_t*>(stage + (g + 8) * tc::kStride<kD> + j * 8 + 2 * c) =
           tc::pack_bf16(x[2], x[3]);
     }
     __syncwarp();
-    tc::stage_to_rows(stage, dst + h * 8, ld, rows, min(chunks - h, tc::kNT));
+    tc::stage_to_rows<kD>(stage, dst + h * 8, ld, rows, min(chunks - h, kW));
     __syncwarp();  // the stage is written again next
   }
 }
 
 // Q, K and V rows (seq rounded up to 16) and the key bias.
+template <int kD>
 int probs_tc_smem_bytes(int seq) {
   const int rows = (seq + 15) / 16 * 16;
-  return 3 * rows * tc::kStride * (int)sizeof(bf16) + rows * (int)sizeof(float);
+  return 3 * rows * tc::kStride<kD> * (int)sizeof(bf16) + rows * (int)sizeof(float);
 }
 
 // S <= 128: one CTA per (head, batch row) (grid (1, heads, B)), kKT 16-key
 // tiles of the padded sequence (seq <= 16 kKT), one warp per 16 query rows,
 // each warp's whole score row in registers.
-template <int kKT, bool kDropout>
+template <int kD, int kKT, bool kDropout>
 __global__ void __launch_bounds__(32 * kKT)
 short_attention_probs_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                     const bf16* __restrict__ v,
@@ -835,24 +841,24 @@ short_attention_probs_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __re
   constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kPadded * tc::kStride;
-  bf16* v_s = k_s + kPadded * tc::kStride;
-  float* bias_s = reinterpret_cast<float*>(v_s + kPadded * tc::kStride);
+  bf16* k_s = q_s + kPadded * tc::kStride<kD>;
+  bf16* v_s = k_s + kPadded * tc::kStride<kD>;
+  float* bias_s = reinterpret_cast<float*>(v_s + kPadded * tc::kStride<kD>);
 
   const int b = blockIdx.z, head = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
   const int rows = seq - warp * 16;  // this warp's rows below seq
 
-  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, base, hidden,
-                 kPadded, seq);  // V lands during the softmax
+  tc::stage_head<kD>(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, base,
+                     hidden, kPadded, seq);  // V lands during the softmax
   tc::cp_async_wait<1>();
   __syncthreads();
 
   // the row lse (log2 units) from the whole row: its max, then the sum
   float s[kN][4], lse[2], sum[2] = {0.f, 0.f};
-  tc::mma_nt<kN>(q_s, warp * 16, k_s, s);
+  tc::mma_nt<kD, kN>(q_s, warp * 16, k_s, s);
   tc::scores_log2<kN>(s, bias_s, score_mult);
   tc::row_max<kN>(s, lse);
 #pragma unroll
@@ -871,29 +877,31 @@ short_attention_probs_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __re
     if constexpr (kKT > 4) tc::keep_words_qmajor(drop, prob_row, 64, keep + 4);
   }
   // the warp's own Q rows are its stage from here on
-  bf16* stage = q_s + warp * 16 * tc::kStride;
+  bf16* stage = q_s + warp * 16 * tc::kStride<kD>;
   __syncwarp();
-  store_signed_probs<kN, kDropout>(s, keep, stage,
+  store_signed_probs<kD, kN, kDropout>(s, keep, stage,
                                    probs + (size_t)(row_base + warp * 16) * kPadded,
                                    kPadded, rows, kN);
   drop_probs<kN, kDropout>(s, keep, drop.scale);
 
   tc::cp_async_wait<0>();
   __syncthreads();  // V has landed
-  float acc[tc::kNT][4];
+  float acc[tc::kNT<kD>][4];
 #pragma unroll
-  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  tc::mma_nn<kN>(s, v_s, acc);
-  tc::store_tile(acc, stage, out + base + (size_t)warp * 16 * hidden, hidden, rows);
+  for (int n = 0; n < tc::kNT<kD>; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  tc::mma_nn<kD, kN>(s, v_s, acc);
+  tc::store_tile<kD>(acc, stage, out + base + (size_t)warp * 16 * hidden, hidden, rows);
 }
 
 // 128 < S < 1024: one CTA per (query tile, head, batch row), 2 * rows_per_cta
 // threads; Q tile, K and V rings of two 64-key tiles, the key bias of
-// each, and a [16][kStride] stage a warp.
+// each, and a [16][kStride<kD>] stage a warp.
 constexpr int kRingTile = 64;
+constexpr int kRN = kRingTile / 8;  // 8-key column tiles of a ring tile's scores
 
+template <int kD>
 int probs_tc_long_smem_bytes(int rows_per_cta) {
-  return (2 * rows_per_cta + 4 * kRingTile) * tc::kStride * (int)sizeof(bf16) +
+  return (2 * rows_per_cta + 4 * kRingTile) * tc::kStride<kD> * (int)sizeof(bf16) +
          2 * kRingTile * (int)sizeof(float);
 }
 
@@ -911,13 +919,14 @@ __device__ __forceinline__ void load_bias_tile(float* dst, const float* bias_row
 // without committing it.  Every tile holds a key < seq, so the running max
 // is finite from the first tile.  Returns with every warp done with the
 // ring.
+template <int kD>
 __device__ __forceinline__ void ring_row_stats(const bf16* q_s, int m0, bf16* k_s,
                                                float* bias_s, const bf16* k, size_t base,
                                                int ld, const float* bias_row, int seq,
                                                float score_mult, float* m_run, float* l_run) {
-  constexpr int kTile = kRingTile * tc::kStride;
+  constexpr int kTile = kRingTile * tc::kStride<kD>;
   const int n_tiles = (seq + kRingTile - 1) / kRingTile;
-  tc::stage_rows(k_s, k, base, ld, 0, kRingTile, seq);
+  tc::stage_rows<kD>(k_s, k, base, ld, 0, kRingTile, seq);
   tc::cp_async_commit();
   load_bias_tile(bias_s, bias_row, 0, seq);
   m_run[0] = m_run[1] = -INFINITY;
@@ -925,7 +934,7 @@ __device__ __forceinline__ void ring_row_stats(const bf16* q_s, int m0, bf16* k_
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {  // the next tile's copy overlaps this tile's math
-      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, ld, (t + 1) * kRingTile, kRingTile,
+      tc::stage_rows<kD>(k_s + (buf ^ 1) * kTile, k, base, ld, (t + 1) * kRingTile, kRingTile,
                      seq);
       tc::cp_async_commit();
       load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, (t + 1) * kRingTile, seq);
@@ -934,18 +943,18 @@ __device__ __forceinline__ void ring_row_stats(const bf16* q_s, int m0, bf16* k_
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    float s[tc::kNT][4];
-    tc::mma_nt<tc::kNT>(q_s, m0, k_s + buf * kTile, s);
-    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
+    float s[kRN][4];
+    tc::mma_nt<kD, kRN>(q_s, m0, k_s + buf * kTile, s);
+    tc::scores_log2<kRN>(s, bias_s + buf * kRingTile, score_mult);
     float mx[2];
-    tc::row_max<tc::kNT>(s, mx);
+    tc::row_max<kRN>(s, mx);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float m_new = fmaxf(m_run[r], mx[r]);
       l_run[r] *= exp2f(m_run[r] - m_new);
       m_run[r] = m_new;
 #pragma unroll
-      for (int n = 0; n < tc::kNT; ++n) {
+      for (int n = 0; n < kRN; ++n) {
         l_run[r] += exp2f(s[n][2 * r] - m_new) + exp2f(s[n][2 * r + 1] - m_new);
       }
     }
@@ -957,22 +966,22 @@ __device__ __forceinline__ void ring_row_stats(const bf16* q_s, int m0, bf16* k_
 // the log2 domain for each 64-key tile handed to tile(s, k0, v_tile), which
 // forms P from them and adds P V.  Returns with every warp done with the
 // ring and with its own Q rows.
-template <class Tile>
+template <int kD, class Tile>
 __device__ __forceinline__ void ring_sweep(const bf16* q_s, int m0, bf16* k_s, bf16* v_s,
                                            float* bias_s, const bf16* k, const bf16* v,
                                            size_t base, int ld, const float* bias_row,
                                            int seq, float score_mult, Tile&& tile) {
-  constexpr int kTile = kRingTile * tc::kStride;
+  constexpr int kTile = kRingTile * tc::kStride<kD>;
   const int n_tiles = (seq + kRingTile - 1) / kRingTile;
-  tc::stage_rows(k_s, k, base, ld, 0, kRingTile, seq);
-  tc::stage_rows(v_s, v, base, ld, 0, kRingTile, seq);
+  tc::stage_rows<kD>(k_s, k, base, ld, 0, kRingTile, seq);
+  tc::stage_rows<kD>(v_s, v, base, ld, 0, kRingTile, seq);
   tc::cp_async_commit();
   load_bias_tile(bias_s, bias_row, 0, seq);
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1, k0 = t * kRingTile;
     if (t + 1 < n_tiles) {
-      tc::stage_rows(k_s + (buf ^ 1) * kTile, k, base, ld, k0 + kRingTile, kRingTile, seq);
-      tc::stage_rows(v_s + (buf ^ 1) * kTile, v, base, ld, k0 + kRingTile, kRingTile, seq);
+      tc::stage_rows<kD>(k_s + (buf ^ 1) * kTile, k, base, ld, k0 + kRingTile, kRingTile, seq);
+      tc::stage_rows<kD>(v_s + (buf ^ 1) * kTile, v, base, ld, k0 + kRingTile, kRingTile, seq);
       tc::cp_async_commit();
       load_bias_tile(bias_s + (buf ^ 1) * kRingTile, bias_row, k0 + kRingTile, seq);
       tc::cp_async_wait<1>();
@@ -980,15 +989,15 @@ __device__ __forceinline__ void ring_sweep(const bf16* q_s, int m0, bf16* k_s, b
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    float s[tc::kNT][4];
-    tc::mma_nt<tc::kNT>(q_s, m0, k_s + buf * kTile, s);
-    tc::scores_log2<tc::kNT>(s, bias_s + buf * kRingTile, score_mult);
+    float s[kRN][4];
+    tc::mma_nt<kD, kRN>(q_s, m0, k_s + buf * kTile, s);
+    tc::scores_log2<kRN>(s, bias_s + buf * kRingTile, score_mult);
     tile(s, k0, v_s + buf * kTile);
     __syncthreads();  // every warp is done with this buffer
   }
 }
 
-template <bool kDropout>
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
                                          const bf16* __restrict__ k,
@@ -997,49 +1006,49 @@ short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
                                          bf16* __restrict__ out, bf16* __restrict__ probs,
                                          int seq, int hidden, int rows_per_cta,
                                          float score_mult, Dropout drop) {
-  constexpr int kTile = kRingTile * tc::kStride;
+  constexpr int kTile = kRingTile * tc::kStride<kD>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // two buffers
   bf16* v_s = k_s + 2 * kTile;                // two buffers
-  bf16* q_s = v_s + 2 * kTile;                // [rows_per_cta][kStride]
-  bf16* stage_s = q_s + rows_per_cta * tc::kStride;
-  float* bias_s = reinterpret_cast<float*>(stage_s + rows_per_cta * tc::kStride);  // [2][64]
+  bf16* q_s = v_s + 2 * kTile;                // [rows_per_cta][kStride<kD>]
+  bf16* stage_s = q_s + rows_per_cta * tc::kStride<kD>;
+  float* bias_s = reinterpret_cast<float*>(stage_s + rows_per_cta * tc::kStride<kD>);  // [2][64]
 
   const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * rows_per_cta;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
   const float* bias_row = key_bias + (size_t)b * seq;
   const int sp = probs_width(seq);
   const int w0 = q0 + warp * 16;  // this warp's first row
-  bf16* stage = stage_s + warp * 16 * tc::kStride;
+  bf16* stage = stage_s + warp * 16 * tc::kStride<kD>;
 
   // Sweep 1: the row lse (log2 units) by the online max / sum.
-  tc::stage_rows(q_s, q, base, hidden, q0, rows_per_cta, seq);
+  tc::stage_rows<kD>(q_s, q, base, hidden, q0, rows_per_cta, seq);
   float m_run[2], l_run[2];
-  ring_row_stats(q_s, warp * 16, k_s, bias_s, k, base, hidden, bias_row, seq, score_mult,
-                 m_run, l_run);
+  ring_row_stats<kD>(q_s, warp * 16, k_s, bias_s, k, base, hidden, bias_row, seq,
+                     score_mult, m_run, l_run);
   const float lse[2] = {m_run[0] + log2f(tc::quad_sum(l_run[0])),
                         m_run[1] + log2f(tc::quad_sum(l_run[1]))};
 
   // Sweep 2: the scores again, the signed probs and ctx.
-  float acc[tc::kNT][4];
+  float acc[tc::kNT<kD>][4];
 #pragma unroll
-  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  ring_sweep(q_s, warp * 16, k_s, v_s, bias_s, k, v, base, hidden, bias_row, seq, score_mult,
-             [&](float (&s)[tc::kNT][4], int k0, const bf16* v_tile) {
-               probs_from_lse<tc::kNT>(s, lse);
+  for (int n = 0; n < tc::kNT<kD>; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  ring_sweep<kD>(q_s, warp * 16, k_s, v_s, bias_s, k, v, base, hidden, bias_row, seq,
+                 score_mult, [&](float (&s)[kRN][4], int k0, const bf16* v_tile) {
+               probs_from_lse<kRN>(s, lse);
                uint32_t keep[4] = {};
                if constexpr (kDropout) {
                  tc::keep_words_qmajor(drop, row_base + w0 + (lane >> 2), k0, keep);
                }
-               store_signed_probs<tc::kNT, kDropout>(
+               store_signed_probs<kD, kRN, kDropout>(
                    s, keep, stage, probs + (size_t)(row_base + w0) * sp + k0, sp, seq - w0,
                    (sp - k0) / 8);
-               drop_probs<tc::kNT, kDropout>(s, keep, drop.scale);
-               tc::mma_nn<tc::kNT>(s, v_tile, acc);
+               drop_probs<kRN, kDropout>(s, keep, drop.scale);
+               tc::mma_nn<kD, kRN>(s, v_tile, acc);
              });
-  tc::store_tile(acc, stage, out + base + (size_t)w0 * hidden, hidden, seq - w0);
+  tc::store_tile<kD>(acc, stage, out + base + (size_t)w0 * hidden, hidden, seq - w0);
 }
 
 // ---- the v2 / v2p forward, bf16, 128 < S < 1024 ----
@@ -1052,36 +1061,37 @@ short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
 // k, v at row stride ld; out [B, S, hidden] and lse [B, heads, S]
 // (kTrain).  Shared memory: the K and V rings and their bias, and the Q
 // tile, whose warp rows are the store stage once both sweeps are done.
+template <int kD>
 int fwd_tc_long_smem_bytes(int rows_per_cta) {
-  return (rows_per_cta + 4 * kRingTile) * tc::kStride * (int)sizeof(bf16) +
+  return (rows_per_cta + 4 * kRingTile) * tc::kStride<kD> * (int)sizeof(bf16) +
          2 * kRingTile * (int)sizeof(float);
 }
 
-template <bool kDropout, bool kTrain>
+template <int kD, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    const bf16* __restrict__ v,
                                    const float* __restrict__ key_bias, bf16* __restrict__ out,
                                    float* __restrict__ lse, int seq, int ld, int hidden,
                                    int rows_per_cta, float score_mult, Dropout drop) {
-  constexpr int kTile = kRingTile * tc::kStride;
+  constexpr int kTile = kRingTile * tc::kStride<kD>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // two buffers
   bf16* v_s = k_s + 2 * kTile;                // two buffers
-  bf16* q_s = v_s + 2 * kTile;                // [rows_per_cta][kStride]
-  float* bias_s = reinterpret_cast<float*>(q_s + rows_per_cta * tc::kStride);  // [2][64]
+  bf16* q_s = v_s + 2 * kTile;                // [rows_per_cta][kStride<kD>]
+  float* bias_s = reinterpret_cast<float*>(q_s + rows_per_cta * tc::kStride<kD>);  // [2][64]
 
   const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * rows_per_cta;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t in_base = (size_t)b * seq * ld + (size_t)head * kHeadDim;
+  const size_t in_base = (size_t)b * seq * ld + (size_t)head * kD;
   const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
   const float* bias_row = key_bias + (size_t)b * seq;
   const int w0 = q0 + warp * 16;  // this warp's first row
 
-  tc::stage_rows(q_s, q, in_base, ld, q0, rows_per_cta, seq);
+  tc::stage_rows<kD>(q_s, q, in_base, ld, q0, rows_per_cta, seq);
   float mx[2], sum[2];
-  ring_row_stats(q_s, warp * 16, k_s, bias_s, k, in_base, ld, bias_row, seq, score_mult, mx,
-                 sum);
+  ring_row_stats<kD>(q_s, warp * 16, k_s, bias_s, k, in_base, ld, bias_row, seq, score_mult,
+                     mx, sum);
   sum[0] = tc::quad_sum(sum[0]);
   sum[1] = tc::quad_sum(sum[1]);
   if constexpr (kTrain) {
@@ -1091,13 +1101,13 @@ short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __res
   sum[0] = 1.f / sum[0];
   sum[1] = 1.f / sum[1];
 
-  float acc[tc::kNT][4];
+  float acc[tc::kNT<kD>][4];
 #pragma unroll
-  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  ring_sweep(q_s, warp * 16, k_s, v_s, bias_s, k, v, in_base, ld, bias_row, seq, score_mult,
-             [&](float (&s)[tc::kNT][4], int k0, const bf16* v_tile) {
+  for (int n = 0; n < tc::kNT<kD>; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  ring_sweep<kD>(q_s, warp * 16, k_s, v_s, bias_s, k, v, in_base, ld, bias_row, seq,
+                 score_mult, [&](float (&s)[kRN][4], int k0, const bf16* v_tile) {
 #pragma unroll
-               for (int n = 0; n < tc::kNT; ++n) {
+               for (int n = 0; n < kRN; ++n) {
 #pragma unroll
                  for (int x = 0; x < 4; ++x) {
                    s[n][x] = exp2f(s[n][x] - mx[x >> 1]) * sum[x >> 1];
@@ -1107,12 +1117,12 @@ short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __res
                if constexpr (kDropout) {
                  tc::keep_words_qmajor(drop, row_base + w0 + (lane >> 2), k0, keep);
                }
-               drop_probs<tc::kNT, kDropout>(s, keep, drop.scale);
-               tc::mma_nn<tc::kNT>(s, v_tile, acc);
+               drop_probs<kRN, kDropout>(s, keep, drop.scale);
+               tc::mma_nn<kD, kRN>(s, v_tile, acc);
              });
 
-  const size_t out0 = (size_t)b * seq * hidden + (size_t)head * kHeadDim + (size_t)w0 * hidden;
-  tc::store_tile(acc, q_s + warp * 16 * tc::kStride, out + out0, hidden, seq - w0);
+  const size_t out0 = (size_t)b * seq * hidden + (size_t)head * kD + (size_t)w0 * hidden;
+  tc::store_tile<kD>(acc, q_s + warp * 16 * tc::kStride<kD>, out + out0, hidden, seq - w0);
 }
 
 // dq from the stashed probs: one CTA per (query tile, head, batch row), two
@@ -1121,7 +1131,7 @@ short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __res
 // ds = p * (dpm - delta), rounds it to T as _bwd_kernel_v2s does (:931),
 // and accumulates dq = scale * sum_j ds k_j.  delta goes to scratch for the
 // dk/dv launch.  No score, softmax or Philox draw.
-template <typename T, bool kDropout>
+template <typename T, int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v,
                                 const T* __restrict__ probs,
@@ -1129,22 +1139,22 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
                                 float* __restrict__ delta_out, T* __restrict__ dq,
                                 int seq, int hidden, int rows_per_cta, float scale,
                                 float drop_scale) {
-  using L = Layout<T>;
-  __shared__ __align__(16) float k_s[kKeyTile * kHeadDim];
-  __shared__ __align__(16) float v_s[kKeyTile * kHeadDim];
+  using L = Layout<T, kD>;
+  __shared__ __align__(16) float k_s[kKeyTile * kD];
+  __shared__ __align__(16) float v_s[kKeyTile * kD];
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
   const int half = threadIdx.x & 1;
   const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
   const bool active = row < seq;
-  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const size_t row_off = head_base + (size_t)row * hidden;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
   const T* probs_row = probs + (size_t)prob_row * probs_width(seq);
 
   float dor[L::kPart], acc[L::kPart];
-  load_half(dout + row_off, half, active, 1.f, dor);
+  load_half<T, kD>(dout + row_off, half, active, 1.f, dor);
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
 
@@ -1154,9 +1164,9 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
       const int kn = min(kKeyTile, seq - k0);
       __syncthreads();
       if (sweep == 0) {
-        stage_one(v, head_base, hidden, k0, kn, v_s);
+        stage_one<T, kD>(v, head_base, hidden, k0, kn, v_s);
       } else {
-        stage_pair(k, v, head_base, hidden, head_base, hidden, k0, kn, 1.f, k_s, v_s);
+        stage_pair<T, kD>(k, v, head_base, hidden, head_base, hidden, k0, kn, 1.f, k_s, v_s);
       }
       __syncthreads();
       for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
@@ -1171,7 +1181,7 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
         for (int jj = 0; jj < kKeyChunk; ++jj) {
           const int j = j0 + jj;
           if (j >= kn) break;  // uniform across the CTA
-          float dp = dot_half<T>(dor, &v_s[j * kHeadDim], half);
+          float dp = dot_half<T, kD>(dor, &v_s[j * kD], half);
           dp += __shfl_xor_sync(0xffffffffu, dp, 1);
           const float p = fabsf(ps[jj]);
           float dpm = dp;
@@ -1179,7 +1189,7 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
           if (sweep == 0) {
             delta = fmaf(p, dpm, delta);
           } else {
-            axpy_half<T>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kHeadDim], half);
+            axpy_half<T, kD>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kD], half);
           }
         }
       }
@@ -1187,7 +1197,7 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
   }
   if (active) {
     if (half == 0) delta_out[prob_row] = delta;
-    store_half(dq + row_off, half, acc, scale);
+    store_half<T, kD>(dq + row_off, half, acc, scale);
   }
 }
 
@@ -1198,7 +1208,7 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
 // and the dropped p are rounded to T before their products (:931, :935).
 constexpr int kProbsQueryTile = 32;
 
-template <typename T, bool kDropout>
+template <typename T, int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
 short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ v,
                                  const T* __restrict__ probs,
@@ -1207,9 +1217,9 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
                                  T* __restrict__ dk, T* __restrict__ dv, int seq,
                                  int hidden, int rows_per_cta, float scale,
                                  float drop_scale) {
-  using L = Layout<T>;
-  __shared__ __align__(16) float q_s[kProbsQueryTile * kHeadDim];
-  __shared__ __align__(16) float do_s[kProbsQueryTile * kHeadDim];
+  using L = Layout<T, kD>;
+  __shared__ __align__(16) float q_s[kProbsQueryTile * kD];
+  __shared__ __align__(16) float do_s[kProbsQueryTile * kD];
   __shared__ float p_s[kProbsQueryTile][kMaxRows];
   __shared__ float delta_s[kProbsQueryTile];
 
@@ -1221,20 +1231,21 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
   const int key = key0 + local;
   const bool active = key < seq;
   const int width = probs_width(seq);
-  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kHeadDim;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const size_t key_off = head_base + (size_t)key * hidden;
   const uint32_t head_rows = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
   const int keys_here = min(rows_per_cta, seq - key0);
 
   float vr[L::kPart], dk_acc[L::kPart], dv_acc[L::kPart];
-  load_half(v + key_off, half, active, 1.f, vr);
+  load_half<T, kD>(v + key_off, half, active, 1.f, vr);
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   for (int i0 = 0; i0 < seq; i0 += kProbsQueryTile) {
     const int qn = min(kProbsQueryTile, seq - i0);
     __syncthreads();
-    stage_pair(q, dout, head_base, hidden, head_base, hidden, i0, qn, 1.f, q_s, do_s);
+    stage_pair<T, kD>(q, dout, head_base, hidden, head_base, hidden, i0, qn, 1.f, q_s,
+                      do_s);
     for (int idx = threadIdx.x; idx < qn * keys_here; idx += blockDim.x) {
       const int i = idx / keys_here;
       const int j = idx - i * keys_here;
@@ -1245,7 +1256,7 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
 
 #pragma unroll 2
     for (int i = 0; i < qn; ++i) {
-      float dp = dot_half<T>(vr, &do_s[i * kHeadDim], half);
+      float dp = dot_half<T, kD>(vr, &do_s[i * kD], half);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       const float ps = active ? p_s[i][local] : 0.f;
       const float p = fabsf(ps);
@@ -1255,14 +1266,14 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
         pd = kept ? p * drop_scale : 0.f;
         dpm = kept ? dp * drop_scale : 0.f;
       }
-      axpy_half<T>(dv_acc, round_to<T>(pd), &do_s[i * kHeadDim], half);
-      axpy_half<T>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kHeadDim], half);
+      axpy_half<T, kD>(dv_acc, round_to<T>(pd), &do_s[i * kD], half);
+      axpy_half<T, kD>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kD], half);
     }
   }
 
   if (active) {
-    store_half(dk + key_off, half, dk_acc, scale);
-    store_half(dv + key_off, half, dv_acc, 1.f);
+    store_half<T, kD>(dk + key_off, half, dk_acc, scale);
+    store_half<T, kD>(dv + key_off, half, dv_acc, 1.f);
   }
 }
 
@@ -1290,20 +1301,20 @@ void tiles(int seq, int* n_tiles, int* rows) {
   *rows = ((seq + *n_tiles - 1) / *n_tiles + 15) / 16 * 16;
 }
 
-template <typename T, bool kDropout, bool kTrain>
+template <typename T, int kD, bool kDropout, bool kTrain>
 void launch_fwd(const void* q, const void* k, const void* v, const float* bias,
                 void* out, float* lse, int batch, int seq, int hidden, int stride,
                 int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
-  short_attention_fwd_kernel<T, kDropout, kTrain>
+  short_attention_fwd_kernel<T, kD, kDropout, kTrain>
       <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), bias, static_cast<T*>(out), lse, seq, hidden,
           stride, rows, score_mult, drop);
 }
 
-template <typename T, bool kDropout, bool kV3>
+template <typename T, int kD, bool kDropout, bool kV3>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                const void* o, const void* dout, float* lse, float* delta,
                void* dq, void* dk, void* dv, int batch, int seq, int hidden,
@@ -1312,7 +1323,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
   const float score_mult = scale * kLog2e;
-  short_attention_bwd_dq_kernel<T, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dq_kernel<T, kD, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, o, static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), seq, hidden, stride, rows, score_mult, scale, drop);
@@ -1320,20 +1331,20 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   if (err != cudaSuccess) return (int)err;
   // q is staged as q * score_mult, so dk = sum(ds * q_staged) / log2e
   // (scale * score_mult / score_mult = scale in natural units).
-  short_attention_bwd_dkv_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dkv_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), seq, hidden, stride, rows, score_mult, 1.f / kLog2e, drop);
   return (int)cudaGetLastError();
 }
 
-template <bool kDropout>
+template <int kD, bool kDropout>
 void launch_probs_fwd(const void* q, const void* k, const void* v, const float* bias,
                       void* out, void* probs, int batch, int seq, int hidden,
                       int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
-  short_attention_probs_fwd_kernel<kDropout>
+  short_attention_probs_fwd_kernel<kD, kDropout>
       <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
           static_cast<const float*>(q), static_cast<const float*>(k),
           static_cast<const float*>(v), bias, static_cast<float*>(out),
@@ -1347,12 +1358,12 @@ cudaError_t allow_smem(int bytes) {
   return cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int kKT, bool kDropout>
+template <int kD, int kKT, bool kDropout>
 int launch_probs_fwd_tc(const void* q, const void* k, const void* v, const float* bias,
                         void* out, void* probs, int batch, int seq, int hidden,
                         int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
-  constexpr auto kernel = short_attention_probs_fwd_tc_kernel<kKT, kDropout>;
-  const int bytes = probs_tc_smem_bytes(seq);
+  constexpr auto kernel = short_attention_probs_fwd_tc_kernel<kD, kKT, kDropout>;
+  const int bytes = probs_tc_smem_bytes<kD>(seq);
   const cudaError_t err = allow_smem<kernel>(bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(1, num_heads, batch), 32 * kKT, bytes, s>>>(
@@ -1364,15 +1375,15 @@ int launch_probs_fwd_tc(const void* q, const void* k, const void* v, const float
 
 // bf16: the tensor-core forward, its whole-row form for the 16-key tiles
 // seq needs up to 128 keys, else the two-sweep form.
-template <bool kDropout>
+template <int kD, bool kDropout>
 int launch_probs_fwd_tc_for(const void* q, const void* k, const void* v, const float* bias,
                             void* out, void* probs, int batch, int seq, int hidden,
                             int num_heads, float score_mult, Dropout drop,
                             cudaStream_t s) {
-#define MSA_TC(KT)                                                                    \
-  case KT:                                                                            \
-    return launch_probs_fwd_tc<KT, kDropout>(q, k, v, bias, out, probs, batch, seq,   \
-                                             hidden, num_heads, score_mult, drop, s)
+#define MSA_TC(KT)                                                                       \
+  case KT:                                                                               \
+    return launch_probs_fwd_tc<kD, KT, kDropout>(q, k, v, bias, out, probs, batch, seq,  \
+                                                 hidden, num_heads, score_mult, drop, s)
   switch ((seq + 15) / 16) {
     MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
     MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);
@@ -1381,8 +1392,8 @@ int launch_probs_fwd_tc_for(const void* q, const void* k, const void* v, const f
 #undef MSA_TC
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
-  constexpr auto kernel = short_attention_probs_fwd_tc_long_kernel<kDropout>;
-  const int bytes = probs_tc_long_smem_bytes(rows);
+  constexpr auto kernel = short_attention_probs_fwd_tc_long_kernel<kD, kDropout>;
+  const int bytes = probs_tc_long_smem_bytes<kD>(rows);
   const cudaError_t err = allow_smem<kernel>(bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(n_tiles, num_heads, batch), 2 * rows, bytes, s>>>(
@@ -1392,7 +1403,7 @@ int launch_probs_fwd_tc_for(const void* q, const void* k, const void* v, const f
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kDropout>
+template <typename T, int kD, bool kDropout>
 int launch_probs_bwd(const void* q, const void* k, const void* v, const void* probs,
                      const void* dout, float* delta, void* dq, void* dk, void* dv,
                      int batch, int seq, int hidden, int num_heads, float scale,
@@ -1400,13 +1411,13 @@ int launch_probs_bwd(const void* q, const void* k, const void* v, const void* pr
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
-  short_attention_probs_dq_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_probs_dq_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
       static_cast<T*>(dq), seq, hidden, rows, scale, drop_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  short_attention_probs_dkv_kernel<T, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_probs_dkv_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(v),
       static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
       static_cast<T*>(dk), static_cast<T*>(dv), seq, hidden, rows, scale,
@@ -1416,7 +1427,7 @@ int launch_probs_bwd(const void* q, const void* k, const void* v, const void* pr
 
 bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype,
               int drop_threshold) {
-  return seq <= 0 || batch <= 0 || hidden != num_heads * kHeadDim ||
+  return seq <= 0 || batch <= 0 || tc::head_dim_of(hidden, num_heads) == 0 ||
          drop_threshold < 0 || drop_threshold > 255 || (dtype != 0 && dtype != 1);
 }
 
@@ -1425,14 +1436,14 @@ const void* third(const void* qkv, int part, int hidden, int dtype) {
   return static_cast<const char*>(qkv) + (size_t)part * hidden * (dtype ? 2 : 4);
 }
 
-template <bool kDropout, bool kTrain>
+template <int kD, bool kDropout, bool kTrain>
 int launch_fwd_tc_long(const void* q, const void* k, const void* v, const float* bias,
                        void* out, float* lse, int batch, int seq, int ld, int hidden,
                        int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
-  constexpr auto kernel = short_attention_fwd_tc_long_kernel<kDropout, kTrain>;
-  const int bytes = fwd_tc_long_smem_bytes(rows);
+  constexpr auto kernel = short_attention_fwd_tc_long_kernel<kD, kDropout, kTrain>;
+  const int bytes = fwd_tc_long_smem_bytes<kD>(rows);
   const cudaError_t err = allow_smem<kernel>(bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(n_tiles, num_heads, batch), 2 * rows, bytes, s>>>(
@@ -1444,6 +1455,7 @@ int launch_fwd_tc_long(const void* q, const void* k, const void* v, const float*
 // f32 on the CUDA cores; bf16 on the tensor cores, the whole-row template
 // (short_fwd_tc.cuh) up to 128 keys, else the two-sweep form.  lse non-null
 // asks for the training form.
+template <int kD>
 int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
                  void* out, void* lse, int batch, int seq, int hidden, int stride,
                  int num_heads, int dtype, float scale, unsigned seed_lo, unsigned seed_hi,
@@ -1455,15 +1467,15 @@ int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
   if (dtype == 0) {
-#define MSA_FWD(D, W) launch_fwd<float, D, W>(q, k, v, bias, out, l, batch, seq, hidden, \
-                                              stride, num_heads, sm, d, s)
+#define MSA_FWD(D, W) launch_fwd<float, kD, D, W>(q, k, v, bias, out, l, batch, seq, hidden, \
+                                                  stride, num_heads, sm, d, s)
     if (drop) { if (l) MSA_FWD(true, true); else MSA_FWD(true, false); }
     else { if (l) MSA_FWD(false, true); else MSA_FWD(false, false); }
 #undef MSA_FWD
     return (int)cudaGetLastError();
   }
-#define MSA_TC(F, D, W) F<D, W>(q, k, v, bias, out, l, batch, seq, stride, hidden, \
-                                num_heads, sm, d, s)
+#define MSA_TC(F, D, W) F<kD, D, W>(q, k, v, bias, out, l, batch, seq, stride, hidden, \
+                                    num_heads, sm, d, s)
 #define MSA_TC_ALL(F) (drop ? (l ? MSA_TC(F, true, true) : MSA_TC(F, true, false)) \
                             : (l ? MSA_TC(F, false, true) : MSA_TC(F, false, false)))
   return seq <= msa_short_fwd::kMaxSeq ? MSA_TC_ALL(msa_short_fwd::launch)
@@ -1482,7 +1494,7 @@ bool tc_backward(int dtype, int seq) { return dtype == 1 && seq <= msa_short_bwd
 // of the CUDA-core pair.  The tensor-core launch reads neither lse nor
 // delta (v3's writes them).  q, k, v, dq, dk and dv at row stride
 // `stride`.
-template <bool kV3>
+template <int kD, bool kV3>
 int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
                  const void* o, const void* dout, void* lse, void* delta,
                  void* dq, void* dk, void* dv, int batch, int seq, int hidden,
@@ -1494,15 +1506,17 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_BWD(T, D) launch_bwd<T, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
-                                            batch, seq, hidden, stride, num_heads,    \
-                                            scale, d, s)
+#define MSA_BWD(T, D) launch_bwd<T, kD, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
+                                                batch, seq, hidden, stride, num_heads,    \
+                                                scale, d, s)
   const bool tc = tc_backward(dtype, seq);
   if ((kV3 || !tc) && (l == nullptr || dl == nullptr)) return (int)cudaErrorInvalidValue;
   if (tc) {
+    constexpr int kRule = kV3 ? msa_short_bwd::kFromOut : msa_short_bwd::kRecompute;
 #define MSA_TC(D)                                                                          \
-  msa_short_bwd::launch<D, kV3>(q, k, v, bias, o, dout, dq, dk, dv, l, dl, batch, seq,     \
-                                stride, hidden, num_heads, scale * kLog2e, scale, d, s)
+  msa_short_bwd::launch<kD, D, kRule>(q, k, v, bias, nullptr, o, dout, dq, dk, dv, l, dl,  \
+                                      batch, seq, stride, hidden, num_heads,               \
+                                      scale * kLog2e, scale, d, s)
     return drop ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
   }
@@ -1513,15 +1527,16 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
-// dropout, else keep iff the element's Philox byte >= t (rate t/256).  The
-// training forward passes lse ([B, heads, S] f32, the log2-sum-exp of each
-// score row), which the CUDA-core backward pair reads; the serving forward
-// passes it null, which runs exactly the no-lse kernel.  bf16 runs on the
-// tensor cores (fwd_dispatch), f32 on the CUDA cores; both forms give the
-// same out.  Launches once on `stream` and returns cudaGetLastError() (0 on
-// success).  The caller has checked shapes, contiguity, 16-byte alignment,
-// head_dim == 64 and seq < 1024.
+// dtype: 0 = float32, 1 = bfloat16.  The head dim d = hidden / num_heads is
+// 32 or 64 (every kernel is instantiated for both).  drop_threshold t in
+// [0, 256): 0 = no dropout, else keep iff the element's Philox byte >= t
+// (rate t/256).  The training forward passes lse ([B, heads, S] f32, the
+// log2-sum-exp of each score row), which the CUDA-core backward pair
+// reads; the serving forward passes it null, which runs exactly the no-lse
+// kernel.  bf16 runs on the tensor cores (fwd_dispatch), f32 on the CUDA
+// cores; both forms give the same out.  Launches once on `stream` and
+// returns cudaGetLastError() (0 on success).  The caller has checked
+// shapes, contiguity, 16-byte alignment and seq < 1024.
 extern "C" int msa_short_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* key_bias,
                                        void* out, void* lse, int batch, int seq,
@@ -1532,8 +1547,11 @@ extern "C" int msa_short_attention_fwd(const void* q, const void* k,
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  return fwd_dispatch(q, k, v, key_bias, out, lse, batch, seq, hidden, hidden, num_heads,
-                      dtype, scale, seed_lo, seed_hi, drop_threshold, stream);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    return fwd_dispatch<decltype(hd)::value>(q, k, v, key_bias, out, lse, batch, seq, hidden,
+                                             hidden, num_heads, dtype, scale, seed_lo,
+                                             seed_hi, drop_threshold, stream);
+  });
 }
 
 // The v2 backward (TPU kernel _bwd_kernel_v2): dq, dk and dv from q, k, v,
@@ -1555,9 +1573,12 @@ extern "C" int msa_short_attention_bwd(const void* q, const void* k,
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  return bwd_dispatch<false>(q, k, v, key_bias, nullptr, dout, const_cast<void*>(lse), delta,
-                             dq, dk, dv, batch, seq, hidden, hidden, num_heads, dtype,
-                             scale, seed_lo, seed_hi, drop_threshold, stream);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    return bwd_dispatch<decltype(hd)::value, false>(
+        q, k, v, key_bias, nullptr, dout, const_cast<void*>(lse), delta, dq, dk, dv, batch,
+        seq, hidden, hidden, num_heads, dtype, scale, seed_lo, seed_hi, drop_threshold,
+        stream);
+  });
 }
 
 // The v3 backward (TPU kernel _bwd_kernel_v3): delta = dO . o taken from the
@@ -1581,9 +1602,11 @@ extern "C" int msa_short_attention_v3_bwd(const void* q, const void* k,
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  return bwd_dispatch<true>(q, k, v, key_bias, out, dout, lse, delta, dq, dk, dv, batch,
-                            seq, hidden, hidden, num_heads, dtype, scale, seed_lo,
-                            seed_hi, drop_threshold, stream);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    return bwd_dispatch<decltype(hd)::value, true>(
+        q, k, v, key_bias, out, dout, lse, delta, dq, dk, dv, batch, seq, hidden, hidden,
+        num_heads, dtype, scale, seed_lo, seed_hi, drop_threshold, stream);
+  });
 }
 
 // The packed pair (TPU kernels _fwd_kernel_v2p / _bwd_kernel_v2p): q, k and
@@ -1604,10 +1627,12 @@ extern "C" int msa_short_attention_packed_fwd(const void* qkv, const void* key_b
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
-  return fwd_dispatch(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
-                      third(qkv, 2, hidden, dtype), key_bias, out, lse, batch, seq, hidden,
-                      3 * hidden, num_heads, dtype, scale, seed_lo, seed_hi,
-                      drop_threshold, stream);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    return fwd_dispatch<decltype(hd)::value>(
+        third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
+        third(qkv, 2, hidden, dtype), key_bias, out, lse, batch, seq, hidden, 3 * hidden,
+        num_heads, dtype, scale, seed_lo, seed_hi, drop_threshold, stream);
+  });
 }
 
 extern "C" int msa_short_attention_packed_bwd(const void* qkv, const void* key_bias,
@@ -1623,10 +1648,13 @@ extern "C" int msa_short_attention_packed_bwd(const void* qkv, const void* key_b
   void* dq = const_cast<void*>(third(dqkv, 0, hidden, dtype));
   void* dk = const_cast<void*>(third(dqkv, 1, hidden, dtype));
   void* dv = const_cast<void*>(third(dqkv, 2, hidden, dtype));
-  return bwd_dispatch<true>(third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
-                            third(qkv, 2, hidden, dtype), key_bias, out, dout, lse, delta,
-                            dq, dk, dv, batch, seq, hidden, 3 * hidden, num_heads, dtype,
-                            scale, seed_lo, seed_hi, drop_threshold, stream);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    return bwd_dispatch<decltype(hd)::value, true>(
+        third(qkv, 0, hidden, dtype), third(qkv, 1, hidden, dtype),
+        third(qkv, 2, hidden, dtype), key_bias, out, dout, lse, delta, dq, dk, dv, batch,
+        seq, hidden, 3 * hidden, num_heads, dtype, scale, seed_lo, seed_hi, drop_threshold,
+        stream);
+  });
 }
 
 // The '+probs' forward (TPU kernel _fwd_kernel_v2s): out [B, S, H] and the
@@ -1647,20 +1675,26 @@ extern "C" int msa_short_attention_probs_fwd(const void* q, const void* k,
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-  // f32 on the CUDA cores, bf16 on the tensor cores
-#define MSA_PFWD(F, D) F<D>(q, k, v, bias, out, probs, batch, seq, hidden, num_heads, sm, d, s)
-  if (dtype == 0) {
-    if (drop) MSA_PFWD(launch_probs_fwd, true); else MSA_PFWD(launch_probs_fwd, false);
-    return (int)cudaGetLastError();
-  }
-  return drop ? MSA_PFWD(launch_probs_fwd_tc_for, true)
-              : MSA_PFWD(launch_probs_fwd_tc_for, false);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+    // f32 on the CUDA cores, bf16 on the tensor cores
+#define MSA_PFWD(F, D) F<kD, D>(q, k, v, bias, out, probs, batch, seq, hidden, num_heads, sm, d, s)
+    if (dtype == 0) {
+      if (drop) MSA_PFWD(launch_probs_fwd, true); else MSA_PFWD(launch_probs_fwd, false);
+      return (int)cudaGetLastError();
+    }
+    return drop ? MSA_PFWD(launch_probs_fwd_tc_for, true)
+                : MSA_PFWD(launch_probs_fwd_tc_for, false);
 #undef MSA_PFWD
+  });
 }
 
-// The '+probs' backward (TPU kernel _bwd_kernel_v2s): dq (writing delta
-// [B, heads, S] f32 scratch), then dk/dv, from q, k, v, the forward's signed
-// probs and dout alone.  drop_threshold gives the rescale 256 / (256 - t).
+// The '+probs' backward (TPU kernel _bwd_kernel_v2s) from q, k, v, the
+// forward's signed probs and dout alone; drop_threshold gives the rescale
+// 256 / (256 - t).  bf16 at S <= 128: one tensor-core launch
+// (short_bwd_tc.cuh, p and the keep bit read from the probs; delta may be
+// null).  Otherwise the CUDA-core pair: dq (writing delta, [B, heads, S]
+// f32 scratch), then dk/dv.
 extern "C" int msa_short_attention_probs_bwd(const void* q, const void* k,
                                              const void* v, const void* probs,
                                              const void* dout, void* delta, void* dq,
@@ -1672,15 +1706,28 @@ extern "C" int msa_short_attention_probs_bwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   }
   float* dl = static_cast<float*>(delta);
-  const float ds = make_dropout(0, 0, drop_threshold).scale;
+  const Dropout d = make_dropout(0, 0, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
-#define MSA_PBWD(T, D) launch_probs_bwd<T, D>(q, k, v, probs, dout, dl, dq, dk, dv, \
-                                              batch, seq, hidden, num_heads, scale, \
-                                              ds, s)
-  if (dtype == 0) return drop ? MSA_PBWD(float, true) : MSA_PBWD(float, false);
-  return drop ? MSA_PBWD(__nv_bfloat16, true) : MSA_PBWD(__nv_bfloat16, false);
+  const bool on_tc = tc_backward(dtype, seq);
+  if (!on_tc && dl == nullptr) return (int)cudaErrorInvalidValue;
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+    if (on_tc) {
+#define MSA_TC(D)                                                                         \
+  msa_short_bwd::launch<kD, D, msa_short_bwd::kFromProbs>(                                \
+      q, k, v, nullptr, probs, nullptr, dout, dq, dk, dv, nullptr, nullptr, batch, seq,   \
+      hidden, hidden, num_heads, scale * kLog2e, scale, d, s)
+      return drop ? MSA_TC(true) : MSA_TC(false);
+#undef MSA_TC
+    }
+#define MSA_PBWD(T, D) launch_probs_bwd<T, kD, D>(q, k, v, probs, dout, dl, dq, dk, dv,   \
+                                                  batch, seq, hidden, num_heads, scale, \
+                                                  d.scale, s)
+    if (dtype == 0) return drop ? MSA_PBWD(float, true) : MSA_PBWD(float, false);
+    return drop ? MSA_PBWD(__nv_bfloat16, true) : MSA_PBWD(__nv_bfloat16, false);
 #undef MSA_PBWD
+  });
 }
 
 // The keep mask the kernels above use, as a [B, heads, S, S] uint8 (0/1)

@@ -1,4 +1,4 @@
-// v1 short attention (S <= 128, head dim 64): whole-sequence softmax per
+// v1 short attention (S <= 128, head dim 32 or 64): whole-sequence softmax per
 // head with in-kernel attention-probs dropout, and its backward in one
 // launch.
 //
@@ -23,8 +23,8 @@
 //     :216), not from o; dS and the dropped p are rounded to the input dtype
 //     before their products, as there.
 //
-// What bounds them on the H100: bytes (at S = 80, d = 64 a (batch, head)
-// pair does 4*S*S*64 FLOPs on 4*S*64 elements, 80 FLOPs an element, far
+// What bounds them on the H100: bytes (at S = 80 a (batch, head) pair does
+// 4*S*S*d FLOPs on 4*S*d elements, 80 FLOPs an element, far
 // below the ~295 FLOPs per byte where the tensor cores would be the
 // limit).  Both kernels take one CTA per (head, batch row).
 //
@@ -38,7 +38,7 @@
 //     from the score row here), one launch.
 //   * The f32 forward and backward run on the CUDA cores in f32 (on the
 //     tensor cores f32 would be TF32, three decimal digits): K and V staged
-//     once as f32 (rows padded to 65 floats, so a warp's 32 keys read 32
+//     once as f32 (rows padded to d + 1 floats, so a warp's 32 keys read 32
 //     banks), query tiles of 32 rows whose [32, S] score rows also stay in
 //     shared memory (S <= 128 keeps a CTA within 116 KB).  The backward
 //     keeps each key's dk and dv in the registers of two threads
@@ -62,16 +62,18 @@
 
 namespace {
 
+namespace tc = msa_mma;
+
 using msa_dropout::Dropout;
 using msa_dropout::keep_bits16;
 using msa_dropout::make_dropout;
 
-constexpr int kD = 64;          // head dim
 constexpr int kMaxSeq = 128;    // keys a CTA holds; two threads per key
 constexpr int kRows = 32;       // query rows per tile
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPad = kD + 1;    // f32 row stride of the staged K and V
+template <int kD>
+inline constexpr int kPad = kD + 1;  // f32 row stride of the staged K and V
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -94,7 +96,7 @@ __device__ __forceinline__ float round_to(float x) { return to_float(from_float<
 
 // Rows [r0, r0 + n) of one head of x ([B, S, H] at x + base, row stride
 // `hidden`) into shared memory as f32 with row stride `stride`.
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ void stage_rows(const T* x, size_t base, int hidden, int r0, int n,
                                            float* dst, int stride) {
   constexpr int kVec = 16 / sizeof(T);
@@ -110,7 +112,8 @@ __device__ __forceinline__ void stage_rows(const T* x, size_t base, int hidden, 
   }
 }
 
-__device__ __forceinline__ float dot64(const float* a, const float* b) {
+template <int kD>
+__device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
 #pragma unroll 16
   for (int d = 0; d < kD; ++d) s = fmaf(a[d], b[d], s);
@@ -160,20 +163,21 @@ __device__ __forceinline__ bool keep_of(uint32_t bits, int j) {
 // Forward, f32: ctx only, on the CUDA cores
 // ---------------------------------------------------------------------------
 
+template <int kD>
 int fwd_smem_bytes(int seq) {
-  return (2 * seq * kPad + kRows * kD + kRows * seq + seq) * (int)sizeof(float);
+  return (2 * seq * kPad<kD> + kRows * kD + kRows * seq + seq) * (int)sizeof(float);
 }
 
-template <bool kDropout>
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 short_v1_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ key_bias,
                     float* __restrict__ out, int seq, int hidden, float score_mult,
                     Dropout drop) {
   extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                    // [seq][kPad]
-  float* v_s = k_s + seq * kPad;        // [seq][kPad]
-  float* q_s = v_s + seq * kPad;        // [kRows][kD]
+  float* k_s = smem;                  // [seq][kPad<kD>]
+  float* v_s = k_s + seq * kPad<kD>;  // [seq][kPad<kD>]
+  float* q_s = v_s + seq * kPad<kD>;  // [kRows][kD]
   float* p_s = q_s + kRows * kD;        // [kRows][seq]
   float* bias_s = p_s + kRows * seq;    // [seq], log2 domain
 
@@ -182,19 +186,19 @@ short_v1_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t row_base = ((uint32_t)b * gridDim.x + head) * (uint32_t)seq;
 
-  stage_rows(k, base, hidden, 0, seq, k_s, kPad);
-  stage_rows(v, base, hidden, 0, seq, v_s, kPad);
+  stage_rows<float, kD>(k, base, hidden, 0, seq, k_s, kPad<kD>);
+  stage_rows<float, kD>(v, base, hidden, 0, seq, v_s, kPad<kD>);
   for (int j = threadIdx.x; j < seq; j += kThreads) {
     bias_s[j] = key_bias[(size_t)b * seq + j] * kLog2e;
   }
   for (int i0 = 0; i0 < seq; i0 += kRows) {
     const int rows = min(kRows, seq - i0);
     __syncthreads();  // the previous tile is done with q_s and p_s
-    stage_rows(q, base, hidden, i0, rows, q_s, kD);
+    stage_rows<float, kD>(q, base, hidden, i0, rows, q_s, kD);
     __syncthreads();
     for (int idx = threadIdx.x; idx < rows * seq; idx += kThreads) {
       const int i = idx / seq, j = idx - i * seq;
-      p_s[idx] = fmaf(dot64(&q_s[i * kD], &k_s[j * kPad]), score_mult, bias_s[j]);
+      p_s[idx] = fmaf(dot<kD>(&q_s[i * kD], &k_s[j * kPad<kD>]), score_mult, bias_s[j]);
     }
     __syncthreads();
     for (int i = warp; i < rows; i += kWarps) {
@@ -214,7 +218,7 @@ short_v1_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int i = idx / kD, d = idx - i * kD;
       const float* p = p_s + i * seq;
       float acc = 0.f;
-      for (int j = 0; j < seq; ++j) acc = fmaf(p[j], v_s[j * kPad + d], acc);
+      for (int j = 0; j < seq; ++j) acc = fmaf(p[j], v_s[j * kPad<kD> + d], acc);
       out[base + (size_t)(i0 + i) * hidden + d] = acc;
     }
   }
@@ -225,11 +229,12 @@ short_v1_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // cores; the entry takes it for f32 only (bf16: short_bwd_tc.cuh)
 // ---------------------------------------------------------------------------
 
+template <int kD>
 int bwd_smem_bytes(int seq) {
-  return (2 * seq * kPad + 2 * kRows * kD + 2 * kRows * seq + seq) * (int)sizeof(float);
+  return (2 * seq * kPad<kD> + 2 * kRows * kD + 2 * kRows * seq + seq) * (int)sizeof(float);
 }
 
-template <typename T, bool kDropout>
+template <typename T, int kD, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 short_v1_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ key_bias,
@@ -237,9 +242,9 @@ short_v1_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dv, int seq, int hidden, float score_mult, float scale,
                     Dropout drop) {
   extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                    // [seq][kPad]
-  float* v_s = k_s + seq * kPad;        // [seq][kPad]
-  float* q_s = v_s + seq * kPad;        // [kRows][kD]
+  float* k_s = smem;                  // [seq][kPad<kD>]
+  float* v_s = k_s + seq * kPad<kD>;  // [seq][kPad<kD>]
+  float* q_s = v_s + seq * kPad<kD>;  // [kRows][kD]
   float* do_s = q_s + kRows * kD;       // [kRows][kD]
   float* p_s = do_s + kRows * kD;       // [kRows][seq]: scores, p, then dropped p
   float* ds_s = p_s + kRows * seq;      // [kRows][seq]: dP, dpm, then dS
@@ -256,22 +261,22 @@ short_v1_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int e = 0; e < kD / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
 
-  stage_rows(k, base, hidden, 0, seq, k_s, kPad);
-  stage_rows(v, base, hidden, 0, seq, v_s, kPad);
+  stage_rows<T, kD>(k, base, hidden, 0, seq, k_s, kPad<kD>);
+  stage_rows<T, kD>(v, base, hidden, 0, seq, v_s, kPad<kD>);
   for (int j = threadIdx.x; j < seq; j += kThreads) {
     bias_s[j] = key_bias[(size_t)b * seq + j] * kLog2e;
   }
   for (int i0 = 0; i0 < seq; i0 += kRows) {
     const int rows = min(kRows, seq - i0);
     __syncthreads();
-    stage_rows(q, base, hidden, i0, rows, q_s, kD);
-    stage_rows(dout, base, hidden, i0, rows, do_s, kD);
+    stage_rows<T, kD>(q, base, hidden, i0, rows, q_s, kD);
+    stage_rows<T, kD>(dout, base, hidden, i0, rows, do_s, kD);
     __syncthreads();
     // scores and dP = dO.V^T
     for (int idx = threadIdx.x; idx < rows * seq; idx += kThreads) {
       const int i = idx / seq, j = idx - i * seq;
-      p_s[idx] = fmaf(dot64(&q_s[i * kD], &k_s[j * kPad]), score_mult, bias_s[j]);
-      ds_s[idx] = dot64(&do_s[i * kD], &v_s[j * kPad]);
+      p_s[idx] = fmaf(dot<kD>(&q_s[i * kD], &k_s[j * kPad<kD>]), score_mult, bias_s[j]);
+      ds_s[idx] = dot<kD>(&do_s[i * kD], &v_s[j * kPad<kD>]);
     }
     __syncthreads();
     // per row: p, dpm, delta = sum p * dpm, then dS = p (dpm - delta) and
@@ -311,7 +316,7 @@ short_v1_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = idx / kD, d = idx - i * kD;
       const float* ds = ds_s + i * seq;
       float acc = 0.f;
-      for (int j = 0; j < seq; ++j) acc = fmaf(ds[j], k_s[j * kPad + d], acc);
+      for (int j = 0; j < seq; ++j) acc = fmaf(ds[j], k_s[j * kPad<kD> + d], acc);
       dq[base + (size_t)(i0 + i) * hidden + d] = from_float<T>(acc * scale);
     }
     // dK += dS^T Q, dV += P_dropped^T dO for this thread's key
@@ -346,17 +351,17 @@ cudaError_t allow_smem(int bytes) {
 }
 
 bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype, int threshold) {
-  return seq <= 0 || seq > kMaxSeq || batch <= 0 || batch > 65535 || num_heads <= 0 ||
-         hidden != num_heads * kD || threshold < 0 || threshold > 255 ||
+  return seq <= 0 || seq > kMaxSeq || batch <= 0 || batch > 65535 ||
+         tc::head_dim_of(hidden, num_heads) == 0 || threshold < 0 || threshold > 255 ||
          (dtype != 0 && dtype != 1);
 }
 
-template <bool kDropout>
+template <int kD, bool kDropout>
 int launch_fwd(const void* q, const void* k, const void* v, const float* bias, void* out,
                int batch, int seq, int hidden, int num_heads, float score_mult, Dropout drop,
                cudaStream_t s) {
-  constexpr auto kernel = short_v1_fwd_kernel<kDropout>;
-  const int bytes = fwd_smem_bytes(seq);
+  constexpr auto kernel = short_v1_fwd_kernel<kD, kDropout>;
+  const int bytes = fwd_smem_bytes<kD>(seq);
   cudaError_t err = allow_smem<kernel>(bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(num_heads, batch), kThreads, bytes, s>>>(
@@ -366,12 +371,12 @@ int launch_fwd(const void* q, const void* k, const void* v, const float* bias, v
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kDropout>
+template <typename T, int kD, bool kDropout>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                const void* dout, void* dq, void* dk, void* dv, int batch, int seq, int hidden,
                int num_heads, float score_mult, float scale, Dropout drop, cudaStream_t s) {
-  constexpr auto kernel = short_v1_bwd_kernel<T, kDropout>;
-  const int bytes = bwd_smem_bytes(seq);
+  constexpr auto kernel = short_v1_bwd_kernel<T, kD, kDropout>;
+  const int bytes = bwd_smem_bytes<kD>(seq);
   cudaError_t err = allow_smem<kernel>(bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(num_heads, batch), kThreads, bytes, s>>>(
@@ -383,11 +388,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
-// dropout, else keep iff the element's Philox byte >= t (rate t/256).
-// Every entry launches once on `stream` and returns cudaGetLastError() (0
-// on success).  The caller has checked shapes, contiguity, 16-byte
-// alignment, head_dim == 64 and S <= 128.
+// dtype: 0 = float32, 1 = bfloat16.  The head dim hidden / num_heads is 32
+// or 64.  drop_threshold t in [0, 256): 0 = no dropout, else keep iff the
+// element's Philox byte >= t (rate t/256).  Every entry launches once on
+// `stream` and returns cudaGetLastError() (0 on success).  The caller has
+// checked shapes, contiguity, 16-byte alignment and S <= 128.
 extern "C" int msa_short_attention_v1_fwd(const void* q, const void* k, const void* v,
                                           const void* key_bias, void* out, int batch, int seq,
                                           int hidden, int num_heads, int dtype, float scale,
@@ -400,15 +405,18 @@ extern "C" int msa_short_attention_v1_fwd(const void* q, const void* k, const vo
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   const float sm = scale * kLog2e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  // f32 on the CUDA cores, bf16 on the tensor cores (short_fwd_tc.cuh)
-#define MSA_FWD(D) launch_fwd<D>(q, k, v, bias, out, batch, seq, hidden, num_heads, sm, d, s)
-  if (dtype == 0) return drop_threshold ? MSA_FWD(true) : MSA_FWD(false);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+    // f32 on the CUDA cores, bf16 on the tensor cores (short_fwd_tc.cuh)
+#define MSA_FWD(D) launch_fwd<kD, D>(q, k, v, bias, out, batch, seq, hidden, num_heads, sm, d, s)
+    if (dtype == 0) return drop_threshold ? MSA_FWD(true) : MSA_FWD(false);
 #undef MSA_FWD
-#define MSA_TC(D)                                                                      \
-  msa_short_fwd::launch<D, false>(q, k, v, bias, out, nullptr, batch, seq, hidden, hidden, \
-                                  num_heads, sm, d, s)
-  return drop_threshold ? MSA_TC(true) : MSA_TC(false);
+#define MSA_TC(D)                                                                        \
+  msa_short_fwd::launch<kD, D, false>(q, k, v, bias, out, nullptr, batch, seq, hidden,   \
+                                      hidden, num_heads, sm, d, s)
+    return drop_threshold ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
+  });
 }
 
 // dq, dk, dv from q, k, v, key_bias and dout alone, for the same seed and
@@ -427,14 +435,18 @@ extern "C" int msa_short_attention_v1_bwd(const void* q, const void* k, const vo
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   const float sm = scale * kLog2e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define MSA_BWD(T, D)                                                                   \
-  launch_bwd<T, D>(q, k, v, bias, dout, dq, dk, dv, batch, seq, hidden, num_heads, sm, \
-                   scale, d, s)
-  if (dtype == 0) return drop_threshold ? MSA_BWD(float, true) : MSA_BWD(float, false);
+  return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
+    constexpr int kD = decltype(hd)::value;
+#define MSA_BWD(T, D)                                                                       \
+  launch_bwd<T, kD, D>(q, k, v, bias, dout, dq, dk, dv, batch, seq, hidden, num_heads, sm, \
+                       scale, d, s)
+    if (dtype == 0) return drop_threshold ? MSA_BWD(float, true) : MSA_BWD(float, false);
 #undef MSA_BWD
-#define MSA_TC(D)                                                                              \
-  msa_short_bwd::launch<D, false>(q, k, v, bias, nullptr, dout, dq, dk, dv, nullptr, nullptr, \
-                                  batch, seq, hidden, hidden, num_heads, sm, scale, d, s)
-  return drop_threshold ? MSA_TC(true) : MSA_TC(false);
+#define MSA_TC(D)                                                                         \
+  msa_short_bwd::launch<kD, D, msa_short_bwd::kRecompute>(                                \
+      q, k, v, bias, nullptr, nullptr, dout, dq, dk, dv, nullptr, nullptr, batch, seq,    \
+      hidden, hidden, num_heads, sm, scale, d, s)
+    return drop_threshold ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
+  });
 }

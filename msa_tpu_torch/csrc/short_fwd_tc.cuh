@@ -1,7 +1,8 @@
 // The bf16 short-attention forward on the tensor cores, S <= 128, head dim
-// 64: one (head, batch row) a CTA, the whole score row of each query in
-// registers.  One template serves the forwards of three TPU kernels of
-// msa_tpu/ops/short_attention.py, which compute one function:
+// kD = 32 or 64 (a template parameter): one (head, batch row) a CTA, the
+// whole score row of each query in registers.  One template serves the
+// forwards of three TPU kernels of msa_tpu/ops/short_attention.py, which
+// compute one function:
 //
 //   * v2, _fwd_kernel_v2 (:303; short_attention.cu, msa_short_attention_fwd):
 //     q, k, v at row stride H; the training form (kTrain) also writes each
@@ -26,13 +27,13 @@
 // for bit.
 //
 // What bounds it on the H100: bytes (at S = 80 a (batch, head) pair does
-// 4 * S * S * 64 FLOPs on 4 * S * 64 bf16 elements, 80 FLOPs an element,
+// 4 * S * S * d FLOPs on 4 * S * d bf16 elements, 80 FLOPs an element,
 // far below the ~295 FLOPs a byte where the tensor cores would be the
 // limit).  So every operand is read once and nothing of size [S, S] leaves
 // the SM:
 //
 //   * kKT = ceil(S / 16) warps, one per 16 query rows; Q, K and V staged
-//     once in bf16 by cp.async (144-byte rows, zero-filled past S; V lands
+//     once in bf16 by cp.async (rows of d + 8 values, zero-filled past S; V lands
 //     during the softmax); padded keys score -inf (not the -10000 fill), so
 //     a fully masked row keeps its softmax;
 //   * S = Q K^T by mma.sync into registers (the whole row: S <= 128 keys is
@@ -68,8 +69,9 @@ using msa_dropout::Dropout;
 constexpr int kMaxSeq = 128;  // 8 16-key tiles: a warp's score row in registers
 
 // Q, K and V rows and the key bias, at kKT tiles.
+template <int kD>
 __host__ __device__ constexpr int tile_smem_bytes(int kKT) {
-  return 3 * 16 * kKT * tc::kStride * (int)sizeof(bf16) + 16 * kKT * (int)sizeof(float);
+  return 3 * 16 * kKT * tc::kStride<kD> * (int)sizeof(bf16) + 16 * kKT * (int)sizeof(float);
 }
 
 // The training output of a warp's rows [0, rows): lse[g] = lse0 and
@@ -85,7 +87,7 @@ __device__ __forceinline__ void store_lse(float lse0, float lse1, float* lse, in
 // kKT: 16-key tiles of the padded sequence (seq <= 16 kKT).  q, k, v at row
 // stride ld; out [B, S, hidden]; lse [B, heads, S], written under kTrain
 // only.
-template <int kKT, bool kDropout, bool kTrain>
+template <int kD, int kKT, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(32 * kKT)
 short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ key_bias,
@@ -95,18 +97,18 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kN = 2 * kKT;        // 8-key column tiles of a score row
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kPadded * tc::kStride;
-  bf16* v_s = k_s + kPadded * tc::kStride;
-  float* bias_s = reinterpret_cast<float*>(v_s + kPadded * tc::kStride);
+  bf16* k_s = q_s + kPadded * tc::kStride<kD>;
+  bf16* v_s = k_s + kPadded * tc::kStride<kD>;
+  float* bias_s = reinterpret_cast<float*>(v_s + kPadded * tc::kStride<kD>);
 
   const int head = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * 16;
-  const size_t in_base = (size_t)b * seq * ld + (size_t)head * tc::kD;
-  const size_t out_base = (size_t)b * seq * hidden + (size_t)head * tc::kD;
+  const size_t in_base = (size_t)b * seq * ld + (size_t)head * kD;
+  const size_t out_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t row_base = ((uint32_t)b * gridDim.x + head) * (uint32_t)seq;
 
-  tc::stage_head(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, in_base, ld,
+  tc::stage_head<kD>(q_s, k_s, v_s, bias_s, q, k, v, key_bias + (size_t)b * seq, in_base, ld,
                  kPadded, seq);  // V lands during the softmax
   tc::cp_async_wait<1>();
   __syncthreads();
@@ -114,7 +116,7 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Scores in the log2 domain; keys past seq are -inf, so every row's max
   // is finite.
   float s[kN][4], mx[2], sum[2] = {0.f, 0.f};
-  tc::mma_nt<kN>(q_s, row0, k_s, s);
+  tc::mma_nt<kD, kN>(q_s, row0, k_s, s);
   tc::scores_log2<kN>(s, bias_s, score_mult);
   tc::row_max<kN>(s, mx);
 #pragma unroll
@@ -130,6 +132,10 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int rows = seq - row0;  // this warp's rows below seq (>= 1)
   [[maybe_unused]] const float lse_lo = mx[0] + log2f(sum[0]);
   [[maybe_unused]] const float lse_hi = mx[1] + log2f(sum[1]);
+  // where the lse goes out is ptxas's business: each placement but this
+  // one (d = 32) and the one after the keep words (d = 64) left a 4-8 byte
+  // spill at 3-5 tiles in one of the widths (chip_smoke.py's ptxas check)
+  if constexpr (kTrain && kD == 32) store_lse(lse_lo, lse_hi, lse + row_base + row0, rows);
   // one division a row: p = e * (1 / sum)
   sum[0] = 1.f / sum[0];
   sum[1] = 1.f / sum[1];
@@ -139,9 +145,7 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::keep_words_qmajor(drop, prob_row, 0, keep);
     if constexpr (kKT > 4) tc::keep_words_qmajor(drop, prob_row, 64, keep + 4);
   }
-  // the lse goes out here: stored at the row sums or after P V it left a
-  // 4-byte spill at 3-4 tiles (chip_smoke.py's ptxas check)
-  if constexpr (kTrain) store_lse(lse_lo, lse_hi, lse + row_base + row0, rows);
+  if constexpr (kTrain && kD != 32) store_lse(lse_lo, lse_hi, lse + row_base + row0, rows);
 #pragma unroll
   for (int n = 0; n < kN; ++n) {
 #pragma unroll
@@ -157,22 +161,22 @@ short_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   tc::cp_async_wait<0>();
   __syncthreads();  // V has landed; every warp is done with its Q rows
-  float acc[tc::kNT][4];
+  float acc[tc::kNT<kD>][4];
 #pragma unroll
-  for (int n = 0; n < tc::kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  tc::mma_nn<kN>(s, v_s, acc);
+  for (int n = 0; n < tc::kNT<kD>; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  tc::mma_nn<kD, kN>(s, v_s, acc);
 
   // ctx through the warp's own Q rows, out in 16-byte row vectors
   const size_t out0 = out_base + (size_t)row0 * hidden;
-  tc::store_tile(acc, q_s + row0 * tc::kStride, out + out0, hidden, rows);
+  tc::store_tile<kD>(acc, q_s + row0 * tc::kStride<kD>, out + out0, hidden, rows);
 }
 
-template <int kKT, bool kDropout, bool kTrain>
+template <int kD, int kKT, bool kDropout, bool kTrain>
 int launch_tiles(const void* q, const void* k, const void* v, const float* bias, void* out,
                  float* lse, int batch, int seq, int ld, int hidden, int num_heads,
                  float score_mult, Dropout drop, cudaStream_t s) {
-  constexpr auto kernel = short_fwd_tc_kernel<kKT, kDropout, kTrain>;
-  constexpr int bytes = tile_smem_bytes(kKT);
+  constexpr auto kernel = short_fwd_tc_kernel<kD, kKT, kDropout, kTrain>;
+  constexpr int bytes = tile_smem_bytes<kD>(kKT);
   if (bytes > 48 * 1024) {  // above 48 KB of dynamic shared memory: opt in
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -187,14 +191,15 @@ int launch_tiles(const void* q, const void* k, const void* v, const float* bias,
 // One launch for the 16-key tiles seq needs (1 .. 8); the caller has
 // checked 0 < seq <= kMaxSeq.  lse: the training output (written under
 // kTrain only).
-template <bool kDropout, bool kTrain>
+template <int kD, bool kDropout, bool kTrain>
 int launch(const void* q, const void* k, const void* v, const float* bias, void* out,
            float* lse, int batch, int seq, int ld, int hidden, int num_heads,
            float score_mult, Dropout drop, cudaStream_t s) {
 #define MSA_TC(KT)                                                                 \
   case KT:                                                                         \
-    return launch_tiles<KT, kDropout, kTrain>(q, k, v, bias, out, lse, batch, seq, \
-                                              ld, hidden, num_heads, score_mult, drop, s)
+    return launch_tiles<kD, KT, kDropout, kTrain>(q, k, v, bias, out, lse, batch,    \
+                                                  seq, ld, hidden, num_heads,         \
+                                                  score_mult, drop, s)
   switch ((seq + 15) / 16) {
     MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
     MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);

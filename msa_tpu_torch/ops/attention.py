@@ -37,9 +37,10 @@ The head-split flash attention (kernel row 13, ``csrc/flash_attention.cu``;
 TPU kernels ``_flash_kernel``, ``_flash_dq_kernel``, ``_flash_dkv_kernel``
 of ``msa_tpu/ops/attention.py``) lives here, where JAX keeps it:
 
-* :func:`flash_attention` -- q, k, v [B, heads, S, 64] and a [B, S] f32 key
-  bias; under autograd on CUDA a ``torch.autograd.Function`` whose backward
-  is :func:`flash_attention_backward` (two launches, dq then dk/dv).  It
+* :func:`flash_attention` -- q, k, v [B, heads, S, d] (d = 32 or 64) and a
+  [B, S] f32 key bias; under autograd on CUDA a ``torch.autograd.Function``
+  whose backward is :func:`flash_attention_backward` (two launches, dq then
+  dk/dv).  It
   saves q, k, v, the bias, the output in its dtype and the row lse
   (natural-log units; flash2's is in log2 units, and the two are never
   mixed).  CPU tensors run :func:`flash_attention_plain` at rate 0, with
@@ -59,8 +60,9 @@ import torch
 from .. import _build
 from .dropout import byte_threshold, quantize_dropout_rate, seeded_generator
 from .flash2 import flash_attention2
-from .short_attention import (_DTYPES, HEAD_DIM, _aligned, _seed_words, _stream,
-                              save_inputs, saved_inputs, short_attention,
+from .short_attention import (_DTYPES, _aligned, _seed_words, _stream,
+                              check_head_dim, save_inputs, saved_inputs,
+                              short_attention,
                               short_attention_packed, short_attention_plain,
                               short_attention_probs)
 
@@ -77,10 +79,10 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    "msa_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                _U, _U, _I, _P),
+    "msa_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _F, _U, _U, _I, _P),
     "msa_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _F, _U, _U, _I, _P),
+                                _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
 }
 
 
@@ -205,27 +207,30 @@ def flash_attention_backward_plain(q, k, v, key_bias, out, lse, dout,
                                    keep: Optional[torch.Tensor] = None):
     """dq, dk, dv of :func:`flash_attention_plain` by JAX's
     ``_flash_dq_kernel`` / ``_flash_dkv_kernel`` rule, in f32: p = exp(s -
-    lse) from the saved natural-log ``lse``, dP = dO.V^T, with ``keep`` pd
-    and dpm the kept p and dP over ``1 - rate``, delta = rowsum(dO * o) from
-    ``out`` (the forward's output in its own dtype, widened), dS = p * (dpm
-    - delta).  pd and dS are rounded to q's dtype before their products, as
-    those kernels round them (``.astype``) for the matrix unit and the CUDA
-    kernels for the tensor cores (nothing changes in f32)."""
+    lse) from the saved natural-log ``lse``, dP = dO.V^T, with ``keep`` dpm
+    the kept dP over ``1 - rate`` and pd the kept p unscaled, delta =
+    rowsum(dO * o) from ``out`` (the forward's output in its own dtype,
+    widened), dS = p * (dpm - delta).  pd and dS are rounded to q's dtype
+    before their products, as those kernels round them (``.astype``) for
+    the matrix unit and the CUDA kernels for the tensor cores (nothing
+    changes in f32); dV = pd^T dO is then divided by ``1 - rate`` in f32
+    (``_flash_dkv_kernel``, ``attention.py:242-244``)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = torch.exp(_scores_heads(q, k, key_bias) - lse[..., None])
     do = dout.float()
     dp = torch.einsum("bnqd,bnkd->bnqk", do, v.float())
+    pd, dpm = p, dp
     if keep is not None:
-        pd = torch.where(keep, p, 0.0) / (1.0 - rate)
+        pd = torch.where(keep, p, 0.0)
         dpm = torch.where(keep, dp, 0.0) / (1.0 - rate)
-    else:
-        pd, dpm = p, dp
     delta = (do * out.float()).sum(-1, keepdim=True)
     ds = (p * (dpm - delta)).to(q.dtype).float()
     pd = pd.to(q.dtype).float()
     dq = torch.einsum("bnqk,bnkd->bnqd", ds, k.float()) * scale
     dk = torch.einsum("bnqk,bnqd->bnkd", ds, q.float()) * scale
     dv = torch.einsum("bnqk,bnqd->bnkd", pd, do)
+    if keep is not None:
+        dv = dv / (1.0 - rate)
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
@@ -240,9 +245,7 @@ def _check_heads(q, k, v, key_bias, what):
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
-    if d != HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d} not supported (the kernels "
-                         f"take {HEAD_DIM})")
+    check_head_dim(d, what)
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{what}: {name} {tuple(x.shape)} {x.dtype} "
@@ -256,7 +259,7 @@ def _check_heads(q, k, v, key_bias, what):
 def _forward_kernel(q, k, v, key_bias, seed, threshold, train):
     """The head-split forward kernel; returns (out, lse), lse [B, heads, S]
     f32 in natural-log units when ``train``, else None."""
-    b, n, s, _ = q.shape
+    b, n, s, d = q.shape
     q, k, v = _aligned(q, k, v, what="flash_attention")
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
@@ -265,9 +268,9 @@ def _forward_kernel(q, k, v, key_bias, seed, threshold, train):
     lib = _build.load("flash_attention", _SIGNATURES)
     code = lib.msa_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), b, n, s,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
-        threshold, _stream(q))
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, n, s, d,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(d), *_seed_words(seed), threshold,
+        _stream(q))
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
     return out, lse
@@ -280,7 +283,7 @@ def flash_attention_backward(q, k, v, key_bias, out, lse, dout, seed: int = 0,
     outputs for the same inputs, seed and rate.  Two launches: dq, which
     writes delta = rowsum(dO * o) to scratch, then dk/dv."""
     _check_heads(q, k, v, key_bias, "flash_attention_backward")
-    b, n, s, _ = q.shape
+    b, n, s, d = q.shape
     if out.shape != q.shape or out.dtype != q.dtype or \
             dout.shape != q.shape or lse.shape != (b, n, s):
         raise ValueError(f"flash_attention_backward: out/dout/lse "
@@ -296,9 +299,9 @@ def flash_attention_backward(q, k, v, key_bias, out, lse, dout, seed: int = 0,
     code = lib.msa_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, s, _DTYPES[q.dtype],
-        1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed), byte_threshold(rate),
-        _stream(q))
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, s, d,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(d), *_seed_words(seed),
+        byte_threshold(rate), _stream(q))
     _build.check(code, "flash_attention_backward")
     flash_attention_backward.launches += 2
     return dq, dk, dv
@@ -338,8 +341,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_bias: torch.Tensor, rate: float = 0.0,
                     seed: Optional[int] = None, recompute=None) -> torch.Tensor:
     """The counterpart of JAX's ``_flash_attention``: q/k/v [B, heads, S, d]
-    (d = 64 on CUDA), key_bias [B, S] additive mask; returns [B, heads, S,
-    d].  Any S >= 1.
+    (d = 32 or 64 on CUDA), key_bias [B, S] additive mask; returns [B,
+    heads, S, d].  Any S >= 1.
 
     ``rate``: attention-probs dropout, a multiple of 1/256
     (``ops.dropout.quantize_dropout_rate``), with ``seed`` (an int in [0,

@@ -10,9 +10,9 @@ the returned ctx are [B, S, H] in natural layout (heads are sliced inside
 the kernels), ``key_bias`` is an additive [B, S] f32 mask, the softmax runs
 in f32, no gradient flows to the bias or the seed, and the dropout rate is
 snapped to t/256.  The kernels (``csrc/flash2.cu``) take float32 and
-bfloat16, any S >= 1 and head dim 64 (bert-base and bert-large); the
-source's header says what bounds them on the H100 and how they are laid
-out.  bf16 runs on the tensor cores, f32 on the CUDA cores.
+bfloat16, any S >= 1 and head dim 32 or 64; the source's header says what
+bounds them on the H100 and how they are laid out.  bf16 runs on the tensor
+cores, f32 on the CUDA cores.
 
 Dropout uses the rule of ``ops/dropout.py`` (Philox of the seed and the
 element's index), the short-attention kernels' rule: at the same seed both
@@ -26,7 +26,8 @@ Entry points, each launching its kernels for CUDA tensors (or raising):
   :func:`flash_attention2_plain` at rate 0;
 * :func:`flash_attention2_backward` -- dq, dk, dv by the fused kernel
   (:func:`flash2_bwd_fused`, one launch) or the split pair
-  (:func:`flash2_bwd_split`, two launches).
+  (:func:`flash2_bwd_split`, two launches), both by JAX's rule with its
+  roundings, whose plain version is :func:`flash_attention2_backward_plain`.
 
 ``flash_attention2.launches``, ``flash2_bwd_fused.launches`` and
 ``flash2_bwd_split.launches`` count kernel launches.
@@ -45,7 +46,6 @@ from ..configs import _round_up
 from .dropout import byte_threshold
 from .short_attention import (
     _DTYPES,
-    HEAD_DIM,
     _aligned,
     _check,
     _seed_words,
@@ -54,6 +54,7 @@ from .short_attention import (
     save_inputs,
     saved_inputs,
     short_attention_plain,
+    softmax_scale,
 )
 
 _P = ctypes.c_void_p
@@ -128,6 +129,44 @@ def flash_attention2_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return short_attention_plain(q, k, v, key_bias, num_heads, rate, keep)
 
 
+def flash_attention2_backward_plain(q, k, v, key_bias, out, lse, dout,
+                                    num_heads: int, rate: float = 0.0,
+                                    keep: Optional[torch.Tensor] = None):
+    """dq, dk, dv of :func:`flash_attention2_plain` by JAX's flash2 backward
+    rule (``_dq_kernel``, ``_dkv_kernel``, ``_bwd_fused_kernel``), in f32:
+    p = exp2(s2 - lse) from the forward's row ``lse`` in log2 units (s2 the
+    scores times log2 e), delta = rowsum(dO * o) from ``out`` (the output
+    the backward reads: the kernels' f32 out32) and the unscaled dO.  With
+    ``keep`` (a [B, heads, S, S] bool mask) dO * (1 / (1 - rate)) is rounded
+    to q's dtype before dP = dO V^T and dV = pd^T dO, the factor too (JAX
+    multiplies dO by a weakly typed Python float, which takes dO's dtype:
+    1.109375 in bf16 at rate 26/256), and pd is the kept p unscaled; dS = p
+    * (dpm - delta).  pd and dS are rounded to q's dtype before their
+    products, as those kernels round them (nothing changes in f32)."""
+    b, s, h = q.shape
+    d = h // num_heads
+    split = lambda x: x.reshape(b, s, num_heads, d).float()  # noqa: E731
+    logits = torch.einsum("bqnd,bknd->bnqk", split(q), split(k)) / math.sqrt(d)
+    logits = logits + key_bias.float()[:, None, None, :]
+    p = torch.exp2(logits / math.log(2.0) - lse[..., None])
+    do = split(dout)
+    delta = (do * split(out)).sum(-1).transpose(1, 2)[..., None]
+    if keep is not None:
+        fold = torch.tensor(1.0 / (1.0 - rate), dtype=q.dtype).item()
+        do = split((dout.float() * fold).to(q.dtype))
+    dp = torch.einsum("bqnd,bknd->bnqk", do, split(v))
+    pd, dpm = p, dp
+    if keep is not None:
+        pd, dpm = torch.where(keep, p, 0.0), torch.where(keep, dp, 0.0)
+    ds = (p * (dpm - delta)).to(q.dtype).float()
+    pd = pd.to(q.dtype).float()
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, split(k)) * scale
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, split(q)) * scale
+    dv = torch.einsum("bnqk,bqnd->bknd", pd, do)
+    return tuple(x.reshape(b, s, h).to(q.dtype) for x in (dq, dk, dv))
+
+
 def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
     """The flash2 forward kernel (``short_attention.launch_forward``: the
     two forwards share one C signature, flash2's with the f32 output its
@@ -171,7 +210,7 @@ def flash2_bwd_fused(q, k, v, key_bias, out32, lse, dout, num_heads: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq32.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed), byte_threshold(rate),
+        softmax_scale(h, num_heads), *_seed_words(seed), byte_threshold(rate),
         _stream(q))
     _build.check(code, "flash2_bwd_fused")
     flash2_bwd_fused.launches += 1
@@ -193,7 +232,7 @@ def flash2_bwd_split(q, k, v, key_bias, out32, lse, dout, num_heads: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
+        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "flash2_bwd_split")
     flash2_bwd_split.launches += 2

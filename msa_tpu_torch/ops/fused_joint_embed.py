@@ -5,8 +5,9 @@ Counterpart of ``msa_tpu/ops/fused_joint_embed.py::fused_joint_embed``
 rows [0, L) and ``LN(relu(feats @ W + b))`` to rows [L, L+Lp); the
 projection and the LayerNorm run in f32 and the output is stored in
 ``text_emb``'s dtype.  The kernel (``csrc/fused_joint_embed.cu``) takes
-H % 256 == 0 up to 2048 and D <= 1024 (the datasets' D is one of 35, 47,
-74, 81, 371); its header says what bounds it on the H100.
+any H up to 2048 (the tiny preset's 64, bert-base's 768, bert-large's 1024)
+and D <= 1024 (the datasets' D is one of 35, 47, 74, 81, 371); its header
+says what bounds it on the H100.
 
 :func:`fused_joint_embed` launches the kernel for CUDA tensors and runs
 :func:`fused_joint_embed_plain` for CPU tensors.  Under autograd on CUDA it
@@ -26,7 +27,6 @@ import torch.nn.functional as F
 
 from .. import _build
 
-_THREADS = 256
 _MAX_HIDDEN = 2048
 _MAX_FEAT = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -96,10 +96,9 @@ def _kernel(text_emb, feats, w, b, scale, bias, eps):
         raise TypeError(
             f"fused_joint_embed: text {text_emb.dtype} / feats {feats.dtype}; "
             "both must be float32 or both bfloat16")
-    if h % _THREADS or h > _MAX_HIDDEN or d > _MAX_FEAT:
+    if h > _MAX_HIDDEN or d > _MAX_FEAT:
         raise ValueError(f"fused_joint_embed: H={h}, D={d} not supported "
-                         f"(H % {_THREADS} == 0, H <= {_MAX_HIDDEN}, "
-                         f"D <= {_MAX_FEAT})")
+                         f"(H <= {_MAX_HIDDEN}, D <= {_MAX_FEAT})")
     if feats.shape[0] != bsz or w.shape != (d, h) or any(
             p.shape != (h,) for p in (b, scale, bias)):
         raise ValueError(

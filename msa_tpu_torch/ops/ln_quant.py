@@ -15,7 +15,8 @@ writes (h, xi); without one it also computes the per-row scale
 max|h| / 127 + 1e-12 and returns it [..., 1].
 
 :func:`ln_quant` runs :func:`ln_quant_plain` for CPU tensors and launches
-the kernel (``csrc/ln_quant.cu``, H % 256 == 0 up to 2048) for CUDA ones;
+the kernel (``csrc/ln_quant.cu``; H a multiple of 64 up to 512, of 128 up
+to 1024 or of 256 up to 2048: :func:`supported_hidden`) for CUDA ones;
 ``ln_quant_static.launches`` and ``ln_quant_dynamic.launches`` count the
 launches.  Forward only: the serving path is never differentiated.
 """
@@ -31,8 +32,6 @@ import torch.nn.functional as F
 from .. import _build
 from .quant import quantize_act
 
-_CHUNK = 256       # H is a whole number of 256-column chunks ...
-_MAX_HIDDEN = 2048  # ... up to this many
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +40,17 @@ _SIGNATURES = {
     "msa_ln_quant_static": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     "msa_ln_quant_dynamic": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P),
 }
+
+
+def supported_hidden(h_dim: int) -> bool:
+    """Whether the kernel takes rows of ``h_dim`` columns: a team of 32, 16
+    or 8 lanes (the most that divide the row's 8-column chunks) holds a row,
+    at most 8 chunks a lane (``csrc/ln_quant.cu::team_lanes``)."""
+    if h_dim <= 0 or h_dim % 64:
+        return False
+    chunks = h_dim // 8
+    lanes = next(n for n in (32, 16, 8) if chunks % n == 0)
+    return chunks // lanes <= 8
 
 
 def ln_quant_plain(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
@@ -80,9 +90,9 @@ def _prepare(x, res, scale, bias, what):
     if x.dtype not in _DTYPES or res.dtype != x.dtype:
         raise TypeError(f"{what}: x {x.dtype} / res {res.dtype}; both must "
                         "be float32 or both bfloat16")
-    if h_dim % _CHUNK or h_dim > _MAX_HIDDEN:
-        raise ValueError(f"{what}: H={h_dim} not supported (H % {_CHUNK} == "
-                         f"0, H <= {_MAX_HIDDEN})")
+    if not supported_hidden(h_dim):
+        raise ValueError(f"{what}: H={h_dim} not supported (a multiple of 64 "
+                         "up to 512, of 128 up to 1024 or of 256 up to 2048)")
     if res.shape != x.shape or scale.shape != (h_dim,) or \
             bias.shape != (h_dim,):
         raise ValueError(f"{what}: shapes x {tuple(x.shape)}, res "

@@ -8,8 +8,9 @@ the JAX entry: q, k, v and the returned ctx are [B, S, H] in natural layout
 (heads are sliced inside the kernels), ``key_bias`` is an additive [B, S]
 f32 mask, the softmax runs in f32, no gradient flows to the bias or the
 seed.  The kernels (``csrc/short_attention.cu``) take float32 and bfloat16,
-S < 1024 and head dim 64 (bert-base and bert-large); the source's header
-says what bounds them on the H100 and how they are laid out.  JAX hands
+S < 1024 and head dim 32 or 64 (``HEAD_DIMS``: the ``tiny`` preset,
+bert-base and bert-large); the source's header says what bounds them on
+the H100 and how they are laid out.  JAX hands
 512 < S < 1024 to XLA under ``use_flash="auto"``; here these kernels take
 it (``ops/attention.py`` routes), and S >= 1024 goes to the blockwise
 flash2 kernels (``ops/flash2.py``).
@@ -77,7 +78,7 @@ from .. import _build
 from .dropout import byte_threshold
 
 MAX_SEQ = 1023
-HEAD_DIM = 64
+HEAD_DIMS = (32, 64)  # every attention kernel is instantiated for these
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -191,9 +192,7 @@ def _check(q, k, v, key_bias, num_heads, what, max_seq=MAX_SEQ):
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
-    if h % num_heads or h // num_heads != HEAD_DIM:
-        raise ValueError(f"{what}: head dim {h / num_heads:g} not supported "
-                         f"(the kernels take {HEAD_DIM})")
+    check_head_dim(h / num_heads, what)
     if max_seq is not None and s > max_seq:
         raise ValueError(f"{what}: S={s} > {max_seq}")
     for name, x in (("k", k), ("v", v)):
@@ -204,6 +203,18 @@ def _check(q, k, v, key_bias, num_heads, what, max_seq=MAX_SEQ):
                                  or key_bias.device != q.device):
         raise ValueError(f"{what}: key_bias {tuple(key_bias.shape)} on "
                          f"{key_bias.device}, want ({b}, {s}) on {q.device}")
+
+
+def check_head_dim(d, what):
+    """Raise unless ``d`` is a head dim the attention kernels take."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d:g} not supported (the kernels "
+                         f"take {' or '.join(map(str, HEAD_DIMS))})")
+
+
+def softmax_scale(hidden: int, num_heads: int) -> float:
+    """1 / sqrt(d), the scores' scale at head dim d = hidden / num_heads."""
+    return 1.0 / math.sqrt(hidden // num_heads)
 
 
 def _aligned(*xs, what="short_attention"):
@@ -253,7 +264,7 @@ def launch_forward(entry, what, q, k, v, key_bias, num_heads, seed,
     code = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), _ptr(lse), *f32, b, s, h,
-        num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        num_heads, _DTYPES[q.dtype], softmax_scale(h, num_heads),
         *_seed_words(seed), threshold, _stream(q))
     _build.check(code, what)
     return out, lse, ctx32
@@ -271,18 +282,20 @@ def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
 
 
 def tensor_core_backward(seq: int, dtype: torch.dtype) -> bool:
-    """Whether the v2, v2p and v3 backwards at (S, dtype) are one
+    """Whether the v2, v2p, v3 and v2s backwards at (S, dtype) are one
     tensor-core launch (bf16 at S <= 128, ``csrc/short_bwd_tc.cuh``, which
-    recomputes each row's softmax: the forward keeps no lse for it), else
-    the CUDA-core dq and dk/dv pair (``csrc/short_attention.cu::
-    bwd_dispatch`` takes the same rule)."""
+    recomputes each row's softmax or reads v2s's probs: the forward keeps
+    no lse for it), else the CUDA-core dq and dk/dv pair
+    (``csrc/short_attention.cu::tc_backward`` takes the same rule)."""
     return dtype == torch.bfloat16 and seq <= TC_BWD_MAX_SEQ
 
 
 def backward_launches(seq: int, dtype: torch.dtype) -> int:
     """Kernel launches of one :func:`short_attention_backward`,
-    :func:`short_attention_packed_backward` or
-    :func:`short_attention_v3_backward` call (:func:`tensor_core_backward`)."""
+    :func:`short_attention_packed_backward`,
+    :func:`short_attention_v3_backward` or
+    :func:`short_attention_probs_backward` call
+    (:func:`tensor_core_backward`)."""
     return 1 if tensor_core_backward(seq, dtype) else 2
 
 
@@ -318,7 +331,7 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         dout.data_ptr(), _ptr(lse), _ptr(delta), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed), byte_threshold(rate),
+        softmax_scale(h, num_heads), *_seed_words(seed), byte_threshold(rate),
         _stream(q))
     _build.check(code, "short_attention_backward")
     short_attention_backward.launches += backward_launches(s, q.dtype)
@@ -367,7 +380,7 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
+        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_v3_backward")
     short_attention_v3_backward.launches += backward_launches(s, q.dtype)
@@ -568,8 +581,12 @@ def _grads_from_probs_plain(q, k, v, p, dout, num_heads, rate, keep,
 def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
                                    rate: float = 0.0):
     """dq, dk, dv of :func:`short_attention_probs` from the forward's signed
-    probs (CUDA only): two launches, dq (which writes delta = sum p * dpm)
-    then dk/dv.  No score, softmax or Philox draw is recomputed."""
+    probs (CUDA only), by JAX's ``_bwd_kernel_v2s`` rule (plain version:
+    :func:`short_attention_probs_backward_plain`).  No score, softmax or
+    Philox draw is recomputed.  bf16 at S <= 128: one tensor-core launch
+    that reads p and the keep bit from the probs; otherwise two, dq (which
+    writes delta = sum p * dpm to scratch) then dk/dv
+    (:func:`tensor_core_backward`)."""
     _check(q, k, v, None, num_heads, "short_attention_probs_backward")
     b, s, h = q.shape
     if probs.shape != (b, num_heads, s, probs_width(s)) or \
@@ -578,17 +595,17 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
                          f"{tuple(probs.shape)} {probs.dtype} / dout "
                          f"{tuple(dout.shape)} do not fit q {tuple(q.shape)}")
     q, k, v, probs, dout = _aligned(q, k, v, probs, dout.to(q.dtype))
-    delta = torch.empty((b, num_heads, s), dtype=torch.float32,
-                        device=q.device)
+    delta = None if tensor_core_backward(s, q.dtype) else torch.empty(
+        (b, num_heads, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_probs_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(),
-        dout.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dout.data_ptr(), _ptr(delta), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        1.0 / math.sqrt(HEAD_DIM), byte_threshold(rate), _stream(q))
+        softmax_scale(h, num_heads), byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_probs_backward")
-    short_attention_probs_backward.launches += 2
+    short_attention_probs_backward.launches += backward_launches(s, q.dtype)
     return dq, dk, dv
 
 
@@ -603,7 +620,7 @@ def _probs_forward_kernel(q, k, v, key_bias, num_heads, seed, rate):
     code = lib.msa_short_attention_probs_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), probs.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed),
+        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_probs")
     short_attention_probs.launches += 1
@@ -723,8 +740,9 @@ def _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold, train):
     lib = _build.load("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_packed_fwd(
         qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), _ptr(lse), b, s,
-        h3 // 3, num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
-        *_seed_words(seed), threshold, _stream(qkv))
+        h3 // 3, num_heads, _DTYPES[qkv.dtype],
+        softmax_scale(h3 // 3, num_heads), *_seed_words(seed), threshold,
+        _stream(qkv))
     _build.check(code, "short_attention_packed")
     short_attention_packed.launches += 1
     return out, lse
@@ -757,7 +775,7 @@ def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
     code = lib.msa_short_attention_packed_bwd(
         qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, s, h3 // 3,
-        num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        num_heads, _DTYPES[qkv.dtype], softmax_scale(h3 // 3, num_heads),
         *_seed_words(seed), byte_threshold(rate), _stream(qkv))
     _build.check(code, "short_attention_packed_backward")
     short_attention_packed_backward.launches += backward_launches(s, qkv.dtype)
@@ -850,7 +868,7 @@ def _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, threshold):
     code = lib.msa_short_attention_v1_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        1.0 / math.sqrt(HEAD_DIM), *_seed_words(seed), threshold, _stream(q))
+        softmax_scale(h, num_heads), *_seed_words(seed), threshold, _stream(q))
     _build.check(code, "short_attention_v1")
     short_attention_v1.launches += 1
     return out
@@ -876,7 +894,7 @@ def short_attention_v1_backward(q, k, v, key_bias, dout, num_heads: int,
     code = lib.msa_short_attention_v1_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
-        num_heads, _DTYPES[q.dtype], 1.0 / math.sqrt(HEAD_DIM),
+        num_heads, _DTYPES[q.dtype], softmax_scale(h, num_heads),
         *_seed_words(seed), byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_v1_backward")
     short_attention_v1_backward.launches += 1

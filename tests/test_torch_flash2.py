@@ -9,6 +9,15 @@ them, with both of its backward routes.  Inputs come from numpy seeds.
 Tolerances (JAX's own ``test_flash2.py`` bounds): forward atol = rtol =
 1e-5 in f32, gradients 2e-4 -- the same function summed in another order
 (JAX in base-2 blocks with an online softmax, the port in one einsum).
+The rounded backward rule ``flash_attention2_backward_plain`` (the CUDA
+kernels' oracle) against JAX's bf16 gradients within 2e-3 absolute and
+8e-3 relative, two bf16 ulps (as test_torch_short_attention_v2_bwd.py):
+both sides round dS and pd to bf16, and a sum taken in another order can
+move a rounded dS to its neighbour.  Head dim 64 (H = 128) and 32 (H =
+64, ``-d32``).  Under dropout the two frameworks draw other masks, so the
+rule's dropout order is held here against a dense copy of JAX's fused
+backward in jnp on one shared mask, and against the kernels by
+chip_smoke.py.
 """
 
 import numpy as np
@@ -29,6 +38,7 @@ from msa_tpu_torch.utils.flops import mmbert_step_flops
 
 FWD_TOL = 1e-5
 GRAD_TOL = 2e-4
+BF16_TOL = (2e-3, 8e-3)  # (atol, rtol)
 HEADS = 2
 
 
@@ -51,8 +61,11 @@ def small_blocks(monkeypatch):
 
 
 @pytest.mark.parametrize("fused", [True, False])
-@pytest.mark.parametrize("s,blocks", [(200, "default"), (300, "128")])
-def test_flash2_plain_matches_jax_kernels(s, blocks, fused, monkeypatch,
+@pytest.mark.parametrize("s,blocks,h", [
+    pytest.param(200, "default", 128, id="200-default"),
+    pytest.param(300, "128", 128, id="300-128"),
+    pytest.param(200, "default", 64, id="200-default-d32")])
+def test_flash2_plain_matches_jax_kernels(s, blocks, h, fused, monkeypatch,
                                           request):
     """flash_attention2_plain's forward and gradients against JAX's
     flash_attention2 in interpret mode: S=200 pads one block, S=300 with
@@ -61,7 +74,7 @@ def test_flash2_plain_matches_jax_kernels(s, blocks, fused, monkeypatch,
     if blocks == "128":
         request.getfixturevalue("small_blocks")
     monkeypatch.setattr(jax_flash2, "_FUSED_BWD", fused)
-    q, k, v, dout, bias = inputs(2, s, 128, seed=s)
+    q, k, v, dout, bias = inputs(2, s, h, seed=s)
 
     def jax_fwd(q, k, v):
         return jax_flash2.flash_attention2(q, k, v, jnp.asarray(bias), None,
@@ -79,6 +92,116 @@ def test_flash2_plain_matches_jax_kernels(s, blocks, fused, monkeypatch,
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_TOL,
                                    rtol=GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("fused,h", [
+    pytest.param(True, 128, id="fused"), pytest.param(False, 128, id="split"),
+    pytest.param(True, 64, id="fused-d32")])
+def test_flash2_rounded_backward_rule_matches_jax_bf16(fused, h, monkeypatch):
+    """flash_attention2_backward_plain in bf16 at rate 0, given JAX's bf16
+    output (its backward's ``o``) and the row lse in log2 units, against
+    jax.vjp of JAX's flash2 (interpret mode) through the fused kernel or
+    the split pair; and the rule with its roundings lies closer to JAX's
+    gradients than the same rule without them (the f32 gradient of the bf16
+    inputs), for every gradient."""
+    monkeypatch.setattr(jax_flash2, "_FUSED_BWD", fused)
+    q, k, v, dout, bias = inputs(2, 200, h, seed=7)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, dout))
+    jout, vjp = jax.vjp(lambda *x: jax_flash2.flash_attention2(
+        *x, jnp.asarray(bias), None, HEADS, 0.0, True), jq, jk, jv)
+    ref = [np.asarray(g, np.float32) for g in vjp(jdo)]
+    tq, tk, tv, tdo, tout = (torch.from_numpy(np.array(x, np.float32)).to(
+        torch.bfloat16) for x in (jq, jk, jv, jdo, jout))
+    tbias = torch.from_numpy(bias)
+    b, s, _ = tq.shape
+    split = lambda x: x.float().reshape(b, s, HEADS, -1)  # noqa: E731
+    logits = torch.einsum("bqnd,bknd->bnqk", split(tq), split(tk)) / np.sqrt(
+        h // HEADS) + tbias[:, None, None, :]
+    lse = torch.logsumexp(logits, -1) / np.log(2.0)
+    got = F2.flash_attention2_backward_plain(tq, tk, tv, tbias, tout, lse,
+                                             tdo, HEADS)
+    wide = F2.flash_attention2_backward_plain(
+        *(x.float() for x in (tq, tk, tv)), tbias, tout, lse, tdo.float(),
+        HEADS)
+    for name, g, w, r in zip(("dq", "dk", "dv"), got, wide, ref):
+        assert g.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(g.float().numpy(), r, atol=BF16_TOL[0],
+                                   rtol=BF16_TOL[1], err_msg=name)
+        err = np.abs(g.float().numpy() - r).max()
+        err_wide = np.abs(w.to(torch.bfloat16).float().numpy() - r).max()
+        assert err < err_wide, (name, err, err_wide)
+
+
+def jax_order_backward(q, k, v, bias, out, lse, dout, keep, rate, weak):
+    """JAX's ``_bwd_fused_kernel`` (msa_tpu/ops/flash2.py:355) in jnp on
+    dense [B, heads, S, S] tiles with a given keep mask: scores in the base-2
+    domain, p = exp2(s - lse), delta from the unscaled dO, then dO times
+    1 / (1 - rate) -- a weakly typed Python float as that kernel writes it
+    (``weak``), else an f32 array -- rounded to dO's dtype; pd the kept p
+    unscaled; dS and pd rounded to the dtype before their products."""
+    b, s, h = q.shape
+    d = h // HEADS
+    f32 = jnp.float32
+
+    def split(x):
+        return x.reshape(b, s, HEADS, d).transpose(0, 2, 1, 3)
+
+    qg, kg, vg, dog, og = map(split, (q, k, v, dout, out))
+    scale = 1.0 / np.sqrt(d)
+    log2e = 1.0 / np.log(2.0)
+    sc = jnp.einsum("bnqd,bnkd->bnqk", qg, kg, preferred_element_type=f32) \
+        * (scale * log2e) + (bias * log2e)[:, None, None, :]
+    p = jnp.exp2(sc - lse[..., None])
+    delta = jnp.sum(dog.astype(f32) * og.astype(f32), -1, keepdims=True)
+    inv = 1.0 / (1.0 - rate)
+    dog = (dog * (inv if weak else jnp.asarray(inv, f32))).astype(dog.dtype)
+    dp = jnp.einsum("bnqd,bnkd->bnqk", dog, vg, preferred_element_type=f32)
+    pd, dpm = jnp.where(keep, p, 0.0), jnp.where(keep, dp, 0.0)
+    ds = (p * (dpm - delta)).astype(q.dtype)
+    dv = jnp.einsum("bnqk,bnqd->bnkd", pd.astype(dog.dtype), dog,
+                    preferred_element_type=f32)
+    dk = jnp.einsum("bnqk,bnqd->bnkd", ds, qg,
+                    preferred_element_type=f32) * scale
+    dq = jnp.einsum("bnqk,bnkd->bnqd", ds, kg,
+                    preferred_element_type=f32) * scale
+    return [np.asarray(x.transpose(0, 2, 1, 3).reshape(b, s, h).astype(q.dtype),
+                       np.float32) for x in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("h", [pytest.param(128, id="d64"),
+                               pytest.param(64, id="d32")])
+def test_flash2_rounded_backward_rule_dropout_order(h):
+    """flash_attention2_backward_plain in bf16 under dropout (rate 26/256)
+    against :func:`jax_order_backward` on the same keep mask, the same f32
+    output and lse: within the bf16 tolerance, and nearer on average, in
+    every gradient, to JAX's order (the factor rounded to bf16 with dO) than
+    to the same order with the f32 factor."""
+    rate = 26 / 256
+    q, k, v, dout, bias = inputs(2, 40, h, seed=11)
+    keep = np.random.default_rng(12).random((2, HEADS, 40, 40)) >= rate
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, dout))
+    tbias, tkeep = torch.from_numpy(bias), torch.from_numpy(keep)
+    out = F2.flash_attention2_plain(*(x.float() for x in (tq, tk, tv)), tbias,
+                                    HEADS, rate, tkeep)
+    b, s, _ = tq.shape
+    split = lambda x: x.float().reshape(b, s, HEADS, -1)  # noqa: E731
+    logits = torch.einsum("bqnd,bknd->bnqk", split(tq), split(tk)) / np.sqrt(
+        h // HEADS) + tbias[:, None, None, :]
+    lse = torch.logsumexp(logits, -1) / np.log(2.0)
+    got = F2.flash_attention2_backward_plain(tq, tk, tv, tbias, out, lse, tdo,
+                                             HEADS, rate, tkeep)
+    jx = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (tq, tk, tv,
+                                                                 tdo)]
+    args = (*jx[:3], jnp.asarray(bias), jnp.asarray(out.numpy()),
+            jnp.asarray(lse.numpy()), jx[3], jnp.asarray(keep), rate)
+    ref = jax_order_backward(*args, weak=True)
+    strong = jax_order_backward(*args, weak=False)
+    for name, g, r, f in zip(("dq", "dk", "dv"), got, ref, strong):
+        g = g.float().numpy()
+        np.testing.assert_allclose(g, r, atol=BF16_TOL[0], rtol=BF16_TOL[1],
+                                   err_msg=name)
+        assert np.abs(g - r).mean() < np.abs(g - f).mean(), name
 
 
 @pytest.mark.parametrize("dtype,s,fused", [

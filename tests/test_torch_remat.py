@@ -6,7 +6,8 @@ pairs on the CPU, against the JAX package.
   (Pallas in interpret mode) at rate 0, and the signed-probs backward
   against autograd through the plain attention with a keep mask.
   Tolerances: f32 forward 1e-5, gradients 1e-4 (the same math, summed in
-  another order; JAX's kernels in base-2 softmax blocks); the bf16 v2s and
+  another order; JAX's kernels in base-2 softmax blocks), at head dim 64
+  and (``-d32``, H = 64) 32 for the entries' gradients; the bf16 v2s and
   v2p forwards 2e-2 absolute and relative (both sides round pd and the
   outputs to bf16, from probabilities a base-2 and a natural softmax
   compute a few f32 ulps apart: an occasional one-ulp step of a bf16 value
@@ -144,16 +145,23 @@ def assert_grads_close(got, ref, dtype, names):
                                    atol=atol, rtol=rtol, err_msg=name)
 
 
-@pytest.mark.parametrize("s, dtype", [
-    pytest.param(12, "float32", id="12"), pytest.param(40, "float32", id="40"),
-    pytest.param(12, "bfloat16", id="12-bfloat16"),
-    pytest.param(40, "bfloat16", id="40-bfloat16")])
-def test_probs_entry_grads_match_jax_v2s(s, dtype):
+# (S, dtype, H) of the entries' parity cases: head dim 64, and 32 at the
+# tiny preset's H = 64
+ENTRY_CASES = [
+    pytest.param(12, "float32", 128, id="12"),
+    pytest.param(40, "float32", 128, id="40"),
+    pytest.param(12, "bfloat16", 128, id="12-bfloat16"),
+    pytest.param(40, "bfloat16", 128, id="40-bfloat16"),
+    pytest.param(40, "bfloat16", 64, id="40-bfloat16-d32")]
+
+
+@pytest.mark.parametrize("s, dtype, h", ENTRY_CASES)
+def test_probs_entry_grads_match_jax_v2s(s, dtype, h):
     """The v2s pair on CPU tensors (the plain forward stashing the probs,
     the plain backward reading them) against jax.vjp through
     short_attention_v2s (its _bwd_kernel_v2s), rate 0, both on the same
     values in ``dtype`` (bf16: both round dS and pd)."""
-    q, k, v, dout, bias = attention_inputs(3, s, 128, seed=10 + s)
+    q, k, v, dout, bias = attention_inputs(3, s, h, seed=10 + s)
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = jax_and_port((q, k, v, dout), dtype)
     _, vjp = jax.vjp(lambda *x: short_attention_v2s(
         *x, jnp.asarray(bias), None, HEADS, 0.0, True), jq, jk, jv)
@@ -185,17 +193,14 @@ def test_probs_backward_with_dropout_matches_autograd():
         torch.testing.assert_close(g, r, atol=FWD_TOL, rtol=FWD_TOL, msg=name)
 
 
-@pytest.mark.parametrize("s, dtype", [
-    pytest.param(12, "float32", id="12"), pytest.param(40, "float32", id="40"),
-    pytest.param(12, "bfloat16", id="12-bfloat16"),
-    pytest.param(40, "bfloat16", id="40-bfloat16")])
-def test_packed_entry_matches_jax_v2p(s, dtype):
+@pytest.mark.parametrize("s, dtype, h", ENTRY_CASES)
+def test_packed_entry_matches_jax_v2p(s, dtype, h):
     """The v2p pair on a CPU qkv [B, S, 3H] (plain forward, plain packed
     backward: JAX's _bwd_kernel_v2p rule, delta from each side's own ctx,
     dS and pd rounded to bf16 in bf16) against JAX's short_attention_v2p
     (interpret mode), rate 0, on the same values in ``dtype``: the output,
     and the gradient of qkv as one [B, S, 3H] tensor."""
-    q, k, v, dout, bias = attention_inputs(3, s, 128, seed=20 + s)
+    q, k, v, dout, bias = attention_inputs(3, s, h, seed=20 + s)
     (jqkv, jdo), (tqkv, tdo) = jax_and_port(
         (np.concatenate([q, k, v], axis=-1), dout), dtype)
     jout, vjp = jax.vjp(lambda x: short_attention_v2p(

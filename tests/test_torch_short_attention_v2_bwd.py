@@ -7,7 +7,8 @@
   (``_bwd_kernel``).  It is held against ``jax.vjp`` of
   ``short_attention_v2`` (JAX's switch ``_USE_V3_BWD`` off, its Pallas
   kernels in interpret mode) on inputs with a fully masked, a partly
-  masked and a live batch row: in f32 within the v2 parity tests' 2e-5
+  masked and a live batch row, at head dim 64 and (``-d32``, H = 64) 32:
+  in f32 within the v2 parity tests' 2e-5
   (test_torch_ops_grad.py: the same math in another summation order); in
   bf16 within 2e-3 absolute and 8e-3 relative (two bf16 ulps, as
   test_torch_short_attention_v3.py): both sides round the same products,
@@ -15,7 +16,7 @@
   neighbour.
 * The rounding is what holds it there: the same rule without it (the f32
   gradient of the bf16 inputs) lies further from JAX's bf16 gradients.
-* ``tensor_core_backward`` / ``backward_launches``: the v2 and v2p
+* ``tensor_core_backward`` / ``backward_launches``: the v2, v2p and v2s
   backwards, like v3's, are one tensor-core launch for bf16 at S <= 128
   and the CUDA-core pair otherwise, the bound the CUDA template states.
 """
@@ -40,10 +41,10 @@ DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def jax_v2_grads(s, dtype, seed):
-    """The inputs as torch tensors of ``dtype`` (the values JAX sees) and
-    JAX's v2 gradients of them, f32."""
-    q, k, v, dout, bias = attention_inputs(3, s, 128, seed=seed)
+def jax_v2_grads(s, dtype, seed, h=128):
+    """The inputs ([3, s, h], HEADS heads) as torch tensors of ``dtype``
+    (the values JAX sees) and JAX's v2 gradients of them, f32."""
+    q, k, v, dout, bias = attention_inputs(3, s, h, seed=seed)
     jdt, tdt = DTYPES[dtype]
     jq, jk, jv, jdo = (jnp.asarray(x, jdt) for x in (q, k, v, dout))
     _, vjp = jax.vjp(lambda *x: jax_sa.short_attention_v2(
@@ -54,11 +55,16 @@ def jax_v2_grads(s, dtype, seed):
     return (*port, torch.from_numpy(bias)), ref
 
 
+# (S, H): head dim 64, and 32 at the tiny preset's H = 64
+SHAPES = [pytest.param(12, 128, id="12"), pytest.param(40, 128, id="40"),
+          pytest.param(40, 64, id="40-d32")]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [12, 40])
-def test_v2_backward_rule_matches_jax_v2(monkeypatch, s, dtype):
+@pytest.mark.parametrize("s, h", SHAPES)
+def test_v2_backward_rule_matches_jax_v2(monkeypatch, s, h, dtype):
     monkeypatch.setattr(jax_sa, "_USE_V3_BWD", False)
-    (q, k, v, dout, bias), ref = jax_v2_grads(s, dtype, seed=30 + s)
+    (q, k, v, dout, bias), ref = jax_v2_grads(s, dtype, seed=30 + s, h=h)
     got = sa.short_attention_v1_backward_plain(q, k, v, bias, dout, HEADS)
     atol, rtol = (GRAD_TOL, GRAD_TOL) if dtype == "float32" else BF16_TOL
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
@@ -67,13 +73,14 @@ def test_v2_backward_rule_matches_jax_v2(monkeypatch, s, dtype):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("s", [12, 40])
-def test_v2_backward_rounding_is_jax_s(monkeypatch, s):
+@pytest.mark.parametrize("s, h", SHAPES)
+def test_v2_backward_rounding_is_jax_s(monkeypatch, s, h):
     """In bf16 the rule with its roundings lies closer to JAX's gradients
     than the same rule without them (the f32 gradient of the bf16 inputs),
     for every gradient: the roundings are JAX's, not noise around them."""
     monkeypatch.setattr(jax_sa, "_USE_V3_BWD", False)
-    (q, k, v, dout, bias), ref = jax_v2_grads(s, "bfloat16", seed=30 + s)
+    (q, k, v, dout, bias), ref = jax_v2_grads(s, "bfloat16", seed=30 + s,
+                                              h=h)
     rounded = sa.short_attention_v1_backward_plain(q, k, v, bias, dout, HEADS)
     wide = sa.short_attention_v1_backward_plain(
         *(x.float() for x in (q, k, v)), bias, dout.float(), HEADS)
@@ -84,7 +91,8 @@ def test_v2_backward_rounding_is_jax_s(monkeypatch, s):
 
 
 @pytest.mark.parametrize("entry", ["short_attention_backward",
-                                   "short_attention_packed_backward"])
+                                   "short_attention_packed_backward",
+                                   "short_attention_probs_backward"])
 @pytest.mark.parametrize("dtype,seq,launches", [
     (torch.bfloat16, 1, 1), (torch.bfloat16, 80, 1), (torch.bfloat16, 128, 1),
     (torch.bfloat16, 129, 2), (torch.bfloat16, 1023, 2),
@@ -92,7 +100,8 @@ def test_v2_backward_rounding_is_jax_s(monkeypatch, s):
 def test_v2_backward_launches(entry, dtype, seq, launches):
     """bf16 at S <= 128 is one tensor-core launch (the forward then keeps
     no lse); f32 and bf16 above 128 keys are the CUDA-core dq and dk/dv
-    pair.  Each entry counts its launches by this rule."""
+    pair.  Each entry counts its launches by this rule
+    (test_torch_head_dims.py runs the v2s entry's count)."""
     assert sa.tensor_core_backward(seq, dtype) == (launches == 1), entry
     assert sa.backward_launches(seq, dtype) == launches, entry
 
