@@ -5,10 +5,11 @@
     python3 chip_smoke.py --flash-times ROOT
 
 Run from the root of a checkout.  ``--flash-times ROOT`` only times the
-flash backwards (:func:`time_flash_backwards`) of the checkout at ROOT
-(this one's or another's, whose kernels build into ROOT/build/), so two
-trees are timed by the same code in one run.  With no argument,  In order, and stopping at the first
-failure (no phase catches its own), the script:
+flash kernels and the joint embed (:func:`time_flash_backwards`) of the
+checkout at ROOT (this one's or another's, whose kernels build into
+ROOT/build/), so two trees are timed by the same code in one run.  With no
+argument, in order, and stopping at the first failure (no phase catches
+its own), the script:
 
   1. requires CUDA and prints the card's name and power limit;
   2. builds the CUDA kernels from msa_tpu_torch/csrc with nvcc (sm_90a),
@@ -16,7 +17,9 @@ failure (no phase catches its own), the script:
      wall time and what ptxas reports (registers, static shared memory,
      spills) for the bf16 tensor-core kernels of the short attention (the
      v1, v2, v2p and v2s forwards, the v1, v2, v2p, v3 and v2s backwards,
-     each at head dim 32 and 64);
+     each at head dim 32 and 64) and for the joint embed's tiles and
+     flash2's bf16 fused backward and its pre-pass, none of which may
+     spill;
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -33,7 +36,8 @@ failure (no phase catches its own), the script:
      * the dropout mask: the export kernel against its plain Philox, the
        keep share, the forward with dropout against the plain version given
        that mask, and seed determinism;
-     * the fused joint embedding;
+     * the fused joint embedding, also at its tile edges (B=3, Lp=37 at H =
+       768, 1000 and 1001, D = 47, 74 and 371);
      * the fused residual + LayerNorm + int8 quantize, static and dynamic,
        at the int8 serving path's row counts;
      * the flash2 forward (frame-level joint shape [32, 1024] in bf16, f32,
@@ -41,8 +45,8 @@ failure (no phase catches its own), the script:
        forced, against JAX's rule with its roundings
        (``flash_attention2_backward_plain``), against autograd through the
        plain version in f32 and against each other, with and without
-       dropout, and its dropout against the short kernel's at S=768 under
-       one seed;
+       dropout (also at S = 1000 and 2048, both fused by JAX's rule), and
+       its dropout against the short kernel's at S=768 under one seed;
      * the '+probs' (v2s) and 'save_pack' (v2p) pairs at the text and
        joint shapes: the v2s forward's ctx and signed probs (their signs
        the exported keep mask) and its backward from its own probs against
@@ -73,8 +77,11 @@ failure (no phase catches its own), the script:
        its bf16 forward (tensor cores) also at S = 8 and 128;
   3b. probes flash2's fused-backward dq at [32, 1024] bf16 on four more
      inputs: its distance to f32 autograd and to the rounded rule; times
-     the flash backwards (flash2 fused and split, the head-split pair) at
-     [32, 1024, 1024] bf16, rate 0 and the training dropout;
+     the flash kernels (flash2's forward, its fused and split backwards,
+     the head-split pair) at [32, 1024, 1024] bf16, rate 0 and the
+     training dropout, flash2's backwards at head dim 32 and the joint
+     embed at H = 1024 and 64, and the fused route's device time by kernel
+     (``torch.profiler``);
   3c. runs every kernel phase of 3 (but the dropout export and AdamW)
      again at head dim 32 (H = 64, 2 heads), ln_quant and the joint embed
      at H = 64;
@@ -182,9 +189,9 @@ import time
 #    whose f32 ulp (2^-10) quantises the scores differently in the kernels'
 #    base-2 domain and the plain natural one.
 #  * flash2's fused backward sums dq over key blocks by f32 atomics, in an
-#    order that changes from run to run: S/64 partial sums in f32, ~1e-7
-#    relative, far inside the gradient tolerances; fused and split agree
-#    within them too.
+#    order that changes from run to run: S/128 partial sums in bf16 (S/64
+#    in f32) in f32, ~1e-7 relative, far inside the gradient tolerances;
+#    fused and split agree within them too.
 ATTN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-2)}
 MASKED_ROW_ATOL = 1e-2
@@ -779,6 +786,22 @@ def phase_dropout(gen):
             "bound": bound, "err": worst}
 
 
+def joint_embed_args(gen, batch, lp, d, h, dtype):
+    """Random inputs of the joint embed: text [batch, TEXT_LEN, h], frames
+    [batch, lp, d] (batch row 1 padded from frame 30), W, b, LN scale and
+    bias; the last element is eps."""
+    import torch
+
+    text = torch.randn(batch, TEXT_LEN, h, device="cuda",
+                       generator=gen).to(dtype)
+    feats = torch.randn(batch, lp, d, device="cuda", generator=gen).to(dtype)
+    feats[1, 30:] = 0.0  # padded frames
+    w = torch.randn(d, h, device="cuda", generator=gen) * 0.05
+    b, scale, bias = (torch.randn(h, device="cuda", generator=gen) * s + m
+                      for s, m in ((0.02, 0.0), (0.1, 1.0), (0.1, 0.0)))
+    return text, feats, w, b, scale, bias, 1e-12
+
+
 def phase_joint_embed(gen):
     import torch
     import torch.nn.functional as F
@@ -788,6 +811,25 @@ def phase_joint_embed(gen):
 
     eps = 1e-12
     worst, times = 0.0, {}
+    # the kernel's tile edges, checked, not timed: B * Lp = 111 frame rows
+    # (not a multiple of any tile's R), bert-base's H = 768, a ragged H =
+    # 1000 and H = 1001 (no 16-byte vectors), D = 371 (six rounds of
+    # staged features), from a generator of their own
+    egen = torch.Generator(device="cuda").manual_seed(13)
+    for d, h in ((47, 768), (371, 768), (74, 1000), (371, 1000), (47, 1001)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            args = joint_embed_args(egen, 3, 37, d, h, dtype)
+            out = fused_joint_embed(*args)
+            ref = fused_joint_embed_plain(*args)
+            torch.cuda.synchronize()
+            atol, rtol = EMBED_TOL[dname]
+            worst = max(worst, check_close(
+                f"fused_joint_embed [3,{TEXT_LEN}+37,{h}] D={d} {dname}", out,
+                ref, atol, rtol))
+    print(f"fused_joint_embed tile edges (B=3, Lp=37; H = 768, 1000, 1001; "
+          f"D = 47, 74, 371; bf16 and f32): max_abs_err {worst:.3e}",
+          flush=True)
     # MOSI (47, 74) and UR-FUNNY (371) widths at Lp = L, one Lp != L, and
     # the frame-level rows (B=16 x Lp=984) at the MOSI widths
     for d, lp, batch in ((47, TEXT_LEN, BATCH), (74, TEXT_LEN, BATCH),
@@ -796,15 +838,8 @@ def phase_joint_embed(gen):
                          (74, FRAME_PAIR_LEN, FRAME_BATCH)):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
-            text = torch.randn(batch, TEXT_LEN, HIDDEN, device="cuda",
-                               generator=gen).to(dtype)
-            feats = torch.randn(batch, lp, d, device="cuda",
-                                generator=gen).to(dtype)
-            feats[1, 30:] = 0.0  # padded frames
-            w = torch.randn(d, HIDDEN, device="cuda", generator=gen) * 0.05
-            b, scale, bias = (torch.randn(HIDDEN, device="cuda", generator=gen)
-                              * s + m for s, m in ((0.02, 0.0), (0.1, 1.0),
-                                                   (0.1, 0.0)))
+            text, feats, w, b, scale, bias, _ = joint_embed_args(
+                gen, batch, lp, d, HIDDEN, dtype)
             args = (text, feats, w, b, scale, bias, eps)
             out = fused_joint_embed(*args)
             ref = fused_joint_embed_plain(*args)
@@ -1019,18 +1054,26 @@ def phase_flash2_backward(gen):
 
     rate_on = quantize_dropout_rate(ATTN_DROPOUT)
     s_frame = TEXT_LEN + FRAME_PAIR_LEN
-    # (label, B, S, dtype, rate, the route timed)
-    cases = [("frame", 2 * FRAME_BATCH, s_frame, torch.bfloat16, 0.0, True),
-             ("s4096", 2, 4096, torch.bfloat16, 0.0, False),
-             ("frame", 2, s_frame, torch.float32, 0.0, False),
-             ("frame", 2, s_frame, torch.bfloat16, rate_on, True),
-             ("frame", 2, s_frame, torch.float32, rate_on, False)]
+    # (label, B, S, dtype, rate, the route timed at rate 0 (None: neither),
+    # generator); the fused kernel's edges (S = 1000: a ragged last key
+    # block and query tile; 2048: 16 key blocks, both fused by JAX's rule)
+    # from a generator of their own, so the later phases draw their old
+    # inputs
+    egen = torch.Generator(device="cuda").manual_seed(14)
+    cases = [("frame", 2 * FRAME_BATCH, s_frame, torch.bfloat16, 0.0, True, gen),
+             ("s4096", 2, 4096, torch.bfloat16, 0.0, False, gen),
+             ("frame", 2, s_frame, torch.float32, 0.0, False, gen),
+             ("frame", 2, s_frame, torch.bfloat16, rate_on, True, gen),
+             ("frame", 2, s_frame, torch.float32, rate_on, False, gen)]
+    cases += [(f"s{s}", 2, s, torch.bfloat16, rate, None, egen)
+              for s in (1000, 2048) for rate in (0.0, rate_on)]
     worst = {True: 0.0, False: 0.0}
     times = {}
-    for label, b, s, dtype, rate, timed in cases:
+    for label, b, s, dtype, rate, timed, cgen in cases:
         dname = str(dtype).split(".")[1]
-        q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
-        dout = torch.randn(b, s, HIDDEN, device="cuda", generator=gen).to(dtype)
+        q, k, v, bias, live = attention_inputs(cgen, b, s, dtype)
+        dout = torch.randn(b, s, HIDDEN, device="cuda",
+                           generator=cgen).to(dtype)
         seed = 4321 + s
         keep = (keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
                 if rate else None)
@@ -1041,7 +1084,7 @@ def phase_flash2_backward(gen):
             worst[fused] = max(worst[fused], errs[fused])
         gatol, grtol = GRAD_TOL[dname]
         timing = ""
-        if rate == 0.0:
+        if rate == 0.0 and timed is not None:
             ms, other_ms = (cuda_ms(lambda: flash_attention2_backward(
                 q, k, v, bias, o32, lse, dout, HEADS, seed, rate,
                 fused=route), iters=10) for route in (timed, not timed))
@@ -1138,18 +1181,23 @@ def probe_flash2_dq():
 
 
 def time_flash_backwards():
-    """Device ms of the flash backwards at the frame-level joint shape [2 x
+    """Device ms of the flash kernels at the frame-level joint shape [2 x
     FRAME_BATCH, 1024, 1024] bf16 (16 heads), at rate 0 and at the training
-    dropout: flash2's fused and split routes and the head-split pair (row
-    13), each from its own training forward's output and lse at that rate.
-    It calls only entry points that every tree of the port has had since
-    row 13 was ported, so ``--flash-times ROOT`` times another checkout's
-    kernels by this code.  Prints and returns {label: ms}."""
+    dropout: flash2's training forward (row 10), its fused and split
+    backward routes (rows 11, 12) and the head-split forward and backward
+    pair (row 13), each backward from its own training forward's output and
+    lse at that rate; flash2's fused and split backwards at head dim 32
+    ([32, 1024, 64], rate 0); and the joint embed (row 2) at [96, 40+40,
+    1024] and [96, 40+40, 64], D = 47.  It calls only entry points that
+    every tree of the port has had since row 13 was ported, so
+    ``--flash-times ROOT`` times another checkout's kernels by this code.
+    Prints and returns {label: ms}."""
     import torch
 
     from msa_tpu_torch.ops import attention as A
     from msa_tpu_torch.ops import flash2 as F2
     from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+    from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
 
     b, s, h, heads = 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN, 1024, 16
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1162,18 +1210,62 @@ def time_flash_backwards():
     for rate in (0.0, quantize_dropout_rate(ATTN_DROPOUT)):
         t = byte_threshold(rate)
         _, lse, out32 = F2._forward_kernel(q, k, v, bias, heads, 7, t, True)
+        times[f"flash2 fwd rate {rate:g}"] = cuda_ms(
+            lambda: F2._forward_kernel(q, k, v, bias, heads, 7, t, True),
+            iters=10)
         for fused in (True, False):
             times[f"flash2 {'fused' if fused else 'split'} rate {rate:g}"] = \
                 cuda_ms(lambda: F2.flash_attention2_backward(
                     q, k, v, bias, out32, lse, dout, heads, 7, rate,
                     fused=fused), iters=10)
         out, lse_h = A._forward_kernel(qh, kh, vh, bias, 7, t, True)
+        times[f"row 13 fwd rate {rate:g}"] = cuda_ms(
+            lambda: A._forward_kernel(qh, kh, vh, bias, 7, t, True), iters=10)
         times[f"row 13 rate {rate:g}"] = cuda_ms(
             lambda: A.flash_attention_backward(qh, kh, vh, bias, out, lse_h,
                                                doh, 7, rate), iters=10)
-    print(f"flash backwards [{b},{s},{h}] bfloat16, ms: "
+    q32, k32, v32, do32 = (x[..., :64].contiguous() for x in (q, k, v, dout))
+    _, lse, out32 = F2._forward_kernel(q32, k32, v32, bias, 2, 7, 0, True)
+    for fused in (True, False):
+        times[f"flash2 {'fused' if fused else 'split'} d32 rate 0"] = \
+            cuda_ms(lambda: F2.flash_attention2_backward(
+                q32, k32, v32, bias, out32, lse, do32, 2, 7, 0.0,
+                fused=fused), iters=10)
+    for hid in (1024, 64):
+        args = joint_embed_args(gen, BATCH, TEXT_LEN, 47, hid, torch.bfloat16)
+        times[f"joint embed H={hid}"] = cuda_ms(
+            lambda: fused_joint_embed(*args))
+    print(f"flash kernels [{b},{s},{h}] and the joint embed, bfloat16, ms: "
           f"{json.dumps(times)}", flush=True)
+    _, lse, out32 = F2._forward_kernel(q, k, v, bias, heads, 7, 0, True)
+    parts = device_ms_by_kernel(lambda: F2.flash_attention2_backward(
+        q, k, v, bias, out32, lse, dout, heads, 7, 0.0, fused=True))
+    print(f"flash2 fused route [{b},{s},{h}] bfloat16 rate 0, device ms a call "
+          f"by kernel: {json.dumps(parts)}", flush=True)
     return times
+
+
+def device_ms_by_kernel(fn, calls: int = 5):
+    """Device ms a call of ``fn`` for each kernel it launches (by name, cut
+    before its template arguments), from ``torch.profiler`` over ``calls``
+    calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name, 1)[0]
+            name = name.split("::")[-1]
+            parts[name] = parts.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {name: round(ms / calls, 4) for name, ms in parts.items()}
 
 
 def phase_head_dim_32():
@@ -2468,9 +2560,9 @@ def rung_launches(policy, layers, steps, frame=False, fused=True):
     else:
         counts.update(short_attention=again * short_calls,
                       short_attention_backward=bwd)
-    if frame:
+    if frame:  # either flash2 backward route is two launches a layer
         counts.update(flash_attention2=again * layers,
-                      flash2_bwd_fused=layers if fused else 0,
+                      flash2_bwd_fused=2 * layers if fused else 0,
                       flash2_bwd_split=0 if fused else 2 * layers)
     return expect_counts(**{k: v * steps for k, v in counts.items()})
 
@@ -3763,6 +3855,68 @@ def report_tc_resources(usage):
                                  "keeps a stack frame")
 
 
+# The redesigned kernels of rows 2 and 11 (the joint embed's
+# tiles, flash2's bf16 fused sweep and its delta pre-pass): none may spill
+# or keep a stack frame.  Their threads a CTA, the fused sweep's dynamic
+# shared memory by head dim (csrc/flash_kernels.cuh::fused_tc_smem_bytes)
+# and the H100's registers and shared memory per SM, for the CTAs an SM
+# holds.
+REDESIGNED = re.compile(r"(fused_joint_embed_kernel|flash2_bwd_fused_kernel|"
+                        r"flash2_bwd_prep_kernel)I")
+REDESIGNED_THREADS = {"fused_joint_embed_kernel": 256,
+                      "flash2_bwd_fused_kernel": 128, "flash2_bwd_prep_kernel": 256}
+FUSED_TC_SMEM = {64: 93184, 32: 60416}
+SM_REGISTERS, SM_SMEM, SM_SMEM_PER_CTA = 65536, 233472, 1024
+
+
+def template_args(kernel, match):
+    """The template arguments of a mangled kernel name after ``match`` (a
+    match ending at its 'I'): bf16 / f32 types and integer or bool values."""
+    tail, args = kernel[match.end():], []
+    while tail and tail[0] != "E":
+        if tail.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+            tail = tail[15:]
+        elif tail[0] == "f":
+            args.append("f32")
+            tail = tail[1:]
+        else:
+            m = re.match(r"L[ib](\d+)E", tail)
+            args.append(m.group(1))
+            tail = tail[m.end():]
+    return args
+
+
+def report_redesigned(usage):
+    """Print ptxas's registers and spills for each instantiation of the
+    redesigned kernels, with the CTAs an SM holds by registers (and, for
+    the fused sweep, by shared memory); fail on a spill or a stack frame."""
+    found = [u for u in usage if REDESIGNED.search(u["kernel"])]
+    for name in ("fused_joint_embed_kernel", "flash2_bwd_fused_kernel",
+                 "flash2_bwd_prep_kernel"):
+        if not any(name in u["kernel"] for u in found):
+            raise AssertionError(f"ptxas reported no {name}")
+    for u in found:
+        m = REDESIGNED.search(u["kernel"])
+        name, args = m.group(1), template_args(u["kernel"], m)
+        threads = REDESIGNED_THREADS[name]
+        by_regs = SM_REGISTERS // (max(u["registers"], 1) * threads)
+        extra = ""
+        if name == "flash2_bwd_fused_kernel":
+            smem = FUSED_TC_SMEM[int(args[0])]
+            extra = (f", {smem} B dynamic smem: "
+                     f"{SM_SMEM // (smem + SM_SMEM_PER_CTA)} CTAs an SM by it")
+        print(f"ptxas {u['source']} {name}<{', '.join(args)}>: "
+              f"{u['registers']} registers "
+              f"({by_regs} CTAs of {threads} threads an SM by them), "
+              f"{u['static_smem']} B static smem{extra}, stack {u['stack']} "
+              f"B, spill stores {u['spill_stores']} B, loads "
+              f"{u['spill_loads']} B", flush=True)
+        if u["stack"] or u["spill_stores"] or u["spill_loads"]:
+            raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
+                                 "keeps a stack frame")
+
+
 def kernel_entry(name, source, replaces, launches, err, timing, by_path):
     ms, plain_ms, lib_ms, (bound, bound_by) = timing
     return {"name": name, "route": "cuda", "source": source,
@@ -3799,7 +3953,8 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_s = {}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        usage = pool.submit(_build.resource_usage, TC_SOURCES)
+        usage = pool.submit(_build.resource_usage,
+                            TC_SOURCES + ("flash2", "fused_joint_embed"))
         for lib in _build.build_all(seconds=nvcc_s).values():
             print(f"built {os.path.relpath(lib)}", flush=True)
         print(f"kernel build: {time.perf_counter() - t0:.1f} s; nvcc wall s "
@@ -3807,6 +3962,7 @@ def main() -> int:
               f"{len(TC_SOURCES)}): "
               f"{ {k: round(v, 1) for k, v in nvcc_s.items()} }", flush=True)
         report_tc_resources(usage.result())
+        report_redesigned(usage.result())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_err, attn_times = phase_attention(gen)

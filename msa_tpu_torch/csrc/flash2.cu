@@ -34,14 +34,19 @@
 //     S] f32, log2 units) and the output in f32 (delta = rowsum(dO o)
 //     reads it: the bf16-rounded output would put 2^-9 of |dO.o| into
 //     every ds);
-//   * fused backward: one CTA per (key block, head, batch row) loops over
-//     query tiles.  Per tile it recomputes s, p = exp2(s - lse) and the
+//   * fused backward, bf16 (flash-attention-2's backward): a pre-pass
+//     launch takes delta = rowsum(dO o) once per row and zeroes a [B, S, H]
+//     f32 dq scratch; then one CTA of 4 warps (32 keys each) per (128-key
+//     block, head, batch row) loops over query tiles of 64 in a two-stage
+//     cp.async ring.  Per tile it recomputes s, p = exp2(s - lse) and the
 //     dropout mask once and feeds all three gradients from them: dV and dK
-//     accumulate in registers, delta = rowsum(dO o) is computed per query
-//     tile, and dS^T goes through shared memory (bf16) to give dQ, which is
-//     added by f32 atomics into a [B, S, H] f32 scratch that the wrapper
-//     zeroes and casts.  Atomics change the summation order from run to
-//     run: dq agrees with a fixed order to f32 rounding of its partial sums.
+//     accumulate in registers, dS^T goes through shared memory (bf16) to
+//     give dQ over the block's 128 keys, added by 16-byte f32 vector
+//     atomics into the scratch, which the wrapper casts (flash_kernels.cuh
+//     says more).  f32 keeps the first design: 64-key CTAs of 4 warps,
+//     delta per query tile, dq by 8-byte atomics.  Atomics change the
+//     summation order from run to run: dq agrees with a fixed order to f32
+//     rounding of its partial sums.
 //   * split backward: a dq launch (one CTA per query block, looping over
 //     key tiles double-buffered; it writes delta) and a dk/dv launch (the
 //     fused kernel's loop without dQ, reading delta; no atomics).
@@ -111,33 +116,34 @@ extern "C" int msa_flash2_fwd(const void* q, const void* k, const void* v,
   });
 }
 
-// The fused backward: one launch writing dk and dv and adding dq (times
-// the scale) into dq32, a [B, S, H] f32 buffer the caller has zeroed.  o32
-// (the output in f32) and lse are the training forward's outputs for the
-// same q, k, v, key_bias, seed and threshold.
+// The fused backward: two launches, the pre-pass (delta = rowsum(dO o32)
+// into `delta`, [B, heads, S] f32 scratch, and dq32, a [B, S, H] f32
+// buffer, zeroed), then the sweep writing dk and dv and adding dq (times
+// the scale) into dq32.  o32 (the output in f32) and lse are the training
+// forward's outputs for the same q, k, v, key_bias, seed and threshold.
 extern "C" int msa_flash2_bwd_fused(const void* q, const void* k, const void* v,
                                     const void* key_bias, const void* o32, const void* dout,
-                                    const void* lse, void* dq32, void* dk, void* dv,
-                                    int batch, int seq, int hidden, int num_heads, int dtype,
-                                    float scale, unsigned seed_lo, unsigned seed_hi,
-                                    int drop_threshold, void* stream) {
+                                    const void* lse, void* delta, void* dq32, void* dk,
+                                    void* dv, int batch, int seq, int hidden, int num_heads,
+                                    int dtype, float scale, unsigned seed_lo,
+                                    unsigned seed_hi, int drop_threshold, void* stream) {
   if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
   const float* o = static_cast<const float*>(o32);
   const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
   float* dq = static_cast<float*>(dq32);
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_threshold > 0;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_FUSED(P, D)                                                                   \
-  launch_dkv<P<kD>, false, D, true>(q, k, v, bias, o, dout, l, nullptr, dq, dk, dv, batch, \
-                                    seq, hidden, num_heads, scale, d, s)
-    if (dtype == 0) return drop ? MSA_FUSED(SimtF32, true) : MSA_FUSED(SimtF32, false);
-    return drop ? MSA_FUSED(MmaBf16, true) : MSA_FUSED(MmaBf16, false);
+#define MSA_FUSED(D)                                                                   \
+  launch_fused<kD, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, seq, hidden, \
+                      num_heads, dtype, scale, d, s)
+    return drop ? MSA_FUSED(true) : MSA_FUSED(false);
 #undef MSA_FUSED
   });
 }

@@ -62,7 +62,8 @@ static_assert(msa_dropout::kGroup == 16, "one Philox draw per 16 keys");
 static_assert(kThreads == 2 * kBlock, "row_delta takes two threads per row");
 
 // The tile products of a policy P on [kBlock][kStride] row tiles (q, k, v,
-// dO; kD values a row) and one [kBlock][kTStride] tile of dS^T (fused only):
+// dO; kD values a row) and one [kBlock][kTStride] tile of dS^T (the f32
+// fused backward only; bf16's is flash2_bwd_fused_kernel):
 //   nt(a, m0, b, c):       c  = a[m0 .. m0+16) . b^T  [16 x 64], over kD columns
 //   nn(f, b, c):           c += f . b                 [16 x kD], f [16 x 64]
 //   tn(at, m0, b, c):      c  = at[:, m0 .. m0+16)^T . b  [16 x kD], over 64 rows
@@ -85,9 +86,6 @@ struct MmaBf16 {
   }
   __device__ static void nn(const SFrag& f, const T* b, OFrag& c, float*) {
     tc::mma_nn<kD, kSN>(f.x, b, c.x);
-  }
-  __device__ static void tn(const T* at, int m0, const T* b, OFrag& c, float*) {
-    tc::mma_tn<kD, kBlock / 16>(at, kTStride, m0, b, c.x);
   }
 };
 
@@ -593,8 +591,9 @@ flash_bwd_dq_kernel(const typename P::T* __restrict__ q, const typename P::T* __
 
 // ---------------------------------------------------------------------------
 // dk/dv: the split backward's second launch (rows 12 and 13, kFused =
-// false, delta from the dq launch) and the fused single-sweep backward (row
-// 11, kFused = true: delta per query tile, dq by f32 atomics)
+// false, delta from the dq launch) and flash2's fused single-sweep backward
+// in f32 (row 11, kFused = true: delta per query tile, dq by f32 atomics;
+// bf16 takes flash2_bwd_fused_kernel below)
 // ---------------------------------------------------------------------------
 
 template <class P, bool kFused>
@@ -751,6 +750,345 @@ flash_bwd_dkv_kernel(const typename P::T* __restrict__ q, const typename P::T* _
 }
 
 // ---------------------------------------------------------------------------
+// The fused backward in bf16 (row 11): flash-attention-2's backward on this
+// card, a pre-pass launch and one sweep
+// ---------------------------------------------------------------------------
+//
+// The pre-pass (flash2_bwd_prep_kernel) takes delta = rowsum(dO o32) from
+// the unscaled dO once per row ([B, heads, S] f32) and zeroes the f32 dq
+// scratch; the sweep (flash2_bwd_fused_kernel) then runs one CTA of 4 warps
+// per 128 keys of a (head, batch row), each warp 32 keys (two 16-key mma
+// tiles), over query tiles of 64 that a two-stage cp.async ring brings in
+// (q, dO, and the tile's lse and delta) while the tile before is computed.
+// A warp takes each tile in two halves of 32 queries, so its score tiles
+// are 2 x [16 x 32]: S^T and dP^T by mma.sync (each q and dO fragment
+// loaded once for both key tiles: half the shared-memory reads per product
+// of 16-key warps, which ran 1.77 ms against 1.44 at [32,1024,1024]), p and
+// dS in registers, dV += P^T dO and dK += dS^T Q, and dS^T (bf16) into a
+// [128 keys][64 queries] shared tile.  After a barrier each warp takes
+// dQ[16 queries x d] = dS K over the block's 128 keys and adds it to the
+// f32 scratch by 16-byte vector atomics (lane pairs swap halves so that
+// each lane holds 4 consecutive columns of one row): one partial sum per
+// 128 keys, half the old kernel's count, in a quarter of its atomic
+// operations.  The wrapper casts the scratch (the last CTA of a head
+// casting it in the sweep ran 0.17 ms slower).  ~250 registers a thread,
+// 2 CTAs an SM.
+
+constexpr int kFKeys = 128;                // keys of a fused CTA
+constexpr int kFM = 2;                     // 16-key mma tiles a warp
+constexpr int kFThreads = 32 * kFKeys / (16 * kFM);
+constexpr int kFQ = 64;                    // queries of a ring tile
+constexpr int kFTStride = kFQ + 8;         // dS^T rows: 144 bytes, conflict-free
+constexpr int kPrepThreads = 256;
+static_assert(kFThreads == 2 * kFQ, "the dQ step: a warp per 16 queries");
+
+template <int kD>
+constexpr int fused_tc_smem_bytes() {
+  // K and V blocks, two ring stages of q and dO, the dS^T tile, two stages
+  // of lse and delta
+  return (2 * kFKeys + 4 * kFQ) * tc::kStride<kD> * 2 + kFKeys * kFTStride * 2 + 4 * kFQ * 4;
+}
+
+// Eight consecutive values as f32.
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* x) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// delta[b, head, i] = dO_i . o32_i over the head's kD columns (dO unscaled,
+// in its type) and dq32 = 0.  A thread takes 8 columns of a row; the kD / 8
+// lanes of a head's row sum by shuffles.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kPrepThreads)
+flash2_bwd_prep_kernel(const float* __restrict__ o32, const T* __restrict__ dout,
+                       float* __restrict__ delta, float* __restrict__ dq32, int seq,
+                       int hidden, int num_heads, long long chunks) {
+  constexpr int kTeam = kD / 8;
+  const long long idx = (long long)blockIdx.x * kPrepThreads + threadIdx.x;
+  const bool ok = idx < chunks;
+  float sum = 0.f;
+  if (ok) {
+    float d[8], o[8];
+    load8(dout + idx * 8, d);
+    load8(o32 + idx * 8, o);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum = fmaf(d[e], o[e], sum);
+    float4* z = reinterpret_cast<float4*>(dq32 + idx * 8);
+    z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int m = kTeam / 2; m > 0; m >>= 1) sum += __shfl_xor_sync(kFull, sum, m);
+  const int per_row = hidden / 8;
+  if (ok && idx % kTeam == 0) {
+    const long long row = idx / per_row;  // b * seq + i
+    const int head = (int)(idx - row * per_row) / kTeam;
+    const long long b = row / seq, i = row - b * seq;
+    delta[(b * num_heads + head) * seq + i] = sum;
+  }
+}
+
+// c[m] = a[m0 + 16 m .. +16) . b[0 .. 8kN)^T over kD columns, m < kM: the b
+// fragments loaded once for the kM row tiles.
+template <int kD, int kM, int kN>
+__device__ __forceinline__ void mma_nt_m(const __nv_bfloat16* a, int m0,
+                                         const __nv_bfloat16* b, float (&c)[kM][kN][4]) {
+  constexpr int ld = tc::kStride<kD>;
+  const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) c[m][n][0] = c[m][n][1] = c[m][n][2] = c[m][n][3] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    uint32_t af[kM][4];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      tc::ldsm_x4(af[m], a + (m0 + 16 * m + r + 8 * (i & 1)) * ld + kk * 16 + 8 * (i >> 1));
+    }
+#pragma unroll
+    for (int n = 0; n < kN; n += 2) {
+      uint32_t bf[4];
+      tc::ldsm_x4(bf, b + (n * 8 + r + 8 * (i >> 1)) * ld + kk * 16 + 8 * (i & 1));
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        tc::mma_bf16(c[m][n], af[m], bf[0], bf[1]);
+        tc::mma_bf16(c[m][n + 1], af[m], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// c[m] += f[m] . b[0 .. 8kN) for m < kM (f[m] [16 x 8kN], rounded to bf16
+// as the A operand): the b fragments loaded once for the kM row tiles.
+template <int kD, int kM, int kN>
+__device__ __forceinline__ void mma_nn_m(const float (&f)[kM][kN][4], const __nv_bfloat16* b,
+                                         float (&c)[kM][tc::kNT<kD>][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 2; ++kk) {
+    uint32_t af[kM][4];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      af[m][0] = tc::pack_bf16(f[m][2 * kk][0], f[m][2 * kk][1]);
+      af[m][1] = tc::pack_bf16(f[m][2 * kk][2], f[m][2 * kk][3]);
+      af[m][2] = tc::pack_bf16(f[m][2 * kk + 1][0], f[m][2 * kk + 1][1]);
+      af[m][3] = tc::pack_bf16(f[m][2 * kk + 1][2], f[m][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < tc::kNT<kD>; n += 2) {
+      uint32_t bf[4];
+      tc::load_b_kn<kD>(b, kk, n, bf);
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        tc::mma_bf16(c[m][n], af[m], bf[0], bf[1]);
+        tc::mma_bf16(c[m][n + 1], af[m], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+template <int kD, bool kDropout>
+__global__ void __launch_bounds__(kFThreads, 2)
+flash2_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, float* __restrict__ dq32,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                        int seq, int hidden, float score_mult, float scale, Dropout drop) {
+  using T = __nv_bfloat16;
+  constexpr int kM = kFM;
+  constexpr int ld = tc::kStride<kD>;
+  constexpr int kStage = kFQ * ld;         // elements of a ring tile
+  constexpr int kChunks = kD / 8;          // 16-byte chunks of a head row
+  constexpr int kON = kD / 8;              // 8-column tiles of a head row
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* kb_s = reinterpret_cast<T*>(smem);    // [128][ld]
+  T* vb_s = kb_s + kFKeys * ld;
+  T* q_s = vb_s + kFKeys * ld;             // [2][64][ld]
+  T* do_s = q_s + 2 * kStage;              // [2][64][ld]
+  T* dst_s = do_s + 2 * kStage;            // dS^T [128 keys][kFTStride]
+  float* lse_s = reinterpret_cast<float*>(dst_s + kFKeys * kFTStride);  // [2][64]
+  float* delta_s = lse_s + 2 * kFQ;                                     // [2][64]
+
+  const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kFKeys;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kD;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int wk0 = kb0 + warp * 16 * kM;    // the warp's first key
+  const int n_tiles = (seq + kFQ - 1) / kFQ;
+
+  // q, dO rows [i0, i0 + 64) and their lse and delta into ring stage st;
+  // zero-filled past seq
+  auto load_tile = [&](int st, int i0) {
+    tc::stage_rows<kD>(q_s + st * kStage, q, head_base, hidden, i0, kFQ, seq);
+    tc::stage_rows<kD>(do_s + st * kStage, dout, head_base, hidden, i0, kFQ, seq);
+    for (int j = threadIdx.x; j < 2 * kFQ; j += kFThreads) {
+      const int jj = j & (kFQ - 1);
+      const bool ok = i0 + jj < seq;
+      const float* src = (j < kFQ ? lse : delta) + row_base + (ok ? i0 + jj : 0);
+      tc::cp_async4((j < kFQ ? lse_s : delta_s) + st * kFQ + jj, src, ok);
+    }
+  };
+
+  float bias2[kM][2];  // this lane's keys wk0 + 16 m + g + 8 r
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = wk0 + 16 * m + g + 8 * r;
+      bias2[m][r] = key < seq ? key_bias[(size_t)b * seq + key] * kLog2e : -INFINITY;
+    }
+  }
+  tc::stage_rows<kD>(kb_s, k, head_base, hidden, kb0, kFKeys, seq);
+  tc::stage_rows<kD>(vb_s, v, head_base, hidden, kb0, kFKeys, seq);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float dk_acc[kM][kON][4], dv_acc[kM][kON][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int n = 0; n < kON; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dk_acc[m][n][x] = dv_acc[m][n][x] = 0.f;
+    }
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, i0 = t * kFQ;
+    if (t + 1 < n_tiles) {  // tile t + 1 lands while tile t is computed
+      load_tile(st ^ 1, i0 + kFQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    T* qt = q_s + st * kStage;
+    T* dot = do_s + st * kStage;
+    if constexpr (kDropout) {
+      // fold 1 / (1 - rate) into the chunks of dO this thread copied (delta
+      // took the unscaled dO); the barrier below publishes them
+      const float fold = fold_factor<T>(drop.scale);
+      for (int idx = threadIdx.x; idx < kFQ * kChunks; idx += kFThreads) {
+        const int r = idx / kChunks, ch = idx - r * kChunks;
+        uint4* chunk = reinterpret_cast<uint4*>(dot + r * ld + ch * 8);
+        uint4 raw = *chunk;
+        T* vals = reinterpret_cast<T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) scale_in_place(vals[e], fold);
+        *chunk = raw;
+      }
+    }
+    __syncthreads();
+    const float* lt = lse_s + st * kFQ;
+    const float* dt = delta_s + st * kFQ;
+
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {  // queries [32 hq, 32 hq + 32) of the tile
+      const T* qh = qt + hq * 32 * ld;
+      const T* doh = dot + hq * 32 * ld;
+      float s[kM][4][4], dp[kM][4][4];  // S^T, dP^T: rows = keys, columns = queries
+      mma_nt_m<kD, kM, 4>(kb_s, warp * 16 * kM, qh, s);
+      mma_nt_m<kD, kM, 4>(vb_s, warp * 16 * kM, doh, dp);
+      uint32_t mine[kM];  // keep bits of query 32 hq + lane, key tile m
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        mine[m] = kFull;
+        if constexpr (kDropout) {
+          mine[m] = keep_bits16(drop, (uint32_t)(wk0 + 16 * m) / 16u,
+                                row_base + i0 + hq * 32 + lane);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = hq * 32 + n * 8 + 2 * c + e;
+          // p = 0 past seq (the ring's zero fill gives lse = 0 there)
+          const float l = i0 + col < seq ? lt[col] : INFINITY, dl = dt[col];
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            uint32_t w = kFull;
+            if constexpr (kDropout) w = __shfl_sync(kFull, mine[m], n * 8 + 2 * c + e);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float p = exp2f(fmaf(s[m][n][2 * r + e], score_mult, bias2[m][r]) - l);
+              float pd = p, dpm = dp[m][n][2 * r + e];
+              if constexpr (kDropout) {
+                // the kept p unscaled (dO carries 1 / (1 - rate)); a product
+                // with the keep bit, as in flash_bwd_dkv_kernel
+                const float kept = ((w >> (g + 8 * r)) & 1u) ? 1.f : 0.f;
+                pd = p * kept;
+                dpm *= kept;
+              }
+              s[m][n][2 * r + e] = p * (dpm - dl);  // dS^T
+              dp[m][n][2 * r + e] = pd;             // P^T with dropout
+            }
+          }
+        }
+      }
+      mma_nn_m<kD, kM, 4>(dp, doh, dv_acc);  // dV += P^T dO
+      mma_nn_m<kD, kM, 4>(s, qh, dk_acc);    // dK += dS^T Q
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            store2(dst_s + (warp * 16 * kM + 16 * m + g + 8 * r) * kFTStride + hq * 32 + n * 8 +
+                       2 * c,
+                   s[m][n][2 * r], s[m][n][2 * r + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // dS^T is whole; the ring stage st is read
+
+    // dQ[i0 .. i0 + 64) += dS K over the block's 128 keys: 16 queries a warp
+    float dqp[kON][4];
+    const int m0 = warp * 16;
+    tc::mma_tn<kD, kFKeys / 16>(dst_s, kFTStride, m0, kb_s, dqp);
+    const bool odd = c & 1;  // odd lanes take row g + 8, even lanes row g
+    const int row = i0 + m0 + g + (odd ? 8 : 0);
+    float* dst = dq32 + head_base + (size_t)row * hidden + 2 * (c & ~1);
+#pragma unroll
+    for (int n = 0; n < kON; ++n) {
+      const float* x = dqp[n];
+      const float r0 = __shfl_xor_sync(kFull, odd ? x[0] : x[2], 1);
+      const float r1 = __shfl_xor_sync(kFull, odd ? x[1] : x[3], 1);
+      const float4 val = odd ? make_float4(r0 * scale, r1 * scale, x[2] * scale, x[3] * scale)
+                             : make_float4(x[0] * scale, x[1] * scale, r0 * scale, r1 * scale);
+      if (row < seq) atomicAdd(reinterpret_cast<float4*>(dst + n * 8), val);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    Frag<kON> fk, fv;
+#pragma unroll
+    for (int n = 0; n < kON; ++n) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        fk.x[n][x] = dk_acc[m][n][x];
+        fv.x[n][x] = dv_acc[m][n][x];
+      }
+    }
+    store_frag(dk, head_base, hidden, wk0 + 16 * m + g, seq, fk, scale, scale);
+    store_frag(dv, head_base, hidden, wk0 + 16 * m + g, seq, fv, 1.f, 1.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -826,6 +1164,45 @@ int launch_split(const void* q, const void* k, const void* v, const float* bias,
   return launch_dkv<P, kHeadSplit, kDropout, false>(q, k, v, bias, o, dout, lse, delta,
                                                     nullptr, dk, dv, batch, seq, hidden,
                                                     num_heads, scale, drop, s);
+}
+
+// flash2's fused backward: the pre-pass (delta into `delta`, [B, heads, S]
+// f32, and dq32 zeroed), then the sweep: bf16 the tensor-core kernel above,
+// f32 flash_bwd_dkv_kernel<SimtF32, ..., kFused = true> (which takes its
+// own delta per tile and leaves the pre-pass's unread).
+template <int kD, bool kDropout>
+int launch_fused(const void* q, const void* k, const void* v, const float* bias,
+                 const float* o32, const void* dout, const float* lse, float* delta,
+                 float* dq32, void* dk, void* dv, int batch, int seq, int hidden,
+                 int num_heads, int dtype, float scale, Dropout drop, cudaStream_t s) {
+  const long long chunks = (long long)batch * seq * hidden / 8;
+  const long long blocks = (chunks + kPrepThreads - 1) / kPrepThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    flash2_bwd_prep_kernel<float, kD><<<(unsigned)blocks, kPrepThreads, 0, s>>>(
+        o32, static_cast<const float*>(dout), delta, dq32, seq, hidden, num_heads, chunks);
+  } else {
+    flash2_bwd_prep_kernel<__nv_bfloat16, kD><<<(unsigned)blocks, kPrepThreads, 0, s>>>(
+        o32, static_cast<const __nv_bfloat16*>(dout), delta, dq32, seq, hidden, num_heads,
+        chunks);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (dtype == 0) {
+    return launch_dkv<SimtF32<kD>, false, kDropout, true>(q, k, v, bias, o32, dout, lse,
+                                                          nullptr, dq32, dk, dv, batch, seq,
+                                                          hidden, num_heads, scale, drop, s);
+  }
+  using T = __nv_bfloat16;
+  constexpr auto kernel = flash2_bwd_fused_kernel<kD, kDropout>;
+  constexpr int bytes = fused_tc_smem_bytes<kD>();
+  err = allow_smem<kernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((seq + kFKeys - 1) / kFKeys, num_heads, batch), kFThreads, bytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
+      seq, hidden, scale * kLog2e, scale, drop);
+  return (int)cudaGetLastError();
 }
 
 bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype, int threshold) {

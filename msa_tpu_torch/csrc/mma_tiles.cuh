@@ -80,6 +80,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) 
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
 }
+// 4 bytes global -> shared, asynchronously (through L1: .cg takes only 16);
+// zero-filled when !ok.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -24,8 +24,8 @@ Entry points, each launching its kernels for CUDA tensors (or raising):
   ``torch.autograd.Function`` whose backward is
   :func:`flash_attention2_backward`.  CPU tensors run
   :func:`flash_attention2_plain` at rate 0;
-* :func:`flash_attention2_backward` -- dq, dk, dv by the fused kernel
-  (:func:`flash2_bwd_fused`, one launch) or the split pair
+* :func:`flash_attention2_backward` -- dq, dk, dv by the fused route
+  (:func:`flash2_bwd_fused`, a delta pre-pass and one sweep) or the split pair
   (:func:`flash2_bwd_split`, two launches), both by JAX's rule with its
   roundings, whose plain version is :func:`flash_attention2_backward_plain`.
 
@@ -64,8 +64,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "msa_flash2_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                        _U, _U, _I, _P),
-    "msa_flash2_bwd_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _F, _U, _U, _I, _P),
+    "msa_flash2_bwd_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _F, _U, _U, _I, _P),
     "msa_flash2_bwd_split": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _F, _U, _U, _I, _P),
 }
@@ -193,27 +193,36 @@ def _backward_args(q, k, v, key_bias, out32, lse, dout, num_heads, what):
             lse.contiguous())
 
 
+def fused_scratch(q: torch.Tensor, lse: torch.Tensor):
+    """The fused route's scratch, left unset: delta [B, heads, S] f32 (like
+    ``lse``), which its pre-pass writes, and the f32 dq buffer [B, S, H],
+    which the pre-pass zeroes and the sweep's atomics sum into."""
+    return (torch.empty_like(lse),
+            torch.empty(q.shape, dtype=torch.float32, device=q.device))
+
+
 def flash2_bwd_fused(q, k, v, key_bias, out32, lse, dout, num_heads: int,
                      seed: int = 0, rate: float = 0.0
                      ) -> Tuple[torch.Tensor, ...]:
-    """dq, dk, dv of :func:`flash_attention2` by the fused kernel (CUDA
-    only, one launch): ``out32`` (the output in f32) and ``lse`` are the
-    training forward's outputs for the same inputs, seed and rate.  dq is
-    summed by f32 atomics into a zeroed f32 buffer, then cast."""
+    """dq, dk, dv of :func:`flash_attention2` by the fused route (CUDA
+    only, two launches: a pre-pass writing delta = rowsum(dO o) and zeroing
+    an f32 dq buffer, then the sweep): ``out32`` (the output in f32) and
+    ``lse`` are the training forward's outputs for the same inputs, seed
+    and rate.  dq is summed by f32 atomics into that buffer, then cast."""
     q, k, v, key_bias, out32, dout, lse = _backward_args(
         q, k, v, key_bias, out32, lse, dout, num_heads, "flash2_bwd_fused")
     b, s, h = q.shape
-    dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    delta, dq32 = fused_scratch(q, lse)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load("flash2", _SIGNATURES)
     code = lib.msa_flash2_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq32.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        softmax_scale(h, num_heads), *_seed_words(seed), byte_threshold(rate),
-        _stream(q))
+        out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
+        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
+        byte_threshold(rate), _stream(q))
     _build.check(code, "flash2_bwd_fused")
-    flash2_bwd_fused.launches += 1
+    flash2_bwd_fused.launches += 2
     return dq32.to(q.dtype), dk, dv
 
 

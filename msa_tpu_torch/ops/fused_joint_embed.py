@@ -14,7 +14,8 @@ says what bounds it on the H100.
 is a ``torch.autograd.Function``: the forward is the kernel, the backward
 recomputes through the plain version under autograd -- as JAX's ``_bwd`` is
 the VJP of ``_ref_forward``, an XLA recompute and no Pallas kernel.  The
-kernel has no row limit (one block per output row), so JAX's VMEM-derived
+kernel has no row limit (text rows by teams of lanes, frame rows in tiles
+of 8-64 rows of the flattened [B * Lp] index), so JAX's VMEM-derived
 ``_MAX_FUSED_ROWS`` has no counterpart here.
 """
 

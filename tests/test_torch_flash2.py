@@ -301,3 +301,48 @@ def test_flash_attention2_backward_takes_the_route(s, dtype, fused, want,
     F2.flash_attention2_backward(q, q, q, None, None, None, None, 16,
                                  fused=fused)
     assert calls == [want]
+
+
+@pytest.mark.parametrize("dtype,code", [
+    pytest.param(torch.bfloat16, 1, id="bf16"),
+    pytest.param(torch.float32, 0, id="f32")])
+def test_flash2_bwd_fused_wrapper_hands_the_prepass_its_scratch(dtype, code,
+                                                                 monkeypatch):
+    """The fused route's host side (its kernels run only on a card): one
+    call of the C entry with delta [B, heads, S] f32 and the [B, S, H] f32
+    dq buffer that its pre-pass fills, counted as two launches (pre-pass
+    and sweep); dq comes back from that buffer in q's dtype."""
+    calls, scratch = [], []
+
+    class Lib:
+        def msa_flash2_bwd_fused(self, *args):
+            calls.append(args)
+            return 0
+
+    def record(q, lse):
+        scratch.extend(real(q, lse))
+        scratch[1].fill_(0.5)  # what the sweep's atomics would leave
+        return tuple(scratch)
+
+    real = F2.fused_scratch
+    monkeypatch.setattr(F2._build, "load", lambda name, sigs: Lib())
+    monkeypatch.setattr(F2, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(F2, "_stream", lambda x: 0)
+    monkeypatch.setattr(F2, "fused_scratch", record)
+    b, s, h = 2, 20, 64
+    q, k, v, dout = (torch.zeros(b, s, h, dtype=dtype) for _ in range(4))
+    out32, lse = torch.zeros(b, s, h), torch.zeros(b, HEADS, s)
+    before = F2.flash2_bwd_fused.launches
+    dq, dk, dv = F2.flash2_bwd_fused(q, k, v, torch.zeros(b, s), out32, lse,
+                                     dout, HEADS, seed=5, rate=0.1015625)
+    assert F2.flash2_bwd_fused.launches == before + 2
+    (args,) = calls
+    assert len(args) == len(F2._SIGNATURES["msa_flash2_bwd_fused"])
+    delta, dq32 = scratch
+    assert delta.shape == (b, HEADS, s) and delta.dtype == torch.float32
+    assert dq32.shape == (b, s, h) and dq32.dtype == torch.float32
+    assert args[7:11] == (delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr())
+    assert args[11:16] == (b, s, h, HEADS, code)
+    assert args[-2] == 26  # the rate's byte threshold
+    assert dq.dtype == dtype and torch.equal(dq.float(), dq32)

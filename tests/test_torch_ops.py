@@ -110,13 +110,18 @@ def joint_inputs(b, l, lp, d, h, seed=0):
             (0.1 * rng.standard_normal(h)).astype(np.float32))
 
 
-@pytest.mark.parametrize("l,lp,d", [(16, 16, 47), (12, 20, 74), (8, 8, 371)])
-def test_fused_joint_embed_plain_matches_jax(l, lp, d):
-    args = joint_inputs(3, l, lp, d, 128)
+@pytest.mark.parametrize("l,lp,d,h", [
+    (16, 16, 47, 128), (12, 20, 74, 128), (8, 8, 371, 128),
+    # 3 x 37 = 111 frame rows: off every tile of the kernel's frame CTAs
+    # (R = 8-64 rows), at the tiny preset's H = 64 and a ragged H = 200
+    pytest.param(5, 37, 47, 64, id="frames-off-tile-h64"),
+    pytest.param(4, 37, 74, 200, id="frames-off-tile-h200")])
+def test_fused_joint_embed_plain_matches_jax(l, lp, d, h):
+    args = joint_inputs(3, l, lp, d, h)
     ref = np.asarray(jax_joint_embed(*(jnp.asarray(a) for a in args), 1e-12,
                                      True))  # interpret mode
     out = fused_joint_embed(*(torch.from_numpy(a) for a in args), 1e-12)
-    assert out.shape == (3, l + lp, 128)
+    assert out.shape == (3, l + lp, h)
     np.testing.assert_allclose(out.numpy(), ref, atol=F32_TOL, rtol=F32_TOL)
 
 
