@@ -17,9 +17,12 @@ its own), the script:
      wall time and what ptxas reports (registers, static shared memory,
      spills) for the bf16 tensor-core kernels of the short attention (the
      v1, v2, v2p and v2s forwards, the v1, v2, v2p, v3 and v2s backwards,
-     each at head dim 32 and 64) and for the joint embed's tiles and
+     each at head dim 32 and 64), for the joint embed's tiles and
      flash2's bf16 fused backward and its pre-pass, none of which may
-     spill;
+     spill, and for the warpgroup (wgmma) kernels of rows 10, 12 and 13
+     (the bf16 forward, the split backward's dq and dk/dv launches, in
+     flash2.cu and flash_attention.cu), none of which may spill or have its
+     wgmma products serialised;
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -75,12 +78,19 @@ its own), the script:
        joint shapes: forward, backward, the same against v2 at one seed,
        and the bytes it keeps for the backward (its inputs) against v2's;
        its bf16 forward (tensor cores) also at S = 8 and 128;
+  3a. holds the warpgroup kernels of rows 10, 12 and 13 in bf16 at S =
+     1, 70, 127, 129, 1000, 1024, 2048 and 4096, rate 0 and 26/256, head
+     dim 64 and 32, both layouts (``phase_wgmma_flash``): the serving and
+     training forwards against the plain rule, the split backwards against
+     their rounded rules and f32 autograd, their gradients bit-equal
+     across two calls;
   3b. probes flash2's fused-backward dq at [32, 1024] bf16 on four more
      inputs: its distance to f32 autograd and to the rounded rule; times
      the flash kernels (flash2's forward, its fused and split backwards,
      the head-split pair) at [32, 1024, 1024] bf16, rate 0 and the
-     training dropout, flash2's backwards at head dim 32 and the joint
-     embed at H = 1024 and 64, and the fused route's device time by kernel
+     training dropout, the forwards and backwards at head dim 32, flash2's
+     split backward at [2, 4096, 1024], the joint embed at H = 1024 and
+     64, and both flash2 backward routes' device time by kernel
      (``torch.profiler``);
   3c. runs every kernel phase of 3 (but the dropout export and AdamW)
      again at head dim 32 (H = 64, 2 heads), ln_quant and the joint embed
@@ -162,6 +172,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -1180,15 +1191,163 @@ def probe_flash2_dq():
                               dout, 0, 0.0, None)
 
 
+# The warpgroup kernels' tile edges: their 128-row query blocks (127, 129),
+# ragged tails (70, 1000), a single key, and the long shapes.
+WG_SEQS = (1, 70, 127, 129, 1000, 1024, 2048, 4096)
+
+
+def phase_wgmma_flash():
+    """The warpgroup (wgmma) kernels of rows 10, 12 and 13 in bf16 at every
+    S of WG_SEQS, rate 0 and 26/256, head dim 64 (H = 1024, 16 heads) and
+    32 (H = 64, 2 heads), both layouts, B = 2 (a fully masked row and a
+    ragged one), from a generator of their own: the serving form bit-equal
+    to the training form; the training ctx against the plain rule
+    (``short_attention_train_forward_plain``: p rounded to bf16 before P V)
+    at ATTN_TOL, its lse at TRAIN_LSE_TOL (log2 units for flash2, natural
+    for the head-split form; rows with every key masked at
+    MASKED_ROW_ATOL; up to 128 keys the ctx of those rows by
+    :func:`check_masked_rows`), flash2's out32 rounding to its ctx bit for
+    bit, the head-split ctx bit-equal to flash2's (one kernel, another
+    addressing);
+    the split backward of each layout by :func:`check_rounded_backward`
+    (its rounded rule at GRAD_TOL, f32 autograd within twice it plus the
+    rule's rounding gap), its dq, dk and dv bit-equal across two calls (no
+    atomics).  Returns the worst errors."""
+    import torch
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops import flash2 as F2
+    from msa_tpu_torch.ops.dropout import (
+        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.short_attention import (
+        short_attention_train_forward_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    atol, rtol = ATTN_TOL["bfloat16"]
+    gatol, grtol = GRAD_TOL["bfloat16"]
+    worst = {"fwd": 0.0, "lse": 0.0, "flash2_bwd": 0.0, "row13_bwd": 0.0}
+    t0 = time.perf_counter()
+    for hidden, heads in ((1024, 16), (64, 2)):
+        with head_widths(hidden, heads):
+            d = HIDDEN // HEADS
+            for s in WG_SEQS:
+                for rate in (0.0, rate_on):
+                    b = 2
+                    q, k, v, bias, live = attention_inputs(gen, b, s,
+                                                           torch.bfloat16)
+                    dout = torch.randn(q.shape, device="cuda",
+                                       generator=gen).to(torch.bfloat16)
+                    seed, t = 1400 + s, byte_threshold(rate)
+                    keep = (keep_mask_plain(seed, rate, b, HEADS, s,
+                                            device="cuda") if rate else None)
+                    tag = f"wgmma d={d} [{b},{s},{HIDDEN}] rate {rate:g}"
+                    serve = F2._forward_kernel(q, k, v, bias, HEADS, seed, t,
+                                               False)[0]
+                    out, lse, out32 = F2._forward_kernel(q, k, v, bias, HEADS,
+                                                         seed, t, True)
+                    qh, kh, vh, doh = (split_heads(x) for x in (q, k, v, dout))
+                    serve_h = A._forward_kernel(qh, kh, vh, bias, seed, t,
+                                                False)[0]
+                    out_h, lse_h = A._forward_kernel(qh, kh, vh, bias, seed, t,
+                                                     True)
+                    rctx, rlse = short_attention_train_forward_plain(
+                        q, k, v, bias, HEADS, rate, keep)
+                    torch.cuda.synchronize()
+                    for what, a, c in (("flash2 serving vs training", serve, out),
+                                       ("head-split serving vs training",
+                                        serve_h, out_h),
+                                       ("flash2 out32 rounded vs ctx",
+                                        out32.to(out.dtype), out),
+                                       ("head-split vs flash2 ctx",
+                                        merge_heads(out_h), out)):
+                        if not torch.equal(a, c):
+                            raise AssertionError(f"{tag}: {what} differ")
+                    err = check_close(f"{tag} ctx", out, rctx, atol, rtol,
+                                      mask=live)
+                    if s <= 128:
+                        # a few keys: the kernel applies 1 / (1 - rate) in
+                        # f32 after P V, the rule rounds p / (1 - rate)
+                        # (1.109375 in bf16 at one key), as for the short
+                        # forwards at a few keys
+                        check_masked_rows(tag, out, q, k, v, bias, live, rate,
+                                          keep)
+                    else:
+                        check_close(f"{tag} ctx masked row", out, rctx,
+                                    MASKED_ROW_ATOL, 0.0, mask=~live)
+                    lse_err = 0.0
+                    for what, got, want in (("flash2 lse", lse, rlse),
+                                            ("head-split lse", lse_h,
+                                             rlse * math.log(2.0))):
+                        lse_err = max(lse_err, check_close(
+                            f"{tag} {what}", got, want, *TRAIN_LSE_TOL,
+                            mask=live))
+                        check_close(f"{tag} {what} masked row", got, want,
+                                    MASKED_ROW_ATOL, 0.0, mask=~live)
+                    # the split backwards, twice each
+                    runs = [F2.flash2_bwd_split(q, k, v, bias, out32, lse, dout,
+                                                HEADS, seed, rate)
+                            for _ in range(2)]
+                    runs_h = [A.flash_attention_backward(
+                        qh, kh, vh, bias, out_h, lse_h, doh, seed, rate)
+                        for _ in range(2)]
+                    wide = [x.float().requires_grad_() for x in (q, k, v)]
+                    auto = torch.autograd.grad(F2.flash_attention2_plain(
+                        *wide, bias, HEADS, rate, keep), wide, dout.float())
+                    rule = F2.flash_attention2_backward_plain(
+                        q, k, v, bias, out32, lse, dout, HEADS, rate, keep)
+                    rule32 = F2.flash_attention2_backward_plain(
+                        *(x.detach() for x in wide), bias, out32, lse,
+                        dout.float(), HEADS, rate, keep)
+                    rule_h = A.flash_attention_backward_plain(
+                        qh, kh, vh, bias, out_h, lse_h, doh, rate, keep)
+                    rule_h32 = A.flash_attention_backward_plain(
+                        *(split_heads(x.detach()) for x in wide), bias, out_h,
+                        lse_h, doh.float(), rate, keep)
+                    torch.cuda.synchronize()
+                    for what, pair in (("flash2 split", runs),
+                                       ("head-split pair", runs_h)):
+                        if not all(torch.equal(x, y) for x, y in zip(*pair)):
+                            raise AssertionError(f"{tag}: {what} gradients "
+                                                 "differ between two calls")
+                    e2, a2 = check_rounded_backward(
+                        f"{tag} flash2 split", runs[0], rule, rule32, auto,
+                        live, gatol, grtol)
+                    e13, a13 = check_rounded_backward(
+                        f"{tag} head-split pair",
+                        [merge_heads(x) for x in runs_h[0]],
+                        [merge_heads(x) for x in rule_h],
+                        [merge_heads(x) for x in rule_h32], auto, live, gatol,
+                        grtol)
+                    worst["fwd"] = max(worst["fwd"], err)
+                    worst["lse"] = max(worst["lse"], lse_err)
+                    worst["flash2_bwd"] = max(worst["flash2_bwd"], e2)
+                    worst["row13_bwd"] = max(worst["row13_bwd"], e13)
+                    print(f"{tag}: ctx {err:.3e} (atol {atol}, rtol {rtol}), "
+                          f"lse {lse_err:.3e} (atol {TRAIN_LSE_TOL[0]}, rtol "
+                          f"{TRAIN_LSE_TOL[1]}); split backward against the "
+                          f"rounded rule flash2 {e2:.3e}, head-split {e13:.3e}"
+                          f" (atol {gatol}, rtol {grtol}), against f32 "
+                          f"autograd {a2:.3e} / {a13:.3e}; serving = training"
+                          f", head-split = flash2, gradients equal across two"
+                          f" calls", flush=True)
+                    del auto, rule, rule32, rule_h, rule_h32, wide
+    print(f"wgmma kernels: every check passed in {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    return worst
+
+
 def time_flash_backwards():
     """Device ms of the flash kernels at the frame-level joint shape [2 x
     FRAME_BATCH, 1024, 1024] bf16 (16 heads), at rate 0 and at the training
     dropout: flash2's training forward (row 10), its fused and split
     backward routes (rows 11, 12) and the head-split forward and backward
     pair (row 13), each backward from its own training forward's output and
-    lse at that rate; flash2's fused and split backwards at head dim 32
-    ([32, 1024, 64], rate 0); and the joint embed (row 2) at [96, 40+40,
-    1024] and [96, 40+40, 64], D = 47.  It calls only entry points that
+    lse at that rate; at head dim 32 ([32, 1024, 64], rate 0) flash2's
+    training forward, fused and split backwards and row 13's forward and
+    pair; flash2's split backward at [2, 4096, 1024] (the long-S step's
+    route); and the joint embed (row 2) at [96, 40+40, 1024] and [96,
+    40+40, 64], D = 47.  It calls only entry points that
     every tree of the port has had since row 13 was ported, so
     ``--flash-times ROOT`` times another checkout's kernels by this code.
     Prints and returns {label: ms}."""
@@ -1231,6 +1390,28 @@ def time_flash_backwards():
             cuda_ms(lambda: F2.flash_attention2_backward(
                 q32, k32, v32, bias, out32, lse, do32, 2, 7, 0.0,
                 fused=fused), iters=10)
+    # the forwards and row 13's pair at head dim 32 ([32, 1024, 64], 2 heads)
+    times["flash2 fwd d32 rate 0"] = cuda_ms(
+        lambda: F2._forward_kernel(q32, k32, v32, bias, 2, 7, 0, True))
+    q32h, k32h, v32h, do32h = (x.view(b, s, 2, 32).transpose(1, 2).contiguous()
+                               for x in (q32, k32, v32, do32))
+    out, lse_h = A._forward_kernel(q32h, k32h, v32h, bias, 7, 0, True)
+    times["row 13 fwd d32 rate 0"] = cuda_ms(
+        lambda: A._forward_kernel(q32h, k32h, v32h, bias, 7, 0, True))
+    times["row 13 d32 rate 0"] = cuda_ms(
+        lambda: A.flash_attention_backward(q32h, k32h, v32h, bias, out, lse_h,
+                                           do32h, 7, 0.0), iters=10)
+    # row 12 where the long-S step takes it: [2, 4096, 1024], rate 0
+    gl = torch.Generator(device="cuda").manual_seed(1)
+    ql, kl, vl, dol = (torch.randn(2, 4096, h, device="cuda", generator=gl)
+                       .to(torch.bfloat16) for _ in range(4))
+    bl = torch.zeros(2, 4096, device="cuda")
+    _, lse_l, out32_l = F2._forward_kernel(ql, kl, vl, bl, heads, 7, 0, True)
+    times["flash2 split s4096 rate 0"] = cuda_ms(
+        lambda: F2.flash_attention2_backward(ql, kl, vl, bl, out32_l, lse_l, dol,
+                                             heads, 7, 0.0, fused=False),
+        iters=10)
+    del ql, kl, vl, dol, out32_l
     for hid in (1024, 64):
         args = joint_embed_args(gen, BATCH, TEXT_LEN, 47, hid, torch.bfloat16)
         times[f"joint embed H={hid}"] = cuda_ms(
@@ -1238,10 +1419,12 @@ def time_flash_backwards():
     print(f"flash kernels [{b},{s},{h}] and the joint embed, bfloat16, ms: "
           f"{json.dumps(times)}", flush=True)
     _, lse, out32 = F2._forward_kernel(q, k, v, bias, heads, 7, 0, True)
-    parts = device_ms_by_kernel(lambda: F2.flash_attention2_backward(
-        q, k, v, bias, out32, lse, dout, heads, 7, 0.0, fused=True))
-    print(f"flash2 fused route [{b},{s},{h}] bfloat16 rate 0, device ms a call "
-          f"by kernel: {json.dumps(parts)}", flush=True)
+    for fused in (True, False):
+        parts = device_ms_by_kernel(lambda: F2.flash_attention2_backward(
+            q, k, v, bias, out32, lse, dout, heads, 7, 0.0, fused=fused))
+        print(f"flash2 {'fused' if fused else 'split'} route [{b},{s},{h}] "
+              f"bfloat16 rate 0, device ms a call by kernel: "
+              f"{json.dumps(parts)}", flush=True)
     return times
 
 
@@ -3917,6 +4100,61 @@ def report_redesigned(usage):
                                  "keeps a stack frame")
 
 
+# The warpgroup (wgmma) kernels of rows 10, 12 and 13 (flash_kernels.cuh:
+# flash_fwd_wg_kernel, flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel, each
+# <head dim, head split, dropout[, training form]>): none may spill, keep a
+# stack frame or have its wgmma products serialised by ptxas.
+WGMMA = re.compile(r"(flash_fwd_wg_kernel|flash_bwd_dq_wg_kernel|"
+                   r"flash_bwd_dkv_wg_kernel)I")
+
+
+def wgmma_launch(name, args):
+    """(threads, dynamic shared memory) of a warpgroup kernel's launch, as
+    its launcher sets them (the tile choices above flash_kernels.cuh's
+    kernels and wg_*_smem_bytes: the alignment slack, the swizzled tiles of
+    kD bf16 rows, the bias / lse / delta rows)."""
+    row = 2 * int(args[0])
+    if name == "flash_fwd_wg_kernel":  # 128 query rows, two 64-key stages
+        return 256, 1024 + (128 + 4 * 64) * row + 2 * 64 * 4
+    if name == "flash_bwd_dq_wg_kernel":  # 128 query rows, 64 under dropout
+        rows = 64 if args[2] == "1" else 128
+        return 2 * rows, 1024 + (2 * rows + 4 * 64) * row + 2 * 64 * 4 + rows * 4
+    return 128, 1024 + (2 * 64 + 4 * 64) * row + 4 * 64 * 4  # 64 keys
+
+
+def report_wgmma(usage):
+    """Print ptxas's registers, shared memory, spills and wgmma notices for
+    each instantiation of the warpgroup kernels, with the CTAs an SM holds
+    by registers and by shared memory; fail on a spill, a stack frame or a
+    serialisation notice."""
+    found = [u for u in usage if WGMMA.search(u["kernel"])]
+    for name in ("flash_fwd_wg_kernel", "flash_bwd_dq_wg_kernel",
+                 "flash_bwd_dkv_wg_kernel"):
+        for source in ("flash2.cu", "flash_attention.cu"):
+            if not any(name in u["kernel"] and u["source"] == source
+                       for u in found):
+                raise AssertionError(f"ptxas reported no {name} in {source}")
+    for u in found:
+        m = WGMMA.search(u["kernel"])
+        name, args = m.group(1), template_args(u["kernel"], m)
+        threads, smem = wgmma_launch(name, args)
+        by_regs = SM_REGISTERS // (max(u["registers"], 1) * threads)
+        by_smem = SM_SMEM // (smem + u["static_smem"] + SM_SMEM_PER_CTA)
+        print(f"ptxas {u['source']} {name}<{', '.join(args)}>: "
+              f"{u['registers']} registers ({by_regs} CTAs of {threads} "
+              f"threads an SM by them), {u['static_smem']} B static + {smem} "
+              f"B dynamic smem ({by_smem} CTAs an SM by it), stack "
+              f"{u['stack']} B, spill stores {u['spill_stores']} B, loads "
+              f"{u['spill_loads']} B, wgmma serialised: "
+              f"{'; '.join(u['serialized']) or 'no'}", flush=True)
+        if u["stack"] or u["spill_stores"] or u["spill_loads"]:
+            raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
+                                 "keeps a stack frame")
+        if u["serialized"]:
+            raise AssertionError(f"ptxas serialised the wgmma products of "
+                                 f"{name} in {u['source']}")
+
+
 def kernel_entry(name, source, replaces, launches, err, timing, by_path):
     ms, plain_ms, lib_ms, (bound, bound_by) = timing
     return {"name": name, "route": "cuda", "source": source,
@@ -3953,8 +4191,8 @@ def main() -> int:
     t0 = time.perf_counter()
     nvcc_s = {}
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        usage = pool.submit(_build.resource_usage,
-                            TC_SOURCES + ("flash2", "fused_joint_embed"))
+        usage = pool.submit(_build.resource_usage, TC_SOURCES + (
+            "flash2", "flash_attention", "fused_joint_embed"))
         for lib in _build.build_all(seconds=nvcc_s).values():
             print(f"built {os.path.relpath(lib)}", flush=True)
         print(f"kernel build: {time.perf_counter() - t0:.1f} s; nvcc wall s "
@@ -3963,6 +4201,7 @@ def main() -> int:
               f"{ {k: round(v, 1) for k, v in nvcc_s.items()} }", flush=True)
         report_tc_resources(usage.result())
         report_redesigned(usage.result())
+        report_wgmma(usage.result())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_err, attn_times = phase_attention(gen)
@@ -3978,6 +4217,7 @@ def main() -> int:
     v3_err, v3_times = phase_v3_kernels(gen)
     fa_err, fa_times = phase_flash_attention(gen)
     v1_err, v1_times = phase_short_v1(gen)
+    phase_wgmma_flash()
     probe_flash2_dq()
     time_flash_backwards()
     phase_head_dim_32()

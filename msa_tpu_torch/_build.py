@@ -127,8 +127,11 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
     """What ``ptxas -v`` reports for every kernel of the sources ``names``
     (compiled with the build's flags to a scratch library, one ``nvcc`` per
     source, all started together): dicts of source, kernel (its mangled
-    name), registers, static shared memory, stack frame and spill bytes.
-    Dynamic shared memory is the launcher's and is not in it."""
+    name), registers, static shared memory, stack frame and spill bytes,
+    and ``serialized``: the ptxas notices that it serialised the kernel's
+    ``wgmma.mma_async`` instructions (a notice names its function, else it
+    is the kernel being compiled).  Dynamic shared memory is the launcher's
+    and is not in it."""
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory() as tmp:
         procs = [(name, subprocess.Popen(
@@ -143,11 +146,19 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
         if code != 0:
             raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{text}")
         entry = None
+        notices = []  # (the function named, else the kernel compiled, line)
+        start = len(found)
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                entry = {"source": f"{name}.cu", "kernel": m.group(1)}
+                entry = {"source": f"{name}.cu", "kernel": m.group(1),
+                         "serialized": []}
                 found.append(entry)
+                continue
+            if "wgmma" in line and "serializ" in line:
+                named = re.search(r"'(_Z[^']+)'", line)
+                notices.append((named.group(1) if named else entry and
+                                entry["kernel"], line.strip()))
                 continue
             if entry is None:
                 continue
@@ -161,6 +172,12 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
                 entry["registers"] = int(m.group(1))
                 smem = re.search(r"(\d+) bytes smem", line)
                 entry["static_smem"] = int(smem.group(1)) if smem else 0
+        by_name = {e["kernel"]: e for e in found[start:]}
+        for kernel, line in notices:
+            if kernel not in by_name:
+                raise RuntimeError(f"{name}.cu: a wgmma notice for no kernel "
+                                   f"ptxas compiled: {line}")
+            by_name[kernel]["serialized"].append(line)
     return found
 
 

@@ -16,44 +16,51 @@
 // What bounds them on the H100: operations.  A (batch, head) pair does
 // 4*S*S*d forward FLOPs on 4*S*d elements of q/k/v/o: at S = 1024,
 // ~1,000 FLOPs per element, ~500 per bf16 byte, above the ~295 FLOPs per
-// byte at which the tensor cores rather than memory are the limit.  So the
-// bf16 products run on the tensor cores (mma.sync.m16n8k16, bf16 in, f32
-// accumulate) in the flash-attention-2 layout:
+// byte at which the tensor cores rather than memory are the limit.  The
+// split backward recomputes S and dP in both of its launches: 7 tile
+// products where the fused route does 5.  So the bf16 products run on the
+// tensor cores, and the forward and split backward on Hopper's warpgroup
+// products (wgmma, wgmma_tiles.cuh), which read B (and A where it is a
+// staged tile) straight from shared memory: the ldmatrix fragment traffic
+// that bound the mma.sync form of these kernels is gone.
 //
-//   * 4 warps per CTA, 16 rows per warp, 64-row blocks; every tile product
-//     is a warp's [16 x 64] by [64 x d] or [16 x d] by [d x 64], its
-//     operands read from shared memory with ldmatrix (rows padded by 16
-//     bytes: conflict-free);
-//   * the scores, probabilities and gradients of a tile stay in the mma
-//     accumulator registers; a probability tile becomes the A operand of
-//     the next product without leaving them (flash-attention-2's register
-//     reuse);
-//   * forward: one CTA per (query block, head, batch row) loops over key
-//     tiles of 64, double-buffered with cp.async, under an online softmax
-//     in registers.  For training it also writes the row lse ([B, heads,
-//     S] f32, log2 units) and the output in f32 (delta = rowsum(dO o)
-//     reads it: the bf16-rounded output would put 2^-9 of |dO.o| into
-//     every ds);
-//   * fused backward, bf16 (flash-attention-2's backward): a pre-pass
-//     launch takes delta = rowsum(dO o) once per row and zeroes a [B, S, H]
-//     f32 dq scratch; then one CTA of 4 warps (32 keys each) per (128-key
-//     block, head, batch row) loops over query tiles of 64 in a two-stage
-//     cp.async ring.  Per tile it recomputes s, p = exp2(s - lse) and the
-//     dropout mask once and feeds all three gradients from them: dV and dK
-//     accumulate in registers, dS^T goes through shared memory (bf16) to
-//     give dQ over the block's 128 keys, added by 16-byte f32 vector
-//     atomics into the scratch, which the wrapper casts (flash_kernels.cuh
-//     says more).  f32 keeps the first design: 64-key CTAs of 4 warps,
-//     delta per query tile, dq by 8-byte atomics.  Atomics change the
-//     summation order from run to run: dq agrees with a fixed order to f32
-//     rounding of its partial sums.
-//   * split backward: a dq launch (one CTA per query block, looping over
-//     key tiles double-buffered; it writes delta) and a dk/dv launch (the
-//     fused kernel's loop without dQ, reading delta; no atomics).
+//   * forward (rows 10, 13): one CTA of two warpgroups per 128 query rows
+//     of a (head, batch row), looping over key tiles of 64 in a two-stage
+//     cp.async ring (K, V and the key bias).  Per tile a warpgroup takes S
+//     = Q K^T (m64n64, Q and K from shared memory), the online softmax on
+//     the accumulator in registers, p rounded to bf16 and O += P V (P from
+//     registers, V an MN-major tile).  For training it also writes the row
+//     lse ([B, heads, S] f32, log2 units) and the output in f32 (delta =
+//     rowsum(dO o) reads it: the bf16-rounded output would put 2^-9 of
+//     |dO.o| into every ds);
+//   * split backward (row 12), two launches, no atomics: the dq launch
+//     (one CTA of two warpgroups per 128 query rows, one per 64 under
+//     dropout, key tiles of 64 in a ring; delta = rowsum(dO o) once a row
+//     from device memory, written to scratch; per tile S = Q K^T and dP =
+//     dO V^T from shared memory, p and dS in registers, dQ += dS K with dS
+//     as the A fragment) and the dk/dv
+//     launch (one warpgroup per 64 keys, query tiles of 64 in a ring of q,
+//     dO, lse and delta; S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO
+//     and dK += dS^T Q with P^T and dS^T as A fragments: no shared-memory
+//     dS tile);
+//   * fused backward, bf16 (row 11, flash-attention-2's backward): a
+//     pre-pass launch takes delta = rowsum(dO o) once per row and zeroes a
+//     [B, S, H] f32 dq scratch; then one CTA of 4 warps (32 keys each, on
+//     mma.sync) per (128-key block, head, batch row) loops over query tiles
+//     of 64 in a two-stage cp.async ring.  Per tile it recomputes s, p =
+//     exp2(s - lse) and the dropout mask once and feeds all three gradients
+//     from them: dV and dK accumulate in registers, dS^T goes through
+//     shared memory (bf16) to give dQ over the block's 128 keys, added by
+//     16-byte f32 vector atomics into the scratch, which the wrapper casts
+//     (flash_kernels.cuh says more).  Atomics change the summation order
+//     from run to run: dq agrees with a fixed order to f32 rounding of its
+//     partial sums.
 //
-// f32 inputs (the tests and the f32 checks) run the same kernels with the
-// tile products on the CUDA cores in full f32 (SimtF32): the same fragment
-// layout, so the softmax, masking, dropout and lse code is shared.
+// f32 inputs (the tests and the f32 checks) run the earlier design on the
+// CUDA cores in full f32 (SimtF32: 64-row blocks of 4 warps; the fused
+// route's sweep takes delta per tile and adds dq by 8-byte atomics) in the
+// same fragment layout, so the softmax, masking, dropout and lse code is
+// shared.
 //
 // Under dropout the backwards fold 1 / (1 - rate) into the staged dO tile,
 // rounded to the storage type, after delta = rowsum(dO o) is taken from
@@ -69,7 +76,7 @@
 // The TPU kernels' block-diagonal lane packing (two d = 64 heads per
 // 128-lane group) answers the TPU's 128-lane matrix unit; here each CTA
 // takes one head.  Their block sizes (bq = 256, bk = 1024) are VMEM-sized;
-// here blocks are 64 rows, sized by registers and shared memory.
+// here tiles are 64 or 128 rows, sized by registers and shared memory.
 //
 // The kernels live in flash_kernels.cuh, which flash_attention.cu (the
 // head-split flash attention of row 13) shares; this file instantiates
@@ -103,15 +110,13 @@ extern "C" int msa_flash2_fwd(const void* q, const void* k, const void* v,
   const bool drop = drop_threshold > 0;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_FWD(P, D, W)                                                                    \
-  launch_fwd<P<kD>, false, D, W>(q, k, v, bias, out, l, o32, batch, seq, hidden, num_heads, \
-                                 sm, d, s)
-    if (dtype == 0) {
-      if (drop) return l ? MSA_FWD(SimtF32, true, true) : MSA_FWD(SimtF32, true, false);
-      return l ? MSA_FWD(SimtF32, false, true) : MSA_FWD(SimtF32, false, false);
-    }
-    if (drop) return l ? MSA_FWD(MmaBf16, true, true) : MSA_FWD(MmaBf16, true, false);
-    return l ? MSA_FWD(MmaBf16, false, true) : MSA_FWD(MmaBf16, false, false);
+#define MSA_FWD(D, W)                                                                       \
+  (dtype == 0 ? launch_fwd<SimtF32<kD>, false, D, W>(q, k, v, bias, out, l, o32, batch, seq,   \
+                                                      hidden, num_heads, sm, d, s)             \
+              : launch_fwd_wg<kD, false, D, W>(q, k, v, bias, out, l, o32, batch, seq, hidden, \
+                                               num_heads, sm, d, s))
+    if (drop) return l ? MSA_FWD(true, true) : MSA_FWD(true, false);
+    return l ? MSA_FWD(false, true) : MSA_FWD(false, false);
 #undef MSA_FWD
   });
 }
@@ -168,11 +173,12 @@ extern "C" int msa_flash2_bwd_split(const void* q, const void* k, const void* v,
   const bool drop = drop_threshold > 0;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_SPLIT(P, D)                                                              \
-  launch_split<P<kD>, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, seq, \
-                                hidden, num_heads, scale, d, s)
-    if (dtype == 0) return drop ? MSA_SPLIT(SimtF32, true) : MSA_SPLIT(SimtF32, false);
-    return drop ? MSA_SPLIT(MmaBf16, true) : MSA_SPLIT(MmaBf16, false);
+#define MSA_SPLIT(D)                                                                       \
+  (dtype == 0 ? launch_split<SimtF32<kD>, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
+                                                     batch, seq, hidden, num_heads, scale, d, s) \
+              : launch_split_wg<kD, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, \
+                                              seq, hidden, num_heads, scale, d, s))
+    return drop ? MSA_SPLIT(true) : MSA_SPLIT(false);
 #undef MSA_SPLIT
   });
 }

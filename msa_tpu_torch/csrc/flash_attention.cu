@@ -20,13 +20,17 @@
 //
 // What bounds them on the H100: operations, as flash2's (4*S*S*d FLOPs a
 // (batch, head) pair on 4*S*d elements: ~500 FLOPs per bf16 byte at S =
-// 1024, above the ~295 at which the tensor cores are the limit).  The
-// kernels are flash2.cu's (flash_kernels.cuh) with the head-split layout:
-// bf16 products on the tensor cores (mma.sync.m16n8k16, f32 accumulate),
-// f32 ones on the CUDA cores, 64-row blocks of 4 warps, the softmax in
-// registers in base 2 (the lse is converted to natural-log units at its
-// store and back at its loads).  A head's rows are contiguous here (row
-// stride 2d bytes in bf16), so each tile is one block of memory.
+// 1024, above the ~295 at which the tensor cores are the limit; the pair
+// recomputes S and dP in both launches, 7 tile products).  The kernels are
+// flash2.cu's (flash_kernels.cuh) with the head-split layout: bf16 on
+// Hopper's warpgroup products (wgmma; the forward and the dq launch one CTA
+// of two warpgroups per 128 query rows (the dq launch one per 64 under
+// dropout), the dk/dv launch one warpgroup per 64 keys, every operand tile
+// swizzled in shared memory, p and dS kept in
+// registers as the next product's A operand), f32 on the CUDA cores, the
+// softmax in registers in base 2 (the lse is converted to natural-log
+// units at its store and back at its loads).  A head's rows are contiguous
+// here (row stride 2d bytes in bf16), so each tile is one block of memory.
 // Both TPU kernels sum delta for every tile they visit; here the dq launch
 // sums it once a row and writes it to scratch for the dk/dv launch (the
 // same values: each dk/dv block would otherwise re-read o for every query
@@ -64,15 +68,13 @@ extern "C" int msa_flash_attention_fwd(const void* q, const void* k, const void*
   const bool drop = drop_threshold > 0;
   return tc::by_head_dim(head_dim, [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_FWD(P, D, W)                                                                     \
-  launch_fwd<P<kD>, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq, hidden, num_heads, \
-                                sm, d, s)
-    if (dtype == 0) {
-      if (drop) return l ? MSA_FWD(SimtF32, true, true) : MSA_FWD(SimtF32, true, false);
-      return l ? MSA_FWD(SimtF32, false, true) : MSA_FWD(SimtF32, false, false);
-    }
-    if (drop) return l ? MSA_FWD(MmaBf16, true, true) : MSA_FWD(MmaBf16, true, false);
-    return l ? MSA_FWD(MmaBf16, false, true) : MSA_FWD(MmaBf16, false, false);
+#define MSA_FWD(D, W)                                                                       \
+  (dtype == 0 ? launch_fwd<SimtF32<kD>, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq, \
+                                                     hidden, num_heads, sm, d, s)              \
+              : launch_fwd_wg<kD, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq,      \
+                                              hidden, num_heads, sm, d, s))
+    if (drop) return l ? MSA_FWD(true, true) : MSA_FWD(true, false);
+    return l ? MSA_FWD(false, true) : MSA_FWD(false, false);
 #undef MSA_FWD
   });
 }
@@ -99,11 +101,12 @@ extern "C" int msa_flash_attention_bwd(const void* q, const void* k, const void*
   const bool drop = drop_threshold > 0;
   return tc::by_head_dim(head_dim, [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_BWD(P, D)                                                                  \
-  launch_split<P<kD>, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, batch, seq, \
-                               hidden, num_heads, scale, d, s)
-    if (dtype == 0) return drop ? MSA_BWD(SimtF32, true) : MSA_BWD(SimtF32, false);
-    return drop ? MSA_BWD(MmaBf16, true) : MSA_BWD(MmaBf16, false);
+#define MSA_BWD(D)                                                                          \
+  (dtype == 0 ? launch_split<SimtF32<kD>, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, \
+                                                    batch, seq, hidden, num_heads, scale, d, s) \
+              : launch_split_wg<kD, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, batch, \
+                                             seq, hidden, num_heads, scale, d, s))
+    return drop ? MSA_BWD(true) : MSA_BWD(false);
 #undef MSA_BWD
   });
 }

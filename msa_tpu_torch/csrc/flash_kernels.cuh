@@ -15,14 +15,27 @@
 //                     rounded (flash2.py:248, :313,   (attention.py:242-244)
 //                     :407)
 //
-// Inside, both run the softmax in base 2 (scores carry scale * log2e, exp2
+// Inside, all run the softmax in base 2 (scores carry scale * log2e, exp2
 // replaces exp); the head-split kernels convert their lse at the store
-// and the load.  flash2.cu's header says how the kernels are laid out and
-// what bounds them.  The bf16 tile products, copies and dropout words are
-// mma_tiles.cuh's, shared with the short-attention kernels.  The head dim
-// kD is a parameter of the tile policy P (MmaBf16<kD>, SimtF32<kD>): a
-// score tile is [16 x 64] keys whatever kD, the output and gradient tiles
-// [16 x kD].
+// and the load.  Three families, by dtype and route:
+//
+//   * bf16 forward and split backward (rows 10, 12, 13): warpgroup kernels
+//     on Hopper's wgmma (wgmma_tiles.cuh), flash_fwd_wg_kernel,
+//     flash_bwd_dq_wg_kernel and flash_bwd_dkv_wg_kernel below: 64-row
+//     warpgroup tiles whose operands wgmma reads from swizzled shared
+//     memory, probabilities and dS kept in the accumulator registers as
+//     the next product's A operand;
+//   * bf16 fused backward (row 11): flash2_bwd_fused_kernel, mma.sync
+//     warp tiles of 32 keys (mma_tiles.cuh) behind a delta pre-pass;
+//   * f32 (the tests and the f32 checks): flash_fwd_kernel,
+//     flash_bwd_dq_kernel and flash_bwd_dkv_kernel (split and fused) with
+//     the tile products on the CUDA cores (SimtF32), 64-row blocks of 4
+//     warps.
+//
+// Every family lays a score tile out as mma.sync's m16n8 accumulator (a
+// warp holds rows g and g + 8 of its 16, columns 8n + 2c + {0, 1}), so the
+// per-element code (softmax, key bias, dropout words, the folds of 1 / (1
+// - rate)) reads alike in each.  flash2.cu's header says what bounds them.
 
 #pragma once
 
@@ -35,6 +48,7 @@
 
 #include "dropout.cuh"
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -49,6 +63,7 @@ using msa_mma::Frag;
 using msa_mma::keep_words_qmajor;
 using msa_mma::kFull;
 
+// The f32 kernels' blocks (the bf16 kernels' tiles are their own, below).
 constexpr int kBlock = 64;             // rows of a block and of a loop tile
 constexpr int kWarps = kBlock / 16;
 constexpr int kThreads = 32 * kWarps;
@@ -61,37 +76,18 @@ using SFrag = Frag<kSN>;               // scores, probabilities, dS: [16 x 64]
 static_assert(msa_dropout::kGroup == 16, "one Philox draw per 16 keys");
 static_assert(kThreads == 2 * kBlock, "row_delta takes two threads per row");
 
-// The tile products of a policy P on [kBlock][kStride] row tiles (q, k, v,
-// dO; kD values a row) and one [kBlock][kTStride] tile of dS^T (the f32
-// fused backward only; bf16's is flash2_bwd_fused_kernel):
+// The tile products of the f32 policy on [kBlock][kStride] row tiles (q,
+// k, v, dO; kD values a row) and one [kBlock][kTStride] tile of dS^T (the
+// fused backward only):
 //   nt(a, m0, b, c):       c  = a[m0 .. m0+16) . b^T  [16 x 64], over kD columns
 //   nn(f, b, c):           c += f . b                 [16 x kD], f [16 x 64]
 //   tn(at, m0, b, c):      c  = at[:, m0 .. m0+16)^T . b  [16 x kD], over 64 rows
 //                          of at (row stride kTStride)
 
-// bf16 on the tensor cores (mma_tiles.cuh).
-template <int kDim>
-struct MmaBf16 {
-  using T = __nv_bfloat16;
-  static constexpr int kD = kDim;
-  static constexpr int kON = kD / 8;              // column tiles of an output tile
-  static constexpr int kStride = tc::kStride<kD>;  // kD + 8
-  static constexpr int kTStride = kBlock + 8;      // 144-byte rows: conflict-free
-  static constexpr int kSStride = 0;               // no stage
-  static constexpr int kStageFloats = 0;
-  using OFrag = Frag<kON>;
-
-  __device__ static void nt(const T* a, int m0, const T* b, SFrag& c, float*) {
-    tc::mma_nt<kD, kSN>(a, m0, b, c.x);
-  }
-  __device__ static void nn(const SFrag& f, const T* b, OFrag& c, float*) {
-    tc::mma_nn<kD, kSN>(f.x, b, c.x);
-  }
-};
-
-// f32: the same products on the CUDA cores, each lane computing the
-// elements its Frag holds.  nn stages f in the warp's shared scratch
-// ([16][kSStride]).  Rows of kD + 4 floats (an odd multiple of 16 bytes).
+// f32 on the CUDA cores, each lane computing the elements its Frag holds
+// (on the tensor cores f32 would be TF32).  nn stages f in the warp's
+// shared scratch ([16][kSStride]).  Rows of kD + 4 floats (an odd multiple
+// of 16 bytes).
 template <int kDim>
 struct SimtF32 {
   using T = float;
@@ -247,10 +243,10 @@ __device__ __forceinline__ void scale_own_chunks(typename P::T* tile, float mult
   }
 }
 
-// The key bias of keys [k0, k0 + 64) in the log2 domain; -inf past seq.
-__device__ __forceinline__ void load_bias(float* dst, const float* bias_row, int k0,
-                                          int seq) {
-  for (int j = threadIdx.x; j < kBlock; j += kThreads) {
+// The key bias of keys [k0, k0 + kN) in the log2 domain, -inf past seq.
+template <int kN>
+__device__ __forceinline__ void bias_tile(float* dst, const float* bias_row, int k0, int seq) {
+  for (int j = threadIdx.x; j < kN; j += blockDim.x) {
     dst[j] = k0 + j < seq ? bias_row[k0 + j] * kLog2e : -INFINITY;
   }
 }
@@ -368,7 +364,7 @@ flash_fwd_kernel(const typename P::T* __restrict__ q, const typename P::T* __res
   load_tile<P>(k_s, k, head_base, ld, 0, seq);
   load_tile<P>(v_s, v, head_base, ld, 0, seq);
   cp_async_commit();
-  load_bias(bias_s, bias_row, 0, seq);
+  bias_tile<kBlock>(bias_s, bias_row, 0, seq);
 
   typename P::OFrag acc;
   acc.zero();
@@ -381,7 +377,7 @@ flash_fwd_kernel(const typename P::T* __restrict__ q, const typename P::T* __res
       load_tile<P>(k_s + nb * kTileElems, k, head_base, ld, (t + 1) * kBlock, seq);
       load_tile<P>(v_s + nb * kTileElems, v, head_base, ld, (t + 1) * kBlock, seq);
       cp_async_commit();
-      load_bias(bias_s + nb * kBlock, bias_row, (t + 1) * kBlock, seq);
+      bias_tile<kBlock>(bias_s + nb * kBlock, bias_row, (t + 1) * kBlock, seq);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -522,7 +518,7 @@ flash_bwd_dq_kernel(const typename P::T* __restrict__ q, const typename P::T* __
   load_tile<P>(k_s, k, head_base, ld, 0, seq);
   load_tile<P>(v_s, v, head_base, ld, 0, seq);
   cp_async_commit();
-  load_bias(bias_s, bias_row, 0, seq);
+  bias_tile<kBlock>(bias_s, bias_row, 0, seq);
   for (int j = threadIdx.x; j < kBlock; j += kThreads) {
     // p = 0 past seq; the head-split lse arrives in natural-log units
     lse_s[j] = q0 + j < seq ? lse[row_base + q0 + j] * (kHeadSplit ? kLog2e : 1.f) : INFINITY;
@@ -551,7 +547,7 @@ flash_bwd_dq_kernel(const typename P::T* __restrict__ q, const typename P::T* __
       load_tile<P>(k_s + nb * kTileElems, k, head_base, ld, (t + 1) * kBlock, seq);
       load_tile<P>(v_s + nb * kTileElems, v, head_base, ld, (t + 1) * kBlock, seq);
       cp_async_commit();
-      load_bias(bias_s + nb * kBlock, bias_row, (t + 1) * kBlock, seq);
+      bias_tile<kBlock>(bias_s + nb * kBlock, bias_row, (t + 1) * kBlock, seq);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -1089,6 +1085,535 @@ flash2_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the warpgroup tensor cores (wgmma): the forward (rows 10 and 13)
+// and the split backward (rows 12 and 13)
+// ---------------------------------------------------------------------------
+//
+// Every product is a warpgroup's m64nNk16 (wgmma_tiles.cuh): B, and A where
+// it is a staged tile, read from swizzled shared-memory tiles through
+// descriptors; A from registers where it is a probability or dS tile,
+// which never leaves the accumulator registers (the accumulator layout of
+// column tiles 2kk and 2kk + 1 is k-step kk's A fragment).  Warp w of a CTA
+// holds rows 16 w + g and 16 w + g + 8 of the CTA's tile, as the mma.sync
+// kernels above, so the per-element code (base-2 softmax, key bias, lse
+// units, dropout words per 16-row warp slice, the folds of 1 / (1 - rate))
+// is theirs.  Copies are cp.async into the swizzled layout by every thread
+// (no producer warp), a two-stage ring, one barrier a tile.
+
+namespace wg = msa_wgmma;
+
+// The output delta reads: flash2's f32 out32, the head-split output in bf16.
+template <bool kHeadSplit>
+using WgOutT = std::conditional_t<kHeadSplit, __nv_bfloat16, float>;
+
+// The tile choices, measured on the H100 (PERF.md §6): warpgroups
+// a CTA (64 rows each), the width of a loop tile, and the CTAs an SM that
+// ptxas fits the registers to (__launch_bounds__).
+//   * forward: 128 query rows, 64-key tiles, 2 CTAs an SM (128 registers;
+//     the dropout forms took 170 and held 1 CTA, 27 % slower; 128-key
+//     tiles took 180 and ran 27 % slower);
+//   * dq launch: 128 query rows at rate 0 (2 CTAs an SM); under dropout
+//     the head-split form spills at 128 registers, so 64 rows and 3 CTAs
+//     (up to 170 registers), which also ran 4-6 % faster there and 3-6 %
+//     slower at rate 0;
+//   * dk/dv launch: 64 keys (one warpgroup, 3 CTAs an SM at rate 0 by its
+//     own 166 registers; 128 keys in two warpgroups held 1 CTA and ran 9 %
+//     slower), 64-query tiles.
+constexpr int kFwdGroups = 2, kFwdKeys = 64, kFwdMinBlocks = 2;
+template <bool kDropout>
+constexpr int kDqGroups = kDropout ? 1 : 2;
+template <bool kDropout>
+constexpr int kDqMinBlocks = kDropout ? 3 : 2;
+constexpr int kDqKeys = 64;
+constexpr int kDkvGroups = 1, kDkvQueries = 64;
+
+static_assert(kDkvQueries == 64, "the dk/dv launch's keep bits cover 64 queries");
+
+template <int kD>
+constexpr int wg_fwd_smem_bytes() {
+  return wg::kAlign + (64 * kFwdGroups + 4 * kFwdKeys) * wg::kRowBytes<kD> + 2 * kFwdKeys * 4;
+}
+template <int kD, bool kDropout>
+constexpr int wg_dq_smem_bytes() {
+  return wg::kAlign + (2 * 64 * kDqGroups<kDropout> + 4 * kDqKeys) * wg::kRowBytes<kD> +
+         2 * kDqKeys * 4 + 64 * kDqGroups<kDropout> * 4;
+}
+template <int kD>
+constexpr int wg_dkv_smem_bytes() {
+  return wg::kAlign + (2 * 64 * kDkvGroups + 4 * kDkvQueries) * wg::kRowBytes<kD> +
+         4 * kDkvQueries * 4;
+}
+
+// delta = dO . o of row `row` (dO unscaled, o in its type) from device
+// memory: this thread sums half `half` of the kD columns in order, its
+// partner (lane ^ 1) the other; 0 past seq.  row_delta's order.
+template <int kD, typename OT>
+__device__ __forceinline__ float row_delta_dev(const __nv_bfloat16* dout, const OT* o,
+                                               size_t head_base, int ld, int row, int seq,
+                                               int half) {
+  constexpr int kHalf = kD / 2;
+  float sum = 0.f;
+  if (row < seq) {
+    const OT* op = o + head_base + (size_t)row * ld + half * kHalf;
+    const __nv_bfloat16* dp = dout + head_base + (size_t)row * ld + half * kHalf;
+#pragma unroll
+    for (int e = 0; e < kHalf; e += 4) {
+      const float4 ov = load4(op + e), dv = load4(dp + e);
+      sum = fmaf(dv.x, ov.x, sum);
+      sum = fmaf(dv.y, ov.y, sum);
+      sum = fmaf(dv.z, ov.z, sum);
+      sum = fmaf(dv.w, ov.w, sum);
+    }
+  }
+  return sum + __shfl_xor_sync(kFull, sum, 1);
+}
+
+// S = A B^T over kD (A rows from a_row of tile a, B the kN rows of tile b),
+// both K-major in shared memory; the accumulator is overwritten.
+template <int kD, int kN>
+__device__ __forceinline__ void wg_nt(float (&s)[kN / 8][4], const unsigned char* a, int a_row,
+                                      const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    wg::mma_ss<kN, 0>(s, wg::desc_k<kD>(a, a_row, kk), wg::desc_k<kD>(b, 0, kk), kk);
+  }
+}
+
+// c += F B for F [64 x 16kK] in A fragments and B the 16kK rows of tile b
+// (MN-major: rows the contracted index, kD the output columns).
+template <int kD, int kK>
+__device__ __forceinline__ void wg_nn(float (&c)[kD / 8][4], const uint32_t (&f)[kK][4],
+                                      const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) wg::mma_rs<kD, 1>(c, f[kk], wg::desc_mn<kD>(b, kk), 1);
+}
+
+template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
+__global__ void __launch_bounds__(wg::kGroupThreads * kFwdGroups, kFwdMinBlocks)
+flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    float* __restrict__ out32, int seq, int hidden, float score_mult,
+                    Dropout drop) {
+  constexpr int kRows = 64 * kFwdGroups, kThr = wg::kGroupThreads * kFwdGroups;
+  constexpr int kN = kFwdKeys / 8, kTile = kFwdKeys * wg::kRowBytes<kD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* q_s = wg::align_smem(smem_raw);
+  unsigned char* k_s = q_s + kRows * wg::kRowBytes<kD>;  // two stages
+  unsigned char* v_s = k_s + 2 * kTile;                   // two stages
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * kTile);  // [2][kFwdKeys]
+
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
+  const int a_row = 64 * (warp >> 2);  // the warpgroup's rows of the Q tile
+  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
+  const int ld = row_stride<kD, kHeadSplit>(hidden);
+  const float* bias_row = key_bias + (size_t)b * seq;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  const int n_tiles = (seq + kFwdKeys - 1) / kFwdKeys;
+
+  wg::stage_rows<kD>(q_s, q, head_base, ld, q0, kRows, seq, tid, kThr);
+  wg::stage_rows<kD>(k_s, k, head_base, ld, 0, kFwdKeys, seq, tid, kThr);
+  wg::stage_rows<kD>(v_s, v, head_base, ld, 0, kFwdKeys, seq, tid, kThr);
+  cp_async_commit();
+  bias_tile<kFwdKeys>(bias_s, bias_row, 0, seq);
+
+  Frag<kD / 8> acc;
+  acc.zero();
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy overlaps this tile's math
+      const int nb = buf ^ 1, k1 = (t + 1) * kFwdKeys;
+      wg::stage_rows<kD>(k_s + nb * kTile, k, head_base, ld, k1, kFwdKeys, seq, tid, kThr);
+      wg::stage_rows<kD>(v_s + nb * kTile, v, head_base, ld, k1, kFwdKeys, seq, tid, kThr);
+      cp_async_commit();
+      bias_tile<kFwdKeys>(bias_s + nb * kFwdKeys, bias_row, k1, seq);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    wg::fence_proxy_async();
+    __syncthreads();
+    const unsigned char* kt = k_s + buf * kTile;
+    const unsigned char* vt = v_s + buf * kTile;
+
+    float s[kN][4];
+    wg::fence();
+    wg_nt<kD, kFwdKeys>(s, q_s, a_row, kt);
+    wg::commit();
+    uint32_t keep[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) keep[i] = kFull;
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int h = 0; h < kFwdKeys / 64; ++h) {
+        keep_words_qmajor(drop, row_base + row0, t * kFwdKeys + 64 * h, keep + 4 * h);
+      }
+    }
+    wg::wait<0>();
+    wg::fence_operand(s);
+    const float* bias_t = bias_s + buf * kFwdKeys;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bb = bias_t[n * 8 + 2 * c + e];
+        s[n][e] = fmaf(s[n][e], score_mult, bb);
+        s[n][2 + e] = fmaf(s[n][2 + e], score_mult, bb);
+        mx[0] = fmaxf(mx[0], s[n][e]);
+        mx[1] = fmaxf(mx[1], s[n][2 + e]);
+      }
+    }
+    // Online softmax, as flash_fwd_kernel: every tile holds a key < seq.
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      corr[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = exp2f(s[n][e] - m_run[0]);
+        const float p1 = exp2f(s[n][2 + e] - m_run[1]);
+        l_run[0] += p0;
+        l_run[1] += p1;
+        const int jj = (n & 1) * 8 + 2 * c + e;
+        const uint32_t w = keep[n >> 1];
+        s[n][e] = ((w >> jj) & 1u) ? p0 : 0.f;
+        s[n][2 + e] = ((w >> (16 + jj)) & 1u) ? p1 : 0.f;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      acc.x[n][0] *= corr[0];
+      acc.x[n][1] *= corr[0];
+      acc.x[n][2] *= corr[1];
+      acc.x[n][3] *= corr[1];
+    }
+    uint32_t pa[kN / 2][4];  // p rounded to bf16 before P V, as JAX's
+    wg::to_a(s, pa);
+    wg::fence_operand(acc.x);
+    wg::fence_operand(pa);
+    wg::fence();
+    wg_nn<kD, kN / 2>(acc.x, pa, vt);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc.x);
+    wg::fence_operand(pa);
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 2);
+  }
+  if constexpr (kHeadSplit) {  // JAX's guard (_flash_kernel: max(l, 1e-30))
+    l_run[0] = fmaxf(l_run[0], 1e-30f);
+    l_run[1] = fmaxf(l_run[1], 1e-30f);
+  }
+  const float inv0 = drop.scale / l_run[0], inv1 = drop.scale / l_run[1];
+  store_frag(out, head_base, ld, row0, seq, acc, inv0, inv1);
+  if constexpr (kTrain) {
+    const float unit = kHeadSplit ? kLn2 : 1.f;  // the head-split lse in natural-log units
+    if (c == 0) {
+      if (row0 < seq) lse[row_base + row0] = (m_run[0] + log2f(l_run[0])) * unit;
+      if (row0 + 8 < seq) lse[row_base + row0 + 8] = (m_run[1] + log2f(l_run[1])) * unit;
+    }
+    if (out32 != nullptr) store_frag(out32, head_base, ld, row0, seq, acc, inv0, inv1);
+  }
+}
+
+// The split backward's dq launch: dS = p (dP - delta) per key tile, dQ +=
+// dS K; delta = rowsum(dO o) once a row, also written for the dk/dv launch.
+template <int kD, bool kHeadSplit, bool kDropout>
+__global__ void __launch_bounds__(wg::kGroupThreads * kDqGroups<kDropout>,
+                                  kDqMinBlocks<kDropout>)
+flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+                       const WgOutT<kHeadSplit>* __restrict__ o,
+                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                       float* __restrict__ delta_out, __nv_bfloat16* __restrict__ dq, int seq,
+                       int hidden, float score_mult, float scale, Dropout drop) {
+  constexpr int kRows = 64 * kDqGroups<kDropout>;
+  constexpr int kThr = wg::kGroupThreads * kDqGroups<kDropout>;
+  constexpr int kN = kDqKeys / 8, kTile = kDqKeys * wg::kRowBytes<kD>;
+  constexpr bool kFold = kFoldDo<kHeadSplit, kDropout>;
+  static_assert(kThr == 2 * kRows, "delta takes two threads a row");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* q_s = wg::align_smem(smem_raw);
+  unsigned char* do_s = q_s + kRows * wg::kRowBytes<kD>;
+  unsigned char* k_s = do_s + kRows * wg::kRowBytes<kD>;  // two stages
+  unsigned char* v_s = k_s + 2 * kTile;                    // two stages
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * kTile);  // [2][kDqKeys]
+  float* delta_s = bias_s + 2 * kDqKeys;                      // [kRows]
+
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
+  const int a_row = 64 * (warp >> 2);
+  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
+  const int ld = row_stride<kD, kHeadSplit>(hidden);
+  const float* bias_row = key_bias + (size_t)b * seq;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int row0 = q0 + warp * 16 + g;
+  const int n_tiles = (seq + kDqKeys - 1) / kDqKeys;
+
+  wg::stage_rows<kD>(q_s, q, head_base, ld, q0, kRows, seq, tid, kThr);
+  wg::stage_rows<kD>(do_s, dout, head_base, ld, q0, kRows, seq, tid, kThr);
+  cp_async_commit();
+  wg::stage_rows<kD>(k_s, k, head_base, ld, 0, kDqKeys, seq, tid, kThr);
+  wg::stage_rows<kD>(v_s, v, head_base, ld, 0, kDqKeys, seq, tid, kThr);
+  cp_async_commit();
+  bias_tile<kDqKeys>(bias_s, bias_row, 0, seq);
+  {  // delta from the unscaled dO in device memory, two threads a row
+    const int j = tid >> 1;
+    const float d = row_delta_dev<kD>(dout, o, head_base, ld, q0 + j, seq, tid & 1);
+    if ((tid & 1) == 0) {
+      delta_s[j] = d;
+      if (q0 + j < seq) delta_out[row_base + q0 + j] = d;
+    }
+  }
+  float lse_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // p = 0 past seq; the head-split lse arrives in natural-log units
+    const int row = row0 + 8 * r;
+    lse_r[r] = row < seq ? lse[row_base + row] * (kHeadSplit ? kLog2e : 1.f) : INFINITY;
+  }
+  cp_async_wait<1>();  // q and dO have landed
+  // flash2 folds 1 / (1 - rate) into the staged dO (delta took it unscaled)
+  if constexpr (kFold) wg::scale_own_rows<kD>(do_s, kRows, fold_factor<__nv_bfloat16>(drop.scale), tid, kThr);
+  __syncthreads();
+  const float delta_r[2] = {delta_s[warp * 16 + g], delta_s[warp * 16 + g + 8]};
+
+  Frag<kD / 8> dqa;
+  dqa.zero();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      const int nb = buf ^ 1, k1 = (t + 1) * kDqKeys;
+      wg::stage_rows<kD>(k_s + nb * kTile, k, head_base, ld, k1, kDqKeys, seq, tid, kThr);
+      wg::stage_rows<kD>(v_s + nb * kTile, v, head_base, ld, k1, kDqKeys, seq, tid, kThr);
+      cp_async_commit();
+      bias_tile<kDqKeys>(bias_s + nb * kDqKeys, bias_row, k1, seq);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    wg::fence_proxy_async();
+    __syncthreads();
+    const unsigned char* kt = k_s + buf * kTile;
+    const unsigned char* vt = v_s + buf * kTile;
+
+    float s[kN][4], dp[kN][4];
+    wg::fence();
+    wg_nt<kD, kDqKeys>(s, q_s, a_row, kt);
+    wg_nt<kD, kDqKeys>(dp, do_s, a_row, vt);
+    wg::commit();
+    uint32_t keep[kN / 2];
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) keep[i] = kFull;
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int h = 0; h < kDqKeys / 64; ++h) {
+        keep_words_qmajor(drop, row_base + row0, t * kDqKeys + 64 * h, keep + 4 * h);
+      }
+    }
+    wg::wait<0>();
+    wg::fence_operand(s);
+    wg::fence_operand(dp);
+    const float* bias_t = bias_s + buf * kDqKeys;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bb = bias_t[n * 8 + 2 * c + e];
+        const int jj = (n & 1) * 8 + 2 * c + e;
+        const uint32_t w = keep[n >> 1];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p = exp2f(fmaf(s[n][2 * r + e], score_mult, bb) - lse_r[r]);
+          float dpm = dp[n][2 * r + e];
+          if constexpr (kDropout) {
+            const bool kept = (w >> (16 * r + jj)) & 1u;
+            dpm = kept ? (kFold ? dpm : dpm * drop.scale) : 0.f;
+          }
+          s[n][2 * r + e] = p * (dpm - delta_r[r]);
+        }
+      }
+    }
+    uint32_t da[kN / 2][4];  // dS rounded to bf16, as JAX's
+    wg::to_a(s, da);
+    wg::fence_operand(dqa.x);
+    wg::fence_operand(da);
+    wg::fence();
+    wg_nn<kD, kN / 2>(dqa.x, da, kt);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(dqa.x);
+    wg::fence_operand(da);
+    __syncthreads();
+  }
+  store_frag(dq, head_base, ld, row0, seq, dqa, scale, scale);
+}
+
+// The split backward's dk/dv launch: a CTA's keys against query tiles that
+// a two-stage ring brings in (q, dO, lse, delta); dV += P^T dO and dK +=
+// dS^T Q with P^T and dS^T in registers.
+template <int kD, bool kHeadSplit, bool kDropout>
+__global__ void __launch_bounds__(wg::kGroupThreads * kDkvGroups)
+flash_bwd_dkv_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta_in, __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int seq, int hidden, float score_mult,
+                        float scale, Dropout drop) {
+  constexpr int kKeys = 64 * kDkvGroups, kThr = wg::kGroupThreads * kDkvGroups;
+  constexpr int kQ = kDkvQueries, kN = kQ / 8, kTile = kQ * wg::kRowBytes<kD>;
+  constexpr bool kFold = kFoldDo<kHeadSplit, kDropout>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* kb_s = wg::align_smem(smem_raw);        // this CTA's keys
+  unsigned char* vb_s = kb_s + kKeys * wg::kRowBytes<kD>;
+  unsigned char* q_s = vb_s + kKeys * wg::kRowBytes<kD>;  // two ring stages
+  unsigned char* do_s = q_s + 2 * kTile;                   // two ring stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile);  // [2][kQ]
+  float* delta_s = lse_s + 2 * kQ;                            // [2][kQ]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int a_row = 64 * (warp >> 2);
+  const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kKeys;
+  const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
+  const int ld = row_stride<kD, kHeadSplit>(hidden);
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int key0 = kb0 + warp * 16 + g;  // this lane's keys: key0, key0 + 8
+  const uint32_t grp = (uint32_t)(kb0 + warp * 16) / 16u;  // the warp's Philox group
+  const int n_tiles = (seq + kQ - 1) / kQ;
+
+  // q, dO rows [i0, i0 + kQ) and their lse and delta into ring stage st;
+  // zero-filled past seq
+  auto load_tile = [&](int st, int i0) {
+    wg::stage_rows<kD>(q_s + st * kTile, q, head_base, ld, i0, kQ, seq, tid, kThr);
+    wg::stage_rows<kD>(do_s + st * kTile, dout, head_base, ld, i0, kQ, seq, tid, kThr);
+    for (int j = tid; j < 2 * kQ; j += kThr) {
+      const int jj = j % kQ;
+      const bool ok = i0 + jj < seq;
+      const float* src = (j < kQ ? lse : delta_in) + row_base + (ok ? i0 + jj : 0);
+      tc::cp_async4((j < kQ ? lse_s : delta_s) + st * kQ + jj, src, ok);
+    }
+  };
+
+  float bias2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    bias2[r] = key < seq ? key_bias[(size_t)b * seq + key] * kLog2e : -INFINITY;
+  }
+  wg::stage_rows<kD>(kb_s, k, head_base, ld, kb0, kKeys, seq, tid, kThr);
+  wg::stage_rows<kD>(vb_s, v, head_base, ld, kb0, kKeys, seq, tid, kThr);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  Frag<kD / 8> dk_acc, dv_acc;
+  dk_acc.zero();
+  dv_acc.zero();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, i0 = t * kQ;
+    if (t + 1 < n_tiles) {  // tile t + 1 lands while tile t is computed
+      load_tile(st ^ 1, i0 + kQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const unsigned char* qt = q_s + st * kTile;
+    unsigned char* dot = do_s + st * kTile;
+    // the split route's delta came from the unscaled dO: fold as it lands
+    if constexpr (kFold) wg::scale_own_rows<kD>(dot, kQ, fold_factor<__nv_bfloat16>(drop.scale), tid, kThr);
+    wg::fence_proxy_async();
+    __syncthreads();
+
+    // S^T and dP^T: rows = this warpgroup's keys, columns = the tile's queries
+    float st_[kN][4], dpt[kN][4];
+    wg::fence();
+    wg_nt<kD, kQ>(st_, kb_s, a_row, qt);
+    wg_nt<kD, kQ>(dpt, vb_s, a_row, dot);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(st_);
+    wg::fence_operand(dpt);
+    const float* lt = lse_s + st * kQ;
+    const float* dt = delta_s + st * kQ;
+    uint32_t mine = kFull;  // keep bits of queries lane, lane + 32 (16 keys each)
+    if constexpr (kDropout) {
+      mine = keep_bits16(drop, grp, row_base + i0 + lane) |
+             (keep_bits16(drop, grp, row_base + i0 + lane + 32) << 16);
+    }
+#pragma unroll
+    for (int n = 0; n < kN / 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t w = kFull;
+        if constexpr (kDropout) w = __shfl_sync(kFull, mine, n * 8 + 2 * c + e);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {  // query columns n*8 + ... and +32
+          const int nn = n + hi * (kN / 2);
+          const int col = nn * 8 + 2 * c + e;
+          const uint32_t bits = w >> (16 * hi);
+          // p = 0 past seq; the head-split lse arrives in natural-log units
+          const float l = i0 + col < seq ? lt[col] * (kHeadSplit ? kLog2e : 1.f) : INFINITY;
+          const float dl = dt[col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float p = exp2f(fmaf(st_[nn][2 * r + e], score_mult, bias2[r]) - l);
+            float pd = p, dpm = dpt[nn][2 * r + e];
+            if constexpr (kDropout) {
+              // the kept p unscaled; a product with the keep bit, as in
+              // flash_bwd_dkv_kernel
+              const float kept = ((bits >> (g + 8 * r)) & 1u) ? 1.f : 0.f;
+              pd = p * kept;
+              dpm *= kFold ? kept : kept * drop.scale;
+            }
+            st_[nn][2 * r + e] = p * (dpm - dl);  // dS^T
+            dpt[nn][2 * r + e] = pd;              // P^T with dropout
+          }
+        }
+      }
+    }
+    uint32_t pa[kN / 2][4], da[kN / 2][4];  // rounded to bf16, as JAX's
+    wg::to_a(dpt, pa);
+    wg::to_a(st_, da);
+    wg::fence_operand(dv_acc.x);
+    wg::fence_operand(dk_acc.x);
+    wg::fence_operand(pa);
+    wg::fence_operand(da);
+    wg::fence();
+    wg_nn<kD, kN / 2>(dv_acc.x, pa, dot);  // dV += P^T dO
+    wg_nn<kD, kN / 2>(dk_acc.x, da, qt);   // dK += dS^T Q
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(dv_acc.x);
+    wg::fence_operand(dk_acc.x);
+    wg::fence_operand(pa);
+    wg::fence_operand(da);
+    __syncthreads();  // the ring stage is reloaded next
+  }
+  // the head-split kernels' dV carries 1 / (1 - rate) from here (JAX's
+  // _flash_dkv_kernel scales each tile's f32 product)
+  const float dv_mult = kDropout && kHeadSplit ? drop.scale : 1.f;
+  store_frag(dk, head_base, ld, key0, seq, dk_acc, scale, scale);
+  store_frag(dv, head_base, ld, key0, seq, dv_acc, dv_mult, dv_mult);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -1164,6 +1689,54 @@ int launch_split(const void* q, const void* k, const void* v, const float* bias,
   return launch_dkv<P, kHeadSplit, kDropout, false>(q, k, v, bias, o, dout, lse, delta,
                                                     nullptr, dk, dv, batch, seq, hidden,
                                                     num_heads, scale, drop, s);
+}
+
+// The bf16 forward and split backward on the warpgroup kernels.
+template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
+int launch_fwd_wg(const void* q, const void* k, const void* v, const float* bias, void* out,
+                  float* lse, float* out32, int batch, int seq, int hidden, int num_heads,
+                  float score_mult, Dropout drop, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  constexpr auto kernel = flash_fwd_wg_kernel<kD, kHeadSplit, kDropout, kTrain>;
+  constexpr int bytes = wg_fwd_smem_bytes<kD>(), rows = 64 * kFwdGroups;
+  cudaError_t err = allow_smem<kernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((seq + rows - 1) / rows, num_heads, batch), wg::kGroupThreads * kFwdGroups,
+           bytes, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), bias, static_cast<T*>(out), lse, out32, seq,
+                       hidden, score_mult, drop);
+  return (int)cudaGetLastError();
+}
+
+// dq (writing delta, [B, heads, S] f32, to `delta`), then dk/dv reading it.
+template <int kD, bool kHeadSplit, bool kDropout>
+int launch_split_wg(const void* q, const void* k, const void* v, const float* bias,
+                    const void* o, const void* dout, const float* lse, float* delta, void* dq,
+                    void* dk, void* dv, int batch, int seq, int hidden, int num_heads,
+                    float scale, Dropout drop, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  constexpr auto dq_kernel = flash_bwd_dq_wg_kernel<kD, kHeadSplit, kDropout>;
+  constexpr auto dkv_kernel = flash_bwd_dkv_wg_kernel<kD, kHeadSplit, kDropout>;
+  constexpr int dq_bytes = wg_dq_smem_bytes<kD, kDropout>(), dkv_bytes = wg_dkv_smem_bytes<kD>();
+  constexpr int dq_rows = 64 * kDqGroups<kDropout>, dkv_keys = 64 * kDkvGroups;
+  cudaError_t err = allow_smem<dq_kernel>(dq_bytes);
+  if (err == cudaSuccess) err = allow_smem<dkv_kernel>(dkv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  dq_kernel<<<dim3((seq + dq_rows - 1) / dq_rows, num_heads, batch),
+              wg::kGroupThreads * kDqGroups<kDropout>, dq_bytes, s>>>(
+      qt, kt, vt, bias, static_cast<const WgOutT<kHeadSplit>*>(o), dot, lse, delta,
+      static_cast<T*>(dq), seq, hidden, scale * kLog2e, scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<<<dim3((seq + dkv_keys - 1) / dkv_keys, num_heads, batch),
+               wg::kGroupThreads * kDkvGroups, dkv_bytes, s>>>(
+      qt, kt, vt, bias, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), seq, hidden,
+      scale * kLog2e, scale, drop);
+  return (int)cudaGetLastError();
 }
 
 // flash2's fused backward: the pre-pass (delta into `delta`, [B, heads, S]

@@ -1,6 +1,7 @@
 // Warp-level tensor-core tiles for a head dim kD of 32 or 64 (a template
 // parameter of every tile function): the mma.sync primitives that the
-// attention kernels of the port share (flash_kernels.cuh for rows 10-13,
+// attention kernels of the port share (flash_kernels.cuh for row 11's bf16
+// fused backward, and the copies and dropout words of rows 10-13;
 // short_attention.cu and short_attention_v1.cu for the bf16 short-attention
 // forwards, short_bwd_tc.cuh for the bf16 short-attention backwards).
 //

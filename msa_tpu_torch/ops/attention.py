@@ -59,7 +59,7 @@ import torch
 
 from .. import _build
 from .dropout import byte_threshold, quantize_dropout_rate, seeded_generator
-from .flash2 import flash_attention2
+from .flash2 import delta_scratch, flash_attention2
 from .short_attention import (_DTYPES, _aligned, _seed_words, _stream,
                               check_head_dim, save_inputs, saved_inputs,
                               short_attention,
@@ -293,7 +293,7 @@ def flash_attention_backward(q, k, v, key_bias, out, lse, dout, seed: int = 0,
                                   what="flash_attention_backward")
     key_bias = key_bias.to(torch.float32).contiguous()
     lse = lse.contiguous()
-    delta = torch.empty_like(lse)
+    delta = delta_scratch(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("flash_attention", _SIGNATURES)
     code = lib.msa_flash_attention_bwd(

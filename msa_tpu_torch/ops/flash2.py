@@ -193,11 +193,18 @@ def _backward_args(q, k, v, key_bias, out32, lse, dout, num_heads, what):
             lse.contiguous())
 
 
+def delta_scratch(lse: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO o), [B, heads, S] f32 like ``lse``, left unset: the
+    scratch that the split pair's dq launch (or the fused route's pre-pass)
+    writes and its second launch reads."""
+    return torch.empty_like(lse)
+
+
 def fused_scratch(q: torch.Tensor, lse: torch.Tensor):
-    """The fused route's scratch, left unset: delta [B, heads, S] f32 (like
-    ``lse``), which its pre-pass writes, and the f32 dq buffer [B, S, H],
-    which the pre-pass zeroes and the sweep's atomics sum into."""
-    return (torch.empty_like(lse),
+    """The fused route's scratch, left unset: :func:`delta_scratch`, which
+    its pre-pass writes, and the f32 dq buffer [B, S, H], which the
+    pre-pass zeroes and the sweep's atomics sum into."""
+    return (delta_scratch(lse),
             torch.empty(q.shape, dtype=torch.float32, device=q.device))
 
 
@@ -234,7 +241,7 @@ def flash2_bwd_split(q, k, v, key_bias, out32, lse, dout, num_heads: int,
     q, k, v, key_bias, out32, dout, lse = _backward_args(
         q, k, v, key_bias, out32, lse, dout, num_heads, "flash2_bwd_split")
     b, s, h = q.shape
-    delta = torch.empty_like(lse)
+    delta = delta_scratch(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("flash2", _SIGNATURES)
     code = lib.msa_flash2_bwd_split(

@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """nvcc's wall time for each CUDA source of msa_tpu_torch, and what ptxas
-reports (registers, stack frame, spills) for each kernel of the sources
-named, for the checkout at ROOT (default: this one).
+reports (registers, stack frame, spills, and any notice that it serialised
+a kernel's wgmma products) for each kernel of the sources named, for the
+checkout at ROOT (default: this one).  ``flash2 flash_attention`` lists
+the warpgroup kernels of rows 10, 12 and 13 (flash_fwd_wg_kernel,
+flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel) beside the f32 kernels
+and row 11's fused sweep.
 
     python3 scripts/build_report.py [ROOT] [SOURCE ...]
 
@@ -42,9 +46,12 @@ def main() -> int:
         check=True).stdout.splitlines()
     for u, name in zip(usage, names):
         name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        serial = u["serialized"]
         print(f"{u['source']} {name}: {u['registers']} registers, stack "
               f"{u['stack']} B, spill stores {u['spill_stores']} B, loads "
-              f"{u['spill_loads']} B", flush=True)
+              f"{u['spill_loads']} B"
+              f"{', wgmma serialised: ' + '; '.join(serial) if serial else ''}",
+              flush=True)
     return 0
 
 

@@ -73,6 +73,24 @@ def test_flash2_plain_matches_jax_kernels(s, blocks, h, fused, monkeypatch,
     kernel and, with ``_FUSED_BWD=False``, through the split pair."""
     if blocks == "128":
         request.getfixturevalue("small_blocks")
+    check_plain_against_jax(s, h, fused, monkeypatch)
+
+
+@pytest.mark.parametrize("h", [pytest.param(128, id="d64"),
+                               pytest.param(64, id="d32")])
+@pytest.mark.parametrize("s", [127, 129])
+def test_flash2_split_plain_matches_jax_at_block_edges(s, h, monkeypatch):
+    """The plain forward and gradients against JAX's flash2 with the split
+    pair (``_FUSED_BWD=False``) one row short of and one past a 128-row
+    block, where the CUDA forward and dq launch end a query block and the
+    dk/dv launch's ring ends a query tile."""
+    check_plain_against_jax(s, h, False, monkeypatch)
+
+
+def check_plain_against_jax(s, h, fused, monkeypatch):
+    """flash_attention2_plain's forward and autograd gradients against jax.vjp
+    of JAX's flash_attention2 (interpret mode, the fused kernel or the
+    split pair) at B=2, S=s, H=h."""
     monkeypatch.setattr(jax_flash2, "_FUSED_BWD", fused)
     q, k, v, dout, bias = inputs(2, s, h, seed=s)
 
@@ -346,3 +364,50 @@ def test_flash2_bwd_fused_wrapper_hands_the_prepass_its_scratch(dtype, code,
     assert args[11:16] == (b, s, h, HEADS, code)
     assert args[-2] == 26  # the rate's byte threshold
     assert dq.dtype == dtype and torch.equal(dq.float(), dq32)
+
+
+@pytest.mark.parametrize("dtype,code", [
+    pytest.param(torch.bfloat16, 1, id="bf16"),
+    pytest.param(torch.float32, 0, id="f32")])
+def test_flash2_bwd_split_wrapper_hands_the_dq_launch_its_delta(dtype, code,
+                                                                monkeypatch):
+    """The split route's host side (its kernels run only on a card): one
+    call of the C entry, its arguments in ``_SIGNATURES`` order, with the
+    delta scratch [B, heads, S] f32 that its dq launch writes for the dk/dv
+    launch, counted as two launches; dq, dk and dv come back in q's dtype."""
+    calls, scratch = [], []
+
+    class Lib:
+        def msa_flash2_bwd_split(self, *args):
+            calls.append(args)
+            return 0
+
+    def record(lse):
+        scratch.append(real(lse))
+        return scratch[-1]
+
+    real = F2.delta_scratch
+    monkeypatch.setattr(F2._build, "load", lambda name, sigs: Lib())
+    monkeypatch.setattr(F2, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(F2, "_stream", lambda x: 0)
+    monkeypatch.setattr(F2, "delta_scratch", record)
+    b, s, h = 2, 20, 64
+    q, k, v, dout = (torch.zeros(b, s, h, dtype=dtype) for _ in range(4))
+    out32, lse = torch.zeros(b, s, h), torch.zeros(b, HEADS, s)
+    before = F2.flash2_bwd_split.launches
+    bias = torch.zeros(b, s)
+    dq, dk, dv = F2.flash2_bwd_split(q, k, v, bias, out32, lse, dout, HEADS,
+                                     seed=5, rate=0.1015625)
+    assert F2.flash2_bwd_split.launches == before + 2
+    (args,) = calls
+    assert len(args) == len(F2._SIGNATURES["msa_flash2_bwd_split"])
+    (delta,) = scratch
+    assert delta.shape == (b, HEADS, s) and delta.dtype == torch.float32
+    assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                        out32.data_ptr(), dout.data_ptr(), lse.data_ptr())
+    assert args[7:11] == (delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr())
+    assert args[11:16] == (b, s, h, HEADS, code)
+    assert args[-4:-1] == (5, 0, 26)  # the seed's words, the rate's threshold
+    for g in (dq, dk, dv):
+        assert g.shape == q.shape and g.dtype == dtype

@@ -35,9 +35,9 @@ SELF_TOL = 2e-5
 B, HEADS, D = 2, 2, 64
 
 
-def inputs(s, seed, b=B):
+def inputs(s, seed, b=B, d=D):
     rng = np.random.default_rng(seed)
-    q, k, v, dout = (rng.standard_normal((b, HEADS, s, D)).astype(np.float32)
+    q, k, v, dout = (rng.standard_normal((b, HEADS, s, d)).astype(np.float32)
                      for _ in range(4))
     mask = np.ones((b, s), np.float32)
     mask[0, s // 2:] = 0            # key padding across a block boundary
@@ -80,7 +80,22 @@ def test_flash_attention_gradients_match_jax(s, block):
     plain backward on CPU tensors) against jax.vjp through
     ``_flash_attention`` (its dq and dk/dv Pallas kernels in interpret
     mode)."""
-    q, k, v, dout, bias = inputs(s, seed=100 + s)
+    check_against_jax(s, block, D)
+
+
+@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("s", [127, 129])
+def test_flash_attention_gradients_match_jax_at_block_edges(s, d):
+    """The same one row short of and one past a 128-row block, where the
+    CUDA forward and dq launch end a query block and the dk/dv launch's
+    ring ends a query tile, at head dim 64 and 32."""
+    check_against_jax(s, None, d)
+
+
+def check_against_jax(s, block, d):
+    """flash_attention's output and gradients against jax.vjp through
+    ``_flash_attention`` at B=2, S=s, head dim d."""
+    q, k, v, dout, bias = inputs(s, seed=100 + s, d=d)
     bq, bk = jax_blocks(s, block)
 
     def jax_fwd(q, k, v):
@@ -262,3 +277,51 @@ def test_flash_attention_kernel_entries_refuse_cpu_tensors():
         A.flash_attention_backward(q, q, q, torch.zeros(1, 8), q, lse, q)
     with pytest.raises(ValueError, match="no kernel"):
         A._check_heads(q, q, q, None, "flash_attention")
+
+
+@pytest.mark.parametrize("dtype,code", [
+    pytest.param(torch.bfloat16, 1, id="bf16"),
+    pytest.param(torch.float32, 0, id="f32")])
+def test_flash_attention_backward_wrapper_hands_the_dq_launch_its_delta(
+        dtype, code, monkeypatch):
+    """The backward pair's host side (its kernels run only on a card): one
+    call of the C entry, its arguments in ``_SIGNATURES`` order, with the
+    delta scratch [B, heads, S] f32 that the dq launch writes for the dk/dv
+    launch, counted as two launches; dq, dk and dv come back in q's dtype
+    and layout."""
+    calls, scratch = [], []
+
+    class Lib:
+        def msa_flash_attention_bwd(self, *args):
+            calls.append(args)
+            return 0
+
+    def record(lse):
+        scratch.append(torch.empty_like(lse))
+        return scratch[-1]
+
+    monkeypatch.setattr(A._build, "load", lambda name, sigs: Lib())
+    monkeypatch.setattr(A, "_check_heads", lambda *a, **kw: None)
+    monkeypatch.setattr(A, "_stream", lambda x: 0)
+    monkeypatch.setattr(A, "delta_scratch", record)
+    b, s, d = 2, 20, 32
+    q, k, v, out, dout = (torch.zeros(b, HEADS, s, d, dtype=dtype)
+                          for _ in range(5))
+    lse = torch.zeros(b, HEADS, s)
+    before = A.flash_attention_backward.launches
+    bias = torch.zeros(b, s)
+    dq, dk, dv = A.flash_attention_backward(q, k, v, bias, out, lse, dout,
+                                            seed=5, rate=26 / 256)
+    assert A.flash_attention_backward.launches == before + 2
+    (args,) = calls
+    assert len(args) == len(A._SIGNATURES["msa_flash_attention_bwd"])
+    (delta,) = scratch
+    assert delta.shape == (b, HEADS, s) and delta.dtype == torch.float32
+    assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                        out.data_ptr(), dout.data_ptr(), lse.data_ptr())
+    assert args[7:11] == (delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr())
+    assert args[11:16] == (b, HEADS, s, d, code)
+    assert args[-4:-1] == (5, 0, 26)  # the seed's words, the rate's threshold
+    for g in (dq, dk, dv):
+        assert g.shape == q.shape and g.dtype == dtype
