@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times ROOT
+    python3 chip_smoke.py --cli-worker OUT -- CLI_TRAIN_FLAGS...
+    python3 chip_smoke.py --predict-worker OUT RANK PORT
 
 Run from the root of a checkout.  ``--flash-times ROOT`` only times the
 flash kernels and the joint embed (:func:`time_flash_backwards`) of the
 checkout at ROOT (this one's or another's, whose kernels build into
-ROOT/build/), so two trees are timed by the same code in one run.  With no
+ROOT/build/), so two trees are timed by the same code in one run.  The two worker
+modes are the ranks phase 6g starts (:func:`cli_worker`,
+:func:`predict_worker`).  With no
 argument, in order, and stopping at the first failure (no phase catches
 its own), the script:
 
@@ -155,6 +159,18 @@ its own), the script:
      from the first epoch's checkpoint (its second epoch ends on the
      uninterrupted run's parameters bit for bit), then ``cli.sample`` and
      ``cli.score`` on the result;
+  6f. ``fuse_text_pass`` at bert-large B=96 (one [3B, 80] encoder call):
+     1 + 2 bf16 train steps at dropout 0, fused against unfused from the
+     same weights (losses and a leaf within GRAD_TOL, ms/step, launches per
+     step), and bf16 serving fused against unfused (ATTN_TOL, samples/s);
+  6g. data parallelism in two processes on the one card over gloo, each
+     rank launched with ``cli.train --dp 2 --coordinator ... --process_id
+     r`` (this script's ``--cli-worker`` mode calls the CLI's ``run`` and
+     reports the process's kernel launches, final-parameter digest and
+     all-reduce time): bert-large global B=96 at dropout 0 against a
+     one-process epoch, the tiny preset with ``--resume`` bit-equal to the
+     uninterrupted run, and the dp=2 ``Predictor`` (``--predict-worker``)
+     against dp=1;
   7. runs two f32 train steps of a small model on the card (TF32 off) and
      on the CPU from the same weights and MLM masks, and compares the
      losses, the first step's gradients and the updated parameters; then
@@ -273,6 +289,14 @@ FRAME_RUNGS = ("none", "save_attn+drop", "save_ctx")
 PROBS_LOSS_RTOL = 2e-3
 REMAT_LOSS_RTOL = 2e-2
 CLI_SYNTHETIC = 2 * 96  # cli.train: two steps an epoch at B=96
+# fuse_text_pass: 1 + 2 train steps each form, the leaf compared after
+FUSE_WARMUP, FUSE_STEPS = 1, 2
+FUSE_LEAF = "bert/layers/0/q/weight"
+# data parallelism: two steps of the global B=96 through cli.train --dp 2,
+# the leaf held against one process, each spawn's time limit (s)
+DP_SYNTHETIC = 2 * 96
+DP_LEAF = "bert/layers/0/q/weight"
+DP_TIMEOUT = 300
 # the tiny preset's served predictions must spread at least this much, or
 # the int8 and f32 comparisons would compare constants
 TINY_PRED_SPREAD = 1e-2
@@ -2750,12 +2774,13 @@ def rung_launches(policy, layers, steps, frame=False, fused=True):
     return expect_counts(**{k: v * steps for k, v in counts.items()})
 
 
-def train_run(exp, params, batches, warmup, steps, label):
+def train_run(exp, params, batches, warmup, steps, label, keep=None):
     """``warmup`` + ``steps`` train steps of ``exp`` from ``params`` (the
     same batches and seed for every caller): the losses, ms/step over the
     timed steps, peak memory, the bytes autograd keeps for the backward (by
     storage, in the warm-up steps; the bf16 weight copies included), the
-    kernel launches of the timed steps and the trainer's remat policy."""
+    kernel launches of the timed steps and the trainer's remat policy; and
+    the parameter leaf named ``keep`` after the last step (on the CPU)."""
     import torch
 
     from msa_tpu_torch.training.trainer import Trainer
@@ -2788,9 +2813,13 @@ def train_run(exp, params, batches, warmup, steps, label):
     if not all(x == x and abs(x) < float("inf") for x in losses):
         raise AssertionError(f"{label}: losses {losses}")
     policy = trainer.remat_policy
+    kept = None
+    if keep is not None:
+        from msa_tpu_torch.models.weights import named_leaves
+        kept = dict(named_leaves(state.params))[keep].detach().cpu()
     del state, trainer
     torch.cuda.empty_cache()
-    return {"losses": losses, "ms_step": seconds * 1e3 / steps,
+    return {"losses": losses, "ms_step": seconds * 1e3 / steps, "kept": kept,
             "peak_bytes": peak, "saved_bytes": sum(saved.values()),
             "launches": launches, "remat_policy": policy,
             "per_step": {k: v // steps for k, v in launches.items() if v}}
@@ -4155,6 +4184,416 @@ def report_wgmma(usage):
                                  f"{name} in {u['source']}")
 
 
+def no_dropout(exp):
+    """``exp`` with every dropout rate 0 (hidden, attention, joint)."""
+    m = exp.model
+    return dataclasses.replace(exp, model=dataclasses.replace(
+        m, joint_dropout_prob=0.0, bert=dataclasses.replace(
+            m.bert, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)))
+
+
+def with_fuse(exp, fuse):
+    return dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, fuse_text_pass=fuse))
+
+
+def fused_launches(layers, steps=1, train=True):
+    """Kernel launches of ``steps`` bf16 steps (or serving batches) under
+    ``fuse_text_pass``: one short-attention call a layer over [3B, 2L] (and
+    its backward), the two joint embeds."""
+    import torch
+
+    from msa_tpu_torch.ops.short_attention import backward_launches
+
+    bwd = layers * backward_launches(2 * TEXT_LEN, torch.bfloat16) * train
+    return expect_counts(fused_joint_embed=2 * steps,
+                         short_attention=layers * steps,
+                         short_attention_backward=bwd * steps)
+
+
+def phase_fuse_text_pass():
+    """``fuse_text_pass`` at bert-large B=96, L=40: one [3B, 80] encoder
+    call in place of [B, 40] + [2B, 80].  1 + 2 bf16 train steps at dropout
+    0 from the same weights, batches and seed, unfused, fused, fused,
+    unfused (each fused run's losses and a parameter leaf within GRAD_TOL
+    of the first unfused run's; ms/step, peak, launches per step), then
+    the ragged serving split in bf16 in the same turns (predictions within
+    ATTN_TOL; samples/s, launches per batch)."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+
+    t_phase = time.perf_counter()
+    exp, params, batches = train_inputs(5)
+    exp = no_dropout(exp)
+    layers = exp.model.bert.num_hidden_layers
+    turns = (False, True, True, False)
+    runs = [train_run(with_fuse(exp, fuse), params, batches, FUSE_WARMUP,
+                      FUSE_STEPS, f"fuse_text_pass={fuse}", keep=FUSE_LEAF)
+            for fuse in turns]
+    want = {False: rung_launches("none", layers, FUSE_STEPS),
+            True: fused_launches(layers, FUSE_STEPS)}
+    base = runs[0]
+    atol, rtol = GRAD_TOL["bfloat16"]
+    gaps, leaf_err = [], 0.0
+    for fuse, r in zip(turns, runs):
+        if r["launches"] != want[fuse] or r["remat_policy"] != "none":
+            raise AssertionError(f"fuse_text_pass={fuse}: launches "
+                                 f"{r['launches']}, want {want[fuse]}, remat "
+                                 f"{r['remat_policy']}")
+        gaps += [abs(a - b) for a, b in zip(r["losses"], base["losses"])]
+        if not all(abs(a - b) <= atol + rtol * abs(b)
+                   for a, b in zip(r["losses"], base["losses"])):
+            raise AssertionError(f"fuse_text_pass={fuse} losses {r['losses']}"
+                                 f" against {base['losses']}")
+        leaf_err = max(leaf_err, check_close(
+            f"fuse_text_pass={fuse} {FUSE_LEAF}", r["kept"], base["kept"],
+            atol, rtol))
+    moved = float((base["kept"] - params_leaf(params, FUSE_LEAF)).abs().max())
+    ms = {fuse: [r["ms_step"] for f, r in zip(turns, runs) if f == fuse]
+          for fuse in (False, True)}
+    fused = runs[1]
+    print(f"fuse_text_pass training bf16 bert-large B={BATCH} L={TEXT_LEN} "
+          f"(dropout 0, remat off; {FUSE_STEPS} steps after {FUSE_WARMUP}, "
+          f"in turns unfused, fused, fused, unfused): fused "
+          f"{[round(x, 2) for x in ms[True]]} ms/step against unfused "
+          f"{[round(x, 2) for x in ms[False]]}; peak "
+          f"{fused['peak_bytes'] / 2**30:.2f} against "
+          f"{base['peak_bytes'] / 2**30:.2f} GiB; launches per step fused "
+          f"{fused['per_step']}, unfused {base['per_step']}; losses fused "
+          f"{[round(x, 5) for x in fused['losses']]}, unfused "
+          f"{[round(x, 5) for x in base['losses']]} (max |diff| "
+          f"{max(gaps):.2e}); {FUSE_LEAF} max |diff| {leaf_err:.2e} "
+          f"(its max |update| {moved:.2e})", flush=True)
+    del batches
+
+    cfg = exp.model
+    split = synthetic_split(N_SERVE, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=0)
+    n_batches = -(-N_SERVE // BATCH)
+    preds = {fuse: Predictor(with_fuse(exp, fuse), params, BATCH, "cuda")
+             for fuse in (False, True)}
+    outs, rates, launches = {}, {False: [], True: []}, {}
+    for fuse in (False, True):
+        preds[fuse].predict_split(split)  # warm
+    for fuse in turns:
+        reset_counts()
+        t0 = time.perf_counter()
+        outs[fuse] = preds[fuse].predict_split(split)
+        rates[fuse].append(N_SERVE / (time.perf_counter() - t0))
+        launches[fuse] = kernel_counts()
+        want = (fused_launches(layers, n_batches, train=False) if fuse
+                else serving_launches(layers, n_batches))
+        if launches[fuse] != want:
+            raise AssertionError(f"fuse_text_pass={fuse} serving launches "
+                                 f"{launches[fuse]}, want {want}")
+    del preds
+    atol, rtol = ATTN_TOL["bfloat16"]
+    pred_err = check_close("fuse_text_pass predictions",
+                           torch.from_numpy(outs[True]),
+                           torch.from_numpy(outs[False]), atol, rtol)
+    print(f"fuse_text_pass serving bf16 bert-large B={BATCH}: {N_SERVE} "
+          f"samples in turns unfused, fused, fused, unfused: fused "
+          f"{[round(x, 2) for x in rates[True]]} samples/s against unfused "
+          f"{[round(x, 2) for x in rates[False]]}; launches per batch fused "
+          f"{({k: v // n_batches for k, v in launches[True].items() if v})}"
+          f"; predictions max |diff| {pred_err:.3e} (bf16 predictions spread "
+          f"{float(np.ptp(outs[False])):.3e}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"training": fused["launches"], "serving": launches[True],
+            "ms_step": ms, "samples_per_s": rates}
+
+
+def params_leaf(params, name):
+    from msa_tpu_torch.models.weights import named_leaves
+
+    return dict(named_leaves(params))[name].detach().float().cpu()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(label, argv_of, cwd, timeout=DP_TIMEOUT):
+    """Two processes of this script (``argv_of(rank, port)``), joined at a
+    free local port; fails with their output if either fails.  Returns
+    (outputs, wall seconds)."""
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), *argv_of(r, port)],
+        cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: rank {r} exited {p.returncode}:\n"
+                                 f"{out[-6000:]}")
+    return outs, time.perf_counter() - t0
+
+
+def dp_cli_argv(model, n, batch, epochs, root, extra=()):
+    return ["--model", model, "--dataset", "mosi", "--synthetic", str(n),
+            "--n_epochs", str(epochs), "--train_batch_size", str(batch),
+            "--val_batch_size", str(batch), "--test_batch_size", str(batch),
+            "--checkpoint_root", os.path.join(root, "model_save"),
+            "--numpy_root", os.path.join(root, "numpy_save"),
+            "--device", "cuda", *extra]
+
+
+def dp_launch(rank, port):
+    return ["--dp", "2", "--coordinator", f"127.0.0.1:{port}",
+            "--num_processes", "2", "--process_id", str(rank)]
+
+
+def cli_worker(out, argv):
+    """A rank of ``python -m msa_tpu_torch.cli.train`` (its ``run``, with
+    these flags): writes what it ran to ``out``.json (kernel launches of
+    the process, steps, a digest of the final parameters, the fit history,
+    the gradient all-reduce time, peak memory) and ``out``.npy (DP_LEAF)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.cli import train
+    from msa_tpu_torch.models.weights import named_leaves
+
+    reset_counts()
+    trainer, state, result = train.run(train.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    digest = hashlib.sha256()
+    leaves = dict(named_leaves(state.params))
+    for k, v in sorted(leaves.items()):  # a loaded tree orders its keys
+        digest.update(k.encode())        # otherwise than a fresh one
+        digest.update(v.detach().cpu().numpy().tobytes())
+    np.save(out + ".npy", leaves[DP_LEAF].detach().cpu().numpy())
+    with open(out + ".json", "w") as f:
+        json.dump({"launches": kernel_counts(), "step": state.step,
+                   "digest": digest.hexdigest(), "history": result.history,
+                   "best_epoch": result.best_epoch,
+                   "comm_ms": trainer.comm_seconds * 1e3,
+                   "dp": None if trainer.dp is None else
+                   [trainer.dp.size, trainer.dp.index],
+                   "remat": trainer.remat_policy,
+                   "backend": torch.distributed.get_backend(),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, f)
+    return 0
+
+
+def predict_worker(out, rank, port):
+    """A rank of a dp=2 bf16 bert-large ``Predictor`` (weights from seed 0)
+    serving the ragged split: its predictions (``out``.npy) and kernel
+    launches (``out``.json)."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.configs import build_experiment
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params
+    from msa_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda")
+    exp = build_experiment("mosi", "bert-large-uncased", num_labels=1,
+                           data_parallel=2)
+    cfg = exp.model
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    split = synthetic_split(N_SERVE, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=0)
+    pred = Predictor(exp, params, BATCH, "cuda")
+    pred.predict_split(split)  # warm
+    reset_counts()
+    t0 = time.perf_counter()
+    preds = pred.predict_split(split)
+    seconds = time.perf_counter() - t0
+    np.save(out + ".npy", preds)
+    with open(out + ".json", "w") as f:
+        json.dump({"launches": kernel_counts(), "seconds": seconds,
+                   "backend": torch.distributed.get_backend()}, f)
+    return 0
+
+
+def read_rank(path):
+    import numpy as np
+
+    with open(path + ".json") as f:
+        return json.load(f), np.load(path + ".npy")
+
+
+def phase_data_parallel():
+    """Data parallelism across two processes on the one card, over gloo
+    (NCCL refuses two ranks on one device), every rank launched as ``python
+    -m msa_tpu_torch.cli.train --dp 2 --coordinator 127.0.0.1:<port>
+    --num_processes 2 --process_id r`` (through this script's worker mode,
+    which calls the CLI's ``run`` and reports what the process ran):
+
+    * bert-large, global B=96 (48 a rank), dropout 0, remat off, one epoch
+      of two steps: both ranks log the same epoch losses and end on the
+      same parameters; the losses and a parameter leaf within bf16
+      GRAD_TOL of a one-process epoch on the same global batches; the
+      gradient all-reduce's ms a step;
+    * the tiny preset, two epochs, and ``--resume`` from the first epoch's
+      checkpoint (rank 0 wrote it): the resumed run ends on the
+      uninterrupted run's parameters bit for bit, on both ranks;
+    * the bf16 ``Predictor`` at dp=2 on the ragged B=96 split: the same
+      array on both ranks, within ATTN_TOL of dp=1.
+
+    Two ranks share one H100 here and gloo stages every collective through
+    the host, so this shows correctness, not scaling."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.cli import train
+    from msa_tpu_torch.configs import build_experiment
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params
+    from msa_tpu_torch.training.checkpoint import epoch_dir
+    from msa_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    atol, rtol = GRAD_TOL["bfloat16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # bert-large: the one-process epoch first, in this process
+        big = dp_cli_argv("bert-large-uncased", DP_SYNTHETIC, BATCH, 1,
+                          os.path.join(tmp, "big"), ["--dropout", "0"])
+        args = train.build_parser().parse_args(big)
+        train_ds = train.load_splits(args)[0]
+        trainer = Trainer(train.build_config(args), "cuda")
+        state = trainer.init_state(args.seed, train_ds.num_batches(BATCH))
+        state, em = trainer.train_epoch(state, train_ds, 0, args.seed)
+        ref, ref_leaf = em.averaged(), params_leaf(state.params, DP_LEAF)
+        del trainer, state
+        torch.cuda.empty_cache()
+        outs, big_s = spawn_ranks(
+            "dp bert-large", lambda r, port: [
+                "--cli-worker", os.path.join(tmp, f"big{r}"), "--",
+                *big, *dp_launch(r, port)], tmp)
+        ranks = [read_rank(os.path.join(tmp, f"big{r}")) for r in range(2)]
+        lines = [[ln[ln.index("[Train Epoch"):].split(" (")[0]
+                  for ln in out.splitlines()
+                  if "[Train Epoch" in ln and "Joint" in ln] for out in outs]
+        steps = DP_SYNTHETIC // BATCH
+        want = rung_launches("none", 24, steps)
+        want["short_attention"] += 2 * 24 * 2  # one val and one test batch
+        want["fused_joint_embed"] += 2 * 2
+        for r, (info, _) in enumerate(ranks):
+            if info["launches"] != want or info["step"] != steps or \
+                    info["dp"] != [2, r] or info["backend"] != "gloo" or \
+                    info["remat"] != "none":
+                raise AssertionError(f"dp bert-large rank {r}: {info}, want "
+                                     f"launches {want}")
+        if lines[0] != lines[1] or not lines[0] or \
+                ranks[0][0]["digest"] != ranks[1][0]["digest"]:
+            raise AssertionError(f"dp bert-large: ranks differ: {lines}, "
+                                 f"{[i['digest'] for i, _ in ranks]}")
+        got = ranks[0][0]["history"][0]["train"]
+        gaps = {k: abs(got[k] - ref[k]) for k in
+                ("loss", "mlm_loss", "ap_loss", "label_loss", "nce")}
+        if not all(g <= atol + rtol * abs(ref[k]) for k, g in gaps.items()):
+            raise AssertionError(f"dp bert-large losses {got} against one "
+                                 f"process {ref}")
+        leaf_err = check_close(f"dp {DP_LEAF}", torch.from_numpy(ranks[0][1]),
+                               ref_leaf, atol, rtol)
+        comm = ranks[0][0]["comm_ms"] / steps
+        print(f"dp=2 bert-large bf16 B={BATCH} ({BATCH // 2} a rank, two "
+              f"processes on one card, gloo), {steps} steps through "
+              f"cli.train: both ranks log {lines[0]} and end on equal "
+              f"parameters; epoch losses against one process max |diff| "
+              f"{max(gaps.values()):.2e} ({got['loss']:.5f} against "
+              f"{ref['loss']:.5f}); {DP_LEAF} max |diff| {leaf_err:.2e}; "
+              f"gradient all-reduce {comm:.1f} ms a step (one flat f32 "
+              f"buffer of every gradient, staged through the host by gloo: "
+              f"two ranks share one H100, so this is correctness, not "
+              f"scaling); peak per rank "
+              f"{[round(i['peak_gib'], 2) for i, _ in ranks]} GiB; "
+              f"{big_s:.1f} s for both ranks", flush=True)
+
+        # tiny: two epochs, then --resume from the first epoch's checkpoint
+        root = os.path.join(tmp, "tiny")
+        tiny = dp_cli_argv("tiny", 256, 32, 2, root)
+        _, tiny_s = spawn_ranks("dp tiny", lambda r, port: [
+            "--cli-worker", os.path.join(tmp, f"tiny{r}"), "--", *tiny,
+            *dp_launch(r, port)], tmp)
+        run = os.path.join(root, "model_save",
+                           sorted(os.listdir(os.path.join(root, "model_save")))[0])
+        if not os.path.isdir(epoch_dir(run, 0)):
+            raise AssertionError(f"dp tiny: no checkpoint of epoch 1 in {run}")
+        _, resume_s = spawn_ranks("dp tiny --resume", lambda r, port: [
+            "--cli-worker", os.path.join(tmp, f"resume{r}"), "--", *tiny,
+            *dp_launch(r, port), "--resume", epoch_dir(run, 0)], tmp)
+        infos = [read_rank(os.path.join(tmp, f"{k}{r}"))[0]
+                 for k in ("tiny", "resume") for r in range(2)]
+        if len({i["digest"] for i in infos}) != 1 or \
+                {i["step"] for i in infos} != {16}:
+            raise AssertionError(f"dp tiny --resume: digests "
+                                 f"{[i['digest'][:12] for i in infos]}, steps "
+                                 f"{[i['step'] for i in infos]}")
+        tiny_want = rung_launches("none", 2, 16)
+        tiny_want["short_attention"] += 2 * 2 * 4  # val + test, two epochs
+        tiny_want["fused_joint_embed"] += 2 * 4
+        if infos[0]["launches"] != tiny_want:
+            raise AssertionError(f"dp tiny launches {infos[0]['launches']}, "
+                                 f"want {tiny_want}")
+        print(f"dp=2 tiny preset B=32 through cli.train: 2 epochs "
+              f"({tiny_s:.1f} s), --resume from epoch 1 ({resume_s:.1f} s) "
+              f"ends on the uninterrupted run's parameters bit for bit on "
+              f"both ranks (step 16)", flush=True)
+
+        # serving
+        exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
+        params = init_params(exp.model, torch.Generator(
+            device="cuda").manual_seed(0))
+        split = synthetic_split(N_SERVE, TEXT_LEN, exp.model.visual_dim,
+                                exp.model.speech_dim,
+                                vocab_size=exp.model.bert.vocab_size, seed=0)
+        one = Predictor(exp, params, BATCH, "cuda").predict_split(split)
+        del params
+        torch.cuda.empty_cache()
+        _, serve_s = spawn_ranks("dp serving", lambda r, port: [
+            "--predict-worker", os.path.join(tmp, f"serve{r}"), str(r),
+            str(port)], tmp)
+        served = [read_rank(os.path.join(tmp, f"serve{r}")) for r in range(2)]
+        n_batches = -(-N_SERVE // BATCH)
+        for r, (info, preds) in enumerate(served):
+            if info["launches"] != serving_launches(24, n_batches) or \
+                    preds.shape != (N_SERVE,):
+                raise AssertionError(f"dp serving rank {r}: {info}, "
+                                     f"{preds.shape}")
+        if not np.array_equal(served[0][1], served[1][1]):
+            raise AssertionError("dp serving: the ranks' arrays differ")
+        atol, rtol = ATTN_TOL["bfloat16"]
+        err = check_close("dp=2 predictions", torch.from_numpy(served[0][1]),
+                          torch.from_numpy(one), atol, rtol)
+        print(f"dp=2 serving bf16 bert-large B={BATCH} ({BATCH // 2} rows a "
+              f"rank): {N_SERVE} samples, the same array on both ranks, "
+              f"max |diff| {err:.3e} against dp=1; "
+              f"{N_SERVE / served[0][0]['seconds']:.2f} samples/s a rank "
+              f"pair ({serve_s:.1f} s for both ranks with start-up); phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"training": ranks[0][0]["launches"],
+            "tiny_training": infos[0]["launches"],
+            "serving": served[0][0]["launches"], "comm_ms_step": comm}
+
+
 def kernel_entry(name, source, replaces, launches, err, timing, by_path):
     ms, plain_ms, lib_ms, (bound, bound_by) = timing
     return {"name": name, "route": "cuda", "source": source,
@@ -4167,12 +4606,18 @@ def kernel_entry(name, source, replaces, launches, err, timing, by_path):
 def main() -> int:
     import torch
 
-    if len(sys.argv) not in (1, 3) or sys.argv[1:2] not in ([], ["--flash-times"]):
+    worker = sys.argv[1:2] in (["--cli-worker"], ["--predict-worker"])
+    if not worker and (len(sys.argv) not in (1, 3) or
+                       sys.argv[1:2] not in ([], ["--flash-times"])):
         print("usage: chip_smoke.py [--flash-times ROOT]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--cli-worker"]:  # --cli-worker OUT -- CLI_ARGV...
+        return cli_worker(sys.argv[2], sys.argv[4:])
+    if sys.argv[1:2] == ["--predict-worker"]:  # --predict-worker OUT RANK PORT
+        return predict_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     if len(sys.argv) == 3:  # the flash backwards of the tree at ROOT only
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         time_flash_backwards()
@@ -4258,6 +4703,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     auto_launches = phase_auto()
     cli_launches = phase_entry_point()
+    torch.cuda.empty_cache()
+    fuse = phase_fuse_text_pass()
+    dp = phase_data_parallel()
     phase_f32_train()
     phase_f32_train(pair_len=FRAME_PAIR_LEN, batch_size=4)
 
@@ -4281,7 +4729,12 @@ def main() -> int:
                 "v3_train": sum(r["launches"][name] for r in v3_runs.values()),
                 "frame_flash_serving": frame_flash["serving"][name],
                 "frame_flash_training": frame_flash["training"][name],
-                "frame_flash_save_ctx": frame_flash["save_ctx"][name]}
+                "frame_flash_save_ctx": frame_flash["save_ctx"][name],
+                "fuse_text_pass_training": fuse["training"][name],
+                "fuse_text_pass_serving": fuse["serving"][name],
+                "dp_training_rank0": dp["training"][name],
+                "dp_tiny_training_rank0": dp["tiny_training"][name],
+                "dp_serving_rank0": dp["serving"][name]}
 
     def rung(policy, name):  # launches per step under that rung
         return rungs[policy]["per_step"].get(name, 0)

@@ -15,5 +15,11 @@ Ported so far:
 * training -- ``training.trainer.Trainer``: the train step (MLM masking,
   dropout, the joint loss, the backward through the attention kernels,
   AdamW, or the fused AdamW kernel under ``fused_optimizer``) and the eval
-  step, ``fit`` and the CLIs, the named remat policies.
+  step, ``fit`` and the CLIs, the named remat policies;
+* the host-side surface -- ``fuse_text_pass``, ``Predictor(
+  inflight_batches=)``, ``TrainConfig.profile_dir``, ``cli.sweep``,
+  ``cli.preprocess``;
+* data parallelism across processes -- ``parallel`` (a mesh of ranks, the
+  launch and the collectives) under ``Trainer``, ``Predictor`` and
+  ``cli.train --dp``; tensor and sequence parallelism are not ported yet.
 """

@@ -11,6 +11,20 @@ generated.  It trains on the card unless ``--device cpu`` asks for the CPU.
 state and the step, and the selection state in meta.json, so the resumed
 epochs take the uninterrupted run's steps.  The remat policy comes from
 the config (``TrainConfig.remat_policy``, "auto" by default).
+
+Data parallelism across processes: every process runs this CLI with the
+same flags plus its own id, e.g. two ranks on one host
+
+    python -m msa_tpu_torch.cli.train --dp 2 --coordinator 127.0.0.1:29500 \
+        --num_processes 2 --process_id {0,1} ...
+
+(``MSA_COORDINATOR`` / ``MSA_NUM_PROCESSES`` / ``MSA_PROCESS_ID`` fill the
+flags left out), or ``torchrun --nproc_per_node 2 -m msa_tpu_torch.cli.train
+--distributed --dp 2 ...`` (``env://``).  Each rank trains on
+``cuda:{local rank % cards}`` (or the CPU with ``--device cpu``), over gloo
+where ranks share a card or tensors are on the CPU, else NCCL
+(``parallel/distributed.py``).  Rank 0 writes the checkpoints and the saved
+predictions.
 """
 
 from __future__ import annotations
@@ -73,34 +87,58 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--numpy_root", type=str, default="./numpy_save")
     p.add_argument("--resume", type=str, default=None)
     p.add_argument("--dp", type=int, default=-1,
-                   help="data-parallel size (the port trains on one device: "
-                        "-1 or 1)")
-    p.add_argument("--mp", type=int, default=1, help="model-parallel size (1)")
+                   help="data-parallel size (-1: every rank of the launch)")
+    p.add_argument("--mp", type=int, default=1,
+                   help="model-parallel size (the port takes 1)")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--use_flash_attention", type=str, default="auto",
                    choices=["auto", "always", "never"])
+    p.add_argument("--dropout", type=float, default=None,
+                   help="every dropout rate of the model (hidden, attention, "
+                        "joint); default: the preset's")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default: cuda)")
-    # multi-process launch flags of the JAX package: refused until the
-    # port's parallelism lands
-    p.add_argument("--distributed", action="store_true")
-    p.add_argument("--coordinator", type=str, default=None)
+    # multi-process launch: every process runs this CLI with the same flags
+    # plus its own --process_id; the process group starts before any
+    # device use
+    p.add_argument("--distributed", action="store_true",
+                   help="start the process group from torchrun's "
+                        "environment (env://)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port where rank 0 listens (manual launch)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     return p
 
 
 def check_single_device(args) -> None:
-    """Raise for the parallel launch flags the port does not take yet."""
-    if args.dp not in (-1, 1) or args.mp != 1 or args.distributed or \
-            args.coordinator or args.num_processes or \
-            args.process_id is not None:
+    """Raise for the model parallelism the port does not take yet."""
+    if args.mp != 1:
         raise NotImplementedError(
-            f"--dp {args.dp} --mp {args.mp} --distributed {args.distributed} "
-            f"--coordinator {args.coordinator}: the port trains on one device "
-            "(ROADMAP: parallelism)")
+            f"--mp {args.mp}: tensor parallelism comes with the port's "
+            "tensor-parallel slice (ROADMAP: parallelism); it takes --dp")
+
+
+def launch(args):
+    """Start the process group when the launch flags (or their MSA_*
+    variables) ask for one; returns the device this rank trains on."""
+    from ..parallel.distributed import (initialize, process_env_defaults,
+                                        rank_device)
+
+    env = process_env_defaults()
+    coordinator = args.coordinator or env["coordinator_address"]
+    if not (args.distributed or coordinator or args.num_processes):
+        return args.device
+    process_id = (args.process_id if args.process_id is not None
+                  else env["process_id"])
+    initialize(coordinator_address=coordinator,
+               num_processes=(args.num_processes
+                              if args.num_processes is not None
+                              else env["num_processes"]),
+               process_id=process_id, device=args.device)
+    return rank_device(args.device, process_id)
 
 
 def load_splits(args) -> Tuple[MultimodalDataset, MultimodalDataset,
@@ -128,16 +166,9 @@ def load_splits(args) -> Tuple[MultimodalDataset, MultimodalDataset,
     return mk(n, 0), mk(max(n // 8, 8), 1), mk(max(n // 8, 8), 2), None
 
 
-def run(args):
-    """The CLI's flow; returns (trainer, final state, FitResult)."""
-    check_single_device(args)
-    logger, _ = get_logger("./logs")
-    logger.info("Alpha: %s Beta: %s", args.alpha, args.beta)
-
-    train_ds, val_ds, test_ds, tokenizer = load_splits(args)
-    logger.info("Split sizes: train %d val %d test %d",
-                len(train_ds), len(val_ds), len(test_ds))
-
+def build_config(args):
+    """The experiment the flags describe (``--dropout`` sets every dropout
+    rate of the model: hidden, attention and joint)."""
     exp = build_experiment(
         dataset=args.dataset, model_name=args.model,
         num_labels=args.num_labels, emotion=args.emotion,
@@ -161,14 +192,43 @@ def run(args):
             max_seq_length=args.max_seq_length,
             pair_seq_length=args.pair_seq_length,
             num_labels=args.num_labels))
+    if args.dropout is not None:
+        model = exp.model
+        exp = dataclasses.replace(exp, model=dataclasses.replace(
+            model, joint_dropout_prob=args.dropout,
+            bert=dataclasses.replace(
+                model.bert, hidden_dropout_prob=args.dropout,
+                attention_probs_dropout_prob=args.dropout)))
+    return exp
+
+
+def run(args):
+    """The CLI's flow; returns (trainer, final state, FitResult)."""
+    from ..parallel import distributed
+
+    check_single_device(args)
+    device = launch(args)
+    logger, _ = get_logger("./logs")
+    logger.info("Alpha: %s Beta: %s", args.alpha, args.beta)
+    if distributed.is_multiprocess():
+        import torch.distributed as dist
+        logger.info("Distributed: rank %d of %d on %s, backend %s",
+                    dist.get_rank(), dist.get_world_size(), device,
+                    dist.get_backend())
+
+    train_ds, val_ds, test_ds, tokenizer = load_splits(args)
+    logger.info("Split sizes: train %d val %d test %d",
+                len(train_ds), len(val_ds), len(test_ds))
+
+    exp = build_config(args)
 
     mask_kwargs = {}
     if tokenizer is not None:
         mask_kwargs = dict(mask_token_id=tokenizer.mask_token_id,
                            special_ids=tuple(tokenizer.special_token_ids()))
-    trainer = Trainer(exp, args.device, **mask_kwargs)
-    logger.info("Device: %s, remat policy %s", trainer.device,
-                trainer.remat_policy)
+    trainer = Trainer(exp, device, **mask_kwargs)
+    logger.info("Device: %s, mesh %s, remat policy %s", trainer.device,
+                trainer.mesh.shape, trainer.remat_policy)
 
     steps_per_epoch = train_ds.num_batches(args.train_batch_size)
     total_steps = steps_per_epoch * args.n_epochs
@@ -185,7 +245,7 @@ def run(args):
             init_params(exp.model, torch.Generator(
                 device=trainer.device).manual_seed(args.seed)))
 
-    start_epoch = 0
+    start_epoch = loaded_step = 0
     resume_result = None
     if args.resume:
         from ..training.checkpoint import load_checkpoint, resolve_checkpoint
@@ -194,6 +254,7 @@ def run(args):
         state = trainer.init_state(args.seed, total_steps,
                                    params=loaded.params)
         state.opt_state, state.step = loaded.opt_state, loaded.step
+        loaded_step = loaded.step
         start_epoch = int(meta.get("epoch", -1)) + 1
         if "fit" in meta:  # restore best_*/patience/history, not just weights
             resume_result = FitResult.from_meta(meta["fit"], ckpt)
@@ -202,14 +263,25 @@ def run(args):
     else:
         state = trainer.init_state(args.seed, total_steps, params=params)
 
-    ckpt_dir = make_date_dir(args.checkpoint_root)
+    main_rank = distributed.process_index() == 0
+    # rank 0 writes; every rank names the same directory
+    ckpt_dir = distributed.broadcast_object(
+        make_date_dir(args.checkpoint_root) if main_rank else None)
     logger.info("Model save path: %s", ckpt_dir)
     state, result = trainer.fit(state, train_ds, val_ds, test_ds, logger,
                                 checkpoint_dir=ckpt_dir,
                                 start_epoch=start_epoch,
                                 resume_result=resume_result)
+    if trainer.dp is not None:
+        logger.info("Gradient all-reduce: %.2f ms a step (%d ranks)",
+                    trainer.comm_seconds * 1e3 / max(state.step - loaded_step, 1),
+                    trainer.dp.size)
+    if trainer.device.type == "cuda":
+        import torch
+        logger.info("Peak device memory: %.2f GiB",
+                    torch.cuda.max_memory_allocated(trainer.device) / 2**30)
 
-    if result.best_preds is not None:
+    if result.best_preds is not None and main_rank:
         np_dir = make_date_dir(args.numpy_root)
         np.save(os.path.join(np_dir, "predict.npy"), result.best_preds)
         np.save(os.path.join(np_dir, "target.npy"), result.best_labels)

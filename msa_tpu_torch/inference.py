@@ -6,7 +6,9 @@ to the batch size and the padding is dropped from the output).  On CUDA the
 forward runs the hand-written kernels (``msa_tpu_torch.ops``); on the CPU
 their plain versions.  ``quantize`` selects the int8 serving modes
 (``ops/quant.py``), with static activation scales from
-:func:`calibrate_act_stats` for ``int8_static``.
+:func:`calibrate_act_stats` for ``int8_static``.  Under data parallelism
+each rank serves its rows of every batch and the predictions are gathered,
+so every rank returns the whole array.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from .data import FeaturizedSplit
 from .models.mmbert import mmbert_forward
 from .models.weights import cast_for_compute, to_device
 from .ops.quant import quantize_bert_params
+from .parallel.distributed import DataParallel, local_rows
+from .parallel.mesh import DATA_AXIS, make_mesh, refuse_model_parallel
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 QUANTIZE_MODES = ("int8", "int8_static")
@@ -44,7 +48,14 @@ def _serving_forward(params, config: ExperimentConfig, dtype: torch.dtype,
     return mmbert_forward(params, ids, mask, ids, ids, visual, speech,
                           config.model, compute_dtype=dtype,
                           use_flash=config.train.use_flash_attention,
-                          collect_act_stats=collect_act_stats)
+                          collect_act_stats=collect_act_stats,
+                          fuse_text_pass=config.train.fuse_text_pass)
+
+
+def _fetch(tensors):
+    """Device tensors -> numpy arrays: the one device-to-host fetch of
+    :meth:`Predictor.predict_arrays`'s window."""
+    return [t.cpu().numpy() for t in tensors]
 
 
 @torch.inference_mode()
@@ -93,7 +104,8 @@ class Predictor:
     def __init__(self, config: ExperimentConfig, params, batch_size: int = 8,
                  device="cuda", *, quantize: str | None = None,
                  calibration: FeaturizedSplit | None = None,
-                 fuse_qkv: bool = False):
+                 fuse_qkv: bool = False, inflight_batches: int = 64,
+                 mesh=None):
         """``params``: the port's tree (``models/weights.py``), on any
         device; it is copied to ``device`` and its dense weights cast to the
         compute dtype once.  ``device`` is the card unless the caller asks
@@ -106,6 +118,15 @@ class Predictor:
         ``fuse_qkv`` (int8 modes; ignored without ``quantize``, as in JAX)
         fuses each layer's q, k and v into one [*, 3H] int8 projection that
         feeds the packed attention kernel (``ops/quant.py``).
+
+        ``inflight_batches`` bounds how many enqueued but unfetched batches
+        :meth:`predict_arrays` keeps on the device (a memory bound on big
+        splits) while the fetches still overlap the device's work.
+
+        ``mesh``: a ``parallel.mesh.Mesh`` of ranks (default: ``make_mesh(
+        data_parallel, model_parallel)``); a data axis above 1 splits every
+        batch's rows over the process group, so ``batch_size`` must be a
+        multiple of it.
         """
         tc = config.train
         if quantize not in (None,) + QUANTIZE_MODES:
@@ -114,13 +135,17 @@ class Predictor:
             raise ValueError(
                 "quantize='int8_static' needs calibration= a FeaturizedSplit "
                 "to derive static activation scales")
-        if tc.data_parallel not in (-1, 1) or tc.model_parallel != 1:
-            raise NotImplementedError(
-                f"data_parallel={tc.data_parallel}, model_parallel="
-                f"{tc.model_parallel}: the port serves on one device "
-                "(ROADMAP: parallelism); -1 means that one device")
+        refuse_model_parallel(tc)
         if tc.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
+        self.mesh = mesh if mesh is not None else make_mesh(
+            tc.data_parallel, tc.model_parallel)
+        if int(batch_size) % self.mesh.shape[DATA_AXIS]:
+            raise ValueError(
+                f"batch_size {batch_size} must be a multiple of the "
+                f"data-axis size {self.mesh.shape[DATA_AXIS]}")
+        self.dp = DataParallel.from_mesh(self.mesh)
+        self.inflight_batches = max(1, int(inflight_batches))
         self.config = config
         self.batch_size = int(batch_size)
         self.device = torch.device(device)
@@ -147,8 +172,8 @@ class Predictor:
     def from_checkpoint(cls, directory: str, batch_size: int = 8,
                         device="cuda", model_num: int | None = None,
                         quantize: str | None = None,
-                        calibration: FeaturizedSplit | None = None
-                        ) -> "Predictor":
+                        calibration: FeaturizedSplit | None = None,
+                        mesh=None) -> "Predictor":
         """A Predictor over the parameters of a checkpoint (a run directory,
         whose newest or ``model_num``-th epoch is taken, or an epoch
         directory), with the experiment config saved beside them."""
@@ -160,7 +185,7 @@ class Predictor:
         if config is None:
             raise FileNotFoundError(f"no config.json in {directory}")
         return cls(config, load_params(directory, "cpu"), batch_size, device,
-                   quantize=quantize, calibration=calibration)
+                   quantize=quantize, calibration=calibration, mesh=mesh)
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         return _upload(x, self.device, self.dtype)
@@ -180,12 +205,25 @@ class Predictor:
                        visual: np.ndarray, speech: np.ndarray) -> np.ndarray:
         """[N, L] ids/mask + [N, Lp, D*] features -> [N] predictions.
 
-        Every batch is enqueued before the first result is fetched, so the
-        host prepares batch i+1 while the device runs batch i.
+        Batches are enqueued ahead of the fetches, so the host prepares
+        batch i+1 while the device runs batch i.  At most
+        ``inflight_batches`` are outstanding: when the window fills, the
+        oldest half is fetched (a full drain would leave the device idle
+        once a window).
         """
         n = input_ids.shape[0]
         bs = self.batch_size
+        out: list = []
         pending = []  # (device predictions, real rows)
+
+        def drain(count=None):
+            take = pending if count is None else pending[:count]
+            if not take:
+                return
+            host = _fetch([p for p, _ in take])
+            out.extend(p[:k] for p, (_, k) in zip(host, take))
+            del pending[:len(take)]
+
         for start in range(0, n, bs):
             end = min(start + bs, n)
             pad = bs - (end - start)
@@ -195,14 +233,19 @@ class Predictor:
                 if pad:
                     x = np.concatenate(
                         [x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+                if self.dp is not None:  # this rank's rows of the batch
+                    x = local_rows(x, self.dp.size, self.dp.index)
                 return self._upload(x)
 
             preds = self._forward(prep(input_ids), prep(attention_mask),
                                   prep(visual), prep(speech))
+            if self.dp is not None:
+                preds = self.dp.gather(preds)
             pending.append((preds, end - start))
-        if not pending:
-            return np.zeros((0,))
-        return np.concatenate([p.cpu().numpy()[:k] for p, k in pending])
+            if len(pending) >= self.inflight_batches:
+                drain(max(1, self.inflight_batches // 2))
+        drain()
+        return np.concatenate(out) if out else np.zeros((0,))
 
     def predict_split(self, split: FeaturizedSplit) -> np.ndarray:
         return self.predict_arrays(split.input_ids, split.attention_mask,

@@ -63,7 +63,7 @@ from ..configs import BertConfig
 from ..ops.attention import (attention_route, multi_head_attention,
                              packed_attention)
 from ..ops.dropout import (apply_dropout_mask, draw_seed, dropout,
-                           dropout_mask, seeded_generator)
+                           dropout_mask, seeded_generator, shard_seed)
 from ..ops.ln_quant import ln_quant
 from ..ops.quant import int8_dense, int8_matmul_pre, quantize_act
 
@@ -350,11 +350,14 @@ def bert_layer_int8(lp: Params, h: torch.Tensor, attn_bias: torch.Tensor,
 def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
                  cfg: BertConfig, *, use_flash: str = "auto",
                  generator: Optional[torch.Generator] = None,
-                 remat_policy: str = "none", collect_act_stats: bool = False):
+                 remat_policy: str = "none", collect_act_stats: bool = False,
+                 shard: int = 0):
     """``hidden`` [B, S, H]; ``attn_bias`` additive [B, 1, 1, S].
 
     ``generator``: a host generator for a training forward (three seeds per
-    layer are drawn from it, in layer order); None is deterministic.
+    layer are drawn from it, in layer order, each moved for the data-
+    parallel ``shard`` by ``ops.dropout.shard_seed``); None is
+    deterministic.
     ``remat_policy``: "none" (nothing checkpointed) or a JAX policy name,
     applied to every layer by :func:`remat_layer`.
 
@@ -387,7 +390,8 @@ def bert_encoder(params: Params, hidden: torch.Tensor, attn_bias: torch.Tensor,
     stats = {k: [] for k in STATS} if collect_act_stats else None
     for lp in layers:
         seeds = (None if generator is None
-                 else tuple(draw_seed(generator) for _ in range(3)))
+                 else tuple(shard_seed(draw_seed(generator), shard)
+                            for _ in range(3)))
         if remat:
             hidden = remat_layer(lp, hidden, attn_bias, cfg, remat_policy,
                                  use_flash=use_flash, seeds=seeds)

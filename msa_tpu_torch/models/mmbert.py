@@ -11,7 +11,11 @@ it).
 A training forward (``deterministic=False``) takes a host
 ``torch.Generator`` and draws every dropout seed from it, in this order:
 the three embedding sites (text, text+visual, text+speech), the two joint
-embeddings, the text encoder's layers, the joint encoder's layers.
+embeddings, the text encoder's layers, the joint encoder's layers (under
+``fuse_text_pass`` the one encoder call's layers).  ``shard`` (a rank's
+place in the data-parallel mesh) moves every seed by ``shard * 1000003``,
+JAX's rule for its head-parallel attention, so the ranks of a dp group draw
+distinct masks for their local rows.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch.nn.functional as F
 
 from ..configs import MMBertConfig
 from ..ops import losses as L
-from ..ops.dropout import draw_seed
+from ..ops.dropout import draw_seed, shard_seed
 from ..ops.fused_joint_embed import fused_joint_embed
 from .bert import (
     Params,
@@ -98,12 +102,12 @@ def fusion_head(params: Params, pooled_t, pooled_v, pooled_s,
 
 
 def cpc_nce(params: Params, pooled_t, pooled_v, pooled_s, temp,
-            weights=None) -> torch.Tensor:
+            weights=None, dp=None) -> torch.Tensor:
     """Sum of the three InfoNCE terms."""
     pp = params["cpc"]
-    return (L.infonce(pooled_t, dense(temp, pp["zt"]), weights)
-            + L.infonce(pooled_v, dense(temp, pp["zv"]), weights)
-            + L.infonce(pooled_s, dense(temp, pp["za"]), weights))
+    return (L.infonce(pooled_t, dense(temp, pp["zt"]), weights, dp=dp)
+            + L.infonce(pooled_v, dense(temp, pp["zv"]), weights, dp=dp)
+            + L.infonce(pooled_s, dense(temp, pp["za"]), weights, dp=dp))
 
 
 def mmbert_forward(params: Params, text_ids: torch.Tensor,
@@ -114,7 +118,9 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
                    use_flash: str = "auto", deterministic: bool = True,
                    generator: Optional[torch.Generator] = None,
                    remat_policy: str = "none",
-                   collect_act_stats: bool = False) -> Dict[str, torch.Tensor]:
+                   collect_act_stats: bool = False,
+                   fuse_text_pass: bool = False,
+                   shard: int = 0) -> Dict[str, torch.Tensor]:
     """Three-view forward.  Returns every head output the serving path and
     the loss read, without MLM logits (the loss gathers them).
 
@@ -124,12 +130,18 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
     ``collect_act_stats=True`` (int8 static-scale calibration) adds
     "act_stats": the per-layer absmax of each quantized projection's input,
     the elementwise max over the text and joint passes (``ops/quant.py``).
+
+    ``fuse_text_pass=True`` zero-pads the text view to L+Lp and stacks all
+    three views into one [3B, L+Lp] encoder call instead of [B, L] and
+    [2B, L+Lp], as JAX's flag does: the padded keys carry the mask's fill,
+    so the text rows' outputs are the unfused ones up to summation order.
     """
     bert = params["bert"]
     bcfg = cfg.bert
     b = text_ids.shape[0]
     gen = None if deterministic else generator
-    seed = lambda: None if gen is None else draw_seed(gen)  # noqa: E731
+    seed = lambda: (None if gen is None  # noqa: E731
+                    else shard_seed(draw_seed(gen), shard))
     emb_t = bert_embeddings(bert, text_ids, bcfg, compute_dtype=compute_dtype,
                             seed=seed())
     emb_tv = bert_embeddings(bert, tv_ids, bcfg, compute_dtype=compute_dtype,
@@ -141,24 +153,35 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
     mask_v = torch.cat([text_mask.to(torch.int32), pair_frame_mask(visual)], 1)
     mask_s = torch.cat([text_mask.to(torch.int32), pair_frame_mask(speech)], 1)
 
-    # pass 1: text only [B, L]; pass 2: both joint views stacked [2B, L+Lp]
-    seq_t = bert_encoder(bert, emb_t, extended_attention_mask(text_mask), bcfg,
-                         use_flash=use_flash, generator=gen,
-                         remat_policy=remat_policy,
-                         collect_act_stats=collect_act_stats)
-    if collect_act_stats:
-        seq_t, act_stats = seq_t
-    pooled_t = bert_pooler(bert, seq_t)
-    seq_j = bert_encoder(bert, torch.cat([joint_v, joint_s], 0),
-                         extended_attention_mask(torch.cat([mask_v, mask_s], 0)),
-                         bcfg, use_flash=use_flash, generator=gen,
-                         remat_policy=remat_policy,
-                         collect_act_stats=collect_act_stats)
-    if collect_act_stats:
-        seq_j, stats_j = seq_j
-        act_stats = {k: torch.maximum(v, stats_j[k]) for k, v in act_stats.items()}
-    pooled_j = bert_pooler(bert, seq_j)
-    pooled_v, pooled_s = pooled_j[:b], pooled_j[b:]
+    encode = lambda x, mask: bert_encoder(  # noqa: E731
+        bert, x, extended_attention_mask(mask), bcfg, use_flash=use_flash,
+        generator=gen, remat_policy=remat_policy,
+        collect_act_stats=collect_act_stats, shard=shard)
+    if fuse_text_pass:
+        # one encoder call over [3B, L+Lp]
+        l, lp = text_ids.shape[1], visual.shape[1]
+        seq_all = encode(torch.cat([F.pad(emb_t, (0, 0, 0, lp)), joint_v,
+                                    joint_s], 0),
+                         torch.cat([F.pad(text_mask.to(torch.int32), (0, lp)),
+                                    mask_v, mask_s], 0))
+        if collect_act_stats:
+            seq_all, act_stats = seq_all
+        pooled_all = bert_pooler(bert, seq_all)
+        seq_t, seq_j = seq_all[:b, :l], seq_all[b:]
+        pooled_t, pooled_v, pooled_s = pooled_all.split(b)
+    else:
+        # pass 1: text only [B, L]; pass 2: both joint views [2B, L+Lp]
+        seq_t = encode(emb_t, text_mask)
+        if collect_act_stats:
+            seq_t, act_stats = seq_t
+        pooled_t = bert_pooler(bert, seq_t)
+        seq_j = encode(torch.cat([joint_v, joint_s], 0),
+                       torch.cat([mask_v, mask_s], 0))
+        if collect_act_stats:
+            seq_j, stats_j = seq_j
+            act_stats = {k: torch.maximum(v, stats_j[k])
+                         for k, v in act_stats.items()}
+        pooled_v, pooled_s = bert_pooler(bert, seq_j).split(b)
 
     align = dense(seq_j[:, 0], params["cls"]["align"]).float()
     nsp_t = dense(pooled_t, params["cls"]["seq_relationship"]).float()
@@ -188,7 +211,7 @@ def mlm_cap(batch: int, text_len: int) -> int:
 
 def gathered_mlm_ce(params: Params, seq: torch.Tensor, labels: torch.Tensor,
                     weights: Optional[torch.Tensor], cfg: MMBertConfig,
-                    cap: int) -> torch.Tensor:
+                    cap: int, dp=None) -> torch.Tensor:
     """MLM CE at the masked positions only: up to ``cap`` of them (a static
     count) are gathered and the [cap, H] x [H, V] decoder runs there.  The
     loss equals the dense one whenever the masked count <= cap; positions
@@ -207,7 +230,7 @@ def gathered_mlm_ce(params: Params, seq: torch.Tensor, labels: torch.Tensor,
     if weights is not None:
         sel_w = weights[:, None].expand(b, s).reshape(b * s)[idx]
     return L.cross_entropy(mlm_logits(params, flat_seq[idx], cfg), sel_lab,
-                           sel_w)
+                           sel_w, dp=dp)
 
 
 def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
@@ -215,9 +238,15 @@ def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
                 mlm_labels_ts: torch.Tensor, ap_visual: torch.Tensor,
                 ap_speech: torch.Tensor, sentiment: torch.Tensor,
                 cfg: MMBertConfig, weights: Optional[torch.Tensor] = None,
-                compute_mlm: bool = True) -> Dict[str, torch.Tensor]:
+                compute_mlm: bool = True, dp=None) -> Dict[str, torch.Tensor]:
     """The joint loss.  ``compute_mlm=False`` skips the MLM CE (the
-    deterministic eval path, whose labels are all -100)."""
+    deterministic eval path, whose labels are all -100).
+
+    Under ``dp`` (``parallel.distributed.DataParallel``) the outputs are a
+    rank's rows of the global batch and every loss is the rank's share of
+    the global one (``ops/losses.py``): the shares sum to the global loss.
+    The MLM gather cap is sized from the global batch, as JAX's, and
+    ``mlm_overflow`` is the rank's own, summed with the other metrics."""
     b, l = mlm_labels_text.shape
     # the pair half carries no language, so no MLM supervision there
     lp = outputs["seq_joint"].shape[1] - l
@@ -232,33 +261,34 @@ def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
         text_mlm = visual_mlm = speech_mlm = torch.zeros((), device=device)
     else:
         seq_j = outputs["seq_joint"]
-        cap = mlm_cap(b, l)
+        cap = mlm_cap(b * (1 if dp is None else dp.size), l)
         text_mlm = gathered_mlm_ce(params, outputs["seq_text"],
-                                   mlm_labels_text, weights, cfg, cap)
+                                   mlm_labels_text, weights, cfg, cap, dp)
         visual_mlm = gathered_mlm_ce(params, seq_j[:b], labels_v, weights,
-                                     cfg, cap)
+                                     cfg, cap, dp)
         speech_mlm = gathered_mlm_ce(params, seq_j[b:], labels_s, weights,
-                                     cfg, cap)
+                                     cfg, cap, dp)
         # no silent caps: count the positions the gather dropped
         for lab in (mlm_labels_text, labels_v, labels_s):
             n_masked = (lab != L.IGNORE_INDEX).sum().to(torch.int32)
             mlm_overflow = mlm_overflow + torch.clamp(n_masked - cap, min=0)
     mlm = (text_mlm + visual_mlm + speech_mlm) / 3.0
 
-    ap = (L.cross_entropy(outputs["align_visual"], ap_visual, weights)
-          + L.cross_entropy(outputs["align_speech"], ap_speech, weights)) / 2.0
+    ap = (L.cross_entropy(outputs["align_visual"], ap_visual, weights, dp=dp)
+          + L.cross_entropy(outputs["align_speech"], ap_speech, weights,
+                            dp=dp)) / 2.0
 
     logits = outputs["logits"]
     if cfg.regression:
         preds = torch.tanh(logits) if cfg.num_labels == 1 else logits
-        label_loss = L.mse(preds.reshape(-1), sentiment, weights)
+        label_loss = L.mse(preds.reshape(-1), sentiment, weights, dp=dp)
         pred_out = preds
     else:
-        label_loss = L.cross_entropy(logits, sentiment, weights)
+        label_loss = L.cross_entropy(logits, sentiment, weights, dp=dp)
         pred_out = torch.argmax(torch.sigmoid(logits), dim=1)
 
     nce = cpc_nce(params, outputs["pooled_text"], outputs["pooled_visual"],
-                  outputs["pooled_speech"], outputs["temp"], weights)
+                  outputs["pooled_speech"], outputs["temp"], weights, dp)
     joint = cfg.alpha * mlm + ap + label_loss - cfg.beta * nce
     return {
         "loss": joint,

@@ -31,6 +31,7 @@ DROP_QUANT = 256
 # (msa_tpu/models/bert.py::_BITS_DROPOUT_MIN_SEQ)
 BITS_DROPOUT_MIN_SEQ = 256
 SEED_BITS = 62
+SHARD_SEED_STRIDE = 1000003
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -61,6 +62,14 @@ def draw_seed(generator: torch.Generator) -> int:
     synchronisation)."""
     return int(torch.randint(0, 2 ** SEED_BITS, (1,), generator=generator,
                              dtype=torch.int64))
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """``seed`` for a rank's ``shard`` of a data-parallel mesh: JAX's rule
+    for its head-parallel attention, seed + shard * 1000003
+    (``msa_tpu/ops/attention.py::_head_parallel``), kept in [0, 2**62).
+    Shard 0 keeps the seed."""
+    return (seed + shard * SHARD_SEED_STRIDE) % 2 ** SEED_BITS
 
 
 def seeded_generator(seed: int, device) -> torch.Generator:

@@ -3,6 +3,13 @@
 Counterpart of ``msa_tpu/ops/losses.py``: cross entropy with ignore index
 -100, MSE and the CPC InfoNCE term.  Every reduction takes an optional
 per-example weight so a zero-padded final batch contributes nothing.
+
+Under data parallelism (``dp``, a ``parallel.distributed.DataParallel``)
+each rank holds some rows of the global batch and returns its share of the
+global loss: its own sum over the group's count (a mean of the ranks'
+means would be wrong wherever their counts differ), and InfoNCE scores its
+queries against every rank's keys.  The shares add up to the loss of the
+global batch, as JAX's traced-global shapes give it.
 """
 
 from __future__ import annotations
@@ -14,13 +21,16 @@ import torch
 IGNORE_INDEX = -100
 
 
-def _safe_mean(total: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
+def _safe_mean(total: torch.Tensor, denom: torch.Tensor, dp=None
+               ) -> torch.Tensor:
+    if dp is not None:
+        denom = dp.sum(denom)
     return total / torch.clamp(denom, min=1e-9)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   weights: Optional[torch.Tensor] = None,
-                  ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+                  ignore_index: int = IGNORE_INDEX, dp=None) -> torch.Tensor:
     """Mean CE over positions where ``labels != ignore_index``.
 
     ``logits``: [..., C] (any leading shape), ``labels``: [...] int.  An
@@ -37,25 +47,28 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
             weights.shape + (1,) * (per_pos.dim() - weights.dim()))
         per_pos = per_pos * w
         valid = valid * w
-    return _safe_mean(per_pos.sum(), valid.sum())
+    return _safe_mean(per_pos.sum(), valid.sum(), dp)
 
 
 def mse(preds: torch.Tensor, targets: torch.Tensor,
-        weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        weights: Optional[torch.Tensor] = None, dp=None) -> torch.Tensor:
     """Weighted mean squared error over flat views."""
     sq = (preds.float().reshape(-1) - targets.float().reshape(-1)) ** 2
     if weights is None:
-        return sq.mean()
+        if dp is None:
+            return sq.mean()
+        weights = torch.ones_like(sq)
     w = weights.float().reshape(-1)
-    return _safe_mean((sq * w).sum(), w.sum())
+    return _safe_mean((sq * w).sum(), w.sum(), dp)
 
 
 def infonce(x: torch.Tensor, x_pred: torch.Tensor,
             weights: Optional[torch.Tensor] = None,
-            eps: float = 1e-12) -> torch.Tensor:
+            eps: float = 1e-12, dp=None) -> torch.Tensor:
     """CPC InfoNCE term: rows L2-normalised, then
     ``-mean(pos - logsumexp_j(x @ x_pred^T))``; zero-weight (padding) rows
-    are excluded from the mean and from the negative set."""
+    are excluded from the mean and from the negative set.  Under ``dp`` the
+    negatives are every rank's rows (gathered, with their weights)."""
     x = x.float()
     x_pred = x_pred.float()
     x = x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True),
@@ -63,10 +76,15 @@ def infonce(x: torch.Tensor, x_pred: torch.Tensor,
     x_pred = x_pred / torch.clamp(
         torch.linalg.vector_norm(x_pred, dim=1, keepdim=True), min=eps)
     pos = (x * x_pred).sum(-1)
-    scores = x @ x_pred.T  # [B, B]
+    keys = x_pred if dp is None else dp.gather(x_pred)
+    scores = x @ keys.T  # [B, B] (under dp [local B, global B])
     if weights is not None:
         w = weights.float().reshape(-1)
-        scores = torch.where(w[None, :] > 0, scores, -torch.inf)
+        w_keys = w if dp is None else dp.gather(w)
+        scores = torch.where(w_keys[None, :] > 0, scores, -torch.inf)
         per = (pos - torch.logsumexp(scores, dim=-1)) * w
-        return -_safe_mean(per.sum(), w.sum())
-    return -(pos - torch.logsumexp(scores, dim=-1)).mean()
+        return -_safe_mean(per.sum(), w.sum(), dp)
+    per = pos - torch.logsumexp(scores, dim=-1)
+    if dp is None:
+        return -per.mean()
+    return -_safe_mean(per.sum(), torch.full_like(per.sum(), per.numel()), dp)

@@ -1,4 +1,4 @@
-"""Training / eval runtime on one device.
+"""Training / eval runtime on one device or a data-parallel group.
 
 Counterpart of ``msa_tpu/training/trainer.py``'s ``Trainer`` (its
 ``_build_train_step``, ``_build_eval_step``, ``train_epoch`` and
@@ -14,6 +14,15 @@ their plain versions.  The device is the card unless the caller passes
 ``"cpu"``.  :meth:`Trainer.fit` is the epoch loop with model selection,
 patience, one checkpoint per improvement and resume (``fit`` of the JAX
 package); ``cli/train.py`` drives it.
+
+Under ``data_parallel > 1`` each process is one rank of the default
+process group (``parallel/distributed.py``): every rank holds the same
+global batch (zero-padded to a multiple of the data axis with weight-0
+rows, as JAX's ``_shard_batch``), draws the global MLM masks from the same
+seed, keeps its rows, and computes its share of the global loss
+(``ops/losses.py``); the gradients are summed in one flat all-reduce, so
+every rank applies the same update to its copy of the state.  The dropout
+seeds move by the rank (``ops.dropout.shard_seed``).
 """
 
 from __future__ import annotations
@@ -36,6 +45,9 @@ from ..models.weights import (cast_for_compute, init_params, map_tree,
 from ..ops import masking
 from ..ops.attention import FLASH_MIN_SEQ
 from ..ops.dropout import SEED_BITS, draw_seed, seeded_generator
+from ..parallel.distributed import (DataParallel, barrier, local_rows,
+                                    pad_batch, process_index)
+from ..parallel.mesh import make_mesh, refuse_model_parallel
 from ..utils.flops import H100_BF16_PEAK_FLOPS, mmbert_step_flops
 from .optim import make_fused_optimizer, make_optimizer
 from .train_state import TrainState
@@ -180,19 +192,22 @@ class Trainer:
 
     def __init__(self, config: ExperimentConfig, device="cuda",
                  mask_token_id: int = masking.DEFAULT_MASK_ID,
-                 special_ids: Tuple[int, ...] = masking.DEFAULT_SPECIAL_IDS):
+                 special_ids: Tuple[int, ...] = masking.DEFAULT_SPECIAL_IDS,
+                 mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh`` of ranks (default: ``make_mesh(
+        data_parallel, model_parallel)`` over the process group, one rank
+        without one).  A data axis above 1 needs the process group started
+        (``parallel.distributed.initialize``)."""
         tc = config.train
-        if tc.data_parallel not in (-1, 1) or tc.model_parallel != 1:
-            raise NotImplementedError(
-                f"data_parallel={tc.data_parallel}, model_parallel="
-                f"{tc.model_parallel}: the port trains on one device "
-                "(ROADMAP: parallelism); -1 means that one device")
-        if tc.fuse_text_pass or tc.sequence_parallel:
-            raise NotImplementedError(
-                "fuse_text_pass / sequence_parallel are not ported yet "
-                "(ROADMAP: remaining surface, parallelism)")
+        refuse_model_parallel(tc)
         if tc.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
+        self.mesh = mesh if mesh is not None else make_mesh(
+            tc.data_parallel, tc.model_parallel)
+        self.dp = DataParallel.from_mesh(self.mesh)
+        # the rank's seed shard, JAX's m + mp * d (mp is 1 here)
+        self.shard = 0 if self.dp is None else self.dp.index
+        self.comm_seconds = 0.0  # gradient all-reduces, summed
         self.config = config
         self.device = torch.device(device)
         self.compute_dtype = _DTYPES[tc.compute_dtype]
@@ -272,10 +287,15 @@ class Trainer:
         return "full"
 
     def _tokens(self) -> Tuple[int, int]:
-        """(text pass, joint passes) tokens of one step."""
-        b = self.config.train.train_batch_size
+        """(text pass, joint passes) tokens of one step of this rank (its
+        rows of the batch under dp; under ``fuse_text_pass`` the one
+        [3B, L+Lp] call counts as joint)."""
+        tc = self.config.train
+        b = -(-tc.train_batch_size // (1 if self.dp is None else self.dp.size))
         l = self.config.data.max_seq_length
         lp = self.config.data.pair_seq_length or l
+        if tc.fuse_text_pass:
+            return 0, 3 * b * (l + lp)
         return b * l, 2 * b * (l + lp)
 
     def activation_bytes(self) -> float:
@@ -303,6 +323,47 @@ class Trainer:
             out[key] = t.to(self.device, non_blocking=True)
         return out
 
+    def _global_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The host batch on the device, padded to a multiple of the data
+        axis under dp."""
+        return self.upload(batch if self.dp is None
+                           else pad_batch(batch, self.dp.size))
+
+    def _local(self, b: Dict[str, torch.Tensor], views):
+        """The rank's rows of the global batch and MLM views."""
+        if self.dp is None:
+            return b, views
+        rows = lambda x: local_rows(x, self.dp.size, self.dp.index)  # noqa: E731
+        return ({k: rows(v) for k, v in b.items()},
+                [(rows(ids), rows(lab)) for ids, lab in views])
+
+    def _sum_metrics(self, metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The ranks' shares of each scalar metric summed (one all-reduce);
+        predictions gathered."""
+        if self.dp is None:
+            return metrics
+        keys = [k for k in metrics if k != "predictions"]
+        total = self.dp.sum(torch.stack([metrics[k].float() for k in keys]))
+        out = {k: t.to(metrics[k].dtype) for k, t in zip(keys, total.unbind())}
+        if "predictions" in metrics:
+            out["predictions"] = self.dp.gather(metrics["predictions"])
+        return out
+
+    def _sum_grads(self, grads):
+        """The gradients summed over the data group in one flat buffer."""
+        if self.dp is None:
+            return grads
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        grads = self.dp.sum_flat(grads)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        self.comm_seconds += time.perf_counter() - t0
+        return grads
+
     def _mlm_views(self, b, generator):
         ids = b["text_ids"]
         data = self.config.data
@@ -329,10 +390,10 @@ class Trainer:
             raise RuntimeError("train_step before init_state")
         cfg = self.config.model
         tc = self.config.train
-        b = self.upload(batch)
+        b = self._global_batch(batch)
         generator = torch.Generator().manual_seed(fold_in(base_seed, state.step))
-        (t_ids, t_lab), (tv_ids, tv_lab), (ts_ids, ts_lab) = \
-            self._mlm_views(b, generator)
+        b, views = self._local(b, self._mlm_views(b, generator))
+        (t_ids, t_lab), (tv_ids, tv_lab), (ts_ids, ts_lab) = views
         paths, leaves = zip(*named_leaves(state.params))
         with torch.enable_grad():
             params = cast_for_compute(state.params, self.compute_dtype)
@@ -340,16 +401,18 @@ class Trainer:
                 params, t_ids, b["text_mask"], tv_ids, ts_ids, b["visual"],
                 b["speech"], cfg, compute_dtype=self.compute_dtype,
                 use_flash=tc.use_flash_attention, deterministic=False,
-                generator=generator, remat_policy=self.remat_policy)
+                generator=generator, remat_policy=self.remat_policy,
+                fuse_text_pass=tc.fuse_text_pass, shard=self.shard)
             losses = mmbert_loss(params, out, t_lab, tv_lab, ts_lab,
                                  b["visual_ap"], b["speech_ap"], b["target"],
-                                 cfg, weights=b["weight"])
+                                 cfg, weights=b["weight"], dp=self.dp)
             # parameters the loss does not reach (the NSP head) get zero
             # gradients, as jax.grad gives them
             grads = torch.autograd.grad(losses["loss"], leaves,
                                         allow_unused=True,
                                         materialize_grads=True)
-        metrics = {k: losses[k].detach() for k in _METRICS}
+        grads = self._sum_grads(grads)
+        metrics = self._sum_metrics({k: losses[k].detach() for k in _METRICS})
         if tc.log_grad_norm:
             metrics["grad_norm"] = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(list(grads))))
@@ -364,7 +427,7 @@ class Trainer:
         ``eval_masking`` (then the masks come from ``seed``)."""
         cfg = self.config.model
         tc = self.config.train
-        b = self.upload(batch)
+        b = self._global_batch(batch)
         ids = b["text_ids"]
         if tc.eval_masking:
             views = self._mlm_views({"text_ids": ids, "text_mask": b["text_mask"]},
@@ -372,15 +435,19 @@ class Trainer:
         else:
             ignore = torch.full_like(ids, masking.IGNORE_INDEX)
             views = [(ids, ignore)] * 3
+        b, views = self._local(b, views)
         (t_ids, t_lab), (tv_ids, tv_lab), (ts_ids, ts_lab) = views
         params = cast_for_compute(params, self.compute_dtype)
         out = mmbert_forward(params, t_ids, b["text_mask"], tv_ids, ts_ids,
                              b["visual"], b["speech"], cfg,
                              compute_dtype=self.compute_dtype,
-                             use_flash=tc.use_flash_attention)
-        return mmbert_loss(params, out, t_lab, tv_lab, ts_lab, b["visual_ap"],
-                           b["speech_ap"], b["target"], cfg,
-                           weights=b["weight"], compute_mlm=tc.eval_masking)
+                             use_flash=tc.use_flash_attention,
+                             fuse_text_pass=tc.fuse_text_pass)
+        # under dp: the global losses and every rank's predictions
+        return self._sum_metrics(mmbert_loss(
+            params, out, t_lab, tv_lab, ts_lab, b["visual_ap"],
+            b["speech_ap"], b["target"], cfg, weights=b["weight"],
+            compute_mlm=tc.eval_masking, dp=self.dp))
 
     # ------------------------------------------------------------------
     # Epochs
@@ -395,17 +462,48 @@ class Trainer:
         batches = prefetch(dataset.epoch_batches(
             epoch, tc.train_batch_size, shuffle=True, force_aligned=False))
         device_metrics: List[Dict[str, torch.Tensor]] = []
+        profiling = tc.profile_dir is not None and epoch == 0
+        prof = None
         for i, batch in enumerate(batches):
             if self.mlm_mask_injector is not None:
                 batch = dict(batch)
                 batch.update(self.mlm_mask_injector(epoch, i, batch))
+            if profiling and i == tc.profile_start:
+                prof = self._profiler()
+                prof.start()
+            elif prof is not None:
+                prof.step()
             state, metrics = self.train_step(state, batch, base_seed)
             # metric scalars stay on the device: one transfer at epoch end
             device_metrics.append(metrics)
+            if prof is not None and i + 1 == tc.profile_stop:
+                prof.stop()
+                prof, profiling = None, False
+        if prof is not None:  # the epoch ended inside the window
+            prof.stop()
         for m in device_metrics:
             em.update({k: v.item() for k, v in m.items()}, tc.train_batch_size)
         em.seconds = time.perf_counter() - t0
         return state, em
+
+    def _profiler(self):
+        """A ``torch.profiler`` trace of the train steps [profile_start,
+        profile_stop) of epoch 0 (one ``ProfilerStep#`` span a step),
+        written into ``profile_dir`` (one ``*.pt.trace.json`` a rank,
+        TensorBoard's layout) when it stops."""
+        from torch.profiler import (ProfilerActivity, profile, schedule,
+                                    tensorboard_trace_handler)
+
+        tc = self.config.train
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(
+            activities=activities,
+            schedule=schedule(wait=0, warmup=0, repeat=1,
+                              active=max(tc.profile_stop - tc.profile_start, 1)),
+            on_trace_ready=tensorboard_trace_handler(
+                tc.profile_dir, worker_name=f"rank{process_index()}"))
 
     def eval_epoch(self, state: TrainState, dataset: MultimodalDataset,
                    epoch: int, base_seed: int, batch_size: int
@@ -515,12 +613,16 @@ class Trainer:
                 patience = 0
                 if checkpoint_dir:
                     # one retained checkpoint per improvement, carrying the
-                    # selection state for an exact resume
+                    # selection state for an exact resume; the state is
+                    # replicated, so under dp rank 0 writes it and every
+                    # rank waits until it is whole
                     d = epoch_dir(checkpoint_dir, epoch)
-                    save_checkpoint(d, state, self.config, epoch,
-                                    extra={"fit": result.to_meta()})
-                    np.save(os.path.join(d, "predict.npy"), tpreds)
-                    np.save(os.path.join(d, "target.npy"), tlabels)
+                    if process_index() == 0:
+                        save_checkpoint(d, state, self.config, epoch,
+                                        extra={"fit": result.to_meta()})
+                        np.save(os.path.join(d, "predict.npy"), tpreds)
+                        np.save(os.path.join(d, "target.npy"), tlabels)
+                    barrier()
 
             if patience >= tc.patience:
                 log("Early stopping at epoch %d", epoch + 1)

@@ -257,8 +257,21 @@ def test_train_sample_score_pipeline(workdir, vocab_file, data_pkl,  # noqa: F81
                                    ["--distributed"],
                                    ["--coordinator", "localhost:1234"]])
 def test_train_cli_refuses_parallel_flags(flags, tmp_path, monkeypatch):
+    """What a single process cannot run raises before any training: --mp
+    (tensor parallelism, the next slice), --dp 2 without a process group
+    (make_mesh finds one rank), --distributed without torchrun's
+    environment, --coordinator without the process count and id.  A real
+    two-process launch: test_torch_data_parallel.py."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                "MSA_COORDINATOR", "MSA_NUM_PROCESSES", "MSA_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    error, match = {"--dp": (ValueError, "requested 2 ranks, have 1"),
+                    "--mp": (NotImplementedError, "ROADMAP"),
+                    "--distributed": (ValueError, "env://"),
+                    "--coordinator": (ValueError, "number of processes")
+                    }[flags[0]]
+    with pytest.raises(error, match=match):
         port_train.main(["--device", "cpu", "--model", "tiny",
                          "--synthetic", "8", "--n_epochs", "1", *flags])
 

@@ -175,8 +175,10 @@ def test_predictor_bf16_on_cpu_tracks_f32():
     ({"model_parallel": 2}, {}),
 ])
 def test_predictor_refuses_what_is_not_ported(train_kw, kw):
-    """Data and model parallelism raise.  fuse_qkv, refused until it was
-    ported, is taken: with an int8 mode each layer gets one fused "qkv"
+    """Model parallelism raises; data parallelism in one process raises
+    make_mesh's ValueError (the ranks come from a process group:
+    test_torch_data_parallel.py).  fuse_qkv, refused until it was ported,
+    is taken: with an int8 mode each layer gets one fused "qkv"
     projection; without ``quantize`` it is ignored, as in JAX."""
     exp = experiment()
     exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
@@ -192,7 +194,10 @@ def test_predictor_refuses_what_is_not_ported(train_kw, kw):
             "layers"][0]
         assert "qkv" not in layer and "weight" in layer["q"]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = ((ValueError, "requested 2 ranks, have 1")
+                    if train_kw.get("data_parallel")
+                    else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         Predictor(exp, {}, 4, torch.device("cpu"), **kw)
 
 

@@ -461,13 +461,22 @@ def test_remat_full_reproduces_dropout():
     {"fused_optimizer": True, "gradient_accumulation_steps": 2},
     {"data_parallel": 2}, {"fuse_text_pass": True}])
 def test_trainer_refuses_what_is_not_ported(train):
-    """What the port does not run raises NotImplementedError; the fused
-    optimizer with gradient accumulation raises JAX's own ValueError
-    (make_fused_optimizer), since JAX refuses it too."""
+    """The fused optimizer with gradient accumulation raises JAX's own
+    ValueError (make_fused_optimizer), since JAX refuses it too;
+    data_parallel=2 in one process raises make_mesh's (the ranks come from
+    a process group: test_torch_data_parallel.py).  fuse_text_pass,
+    refused until it was ported, is taken (its parity with JAX:
+    test_torch_surface.py); tensor and sequence parallelism still raise
+    (test_torch_data_parallel.py)."""
     exp = port_experiment(experiment(**train))
+    if train.get("fuse_text_pass"):
+        trainer = Trainer(exp, "cpu")
+        trainer.init_state(0, 4)
+        assert trainer.config.train.fuse_text_pass
+        return
     error, match = ((ValueError, "gradient accumulation")
                     if train.get("fused_optimizer")
-                    else (NotImplementedError, "ROADMAP"))
+                    else (ValueError, "requested 2 ranks, have 1"))
     with pytest.raises(error, match=match):
         Trainer(exp, "cpu").init_state(0, 4)
 
