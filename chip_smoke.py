@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times ROOT
-    python3 chip_smoke.py --cli-worker OUT -- CLI_TRAIN_FLAGS...
+    python3 chip_smoke.py --cli-worker OUT {rate0,preset} -- CLI_TRAIN_FLAGS...
     python3 chip_smoke.py --predict-worker OUT RANK PORT
 
 Run from the root of a checkout.  ``--flash-times ROOT`` only times the
@@ -160,15 +160,17 @@ its own), the script:
      uninterrupted run's parameters bit for bit), then ``cli.sample`` and
      ``cli.score`` on the result;
   6f. ``fuse_text_pass`` at bert-large B=96 (one [3B, 80] encoder call):
-     1 + 2 bf16 train steps at dropout 0, fused against unfused from the
-     same weights (losses and a leaf within GRAD_TOL, ms/step, launches per
-     step), and bf16 serving fused against unfused (ATTN_TOL, samples/s);
+     1 + 5 bf16 train steps a run at dropout 0, in turns unfused, fused,
+     fused, unfused from the same weights (losses within GRAD_TOL, two
+     leaves' updates within UPDATE_RTOL of the unfused updates, ms/step,
+     launches per step), and bf16 serving fused against unfused
+     (ATTN_TOL, samples/s);
   6g. data parallelism in two processes on the one card over gloo, each
      rank launched with ``cli.train --dp 2 --coordinator ... --process_id
      r`` (this script's ``--cli-worker`` mode calls the CLI's ``run`` and
      reports the process's kernel launches, final-parameter digest and
      all-reduce time): bert-large global B=96 at dropout 0 against a
-     one-process epoch, the tiny preset with ``--resume`` bit-equal to the
+     one-process epoch (losses, and two leaves' updates), the tiny preset with ``--resume`` bit-equal to the
      uninterrupted run, and the dp=2 ``Predictor`` (``--predict-worker``)
      against dp=1;
   7. runs two f32 train steps of a small model on the card (TF32 off) and
@@ -289,14 +291,26 @@ FRAME_RUNGS = ("none", "save_attn+drop", "save_ctx")
 PROBS_LOSS_RTOL = 2e-3
 REMAT_LOSS_RTOL = 2e-2
 CLI_SYNTHETIC = 2 * 96  # cli.train: two steps an epoch at B=96
-# fuse_text_pass: 1 + 2 train steps each form, the leaf compared after
-FUSE_WARMUP, FUSE_STEPS = 1, 2
-FUSE_LEAF = "bert/layers/0/q/weight"
+# fuse_text_pass: 1 + 5 train steps a run, in turns unfused, fused, fused,
+# unfused (ten timed steps a form)
+FUSE_WARMUP, FUSE_STEPS = 1, 5
 # data parallelism: two steps of the global B=96 through cli.train --dp 2,
-# the leaf held against one process, each spawn's time limit (s)
+# held against one process; each spawn's time limit (s)
 DP_SYNTHETIC = 2 * 96
-DP_LEAF = "bert/layers/0/q/weight"
 DP_TIMEOUT = 300
+# The leaves whose updates (final minus initial weights) fuse_text_pass and
+# dp are held to against the reference run's: the first layer's q, which
+# every loss term reaches through the whole encoder, and the text view's
+# InfoNCE head, which only the contrastive term reaches (so a wrong
+# cross-rank gather shows there first).  The 2-norm of the difference of
+# the updates must stay within UPDATE_RTOL of the reference update's 2-norm
+# (bf16: the fused call and half batches take other GEMM roundings, and
+# Adam's first steps, near lr * sign(g), turn the sign of a gradient near 0
+# into a whole step; on the H100 the correct runs read 1.6e-2 and 4.7e-2
+# fused, 1.8e-2 and 3.3e-3 under dp, where a gather whose backward skips
+# the cross-rank sum reads about 2); a zero update fails.
+UPDATE_LEAVES = ("bert/layers/0/q/weight", "cpc/zt/weight")
+UPDATE_RTOL = 0.25
 # the tiny preset's served predictions must spread at least this much, or
 # the int8 and f32 comparisons would compare constants
 TINY_PRED_SPREAD = 1e-2
@@ -430,6 +444,27 @@ def check_close(name, got, ref, atol, rtol, mask=None) -> float:
             f"{name}: {int(bad.sum())} elements outside atol={atol} "
             f"rtol={rtol}; max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def check_update(name, got, ref, start, rtol=None):
+    """A leaf's update (``got - start``) against the reference run's
+    (``ref - start``): neither zero, and the 2-norm of their difference
+    within ``rtol`` (default UPDATE_RTOL) of the reference update's.  A leaf
+    compared as weights cannot tell a step from no step where the update is
+    far below the weights' tolerance; its update can.  Returns (the
+    relative 2-norm difference, the reference update's largest element,
+    the largest difference over it)."""
+    d_got, d_ref = got.float() - start.float(), ref.float() - start.float()
+    n_got, n_ref = float(d_got.norm()), float(d_ref.norm())
+    if not n_got > 0 or not n_ref > 0:
+        raise AssertionError(f"{name}: no update (2-norm {n_got:.3e}, "
+                             f"reference {n_ref:.3e})")
+    rel = float((d_got - d_ref).norm()) / n_ref
+    top = float(d_ref.abs().max())
+    if not rel <= (UPDATE_RTOL if rtol is None else rtol):
+        raise AssertionError(f"{name}: update differs from the reference "
+                             f"update by {rel:.3e} of its 2-norm {n_ref:.3e}")
+    return rel, top, float((d_got - d_ref).abs().max()) / top
 
 
 def check_within(name, got, want, atol, rtol, gap, mask) -> float:
@@ -2780,7 +2815,8 @@ def train_run(exp, params, batches, warmup, steps, label, keep=None):
     timed steps, peak memory, the bytes autograd keeps for the backward (by
     storage, in the warm-up steps; the bf16 weight copies included), the
     kernel launches of the timed steps and the trainer's remat policy; and
-    the parameter leaf named ``keep`` after the last step (on the CPU)."""
+    the parameter leaves named in ``keep`` after the last step (on the
+    CPU, by name)."""
     import torch
 
     from msa_tpu_torch.training.trainer import Trainer
@@ -2816,7 +2852,8 @@ def train_run(exp, params, batches, warmup, steps, label, keep=None):
     kept = None
     if keep is not None:
         from msa_tpu_torch.models.weights import named_leaves
-        kept = dict(named_leaves(state.params))[keep].detach().cpu()
+        leaves = dict(named_leaves(state.params))
+        kept = {k: leaves[k].detach().cpu() for k in keep}
     del state, trainer
     torch.cuda.empty_cache()
     return {"losses": losses, "ms_step": seconds * 1e3 / steps, "kept": kept,
@@ -4214,12 +4251,13 @@ def fused_launches(layers, steps=1, train=True):
 
 def phase_fuse_text_pass():
     """``fuse_text_pass`` at bert-large B=96, L=40: one [3B, 80] encoder
-    call in place of [B, 40] + [2B, 80].  1 + 2 bf16 train steps at dropout
+    call in place of [B, 40] + [2B, 80].  1 + 5 bf16 train steps at dropout
     0 from the same weights, batches and seed, unfused, fused, fused,
-    unfused (each fused run's losses and a parameter leaf within GRAD_TOL
-    of the first unfused run's; ms/step, peak, launches per step), then
-    the ragged serving split in bf16 in the same turns (predictions within
-    ATTN_TOL; samples/s, launches per batch)."""
+    unfused (each run's losses within GRAD_TOL of the first unfused run's,
+    the updates of UPDATE_LEAVES within UPDATE_RTOL of its updates; ms/step
+    of each run, peak, launches per step), then the ragged serving split in
+    bf16 in the same turns (predictions within ATTN_TOL; samples/s,
+    launches per batch)."""
     import numpy as np
     import torch
 
@@ -4232,13 +4270,14 @@ def phase_fuse_text_pass():
     layers = exp.model.bert.num_hidden_layers
     turns = (False, True, True, False)
     runs = [train_run(with_fuse(exp, fuse), params, batches, FUSE_WARMUP,
-                      FUSE_STEPS, f"fuse_text_pass={fuse}", keep=FUSE_LEAF)
+                      FUSE_STEPS, f"fuse_text_pass={fuse}", keep=UPDATE_LEAVES)
             for fuse in turns]
     want = {False: rung_launches("none", layers, FUSE_STEPS),
             True: fused_launches(layers, FUSE_STEPS)}
     base = runs[0]
     atol, rtol = GRAD_TOL["bfloat16"]
-    gaps, leaf_err = [], 0.0
+    start = {k: params_leaf(params, k) for k in UPDATE_LEAVES}
+    gaps, updates = [], {k: [] for k in UPDATE_LEAVES}
     for fuse, r in zip(turns, runs):
         if r["launches"] != want[fuse] or r["remat_policy"] != "none":
             raise AssertionError(f"fuse_text_pass={fuse}: launches "
@@ -4249,10 +4288,10 @@ def phase_fuse_text_pass():
                    for a, b in zip(r["losses"], base["losses"])):
             raise AssertionError(f"fuse_text_pass={fuse} losses {r['losses']}"
                                  f" against {base['losses']}")
-        leaf_err = max(leaf_err, check_close(
-            f"fuse_text_pass={fuse} {FUSE_LEAF}", r["kept"], base["kept"],
-            atol, rtol))
-    moved = float((base["kept"] - params_leaf(params, FUSE_LEAF)).abs().max())
+        for k in UPDATE_LEAVES:
+            updates[k].append(check_update(
+                f"fuse_text_pass={fuse} {k}", r["kept"][k], base["kept"][k],
+                start[k]))
     ms = {fuse: [r["ms_step"] for f, r in zip(turns, runs) if f == fuse]
           for fuse in (False, True)}
     fused = runs[1]
@@ -4266,8 +4305,8 @@ def phase_fuse_text_pass():
           f"{fused['per_step']}, unfused {base['per_step']}; losses fused "
           f"{[round(x, 5) for x in fused['losses']]}, unfused "
           f"{[round(x, 5) for x in base['losses']]} (max |diff| "
-          f"{max(gaps):.2e}); {FUSE_LEAF} max |diff| {leaf_err:.2e} "
-          f"(its max |update| {moved:.2e})", flush=True)
+          f"{max(gaps):.2e}); "
+          f"{update_text(updates, "the first unfused run's")}", flush=True)
     del batches
 
     cfg = exp.model
@@ -4307,6 +4346,16 @@ def phase_fuse_text_pass():
     torch.cuda.empty_cache()
     return {"training": fused["launches"], "serving": launches[True],
             "ms_step": ms, "samples_per_s": rates}
+
+
+def update_text(updates, against):
+    """What :func:`check_update` returned for each leaf and run."""
+    return "; ".join(
+        f"{k} update against {against}: relative 2-norm diff "
+        f"{[f'{u[0]:.3e}' for u in us]} (limit "
+        f"{UPDATE_RTOL}), largest element diff over largest update "
+        f"{[f'{u[2]:.3e}' for u in us]}, largest update {us[0][1]:.3e}"
+        for k, us in updates.items())
 
 
 def params_leaf(params, name):
@@ -4363,11 +4412,14 @@ def dp_launch(rank, port):
             "--num_processes", "2", "--process_id", str(rank)]
 
 
-def cli_worker(out, argv):
+def cli_worker(out, dropout, argv):
     """A rank of ``python -m msa_tpu_torch.cli.train`` (its ``run``, with
-    these flags): writes what it ran to ``out``.json (kernel launches of
+    these flags; ``dropout`` "rate0" sets every dropout rate of the
+    experiment the flags describe to 0, "preset" keeps the preset's):
+    writes what it ran to ``out``.json (kernel launches of
     the process, steps, a digest of the final parameters, the fit history,
-    the gradient all-reduce time, peak memory) and ``out``.npy (DP_LEAF)."""
+    the gradient all-reduce time, peak memory) and ``out``.npz (the final
+    UPDATE_LEAVES)."""
     import hashlib
 
     import numpy as np
@@ -4376,6 +4428,9 @@ def cli_worker(out, argv):
     from msa_tpu_torch.cli import train
     from msa_tpu_torch.models.weights import named_leaves
 
+    if dropout == "rate0":
+        flags_config = train.build_config
+        train.build_config = lambda args: no_dropout(flags_config(args))
     reset_counts()
     trainer, state, result = train.run(train.build_parser().parse_args(argv))
     torch.cuda.synchronize()
@@ -4384,7 +4439,8 @@ def cli_worker(out, argv):
     for k, v in sorted(leaves.items()):  # a loaded tree orders its keys
         digest.update(k.encode())        # otherwise than a fresh one
         digest.update(v.detach().cpu().numpy().tobytes())
-    np.save(out + ".npy", leaves[DP_LEAF].detach().cpu().numpy())
+    np.savez(out + ".npz", *(leaves[k].detach().cpu().numpy()
+                             for k in UPDATE_LEAVES))
     with open(out + ".json", "w") as f:
         json.dump({"launches": kernel_counts(), "step": state.step,
                    "digest": digest.hexdigest(), "history": result.history,
@@ -4431,11 +4487,17 @@ def predict_worker(out, rank, port):
     return 0
 
 
-def read_rank(path):
+def read_rank(path, arrays=".npy"):
+    """A worker's report and its arrays (``.npz``: UPDATE_LEAVES by name)."""
     import numpy as np
 
     with open(path + ".json") as f:
-        return json.load(f), np.load(path + ".npy")
+        info = json.load(f)
+    if arrays == ".npy":
+        return info, np.load(path + ".npy")
+    with np.load(path + ".npz") as z:
+        return info, dict(zip(UPDATE_LEAVES, (z[f"arr_{i}"] for i in
+                                              range(len(UPDATE_LEAVES)))))
 
 
 def phase_data_parallel():
@@ -4447,9 +4509,9 @@ def phase_data_parallel():
 
     * bert-large, global B=96 (48 a rank), dropout 0, remat off, one epoch
       of two steps: both ranks log the same epoch losses and end on the
-      same parameters; the losses and a parameter leaf within bf16
-      GRAD_TOL of a one-process epoch on the same global batches; the
-      gradient all-reduce's ms a step;
+      same parameters; the losses within bf16 GRAD_TOL, and the updates of
+      UPDATE_LEAVES within UPDATE_RTOL, of a one-process epoch on the same
+      global batches; the gradient all-reduce's ms a step;
     * the tiny preset, two epochs, and ``--resume`` from the first epoch's
       checkpoint (rank 0 wrote it): the resumed run ends on the
       uninterrupted run's parameters bit for bit, on both ranks;
@@ -4474,20 +4536,23 @@ def phase_data_parallel():
     with tempfile.TemporaryDirectory() as tmp:
         # bert-large: the one-process epoch first, in this process
         big = dp_cli_argv("bert-large-uncased", DP_SYNTHETIC, BATCH, 1,
-                          os.path.join(tmp, "big"), ["--dropout", "0"])
+                          os.path.join(tmp, "big"))
         args = train.build_parser().parse_args(big)
         train_ds = train.load_splits(args)[0]
-        trainer = Trainer(train.build_config(args), "cuda")
+        trainer = Trainer(no_dropout(train.build_config(args)), "cuda")
         state = trainer.init_state(args.seed, train_ds.num_batches(BATCH))
+        start = {k: params_leaf(state.params, k) for k in UPDATE_LEAVES}
         state, em = trainer.train_epoch(state, train_ds, 0, args.seed)
-        ref, ref_leaf = em.averaged(), params_leaf(state.params, DP_LEAF)
+        ref = em.averaged()
+        ref_leaves = {k: params_leaf(state.params, k) for k in UPDATE_LEAVES}
         del trainer, state
         torch.cuda.empty_cache()
         outs, big_s = spawn_ranks(
             "dp bert-large", lambda r, port: [
-                "--cli-worker", os.path.join(tmp, f"big{r}"), "--",
+                "--cli-worker", os.path.join(tmp, f"big{r}"), "rate0", "--",
                 *big, *dp_launch(r, port)], tmp)
-        ranks = [read_rank(os.path.join(tmp, f"big{r}")) for r in range(2)]
+        ranks = [read_rank(os.path.join(tmp, f"big{r}"), ".npz")
+                 for r in range(2)]
         lines = [[ln[ln.index("[Train Epoch"):].split(" (")[0]
                   for ln in out.splitlines()
                   if "[Train Epoch" in ln and "Joint" in ln] for out in outs]
@@ -4511,15 +4576,16 @@ def phase_data_parallel():
         if not all(g <= atol + rtol * abs(ref[k]) for k, g in gaps.items()):
             raise AssertionError(f"dp bert-large losses {got} against one "
                                  f"process {ref}")
-        leaf_err = check_close(f"dp {DP_LEAF}", torch.from_numpy(ranks[0][1]),
-                               ref_leaf, atol, rtol)
+        updates = {k: [check_update(f"dp {k}", torch.from_numpy(
+            ranks[0][1][k]), ref_leaves[k], start[k])] for k in UPDATE_LEAVES}
         comm = ranks[0][0]["comm_ms"] / steps
         print(f"dp=2 bert-large bf16 B={BATCH} ({BATCH // 2} a rank, two "
               f"processes on one card, gloo), {steps} steps through "
               f"cli.train: both ranks log {lines[0]} and end on equal "
               f"parameters; epoch losses against one process max |diff| "
               f"{max(gaps.values()):.2e} ({got['loss']:.5f} against "
-              f"{ref['loss']:.5f}); {DP_LEAF} max |diff| {leaf_err:.2e}; "
+              f"{ref['loss']:.5f}); rank 0's "
+              f"{update_text(updates, "one process's")}; "
               f"gradient all-reduce {comm:.1f} ms a step (one flat f32 "
               f"buffer of every gradient, staged through the host by gloo: "
               f"two ranks share one H100, so this is correctness, not "
@@ -4531,16 +4597,16 @@ def phase_data_parallel():
         root = os.path.join(tmp, "tiny")
         tiny = dp_cli_argv("tiny", 256, 32, 2, root)
         _, tiny_s = spawn_ranks("dp tiny", lambda r, port: [
-            "--cli-worker", os.path.join(tmp, f"tiny{r}"), "--", *tiny,
-            *dp_launch(r, port)], tmp)
+            "--cli-worker", os.path.join(tmp, f"tiny{r}"), "preset", "--",
+            *tiny, *dp_launch(r, port)], tmp)
         run = os.path.join(root, "model_save",
                            sorted(os.listdir(os.path.join(root, "model_save")))[0])
         if not os.path.isdir(epoch_dir(run, 0)):
             raise AssertionError(f"dp tiny: no checkpoint of epoch 1 in {run}")
         _, resume_s = spawn_ranks("dp tiny --resume", lambda r, port: [
-            "--cli-worker", os.path.join(tmp, f"resume{r}"), "--", *tiny,
-            *dp_launch(r, port), "--resume", epoch_dir(run, 0)], tmp)
-        infos = [read_rank(os.path.join(tmp, f"{k}{r}"))[0]
+            "--cli-worker", os.path.join(tmp, f"resume{r}"), "preset", "--",
+            *tiny, *dp_launch(r, port), "--resume", epoch_dir(run, 0)], tmp)
+        infos = [read_rank(os.path.join(tmp, f"{k}{r}"), ".npz")[0]
                  for k in ("tiny", "resume") for r in range(2)]
         if len({i["digest"] for i in infos}) != 1 or \
                 {i["step"] for i in infos} != {16}:
@@ -4614,8 +4680,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--cli-worker"]:  # --cli-worker OUT -- CLI_ARGV...
-        return cli_worker(sys.argv[2], sys.argv[4:])
+    if sys.argv[1:2] == ["--cli-worker"]:  # --cli-worker OUT DROPOUT -- ARGV
+        return cli_worker(sys.argv[2], sys.argv[3], sys.argv[5:])
     if sys.argv[1:2] == ["--predict-worker"]:  # --predict-worker OUT RANK PORT
         return predict_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     if len(sys.argv) == 3:  # the flash backwards of the tree at ROOT only

@@ -94,9 +94,6 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["bfloat16", "float32"])
     p.add_argument("--use_flash_attention", type=str, default="auto",
                    choices=["auto", "always", "never"])
-    p.add_argument("--dropout", type=float, default=None,
-                   help="every dropout rate of the model (hidden, attention, "
-                        "joint); default: the preset's")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default: cuda)")
@@ -167,8 +164,7 @@ def load_splits(args) -> Tuple[MultimodalDataset, MultimodalDataset,
 
 
 def build_config(args):
-    """The experiment the flags describe (``--dropout`` sets every dropout
-    rate of the model: hidden, attention and joint)."""
+    """The experiment the flags describe."""
     exp = build_experiment(
         dataset=args.dataset, model_name=args.model,
         num_labels=args.num_labels, emotion=args.emotion,
@@ -192,13 +188,6 @@ def build_config(args):
             max_seq_length=args.max_seq_length,
             pair_seq_length=args.pair_seq_length,
             num_labels=args.num_labels))
-    if args.dropout is not None:
-        model = exp.model
-        exp = dataclasses.replace(exp, model=dataclasses.replace(
-            model, joint_dropout_prob=args.dropout,
-            bert=dataclasses.replace(
-                model.bert, hidden_dropout_prob=args.dropout,
-                attention_probs_dropout_prob=args.dropout)))
     return exp
 
 

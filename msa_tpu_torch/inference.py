@@ -104,8 +104,7 @@ class Predictor:
     def __init__(self, config: ExperimentConfig, params, batch_size: int = 8,
                  device="cuda", *, quantize: str | None = None,
                  calibration: FeaturizedSplit | None = None,
-                 fuse_qkv: bool = False, inflight_batches: int = 64,
-                 mesh=None):
+                 fuse_qkv: bool = False, inflight_batches: int = 64):
         """``params``: the port's tree (``models/weights.py``), on any
         device; it is copied to ``device`` and its dense weights cast to the
         compute dtype once.  ``device`` is the card unless the caller asks
@@ -123,10 +122,9 @@ class Predictor:
         :meth:`predict_arrays` keeps on the device (a memory bound on big
         splits) while the fetches still overlap the device's work.
 
-        ``mesh``: a ``parallel.mesh.Mesh`` of ranks (default: ``make_mesh(
-        data_parallel, model_parallel)``); a data axis above 1 splits every
-        batch's rows over the process group, so ``batch_size`` must be a
-        multiple of it.
+        The mesh is ``make_mesh(data_parallel, model_parallel)`` over the
+        process group: a data axis above 1 splits every batch's rows over
+        it, so ``batch_size`` must be a multiple of it.
         """
         tc = config.train
         if quantize not in (None,) + QUANTIZE_MODES:
@@ -138,8 +136,7 @@ class Predictor:
         refuse_model_parallel(tc)
         if tc.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
-        self.mesh = mesh if mesh is not None else make_mesh(
-            tc.data_parallel, tc.model_parallel)
+        self.mesh = make_mesh(tc.data_parallel, tc.model_parallel)
         if int(batch_size) % self.mesh.shape[DATA_AXIS]:
             raise ValueError(
                 f"batch_size {batch_size} must be a multiple of the "
@@ -172,8 +169,8 @@ class Predictor:
     def from_checkpoint(cls, directory: str, batch_size: int = 8,
                         device="cuda", model_num: int | None = None,
                         quantize: str | None = None,
-                        calibration: FeaturizedSplit | None = None,
-                        mesh=None) -> "Predictor":
+                        calibration: FeaturizedSplit | None = None
+                        ) -> "Predictor":
         """A Predictor over the parameters of a checkpoint (a run directory,
         whose newest or ``model_num``-th epoch is taken, or an epoch
         directory), with the experiment config saved beside them."""
@@ -185,7 +182,7 @@ class Predictor:
         if config is None:
             raise FileNotFoundError(f"no config.json in {directory}")
         return cls(config, load_params(directory, "cpu"), batch_size, device,
-                   quantize=quantize, calibration=calibration, mesh=mesh)
+                   quantize=quantize, calibration=calibration)
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
         return _upload(x, self.device, self.dtype)

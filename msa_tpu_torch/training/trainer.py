@@ -192,22 +192,21 @@ class Trainer:
 
     def __init__(self, config: ExperimentConfig, device="cuda",
                  mask_token_id: int = masking.DEFAULT_MASK_ID,
-                 special_ids: Tuple[int, ...] = masking.DEFAULT_SPECIAL_IDS,
-                 mesh=None):
-        """``mesh``: a ``parallel.mesh.Mesh`` of ranks (default: ``make_mesh(
-        data_parallel, model_parallel)`` over the process group, one rank
-        without one).  A data axis above 1 needs the process group started
-        (``parallel.distributed.initialize``)."""
+                 special_ids: Tuple[int, ...] = masking.DEFAULT_SPECIAL_IDS):
+        """The mesh is ``make_mesh(data_parallel, model_parallel)`` over the
+        process group (one rank without one): a data axis above 1 needs the
+        process group started (``parallel.distributed.initialize``)."""
         tc = config.train
         refuse_model_parallel(tc)
         if tc.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
-        self.mesh = mesh if mesh is not None else make_mesh(
-            tc.data_parallel, tc.model_parallel)
+        self.mesh = make_mesh(tc.data_parallel, tc.model_parallel)
         self.dp = DataParallel.from_mesh(self.mesh)
         # the rank's seed shard, JAX's m + mp * d (mp is 1 here)
         self.shard = 0 if self.dp is None else self.dp.index
-        self.comm_seconds = 0.0  # gradient all-reduces, summed
+        # gradient all-reduces: host seconds (CPU), or CUDA event pairs
+        # read only in comm_seconds, so the step does not wait on the card
+        self._comm_host, self._comm_events = 0.0, []
         self.config = config
         self.device = torch.device(device)
         self.compute_dtype = _DTYPES[tc.compute_dtype]
@@ -354,15 +353,28 @@ class Trainer:
         """The gradients summed over the data group in one flat buffer."""
         if self.dp is None:
             return grads
-        cuda = self.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            grads = self.dp.sum_flat(grads)
+            self._comm_host += time.perf_counter() - t0
+            return grads
+        stream = torch.cuda.current_stream(self.device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
         grads = self.dp.sum_flat(grads)
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        self.comm_seconds += time.perf_counter() - t0
+        end.record(stream)
+        self._comm_events.append((start, end))
         return grads
+
+    @property
+    def comm_seconds(self) -> float:
+        """The gradient all-reduces' time so far (on the card: between
+        events on the step's stream, read here, after the steps)."""
+        for start, end in self._comm_events:
+            end.synchronize()
+            self._comm_host += start.elapsed_time(end) / 1e3
+        self._comm_events.clear()
+        return self._comm_host
 
     def _mlm_views(self, b, generator):
         ids = b["text_ids"]

@@ -129,7 +129,10 @@ def run_jax():
     serve = synthetic_split(SERVE_N, L, 5, 7, vocab_size=VOCAB, seed=9)
     preds = JaxPredictor(exp, state.params, SERVE_BATCH,
                          mesh=jax_make_mesh(2, 1)).predict_split(serve)
-    return {"start": start, "batches": batches, "hist": hist,
+    with pytest.raises(ValueError, match="multiple of the") as indivisible:
+        JaxPredictor(exp, state.params, 3, mesh=jax_make_mesh(2, 1))
+    return {"indivisible": str(indivisible.value), "start": start,
+            "batches": batches, "hist": hist,
             "params": tree_np(state.params), "eval": em.averaged(),
             "eval_preds": epreds, "eval_split": eval_split,
             "serve": serve, "serve_preds": preds}
@@ -167,7 +170,13 @@ for batch in inp["batches"]:
 em, epreds, _ = trainer.eval_epoch(
     state, MultimodalDataset(inp["eval_split"], seed=2), 0, 1, 3)
 serve = Predictor(exp, state.params, 4, "cpu").predict_split(inp["serve"])
-out = {"backend": backend, "hist": hist, "eval": em.averaged(),
+try:  # a batch the data axis does not divide
+    Predictor(exp, state.params, 3, "cpu")
+    indivisible = None
+except ValueError as e:
+    indivisible = str(e)
+out = {"backend": backend, "indivisible": indivisible, "hist": hist,
+       "eval": em.averaged(),
        "eval_preds": epreds, "serve_preds": serve,
        "params": {k: v.detach() for k, v in named_leaves(state.params)}}
 
@@ -285,8 +294,13 @@ def test_dp_eval_indivisible_batch_matches_jax(runs):
 def test_dp_predictor_matches_jax(runs):
     """Predictor at dp=2 (batch 4: two rows a rank, a ragged last batch):
     the same whole array on both ranks, within f32 atol 1e-5 of JAX's dp=2
-    Predictor."""
+    Predictor; a batch of 3, which the data axis does not divide, raises
+    on both ranks as JAX's does."""
     ref, outs, _ = runs
+    assert "batch_size 3 must be a multiple of the" in ref["indivisible"]
+    for out in outs:
+        assert "batch_size 3 must be a multiple of the data-axis size 2" in (
+            out["indivisible"] or "")
     np.testing.assert_array_equal(outs[0]["serve_preds"], outs[1]["serve_preds"])
     assert outs[0]["serve_preds"].shape == (SERVE_N,)
     np.testing.assert_allclose(outs[0]["serve_preds"], ref["serve_preds"],
@@ -404,13 +418,8 @@ def test_trainer_and_predictor_refuse_model_parallelism(train):
 
 def test_initialize_needs_the_launch(monkeypatch):
     """A coordinator without the process count and id raises before any
-    connection; the predictor checks the batch against the data axis."""
-    from msa_tpu_torch.inference import Predictor
-
+    connection."""
     for var in ("MSA_NUM_PROCESSES", "MSA_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(ValueError, match="number of processes"):
         distributed.initialize("127.0.0.1:1", device="cpu")
-    exp = port_configs.ExperimentConfig.from_json(experiment(1).to_json())
-    with pytest.raises(ValueError, match="multiple of the data-axis"):
-        Predictor(exp, {}, 3, "cpu", mesh=make_mesh(2, 1, ranks=[0, 1]))
