@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-times ROOT
+    python3 chip_smoke.py --short-times ROOT
     python3 chip_smoke.py --cli-worker OUT {rate0,preset} -- CLI_TRAIN_FLAGS...
     python3 chip_smoke.py --predict-worker OUT RANK PORT
 
 Run from the root of a checkout.  ``--flash-times ROOT`` only times the
 flash kernels and the joint embed (:func:`time_flash_backwards`) of the
 checkout at ROOT (this one's or another's, whose kernels build into
-ROOT/build/), so two trees are timed by the same code in one run.  The two worker
+ROOT/build/), so two trees are timed by the same code in one run;
+``--short-times ROOT`` likewise times the bf16 short backwards above 128
+keys and the Lp = 500 frame-level train step (:func:`time_short_path`).
+The two worker
 modes are the ranks phase 6g starts (:func:`cli_worker`,
 :func:`predict_worker`).  With no
 argument, in order, and stopping at the first failure (no phase catches
@@ -20,8 +24,9 @@ its own), the script:
      one nvcc per source, all started together, prints each source's nvcc
      wall time and what ptxas reports (registers, static shared memory,
      spills) for the bf16 tensor-core kernels of the short attention (the
-     v1, v2, v2p and v2s forwards, the v1, v2, v2p, v3 and v2s backwards,
-     each at head dim 32 and 64), for the joint embed's tiles and
+     v1, v2, v2p and v2s forwards, the v1, v2, v2p, v3 and v2s backwards
+     and the tiled backward pair above 128 keys, each at head dim 32 and
+     64), for the joint embed's tiles and
      flash2's bf16 fused backward and its pre-pass, none of which may
      spill, and for the warpgroup (wgmma) kernels of rows 10, 12 and 13
      (the bf16 forward, the split backward's dq and dk/dv launches, in
@@ -35,8 +40,9 @@ its own), the script:
        (v2p) at rate 0 and with dropout, each call's form (bf16: tensor
        cores, whole row up to 128 keys, two sweeps above); bf16 also at S =
        12, 128, 130, 200 and 1000;
-     * the attention backward (bf16 at S <= 128 on the tensor cores, else
-       the CUDA-core pair) through autograd of the entry, against its plain
+     * the attention backward (bf16 on the tensor cores: one launch at S
+       <= 128, the tiled pair above; f32 the CUDA-core pair) through
+       autograd of the entry, against its plain
        rule with JAX's roundings and against autograd through the plain
        version in f32, at rate 0 and at rate 0.1 snapped to t/256, the plain
        versions taking the kernel's exported keep mask;
@@ -61,10 +67,10 @@ its own), the script:
        f32), v2s's ctx against v2's; the packed forward bit-equal to v2's
        and the packed backward to v3's on the thirds, both against the
        plain versions (the backward's rounded rule, and autograd in f32),
-       also at [8, 130] (the CUDA-core backward); the bf16 v2s forward
+       also at [8, 130] (the tiled backward); the bf16 v2s forward
        (tensor cores) also at S = 12, 128 and, in its two-sweep form, 200
-       and 1000, and its backward from those probs at S = 12, 128 (tensor
-       cores) and 200 (the CUDA-core pair);
+       and 1000, and its backward from those probs at S = 12, 128 (one
+       launch) and 200 (the tiled pair);
      * the fused AdamW on bert-large's leaf shapes, every pair of
        moment dtypes, with and without a clip scale, an odd length and an
        unaligned leaf, timed beside ``torch.optim.AdamW(fused=True)``; the
@@ -78,6 +84,14 @@ its own), the script:
        against autograd, with and without dropout, and against flash2 in
        natural layout at the same seed; timed beside SDPA on [B, heads, S,
        d];
+     * the bf16 v2, v3, v2s and v2p backwards above 128 keys (the tiled
+       pair of csrc/short_bwd_tiled.cuh) at S = 129, 200, 1023 and the
+       frame-level joint shape [32, 540], each with a fully masked row, at
+       rate 0 and 26/256, against their rounded rules
+       (``phase_tiled_backward``), every launch on the tiled route; then
+       timed at [8, 130], [4, 512], [4, 768] and [32, 540] beside their
+       plain rules, SDPA's backward and the bound
+       (:func:`time_short_backwards`);
      * the v1 short attention (``short_attention_v1``) at the text and
        joint shapes: forward, backward, the same against v2 at one seed,
        and the bytes it keeps for the backward (its inputs) against v2's;
@@ -132,7 +146,13 @@ its own), the script:
   6b. trains bert-large in bf16 in frame-level mode (B=16, L=40, Lp=984)
      for 2+4 steps with the fused flash2 backward, and one step at Lp=4056
      (S=4096, depth cut to 2 layers), where the split backward runs,
-     checking the launches per step, losses and moved parameters;
+     checking the launches per step, losses and moved parameters; then at
+     Lp = 500 (joint pass [32, 540] on the short kernels; ``phase_frame_short``):
+     1 + 3 steps with the default dropouts (ms/step, samples/s, peak,
+     launches a step by route: 24 tiled v2 pairs), one step each with the
+     v2s, v2p and v3 backwards ('+probs', 'save_pack', ``USE_V3_BWD``;
+     their tiled pairs) against its losses, and 4 layers at attention
+     dropout 0 against the plain attention's losses;
   6c. trains bert-large bf16 at B=96 under each remat rung (none, full,
      full+drop, dots, save_small, save_wide, save_attn, save_attn+drop,
      save_ctx, save_ctx+drop, save_pack, save_attn+drop+probs) from the
@@ -345,11 +365,11 @@ FLASH_LSE_ATOL, FLASH_LSE_RTOL = 1e-4, 1e-5
 # in f32 the CUDA-core pair sums the CUDA-core forward's products in its
 # order (bit-equal).  In bf16 the forward runs on the tensor cores: up to
 # 128 keys the tensor-core v3 kernel forms its lse as the whole-row forward
-# does; above, the CUDA-core pair sums q pre-scaled, 16 keys an update,
-# where the forward took mma.sync scores (q . k, then times scale * log2e)
-# in 64-key tiles, so the lse moves by an ulp or two of the scores: ~1e-6
-# on live rows (|lse| < ~10), and on rows with every key masked (lse near
-# -14427, an f32 ulp of 2^-10) by about one ulp of |lse|, ~1e-7 relative.
+# does; above, the tiled pair takes the same mma.sync scores but sums the
+# row's exponentials over 32-key halves of the forward's 64-key tiles, in
+# another order, so the lse moves by an ulp or two: ~1e-6 on live rows
+# (|lse| < ~10), and on rows with every key masked (lse near -14427, an
+# f32 ulp of 2^-10) by about one ulp of |lse|, ~1e-7 relative.
 V3_TC_LSE_TOL = (1e-5, 1e-6)  # (atol, rtol)
 # the short forward's training-form lse (log2 units) against the plain
 # logsumexp of the f32 scores over ln 2: the kernel's scores come from the
@@ -689,7 +709,8 @@ def check_rounded_backward(tag, grads, rule, rule32, auto, live, atol, rtol):
 
 def phase_attention_backward(gen):
     """The v2 backward (row 3; bf16 at S <= 128 one tensor-core launch of
-    short_bwd_tc.cuh, else the CUDA-core pair), run through autograd of
+    short_bwd_tc.cuh, above it the tiled pair of short_bwd_tiled.cuh; f32
+    the CUDA-core pair), run through autograd of
     ``short_attention`` (so through the forward form and the tensors its
     route keeps), at rate 0 and with dropout, held by
     :func:`check_rounded_backward` against JAX's ``_bwd_kernel_v2`` rule
@@ -710,8 +731,8 @@ def phase_attention_backward(gen):
     for label, b, s in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
-            tc = sa.tensor_core_backward(s, dtype)
-            cores = "tensor cores" if tc else "CUDA cores"
+            route = sa.backward_route(s, dtype)
+            one = route == sa.WHOLE_ROW  # else a pair that reads the lse
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
@@ -740,7 +761,7 @@ def phase_attention_backward(gen):
                 # times: the backward alone against the plain backward alone
                 # (autograd through the plain version, graph kept)
                 lse = sa._forward_kernel(q, k, v, bias, HEADS, seed,
-                                         byte_threshold(rate), not tc)[1]
+                                         byte_threshold(rate), not one)[1]
                 ms = cuda_ms(lambda: sa.short_attention_backward(
                     q, k, v, bias, lse, dout, HEADS, seed, rate))
                 qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
@@ -765,8 +786,8 @@ def phase_attention_backward(gen):
                     lib_txt = f"sdpa bwd {lib_ms:.4f} ms, fwd+bwd {fb_ms:.4f} ms"
                 # the function's bytes: reads q, k, v, dO and the [B, S] f32
                 # bias once, writes dq, dk, dv once.  The row lse that the
-                # CUDA-core pair reads from the forward (and delta, which its
-                # dq launch hands to dk/dv) are that design's own choice, so
+                # pairs read from the forward (and delta, which their dq
+                # launch hands to dk/dv) are that design's own choice, so
                 # the lse is printed apart, not counted.  The products: the
                 # scores (recomputed: P is not an input), dP = dO.V^T, dV =
                 # P^T.dO, dQ = dS.K, dK = dS^T.Q
@@ -775,14 +796,14 @@ def phase_attention_backward(gen):
                 bound = bound_ms(nbytes, 10 * b * s * s * HIDDEN, dname)
                 times[(label, dname, rate)] = (ms, plain_ms, lib_ms, bound)
                 print(f"short_attention_backward [{b},{s},{HIDDEN}] {dname} "
-                      f"({cores}) rate {rate:g}: max_abs_err {case_err:.3e} "
+                      f"({route}) rate {rate:g}: max_abs_err {case_err:.3e} "
                       f"against the rounded rule (atol {atol}, rtol {rtol}), "
                       f"{auto_err:.3e} against f32 autograd (twice that plus "
                       f"the rounding gap); kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, {lib_txt or 'no sdpa (dropout)'}, "
                       f"bound {bound[0]:.4f} ms ({bound[1]}, "
                       f"{bound[0] / ms:.1%} of it reached"
-                      + ("" if tc else f"; the lse read adds "
+                      + ("" if one else f"; the lse read adds "
                          f"{extra / HBM_BYTES_PER_S * 1e3:.4f} ms") + ")",
                       flush=True)
     return worst, times
@@ -1537,6 +1558,7 @@ def phase_head_dim_32():
         out["flash2_backward"] = phase_flash2_backward(gen)
         out["probs_packed"] = phase_probs_packed(gen)
         out["v3"] = phase_v3_kernels(gen)
+        out["tiled_backward"] = phase_tiled_backward()
         out["flash_attention"] = phase_flash_attention(gen)
         out["v1"] = phase_short_v1(gen)
     print(f"head dim 32: every kernel check passed in "
@@ -1717,7 +1739,15 @@ def kernel_counters():
             "flash_attention": flash_attention,
             "flash_attention_backward": flash_attention_backward,
             "short_attention_v1": short_attention_v1,
-            "short_attention_v1_backward": short_attention_v1_backward}
+            "short_attention_v1_backward": short_attention_v1_backward,
+            # the backwards' launches on the tiled route (bf16 above 128 keys)
+            **{f"{name}_tiled": fn.tiled for name, fn in (
+                ("short_attention_backward", short_attention_backward),
+                ("short_attention_v3_backward", short_attention_v3_backward),
+                ("short_attention_probs_backward",
+                 short_attention_probs_backward),
+                ("short_attention_packed_backward",
+                 short_attention_packed_backward))}}
 
 
 def kernel_counts():
@@ -2600,14 +2630,14 @@ def phase_probs_packed(gen):
     backward on the same inputs and against autograd through the plain
     forward in f32; the packed pair by :func:`check_packed`; whether v2's
     ctx equals v1's bit for bit (printed: in bf16 both are short_fwd_tc.cuh's
-    template).  Then the packed pair at [8, 130] (the CUDA-core backward
+    template).  Then the packed pair at [8, 130] (bf16: the tiled backward
     route) and the bf16 v2s forward (tensor cores) at the shapes that reach
     its other forms: S = 12 (one ragged 16-key tile), 128 (the widest
     whole-row form) and 200, 1000 (the two-sweep form, with query tiles and
     a ragged last key tile), each from a generator of its own; at S = 12,
     128 and 200 also row 5's backward from those probs, rate 0 and with
-    dropout (one ragged tile and the widest tensor-core form; at 200 the
-    bf16 CUDA-core pair).  Times the kernels at rate 0 beside the plain
+    dropout (one ragged tile and the widest one-launch form; at 200 the
+    tiled pair).  Times the kernels at rate 0 beside the plain
     versions, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
@@ -2714,12 +2744,14 @@ def phase_probs_packed(gen):
                     cuda_ms(lambda: torch.autograd.grad(
                         pout, qkv_g, dout, retain_graph=True)), lib_bwd,
                     bound_ms(8 * io + b * s * 4, 2.5 * fwd_flops, dname))
-                tc = {"probs": dname == "bfloat16", "packed": dname == "bfloat16",
-                      "probs_bwd": sa.tensor_core_backward(s, dtype),
-                      "packed_bwd": sa.tensor_core_backward(s, dtype)}
+                fwd_cores = ("tensor cores" if dname == "bfloat16"
+                             else "CUDA cores")
+                cores_of = {"probs": fwd_cores, "packed": fwd_cores,
+                            "probs_bwd": sa.backward_route(s, dtype),
+                            "packed_bwd": sa.backward_route(s, dtype)}
                 for name in ("probs", "probs_bwd", "packed", "packed_bwd"):
                     ms, plain_ms, lib_ms, bound = times[(name, label, dname)]
-                    cores = "tensor cores" if tc[name] else "CUDA cores"
+                    cores = cores_of[name]
                     print(f"  {name} [{b},{s},{HIDDEN}] {dname}: kernel "
                           f"({cores}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                           f"sdpa {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
@@ -2741,7 +2773,8 @@ def phase_probs_packed(gen):
                 tag, q, k, v, bias, live, dout, seed, rate, keep)
             worst["packed"] = max(worst["packed"], perr)
             worst["packed_bwd"] = max(worst["packed_bwd"], pberr)
-            print(f"v2p {tag} (backward on the CUDA cores): forward bit-equal "
+            print(f"v2p {tag} (backward: {sa.backward_route(130, dtype)}): "
+                  f"forward bit-equal "
                   f"to v2's and backward to v3's on the thirds, against the "
                   f"plain versions {perr:.3e} / {pberr:.3e}, backward "
                   f"{pauto:.3e} against f32 autograd", flush=True)
@@ -2761,14 +2794,13 @@ def phase_probs_packed(gen):
             line = (f"v2s forward (tensor cores) {tag}: max_abs_err {err:.3e}; "
                     f"masked rows {diff:.3e} from f32 (the rounding rule "
                     f"{gap:.3e})")
-            if s <= 200:  # the backward's one-tile, widest and CUDA-core forms
+            if s <= 200:  # the backward's one-tile, widest and tiled forms
                 dout = torch.randn(4, s, HIDDEN, device="cuda",
                                    generator=dout_gen).to(torch.bfloat16)
                 berr, bauto = check_probs_backward(tag, q, k, v, bias, live,
                                                    probs, dout, rate, keep)
                 worst["probs_bwd"] = max(worst["probs_bwd"], berr)
-                cores = ("tensor cores" if sa.tensor_core_backward(
-                    s, torch.bfloat16) else "CUDA cores")
+                cores = sa.backward_route(s, torch.bfloat16)
                 line += (f"; backward ({cores}) {berr:.3e} against the rounded "
                          f"rule, {bauto:.3e} against f32 autograd")
             print(line, flush=True)
@@ -3166,8 +3198,9 @@ def phase_fused_adamw(gen):
 
 def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
                       few_keys=False):
-    """One v3 backward case: the kernel (tensor cores for bf16 at S <= 128,
-    else the CUDA-core pair) against its plain rule with the kernel's
+    """One v3 backward case: the kernel (bf16 on the tensor cores: one
+    launch at S <= 128, else the tiled pair; f32 the CUDA-core pair) against
+    its plain rule with the kernel's
     roundings (dS and the dropped p to the dtype, delta from the ctx in its
     dtype) at GRAD_TOL on live rows; fully masked rows against that rule at
     MASKED_ROW_GRAD_ATOL or, with ``few_keys``, against the rule in f32
@@ -3265,8 +3298,7 @@ def phase_v3_kernels(gen):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             atol, rtol = GRAD_TOL[dname]
-            cores = ("tensor cores" if sa.tensor_core_backward(s, dtype)
-                     else "CUDA cores")
+            cores = sa.backward_route(s, dtype)
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
@@ -3309,8 +3341,7 @@ def phase_v3_kernels(gen):
                 print(line, flush=True)
     edge_gen = torch.Generator(device="cuda").manual_seed(10)  # see phase_probs_packed
     for s in (8, 12, 128, 200):
-        cores = ("tensor cores" if sa.tensor_core_backward(s, torch.bfloat16)
-                 else "CUDA cores")
+        cores = sa.backward_route(s, torch.bfloat16)
         for rate in (0.0, rate_on):
             q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
                                                    torch.bfloat16)
@@ -3325,6 +3356,402 @@ def phase_v3_kernels(gen):
                   "masked rows within twice MASKED_ROW_GRAD_ATOL and the "
                   "roundings' gap of the f32 rule", flush=True)
     return worst, times
+
+
+# the frame-level path on the short kernels: Lp = 500 frames beside L = 40
+# tokens (the visual frame length of the unaligned CMU-MOSI / MOSEI data),
+# joint pass [2B, 540], which `auto` sends to the short kernels (S < 1024)
+FRAME_SHORT_LEN = 500
+FRAME_SHORT_WARMUP, FRAME_SHORT_STEPS = 1, 3
+FRAME_SHORT_REF_LAYERS = 4  # the plain-attention reference's depth
+# the bf16 short backwards above 128 keys: the shapes timed (parent and
+# tree alike, --short-times) and the edges held against the rounded rules
+TILED_TIMING_SHAPES = ((8, 130), (4, 512), (4, 768),
+                       (2 * FRAME_BATCH, TEXT_LEN + FRAME_SHORT_LEN))
+TILED_EDGE_SHAPES = ((4, 129), (4, 200), (2, 1023),
+                     (2 * FRAME_BATCH, TEXT_LEN + FRAME_SHORT_LEN))
+TILED_ENTRIES = ("short_attention_backward", "short_attention_v3_backward",
+                 "short_attention_probs_backward",
+                 "short_attention_packed_backward")
+
+
+def tiled_backward_bound(b, s, dtype, rule):
+    """(ms, what bounds it) of one short backward at [b, s, HIDDEN] by
+    ``rule`` (v2, v3, v2s, v2p): it reads q, k, v and dO once (v3, v2p also
+    o; v2s the [B, heads, S, S] probs instead of the bias) and writes dq,
+    dk, dv; the products are the scores (recomputed: p is not an input;
+    none for v2s), dP, dV, dQ and dK."""
+    import torch
+
+    it = torch.tensor([], dtype=dtype).element_size()
+    io = b * s * HIDDEN * it
+    flops = 2 * b * s * s * HIDDEN
+    dname = str(dtype).split(".")[1]
+    if rule == "v2s":
+        return bound_ms(7 * io + b * HEADS * s * s * it, 4 * flops, dname)
+    return bound_ms((8 if rule in ("v3", "v2p") else 7) * io + b * s * 4,
+                    5 * flops, dname)
+
+
+def time_short_backwards(with_plain=False):
+    """Device ms of the bf16 short backwards v2, v3, v2s and v2p (rows 3-6)
+    at TILED_TIMING_SHAPES, rate 0 and the training dropout, each from its
+    own forward's outputs (v2: the training forward's lse), with SDPA's
+    backward at rate 0 and the bound; ``with_plain``: also each plain rule
+    at rate 0.  It calls only entry points every tree of the port has had
+    since row 6's backward moved to the tensor cores, so ``--short-times
+    ROOT`` times another checkout's kernels by this code.  Prints and
+    returns {label: ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    times = {}
+    for b, s in TILED_TIMING_SHAPES:
+        q, k, v, dout = (torch.randn(b, s, HIDDEN, device="cuda",
+                                     generator=gen).to(torch.bfloat16)
+                         for _ in range(4))
+        bias = torch.zeros(b, s, device="cuda")
+        qkv = torch.cat([q, k, v], dim=-1)
+        shape = f"[{b},{s}]"
+        for rate in (0.0, quantize_dropout_rate(ATTN_DROPOUT)):
+            t = byte_threshold(rate)
+            out, lse = sa._forward_kernel(q, k, v, bias, HEADS, 7, t, True)
+            pout = sa._packed_forward_kernel(qkv, bias, HEADS, 7, t, False)[0]
+            _, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS, 7, rate)
+            runs = {
+                "v2": lambda: sa.short_attention_backward(
+                    q, k, v, bias, lse, dout, HEADS, 7, rate),
+                "v3": lambda: sa.short_attention_v3_backward(
+                    q, k, v, bias, out, dout, HEADS, 7, rate),
+                "v2s": lambda: sa.short_attention_probs_backward(
+                    q, k, v, probs, dout, HEADS, rate),
+                "v2p": lambda: sa.short_attention_packed_backward(
+                    qkv, bias, pout, dout, HEADS, 7, rate)}
+            for rule, fn in runs.items():
+                times[f"{rule} {shape} rate {rate:g}"] = cuda_ms(fn, iters=10)
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        sq, sk, sv, sm = sdpa_args(qq, kk, vv, bias)
+        lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+        lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+        times[f"sdpa bwd {shape}"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qq, kk, vv), lib_do, retain_graph=True), iters=10)
+        if with_plain:
+            out, _ = sa._forward_kernel(q, k, v, bias, HEADS, 7, 0, True)
+            _, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS, 7, 0.0)
+            plains = {
+                "v2": lambda: sa.short_attention_v1_backward_plain(
+                    q, k, v, bias, dout, HEADS),
+                "v3": lambda: sa.short_attention_v3_backward_plain(
+                    q, k, v, bias, out, dout, HEADS),
+                "v2s": lambda: sa.short_attention_probs_backward_plain(
+                    q, k, v, probs, dout, HEADS),
+                "v2p": lambda: sa.short_attention_packed_backward_plain(
+                    qkv, bias, dout, HEADS, out=out)}
+            for rule, fn in plains.items():
+                times[f"{rule} plain {shape}"] = cuda_ms(fn, iters=3)
+        del q, k, v, dout, qkv, qq, kk, vv, lib_out, probs
+        torch.cuda.empty_cache()
+    print(f"bf16 short backwards (v2, v3, v2s, v2p) at "
+          f"{[list(x) for x in TILED_TIMING_SHAPES]} x {HIDDEN} ({HEADS} "
+          f"heads), ms: {json.dumps(times)}", flush=True)
+    return times
+
+
+def frame_short_experiment(layers=None, attention_dropout=None, **train):
+    """bert-large (or ``layers`` of it) in frame-level mode at Lp =
+    FRAME_SHORT_LEN, B = FRAME_BATCH, bf16, bf16 Adam moments, the default
+    route and dropouts (``attention_dropout``: another attention-probs
+    rate; ``train``: more build_experiment arguments, e.g.
+    ``use_flash_attention``)."""
+    exp = frame_experiment(FRAME_SHORT_LEN, layers, train_batch_size=FRAME_BATCH,
+                           compute_dtype="bfloat16", warmup_proportion=0.01,
+                           adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                           data_parallel=1, **train)
+    if attention_dropout is None:
+        return exp
+    return dataclasses.replace(exp, model=dataclasses.replace(
+        exp.model, bert=dataclasses.replace(
+            exp.model.bert, attention_probs_dropout_prob=attention_dropout)))
+
+
+def frame_short_inputs(exp, seed=5):
+    """Weights from ``seed`` and two batches of a synthetic frame-level
+    split for ``exp``."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.models.weights import init_params
+
+    cfg = exp.model
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    split = synthetic_split(2 * FRAME_BATCH, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=8, pair_seq_length=FRAME_SHORT_LEN)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, FRAME_BATCH, drop_last=True))
+    return params, batches
+
+
+def frame_short_step_ms():
+    """ms/step of FRAME_SHORT_WARMUP + FRAME_SHORT_STEPS bf16 train steps of
+    bert-large at Lp = FRAME_SHORT_LEN (host clock around synchronised
+    steps) and the losses: entry points every tree of the port has, for
+    ``--short-times ROOT``."""
+    import torch
+
+    from msa_tpu_torch.training.trainer import Trainer
+
+    exp = frame_short_experiment()
+    params, batches = frame_short_inputs(exp)
+    trainer = Trainer(exp, "cuda")
+    state = trainer.init_state(0, total_steps=10_000, params=params)
+    losses = []
+    for i in range(FRAME_SHORT_WARMUP):
+        state, m = trainer.train_step(state, batches[i % len(batches)], 1)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = []
+    for i in range(FRAME_SHORT_WARMUP, FRAME_SHORT_WARMUP + FRAME_SHORT_STEPS):
+        state, m = trainer.train_step(state, batches[i % len(batches)], 1)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FRAME_SHORT_STEPS
+    losses += [float(m["loss"]) for m in metrics]
+    print(f"frame-level training bf16 bert-large B={FRAME_BATCH} L={TEXT_LEN} "
+          f"Lp={FRAME_SHORT_LEN} (joint pass [{2 * FRAME_BATCH},"
+          f"{TEXT_LEN + FRAME_SHORT_LEN}]): {ms:.2f} ms/step over "
+          f"{FRAME_SHORT_STEPS} steps after {FRAME_SHORT_WARMUP}; losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    return ms, losses
+
+
+def time_short_path():
+    """``--short-times ROOT``: the short backwards (:func:`time_short_backwards`)
+    and the Lp = 500 frame step (:func:`frame_short_step_ms`) of the tree
+    on sys.path, whose kernels build into its own build/."""
+    from msa_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    seconds = {}
+    _build.build_all(seconds=seconds)
+    print(f"kernel build {time.perf_counter() - t0:.1f} s (nvcc s "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} })", flush=True)
+    times = time_short_backwards()
+    times["frame step Lp=500"] = frame_short_step_ms()[0]
+    return times
+
+
+def check_v2_backward(tag, q, k, v, bias, live, dout, seed, rate, keep):
+    """The v2 backward through autograd of ``short_attention`` (its forward
+    form and the tensors its route keeps), held by
+    :func:`check_rounded_backward` against JAX's ``_bwd_kernel_v2`` rule
+    (given the exported keep mask) and against autograd through the plain
+    version in f32.  Returns (max abs err, against autograd)."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    grads = torch.autograd.grad(
+        sa.short_attention(qq, kk, vv, bias, HEADS, rate, seed), (qq, kk, vv),
+        dout)
+    wide = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(sa.short_attention_plain(
+        *wide, bias, HEADS, rate, keep), wide, dout.float())
+    rule = sa.short_attention_v1_backward_plain(q, k, v, bias, dout, HEADS,
+                                                rate, keep)
+    rule32 = sa.short_attention_v1_backward_plain(
+        *wide, bias, dout.float(), HEADS, rate, keep)
+    torch.cuda.synchronize()
+    return check_rounded_backward(tag, grads, rule, rule32, auto, live,
+                                  *GRAD_TOL[str(q.dtype).split(".")[1]])
+
+
+def phase_tiled_backward():
+    """The bf16 short backwards above 128 keys (the tiled tensor-core pair
+    of csrc/short_bwd_tiled.cuh) at TILED_EDGE_SHAPES -- S = 129 (one key
+    past the whole-row kernel), 200 (a ragged last tile), 1023 (the last S
+    of the short route) and the frame-level joint shape [32, 540] -- each
+    with a fully masked batch row, at rate 0 and the training dropout, from
+    a generator of its own: v2 through autograd (:func:`check_v2_backward`),
+    v3 (:func:`check_v3_backward`: also its lse against the forward's and
+    against v2), v2s from its own forward's probs
+    (:func:`check_probs_forward`, :func:`check_probs_backward`) and v2p
+    (:func:`check_packed`: bit-equal to v3 on the thirds), each against its
+    rounded rule at GRAD_TOL.  Every backward launch of the phase must be on
+    the tiled route.  Returns {rule: worst error}."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst = dict.fromkeys(("v2", "v3", "v2s", "v2p"), 0.0)
+    reset_counts()
+    t0 = time.perf_counter()
+    for b, s in TILED_EDGE_SHAPES:
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(gen, b, s, torch.bfloat16)
+            dout = torch.randn(b, s, HIDDEN, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+            seed = 2718 + s
+            keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                    if rate else None)
+            tag = f"[{b},{s},{HIDDEN}] bfloat16 rate {rate:g}"
+            e2, a2 = check_v2_backward(f"short_attention_backward {tag}", q, k,
+                                       v, bias, live, dout, seed, rate, keep)
+            e3, v2_err, lse_err, *_ = check_v3_backward(
+                f"short_attention_v3_backward {tag}", q, k, v, bias, live,
+                dout, seed, rate)
+            _, probs, _, ferr, _ = check_probs_forward(tag, q, k, v, bias, live,
+                                                       seed, rate, keep)
+            es, as_ = check_probs_backward(tag, q, k, v, bias, live, probs,
+                                           dout, rate, keep)
+            _, _, _, ep, ap = check_packed(tag, q, k, v, bias, live, dout,
+                                           seed, rate, keep)
+            for rule, e in (("v2", e2), ("v3", e3), ("v2s", es), ("v2p", ep)):
+                worst[rule] = max(worst[rule], e)
+            print(f"tiled backwards {tag}: against the rounded rules v2 "
+                  f"{e2:.3e}, v3 {e3:.3e}, v2s {es:.3e}, v2p {ep:.3e} (GRAD_TOL "
+                  f"{GRAD_TOL['bfloat16']}); against f32 autograd v2 {a2:.3e}, "
+                  f"v2s {as_:.3e}, v2p {ap:.3e} (twice GRAD_TOL plus the "
+                  f"roundings' gap); v3 against v2 {v2_err:.3e}, its lse "
+                  f"{lse_err:.3e} from the forward's; v2p bit-equal to v3 on "
+                  f"the thirds; masked rows within {MASKED_ROW_GRAD_ATOL}",
+                  flush=True)
+    counts = {name: (fn.launches, fn.tiled.launches)
+              for name, fn in kernel_counters().items()
+              if name in TILED_ENTRIES}
+    if not all(n and n == tiled for n, tiled in counts.values()):
+        raise AssertionError(f"tiled backwards: launches (all, tiled) {counts}")
+    print(f"tiled backwards: every launch on the tiled route {counts}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return worst
+
+
+def tiled_counts(counts, steps):
+    """Launches a step of each bf16 backward entry by route: the tiled
+    pair's (two a call) and the whole-row kernel's (one a call)."""
+    out = {}
+    for name in TILED_ENTRIES:
+        n, tiled = counts[name] // steps, counts[name + "_tiled"] // steps
+        if n:
+            out[name] = (f"{tiled} tiled ({tiled // 2} calls of the pair) + "
+                         f"{n - tiled} whole-row")
+    return out
+
+
+def phase_frame_short():
+    """bert-large at full width and depth in frame-level mode with Lp =
+    FRAME_SHORT_LEN (B = FRAME_BATCH, L = TEXT_LEN: joint pass [32, 540] on
+    the short kernels), bf16, the default route and dropouts:
+    FRAME_SHORT_WARMUP + FRAME_SHORT_STEPS train steps (ms/step,
+    samples/s, peak, launches a step by route: 24 tiled v2 pairs from the
+    joint pass, 24 whole-row launches from the text pass); then one timed
+    step each of the other backwards on the same path, from the same
+    weights, batches and seeds -- '+probs' (v2s), 'save_pack' (v2p) and
+    ``USE_V3_BWD`` (v3) -- with their launches and losses against the
+    default run's (REMAT_LOSS_RTOL); then FRAME_SHORT_REF_LAYERS layers at
+    attention dropout 0, the kernel route against the plain attention
+    (``use_flash_attention="never"``), 1 + 2 steps each, the losses within
+    REMAT_LOSS_RTOL.  Returns {run: train_run's result}."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    layers = 24
+    exp = frame_short_experiment()
+    params, batches = frame_short_inputs(exp)
+    seq = TEXT_LEN + FRAME_SHORT_LEN
+    runs = {}
+    steps = FRAME_SHORT_STEPS
+    r = runs["v2"] = train_run(exp, params, batches, FRAME_SHORT_WARMUP,
+                               steps, "frame_short v2")
+    # per layer: the text pass's whole-row launch, the joint pass's pair
+    want = expect_counts(short_attention=2 * layers * steps,
+                         short_attention_backward=3 * layers * steps,
+                         short_attention_backward_tiled=2 * layers * steps,
+                         fused_joint_embed=2 * steps)
+    if r["remat_policy"] != "none" or r["launches"] != want:
+        raise AssertionError(f"frame_short: remat {r['remat_policy']}, "
+                             f"launches {r['launches']}, want {want}")
+    print(f"frame-level training bf16 bert-large ({layers} layers) "
+          f"B={FRAME_BATCH} L={TEXT_LEN} Lp={FRAME_SHORT_LEN} (joint pass "
+          f"[{2 * FRAME_BATCH},{seq}] on the short kernels, attention dropout "
+          f"on): {r['ms_step']:.2f} ms/step over {steps} steps after "
+          f"{FRAME_SHORT_WARMUP}, {FRAME_BATCH * 1e3 / r['ms_step']:.2f} "
+          f"samples/s, peak {r['peak_bytes'] / 2**30:.2f} GiB; launches per "
+          f"step {r['per_step']}; backward launches a step by entry "
+          f"{tiled_counts(r['launches'], steps)}; losses "
+          f"{[round(x, 5) for x in r['losses']]}", flush=True)
+
+    variants = (("v2s", "save_attn+drop+probs", False, "short_attention_probs",
+                 "short_attention_probs_backward"),
+                ("v2p", "save_pack", False, "short_attention_packed",
+                 "short_attention_packed_backward"),
+                ("v3", "none", True, "short_attention",
+                 "short_attention_v3_backward"))
+    try:
+        for rule, rung, v3, fwd, bwd in variants:
+            sa.USE_V3_BWD = v3
+            r = runs[rule] = train_run(with_rung(exp, rung), params, batches,
+                                       FRAME_SHORT_WARMUP, 1,
+                                       f"frame_short {rule}")
+            sa.USE_V3_BWD = False
+            want = expect_counts(**{fwd: 2 * layers, bwd: 3 * layers,
+                                    bwd + "_tiled": 2 * layers,
+                                    "fused_joint_embed": 2})
+            drift = max(abs(a - b) / abs(b) for a, b in zip(
+                r["losses"], runs["v2"]["losses"]))
+            if r["remat_policy"] != rung or r["launches"] != want or \
+                    drift > REMAT_LOSS_RTOL:
+                raise AssertionError(
+                    f"frame_short {rule}: remat {r['remat_policy']}, launches "
+                    f"{r['launches']}, want {want}; losses {r['losses']} "
+                    f"against v2's {runs['v2']['losses']}")
+            print(f"frame-level training Lp={FRAME_SHORT_LEN} with the {rule} "
+                  f"backward (remat {rung}{', USE_V3_BWD' if v3 else ''}): "
+                  f"{r['ms_step']:.2f} ms/step (1 step), peak "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB; backward launches a "
+                  f"step {tiled_counts(r['launches'], 1)}; losses "
+                  f"{[round(x, 5) for x in r['losses']]} (max rel {drift:.2e} "
+                  f"against v2's, bound {REMAT_LOSS_RTOL})", flush=True)
+    finally:
+        sa.USE_V3_BWD = False
+
+    # the plain-attention reference, depth cut, attention dropout 0 on both
+    ref = {}
+    for route in ("auto", "never"):
+        cut = frame_short_experiment(FRAME_SHORT_REF_LAYERS,
+                                     attention_dropout=0.0,
+                                     use_flash_attention=route)
+        ref[route] = runs[f"ref_{route}"] = train_run(
+            cut, cut_depth(params, FRAME_SHORT_REF_LAYERS), batches, 1, 2,
+            f"frame_short reference {route}")
+    got, base = ref["auto"], ref["never"]
+    tiled = got["launches"]["short_attention_backward_tiled"]
+    drift = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   base["losses"]))
+    attention = [n for n in base["launches"] if n.startswith("short_")]
+    if tiled != 2 * FRAME_SHORT_REF_LAYERS * 2 or drift > REMAT_LOSS_RTOL or \
+            any(base["launches"][n] for n in attention):
+        raise AssertionError(f"frame_short reference: losses {got['losses']} "
+                             f"against the plain attention's {base['losses']}, "
+                             f"tiled launches {tiled}, plain run's "
+                             f"{base['launches']}")
+    print(f"frame-level training Lp={FRAME_SHORT_LEN}, {FRAME_SHORT_REF_LAYERS} "
+          f"layers, attention dropout 0: kernels {got['ms_step']:.2f} ms/step, "
+          f"losses {[round(x, 5) for x in got['losses']]} against the plain "
+          f"attention's {base['ms_step']:.2f} ms/step, "
+          f"{[round(x, 5) for x in base['losses']]} (max rel {drift:.2e}, "
+          f"bound {REMAT_LOSS_RTOL})", flush=True)
+    return runs
 
 
 def split_heads(x):
@@ -3586,8 +4013,9 @@ def phase_short_v1(gen):
                         f"{tag} {name} against v2", g, g2, gatol, grtol, gap,
                         live))
                 inputs = 3 * q.numel() * q.element_size() + bias.numel() * 4
-                v2_inputs = inputs + (0 if sa.tensor_core_backward(s, dtype)
-                                      else b * HEADS * s * 4)
+                v2_inputs = inputs + (
+                    0 if sa.backward_route(s, dtype) == sa.WHOLE_ROW
+                    else b * HEADS * s * 4)
                 if kept != inputs or v2_kept != v2_inputs:
                     raise AssertionError(f"{tag}: keeps {kept} bytes for the "
                                          f"backward (its inputs: {inputs}; v2 "
@@ -4059,13 +4487,26 @@ TC_SOURCES = ("short_attention", "short_attention_v1")
 TC_NO_SPILL_TILES = 5
 TC_KERNEL = re.compile(
     r"(short_fwd_tc_kernel|short_bwd_tc_kernel|short_attention_fwd_tc_long_kernel|"
-    r"short_attention_probs_fwd_tc(?:_long)?_kernel)I((?:L[ib]\d+E)+)E")
+    r"short_attention_probs_fwd_tc(?:_long)?_kernel|short_bwd_dq_kernel|"
+    r"short_bwd_dkv_kernel)I((?:L[ib]\d+E)+)E")
+# the tiled backward pair (csrc/short_bwd_tiled.cuh): none may spill
+TILED_KERNELS = ("short_bwd_dq_kernel", "short_bwd_dkv_kernel")
 
 
 def tc_dynamic_smem(kernel):
     args = [int(a) for a in re.findall(r"L[ib](\d+)E", TC_KERNEL.search(
         kernel).group(2))]
     row = 2 * (args[0] + 8)  # bytes of a staged head row at head dim args[0]
+    name = TC_KERNEL.search(kernel).group(1)
+    if name in TILED_KERNELS:  # <head dim, dropout, rule>: 64-row tiles
+        # swizzled wgmma tiles of 2 kD bytes a row after a 1024-byte
+        # alignment; v2s: a ring of probs tiles (72 values a row) for one
+        probs = args[2] == 2
+        # f32 rows of 64 in the ring: the bias (dq), lse and delta (dk/dv)
+        stats = ((0 if probs else 2) if name == "short_bwd_dq_kernel"
+                 else (2 if probs else 4))
+        return (1024 + (5 if probs else 6) * 64 * 2 * args[0]
+                + probs * 2 * 64 * 72 * 2 + stats * 64 * 4)
     if "tc_long" in kernel:
         q_rows = 2 * 128 if "probs" in kernel else 128
         return (q_rows + 4 * 64) * row + 2 * 64 * 4
@@ -4081,12 +4522,14 @@ def report_tc_resources(usage):
     tiles, dropout, training form> (kernel<head dim, dropout[, training
     form]> for the two-sweep forms; v2s's kernel<head dim, 16-key tiles,
     dropout>; the backward kernel<head dim, 16-key tiles, dropout, rule:
-    0 recompute, 1 from o, 2 from the probs>), and fail if a whole-row
-    forward or backward of at most TC_NO_SPILL_TILES tiles spills or has a
-    stack frame."""
+    0 recompute, 1 from o, 2 from the probs>; the tiled pair above 128 keys
+    kernel<head dim, dropout, rule>), and fail if a whole-row forward or
+    backward of at most TC_NO_SPILL_TILES tiles, or any kernel of the tiled
+    pair, spills or has a stack frame, or if ptxas serialised a tiled
+    kernel's wgmma products."""
     tc = [u for u in usage if TC_KERNEL.search(u["kernel"])]
     for name in ("short_fwd_tc_kernel", "short_bwd_tc_kernel",
-                 "short_attention_fwd_tc_long_kernel"):
+                 "short_attention_fwd_tc_long_kernel") + TILED_KERNELS:
         if not any(name in u["kernel"] for u in tc):
             raise AssertionError(f"ptxas reported no {name}")
     for u in tc:
@@ -4097,9 +4540,13 @@ def report_tc_resources(usage):
               f"{u['static_smem']} B static + {tc_dynamic_smem(u['kernel'])} B "
               f"dynamic smem, stack {u['stack']} B, spill stores "
               f"{u['spill_stores']} B, loads {u['spill_loads']} B", flush=True)
-        if (m.group(1) in ("short_fwd_tc_kernel", "short_bwd_tc_kernel")
-                and int(args[1]) <= TC_NO_SPILL_TILES
-                and (u["stack"] or u["spill_stores"] or u["spill_loads"])):
+        checked = (m.group(1) in TILED_KERNELS or (
+            m.group(1) in ("short_fwd_tc_kernel", "short_bwd_tc_kernel")
+            and int(args[1]) <= TC_NO_SPILL_TILES))
+        if m.group(1) in TILED_KERNELS and u["serialized"]:
+            raise AssertionError(f"ptxas serialised the wgmma products of "
+                                 f"{name}: {u['serialized']}")
+        if checked and (u["stack"] or u["spill_stores"] or u["spill_loads"]):
             raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
                                  "keeps a stack frame")
 
@@ -4673,9 +5120,10 @@ def main() -> int:
     import torch
 
     worker = sys.argv[1:2] in (["--cli-worker"], ["--predict-worker"])
-    if not worker and (len(sys.argv) not in (1, 3) or
-                       sys.argv[1:2] not in ([], ["--flash-times"])):
-        print("usage: chip_smoke.py [--flash-times ROOT]", file=sys.stderr)
+    if not worker and (len(sys.argv) not in (1, 3) or sys.argv[1:2] not in (
+            [], ["--flash-times"], ["--short-times"])):
+        print("usage: chip_smoke.py [--flash-times ROOT | --short-times ROOT]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4684,9 +5132,12 @@ def main() -> int:
         return cli_worker(sys.argv[2], sys.argv[3], sys.argv[5:])
     if sys.argv[1:2] == ["--predict-worker"]:  # --predict-worker OUT RANK PORT
         return predict_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
-    if len(sys.argv) == 3:  # the flash backwards of the tree at ROOT only
+    if len(sys.argv) == 3:  # timings of the tree at ROOT only
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        time_flash_backwards()
+        if sys.argv[1] == "--flash-times":
+            time_flash_backwards()
+        else:
+            time_short_path()
         return 0
     from msa_tpu_torch import _build
     from msa_tpu_torch.configs import build_experiment
@@ -4726,6 +5177,8 @@ def main() -> int:
     pp_err, pp_times = phase_probs_packed(gen)
     adamw_err, adamw_times = phase_fused_adamw(gen)
     v3_err, v3_times = phase_v3_kernels(gen)
+    tiled_err = phase_tiled_backward()
+    tiled_times = time_short_backwards(with_plain=True)
     fa_err, fa_times = phase_flash_attention(gen)
     v1_err, v1_times = phase_short_v1(gen)
     phase_wgmma_flash()
@@ -4756,6 +5209,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     long_launches, _ = phase_frame_training(
         LONG_PAIR_LEN, LONG_BATCH, LONG_LAYERS, 1, 1, "long-S")
+    torch.cuda.empty_cache()
+    frame_short = phase_frame_short()
     torch.cuda.empty_cache()
     rungs = phase_remat_rungs()
     pr6_inputs = train_inputs(3)
@@ -4800,12 +5255,30 @@ def main() -> int:
                 "fuse_text_pass_serving": fuse["serving"][name],
                 "dp_training_rank0": dp["training"][name],
                 "dp_tiny_training_rank0": dp["tiny_training"][name],
-                "dp_serving_rank0": dp["serving"][name]}
+                "dp_serving_rank0": dp["serving"][name],
+                **{f"frame_short_{rule}": r["launches"][name]
+                   for rule, r in frame_short.items()}}
 
     def rung(policy, name):  # launches per step under that rung
         return rungs[policy]["per_step"].get(name, 0)
 
     joint = ("joint", "bfloat16")
+    frame_shape = "[{},{}]".format(*TILED_TIMING_SHAPES[-1])
+
+    def tiled_entry(name, rule, replaces):
+        """The tiled pair of ``name`` (rule ``rule``) at the frame-level
+        joint shape, rate 0; its launches from the Lp = 500 run of it."""
+        b, s = TILED_TIMING_SHAPES[-1]
+        timing = (tiled_times[f"{rule} {frame_shape} rate 0"],
+                  tiled_times[f"{rule} plain {frame_shape}"],
+                  tiled_times[f"sdpa bwd {frame_shape}"],
+                  tiled_backward_bound(b, s, torch.bfloat16, rule))
+        return kernel_entry(
+            f"{name}_tiled", "msa_tpu_torch/csrc/short_bwd_tiled.cuh",
+            f"msa_tpu/ops/short_attention.py:{replaces}",
+            frame_short[rule]["launches"][f"{name}_tiled"], tiled_err[rule],
+            timing, paths(f"{name}_tiled"))
+
     kernels = [
         kernel_entry("short_attention", "msa_tpu_torch/csrc/short_fwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:303",
@@ -4910,6 +5383,10 @@ def main() -> int:
                      train_launches["short_attention_v1_backward"],
                      v1_err["bwd"], v1_times[("bwd",) + joint],
                      paths("short_attention_v1_backward")),
+        tiled_entry("short_attention_backward", "v2", 336),
+        tiled_entry("short_attention_v3_backward", "v3", 392),
+        tiled_entry("short_attention_probs_backward", "v2s", 895),
+        tiled_entry("short_attention_packed_backward", "v2p", 505),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

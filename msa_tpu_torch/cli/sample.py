@@ -5,11 +5,16 @@ MISA report.
 
     python -m msa_tpu_torch.cli.sample --checkpoint model_save/20260816-00 \
         --data_pkl cmu_mosi.pkl --vocab vocab.txt [--device cpu]
+
+It takes JAX's ``--dp`` (the data-parallel size the eval step runs at, -1:
+every rank of the launch) and ``--mp`` (the model-parallel size: 1, as in
+``cli.train``, until tensor parallelism is ported).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import pickle
 import sys
 
@@ -19,6 +24,7 @@ from ..data.wordpiece import Tokenizer
 from ..metrics.scores import misa_report, test_ce_score, test_mse_score
 from ..training.checkpoint import load_checkpoint, load_config, resolve_checkpoint
 from ..training.trainer import Trainer
+from .train import check_single_device
 
 
 def main(argv=None):
@@ -33,9 +39,14 @@ def main(argv=None):
     p.add_argument("--vocab", type=str, default=None)
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--dp", type=int, default=-1,
+                   help="data-parallel size (-1: every rank of the launch)")
+    p.add_argument("--mp", type=int, default=1,
+                   help="model-parallel size (the port takes 1)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
+    check_single_device(args)
 
     try:
         ckpt = resolve_checkpoint(args.checkpoint, args.model_num)
@@ -44,6 +55,8 @@ def main(argv=None):
     exp = load_config(ckpt)
     if exp is None:
         sys.exit(f"no config.json found in {ckpt}")
+    exp = dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, data_parallel=args.dp, model_parallel=args.mp))
 
     vdim, sdim = exp.model.visual_dim, exp.model.speech_dim
     lp = exp.data.pair_seq_length
@@ -62,6 +75,7 @@ def main(argv=None):
     else:
         n = args.synthetic or 64
         fs = synthetic_split(n, exp.data.max_seq_length, vdim, sdim,
+                             vocab_size=exp.model.bert.vocab_size,
                              num_labels=exp.data.num_labels, seed=2,
                              pair_seq_length=lp)
     test_ds = MultimodalDataset(fs, seed=0)

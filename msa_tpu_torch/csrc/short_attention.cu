@@ -36,7 +36,7 @@
 //     the two-sweep form below v2s's (the same ring without the probs).
 //     Both round the dropped p to bf16 before P V as _fwd_kernel_v2 does.
 //     The training form also writes the row's log2-sum-exp (lse), which
-//     only the CUDA-core v2 backward pair reads.
+//     the v2 backward pairs read (bf16 above 128 keys, and f32).
 //   * forward, f32: on the CUDA cores (on the tensor cores f32 would be
 //     TF32, three decimal digits).  One CTA per (query tile, head, batch
 //     row); a query tile holds up to 128 rows, so S <= 128 is one tile and
@@ -44,29 +44,27 @@
 //     the d head dims in registers.  K and V are staged in shared memory
 //     as f32, 64 keys per tile, under an online softmax that takes 16 keys
 //     per update; the training form also writes the lse.
-//   * backward, bf16 at S <= 128 (v2, v2p, v3 and v2s): one launch on the
-//     tensor cores, the template short_bwd_tc.cuh shares with v1's
-//     backward, which recomputes each row's max and sum from q and k; v2
-//     takes v1's rule, v2p and v3 take delta from the ctx, v2s reads p
-//     from its stashed probs.  Nothing of the forward but (for v2p and v3)
-//     its ctx or (v2s) its probs is read.
-//   * backward, f32 and bf16 above 128 keys: a pair of launches in the
+//   * backward, bf16 (v2, v2p, v3 and v2s), on the tensor cores: at S <=
+//     128 one launch of the template short_bwd_tc.cuh shares with v1's
+//     backward, which recomputes each row's max and sum from q and k;
+//     above, the dq and dk/dv pair of short_bwd_tiled.cuh over 64-row
+//     tiles (v2 reads the training forward's lse there).  v2 takes v1's
+//     rule, v2p and v3 take delta from the ctx, v2s reads p from its
+//     stashed probs.  Both round dS and the dropped p to bf16 before their
+//     products, as the TPU kernels' .astype does.
+//   * backward, f32: a pair of launches on the CUDA cores in the
 //     flash-attention-2 manner (no [S, S] tensor, any S):
 //       - dq: the forward's layout.  Each query row recomputes its scores,
 //         p = exp2(s - lse) and dp = dO.v.  v2: the lse is the training
 //         forward's, delta = sum_j p_ij * dpm_ij (dropout included:
-//         _bwd_kernel_v2's rule), in f32 summed in the same pass as dq =
-//         sum_j p dpm k_j - delta * sum_j p k_j, in bf16 in a first sweep
-//         (dS is rounded, so delta must come first).  v2p and v3: delta =
-//         dO . o from the ctx, the lse recomputed (one more pass over K).
-//         It writes delta (and v3's lse) for the second launch.
+//         _bwd_kernel_v2's rule), summed in the same pass as dq = sum_j p
+//         dpm k_j - delta * sum_j p k_j.  v2p and v3: delta = dO . o from
+//         the ctx, the lse recomputed (one more pass over K).  It writes
+//         delta (and v3's lse) for the second launch.
 //       - dk/dv: one CTA per (key tile, head, batch row), two threads per
 //         key row holding k, v and the dk/dv accumulators; query tiles of 64
 //         rows (q pre-scaled, dO, lse, delta) are staged in shared memory.
-//     The pair runs its dot products on the CUDA cores in f32.
-//   * every backward (v2, v2p, v2s and v3; the tensor cores and the CUDA
-//     cores) rounds dS and the dropped p to the storage type before their
-//     products, as the TPU kernels' .astype does (nothing changes in f32).
+//     f32 is the parity dtype (on the tensor cores it would be TF32).
 //
 // Dropout: the rule of dropout.cuh (Philox4x32-10 of the seed and the
 // element's index), so the forward, both backward launches, the export
@@ -84,6 +82,7 @@
 #include "dropout.cuh"
 #include "mma_tiles.cuh"
 #include "short_bwd_tc.cuh"
+#include "short_bwd_tiled.cuh"
 #include "short_fwd_tc.cuh"
 
 namespace {
@@ -105,44 +104,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kKeyTile % kKeyChunk == 0, "chunks must tile the key tile");
 static_assert(kKeyChunk == kGroup, "one Philox draw per key chunk");
 
-// x rounded to the storage type T and widened back (the TPU kernels'
-// .astype before a product).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (sizeof(T) == 2) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-// 16-byte vector loads/stores between global memory (storage type) and f32.
+// 16-byte vector loads/stores between global memory and f32 (every
+// CUDA-core kernel here is f32; bf16 runs on the tensor cores).
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 x = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store16(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
-}
-
-__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
-  uint4 x;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = x;
 }
 
 // Per-thread layout shared by every CUDA-core kernel, head dim kD: the two
@@ -415,29 +385,29 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward 1/2: dq (and delta for the dk/dv launch)
 // ---------------------------------------------------------------------------
 
-// q, k, v and dq have row stride `stride` (H, or 3H in the packed layout,
-// where dq, dk and dv are the thirds of one [B, S, 3H] gradient); o and
-// dout are [B, S, H].  v2 (kV3 false, the TPU kernel _bwd_kernel_v2): lse
-// is the training forward's row lse, read, o is not read, and delta =
-// sum_j p_j * dpm_j (:375).  In f32, where rounding dS changes nothing,
-// delta is summed in the same pass as dq = scale * (sum_j p_j dpm_j k_j -
-// delta * sum_j p_j k_j); in bf16 dS = p (dpm - delta) is rounded before
-// dS K (:378), so a first sweep sums delta and a second forms dq.  v3 (the
-// TPU kernels _bwd_kernel_v3 and _bwd_kernel_v2p): o is the ctx in the
-// storage type T, delta = dO . o, and the kernel recomputes each row's lse
-// from the scores (row_lse_sweep, one more pass over K) and writes it to
-// `lse` for the dk/dv launch; the forward keeps nothing but its ctx.
-template <typename T, int kD, bool kDropout, bool kV3>
+// f32 only.  q, k, v and dq have row stride `stride` (H, or 3H in the
+// packed layout, where dq, dk and dv are the thirds of one [B, S, 3H]
+// gradient); o and dout are [B, S, H].  v2 (kV3 false, the TPU kernel
+// _bwd_kernel_v2): lse is the training forward's row lse, read, o is not
+// read, and delta = sum_j p_j * dpm_j (:375), summed in the same pass as
+// dq = scale * (sum_j p_j dpm_j k_j - delta * sum_j p_j k_j) (rounding dS
+// changes nothing in f32).  v3 (the TPU kernels _bwd_kernel_v3 and
+// _bwd_kernel_v2p): o is the ctx, delta = dO . o, and the kernel
+// recomputes each row's lse from the scores (row_lse_sweep, one more pass
+// over K) and writes it to `lse` for the dk/dv launch; the forward keeps
+// nothing but its ctx.
+template <int kD, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v,
+short_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v,
                               const float* __restrict__ key_bias,
-                              const void* __restrict__ o,
-                              const T* __restrict__ dout,
+                              const float* __restrict__ o,
+                              const float* __restrict__ dout,
                               float* __restrict__ lse,
-                              float* __restrict__ delta_out, T* __restrict__ dq,
+                              float* __restrict__ delta_out, float* __restrict__ dq,
                               int seq, int hidden, int stride, int rows_per_cta,
                               float score_mult, float scale, Dropout drop) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float k_s[kKeyTile * kD];
   __shared__ __align__(16) float v_s[kKeyTile * kD];
@@ -454,11 +424,9 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          (size_t)row * hidden;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
-  // v2 in f32: one pass, dq from sum_j p_j dpm_j k_j and sum_j p_j k_j
-  constexpr bool kOnePass = !kV3 && sizeof(T) == 4;
-  constexpr int kSweeps = (kV3 || kOnePass) ? 1 : 2;
+  // v2: one pass, dq from sum_j p_j dpm_j k_j and sum_j p_j k_j
   float qr[L::kPart], dor[L::kPart], acc[L::kPart];
-  float pk[kOnePass ? L::kPart : 1];  // sum_j p_j k_j
+  float pk[kV3 ? 1 : L::kPart];  // sum_j p_j k_j
   load_half<T, kD>(q + in_off, half, active, score_mult, qr);
   load_half<T, kD>(dout + row_off, half, active, 1.f, dor);
   float delta = 0.f;
@@ -466,7 +434,7 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float row_lse;
   if constexpr (kV3) {
     // delta = dO . o over the full head row; acc holds o for a moment.
-    load_half<T, kD>(static_cast<const T*>(o) + row_off, half, active, 1.f, acc);
+    load_half<T, kD>(o + row_off, half, active, 1.f, acc);
 #pragma unroll
     for (int i = 0; i < L::kPart; ++i) delta = fmaf(dor[i], acc[i], delta);
     delta += __shfl_xor_sync(0xffffffffu, delta, 1);
@@ -475,53 +443,48 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (active && half == 0) lse[prob_row] = row_lse;
   } else {
 #pragma unroll
-    for (int i = 0; i < (kOnePass ? L::kPart : 1); ++i) pk[i] = 0.f;
+    for (int i = 0; i < L::kPart; ++i) pk[i] = 0.f;
     row_lse = active ? lse[prob_row] : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
 
-  for (int sweep = 0; sweep < kSweeps; ++sweep) {
-    for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-      const int kn = min(kKeyTile, seq - k0);
-      __syncthreads();
-      stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
-      for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-        bias_s[j] = bias_row[k0 + j] * kLog2e;
-      }
-      __syncthreads();
+  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
+    const int kn = min(kKeyTile, seq - k0);
+    __syncthreads();
+    stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+      bias_s[j] = bias_row[k0 + j] * kLog2e;
+    }
+    __syncthreads();
 
-      for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
-        uint32_t keep = 0xFFFFu;
-        if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
+    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+      uint32_t keep = 0xFFFFu;
+      if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
 #pragma unroll 4
-        for (int jj = 0; jj < kKeyChunk; ++jj) {
-          const int j = j0 + jj;
-          if (j >= kn) break;  // uniform across the CTA
-          float s = dot_half<T, kD>(qr, &k_s[j * kD], half);
-          float dp = dot_half<T, kD>(dor, &v_s[j * kD], half);
-          s += __shfl_xor_sync(0xffffffffu, s, 1);
-          dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-          const float p = exp2f(s + bias_s[j] - row_lse);
-          float dpm = dp;
-          if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
-          if constexpr (kOnePass) {
-            const float pdpm = p * dpm;
-            delta += pdpm;
-            axpy_half<T, kD>(acc, pdpm, &k_s[j * kD], half);
-            axpy_half<T, kD>(pk, p, &k_s[j * kD], half);
-          } else if (kV3 || sweep == 1) {
-            // dS rounded as the TPU kernels round it
-            axpy_half<T, kD>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kD], half);
-          } else {
-            delta += p * dpm;
-          }
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        const int j = j0 + jj;
+        if (j >= kn) break;  // uniform across the CTA
+        float s = dot_half<T, kD>(qr, &k_s[j * kD], half);
+        float dp = dot_half<T, kD>(dor, &v_s[j * kD], half);
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+        const float p = exp2f(s + bias_s[j] - row_lse);
+        float dpm = dp;
+        if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
+        if constexpr (kV3) {
+          axpy_half<T, kD>(acc, p * (dpm - delta), &k_s[j * kD], half);
+        } else {
+          const float pdpm = p * dpm;
+          delta += pdpm;
+          axpy_half<T, kD>(acc, pdpm, &k_s[j * kD], half);
+          axpy_half<T, kD>(pk, p, &k_s[j * kD], half);
         }
       }
     }
   }
 
-  if constexpr (kOnePass) {
+  if constexpr (!kV3) {
 #pragma unroll
     for (int i = 0; i < L::kPart; ++i) acc[i] = fmaf(-delta, pk[i], acc[i]);
   }
@@ -535,20 +498,19 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward 2/2: dk and dv
 // ---------------------------------------------------------------------------
 
-// dS and the dropped p rounded to T before their products, as the TPU
-// kernels round them (nothing changes in f32); lse and delta are the dq
-// launch's (v2: the forward's lse).
-template <typename T, int kD, bool kDropout>
+// f32 only; lse and delta are the dq launch's (v2: the forward's lse).
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v,
+short_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v,
                                const float* __restrict__ key_bias,
-                               const T* __restrict__ dout,
+                               const float* __restrict__ dout,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
-                               T* __restrict__ dk, T* __restrict__ dv,
+                               float* __restrict__ dk, float* __restrict__ dv,
                                int seq, int hidden, int stride, int rows_per_cta,
                                float score_mult, float dk_mult, Dropout drop) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float q_s[kQueryTile * kD];   // q * score_mult
   __shared__ __align__(16) float do_s[kQueryTile * kD];
@@ -610,8 +572,8 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = kept ? p * drop.scale : 0.f;
         dpm = kept ? dp * drop.scale : 0.f;
       }
-      axpy_half<T, kD>(dv_acc, round_to<T>(pd), &do_s[i * kD], half);
-      axpy_half<T, kD>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kD], half);
+      axpy_half<T, kD>(dv_acc, pd, &do_s[i * kD], half);
+      axpy_half<T, kD>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kD], half);
     }
   }
 
@@ -661,9 +623,6 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // recompute (a quarter of its products) and the Philox draws.  The dk/dv
 // launch stages a [32 queries, <= 128 keys] block of the probs in shared
 // memory, read row by row (coalesced) and used column-wise.
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // Store 8 consecutive values (16-byte aligned) in the storage type.
 template <typename T>
@@ -1125,20 +1084,21 @@ short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __res
   tc::store_tile<kD>(acc, q_s + warp * 16 * tc::kStride<kD>, out + out0, hidden, seq - w0);
 }
 
-// dq from the stashed probs: one CTA per (query tile, head, batch row), two
-// threads per query row.  Sweep 1 over the keys sums delta = sum_j p * dpm
-// (dp = dO . v_j, dpm its dropout-masked, rescaled value); sweep 2 forms
-// ds = p * (dpm - delta), rounds it to T as _bwd_kernel_v2s does (:931),
-// and accumulates dq = scale * sum_j ds k_j.  delta goes to scratch for the
-// dk/dv launch.  No score, softmax or Philox draw.
-template <typename T, int kD, bool kDropout>
+// f32: dq from the stashed probs, one CTA per (query tile, head, batch
+// row), two threads per query row.  Sweep 1 over the keys sums delta =
+// sum_j p * dpm (dp = dO . v_j, dpm its dropout-masked, rescaled value);
+// sweep 2 forms ds = p * (dpm - delta) (:931) and accumulates dq = scale *
+// sum_j ds k_j.  delta goes to scratch for the dk/dv launch.  No score,
+// softmax or Philox draw.
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v,
-                                const T* __restrict__ probs,
-                                const T* __restrict__ dout,
-                                float* __restrict__ delta_out, T* __restrict__ dq,
+short_attention_probs_dq_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                                const float* __restrict__ probs,
+                                const float* __restrict__ dout,
+                                float* __restrict__ delta_out, float* __restrict__ dq,
                                 int seq, int hidden, int rows_per_cta, float scale,
                                 float drop_scale) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float k_s[kKeyTile * kD];
   __shared__ __align__(16) float v_s[kKeyTile * kD];
@@ -1189,7 +1149,7 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
           if (sweep == 0) {
             delta = fmaf(p, dpm, delta);
           } else {
-            axpy_half<T, kD>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kD], half);
+            axpy_half<T, kD>(acc, p * (dpm - delta), &k_s[j * kD], half);
           }
         }
       }
@@ -1201,22 +1161,23 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
   }
 }
 
-// dk and dv from the stashed probs: one CTA per (key tile, head, batch row),
-// two threads per key row holding v and the dk / dv accumulators.  Query
-// tiles of kProbsQueryTile rows (q, dO, delta and the [tile, keys] block of
-// the probs, read row by row, coalesced) are staged in shared memory.  dS
-// and the dropped p are rounded to T before their products (:931, :935).
+// f32: dk and dv from the stashed probs, one CTA per (key tile, head,
+// batch row), two threads per key row holding v and the dk / dv
+// accumulators.  Query tiles of kProbsQueryTile rows (q, dO, delta and the
+// [tile, keys] block of the probs, read row by row, coalesced) are staged
+// in shared memory.
 constexpr int kProbsQueryTile = 32;
 
-template <typename T, int kD, bool kDropout>
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ v,
-                                 const T* __restrict__ probs,
-                                 const T* __restrict__ dout,
+short_attention_probs_dkv_kernel(const float* __restrict__ q, const float* __restrict__ v,
+                                 const float* __restrict__ probs,
+                                 const float* __restrict__ dout,
                                  const float* __restrict__ delta,
-                                 T* __restrict__ dk, T* __restrict__ dv, int seq,
+                                 float* __restrict__ dk, float* __restrict__ dv, int seq,
                                  int hidden, int rows_per_cta, float scale,
                                  float drop_scale) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float q_s[kProbsQueryTile * kD];
   __shared__ __align__(16) float do_s[kProbsQueryTile * kD];
@@ -1249,7 +1210,7 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
     for (int idx = threadIdx.x; idx < qn * keys_here; idx += blockDim.x) {
       const int i = idx / keys_here;
       const int j = idx - i * keys_here;
-      p_s[i][j] = to_float(probs[(size_t)(head_rows + i0 + i) * width + key0 + j]);
+      p_s[i][j] = probs[(size_t)(head_rows + i0 + i) * width + key0 + j];
     }
     for (int i = threadIdx.x; i < qn; i += blockDim.x) delta_s[i] = delta[head_rows + i0 + i];
     __syncthreads();
@@ -1266,8 +1227,8 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
         pd = kept ? p * drop_scale : 0.f;
         dpm = kept ? dp * drop_scale : 0.f;
       }
-      axpy_half<T, kD>(dv_acc, round_to<T>(pd), &do_s[i * kD], half);
-      axpy_half<T, kD>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kD], half);
+      axpy_half<T, kD>(dv_acc, pd, &do_s[i * kD], half);
+      axpy_half<T, kD>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kD], half);
     }
   }
 
@@ -1314,24 +1275,26 @@ void launch_fwd(const void* q, const void* k, const void* v, const float* bias,
           stride, rows, score_mult, drop);
 }
 
-template <typename T, int kD, bool kDropout, bool kV3>
+// The f32 backward pair on the CUDA cores.
+template <int kD, bool kDropout, bool kV3>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                const void* o, const void* dout, float* lse, float* delta,
                void* dq, void* dk, void* dv, int batch, int seq, int hidden,
                int stride, int num_heads, float scale, Dropout drop, cudaStream_t s) {
+  using T = float;
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
   const float score_mult = scale * kLog2e;
-  short_attention_bwd_dq_kernel<T, kD, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dq_kernel<kD, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, o, static_cast<const T*>(dout), lse, delta,
+      bias, static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), seq, hidden, stride, rows, score_mult, scale, drop);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // q is staged as q * score_mult, so dk = sum(ds * q_staged) / log2e
   // (scale * score_mult / score_mult = scale in natural units).
-  short_attention_bwd_dkv_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dkv_kernel<kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), seq, hidden, stride, rows, score_mult, 1.f / kLog2e, drop);
@@ -1403,21 +1366,23 @@ int launch_probs_fwd_tc_for(const void* q, const void* k, const void* v, const f
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kD, bool kDropout>
+// The f32 '+probs' backward pair on the CUDA cores.
+template <int kD, bool kDropout>
 int launch_probs_bwd(const void* q, const void* k, const void* v, const void* probs,
                      const void* dout, float* delta, void* dq, void* dk, void* dv,
                      int batch, int seq, int hidden, int num_heads, float scale,
                      float drop_scale, cudaStream_t s) {
+  using T = float;
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
-  short_attention_probs_dq_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_probs_dq_kernel<kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
       static_cast<T*>(dq), seq, hidden, rows, scale, drop_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  short_attention_probs_dkv_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_probs_dkv_kernel<kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(v),
       static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
       static_cast<T*>(dk), static_cast<T*>(dv), seq, hidden, rows, scale,
@@ -1484,15 +1449,35 @@ int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 #undef MSA_TC
 }
 
-// Whether the bf16 backward at this S is one tensor-core launch
-// (short_bwd_tc.cuh); else the CUDA-core pair.
-bool tc_backward(int dtype, int seq) { return dtype == 1 && seq <= msa_short_bwd::kMaxSeq; }
+// A bf16 backward on the tensor cores by rule kRule (short_bwd_tc.cuh's
+// arguments): at S <= 128 one launch of short_bwd_tc.cuh (which needs
+// neither lse nor delta, but kFromOut writes both), above it the dq and
+// dk/dv pair of short_bwd_tiled.cuh (delta scratch, and the lse: the
+// training forward's for kRecompute, scratch for kFromOut).  f32 takes the
+// CUDA-core pairs instead.
+template <int kD, int kRule>
+int tc_backward(const void* q, const void* k, const void* v, const float* bias,
+                const void* probs, const void* o, const void* dout, void* dq, void* dk,
+                void* dv, float* lse, float* delta, int batch, int seq, int ld, int hidden,
+                int num_heads, float scale, Dropout d, cudaStream_t s) {
+  const bool one = seq <= msa_short_bwd::kMaxSeq;
+  if ((!one || kRule == msa_short_bwd::kFromOut) &&
+      (delta == nullptr || (kRule != msa_short_bwd::kFromProbs && lse == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define MSA_TC(NS, D)                                                                  \
+  NS::launch<kD, D, kRule>(q, k, v, bias, probs, o, dout, dq, dk, dv, lse, delta,       \
+                           batch, seq, ld, hidden, num_heads, scale * kLog2e, scale, d, s)
+  const bool drop = d.threshold > 0;
+  if (one) return drop ? MSA_TC(msa_short_bwd, true) : MSA_TC(msa_short_bwd, false);
+  return drop ? MSA_TC(msa_short_bwd_tiled, true) : MSA_TC(msa_short_bwd_tiled, false);
+#undef MSA_TC
+}
 
 // kV3: delta from o, the ctx in the storage type, and the lse recomputed
-// and written to `lse` (v3, v2p); else v1's rule (v2), o unread and, for
-// the CUDA-core pair, `lse` the training forward's, read.  delta: scratch
-// of the CUDA-core pair.  The tensor-core launch reads neither lse nor
-// delta (v3's writes them).  q, k, v, dq, dk and dv at row stride
+// and written to `lse` (v3, v2p); else v1's rule (v2), o unread and,
+// except for bf16's one launch, `lse` the training forward's, read.
+// delta: scratch of the pairs.  q, k, v, dq, dk and dv at row stride
 // `stride`.
 template <int kD, bool kV3>
 int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bias,
@@ -1505,23 +1490,15 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
   float* dl = static_cast<float*>(delta);
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
-#define MSA_BWD(T, D) launch_bwd<T, kD, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
-                                                batch, seq, hidden, stride, num_heads,    \
-                                                scale, d, s)
-  const bool tc = tc_backward(dtype, seq);
-  if ((kV3 || !tc) && (l == nullptr || dl == nullptr)) return (int)cudaErrorInvalidValue;
-  if (tc) {
+  if (dtype == 1) {
     constexpr int kRule = kV3 ? msa_short_bwd::kFromOut : msa_short_bwd::kRecompute;
-#define MSA_TC(D)                                                                          \
-  msa_short_bwd::launch<kD, D, kRule>(q, k, v, bias, nullptr, o, dout, dq, dk, dv, l, dl,  \
-                                      batch, seq, stride, hidden, num_heads,               \
-                                      scale * kLog2e, scale, d, s)
-    return drop ? MSA_TC(true) : MSA_TC(false);
-#undef MSA_TC
+    return tc_backward<kD, kRule>(q, k, v, bias, nullptr, o, dout, dq, dk, dv, l, dl, batch,
+                                  seq, stride, hidden, num_heads, scale, d, s);
   }
-  if (dtype == 0) return drop ? MSA_BWD(float, true) : MSA_BWD(float, false);
-  return drop ? MSA_BWD(__nv_bfloat16, true) : MSA_BWD(__nv_bfloat16, false);
+  if (l == nullptr || dl == nullptr) return (int)cudaErrorInvalidValue;
+#define MSA_BWD(D) launch_bwd<kD, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, \
+                                          seq, hidden, stride, num_heads, scale, d, s)
+  return drop_threshold > 0 ? MSA_BWD(true) : MSA_BWD(false);
 #undef MSA_BWD
 }
 
@@ -1531,8 +1508,8 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 // 32 or 64 (every kernel is instantiated for both).  drop_threshold t in
 // [0, 256): 0 = no dropout, else keep iff the element's Philox byte >= t
 // (rate t/256).  The training forward passes lse ([B, heads, S] f32, the
-// log2-sum-exp of each score row), which the CUDA-core backward pair
-// reads; the serving forward passes it null, which runs exactly the no-lse
+// log2-sum-exp of each score row), which the v2 backward pairs read (bf16
+// above 128 keys, f32); the serving forward passes it null, which runs exactly the no-lse
 // kernel.  bf16 runs on the tensor cores (fwd_dispatch), f32 on the CUDA
 // cores; both forms give the same out.  Launches once on `stream` and
 // returns cudaGetLastError() (0 on success).  The caller has checked
@@ -1559,9 +1536,10 @@ extern "C" int msa_short_attention_fwd(const void* q, const void* k,
 // rowsum(p * dpm), dS and the dropped p rounded to the storage type before
 // their products.  bf16 at S <= 128: one tensor-core launch
 // (short_bwd_tc.cuh), which recomputes each row's max and sum; lse and
-// delta may be null.  Otherwise the CUDA-core pair: dq (writing delta, [B,
-// heads, S] f32 scratch) then dk/dv, both reading lse, the training
-// forward's for the same q, k, key_bias.
+// delta may be null.  Otherwise a pair, dq (writing delta, [B, heads, S]
+// f32 scratch) then dk/dv, both reading lse, the training forward's for
+// the same q, k, key_bias: bf16 on the tensor cores (short_bwd_tiled.cuh),
+// f32 on the CUDA cores.
 extern "C" int msa_short_attention_bwd(const void* q, const void* k,
                                        const void* v, const void* key_bias,
                                        const void* dout, const void* lse,
@@ -1587,9 +1565,10 @@ extern "C" int msa_short_attention_bwd(const void* q, const void* k,
 // storage type before their products.  The forward keeps nothing but its
 // ctx.  bf16 at S <= 128: one tensor-core launch (short_bwd_tc.cuh), which
 // also writes the lse and delta to the [B, heads, S] f32 scratch `lse` and
-// `delta`.  Otherwise the CUDA-core pair's two launches, the dq launch
-// writing the lse and delta there for the dk/dv launch.  Same arguments
-// and dropout as msa_short_attention_bwd otherwise.
+// `delta`.  Otherwise a pair (bf16: short_bwd_tiled.cuh; f32: the CUDA
+// cores), the dq launch writing the lse and delta there for the dk/dv
+// launch.  Same arguments and dropout as msa_short_attention_bwd
+// otherwise.
 extern "C" int msa_short_attention_v3_bwd(const void* q, const void* k,
                                           const void* v, const void* key_bias,
                                           const void* out, const void* dout,
@@ -1616,8 +1595,9 @@ extern "C" int msa_short_attention_v3_bwd(const void* q, const void* k,
 // _bwd_kernel_v2p's rule, the v3 backward's: delta = dO . o from the ctx
 // `out` in the storage type, the lse recomputed (lse and delta are [B,
 // heads, S] f32 scratch), dS and pd rounded; it writes dq, dk and dv into
-// the thirds of one [B, S, 3H] dqkv.  bf16 at S <= 128 is one tensor-core
-// launch at row stride 3H, else the CUDA-core pair.
+// the thirds of one [B, S, 3H] dqkv.  bf16 runs on the tensor cores at row
+// stride 3H (one launch at S <= 128, else short_bwd_tiled.cuh's pair), f32
+// the CUDA-core pair.
 extern "C" int msa_short_attention_packed_fwd(const void* qkv, const void* key_bias,
                                               void* out, void* lse, int batch, int seq,
                                               int hidden, int num_heads, int dtype,
@@ -1693,8 +1673,9 @@ extern "C" int msa_short_attention_probs_fwd(const void* q, const void* k,
 // forward's signed probs and dout alone; drop_threshold gives the rescale
 // 256 / (256 - t).  bf16 at S <= 128: one tensor-core launch
 // (short_bwd_tc.cuh, p and the keep bit read from the probs; delta may be
-// null).  Otherwise the CUDA-core pair: dq (writing delta, [B, heads, S]
-// f32 scratch), then dk/dv.
+// null).  Otherwise a pair, dq (writing delta, [B, heads, S] f32 scratch)
+// then dk/dv: bf16 on the tensor cores (short_bwd_tiled.cuh), f32 on the
+// CUDA cores.
 extern "C" int msa_short_attention_probs_bwd(const void* q, const void* k,
                                              const void* v, const void* probs,
                                              const void* dout, void* delta, void* dq,
@@ -1708,24 +1689,17 @@ extern "C" int msa_short_attention_probs_bwd(const void* q, const void* k,
   float* dl = static_cast<float*>(delta);
   const Dropout d = make_dropout(0, 0, drop_threshold);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
-  const bool on_tc = tc_backward(dtype, seq);
-  if (!on_tc && dl == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && dl == nullptr) return (int)cudaErrorInvalidValue;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-    if (on_tc) {
-#define MSA_TC(D)                                                                         \
-  msa_short_bwd::launch<kD, D, msa_short_bwd::kFromProbs>(                                \
-      q, k, v, nullptr, probs, nullptr, dout, dq, dk, dv, nullptr, nullptr, batch, seq,   \
-      hidden, hidden, num_heads, scale * kLog2e, scale, d, s)
-      return drop ? MSA_TC(true) : MSA_TC(false);
-#undef MSA_TC
+    if (dtype == 1) {
+      return tc_backward<kD, msa_short_bwd::kFromProbs>(
+          q, k, v, nullptr, probs, nullptr, dout, dq, dk, dv, nullptr, dl, batch, seq, hidden,
+          hidden, num_heads, scale, d, s);
     }
-#define MSA_PBWD(T, D) launch_probs_bwd<T, kD, D>(q, k, v, probs, dout, dl, dq, dk, dv,   \
-                                                  batch, seq, hidden, num_heads, scale, \
-                                                  d.scale, s)
-    if (dtype == 0) return drop ? MSA_PBWD(float, true) : MSA_PBWD(float, false);
-    return drop ? MSA_PBWD(__nv_bfloat16, true) : MSA_PBWD(__nv_bfloat16, false);
+#define MSA_PBWD(D) launch_probs_bwd<kD, D>(q, k, v, probs, dout, dl, dq, dk, dv, batch, seq, \
+                                            hidden, num_heads, scale, d.scale, s)
+    return drop_threshold > 0 ? MSA_PBWD(true) : MSA_PBWD(false);
 #undef MSA_PBWD
   });
 }

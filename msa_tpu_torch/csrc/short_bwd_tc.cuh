@@ -14,8 +14,8 @@
 //     at S <= 128): p recomputed, delta = dO . o (:435-439, :544-548), o the
 //     forward's ctx in bf16, read row by row.  It also writes each row's lse
 //     (log2 units) and delta to the entry's [B, heads, S] scratch, which
-//     nothing of this route reads again: the entries keep the CUDA-core
-//     pair's signatures;
+//     nothing of this route reads again: the entries keep the pairs'
+//     signatures;
 //   * kFromProbs: v2s, _bwd_kernel_v2s (:895; msa_short_attention_probs_bwd
 //     at S <= 128): p = |ps| and keep = ps > 0 from the forward's stashed
 //     signed probs ([B, heads, S, 16 ceil(S / 16)] bf16), staged in place of

@@ -15,8 +15,8 @@
 // Under autograd the v2 and v2p forwards run the serving form here: their
 // backwards at S <= 128 (short_bwd_tc.cuh) recompute the row statistics,
 // as JAX's do, so nothing of the forward but ctx is kept.  The training
-// form's lse serves the CUDA-core backward pair, which runs where this
-// template does not (f32, and bf16 above 128 keys), and the checks.
+// form's lse serves the checks (the backward pairs above 128 keys read
+// the two-sweep forward's, in short_attention.cu).
 //
 // ctx ([B, S, H]) and lse ([B, heads, S]) never take the input stride.
 // The rule is JAX's (:279-287, :326-332): the row max, the sum, p =

@@ -26,11 +26,12 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   :func:`short_attention_backward` (JAX's ``_bwd_kernel_v2`` rule), or,
   with the module switch ``USE_V3_BWD`` on (JAX's ``_USE_V3_BWD``,
   ``_bwd_kernel_v3``), :func:`short_attention_v3_backward`, which reads the
-  ctx.  Both are one tensor-core launch for bf16 at S <= 128, which
+  ctx.  bf16 runs them on the tensor cores: one launch at S <= 128, which
   recomputes the softmax, so the pair keeps q, k, v and the bias (v3 also
-  the ctx); elsewhere (f32, bf16 above 128 keys) the dq and dk/dv pair on
-  the CUDA cores, v2's reading the row lse that its training forward
-  writes and keeps (:func:`tensor_core_backward`).  CPU tensors run
+  the ctx); above, the tiled dq and dk/dv pair (``csrc/short_bwd_tiled.cuh``).
+  f32 runs the dq and dk/dv pair on the CUDA cores.  v2's pairs read the
+  row lse that its training forward writes and keeps
+  (:func:`backward_route`).  CPU tensors run
   :func:`short_attention_plain` at rate 0 (under ``USE_V3_BWD`` with
   :func:`short_attention_v3_backward_plain` as its backward);
 * :func:`short_attention_probs` -- the ``+probs`` remat rung (JAX
@@ -108,10 +109,14 @@ _V1_SIGNATURES = {
                                    _I, _I, _F, _U, _U, _I, _P),
 }
 V1_MAX_SEQ = 128  # the v1 kernels hold a head's K and V in shared memory
-# the bf16 v2, v2p and v3 backwards run on the tensor cores up to here, in
-# one launch (csrc/short_bwd_tc.cuh: a warp holds its whole score row in
-# registers)
-TC_BWD_MAX_SEQ = 128
+# The bf16 v2, v2p, v3 and v2s backwards run on the tensor cores at every S
+# the kernels take: in one launch up to WHOLE_ROW_BWD_MAX_SEQ
+# (csrc/short_bwd_tc.cuh: a warp holds its whole score row in registers),
+# above it as the tiled dq and dk/dv pair up to TC_BWD_MAX_SEQ
+# (csrc/short_bwd_tiled.cuh).  f32 takes the CUDA-core pair.
+WHOLE_ROW_BWD_MAX_SEQ = 128
+TC_BWD_MAX_SEQ = MAX_SEQ
+WHOLE_ROW, TILED, CUDA_CORES = "whole row", "tiled", "CUDA cores"
 PROBS_GROUP = 16  # keys per Philox draw: the probs rows are padded to it
 # JAX's module switch _USE_V3_BWD: the training forward keeps the ctx
 # itself, and the backward is short_attention_v3_backward (delta = dO . o
@@ -281,22 +286,53 @@ def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
     return out, lse
 
 
+def backward_route(seq: int, dtype: torch.dtype) -> str:
+    """The route of the v2, v2p, v3 and v2s backwards at (S, dtype), the
+    rule of ``csrc/short_attention.cu::tc_backward`` and ``bwd_dispatch``:
+
+    * ``WHOLE_ROW``: bf16 at S <= 128, one tensor-core launch
+      (``csrc/short_bwd_tc.cuh``) that recomputes each row's softmax (v2s:
+      reads its probs), so the v2 forward keeps no lse for it;
+    * ``TILED``: bf16 at 129 <= S <= 1023, the tensor-core dq and dk/dv
+      pair (``csrc/short_bwd_tiled.cuh``), v2's reading the training
+      forward's lse;
+    * ``CUDA_CORES``: f32, the dq and dk/dv pair on the CUDA cores (v2's
+      reading the lse too)."""
+    if dtype != torch.bfloat16:
+        return CUDA_CORES
+    return WHOLE_ROW if seq <= WHOLE_ROW_BWD_MAX_SEQ else TILED
+
+
 def tensor_core_backward(seq: int, dtype: torch.dtype) -> bool:
-    """Whether the v2, v2p, v3 and v2s backwards at (S, dtype) are one
-    tensor-core launch (bf16 at S <= 128, ``csrc/short_bwd_tc.cuh``, which
-    recomputes each row's softmax or reads v2s's probs: the forward keeps
-    no lse for it), else the CUDA-core dq and dk/dv pair
-    (``csrc/short_attention.cu::tc_backward`` takes the same rule)."""
-    return dtype == torch.bfloat16 and seq <= TC_BWD_MAX_SEQ
+    """Whether the backwards at (S, dtype) run on the tensor cores: bf16 at
+    any S the kernels take (:func:`backward_route`)."""
+    return backward_route(seq, dtype) != CUDA_CORES
 
 
 def backward_launches(seq: int, dtype: torch.dtype) -> int:
     """Kernel launches of one :func:`short_attention_backward`,
     :func:`short_attention_packed_backward`,
     :func:`short_attention_v3_backward` or
-    :func:`short_attention_probs_backward` call
-    (:func:`tensor_core_backward`)."""
-    return 1 if tensor_core_backward(seq, dtype) else 2
+    :func:`short_attention_probs_backward` call: 1 on the whole-row route,
+    2 on either pair (:func:`backward_route`)."""
+    return 1 if backward_route(seq, dtype) == WHOLE_ROW else 2
+
+
+class RouteCount:
+    """The launches one backward entry made on the tiled route
+    (``<entry>.tiled.launches``), beside its total (``<entry>.launches``)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _count_backward(entry, seq, dtype):
+    """Add one call's launches to ``entry``'s count, and to its tiled
+    route's count where it ran there."""
+    n = backward_launches(seq, dtype)
+    entry.launches += n
+    if backward_route(seq, dtype) == TILED:
+        entry.tiled.launches += n
 
 
 def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
@@ -309,13 +345,13 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
     :func:`short_attention_v1_backward_plain`).  No [S, S] tensor is
     stored.  bf16 at S <= 128: one tensor-core launch, which recomputes
     each row's max and sum from q and k (``lse`` is not read and may be
-    None).  Otherwise two launches, dq then dk/dv, which read ``lse``, the
-    training forward's row lse for the same inputs
-    (:func:`tensor_core_backward`)."""
+    None).  Otherwise two launches, dq then dk/dv (bf16 on the tensor
+    cores, f32 on the CUDA cores), which read ``lse``, the training
+    forward's row lse for the same inputs (:func:`backward_route`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_backward")
     b, s, h = q.shape
-    tc = tensor_core_backward(s, q.dtype)
-    if dout.shape != q.shape or not tc and (
+    one = backward_route(s, q.dtype) == WHOLE_ROW
+    if dout.shape != q.shape or not one and (
             lse is None or lse.shape != (b, num_heads, s)):
         raise ValueError("short_attention_backward: dout/lse "
                          f"{tuple(dout.shape)}, "
@@ -323,8 +359,8 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
                          f"fit q {tuple(q.shape)} {q.dtype}")
     q, k, v, dout = _aligned(q, k, v, dout.to(q.dtype))
     key_bias = key_bias.to(torch.float32).contiguous()
-    lse = None if tc else lse.contiguous()
-    delta = None if tc else torch.empty_like(lse)
+    lse = None if one else lse.contiguous()
+    delta = None if one else torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_bwd(
@@ -334,7 +370,7 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
         softmax_scale(h, num_heads), *_seed_words(seed), byte_threshold(rate),
         _stream(q))
     _build.check(code, "short_attention_backward")
-    short_attention_backward.launches += backward_launches(s, q.dtype)
+    _count_backward(short_attention_backward, s, q.dtype)
     return dq, dk, dv
 
 
@@ -363,7 +399,8 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
     ``out`` is the forward's ctx in q's dtype for the same inputs, seed and
     rate.  bf16 at S <= 128: one tensor-core launch; otherwise two, dq
     (which recomputes each row's lse and writes it and delta = dO . o to
-    scratch) then dk/dv (:func:`tensor_core_backward`)."""
+    scratch) then dk/dv, bf16 on the tensor cores and f32 on the CUDA
+    cores (:func:`backward_route`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_v3_backward")
     b, s, h = q.shape
     if out.shape != q.shape or out.dtype != q.dtype or dout.shape != q.shape:
@@ -383,7 +420,7 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
         _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_v3_backward")
-    short_attention_v3_backward.launches += backward_launches(s, q.dtype)
+    _count_backward(short_attention_v3_backward, s, q.dtype)
     return dq, dk, dv
 
 
@@ -405,11 +442,11 @@ def saved_inputs(ctx):
 
 class _ShortAttention(torch.autograd.Function):
     """Forward kernel + backward kernel pair.  Saves q, k, v and the bias --
-    the seed and rate ride as Python numbers -- and, where the CUDA-core
-    pair runs the backward (:func:`tensor_core_backward` false), the row
-    lse of the training forward; bf16 at S <= 128 runs the serving forward
-    and keeps what JAX's ``_v2_fwd`` keeps and the ``_bwd_kernel_v2`` it
-    pairs with reads.  No gradient for the bias or seed.  Under
+    the seed and rate ride as Python numbers -- and, where a pair runs the
+    backward (the tiled or the CUDA-core route of :func:`backward_route`),
+    the row lse of the training forward; bf16 at S <= 128 runs the serving
+    forward and keeps what JAX's ``_v2_fwd`` keeps and the
+    ``_bwd_kernel_v2`` it pairs with reads.  No gradient for the bias or seed.  Under
     ``USE_V3_BWD`` (read here, in the forward) it saves the ctx instead of
     the lse, and the backward is the v3 pair; on CPU tensors (rate 0) the
     plain forward and the v3 plain backward."""
@@ -422,7 +459,8 @@ class _ShortAttention(torch.autograd.Function):
             out = short_attention_plain(q, k, v, key_bias, num_heads)
             save_inputs(ctx, recompute, q, k, v, key_bias, out)
             return out
-        train = not (ctx.v3 or tensor_core_backward(q.shape[1], q.dtype))
+        train = not ctx.v3 and backward_route(q.shape[1],
+                                              q.dtype) != WHOLE_ROW
         out, lse = _forward_kernel(q, k, v, key_bias, num_heads, seed,
                                    byte_threshold(rate), train)
         save_inputs(ctx, recompute, q, k, v, key_bias, out if ctx.v3 else lse)
@@ -585,8 +623,8 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
     :func:`short_attention_probs_backward_plain`).  No score, softmax or
     Philox draw is recomputed.  bf16 at S <= 128: one tensor-core launch
     that reads p and the keep bit from the probs; otherwise two, dq (which
-    writes delta = sum p * dpm to scratch) then dk/dv
-    (:func:`tensor_core_backward`)."""
+    writes delta = sum p * dpm to scratch) then dk/dv, bf16 on the tensor
+    cores and f32 on the CUDA cores (:func:`backward_route`)."""
     _check(q, k, v, None, num_heads, "short_attention_probs_backward")
     b, s, h = q.shape
     if probs.shape != (b, num_heads, s, probs_width(s)) or \
@@ -595,7 +633,7 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
                          f"{tuple(probs.shape)} {probs.dtype} / dout "
                          f"{tuple(dout.shape)} do not fit q {tuple(q.shape)}")
     q, k, v, probs, dout = _aligned(q, k, v, probs, dout.to(q.dtype))
-    delta = None if tensor_core_backward(s, q.dtype) else torch.empty(
+    delta = None if backward_route(s, q.dtype) == WHOLE_ROW else torch.empty(
         (b, num_heads, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load("short_attention", _SIGNATURES)
@@ -605,7 +643,7 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
         dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
         softmax_scale(h, num_heads), byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_probs_backward")
-    short_attention_probs_backward.launches += backward_launches(s, q.dtype)
+    _count_backward(short_attention_probs_backward, s, q.dtype)
     return dq, dk, dv
 
 
@@ -757,8 +795,8 @@ def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
     and rate, delta = dO . o, the lse recomputed, dS and the dropped p
     rounded; q, k and v are read as the thirds of ``qkv`` in place and dq,
     dk, dv written into the thirds of one buffer.  bf16 at S <= 128: one
-    tensor-core launch at row stride 3H; otherwise the CUDA-core pair
-    (:func:`tensor_core_backward`)."""
+    tensor-core launch at row stride 3H; otherwise a pair, bf16 on the
+    tensor cores and f32 on the CUDA cores (:func:`backward_route`)."""
     _check_packed(qkv, key_bias, num_heads, "short_attention_packed_backward")
     b, s, h3 = qkv.shape
     if out.shape != (b, s, h3 // 3) or out.dtype != qkv.dtype or \
@@ -778,7 +816,7 @@ def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
         num_heads, _DTYPES[qkv.dtype], softmax_scale(h3 // 3, num_heads),
         *_seed_words(seed), byte_threshold(rate), _stream(qkv))
     _build.check(code, "short_attention_packed_backward")
-    short_attention_packed_backward.launches += backward_launches(s, qkv.dtype)
+    _count_backward(short_attention_packed_backward, s, qkv.dtype)
     return dqkv
 
 
@@ -972,5 +1010,10 @@ short_attention_probs.launches = 0
 short_attention_probs_backward.launches = 0
 short_attention_packed.launches = 0
 short_attention_packed_backward.launches = 0
+for _entry in (short_attention_backward, short_attention_v3_backward,
+               short_attention_probs_backward,
+               short_attention_packed_backward):
+    _entry.tiled = RouteCount()
+del _entry
 short_attention_v1.launches = 0
 short_attention_v1_backward.launches = 0

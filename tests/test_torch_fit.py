@@ -253,6 +253,20 @@ def test_train_sample_score_pipeline(workdir, vocab_file, data_pkl,  # noqa: F81
     assert "mae" in report and np.isfinite(report["mae"])
 
 
+def test_sample_cli_takes_jax_parallel_flags(fits):
+    """cli.sample parses JAX's ``--dp 1 --mp 1`` and scores a synthetic
+    split from a fit checkpoint on the CPU; ``--mp 2`` raises cli.train's
+    NotImplementedError before loading anything."""
+    run_dir = str(fits["dir"] / "port")
+    preds, labels = port_sample.main([
+        "--checkpoint", run_dir, "--synthetic", "8", "--batch_size", "4",
+        "--dp", "1", "--mp", "1", "--device", "cpu"])
+    assert preds.shape[0] == labels.shape[0] == 8 and np.isfinite(preds).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_sample.main(["--checkpoint", run_dir, "--synthetic", "8",
+                          "--mp", "2", "--device", "cpu"])
+
+
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--mp", "2"],
                                    ["--distributed"],
                                    ["--coordinator", "localhost:1234"]])

@@ -10,9 +10,11 @@ Python side of the contract on the CPU:
 * ln_quant takes H a multiple of 64 up to 512, of 128 up to 1024 or of
   256 up to 2048 (``supported_hidden``), the (lanes, chunks) pairs
   ``csrc/ln_quant.cu`` instantiates;
-* ``short_attention_probs_backward`` counts one launch on the tensor-core
-  route (bf16, S <= 128), where it hands the C entry no delta scratch, and
-  two elsewhere, with a stand-in for the CUDA library.
+* ``short_attention_probs_backward`` counts one launch on the whole-row
+  tensor-core route (bf16, S <= 128), where it hands the C entry no delta
+  scratch, and two elsewhere (bf16 above 128 keys on the tiled tensor-core
+  pair, counted on its route's counter too; f32 on the CUDA-core pair),
+  with a stand-in for the CUDA library.
 """
 
 import re
@@ -86,9 +88,12 @@ def test_probs_backward_launches_by_route(monkeypatch, dtype, s, launches):
     b, heads, h = 2, 2, 64
     q = torch.zeros(b, s, h, dtype=dtype)
     probs = torch.zeros(b, heads, s, sa.probs_width(s), dtype=dtype)
-    before = sa.short_attention_probs_backward.launches
+    entry = sa.short_attention_probs_backward
+    before, before_tiled = entry.launches, entry.tiled.launches
     dq, dk, dv = sa.short_attention_probs_backward(q, q, q, probs, q, heads)
-    assert sa.short_attention_probs_backward.launches - before == launches
+    assert entry.launches - before == launches
+    tiled = dtype == torch.bfloat16 and s > sa.WHOLE_ROW_BWD_MAX_SEQ
+    assert entry.tiled.launches - before_tiled == (launches if tiled else 0)
     (args,) = calls
     delta_ptr = args[5]
     assert (delta_ptr is None) == (launches == 1)

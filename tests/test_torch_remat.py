@@ -152,7 +152,10 @@ ENTRY_CASES = [
     pytest.param(40, "float32", 128, id="40"),
     pytest.param(12, "bfloat16", 128, id="12-bfloat16"),
     pytest.param(40, "bfloat16", 128, id="40-bfloat16"),
-    pytest.param(40, "bfloat16", 64, id="40-bfloat16-d32")]
+    pytest.param(40, "bfloat16", 64, id="40-bfloat16-d32"),
+    # above 128 keys: the tiled pair's range (JAX pads the rows to 256)
+    pytest.param(130, "bfloat16", 128, id="130-bfloat16"),
+    pytest.param(200, "bfloat16", 64, id="200-bfloat16-d32")]
 
 
 @pytest.mark.parametrize("s, dtype, h", ENTRY_CASES)

@@ -7,7 +7,9 @@
   (``_bwd_kernel``).  It is held against ``jax.vjp`` of
   ``short_attention_v2`` (JAX's switch ``_USE_V3_BWD`` off, its Pallas
   kernels in interpret mode) on inputs with a fully masked, a partly
-  masked and a live batch row, at head dim 64 and (``-d32``, H = 64) 32:
+  masked and a live batch row, at head dim 64 and (``-d32``, H = 64) 32,
+  at S up to 128 (the whole-row kernel's range) and at S = 130 and 200
+  (the tiled pair's: JAX's kernel pads those rows to 256 lanes):
   in f32 within the v2 parity tests' 2e-5
   (test_torch_ops_grad.py: the same math in another summation order); in
   bf16 within 2e-3 absolute and 8e-3 relative (two bf16 ulps, as
@@ -16,9 +18,10 @@
   neighbour.
 * The rounding is what holds it there: the same rule without it (the f32
   gradient of the bf16 inputs) lies further from JAX's bf16 gradients.
-* ``tensor_core_backward`` / ``backward_launches``: the v2, v2p and v2s
-  backwards, like v3's, are one tensor-core launch for bf16 at S <= 128
-  and the CUDA-core pair otherwise, the bound the CUDA template states.
+* ``backward_route`` / ``backward_launches``: the v2, v2p and v2s
+  backwards, like v3's, are one tensor-core launch for bf16 at S <= 128,
+  the tiled tensor-core pair for bf16 above, and the CUDA-core pair for
+  f32; the bounds are the ones the CUDA templates state.
 """
 
 import re
@@ -57,7 +60,9 @@ def jax_v2_grads(s, dtype, seed, h=128):
 
 # (S, H): head dim 64, and 32 at the tiny preset's H = 64
 SHAPES = [pytest.param(12, 128, id="12"), pytest.param(40, 128, id="40"),
-          pytest.param(40, 64, id="40-d32")]
+          pytest.param(40, 64, id="40-d32"), pytest.param(130, 128, id="130"),
+          pytest.param(200, 128, id="200"),
+          pytest.param(200, 64, id="200-d32")]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -99,18 +104,40 @@ def test_v2_backward_rounding_is_jax_s(monkeypatch, s, h):
     (torch.float32, 40, 2), (torch.float32, 128, 2)])
 def test_v2_backward_launches(entry, dtype, seq, launches):
     """bf16 at S <= 128 is one tensor-core launch (the forward then keeps
-    no lse); f32 and bf16 above 128 keys are the CUDA-core dq and dk/dv
-    pair.  Each entry counts its launches by this rule
-    (test_torch_head_dims.py runs the v2s entry's count)."""
-    assert sa.tensor_core_backward(seq, dtype) == (launches == 1), entry
+    no lse); bf16 above 128 keys is the tiled tensor-core dq and dk/dv
+    pair, f32 the CUDA-core pair.  Each entry counts its launches by this
+    rule, and its tiled route's apart (test_torch_head_dims.py runs the v2s
+    entry's counts)."""
+    route = (sa.WHOLE_ROW if launches == 1 else
+             sa.TILED if dtype == torch.bfloat16 else sa.CUDA_CORES)
+    assert sa.backward_route(seq, dtype) == route, entry
+    assert sa.tensor_core_backward(seq, dtype) == (dtype == torch.bfloat16)
     assert sa.backward_launches(seq, dtype) == launches, entry
+    assert getattr(sa, entry).tiled.launches >= 0
 
 
 def test_tensor_core_bound_matches_the_template():
-    """The Python rule's S bound is the one the CUDA template takes
-    (``short_bwd_tc.cuh``'s kMaxSeq, which ``bwd_dispatch`` tests)."""
+    """The Python rule's one-launch S bound is the one the CUDA template
+    takes (``short_bwd_tc.cuh``'s kMaxSeq, which ``tc_backward`` tests)."""
     text = (_build.CSRC / "short_bwd_tc.cuh").read_text()
     (bound,) = re.findall(r"constexpr int kMaxSeq = (\d+);", text)
-    assert int(bound) == sa.TC_BWD_MAX_SEQ
+    assert int(bound) == sa.WHOLE_ROW_BWD_MAX_SEQ
     source = (_build.CSRC / "short_attention.cu").read_text()
     assert "seq <= msa_short_bwd::kMaxSeq" in source
+
+
+def test_tiled_range_matches_the_template():
+    """The tiled route's S range is the one ``short_bwd_tiled.cuh`` states
+    (kMinSeq .. kMaxSeq): from one past the whole-row kernel's bound to the
+    last S of the short kernels, where the flash kernels take over."""
+    text = (_build.CSRC / "short_bwd_tiled.cuh").read_text()
+    (low,) = re.findall(r"constexpr int kMinSeq = (\d+);", text)
+    (high,) = re.findall(r"constexpr int kMaxSeq = (\d+);", text)
+    assert int(low) == sa.WHOLE_ROW_BWD_MAX_SEQ + 1
+    assert int(high) == sa.TC_BWD_MAX_SEQ == sa.MAX_SEQ
+    for seq in (int(low) - 1, int(low), int(high)):
+        want = sa.WHOLE_ROW if seq < int(low) else sa.TILED
+        assert sa.backward_route(seq, torch.bfloat16) == want, seq
+    source = (_build.CSRC / "short_attention.cu").read_text()
+    assert '#include "short_bwd_tiled.cuh"' in source
+    assert "MSA_TC(msa_short_bwd_tiled, true)" in source

@@ -13,8 +13,9 @@
 * The v3 rule in f32 equals the v1 rule (delta = rowsum(p * dpm), not
   dO . o) within 2e-6, with and without a keep mask: one gradient, delta
   taken two ways.
-* ``backward_launches``: one launch for bf16 at S <= 128 (the
-  tensor-core kernel), two otherwise.
+* ``backward_launches``: one launch for bf16 at S <= 128 (the whole-row
+  tensor-core kernel), two otherwise (bf16: the tiled tensor-core pair;
+  f32: the CUDA-core pair).
 * The port's switch ``USE_V3_BWD``: ``short_attention`` on CPU tensors
   runs the v3 plain backward (the same values as autograd through the
   plain attention, f32 within 2e-5), and every named remat policy with the
@@ -43,8 +44,10 @@ HEADS = 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [12, 40])
+@pytest.mark.parametrize("s", [12, 40, 130, 200])
 def test_v3_backward_plain_matches_jax_v3(monkeypatch, s, dtype):
+    """At S = 130 and 200 the rule of the tiled pair, which JAX's kernel
+    runs on rows padded to 256 lanes."""
     monkeypatch.setattr(jax_sa, "_USE_V3_BWD", True)
     q, k, v, dout, bias = attention_inputs(3, s, 128, seed=20 + s)
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
@@ -94,9 +97,12 @@ def test_v3_plain_equals_v1_plain_in_f32(rate):
     (torch.bfloat16, 129, 2), (torch.bfloat16, 1023, 2),
     (torch.float32, 8, 2), (torch.float32, 128, 2), (torch.float32, 129, 2)])
 def test_v3_backward_launches(dtype, seq, launches):
-    """bf16 at S <= 128 is one tensor-core launch; f32 and bf16 above 128
-    keys are the CUDA-core dq and dk/dv pair."""
+    """bf16 at S <= 128 is one tensor-core launch; bf16 above 128 keys is
+    the tiled tensor-core dq and dk/dv pair, f32 the CUDA-core pair."""
     assert sa.backward_launches(seq, dtype) == launches
+    assert sa.backward_route(seq, dtype) == (
+        sa.CUDA_CORES if dtype == torch.float32 else
+        sa.WHOLE_ROW if seq <= 128 else sa.TILED)
 
 
 def test_v3_switch_on_cpu_tensors(monkeypatch):
