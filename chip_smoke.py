@@ -193,6 +193,17 @@ its own), the script:
      one-process epoch (losses, and two leaves' updates), the tiny preset with ``--resume`` bit-equal to the
      uninterrupted run, and the dp=2 ``Predictor`` (``--predict-worker``)
      against dp=1;
+  6h. tensor and sequence parallelism in two processes on the one card
+     over gloo, each rank ``cli.train --mp 2 --coordinator ...`` (this
+     script's ``--tp-worker`` runs the CLI's ``run`` without and with
+     sequence parallelism, then the other parts on the same model group):
+     bert-large global B=96 at dropout 0, 1 + 2 steps, against a
+     one-process epoch (losses, two leaves' updates, launches by route at
+     8 local heads, peak memory, the model group's collective ms a step);
+     one step at the preset's dropout (bit-equal replicated leaves on both
+     ranks); frame level at Lp=984 (flash2 at 8 local heads) against one
+     process; the bf16 and int8 Predictors against mp=1; and the tiny
+     preset at dp=2 x mp=2 in four processes with ``--resume`` bit-equal;
   7. runs two f32 train steps of a small model on the card (TF32 off) and
      on the CPU from the same weights and MLM masks, and compares the
      losses, the first step's gradients and the updated parameters; then
@@ -318,6 +329,12 @@ FUSE_WARMUP, FUSE_STEPS = 1, 5
 # held against one process; each spawn's time limit (s)
 DP_SYNTHETIC = 2 * 96
 DP_TIMEOUT = 300
+# tensor parallelism (phase 6h): an epoch of 1 + 2 steps at the global B=96
+# through cli.train --mp 2, SP off and on, in one spawn of two ranks with
+# its own time limit (s); the served split is two batches, the last ragged
+TP_SYNTHETIC = 3 * 96
+TP_TIMEOUT = 540
+TP_SERVE = 2 * 96 - 23
 # The leaves whose updates (final minus initial weights) fuse_text_pass and
 # dp are held to against the reference run's: the first layer's q, which
 # every loss term reaches through the whole encoder, and the text view's
@@ -4819,16 +4836,16 @@ def free_port():
         return s.getsockname()[1]
 
 
-def spawn_ranks(label, argv_of, cwd, timeout=DP_TIMEOUT):
-    """Two processes of this script (``argv_of(rank, port)``), joined at a
-    free local port; fails with their output if either fails.  Returns
+def spawn_ranks(label, argv_of, cwd, timeout=DP_TIMEOUT, n=2):
+    """``n`` processes of this script (``argv_of(rank, port)``), joined at a
+    free local port; fails with their output if any fails.  Returns
     (outputs, wall seconds)."""
     port = free_port()
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-u", os.path.abspath(__file__), *argv_of(r, port)],
         cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
+        for r in range(n)]
     outs = []
     try:
         for p in procs:
@@ -4854,9 +4871,29 @@ def dp_cli_argv(model, n, batch, epochs, root, extra=()):
             "--device", "cuda", *extra]
 
 
-def dp_launch(rank, port):
-    return ["--dp", "2", "--coordinator", f"127.0.0.1:{port}",
-            "--num_processes", "2", "--process_id", str(rank)]
+def dp_launch(rank, port, dp=2, mp=1):
+    return ["--dp", str(dp), "--mp", str(mp),
+            "--coordinator", f"127.0.0.1:{port}",
+            "--num_processes", str(dp * mp), "--process_id", str(rank)]
+
+
+def params_digest(trainer, state):
+    """sha256 of the whole parameter tree by sorted leaf name (the model
+    group's shards gathered; a loaded tree orders its keys otherwise than
+    a fresh one, so an unsorted digest differs where every leaf is
+    equal)."""
+    import hashlib
+
+    from msa_tpu_torch.models.weights import named_leaves
+    from msa_tpu_torch.parallel import sharding
+
+    params = state.params if trainer.mp is None else \
+        sharding.gather_across(state.params, trainer.mp)
+    digest = hashlib.sha256()
+    for k, v in sorted(named_leaves(params)):
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def cli_worker(out, dropout, argv):
@@ -4867,8 +4904,6 @@ def cli_worker(out, dropout, argv):
     the process, steps, a digest of the final parameters, the fit history,
     the gradient all-reduce time, peak memory) and ``out``.npz (the final
     UPDATE_LEAVES)."""
-    import hashlib
-
     import numpy as np
     import torch
 
@@ -4881,20 +4916,19 @@ def cli_worker(out, dropout, argv):
     reset_counts()
     trainer, state, result = train.run(train.build_parser().parse_args(argv))
     torch.cuda.synchronize()
-    digest = hashlib.sha256()
+    digest = params_digest(trainer, state)
     leaves = dict(named_leaves(state.params))
-    for k, v in sorted(leaves.items()):  # a loaded tree orders its keys
-        digest.update(k.encode())        # otherwise than a fresh one
-        digest.update(v.detach().cpu().numpy().tobytes())
     np.savez(out + ".npz", *(leaves[k].detach().cpu().numpy()
                              for k in UPDATE_LEAVES))
     with open(out + ".json", "w") as f:
         json.dump({"launches": kernel_counts(), "step": state.step,
-                   "digest": digest.hexdigest(), "history": result.history,
+                   "digest": digest, "history": result.history,
                    "best_epoch": result.best_epoch,
                    "comm_ms": trainer.comm_seconds * 1e3,
                    "dp": None if trainer.dp is None else
                    [trainer.dp.size, trainer.dp.index],
+                   "mp": None if trainer.mp is None else
+                   [trainer.mp.size, trainer.mp.index],
                    "remat": trainer.remat_policy,
                    "backend": torch.distributed.get_backend(),
                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, f)
@@ -5107,6 +5141,405 @@ def phase_data_parallel():
             "serving": served[0][0]["launches"], "comm_ms_step": comm}
 
 
+def with_sp(exp, sp):
+    return dataclasses.replace(exp, train=dataclasses.replace(
+        exp.train, sequence_parallel=sp))
+
+
+def tp_inputs():
+    """What phase 6h's reference and its ranks share: the frame-level
+    experiment and batch (B=16, Lp=984, dropout 0) and the served split."""
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+
+    fexp = no_dropout(frame_experiment(
+        FRAME_PAIR_LEN, train_batch_size=FRAME_BATCH,
+        compute_dtype="bfloat16", data_parallel=1))
+    cfg = fexp.model
+    fbatch = next(iter(MultimodalDataset(synthetic_split(
+        FRAME_BATCH, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+        vocab_size=cfg.bert.vocab_size, seed=2,
+        pair_seq_length=FRAME_PAIR_LEN), seed=0).epoch_batches(0, FRAME_BATCH)))
+    split = synthetic_split(TP_SERVE, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=0)
+    return fexp, fbatch, split
+
+
+def tp_worker(out, argv):
+    """A rank of ``cli.train --mp 2`` (bert-large, B=96, dropout 0) run
+    twice in this process, without and with sequence parallelism (set in
+    the experiment: JAX's CLI has no flag for it), then on the same model
+    group: one train step at the preset's dropout (a digest of the
+    replicated leaves), one frame-level step at Lp=984, and the bf16 and
+    int8 Predictors on TP_SERVE rows.  Writes ``out``.json (per part: the
+    process's kernel launches, losses, the model group's collective ms
+    inside the train epochs, peak memory) and ``out``.npz (the UPDATE_LEAVES
+    of both cli runs, gathered; the predictions)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.cli import train
+    from msa_tpu_torch.configs import build_experiment
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params, named_leaves
+    from msa_tpu_torch.parallel import sharding
+    from msa_tpu_torch.training import trainer as trainer_mod
+
+    epoch_comm = [0.0]
+    train_epoch = trainer_mod.Trainer.train_epoch
+
+    def timed_epoch(self, *a, **k):  # the model group's time in training
+        before = self.model_comm_seconds
+        result = train_epoch(self, *a, **k)
+        epoch_comm[0] += self.model_comm_seconds - before
+        return result
+
+    trainer_mod.Trainer.train_epoch = timed_epoch
+    flags_config = train.build_config
+    report, arrays = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        epoch_comm[0] = 0.0
+        t0 = time.perf_counter()
+        info = fn()
+        torch.cuda.synchronize()
+        info.update(launches=kernel_counts(), seconds=time.perf_counter() - t0,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        report[name] = info
+
+    def cli(sp):
+        train.build_config = lambda args: with_sp(no_dropout(
+            flags_config(args)), sp)
+        trainer, state, result = train.run(train.build_parser().parse_args(
+            argv))
+        leaves = dict(named_leaves(state.params))
+        for k in UPDATE_LEAVES:
+            dim = sharding.split_dim(k)
+            leaf = leaves[k].detach()
+            arrays[f"sp{int(sp)} {k}"] = (leaf if dim is None else
+                                          trainer.mp.all_gather(leaf, dim)
+                                          ).float().cpu().numpy()
+        return {"step": state.step, "history": result.history,
+                "mp": [trainer.mp.size, trainer.mp.index,
+                       trainer.mp.sequence_parallel],
+                "remat": trainer.remat_policy,
+                "backend": torch.distributed.get_backend(),
+                "comm_ms_step": epoch_comm[0] * 1e3 / state.step}
+
+    for sp in (False, True):
+        part(f"sp{int(sp)}", lambda: cli(sp))
+    train.build_config = flags_config
+    args = train.build_parser().parse_args(argv)
+    exp = with_sp(train.build_config(args), True)
+
+    def dropout_step():
+        """One step at the preset's dropout, sequence parallel: the model
+        ranks must end on bit-equal replicated leaves."""
+        trainer = trainer_mod.Trainer(exp, "cuda")
+        state = trainer.init_state(args.seed, 100)
+        batch = next(iter(train.load_splits(args)[0].epoch_batches(
+            0, BATCH, shuffle=True)))
+        state, m = trainer.train_step(state, batch, args.seed)
+        digest = hashlib.sha256()
+        for k, v in sorted(named_leaves(state.params)):
+            if sharding.split_dim(k) is None:
+                digest.update(k.encode())
+                digest.update(v.detach().cpu().numpy().tobytes())
+        return {"loss": float(m["loss"]), "digest": digest.hexdigest()}
+
+    part("dropout", dropout_step)
+    fexp, fbatch, split = tp_inputs()
+
+    def frame_step():
+        trainer = trainer_mod.Trainer(with_sp(dataclasses.replace(
+            fexp, train=dataclasses.replace(fexp.train, model_parallel=2)),
+            True), "cuda")
+        state = trainer.init_state(0, 100)
+        state, m = trainer.train_step(state, fbatch, 1)
+        return {k: float(v) for k, v in m.items()}
+
+    part("frame", frame_step)
+    sexp = build_experiment("mosi", "bert-large-uncased", num_labels=1,
+                            data_parallel=1, model_parallel=2)
+    for mode in ("bf16", "int8"):
+        def serve(mode=mode):
+            params = init_params(sexp.model, torch.Generator(
+                device="cuda").manual_seed(0))
+            pred = Predictor(sexp, params, BATCH, "cuda",
+                             quantize=None if mode == "bf16" else mode)
+            del params
+            arrays[f"serve {mode}"] = pred.predict_split(split)
+            return {}
+        part(f"serve_{mode}", serve)
+    np.savez(out + ".npz", **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def phase_one_local_head():
+    """Every attention kernel entry a tensor-parallel path takes, at one
+    local head of d = 32 (the tiny preset at mp = 2: H / mp = 32): the
+    kernel phases of the short forward and backward (whole-row, tiled,
+    v3), flash2 and the head-split flash attention under
+    :func:`head_widths`, with their checks and tolerances, from a
+    generator of their own (v2s, v2p and v1 run on no such path; ln_quant
+    and the joint embed see the whole, replicated width)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    t0 = time.perf_counter()
+    with head_widths(32, 1):
+        print(f"one local head: H={HIDDEN}, {HEADS} head", flush=True)
+        phase_attention(gen)
+        phase_attention_backward(gen)
+        phase_v3_kernels(gen)
+        phase_tiled_backward()
+        phase_flash2(gen)
+        phase_flash2_backward(gen)
+        phase_flash_attention(gen)
+    print(f"one local head: every kernel check passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_tensor_parallel():
+    """Tensor and sequence parallelism in two processes on the one card,
+    over gloo (NCCL refuses two ranks on one device), every rank launched
+    as ``python -m msa_tpu_torch.cli.train --mp 2 --coordinator
+    127.0.0.1:<port> --num_processes 2 --process_id r`` (through this
+    script's ``--tp-worker``, which calls the CLI's ``run`` twice and then
+    runs the other parts on the same model group):
+
+    * bert-large, global B=96 on both ranks, 8 of the 16 heads and half
+      the FFN and vocabulary a rank, dropout 0, one epoch of 1 + 2 steps,
+      without and with sequence parallelism: the epoch losses within bf16
+      GRAD_TOL, and the UPDATE_LEAVES' updates within UPDATE_RTOL, of a
+      one-process epoch on the same batches; the launches (the short v2
+      pair only: JAX's head-parallel attention takes neither v2s nor v2p);
+      peak memory and the model group's collective ms a step;
+    * one step at the preset's dropout under sequence parallelism: both
+      ranks end on bit-equal replicated leaves (no rank forked the
+      residual stream with a mask of its own);
+    * frame level, B=16, Lp=984 (flash2 at 8 local heads), one step at
+      dropout 0 with sequence parallelism, against one process;
+    * the bf16 and int8 Predictors against mp=1;
+    * the tiny preset (2 heads: 1 a rank, d = 32) at dp=2 x mp=2 in four
+      processes: two epochs and ``--resume`` from the first epoch's
+      checkpoint end on bit-equal whole parameters on every rank, after
+      every attention kernel entry of these paths was checked at one local
+      head of d = 32 (:func:`phase_one_local_head`).
+
+    gloo stages every collective through the host and two ranks share one
+    H100, so the collective times describe that setup, not scaling."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.cli import train
+    from msa_tpu_torch.configs import build_experiment
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params
+    from msa_tpu_torch.ops.flash2 import use_fused_backward
+    from msa_tpu_torch.training.checkpoint import epoch_dir
+    from msa_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    phase_one_local_head()
+    atol, rtol = GRAD_TOL["bfloat16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the one-process references first, in this process
+        big = dp_cli_argv("bert-large-uncased", TP_SYNTHETIC, BATCH, 1,
+                          os.path.join(tmp, "big"))
+        args = train.build_parser().parse_args(big)
+        train_ds = train.load_splits(args)[0]
+        trainer = Trainer(no_dropout(train.build_config(args)), "cuda")
+        state = trainer.init_state(args.seed, train_ds.num_batches(BATCH))
+        start = {k: params_leaf(state.params, k) for k in UPDATE_LEAVES}
+        state, em = trainer.train_epoch(state, train_ds, 0, args.seed)
+        ref = em.averaged()
+        ref_leaves = {k: params_leaf(state.params, k) for k in UPDATE_LEAVES}
+        del trainer, state
+        fexp, fbatch, split = tp_inputs()
+        trainer = Trainer(fexp, "cuda")
+        state = trainer.init_state(0, 100)
+        frame_ref = {k: float(v) for k, v in
+                     trainer.train_step(state, fbatch, 1)[1].items()}
+        del trainer, state
+        exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
+        params = init_params(exp.model, torch.Generator(
+            device="cuda").manual_seed(0))
+        serve_ref = {mode: Predictor(
+            exp, params, BATCH, "cuda",
+            quantize=None if mode == "bf16" else mode).predict_split(split)
+            for mode in ("bf16", "int8")}
+        del params
+        torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t_phase
+
+        outs, big_s = spawn_ranks("tp bert-large", lambda r, port: [
+            "--tp-worker", os.path.join(tmp, f"tp{r}"), "--", *big,
+            *dp_launch(r, port, 1, 2)], tmp, timeout=TP_TIMEOUT)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"tp{r}.json")) as f:
+                info = json.load(f)
+            with np.load(os.path.join(tmp, f"tp{r}.npz")) as z:
+                ranks.append((info, {k: z[k] for k in z.files}))
+        steps = TP_SYNTHETIC // BATCH
+        want = rung_launches("none", 24, steps)
+        want["short_attention"] += 2 * 24 * 2  # one val and one test batch
+        want["fused_joint_embed"] += 2 * 2
+        lines = []
+        for sp in (0, 1):
+            for r, (info, _) in enumerate(ranks):
+                run = info[f"sp{sp}"]
+                if run["launches"] != want or run["step"] != steps or \
+                        run["mp"] != [2, r, bool(sp)] or \
+                        run["backend"] != "gloo" or run["remat"] != "none":
+                    raise AssertionError(f"tp bert-large sp={sp} rank {r}: "
+                                         f"{run}, want launches {want}")
+            runs = [info[f"sp{sp}"] for info, _ in ranks]
+            if any(runs[0]["history"][0]["train"][k] !=
+                   runs[1]["history"][0]["train"][k] for k in
+                   ("loss", "mlm_loss", "ap_loss", "label_loss", "nce")):
+                raise AssertionError(f"tp sp={sp}: the ranks' losses differ: "
+                                     f"{[r_['history'] for r_ in runs]}")
+            got = runs[0]["history"][0]["train"]
+            gaps = {k: abs(got[k] - ref[k]) for k in
+                    ("loss", "mlm_loss", "ap_loss", "label_loss", "nce")}
+            if not all(g <= atol + rtol * abs(ref[k]) for k, g in gaps.items()):
+                raise AssertionError(f"tp sp={sp} losses {got} against one "
+                                     f"process {ref}")
+            updates = {k: [check_update(f"tp sp={sp} {k}", torch.from_numpy(
+                ranks[0][1][f"sp{sp} {k}"]), ref_leaves[k], start[k])]
+                for k in UPDATE_LEAVES}
+            lines.append(
+                f"{'with' if sp else 'without'} sequence parallelism: epoch "
+                f"losses against one process max |diff| "
+                f"{max(gaps.values()):.2e} ({got['loss']:.5f} against "
+                f"{ref['loss']:.5f}); rank 0's "
+                f"{update_text(updates, 'one process' + chr(39) + 's')}; the "
+                f"model group's collectives "
+                f"{[round(r_['comm_ms_step'], 1) for r_ in runs]} ms a step "
+                f"a rank; peak {[round(r_['peak_gib'], 2) for r_ in runs]} "
+                f"GiB; {runs[0]['seconds']:.1f} s for the run")
+        per_step = {k: v for k, v in rung_launches("none", 24, 1).items()
+                    if v}
+        print(f"tp: mp=2 bert-large bf16 B={BATCH} (the same rows on both "
+              f"ranks, 8 heads, H/mp = 512 a rank; two processes on one "
+              f"card, gloo), {steps} steps through cli.train; launches a "
+              f"step a rank {per_step} (the short v2 pair only); "
+              + "; ".join(lines) + f"; {big_s:.1f} s for both ranks' "
+              f"parts", flush=True)
+
+        drops = [info["dropout"] for info, _ in ranks]
+        if drops[0]["digest"] != drops[1]["digest"] or \
+                not math.isfinite(drops[0]["loss"]):
+            raise AssertionError(f"tp dropout step: {drops}")
+        frames = [info["frame"] for info, _ in ranks]
+        fgap = {k: abs(frames[0][k] - frame_ref[k]) for k in
+                ("loss", "mlm_loss", "ap_loss", "label_loss", "nce")}
+        fused = use_fused_backward(TEXT_LEN + FRAME_PAIR_LEN, 512, 8,
+                                   torch.bfloat16)
+        fwant = rung_launches("none", 24, 1, frame=True, fused=fused)
+        if any(frames[0][k] != frames[1][k] for k in fgap) or not all(
+                g <= atol + rtol * abs(frame_ref[k]) for k, g in fgap.items()) \
+                or frames[0]["mlm_overflow"] or \
+                any(f["launches"] != fwant for f in frames):
+            raise AssertionError(f"tp frame step {frames} against one "
+                                 f"process {frame_ref}, want launches "
+                                 f"{fwant}")
+        atol_s, rtol_s = ATTN_TOL["bfloat16"]
+        n_batches = -(-TP_SERVE // BATCH)
+        serve_err = {}
+        for mode in ("bf16", "int8"):
+            got = [arr[f"serve {mode}"] for _, arr in ranks]
+            want_s = serving_launches(24, n_batches,
+                                      None if mode == "bf16" else mode)
+            if not np.array_equal(got[0], got[1]) or \
+                    ranks[0][0][f"serve_{mode}"]["launches"] != want_s:
+                raise AssertionError(f"tp serving {mode}: ranks differ or "
+                                     f"launches {ranks[0][0][f'serve_{mode}']}"
+                                     f", want {want_s}")
+            serve_err[mode] = check_close(
+                f"tp serving {mode}", torch.from_numpy(got[0]),
+                torch.from_numpy(serve_ref[mode]), atol_s, rtol_s)
+        print(f"tp: one step at the preset's dropout with sequence "
+              f"parallelism: bit-equal replicated leaves on both ranks "
+              f"(loss {drops[0]['loss']:.5f}); frame level B={FRAME_BATCH} "
+              f"Lp={FRAME_PAIR_LEN} at mp=2 with sequence parallelism "
+              f"(flash2 at 8 local heads, {'fused' if fused else 'split'} "
+              f"backward), one step: losses against one process max |diff| "
+              f"{max(fgap.values()):.2e} ({frames[0]['loss']:.5f} against "
+              f"{frame_ref['loss']:.5f}), peak "
+              f"{[round(i['frame']['peak_gib'], 2) for i, _ in ranks]} GiB, "
+              f"{ranks[0][0]['frame']['seconds']:.1f} s; serving "
+              f"{TP_SERVE} rows at mp=2 against mp=1: bf16 max |diff| "
+              f"{serve_err['bf16']:.3e}, int8 {serve_err['int8']:.3e}, the "
+              f"same arrays on both ranks ({ranks[0][0]['serve_bf16']['seconds']:.1f}"
+              f" / {ranks[0][0]['serve_int8']['seconds']:.1f} s with the "
+              f"weights' set-up); references in this process {ref_s:.1f} s",
+              flush=True)
+
+        # tiny: dp=2 x mp=2, two epochs, then --resume from epoch 1
+        root = os.path.join(tmp, "tiny")
+        tiny = dp_cli_argv("tiny", 256, 32, 2, root)
+        _, tiny_s = spawn_ranks("tp tiny", lambda r, port: [
+            "--cli-worker", os.path.join(tmp, f"tiny{r}"), "preset", "--",
+            *tiny, *dp_launch(r, port, 2, 2)], tmp, n=4)
+        run = os.path.join(root, "model_save",
+                           sorted(os.listdir(os.path.join(root, "model_save")))[0])
+        if not os.path.isdir(epoch_dir(run, 0)):
+            raise AssertionError(f"tp tiny: no checkpoint of epoch 1 in {run}")
+        _, resume_s = spawn_ranks("tp tiny --resume", lambda r, port: [
+            "--cli-worker", os.path.join(tmp, f"resume{r}"), "preset", "--",
+            *tiny, *dp_launch(r, port, 2, 2), "--resume", epoch_dir(run, 0)],
+            tmp, n=4)
+        infos = [read_rank(os.path.join(tmp, f"{k}{r}"), ".npz")[0]
+                 for k in ("tiny", "resume") for r in range(4)]
+        if len({i["digest"] for i in infos}) != 1 or \
+                {i["step"] for i in infos} != {16} or \
+                [i["mp"] for i in infos[:4]] != [[2, r % 2] for r in range(4)]:
+            raise AssertionError(f"tp tiny --resume: digests "
+                                 f"{[i['digest'][:12] for i in infos]}, steps "
+                                 f"{[i['step'] for i in infos]}, mp "
+                                 f"{[i['mp'] for i in infos]}")
+        tiny_want = rung_launches("none", 2, 16)
+        tiny_want["short_attention"] += 2 * 2 * 4  # val + test, two epochs
+        tiny_want["fused_joint_embed"] += 2 * 4
+        if infos[0]["launches"] != tiny_want:
+            raise AssertionError(f"tp tiny launches {infos[0]['launches']}, "
+                                 f"want {tiny_want}")
+        print(f"tp: dp=2 x mp=2 tiny preset B=32 (1 head of d=32 a rank) "
+              f"through cli.train in four processes: 2 epochs "
+              f"({tiny_s:.1f} s), --resume from epoch 1 ({resume_s:.1f} s) "
+              f"ends on the uninterrupted run's whole parameters bit for bit "
+              f"on all four ranks (step 16); phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    info0 = ranks[0][0]
+    return {"training": info0["sp0"]["launches"],
+            "sp_training": info0["sp1"]["launches"],
+            "frame": info0["frame"]["launches"],
+            "serving": info0["serve_bf16"]["launches"],
+            "int8_serving": info0["serve_int8"]["launches"],
+            "tiny_training": infos[0]["launches"],
+            "comm_ms_step": [info0["sp0"]["comm_ms_step"],
+                             info0["sp1"]["comm_ms_step"]]}
+
+
+def timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds printed on a line of their
+    own (where the script's time goes)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]", flush=True)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, timing, by_path):
     ms, plain_ms, lib_ms, (bound, bound_by) = timing
     return {"name": name, "route": "cuda", "source": source,
@@ -5119,7 +5552,8 @@ def kernel_entry(name, source, replaces, launches, err, timing, by_path):
 def main() -> int:
     import torch
 
-    worker = sys.argv[1:2] in (["--cli-worker"], ["--predict-worker"])
+    worker = sys.argv[1:2] in (["--cli-worker"], ["--predict-worker"],
+                               ["--tp-worker"])
     if not worker and (len(sys.argv) not in (1, 3) or sys.argv[1:2] not in (
             [], ["--flash-times"], ["--short-times"])):
         print("usage: chip_smoke.py [--flash-times ROOT | --short-times ROOT]",
@@ -5132,6 +5566,8 @@ def main() -> int:
         return cli_worker(sys.argv[2], sys.argv[3], sys.argv[5:])
     if sys.argv[1:2] == ["--predict-worker"]:  # --predict-worker OUT RANK PORT
         return predict_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-worker"]:  # --tp-worker OUT -- ARGV
+        return tp_worker(sys.argv[2], sys.argv[4:])
     if len(sys.argv) == 3:  # timings of the tree at ROOT only
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         if sys.argv[1] == "--flash-times":
@@ -5166,69 +5602,72 @@ def main() -> int:
         report_wgmma(usage.result())
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    attn_err, attn_times = phase_attention(gen)
-    bwd_err, bwd_times = phase_attention_backward(gen)
-    drop = phase_dropout(gen)
-    embed_err, embed_times = phase_joint_embed(gen)
-    lnq_err, lnq_times = phase_ln_quant(gen)
+    attn_err, attn_times = timed(phase_attention, gen)
+    bwd_err, bwd_times = timed(phase_attention_backward, gen)
+    drop = timed(phase_dropout, gen)
+    embed_err, embed_times = timed(phase_joint_embed, gen)
+    lnq_err, lnq_times = timed(phase_ln_quant, gen)
 
-    f2_err, f2_times = phase_flash2(gen)
-    f2_bwd_err, f2_bwd_times = phase_flash2_backward(gen)
-    pp_err, pp_times = phase_probs_packed(gen)
-    adamw_err, adamw_times = phase_fused_adamw(gen)
-    v3_err, v3_times = phase_v3_kernels(gen)
-    tiled_err = phase_tiled_backward()
-    tiled_times = time_short_backwards(with_plain=True)
-    fa_err, fa_times = phase_flash_attention(gen)
-    v1_err, v1_times = phase_short_v1(gen)
-    phase_wgmma_flash()
-    probe_flash2_dq()
-    time_flash_backwards()
-    phase_head_dim_32()
-    phase_tiny_preset()
+    f2_err, f2_times = timed(phase_flash2, gen)
+    f2_bwd_err, f2_bwd_times = timed(phase_flash2_backward, gen)
+    pp_err, pp_times = timed(phase_probs_packed, gen)
+    adamw_err, adamw_times = timed(phase_fused_adamw, gen)
+    v3_err, v3_times = timed(phase_v3_kernels, gen)
+    tiled_err = timed(phase_tiled_backward)
+    tiled_times = timed(time_short_backwards, with_plain=True)
+    fa_err, fa_times = timed(phase_flash_attention, gen)
+    v1_err, v1_times = timed(phase_short_v1, gen)
+    timed(phase_wgmma_flash)
+    timed(probe_flash2_dq)
+    timed(time_flash_backwards)
+    timed(phase_head_dim_32)
+    timed(phase_tiny_preset)
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
-    pred, split, serve_launches = phase_serving(exp, params)
-    phase_service(pred)
-    int8_launches, _, int8_preds, int8_outs, calib = phase_int8_serving(
-        exp, params, pred, split)
+    pred, split, serve_launches = timed(phase_serving, exp, params)
+    timed(phase_service, pred)
+    int8_launches, _, int8_preds, int8_outs, calib = timed(
+        phase_int8_serving, exp, params, pred, split)
     del pred
-    fuse_launches, _ = phase_fuse_qkv(exp, params, split, int8_preds,
-                                      int8_outs, calib)
+    fuse_launches, _ = timed(phase_fuse_qkv, exp, params, split,
+                             int8_preds, int8_outs, calib)
     del int8_preds
-    frame_serve_launches, _ = phase_frame_serving(params)
-    phase_service_cli(exp, params)
+    frame_serve_launches, _ = timed(phase_frame_serving, params)
+    timed(phase_service_cli, exp, params)
     del params
     torch.cuda.empty_cache()
-    train_launches, _ = phase_training()
+    train_launches, _ = timed(phase_training)
     torch.cuda.empty_cache()
-    frame_train_launches, _ = phase_frame_training(
+    frame_train_launches, _ = timed(
+        phase_frame_training,
         FRAME_PAIR_LEN, FRAME_BATCH, None, FRAME_WARMUP, FRAME_STEPS,
         "frame-level")
     torch.cuda.empty_cache()
-    long_launches, _ = phase_frame_training(
+    long_launches, _ = timed(
+        phase_frame_training,
         LONG_PAIR_LEN, LONG_BATCH, LONG_LAYERS, 1, 1, "long-S")
     torch.cuda.empty_cache()
-    frame_short = phase_frame_short()
+    frame_short = timed(phase_frame_short)
     torch.cuda.empty_cache()
-    rungs = phase_remat_rungs()
+    rungs = timed(phase_remat_rungs)
     pr6_inputs = train_inputs(3)
-    fused_runs = phase_fused_train(*pr6_inputs)
-    v3_runs = phase_v3_train(*pr6_inputs)
+    fused_runs = timed(phase_fused_train, *pr6_inputs)
+    v3_runs = timed(phase_v3_train, *pr6_inputs)
     del pr6_inputs
     torch.cuda.empty_cache()
-    frame_rungs = phase_frame_rungs()
+    frame_rungs = timed(phase_frame_rungs)
     torch.cuda.empty_cache()
-    frame_flash = phase_frame_flash()
+    frame_flash = timed(phase_frame_flash)
     torch.cuda.empty_cache()
-    auto_launches = phase_auto()
-    cli_launches = phase_entry_point()
+    auto_launches = timed(phase_auto)
+    cli_launches = timed(phase_entry_point)
     torch.cuda.empty_cache()
-    fuse = phase_fuse_text_pass()
-    dp = phase_data_parallel()
-    phase_f32_train()
-    phase_f32_train(pair_len=FRAME_PAIR_LEN, batch_size=4)
+    fuse = timed(phase_fuse_text_pass)
+    dp = timed(phase_data_parallel)
+    tp = timed(phase_tensor_parallel)
+    timed(phase_f32_train)
+    timed(phase_f32_train, pair_len=FRAME_PAIR_LEN, batch_size=4)
 
     def paths(name):
         return {"serving": serve_launches[name], "training": train_launches[name],
@@ -5256,6 +5695,12 @@ def main() -> int:
                 "dp_training_rank0": dp["training"][name],
                 "dp_tiny_training_rank0": dp["tiny_training"][name],
                 "dp_serving_rank0": dp["serving"][name],
+                "tp_training_rank0": tp["training"][name],
+                "tp_sp_training_rank0": tp["sp_training"][name],
+                "tp_frame_training_rank0": tp["frame"][name],
+                "tp_serving_rank0": tp["serving"][name],
+                "tp_int8_serving_rank0": tp["int8_serving"][name],
+                "tp_tiny_training_rank0": tp["tiny_training"][name],
                 **{f"frame_short_{rule}": r["launches"][name]
                    for rule, r in frame_short.items()}}
 

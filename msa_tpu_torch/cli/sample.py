@@ -7,14 +7,17 @@ MISA report.
         --data_pkl cmu_mosi.pkl --vocab vocab.txt [--device cpu]
 
 It takes JAX's ``--dp`` (the data-parallel size the eval step runs at, -1:
-every rank of the launch) and ``--mp`` (the model-parallel size: 1, as in
-``cli.train``, until tensor parallelism is ported).
+every rank of the launch) and ``--mp`` (the model-parallel size).  Above
+one rank every process runs this CLI, started by torchrun (``env://``) or
+with the ``MSA_COORDINATOR`` / ``MSA_NUM_PROCESSES`` / ``MSA_PROCESS_ID``
+variables of ``cli.train``'s manual launch.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import pickle
 import sys
 
@@ -24,7 +27,7 @@ from ..data.wordpiece import Tokenizer
 from ..metrics.scores import misa_report, test_ce_score, test_mse_score
 from ..training.checkpoint import load_checkpoint, load_config, resolve_checkpoint
 from ..training.trainer import Trainer
-from .train import check_single_device
+from .train import launch_from
 
 
 def main(argv=None):
@@ -42,11 +45,11 @@ def main(argv=None):
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel size (-1: every rank of the launch)")
     p.add_argument("--mp", type=int, default=1,
-                   help="model-parallel size (the port takes 1)")
+                   help="model-parallel (tensor-parallel) size")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
-    check_single_device(args)
+    device = launch_from(args.device, distributed="WORLD_SIZE" in os.environ)
 
     try:
         ckpt = resolve_checkpoint(args.checkpoint, args.model_num)
@@ -80,8 +83,9 @@ def main(argv=None):
                              pair_seq_length=lp)
     test_ds = MultimodalDataset(fs, seed=0)
 
-    trainer = Trainer(exp, args.device, **mask_kwargs)
+    trainer = Trainer(exp, device, **mask_kwargs)
     state, meta = load_checkpoint(ckpt, trainer.device)
+    state.params = trainer.local_tree(state.params)
     print(f"Loaded checkpoint at step {meta.get('step')} epoch {meta.get('epoch')}")
 
     _, preds, labels = trainer.eval_epoch(state, test_ds, 0, 0, args.batch_size)

@@ -25,6 +25,15 @@ flags left out), or ``torchrun --nproc_per_node 2 -m msa_tpu_torch.cli.train
 where ranks share a card or tensors are on the CPU, else NCCL
 (``parallel/distributed.py``).  Rank 0 writes the checkpoints and the saved
 predictions.
+
+Tensor and sequence parallelism: ``--mp M`` splits the weights over M ranks
+(the data axis takes the rest: ``--dp -1``), e.g. on the CPU
+
+    python -m msa_tpu_torch.cli.train --device cpu --dp 2 --mp 2 \
+        --coordinator 127.0.0.1:29500 --num_processes 4 --process_id {0..3} ...
+
+The config's ``sequence_parallel`` splits the residual stream over the
+sequence as well.
 """
 
 from __future__ import annotations
@@ -89,7 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel size (-1: every rank of the launch)")
     p.add_argument("--mp", type=int, default=1,
-                   help="model-parallel size (the port takes 1)")
+                   help="model-parallel (tensor-parallel) size")
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--use_flash_attention", type=str, default="auto",
@@ -110,32 +119,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_single_device(args) -> None:
-    """Raise for the model parallelism the port does not take yet."""
-    if args.mp != 1:
-        raise NotImplementedError(
-            f"--mp {args.mp}: tensor parallelism comes with the port's "
-            "tensor-parallel slice (ROADMAP: parallelism); it takes --dp")
-
-
 def launch(args):
     """Start the process group when the launch flags (or their MSA_*
     variables) ask for one; returns the device this rank trains on."""
+    return launch_from(args.device, args.distributed, args.coordinator,
+                       args.num_processes, args.process_id)
+
+
+def launch_from(device, distributed: bool = False,
+                coordinator: Optional[str] = None,
+                num_processes: Optional[int] = None,
+                process_id: Optional[int] = None):
+    """:func:`launch` from its values; what is None is read from the
+    ``MSA_*`` variables."""
     from ..parallel.distributed import (initialize, process_env_defaults,
                                         rank_device)
 
     env = process_env_defaults()
-    coordinator = args.coordinator or env["coordinator_address"]
-    if not (args.distributed or coordinator or args.num_processes):
-        return args.device
-    process_id = (args.process_id if args.process_id is not None
-                  else env["process_id"])
+    coordinator = coordinator or env["coordinator_address"]
+    if not (distributed or coordinator or num_processes):
+        return device
+    process_id = process_id if process_id is not None else env["process_id"]
     initialize(coordinator_address=coordinator,
-               num_processes=(args.num_processes
-                              if args.num_processes is not None
+               num_processes=(num_processes if num_processes is not None
                               else env["num_processes"]),
-               process_id=process_id, device=args.device)
-    return rank_device(args.device, process_id)
+               process_id=process_id, device=device)
+    return rank_device(device, process_id)
 
 
 def load_splits(args) -> Tuple[MultimodalDataset, MultimodalDataset,
@@ -195,7 +204,6 @@ def run(args):
     """The CLI's flow; returns (trainer, final state, FitResult)."""
     from ..parallel import distributed
 
-    check_single_device(args)
     device = launch(args)
     logger, _ = get_logger("./logs")
     logger.info("Alpha: %s Beta: %s", args.alpha, args.beta)
@@ -242,7 +250,8 @@ def run(args):
         loaded, meta = load_checkpoint(ckpt, trainer.device)
         state = trainer.init_state(args.seed, total_steps,
                                    params=loaded.params)
-        state.opt_state, state.step = loaded.opt_state, loaded.step
+        state.opt_state = trainer.local_opt_state(loaded.opt_state)
+        state.step = loaded.step
         loaded_step = loaded.step
         start_epoch = int(meta.get("epoch", -1)) + 1
         if "fit" in meta:  # restore best_*/patience/history, not just weights
@@ -261,10 +270,14 @@ def run(args):
                                 checkpoint_dir=ckpt_dir,
                                 start_epoch=start_epoch,
                                 resume_result=resume_result)
+    steps_run = max(state.step - loaded_step, 1)
     if trainer.dp is not None:
         logger.info("Gradient all-reduce: %.2f ms a step (%d ranks)",
-                    trainer.comm_seconds * 1e3 / max(state.step - loaded_step, 1),
-                    trainer.dp.size)
+                    trainer.comm_seconds * 1e3 / steps_run, trainer.dp.size)
+    if trainer.mp is not None:
+        logger.info("Model-group collectives: %.2f ms a step, eval included "
+                    "(%d ranks)", trainer.model_comm_seconds * 1e3 / steps_run,
+                    trainer.mp.size)
     if trainer.device.type == "cuda":
         import torch
         logger.info("Peak device memory: %.2f GiB",

@@ -8,13 +8,17 @@ their plain versions.  ``quantize`` selects the int8 serving modes
 (``ops/quant.py``), with static activation scales from
 :func:`calibrate_act_stats` for ``int8_static``.  Under data parallelism
 each rank serves its rows of every batch and the predictions are gathered,
-so every rank returns the whole array.
+so every rank returns the whole array.  Under tensor parallelism the ranks
+of a model group serve the same rows with their shards of the weights
+(``parallel/sharding.py``): the int8 modes quantize the full weights, then
+cut them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .configs import ExperimentConfig
 from .data import FeaturizedSplit
@@ -22,8 +26,9 @@ from .data import FeaturizedSplit
 from .models.mmbert import mmbert_forward
 from .models.weights import cast_for_compute, to_device
 from .ops.quant import quantize_bert_params
-from .parallel.distributed import DataParallel, local_rows
-from .parallel.mesh import DATA_AXIS, make_mesh, refuse_model_parallel
+from .parallel import sharding
+from .parallel.distributed import DataParallel, ModelParallel, local_rows
+from .parallel.mesh import DATA_AXIS, make_mesh
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 QUANTIZE_MODES = ("int8", "int8_static")
@@ -43,13 +48,14 @@ def _upload(x: np.ndarray, device: torch.device,
 
 
 def _serving_forward(params, config: ExperimentConfig, dtype: torch.dtype,
-                     ids, mask, visual, speech, collect_act_stats=False):
+                     ids, mask, visual, speech, collect_act_stats=False,
+                     mp=None):
     ids = ids.long()
     return mmbert_forward(params, ids, mask, ids, ids, visual, speech,
                           config.model, compute_dtype=dtype,
                           use_flash=config.train.use_flash_attention,
                           collect_act_stats=collect_act_stats,
-                          fuse_text_pass=config.train.fuse_text_pass)
+                          fuse_text_pass=config.train.fuse_text_pass, mp=mp)
 
 
 def _fetch(tensors):
@@ -60,7 +66,7 @@ def _fetch(tensors):
 
 @torch.inference_mode()
 def calibrate_act_stats(config: ExperimentConfig, params, split: FeaturizedSplit,
-                        batch_size: int = 8, max_batches: int = 4):
+                        batch_size: int = 8, max_batches: int = 4, mp=None):
     """Absmax activation statistics for int8 static-scale quantization.
 
     Runs the deterministic serving forward with ``collect_act_stats=True``
@@ -68,6 +74,8 @@ def calibrate_act_stats(config: ExperimentConfig, params, split: FeaturizedSplit
     ``params`` (the port's tree, in the compute dtype) and returns the
     elementwise max: {"attn_in"|"ctx"|"mlp_in"|"ffn_act": [L] f32 tensor},
     what :func:`~msa_tpu_torch.ops.quant.quantize_bert_params` takes.
+    Under tensor parallelism (``mp``; ``params`` the rank's shard) each
+    statistic is the maximum over the model group, the same on each rank.
     """
     n = len(split)
     if n == 0:
@@ -92,7 +100,7 @@ def calibrate_act_stats(config: ExperimentConfig, params, split: FeaturizedSplit
         stats = _serving_forward(
             params, config, dtype, prep(split.input_ids),
             prep(split.attention_mask), prep(split.visual), prep(split.speech),
-            collect_act_stats=True)["act_stats"]
+            collect_act_stats=True, mp=mp)["act_stats"]
         agg = stats if agg is None else {
             k: torch.maximum(v, stats[k]) for k, v in agg.items()}
     return agg
@@ -124,7 +132,9 @@ class Predictor:
 
         The mesh is ``make_mesh(data_parallel, model_parallel)`` over the
         process group: a data axis above 1 splits every batch's rows over
-        it, so ``batch_size`` must be a multiple of it.
+        it, so ``batch_size`` must be a multiple of it; a model axis above 1
+        splits the weights (``sequence_parallel`` as the config says), and
+        ``fuse_qkv`` then raises, as JAX's does.
         """
         tc = config.train
         if quantize not in (None,) + QUANTIZE_MODES:
@@ -133,15 +143,22 @@ class Predictor:
             raise ValueError(
                 "quantize='int8_static' needs calibration= a FeaturizedSplit "
                 "to derive static activation scales")
-        refuse_model_parallel(tc)
         if tc.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
+        if fuse_qkv and tc.model_parallel > 1:
+            # contiguous model-axis chunks of the [*, 3H] output would mix
+            # q with k (JAX's guard, msa_tpu/inference.py)
+            raise ValueError("fuse_qkv requires a mesh without a model axis "
+                             "(ops/quant.py docstring)")
         self.mesh = make_mesh(tc.data_parallel, tc.model_parallel)
         if int(batch_size) % self.mesh.shape[DATA_AXIS]:
             raise ValueError(
                 f"batch_size {batch_size} must be a multiple of the "
                 f"data-axis size {self.mesh.shape[DATA_AXIS]}")
         self.dp = DataParallel.from_mesh(self.mesh)
+        self.mp = ModelParallel.from_mesh(self.mesh, tc.sequence_parallel)
+        if self.mp is not None:
+            sharding.check_divisible(config.model.bert, self.mp.size)
         self.inflight_batches = max(1, int(inflight_batches))
         self.config = config
         self.batch_size = int(batch_size)
@@ -157,13 +174,20 @@ class Predictor:
             stats = None
             if quantize == "int8_static":
                 stats = calibrate_act_stats(
-                    config, cast_for_compute(params, self.dtype), calibration,
-                    batch_size=self.batch_size)
-            # from the f32 weights, as JAX quantizes them; calibration ran
-            # on the unfused tree
+                    config, self._local(cast_for_compute(params, self.dtype)),
+                    calibration, batch_size=self.batch_size, mp=self.mp)
+            # from the full f32 weights, as JAX quantizes them (a row-split
+            # weight's channel scale spans every rank's rows); calibration
+            # ran on the unfused tree
             params = quantize_bert_params(params, act_stats=stats,
                                           fuse_qkv=fuse_qkv)
-        self.params = cast_for_compute(params, self.dtype)
+        self.params = cast_for_compute(self._local(params), self.dtype)
+
+    def _local(self, params):
+        """The rank's shard of a full tree under tensor parallelism."""
+        if self.mp is None:
+            return params
+        return sharding.shard_params(params, self.mesh, dist.get_rank())
 
     @classmethod
     def from_checkpoint(cls, directory: str, batch_size: int = 8,
@@ -191,7 +215,7 @@ class Predictor:
     def _forward(self, ids, mask, visual, speech) -> torch.Tensor:
         cfg = self.config.model
         out = _serving_forward(self.params, self.config, self.dtype, ids,
-                               mask, visual, speech)
+                               mask, visual, speech, mp=self.mp)
         logits = out["logits"]
         if cfg.regression:  # num_labels 1 or 7: one regression output
             preds = torch.tanh(logits) if cfg.num_labels == 1 else logits

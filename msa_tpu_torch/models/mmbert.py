@@ -13,9 +13,17 @@ A training forward (``deterministic=False``) takes a host
 the three embedding sites (text, text+visual, text+speech), the two joint
 embeddings, the text encoder's layers, the joint encoder's layers (under
 ``fuse_text_pass`` the one encoder call's layers).  ``shard`` (a rank's
-place in the data-parallel mesh) moves every seed by ``shard * 1000003``,
-JAX's rule for its head-parallel attention, so the ranks of a dp group draw
-distinct masks for their local rows.
+place on the data axis) moves every seed by ``shard * 1000003``, JAX's
+rule for its head-parallel attention, so the ranks of a dp group draw
+distinct masks for their local rows; the attention seeds also move by the
+model index (``bert_encoder``).
+
+Under tensor parallelism (``mp``, a ``parallel.distributed.ModelParallel``
+of the rank's model group; ``params`` its shard) the encoder and the word
+embedding split as ``parallel/sharding.py`` lays them out, and the tied MLM
+decoder computes the rank's vocabulary columns: ``mlm_logits`` returns a
+shard, and the cross entropy reduces over the group (``ops/losses.py``).
+Everything else is replicated.
 """
 
 from __future__ import annotations
@@ -63,9 +71,11 @@ def joint_embed(params: Params, text_embeddings: torch.Tensor,
 
 
 def mlm_logits(params: Params, sequence_output: torch.Tensor,
-               cfg: MMBertConfig) -> torch.Tensor:
+               cfg: MMBertConfig, mp=None) -> torch.Tensor:
     """Tied-decoder MLM head: transform (dense + gelu + LN), then logits
-    against the (padded) word embedding table.  Returns float32 [.., Vp].
+    against the (padded) word embedding table.  Returns float32 [.., Vp]
+    (under ``mp`` the rank's [.., Vp / mp] columns: its word rows and
+    ``decoder_bias`` shard).
 
     The decoder product runs in the compute dtype and its output is widened
     to f32; JAX asks XLA for an f32 result of the same bf16 product, so in
@@ -75,6 +85,8 @@ def mlm_logits(params: Params, sequence_output: torch.Tensor,
     x = dense(sequence_output, cp["transform_dense"])
     x = gelu(x, cfg.bert.exact_gelu)
     x = layer_norm(x, cp["transform_ln"], cfg.bert.layer_norm_eps)
+    if mp is not None:  # the input of a vocabulary-split product
+        x = mp.copy(x)
     word = params["bert"]["embeddings"]["word"].to(x.dtype)
     return F.linear(x, word).float() + cp["decoder_bias"].float()
 
@@ -120,7 +132,7 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
                    remat_policy: str = "none",
                    collect_act_stats: bool = False,
                    fuse_text_pass: bool = False,
-                   shard: int = 0) -> Dict[str, torch.Tensor]:
+                   shard: int = 0, mp=None) -> Dict[str, torch.Tensor]:
     """Three-view forward.  Returns every head output the serving path and
     the loss read, without MLM logits (the loss gathers them).
 
@@ -135,6 +147,8 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
     three views into one [3B, L+Lp] encoder call instead of [B, L] and
     [2B, L+Lp], as JAX's flag does: the padded keys carry the mask's fill,
     so the text rows' outputs are the unfused ones up to summation order.
+
+    ``mp``: the model group under tensor parallelism (see above).
     """
     bert = params["bert"]
     bcfg = cfg.bert
@@ -143,11 +157,11 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
     seed = lambda: (None if gen is None  # noqa: E731
                     else shard_seed(draw_seed(gen), shard))
     emb_t = bert_embeddings(bert, text_ids, bcfg, compute_dtype=compute_dtype,
-                            seed=seed())
+                            seed=seed(), mp=mp)
     emb_tv = bert_embeddings(bert, tv_ids, bcfg, compute_dtype=compute_dtype,
-                             seed=seed())
+                             seed=seed(), mp=mp)
     emb_ts = bert_embeddings(bert, ts_ids, bcfg, compute_dtype=compute_dtype,
-                             seed=seed())
+                             seed=seed(), mp=mp)
     joint_v = joint_embed(params, emb_tv, visual, "Wv", cfg, seed=seed())
     joint_s = joint_embed(params, emb_ts, speech, "Ws", cfg, seed=seed())
     mask_v = torch.cat([text_mask.to(torch.int32), pair_frame_mask(visual)], 1)
@@ -156,7 +170,7 @@ def mmbert_forward(params: Params, text_ids: torch.Tensor,
     encode = lambda x, mask: bert_encoder(  # noqa: E731
         bert, x, extended_attention_mask(mask), bcfg, use_flash=use_flash,
         generator=gen, remat_policy=remat_policy,
-        collect_act_stats=collect_act_stats, shard=shard)
+        collect_act_stats=collect_act_stats, shard=shard, mp=mp)
     if fuse_text_pass:
         # one encoder call over [3B, L+Lp]
         l, lp = text_ids.shape[1], visual.shape[1]
@@ -211,7 +225,7 @@ def mlm_cap(batch: int, text_len: int) -> int:
 
 def gathered_mlm_ce(params: Params, seq: torch.Tensor, labels: torch.Tensor,
                     weights: Optional[torch.Tensor], cfg: MMBertConfig,
-                    cap: int, dp=None) -> torch.Tensor:
+                    cap: int, dp=None, mp=None) -> torch.Tensor:
     """MLM CE at the masked positions only: up to ``cap`` of them (a static
     count) are gathered and the [cap, H] x [H, V] decoder runs there.  The
     loss equals the dense one whenever the masked count <= cap; positions
@@ -229,8 +243,8 @@ def gathered_mlm_ce(params: Params, seq: torch.Tensor, labels: torch.Tensor,
     sel_w = None
     if weights is not None:
         sel_w = weights[:, None].expand(b, s).reshape(b * s)[idx]
-    return L.cross_entropy(mlm_logits(params, flat_seq[idx], cfg), sel_lab,
-                           sel_w, dp=dp)
+    return L.cross_entropy(mlm_logits(params, flat_seq[idx], cfg, mp),
+                           sel_lab, sel_w, dp=dp, mp=mp)
 
 
 def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
@@ -238,7 +252,8 @@ def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
                 mlm_labels_ts: torch.Tensor, ap_visual: torch.Tensor,
                 ap_speech: torch.Tensor, sentiment: torch.Tensor,
                 cfg: MMBertConfig, weights: Optional[torch.Tensor] = None,
-                compute_mlm: bool = True, dp=None) -> Dict[str, torch.Tensor]:
+                compute_mlm: bool = True, dp=None,
+                mp=None) -> Dict[str, torch.Tensor]:
     """The joint loss.  ``compute_mlm=False`` skips the MLM CE (the
     deterministic eval path, whose labels are all -100).
 
@@ -246,7 +261,9 @@ def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
     rank's rows of the global batch and every loss is the rank's share of
     the global one (``ops/losses.py``): the shares sum to the global loss.
     The MLM gather cap is sized from the global batch, as JAX's, and
-    ``mlm_overflow`` is the rank's own, summed with the other metrics."""
+    ``mlm_overflow`` is the rank's own, summed with the other metrics.
+    Under ``mp`` the MLM cross entropy runs over vocabulary shards; every
+    loss is the same on each rank of the model group."""
     b, l = mlm_labels_text.shape
     # the pair half carries no language, so no MLM supervision there
     lp = outputs["seq_joint"].shape[1] - l
@@ -263,11 +280,11 @@ def mmbert_loss(params: Params, outputs: Dict[str, torch.Tensor],
         seq_j = outputs["seq_joint"]
         cap = mlm_cap(b * (1 if dp is None else dp.size), l)
         text_mlm = gathered_mlm_ce(params, outputs["seq_text"],
-                                   mlm_labels_text, weights, cfg, cap, dp)
+                                   mlm_labels_text, weights, cfg, cap, dp, mp)
         visual_mlm = gathered_mlm_ce(params, seq_j[:b], labels_v, weights,
-                                     cfg, cap, dp)
+                                     cfg, cap, dp, mp)
         speech_mlm = gathered_mlm_ce(params, seq_j[b:], labels_s, weights,
-                                     cfg, cap, dp)
+                                     cfg, cap, dp, mp)
         # no silent caps: count the positions the gather dropped
         for lab in (mlm_labels_text, labels_v, labels_s):
             n_masked = (lab != L.IGNORE_INDEX).sum().to(torch.int32)

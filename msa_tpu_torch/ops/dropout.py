@@ -24,6 +24,8 @@ Counterpart of ``quantize_dropout_rate`` / ``_byte_threshold``
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 DROP_QUANT = 256
@@ -65,10 +67,12 @@ def draw_seed(generator: torch.Generator) -> int:
 
 
 def shard_seed(seed: int, shard: int) -> int:
-    """``seed`` for a rank's ``shard`` of a data-parallel mesh: JAX's rule
-    for its head-parallel attention, seed + shard * 1000003
+    """``seed`` for a rank's ``shard`` of the mesh: JAX's rule for its
+    head-parallel attention, seed + shard * 1000003
     (``msa_tpu/ops/attention.py::_head_parallel``), kept in [0, 2**62).
-    Shard 0 keeps the seed."""
+    Shard 0 keeps the seed.  The attention sites take shard m + mp * d
+    (model index m, data index d), as JAX's; the hidden sites d alone, so
+    every rank of a model group draws the replicated stream's mask."""
     return (seed + shard * SHARD_SEED_STRIDE) % 2 ** SEED_BITS
 
 
@@ -134,11 +138,14 @@ def dropout_mask(shape, rate: float, generator: torch.Generator,
         1.0 - rate, generator=generator).bool()
 
 
-def apply_dropout_mask(x: torch.Tensor, keep: torch.Tensor,
-                       rate: float) -> torch.Tensor:
+def apply_dropout_mask(x: torch.Tensor, keep: torch.Tensor, rate: float,
+                       seq: Optional[int] = None) -> torch.Tensor:
     """``x`` with :func:`dropout_mask`'s ``keep`` applied: kept values
-    rescaled by 256 / (256 - t) on the byte rule, 1 / (1 - rate) else."""
-    if x.dim() >= 3 and x.shape[-2] >= BITS_DROPOUT_MIN_SEQ:
+    rescaled by 256 / (256 - t) on the byte rule, 1 / (1 - rate) else.
+    The rule follows ``seq``, the sequence length the mask was drawn for
+    (default: ``x``'s own; a sequence-parallel shard passes the full one)."""
+    seq = x.shape[-2] if seq is None else seq
+    if x.dim() >= 3 and seq >= BITS_DROPOUT_MIN_SEQ:
         t = byte_threshold(quantize_dropout_rate(rate))
         return torch.where(keep, x * (DROP_QUANT / (DROP_QUANT - t)),
                            0.0).to(x.dtype)

@@ -51,12 +51,17 @@ def quantize_weight(weight: torch.Tensor, eps: float = 1e-12):
     return q.to(torch.int8).contiguous(), scale
 
 
-def quantize_act(x: torch.Tensor, ascale: Optional[torch.Tensor] = None):
+def quantize_act(x: torch.Tensor, ascale: Optional[torch.Tensor] = None,
+                 row_max=None):
     """[..., K] activations -> (int8 [..., K], f32 scale).
 
     ``ascale`` None: per-row scales [..., 1] = max|x| / 127 + 1e-12.
     ``ascale`` a scalar: that static scale (returned as an f32 tensor);
-    values beyond it saturate at +-127.
+    values beyond it saturate at +-127.  ``row_max``: under tensor
+    parallelism, where ``x`` holds some of the K columns, a callable that
+    takes the row absmax to its maximum over the model group, so the scale
+    is the whole row's (JAX's reduce over the last axis, which GSPMD makes
+    a cross-shard max).
 
     The division runs in f32 on x widened inside the kernel (a bf16 tensor
     over an f32 one of at least one dimension promotes to f32), which saves
@@ -64,7 +69,10 @@ def quantize_act(x: torch.Tensor, ascale: Optional[torch.Tensor] = None):
     """
     if ascale is None:
         row = torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True,
-                                       dtype=torch.float32) / 127.0 + 1e-12
+                                       dtype=torch.float32)
+        if row_max is not None:
+            row = row_max(row)
+        row = row / 127.0 + 1e-12
         q = torch.div(x, row)
     else:
         row = torch.as_tensor(ascale, dtype=torch.float32, device=x.device)
@@ -84,15 +92,17 @@ def int8_mm(xi: torch.Tensor, qweight: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xi, qweight.t())[:m]
 
 
-def int8_matmul_pre(xi: torch.Tensor, row, qweight: torch.Tensor,
-                    qscale: torch.Tensor, bias: torch.Tensor,
-                    out_dtype: torch.dtype) -> torch.Tensor:
-    """The int8 dense for an activation already quantized (``xi`` [..., K]
-    int8, e.g. from ``ops/ln_quant.py``) at ``row``: a scalar or [..., 1]
-    f32 scale.  Returns [..., N] in ``out_dtype``."""
-    lead = xi.shape[:-1]
+def int8_product(xi: torch.Tensor, qweight: torch.Tensor) -> torch.Tensor:
+    """:func:`int8_mm` over the leading dims of ``xi`` [..., K] -> [..., N]
+    int32."""
     acc = int8_mm(xi.reshape(-1, xi.shape[-1]), qweight)
-    acc = acc.reshape(*lead, acc.shape[-1])
+    return acc.reshape(*xi.shape[:-1], acc.shape[-1])
+
+
+def dequantize(acc: torch.Tensor, row, qscale: torch.Tensor,
+               bias: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The int32 product ``acc`` [..., N] of activations quantized at
+    ``row`` (a scalar or [..., 1] f32) back to ``out_dtype``."""
     row = torch.as_tensor(row, dtype=torch.float32, device=acc.device)
     # acc.float() * (row * qscale) + bias in f32, then the cast, in JAX's
     # order; the int32 -> f32 widening happens inside the multiply and the
@@ -101,6 +111,16 @@ def int8_matmul_pre(xi: torch.Tensor, row, qweight: torch.Tensor,
     return torch.add(out, bias.float(),
                      out=torch.empty(out.shape, dtype=out_dtype,
                                      device=out.device))
+
+
+def int8_matmul_pre(xi: torch.Tensor, row, qweight: torch.Tensor,
+                    qscale: torch.Tensor, bias: torch.Tensor,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 dense for an activation already quantized (``xi`` [..., K]
+    int8, e.g. from ``ops/ln_quant.py``) at ``row``: a scalar or [..., 1]
+    f32 scale.  Returns [..., N] in ``out_dtype``."""
+    return dequantize(int8_product(xi, qweight), row, qscale, bias,
+                      out_dtype)
 
 
 def int8_dense(x: torch.Tensor, qweight: torch.Tensor, qscale: torch.Tensor,

@@ -4,9 +4,10 @@ Counterpart of ``msa_tpu/parallel/mesh.py``.  JAX lays a ``Mesh`` over
 devices and lets GSPMD place the collectives; the port runs one process per
 rank (``parallel/distributed.py``), so its mesh is a grid of ranks: the
 ``data`` axis splits the batch (the gradients are summed over it), the
-``model`` axis is tensor parallelism, which the port's ``Trainer`` and
-``Predictor`` do not run yet.  Each rank reads its (d, m) place from
-:meth:`Mesh.coords`.
+``model`` axis splits the weights (tensor and sequence parallelism,
+``parallel/sharding.py``).  Each rank reads its (d, m) place from
+:meth:`Mesh.coords`, and its two process groups -- the ranks of its data
+column and of its model row -- from :meth:`Mesh.groups`.
 """
 
 from __future__ import annotations
@@ -28,15 +29,23 @@ def world_size() -> int:
     return 1
 
 
-def refuse_model_parallel(tc) -> None:
-    """Raise for what the port's ``Trainer`` and ``Predictor`` do not run
-    yet (``tc``: a ``TrainConfig``): tensor and sequence parallelism."""
-    if tc.model_parallel != 1 or tc.sequence_parallel:
-        raise NotImplementedError(
-            f"model_parallel={tc.model_parallel}, sequence_parallel="
-            f"{tc.sequence_parallel}: tensor and sequence parallelism come "
-            "with the port's tensor-parallel slice (ROADMAP: parallelism); "
-            "it runs data parallelism (data_parallel) only")
+# process groups by their ranks: every rank creates the same groups in the
+# same order, so a mesh built twice reuses them
+_GROUPS: Dict[Tuple[int, ...], object] = {}
+
+
+def _group(ranks: Sequence[int]):
+    """The process group of ``ranks`` (None: the whole default group).
+    ``torch.distributed.new_group`` is collective: every rank of the default
+    group must call this, in the same order, for every group."""
+    import torch.distributed as dist
+
+    key = tuple(int(r) for r in ranks)
+    if key == tuple(range(dist.get_world_size())):
+        return None
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(key))
+    return _GROUPS[key]
 
 
 class Mesh:
@@ -61,6 +70,29 @@ class Mesh:
             raise ValueError(f"rank {rank} is not in the mesh "
                              f"{self.ranks.tolist()}")
         return int(hit[0][0]), int(hit[0][1])
+
+    def groups(self) -> Dict[str, object]:
+        """This rank's process groups, for each axis longer than 1:
+        {DATA_AXIS: the ranks of its model column (the data group),
+        MODEL_AXIS: the ranks of its data row (the model group)}; None
+        stands for the default group.  Every group of such an axis is
+        created on every rank, columns first, then rows, in index order: a
+        rank that created them in another order would hang.  The mesh must
+        hold every rank of the process group."""
+        import torch.distributed as dist
+
+        if self.size != world_size():
+            raise ValueError(f"{self}: a mesh of every rank of the "
+                             f"{world_size()} is needed")
+        d, m = self.coords(dist.get_rank())
+        out = {}
+        if self.ranks.shape[0] > 1:
+            cols = [_group(self.ranks[:, j]) for j in range(self.ranks.shape[1])]
+            out[DATA_AXIS] = cols[m]
+        if self.ranks.shape[1] > 1:
+            rows = [_group(self.ranks[i]) for i in range(self.ranks.shape[0])]
+            out[MODEL_AXIS] = rows[d]
+        return out
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, ranks={self.ranks.tolist()})"

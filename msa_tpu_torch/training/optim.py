@@ -22,6 +22,10 @@ lives on the host, so the schedule costs no device round trip.
 ``TrainConfig.fused_optimizer`` selects :class:`FusedAdamW` instead
 (:func:`make_fused_optimizer`, JAX's ``FusedAdamW``): one fused kernel
 launch per leaf, no accumulation.
+
+Under tensor parallelism (``mp``, set by the trainer) each rank updates
+its shard; only the global gradient norm of the clip needs the model
+group (:func:`global_norm`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from ..configs import TrainConfig
 from ..models.weights import map_tree, named_leaves
 from ..ops.fused_adamw import fused_adamw_leaf
+from ..parallel.sharding import split_dim
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,6 +49,21 @@ def no_decay(path: str) -> bool:
     p = path.lower()
     return (p.endswith("bias") or "/ln/" in f"/{p}" or p.endswith("scale")
             or any(n in p for n in ("attn_ln", "mlp_ln", "transform_ln")))
+
+
+def global_norm(grads: List[torch.Tensor], paths: List[str],
+                mp=None) -> torch.Tensor:
+    """The 2-norm of every gradient together (0-d f32).  Under tensor
+    parallelism (``mp``, the grads of the rank's shard) the squares of
+    the split leaves are summed over the model group and the replicated
+    leaves, alike on every rank, are counted once."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if mp is None:
+        return torch.linalg.vector_norm(norms)
+    split = torch.tensor([split_dim(p) is not None for p in paths],
+                         device=norms.device)
+    sq = norms.float().square()
+    return (mp.all_reduce(sq[split].sum()) + sq[~split].sum()).sqrt()
 
 
 def decay_mask(params) -> Dict[str, bool]:
@@ -91,6 +111,7 @@ class AdamW:
         self.mu_dtype = _DTYPES[mu_dtype]
         self.nu_dtype = _DTYPES[nu_dtype]
         self.accumulation_steps = accumulation_steps
+        self.mp = None  # the model group under tensor parallelism
 
     def init(self, params) -> AdamWState:
         def zeros(dtype):
@@ -124,7 +145,7 @@ class AdamW:
             state.mini_step = 0
 
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            norm = global_norm(g, paths, self.mp)
             factor = torch.where(norm < self.max_grad_norm,
                                  torch.ones_like(norm),
                                  self.max_grad_norm / norm)
@@ -186,7 +207,7 @@ class FusedAdamW(AdamW):
         g = [grads[path].float() for path, _ in named]
         scale = None
         if self.max_grad_norm and self.max_grad_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            norm = global_norm(g, [path for path, _ in named], self.mp)
             scale = torch.clamp(torch.div(torch.full_like(
                 norm, self.max_grad_norm), norm + 1e-12), max=1.0)
         t = state.count + 1

@@ -23,6 +23,16 @@ seed, keeps its rows, and computes its share of the global loss
 (``ops/losses.py``); the gradients are summed in one flat all-reduce, so
 every rank applies the same update to its copy of the state.  The dropout
 seeds move by the rank (``ops.dropout.shard_seed``).
+
+Under ``model_parallel > 1`` the ranks of a data row form a model group
+(``parallel/mesh.py``): each holds its shard of the parameters and of the
+Adam moments (``parallel/sharding.py``), the same rows of the batch, and
+runs the forward and backward with Megatron's collectives
+(``models/bert.py``); the gradients are summed over the data group only.
+Under ``sequence_parallel`` the encoder's LayerNorms and ``o`` / ``wo``
+biases see the rank's rows of the sequence, so their gradients are summed
+over the model group too.  A checkpoint is the full state: the shards are
+gathered, rank 0 writes, and loading cuts the rank's shard again.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import ExperimentConfig
 from ..data.dataset import MultimodalDataset, prefetch
@@ -45,11 +56,13 @@ from ..models.weights import (cast_for_compute, init_params, map_tree,
 from ..ops import masking
 from ..ops.attention import FLASH_MIN_SEQ
 from ..ops.dropout import SEED_BITS, draw_seed, seeded_generator
-from ..parallel.distributed import (DataParallel, barrier, local_rows,
-                                    pad_batch, process_index)
-from ..parallel.mesh import make_mesh, refuse_model_parallel
+from ..parallel import sharding
+from ..parallel.distributed import (CommTimer, DataParallel, ModelParallel,
+                                    barrier, local_rows, pad_batch,
+                                    process_index)
+from ..parallel.mesh import make_mesh
 from ..utils.flops import H100_BF16_PEAK_FLOPS, mmbert_step_flops
-from .optim import make_fused_optimizer, make_optimizer
+from .optim import global_norm, make_fused_optimizer, make_optimizer
 from .train_state import TrainState
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -194,19 +207,21 @@ class Trainer:
                  mask_token_id: int = masking.DEFAULT_MASK_ID,
                  special_ids: Tuple[int, ...] = masking.DEFAULT_SPECIAL_IDS):
         """The mesh is ``make_mesh(data_parallel, model_parallel)`` over the
-        process group (one rank without one): a data axis above 1 needs the
+        process group (one rank without one): an axis above 1 needs the
         process group started (``parallel.distributed.initialize``)."""
         tc = config.train
-        refuse_model_parallel(tc)
         if tc.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {tc.compute_dtype!r}")
         self.mesh = make_mesh(tc.data_parallel, tc.model_parallel)
         self.dp = DataParallel.from_mesh(self.mesh)
-        # the rank's seed shard, JAX's m + mp * d (mp is 1 here)
+        self.mp = ModelParallel.from_mesh(self.mesh, tc.sequence_parallel)
+        if self.mp is not None:
+            sharding.check_divisible(config.model.bert, self.mp.size)
+        # the rank's data index: the hidden dropout seeds' shard (the
+        # attention seeds' is m + mp * d, bert_encoder)
         self.shard = 0 if self.dp is None else self.dp.index
-        # gradient all-reduces: host seconds (CPU), or CUDA event pairs
-        # read only in comm_seconds, so the step does not wait on the card
-        self._comm_host, self._comm_events = 0.0, []
+        # gradient all-reduces over the data group
+        self._comm = CommTimer()
         self.config = config
         self.device = torch.device(device)
         self.compute_dtype = _DTYPES[tc.compute_dtype]
@@ -236,12 +251,37 @@ class Trainer:
         if params is None:
             params = init_params(self.config.model, torch.Generator(
                 device=self.device).manual_seed(int(seed)))
-        params = map_tree(params, lambda p: p.detach().to(
+        params = map_tree(self.local_tree(params), lambda p: p.detach().to(
             self.device, torch.float32, copy=True).requires_grad_())
         tc = self.config.train
         self.tx = (make_fused_optimizer if tc.fused_optimizer
                    else make_optimizer)(tc, total_steps)
+        self.tx.mp = self.mp
         return TrainState(params=params, opt_state=self.tx.init(params))
+
+    def local_tree(self, tree):
+        """The rank's shard of a full tree (parameters or moments) under
+        tensor parallelism; the tree itself otherwise."""
+        if self.mp is None:
+            return tree
+        return sharding.shard_params(tree, self.mesh, dist.get_rank())
+
+    def local_opt_state(self, opt_state):
+        """The rank's shard of a full optimizer state (a checkpoint's, or
+        ``from_jax_opt_state``'s)."""
+        if self.mp is None:
+            return opt_state
+        return sharding.shard_opt_state(opt_state, self.mesh, dist.get_rank())
+
+    def full_state(self, state: TrainState) -> TrainState:
+        """The whole state from every rank's shard (collective over the
+        model group); the state itself without one."""
+        if self.mp is None:
+            return state
+        return TrainState(
+            params=sharding.gather_across(state.params, self.mp),
+            opt_state=sharding.gather_opt_state(state.opt_state, self.mp),
+            step=state.step)
 
     # ------------------------------------------------------------------
     # Steps
@@ -291,6 +331,8 @@ class Trainer:
         [3B, L+Lp] call counts as joint)."""
         tc = self.config.train
         b = -(-tc.train_batch_size // (1 if self.dp is None else self.dp.size))
+        if self.mp is not None:  # JAX divides by every device of the mesh
+            b = -(-b // self.mp.size)
         l = self.config.data.max_seq_length
         lp = self.config.data.pair_seq_length or l
         if tc.fuse_text_pass:
@@ -349,32 +391,31 @@ class Trainer:
             out["predictions"] = self.dp.gather(metrics["predictions"])
         return out
 
-    def _sum_grads(self, grads):
-        """The gradients summed over the data group in one flat buffer."""
+    def _sum_grads(self, paths, grads):
+        """The gradients summed over the data group in one flat buffer;
+        under sequence parallelism the partial ones of the replicated
+        leaves the sequence shards feed first over the model group."""
+        grads = list(grads)
+        if self.mp is not None and self.mp.sequence_parallel:
+            idx = [i for i, p in enumerate(paths)
+                   if sharding.sequence_partial(p)]
+            for i, g in zip(idx, self.mp.sum_flat([grads[i] for i in idx])):
+                grads[i] = g
         if self.dp is None:
             return grads
-        if self.device.type != "cuda":
-            t0 = time.perf_counter()
-            grads = self.dp.sum_flat(grads)
-            self._comm_host += time.perf_counter() - t0
-            return grads
-        stream = torch.cuda.current_stream(self.device)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record(stream)
-        grads = self.dp.sum_flat(grads)
-        end.record(stream)
-        self._comm_events.append((start, end))
-        return grads
+        with self._comm(self.device):
+            return self.dp.sum_flat(grads)
 
     @property
     def comm_seconds(self) -> float:
         """The gradient all-reduces' time so far (on the card: between
         events on the step's stream, read here, after the steps)."""
-        for start, end in self._comm_events:
-            end.synchronize()
-            self._comm_host += start.elapsed_time(end) / 1e3
-        self._comm_events.clear()
-        return self._comm_host
+        return self._comm.seconds
+
+    @property
+    def model_comm_seconds(self) -> float:
+        """The model group's collectives' time so far (0 without one)."""
+        return 0.0 if self.mp is None else self.mp.timer.seconds
 
     def _mlm_views(self, b, generator):
         ids = b["text_ids"]
@@ -414,20 +455,22 @@ class Trainer:
                 b["speech"], cfg, compute_dtype=self.compute_dtype,
                 use_flash=tc.use_flash_attention, deterministic=False,
                 generator=generator, remat_policy=self.remat_policy,
-                fuse_text_pass=tc.fuse_text_pass, shard=self.shard)
+                fuse_text_pass=tc.fuse_text_pass, shard=self.shard,
+                mp=self.mp)
             losses = mmbert_loss(params, out, t_lab, tv_lab, ts_lab,
                                  b["visual_ap"], b["speech_ap"], b["target"],
-                                 cfg, weights=b["weight"], dp=self.dp)
+                                 cfg, weights=b["weight"], dp=self.dp,
+                                 mp=self.mp)
             # parameters the loss does not reach (the NSP head) get zero
             # gradients, as jax.grad gives them
             grads = torch.autograd.grad(losses["loss"], leaves,
                                         allow_unused=True,
                                         materialize_grads=True)
-        grads = self._sum_grads(grads)
+        grads = self._sum_grads(paths, grads)
         metrics = self._sum_metrics({k: losses[k].detach() for k in _METRICS})
         if tc.log_grad_norm:
-            metrics["grad_norm"] = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(list(grads))))
+            metrics["grad_norm"] = global_norm(list(grads), list(paths),
+                                               self.mp)
         self.tx.step(state.params, dict(zip(paths, grads)), state.opt_state)
         state.step += 1
         return state, metrics
@@ -454,12 +497,12 @@ class Trainer:
                              b["visual"], b["speech"], cfg,
                              compute_dtype=self.compute_dtype,
                              use_flash=tc.use_flash_attention,
-                             fuse_text_pass=tc.fuse_text_pass)
+                             fuse_text_pass=tc.fuse_text_pass, mp=self.mp)
         # under dp: the global losses and every rank's predictions
         return self._sum_metrics(mmbert_loss(
             params, out, t_lab, tv_lab, ts_lab, b["visual_ap"],
             b["speech_ap"], b["target"], cfg, weights=b["weight"],
-            compute_mlm=tc.eval_masking, dp=self.dp))
+            compute_mlm=tc.eval_masking, dp=self.dp, mp=self.mp))
 
     # ------------------------------------------------------------------
     # Epochs
@@ -625,12 +668,13 @@ class Trainer:
                 patience = 0
                 if checkpoint_dir:
                     # one retained checkpoint per improvement, carrying the
-                    # selection state for an exact resume; the state is
-                    # replicated, so under dp rank 0 writes it and every
-                    # rank waits until it is whole
+                    # selection state for an exact resume; the whole state
+                    # (the model group's shards gathered) is replicated, so
+                    # rank 0 writes it and every rank waits until it is whole
                     d = epoch_dir(checkpoint_dir, epoch)
+                    whole = self.full_state(state)
                     if process_index() == 0:
-                        save_checkpoint(d, state, self.config, epoch,
+                        save_checkpoint(d, whole, self.config, epoch,
                                         extra={"fit": result.to_meta()})
                         np.save(os.path.join(d, "predict.npy"), tpreds)
                         np.save(os.path.join(d, "target.npy"), tlabels)

@@ -16,7 +16,7 @@ the uninterrupted run's parameters bit for bit on both ranks.
 
 Also here: the mesh of ranks (``parallel/mesh.py``) against JAX's
 ``make_mesh`` / ``make_hybrid_mesh`` cases, the backend rule, batch
-sharding, and the refusals that stay.
+sharding, and what one process cannot run.
 """
 
 import dataclasses
@@ -406,14 +406,24 @@ def test_backend_rule_and_batch_sharding(monkeypatch):
 @pytest.mark.parametrize("train", [{"model_parallel": 2},
                                    {"sequence_parallel": True}])
 def test_trainer_and_predictor_refuse_model_parallelism(train):
-    """Tensor and sequence parallelism raise, naming the next slice."""
+    """In one process a model axis of 2 has no ranks to split over: the
+    Trainer and the Predictor raise as make_mesh does for a data axis.
+    Sequence parallelism without a model axis is the identity, as in JAX:
+    both run, with no model group.  Four ranks:
+    test_torch_tensor_parallel.py."""
     from msa_tpu_torch.inference import Predictor
 
     exp = port_configs.ExperimentConfig.from_json(experiment(1, **train).to_json())
-    for make in (lambda: Trainer(exp, "cpu"),
-                 lambda: Predictor(exp, {}, 4, "cpu")):
-        with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-            make()
+    makes = (lambda: Trainer(exp, "cpu"), lambda: Predictor(exp, {}, 4, "cpu"))
+    if "model_parallel" in train:
+        for make in makes:
+            with pytest.raises(ValueError, match="requested 2 ranks, have 1"):
+                make()
+        return
+    for make in makes:
+        made = make()
+        assert made.mp is None and made.mesh.shape == {DATA_AXIS: 1,
+                                                       MODEL_AXIS: 1}
 
 
 def test_initialize_needs_the_launch(monkeypatch):

@@ -255,14 +255,16 @@ def test_train_sample_score_pipeline(workdir, vocab_file, data_pkl,  # noqa: F81
 
 def test_sample_cli_takes_jax_parallel_flags(fits):
     """cli.sample parses JAX's ``--dp 1 --mp 1`` and scores a synthetic
-    split from a fit checkpoint on the CPU; ``--mp 2`` raises cli.train's
-    NotImplementedError before loading anything."""
+    split from a fit checkpoint on the CPU; ``--mp 2`` in one process has
+    no second rank to split the weights over and raises make_mesh's
+    ValueError, as cli.train does (four ranks:
+    test_torch_tensor_parallel.py)."""
     run_dir = str(fits["dir"] / "port")
     preds, labels = port_sample.main([
         "--checkpoint", run_dir, "--synthetic", "8", "--batch_size", "4",
         "--dp", "1", "--mp", "1", "--device", "cpu"])
     assert preds.shape[0] == labels.shape[0] == 8 and np.isfinite(preds).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
         port_sample.main(["--checkpoint", run_dir, "--synthetic", "8",
                           "--mp", "2", "--device", "cpu"])
 
@@ -271,17 +273,17 @@ def test_sample_cli_takes_jax_parallel_flags(fits):
                                    ["--distributed"],
                                    ["--coordinator", "localhost:1234"]])
 def test_train_cli_refuses_parallel_flags(flags, tmp_path, monkeypatch):
-    """What a single process cannot run raises before any training: --mp
-    (tensor parallelism, the next slice), --dp 2 without a process group
-    (make_mesh finds one rank), --distributed without torchrun's
-    environment, --coordinator without the process count and id.  A real
-    two-process launch: test_torch_data_parallel.py."""
+    """What a single process cannot run raises before any training: --dp 2
+    and --mp 2 without a process group (make_mesh finds one rank),
+    --distributed without torchrun's environment, --coordinator without
+    the process count and id.  Real launches: test_torch_data_parallel.py
+    (two ranks), test_torch_tensor_parallel.py (four, --dp 2 --mp 2)."""
     monkeypatch.chdir(tmp_path)
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
                 "MSA_COORDINATOR", "MSA_NUM_PROCESSES", "MSA_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
     error, match = {"--dp": (ValueError, "requested 2 ranks, have 1"),
-                    "--mp": (NotImplementedError, "ROADMAP"),
+                    "--mp": (ValueError, "not divisible by model_parallel=2"),
                     "--distributed": (ValueError, "env://"),
                     "--coordinator": (ValueError, "number of processes")
                     }[flags[0]]

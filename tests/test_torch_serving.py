@@ -175,9 +175,10 @@ def test_predictor_bf16_on_cpu_tracks_f32():
     ({"model_parallel": 2}, {}),
 ])
 def test_predictor_refuses_what_is_not_ported(train_kw, kw):
-    """Model parallelism raises; data parallelism in one process raises
-    make_mesh's ValueError (the ranks come from a process group:
-    test_torch_data_parallel.py).  fuse_qkv, refused until it was ported,
+    """Data and model parallelism in one process raise make_mesh's
+    ValueError (the ranks come from a process group:
+    test_torch_data_parallel.py, test_torch_tensor_parallel.py).  fuse_qkv,
+    refused until it was ported,
     is taken: with an int8 mode each layer gets one fused "qkv"
     projection; without ``quantize`` it is ignored, as in JAX."""
     exp = experiment()
@@ -194,10 +195,7 @@ def test_predictor_refuses_what_is_not_ported(train_kw, kw):
             "layers"][0]
         assert "qkv" not in layer and "weight" in layer["q"]
         return
-    error, match = ((ValueError, "requested 2 ranks, have 1")
-                    if train_kw.get("data_parallel")
-                    else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="requested 2 ranks, have 1"):
         Predictor(exp, {}, 4, torch.device("cpu"), **kw)
 
 
