@@ -116,6 +116,16 @@ its own), the script:
   3d. JAX's ``tiny`` preset (head dim 32) through ``cli.train --model
      tiny``, the bf16, int8 and int8_static ``Predictor`` and the
      frame-level path (serving, 1 + 2 train steps on flash2 at d = 32);
+  3e. the JAX package's sharded orbax checkpoint of a two-process run
+     (``tests/data/orbax_two_process``) through the port's reader
+     (``phase_orbax``): the zstd decoder built with the host compiler,
+     every leaf's SHA-256 against JAX's restore, the decode rate (on the
+     fixture's chunks and on a large leaf's chunk, ``tests/data/zstd_chunk``),
+     then one
+     train step resumed as ``cli.train --resume`` does and a
+     ``Predictor.from_checkpoint`` pass on the card, both bit-equal to the
+     same from the port's msgpack re-save (head dim 32: the short attention
+     forward and backward and the joint embed launch in each);
   4. serves a ragged synthetic MOSI split through the bf16 ``Predictor``
      with a full-width bert-large MMBert (random weights from a seed),
      checks the predictions and the kernel launches per batch, then checks
@@ -1721,6 +1731,180 @@ def phase_tiny_preset():
           f"{dict((k, v // nb) for k, v in got.items() if v)}", flush=True)
     phase_frame_training(FRAME_PAIR_LEN, FRAME_BATCH, None, 1, 2,
                          "tiny frame-level", model="tiny")
+
+
+ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_two_process")
+ORBAX_RATE_BYTES = 256 << 20  # decoded bytes a decode-rate run covers
+ORBAX_CHUNK = os.path.join("tests", "data", "zstd_chunk")
+
+
+def resume_orbax_step(directory, exp, device, batch):
+    """The calls ``cli.train --resume`` makes (``cli/train.py``), then one
+    train step: (loss, the updated parameters, the kernels' launches in
+    the step)."""
+    from msa_tpu_torch.training.checkpoint import load_checkpoint
+    from msa_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(exp, device, mask_token_id=4, special_ids=(0, 2, 3, 4))
+    loaded, _ = load_checkpoint(directory, trainer.device)
+    state = trainer.init_state(exp.train.seed, 10, params=loaded.params)
+    state.opt_state = trainer.local_opt_state(loaded.opt_state)
+    state.step = loaded.step
+    reset_counts()
+    state, metrics = trainer.train_step(state, batch, base_seed=1)
+    loss = float(metrics["loss"])
+    return loss, state.params, kernel_counts()
+
+
+def phase_orbax(device="cuda"):
+    """The JAX package's sharded orbax checkpoint of a two-process run
+    (``tests/data/orbax_two_process``, written by
+    ``scripts/make_orbax_fixture.py``: dp = 2 x mp = 2, H = 64 with head
+    dim 32, bf16 moments) through the port's own reader: the zstd decoder
+    built with the host compiler, every leaf's SHA-256 held to
+    ``digests.json`` (JAX's restore of it) and the decode rate with one
+    thread and with the pool, on the fixture's small chunks and on the
+    committed chunk of a large leaf (``tests/data/zstd_chunk``, written by
+    ``scripts/make_zstd_chunk.py``: one frame of eight compressed blocks,
+    held to its SHA-256); then resumed on the card for one train step
+    through the calls ``cli.train --resume`` makes, and served through
+    ``Predictor.from_checkpoint``, the loss, the updated parameters and the
+    predictions bit-equal to the same from the port's msgpack re-save of
+    the state it read.  Returns the launches of the resumed step and of
+    the serving pass."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch import _build
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import named_leaves
+    from msa_tpu_torch.training import orbax_reader, zstd
+    from msa_tpu_torch.training.checkpoint import (
+        load_checkpoint, load_config, save_checkpoint)
+    from msa_tpu_torch.training.ocdbt import KvStore, Ref
+
+    build_s = {}
+    t0 = time.perf_counter()
+    _build.build_all(["zstd_decode"], seconds=build_s)
+    build_wall = time.perf_counter() - t0
+    directory = os.path.join(ORBAX_FIXTURE, "epoch_000")
+    orbax = os.path.join(directory, "orbax")
+    with open(os.path.join(ORBAX_FIXTURE, "digests.json")) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    tree = orbax_reader.read_state(orbax)
+    read_s = time.perf_counter() - t0
+
+    def digests(node, path=()):
+        if isinstance(node, dict):
+            return {k: v for key, child in node.items()
+                    for k, v in digests(child, path + (key,)).items()}
+        data = (node.view(torch.int16).numpy() if isinstance(
+            node, torch.Tensor) else np.ascontiguousarray(node)).tobytes()
+        return {"/".join(path): hashlib.sha256(data).hexdigest()}
+
+    got = digests(tree)
+    if got != want["leaves"]:
+        bad = sorted(k for k in set(got) | set(want["leaves"])
+                     if got.get(k) != want["leaves"].get(k))
+        raise AssertionError(f"orbax: {len(bad)} leaves differ from JAX's "
+                             f"restore: {bad[:5]}")
+
+    # the decode rate: every chunk frame of the store, and the committed
+    # chunk of a large leaf (one frame of eight 128 KiB blocks), each
+    # repeated to ORBAX_RATE_BYTES decoded, into a destination of its own
+    store = KvStore(orbax)
+    frames, sizes = [], []
+    for key in store.keys():
+        if key.endswith("/.zarray"):
+            spec = json.loads(store.read(key))
+            chunk = spec["chunks"]
+            nbytes = int(np.prod(chunk, dtype=np.int64)) * (
+                2 if spec["dtype"] == "bfloat16" else
+                np.dtype(spec["dtype"]).itemsize)
+            for ck in store.keys(key[:-len(".zarray")]):
+                if not ck.endswith("/.zarray"):
+                    value = store.locate(ck)
+                    frames.append(bytes(store.read_refs([value])[0])
+                                  if isinstance(value, Ref) else value)
+                    sizes.append(nbytes)
+    with open(os.path.join(ORBAX_CHUNK, "chunk.json")) as f:
+        large = json.load(f)
+    with open(os.path.join(ORBAX_CHUNK, "chunk.zst"), "rb") as f:
+        large_frame = f.read()
+    inputs = {}
+    for label, base, base_sizes in (
+            ("chunks", frames, sizes),
+            ("large", [large_frame], [large["decoded_bytes"]])):
+        copies = max(1, ORBAX_RATE_BYTES // sum(base_sizes))
+        inputs[label] = (base * copies, [np.empty(n, np.uint8) for n in
+                                         base_sizes * copies], copies)
+    rates = {}
+    for label, (srcs, outs, _) in inputs.items():
+        for threads in (1, zstd.THREADS):
+            zstd.decompress(srcs[:8], outs=outs[:8], threads=threads)
+            t0 = time.perf_counter()
+            zstd.decompress(srcs, outs=outs, threads=threads)
+            rates[label, threads] = sum(o.size for o in outs) / (
+                time.perf_counter() - t0) / 1e6
+    large_outs = inputs["large"][1]
+    for out in (large_outs[0], large_outs[-1]):
+        if hashlib.sha256(out.tobytes()).hexdigest() != large["sha256"]:
+            raise AssertionError("orbax: the large chunk decodes wrong")
+    del inputs, large_outs
+
+    # resume and serve, from the orbax directory and from a msgpack re-save
+    config = load_config(directory)
+    exp = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, data_parallel=1, model_parallel=1))
+    split = synthetic_split(16, exp.data.max_seq_length,
+                            exp.model.visual_dim, exp.model.speech_dim,
+                            vocab_size=exp.model.bert.vocab_size, seed=4)
+    batch = next(MultimodalDataset(split, seed=0).epoch_batches(0, 8))
+    with tempfile.TemporaryDirectory() as tmp:
+        state, meta = load_checkpoint(directory, "cpu")
+        resaved = os.path.join(tmp, "epoch_000")
+        save_checkpoint(resaved, state, config, epoch=int(meta["epoch"]))
+        runs = {form: resume_orbax_step(path, exp, device, batch)
+                for form, path in (("orbax", directory),
+                                   ("msgpack", resaved))}
+        preds, serving = {}, {}
+        for form, path in (("orbax", directory), ("msgpack", resaved)):
+            pred = Predictor.from_checkpoint(path, batch_size=8,
+                                             device=device)
+            reset_counts()
+            preds[form] = pred.predict_split(split)
+            serving[form] = kernel_counts()
+    (loss, params, launches), (ref_loss, ref_params, _) = \
+        runs["orbax"], runs["msgpack"]
+    ref = dict(named_leaves(ref_params))
+    differ = [k for k, v in named_leaves(params)
+              if not torch.equal(v, ref[k])]
+    if loss != ref_loss or differ or not np.isfinite(loss):
+        raise AssertionError(f"orbax resume: loss {loss} against {ref_loss}, "
+                             f"{len(differ)} leaves differ ({differ[:3]})")
+    if not np.array_equal(preds["orbax"], preds["msgpack"]) or \
+            not np.isfinite(preds["orbax"]).all():
+        raise AssertionError(f"orbax serving: {preds['orbax'][:4]} against "
+                             f"{preds['msgpack'][:4]}")
+    print(f"orbax: {len(got)} leaves of the two-process checkpoint equal "
+          f"JAX's restore (SHA-256), read in {read_s:.3f} s; decoder build "
+          f"{build_wall:.1f} s; resumed step loss {loss!r} and "
+          f"{len(ref)} updated leaves bit-equal to the msgpack re-save's, "
+          f"{len(split)} predictions bit-equal", flush=True)
+    n = zstd.THREADS
+    print(f"orbax zstd decode rate (MB/s of decoded output, one thread / "
+          f"{n} threads, {os.cpu_count()} CPUs, {ORBAX_RATE_BYTES >> 20} MiB "
+          f"decoded each): the fixture's {len(frames)} chunk frames "
+          f"({sum(sizes)} B) repeated {rates['chunks', 1]:.1f} / "
+          f"{rates['chunks', n]:.1f}; a large leaf's chunk (one frame of "
+          f"{large['decoded_bytes']} B, {len(large_frame)} B compressed) "
+          f"repeated {rates['large', 1]:.1f} / {rates['large', n]:.1f}",
+          flush=True)
+    return {"training": launches, "serving": serving["orbax"]}
 
 
 def kernel_counters():
@@ -5622,6 +5806,15 @@ def main() -> int:
     timed(time_flash_backwards)
     timed(phase_head_dim_32)
     timed(phase_tiny_preset)
+    orbax = timed(phase_orbax)
+    for path, names in (("training", ("short_attention",
+                                      "short_attention_backward",
+                                      "fused_joint_embed")),
+                        ("serving", ("short_attention",
+                                     "fused_joint_embed"))):
+        missing = [n for n in names if not orbax[path][n]]
+        if missing:
+            raise AssertionError(f"orbax {path}: no launch of {missing}")
 
     exp = build_experiment("mosi", "bert-large-uncased", num_labels=1)
     params = init_params(exp.model, torch.Generator(device="cuda").manual_seed(0))
@@ -5701,6 +5894,8 @@ def main() -> int:
                 "tp_serving_rank0": tp["serving"][name],
                 "tp_int8_serving_rank0": tp["int8_serving"][name],
                 "tp_tiny_training_rank0": tp["tiny_training"][name],
+                "orbax_resume_training": orbax["training"][name],
+                "orbax_serving": orbax["serving"][name],
                 **{f"frame_short_{rule}": r["launches"][name]
                    for rule, r in frame_short.items()}}
 

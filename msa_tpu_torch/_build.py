@@ -1,15 +1,25 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's native libraries and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``build/msa_tpu_torch/<name>-<hash>.so`` at the repository root, where
-``<hash>`` covers the source text, the shared headers ``csrc/*.cuh`` and
-the compiler flags: a library is rebuilt only when one of them changes.
-Building a file with a C interface takes seconds, against minutes for an
-extension that includes PyTorch's headers.  The build happens at first
-use, never at import, and a failed build raises -- nothing falls back to
-the plain PyTorch versions.
+Two routes share one build directory:
 
-Every C entry point returns ``cudaGetLastError()`` after its launch; the
+  * the CUDA kernels, ``csrc/<name>.cu``, compiled by ``nvcc`` for
+    ``sm_90a``;
+  * host C++ libraries, ``csrc/<name>.cpp`` (the zstd decoder of the
+    checkpoint reader, the WordPiece encoder), compiled by ``$CXX``, else ``c++`` on PATH, with
+    ``-O3 -std=c++17 -shared -fPIC``; they need no CUDA toolkit, so they
+    build wherever the port runs, on the CPU too.
+
+Each source exposes a plain C interface and compiles on its own into
+``build/msa_tpu_torch/<name>-<hash>.so`` at the repository root, where
+``<hash>`` covers the source text, the shared headers ``csrc/*.cuh`` (CUDA
+sources) and the compiler flags: a library is rebuilt only when one of
+them changes.  Building a file with a C interface takes seconds, against
+minutes for an extension that includes PyTorch's headers.  The build
+happens at first use, never at import, and a failed build raises --
+nothing falls back to the plain PyTorch versions or to a slower reader
+(only the WordPiece encoder's caller keeps its pure-Python tokenizer).
+
+Every CUDA entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers in ``msa_tpu_torch.ops`` raise on a non-zero code.
 """
 
@@ -32,6 +42,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "msa_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 KERNELS = ("short_attention", "fused_joint_embed", "ln_quant", "flash2",
            "fused_adamw", "flash_attention", "short_attention_v1")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
@@ -58,35 +69,62 @@ def nvcc_path() -> str:
         "kernels of msa_tpu_torch are compiled at first use")
 
 
+def cxx_path() -> str:
+    """``$CXX``, else ``c++`` on PATH; raises when neither exists."""
+    cxx = os.environ.get("CXX") or shutil.which("c++")
+    if not cxx or not shutil.which(cxx):
+        raise RuntimeError(
+            "no host C++ compiler (set CXX or put c++ on PATH): the host "
+            "libraries of msa_tpu_torch are compiled at first use")
+    return cxx
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu`` where it exists, else ``csrc/<name>.cpp``."""
+    cuda = CSRC / f"{name}.cu"
+    return cuda if cuda.exists() else CSRC / f"{name}.cpp"
+
+
+def _flags(source: Path) -> Sequence[str]:
+    return NVCC_FLAGS if source.suffix == ".cu" else HOST_FLAGS
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any
-        digest.update(header.name.encode())
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    source = _source(name)
+    digest = hashlib.sha256(source.read_bytes())
+    if source.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):  # a source may include any
+            digest.update(header.name.encode())
+            digest.update(header.read_bytes())
+    digest.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
+    """Compile ``csrc/<name>.cu`` (else ``.cpp``) unless its library is
+    already built."""
     return build_all([name])[name]
 
 
 def build_all(names: Sequence[str] = KERNELS,
               seconds: Optional[Dict[str, float]] = None) -> Dict[str, Path]:
-    """Compile every library of ``names`` not built yet, one ``nvcc`` per
-    source, all started together; raises if any fails.  ``seconds``, if
-    given, receives each compiled source's nvcc wall time."""
+    """Compile every library of ``names`` not built yet, one compiler
+    process per source (``nvcc`` for a ``.cu``, the host compiler for a
+    ``.cpp``), all started together; raises if any fails.  ``seconds``, if
+    given, receives each compiled source's compile wall time."""
     libs = {name: library_path(name) for name in names}
     todo = [name for name, lib in libs.items() if not lib.exists()]
     if not todo:
         return libs
-    nvcc = nvcc_path()
+    sources = {name: _source(name) for name in todo}
+    compilers = {suffix: finder() for suffix, finder in
+                 ((".cu", nvcc_path), (".cpp", cxx_path))
+                 if any(s.suffix == suffix for s in sources.values())}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     t0 = time.perf_counter()
 
-    def finish(job):  # output and the wall time at which nvcc ended
+    def finish(job):  # output and the wall time at which the compiler ended
         out = job[3].communicate()[0]
         return out, time.perf_counter() - t0
 
@@ -96,7 +134,9 @@ def build_all(names: Sequence[str] = KERNELS,
             # never loads a half-written library.
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            source = sources[name]
+            cmd = [compilers[source.suffix], *_flags(source), "-o", tmp,
+                   str(source)]
             jobs.append((name, tmp, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -107,8 +147,9 @@ def build_all(names: Sequence[str] = KERNELS,
             if seconds is not None:
                 seconds[name] = wall
             if proc.returncode != 0:
-                failed.append(f"nvcc failed for {name}.cu (exit "
-                              f"{proc.returncode}):\n{' '.join(cmd)}\n{output}")
+                failed.append(f"{os.path.basename(cmd[0])} failed for "
+                              f"{sources[name].name} (exit {proc.returncode}):"
+                              f"\n{' '.join(cmd)}\n{output}")
             else:
                 os.replace(tmp, libs[name])
         if failed:
@@ -181,11 +222,13 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
     return found
 
 
-def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
-    """Build (if needed) and load kernel library ``name``.
+def load(name: str, signatures: Dict[str, Sequence],
+         restypes: Optional[Dict[str, type]] = None) -> ctypes.CDLL:
+    """Build (if needed) and load library ``name``.
 
-    ``signatures`` maps each C entry point to its ``argtypes``; every entry
-    returns an ``int`` CUDA error code.
+    ``signatures`` maps each C entry point to its ``argtypes``; an entry
+    returns an ``int`` (a CUDA error code for a kernel) unless ``restypes``
+    names another type for it.
     """
     with _lock:
         lib = _loaded.get(name)
@@ -193,7 +236,8 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = (restypes or {}).get(
+                    fn, ctypes.c_int)
             _loaded[name] = lib
         return lib
 

@@ -4,69 +4,37 @@
 featurizer: ``encode_words(words) -> (ids, inversions)`` runs the whole word
 list through one C call (ASCII fast path); samples containing non-ASCII
 words fall back to the pure-Python tokenizer, so output parity is by
-construction.  The library is built from the repository's
-``native/wordpiece.cpp`` with g++ on first use, into
-``build/msa_tpu_torch/libwordpiece-<hash>.so`` (``<hash>`` covers the
-source); where g++ is missing everything stays pure Python.
+construction.  The library is ``csrc/wordpiece.cpp``, built by ``_build``'s
+host route on first use (into ``build/msa_tpu_torch/wordpiece-<hash>.so``);
+where it cannot be built everything stays pure Python.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import _build
 from .wordpiece import Tokenizer
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC_PATH = os.path.join(_REPO, "native", "wordpiece.cpp")
-_BUILD_DIR = os.path.join(_REPO, "build", "msa_tpu_torch")
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_SIGNATURES = {
+    "wp_create": (ctypes.c_char_p,),
+    "wp_free": (ctypes.c_void_p,),
+    "wp_encode_words": (ctypes.c_void_p, ctypes.c_char_p, _I32P, _I32P,
+                        ctypes.c_int32),
+}
+_RESTYPES = {"wp_create": ctypes.c_void_p, "wp_free": None,
+             "wp_encode_words": ctypes.c_int32}
 
 
 def _load_library() -> Optional[ctypes.CDLL]:
-    if not os.path.exists(_SRC_PATH):
-        return None
-    with open(_SRC_PATH, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"libwordpiece-{digest}.so")
-    if not os.path.exists(path):
-        try:
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            # build under a private name, then rename: a concurrent build
-            # never loads a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            try:
-                subprocess.run(
-                    ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                     _SRC_PATH, "-o", tmp],
-                    check=True, capture_output=True, timeout=120)
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        except (OSError, subprocess.SubprocessError):
-            return None
     try:
-        lib = ctypes.CDLL(path)
-    except OSError:
+        return _build.load("wordpiece", _SIGNATURES, _RESTYPES)
+    except (RuntimeError, OSError):  # no host compiler, or a failed build
         return None
-    lib.wp_create.restype = ctypes.c_void_p
-    lib.wp_create.argtypes = [ctypes.c_char_p]
-    lib.wp_free.argtypes = [ctypes.c_void_p]
-    lib.wp_encode_words.restype = ctypes.c_int32
-    lib.wp_encode_words.argtypes = [
-        ctypes.c_void_p, ctypes.c_char_p,
-        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-        ctypes.c_int32,
-    ]
-    return lib
 
 
 class FastTokenizer:

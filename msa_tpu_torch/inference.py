@@ -16,6 +16,8 @@ cut them.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -28,7 +30,7 @@ from .models.weights import cast_for_compute, to_device
 from .ops.quant import quantize_bert_params
 from .parallel import sharding
 from .parallel.distributed import DataParallel, ModelParallel, local_rows
-from .parallel.mesh import DATA_AXIS, make_mesh
+from .parallel.mesh import DATA_AXIS, make_mesh, world_size
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 QUANTIZE_MODES = ("int8", "int8_static")
@@ -197,7 +199,11 @@ class Predictor:
                         ) -> "Predictor":
         """A Predictor over the parameters of a checkpoint (a run directory,
         whose newest or ``model_num``-th epoch is taken, or an epoch
-        directory), with the experiment config saved beside them."""
+        directory), with the experiment config saved beside them.  It
+        serves at the launch's layout, not the saved one: every rank of the
+        process group (or the one process) on the data axis, the weights
+        unsplit, so a model trained at dp x mp across hosts serves on one
+        rank."""
         from .training.checkpoint import (
             load_config, load_params, resolve_checkpoint)
 
@@ -205,6 +211,8 @@ class Predictor:
         config = load_config(directory)
         if config is None:
             raise FileNotFoundError(f"no config.json in {directory}")
+        config = dataclasses.replace(config, train=dataclasses.replace(
+            config.train, data_parallel=world_size(), model_parallel=1))
         return cls(config, load_params(directory, "cpu"), batch_size, device,
                    quantize=quantize, calibration=calibration)
 

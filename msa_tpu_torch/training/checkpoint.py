@@ -1,13 +1,17 @@
-"""Checkpoints in the JAX package's msgpack format.
+"""Checkpoints in the JAX package's formats.
 
-Counterpart of the msgpack half of ``msa_tpu/training/checkpoint.py``: a
-checkpoint directory holds ``state.msgpack`` (the train state as
-``flax.serialization.to_bytes`` writes it: params, optax state and step,
-in the JAX layout), ``meta.json`` (epoch, step and extras) and
-``config.json``.  A run directory keeps one ``epoch_NNN`` subdirectory per
-retained epoch.  The port reads and writes these files with its own codec
-(``msgpack_codec.py``), so a checkpoint written by either package loads in
-the other.  Sharded orbax checkpoints are not read yet.
+Counterpart of ``msa_tpu/training/checkpoint.py``: a checkpoint directory
+holds ``state.msgpack`` (the train state as ``flax.serialization.to_bytes``
+writes it: params, optax state and step, in the JAX layout), ``meta.json``
+(epoch, step and extras) and ``config.json``.  A run directory keeps one
+``epoch_NNN`` subdirectory per retained epoch.  The port reads and writes
+these files with its own codec (``msgpack_codec.py``), so a checkpoint
+written by either package loads in the other.
+
+A multi-process JAX run writes an ``orbax/`` subdirectory in place of
+``state.msgpack`` (``save_checkpoint_sharded``: an OCDBT store of zarr
+arrays).  The port reads it with its own reader (``orbax_reader.py``) into
+the same tree, and writes msgpack only.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 from ..configs import ExperimentConfig
 from ..models.weights import (
     from_jax_opt_state, from_jax_params, to_jax_opt_state, to_jax_params)
-from . import msgpack_codec
+from . import msgpack_codec, orbax_reader
 from .train_state import TrainState
 
 STATE_FILE = "state.msgpack"
@@ -77,13 +81,15 @@ def resolve_checkpoint(directory: str, model_num: Optional[int] = None) -> str:
     return epoch_dir(directory, epochs[-1])
 
 
-def _read_state(directory: str) -> Dict[str, Any]:
+def _read_state(directory: str, only=None) -> Dict[str, Any]:
+    """The state tree of a checkpoint directory, dispatched as JAX's
+    ``load_checkpoint_auto``: the orbax subdirectory where it exists and
+    ``state.msgpack`` does not, else ``state.msgpack``.  ``only`` names the
+    top-level keys wanted (orbax reads no others)."""
     path = os.path.join(directory, STATE_FILE)
-    if not os.path.exists(path) and os.path.isdir(
-            os.path.join(directory, ORBAX_SUBDIR)):
-        raise NotImplementedError(
-            f"{directory} holds a sharded orbax checkpoint, which the port "
-            "does not read yet (ROADMAP.md: parallelism)")
+    orbax = os.path.join(directory, ORBAX_SUBDIR)
+    if not os.path.exists(path) and os.path.isdir(orbax):
+        return orbax_reader.read_state(orbax, only=only)
     with open(path, "rb") as f:
         return msgpack_codec.unpackb(f.read())
 
@@ -99,7 +105,8 @@ def _read_meta(directory: str) -> Dict[str, Any]:
 def load_params(directory: str, device):
     """Only the parameters of a checkpoint, in the port's layout on
     ``device``."""
-    return from_jax_params(_read_state(directory)["params"], device)
+    return from_jax_params(_read_state(directory, only=("params",))["params"],
+                           device)
 
 
 def load_checkpoint(directory: str, device) -> Tuple[TrainState, Dict[str, Any]]:

@@ -246,10 +246,14 @@ def test_resolve_checkpoint_and_model_num_as_jax(tmp_path):
             resolve(str(tmp_path / "empty"))
 
 
-def test_orbax_checkpoint_is_refused(tmp_path):
+def test_orbax_zarr3_checkpoint_is_refused(tmp_path):
+    """An orbax directory is read (tests/test_torch_orbax.py) unless its
+    arrays are zarr v3, which the JAX package never writes."""
     (tmp_path / "orbax").mkdir()
+    (tmp_path / "orbax" / "_METADATA").write_text(json.dumps(
+        {"tree_metadata": {}, "use_ocdbt": True, "use_zarr3": True}))
     assert ckpt.resolve_checkpoint(str(tmp_path)) == str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="zarr3"):
         ckpt.load_checkpoint(str(tmp_path), "cpu")
 
 

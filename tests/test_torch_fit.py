@@ -294,10 +294,14 @@ def test_train_cli_refuses_parallel_flags(flags, tmp_path, monkeypatch):
 
 def test_cli_runs_without_jax(tmp_path):
     """cli.train, cli.sample and cli.score on the CPU with jax, the JAX
-    package, flax and msgpack blocked (a subprocess)."""
+    package, flax, msgpack and the orbax stack (orbax, tensorstore,
+    zstandard, numcodecs) blocked (a subprocess); cli.sample also reads
+    the committed two-process orbax checkpoint."""
     code = """
 import sys
-for name in ("jax", "msa_tpu", "flax", "msgpack"):
+BLOCKED = {"jax", "msa_tpu", "flax", "msgpack", "orbax", "tensorstore",
+           "zstandard", "numcodecs"}
+for name in BLOCKED:
     sys.modules[name] = None
 import os
 import numpy as np
@@ -312,10 +316,14 @@ preds, _ = sample.main(["--checkpoint", os.path.join("model_save", run),
                         "--device", "cpu", "--synthetic", "8"])
 report = score.main(["--path", sorted(os.listdir("numpy_save"))[-1]])
 assert np.isfinite(preds).all() and np.isfinite(report["mae"])
+preds, _ = sample.main(["--checkpoint", FIXTURE, "--device", "cpu",
+                        "--synthetic", "8", "--dp", "1", "--mp", "1"])
+assert len(preds) == 8 and np.isfinite(preds).all()
 loaded = {m.split(".")[0] for m, v in sys.modules.items() if v is not None}
-assert not loaded & {"jax", "msa_tpu", "flax", "msgpack"}
+assert not loaded & BLOCKED, loaded & BLOCKED
 print("ok", len(result.history))
-"""
+""".replace("FIXTURE", repr(os.path.join(REPO, "tests", "data",
+                                          "orbax_two_process")))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=tmp_path, timeout=300)

@@ -354,11 +354,12 @@ print("modules", len(names))
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """No file of msa_tpu_torch/, and not chip_smoke.py, imports jax,
-    msa_tpu, flax or msgpack (the port keeps its own copies of the host
-    modules and its own checkpoint codec)."""
+    msa_tpu, flax, msgpack or the orbax stack (orbax, tensorstore,
+    zstandard, numcodecs): the port keeps its own copies of the host
+    modules, its own checkpoint codec and its own orbax reader."""
     pattern = re.compile(
-        r"^\s*(?:import|from)\s+(?:jax|msa_tpu|flax|msgpack)(?:\.|\s|$)",
-        re.MULTILINE)
+        r"^\s*(?:import|from)\s+(?:jax|msa_tpu|flax|msgpack|orbax|"
+        r"tensorstore|zstandard|numcodecs)(?:\.|\s|$)", re.MULTILINE)
     files = sorted(glob.glob(os.path.join(REPO, "msa_tpu_torch", "**", "*.py"),
                              recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
@@ -370,3 +371,27 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         if hits:
             offenders[os.path.relpath(path, REPO)] = hits
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("words", [
+    ["the", "movie", "was", "great"],
+    ["REALLY", "Bad", "ACTing", "don't", "stop...", "now?!"],
+    ["zebra", "quixotic", "", "x" * 150],
+])
+def test_port_fast_tokenizer_builds_on_the_host_route(tmp_path, words):
+    """The port's native WordPiece encoder is built by ``_build``'s host
+    route (``csrc/wordpiece.cpp``) and encodes as the Python tokenizer."""
+    from msa_tpu_torch import _build
+    from msa_tpu_torch.data.fast_wordpiece import FastTokenizer
+
+    vocab = make_test_vocab(extra_words=["zebra", "qui", "##xo", "##tic",
+                                         "movie", "great"])
+    path = tmp_path / "vocab.txt"
+    path.write_text("".join(t + "\n" for t in sorted(vocab, key=vocab.get)))
+    fast = FastTokenizer(str(path))
+    assert fast.native_available
+    assert _build.library_path("wordpiece").exists()
+    ids, inv = fast.encode_words(words)
+    want = fast._encode_words_python(words)
+    np.testing.assert_array_equal(ids, want[0])
+    np.testing.assert_array_equal(inv, want[1])
