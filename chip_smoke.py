@@ -21,17 +21,18 @@ its own), the script:
 
   1. requires CUDA and prints the card's name and power limit;
   2. builds the CUDA kernels from msa_tpu_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all started together, prints each source's nvcc
-     wall time and what ptxas reports (registers, static shared memory,
-     spills) for the bf16 tensor-core kernels of the short attention (the
-     v1, v2, v2p and v2s forwards, the v1, v2, v2p, v3 and v2s backwards
-     and the tiled backward pair above 128 keys, each at head dim 32 and
-     64), for the joint embed's tiles and
-     flash2's bf16 fused backward and its pre-pass, none of which may
+     one nvcc per library (each attention source once a head dim of 16,
+     32, 64 and 128), all started together, prints each library's nvcc
+     wall time and what ptxas reported in the build (registers, static
+     shared memory, spills) for the bf16 tensor-core kernels of the short
+     attention (the v1, v2, v2p and v2s forwards, the v1, v2, v2p, v3 and
+     v2s backwards and the tiled backward pair above 128 keys, at every
+     head dim; none may spill at 32 or 64), for the joint embed's tiles
+     and flash2's bf16 fused backward and its pre-pass, none of which may
      spill, and for the warpgroup (wgmma) kernels of rows 10, 12 and 13
      (the bf16 forward, the split backward's dq and dk/dv launches, in
-     flash2.cu and flash_attention.cu), none of which may spill or have its
-     wgmma products serialised;
+     flash2.cu and flash_attention.cu), none of which may have its wgmma
+     products serialised or spill at 32 or 64;
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -113,9 +114,21 @@ its own), the script:
   3c. runs every kernel phase of 3 (but the dropout export and AdamW)
      again at head dim 32 (H = 64, 2 heads), ln_quant and the joint embed
      at H = 64;
+  3c'. every kernel phase of 3c again at head dims 26 (H = 312, 12
+     heads: the instantiation at 32, heads zero-padded) and 128 (H = 1024,
+     8 heads), v2's and flash2's forwards and backwards also at 8 and 16,
+     ln_quant's generic form at H = 32, 100, 312 and 4096 and the joint
+     embed at H = 2560, D = 1100 (``phase_head_dims``); v1 above 128 keys
+     (S = 200, 540, 1000) runs in each v1 phase;
   3d. JAX's ``tiny`` preset (head dim 32) through ``cli.train --model
      tiny``, the bf16, int8 and int8_static ``Predictor`` and the
      frame-level path (serving, 1 + 2 train steps on flash2 at d = 32);
+     then TinyBERT-4L-312D's widths (head dim 26; ``phase_tinybert``):
+     1 + 3 bf16 train steps at B = 96, L = 40, the bf16, int8 and
+     int8_static ``Predictor``, one frame-level serving batch and train
+     step at Lp = 984; and ``cli.train --model bert-base-uncased`` for two
+     steps, its weights through the bf16 and int8 ``Predictor``
+     (``phase_bert_base_preset``);
   3e. the JAX package's sharded orbax checkpoint of a two-process run
      (``tests/data/orbax_two_process``) through the port's reader
      (``phase_orbax``): the zstd decoder built with the host compiler,
@@ -226,7 +239,6 @@ beside it, the script exits non-zero before printing any result.
 
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -1593,6 +1605,128 @@ def phase_head_dim_32():
     return out
 
 
+# The head dims the port runs beside the presets' 32 and 64: (d,
+# H, heads, every kernel phase or only v2's and flash2's forward and
+# backward).  d = 26 is TinyBERT-4L-312D's (H = 312, 12 heads: the
+# instantiation at 32, zero-padded), 128 the widest instantiation, 8 and
+# 16 the narrowest (d = 8 on the one at 16).
+HEAD_DIM_CASES = ((26, 312, 12, True), (128, 1024, 8, True),
+                  (8, 64, 8, False), (16, 128, 8, False))
+LN_QUANT_WIDTHS = (32, 312, 4096, 100)  # the generic form's widths
+WIDE_EMBED = (2560, 1100)  # (H, D) of the joint embed past 2048 and 1024
+
+
+def phase_head_dims():
+    """Every attention kernel at head dims 26 and 128, and v2's and
+    flash2's forwards and backwards at 8 and 16 (``HEAD_DIM_CASES``): the
+    kernel phases above under :func:`head_widths`, from a generator of
+    their own each, with their checks and tolerances (a head dim off the
+    instantiations runs its heads zero-padded, the pad and the cut inside
+    every timed call); then ln_quant's generic form at ``LN_QUANT_WIDTHS``
+    and the joint embed at ``WIDE_EMBED``.  Returns {d: {phase: (worst
+    error, times)}} and the wide-width checks' {"ln_quant": ..., "joint_embed":
+    ...}."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    out = {}
+    t0 = time.perf_counter()
+    for d, hidden, heads, full in HEAD_DIM_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(100 + d)
+        with head_widths(hidden, heads):
+            print(f"head dim {d}: H={HIDDEN}, {HEADS} heads", flush=True)
+            res = {"attention": phase_attention(gen),
+                   "attention_backward": phase_attention_backward(gen),
+                   "flash2": phase_flash2(gen),
+                   "flash2_backward": phase_flash2_backward(gen)}
+            if full:
+                res["probs_packed"] = phase_probs_packed(gen)
+                res["v3"] = phase_v3_kernels(gen)
+                res["tiled_backward"] = phase_tiled_backward()
+                res["flash_attention"] = phase_flash_attention(gen)
+                res["v1"] = phase_short_v1(gen)
+            if d not in sa.HEAD_DIMS:
+                time_head_pad(gen, 2 * BATCH, 2 * TEXT_LEN)
+                time_head_pad(gen, 2 * FRAME_BATCH, FRAME_PAIR_LEN + TEXT_LEN)
+        out[d] = res
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    wide = {"ln_quant": {}}
+    for h in LN_QUANT_WIDTHS:
+        with head_widths(h, 1):
+            wide["ln_quant"][h] = phase_ln_quant(gen, (
+                ("text", BATCH * TEXT_LEN), ("odd", 1001)))
+    wide["joint_embed"] = check_wide_joint_embed(gen)
+    print(f"head dims {[c[0] for c in HEAD_DIM_CASES]}, ln_quant at "
+          f"{LN_QUANT_WIDTHS}, the joint embed at H, D = {WIDE_EMBED}: every "
+          f"check passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out, wide
+
+
+def time_head_pad(gen, b, s):
+    """The pad and the cut a head dim off the instantiations costs at [b, s,
+    HIDDEN] bf16 (``ops.short_attention.HeadPad``): the three pads of q, k
+    and v a forward call makes, and one cut of its output, timed alone."""
+    import torch
+
+    from msa_tpu_torch.ops.short_attention import HeadPad
+
+    pad = HeadPad(HIDDEN, HEADS)
+    q = torch.randn(b, s, HIDDEN, device="cuda", generator=gen).to(torch.bfloat16)
+    wide = pad.pad(q)
+    pad_ms = cuda_ms(lambda: [pad.pad(q) for _ in range(3)])
+    cut_ms = cuda_ms(lambda: pad.cut(wide))
+    print(f"head dim {pad.d} on the instantiation at {pad.kd}: three pads "
+          f"[{b},{s},{HIDDEN}] -> [{b},{s},{pad.hidden}] {pad_ms:.4f} ms, the "
+          f"cut back {cut_ms:.4f} ms (inside every timed call at this head "
+          f"dim)", flush=True)
+    return pad_ms, cut_ms
+
+
+def check_wide_joint_embed(gen):
+    """The joint embed at H, D = ``WIDE_EMBED`` (rows held in three sweeps,
+    features in 18 staged rounds, tiles of 4 rows over 3 column rounds) at
+    B = 3, Lp = 37 and B = 16, L = Lp = 40, bf16 and f32, against the plain
+    version; the bf16 B = 16 call timed.  Returns (worst error, (ms, plain
+    ms, library ms, bound))."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops.fused_joint_embed import (
+        fused_joint_embed, fused_joint_embed_plain)
+
+    h, d = WIDE_EMBED
+    worst, timing = 0.0, None
+    for batch, lp in ((3, 37), (16, TEXT_LEN)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            args = joint_embed_args(gen, batch, lp, d, h, dtype)
+            out = fused_joint_embed(*args)
+            ref = fused_joint_embed_plain(*args)
+            torch.cuda.synchronize()
+            tag = f"fused_joint_embed [{batch},{TEXT_LEN}+{lp},{h}] D={d} {dname}"
+            err = check_close(tag, out, ref, *EMBED_TOL[dname])
+            worst = max(worst, err)
+            line = f"{tag}: max_abs_err {err:.3e}"
+            if batch == 16 and dtype == torch.bfloat16:
+                text, feats, w, b, scale, bias, eps = args
+                ms = cuda_ms(lambda: fused_joint_embed(*args))
+                plain_ms = cuda_ms(lambda: fused_joint_embed_plain(*args))
+                wt = w.t().contiguous().to(dtype)
+                lib_ms = cuda_ms(lambda: F.layer_norm(torch.cat(
+                    [text, torch.relu(F.linear(feats, wt, b.to(dtype)))], 1),
+                    (h,), scale.to(dtype), bias.to(dtype), eps))
+                nbytes = ((text.numel() + feats.numel() + out.numel()) * 2
+                          + (w.numel() + 3 * h) * 4)
+                bound = bound_ms(nbytes, 2 * batch * lp * d * h, dname)
+                timing = (ms, plain_ms, lib_ms, bound)
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"linear+layer_norm {lib_ms:.4f} ms, bound "
+                         f"{bound[0]:.4f} ms ({bound[1]})")
+            print(line, flush=True)
+    return worst, timing
+
+
 def phase_tiny_preset():
     """JAX's ``tiny`` preset (H = 64, 2 heads: head dim 32) on the card
     through the hand-written kernels: ``cli.train --model tiny`` (its
@@ -1731,6 +1865,226 @@ def phase_tiny_preset():
           f"{dict((k, v // nb) for k, v in got.items() if v)}", flush=True)
     phase_frame_training(FRAME_PAIR_LEN, FRAME_BATCH, None, 1, 2,
                          "tiny frame-level", model="tiny")
+
+
+TINYBERT_WARMUP, TINYBERT_STEPS = 1, 3
+TINYBERT_SERVE = 2 * BATCH - 5  # two batches, the second ragged
+
+
+def phase_tinybert():
+    """TinyBERT-4L-312D's widths (head dim 26: the kernels instantiated at
+    32, every head zero-padded from 26) through the normal entry points at
+    B = 96, L = 40, MOSI widths, random weights from a seed: 1 + 3 bf16
+    ``Trainer.train_step`` steps at dropout 0.1 (finite losses, moved
+    parameters, the launches a step by route), ``Predictor.predict_split``
+    in bf16, int8 and int8_static (ln_quant's generic form at H = 312; the
+    launches a batch, samples/s), then frame level at Lp = 984 (flash2 at
+    head dim 26): one serving batch and one train step after a warm-up
+    one.  Returns the launches of each path."""
+    import numpy as np
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.ops.short_attention import kernel_head_dim
+    from msa_tpu_torch.training.trainer import Trainer
+
+    exp = model_experiment(TINYBERT, train_batch_size=BATCH,
+                           compute_dtype="bfloat16", warmup_proportion=0.01,
+                           adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                           data_parallel=1)
+    cfg = exp.model
+    bert = cfg.bert
+    d, layers = bert.head_dim, bert.num_hidden_layers
+    if (d, bert.hidden_size, bert.padded_vocab_size, bert.intermediate_size,
+            bert.hidden_dropout_prob, bert.attention_probs_dropout_prob) != (
+            26, 312, 30592, 1200, 0.1, 0.1):
+        raise AssertionError(f"TinyBERT widths: {bert}")
+    kd = kernel_head_dim(d)
+    out = {}
+    trainer = Trainer(exp, "cuda")
+    state = trainer.init_state(0, total_steps=10_000)
+    split = synthetic_split(2 * BATCH, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=bert.vocab_size, seed=4)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, BATCH, drop_last=True))
+    watch = state.params["bert"]["layers"][0]["q"]["weight"]
+    before = watch.detach().clone()
+    for i in range(TINYBERT_WARMUP):
+        state, metrics = trainer.train_step(state, batches[i % len(batches)], 1)
+        float(metrics["loss"])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    step_metrics = []
+    for i in range(TINYBERT_STEPS):
+        state, metrics = trainer.train_step(state, batches[i % len(batches)], 1)
+        step_metrics.append(metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out["training"] = kernel_counts()
+    want = rung_launches("none", layers, TINYBERT_STEPS)
+    if trainer.remat_policy != "none" or out["training"] != want:
+        raise AssertionError(f"TinyBERT training: remat {trainer.remat_policy}, "
+                             f"launches {out['training']}, want {want}")
+    losses = [float(m["loss"]) for m in step_metrics]
+    moved = float((watch.detach() - before).abs().max())
+    if not all(np.isfinite(losses)) or not moved > 0:
+        raise AssertionError(f"TinyBERT training: losses {losses}, max "
+                             f"|update| {moved}")
+    ms_step = seconds * 1e3 / TINYBERT_STEPS
+    print(f"TinyBERT-4L-312D widths (H={bert.hidden_size}, {bert.num_attention_heads}"
+          f" heads of {d} on the instantiation at {kd}, {layers} layers, FFN "
+          f"{bert.intermediate_size}, vocab {bert.padded_vocab_size}) training "
+          f"bf16 B={BATCH} L={TEXT_LEN} dropout 0.1: {TINYBERT_STEPS} steps "
+          f"after {TINYBERT_WARMUP} warm-up, {ms_step:.2f} ms/step, "
+          f"{BATCH * TINYBERT_STEPS / seconds:.2f} samples/s; launches per "
+          f"step (every one at head dim {d} on kD = {kd}) "
+          f"{ {k: v // TINYBERT_STEPS for k, v in out['training'].items() if v} }; "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    params = state.params
+    del state, trainer
+
+    split = synthetic_split(TINYBERT_SERVE, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=bert.vocab_size, seed=5)
+    calib = dataclasses.replace(split, **{
+        f: getattr(split, f)[:BATCH] for f in (
+            "input_ids", "attention_mask", "visual", "speech", "target")})
+    n_batches = -(-TINYBERT_SERVE // BATCH)
+    preds = {}
+    for mode in (None, "int8", "int8_static"):
+        pred = Predictor(exp, params, BATCH, "cuda", quantize=mode,
+                         calibration=calib if mode == "int8_static" else None)
+        pred.predict_split(split)  # warm
+        reset_counts()
+        t0 = time.perf_counter()
+        got = pred.predict_split(split)
+        seconds = time.perf_counter() - t0
+        name = mode or "bf16"
+        out[f"serving_{name}"] = kernel_counts()
+        if out[f"serving_{name}"] != serving_launches(layers, n_batches, mode):
+            raise AssertionError(f"TinyBERT serving {name}: launches "
+                                 f"{out[f'serving_{name}']}")
+        if got.shape != (TINYBERT_SERVE,) or not np.isfinite(got).all():
+            raise AssertionError(f"TinyBERT serving {name}: {got.shape}")
+        preds[name] = got
+        print(f"TinyBERT widths serving {name} B={BATCH}: {TINYBERT_SERVE} "
+              f"samples, {TINYBERT_SERVE / seconds:.2f} samples/s; launches "
+              f"per batch {dict((k, v // n_batches) for k, v in out[f'serving_{name}'].items() if v)}"
+              f"{' (ln_quant generic form)' if mode else ''}",
+              flush=True)
+    gap = max(float(np.abs(preds[m] - preds["bf16"]).max())
+              for m in ("int8", "int8_static"))
+    spread = float(np.ptp(preds["bf16"]))
+    print(f"TinyBERT widths: int8 / int8_static against bf16 max |diff| "
+          f"{gap:.3e} (bf16 predictions spread {spread:.3e})", flush=True)
+    if not gap < spread:
+        raise AssertionError(f"TinyBERT int8 predictions off bf16 by {gap:.3e}, "
+                             f"their spread {spread:.3e}")
+
+    # frame level: the joint pass [2B, 1024] on flash2 at head dim 26
+    fexp = frame_experiment(FRAME_PAIR_LEN, model=TINYBERT)
+    fsplit = synthetic_split(FRAME_BATCH, TEXT_LEN, cfg.visual_dim,
+                             cfg.speech_dim, vocab_size=bert.vocab_size, seed=8,
+                             pair_seq_length=FRAME_PAIR_LEN)
+    fpred = Predictor(fexp, params, FRAME_BATCH, "cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    fout = fpred.predict_split(fsplit)
+    seconds = time.perf_counter() - t0
+    out["frame_serving"] = kernel_counts()
+    fwant = expect_counts(short_attention=layers, flash_attention2=layers,
+                          fused_joint_embed=2)
+    if out["frame_serving"] != fwant or fout.shape != (FRAME_BATCH,) or \
+            not np.isfinite(fout).all():
+        raise AssertionError(f"TinyBERT frame-level serving: launches "
+                             f"{out['frame_serving']}, predictions {fout.shape}")
+    print(f"TinyBERT widths frame-level serving B={FRAME_BATCH} "
+          f"Lp={FRAME_PAIR_LEN}: one batch in {seconds * 1e3:.1f} ms (the "
+          f"first, unwarmed), launches {dict((k, v) for k, v in out['frame_serving'].items() if v)}",
+          flush=True)
+    del params, fpred
+    # one measured step after one warm-up (the learning rate's warm-up
+    # starts at 0, so a first step alone moves nothing)
+    out["frame_training"], _ = phase_frame_training(
+        FRAME_PAIR_LEN, FRAME_BATCH, None, 1, 1, "TinyBERT widths frame-level",
+        model=TINYBERT)
+    return out
+
+
+def phase_bert_base_preset():
+    """JAX's ``bert-base-uncased`` preset (H = 768, 12 heads of 64, 12
+    layers) end to end: ``cli.train --model bert-base-uncased`` for two
+    steps on a synthetic MOSI split (launches a step as at bert-large), then
+    the trained weights through the bf16 and int8 ``Predictor`` (launches a
+    batch, finite predictions)."""
+    import numpy as np
+
+    from msa_tpu_torch.cli import train
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+
+    batch = 32
+    n_train = 2 * batch
+    cwd = os.getcwd()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the CLI logs under ./logs
+        try:
+            argv = ["--model", "bert-base-uncased", "--dataset", "mosi",
+                    "--synthetic", str(n_train), "--n_epochs", "1",
+                    "--train_batch_size", str(batch), "--val_batch_size",
+                    str(batch), "--test_batch_size", str(batch),
+                    "--checkpoint_root", os.path.join(tmp, "model_save"),
+                    "--numpy_root", os.path.join(tmp, "numpy_save"),
+                    "--device", "cuda"]
+            reset_counts()
+            trainer, state, result = train.run(
+                train.build_parser().parse_args(argv))
+            launches = kernel_counts()
+        finally:
+            os.chdir(cwd)
+    fit_s = time.perf_counter() - t0
+    exp = trainer.config
+    bert = exp.model.bert
+    layers = bert.num_hidden_layers
+    if (bert.hidden_size, bert.head_dim, layers) != (768, 64, 12) or \
+            state.step != 2:
+        raise AssertionError(f"bert-base: H {bert.hidden_size}, head dim "
+                             f"{bert.head_dim}, {layers} layers, {state.step} "
+                             "steps")
+    want = rung_launches("none", layers, state.step)
+    evals = 2 * -(-(n_train // 8) // batch)
+    want["short_attention"] += 2 * layers * evals
+    want["fused_joint_embed"] += 2 * evals
+    if launches != want:
+        raise AssertionError(f"bert-base cli.train launches {launches}, want "
+                             f"{want}")
+    losses = [float(h["train"]["loss"]) for h in result.history]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert-base cli.train: epoch losses {losses}")
+    params = state.params
+    del state, trainer
+    n_serve = 2 * batch - 3
+    split = synthetic_split(n_serve, TEXT_LEN, exp.model.visual_dim,
+                            exp.model.speech_dim, vocab_size=bert.vocab_size,
+                            seed=9)
+    per_batch = {}
+    for mode in (None, "int8"):
+        pred = Predictor(exp, params, batch, "cuda", quantize=mode)
+        reset_counts()
+        got = pred.predict_split(split)
+        counts = kernel_counts()
+        if counts != serving_launches(layers, 2, mode):
+            raise AssertionError(f"bert-base serving {mode}: launches {counts}")
+        if got.shape != (n_serve,) or not np.isfinite(got).all():
+            raise AssertionError(f"bert-base serving {mode}: {got.shape}")
+        per_batch[mode or "bf16"] = {k: v // 2 for k, v in counts.items() if v}
+    print(f"bert-base-uncased preset: cli.train 2 steps at B={batch} and its "
+          f"eval passes in {fit_s:.1f} s (epoch losses {losses}), launches "
+          f"{dict((k, v) for k, v in launches.items() if v)}; served {n_serve} "
+          f"samples in bf16 / int8, launches per batch {per_batch}", flush=True)
+    return launches
 
 
 ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_two_process")
@@ -2395,18 +2749,38 @@ def phase_training():
 
 def frame_experiment(pair_len, layers=None, model="bert-large-uncased",
                      **train):
-    """MMBert (bert-large, or the preset ``model``) on MOSI widths in
-    frame-level mode (``pair_len`` native-rate frames per modality), depth
-    cut to ``layers`` if given."""
-    from msa_tpu_torch.configs import build_experiment
-
-    exp = build_experiment("mosi", model, num_labels=1, **train)
+    """MMBert (bert-large, the preset ``model``, or ``TINYBERT``'s widths)
+    on MOSI widths in frame-level mode (``pair_len`` native-rate frames per
+    modality), depth cut to ``layers`` if given."""
+    exp = model_experiment(model, **train)
     data = dataclasses.replace(exp.data, pair_seq_length=pair_len)
     bert = exp.model.bert
     if layers is not None:
         bert = dataclasses.replace(bert, num_hidden_layers=layers)
     return dataclasses.replace(exp, data=data, model=dataclasses.replace(
         exp.model, bert=bert))
+
+
+# TinyBERT General 4L-312D's widths (huawei-noah/TinyBERT_General_4L_312D's
+# config: hidden 312, 12 heads -- head dim 26 --, 4 layers, FFN 1200, vocab
+# 30522, padded to 30592, 512 positions), run with random weights from a
+# seed: nothing is downloaded.
+TINYBERT = "tinybert-4l-312d"
+TINYBERT_WIDTHS = dict(vocab_size=30522, hidden_size=312, num_hidden_layers=4,
+                       num_attention_heads=12, intermediate_size=1200,
+                       max_position_embeddings=512)
+
+
+def model_experiment(model, **train):
+    """``build_experiment``'s MMBert on MOSI widths with the BERT preset
+    ``model``, or with ``TINYBERT``'s widths as its BertConfig."""
+    from msa_tpu_torch.configs import BertConfig, build_experiment
+
+    if model != TINYBERT:
+        return build_experiment("mosi", model, num_labels=1, **train)
+    exp = build_experiment("mosi", "bert-base-uncased", num_labels=1, **train)
+    return dataclasses.replace(exp, model_name=TINYBERT, model=dataclasses.replace(
+        exp.model, bert=BertConfig(**TINYBERT_WIDTHS)))
 
 
 def cut_depth(params, layers):
@@ -2485,7 +2859,7 @@ def phase_frame_serving(params):
 
 
 def phase_frame_training(pair_len, batch, layers, warmup, steps, label,
-                         model="bert-large-uncased"):
+                         model="bert-large-uncased"):  # or TINYBERT
     """bf16 train steps in frame-level mode (MOSI widths, the default
     dropouts, MLM on, bf16 Adam moments): finite losses, moved parameters
     and the kernel launches per step, with the joint pass's backward on the
@@ -3439,16 +3813,21 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
         dout.float(), HEADS, rate, keep)
     v2 = sa.short_attention_backward(q, k, v, bias, lse, dout, HEADS, seed,
                                      rate)
-    # the C entry once more, keeping its scratch: the recomputed lse
+    # the C entry once more (on the head dim's library, its heads padded as
+    # the wrapper pads them), keeping its scratch: the recomputed lse
+    pad = sa.HeadPad(HIDDEN, HEADS)
+    padded = [pad.pad(x).contiguous() for x in (q, k, v)]
     scratch = [torch.empty_like(lse) for _ in range(2)]
-    grads = [torch.empty_like(q) for _ in range(3)]
-    _build.check(_build.load("short_attention", sa._SIGNATURES)
+    grads = [torch.empty_like(padded[0]) for _ in range(3)]
+    _build.check(pad.library("short_attention", sa._SIGNATURES)
                  .msa_short_attention_v3_bwd(
-                     *(x.data_ptr() for x in (q, k, v, bias, out, dout,
-                                              *scratch, *grads)),
-                     b, s, HIDDEN, HEADS, sa._DTYPES[q.dtype],
-                     sa.softmax_scale(HIDDEN, HEADS), *sa._seed_words(seed), t,
-                     sa._stream(q)), "v3 scratch check")
+                     *(x.data_ptr() for x in (
+                         *padded, bias, pad.pad(out).contiguous(),
+                         pad.pad(dout).contiguous(), *scratch, *grads)),
+                     b, s, pad.hidden, HEADS, sa._DTYPES[q.dtype], pad.scale,
+                     *sa._seed_words(seed), t, sa._stream(q)),
+                 "v3 scratch check")
+    grads = [pad.cut(g) for g in grads]
     torch.cuda.synchronize()
     if q.dtype == torch.bfloat16:
         lse_err = check_close(f"{tag} lse", scratch[0], lse, *V3_TC_LSE_TOL)
@@ -3974,7 +4353,9 @@ def phase_flash_attention(gen):
     its plain version on the same inputs (JAX's rule: p from the lse, delta
     = rowsum(dO o) with o the forward's output in its dtype), and against
     autograd through the plain forward in f32 within twice the tolerance
-    plus the gap that o's rounding makes in the plain rule (as v3's); with
+    plus the gap the rule's roundings make in it (o's, and dS's and the
+    dropped p's: |rule - the rule in f32 on the f32 output|, as
+    :func:`check_rounded_backward` holds the short backwards); with
     and without dropout (the plain versions given keep_mask_plain: forward
     and backward draw that mask), and against flash2 in natural layout at
     the same seed (same mask) within the same allowance; a second seed gives
@@ -4022,10 +4403,13 @@ def phase_flash_attention(gen):
         # their products as the kernels (and JAX's) round them
         refs = A.flash_attention_backward_plain(q, k, v, bias, out, lse, dout,
                                                 rate, keep)
-        # what o's rounding to the dtype moves in the plain rule (0 in f32)
+        # what the rule's roundings (o to the dtype, dS and the dropped p
+        # before their products) move in it: the rule in f32 throughout on
+        # the plain f32 output (0 in f32)
         o_gap = [(a.float() - c.float()).abs() for a, c in zip(
             refs, A.flash_attention_backward_plain(
-                q, k, v, bias, ref.detach(), lse, dout, rate, keep))]
+                q.float(), k.float(), v.float(), bias, ref.detach(), lse,
+                dout.float(), rate, keep))]
         torch.cuda.synchronize()
         if not torch.equal(out_ag, out):
             raise AssertionError(f"flash_attention {label}: the autograd "
@@ -4056,7 +4440,7 @@ def phase_flash_attention(gen):
                 f"{lse_err:.3e} (atol {FLASH_LSE_ATOL}, rtol {FLASH_LSE_RTOL}), "
                 f"gradients {gerr:.3e} against the plain rule (atol {gatol}, "
                 f"rtol {grtol}), {auto_err:.3e} against autograd through the "
-                f"plain forward (o's rounding gap up to "
+                f"plain forward (the rule's rounding gap up to "
                 f"{max(float(x[live].max()) for x in o_gap):.3e})")
         if rate:
             # flash2 in natural layout at the same seed draws the same mask:
@@ -4153,7 +4537,8 @@ def phase_short_v1(gen):
     CUDA cores).  Then the bf16 forward at S = 8 (one ragged 16-key tile)
     and 128 (eight tiles, the widest) against the plain version and v2,
     and the bf16 backward at S = 8, 12 and 128 (:func:`check_v1_backward`),
-    each from a generator of its own."""
+    each from a generator of its own; then v1 above 128 keys
+    (:func:`check_v1_long`)."""
     import torch
     import torch.nn.functional as F
 
@@ -4311,7 +4696,83 @@ def phase_short_v1(gen):
                                generator=bwd_gen).to(torch.bfloat16)
             worst["bwd"] = max(worst["bwd"], check_v1_backward(
                 q, k, v, bias, live, dout, 31 + s, rate))
+    for key, err in check_v1_long().items():
+        worst[key] = max(worst[key], err)
     return worst, times
+
+
+V1_LONG_SEQS = (200, 540, 1000)
+
+
+def check_v1_long():
+    """v1 above 128 keys (the v2 kernels' forms: the two-sweep forward, the
+    training forward's lse and the v2 pair for the backward) at S = 200,
+    540 and 1000 (B = 2), bf16 at rate 0 and 26/256: the forward against
+    the plain version and v2, the backward by :func:`check_v1_backward`
+    (its plain rule, autograd, v2's gradients bit for bit) with its
+    launches counted (:func:`short_attention_v1.v1_backward_launches`);
+    then f32 at S = 540 (the CUDA-core forms) against autograd through the
+    plain version in f32 at GRAD_TOL.  From a generator of its own.
+    Returns the worst forward and backward errors."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import keep_mask_plain, quantize_dropout_rate
+
+    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    atol, rtol = ATTN_TOL["bfloat16"]
+    for s in V1_LONG_SEQS:
+        for rate in (0.0, rate_on):
+            q, k, v, bias, live = attention_inputs(gen, 2, s, torch.bfloat16)
+            dout = torch.randn(2, s, HIDDEN, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+            seed = 31 + s
+            keep = (keep_mask_plain(seed, rate, 2, HEADS, s, device="cuda")
+                    if rate else None)
+            out = sa.short_attention_v1(q, k, v, bias, HEADS, rate,
+                                        seed if rate else None)
+            v2_out = sa.short_attention(q, k, v, bias, HEADS, rate,
+                                        seed if rate else None)
+            ref = sa.short_attention_plain(q.float(), k.float(), v.float(),
+                                           bias, HEADS, rate, keep)
+            torch.cuda.synchronize()
+            tag = f"short_attention_v1 [2,{s},{HIDDEN}] bfloat16 rate {rate:g}"
+            err = check_close(tag, out, ref, atol, rtol, mask=live)
+            if not torch.equal(out, v2_out):
+                raise AssertionError(f"{tag}: v1's forward is not v2's")
+            diff, gap = check_masked_rows(tag, out, q, k, v, bias, live, rate,
+                                          keep)
+            before = sa.short_attention_v1_backward.launches
+            berr = check_v1_backward(q, k, v, bias, live, dout, seed, rate)
+            got = sa.short_attention_v1_backward.launches - before
+            if got != sa.v1_backward_launches(s, torch.bfloat16):
+                raise AssertionError(f"{tag}: {got} backward launches")
+            worst["fwd"] = max(worst["fwd"], err)
+            worst["bwd"] = max(worst["bwd"], berr)
+            print(f"{tag} (the two-sweep forward, v2's equal): max_abs_err "
+                  f"{err:.3e}; masked rows {diff:.3e} from f32 (the rule "
+                  f"{gap:.3e}); backward {got} launches", flush=True)
+    q, k, v, bias, live = attention_inputs(gen, 2, 540, torch.float32)
+    dout = torch.randn(2, 540, HIDDEN, device="cuda", generator=gen)
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    out = sa.short_attention_v1(qq, kk, vv, bias, HEADS)
+    grads = torch.autograd.grad(out, (qq, kk, vv), dout)
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    ref = sa.short_attention_plain(qq, kk, vv, bias, HEADS)
+    auto = torch.autograd.grad(ref, (qq, kk, vv), dout)
+    torch.cuda.synchronize()
+    tag = f"short_attention_v1 [2,540,{HIDDEN}] float32"
+    atol, rtol = ATTN_TOL["float32"]
+    gatol, grtol = GRAD_TOL["float32"]
+    err = check_close(tag, out, ref, atol, rtol, mask=live)
+    gerr = max(check_close(f"{tag} {name}", g, a, gatol, grtol, mask=live)
+               for name, g, a in zip(("dq", "dk", "dv"), grads, auto))
+    worst["fwd"], worst["bwd"] = max(worst["fwd"], err), max(worst["bwd"], gerr)
+    print(f"{tag} (CUDA cores): max_abs_err {err:.3e}, gradients {gerr:.3e} "
+          f"against autograd (atol {gatol}, rtol {grtol})", flush=True)
+    return worst
 
 
 def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
@@ -4686,6 +5147,9 @@ TC_SOURCES = ("short_attention", "short_attention_v1")
 # whole-row forwards and backwards up to this many 16-key tiles must not
 # spill (the backward holds two score rows a warp, the forward one)
 TC_NO_SPILL_TILES = 5
+# The head dims whose kernels may not spill (the presets' widths); a spill
+# at another instantiation (16, 128) is printed and written down in PERF.md
+NO_SPILL_HEAD_DIMS = (32, 64)
 TC_KERNEL = re.compile(
     r"(short_fwd_tc_kernel|short_bwd_tc_kernel|short_attention_fwd_tc_long_kernel|"
     r"short_attention_probs_fwd_tc(?:_long)?_kernel|short_bwd_dq_kernel|"
@@ -4724,10 +5188,11 @@ def report_tc_resources(usage):
     form]> for the two-sweep forms; v2s's kernel<head dim, 16-key tiles,
     dropout>; the backward kernel<head dim, 16-key tiles, dropout, rule:
     0 recompute, 1 from o, 2 from the probs>; the tiled pair above 128 keys
-    kernel<head dim, dropout, rule>), and fail if a whole-row forward or
-    backward of at most TC_NO_SPILL_TILES tiles, or any kernel of the tiled
-    pair, spills or has a stack frame, or if ptxas serialised a tiled
-    kernel's wgmma products."""
+    kernel<head dim, dropout, rule>), and fail if, at a head dim of
+    NO_SPILL_HEAD_DIMS, a whole-row forward or backward of at most
+    TC_NO_SPILL_TILES tiles, or any kernel of the tiled pair, spills or has
+    a stack frame, or if ptxas serialised a tiled kernel's wgmma products
+    (at any head dim)."""
     tc = [u for u in usage if TC_KERNEL.search(u["kernel"])]
     for name in ("short_fwd_tc_kernel", "short_bwd_tc_kernel",
                  "short_attention_fwd_tc_long_kernel") + TILED_KERNELS:
@@ -4741,9 +5206,10 @@ def report_tc_resources(usage):
               f"{u['static_smem']} B static + {tc_dynamic_smem(u['kernel'])} B "
               f"dynamic smem, stack {u['stack']} B, spill stores "
               f"{u['spill_stores']} B, loads {u['spill_loads']} B", flush=True)
-        checked = (m.group(1) in TILED_KERNELS or (
-            m.group(1) in ("short_fwd_tc_kernel", "short_bwd_tc_kernel")
-            and int(args[1]) <= TC_NO_SPILL_TILES))
+        checked = int(args[0]) in NO_SPILL_HEAD_DIMS and (
+            m.group(1) in TILED_KERNELS or (
+                m.group(1) in ("short_fwd_tc_kernel", "short_bwd_tc_kernel")
+                and int(args[1]) <= TC_NO_SPILL_TILES))
         if m.group(1) in TILED_KERNELS and u["serialized"]:
             raise AssertionError(f"ptxas serialised the wgmma products of "
                                  f"{name}: {u['serialized']}")
@@ -4762,7 +5228,7 @@ REDESIGNED = re.compile(r"(fused_joint_embed_kernel|flash2_bwd_fused_kernel|"
                         r"flash2_bwd_prep_kernel)I")
 REDESIGNED_THREADS = {"fused_joint_embed_kernel": 256,
                       "flash2_bwd_fused_kernel": 128, "flash2_bwd_prep_kernel": 256}
-FUSED_TC_SMEM = {64: 93184, 32: 60416}
+FUSED_TC_SMEM = {128: 114688, 64: 93184, 32: 60416, 16: 44032}
 SM_REGISTERS, SM_SMEM, SM_SMEM_PER_CTA = 65536, 233472, 1024
 
 
@@ -4839,8 +5305,8 @@ def wgmma_launch(name, args):
 def report_wgmma(usage):
     """Print ptxas's registers, shared memory, spills and wgmma notices for
     each instantiation of the warpgroup kernels, with the CTAs an SM holds
-    by registers and by shared memory; fail on a spill, a stack frame or a
-    serialisation notice."""
+    by registers and by shared memory; fail on a serialisation notice, and
+    on a spill or a stack frame at a head dim of NO_SPILL_HEAD_DIMS."""
     found = [u for u in usage if WGMMA.search(u["kernel"])]
     for name in ("flash_fwd_wg_kernel", "flash_bwd_dq_wg_kernel",
                  "flash_bwd_dkv_wg_kernel"):
@@ -4861,7 +5327,8 @@ def report_wgmma(usage):
               f"{u['stack']} B, spill stores {u['spill_stores']} B, loads "
               f"{u['spill_loads']} B, wgmma serialised: "
               f"{'; '.join(u['serialized']) or 'no'}", flush=True)
-        if u["stack"] or u["spill_stores"] or u["spill_loads"]:
+        if int(args[0]) in NO_SPILL_HEAD_DIMS and (
+                u["stack"] or u["spill_stores"] or u["spill_loads"]):
             raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
                                  "keeps a stack frame")
         if u["serialized"]:
@@ -5724,13 +6191,29 @@ def timed(fn, *args, **kwargs):
     return out
 
 
-def kernel_entry(name, source, replaces, launches, err, timing, by_path):
+# The head dims each attention kernel ran at in this script's checks: every
+# one at the presets' 32 and 64 and at 26 and 128 (phase_head_dims), v2's
+# and flash2's forwards and backwards also at 8 and 16; the widths ln_quant
+# and the joint embed ran at.
+ALL_HEAD_DIMS = [8, 16, 26, 32, 64, 128]
+FULL_HEAD_DIMS = [26, 32, 64, 128]
+LN_QUANT_RAN_AT = sorted({HIDDEN, 64, *LN_QUANT_WIDTHS})
+EMBED_RAN_AT = sorted({HIDDEN, 64, 768, 1000, 1001, WIDE_EMBED[0]})
+
+
+def kernel_entry(name, source, replaces, launches, err, timing, by_path,
+                 head_dims=None, widths=None):
     ms, plain_ms, lib_ms, (bound, bound_by) = timing
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": lib_ms,
-            "launches_by_path": by_path}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": bound_by, "library_ms": lib_ms,
+             "launches_by_path": by_path}
+    if head_dims:
+        entry["head_dims"] = head_dims
+    if widths:
+        entry["widths"] = widths
+    return entry
 
 
 def main() -> int:
@@ -5772,18 +6255,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     nvcc_s = {}
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        usage = pool.submit(_build.resource_usage, TC_SOURCES + (
-            "flash2", "flash_attention", "fused_joint_embed"))
-        for lib in _build.build_all(seconds=nvcc_s).values():
-            print(f"built {os.path.relpath(lib)}", flush=True)
-        print(f"kernel build: {time.perf_counter() - t0:.1f} s; nvcc wall s "
-              f"per source (all started together, beside the ptxas report's "
-              f"{len(TC_SOURCES)}): "
-              f"{ {k: round(v, 1) for k, v in nvcc_s.items()} }", flush=True)
-        report_tc_resources(usage.result())
-        report_redesigned(usage.result())
-        report_wgmma(usage.result())
+    for lib in _build.build_all(seconds=nvcc_s).values():
+        print(f"built {os.path.relpath(lib)}", flush=True)
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s; nvcc wall s "
+          f"per library (an attention source once a head dim, all started "
+          f"together on {os.cpu_count()} CPUs): "
+          f"{ {k: round(v, 1) for k, v in nvcc_s.items()} }", flush=True)
+    # ptxas's report, kept beside each library by the build
+    usage = _build.resource_usage(TC_SOURCES + (
+        "flash2", "flash_attention", "fused_joint_embed"))
+    report_tc_resources(usage)
+    report_redesigned(usage)
+    report_wgmma(usage)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_err, attn_times = timed(phase_attention, gen)
@@ -5805,7 +6288,10 @@ def main() -> int:
     timed(probe_flash2_dq)
     timed(time_flash_backwards)
     timed(phase_head_dim_32)
+    head_dims, wide = timed(phase_head_dims)
     timed(phase_tiny_preset)
+    tinybert = timed(phase_tinybert)
+    base_launches = timed(phase_bert_base_preset)
     orbax = timed(phase_orbax)
     for path, names in (("training", ("short_attention",
                                       "short_attention_backward",
@@ -5896,6 +6382,8 @@ def main() -> int:
                 "tp_tiny_training_rank0": tp["tiny_training"][name],
                 "orbax_resume_training": orbax["training"][name],
                 "orbax_serving": orbax["serving"][name],
+                **{f"tinybert_{p}": tinybert[p][name] for p in tinybert},
+                "bert_base_cli_train": base_launches[name],
                 **{f"frame_short_{rule}": r["launches"][name]
                    for rule, r in frame_short.items()}}
 
@@ -5917,19 +6405,21 @@ def main() -> int:
             f"{name}_tiled", "msa_tpu_torch/csrc/short_bwd_tiled.cuh",
             f"msa_tpu/ops/short_attention.py:{replaces}",
             frame_short[rule]["launches"][f"{name}_tiled"], tiled_err[rule],
-            timing, paths(f"{name}_tiled"))
+            timing, paths(f"{name}_tiled"), head_dims=FULL_HEAD_DIMS)
 
     kernels = [
         kernel_entry("short_attention", "msa_tpu_torch/csrc/short_fwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:303",
                      train_launches["short_attention"], attn_err,
-                     attn_times[joint], paths("short_attention")),
+                     attn_times[joint], paths("short_attention"),
+                     head_dims=ALL_HEAD_DIMS),
         kernel_entry("short_attention_backward",
                      "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:336",
                      train_launches["short_attention_backward"], bwd_err,
                      bwd_times[joint + (0.0,)],
-                     paths("short_attention_backward")),
+                     paths("short_attention_backward"),
+                     head_dims=ALL_HEAD_DIMS),
         kernel_entry("dropout_keep_mask", "msa_tpu_torch/csrc/short_attention.cu",
                      "msa_tpu/ops/short_attention.py:97",
                      train_launches["dropout_keep_mask"],
@@ -5940,56 +6430,66 @@ def main() -> int:
                      "msa_tpu/ops/fused_joint_embed.py:24",
                      train_launches["fused_joint_embed"], embed_err,
                      embed_times[(47, TEXT_LEN, "bfloat16")],
-                     paths("fused_joint_embed")),
+                     paths("fused_joint_embed"),
+                     widths=EMBED_RAN_AT),
         kernel_entry("ln_quant_static", "msa_tpu_torch/csrc/ln_quant.cu",
                      "msa_tpu/ops/ln_quant.py:36",
                      int8_launches["int8_static"]["ln_quant_static"],
                      lnq_err["static"],
-                     lnq_times[("static",) + joint], paths("ln_quant_static")),
+                     lnq_times[("static",) + joint], paths("ln_quant_static"),
+                     widths=LN_QUANT_RAN_AT),
         kernel_entry("ln_quant_dynamic", "msa_tpu_torch/csrc/ln_quant.cu",
                      "msa_tpu/ops/ln_quant.py:51",
                      int8_launches["int8"]["ln_quant_dynamic"],
                      lnq_err["dynamic"],
-                     lnq_times[("dynamic",) + joint], paths("ln_quant_dynamic")),
+                     lnq_times[("dynamic",) + joint], paths("ln_quant_dynamic"),
+                     widths=LN_QUANT_RAN_AT),
         kernel_entry("flash2_fwd", "msa_tpu_torch/csrc/flash2.cu",
                      "msa_tpu/ops/flash2.py:121",
                      frame_train_launches["flash_attention2"], f2_err,
-                     f2_times[("frame", "bfloat16")], paths("flash_attention2")),
+                     f2_times[("frame", "bfloat16")], paths("flash_attention2"),
+                     head_dims=ALL_HEAD_DIMS),
         kernel_entry("flash2_bwd_fused", "msa_tpu_torch/csrc/flash2.cu",
                      "msa_tpu/ops/flash2.py:355",
                      frame_train_launches["flash2_bwd_fused"], f2_bwd_err[True],
                      f2_bwd_times[("frame", "bfloat16", True)],
-                     paths("flash2_bwd_fused")),
+                     paths("flash2_bwd_fused"),
+                     head_dims=ALL_HEAD_DIMS),
         kernel_entry("flash2_bwd_split", "msa_tpu_torch/csrc/flash2.cu",
                      "msa_tpu/ops/flash2.py:224",
                      long_launches["flash2_bwd_split"], f2_bwd_err[False],
                      f2_bwd_times[("s4096", "bfloat16", False)],
-                     paths("flash2_bwd_split")),
+                     paths("flash2_bwd_split"),
+                     head_dims=ALL_HEAD_DIMS),
         kernel_entry("short_attention_probs",
                      "msa_tpu_torch/csrc/short_attention.cu",
                      "msa_tpu/ops/short_attention.py:858",
                      rung("save_attn+drop+probs", "short_attention_probs"),
                      pp_err["probs"], pp_times[("probs",) + joint],
-                     paths("short_attention_probs")),
+                     paths("short_attention_probs"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("short_attention_probs_backward",
                      "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:895",
                      rung("save_attn+drop+probs",
                           "short_attention_probs_backward"),
                      pp_err["probs_bwd"], pp_times[("probs_bwd",) + joint],
-                     paths("short_attention_probs_backward")),
+                     paths("short_attention_probs_backward"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("short_attention_packed",
                      "msa_tpu_torch/csrc/short_fwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:471",
                      rung("save_pack", "short_attention_packed"),
                      pp_err["packed"], pp_times[("packed",) + joint],
-                     paths("short_attention_packed")),
+                     paths("short_attention_packed"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("short_attention_packed_backward",
                      "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:505",
                      rung("save_pack", "short_attention_packed_backward"),
                      pp_err["packed_bwd"], pp_times[("packed_bwd",) + joint],
-                     paths("short_attention_packed_backward")),
+                     paths("short_attention_packed_backward"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("fused_adamw", "msa_tpu_torch/csrc/fused_adamw.cu",
                      "msa_tpu/ops/fused_adamw.py:41",
                      fused_runs[("none", True)]["launches"]["fused_adamw_leaf"],
@@ -6000,34 +6500,77 @@ def main() -> int:
                      v3_runs[("none", True)]["launches"][
                          "short_attention_v3_backward"],
                      v3_err, v3_times[joint],
-                     paths("short_attention_v3_backward")),
+                     paths("short_attention_v3_backward"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("flash_attention_fwd",
                      "msa_tpu_torch/csrc/flash_attention.cu",
                      "msa_tpu/ops/attention.py:117",
                      frame_flash["training"]["flash_attention"], fa_err["fwd"],
-                     fa_times["fwd"], paths("flash_attention")),
+                     fa_times["fwd"], paths("flash_attention"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("flash_attention_bwd",
                      "msa_tpu_torch/csrc/flash_attention.cu",
                      "msa_tpu/ops/attention.py:171",
                      frame_flash["training"]["flash_attention_backward"],
                      fa_err["bwd"], fa_times["bwd"],
-                     paths("flash_attention_backward")),
+                     paths("flash_attention_backward"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("short_attention_v1_fwd",
                      "msa_tpu_torch/csrc/short_fwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:139",
                      train_launches["short_attention_v1"], v1_err["fwd"],
-                     v1_times[("fwd",) + joint], paths("short_attention_v1")),
+                     v1_times[("fwd",) + joint], paths("short_attention_v1"),
+                     head_dims=FULL_HEAD_DIMS),
         kernel_entry("short_attention_v1_bwd",
                      "msa_tpu_torch/csrc/short_bwd_tc.cuh",
                      "msa_tpu/ops/short_attention.py:177",
                      train_launches["short_attention_v1_backward"],
                      v1_err["bwd"], v1_times[("bwd",) + joint],
-                     paths("short_attention_v1_backward")),
+                     paths("short_attention_v1_backward"),
+                     head_dims=FULL_HEAD_DIMS),
         tiled_entry("short_attention_backward", "v2", 336),
         tiled_entry("short_attention_v3_backward", "v3", 392),
         tiled_entry("short_attention_probs_backward", "v2s", 895),
         tiled_entry("short_attention_packed_backward", "v2p", 505),
     ]
+    # each kernel's times at the other head dims and widths it ran at (a head
+    # dim off the instantiations: its pad and cut inside each timed call)
+    def timing(t):
+        ms, plain_ms, lib_ms, (bound, _) = t
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound}
+
+    at_dims = {
+        "short_attention": ("attention", joint),
+        "short_attention_backward": ("attention_backward", joint + (0.0,)),
+        "flash2_fwd": ("flash2", ("frame", "bfloat16")),
+        "flash2_bwd_fused": ("flash2_backward", ("frame", "bfloat16", True)),
+        "flash2_bwd_split": ("flash2_backward", ("s4096", "bfloat16", False)),
+        "short_attention_probs": ("probs_packed", ("probs",) + joint),
+        "short_attention_probs_backward": ("probs_packed",
+                                           ("probs_bwd",) + joint),
+        "short_attention_packed": ("probs_packed", ("packed",) + joint),
+        "short_attention_packed_backward": ("probs_packed",
+                                            ("packed_bwd",) + joint),
+        "short_attention_v3_backward": ("v3", joint),
+        "flash_attention_fwd": ("flash_attention", "fwd"),
+        "flash_attention_bwd": ("flash_attention", "bwd"),
+        "short_attention_v1_fwd": ("v1", ("fwd",) + joint),
+        "short_attention_v1_bwd": ("v1", ("bwd",) + joint)}
+    for entry in kernels:
+        if entry["name"] in at_dims:
+            phase, key = at_dims[entry["name"]]
+            entry["by_head_dim"] = {
+                str(d): timing(res[phase][1][key])
+                for d, res in head_dims.items() if phase in res}
+        if entry["name"].startswith("ln_quant_"):
+            mode = entry["name"].split("_")[-1]
+            entry["by_width"] = {
+                str(h): timing(r[1][(mode, "text", "bfloat16")])
+                for h, r in wide["ln_quant"].items()}
+        if entry["name"] == "fused_joint_embed":
+            entry["by_width"] = {str(WIDE_EMBED[0]): timing(
+                wide["joint_embed"][1])}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,12 @@ Each source exposes a plain C interface and compiles on its own into
 ``build/msa_tpu_torch/<name>-<hash>.so`` at the repository root, where
 ``<hash>`` covers the source text, the shared headers ``csrc/*.cuh`` (CUDA
 sources) and the compiler flags: a library is rebuilt only when one of
-them changes.  Building a file with a C interface takes seconds, against
+them changes.  The attention sources (``HEAD_DIM_SOURCES``) compile once a
+head dim of ``HEAD_DIMS``, ``-DMSA_HEAD_DIM=<d>`` into the library
+``<name>_d<d>`` (:func:`head_dim_library`), each its own compiler process:
+the instantiations of one head dim are a quarter of the source's.  ptxas's
+report (``-Xptxas -v``) is kept beside each CUDA library
+(``<name>-<hash>.ptxas``) for :func:`resource_usage`.  Building a file with a C interface takes seconds, against
 minutes for an extension that includes PyTorch's headers.  The build
 happens at first use, never at import, and a failed build raises --
 nothing falls back to the plain PyTorch versions or to a slower reader
@@ -41,10 +46,16 @@ from typing import Dict, List, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "msa_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 KERNELS = ("short_attention", "fused_joint_embed", "ln_quant", "flash2",
            "fused_adamw", "flash_attention", "short_attention_v1")
+# The head dims every attention kernel is instantiated for; the wrappers run
+# any other head dim d <= 128 on the smallest of them at or above d.
+HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIM_SOURCES = ("short_attention", "short_attention_v1", "flash2",
+                    "flash_attention")
+_HEAD_DIM_LIBRARY = re.compile(r"(.+)_d(\d+)$")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
 
 _lock = threading.Lock()
@@ -79,14 +90,42 @@ def cxx_path() -> str:
     return cxx
 
 
+def head_dim_library(name: str, head_dim: int) -> str:
+    """The library of attention source ``name`` built for ``head_dim`` (one
+    of ``HEAD_DIMS``)."""
+    if name not in HEAD_DIM_SOURCES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"no library of {name} at head dim {head_dim}")
+    return f"{name}_d{head_dim}"
+
+
+def libraries(names: Sequence[str] = KERNELS) -> List[str]:
+    """The libraries of ``names``: an attention source (``HEAD_DIM_SOURCES``)
+    stands for its library at every head dim, any other name for itself."""
+    return [head_dim_library(n, d) if n in HEAD_DIM_SOURCES else n
+            for n in names for d in (HEAD_DIMS if n in HEAD_DIM_SOURCES
+                                     else (None,))]
+
+
+def _split(name: str):
+    """(source stem, head dim or None) of a library name."""
+    m = _HEAD_DIM_LIBRARY.match(name)
+    if m and m.group(1) in HEAD_DIM_SOURCES:
+        return m.group(1), int(m.group(2))
+    return name, None
+
+
 def _source(name: str) -> Path:
-    """``csrc/<name>.cu`` where it exists, else ``csrc/<name>.cpp``."""
-    cuda = CSRC / f"{name}.cu"
-    return cuda if cuda.exists() else CSRC / f"{name}.cpp"
+    """``csrc/<stem>.cu`` where it exists, else ``csrc/<stem>.cpp``."""
+    stem = _split(name)[0]
+    cuda = CSRC / f"{stem}.cu"
+    return cuda if cuda.exists() else CSRC / f"{stem}.cpp"
 
 
-def _flags(source: Path) -> Sequence[str]:
-    return NVCC_FLAGS if source.suffix == ".cu" else HOST_FLAGS
+def _flags(name: str) -> Sequence[str]:
+    if _source(name).suffix != ".cu":
+        return HOST_FLAGS
+    head_dim = _split(name)[1]
+    return NVCC_FLAGS + ((f"-DMSA_HEAD_DIM={head_dim}",) if head_dim else ())
 
 
 def library_path(name: str) -> Path:
@@ -96,22 +135,35 @@ def library_path(name: str) -> Path:
         for header in sorted(CSRC.glob("*.cuh")):  # a source may include any
             digest.update(header.name.encode())
             digest.update(header.read_bytes())
-    digest.update(" ".join(_flags(source)).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _ptxas_log(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas")
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (else ``.cpp``) unless its library is
-    already built."""
-    return build_all([name])[name]
+    """Compile library ``name`` unless it is already built: ``csrc/<name>.cu``
+    (else ``.cpp``), an attention source's library at one head dim
+    (:func:`head_dim_library`), or, by the source's own name, that source
+    with every head dim."""
+    return _compile([name])[name]
 
 
 def build_all(names: Sequence[str] = KERNELS,
               seconds: Optional[Dict[str, float]] = None) -> Dict[str, Path]:
-    """Compile every library of ``names`` not built yet, one compiler
-    process per source (``nvcc`` for a ``.cu``, the host compiler for a
-    ``.cpp``), all started together; raises if any fails.  ``seconds``, if
-    given, receives each compiled source's compile wall time."""
+    """Compile every library of ``names`` (:func:`libraries`: an attention
+    source at each head dim) not built yet, one compiler process per
+    library (``nvcc`` for a ``.cu``, the host compiler for a ``.cpp``), all
+    started together; raises if any fails.  ``seconds``, if given, receives
+    each compiled library's compile wall time."""
+    return _compile(libraries(names), seconds)
+
+
+def _compile(names: Sequence[str],
+             seconds: Optional[Dict[str, float]] = None) -> Dict[str, Path]:
+    """:func:`build_all` of the libraries ``names`` as named."""
     libs = {name: library_path(name) for name in names}
     todo = [name for name, lib in libs.items() if not lib.exists()]
     if not todo:
@@ -135,7 +187,7 @@ def build_all(names: Sequence[str] = KERNELS,
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             source = sources[name]
-            cmd = [compilers[source.suffix], *_flags(source), "-o", tmp,
+            cmd = [compilers[source.suffix], *_flags(name), "-o", tmp,
                    str(source)]
             jobs.append((name, tmp, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -151,6 +203,8 @@ def build_all(names: Sequence[str] = KERNELS,
                               f"{sources[name].name} (exit {proc.returncode}):"
                               f"\n{' '.join(cmd)}\n{output}")
             else:
+                if sources[name].suffix == ".cu":
+                    _ptxas_log(libs[name]).write_text(output)
                 os.replace(tmp, libs[name])
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -165,35 +219,27 @@ def build_all(names: Sequence[str] = KERNELS,
 
 
 def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
-    """What ``ptxas -v`` reports for every kernel of the sources ``names``
-    (compiled with the build's flags to a scratch library, one ``nvcc`` per
-    source, all started together): dicts of source, kernel (its mangled
-    name), registers, static shared memory, stack frame and spill bytes,
-    and ``serialized``: the ptxas notices that it serialised the kernel's
-    ``wgmma.mma_async`` instructions (a notice names its function, else it
-    is the kernel being compiled).  Dynamic shared memory is the launcher's
-    and is not in it."""
-    nvcc = nvcc_path()
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [(name, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             os.path.join(tmp, f"{name}.so"), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for name in names]
-        outputs = [(name, proc.communicate()[0], proc.returncode)
-                   for name, proc in procs]
+    """What ``ptxas -v`` reported for every kernel of the CUDA libraries of
+    ``names`` (:func:`libraries`; built first where they are not), read from
+    the report the build keeps beside each: dicts of source (its file
+    name), library, kernel (its mangled name), registers, static shared
+    memory, stack frame and spill bytes, and ``serialized``: the ptxas
+    notices that it serialised the kernel's ``wgmma.mma_async``
+    instructions (a notice names its function, else it is the kernel being
+    compiled).  Dynamic shared memory is the launcher's and is not in it."""
     found = []
-    for name, text, code in outputs:
-        if code != 0:
-            raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{text}")
+    for name, lib in build_all(names).items():
+        if _source(name).suffix != ".cu":
+            continue
+        text = _ptxas_log(lib).read_text()
         entry = None
         notices = []  # (the function named, else the kernel compiled, line)
         start = len(found)
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                entry = {"source": f"{name}.cu", "kernel": m.group(1),
-                         "serialized": []}
+                entry = {"source": _source(name).name, "library": name,
+                         "kernel": m.group(1), "serialized": []}
                 found.append(entry)
                 continue
             if "wgmma" in line and "serializ" in line:
@@ -216,7 +262,7 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
         by_name = {e["kernel"]: e for e in found[start:]}
         for kernel, line in notices:
             if kernel not in by_name:
-                raise RuntimeError(f"{name}.cu: a wgmma notice for no kernel "
+                raise RuntimeError(f"{name}: a wgmma notice for no kernel "
                                    f"ptxas compiled: {line}")
             by_name[kernel]["serialized"].append(line)
     return found

@@ -1,5 +1,6 @@
 // Blockwise attention for long sequences (the frame-level path, S >= 1024;
-// the kernels take any S >= 1), head dim 32 or 64: the forward with in-kernel
+// the kernels take any S >= 1), head dim 16, 32, 64 or 128 (the source is
+// built once a head dim, -DMSA_HEAD_DIM): the forward with in-kernel
 // attention-probs dropout, the fused single-sweep backward and the split
 // backward (dq, then dk/dv).
 //
@@ -89,7 +90,8 @@
 // training forward passes lse ([B, heads, S] f32, the log2-sum-exp of each
 // score row) and, for bf16, out32 ([B, S, H] f32, the output before its
 // rounding; null for f32, whose out is that already); the serving forward
-// passes both null.  The head dim hidden / num_heads is 32 or 64.  Every
+// passes both null.  The head dim hidden / num_heads is the library's
+// (16, 32, 64 or 128; the wrappers zero-pad any other up to it).  Every
 // entry launches on `stream` and returns cudaGetLastError() (0 on
 // success).  The caller has checked shapes, contiguity and 16-byte
 // alignment.

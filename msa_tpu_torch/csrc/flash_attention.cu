@@ -1,4 +1,5 @@
-// Head-split flash attention, head dim 32 or 64: the forward with in-kernel
+// Head-split flash attention, head dim 16, 32, 64 or 128 (the source is
+// built once a head dim, -DMSA_HEAD_DIM): the forward with in-kernel
 // attention-probs dropout, then the backward as a pair of launches, dq (one
 // CTA per query block) and dk/dv (one CTA per key block).
 //
@@ -48,7 +49,8 @@
 // dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
 // dropout, else keep iff the element's Philox byte >= t (rate t/256).  The
 // training forward passes lse ([B, heads, S] f32, natural-log units); the
-// serving forward passes null.  head_dim: 32 or 64.  Every entry launches
+// serving forward passes null.  head_dim: the library's (16, 32, 64 or
+// 128; the wrappers zero-pad any other up to it).  Every entry launches
 // on `stream` and returns cudaGetLastError() (0 on success).  The caller
 // has checked shapes, contiguity and 16-byte alignment.
 extern "C" int msa_flash_attention_fwd(const void* q, const void* k, const void* v,

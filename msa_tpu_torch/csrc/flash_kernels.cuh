@@ -1,4 +1,5 @@
-// The blockwise attention kernels of two sources, head dim 32 or 64:
+// The blockwise attention kernels of two sources, head dim 16, 32, 64 or
+// 128:
 // flash2.cu (the natural-layout flash2, kernel rows 10-12) and
 // flash_attention.cu (the head-split flash attention, row 13).  The two
 // contracts differ only in where a head's rows lie and in what the backward
@@ -768,21 +769,29 @@ flash_bwd_dkv_kernel(const typename P::T* __restrict__ q, const typename P::T* _
 // 128 keys, half the old kernel's count, in a quarter of its atomic
 // operations.  The wrapper casts the scratch (the last CTA of a head
 // casting it in the sweep ran 0.17 ms slower).  ~250 registers a thread,
-// 2 CTAs an SM.
+// 2 CTAs an SM.  At head dim 128 a warp's dK and dV rows would double
+// that: there a warp takes one 16-key tile and a CTA 64 keys (the
+// accumulator registers of two tiles at 64).
 
-constexpr int kFKeys = 128;                // keys of a fused CTA
-constexpr int kFM = 2;                     // 16-key mma tiles a warp
-constexpr int kFThreads = 32 * kFKeys / (16 * kFM);
-constexpr int kFQ = 64;                    // queries of a ring tile
-constexpr int kFTStride = kFQ + 8;         // dS^T rows: 144 bytes, conflict-free
+template <int kD>
+inline constexpr int kFM = kD == 128 ? 1 : 2;  // 16-key mma tiles a warp
+template <int kD>
+inline constexpr int kFKeys = 64 * kFM<kD>;    // keys of a fused CTA
+constexpr int kFThreads = 128;                 // 4 warps
+constexpr int kFQ = 64;                        // queries of a ring tile
+constexpr int kFTStride = kFQ + 8;             // dS^T rows: 144 bytes, conflict-free
 constexpr int kPrepThreads = 256;
 static_assert(kFThreads == 2 * kFQ, "the dQ step: a warp per 16 queries");
+static_assert(kFThreads == 32 * kFKeys<64> / (16 * kFM<64>) &&
+                  kFThreads == 32 * kFKeys<128> / (16 * kFM<128>),
+              "a warp per 16 kFM keys");
 
 template <int kD>
 constexpr int fused_tc_smem_bytes() {
   // K and V blocks, two ring stages of q and dO, the dS^T tile, two stages
   // of lse and delta
-  return (2 * kFKeys + 4 * kFQ) * tc::kStride<kD> * 2 + kFKeys * kFTStride * 2 + 4 * kFQ * 4;
+  return (2 * kFKeys<kD> + 4 * kFQ) * tc::kStride<kD> * 2 + kFKeys<kD> * kFTStride * 2 +
+         4 * kFQ * 4;
 }
 
 // Eight consecutive values as f32.
@@ -904,21 +913,22 @@ flash2_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                         int seq, int hidden, float score_mult, float scale, Dropout drop) {
   using T = __nv_bfloat16;
-  constexpr int kM = kFM;
+  constexpr int kM = kFM<kD>;
+  constexpr int kKeys = kFKeys<kD>;
   constexpr int ld = tc::kStride<kD>;
   constexpr int kStage = kFQ * ld;         // elements of a ring tile
   constexpr int kChunks = kD / 8;          // 16-byte chunks of a head row
   constexpr int kON = kD / 8;              // 8-column tiles of a head row
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kb_s = reinterpret_cast<T*>(smem);    // [128][ld]
-  T* vb_s = kb_s + kFKeys * ld;
-  T* q_s = vb_s + kFKeys * ld;             // [2][64][ld]
+  T* kb_s = reinterpret_cast<T*>(smem);    // [kKeys][ld]
+  T* vb_s = kb_s + kKeys * ld;
+  T* q_s = vb_s + kKeys * ld;              // [2][64][ld]
   T* do_s = q_s + 2 * kStage;              // [2][64][ld]
-  T* dst_s = do_s + 2 * kStage;            // dS^T [128 keys][kFTStride]
-  float* lse_s = reinterpret_cast<float*>(dst_s + kFKeys * kFTStride);  // [2][64]
+  T* dst_s = do_s + 2 * kStage;            // dS^T [kKeys][kFTStride]
+  float* lse_s = reinterpret_cast<float*>(dst_s + kKeys * kFTStride);  // [2][64]
   float* delta_s = lse_s + 2 * kFQ;                                     // [2][64]
 
-  const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kFKeys;
+  const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kKeys;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
@@ -947,8 +957,8 @@ flash2_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       bias2[m][r] = key < seq ? key_bias[(size_t)b * seq + key] * kLog2e : -INFINITY;
     }
   }
-  tc::stage_rows<kD>(kb_s, k, head_base, hidden, kb0, kFKeys, seq);
-  tc::stage_rows<kD>(vb_s, v, head_base, hidden, kb0, kFKeys, seq);
+  tc::stage_rows<kD>(kb_s, k, head_base, hidden, kb0, kKeys, seq);
+  tc::stage_rows<kD>(vb_s, v, head_base, hidden, kb0, kKeys, seq);
   load_tile(0, 0);
   cp_async_commit();
 
@@ -1051,10 +1061,10 @@ flash2_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     }
     __syncthreads();  // dS^T is whole; the ring stage st is read
 
-    // dQ[i0 .. i0 + 64) += dS K over the block's 128 keys: 16 queries a warp
+    // dQ[i0 .. i0 + 64) += dS K over the block's keys: 16 queries a warp
     float dqp[kON][4];
     const int m0 = warp * 16;
-    tc::mma_tn<kD, kFKeys / 16>(dst_s, kFTStride, m0, kb_s, dqp);
+    tc::mma_tn<kD, kKeys / 16>(dst_s, kFTStride, m0, kb_s, dqp);
     const bool odd = c & 1;  // odd lanes take row g + 8, even lanes row g
     const int row = i0 + m0 + g + (odd ? 8 : 0);
     float* dst = dq32 + head_base + (size_t)row * hidden + 2 * (c & ~1);
@@ -1119,11 +1129,15 @@ using WgOutT = std::conditional_t<kHeadSplit, __nv_bfloat16, float>;
 //   * dk/dv launch: 64 keys (one warpgroup, 3 CTAs an SM at rate 0 by its
 //     own 166 registers; 128 keys in two warpgroups held 1 CTA and ran 9 %
 //     slower), 64-query tiles.
-constexpr int kFwdGroups = 2, kFwdKeys = 64, kFwdMinBlocks = 2;
+// At head dim 128 the output accumulators take 64 registers a thread, so
+// the forward and dq launches name one CTA an SM (up to 255 registers).
+constexpr int kFwdGroups = 2, kFwdKeys = 64;
+template <int kD>
+constexpr int kFwdMinBlocks = kD == 128 ? 1 : 2;
 template <bool kDropout>
 constexpr int kDqGroups = kDropout ? 1 : 2;
-template <bool kDropout>
-constexpr int kDqMinBlocks = kDropout ? 3 : 2;
+template <int kD, bool kDropout>
+constexpr int kDqMinBlocks = kD == 128 ? 1 : kDropout ? 3 : 2;
 constexpr int kDqKeys = 64;
 constexpr int kDkvGroups = 1, kDkvQueries = 64;
 
@@ -1189,7 +1203,7 @@ __device__ __forceinline__ void wg_nn(float (&c)[kD / 8][4], const uint32_t (&f)
 }
 
 template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
-__global__ void __launch_bounds__(wg::kGroupThreads * kFwdGroups, kFwdMinBlocks)
+__global__ void __launch_bounds__(wg::kGroupThreads * kFwdGroups, kFwdMinBlocks<kD>)
 flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
@@ -1337,7 +1351,7 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 // dS K; delta = rowsum(dO o) once a row, also written for the dk/dv launch.
 template <int kD, bool kHeadSplit, bool kDropout>
 __global__ void __launch_bounds__(wg::kGroupThreads * kDqGroups<kDropout>,
-                                  kDqMinBlocks<kDropout>)
+                                  kDqMinBlocks<kD, kDropout>)
 flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
                        const WgOutT<kHeadSplit>* __restrict__ o,
@@ -1771,7 +1785,8 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   constexpr int bytes = fused_tc_smem_bytes<kD>();
   err = allow_smem<kernel>(bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((seq + kFKeys - 1) / kFKeys, num_heads, batch), kFThreads, bytes, s>>>(
+  kernel<<<dim3((seq + kFKeys<kD> - 1) / kFKeys<kD>, num_heads, batch), kFThreads, bytes,
+           s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
       seq, hidden, scale * kLog2e, scale, drop);

@@ -7,7 +7,7 @@
 // scale/bias arrive in f32.
 //
 // What bounds it on the H100: bytes.  Each output row reads one H-wide text
-// row or one D-wide frame (D <= 1024) and writes one H-wide row; the
+// row or one D-wide frame and writes one H-wide row; the
 // projection is 2*D*H FLOPs a frame row, under 1 FLOP per byte of the rows
 // it touches at the datasets' D (35-371).  The TPU kernel keeps the
 // projection and the concatenation out of HBM; so does this one, in one
@@ -34,7 +34,11 @@
 // Tile shapes by H: at 509 <= H <= 1024, R = 16 rows of 16 a thread (x 4
 // columns: 64 accumulators); else 4 rows a thread and R = 4 x (256 / (H /
 // 4)) rows, at most 64 (H = 64; above H = 1024, R = 4 in two rounds over
-// the columns).  2 CTAs an SM: at 1 (146 registers) it ran 30 % slower,
+// the columns, more for a wider H).  Any D: the features are staged 64 at
+// a time.  Any H whose tile of relu'd rows fits the CTA's shared memory
+// (4 rows of H f32: H <= 14,459); a row wider than a team
+// holds in registers (H > 2048) takes the LayerNorm in three sweeps of
+// its values.  2 CTAs an SM: at 1 (146 registers) it ran 30 % slower,
 // at 3 (80 registers) it spilled; 2 columns a thread, a W prefetch a step
 // ahead, 32-row tiles of 512 threads and a cp.async ring for W (a barrier
 // every 4 rows of W) were all slower or no faster on the H100.
@@ -47,9 +51,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHidden = 2048;
-constexpr int kMaxFeat = 1024;
-constexpr int kMaxVals = kMaxHidden / 32;  // row values a lane holds: 64
+constexpr int kRegHidden = 2048;           // the widest row a team holds in registers
+constexpr int kMaxVals = kRegHidden / 32;  // row values a lane holds: 64
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kKC = 64;                    // features staged per round
 constexpr int kKCP = kKC + 4;              // their row stride in floats
@@ -121,24 +124,41 @@ __device__ __forceinline__ float team_sum(float v, int lanes) {
 // of them): src is a row of text (global, T) or of relu'd projections
 // (shared, f32), dst its output row.  Lane tl takes the vectors tl, tl +
 // lanes, ... of kVec = 8 values each and holds them in registers for the
-// two-pass variance (kVec = 1 reads src again for each pass).  Every lane
-// of the warp calls it; `live` is false for a team without a row.
-template <int kVec, typename S, typename T>
+// two-pass variance (kVec = 1, or kWide: a row wider than kRegHidden,
+// reads src again for each pass, kVec values at a time).  Every lane of the
+// warp calls it; `live` is false for a team without a row.
+template <int kVec, bool kWide, typename S, typename T>
 __device__ __forceinline__ void ln_row(const S* src, T* dst, bool live, int tl, int lanes,
                                        int hidden, const float* __restrict__ gamma,
                                        const float* __restrict__ beta, float eps) {
-  if constexpr (kVec == 1) {  // no 16-byte vectors: three passes over src
+  if constexpr (kVec == 1 || kWide) {  // three passes over src
+    const int nvec = hidden / kVec;
     float sum = 0.f, sq = 0.f;
-    for (int i = tl; live && i < hidden; i += lanes) sum += to_f32(src[i]);
+    for (int i = tl; live && i < nvec; i += lanes) {
+      float x[kVec];
+      load_vec<kVec>(src + i * kVec, x);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) sum += x[j];
+    }
     const float mean = team_sum(sum, lanes) / hidden;
-    for (int i = tl; live && i < hidden; i += lanes) {
-      const float d = to_f32(src[i]) - mean;
-      sq = fmaf(d, d, sq);
+    for (int i = tl; live && i < nvec; i += lanes) {
+      float x[kVec];
+      load_vec<kVec>(src + i * kVec, x);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float d = x[j] - mean;
+        sq = fmaf(d, d, sq);
+      }
     }
     const float rstd = rsqrtf(team_sum(sq, lanes) / hidden + eps);
-    for (int i = tl; live && i < hidden; i += lanes) {
-      const float y = (to_f32(src[i]) - mean) * rstd * gamma[i] + beta[i];
-      store_vec<1>(dst + i, &y);
+    for (int i = tl; live && i < nvec; i += lanes) {
+      float x[kVec], gm[kVec], bt[kVec], y[kVec];
+      load_vec<kVec>(src + i * kVec, x);
+      load_vec<kVec>(gamma + i * kVec, gm);
+      load_vec<kVec>(beta + i * kVec, bt);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) y[j] = (x[j] - mean) * rstd * gm[j] + bt[j];
+      store_vec<kVec>(dst + i * kVec, y);
     }
     return;
   }
@@ -193,9 +213,9 @@ struct Shape {
 
 // kVec: 8 when H % 8 == 0 and every pointer is 16-byte aligned (16-byte
 // row vectors, float4 reads of W), else 1.  kRPT: the frame rows of a
-// thread's projection accumulators (x 4 columns).  2 CTAs an SM: 128
-// registers.
-template <typename T, int kVec, int kRPT>
+// thread's projection accumulators (x 4 columns).  kWide: H > kRegHidden
+// (the LayerNorm in three sweeps).  2 CTAs an SM: 128 registers.
+template <typename T, int kVec, int kRPT, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats,
                          const float* __restrict__ w, const float* __restrict__ b,
@@ -213,8 +233,8 @@ fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats
     const bool live = row < (long long)sh.batch * sh.text_len;
     const long long r = live ? row : 0;
     const long long bi = r / sh.text_len, l = r - bi * sh.text_len;
-    ln_row<kVec>(text + r * hidden, out + (bi * rows_out + l) * hidden, live, tl, lanes,
-                 hidden, gamma, beta, sh.eps);
+    ln_row<kVec, kWide>(text + r * hidden, out + (bi * rows_out + l) * hidden, live, tl,
+                        lanes, hidden, gamma, beta, sh.eps);
     return;
   }
 
@@ -315,17 +335,17 @@ fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats
     const bool live = r < tile_rows && f < n_frames;
     const long long ff = live ? f : 0;
     const long long bi = ff / sh.pair_len, j = ff - bi * sh.pair_len;
-    ln_row<kVec>(row_s + (live ? r : 0) * hidden,
+    ln_row<kVec, kWide>(row_s + (live ? r : 0) * hidden,
                  out + (bi * rows_out + sh.text_len + j) * hidden, live, tl, lanes, hidden,
                  gamma, beta, sh.eps);
   }
 }
 
-template <typename T, int kVec, int kRPT>
+template <typename T, int kVec, int kRPT, bool kWide>
 int launch(const void* text, const void* feats, const float* w, const float* b,
            const float* gamma, const float* beta, void* out, const Shape& sh, int grid,
            cudaStream_t s) {
-  constexpr auto kernel = fused_joint_embed_kernel<T, kVec, kRPT>;
+  constexpr auto kernel = fused_joint_embed_kernel<T, kVec, kRPT, kWide>;
   const long long bytes =
       4LL * (sh.tile_rows * (kKCP + sh.hidden) + 4 * (sh.tile_rows / kRPT));
   if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
@@ -347,8 +367,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 // dtype: 0 = float32, 1 = bfloat16 (text, feats and out share it; w, b,
 // gamma, beta are f32).  Launches on `stream` and returns cudaGetLastError().
-// The caller has checked shapes, contiguity, hidden <= 2048 and
-// feat_dim <= 1024.
+// The caller has checked shapes, contiguity and hidden <= 14,459
+// (the kernel's tile of relu'd rows in shared memory; any feat_dim).
 extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
                                      const void* w, const void* b,
                                      const void* gamma, const void* beta,
@@ -356,8 +376,7 @@ extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
                                      int pair_len, int feat_dim, int hidden,
                                      float eps, int dtype, void* stream) {
   if (batch <= 0 || text_len < 0 || pair_len < 0 || text_len + pair_len <= 0 ||
-      hidden <= 0 || hidden > kMaxHidden || feat_dim <= 0 || feat_dim > kMaxFeat ||
-      (dtype != 0 && dtype != 1)) {
+      hidden <= 0 || feat_dim <= 0 || (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool vec8 = hidden % 8 == 0 && aligned16(text) && aligned16(feats) && aligned16(w) &&
@@ -397,9 +416,10 @@ extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
   const float* bf = static_cast<const float*>(b);
   const float* gf = static_cast<const float*>(gamma);
   const float* ef = static_cast<const float*>(beta);
-#define MSA_EMBED(T, V)                                                           \
-  (wide ? launch<T, V, 16>(text, feats, wf, bf, gf, ef, out, sh, grid, s) \
-        : launch<T, V, 4>(text, feats, wf, bf, gf, ef, out, sh, grid, s))
+#define MSA_EMBED(T, V)                                                              \
+  (wide ? launch<T, V, 16, false>(text, feats, wf, bf, gf, ef, out, sh, grid, s)     \
+   : hidden > kRegHidden ? launch<T, V, 4, true>(text, feats, wf, bf, gf, ef, out, sh, grid, s) \
+                         : launch<T, V, 4, false>(text, feats, wf, bf, gf, ef, out, sh, grid, s))
   if (dtype == 0) return vec8 ? MSA_EMBED(float, 8) : MSA_EMBED(float, 1);
   return vec8 ? MSA_EMBED(__nv_bfloat16, 8) : MSA_EMBED(__nv_bfloat16, 1);
 #undef MSA_EMBED

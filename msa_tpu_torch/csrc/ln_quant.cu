@@ -24,9 +24,19 @@
 // a warp takes four rows), reduces with shuffles inside the team (no
 // shared memory, no block barrier) and writes both outputs from the
 // registers.  Every access is a 16-byte vector (8 bf16 or 2 x 4 f32; 8
-// bytes of int8), neighbouring lanes on neighbouring addresses.  H is a
-// multiple of 64 up to 512, of 128 up to 1024, or of 256 up to 2048 (at
-// most 8 chunks a lane).
+// bytes of int8), neighbouring lanes on neighbouring addresses.  The team
+// forms take H a multiple of 64 up to 512, of 128 up to 1024, or of 256 up
+// to 2048 (at most 8 chunks a lane).
+//
+// Every other H (32, 312, 4096, 100, ...) takes the generic form,
+// ln_quant_rows_kernel: a warp a row below H = 1024 (8 rows a CTA), a CTA
+// of 256 threads a row from there, the row swept in 8-value vectors where
+// H % 8 == 0 (else value by value), a tail-masked column loop with no
+// values held: a sweep each for the sum, the squared deviations and h
+// (stored, and its max |h|), then one over the stored h for xi (a thread
+// reads back only what it wrote), reduced by warp shuffles and, for a
+// CTA's row, across warps through shared memory.  The same arithmetic as
+// the team forms, in a generic summation order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -222,16 +232,188 @@ int launch(const void* x, const void* res, const float* gamma, const float* beta
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- The generic form: any H ----
+
+constexpr int kWideRow = 1024;  // from this H on a CTA takes a row, below a warp
+
+// Sum or max over the kTeam threads of a row: a warp's shuffles, then (a
+// CTA's row) its warps' partials through red[kWarps].
+template <int kTeam, bool kMax>
+__device__ __forceinline__ float row_reduce(float v, float* red) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = kMax ? fmaxf(v, o) : v + o;
+  }
+  if constexpr (kTeam > kWarp) {
+    constexpr int kWarps = kTeam / kWarp;
+    const int warp = threadIdx.x / kWarp;
+    __syncthreads();  // red[] is free: the previous reduction was read
+    if (threadIdx.x % kWarp == 0) red[warp] = v;
+    __syncthreads();
+    v = red[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v = kMax ? fmaxf(v, red[w]) : v + red[w];
+  }
+  return v;
+}
+
+// One value of p as f32; its store as T.
+template <typename T>
+__device__ __forceinline__ float load1(const T* p) {
+  if constexpr (sizeof(T) == 2) {
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  } else {
+    return *p;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store1(T* p, float v) {
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<__nv_bfloat16*>(p) = __float2bfloat16_rn(v);
+  } else {
+    *p = v;
+  }
+}
+
+// kTeam threads (a warp, or the CTA) a row; kV values a step (8: 16-byte
+// vectors, H % 8 == 0; 1: any H).
+template <typename T, int kTeam, int kV, bool kDynamic>
+__global__ void __launch_bounds__(kThreads)
+ln_quant_rows_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                     const float* __restrict__ gamma, const float* __restrict__ beta,
+                     const float* __restrict__ ascale, T* __restrict__ h,
+                     int8_t* __restrict__ xi, float* __restrict__ row, int n_rows,
+                     int hidden, float eps) {
+  __shared__ float red[kThreads / kWarp];
+  constexpr int kRowsPerBlock = kThreads / kTeam;
+  const int t = threadIdx.x % kTeam;
+  const int r = blockIdx.x * kRowsPerBlock + threadIdx.x / kTeam;
+  if (kTeam == kWarp && r >= n_rows) return;  // a whole warp: no CTA barrier
+  const size_t base = (size_t)r * hidden;
+  const int steps = hidden / kV;  // kV divides hidden
+
+  // v[0 .. kV) = x + res at step i
+  auto sum_at = [&](int i, float (&v)[kV]) {
+    if constexpr (kV == 8) {
+      float a[kVec];
+      load8(x + base + i * kV, v);
+      load8(res + base + i * kV, a);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) v[e] += a[e];
+    } else {
+      v[0] = load1(x + base + i) + load1(res + base + i);
+    }
+  };
+  float sum = 0.f;
+  for (int i = t; i < steps; i += kTeam) {
+    float v[kV];
+    sum_at(i, v);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) sum += v[e];
+  }
+  const float mean = row_reduce<kTeam, false>(sum, red) / hidden;
+  float sq = 0.f;
+  for (int i = t; i < steps; i += kTeam) {
+    float v[kV];
+    sum_at(i, v);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      const float d = v[e] - mean;
+      sq = fmaf(d, d, sq);
+    }
+  }
+  const float rstd = rsqrtf(row_reduce<kTeam, false>(sq, red) / hidden + eps);
+  float amax = 0.f;
+  for (int i = t; i < steps; i += kTeam) {
+    float v[kV];
+    sum_at(i, v);
+    float g[kV], b[kV];
+    if constexpr (kV == 8) {
+      load8(gamma + i * kV, g);
+      load8(beta + i * kV, b);
+    } else {
+      g[0] = gamma[i];
+      b[0] = beta[i];
+    }
+#pragma unroll
+    for (int e = 0; e < kV; ++e) v[e] = (v[e] - mean) * rstd * g[e] + b[e];
+    if constexpr (kV == 8) {
+      round8<T>(v);  // v now holds h as stored
+      store8(h + base + i * kV, v);
+    } else {
+      store1(h + base + i, v[0]);
+      v[0] = load1(h + base + i);
+    }
+#pragma unroll
+    for (int e = 0; e < kV; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  }
+  float s;
+  if (kDynamic) {
+    s = row_reduce<kTeam, true>(amax, red) / 127.0f + 1e-12f;
+    if (t == 0) row[r] = s;
+  } else {
+    s = *ascale;
+  }
+  for (int i = t; i < steps; i += kTeam) {  // this thread's own stores of h
+    float v[kV];
+    if constexpr (kV == 8) {
+      load8(h + base + i * kV, v);
+    } else {
+      v[0] = load1(h + base + i);
+    }
+    union { int8_t q[kV]; uint2 u; } out;
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      out.q[e] = (int8_t)__float2int_rn(fminf(fmaxf(rintf(v[e] / s), -127.f), 127.f));
+    }
+    if constexpr (kV == 8) {
+      *reinterpret_cast<uint2*>(xi + base + i * kV) = out.u;
+    } else {
+      xi[base + i] = out.q[0];
+    }
+  }
+}
+
+template <typename T, int kTeam, int kV, bool kDynamic>
+int launch_generic(const void* x, const void* res, const float* gamma, const float* beta,
+                   const float* ascale, void* h, int8_t* xi, float* row, int n_rows,
+                   int hidden, float eps, cudaStream_t s) {
+  constexpr int kRowsPerBlock = kThreads / kTeam;
+  ln_quant_rows_kernel<T, kTeam, kV, kDynamic>
+      <<<(n_rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0, s>>>(
+          static_cast<const T*>(x), static_cast<const T*>(res), gamma, beta, ascale,
+          static_cast<T*>(h), xi, row, n_rows, hidden, eps);
+  return (int)cudaGetLastError();
+}
+
+// The team forms where team_lanes(hidden) holds, else the generic form.
+template <typename T, bool kDynamic>
+int launch_any(const void* x, const void* res, const float* gamma, const float* beta,
+               const float* ascale, void* h, int8_t* xi, float* row, int n_rows, int hidden,
+               float eps, cudaStream_t s) {
+  if (team_lanes(hidden)) {
+    return launch<T, kDynamic>(x, res, gamma, beta, ascale, h, xi, row, n_rows, hidden, eps, s);
+  }
+  const bool vec = hidden % kVec == 0;
+#define MSA_GENERIC(TEAM, V)                                                          \
+  launch_generic<T, TEAM, V, kDynamic>(x, res, gamma, beta, ascale, h, xi, row, n_rows, \
+                                       hidden, eps, s)
+  if (hidden < kWideRow) return vec ? MSA_GENERIC(kWarp, 8) : MSA_GENERIC(kWarp, 1);
+  return vec ? MSA_GENERIC(kThreads, 8) : MSA_GENERIC(kThreads, 1);
+#undef MSA_GENERIC
+}
+
 int check_args(int n_rows, int hidden) {
-  return n_rows <= 0 || team_lanes(hidden) == 0 ? (int)cudaErrorInvalidValue : 0;
+  return n_rows <= 0 || hidden <= 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // namespace
 
 // x, res, h: [n_rows, hidden] in `dtype` (0 = float32, 1 = bfloat16); gamma,
 // beta: [hidden] f32; ascale: one f32 on the device; xi: [n_rows, hidden]
-// int8.  hidden: a multiple of 64 up to 512, of 128 up to 1024, or of 256
-// up to 2048.  The caller has checked contiguity and 16-byte alignment.
+// int8.  hidden: any H >= 1 (the team forms where they fit, else the
+// generic form).  The caller has checked contiguity and 16-byte alignment.
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int msa_ln_quant_static(const void* x, const void* res,
                                    const void* gamma, const void* beta,
@@ -244,8 +426,8 @@ extern "C" int msa_ln_quant_static(const void* x, const void* res,
   const float* b = static_cast<const float*>(beta);
   const float* a = static_cast<const float*>(ascale);
   int8_t* q = static_cast<int8_t*>(xi);
-  if (dtype == 0) return launch<float, false>(x, res, g, b, a, h, q, nullptr, n_rows, hidden, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16, false>(x, res, g, b, a, h, q, nullptr, n_rows, hidden, eps, s);
+  if (dtype == 0) return launch_any<float, false>(x, res, g, b, a, h, q, nullptr, n_rows, hidden, eps, s);
+  if (dtype == 1) return launch_any<__nv_bfloat16, false>(x, res, g, b, a, h, q, nullptr, n_rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -261,7 +443,7 @@ extern "C" int msa_ln_quant_dynamic(const void* x, const void* res,
   const float* b = static_cast<const float*>(beta);
   int8_t* q = static_cast<int8_t*>(xi);
   float* rw = static_cast<float*>(row);
-  if (dtype == 0) return launch<float, true>(x, res, g, b, nullptr, h, q, rw, n_rows, hidden, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16, true>(x, res, g, b, nullptr, h, q, rw, n_rows, hidden, eps, s);
+  if (dtype == 0) return launch_any<float, true>(x, res, g, b, nullptr, h, q, rw, n_rows, hidden, eps, s);
+  if (dtype == 1) return launch_any<__nv_bfloat16, true>(x, res, g, b, nullptr, h, q, rw, n_rows, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,14 +1,14 @@
-// Warp-level tensor-core tiles for a head dim kD of 32 or 64 (a template
-// parameter of every tile function): the mma.sync primitives that the
+// Warp-level tensor-core tiles for a head dim kD of 16, 32, 64 or 128 (a
+// template parameter of every tile function): the mma.sync primitives that the
 // attention kernels of the port share (flash_kernels.cuh for row 11's bf16
 // fused backward, and the copies and dropout words of rows 10-13;
 // short_attention.cu and short_attention_v1.cu for the bf16 short-attention
 // forwards, short_bwd_tc.cuh for the bf16 short-attention backwards).
 //
 // A warp owns 16 query rows.  Operands in shared memory are row-major bf16
-// rows of kStride<kD> elements (kD values and 8 of padding: 144-byte rows
-// at 64, 80-byte rows at 32; an odd multiple of 16 bytes, so the eight row
-// addresses of an ldmatrix fall in distinct banks).  Q K^T takes kD / 16
+// rows of kStride<kD> elements (kD values and 8 of padding: 272-, 144-, 80-
+// and 48-byte rows at 128, 64, 32 and 16; an odd multiple of 16 bytes, so
+// the eight row addresses of an ldmatrix fall in distinct banks).  Q K^T takes kD / 16
 // k-steps, and P V, dQ, dK and dV fill kD / 8 column tiles.  Products
 // are m16n8k16 (bf16 in, f32 accumulate); their outputs stay in registers
 // in mma.sync's accumulator layout, and that layout, packed to bf16, is the
@@ -40,23 +40,35 @@ template <int kD>
 constexpr bool head_dim_ok() {
   return kD % 16 == 0 && (kStride<kD> * 2 / 16) % 2 == 1;
 }
-static_assert(head_dim_ok<32>() && head_dim_ok<64>(), "staged rows conflict-free");
+static_assert(head_dim_ok<16>() && head_dim_ok<32>() && head_dim_ok<64>() &&
+                  head_dim_ok<128>(),
+              "staged rows conflict-free");
 
-// The head dim hidden / num_heads if the kernels take it (32 or 64), else 0.
+// The host side's switch to the head dims the kernels are instantiated
+// for: f(std::integral_constant<int, d>{}) for d = 16, 32, 64 or 128, else
+// cudaErrorInvalidValue.  A source built with -DMSA_HEAD_DIM=k (the build
+// compiles each attention source once a head dim, in parallel) holds the
+// kernels of head dim k alone; the Python wrappers pick its library by the
+// head dim they hand it, any other head dim zero-padded up to k.
+template <class F>
+int by_head_dim(int d, F&& f) {
+#ifdef MSA_HEAD_DIM
+  static_assert(head_dim_ok<MSA_HEAD_DIM>(), "an instantiated head dim");
+  if (d == MSA_HEAD_DIM) return f(std::integral_constant<int, MSA_HEAD_DIM>{});
+#else
+  if (d == 16) return f(std::integral_constant<int, 16>{});
+  if (d == 32) return f(std::integral_constant<int, 32>{});
+  if (d == 64) return f(std::integral_constant<int, 64>{});
+  if (d == 128) return f(std::integral_constant<int, 128>{});
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
+// The head dim hidden / num_heads if by_head_dim takes it, else 0.
 inline int head_dim_of(int hidden, int num_heads) {
   if (num_heads <= 0 || hidden % num_heads) return 0;
   const int d = hidden / num_heads;
-  return d == 32 || d == 64 ? d : 0;
-}
-
-// The host side's switch to the head dims the kernels are instantiated
-// for: f(std::integral_constant<int, d>{}) for d = 32 or 64, else
-// cudaErrorInvalidValue.
-template <class F>
-int by_head_dim(int d, F&& f) {
-  if (d == 32) return f(std::integral_constant<int, 32>{});
-  if (d == 64) return f(std::integral_constant<int, 64>{});
-  return (int)cudaErrorInvalidValue;
+  return by_head_dim(d, [](auto) { return 0; }) == 0 ? d : 0;
 }
 
 // A [16 x 8kN] f32 tile held by one warp in mma.sync's accumulator layout:

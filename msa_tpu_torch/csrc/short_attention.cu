@@ -1,6 +1,6 @@
-// Whole-sequence attention for short sequences (S < 1024, head dim 32 or
-// 64, a template parameter kD of every kernel, picked by the C entries from
-// hidden / num_heads):
+// Whole-sequence attention for short sequences (S < 1024, head dim 16, 32,
+// 64 or 128, a template parameter kD of every kernel, picked by the C
+// entries from hidden / num_heads):
 // forward with in-kernel attention-probs dropout, the backward pair, and a
 // keep-mask export.
 //
@@ -102,6 +102,14 @@ constexpr int kMaxThreads = 2 * kMaxRows;
 constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kKeyTile % kKeyChunk == 0, "chunks must tile the key tile");
+// The f32 CUDA-core kernels' staged tiles at head dim kD: the tiles above,
+// halved at 128, so that their static shared memory (f32 rows of kD) stays
+// within the 48 KB a kernel may declare.
+template <int kD>
+inline constexpr int kKeyTileOf = kD == 128 ? kKeyTile / 2 : kKeyTile;
+template <int kD>
+inline constexpr int kQueryTileOf = kD == 128 ? kQueryTile / 2 : kQueryTile;
+static_assert(kKeyTileOf<128> % kKeyChunk == 0, "chunks must tile the key tile");
 static_assert(kKeyChunk == kGroup, "one Philox draw per key chunk");
 
 // 16-byte vector loads/stores between global memory and f32 (every
@@ -250,8 +258,8 @@ __device__ float row_lse_sweep(const float* qr, const T* k, size_t base, int str
                                float* bias_s) {
   float run_max = -INFINITY;
   float run_sum = 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, seq - k0);
+  for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
+    const int kn = min(kKeyTileOf<kD>, seq - k0);
     __syncthreads();
     stage_one<T, kD>(k, base, stride, k0, kn, k_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
@@ -299,9 +307,9 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int hidden, int stride, int rows_per_cta, float score_mult,
                            Dropout drop) {
   using L = Layout<T, kD>;
-  __shared__ __align__(16) float k_s[kKeyTile * kD];
-  __shared__ __align__(16) float v_s[kKeyTile * kD];
-  __shared__ float bias_s[kKeyTile];
+  __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
+  __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
+  __shared__ float bias_s[kKeyTileOf<kD>];
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
@@ -323,8 +331,8 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float run_sum = 0.f;
   const float* bias_row = key_bias + (size_t)b * seq;
 
-  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, seq - k0);
+  for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
+    const int kn = min(kKeyTileOf<kD>, seq - k0);
     __syncthreads();  // every thread is done with the previous tile
     stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
@@ -337,7 +345,7 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float chunk_max = -INFINITY;
 #pragma unroll
       for (int jj = 0; jj < kKeyChunk; ++jj) {
-        const int j = j0 + jj;  // < kKeyTile: j0 <= kKeyTile - kKeyChunk
+        const int j = j0 + jj;  // < the tile: j0 <= its width - kKeyChunk
         float part = 0.f;
         if (j < kn) part = dot_half<T, kD>(qr, &k_s[j * kD], half);  // uniform
         part += __shfl_xor_sync(0xffffffffu, part, 1);  // join the two halves
@@ -409,9 +417,9 @@ short_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
                               float score_mult, float scale, Dropout drop) {
   using T = float;
   using L = Layout<T, kD>;
-  __shared__ __align__(16) float k_s[kKeyTile * kD];
-  __shared__ __align__(16) float v_s[kKeyTile * kD];
-  __shared__ float bias_s[kKeyTile];
+  __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
+  __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
+  __shared__ float bias_s[kKeyTileOf<kD>];
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
@@ -449,8 +457,8 @@ short_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, seq - k0);
+  for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
+    const int kn = min(kKeyTileOf<kD>, seq - k0);
     __syncthreads();
     stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
@@ -512,11 +520,11 @@ short_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restr
                                float score_mult, float dk_mult, Dropout drop) {
   using T = float;
   using L = Layout<T, kD>;
-  __shared__ __align__(16) float q_s[kQueryTile * kD];   // q * score_mult
-  __shared__ __align__(16) float do_s[kQueryTile * kD];
-  __shared__ float lse_s[kQueryTile];
-  __shared__ float delta_s[kQueryTile];
-  __shared__ uint32_t keep_s[kMaxRows / kGroup][kQueryTile];
+  __shared__ __align__(16) float q_s[kQueryTileOf<kD> * kD];   // q * score_mult
+  __shared__ __align__(16) float do_s[kQueryTileOf<kD> * kD];
+  __shared__ float lse_s[kQueryTileOf<kD>];
+  __shared__ float delta_s[kQueryTileOf<kD>];
+  __shared__ uint32_t keep_s[kMaxRows / kGroup][kQueryTileOf<kD>];
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
@@ -538,8 +546,8 @@ short_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restr
   for (int i = 0; i < L::kPart; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const float bias2 = active ? key_bias[(size_t)b * seq + key] * kLog2e : 0.f;
 
-  for (int i0 = 0; i0 < seq; i0 += kQueryTile) {
-    const int qn = min(kQueryTile, seq - i0);
+  for (int i0 = 0; i0 < seq; i0 += kQueryTileOf<kD>) {
+    const int qn = min(kQueryTileOf<kD>, seq - i0);
     __syncthreads();  // every thread is done with the previous tile
     stage_pair<T, kD, true>(q, dout, in_base, stride, do_base, hidden, i0, qn,
                         score_mult, q_s, do_s);
@@ -653,9 +661,9 @@ short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __res
                                  float score_mult, Dropout drop) {
   using T = float;
   using L = Layout<T, kD>;
-  __shared__ __align__(16) float k_s[kKeyTile * kD];
-  __shared__ __align__(16) float v_s[kKeyTile * kD];
-  __shared__ float bias_s[kKeyTile];
+  __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
+  __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
+  __shared__ float bias_s[kKeyTileOf<kD>];
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
@@ -678,8 +686,8 @@ short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __res
   float acc[L::kPart];
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-    const int kn = min(kKeyTile, seq - k0);
+  for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
+    const int kn = min(kKeyTileOf<kD>, seq - k0);
     __syncthreads();
     stage_pair<T, kD>(k, v, head_base, hidden, head_base, hidden, k0, kn, 1.f, k_s, v_s);
     for (int j = threadIdx.x; j < kn; j += blockDim.x) {
@@ -1100,8 +1108,8 @@ short_attention_probs_dq_kernel(const float* __restrict__ k, const float* __rest
                                 float drop_scale) {
   using T = float;
   using L = Layout<T, kD>;
-  __shared__ __align__(16) float k_s[kKeyTile * kD];
-  __shared__ __align__(16) float v_s[kKeyTile * kD];
+  __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
+  __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
@@ -1120,8 +1128,8 @@ short_attention_probs_dq_kernel(const float* __restrict__ k, const float* __rest
 
   float delta = 0.f;
   for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int k0 = 0; k0 < seq; k0 += kKeyTile) {
-      const int kn = min(kKeyTile, seq - k0);
+    for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
+      const int kn = min(kKeyTileOf<kD>, seq - k0);
       __syncthreads();
       if (sweep == 0) {
         stage_one<T, kD>(v, head_base, hidden, k0, kn, v_s);
@@ -1163,10 +1171,12 @@ short_attention_probs_dq_kernel(const float* __restrict__ k, const float* __rest
 
 // f32: dk and dv from the stashed probs, one CTA per (key tile, head,
 // batch row), two threads per key row holding v and the dk / dv
-// accumulators.  Query tiles of kProbsQueryTile rows (q, dO, delta and the
-// [tile, keys] block of the probs, read row by row, coalesced) are staged
-// in shared memory.
+// accumulators.  Query tiles of kProbsQueryTileOf<kD> rows (q, dO, delta
+// and the [tile, keys] block of the probs, read row by row, coalesced) are
+// staged in shared memory.
 constexpr int kProbsQueryTile = 32;
+template <int kD>
+inline constexpr int kProbsQueryTileOf = kD == 128 ? kProbsQueryTile / 2 : kProbsQueryTile;
 
 template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -1179,10 +1189,10 @@ short_attention_probs_dkv_kernel(const float* __restrict__ q, const float* __res
                                  float drop_scale) {
   using T = float;
   using L = Layout<T, kD>;
-  __shared__ __align__(16) float q_s[kProbsQueryTile * kD];
-  __shared__ __align__(16) float do_s[kProbsQueryTile * kD];
-  __shared__ float p_s[kProbsQueryTile][kMaxRows];
-  __shared__ float delta_s[kProbsQueryTile];
+  __shared__ __align__(16) float q_s[kProbsQueryTileOf<kD> * kD];
+  __shared__ __align__(16) float do_s[kProbsQueryTileOf<kD> * kD];
+  __shared__ float p_s[kProbsQueryTileOf<kD>][kMaxRows];
+  __shared__ float delta_s[kProbsQueryTileOf<kD>];
 
   const int b = blockIdx.z;
   const int head = blockIdx.y;
@@ -1202,8 +1212,8 @@ short_attention_probs_dkv_kernel(const float* __restrict__ q, const float* __res
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  for (int i0 = 0; i0 < seq; i0 += kProbsQueryTile) {
-    const int qn = min(kProbsQueryTile, seq - i0);
+  for (int i0 = 0; i0 < seq; i0 += kProbsQueryTileOf<kD>) {
+    const int qn = min(kProbsQueryTileOf<kD>, seq - i0);
     __syncthreads();
     stage_pair<T, kD>(q, dout, head_base, hidden, head_base, hidden, i0, qn, 1.f, q_s,
                       do_s);
@@ -1505,7 +1515,9 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The head dim d = hidden / num_heads is
-// 32 or 64 (every kernel is instantiated for both).  drop_threshold t in
+// the library's (16, 32, 64 or 128: the source is built once a head dim,
+// -DMSA_HEAD_DIM; the wrappers zero-pad any other d up to it and hand the
+// scale of the true d).  drop_threshold t in
 // [0, 256): 0 = no dropout, else keep iff the element's Philox byte >= t
 // (rate t/256).  The training forward passes lse ([B, heads, S] f32, the
 // log2-sum-exp of each score row), which the v2 backward pairs read (bf16

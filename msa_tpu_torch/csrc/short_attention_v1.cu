@@ -1,6 +1,12 @@
-// v1 short attention (S <= 128, head dim 32 or 64): whole-sequence softmax per
-// head with in-kernel attention-probs dropout, and its backward in one
-// launch.
+// v1 short attention (S <= 128, head dim 16, 32, 64 or 128, the source
+// built once a head dim): whole-sequence softmax per head with in-kernel
+// attention-probs dropout, and its backward in one launch.  Above 128 keys
+// (to S = 1023) the wrappers run v1 on short_attention.cu's forms, which
+// compute the same function with the same mask: the forward (bf16 the
+// two-sweep form, f32 the key-tiled CUDA-core kernel), and for the backward
+// that forward's training form (for the row lse, which v1 keeps nowhere;
+// its ctx is dropped) then the v2 pair, whose rule, delta = rowsum(p *
+// dpm), is v1's.
 //
 // Replaces the TPU kernels msa_tpu/ops/short_attention.py::_fwd_kernel
 // (:139) and ::_bwd_kernel (:177), entry short_attention (:667), the v1 pair
@@ -40,7 +46,8 @@
 //     tensor cores f32 would be TF32, three decimal digits): K and V staged
 //     once as f32 (rows padded to d + 1 floats, so a warp's 32 keys read 32
 //     banks), query tiles of 32 rows whose [32, S] score rows also stay in
-//     shared memory (S <= 128 keeps a CTA within 116 KB).  The backward
+//     shared memory (S <= 128 keeps a CTA within 116 KB at head dim 64,
+//     194 KB at 128).  The backward
 //     keeps each key's dk and dv in the registers of two threads
 //     (interleaved dims) across all query tiles and writes dq per tile: one
 //     launch, no atomics, no [S, S] tensor in device memory.

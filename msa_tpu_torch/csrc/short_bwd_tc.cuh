@@ -1,5 +1,5 @@
 // The bf16 short-attention backward on the tensor cores, S <= 128, head dim
-// kD = 32 or 64 (a template parameter): dq, dk and dv of one (head, batch
+// kD = 16, 32, 64 or 128 (a template parameter): dq, dk and dv of one (head, batch
 // row) in one launch, with no [S, S] tensor in device memory.  One template
 // serves five TPU kernels of msa_tpu/ops/short_attention.py, which differ
 // only in where p and delta come from (kRule) and in the row stride of q,
@@ -91,12 +91,14 @@ int smem_bytes(int seq) { return tile_smem_bytes<kD>((seq + 15) / 16); }
 // The CTAs an SM holds by shared memory (228 KB, 1 KB reserved a CTA) at
 // head dim 64, given to __launch_bounds__ so that ptxas may use the
 // registers that occupancy leaves (its default picks fewer and spilled at
-// 3-4 tiles).  At head dim 32 the same bound: the two score rows a warp
-// holds do not shrink with d, so registers, not the smaller tiles, bound
-// the CTAs (the d = 32 tiles' own count capped ptxas at 96-128 registers
-// and it spilled from 4 tiles).
+// 3-4 tiles).  At head dim 32 and 16 the same bound: the two score rows a
+// warp holds do not shrink with d, so registers, not the smaller tiles,
+// bound the CTAs (the d = 32 tiles' own count capped ptxas at 96-128
+// registers and it spilled from 4 tiles).  At head dim 128 its own tiles,
+// which hold fewer CTAs.
+template <int kD>
 __host__ __device__ constexpr int ctas_by_smem(int kKT) {
-  return 233472 / (tile_smem_bytes<64>(kKT) + 1024);
+  return 233472 / (tile_smem_bytes<(kD > 64 ? kD : 64)>(kKT) + 1024);
 }
 
 // The head's probs rows [0, 16 kKT) (row stride 16 kKT, row 0 at src) into
@@ -117,7 +119,7 @@ __device__ __forceinline__ void stage_probs(bf16* dst, const bf16* src, int seq)
 // written under kFromOut only, probs under kFromProbs only, key_bias
 // otherwise.  q, k, v, dq, dk, dv at row stride ld; o and dout at hidden.
 template <int kD, int kKT, bool kDropout, int kRule>
-__global__ void __launch_bounds__(32 * kKT, ctas_by_smem(kKT))
+__global__ void __launch_bounds__(32 * kKT, ctas_by_smem<kD>(kKT))
 short_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ key_bias,
                     const bf16* __restrict__ probs, const bf16* __restrict__ o,

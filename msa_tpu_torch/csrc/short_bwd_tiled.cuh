@@ -1,5 +1,6 @@
 // The bf16 short-attention backward on the tensor cores above 128 keys
-// (129 <= S <= 1023), head dim kD = 32 or 64 (a template parameter): a dq
+// (129 <= S <= 1023), head dim kD = 16, 32, 64 or 128 (a template
+// parameter): a dq
 // launch and a dk/dv launch over 64-row tiles on Hopper's warpgroup MMA
 // (wgmma_tiles.cuh), with no [S, S] tensor in device memory.  It serves
 // the rules of short_bwd_tc.cuh (its Rule enum), which takes S <= 128 in
@@ -92,9 +93,11 @@ constexpr int kTile = 64;                    // rows of a CTA's tile and of a ri
 constexpr int kThreads = wg::kGroupThreads;  // one warpgroup
 constexpr int kN = kTile / 8;                // 8-column tiles of a [64 x 64] score tile
 constexpr int kPLd = kTile + 8;              // row stride of a probs tile (144 bytes)
-// CTAs an SM that ptxas fits the dq launch's registers to (168 a thread);
-// the dk/dv launch, which holds two accumulators, names the threads only
-constexpr int kDqMinBlocks = 3;
+// CTAs an SM that ptxas fits the dq launch's registers to (168 a thread;
+// at head dim 128, whose dQ accumulator alone takes 64, one CTA); the
+// dk/dv launch, which holds two accumulators, names the threads only
+template <int kD>
+constexpr int kDqMinBlocks = kD == 128 ? 1 : 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int kD>
@@ -237,7 +240,7 @@ __device__ __forceinline__ void store_rows(bf16* out, int ld, int row0, int seq,
 // units); delta_out is written; key_bias (not kFromProbs) [B, S]; probs
 // (kFromProbs) [B, heads, S, 16 ceil(S / 16)].
 template <int kD, bool kDropout, int kRule>
-__global__ void __launch_bounds__(kThreads, kDqMinBlocks)
+__global__ void __launch_bounds__(kThreads, kDqMinBlocks<kD>)
 short_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ key_bias,
                     const bf16* __restrict__ probs, const bf16* __restrict__ o,

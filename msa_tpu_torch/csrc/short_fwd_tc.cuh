@@ -1,5 +1,5 @@
 // The bf16 short-attention forward on the tensor cores, S <= 128, head dim
-// kD = 32 or 64 (a template parameter): one (head, batch row) a CTA, the
+// kD = 16, 32, 64 or 128 (a template parameter): one (head, batch row) a CTA, the
 // whole score row of each query in registers.  One template serves the
 // forwards of three TPU kernels of msa_tpu/ops/short_attention.py, which
 // compute one function:

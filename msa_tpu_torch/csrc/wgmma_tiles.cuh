@@ -1,6 +1,7 @@
-// Warpgroup tensor-core tiles (Hopper's wgmma) for a head dim kD of 32 or
-// 64: what the flash kernels of flash_kernels.cuh (rows 10, 12 and 13)
-// build their bf16 forward and split backward from.
+// Warpgroup tensor-core tiles (Hopper's wgmma) for a head dim kD of 16,
+// 32, 64 or 128: what the flash kernels of flash_kernels.cuh (rows 10, 12
+// and 13) and the tiled short-attention backward (short_bwd_tiled.cuh)
+// build their bf16 products from.
 //
 // A warpgroup (4 warps, 128 threads) issues one asynchronous product of a
 // 64-row tile, m64nNk16 (bf16 in, f32 accumulate), A read from shared
@@ -8,31 +9,36 @@
 // memory through a descriptor: no ldmatrix, so no fragment traffic through
 // the register file.  Offered here:
 //
-//   * swizzled row tiles: a tile holds rows of kD bf16 values (128 bytes at
-//     64, 64 bytes at 32), row r at r * kRowBytes, its 16-byte chunk c
-//     stored at chunk c ^ f(r): the 128-byte swizzle at d = 64 (f(r) = r %
-//     8, an atom of 8 rows = 1024 bytes) and the 64-byte swizzle at d = 32
-//     (f(r) = (r / 2) % 4, 8 rows = 512 bytes).  The hardware applies the
-//     pattern to absolute shared addresses, so every tile starts on a 1024-
-//     byte boundary (align_smem).  stage_rows copies rows into it with
-//     cp.async, zero-filling rows past the sequence;
+//   * swizzled row tiles: a tile holds rows of kD bf16 values in swizzle
+//     atoms of 8 rows, an atom row min(kD, 64) values wide, its 16-byte
+//     chunk c stored at chunk c ^ f(r): the 128-byte swizzle at d = 64 and
+//     128 (f(r) = r % 8, an atom of 1024 bytes), the 64-byte swizzle at d =
+//     32 (f(r) = (r / 2) % 4, 512 bytes) and the 32-byte swizzle at d = 16
+//     (f(r) = (r / 4) % 2, 256 bytes).  At d = 128 a row spans two atoms:
+//     8-row group j holds its left atom at 2048 j and its right one 1024
+//     bytes on (swz), so one descriptor layout serves tiles of any height.
+//     The hardware applies the pattern to absolute shared addresses, so
+//     every tile starts on a 1024-byte boundary (align_smem).  stage_rows
+//     copies rows into it with cp.async, zero-filling rows past the
+//     sequence;
 //   * descriptors of such a tile as either operand layout:
 //       desc_k(tile, kk)  K-major: the tile's rows are the M (A) or N (B)
 //                         index, kD the contracted one; k-step kk starts
-//                         kk * 32 bytes into each row.  SBO = 8 rows
-//                         (1024 or 512 bytes), LBO unused (1);
+//                         32 kk bytes into each row's atoms (the next atom
+//                         from 64 values on).  SBO = an 8-row group, LBO
+//                         unused (1);
 //       desc_mn(tile, kk) MN-major (B only, transposed): the tile's rows
-//                         are the contracted index, kD the N index, one
-//                         swizzle atom wide; k-step kk starts at row 16 kk.
-//                         SBO = 8 rows; LBO, the stride between atoms
-//                         along N, is unused (N is one atom) and set to
-//                         SBO's value;
+//                         are the contracted index, kD the N index; k-step
+//                         kk starts at row 16 kk.  SBO = an 8-row group;
+//                         LBO, the stride between atoms along N (1024
+//                         bytes at d = 128; unused elsewhere, one atom);
 //     fields (PTX ISA, "matrix descriptor"): start address >> 4 in bits
 //     0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, base offset 0 (the
-//     tiles are atom-aligned), swizzle mode in 62-63 (1: 128 B, 2: 64 B);
+//     tiles are atom-aligned), swizzle mode in 62-63 (1: 128 B, 2: 64 B,
+//     3: 32 B);
 //   * mma_ss<N, kTransB>(d, desc_a, desc_b, scale_d) and mma_rs<N,
 //     kTransB>(d, a, desc_b, scale_d): d = A B (+ d when scale_d), N = 64
-//     or 128 from shared memory, N = 32 or 64 with A from registers;
+//     or 128 from shared memory, N = kD (16 ... 128) with A from registers;
 //   * fence, commit and wait, and fence_operand, which pins registers that
 //     an asynchronous product reads or writes across the fence / wait pair
 //     so that the compiler neither moves nor reuses them in between (a
@@ -65,9 +71,15 @@ inline constexpr int kRowBytes = kD * 2;
 template <int kD>
 inline constexpr int kChunks = kD / 8;  // 16-byte chunks of a row
 template <int kD>
-inline constexpr int kAtomBytes = 8 * kRowBytes<kD>;
+inline constexpr int kAtomCols = kD < 64 ? kD : 64;  // bf16 values of an atom row
 template <int kD>
-inline constexpr uint64_t kSwizzleMode = kD == 64 ? 1 : 2;
+inline constexpr int kAtomChunks = kAtomCols<kD> / 8;
+template <int kD>
+inline constexpr int kAtomBytes = 8 * 2 * kAtomCols<kD>;  // 8 atom rows
+template <int kD>
+inline constexpr int kGroupBytes = 8 * kRowBytes<kD>;  // 8 whole rows: one or two atoms
+template <int kD>
+inline constexpr uint64_t kSwizzleMode = kD >= 64 ? 1 : kD == 32 ? 2 : 3;
 
 // The first kAlign-aligned address at or after p (the caller asks for
 // kAlign bytes more dynamic shared memory than its tiles take).
@@ -78,9 +90,15 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
 // Byte offset of chunk ch of row r in a swizzled tile.
 template <int kD>
 __device__ __forceinline__ int swz(int r, int ch) {
-  static_assert(kD == 32 || kD == 64, "the tiles take head dim 32 or 64");
-  const int f = kD == 64 ? (r & 7) : ((r >> 1) & 3);
-  return r * kRowBytes<kD> + ((ch ^ f) << 4);
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128,
+                "the tiles take head dim 16, 32, 64 or 128");
+  const int f = kD >= 64 ? (r & 7) : kD == 32 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+  if constexpr (kD <= 64) {  // one atom a row
+    return r * kRowBytes<kD> + ((ch ^ f) << 4);
+  } else {
+    return (r >> 3) * kGroupBytes<kD> + (ch / kAtomChunks<kD>) * kAtomBytes<kD> +
+           (r & 7) * 2 * kAtomCols<kD> + (((ch % kAtomChunks<kD>) ^ f) << 4);
+  }
 }
 
 // Rows [r0, r0 + n) of one head (row 0 at src + base, row stride ld) into
@@ -120,19 +138,26 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)(sbo >> 4) << 32) | (mode << 62);
 }
 
-// K-major: rows of the tile from `row` on are the M or N index, k-step kk
-// covers columns [16 kk, 16 kk + 16).
+// K-major: rows of the tile from `row` (a multiple of 8) on are the M or N
+// index, k-step kk covers columns [16 kk, 16 kk + 16).
 template <int kD>
 __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int row, int kk) {
-  return make_desc(smem_addr(tile) + row * kRowBytes<kD> + kk * 32, 16, kAtomBytes<kD>,
-                   kSwizzleMode<kD>);
+  constexpr int kSteps = kAtomCols<kD> / 16;  // k-steps an atom row holds
+  if constexpr (kD <= 64) {  // one atom a row: rows kRowBytes apart
+    return make_desc(smem_addr(tile) + row * kRowBytes<kD> + kk * 32, 16, kGroupBytes<kD>,
+                     kSwizzleMode<kD>);
+  } else {
+    return make_desc(smem_addr(tile) + (row >> 3) * kGroupBytes<kD> +
+                         (kk / kSteps) * kAtomBytes<kD> + (kk % kSteps) * 32,
+                     16, kGroupBytes<kD>, kSwizzleMode<kD>);
+  }
 }
 
 // MN-major: rows [16 kk, 16 kk + 16) of the tile are k-step kk's K index,
 // the kD columns the N index.
 template <int kD>
 __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
-  return make_desc(smem_addr(tile) + kk * 16 * kRowBytes<kD>, kAtomBytes<kD>, kAtomBytes<kD>,
+  return make_desc(smem_addr(tile) + kk * 2 * kGroupBytes<kD>, kAtomBytes<kD>, kGroupBytes<kD>,
                    kSwizzleMode<kD>);
 }
 
@@ -235,7 +260,18 @@ __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, u
 template <int kN, int kTransB>
 __device__ __forceinline__ void mma_rs(float (&d)[kN / 8][4], const uint32_t (&a)[4],
                                        uint64_t desc_b, int scale_d) {
-  static_assert(kN == 32 || kN == 64, "register A products are kD wide");
+  static_assert(kN == 16 || kN == 32 || kN == 64 || kN == 128,
+                "register A products are kD wide");
+  if constexpr (kN == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  }
   if constexpr (kN == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -262,6 +298,34 @@ __device__ __forceinline__ void mma_rs(float (&d)[kN / 8][4], const uint32_t (&a
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  }
+  if constexpr (kN == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
           "n"(kTransB));
   }

@@ -37,7 +37,7 @@ The head-split flash attention (kernel row 13, ``csrc/flash_attention.cu``;
 TPU kernels ``_flash_kernel``, ``_flash_dq_kernel``, ``_flash_dkv_kernel``
 of ``msa_tpu/ops/attention.py``) lives here, where JAX keeps it:
 
-* :func:`flash_attention` -- q, k, v [B, heads, S, d] (d = 32 or 64) and a
+* :func:`flash_attention` -- q, k, v [B, heads, S, d] (d <= 128) and a
   [B, S] f32 key bias; under autograd on CUDA a ``torch.autograd.Function``
   whose backward is :func:`flash_attention_backward` (two launches, dq then
   dk/dv).  It
@@ -56,12 +56,14 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .dropout import byte_threshold, quantize_dropout_rate, seeded_generator
 from .flash2 import delta_scratch, flash_attention2
 from .short_attention import (_DTYPES, _aligned, _seed_words, _stream,
-                              check_head_dim, save_inputs, saved_inputs,
+                              check_head_dim, kernel_head_dim, save_inputs,
+                              saved_inputs,
                               short_attention,
                               short_attention_packed, short_attention_plain,
                               short_attention_probs)
@@ -256,24 +258,41 @@ def _check_heads(q, k, v, key_bias, what):
                          f"{key_bias.device}, want ({b}, {s}) on {q.device}")
 
 
+def _pad_heads(d, *xs):
+    """[B, heads, S, d] tensors widened by zero columns to the library's
+    head dim (``short_attention.kernel_head_dim``)."""
+    kd = kernel_head_dim(d)
+    return [x if kd == d else F.pad(x, (0, kd - d)) for x in xs]
+
+
+def _cut_heads(d, *xs):
+    """The first d columns of each [B, heads, S, kd] tensor."""
+    return tuple(x if x.shape[-1] == d else x[..., :d].contiguous()
+                 for x in xs)
+
+
+def _library(d):
+    return _build.load(_build.head_dim_library(
+        "flash_attention", kernel_head_dim(d)), _SIGNATURES)
+
+
 def _forward_kernel(q, k, v, key_bias, seed, threshold, train):
     """The head-split forward kernel; returns (out, lse), lse [B, heads, S]
     f32 in natural-log units when ``train``, else None."""
     b, n, s, d = q.shape
-    q, k, v = _aligned(q, k, v, what="flash_attention")
+    q, k, v = _aligned(*_pad_heads(d, q, k, v), what="flash_attention")
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     lse = (torch.empty((b, n, s), dtype=torch.float32, device=q.device)
            if train else None)
-    lib = _build.load("flash_attention", _SIGNATURES)
-    code = lib.msa_flash_attention_fwd(
+    code = _library(d).msa_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), b, n, s, d,
-        _DTYPES[q.dtype], 1.0 / math.sqrt(d), *_seed_words(seed), threshold,
-        _stream(q))
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, n, s,
+        q.shape[-1], _DTYPES[q.dtype], 1.0 / math.sqrt(d), *_seed_words(seed),
+        threshold, _stream(q))
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
-    return out, lse
+    return _cut_heads(d, out)[0], lse
 
 
 def flash_attention_backward(q, k, v, key_bias, out, lse, dout, seed: int = 0,
@@ -289,22 +308,22 @@ def flash_attention_backward(q, k, v, key_bias, out, lse, dout, seed: int = 0,
         raise ValueError(f"flash_attention_backward: out/dout/lse "
                          f"{tuple(out.shape)} {out.dtype}, {tuple(dout.shape)}, "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
-    q, k, v, out, dout = _aligned(q, k, v, out, dout.to(q.dtype),
-                                  what="flash_attention_backward")
+    q, k, v, out, dout = _aligned(
+        *_pad_heads(d, q, k, v, out, dout.to(q.dtype)),
+        what="flash_attention_backward")
     key_bias = key_bias.to(torch.float32).contiguous()
     lse = lse.contiguous()
     delta = delta_scratch(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("flash_attention", _SIGNATURES)
-    code = lib.msa_flash_attention_bwd(
+    code = _library(d).msa_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, s, d,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, s, q.shape[-1],
         _DTYPES[q.dtype], 1.0 / math.sqrt(d), *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "flash_attention_backward")
     flash_attention_backward.launches += 2
-    return dq, dk, dv
+    return _cut_heads(d, dq, dk, dv)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -341,7 +360,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_bias: torch.Tensor, rate: float = 0.0,
                     seed: Optional[int] = None, recompute=None) -> torch.Tensor:
     """The counterpart of JAX's ``_flash_attention``: q/k/v [B, heads, S, d]
-    (d = 32 or 64 on CUDA), key_bias [B, S] additive mask; returns [B,
+    (any integer d from 1 to 128 on CUDA), key_bias [B, S] additive mask; returns [B,
     heads, S, d].  Any S >= 1.
 
     ``rate``: attention-probs dropout, a multiple of 1/256

@@ -10,7 +10,9 @@ the returned ctx are [B, S, H] in natural layout (heads are sliced inside
 the kernels), ``key_bias`` is an additive [B, S] f32 mask, the softmax runs
 in f32, no gradient flows to the bias or the seed, and the dropout rate is
 snapped to t/256.  The kernels (``csrc/flash2.cu``) take float32 and
-bfloat16, any S >= 1 and head dim 32 or 64; the source's header says what
+bfloat16, any S >= 1 and any integer head dim from 1 to 128 (the libraries
+of head dim 16, 32, 64 and 128; any other runs zero-padded on the next
+one up, ``short_attention.HeadPad``); the source's header says what
 bounds them on the H100 and how they are laid out.  bf16 runs on the tensor
 cores, f32 on the CUDA cores.
 
@@ -46,6 +48,7 @@ from ..configs import _round_up
 from .dropout import byte_threshold
 from .short_attention import (
     _DTYPES,
+    HeadPad,
     _aligned,
     _check,
     _seed_words,
@@ -54,7 +57,6 @@ from .short_attention import (
     save_inputs,
     saved_inputs,
     short_attention_plain,
-    softmax_scale,
 )
 
 _P = ctypes.c_void_p
@@ -171,15 +173,16 @@ def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
     """The flash2 forward kernel (``short_attention.launch_forward``: the
     two forwards share one C signature, flash2's with the f32 output its
     backward reads); returns (ctx, lse, ctx32)."""
-    lib = _build.load("flash2", _SIGNATURES)
-    result = launch_forward(lib.msa_flash2_fwd, "flash_attention2", q, k, v,
-                            key_bias, num_heads, seed, threshold, train,
-                            out32=True)
+    result = launch_forward("flash2", _SIGNATURES, "msa_flash2_fwd",
+                            "flash_attention2", q, k, v, key_bias, num_heads,
+                            seed, threshold, train, out32=True)
     flash_attention2.launches += 1
     return result
 
 
 def _backward_args(q, k, v, key_bias, out32, lse, dout, num_heads, what):
+    """The backward's inputs checked, each head padded to the library's
+    head dim (``pad``, a :class:`HeadPad`, is the last item)."""
     _check(q, k, v, key_bias, num_heads, what, max_seq=None)
     b, s, h = q.shape
     if out32.shape != q.shape or out32.dtype != torch.float32 or \
@@ -187,10 +190,11 @@ def _backward_args(q, k, v, key_bias, out32, lse, dout, num_heads, what):
         raise ValueError(f"{what}: out32/dout/lse {tuple(out32.shape)} "
                          f"{out32.dtype}, {tuple(dout.shape)}, "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
-    q, k, v, out32, dout = _aligned(q, k, v, out32, dout.to(q.dtype),
-                                    what=what)
+    pad = HeadPad(h, num_heads)
+    q, k, v, out32, dout = _aligned(
+        *map(pad.pad, (q, k, v, out32, dout.to(q.dtype))), what=what)
     return (q, k, v, key_bias.to(torch.float32).contiguous(), out32, dout,
-            lse.contiguous())
+            lse.contiguous(), pad)
 
 
 def delta_scratch(lse: torch.Tensor) -> torch.Tensor:
@@ -216,21 +220,20 @@ def flash2_bwd_fused(q, k, v, key_bias, out32, lse, dout, num_heads: int,
     an f32 dq buffer, then the sweep): ``out32`` (the output in f32) and
     ``lse`` are the training forward's outputs for the same inputs, seed
     and rate.  dq is summed by f32 atomics into that buffer, then cast."""
-    q, k, v, key_bias, out32, dout, lse = _backward_args(
+    q, k, v, key_bias, out32, dout, lse, pad = _backward_args(
         q, k, v, key_bias, out32, lse, dout, num_heads, "flash2_bwd_fused")
     b, s, h = q.shape
     delta, dq32 = fused_scratch(q, lse)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _build.load("flash2", _SIGNATURES)
-    code = lib.msa_flash2_bwd_fused(
+    code = pad.library("flash2", _SIGNATURES).msa_flash2_bwd_fused(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
+        _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "flash2_bwd_fused")
     flash2_bwd_fused.launches += 2
-    return dq32.to(q.dtype), dk, dv
+    return tuple(map(pad.cut, (dq32.to(q.dtype), dk, dv)))
 
 
 def flash2_bwd_split(q, k, v, key_bias, out32, lse, dout, num_heads: int,
@@ -238,21 +241,20 @@ def flash2_bwd_split(q, k, v, key_bias, out32, lse, dout, num_heads: int,
                      ) -> Tuple[torch.Tensor, ...]:
     """dq, dk, dv of :func:`flash_attention2` by the split pair (CUDA only,
     two launches: dq, which writes delta = rowsum(dO o), then dk/dv)."""
-    q, k, v, key_bias, out32, dout, lse = _backward_args(
+    q, k, v, key_bias, out32, dout, lse, pad = _backward_args(
         q, k, v, key_bias, out32, lse, dout, num_heads, "flash2_bwd_split")
     b, s, h = q.shape
     delta = delta_scratch(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("flash2", _SIGNATURES)
-    code = lib.msa_flash2_bwd_split(
+    code = pad.library("flash2", _SIGNATURES).msa_flash2_bwd_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
+        _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "flash2_bwd_split")
     flash2_bwd_split.launches += 2
-    return dq, dk, dv
+    return tuple(map(pad.cut, (dq, dk, dv)))
 
 
 def flash_attention2_backward(q, k, v, key_bias, out32, lse, dout,

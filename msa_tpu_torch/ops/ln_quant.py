@@ -15,8 +15,10 @@ writes (h, xi); without one it also computes the per-row scale
 max|h| / 127 + 1e-12 and returns it [..., 1].
 
 :func:`ln_quant` runs :func:`ln_quant_plain` for CPU tensors and launches
-the kernel (``csrc/ln_quant.cu``; H a multiple of 64 up to 512, of 128 up
-to 1024 or of 256 up to 2048: :func:`supported_hidden`) for CUDA ones;
+the kernel (``csrc/ln_quant.cu``) for CUDA ones, at any H: the lane-team
+forms where :func:`supported_hidden` holds (H a multiple of 64 up to 512,
+of 128 up to 1024 or of 256 up to 2048), the generic form (a warp or a
+CTA a row, tail-masked columns) for every other H;
 ``ln_quant_static.launches`` and ``ln_quant_dynamic.launches`` count the
 launches.  Forward only: the serving path is never differentiated.
 """
@@ -43,9 +45,12 @@ _SIGNATURES = {
 
 
 def supported_hidden(h_dim: int) -> bool:
-    """Whether the kernel takes rows of ``h_dim`` columns: a team of 32, 16
-    or 8 lanes (the most that divide the row's 8-column chunks) holds a row,
-    at most 8 chunks a lane (``csrc/ln_quant.cu::team_lanes``)."""
+    """Whether rows of ``h_dim`` columns take the kernel's lane-team form: a
+    team of 32, 16 or 8 lanes (the most that divide the row's 8-column
+    chunks) holds a row, at most 8 chunks a lane
+    (``csrc/ln_quant.cu::team_lanes``).  Every other width takes the
+    generic form: a warp a row below 1024 columns, a CTA a row from
+    there."""
     if h_dim <= 0 or h_dim % 64:
         return False
     chunks = h_dim // 8
@@ -90,9 +95,8 @@ def _prepare(x, res, scale, bias, what):
     if x.dtype not in _DTYPES or res.dtype != x.dtype:
         raise TypeError(f"{what}: x {x.dtype} / res {res.dtype}; both must "
                         "be float32 or both bfloat16")
-    if not supported_hidden(h_dim):
-        raise ValueError(f"{what}: H={h_dim} not supported (a multiple of 64 "
-                         "up to 512, of 128 up to 1024 or of 256 up to 2048)")
+    if h_dim < 1:
+        raise ValueError(f"{what}: H={h_dim}; rows need a column")
     if res.shape != x.shape or scale.shape != (h_dim,) or \
             bias.shape != (h_dim,):
         raise ValueError(f"{what}: shapes x {tuple(x.shape)}, res "

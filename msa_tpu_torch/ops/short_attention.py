@@ -8,9 +8,12 @@ the JAX entry: q, k, v and the returned ctx are [B, S, H] in natural layout
 (heads are sliced inside the kernels), ``key_bias`` is an additive [B, S]
 f32 mask, the softmax runs in f32, no gradient flows to the bias or the
 seed.  The kernels (``csrc/short_attention.cu``) take float32 and bfloat16,
-S < 1024 and head dim 32 or 64 (``HEAD_DIMS``: the ``tiny`` preset,
-bert-base and bert-large); the source's header says what bounds them on
-the H100 and how they are laid out.  JAX hands
+S < 1024 and any integer head dim from 1 to 128: each source is built
+once a head dim of ``HEAD_DIMS`` (16, 32, 64, 128), and a head dim between
+runs on the smallest of them above it, its heads zero-padded to that width
+on the way in and cut back on the way out (:class:`HeadPad`; the scores
+keep the scale of the true head dim); the source's header says what
+bounds them on the H100 and how they are laid out.  JAX hands
 512 < S < 1024 to XLA under ``use_flash="auto"``; here these kernels take
 it (``ops/attention.py`` routes), and S >= 1024 goes to the blockwise
 flash2 kernels (``ops/flash2.py``).
@@ -48,11 +51,12 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
 * :func:`dropout_keep_mask` -- the [B, heads, S, S] keep mask for a seed
   (plain version: ``ops.dropout.keep_mask_plain``);
 * :func:`short_attention_v1` -- JAX's ``short_attention``, the v1 pair
-  (``_fwd_kernel`` / ``_bwd_kernel``, ``csrc/short_attention_v1.cu``, S <=
-  128): the same function as :func:`short_attention`, but the pair keeps
-  only its inputs.  The forward writes ctx alone and the backward
-  (:func:`short_attention_v1_backward`, one launch) recomputes the softmax
-  and takes delta = rowsum(p * dpm).  No model path calls it, as in JAX.
+  (``_fwd_kernel`` / ``_bwd_kernel``, ``csrc/short_attention_v1.cu`` up to
+  128 keys, above them the v2 kernels' forms): the same function as
+  :func:`short_attention`, but the pair keeps only its inputs.  The
+  forward writes ctx alone and the backward
+  (:func:`short_attention_v1_backward`) recomputes the softmax and takes
+  delta = rowsum(p * dpm).  No model path calls it, as in JAX.
 
 Each kernel entry has a plain version beside it (``*_plain``), which CPU
 tensors run; the training forward's outputs (ctx and the row lse) have
@@ -74,12 +78,14 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .dropout import byte_threshold
 
 MAX_SEQ = 1023
-HEAD_DIMS = (32, 64)  # every attention kernel is instantiated for these
+HEAD_DIMS = _build.HEAD_DIMS  # every attention kernel is instantiated for these
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -108,7 +114,9 @@ _V1_SIGNATURES = {
     "msa_short_attention_v1_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _F, _U, _U, _I, _P),
 }
-V1_MAX_SEQ = 128  # the v1 kernels hold a head's K and V in shared memory
+# csrc/short_attention_v1.cu holds a head's K and V in shared memory up to
+# V1_WHOLE_ROW_SEQ keys; above, to MAX_SEQ, v1 runs the v2 kernels' forms
+V1_WHOLE_ROW_SEQ = 128
 # The bf16 v2, v2p, v3 and v2s backwards run on the tensor cores at every S
 # the kernels take: in one launch up to WHOLE_ROW_BWD_MAX_SEQ
 # (csrc/short_bwd_tc.cuh: a warp holds its whole score row in registers),
@@ -211,15 +219,70 @@ def _check(q, k, v, key_bias, num_heads, what, max_seq=MAX_SEQ):
 
 
 def check_head_dim(d, what):
-    """Raise unless ``d`` is a head dim the attention kernels take."""
-    if d not in HEAD_DIMS:
+    """Raise unless ``d`` is a head dim the attention kernels take: an
+    integer from 1 to ``MAX_HEAD_DIM``."""
+    if not (float(d).is_integer() and 1 <= d <= MAX_HEAD_DIM):
         raise ValueError(f"{what}: head dim {d:g} not supported (the kernels "
-                         f"take {' or '.join(map(str, HEAD_DIMS))})")
+                         f"take an integer head dim from 1 to {MAX_HEAD_DIM})")
+
+
+def kernel_head_dim(d: int) -> int:
+    """The instantiated head dim that head dim ``d`` runs on: the smallest
+    of ``HEAD_DIMS`` at or above it."""
+    return next(k for k in HEAD_DIMS if k >= d)
 
 
 def softmax_scale(hidden: int, num_heads: int) -> float:
     """1 / sqrt(d), the scores' scale at head dim d = hidden / num_heads."""
     return 1.0 / math.sqrt(hidden // num_heads)
+
+
+class HeadPad:
+    """A head dim d on the kernels of ``kernel_head_dim(d)`` = kd: each
+    head's d columns of a [B, S, heads * d] tensor widened to kd by zeros
+    (:meth:`pad`), and cut back (:meth:`cut`).  The zero columns add
+    exactly 0 to every score, every dP and delta, and the kernels write
+    zeros there; the row lse, the stashed probs and the dropout mask index
+    rows and keys, never columns, so they are untouched.  ``hidden`` is the
+    width the kernels see, ``scale`` the softmax scale of the true d.  At d
+    = kd both are the identity."""
+
+    def __init__(self, hidden: int, num_heads: int):
+        self.heads = num_heads
+        self.d = hidden // num_heads
+        self.kd = kernel_head_dim(self.d)
+        self.hidden = num_heads * self.kd
+        self.scale = softmax_scale(hidden, num_heads)
+
+    def library(self, source, signatures):
+        """``source``'s library at head dim kd."""
+        return _build.load(_build.head_dim_library(source, self.kd),
+                           signatures)
+
+    def pad(self, x):
+        if x is None or self.d == self.kd:
+            return x
+        b, s, _ = x.shape
+        return F.pad(x.reshape(b, s, self.heads, self.d),
+                     (0, self.kd - self.d)).reshape(b, s, self.hidden)
+
+    def cut(self, x):
+        if x is None or self.d == self.kd:
+            return x
+        b, s, _ = x.shape
+        return x.reshape(b, s, self.heads, self.kd)[..., :self.d].reshape(
+            b, s, self.heads * self.d)
+
+    def pad_packed(self, qkv):
+        """The thirds of a packed [B, S, 3 * heads * d] qkv, each padded."""
+        if self.d == self.kd:
+            return qkv
+        return torch.cat([self.pad(t) for t in _thirds(qkv)], dim=-1)
+
+    def cut_packed(self, dqkv):
+        if self.d == self.kd:
+            return dqkv
+        return torch.cat([self.cut(t) for t in _thirds(dqkv)], dim=-1)
 
 
 def _aligned(*xs, what="short_attention"):
@@ -242,11 +305,12 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def launch_forward(entry, what, q, k, v, key_bias, num_heads, seed,
-                   threshold, train, out32=False):
-    """Launch an attention forward kernel through its C ``entry`` (the
-    short and the flash2 forwards share one signature, flash2's with an
-    f32 output after the lse); returns (ctx, lse, ctx32).  ``train``: also
+def launch_forward(source, signatures, entry, what, q, k, v, key_bias,
+                   num_heads, seed, threshold, train, out32=False):
+    """Launch an attention forward kernel through the C ``entry`` of
+    ``source``'s library at q's head dim (:class:`HeadPad`; the short and
+    the flash2 forwards share one signature, flash2's with an f32 output
+    after the lse); returns (ctx, lse, ctx32).  ``train``: also
     the row lse [B, heads, S] (log2 units), which the backward reads, else
     None.  ``out32`` (flash2): the entry takes an f32 output, which in
     training it also writes (``ctx`` itself for f32 inputs) for its
@@ -255,7 +319,8 @@ def launch_forward(entry, what, q, k, v, key_bias, num_heads, seed,
     and f32 on the CUDA cores; its training form's plain version is
     :func:`short_attention_train_forward_plain`."""
     b, s, h = q.shape
-    q, k, v = _aligned(q, k, v, what=what)
+    pad = HeadPad(h, num_heads)
+    q, k, v = _aligned(*map(pad.pad, (q, k, v)), what=what)
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     lse = ctx32 = None
@@ -266,22 +331,23 @@ def launch_forward(entry, what, q, k, v, key_bias, num_heads, seed,
             ctx32 = out if q.dtype == torch.float32 else torch.empty(
                 q.shape, dtype=torch.float32, device=q.device)
     f32 = (None if ctx32 is out else _ptr(ctx32),) if out32 else ()
-    code = entry(
+    code = getattr(pad.library(source, signatures), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out.data_ptr(), _ptr(lse), *f32, b, s, h,
-        num_heads, _DTYPES[q.dtype], softmax_scale(h, num_heads),
+        out.data_ptr(), _ptr(lse), *f32, b, s, pad.hidden,
+        num_heads, _DTYPES[q.dtype], pad.scale,
         *_seed_words(seed), threshold, _stream(q))
     _build.check(code, what)
-    return out, lse, ctx32
+    ctx = pad.cut(out)
+    return ctx, lse, ctx if ctx32 is out else pad.cut(ctx32)
 
 
 def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
     """The short forward kernel (:func:`launch_forward`): (ctx, lse), the
     lse None unless ``train``."""
-    lib = _build.load("short_attention", _SIGNATURES)
-    out, lse, _ = launch_forward(lib.msa_short_attention_fwd,
-                                 "short_attention", q, k, v, key_bias,
-                                 num_heads, seed, threshold, train)
+    out, lse, _ = launch_forward("short_attention", _SIGNATURES,
+                                 "msa_short_attention_fwd", "short_attention",
+                                 q, k, v, key_bias, num_heads, seed, threshold,
+                                 train)
     short_attention.launches += 1
     return out, lse
 
@@ -349,6 +415,14 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
     cores, f32 on the CUDA cores), which read ``lse``, the training
     forward's row lse for the same inputs (:func:`backward_route`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_backward")
+    grads = _backward_kernel(q, k, v, key_bias, lse, dout, num_heads, seed,
+                             rate)
+    _count_backward(short_attention_backward, q.shape[1], q.dtype)
+    return grads
+
+
+def _backward_kernel(q, k, v, key_bias, lse, dout, num_heads, seed, rate):
+    """The launches of :func:`short_attention_backward`, uncounted."""
     b, s, h = q.shape
     one = backward_route(s, q.dtype) == WHOLE_ROW
     if dout.shape != q.shape or not one and (
@@ -357,21 +431,19 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
                          f"{tuple(dout.shape)}, "
                          f"{None if lse is None else tuple(lse.shape)} do not "
                          f"fit q {tuple(q.shape)} {q.dtype}")
-    q, k, v, dout = _aligned(q, k, v, dout.to(q.dtype))
+    pad = HeadPad(h, num_heads)
+    q, k, v, dout = _aligned(*map(pad.pad, (q, k, v, dout.to(q.dtype))))
     key_bias = key_bias.to(torch.float32).contiguous()
     lse = None if one else lse.contiguous()
     delta = None if one else torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("short_attention", _SIGNATURES)
-    code = lib.msa_short_attention_bwd(
+    code = pad.library("short_attention", _SIGNATURES).msa_short_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         dout.data_ptr(), _ptr(lse), _ptr(delta), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        softmax_scale(h, num_heads), *_seed_words(seed), byte_threshold(rate),
-        _stream(q))
+        dv.data_ptr(), b, s, pad.hidden, num_heads, _DTYPES[q.dtype],
+        pad.scale, *_seed_words(seed), byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_backward")
-    _count_backward(short_attention_backward, s, q.dtype)
-    return dq, dk, dv
+    return tuple(map(pad.cut, (dq, dk, dv)))
 
 
 def short_attention_v3_backward_plain(q, k, v, key_bias, out, dout,
@@ -407,21 +479,23 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
         raise ValueError("short_attention_v3_backward: out/dout "
                          f"{tuple(out.shape)} {out.dtype}, {tuple(dout.shape)} "
                          f"do not fit q {tuple(q.shape)} {q.dtype}")
-    q, k, v, out, dout = _aligned(q, k, v, out, dout.to(q.dtype))
+    pad = HeadPad(h, num_heads)
+    q, k, v, out, dout = _aligned(*map(pad.pad, (q, k, v, out,
+                                                 dout.to(q.dtype))))
     key_bias = key_bias.to(torch.float32).contiguous()
     lse, delta = (torch.empty((b, num_heads, s), dtype=torch.float32,
                               device=q.device) for _ in range(2))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("short_attention", _SIGNATURES)
+    lib = pad.library("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_v3_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, pad.hidden,
+        num_heads, _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_v3_backward")
     _count_backward(short_attention_v3_backward, s, q.dtype)
-    return dq, dk, dv
+    return tuple(map(pad.cut, (dq, dk, dv)))
 
 
 def save_inputs(ctx, recompute, q, k, v, *rest):
@@ -534,7 +608,9 @@ def dropout_keep_mask(seed: int, rate: float, batch: int, num_heads: int,
                          "keep_mask_plain is the plain version")
     out = torch.empty((batch, num_heads, seq, seq), dtype=torch.uint8,
                       device=device)
-    lib = _build.load("short_attention", _SIGNATURES)
+    # every head dim's library holds the export; any one serves
+    lib = _build.load(_build.head_dim_library("short_attention", 64),
+                      _SIGNATURES)
     code = lib.msa_dropout_keep_mask(
         out.data_ptr(), batch, num_heads, seq, *_seed_words(int(seed)),
         threshold, torch.cuda.current_stream(device).cuda_stream)
@@ -632,37 +708,40 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
         raise ValueError("short_attention_probs_backward: probs "
                          f"{tuple(probs.shape)} {probs.dtype} / dout "
                          f"{tuple(dout.shape)} do not fit q {tuple(q.shape)}")
-    q, k, v, probs, dout = _aligned(q, k, v, probs, dout.to(q.dtype))
+    pad = HeadPad(h, num_heads)
+    q, k, v, dout = map(pad.pad, (q, k, v, dout.to(q.dtype)))
+    q, k, v, probs, dout = _aligned(q, k, v, probs, dout)
     delta = None if backward_route(s, q.dtype) == WHOLE_ROW else torch.empty(
         (b, num_heads, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("short_attention", _SIGNATURES)
+    lib = pad.library("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_probs_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(),
         dout.data_ptr(), _ptr(delta), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        softmax_scale(h, num_heads), byte_threshold(rate), _stream(q))
+        dv.data_ptr(), b, s, pad.hidden, num_heads, _DTYPES[q.dtype],
+        pad.scale, byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_probs_backward")
     _count_backward(short_attention_probs_backward, s, q.dtype)
-    return dq, dk, dv
+    return tuple(map(pad.cut, (dq, dk, dv)))
 
 
 def _probs_forward_kernel(q, k, v, key_bias, num_heads, seed, rate):
     b, s, h = q.shape
-    q, k, v = _aligned(q, k, v, what="short_attention_probs")
+    pad = HeadPad(h, num_heads)
+    q, k, v = _aligned(*map(pad.pad, (q, k, v)), what="short_attention_probs")
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     probs = torch.empty((b, num_heads, s, probs_width(s)), dtype=q.dtype,
                         device=q.device)
-    lib = _build.load("short_attention", _SIGNATURES)
+    lib = pad.library("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_probs_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out.data_ptr(), probs.data_ptr(), b, s, h, num_heads,
-        _DTYPES[q.dtype], softmax_scale(h, num_heads), *_seed_words(seed),
+        out.data_ptr(), probs.data_ptr(), b, s, pad.hidden, num_heads,
+        _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
         byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_probs")
     short_attention_probs.launches += 1
-    return out, probs
+    return pad.cut(out), probs
 
 
 class _ShortAttentionProbs(torch.autograd.Function):
@@ -770,20 +849,20 @@ def _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold, train):
     """The packed forward; (ctx, lse) as :func:`_forward_kernel`: the same
     kernels reading the thirds of ``qkv`` at row stride 3H."""
     b, s, h3 = qkv.shape
-    (qkv,) = _aligned(qkv, what="short_attention_packed")
+    pad = HeadPad(h3 // 3, num_heads)
+    (qkv,) = _aligned(pad.pad_packed(qkv), what="short_attention_packed")
     key_bias = key_bias.to(torch.float32).contiguous()
-    out = torch.empty((b, s, h3 // 3), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, s, pad.hidden), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, num_heads, s), dtype=torch.float32,
                       device=qkv.device) if train else None
-    lib = _build.load("short_attention", _SIGNATURES)
+    lib = pad.library("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_packed_fwd(
         qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), _ptr(lse), b, s,
-        h3 // 3, num_heads, _DTYPES[qkv.dtype],
-        softmax_scale(h3 // 3, num_heads), *_seed_words(seed), threshold,
-        _stream(qkv))
+        pad.hidden, num_heads, _DTYPES[qkv.dtype], pad.scale,
+        *_seed_words(seed), threshold, _stream(qkv))
     _build.check(code, "short_attention_packed")
     short_attention_packed.launches += 1
-    return out, lse
+    return pad.cut(out), lse
 
 
 def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
@@ -804,20 +883,22 @@ def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
         raise ValueError("short_attention_packed_backward: out/dout "
                          f"{tuple(out.shape)} {out.dtype}, {tuple(dout.shape)} "
                          f"do not fit qkv {tuple(qkv.shape)} {qkv.dtype}")
-    qkv, out, dout = _aligned(qkv, out, dout.to(qkv.dtype))
+    pad = HeadPad(h3 // 3, num_heads)
+    qkv, out, dout = _aligned(pad.pad_packed(qkv), pad.pad(out),
+                              pad.pad(dout.to(qkv.dtype)))
     key_bias = key_bias.to(torch.float32).contiguous()
     lse, delta = (torch.empty((b, num_heads, s), dtype=torch.float32,
                               device=qkv.device) for _ in range(2))
     dqkv = torch.empty_like(qkv)
-    lib = _build.load("short_attention", _SIGNATURES)
+    lib = pad.library("short_attention", _SIGNATURES)
     code = lib.msa_short_attention_packed_bwd(
         qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, s, h3 // 3,
-        num_heads, _DTYPES[qkv.dtype], softmax_scale(h3 // 3, num_heads),
+        lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, s, pad.hidden,
+        num_heads, _DTYPES[qkv.dtype], pad.scale,
         *_seed_words(seed), byte_threshold(rate), _stream(qkv))
     _build.check(code, "short_attention_packed_backward")
     _count_backward(short_attention_packed_backward, s, qkv.dtype)
-    return dqkv
+    return pad.cut_packed(dqkv)
 
 
 class _ShortAttentionPacked(torch.autograd.Function):
@@ -899,44 +980,73 @@ def short_attention_v1_backward_plain(q, k, v, key_bias, dout, num_heads: int,
 
 def _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, threshold):
     b, s, h = q.shape
-    q, k, v = _aligned(q, k, v, what="short_attention_v1")
+    if s > V1_WHOLE_ROW_SEQ:  # the same function on the v2 forward's forms
+        out = launch_forward("short_attention", _SIGNATURES,
+                             "msa_short_attention_fwd", "short_attention_v1",
+                             q, k, v, key_bias, num_heads, seed, threshold,
+                             train=False)[0]
+        short_attention_v1.launches += 1
+        return out
+    pad = HeadPad(h, num_heads)
+    q, k, v = _aligned(*map(pad.pad, (q, k, v)), what="short_attention_v1")
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
-    lib = _build.load("short_attention_v1", _V1_SIGNATURES)
+    lib = pad.library("short_attention_v1", _V1_SIGNATURES)
     code = lib.msa_short_attention_v1_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        out.data_ptr(), b, s, h, num_heads, _DTYPES[q.dtype],
-        softmax_scale(h, num_heads), *_seed_words(seed), threshold, _stream(q))
+        out.data_ptr(), b, s, pad.hidden, num_heads, _DTYPES[q.dtype],
+        pad.scale, *_seed_words(seed), threshold, _stream(q))
     _build.check(code, "short_attention_v1")
     short_attention_v1.launches += 1
-    return out
+    return pad.cut(out)
+
+
+def v1_backward_launches(seq: int, dtype: torch.dtype) -> int:
+    """Kernel launches of one :func:`short_attention_v1_backward` call: 1 up
+    to ``V1_WHOLE_ROW_SEQ`` keys; above, the v2 training forward for the
+    row lse, then the v2 backward (:func:`backward_launches`)."""
+    return 1 if seq <= V1_WHOLE_ROW_SEQ else 1 + backward_launches(seq, dtype)
 
 
 def short_attention_v1_backward(q, k, v, key_bias, dout, num_heads: int,
                                 seed: int = 0,
                                 rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """dq, dk, dv of :func:`short_attention_v1` (CUDA only) from q, k, v,
-    the bias and dout alone, for the forward's seed and rate: one launch
-    that recomputes each row's max, sum and probabilities."""
-    _check(q, k, v, key_bias, num_heads, "short_attention_v1_backward",
-           max_seq=V1_MAX_SEQ)
+    the bias and dout alone, for the forward's seed and rate.  Up to 128
+    keys one launch that recomputes each row's max, sum and probabilities;
+    above, v1 keeps no lse, so the v2 training forward recomputes it (its
+    ctx dropped) and the v2 backward, whose rule (delta = rowsum(p * dpm))
+    is v1's, reads it (:func:`v1_backward_launches`)."""
+    _check(q, k, v, key_bias, num_heads, "short_attention_v1_backward")
     b, s, h = q.shape
     if dout.shape != q.shape:
         raise ValueError(f"short_attention_v1_backward: dout "
                          f"{tuple(dout.shape)} does not fit q {tuple(q.shape)}")
-    q, k, v, dout = _aligned(q, k, v, dout.to(q.dtype),
+    if s > V1_WHOLE_ROW_SEQ:
+        threshold = byte_threshold(rate)
+        lse = launch_forward("short_attention", _SIGNATURES,
+                             "msa_short_attention_fwd",
+                             "short_attention_v1_backward", q, k, v, key_bias,
+                             num_heads, seed, threshold, train=True)[1]
+        grads = _backward_kernel(q, k, v, key_bias, lse, dout, num_heads,
+                                 seed, rate)
+        short_attention_v1_backward.launches += v1_backward_launches(
+            s, q.dtype)
+        return grads
+    pad = HeadPad(h, num_heads)
+    q, k, v, dout = _aligned(*map(pad.pad, (q, k, v, dout.to(q.dtype))),
                              what="short_attention_v1_backward")
     key_bias = key_bias.to(torch.float32).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("short_attention_v1", _V1_SIGNATURES)
+    lib = pad.library("short_attention_v1", _V1_SIGNATURES)
     code = lib.msa_short_attention_v1_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h,
-        num_heads, _DTYPES[q.dtype], softmax_scale(h, num_heads),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s,
+        pad.hidden, num_heads, _DTYPES[q.dtype], pad.scale,
         *_seed_words(seed), byte_threshold(rate), _stream(q))
     _build.check(code, "short_attention_v1_backward")
     short_attention_v1_backward.launches += 1
-    return dq, dk, dv
+    return tuple(map(pad.cut, (dq, dk, dv)))
 
 
 class _ShortAttentionV1(torch.autograd.Function):
@@ -976,7 +1086,8 @@ def short_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The counterpart of JAX's ``short_attention``
     (``msa_tpu/ops/short_attention.py:667``, the v1 pair; this module's
     :func:`short_attention` is JAX's ``short_attention_v2``).  q/k/v: [B, S,
-    H] with S <= 128 on CUDA; key_bias: [B, S] additive mask.  Returns ctx
+    H] with S <= 1023 on CUDA (above 128 keys on the v2 kernels' forms);
+    key_bias: [B, S] additive mask.  Returns ctx
     [B, S, H], the same function as :func:`short_attention` with the same
     dropout mask at a seed.  Under autograd it keeps only its inputs, and
     its backward recomputes everything from them.  CUDA tensors launch the
@@ -992,8 +1103,7 @@ def short_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "tensors; on the CPU give short_attention_plain a "
                              "keep mask")
     else:
-        _check(q, k, v, key_bias, num_heads, "short_attention_v1",
-               max_seq=V1_MAX_SEQ)
+        _check(q, k, v, key_bias, num_heads, "short_attention_v1")
     seed = 0 if seed is None else int(seed)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _ShortAttentionV1.apply(q, k, v, key_bias, num_heads, seed, rate)

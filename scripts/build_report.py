@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""nvcc's wall time for each CUDA source of msa_tpu_torch, and what ptxas
-reports (registers, stack frame, spills, and any notice that it serialised
-a kernel's wgmma products) for each kernel of the sources named, for the
-checkout at ROOT (default: this one).  ``flash2 flash_attention`` lists
+"""nvcc's wall time for each CUDA library of msa_tpu_torch (an attention
+source once a head dim), and what ptxas reports (registers, stack frame,
+spills, and any notice that it serialised a kernel's wgmma products) for
+each kernel of the sources named, for the checkout at ROOT (default: this
+one).  ``flash2 flash_attention`` lists
 the warpgroup kernels of rows 10, 12 and 13 (flash_fwd_wg_kernel,
 flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel) beside the f32 kernels
 and row 11's fused sweep.
@@ -10,10 +11,10 @@ and row 11's fused sweep.
     python3 scripts/build_report.py [ROOT] [SOURCE ...]
 
 The sources are compiled by this checkout's ``msa_tpu_torch._build`` (its
-flags; one nvcc a source, all started together, as ``chip_smoke.py``'s
+flags; one nvcc a library, all started together, as ``chip_smoke.py``'s
 build) into a temporary directory that is thrown away, so two trees are
 compared by the same build when it is run once for each.  Prints one JSON
-object {source: seconds}, then one line a kernel.  Needs nvcc (the CUDA
+object {library: seconds}, then one line a kernel.  Needs nvcc (the CUDA
 toolkit), not a card.
 """
 
@@ -38,9 +39,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         _build.BUILD_DIR = Path(tmp)
         _build.build_all(seconds=seconds)
-    print(json.dumps({name: round(s, 1) for name, s in seconds.items()}),
-          flush=True)
-    usage = _build.resource_usage(sys.argv[2:])
+        print(json.dumps({name: round(s, 1) for name, s in seconds.items()}),
+              flush=True)
+        usage = _build.resource_usage(sys.argv[2:])  # the build's reports
     names = subprocess.run(["c++filt"], input="\n".join(
         u["kernel"] for u in usage), capture_output=True, text=True,
         check=True).stdout.splitlines()
