@@ -279,6 +279,17 @@ GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-2)}
 MASKED_ROW_ATOL = 1e-2
 MASKED_ROW_GRAD_ATOL = 5e-2
 EMBED_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# A bf16 backward rule rounds each dropped p to bf16 before dV = pd^T dO, as
+# the kernels do, but the two form p in f32 by formulas that agree only to
+# their last bits (a softmax against exp2(s - lse) on the forward's lse,
+# the scores summed in another order).  A p within that gap of a midpoint
+# between two bf16 values may round up in one and down in the other, and
+# dv then moves by one bf16 step of pd times |dO|: 2^-7 * 2 = 1.6e-2 for a
+# dropped pd just above 1 and |dO| = 2, past GRAD_TOL.  :func:`tie_slack`
+# allows that step at every p within TIE_RTOL of a midpoint, and no more;
+# :func:`check_v2_backward` measures the gap between the rule's p and
+# exp2(s - lse) on the kernel's lse and fails if it passes TIE_RTOL.
+TIE_RTOL = 2.0 ** -18
 # f32 Predictor on the card (TF32 off) against the CPU plain run: 24 layers
 # of f32 in another summation order.
 F32_PRED_ATOL = 1e-4
@@ -488,21 +499,55 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_close(name, got, ref, atol, rtol, mask=None) -> float:
+def check_close(name, got, ref, atol, rtol, mask=None, slack=None) -> float:
+    """|got - ref| within atol + rtol |ref| on ``mask``, plus ``slack``
+    (:func:`tie_slack`) where given; the elements that needed the slack
+    are printed.  Returns the largest difference."""
     import torch
 
     got, ref = got.float(), ref.float()
     if mask is not None:
         got, ref = got[mask], ref[mask]
+        slack = None if slack is None else slack[mask]
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - ref).abs()
-    bad = err > atol + rtol * ref.abs()
+    allowed = atol + rtol * ref.abs()
+    bad = err > allowed + (0.0 if slack is None else slack)
     if bad.any():
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements outside atol={atol} "
-            f"rtol={rtol}; max abs err {float(err.max()):.3e}")
+            f"rtol={rtol}{'' if slack is None else ' plus the tie slack'}; "
+            f"max abs err {float(err.max()):.3e}")
+    tied = err > allowed
+    if tied.any():
+        err, allowed, ref, slack = (x.flatten() for x in (err, allowed, ref,
+                                                          slack))
+        i = int(torch.argmax(torch.where(tied.flatten(), err - allowed,
+                                         -1.0)))
+        print(f"{name}: {int(tied.sum())} of {err.numel()} elements past "
+              f"atol={atol} rtol={rtol}, each within its bf16 tie slack "
+              f"(the largest excess {float(err[i] - allowed[i]):.3e}, its "
+              f"slack {float(slack[i]):.3e}: |diff| {float(err[i]):.3e}, "
+              f"ref {float(ref[i]):.3e})", flush=True)
     return float(err.max())
+
+
+def tie_slack(pd, do):
+    """dv's slack for a bf16 rule that rounds ``pd`` ([B, heads, S, S] f32,
+    the dropped p as the rule forms it) before pd^T ``do`` ([B, S, H], the
+    rule's other operand): the bf16 step between the roundings of
+    pd (1 - TIE_RTOL) and pd (1 + TIE_RTOL), zero but where pd lies that
+    near a bf16 midpoint, times |do|, summed over the query rows as dv
+    sums.  Returns (slack [B, S, H] f32, the number of such pd)."""
+    import torch
+
+    step = ((pd * (1.0 + TIE_RTOL)).to(torch.bfloat16).float()
+            - (pd * (1.0 - TIE_RTOL)).to(torch.bfloat16).float())
+    b, n, s, _ = pd.shape
+    slack = torch.einsum("bnqk,bqnd->bknd", step,
+                         do.float().abs().reshape(b, s, n, -1))
+    return slack.reshape(b, s, -1), int((step != 0).sum())
 
 
 def check_update(name, got, ref, start, rtol=None):
@@ -528,8 +573,8 @@ def check_update(name, got, ref, start, rtol=None):
 
 def check_within(name, got, want, atol, rtol, gap, mask) -> float:
     """|got - want| within twice (atol + rtol |want|) plus ``gap`` (what a
-    rounding the kernel shares with its plain rule moves in that rule) on
-    ``mask``; returns the largest difference."""
+    rounding the kernel shares with its plain rule moves in that rule, and
+    any tie slack) on ``mask``; returns the largest difference."""
     diff = (got.float() - want.float()).abs()[mask]
     allowed = (2 * (atol + rtol * want.float().abs()) + gap)[mask]
     if (diff > allowed).any():
@@ -565,6 +610,32 @@ def head_widths(hidden, heads):
         HIDDEN, HEADS = saved
 
 
+# The attention-dropout rate the kernel phases draw at beside 0: None for
+# ATTN_DROPOUT snapped to t/256 (the model paths' rate); phase_dropout_rates
+# sets rates off the grid (the word rule) through dropout_rate.
+PHASE_RATE = None
+
+
+def phase_rate():
+    """The kernel phases' dropout rate (see PHASE_RATE)."""
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
+
+    return (quantize_dropout_rate(ATTN_DROPOUT) if PHASE_RATE is None
+            else PHASE_RATE)
+
+
+@contextlib.contextmanager
+def dropout_rate(rate):
+    """The kernel phases' dropout rate set to ``rate`` for the block."""
+    global PHASE_RATE
+    saved = PHASE_RATE
+    PHASE_RATE = rate
+    try:
+        yield
+    finally:
+        PHASE_RATE = saved
+
+
 def sdpa_args(q, k, v, bias):
     """[B, S, H] -> SDPA's [B, heads, S, d] views and an additive mask."""
     b, s, _ = q.shape
@@ -572,13 +643,24 @@ def sdpa_args(q, k, v, bias):
     return split(q), split(k), split(v), bias[:, None, None, :].to(q.dtype)
 
 
+def tensor_core_head_dim():
+    """Whether the phases' head dim (HIDDEN / HEADS) runs the bf16 kernels
+    on the tensor-core templates (a library up to 128), else on the CUDA
+    cores (short attention) and mma.sync (flash) at 256."""
+    from msa_tpu_torch.ops import short_attention as sa
+
+    return sa.kernel_head_dim(HIDDEN // HEADS) <= sa.MAX_TC_HEAD_DIM
+
+
 def fwd_form(s, dtype):
-    """The form the short forward takes for (S, dtype): csrc/short_attention.cu
-    ::fwd_dispatch."""
+    """The form the short forward takes for (S, dtype) at the phases' head
+    dim: csrc/short_attention.cu::fwd_dispatch."""
     import torch
 
     if dtype != torch.bfloat16:
         return "CUDA cores"
+    if not tensor_core_head_dim():
+        return "CUDA cores, two sweeps rounded as bf16"
     return "tensor cores, whole row" if s <= 128 else "tensor cores, two-sweep"
 
 
@@ -596,11 +678,10 @@ def check_train_forward(tag, q, k, v, bias, live, seed, rate, keep,
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import byte_threshold
 
     dname = str(q.dtype).split(".")[1]
     atol, rtol = ATTN_TOL[dname]
-    t = byte_threshold(rate)
+    t = rate
     serve = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, False)[0]
     ctx, lse = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
     qkv = torch.cat([q, k, v], dim=-1)
@@ -638,12 +719,11 @@ def phase_attention(gen):
     import torch
     import torch.nn.functional as F
 
-    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
     from msa_tpu_torch.ops.short_attention import (
         _forward_kernel, _packed_forward_kernel, dropout_keep_mask,
         short_attention, short_attention_plain)
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     cases = [("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN),
              ("s77", 16, 77), ("s130", 8, 130), ("s512", 4, 512),
              ("s768", 4, 768)]  # 512 < S < 1024: XLA's range in JAX
@@ -724,23 +804,28 @@ def phase_attention(gen):
     return worst, times
 
 
-def check_rounded_backward(tag, grads, rule, rule32, auto, live, atol, rtol):
+def check_rounded_backward(tag, grads, rule, rule32, auto, live, atol, rtol,
+                           dv_slack=None):
     """A backward kernel's dq, dk, dv against its plain rule with the
     kernel's roundings (``rule``: dS and the dropped p rounded to the
     dtype) at (atol, rtol) on live rows and MASKED_ROW_GRAD_ATOL on fully
     masked rows, and against autograd through the plain forward in f32
     (``auto``) on live rows within twice the tolerance plus the gap those
     roundings make in the rule (|rule - rule32|, ``rule32`` the rule in f32
-    throughout; :func:`check_within`).  Returns (max abs err against the
+    throughout; :func:`check_within`).  ``dv_slack`` (:func:`tie_slack`)
+    is added to dv's bounds on live rows.  Returns (max abs err against the
     rule, largest difference to autograd)."""
     err = auto_err = 0.0
     for name, g, r, r32, a in zip(("dq", "dk", "dv"), grads, rule, rule32,
                                   auto):
+        slack = dv_slack if name == "dv" else None
         err = max(err, check_close(f"{tag} {name}", g, r, atol, rtol,
-                                   mask=live))
+                                   mask=live, slack=slack))
         check_close(f"{tag} {name} masked row", g, r, MASKED_ROW_GRAD_ATOL,
                     0.0, mask=~live)
         gap = (r.float() - r32.float()).abs()
+        if slack is not None:
+            gap = gap + slack
         auto_err = max(auto_err, check_within(
             f"{tag} {name} against autograd", g, a, atol, rtol, gap, live))
     return err, auto_err
@@ -761,16 +846,15 @@ def phase_attention_backward(gen):
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     cases = [("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN),
              ("s130", 8, 130), ("s512", 4, 512), ("s768", 4, 768)]
     worst, times = 0.0, {}
     for label, b, s in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
-            route = sa.backward_route(s, dtype)
+            route = sa.backward_route(s, dtype, HIDDEN // HEADS)
             one = route == sa.WHOLE_ROW  # else a pair that reads the lse
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
@@ -800,7 +884,7 @@ def phase_attention_backward(gen):
                 # times: the backward alone against the plain backward alone
                 # (autograd through the plain version, graph kept)
                 lse = sa._forward_kernel(q, k, v, bias, HEADS, seed,
-                                         byte_threshold(rate), not one)[1]
+                                         rate, not one)[1]
                 ms = cuda_ms(lambda: sa.short_attention_backward(
                     q, k, v, bias, lse, dout, HEADS, seed, rate))
                 qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
@@ -856,13 +940,12 @@ def phase_dropout(gen):
 
     import torch
 
-    from msa_tpu_torch.ops.dropout import (
-        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
     from msa_tpu_torch.ops.short_attention import (
         dropout_keep_mask, short_attention, short_attention_plain)
 
     b, s = 2 * BATCH, 2 * TEXT_LEN  # the joint shape
-    rate = quantize_dropout_rate(ATTN_DROPOUT)
+    rate = phase_rate()
     seed = 987654321987
     keep = dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
     plain = keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
@@ -871,7 +954,7 @@ def phase_dropout(gen):
     if mismatches:
         raise AssertionError(f"dropout mask: {mismatches} decisions differ "
                              "from the plain Philox")
-    want = 1.0 - byte_threshold(rate) / 256
+    want = 1.0 - rate  # exactly, on either rule: t / 256 on the grid
     share = float(keep.float().mean())
     sigma = math.sqrt(want * (1 - want) / keep.numel())
     if abs(share - want) > KEEP_SHARE_SIGMAS * sigma:
@@ -1123,48 +1206,72 @@ def check_flash2_backward(tag, q, k, v, bias, live, dout, seed, rate, keep):
     forward's f32 output and lse: each held by :func:`check_rounded_backward`
     against JAX's rule with its roundings (``flash_attention2_backward_plain``
     given out32, the lse and the keep mask: dS and pd rounded, under dropout
-    dO * (1 / (1 - rate)) rounded before dP and dV) at GRAD_TOL, and
-    against autograd through the plain version in f32 within twice it plus
-    the gap those roundings make in the rule; fused and split against each
-    other at GRAD_TOL; the forward against the plain version at ATTN_TOL.
-    Returns (errors against the rule by route, against autograd by route,
-    fused vs split, out32, lse)."""
+    dO * (1 / (1 - rate)) rounded before dP and dV; in bf16 dv within
+    :func:`tie_slack` of it) at GRAD_TOL, and against autograd through the
+    plain version in f32 within twice it plus the gap those roundings make
+    in the rule (the rule in f32 on the plain forward's output and lse, so
+    the forward's rounding of p that out32 carries counts too); fused and split against each other at GRAD_TOL; the
+    forward against the plain version at ATTN_TOL.  f32 above head dim 128
+    (``wide_f32``) runs one code, the short-attention v3 pair, for both
+    routes: that is checked once, and not against itself.  Returns (errors
+    against the rule by route, against autograd by route, fused vs split or
+    None, out32, lse)."""
     import torch
 
-    from msa_tpu_torch.ops.dropout import byte_threshold
     from msa_tpu_torch.ops.flash2 import (
         _forward_kernel, flash_attention2_backward,
         flash_attention2_backward_plain, flash_attention2_plain)
+    from msa_tpu_torch.ops.short_attention import _logits_plain, wide_f32
 
     dname = str(q.dtype).split(".")[1]
-    out, lse, ctx32 = _forward_kernel(q, k, v, bias, HEADS, seed,
-                                      byte_threshold(rate), train=True)
+    out, lse, ctx32 = _forward_kernel(q, k, v, bias, HEADS, seed, rate,
+                                      train=True)
     o32 = out if ctx32 is None else ctx32
+    routes = (True,) if wide_f32(q.dtype, HIDDEN // HEADS) else (True, False)
     got = {fused: flash_attention2_backward(
         q, k, v, bias, o32, lse, dout, HEADS, seed, rate, fused=fused)
-        for fused in (True, False)}
+        for fused in routes}
     wide = [x.detach().float().requires_grad_() for x in (q, k, v)]
     ref_out = flash_attention2_plain(*wide, bias, HEADS, rate, keep)
     auto = torch.autograd.grad(ref_out, wide, dout.float())
     rule = flash_attention2_backward_plain(q, k, v, bias, o32, lse, dout,
                                            HEADS, rate, keep)
+    # the rule in f32 throughout on the plain forward's output and lse: the
+    # gap to it holds the kernel forward's bf16 rounding of p before P V
+    # too, which o32 carries into delta
+    plain_lse = torch.logsumexp(_logits_plain(q, k, bias, HEADS),
+                                dim=-1) / math.log(2.0)
     rule32 = flash_attention2_backward_plain(
-        *(x.detach() for x in wide), bias, o32, lse, dout.float(), HEADS, rate,
-        keep)
+        *(x.detach() for x in wide), bias, ref_out.detach(), plain_lse,
+        dout.float(), HEADS, rate, keep)
+    del plain_lse
+    slack = None
+    if q.dtype == torch.bfloat16:  # the rule's pd: the kept p, unscaled
+        pd = torch.exp2(_logits_plain(q, k, bias, HEADS) / math.log(2.0)
+                        - lse[..., None])
+        do = dout
+        if keep is not None:
+            pd = torch.where(keep, pd, 0.0)
+            fold = torch.tensor(1.0 / (1.0 - rate), dtype=q.dtype).item()
+            do = (dout.float() * fold).to(q.dtype)
+        slack, _ = tie_slack(pd, do)
+        del pd
     torch.cuda.synchronize()
     atol, rtol = ATTN_TOL[dname]
     check_close(f"{tag} forward", out, ref_out.detach(), atol, rtol, mask=live)
     gatol, grtol = GRAD_TOL[dname]
     errs, autos = {}, {}
-    for fused in (True, False):
+    for fused in routes:
         route = "fused" if fused else "split"
         errs[fused], autos[fused] = check_rounded_backward(
             f"flash2_bwd_{route} {tag}", got[fused], rule, rule32, auto, live,
-            gatol, grtol)
-    between = max(check_close(f"flash2 fused vs split {tag} {name}", gf, gs,
-                              gatol, grtol, mask=live)
-                  for name, gf, gs in zip(("dq", "dk", "dv"), got[True],
-                                          got[False]))
+            gatol, grtol, dv_slack=slack)
+    between = None
+    if len(routes) == 2:
+        between = max(check_close(f"flash2 fused vs split {tag} {name}", gf,
+                                  gs, gatol, grtol, mask=live)
+                      for name, gf, gs in zip(("dq", "dk", "dv"), got[True],
+                                              got[False]))
     return errs, autos, between, o32, lse
 
 
@@ -1177,12 +1284,12 @@ def phase_flash2_backward(gen):
     import torch
     import torch.nn.functional as F
 
-    from msa_tpu_torch.ops.dropout import keep_mask_plain, quantize_dropout_rate
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
     from msa_tpu_torch.ops.flash2 import (
         flash_attention2, flash_attention2_backward, flash_attention2_plain)
     from msa_tpu_torch.ops.short_attention import short_attention
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     s_frame = TEXT_LEN + FRAME_PAIR_LEN
     # (label, B, S, dtype, rate, the route timed at rate 0 (None: neither),
     # generator); the fused kernel's edges (S = 1000: a ragged last key
@@ -1336,13 +1443,12 @@ def phase_wgmma_flash():
 
     from msa_tpu_torch.ops import attention as A
     from msa_tpu_torch.ops import flash2 as F2
-    from msa_tpu_torch.ops.dropout import (
-        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
     from msa_tpu_torch.ops.short_attention import (
         short_attention_train_forward_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(15)
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     atol, rtol = ATTN_TOL["bfloat16"]
     gatol, grtol = GRAD_TOL["bfloat16"]
     worst = {"fwd": 0.0, "lse": 0.0, "flash2_bwd": 0.0, "row13_bwd": 0.0}
@@ -1357,7 +1463,7 @@ def phase_wgmma_flash():
                                                            torch.bfloat16)
                     dout = torch.randn(q.shape, device="cuda",
                                        generator=gen).to(torch.bfloat16)
-                    seed, t = 1400 + s, byte_threshold(rate)
+                    seed, t = 1400 + s, rate
                     keep = (keep_mask_plain(seed, rate, b, HEADS, s,
                                             device="cuda") if rate else None)
                     tag = f"wgmma d={d} [{b},{s},{HIDDEN}] rate {rate:g}"
@@ -1474,7 +1580,7 @@ def time_flash_backwards():
 
     from msa_tpu_torch.ops import attention as A
     from msa_tpu_torch.ops import flash2 as F2
-    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
     from msa_tpu_torch.ops.fused_joint_embed import fused_joint_embed
 
     b, s, h, heads = 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN, 1024, 16
@@ -1486,7 +1592,7 @@ def time_flash_backwards():
                        for x in (q, k, v, dout))
     times = {}
     for rate in (0.0, quantize_dropout_rate(ATTN_DROPOUT)):
-        t = byte_threshold(rate)
+        t = rate
         _, lse, out32 = F2._forward_kernel(q, k, v, bias, heads, 7, t, True)
         times[f"flash2 fwd rate {rate:g}"] = cuda_ms(
             lambda: F2._forward_kernel(q, k, v, bias, heads, 7, t, True),
@@ -1683,19 +1789,19 @@ def time_head_pad(gen, b, s):
     return pad_ms, cut_ms
 
 
-def check_wide_joint_embed(gen):
-    """The joint embed at H, D = ``WIDE_EMBED`` (rows held in three sweeps,
-    features in 18 staged rounds, tiles of 4 rows over 3 column rounds) at
-    B = 3, Lp = 37 and B = 16, L = Lp = 40, bf16 and f32, against the plain
-    version; the bf16 B = 16 call timed.  Returns (worst error, (ms, plain
-    ms, library ms, bound))."""
+def check_wide_joint_embed(gen, h=WIDE_EMBED[0], d=WIDE_EMBED[1]):
+    """The joint embed at H, D (``WIDE_EMBED``: rows held in three sweeps,
+    features in 18 staged rounds, tiles of 4 rows over 3 column rounds;
+    ``HUGE_EMBED``: frame tiles that hold no row, the projection recomputed
+    in three sweeps) at B = 3, Lp = 37 and B = 16, L = Lp = 40, bf16 and
+    f32, against the plain version; the bf16 B = 16 call timed.  Returns
+    (worst error, (ms, plain ms, library ms, bound))."""
     import torch
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops.fused_joint_embed import (
         fused_joint_embed, fused_joint_embed_plain)
 
-    h, d = WIDE_EMBED
     worst, timing = 0.0, None
     for batch, lp in ((3, 37), (16, TEXT_LEN)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1725,6 +1831,507 @@ def check_wide_joint_embed(gen):
                          f"{bound[0]:.4f} ms ({bound[1]})")
             print(line, flush=True)
     return worst, timing
+
+
+# The widest head dim and the pad onto it (PR 20): (d, H, heads).  d = 256
+# runs bf16 on the CUDA cores (short attention) and mma.sync (flash), f32 on
+# the CUDA cores; d = 192 pads each head to 256.
+WIDE_HEAD_DIM_CASES = ((256, 1024, 4), (192, 1152, 6))
+HUGE_EMBED = (16384, 47)  # (H, D) of the joint embed's form that holds no row
+
+
+# The short kernels' checks at the wide head dims: a length the whole-row
+# templates take below 128 and one above (every bf16 short kernel runs on
+# the CUDA cores there); the flash entries at a ragged S past 1024.  Then,
+# at the head dim phase_wide_heads runs (256), the shapes that path gives
+# the kernels it launches, in bf16: v2 at the joint pass [2B, 2L], flash2
+# at the frame-level joint pass [2B, L + Lp].
+WIDE_SHORT_SHAPES = ((8, 80), (4, 200))
+WIDE_FLASH_SHAPE = (2, 1030)
+WIDE_PATH_HEAD_DIM = 256
+
+
+def phase_head_dim_256():
+    """Every attention kernel at head dims 256 and 192
+    (``WIDE_HEAD_DIM_CASES``, under :func:`head_widths`, from a generator of
+    their own each): :func:`check_wide_kernels` (every entry, forward and
+    backward, bf16 and f32, rate 0 and 26/256, by the kernel phases'
+    checks and tolerances) and :func:`time_wide_kernels` (the serving and
+    frame shapes' times beside the bound, the plain version and SDPA);
+    then the joint embed at ``HUGE_EMBED``.  Returns {d: {kernel: (ms,
+    plain ms, library ms, bound)}} and the joint embed's (worst error,
+    timing)."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    out = {}
+    t0 = time.perf_counter()
+    for d, hidden, heads in WIDE_HEAD_DIM_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(200 + d)
+        with head_widths(hidden, heads):
+            print(f"head dim {d}: H={HIDDEN}, {HEADS} heads (the library of "
+                  f"{sa.kernel_head_dim(d)})", flush=True)
+            check_wide_kernels(gen)
+            out[d] = time_wide_kernels(gen)
+            if d not in sa.HEAD_DIMS:
+                time_head_pad(gen, 2 * BATCH, 2 * TEXT_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    huge = check_wide_joint_embed(gen, *HUGE_EMBED)
+    print(f"head dims {[c[0] for c in WIDE_HEAD_DIM_CASES]} and the joint "
+          f"embed at H, D = {HUGE_EMBED}: every check passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out, huge
+
+
+def check_wide_kernels(gen):
+    """Every attention entry at the phases' widths, bf16 and f32, rate 0 and
+    26/256 (the plain versions given the exported mask), by the checks the
+    kernel phases use: at ``WIDE_SHORT_SHAPES`` the v2 forward's serving
+    and training forms and v2p's (:func:`check_train_forward`), the v2
+    backward through autograd (:func:`check_v2_backward`), v3
+    (:func:`check_v3_backward`), v2s's pair (:func:`check_probs_forward`,
+    :func:`check_probs_backward`), v2p's backward (:func:`check_packed`),
+    v1 (bf16: :func:`check_v1_backward`, its forward against the plain
+    version and v2's bit for bit); at ``WIDE_FLASH_SHAPE`` flash2's forward
+    and both backwards (:func:`check_flash2_backward`) and the head-split
+    pair (:func:`check_head_split`); at ``WIDE_PATH_HEAD_DIM`` the path's
+    own shapes (:func:`check_wide_path_shapes`)."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    rate_on = phase_rate()
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for rate in (0.0, rate_on):
+            for b, s in WIDE_SHORT_SHAPES:
+                q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+                dout = torch.randn(b, s, HIDDEN, device="cuda",
+                                   generator=gen).to(dtype)
+                seed = 4200 + s
+                keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                        if rate else None)
+                tag = f"[{b},{s},{HIDDEN}] {dname} rate {rate:g}"
+                errs = [check_train_forward(f"short_attention {tag}", q, k, v,
+                                            bias, live, seed, rate, keep)[0]]
+                errs += check_v2_backward(f"short_attention_backward {tag}",
+                                          q, k, v, bias, live, dout, seed,
+                                          rate, keep)
+                errs += check_v3_backward(
+                    f"short_attention_v3_backward {tag}", q, k, v, bias, live,
+                    dout, seed, rate)[:2]
+                _, probs, _, perr, _ = check_probs_forward(
+                    tag, q, k, v, bias, live, seed, rate, keep)
+                errs += [perr, *check_probs_backward(tag, q, k, v, bias, live,
+                                                     probs, dout, rate, keep)]
+                errs += check_packed(tag, q, k, v, bias, live, dout, seed,
+                                     rate, keep)[2:]
+                if dtype == torch.bfloat16:
+                    out = sa.short_attention_v1(q, k, v, bias, HEADS, rate,
+                                                seed if rate else None)
+                    v2_out = sa.short_attention(q, k, v, bias, HEADS, rate,
+                                                seed if rate else None)
+                    ref = sa.short_attention_plain(q.float(), k.float(),
+                                                   v.float(), bias, HEADS,
+                                                   rate, keep)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, v2_out):
+                        raise AssertionError(f"short_attention_v1 {tag}: not "
+                                             "v2's forward bit for bit")
+                    errs += [check_close(f"short_attention_v1 {tag}", out, ref,
+                                         *ATTN_TOL[dname], mask=live),
+                             check_v1_backward(q, k, v, bias, live, dout, seed,
+                                               rate)]
+                print(f"head dim {HIDDEN // HEADS} short kernels {tag} "
+                      f"({fwd_form(s, dtype)}; backward "
+                      f"{sa.backward_route(s, dtype, HIDDEN // HEADS)}): "
+                      f"worst error {max(errs):.3e} (v2, v2p, v3, v2s, v1 "
+                      f"forward and backward against their plain versions)",
+                      flush=True)
+            b, s = WIDE_FLASH_SHAPE
+            q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+            dout = torch.randn(b, s, HIDDEN, device="cuda",
+                               generator=gen).to(dtype)
+            seed = 4300 + s
+            keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                    if rate else None)
+            tag = f"[{b},{s},{HIDDEN}] {dname} rate {rate:g}"
+            errs, autos, between, _, _ = check_flash2_backward(
+                tag, q, k, v, bias, live, dout, seed, rate, keep)
+            herr = check_head_split(f"flash_attention {tag}", q, k, v, bias,
+                                    live, dout, seed, rate, keep)
+            if between is None:  # wide_f32: the short kernels, one code
+                line = (f"flash2 forward and backward (both routes the "
+                        f"short-attention CUDA-core forward and v3 pair) "
+                        f"{errs[True]:.3e} against the rounded rule, "
+                        f"{autos[True]:.3e} against f32 autograd; head-split "
+                        f"(the same kernels, one head a row)")
+            else:
+                line = (f"flash2 fused / split {errs[True]:.3e} / "
+                        f"{errs[False]:.3e} against the rounded rule, "
+                        f"{autos[True]:.3e} / {autos[False]:.3e} against f32 "
+                        f"autograd, fused vs split {between:.3e}; head-split")
+            print(f"head dim {HIDDEN // HEADS} flash {tag}: {line} forward "
+                  f"and backward {herr:.3e}", flush=True)
+    if HIDDEN // HEADS == WIDE_PATH_HEAD_DIM:
+        check_wide_path_shapes(gen)
+
+
+def check_wide_path_shapes(gen):
+    """The kernels phase_wide_heads launches, at the shapes it gives them,
+    bf16, rate 0 and the training dropout: the v2 forward (both forms, v2p)
+    and backward at [2B, 2L] by :func:`check_train_forward` and
+    :func:`check_v2_backward`; flash2's forward and both backwards at [2B,
+    L + Lp] by :func:`check_flash2_backward`.  The tolerances are the kernel
+    phases'; dv's bf16 rounding ties get :func:`tie_slack`, printed where
+    used."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    bf = torch.bfloat16
+    for rate in (0.0, phase_rate()):
+        for b, s in ((2 * BATCH, 2 * TEXT_LEN),
+                     (2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN)):
+            q, k, v, bias, live = attention_inputs(gen, b, s, bf)
+            dout = torch.randn(b, s, HIDDEN, device="cuda",
+                               generator=gen).to(bf)
+            seed = 4400 + s
+            keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+                    if rate else None)
+            tag = f"[{b},{s},{HIDDEN}] bfloat16 rate {rate:g}"
+            if s <= sa.MAX_SEQ:
+                ferr = check_train_forward(f"short_attention {tag}", q, k, v,
+                                           bias, live, seed, rate, keep)[0]
+                berr, aerr = check_v2_backward(
+                    f"short_attention_backward {tag}", q, k, v, bias, live,
+                    dout, seed, rate, keep)
+                print(f"head dim {HIDDEN // HEADS} path shape {tag}: v2 "
+                      f"forward {ferr:.3e}, backward {berr:.3e} against the "
+                      f"rounded rule, {aerr:.3e} against f32 autograd",
+                      flush=True)
+            else:
+                errs, autos, between, _, _ = check_flash2_backward(
+                    tag, q, k, v, bias, live, dout, seed, rate, keep)
+                print(f"head dim {HIDDEN // HEADS} path shape {tag}: flash2 "
+                      f"fused / split {errs[True]:.3e} / {errs[False]:.3e} "
+                      f"against the rounded rule, {autos[True]:.3e} / "
+                      f"{autos[False]:.3e} against f32 autograd, fused vs "
+                      f"split {between:.3e}", flush=True)
+            del q, k, v, dout, keep
+
+
+def check_head_split(tag, x, y, z, bias, live, dout, seed, rate, keep):
+    """The head-split flash pair on [B, S, H] inputs split into heads, as
+    phase_flash_attention holds it: the forward and its natural-log lse
+    against the plain version at ATTN_TOL / FLASH_LSE_*, the backward
+    through autograd against the plain rule (``flash_attention_backward_
+    plain`` on the kernel's output and lse) at GRAD_TOL and against f32
+    autograd within twice it plus the rule's rounding gap.  Returns the
+    worst error against the plain versions."""
+    import torch
+
+    from msa_tpu_torch.ops import attention as A
+
+    dname = str(x.dtype).split(".")[1]
+    q, k, v, do = (split_heads(t) for t in (x, y, z, dout))
+    out, lse = A._forward_kernel(q, k, v, bias, seed, rate, train=True)
+    xq, xk, xv = (t.detach().requires_grad_() for t in (q, k, v))
+    grads = torch.autograd.grad(A.flash_attention(xq, xk, xv, bias, rate, seed),
+                                (xq, xk, xv), do)
+    qq, kk, vv = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref, ref_lse = A.flash_attention_plain(qq, kk, vv, bias, rate, keep,
+                                           with_lse=True)
+    auto = torch.autograd.grad(ref, (qq, kk, vv), do.float())
+    refs = A.flash_attention_backward_plain(q, k, v, bias, out, lse, do, rate,
+                                            keep)
+    gaps = [(a.float() - c.float()).abs() for a, c in zip(
+        refs, A.flash_attention_backward_plain(
+            q.float(), k.float(), v.float(), bias, ref.detach(), lse,
+            do.float(), rate, keep))]
+    torch.cuda.synchronize()
+    err = check_close(tag, out, ref, *ATTN_TOL[dname], mask=live)
+    check_close(tag + " lse", lse, ref_lse, FLASH_LSE_ATOL, FLASH_LSE_RTOL,
+                mask=live)
+    gatol, grtol = GRAD_TOL[dname]
+    for name, g, r, a, gap in zip(("dq", "dk", "dv"), grads, refs, auto, gaps):
+        err = max(err, check_close(f"{tag} {name}", g, r, gatol, grtol,
+                                   mask=live))
+        check_within(f"{tag} {name} against autograd", g, a, gatol, grtol, gap,
+                     live)
+    return err
+
+
+def time_wide_kernels(gen):
+    """bf16 times of every attention entry at the phases' widths: the short
+    kernels at the joint shape [192, 80], flash2 at [32, 1024] (its split
+    backward there too), the head-split pair at [32, heads, 1024, d]; each
+    beside the bound (bytes read and written once, the products of the
+    function), the plain version and SDPA (forward, or backward alone).
+    Returns {kernel: (ms, plain ms, library ms, bound)} by the kernels
+    line's names."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops import flash2 as F2
+    from msa_tpu_torch.ops import short_attention as sa
+
+    bf, seed, times = torch.bfloat16, 17, {}
+    for kind, b, s in (("short", 2 * BATCH, 2 * TEXT_LEN),
+                       ("flash", 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN)):
+        q, k, v, bias, _ = attention_inputs(gen, b, s, bf)
+        dout = torch.randn(q.shape, device="cuda", generator=gen).to(bf)
+        io = b * s * HIDDEN * 2
+        fwd_flops = 4 * b * s * s * HIDDEN
+        fwd_bound = bound_ms(4 * io + b * s * 4, fwd_flops, "bfloat16")
+        bwd_bound = bound_ms(7 * io + b * s * 4, 2.5 * fwd_flops, "bfloat16")
+        v3_bound = bound_ms(8 * io + b * s * 4, 2.5 * fwd_flops, "bfloat16")
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        plain_out = sa.short_attention_plain(qq, kk, vv, bias, HEADS)
+        plain_fwd = cuda_ms(lambda: sa.short_attention_plain(q, k, v, bias,
+                                                             HEADS), iters=5)
+        plain_bwd = cuda_ms(lambda: torch.autograd.grad(
+            plain_out, (qq, kk, vv), dout, retain_graph=True), iters=5)
+        sq, sk, sv, sm = sdpa_args(qq, kk, vv, bias)
+        lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+        lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=sm))
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qq, kk, vv), lib_do, retain_graph=True))
+        if kind == "short":
+            out, lse = sa._forward_kernel(q, k, v, bias, HEADS, seed, 0.0, True)
+            _, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS, seed, 0.0)
+            qkv = torch.cat([q, k, v], dim=-1)
+            probs_bytes = probs.numel() * 2
+            calls = {
+                "short_attention": (lambda: sa._forward_kernel(
+                    q, k, v, bias, HEADS, seed, 0.0, False), plain_fwd, lib_fwd,
+                    fwd_bound),
+                "short_attention_backward": (lambda: sa.short_attention_backward(
+                    q, k, v, bias, lse, dout, HEADS), plain_bwd, lib_bwd,
+                    bwd_bound),
+                "short_attention_v3_backward": (
+                    lambda: sa.short_attention_v3_backward(
+                        q, k, v, bias, out, dout, HEADS), plain_bwd, lib_bwd,
+                    v3_bound),
+                "short_attention_probs": (lambda: sa._probs_forward_kernel(
+                    q, k, v, bias, HEADS, seed, 0.0), plain_fwd, lib_fwd,
+                    bound_ms(4 * io + b * s * 4 + probs_bytes, fwd_flops,
+                             "bfloat16")),
+                "short_attention_probs_backward": (
+                    lambda: sa.short_attention_probs_backward(
+                        q, k, v, probs, dout, HEADS), plain_bwd, lib_bwd,
+                    bound_ms(7 * io + probs_bytes, 2 * fwd_flops, "bfloat16")),
+                "short_attention_packed": (lambda: sa._packed_forward_kernel(
+                    qkv, bias, HEADS, seed, 0.0, False), plain_fwd, lib_fwd,
+                    fwd_bound),
+                "short_attention_packed_backward": (
+                    lambda: sa.short_attention_packed_backward(
+                        qkv, bias, out, dout, HEADS), plain_bwd, lib_bwd,
+                    v3_bound),
+                "short_attention_v1_fwd": (lambda: sa._v1_forward_kernel(
+                    q, k, v, bias, HEADS, seed, 0.0), plain_fwd, lib_fwd,
+                    fwd_bound),
+                "short_attention_v1_bwd": (
+                    lambda: sa.short_attention_v1_backward(
+                        q, k, v, bias, dout, HEADS), plain_bwd, lib_bwd,
+                    bwd_bound)}
+        else:
+            _, lse, o32 = F2._forward_kernel(q, k, v, bias, HEADS, seed, 0.0,
+                                             True)
+            hq, hk, hv, hdo = (split_heads(x) for x in (q, k, v, dout))
+            hout, hlse = A._forward_kernel(hq, hk, hv, bias, seed, 0.0, True)
+            calls = {
+                "flash2_fwd": (lambda: F2._forward_kernel(
+                    q, k, v, bias, HEADS, seed, 0.0, False), plain_fwd,
+                    lib_fwd, fwd_bound),
+                "flash2_bwd_fused": (lambda: F2.flash_attention2_backward(
+                    q, k, v, bias, o32, lse, dout, HEADS, fused=True),
+                    plain_bwd, lib_bwd, bwd_bound),
+                "flash2_bwd_split": (lambda: F2.flash_attention2_backward(
+                    q, k, v, bias, o32, lse, dout, HEADS, fused=False),
+                    plain_bwd, lib_bwd, bwd_bound),
+                "flash_attention_fwd": (lambda: A._forward_kernel(
+                    hq, hk, hv, bias, seed, 0.0, False), plain_fwd, lib_fwd,
+                    fwd_bound),
+                "flash_attention_bwd": (lambda: A.flash_attention_backward(
+                    hq, hk, hv, bias, hout, hlse, hdo), plain_bwd, lib_bwd,
+                    bwd_bound)}
+        for name, (fn, plain_ms, lib_ms, bound) in calls.items():
+            ms = cuda_ms(fn, iters=5 if kind == "flash" else 20)
+            times[name] = (ms, plain_ms, lib_ms, bound)
+            print(f"head dim {HIDDEN // HEADS} {name} [{b},{s},{HIDDEN}] bf16: "
+                  f"kernel {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+                  f"{bound[0] / ms:.1%} of it reached), plain {plain_ms:.4f} "
+                  f"ms, sdpa {lib_ms:.4f} ms", flush=True)
+    return times
+
+
+# Rates off the t/256 grid (PR 20): the word rule of csrc/dropout.cuh.
+OFF_GRID_RATES = (0.1, 0.3)
+# keep_mask_plain's digests of the byte rule's masks before the word rule
+# existed (tests/test_torch_dropout_rates.py holds the plain rule to them):
+# (rate, (B, heads, S), SHA-256 of the [B, heads, S, S] bool mask)
+GRID_MASK_SEED = (123 << 32) + 456
+GRID_MASK_DIGESTS = (
+    (26 / 256, (2, 3, 40),
+     "7bcd8010427732aa99506824c8ca5a4e007e56baa3f4fd62a3d2ae4f11d69771"),
+    (26 / 256, (1, 2, 130),
+     "3af584e0f5484370ef47d9f6bbd975203dabfa10f7e0228c362d86bfa6d866c4"),
+    (1 / 256, (2, 3, 40),
+     "40afc2a52a0bfca3ce3857a5d4b8bb2fc834b09b38cb08c9666ac3a61746faef"),
+    (255 / 256, (1, 2, 130),
+     "a1fedb2687ca5d714ae094702b9f20d08af2eca1b001d84e0259af34ae341cbd"),
+    (0.5, (2, 3, 40),
+     "f3ebf82e94be42cc21a7cdb3d80f3e9c8416bed97b4030425db184e90cfc2a20"))
+
+
+def phase_dropout_rates():
+    """Attention dropout at rates off the t/256 grid, 0.1 and 0.3 (the word
+    rule: one Philox word a key).  At each rate: phase_dropout at the
+    bert-large joint shape (the exported mask bit-equal to keep_mask_plain
+    over 192 x 16 x 80 x 80 = 19.7M decisions, its keep share within
+    KEEP_SHARE_SIGMAS of 1 - rate, the mask a function of the seed, the
+    forward against the plain version given it); then every drawing
+    kernel's phase at the tiny preset's widths (H = 64, 2 heads: the same
+    templates, cheaper) with its checks, forward and backward against the
+    plain versions given the exported mask.  Then the byte rule's masks,
+    exported by the kernel, against GRID_MASK_DIGESTS (bit-equal to the
+    earlier tree's), and :func:`time_rates`.  Returns the timings."""
+    import hashlib
+
+    import torch
+
+    from msa_tpu_torch.ops.dropout import on_grid
+    from msa_tpu_torch.ops.short_attention import dropout_keep_mask
+
+    t0 = time.perf_counter()
+    for rate in OFF_GRID_RATES:
+        if on_grid(rate):
+            raise AssertionError(f"rate {rate} is on the t/256 grid")
+        with dropout_rate(rate):
+            phase_dropout(torch.Generator(device="cuda").manual_seed(300))
+            gen = torch.Generator(device="cuda").manual_seed(301)
+            with head_widths(64, 2):
+                print(f"dropout rate {rate} (the word rule): every drawing "
+                      f"kernel at H={HIDDEN}, {HEADS} heads", flush=True)
+                phase_attention(gen)
+                phase_attention_backward(gen)
+                phase_flash2_backward(gen)
+                phase_probs_packed(gen)
+                phase_v3_kernels(gen)
+                phase_tiled_backward()
+                phase_flash_attention(gen)
+                phase_short_v1(gen)
+    for rate, shape, digest in GRID_MASK_DIGESTS:
+        keep = dropout_keep_mask(GRID_MASK_SEED, rate, *shape, "cuda")
+        got = hashlib.sha256(keep.cpu().numpy().tobytes()).hexdigest()
+        if got != digest:
+            raise AssertionError(f"dropout mask at rate {rate} {shape}: "
+                                 f"{got}, the earlier tree's {digest}")
+    print(f"dropout: the byte rule's exported masks at rates "
+          f"{sorted({r for r, _, _ in GRID_MASK_DIGESTS})} bit-equal to the "
+          f"earlier tree's ({len(GRID_MASK_DIGESTS)} digests); rates "
+          f"{OFF_GRID_RATES}: every check passed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return time_rates()
+
+
+def time_rates():
+    """Each drawing kernel at rate 0.1 (the word rule) against the same
+    kernel at 26/256 (the byte rule), bf16 at bert-large widths (d = 64):
+    the short kernels at the joint shape [192, 80] (the tiled pair at
+    [32, 540]), flash2 and the head-split pair at [32, 1024], the mask
+    export at [192, 16, 80, 80].  Returns {kernel: {rate: ms}}."""
+    import torch
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops import flash2 as F2
+    from msa_tpu_torch.ops import short_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(302)
+    seed = 77
+    bf = torch.bfloat16
+    b, s = 2 * BATCH, 2 * TEXT_LEN
+    q, k, v, bias, _ = attention_inputs(gen, b, s, bf)
+    dout = torch.randn(q.shape, device="cuda", generator=gen).to(bf)
+    qkv = torch.cat([q, k, v], dim=-1)
+    tb, ts = TILED_TIMING_SHAPES[-1]
+    tq, tk, tv, tbias, _ = attention_inputs(gen, tb, ts, bf)
+    tdout = torch.randn(tq.shape, device="cuda", generator=gen).to(bf)
+    fb, fs = 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN
+    fq, fk, fv, fbias, _ = attention_inputs(gen, fb, fs, bf)
+    fdout = torch.randn(fq.shape, device="cuda", generator=gen).to(bf)
+    hq, hk, hv, hdout = (split_heads(x) for x in (fq, fk, fv, fdout))
+    times = {}
+    for rate in (26 / 256, 0.1):
+        out, lse = sa._forward_kernel(q, k, v, bias, HEADS, seed, rate, True)
+        _, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS, seed, rate)
+        _, tlse = sa._forward_kernel(tq, tk, tv, tbias, HEADS, seed, rate,
+                                     True)
+        _, flse, fo32 = F2._forward_kernel(fq, fk, fv, fbias, HEADS, seed,
+                                           rate, True)
+        hout, hlse = A._forward_kernel(hq, hk, hv, fbias, seed, rate, True)
+        calls = {
+            "dropout_keep_mask": lambda: sa.dropout_keep_mask(
+                seed, rate, b, HEADS, s, "cuda"),
+            "short_attention (training form)": lambda: sa._forward_kernel(
+                q, k, v, bias, HEADS, seed, rate, True),
+            "short_attention_backward": lambda: sa.short_attention_backward(
+                q, k, v, bias, None, dout, HEADS, seed, rate),
+            "short_attention_v3_backward":
+                lambda: sa.short_attention_v3_backward(
+                    q, k, v, bias, out, dout, HEADS, seed, rate),
+            "short_attention_probs": lambda: sa._probs_forward_kernel(
+                q, k, v, bias, HEADS, seed, rate),
+            "short_attention_probs_backward":
+                lambda: sa.short_attention_probs_backward(
+                    q, k, v, probs, dout, HEADS, rate),
+            "short_attention_packed": lambda: sa._packed_forward_kernel(
+                qkv, bias, HEADS, seed, rate, False),
+            "short_attention_packed_backward":
+                lambda: sa.short_attention_packed_backward(
+                    qkv, bias, out, dout, HEADS, seed, rate),
+            "short_attention_v1": lambda: sa._v1_forward_kernel(
+                q, k, v, bias, HEADS, seed, rate),
+            "short_attention_v1_backward":
+                lambda: sa.short_attention_v1_backward(
+                    q, k, v, bias, dout, HEADS, seed, rate),
+            f"short_attention_backward tiled [{tb},{ts}]":
+                lambda: sa.short_attention_backward(
+                    tq, tk, tv, tbias, tlse, tdout, HEADS, seed, rate),
+            "flash2_fwd (training form)": lambda: F2._forward_kernel(
+                fq, fk, fv, fbias, HEADS, seed, rate, True),
+            "flash2_bwd_fused": lambda: F2.flash_attention2_backward(
+                fq, fk, fv, fbias, fo32, flse, fdout, HEADS, seed, rate,
+                fused=True),
+            "flash2_bwd_split": lambda: F2.flash_attention2_backward(
+                fq, fk, fv, fbias, fo32, flse, fdout, HEADS, seed, rate,
+                fused=False),
+            "flash_attention_fwd (training form)": lambda: A._forward_kernel(
+                hq, hk, hv, fbias, seed, rate, True),
+            "flash_attention_bwd": lambda: A.flash_attention_backward(
+                hq, hk, hv, fbias, hout, hlse, hdout, seed, rate)}
+        for name, fn in calls.items():
+            times.setdefault(name, {})[rate] = cuda_ms(fn, iters=10)
+    for name, by_rate in times.items():
+        grid, word = by_rate[26 / 256], by_rate[0.1]
+        print(f"rate timing {name}: rate 0.1 (word rule) {word:.4f} ms, "
+              f"26/256 (byte rule) {grid:.4f} ms ({word / grid:.2f}x)",
+              flush=True)
+    return times
+
+
+# bert-large's widths with 4 heads of 256 (PR 20): no public checkpoint has
+# them; the config exists to drive the d = 256 kernels through Trainer and
+# Predictor at full width (random weights from a seed).
+WIDE_HEADS = "bert-large-4x256"
+WIDE_HEADS_WIDTHS = dict(vocab_size=30522, hidden_size=1024,
+                         num_hidden_layers=24, num_attention_heads=4,
+                         intermediate_size=4096, max_position_embeddings=512)
 
 
 def phase_tiny_preset():
@@ -1873,14 +2480,31 @@ TINYBERT_SERVE = 2 * BATCH - 5  # two batches, the second ragged
 
 def phase_tinybert():
     """TinyBERT-4L-312D's widths (head dim 26: the kernels instantiated at
-    32, every head zero-padded from 26) through the normal entry points at
-    B = 96, L = 40, MOSI widths, random weights from a seed: 1 + 3 bf16
+    32, every head zero-padded from 26; ln_quant's generic form at H = 312)
+    through :func:`phase_widths`."""
+    return phase_widths(TINYBERT, "TinyBERT-4L-312D widths",
+                        (26, 312, 30592, 1200, 0.1, 0.1))
+
+
+def phase_wide_heads():
+    """bert-large's widths with 4 heads of 256 (``WIDE_HEADS``: every
+    attention kernel at head dim 256, bf16 short attention on the CUDA
+    cores, flash2 on mma.sync) through :func:`phase_widths`."""
+    return phase_widths(WIDE_HEADS, "bert-large widths at 4 heads of 256",
+                        (256, 1024, 30592, 4096, 0.1, 0.1))
+
+
+def phase_widths(model, label, want_widths):
+    """The MMBert of ``model``'s widths (a ``BertConfig`` in
+    ``build_experiment``'s MMBert; ``want_widths``: its head dim, H, padded
+    vocab, FFN and dropouts) through the normal entry points at B = 96,
+    L = 40, MOSI widths, random weights from a seed: 1 + 3 bf16
     ``Trainer.train_step`` steps at dropout 0.1 (finite losses, moved
     parameters, the launches a step by route), ``Predictor.predict_split``
-    in bf16, int8 and int8_static (ln_quant's generic form at H = 312; the
-    launches a batch, samples/s), then frame level at Lp = 984 (flash2 at
-    head dim 26): one serving batch and one train step after a warm-up
-    one.  Returns the launches of each path."""
+    in bf16, int8 and int8_static (the launches a batch, samples/s), then
+    frame level at Lp = 984 (flash2 at the model's head dim): one serving
+    batch and one train step after a warm-up one.  Returns the launches of
+    each path and the train and serving rates."""
     import numpy as np
     import torch
 
@@ -1889,7 +2513,7 @@ def phase_tinybert():
     from msa_tpu_torch.ops.short_attention import kernel_head_dim
     from msa_tpu_torch.training.trainer import Trainer
 
-    exp = model_experiment(TINYBERT, train_batch_size=BATCH,
+    exp = model_experiment(model, train_batch_size=BATCH,
                            compute_dtype="bfloat16", warmup_proportion=0.01,
                            adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
                            data_parallel=1)
@@ -1897,11 +2521,11 @@ def phase_tinybert():
     bert = cfg.bert
     d, layers = bert.head_dim, bert.num_hidden_layers
     if (d, bert.hidden_size, bert.padded_vocab_size, bert.intermediate_size,
-            bert.hidden_dropout_prob, bert.attention_probs_dropout_prob) != (
-            26, 312, 30592, 1200, 0.1, 0.1):
-        raise AssertionError(f"TinyBERT widths: {bert}")
+            bert.hidden_dropout_prob, bert.attention_probs_dropout_prob) != \
+            want_widths:
+        raise AssertionError(f"{label}: {bert}")
     kd = kernel_head_dim(d)
-    out = {}
+    out, rates = {}, {}
     trainer = Trainer(exp, "cuda")
     state = trainer.init_state(0, total_steps=10_000)
     split = synthetic_split(2 * BATCH, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
@@ -1923,17 +2547,18 @@ def phase_tinybert():
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     out["training"] = kernel_counts()
-    want = rung_launches("none", layers, TINYBERT_STEPS)
+    want = rung_launches("none", layers, TINYBERT_STEPS, head_dim=d)
     if trainer.remat_policy != "none" or out["training"] != want:
-        raise AssertionError(f"TinyBERT training: remat {trainer.remat_policy}, "
+        raise AssertionError(f"{label} training: remat {trainer.remat_policy}, "
                              f"launches {out['training']}, want {want}")
     losses = [float(m["loss"]) for m in step_metrics]
     moved = float((watch.detach() - before).abs().max())
     if not all(np.isfinite(losses)) or not moved > 0:
-        raise AssertionError(f"TinyBERT training: losses {losses}, max "
+        raise AssertionError(f"{label} training: losses {losses}, max "
                              f"|update| {moved}")
     ms_step = seconds * 1e3 / TINYBERT_STEPS
-    print(f"TinyBERT-4L-312D widths (H={bert.hidden_size}, {bert.num_attention_heads}"
+    rates["training"] = (ms_step, BATCH * TINYBERT_STEPS / seconds)
+    print(f"{label} (H={bert.hidden_size}, {bert.num_attention_heads}"
           f" heads of {d} on the instantiation at {kd}, {layers} layers, FFN "
           f"{bert.intermediate_size}, vocab {bert.padded_vocab_size}) training "
           f"bf16 B={BATCH} L={TEXT_LEN} dropout 0.1: {TINYBERT_STEPS} steps "
@@ -1963,12 +2588,13 @@ def phase_tinybert():
         name = mode or "bf16"
         out[f"serving_{name}"] = kernel_counts()
         if out[f"serving_{name}"] != serving_launches(layers, n_batches, mode):
-            raise AssertionError(f"TinyBERT serving {name}: launches "
+            raise AssertionError(f"{label} serving {name}: launches "
                                  f"{out[f'serving_{name}']}")
         if got.shape != (TINYBERT_SERVE,) or not np.isfinite(got).all():
-            raise AssertionError(f"TinyBERT serving {name}: {got.shape}")
+            raise AssertionError(f"{label} serving {name}: {got.shape}")
         preds[name] = got
-        print(f"TinyBERT widths serving {name} B={BATCH}: {TINYBERT_SERVE} "
+        rates[f"serving_{name}"] = TINYBERT_SERVE / seconds
+        print(f"{label} serving {name} B={BATCH}: {TINYBERT_SERVE} "
               f"samples, {TINYBERT_SERVE / seconds:.2f} samples/s; launches "
               f"per batch {dict((k, v // n_batches) for k, v in out[f'serving_{name}'].items() if v)}"
               f"{' (ln_quant generic form)' if mode else ''}",
@@ -1976,14 +2602,14 @@ def phase_tinybert():
     gap = max(float(np.abs(preds[m] - preds["bf16"]).max())
               for m in ("int8", "int8_static"))
     spread = float(np.ptp(preds["bf16"]))
-    print(f"TinyBERT widths: int8 / int8_static against bf16 max |diff| "
+    print(f"{label}: int8 / int8_static against bf16 max |diff| "
           f"{gap:.3e} (bf16 predictions spread {spread:.3e})", flush=True)
     if not gap < spread:
-        raise AssertionError(f"TinyBERT int8 predictions off bf16 by {gap:.3e}, "
+        raise AssertionError(f"{label}: int8 predictions off bf16 by {gap:.3e}, "
                              f"their spread {spread:.3e}")
 
-    # frame level: the joint pass [2B, 1024] on flash2 at head dim 26
-    fexp = frame_experiment(FRAME_PAIR_LEN, model=TINYBERT)
+    # frame level: the joint pass [2B, 1024] on flash2 at the head dim
+    fexp = frame_experiment(FRAME_PAIR_LEN, model=model)
     fsplit = synthetic_split(FRAME_BATCH, TEXT_LEN, cfg.visual_dim,
                              cfg.speech_dim, vocab_size=bert.vocab_size, seed=8,
                              pair_seq_length=FRAME_PAIR_LEN)
@@ -1997,19 +2623,19 @@ def phase_tinybert():
                           fused_joint_embed=2)
     if out["frame_serving"] != fwant or fout.shape != (FRAME_BATCH,) or \
             not np.isfinite(fout).all():
-        raise AssertionError(f"TinyBERT frame-level serving: launches "
+        raise AssertionError(f"{label} frame-level serving: launches "
                              f"{out['frame_serving']}, predictions {fout.shape}")
-    print(f"TinyBERT widths frame-level serving B={FRAME_BATCH} "
+    print(f"{label} frame-level serving B={FRAME_BATCH} "
           f"Lp={FRAME_PAIR_LEN}: one batch in {seconds * 1e3:.1f} ms (the "
           f"first, unwarmed), launches {dict((k, v) for k, v in out['frame_serving'].items() if v)}",
           flush=True)
     del params, fpred
     # one measured step after one warm-up (the learning rate's warm-up
     # starts at 0, so a first step alone moves nothing)
-    out["frame_training"], _ = phase_frame_training(
-        FRAME_PAIR_LEN, FRAME_BATCH, None, 1, 1, "TinyBERT widths frame-level",
-        model=TINYBERT)
-    return out
+    out["frame_training"], rates["frame_training"] = phase_frame_training(
+        FRAME_PAIR_LEN, FRAME_BATCH, None, 1, 1, f"{label} frame-level",
+        model=model)
+    return out, rates
 
 
 def phase_bert_base_preset():
@@ -2749,8 +3375,8 @@ def phase_training():
 
 def frame_experiment(pair_len, layers=None, model="bert-large-uncased",
                      **train):
-    """MMBert (bert-large, the preset ``model``, or ``TINYBERT``'s widths)
-    on MOSI widths in frame-level mode (``pair_len`` native-rate frames per
+    """MMBert (bert-large, the preset ``model``, or ``TINYBERT``'s or
+    ``WIDE_HEADS``' widths) on MOSI widths in frame-level mode (``pair_len`` native-rate frames per
     modality), depth cut to ``layers`` if given."""
     exp = model_experiment(model, **train)
     data = dataclasses.replace(exp.data, pair_seq_length=pair_len)
@@ -2773,14 +3399,18 @@ TINYBERT_WIDTHS = dict(vocab_size=30522, hidden_size=312, num_hidden_layers=4,
 
 def model_experiment(model, **train):
     """``build_experiment``'s MMBert on MOSI widths with the BERT preset
-    ``model``, or with ``TINYBERT``'s widths as its BertConfig."""
+    ``model``, or with ``TINYBERT``'s or ``WIDE_HEADS``' widths as its
+    BertConfig (on the training defaults of bert-base and bert-large)."""
     from msa_tpu_torch.configs import BertConfig, build_experiment
 
-    if model != TINYBERT:
+    widths = {TINYBERT: ("bert-base-uncased", TINYBERT_WIDTHS),
+              WIDE_HEADS: ("bert-large-uncased", WIDE_HEADS_WIDTHS)}
+    if model not in widths:
         return build_experiment("mosi", model, num_labels=1, **train)
-    exp = build_experiment("mosi", "bert-base-uncased", num_labels=1, **train)
-    return dataclasses.replace(exp, model_name=TINYBERT, model=dataclasses.replace(
-        exp.model, bert=BertConfig(**TINYBERT_WIDTHS)))
+    preset, bert = widths[model]
+    exp = build_experiment("mosi", preset, num_labels=1, **train)
+    return dataclasses.replace(exp, model_name=model, model=dataclasses.replace(
+        exp.model, bert=BertConfig(**bert)))
 
 
 def cut_depth(params, layers):
@@ -2859,7 +3489,7 @@ def phase_frame_serving(params):
 
 
 def phase_frame_training(pair_len, batch, layers, warmup, steps, label,
-                         model="bert-large-uncased"):  # or TINYBERT
+                         model="bert-large-uncased"):  # or TINYBERT, WIDE_HEADS
     """bf16 train steps in frame-level mode (MOSI widths, the default
     dropouts, MLM on, bf16 Adam moments): finite losses, moved parameters
     and the kernel launches per step, with the joint pass's backward on the
@@ -2905,7 +3535,8 @@ def phase_frame_training(pair_len, batch, layers, warmup, steps, label,
     seq = TEXT_LEN + pair_len
     fused = use_fused_backward(seq, cfg.bert.hidden_size,
                                cfg.bert.num_attention_heads, torch.bfloat16)
-    want = rung_launches("none", n, steps, frame=True, fused=fused)
+    want = rung_launches("none", n, steps, frame=True, fused=fused,
+                         head_dim=cfg.bert.head_dim)
     if trainer.remat_policy != "none" or launches != want:
         raise AssertionError(f"{label} training: remat {trainer.remat_policy}, "
                              f"launches {launches}, want {want}")
@@ -3159,10 +3790,9 @@ def check_packed(tag, q, k, v, bias, live, dout, seed, rate, keep):
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import byte_threshold
 
     dname = str(q.dtype).split(".")[1]
-    t = byte_threshold(rate)
+    t = rate
     qkv = torch.cat([q, k, v], dim=-1)
     packed = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, True)
     serve = sa._packed_forward_kernel(qkv, bias, HEADS, seed, t, False)[0]
@@ -3218,9 +3848,8 @@ def phase_probs_packed(gen):
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     worst = dict.fromkeys(("probs", "probs_bwd", "packed", "packed_bwd"), 0.0)
     times = {}
     for label, b, s in (("text", BATCH, TEXT_LEN), ("joint", 2 * BATCH, 2 * TEXT_LEN)):
@@ -3320,10 +3949,10 @@ def phase_probs_packed(gen):
                         pout, qkv_g, dout, retain_graph=True)), lib_bwd,
                     bound_ms(8 * io + b * s * 4, 2.5 * fwd_flops, dname))
                 fwd_cores = ("tensor cores" if dname == "bfloat16"
-                             else "CUDA cores")
+                             and tensor_core_head_dim() else "CUDA cores")
                 cores_of = {"probs": fwd_cores, "packed": fwd_cores,
-                            "probs_bwd": sa.backward_route(s, dtype),
-                            "packed_bwd": sa.backward_route(s, dtype)}
+                            "probs_bwd": sa.backward_route(s, dtype, HIDDEN // HEADS),
+                            "packed_bwd": sa.backward_route(s, dtype, HIDDEN // HEADS)}
                 for name in ("probs", "probs_bwd", "packed", "packed_bwd"):
                     ms, plain_ms, lib_ms, bound = times[(name, label, dname)]
                     cores = cores_of[name]
@@ -3348,7 +3977,7 @@ def phase_probs_packed(gen):
                 tag, q, k, v, bias, live, dout, seed, rate, keep)
             worst["packed"] = max(worst["packed"], perr)
             worst["packed_bwd"] = max(worst["packed_bwd"], pberr)
-            print(f"v2p {tag} (backward: {sa.backward_route(130, dtype)}): "
+            print(f"v2p {tag} (backward: {sa.backward_route(130, dtype, HIDDEN // HEADS)}): "
                   f"forward bit-equal "
                   f"to v2's and backward to v3's on the thirds, against the "
                   f"plain versions {perr:.3e} / {pberr:.3e}, backward "
@@ -3375,14 +4004,15 @@ def phase_probs_packed(gen):
                 berr, bauto = check_probs_backward(tag, q, k, v, bias, live,
                                                    probs, dout, rate, keep)
                 worst["probs_bwd"] = max(worst["probs_bwd"], berr)
-                cores = sa.backward_route(s, torch.bfloat16)
+                cores = sa.backward_route(s, torch.bfloat16, HIDDEN // HEADS)
                 line += (f"; backward ({cores}) {berr:.3e} against the rounded "
                          f"rule, {bauto:.3e} against f32 autograd")
             print(line, flush=True)
     return worst, times
 
 
-def rung_launches(policy, layers, steps, frame=False, fused=True):
+def rung_launches(policy, layers, steps, frame=False, fused=True,
+                  head_dim=64):
     """Kernel launches of ``steps`` bf16 train steps under the remat
     ``policy`` ("none": no checkpointing): one attention per layer and
     encoder call, run again in the backward by 'full' and 'dots' (their
@@ -3390,7 +4020,8 @@ def rung_launches(policy, layers, steps, frame=False, fused=True):
     packed pair on the short route (all of it word-aligned; the text pass
     in frame-level mode, whose joint pass runs flash2, never re-run under a
     save_* policy).  The v2, v2p and v2s backwards take one launch at S <=
-    128 in bf16."""
+    128 in bf16 at head dims up to 128 (``head_dim``: the model's,
+    bert-large's 64 unless given)."""
     import torch
 
     from msa_tpu_torch.ops.short_attention import backward_launches
@@ -3398,7 +4029,8 @@ def rung_launches(policy, layers, steps, frame=False, fused=True):
     again = 2 if policy.split("+")[0] in ("full", "dots") else 1
     seqs = (TEXT_LEN,) if frame else (TEXT_LEN, 2 * TEXT_LEN)
     short_calls = layers * len(seqs)
-    bwd = layers * sum(backward_launches(s, torch.bfloat16) for s in seqs)
+    bwd = layers * sum(backward_launches(s, torch.bfloat16, head_dim)
+                       for s in seqs)
     counts = {"fused_joint_embed": 2}
     if "+probs" in policy:
         counts.update(short_attention_probs=again * short_calls,
@@ -3792,12 +4424,11 @@ def check_v3_backward(tag, q, k, v, bias, live, dout, seed, rate,
 
     from msa_tpu_torch import _build
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import byte_threshold
 
     b, s, _ = q.shape
     dname = str(q.dtype).split(".")[1]
     atol, rtol = GRAD_TOL[dname]
-    t = byte_threshold(rate)
+    t = rate
     keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
             if rate else None)
     out, lse = sa._forward_kernel(q, k, v, bias, HEADS, seed, t, True)
@@ -3869,16 +4500,15 @@ def phase_v3_kernels(gen):
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     worst, times = 0.0, {}
     for label, b, s in (("text", BATCH, TEXT_LEN),
                         ("joint", 2 * BATCH, 2 * TEXT_LEN)):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[1]
             atol, rtol = GRAD_TOL[dname]
-            cores = sa.backward_route(s, dtype)
+            cores = sa.backward_route(s, dtype, HIDDEN // HEADS)
             for rate in (0.0, rate_on):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
@@ -3921,7 +4551,7 @@ def phase_v3_kernels(gen):
                 print(line, flush=True)
     edge_gen = torch.Generator(device="cuda").manual_seed(10)  # see phase_probs_packed
     for s in (8, 12, 128, 200):
-        cores = sa.backward_route(s, torch.bfloat16)
+        cores = sa.backward_route(s, torch.bfloat16, HIDDEN // HEADS)
         for rate in (0.0, rate_on):
             q, k, v, bias, live = attention_inputs(edge_gen, 4, s,
                                                    torch.bfloat16)
@@ -3986,7 +4616,7 @@ def time_short_backwards(with_plain=False):
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import byte_threshold, quantize_dropout_rate
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     times = {}
@@ -3998,7 +4628,7 @@ def time_short_backwards(with_plain=False):
         qkv = torch.cat([q, k, v], dim=-1)
         shape = f"[{b},{s}]"
         for rate in (0.0, quantize_dropout_rate(ATTN_DROPOUT)):
-            t = byte_threshold(rate)
+            t = rate
             out, lse = sa._forward_kernel(q, k, v, bias, HEADS, 7, t, True)
             pout = sa._packed_forward_kernel(qkv, bias, HEADS, 7, t, False)[0]
             _, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS, 7, rate)
@@ -4130,8 +4760,11 @@ def check_v2_backward(tag, q, k, v, bias, live, dout, seed, rate, keep):
     """The v2 backward through autograd of ``short_attention`` (its forward
     form and the tensors its route keeps), held by
     :func:`check_rounded_backward` against JAX's ``_bwd_kernel_v2`` rule
-    (given the exported keep mask) and against autograd through the plain
-    version in f32.  Returns (max abs err, against autograd)."""
+    (given the exported keep mask; in bf16 dv within :func:`tie_slack` of
+    it, after the gap between the rule's p and exp2(s - lse) on the
+    training forward's lse is found within TIE_RTOL) and against autograd
+    through the plain version in f32.  Returns (max abs err, against
+    autograd)."""
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
@@ -4147,9 +4780,37 @@ def check_v2_backward(tag, q, k, v, bias, live, dout, seed, rate, keep):
                                                 rate, keep)
     rule32 = sa.short_attention_v1_backward_plain(
         *wide, bias, dout.float(), HEADS, rate, keep)
+    slack = None
+    if q.dtype == torch.bfloat16:
+        lse = sa._forward_kernel(q, k, v, bias, HEADS, seed, rate, True)[1]
+        logits = sa._logits_plain(q, k, bias, HEADS)
+        p = torch.softmax(logits, dim=-1)
+        gap = p_formula_gap(p, logits, lse, live)
+        pd = p if keep is None else torch.where(keep, p, 0.0) / (1.0 - rate)
+        slack, ties = tie_slack(pd, dout)
+        print(f"{tag}: the rule's p and exp2(s - lse) on the kernel's lse "
+              f"{gap:.3e} apart (TIE_RTOL {TIE_RTOL:.3e}); {ties} dropped p "
+              f"within it of a bf16 midpoint", flush=True)
     torch.cuda.synchronize()
     return check_rounded_backward(tag, grads, rule, rule32, auto, live,
-                                  *GRAD_TOL[str(q.dtype).split(".")[1]])
+                                  *GRAD_TOL[str(q.dtype).split(".")[1]],
+                                  dv_slack=slack)
+
+
+def p_formula_gap(p, logits, lse, live):
+    """The largest relative gap between the rule's softmax ``p`` and
+    exp2(logits / ln 2 - lse), ``lse`` the kernel's row lse (log2 units), on
+    live rows where p >= 2^-10 (smaller p move dv by less than 2^-18 a
+    tie); fails if it passes TIE_RTOL."""
+    import torch
+
+    formula = torch.exp2(logits / math.log(2.0) - lse[..., None])
+    big = (p >= 2.0 ** -10) & live[:, None, None, None]
+    gap = float(((p - formula).abs() / p)[big].max()) if big.any() else 0.0
+    if not gap <= TIE_RTOL:
+        raise AssertionError(f"the rule's p and exp2(s - lse) differ by "
+                             f"{gap:.3e} relative, past TIE_RTOL {TIE_RTOL}")
+    return gap
 
 
 def phase_tiled_backward():
@@ -4168,9 +4829,8 @@ def phase_tiled_backward():
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     gen = torch.Generator(device="cuda").manual_seed(16)
     worst = dict.fromkeys(("v2", "v3", "v2s", "v2p"), 0.0)
     reset_counts()
@@ -4365,11 +5025,10 @@ def phase_flash_attention(gen):
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops import attention as A
-    from msa_tpu_torch.ops.dropout import (
-        byte_threshold, keep_mask_plain, quantize_dropout_rate)
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
     from msa_tpu_torch.ops.flash2 import flash_attention2
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     s_frame = TEXT_LEN + FRAME_PAIR_LEN
     # (label, B, S, dtype, rate, timed)
     cases = [("frame", 2 * FRAME_BATCH, s_frame, torch.bfloat16, 0.0, True),
@@ -4389,7 +5048,7 @@ def phase_flash_attention(gen):
         seed = 2718 + s
         keep = (keep_mask_plain(seed, rate, b, HEADS, s, device="cuda")
                 if rate else None)
-        out, lse = A._forward_kernel(q, k, v, bias, seed, byte_threshold(rate),
+        out, lse = A._forward_kernel(q, k, v, bias, seed, rate,
                                      train=True)
         # the backward pair through autograd, from its own training forward
         xq, xk, xv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -4543,9 +5202,9 @@ def phase_short_v1(gen):
     import torch.nn.functional as F
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import keep_mask_plain, quantize_dropout_rate
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     worst = {"fwd": 0.0, "bwd": 0.0}
     times = {}
     for label, b, s in (("text", BATCH, TEXT_LEN),
@@ -4600,7 +5259,7 @@ def phase_short_v1(gen):
                         live))
                 inputs = 3 * q.numel() * q.element_size() + bias.numel() * 4
                 v2_inputs = inputs + (
-                    0 if sa.backward_route(s, dtype) == sa.WHOLE_ROW
+                    0 if sa.backward_route(s, dtype, HIDDEN // HEADS) == sa.WHOLE_ROW
                     else b * HEADS * s * 4)
                 if kept != inputs or v2_kept != v2_inputs:
                     raise AssertionError(f"{tag}: keeps {kept} bytes for the "
@@ -4652,7 +5311,7 @@ def phase_short_v1(gen):
                     times[("bwd", label, dname)] = (bwd_ms, bwd_plain_ms,
                                                     bwd_lib_ms, bwd_bound)
                     cores = ("tensor cores" if dname == "bfloat16"
-                             else "CUDA cores")
+                             and tensor_core_head_dim() else "CUDA cores")
                     line += (f"; forward ({cores}) {ms:.4f} ms (v2 {v2_ms:.4f} "
                              f"ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                              f"{bound[0]:.4f} ms ({bound[1]}); backward "
@@ -4717,9 +5376,9 @@ def check_v1_long():
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
-    from msa_tpu_torch.ops.dropout import keep_mask_plain, quantize_dropout_rate
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
 
-    rate_on = quantize_dropout_rate(ATTN_DROPOUT)
+    rate_on = phase_rate()
     gen = torch.Generator(device="cuda").manual_seed(19)
     worst = {"fwd": 0.0, "bwd": 0.0}
     atol, rtol = ATTN_TOL["bfloat16"]
@@ -4747,7 +5406,8 @@ def check_v1_long():
             before = sa.short_attention_v1_backward.launches
             berr = check_v1_backward(q, k, v, bias, live, dout, seed, rate)
             got = sa.short_attention_v1_backward.launches - before
-            if got != sa.v1_backward_launches(s, torch.bfloat16):
+            if got != sa.v1_backward_launches(s, torch.bfloat16,
+                                                 HIDDEN // HEADS):
                 raise AssertionError(f"{tag}: {got} backward launches")
             worst["fwd"] = max(worst["fwd"], err)
             worst["bwd"] = max(worst["bwd"], berr)
@@ -4776,7 +5436,8 @@ def check_v1_long():
 
 
 def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
-    """The bf16 v1 backward kernel (tensor cores) at a few keys: against
+    """The bf16 v1 backward kernel (tensor cores; at head dim 256 the v2
+    pair on the CUDA cores) at a few keys: against
     its plain rule (dS and the dropped p rounded to bf16) at GRAD_TOL on
     live rows; against autograd through the plain forward in f32 (fully
     masked rows at MASKED_ROW_GRAD_ATOL) within twice the tolerance plus
@@ -4817,7 +5478,8 @@ def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
                                           ~live))
         auto_err = max(auto_err, check_within(f"{tag} {name} against autograd",
                                               g, a, atol, rtol, gap, live))
-    print(f"{tag} (tensor cores): max_abs_err {err:.3e} against the plain "
+    cores = "tensor cores" if tensor_core_head_dim() else "CUDA cores"
+    print(f"{tag} ({cores}): max_abs_err {err:.3e} against the plain "
           f"rule, {auto_err:.3e} against autograd (twice the tolerance plus "
           f"the rounding gap); v2's gradients bit-equal; masked rows "
           f"{masked:.3e} from f32", flush=True)
@@ -5336,6 +5998,27 @@ def report_wgmma(usage):
                                  f"{name} in {u['source']}")
 
 
+def report_wide(usage):
+    """Print ptxas's registers, stack and spills for every kernel of the
+    libraries of head dim 256 (bf16 and f32 on the CUDA cores for short
+    attention, mma.sync for flash): spills there are written down, not
+    failed on (NO_SPILL_HEAD_DIMS holds 32 and 64 only)."""
+    wide = [u for u in usage if u["library"].endswith("_d256")]
+    if not wide:
+        raise AssertionError("ptxas reported no kernel at head dim 256")
+    for u in wide:
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}"
+                      r"\d+(?=[a-z])", "", u["kernel"])
+        print(f"ptxas d=256 {u['library']} {name[:90]}: {u['registers']} "
+              f"registers, {u['static_smem']} B static smem, stack "
+              f"{u['stack']} B, spill stores {u['spill_stores']} B, loads "
+              f"{u['spill_loads']} B", flush=True)
+    spilled = [u for u in wide if u["spill_stores"] or u["spill_loads"]]
+    print(f"ptxas d=256: {len(spilled)} of {len(wide)} kernels spill, at most "
+          f"{max((u['spill_stores'] for u in wide), default=0)} B stored",
+          flush=True)
+
+
 def no_dropout(exp):
     """``exp`` with every dropout rate 0 (hidden, attention, joint)."""
     m = exp.model
@@ -5358,7 +6041,8 @@ def fused_launches(layers, steps=1, train=True):
 
     from msa_tpu_torch.ops.short_attention import backward_launches
 
-    bwd = layers * backward_launches(2 * TEXT_LEN, torch.bfloat16) * train
+    bwd = layers * backward_launches(2 * TEXT_LEN, torch.bfloat16,
+                                     HIDDEN // HEADS) * train
     return expect_counts(fused_joint_embed=2 * steps,
                          short_attention=layers * steps,
                          short_attention_backward=bwd * steps)
@@ -6195,10 +6879,29 @@ def timed(fn, *args, **kwargs):
 # one at the presets' 32 and 64 and at 26 and 128 (phase_head_dims), v2's
 # and flash2's forwards and backwards also at 8 and 16; the widths ln_quant
 # and the joint embed ran at.
-ALL_HEAD_DIMS = [8, 16, 26, 32, 64, 128]
-FULL_HEAD_DIMS = [26, 32, 64, 128]
+ALL_HEAD_DIMS = [8, 16, 26, 32, 64, 128, 192, 256]
+FULL_HEAD_DIMS = [26, 32, 64, 128, 192, 256]
 LN_QUANT_RAN_AT = sorted({HIDDEN, 64, *LN_QUANT_WIDTHS})
-EMBED_RAN_AT = sorted({HIDDEN, 64, 768, 1000, 1001, WIDE_EMBED[0]})
+EMBED_RAN_AT = sorted({HIDDEN, 64, 768, 1000, 1001, WIDE_EMBED[0],
+                       HUGE_EMBED[0]})
+# Each drawing kernel's timing in time_rates, by its kernels-line name
+RATE_TIMED = {
+    "short_attention": "short_attention (training form)",
+    "short_attention_backward": "short_attention_backward",
+    "dropout_keep_mask": "dropout_keep_mask",
+    "flash2_fwd": "flash2_fwd (training form)",
+    "flash2_bwd_fused": "flash2_bwd_fused", "flash2_bwd_split": "flash2_bwd_split",
+    "short_attention_probs": "short_attention_probs",
+    "short_attention_probs_backward": "short_attention_probs_backward",
+    "short_attention_packed": "short_attention_packed",
+    "short_attention_packed_backward": "short_attention_packed_backward",
+    "short_attention_v3_backward": "short_attention_v3_backward",
+    "flash_attention_fwd": "flash_attention_fwd (training form)",
+    "flash_attention_bwd": "flash_attention_bwd",
+    "short_attention_v1_fwd": "short_attention_v1",
+    "short_attention_v1_bwd": "short_attention_v1_backward",
+    "short_attention_backward_tiled": "short_attention_backward tiled [{},{}]"
+                                      .format(*TILED_TIMING_SHAPES[-1])}
 
 
 def kernel_entry(name, source, replaces, launches, err, timing, by_path,
@@ -6267,6 +6970,7 @@ def main() -> int:
     report_tc_resources(usage)
     report_redesigned(usage)
     report_wgmma(usage)
+    report_wide(usage)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_err, attn_times = timed(phase_attention, gen)
@@ -6289,8 +6993,11 @@ def main() -> int:
     timed(time_flash_backwards)
     timed(phase_head_dim_32)
     head_dims, wide = timed(phase_head_dims)
+    wide_dims, huge_embed = timed(phase_head_dim_256)
+    rate_times = timed(phase_dropout_rates)
     timed(phase_tiny_preset)
-    tinybert = timed(phase_tinybert)
+    tinybert, _ = timed(phase_tinybert)
+    wide_heads, _ = timed(phase_wide_heads)
     base_launches = timed(phase_bert_base_preset)
     orbax = timed(phase_orbax)
     for path, names in (("training", ("short_attention",
@@ -6383,6 +7090,7 @@ def main() -> int:
                 "orbax_resume_training": orbax["training"][name],
                 "orbax_serving": orbax["serving"][name],
                 **{f"tinybert_{p}": tinybert[p][name] for p in tinybert},
+                **{f"wide_heads_{p}": wide_heads[p][name] for p in wide_heads},
                 "bert_base_cli_train": base_launches[name],
                 **{f"frame_short_{rule}": r["launches"][name]
                    for rule, r in frame_short.items()}}
@@ -6563,6 +7271,17 @@ def main() -> int:
             entry["by_head_dim"] = {
                 str(d): timing(res[phase][1][key])
                 for d, res in head_dims.items() if phase in res}
+            entry["by_head_dim"].update({
+                str(d): timing(res[entry["name"]])
+                for d, res in wide_dims.items()})
+        if entry["name"] not in ("fused_joint_embed", "ln_quant_static",
+                                 "ln_quant_dynamic", "fused_adamw"):
+            # every attention kernel draws by either rule of dropout.cuh
+            entry["dropout_rules"] = ["byte (t/256)", "word (any rate)"]
+        if entry["name"] in RATE_TIMED:
+            entry["ms_by_rate"] = {
+                f"{rate:g}": ms
+                for rate, ms in rate_times[RATE_TIMED[entry["name"]]].items()}
         if entry["name"].startswith("ln_quant_"):
             mode = entry["name"].split("_")[-1]
             entry["by_width"] = {
@@ -6570,7 +7289,8 @@ def main() -> int:
                 for h, r in wide["ln_quant"].items()}
         if entry["name"] == "fused_joint_embed":
             entry["by_width"] = {str(WIDE_EMBED[0]): timing(
-                wide["joint_embed"][1])}
+                wide["joint_embed"][1]), str(HUGE_EMBED[0]): timing(
+                huge_embed[1])}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

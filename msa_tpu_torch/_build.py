@@ -51,10 +51,14 @@ HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 KERNELS = ("short_attention", "fused_joint_embed", "ln_quant", "flash2",
            "fused_adamw", "flash_attention", "short_attention_v1")
 # The head dims every attention kernel is instantiated for; the wrappers run
-# any other head dim d <= 128 on the smallest of them at or above d.
-HEAD_DIMS = (16, 32, 64, 128)
+# any other head dim d <= 256 on the smallest of them at or above d.
+HEAD_DIMS = (16, 32, 64, 128, 256)
 HEAD_DIM_SOURCES = ("short_attention", "short_attention_v1", "flash2",
                     "flash_attention")
+# short_attention_v1's whole-row kernels stop at 128: above it v1 runs on
+# short_attention's library (ops/short_attention.py routes it), so no
+# library of the source is built there.
+SOURCE_MAX_HEAD_DIM = {"short_attention_v1": 128}
 _HEAD_DIM_LIBRARY = re.compile(r"(.+)_d(\d+)$")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # the CUDA toolkit's default prefix
 
@@ -90,20 +94,28 @@ def cxx_path() -> str:
     return cxx
 
 
+def source_head_dims(name: str) -> tuple:
+    """The head dims of ``HEAD_DIMS`` that attention source ``name`` is
+    built for."""
+    top = SOURCE_MAX_HEAD_DIM.get(name, HEAD_DIMS[-1])
+    return tuple(d for d in HEAD_DIMS if d <= top)
+
+
 def head_dim_library(name: str, head_dim: int) -> str:
     """The library of attention source ``name`` built for ``head_dim`` (one
-    of ``HEAD_DIMS``)."""
-    if name not in HEAD_DIM_SOURCES or head_dim not in HEAD_DIMS:
+    of :func:`source_head_dims`)."""
+    if name not in HEAD_DIM_SOURCES or head_dim not in source_head_dims(name):
         raise ValueError(f"no library of {name} at head dim {head_dim}")
     return f"{name}_d{head_dim}"
 
 
 def libraries(names: Sequence[str] = KERNELS) -> List[str]:
     """The libraries of ``names``: an attention source (``HEAD_DIM_SOURCES``)
-    stands for its library at every head dim, any other name for itself."""
+    stands for its library at every head dim it is built for, any other
+    name for itself."""
     return [head_dim_library(n, d) if n in HEAD_DIM_SOURCES else n
-            for n in names for d in (HEAD_DIMS if n in HEAD_DIM_SOURCES
-                                     else (None,))]
+            for n in names for d in (source_head_dims(n)
+                                     if n in HEAD_DIM_SOURCES else (None,))]
 
 
 def _split(name: str):

@@ -1,6 +1,7 @@
 // Blockwise attention for long sequences (the frame-level path, S >= 1024;
-// the kernels take any S >= 1), head dim 16, 32, 64 or 128 (the source is
-// built once a head dim, -DMSA_HEAD_DIM): the forward with in-kernel
+// the kernels take any S >= 1), head dim 16, 32, 64, 128 or 256 (the source
+// is built once a head dim, -DMSA_HEAD_DIM; f32 at 256 is refused here and
+// run on short_attention.cu's CUDA-core kernels by the wrappers): the forward with in-kernel
 // attention-probs dropout, the fused single-sweep backward and the split
 // backward (dq, then dk/dv).
 //
@@ -85,13 +86,14 @@
 
 #include "flash_kernels.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
-// dropout, else keep iff the element's Philox byte >= t (rate t/256).  The
+// dtype: 0 = float32, 1 = bfloat16.  drop_rate in [0, 1): 0 = no dropout,
+// else the keep rule of dropout.cuh (the byte rule on the t/256 grid, the
+// word rule off it).  The
 // training forward passes lse ([B, heads, S] f32, the log2-sum-exp of each
 // score row) and, for bf16, out32 ([B, S, H] f32, the output before its
 // rounding; null for f32, whose out is that already); the serving forward
 // passes both null.  The head dim hidden / num_heads is the library's
-// (16, 32, 64 or 128; the wrappers zero-pad any other up to it).  Every
+// (16, 32, 64, 128 or 256; the wrappers zero-pad any other up to it).  Every
 // entry launches on `stream` and returns cudaGetLastError() (0 on
 // success).  The caller has checked shapes, contiguity and 16-byte
 // alignment.
@@ -99,24 +101,22 @@ extern "C" int msa_flash2_fwd(const void* q, const void* k, const void* v,
                               const void* key_bias, void* out, void* lse, void* out32,
                               int batch, int seq, int hidden, int num_heads, int dtype,
                               float scale, unsigned seed_lo, unsigned seed_hi,
-                              int drop_threshold, void* stream) {
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+                              double drop_rate, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_rate)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
   float* l = static_cast<float*>(lse);
   float* o32 = static_cast<float*>(out32);
   const float sm = scale * kLog2e;
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
+  const bool drop = drop_rate > 0.0;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_FWD(D, W)                                                                       \
-  (dtype == 0 ? launch_fwd<SimtF32<kD>, false, D, W>(q, k, v, bias, out, l, o32, batch, seq,   \
-                                                      hidden, num_heads, sm, d, s)             \
-              : launch_fwd_wg<kD, false, D, W>(q, k, v, bias, out, l, o32, batch, seq, hidden, \
-                                               num_heads, sm, d, s))
+#define MSA_FWD(D, W)                                                                   \
+  launch_fwd_for<kD, false, D, W>(q, k, v, bias, out, l, o32, batch, seq, hidden, num_heads, \
+                                  dtype, sm, d, s)
     if (drop) return l ? MSA_FWD(true, true) : MSA_FWD(true, false);
     return l ? MSA_FWD(false, true) : MSA_FWD(false, false);
 #undef MSA_FWD
@@ -127,14 +127,14 @@ extern "C" int msa_flash2_fwd(const void* q, const void* k, const void* v,
 // into `delta`, [B, heads, S] f32 scratch, and dq32, a [B, S, H] f32
 // buffer, zeroed), then the sweep writing dk and dv and adding dq (times
 // the scale) into dq32.  o32 (the output in f32) and lse are the training
-// forward's outputs for the same q, k, v, key_bias, seed and threshold.
+// forward's outputs for the same q, k, v, key_bias, seed and rate.
 extern "C" int msa_flash2_bwd_fused(const void* q, const void* k, const void* v,
                                     const void* key_bias, const void* o32, const void* dout,
                                     const void* lse, void* delta, void* dq32, void* dk,
                                     void* dv, int batch, int seq, int hidden, int num_heads,
                                     int dtype, float scale, unsigned seed_lo,
-                                    unsigned seed_hi, int drop_threshold, void* stream) {
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+                                    unsigned seed_hi, double drop_rate, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_rate)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
@@ -142,9 +142,9 @@ extern "C" int msa_flash2_bwd_fused(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   float* dq = static_cast<float*>(dq32);
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
+  const bool drop = drop_rate > 0.0;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
 #define MSA_FUSED(D)                                                                   \
@@ -162,24 +162,22 @@ extern "C" int msa_flash2_bwd_split(const void* q, const void* k, const void* v,
                                     const void* lse, void* delta, void* dq, void* dk,
                                     void* dv, int batch, int seq, int hidden, int num_heads,
                                     int dtype, float scale, unsigned seed_lo,
-                                    unsigned seed_hi, int drop_threshold, void* stream) {
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+                                    unsigned seed_hi, double drop_rate, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_rate)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
   const float* o = static_cast<const float*>(o32);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
+  const bool drop = drop_rate > 0.0;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
 #define MSA_SPLIT(D)                                                                       \
-  (dtype == 0 ? launch_split<SimtF32<kD>, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
-                                                     batch, seq, hidden, num_heads, scale, d, s) \
-              : launch_split_wg<kD, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, \
-                                              seq, hidden, num_heads, scale, d, s))
+  launch_split_for<kD, false, D>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, seq, hidden, \
+                                 num_heads, dtype, scale, d, s)
     return drop ? MSA_SPLIT(true) : MSA_SPLIT(false);
 #undef MSA_SPLIT
   });

@@ -1,5 +1,5 @@
-// Head-split flash attention, head dim 16, 32, 64 or 128 (the source is
-// built once a head dim, -DMSA_HEAD_DIM): the forward with in-kernel
+// Head-split flash attention, head dim 16, 32, 64, 128 or 256 (the source
+// is built once a head dim, -DMSA_HEAD_DIM; f32 at 256 as in flash2.cu): the forward with in-kernel
 // attention-probs dropout, then the backward as a pair of launches, dq (one
 // CTA per query block) and dk/dv (one CTA per key block).
 //
@@ -46,8 +46,9 @@
 
 #include "flash_kernels.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16.  drop_threshold t in [0, 256): 0 = no
-// dropout, else keep iff the element's Philox byte >= t (rate t/256).  The
+// dtype: 0 = float32, 1 = bfloat16.  drop_rate in [0, 1): 0 = no dropout,
+// else the keep rule of dropout.cuh (the byte rule on the t/256 grid, the
+// word rule off it).  The
 // training forward passes lse ([B, heads, S] f32, natural-log units); the
 // serving forward passes null.  head_dim: the library's (16, 32, 64 or
 // 128; the wrappers zero-pad any other up to it).  Every entry launches
@@ -57,24 +58,22 @@ extern "C" int msa_flash_attention_fwd(const void* q, const void* k, const void*
                                        const void* key_bias, void* out, void* lse,
                                        int batch, int num_heads, int seq, int head_dim,
                                        int dtype, float scale, unsigned seed_lo,
-                                       unsigned seed_hi, int drop_threshold, void* stream) {
+                                       unsigned seed_hi, double drop_rate, void* stream) {
   const int hidden = num_heads * head_dim;
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_rate)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
   float* l = static_cast<float*>(lse);
   const float sm = scale * kLog2e;
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
+  const bool drop = drop_rate > 0.0;
   return tc::by_head_dim(head_dim, [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_FWD(D, W)                                                                       \
-  (dtype == 0 ? launch_fwd<SimtF32<kD>, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq, \
-                                                     hidden, num_heads, sm, d, s)              \
-              : launch_fwd_wg<kD, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq,      \
-                                              hidden, num_heads, sm, d, s))
+#define MSA_FWD(D, W)                                                                      \
+  launch_fwd_for<kD, true, D, W>(q, k, v, bias, out, l, nullptr, batch, seq, hidden, num_heads, \
+                                 dtype, sm, d, s)
     if (drop) return l ? MSA_FWD(true, true) : MSA_FWD(true, false);
     return l ? MSA_FWD(false, true) : MSA_FWD(false, false);
 #undef MSA_FWD
@@ -83,31 +82,29 @@ extern "C" int msa_flash_attention_fwd(const void* q, const void* k, const void*
 
 // The backward pair on `stream`: dq (writing delta, [B, heads, S] f32
 // scratch), then dk/dv.  out and lse are the training forward's outputs for
-// the same q, k, v, key_bias, seed and threshold.
+// the same q, k, v, key_bias, seed and rate.
 extern "C" int msa_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* key_bias, const void* out,
                                        const void* dout, const void* lse, void* delta,
                                        void* dq, void* dk, void* dv, int batch,
                                        int num_heads, int seq, int head_dim, int dtype,
                                        float scale, unsigned seed_lo, unsigned seed_hi,
-                                       int drop_threshold, void* stream) {
+                                       double drop_rate, void* stream) {
   const int hidden = num_heads * head_dim;
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_rate)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool drop = drop_threshold > 0;
+  const bool drop = drop_rate > 0.0;
   return tc::by_head_dim(head_dim, [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_BWD(D)                                                                          \
-  (dtype == 0 ? launch_split<SimtF32<kD>, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, \
-                                                    batch, seq, hidden, num_heads, scale, d, s) \
-              : launch_split_wg<kD, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, batch, \
-                                             seq, hidden, num_heads, scale, d, s))
+#define MSA_BWD(D)                                                                       \
+  launch_split_for<kD, true, D>(q, k, v, bias, out, dout, l, dl, dq, dk, dv, batch, seq, hidden, \
+                                num_heads, dtype, scale, d, s)
     return drop ? MSA_BWD(true) : MSA_BWD(false);
 #undef MSA_BWD
   });

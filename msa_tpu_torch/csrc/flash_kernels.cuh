@@ -1,5 +1,5 @@
-// The blockwise attention kernels of two sources, head dim 16, 32, 64 or
-// 128:
+// The blockwise attention kernels of two sources, head dim 16, 32, 64, 128
+// or 256:
 // flash2.cu (the natural-layout flash2, kernel rows 10-12) and
 // flash_attention.cu (the head-split flash attention, row 13).  The two
 // contracts differ only in where a head's rows lie and in what the backward
@@ -31,7 +31,10 @@
 //   * f32 (the tests and the f32 checks): flash_fwd_kernel,
 //     flash_bwd_dq_kernel and flash_bwd_dkv_kernel (split and fused) with
 //     the tile products on the CUDA cores (SimtF32), 64-row blocks of 4
-//     warps.
+//     warps;
+//   * bf16 at head dim 256 (kMaxWgHeadDim): the same generic kernels on
+//     mma.sync (MmaBf16), the forward and dq in 237-254 registers, dk/dv
+//     spilling 2-3 KB (its dK and dV rows alone fill 256 registers).
 //
 // Every family lays a score tile out as mma.sync's m16n8 accumulator (a
 // warp holds rows g and g + 8 of its 16, columns 8n + 2c + {0, 1}), so the
@@ -166,6 +169,39 @@ struct SimtF32 {
     }
   }
 };
+
+// bf16 above kMaxWgHeadDim (head dim 256): the same products on the tensor
+// cores by mma.sync (mma_tiles.cuh), a warp's 16 rows against 64-key
+// tiles, the probabilities and dS rounded to bf16 in the pack that feeds
+// the next product.  Rows of kD + 8 bf16 (an odd multiple of 16 bytes).
+template <int kDim>
+struct MmaBf16 {
+  using T = __nv_bfloat16;
+  static constexpr int kD = kDim;
+  static constexpr int kON = kD / 8;               // column tiles of an output tile
+  static constexpr int kStride = tc::kStride<kD>;  // kD + 8
+  static constexpr int kTStride = kBlock + 8;      // 144-byte rows: conflict-free
+  static constexpr int kSStride = 0;               // no stage
+  static constexpr int kStageFloats = 0;
+  using OFrag = Frag<kON>;
+
+  __device__ static void nt(const T* a, int m0, const T* b, SFrag& c, float*) {
+    tc::mma_nt<kD, kSN>(a, m0, b, c.x);
+  }
+  __device__ static void nn(const SFrag& f, const T* b, OFrag& c, float*) {
+    tc::mma_nn<kD, kSN>(f.x, b, c.x);
+  }
+  __device__ static void tn(const T* at, int m0, const T* b, OFrag& c, float*) {
+    tc::mma_tn<kD, kBlock / 16>(at, kTStride, m0, b, c.x);
+  }
+};
+
+// The warpgroup kernels (wgmma_tiles.cuh) and the bf16 fused backward take
+// head dims up to this; above it bf16 runs the generic kernels on MmaBf16,
+// and f32, whose staged tiles would not fit in shared memory, is refused
+// here (the Python wrappers run it on the short-attention CUDA-core
+// kernels, which take any S).
+constexpr int kMaxWgHeadDim = 128;
 
 // ---------------------------------------------------------------------------
 // Shared helpers
@@ -1756,7 +1792,8 @@ int launch_split_wg(const void* q, const void* k, const void* v, const float* bi
 // flash2's fused backward: the pre-pass (delta into `delta`, [B, heads, S]
 // f32, and dq32 zeroed), then the sweep: bf16 the tensor-core kernel above,
 // f32 flash_bwd_dkv_kernel<SimtF32, ..., kFused = true> (which takes its
-// own delta per tile and leaves the pre-pass's unread).
+// own delta per tile and leaves the pre-pass's unread); above
+// kMaxWgHeadDim bf16 runs that kernel on MmaBf16 (f32 refused).
 template <int kD, bool kDropout>
 int launch_fused(const void* q, const void* k, const void* v, const float* bias,
                  const float* o32, const void* dout, const float* lse, float* delta,
@@ -1764,7 +1801,9 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
                  int num_heads, int dtype, float scale, Dropout drop, cudaStream_t s) {
   const long long chunks = (long long)batch * seq * hidden / 8;
   const long long blocks = (chunks + kPrepThreads - 1) / kPrepThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL || (kD > kMaxWgHeadDim && dtype == 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0) {
     flash2_bwd_prep_kernel<float, kD><<<(unsigned)blocks, kPrepThreads, 0, s>>>(
         o32, static_cast<const float*>(dout), delta, dq32, seq, hidden, num_heads, chunks);
@@ -1775,27 +1814,76 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (dtype == 0) {
-    return launch_dkv<SimtF32<kD>, false, kDropout, true>(q, k, v, bias, o32, dout, lse,
+  if constexpr (kD > kMaxWgHeadDim) {
+    return launch_dkv<MmaBf16<kD>, false, kDropout, true>(q, k, v, bias, o32, dout, lse,
                                                           nullptr, dq32, dk, dv, batch, seq,
                                                           hidden, num_heads, scale, drop, s);
+  } else {
+    if (dtype == 0) {
+      return launch_dkv<SimtF32<kD>, false, kDropout, true>(q, k, v, bias, o32, dout, lse,
+                                                            nullptr, dq32, dk, dv, batch, seq,
+                                                            hidden, num_heads, scale, drop, s);
+    }
+    using T = __nv_bfloat16;
+    constexpr auto kernel = flash2_bwd_fused_kernel<kD, kDropout>;
+    constexpr int bytes = fused_tc_smem_bytes<kD>();
+    err = allow_smem<kernel>(bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((seq + kFKeys<kD> - 1) / kFKeys<kD>, num_heads, batch), kFThreads, bytes,
+             s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+        static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
+        seq, hidden, scale * kLog2e, scale, drop);
+    return (int)cudaGetLastError();
   }
-  using T = __nv_bfloat16;
-  constexpr auto kernel = flash2_bwd_fused_kernel<kD, kDropout>;
-  constexpr int bytes = fused_tc_smem_bytes<kD>();
-  err = allow_smem<kernel>(bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((seq + kFKeys<kD> - 1) / kFKeys<kD>, num_heads, batch), kFThreads, bytes,
-           s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
-      seq, hidden, scale * kLog2e, scale, drop);
-  return (int)cudaGetLastError();
 }
 
-bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype, int threshold) {
+// The forward of either dtype at head dim kD: f32 on SimtF32, bf16 on the
+// warpgroup kernel, or above kMaxWgHeadDim bf16 on MmaBf16 (f32 refused).
+template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
+int launch_fwd_for(const void* q, const void* k, const void* v, const float* bias, void* out,
+                   float* lse, float* out32, int batch, int seq, int hidden, int num_heads,
+                   int dtype, float score_mult, Dropout drop, cudaStream_t s) {
+  if constexpr (kD > kMaxWgHeadDim) {
+    if (dtype == 0) return (int)cudaErrorInvalidValue;
+    return launch_fwd<MmaBf16<kD>, kHeadSplit, kDropout, kTrain>(
+        q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
+  } else {
+    if (dtype == 0) {
+      return launch_fwd<SimtF32<kD>, kHeadSplit, kDropout, kTrain>(
+          q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
+    }
+    return launch_fwd_wg<kD, kHeadSplit, kDropout, kTrain>(
+        q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
+  }
+}
+
+// The split backward of either dtype at head dim kD, as launch_fwd_for.
+template <int kD, bool kHeadSplit, bool kDropout>
+int launch_split_for(const void* q, const void* k, const void* v, const float* bias,
+                     const void* o, const void* dout, const float* lse, float* delta,
+                     void* dq, void* dk, void* dv, int batch, int seq, int hidden,
+                     int num_heads, int dtype, float scale, Dropout drop, cudaStream_t s) {
+  if constexpr (kD > kMaxWgHeadDim) {
+    if (dtype == 0) return (int)cudaErrorInvalidValue;
+    return launch_split<MmaBf16<kD>, kHeadSplit, kDropout>(
+        q, k, v, bias, o, dout, lse, delta, dq, dk, dv, batch, seq, hidden, num_heads, scale,
+        drop, s);
+  } else {
+    if (dtype == 0) {
+      return launch_split<SimtF32<kD>, kHeadSplit, kDropout>(
+          q, k, v, bias, o, dout, lse, delta, dq, dk, dv, batch, seq, hidden, num_heads, scale,
+          drop, s);
+    }
+    return launch_split_wg<kD, kHeadSplit, kDropout>(q, k, v, bias, o, dout, lse, delta, dq,
+                                                     dk, dv, batch, seq, hidden, num_heads,
+                                                     scale, drop, s);
+  }
+}
+
+bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype, double drop_rate) {
   return seq <= 0 || batch <= 0 || batch > 65535 || num_heads <= 0 || num_heads > 65535 ||
-         tc::head_dim_of(hidden, num_heads) == 0 || threshold < 0 || threshold > 255 ||
+         tc::head_dim_of(hidden, num_heads) == 0 || !msa_dropout::rate_ok(drop_rate) ||
          (dtype != 0 && dtype != 1);
 }
 

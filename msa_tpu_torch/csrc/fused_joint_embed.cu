@@ -35,10 +35,15 @@
 // columns: 64 accumulators); else 4 rows a thread and R = 4 x (256 / (H /
 // 4)) rows, at most 64 (H = 64; above H = 1024, R = 4 in two rounds over
 // the columns, more for a wider H).  Any D: the features are staged 64 at
-// a time.  Any H whose tile of relu'd rows fits the CTA's shared memory
-// (4 rows of H f32: H <= 14,459); a row wider than a team
-// holds in registers (H > 2048) takes the LayerNorm in three sweeps of
-// its values.  2 CTAs an SM: at 1 (146 registers) it ran 30 % slower,
+// a time.  A row wider than a team holds in registers (H > 2048) takes the
+// LayerNorm in three sweeps of its values.  Past the H whose tile of four
+// relu'd f32 rows fills the CTA's shared memory (H > 14,459) a frame tile
+// holds no row at all (kHuge): its four rows' features are staged whole,
+// and the projection is recomputed in each of three sweeps over the
+// columns -- the rows' means, their squared deviations (jnp.var's two
+// passes), then the normalised values, written out -- the same f32 FMAs in
+// the same order each time, so every sweep sees the same projection; the
+// text rows keep the three-sweep LayerNorm, which holds nothing either.  2 CTAs an SM: at 1 (146 registers) it ran 30 % slower,
 // at 3 (80 registers) it spilled; 2 columns a thread, a W prefetch a step
 // ahead, 32-row tiles of 512 threads and a cp.async ring for W (a barrier
 // every 4 rows of W) were all slower or no faster on the H100.
@@ -203,6 +208,8 @@ __device__ __forceinline__ void ln_row(const S* src, T* dst, bool live, int tl, 
   }
 }
 
+constexpr int kHugeRows = 4;  // frame rows of a kHuge tile
+
 struct Shape {
   int batch, text_len, pair_len, feat_dim, hidden;
   int lanes;        // lanes of a row's team
@@ -211,11 +218,119 @@ struct Shape {
   float eps;
 };
 
+// Sum of v over the CTA for each of kHugeRows rows (red: kWarps x
+// kHugeRows floats of shared memory); every thread gets the sums.
+__device__ __forceinline__ void cta_row_sums(float (&v)[kHugeRows], float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kHugeRows; ++r) {
+    const float x = team_sum(v[r], 32);
+    if (lane == 0) red[warp * kHugeRows + r] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kHugeRows; ++r) {
+    float x = 0.f;
+    for (int w = 0; w < kWarps; ++w) x += red[w * kHugeRows + r];
+    v[r] = x;
+  }
+  __syncthreads();  // red is written again by the next call
+}
+
+// A kHuge frame tile: kHugeRows rows of the flattened [B*Lp] frame index
+// from f0, their features staged whole in feat_s ([kHugeRows][D] f32), the
+// projection recomputed in each of three sweeps over the columns (chunks
+// of 4, a thread each).
+template <typename T, int kVec>
+__device__ __forceinline__ void huge_frame_tile(const T* __restrict__ feats,
+                                                const float* __restrict__ w,
+                                                const float* __restrict__ b,
+                                                const float* __restrict__ gamma,
+                                                const float* __restrict__ beta,
+                                                T* __restrict__ out, const Shape& sh,
+                                                long long f0, float* smem) {
+  const int hidden = sh.hidden, feat_dim = sh.feat_dim;
+  const int rows_out = sh.text_len + sh.pair_len;
+  const long long n_frames = (long long)sh.batch * sh.pair_len;
+  float* feat_s = smem;
+  float* red = smem + kHugeRows * feat_dim;
+  for (int e = threadIdx.x; e < kHugeRows * feat_dim; e += kThreads) {
+    const int r = e / feat_dim, k = e - r * feat_dim;
+    const long long f = f0 + r;
+    feat_s[e] = f < n_frames ? to_f32(feats[f * feat_dim + k]) : 0.f;
+  }
+  __syncthreads();
+  T* dst[kHugeRows];
+#pragma unroll
+  for (int r = 0; r < kHugeRows; ++r) {
+    const long long f = f0 + r < n_frames ? f0 + r : 0;
+    const long long bi = f / sh.pair_len, j = f - bi * sh.pair_len;
+    dst[r] = out + (bi * rows_out + sh.text_len + j) * hidden;
+  }
+  const int nch = (hidden + 3) / 4;
+  float mean[kHugeRows], rstd[kHugeRows];
+  for (int sweep = 0; sweep < 3; ++sweep) {
+    float part[kHugeRows] = {0.f, 0.f, 0.f, 0.f};
+    for (int chunk = threadIdx.x; chunk < nch; chunk += kThreads) {
+      const int col = chunk * 4;
+      float acc[kHugeRows][4];
+#pragma unroll
+      for (int r = 0; r < kHugeRows; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+      for (int k = 0; k < feat_dim; ++k) {
+        const float* wr = w + (size_t)k * hidden + col;
+        float wv[4];
+        if constexpr (kVec == 8) {
+          const float4 v4 = __ldg(reinterpret_cast<const float4*>(wr));
+          wv[0] = v4.x; wv[1] = v4.y; wv[2] = v4.z; wv[3] = v4.w;
+        } else {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) wv[cc] = col + cc < hidden ? __ldg(wr + cc) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kHugeRows; ++r) {
+          const float fv = feat_s[r * feat_dim + k];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) acc[r][cc] = fmaf(fv, wv[cc], acc[r][cc]);
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        if (col + cc >= hidden) break;
+        const float bb = b[col + cc];
+#pragma unroll
+        for (int r = 0; r < kHugeRows; ++r) {
+          const float x = fmaxf(acc[r][cc] + bb, 0.f);
+          if (sweep == 0) {
+            part[r] += x;
+          } else if (sweep == 1) {
+            const float d = x - mean[r];
+            part[r] = fmaf(d, d, part[r]);
+          } else if (f0 + r < n_frames) {
+            const float y = (x - mean[r]) * rstd[r] * gamma[col + cc] + beta[col + cc];
+            store_vec<1>(dst[r] + col + cc, &y);
+          }
+        }
+      }
+    }
+    if (sweep == 2) break;
+    cta_row_sums(part, red);
+#pragma unroll
+    for (int r = 0; r < kHugeRows; ++r) {
+      if (sweep == 0) {
+        mean[r] = part[r] / hidden;
+      } else {
+        rstd[r] = rsqrtf(part[r] / hidden + sh.eps);
+      }
+    }
+  }
+}
+
 // kVec: 8 when H % 8 == 0 and every pointer is 16-byte aligned (16-byte
 // row vectors, float4 reads of W), else 1.  kRPT: the frame rows of a
 // thread's projection accumulators (x 4 columns).  kWide: H > kRegHidden
-// (the LayerNorm in three sweeps).  2 CTAs an SM: 128 registers.
-template <typename T, int kVec, int kRPT, bool kWide>
+// (the LayerNorm in three sweeps).  kHuge: H past the shared-memory tile
+// (huge_frame_tile).  2 CTAs an SM: 128 registers.
+template <typename T, int kVec, int kRPT, bool kWide, bool kHuge = false>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats,
                          const float* __restrict__ w, const float* __restrict__ b,
@@ -239,6 +354,11 @@ fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats
   }
 
   extern __shared__ __align__(16) float smem[];
+  if constexpr (kHuge) {
+    huge_frame_tile<T, kVec>(feats, w, b, gamma, beta, out, sh,
+                             (long long)blockIdx.x * kHugeRows, smem);
+    return;
+  }
   const int tile_rows = sh.tile_rows;
   const int groups = tile_rows / kRPT;
   // feat_s: [R][kKCP] with row group rg shifted by 4 rg floats (its float4
@@ -341,13 +461,20 @@ fused_joint_embed_kernel(const T* __restrict__ text, const T* __restrict__ feats
   }
 }
 
-template <typename T, int kVec, int kRPT, bool kWide>
+// The dynamic shared memory of a frame tile: the staged features and the
+// relu'd rows, or for kHuge the tile's whole feature rows and the row sums'
+// scratch.
+long long tile_bytes(const Shape& sh, int rpt, bool huge) {
+  if (huge) return 4LL * kHugeRows * (sh.feat_dim + kWarps);
+  return 4LL * (sh.tile_rows * (kKCP + sh.hidden) + 4 * (sh.tile_rows / rpt));
+}
+
+template <typename T, int kVec, int kRPT, bool kWide, bool kHuge = false>
 int launch(const void* text, const void* feats, const float* w, const float* b,
            const float* gamma, const float* beta, void* out, const Shape& sh, int grid,
            cudaStream_t s) {
-  constexpr auto kernel = fused_joint_embed_kernel<T, kVec, kRPT, kWide>;
-  const long long bytes =
-      4LL * (sh.tile_rows * (kKCP + sh.hidden) + 4 * (sh.tile_rows / kRPT));
+  constexpr auto kernel = fused_joint_embed_kernel<T, kVec, kRPT, kWide, kHuge>;
+  const long long bytes = tile_bytes(sh, kRPT, kHuge);
   if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
   static long long opted = 48 * 1024;  // the largest tile this instantiation has taken
   if (bytes > opted) {
@@ -367,8 +494,9 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 // dtype: 0 = float32, 1 = bfloat16 (text, feats and out share it; w, b,
 // gamma, beta are f32).  Launches on `stream` and returns cudaGetLastError().
-// The caller has checked shapes, contiguity and hidden <= 14,459
-// (the kernel's tile of relu'd rows in shared memory; any feat_dim).
+// The caller has checked shapes and contiguity.  Any hidden and any
+// feat_dim, except that past H = 14,459 the kHuge tile stages its four
+// feature rows whole (D <= 14,520).
 extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
                                      const void* w, const void* b,
                                      const void* gamma, const void* beta,
@@ -403,6 +531,8 @@ extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
     groups = groups < 1 ? 1 : groups > 16 ? 16 : groups;  // R <= 64
     sh.tile_rows = 4 * groups;
   }
+  const bool huge = !wide && tile_bytes(sh, 4, false) > kSmemLimit;
+  if (huge) sh.tile_rows = kHugeRows;
   const long long text_rows = (long long)batch * text_len;
   const long long frame_rows = (long long)batch * pair_len;
   const long long per_text_cta = (long long)kWarps * (32 / lanes);
@@ -418,6 +548,7 @@ extern "C" int msa_fused_joint_embed(const void* text, const void* feats,
   const float* ef = static_cast<const float*>(beta);
 #define MSA_EMBED(T, V)                                                              \
   (wide ? launch<T, V, 16, false>(text, feats, wf, bf, gf, ef, out, sh, grid, s)     \
+   : huge ? launch<T, V, 4, true, true>(text, feats, wf, bf, gf, ef, out, sh, grid, s) \
    : hidden > kRegHidden ? launch<T, V, 4, true>(text, feats, wf, bf, gf, ef, out, sh, grid, s) \
                          : launch<T, V, 4, false>(text, feats, wf, bf, gf, ef, out, sh, grid, s))
   if (dtype == 0) return vec8 ? MSA_EMBED(float, 8) : MSA_EMBED(float, 1);

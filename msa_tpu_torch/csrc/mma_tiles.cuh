@@ -1,4 +1,4 @@
-// Warp-level tensor-core tiles for a head dim kD of 16, 32, 64 or 128 (a
+// Warp-level tensor-core tiles for a head dim kD of 16, 32, 64, 128 or 256 (a
 // template parameter of every tile function): the mma.sync primitives that the
 // attention kernels of the port share (flash_kernels.cuh for row 11's bf16
 // fused backward, and the copies and dropout words of rows 10-13;
@@ -41,11 +41,11 @@ constexpr bool head_dim_ok() {
   return kD % 16 == 0 && (kStride<kD> * 2 / 16) % 2 == 1;
 }
 static_assert(head_dim_ok<16>() && head_dim_ok<32>() && head_dim_ok<64>() &&
-                  head_dim_ok<128>(),
+                  head_dim_ok<128>() && head_dim_ok<256>(),
               "staged rows conflict-free");
 
 // The host side's switch to the head dims the kernels are instantiated
-// for: f(std::integral_constant<int, d>{}) for d = 16, 32, 64 or 128, else
+// for: f(std::integral_constant<int, d>{}) for d = 16, 32, 64, 128 or 256, else
 // cudaErrorInvalidValue.  A source built with -DMSA_HEAD_DIM=k (the build
 // compiles each attention source once a head dim, in parallel) holds the
 // kernels of head dim k alone; the Python wrappers pick its library by the
@@ -60,6 +60,7 @@ int by_head_dim(int d, F&& f) {
   if (d == 32) return f(std::integral_constant<int, 32>{});
   if (d == 64) return f(std::integral_constant<int, 64>{});
   if (d == 128) return f(std::integral_constant<int, 128>{});
+  if (d == 256) return f(std::integral_constant<int, 256>{});
 #endif
   return (int)cudaErrorInvalidValue;
 }

@@ -357,9 +357,9 @@ cudaError_t allow_smem(int bytes) {
   return cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype, int threshold) {
+bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype, double drop_rate) {
   return seq <= 0 || seq > kMaxSeq || batch <= 0 || batch > 65535 ||
-         tc::head_dim_of(hidden, num_heads) == 0 || threshold < 0 || threshold > 255 ||
+         tc::head_dim_of(hidden, num_heads) == 0 || !msa_dropout::rate_ok(drop_rate) ||
          (dtype != 0 && dtype != 1);
 }
 
@@ -396,50 +396,50 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  The head dim hidden / num_heads is 32
-// or 64.  drop_threshold t in [0, 256): 0 = no dropout, else keep iff the
-// element's Philox byte >= t (rate t/256).  Every entry launches once on
+// or 64.  drop_rate in [0, 1): 0 = no dropout, else the
+// keep rule of dropout.cuh.  Every entry launches once on
 // `stream` and returns cudaGetLastError() (0 on success).  The caller has
 // checked shapes, contiguity, 16-byte alignment and S <= 128.
 extern "C" int msa_short_attention_v1_fwd(const void* q, const void* k, const void* v,
                                           const void* key_bias, void* out, int batch, int seq,
                                           int hidden, int num_heads, int dtype, float scale,
                                           unsigned seed_lo, unsigned seed_hi,
-                                          int drop_threshold, void* stream) {
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+                                          double drop_rate, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_rate)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   const float sm = scale * kLog2e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
     // f32 on the CUDA cores, bf16 on the tensor cores (short_fwd_tc.cuh)
 #define MSA_FWD(D) launch_fwd<kD, D>(q, k, v, bias, out, batch, seq, hidden, num_heads, sm, d, s)
-    if (dtype == 0) return drop_threshold ? MSA_FWD(true) : MSA_FWD(false);
+    if (dtype == 0) return drop_rate > 0.0 ? MSA_FWD(true) : MSA_FWD(false);
 #undef MSA_FWD
 #define MSA_TC(D)                                                                        \
   msa_short_fwd::launch<kD, D, false>(q, k, v, bias, out, nullptr, batch, seq, hidden,   \
                                       hidden, num_heads, sm, d, s)
-    return drop_threshold ? MSA_TC(true) : MSA_TC(false);
+    return drop_rate > 0.0 ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
   });
 }
 
 // dq, dk, dv from q, k, v, key_bias and dout alone, for the same seed and
-// threshold as the forward: f32 on the CUDA cores, bf16 on the tensor cores
+// rate as the forward: f32 on the CUDA cores, bf16 on the tensor cores
 // (short_bwd_tc.cuh, delta = rowsum(p * dpm)).  One launch either way.
 extern "C" int msa_short_attention_v1_bwd(const void* q, const void* k, const void* v,
                                           const void* key_bias, const void* dout, void* dq,
                                           void* dk, void* dv, int batch, int seq, int hidden,
                                           int num_heads, int dtype, float scale,
                                           unsigned seed_lo, unsigned seed_hi,
-                                          int drop_threshold, void* stream) {
-  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_threshold)) {
+                                          double drop_rate, void* stream) {
+  if (bad_args(batch, seq, hidden, num_heads, dtype, drop_rate)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* bias = static_cast<const float*>(key_bias);
-  const Dropout d = make_dropout(seed_lo, seed_hi, drop_threshold);
+  const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   const float sm = scale * kLog2e;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
@@ -447,13 +447,13 @@ extern "C" int msa_short_attention_v1_bwd(const void* q, const void* k, const vo
 #define MSA_BWD(T, D)                                                                       \
   launch_bwd<T, kD, D>(q, k, v, bias, dout, dq, dk, dv, batch, seq, hidden, num_heads, sm, \
                        scale, d, s)
-    if (dtype == 0) return drop_threshold ? MSA_BWD(float, true) : MSA_BWD(float, false);
+    if (dtype == 0) return drop_rate > 0.0 ? MSA_BWD(float, true) : MSA_BWD(float, false);
 #undef MSA_BWD
 #define MSA_TC(D)                                                                         \
   msa_short_bwd::launch<kD, D, msa_short_bwd::kRecompute>(                                \
       q, k, v, bias, nullptr, nullptr, dout, dq, dk, dv, nullptr, nullptr, batch, seq,    \
       hidden, hidden, num_heads, sm, scale, d, s)
-    return drop_threshold ? MSA_TC(true) : MSA_TC(false);
+    return drop_rate > 0.0 ? MSA_TC(true) : MSA_TC(false);
 #undef MSA_TC
   });
 }

@@ -21,8 +21,9 @@ the tensor's device instead of ``on_tpu`` (:func:`attention_route`):
     is a bernoulli mask at the unsnapped rate, like ``_xla_attention``
     (what JAX does off the TPU).
 
-Both kernel families take attention dropout inside the kernels, at the rate
-snapped to t/256 (as JAX snaps it for its kernels), with one mask rule.
+Both kernel families take attention dropout inside the kernels, at any rate
+in [0, 1) (the model paths snap it to t/256 as JAX snaps it for its
+kernels), with one mask rule.
 Dropout is active when ``deterministic`` is False, ``dropout_rate`` > 0 and
 a ``seed`` is given; the seed keys the kernels' Philox mask, or seeds the
 generator of the plain path's bernoulli draw.
@@ -37,7 +38,7 @@ The head-split flash attention (kernel row 13, ``csrc/flash_attention.cu``;
 TPU kernels ``_flash_kernel``, ``_flash_dq_kernel``, ``_flash_dkv_kernel``
 of ``msa_tpu/ops/attention.py``) lives here, where JAX keeps it:
 
-* :func:`flash_attention` -- q, k, v [B, heads, S, d] (d <= 128) and a
+* :func:`flash_attention` -- q, k, v [B, heads, S, d] (d <= 256) and a
   [B, S] f32 key bias; under autograd on CUDA a ``torch.autograd.Function``
   whose backward is :func:`flash_attention_backward` (two launches, dq then
   dk/dv).  It
@@ -46,7 +47,9 @@ of ``msa_tpu/ops/attention.py``) lives here, where JAX keeps it:
   mixed).  CPU tensors run :func:`flash_attention_plain` at rate 0, with
   :func:`flash_attention_backward_plain` under autograd.
 ``flash_attention.launches`` and ``flash_attention_backward.launches``
-count kernel launches.
+count kernel launches (f32 above head dim 128, where the short-attention
+kernels run, counts on ``short_attention.launches`` and
+``short_attention_v3_backward.launches``).
 """
 
 from __future__ import annotations
@@ -59,11 +62,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .dropout import byte_threshold, quantize_dropout_rate, seeded_generator
+from .dropout import check_rate, quantize_dropout_rate, seeded_generator
 from .flash2 import delta_scratch, flash_attention2
+from .short_attention import _forward_kernel as _short_forward_kernel
 from .short_attention import (_DTYPES, _aligned, _seed_words, _stream,
                               check_head_dim, kernel_head_dim, save_inputs,
-                              saved_inputs,
+                              saved_inputs, wide_f32, wide_f32_backward,
                               short_attention,
                               short_attention_packed, short_attention_plain,
                               short_attention_probs)
@@ -80,11 +84,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "msa_flash_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _U, _U, _I, _P),
+                                _F, _U, _U, _D, _P),
     "msa_flash_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
+                                _I, _I, _I, _I, _I, _F, _U, _U, _D, _P),
 }
 
 
@@ -276,10 +281,27 @@ def _library(d):
         "flash_attention", kernel_head_dim(d)), _SIGNATURES)
 
 
-def _forward_kernel(q, k, v, key_bias, seed, threshold, train):
+def _flat_heads(key_bias, n, *xs):
+    """[B, heads, S, d] tensors as [B * heads, S, d] (one head each) and the
+    [B, S] bias repeated for each head: the short-attention kernels' layout,
+    whose dropout row (b * heads + head) * S + i is the same element's."""
+    b, _, s, d = xs[0].shape
+    bias = key_bias.to(torch.float32)[:, None, :].expand(b, n, s)
+    return (bias.reshape(b * n, s),
+            *(x.reshape(b * n, s, d) for x in xs))
+
+
+def _forward_kernel(q, k, v, key_bias, seed, rate, train):
     """The head-split forward kernel; returns (out, lse), lse [B, heads, S]
-    f32 in natural-log units when ``train``, else None."""
+    f32 in natural-log units when ``train``, else None.  f32 at a head dim
+    above 128 runs the short-attention CUDA-core forward on one head a
+    batch row (``wide_f32``; counted there)."""
     b, n, s, d = q.shape
+    if wide_f32(q.dtype, d):
+        bias, *qkv = _flat_heads(key_bias, n, q, k, v)
+        out, lse = _short_forward_kernel(*qkv, bias, 1, seed, rate, train)
+        return out.reshape(b, n, s, d), (
+            lse.reshape(b, n, s) * math.log(2.0) if train else None)
     q, k, v = _aligned(*_pad_heads(d, q, k, v), what="flash_attention")
     key_bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)
@@ -289,7 +311,7 @@ def _forward_kernel(q, k, v, key_bias, seed, threshold, train):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), b, n, s,
         q.shape[-1], _DTYPES[q.dtype], 1.0 / math.sqrt(d), *_seed_words(seed),
-        threshold, _stream(q))
+        rate, _stream(q))
     _build.check(code, "flash_attention")
     flash_attention.launches += 1
     return _cut_heads(d, out)[0], lse
@@ -308,6 +330,11 @@ def flash_attention_backward(q, k, v, key_bias, out, lse, dout, seed: int = 0,
         raise ValueError(f"flash_attention_backward: out/dout/lse "
                          f"{tuple(out.shape)} {out.dtype}, {tuple(dout.shape)}, "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    if wide_f32(q.dtype, d):  # the v3 pair, whose f32 rule is this one
+        bias, *flat = _flat_heads(key_bias, n, q, k, v, out, dout.to(q.dtype))
+        grads = wide_f32_backward(*flat[:3], bias, *flat[3:], 1, seed, rate,
+                                  "flash_attention_backward")
+        return tuple(g.reshape(b, n, s, d) for g in grads)
     q, k, v, out, dout = _aligned(
         *_pad_heads(d, q, k, v, out, dout.to(q.dtype)),
         what="flash_attention_backward")
@@ -320,7 +347,7 @@ def flash_attention_backward(q, k, v, key_bias, out, lse, dout, seed: int = 0,
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, s, q.shape[-1],
         _DTYPES[q.dtype], 1.0 / math.sqrt(d), *_seed_words(seed),
-        byte_threshold(rate), _stream(q))
+        check_rate(rate), _stream(q))
     _build.check(code, "flash_attention_backward")
     flash_attention_backward.launches += 2
     return _cut_heads(d, dq, dk, dv)
@@ -336,7 +363,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, key_bias, seed, rate, recompute):
         if q.is_cuda:
             out, lse = _forward_kernel(q, k, v, key_bias, seed,
-                                       byte_threshold(rate), train=True)
+                                       check_rate(rate), train=True)
         else:
             out, lse = flash_attention_plain(q, k, v, key_bias, with_lse=True)
         save_inputs(ctx, recompute, q, k, v, key_bias, out, lse)
@@ -360,11 +387,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_bias: torch.Tensor, rate: float = 0.0,
                     seed: Optional[int] = None, recompute=None) -> torch.Tensor:
     """The counterpart of JAX's ``_flash_attention``: q/k/v [B, heads, S, d]
-    (any integer d from 1 to 128 on CUDA), key_bias [B, S] additive mask; returns [B,
+    (any integer d from 1 to 256 on CUDA), key_bias [B, S] additive mask; returns [B,
     heads, S, d].  Any S >= 1.
 
-    ``rate``: attention-probs dropout, a multiple of 1/256
-    (``ops.dropout.quantize_dropout_rate``), with ``seed`` (an int in [0,
+    ``rate``: attention-probs dropout, any rate in [0, 1) (the model paths
+    snap it with ``ops.dropout.quantize_dropout_rate``), with ``seed`` (an int in [0,
     2**62)); the mask is the one flash2 and the short kernels draw at that
     seed.  CUDA tensors launch the kernels (or raise): the forward alone
     when no gradient is needed, else the autograd pair.  CPU tensors take
@@ -373,9 +400,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``ops/short_attention.py``)."""
     if rate > 0.0 and seed is None:
         raise ValueError("flash_attention: dropout needs a seed")
-    threshold = byte_threshold(rate)
+    rate = check_rate(rate)
     if q.device.type == "cpu":
-        if threshold:
+        if rate:
             raise ValueError(
                 "flash_attention: in-kernel dropout needs CUDA tensors; on "
                 "the CPU give flash_attention_plain a keep mask")
@@ -386,7 +413,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _FlashAttention.apply(q, k, v, key_bias, seed, rate, recompute)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_bias)
-    return _forward_kernel(q, k, v, key_bias, seed, threshold, train=False)[0]
+    return _forward_kernel(q, k, v, key_bias, seed, rate, train=False)[0]
 
 
 flash_attention.launches = 0

@@ -5,17 +5,26 @@ Counterpart of ``quantize_dropout_rate`` / ``_byte_threshold``
 (``msa_tpu/ops/short_attention.py``) and of ``_dropout``
 (``msa_tpu/models/bert.py``).
 
-* **Attention dropout on the kernel path** uses the rate snapped to t/256.
-  The keep decision of element (b, head, i, j) of the [B, heads, S, S]
-  probabilities is a function of that index and the seed alone
-  (:func:`keep_mask_plain`, the CUDA kernels' rule in plain PyTorch):
-  Philox4x32-10 keyed by the 64-bit seed, counter ``(j // 16, (b * heads +
-  head) * S + i, 0, 0)``; byte ``j % 16`` of its four 32-bit outputs
-  (little-endian within each word) decides key j, keep iff byte >= t.
-  Kept probabilities are scaled by 256 / (256 - t) = 1 / (1 - rate).  The
-  TPU's PRNG cannot be reproduced, so the masks differ from JAX's; the
-  distribution (keep share 1 - t/256, four decisions per 32-bit draw) is
-  the same.
+* **Attention dropout in the kernels** takes any rate in [0, 1).  The keep
+  decision of element (b, head, i, j) of the [B, heads, S, S]
+  probabilities is a function of that index, the seed and the rate alone
+  (:func:`keep_mask_plain`, the CUDA kernels' rule in plain PyTorch), with
+  Philox4x32-10 keyed by the 64-bit seed and row ``(b * heads + head) * S
+  + i``:
+
+  - the byte rule, for a rate on the t/256 grid (the model paths snap to
+    it): counter ``(j // 16, row, 0, 0)``; byte ``j % 16`` of the four
+    32-bit outputs (little-endian within each word) decides key j, keep
+    iff byte >= t; kept probabilities scaled by 256 / (256 - t);
+  - the word rule, for any other rate (JAX's ``_keep_mask`` fallback):
+    counter ``(j // 4, row, 1, 0)`` (the third word 1, so that its stream
+    never meets the byte rule's); word ``j % 4`` decides key j, keep iff
+    word >= ``min(floor(rate * 2**32), 2**32 - 1)``; kept probabilities
+    scaled by 1 / (1 - rate) in f32.
+
+  The TPU's PRNG cannot be reproduced, so the masks differ from JAX's; the
+  distributions (keep share 1 - t/256 with four decisions per 32-bit draw,
+  or 1 - rate to 2**-32 with one) are the same.
 * **Hidden dropout** (:func:`dropout`) runs in plain PyTorch from the
   caller's ``torch.Generator``: at S >= 256 the uint8-threshold path (keep
   iff a random byte >= t, rescale 256 / (256 - t)), below it a bernoulli
@@ -46,6 +55,28 @@ def quantize_dropout_rate(rate: float) -> float:
         return 0.0
     t = min(max(int(round(rate * DROP_QUANT)), 1), DROP_QUANT - 1)
     return t / DROP_QUANT
+
+
+def check_rate(rate: float, what: str = "dropout") -> float:
+    """``rate`` as a float, raising unless it lies in [0, 1) (the attention
+    kernels take any such rate)."""
+    rate = float(rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{what}: dropout rate {rate} outside [0, 1)")
+    return rate
+
+
+def on_grid(rate: float) -> bool:
+    """Whether ``rate`` (in [0, 1)) is 0 or a multiple of 1/256, the rates
+    the byte rule draws; any other rate draws by the word rule."""
+    t = rate * DROP_QUANT
+    return t == int(t)
+
+
+def word_threshold(rate: float) -> int:
+    """The word rule's 32-bit threshold of ``rate``: keep iff a Philox word
+    >= min(floor(rate * 2**32), 2**32 - 1) (JAX's ``_keep_mask``)."""
+    return min(int(rate * 2 ** 32), _U32)
 
 
 def byte_threshold(rate: float) -> int:
@@ -107,20 +138,28 @@ def philox4x32_10(c0, c1, c2, c3, key0: int, key1: int):
 def keep_mask_plain(seed: int, rate: float, batch: int, num_heads: int,
                     seq: int, device="cpu") -> torch.Tensor:
     """The attention kernels' keep mask, [B, heads, S, S] bool, in plain
-    PyTorch (the plain version of the CUDA mask-export entry)."""
-    t = byte_threshold(rate)
-    groups = -(-seq // 16)
+    PyTorch (the plain version of the CUDA mask-export entry): the byte
+    rule for a rate on the t/256 grid, else the word rule."""
+    rate = check_rate(rate, "keep_mask_plain")
     rows = torch.arange(batch * num_heads * seq, dtype=torch.int64,
                         device=device)
+    per_draw = 16 if on_grid(rate) else 4  # keys one Philox draw decides
+    groups = -(-seq // per_draw)
     grp = torch.arange(groups, dtype=torch.int64, device=device)
     c0 = grp[None, :].expand(rows.numel(), groups)
     c1 = rows[:, None].expand(rows.numel(), groups)
     zero = torch.zeros_like(c0)
-    words = torch.stack(philox4x32_10(c0, c1, zero, zero, seed, seed >> 32),
-                        dim=-1)
-    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)
-    byte = (words[..., None] >> shifts) & 0xFF   # [rows, groups, 4, 4]
-    keep = byte.reshape(rows.numel(), groups * 16)[:, :seq] >= t
+    stream = zero if per_draw == 16 else torch.ones_like(c0)
+    words = torch.stack(philox4x32_10(c0, c1, stream, zero, seed, seed >> 32),
+                        dim=-1)                  # [rows, groups, 4]
+    if per_draw == 16:
+        shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)
+        draws = (words[..., None] >> shifts) & 0xFF   # [rows, groups, 4, 4]
+        threshold = byte_threshold(rate)
+    else:
+        draws = words
+        threshold = word_threshold(rate)
+    keep = draws.reshape(rows.numel(), groups * per_draw)[:, :seq] >= threshold
     return keep.reshape(batch, num_heads, seq, seq)
 
 

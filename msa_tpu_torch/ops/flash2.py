@@ -9,12 +9,13 @@ either the fused single sweep (``_bwd_fused_kernel``) or the split pair
 the returned ctx are [B, S, H] in natural layout (heads are sliced inside
 the kernels), ``key_bias`` is an additive [B, S] f32 mask, the softmax runs
 in f32, no gradient flows to the bias or the seed, and the dropout rate is
-snapped to t/256.  The kernels (``csrc/flash2.cu``) take float32 and
-bfloat16, any S >= 1 and any integer head dim from 1 to 128 (the libraries
-of head dim 16, 32, 64 and 128; any other runs zero-padded on the next
-one up, ``short_attention.HeadPad``); the source's header says what
+any rate in [0, 1) (the model paths snap it to t/256).  The kernels (``csrc/flash2.cu``) take float32 and
+bfloat16, any S >= 1 and any integer head dim from 1 to 256 (the libraries
+of head dim 16, 32, 64, 128 and 256; any other runs zero-padded on the
+next one up, ``short_attention.HeadPad``); the source's header says what
 bounds them on the H100 and how they are laid out.  bf16 runs on the tensor
-cores, f32 on the CUDA cores.
+cores (``wgmma`` up to 128, ``mma.sync`` at 256), f32 on the CUDA cores
+(at 256 the short-attention kernels, ``short_attention.wide_f32``).
 
 Dropout uses the rule of ``ops/dropout.py`` (Philox of the seed and the
 element's index), the short-attention kernels' rule: at the same seed both
@@ -32,7 +33,10 @@ Entry points, each launching its kernels for CUDA tensors (or raising):
   roundings, whose plain version is :func:`flash_attention2_backward_plain`.
 
 ``flash_attention2.launches``, ``flash2_bwd_fused.launches`` and
-``flash2_bwd_split.launches`` count kernel launches.
+``flash2_bwd_split.launches`` count kernel launches.  f32 above head dim 128
+launches none of this module's kernels: its calls count on
+``short_attention.launches`` and ``short_attention_v3_backward.launches``,
+whose kernels run.
 """
 
 from __future__ import annotations
@@ -45,31 +49,35 @@ import torch
 
 from .. import _build
 from ..configs import _round_up
-from .dropout import byte_threshold
+from .dropout import check_rate
 from .short_attention import (
     _DTYPES,
     HeadPad,
     _aligned,
     _check,
+    _forward_kernel as _short_forward_kernel,
     _seed_words,
     _stream,
     launch_forward,
     save_inputs,
     saved_inputs,
     short_attention_plain,
+    wide_f32,
+    wide_f32_backward,
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "msa_flash2_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                       _U, _U, _I, _P),
+                       _U, _U, _D, _P),
     "msa_flash2_bwd_fused": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _F, _U, _U, _I, _P),
+                             _I, _I, _I, _I, _F, _U, _U, _D, _P),
     "msa_flash2_bwd_split": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _F, _U, _U, _I, _P),
+                             _I, _I, _I, _I, _F, _U, _U, _D, _P),
 }
 
 # JAX's fused-backward budget and the block arithmetic it is computed from
@@ -169,13 +177,19 @@ def flash_attention2_backward_plain(q, k, v, key_bias, out, lse, dout,
     return tuple(x.reshape(b, s, h).to(q.dtype) for x in (dq, dk, dv))
 
 
-def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
+def _forward_kernel(q, k, v, key_bias, num_heads, seed, rate, train):
     """The flash2 forward kernel (``short_attention.launch_forward``: the
     two forwards share one C signature, flash2's with the f32 output its
-    backward reads); returns (ctx, lse, ctx32)."""
+    backward reads); returns (ctx, lse, ctx32).  f32 at a head dim above
+    128 runs the short-attention CUDA-core forward (``wide_f32``, counted
+    there), whose ctx is the f32 output."""
+    if wide_f32(q.dtype, q.shape[2] // num_heads):
+        ctx, lse = _short_forward_kernel(q, k, v, key_bias, num_heads, seed,
+                                         rate, train)
+        return ctx, lse, ctx if train else None
     result = launch_forward("flash2", _SIGNATURES, "msa_flash2_fwd",
                             "flash_attention2", q, k, v, key_bias, num_heads,
-                            seed, threshold, train, out32=True)
+                            seed, rate, train, out32=True)
     flash_attention2.launches += 1
     return result
 
@@ -219,7 +233,12 @@ def flash2_bwd_fused(q, k, v, key_bias, out32, lse, dout, num_heads: int,
     only, two launches: a pre-pass writing delta = rowsum(dO o) and zeroing
     an f32 dq buffer, then the sweep): ``out32`` (the output in f32) and
     ``lse`` are the training forward's outputs for the same inputs, seed
-    and rate.  dq is summed by f32 atomics into that buffer, then cast."""
+    and rate.  dq is summed by f32 atomics into that buffer, then cast.
+    f32 above head dim 128: the short-attention CUDA-core pair
+    (:func:`_wide_backward`)."""
+    if wide_f32(q.dtype, q.shape[2] // num_heads):
+        return _wide_backward(q, k, v, key_bias, out32, lse, dout, num_heads,
+                              seed, rate, "flash2_bwd_fused")
     q, k, v, key_bias, out32, dout, lse, pad = _backward_args(
         q, k, v, key_bias, out32, lse, dout, num_heads, "flash2_bwd_fused")
     b, s, h = q.shape
@@ -230,7 +249,7 @@ def flash2_bwd_fused(q, k, v, key_bias, out32, lse, dout, num_heads: int,
         out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
         _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
-        byte_threshold(rate), _stream(q))
+        check_rate(rate), _stream(q))
     _build.check(code, "flash2_bwd_fused")
     flash2_bwd_fused.launches += 2
     return tuple(map(pad.cut, (dq32.to(q.dtype), dk, dv)))
@@ -240,7 +259,12 @@ def flash2_bwd_split(q, k, v, key_bias, out32, lse, dout, num_heads: int,
                      seed: int = 0, rate: float = 0.0
                      ) -> Tuple[torch.Tensor, ...]:
     """dq, dk, dv of :func:`flash_attention2` by the split pair (CUDA only,
-    two launches: dq, which writes delta = rowsum(dO o), then dk/dv)."""
+    two launches: dq, which writes delta = rowsum(dO o), then dk/dv; f32
+    above head dim 128 the short-attention CUDA-core pair,
+    :func:`_wide_backward`)."""
+    if wide_f32(q.dtype, q.shape[2] // num_heads):
+        return _wide_backward(q, k, v, key_bias, out32, lse, dout, num_heads,
+                              seed, rate, "flash2_bwd_split")
     q, k, v, key_bias, out32, dout, lse, pad = _backward_args(
         q, k, v, key_bias, out32, lse, dout, num_heads, "flash2_bwd_split")
     b, s, h = q.shape
@@ -251,10 +275,21 @@ def flash2_bwd_split(q, k, v, key_bias, out32, lse, dout, num_heads: int,
         out32.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, num_heads,
         _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
-        byte_threshold(rate), _stream(q))
+        check_rate(rate), _stream(q))
     _build.check(code, "flash2_bwd_split")
     flash2_bwd_split.launches += 2
     return tuple(map(pad.cut, (dq, dk, dv)))
+
+
+def _wide_backward(q, k, v, key_bias, out32, lse, dout, num_heads, seed,
+                   rate, what):
+    """Either route's gradients for ``wide_f32`` inputs, one code for both:
+    the short-attention v3 pair (counted there), whose f32 rule is flash2's
+    (delta from the f32 output; the lse recomputed, so ``lse`` is only
+    checked)."""
+    _backward_args(q, k, v, key_bias, out32, lse, dout, num_heads, what)
+    return wide_f32_backward(q, k, v, key_bias, out32, dout, num_heads, seed,
+                             rate, what)
 
 
 def flash_attention2_backward(q, k, v, key_bias, out32, lse, dout,
@@ -279,7 +314,7 @@ class _FlashAttention2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_bias, num_heads, seed, rate, recompute):
         out, lse, out32 = _forward_kernel(q, k, v, key_bias, num_heads, seed,
-                                          byte_threshold(rate), train=True)
+                                          check_rate(rate), train=True)
         save_inputs(ctx, recompute, q, k, v, key_bias, out32, lse)
         ctx.args = (num_heads, seed, rate)
         return out
@@ -299,8 +334,8 @@ def flash_attention2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      recompute=None) -> torch.Tensor:
     """q/k/v: [B, S, H]; key_bias: [B, S] additive mask.  Returns ctx [B, S, H].
 
-    ``rate``: attention-probs dropout, a multiple of 1/256
-    (``ops.dropout.quantize_dropout_rate``), with ``seed`` (an int in
+    ``rate``: attention-probs dropout, any rate in [0, 1) (the model paths
+    snap it with ``ops.dropout.quantize_dropout_rate``), with ``seed`` (an int in
     [0, 2**62)).  CUDA tensors launch the kernels (or raise): the forward
     alone when no gradient is needed, else the autograd pair.  CPU tensors
     take the plain version, at rate 0 only: dropout off the card is
@@ -310,9 +345,9 @@ def flash_attention2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if rate > 0.0 and seed is None:
         raise ValueError("flash_attention2: dropout needs a seed")
-    threshold = byte_threshold(rate)
+    rate = check_rate(rate)
     if q.device.type == "cpu":
-        if threshold:
+        if rate:
             raise ValueError(
                 "flash_attention2: in-kernel dropout needs CUDA tensors; on "
                 "the CPU give flash_attention2_plain a keep mask")
@@ -322,7 +357,7 @@ def flash_attention2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _FlashAttention2.apply(q, k, v, key_bias, num_heads, seed, rate,
                                       recompute)
-    return _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold,
+    return _forward_kernel(q, k, v, key_bias, num_heads, seed, rate,
                            train=False)[0]
 
 

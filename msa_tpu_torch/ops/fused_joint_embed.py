@@ -6,11 +6,12 @@ rows [0, L) and ``LN(relu(feats @ W + b))`` to rows [L, L+Lp); the
 projection and the LayerNorm run in f32 and the output is stored in
 ``text_emb``'s dtype.  The kernel (``csrc/fused_joint_embed.cu``) takes
 any D (the features are staged 64 at a time; the datasets' D is one of 35,
-47, 74, 81, 371) and any H up to ``MAX_HIDDEN`` = 14,459, where its tile
-of four relu'd f32 rows fills the CTA's shared memory (the tiny preset's
+47, 74, 81, 371) and any H, as JAX's ``_kernel`` does (the tiny preset's
 64, TinyBERT's 312, bert-base's 768, bert-large's 1024; rows above 2048
-take the LayerNorm in three sweeps); its header says what bounds it on
-the H100.
+take the LayerNorm in three sweeps, and past 14,459, where a tile of four
+relu'd f32 rows would overfill the CTA's shared memory, a frame tile holds
+no row: the projection is recomputed in each of the three sweeps); its
+header says what bounds it on the H100.
 
 :func:`fused_joint_embed` launches the kernel for CUDA tensors and runs
 :func:`fused_joint_embed_plain` for CPU tensors.  Under autograd on CUDA it
@@ -31,10 +32,6 @@ import torch.nn.functional as F
 
 from .. import _build
 
-# H <= MAX_HIDDEN: 4 * (4 * (68 + H) + 4) bytes of shared memory, a frame
-# tile's four relu'd f32 rows and its staged features, fit the 232,448 a CTA
-# may take on the H100 (csrc/fused_joint_embed.cu::launch)
-MAX_HIDDEN = 14459
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,10 +99,6 @@ def _kernel(text_emb, feats, w, b, scale, bias, eps):
         raise TypeError(
             f"fused_joint_embed: text {text_emb.dtype} / feats {feats.dtype}; "
             "both must be float32 or both bfloat16")
-    if h > MAX_HIDDEN:
-        raise ValueError(f"fused_joint_embed: H={h} not supported (H <= "
-                         f"{MAX_HIDDEN}: four f32 rows in a CTA's shared "
-                         "memory)")
     if feats.shape[0] != bsz or w.shape != (d, h) or any(
             p.shape != (h,) for p in (b, scale, bias)):
         raise ValueError(

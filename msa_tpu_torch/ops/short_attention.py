@@ -8,19 +8,23 @@ the JAX entry: q, k, v and the returned ctx are [B, S, H] in natural layout
 (heads are sliced inside the kernels), ``key_bias`` is an additive [B, S]
 f32 mask, the softmax runs in f32, no gradient flows to the bias or the
 seed.  The kernels (``csrc/short_attention.cu``) take float32 and bfloat16,
-S < 1024 and any integer head dim from 1 to 128: each source is built
-once a head dim of ``HEAD_DIMS`` (16, 32, 64, 128), and a head dim between
-runs on the smallest of them above it, its heads zero-padded to that width
-on the way in and cut back on the way out (:class:`HeadPad`; the scores
-keep the scale of the true head dim); the source's header says what
-bounds them on the H100 and how they are laid out.  JAX hands
+S < 1024 and any integer head dim from 1 to 256: each source is built
+once a head dim of ``HEAD_DIMS`` (16, 32, 64, 128, 256), and a head dim
+between runs on the smallest of them above it, its heads zero-padded to
+that width on the way in and cut back on the way out (:class:`HeadPad`;
+the scores keep the scale of the true head dim); the source's header says
+what bounds them on the H100 and how they are laid out.  Above 128 (the
+library of 256) bf16 runs the CUDA-core kernels that f32 runs, which round
+p, pd and dS to bf16 where the tensor-core forms do, and every backward is
+a dq and dk/dv pair (:func:`backward_route`).  JAX hands
 512 < S < 1024 to XLA under ``use_flash="auto"``; here these kernels take
 it (``ops/attention.py`` routes), and S >= 1024 goes to the blockwise
 flash2 kernels (``ops/flash2.py``).
 
-Dropout takes a rate snapped to t/256 and a 64-bit seed; the keep mask is
-the function of (seed, element index) that ``ops/dropout.py`` defines, so
-the forward, the backward and :func:`dropout_keep_mask` agree.
+Dropout takes any rate in [0, 1) and a 64-bit seed; the keep mask is the
+function of (seed, rate, element index) that ``ops/dropout.py`` defines
+(the byte rule on the t/256 grid the model paths snap to, the word rule off
+it), so the forward, the backward and :func:`dropout_keep_mask` agree.
 
 Entry points, each launching its kernel for CUDA tensors (or raising):
 
@@ -81,42 +85,48 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .dropout import byte_threshold
+from .dropout import check_rate
 
 MAX_SEQ = 1023
 HEAD_DIMS = _build.HEAD_DIMS  # every attention kernel is instantiated for these
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+# The tensor-core templates' widest head dim: a library above it (256) runs
+# bf16 on the CUDA cores (short attention) or on mma.sync (flash).
+MAX_TC_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "msa_short_attention_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _F, _U, _U, _I, _P),
+                                _F, _U, _U, _D, _P),
     "msa_short_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                _I, _I, _I, _I, _F, _U, _U, _I, _P),
+                                _I, _I, _I, _I, _F, _U, _U, _D, _P),
     "msa_short_attention_v3_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _F, _U, _U, _I, _P),
+                                   _I, _I, _I, _I, _I, _F, _U, _U, _D, _P),
     "msa_short_attention_packed_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _F, _U, _U, _I, _P),
+                                       _F, _U, _U, _D, _P),
     "msa_short_attention_packed_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                       _I, _I, _F, _U, _U, _I, _P),
+                                       _I, _I, _F, _U, _U, _D, _P),
     "msa_short_attention_probs_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _F, _U, _U, _I, _P),
+                                      _I, _F, _U, _U, _D, _P),
     "msa_short_attention_probs_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                      _I, _I, _I, _I, _F, _I, _P),
-    "msa_dropout_keep_mask": (_P, _I, _I, _I, _U, _U, _I, _P),
+                                      _I, _I, _I, _I, _F, _D, _P),
+    "msa_dropout_keep_mask": (_P, _I, _I, _I, _U, _U, _D, _P),
 }
 _V1_SIGNATURES = {
     "msa_short_attention_v1_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                   _U, _U, _I, _P),
+                                   _U, _U, _D, _P),
     "msa_short_attention_v1_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                   _I, _I, _F, _U, _U, _I, _P),
+                                   _I, _I, _F, _U, _U, _D, _P),
 }
 # csrc/short_attention_v1.cu holds a head's K and V in shared memory up to
-# V1_WHOLE_ROW_SEQ keys; above, to MAX_SEQ, v1 runs the v2 kernels' forms
+# V1_WHOLE_ROW_SEQ keys and head dims up to V1_MAX_HEAD_DIM; above either,
+# to MAX_SEQ and MAX_HEAD_DIM, v1 runs the v2 kernels' forms
 V1_WHOLE_ROW_SEQ = 128
+V1_MAX_HEAD_DIM = _build.source_head_dims("short_attention_v1")[-1]
 # The bf16 v2, v2p, v3 and v2s backwards run on the tensor cores at every S
 # the kernels take: in one launch up to WHOLE_ROW_BWD_MAX_SEQ
 # (csrc/short_bwd_tc.cuh: a warp holds its whole score row in registers),
@@ -306,7 +316,7 @@ def _ptr(x):
 
 
 def launch_forward(source, signatures, entry, what, q, k, v, key_bias,
-                   num_heads, seed, threshold, train, out32=False):
+                   num_heads, seed, rate, train, out32=False):
     """Launch an attention forward kernel through the C ``entry`` of
     ``source``'s library at q's head dim (:class:`HeadPad`; the short and
     the flash2 forwards share one signature, flash2's with an f32 output
@@ -319,6 +329,7 @@ def launch_forward(source, signatures, entry, what, q, k, v, key_bias,
     and f32 on the CUDA cores; its training form's plain version is
     :func:`short_attention_train_forward_plain`."""
     b, s, h = q.shape
+    rate = check_rate(rate, what)
     pad = HeadPad(h, num_heads)
     q, k, v = _aligned(*map(pad.pad, (q, k, v)), what=what)
     key_bias = key_bias.to(torch.float32).contiguous()
@@ -335,26 +346,27 @@ def launch_forward(source, signatures, entry, what, q, k, v, key_bias,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), _ptr(lse), *f32, b, s, pad.hidden,
         num_heads, _DTYPES[q.dtype], pad.scale,
-        *_seed_words(seed), threshold, _stream(q))
+        *_seed_words(seed), rate, _stream(q))
     _build.check(code, what)
     ctx = pad.cut(out)
     return ctx, lse, ctx if ctx32 is out else pad.cut(ctx32)
 
 
-def _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold, train):
+def _forward_kernel(q, k, v, key_bias, num_heads, seed, rate, train):
     """The short forward kernel (:func:`launch_forward`): (ctx, lse), the
     lse None unless ``train``."""
     out, lse, _ = launch_forward("short_attention", _SIGNATURES,
                                  "msa_short_attention_fwd", "short_attention",
-                                 q, k, v, key_bias, num_heads, seed, threshold,
+                                 q, k, v, key_bias, num_heads, seed, rate,
                                  train)
     short_attention.launches += 1
     return out, lse
 
 
-def backward_route(seq: int, dtype: torch.dtype) -> str:
-    """The route of the v2, v2p, v3 and v2s backwards at (S, dtype), the
-    rule of ``csrc/short_attention.cu::tc_backward`` and ``bwd_dispatch``:
+def backward_route(seq: int, dtype: torch.dtype, head_dim: int) -> str:
+    """The route of the v2, v2p, v3 and v2s backwards at (S, dtype) and head
+    dim d, the rule of
+    ``csrc/short_attention.cu::tc_backward`` and ``bwd_dispatch``:
 
     * ``WHOLE_ROW``: bf16 at S <= 128, one tensor-core launch
       (``csrc/short_bwd_tc.cuh``) that recomputes each row's softmax (v2s:
@@ -362,26 +374,28 @@ def backward_route(seq: int, dtype: torch.dtype) -> str:
     * ``TILED``: bf16 at 129 <= S <= 1023, the tensor-core dq and dk/dv
       pair (``csrc/short_bwd_tiled.cuh``), v2's reading the training
       forward's lse;
-    * ``CUDA_CORES``: f32, the dq and dk/dv pair on the CUDA cores (v2's
+    * ``CUDA_CORES``: f32, and both dtypes at a head dim above 128 (the
+      library of 256), the dq and dk/dv pair on the CUDA cores (v2's
       reading the lse too)."""
-    if dtype != torch.bfloat16:
+    if dtype != torch.bfloat16 or kernel_head_dim(head_dim) > MAX_TC_HEAD_DIM:
         return CUDA_CORES
     return WHOLE_ROW if seq <= WHOLE_ROW_BWD_MAX_SEQ else TILED
 
 
-def tensor_core_backward(seq: int, dtype: torch.dtype) -> bool:
-    """Whether the backwards at (S, dtype) run on the tensor cores: bf16 at
-    any S the kernels take (:func:`backward_route`)."""
-    return backward_route(seq, dtype) != CUDA_CORES
+def tensor_core_backward(seq: int, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the backwards at (S, dtype, d) run on the tensor cores: bf16
+    at any S the kernels take, at head dims up to 128
+    (:func:`backward_route`)."""
+    return backward_route(seq, dtype, head_dim) != CUDA_CORES
 
 
-def backward_launches(seq: int, dtype: torch.dtype) -> int:
+def backward_launches(seq: int, dtype: torch.dtype, head_dim: int) -> int:
     """Kernel launches of one :func:`short_attention_backward`,
     :func:`short_attention_packed_backward`,
     :func:`short_attention_v3_backward` or
     :func:`short_attention_probs_backward` call: 1 on the whole-row route,
     2 on either pair (:func:`backward_route`)."""
-    return 1 if backward_route(seq, dtype) == WHOLE_ROW else 2
+    return 1 if backward_route(seq, dtype, head_dim) == WHOLE_ROW else 2
 
 
 class RouteCount:
@@ -392,12 +406,12 @@ class RouteCount:
         self.launches = 0
 
 
-def _count_backward(entry, seq, dtype):
+def _count_backward(entry, seq, dtype, head_dim):
     """Add one call's launches to ``entry``'s count, and to its tiled
     route's count where it ran there."""
-    n = backward_launches(seq, dtype)
+    n = backward_launches(seq, dtype, head_dim)
     entry.launches += n
-    if backward_route(seq, dtype) == TILED:
+    if backward_route(seq, dtype, head_dim) == TILED:
         entry.tiled.launches += n
 
 
@@ -417,14 +431,15 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
     _check(q, k, v, key_bias, num_heads, "short_attention_backward")
     grads = _backward_kernel(q, k, v, key_bias, lse, dout, num_heads, seed,
                              rate)
-    _count_backward(short_attention_backward, q.shape[1], q.dtype)
+    _count_backward(short_attention_backward, q.shape[1], q.dtype,
+                    q.shape[2] // num_heads)
     return grads
 
 
 def _backward_kernel(q, k, v, key_bias, lse, dout, num_heads, seed, rate):
     """The launches of :func:`short_attention_backward`, uncounted."""
     b, s, h = q.shape
-    one = backward_route(s, q.dtype) == WHOLE_ROW
+    one = backward_route(s, q.dtype, h // num_heads) == WHOLE_ROW
     if dout.shape != q.shape or not one and (
             lse is None or lse.shape != (b, num_heads, s)):
         raise ValueError("short_attention_backward: dout/lse "
@@ -441,7 +456,7 @@ def _backward_kernel(q, k, v, key_bias, lse, dout, num_heads, seed, rate):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         dout.data_ptr(), _ptr(lse), _ptr(delta), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, s, pad.hidden, num_heads, _DTYPES[q.dtype],
-        pad.scale, *_seed_words(seed), byte_threshold(rate), _stream(q))
+        pad.scale, *_seed_words(seed), check_rate(rate), _stream(q))
     _build.check(code, "short_attention_backward")
     return tuple(map(pad.cut, (dq, dk, dv)))
 
@@ -479,6 +494,17 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
         raise ValueError("short_attention_v3_backward: out/dout "
                          f"{tuple(out.shape)} {out.dtype}, {tuple(dout.shape)} "
                          f"do not fit q {tuple(q.shape)} {q.dtype}")
+    grads = _v3_backward_kernel(q, k, v, key_bias, out, dout, num_heads, seed,
+                                rate, "short_attention_v3_backward")
+    _count_backward(short_attention_v3_backward, s, q.dtype, h // num_heads)
+    return grads
+
+
+def _v3_backward_kernel(q, k, v, key_bias, out, dout, num_heads, seed, rate,
+                        what):
+    """The launches of :func:`short_attention_v3_backward`, uncounted and at
+    any S (the CUDA-core pair takes any)."""
+    b, s, h = q.shape
     pad = HeadPad(h, num_heads)
     q, k, v, out, dout = _aligned(*map(pad.pad, (q, k, v, out,
                                                  dout.to(q.dtype))))
@@ -492,10 +518,31 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, pad.hidden,
         num_heads, _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
-        byte_threshold(rate), _stream(q))
-    _build.check(code, "short_attention_v3_backward")
-    _count_backward(short_attention_v3_backward, s, q.dtype)
+        check_rate(rate), _stream(q))
+    _build.check(code, what)
     return tuple(map(pad.cut, (dq, dk, dv)))
+
+
+def wide_f32(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the flash entries (``ops/flash2.py``, ``ops/attention.py``)
+    run on this module's CUDA-core kernels: f32 at a head dim above 128,
+    where the flash kernels' staged f32 tiles do not fit in shared
+    memory.  Those kernels take any S, and their f32 rules are the flash
+    rules (in f32 no rounding differs)."""
+    return dtype == torch.float32 and kernel_head_dim(head_dim) > MAX_TC_HEAD_DIM
+
+
+def wide_f32_backward(q, k, v, key_bias, out, dout, num_heads, seed, rate,
+                      what):
+    """dq, dk, dv for :func:`wide_f32` inputs by the v3 pair on the CUDA
+    cores (delta = dO . o from ``out``, the f32 output; the lse
+    recomputed), counted on :func:`short_attention_v3_backward`, whose
+    kernels they are."""
+    grads = _v3_backward_kernel(q, k, v, key_bias, out, dout, num_heads, seed,
+                                rate, what)
+    _count_backward(short_attention_v3_backward, q.shape[1], q.dtype,
+                    q.shape[2] // num_heads)
+    return grads
 
 
 def save_inputs(ctx, recompute, q, k, v, *rest):
@@ -533,10 +580,10 @@ class _ShortAttention(torch.autograd.Function):
             out = short_attention_plain(q, k, v, key_bias, num_heads)
             save_inputs(ctx, recompute, q, k, v, key_bias, out)
             return out
-        train = not ctx.v3 and backward_route(q.shape[1],
-                                              q.dtype) != WHOLE_ROW
+        train = not ctx.v3 and backward_route(
+            q.shape[1], q.dtype, q.shape[2] // num_heads) != WHOLE_ROW
         out, lse = _forward_kernel(q, k, v, key_bias, num_heads, seed,
-                                   byte_threshold(rate), train)
+                                   check_rate(rate), train)
         save_inputs(ctx, recompute, q, k, v, key_bias, out if ctx.v3 else lse)
         return out
 
@@ -562,22 +609,22 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     recompute=None) -> torch.Tensor:
     """q/k/v: [B, S, H]; key_bias: [B, S] additive mask.  Returns ctx [B, S, H].
 
-    ``rate``: attention-probs dropout, a multiple of 1/256
-    (``ops.dropout.quantize_dropout_rate``), with ``seed`` (an int in
-    [0, 2**62)).  CUDA tensors launch the kernels (or raise): the forward
-    alone when no gradient is needed, else the autograd pair.  CPU tensors
-    take the plain version, at rate 0 only: dropout off the card is
+    ``rate``: attention-probs dropout, any rate in [0, 1) (the model paths
+    snap it to t/256 with ``ops.dropout.quantize_dropout_rate``), with
+    ``seed`` (an int in [0, 2**62)).  CUDA tensors launch the kernels (or
+    raise): the forward alone when no gradient is needed, else the autograd
+    pair.  CPU tensors take the plain version, at rate 0 only: dropout off the card is
     ``multi_head_attention``'s bernoulli mask, and the kernels' mask is
     ``short_attention_plain`` given ``ops.dropout.keep_mask_plain``.
     ``recompute``: see the module docstring.
     """
     if rate > 0.0 and seed is None:
         raise ValueError("short_attention: dropout needs a seed")
-    threshold = byte_threshold(rate)
+    rate = check_rate(rate)
     needs_grad = torch.is_grad_enabled() and any(
         x.requires_grad for x in (q, k, v))
     if q.device.type == "cpu":
-        if threshold:
+        if rate:
             raise ValueError(
                 "short_attention: in-kernel dropout needs CUDA tensors; on the "
                 "CPU give short_attention_plain a keep mask")
@@ -590,18 +637,18 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if needs_grad:
         return _ShortAttention.apply(q, k, v, key_bias, num_heads, seed, rate,
                                      recompute)
-    return _forward_kernel(q, k, v, key_bias, num_heads, seed, threshold,
+    return _forward_kernel(q, k, v, key_bias, num_heads, seed, rate,
                            train=False)[0]
 
 
 def dropout_keep_mask(seed: int, rate: float, batch: int, num_heads: int,
                       seq: int, device) -> torch.Tensor:
     """The kernels' attention keep mask, [B, heads, S, S] bool, for ``seed``
-    and a rate snapped to t/256, exported by a CUDA kernel on a CUDA
-    device.  Its plain version is :func:`ops.dropout.keep_mask_plain`."""
+    and a rate in (0, 1), exported by a CUDA kernel on a CUDA device.  Its
+    plain version is :func:`ops.dropout.keep_mask_plain`."""
     device = torch.device(device)
-    threshold = byte_threshold(rate)
-    if threshold == 0:
+    rate = check_rate(rate)
+    if rate == 0:
         raise ValueError("dropout_keep_mask: rate must be > 0")
     if device.type != "cuda":
         raise ValueError(f"dropout_keep_mask: no kernel for device {device}; "
@@ -613,7 +660,7 @@ def dropout_keep_mask(seed: int, rate: float, batch: int, num_heads: int,
                       _SIGNATURES)
     code = lib.msa_dropout_keep_mask(
         out.data_ptr(), batch, num_heads, seq, *_seed_words(int(seed)),
-        threshold, torch.cuda.current_stream(device).cuda_stream)
+        rate, torch.cuda.current_stream(device).cuda_stream)
     _build.check(code, "dropout_keep_mask")
     dropout_keep_mask.launches += 1
     return out.bool()
@@ -711,7 +758,8 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
     pad = HeadPad(h, num_heads)
     q, k, v, dout = map(pad.pad, (q, k, v, dout.to(q.dtype)))
     q, k, v, probs, dout = _aligned(q, k, v, probs, dout)
-    delta = None if backward_route(s, q.dtype) == WHOLE_ROW else torch.empty(
+    delta = None if backward_route(s, q.dtype, h // num_heads) == WHOLE_ROW \
+        else torch.empty(
         (b, num_heads, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = pad.library("short_attention", _SIGNATURES)
@@ -719,9 +767,9 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(),
         dout.data_ptr(), _ptr(delta), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, s, pad.hidden, num_heads, _DTYPES[q.dtype],
-        pad.scale, byte_threshold(rate), _stream(q))
+        pad.scale, check_rate(rate), _stream(q))
     _build.check(code, "short_attention_probs_backward")
-    _count_backward(short_attention_probs_backward, s, q.dtype)
+    _count_backward(short_attention_probs_backward, s, q.dtype, h // num_heads)
     return tuple(map(pad.cut, (dq, dk, dv)))
 
 
@@ -738,7 +786,7 @@ def _probs_forward_kernel(q, k, v, key_bias, num_heads, seed, rate):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), probs.data_ptr(), b, s, pad.hidden, num_heads,
         _DTYPES[q.dtype], pad.scale, *_seed_words(seed),
-        byte_threshold(rate), _stream(q))
+        check_rate(rate), _stream(q))
     _build.check(code, "short_attention_probs")
     short_attention_probs.launches += 1
     return pad.cut(out), probs
@@ -788,7 +836,7 @@ def short_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rate > 0.0 and seed is None:
         raise ValueError("short_attention_probs: dropout needs a seed")
     if q.device.type == "cpu":
-        if byte_threshold(rate):
+        if check_rate(rate):
             raise ValueError("short_attention_probs: in-kernel dropout needs "
                              "CUDA tensors; on the CPU give "
                              "short_attention_probs_plain a keep mask")
@@ -845,7 +893,7 @@ def _check_packed(qkv, key_bias, num_heads, what):
     _check(q, k, v, key_bias, num_heads, what)
 
 
-def _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold, train):
+def _packed_forward_kernel(qkv, key_bias, num_heads, seed, rate, train):
     """The packed forward; (ctx, lse) as :func:`_forward_kernel`: the same
     kernels reading the thirds of ``qkv`` at row stride 3H."""
     b, s, h3 = qkv.shape
@@ -859,7 +907,7 @@ def _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold, train):
     code = lib.msa_short_attention_packed_fwd(
         qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), _ptr(lse), b, s,
         pad.hidden, num_heads, _DTYPES[qkv.dtype], pad.scale,
-        *_seed_words(seed), threshold, _stream(qkv))
+        *_seed_words(seed), rate, _stream(qkv))
     _build.check(code, "short_attention_packed")
     short_attention_packed.launches += 1
     return pad.cut(out), lse
@@ -895,9 +943,10 @@ def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
         qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), b, s, pad.hidden,
         num_heads, _DTYPES[qkv.dtype], pad.scale,
-        *_seed_words(seed), byte_threshold(rate), _stream(qkv))
+        *_seed_words(seed), check_rate(rate), _stream(qkv))
     _build.check(code, "short_attention_packed_backward")
-    _count_backward(short_attention_packed_backward, s, qkv.dtype)
+    _count_backward(short_attention_packed_backward, s, qkv.dtype,
+                    h3 // 3 // num_heads)
     return pad.cut_packed(dqkv)
 
 
@@ -911,7 +960,7 @@ class _ShortAttentionPacked(torch.autograd.Function):
     def forward(ctx, qkv, key_bias, num_heads, seed, rate):
         if qkv.is_cuda:
             out = _packed_forward_kernel(qkv, key_bias, num_heads, seed,
-                                         byte_threshold(rate), False)[0]
+                                         check_rate(rate), False)[0]
         else:
             out = short_attention_packed_plain(qkv, key_bias, num_heads)
         ctx.save_for_backward(qkv, key_bias, out)
@@ -941,10 +990,10 @@ def short_attention_packed(qkv: torch.Tensor, key_bias: torch.Tensor,
     plain versions, at rate 0 only."""
     if rate > 0.0 and seed is None:
         raise ValueError("short_attention_packed: dropout needs a seed")
-    threshold = byte_threshold(rate)
+    rate = check_rate(rate)
     seed = 0 if seed is None else int(seed)
     if qkv.device.type == "cpu":
-        if threshold:
+        if rate:
             raise ValueError("short_attention_packed: in-kernel dropout needs "
                              "CUDA tensors; on the CPU give "
                              "short_attention_packed_plain a keep mask")
@@ -955,7 +1004,7 @@ def short_attention_packed(qkv: torch.Tensor, key_bias: torch.Tensor,
                                            rate)
     if qkv.device.type == "cpu":
         return short_attention_packed_plain(qkv, key_bias, num_heads)
-    return _packed_forward_kernel(qkv, key_bias, num_heads, seed, threshold,
+    return _packed_forward_kernel(qkv, key_bias, num_heads, seed, rate,
                                   train=False)[0]
 
 
@@ -978,12 +1027,18 @@ def short_attention_v1_backward_plain(q, k, v, key_bias, dout, num_heads: int,
                                    q.dtype)
 
 
-def _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, threshold):
+def v1_on_v2(seq: int, head_dim: int) -> bool:
+    """Whether v1 runs on the v2 kernels' forms at (S, d): above
+    ``V1_WHOLE_ROW_SEQ`` keys or a head dim above ``V1_MAX_HEAD_DIM``."""
+    return seq > V1_WHOLE_ROW_SEQ or kernel_head_dim(head_dim) > V1_MAX_HEAD_DIM
+
+
+def _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, rate):
     b, s, h = q.shape
-    if s > V1_WHOLE_ROW_SEQ:  # the same function on the v2 forward's forms
+    if v1_on_v2(s, h // num_heads):  # the same function on the v2 forward's forms
         out = launch_forward("short_attention", _SIGNATURES,
                              "msa_short_attention_fwd", "short_attention_v1",
-                             q, k, v, key_bias, num_heads, seed, threshold,
+                             q, k, v, key_bias, num_heads, seed, rate,
                              train=False)[0]
         short_attention_v1.launches += 1
         return out
@@ -995,17 +1050,20 @@ def _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, threshold):
     code = lib.msa_short_attention_v1_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         out.data_ptr(), b, s, pad.hidden, num_heads, _DTYPES[q.dtype],
-        pad.scale, *_seed_words(seed), threshold, _stream(q))
+        pad.scale, *_seed_words(seed), rate, _stream(q))
     _build.check(code, "short_attention_v1")
     short_attention_v1.launches += 1
     return pad.cut(out)
 
 
-def v1_backward_launches(seq: int, dtype: torch.dtype) -> int:
+def v1_backward_launches(seq: int, dtype: torch.dtype, head_dim: int) -> int:
     """Kernel launches of one :func:`short_attention_v1_backward` call: 1 up
-    to ``V1_WHOLE_ROW_SEQ`` keys; above, the v2 training forward for the
-    row lse, then the v2 backward (:func:`backward_launches`)."""
-    return 1 if seq <= V1_WHOLE_ROW_SEQ else 1 + backward_launches(seq, dtype)
+    to ``V1_WHOLE_ROW_SEQ`` keys and head dim ``V1_MAX_HEAD_DIM``; above,
+    the v2 training forward for the row lse, then the v2 backward
+    (:func:`backward_launches`)."""
+    if not v1_on_v2(seq, head_dim):
+        return 1
+    return 1 + backward_launches(seq, dtype, head_dim)
 
 
 def short_attention_v1_backward(q, k, v, key_bias, dout, num_heads: int,
@@ -1013,8 +1071,8 @@ def short_attention_v1_backward(q, k, v, key_bias, dout, num_heads: int,
                                 rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """dq, dk, dv of :func:`short_attention_v1` (CUDA only) from q, k, v,
     the bias and dout alone, for the forward's seed and rate.  Up to 128
-    keys one launch that recomputes each row's max, sum and probabilities;
-    above, v1 keeps no lse, so the v2 training forward recomputes it (its
+    keys (and head dim 128) one launch that recomputes each row's max, sum
+    and probabilities; above, v1 keeps no lse, so the v2 training forward recomputes it (its
     ctx dropped) and the v2 backward, whose rule (delta = rowsum(p * dpm))
     is v1's, reads it (:func:`v1_backward_launches`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_v1_backward")
@@ -1022,16 +1080,16 @@ def short_attention_v1_backward(q, k, v, key_bias, dout, num_heads: int,
     if dout.shape != q.shape:
         raise ValueError(f"short_attention_v1_backward: dout "
                          f"{tuple(dout.shape)} does not fit q {tuple(q.shape)}")
-    if s > V1_WHOLE_ROW_SEQ:
-        threshold = byte_threshold(rate)
+    if v1_on_v2(s, h // num_heads):
+        rate = check_rate(rate)
         lse = launch_forward("short_attention", _SIGNATURES,
                              "msa_short_attention_fwd",
                              "short_attention_v1_backward", q, k, v, key_bias,
-                             num_heads, seed, threshold, train=True)[1]
+                             num_heads, seed, rate, train=True)[1]
         grads = _backward_kernel(q, k, v, key_bias, lse, dout, num_heads,
                                  seed, rate)
         short_attention_v1_backward.launches += v1_backward_launches(
-            s, q.dtype)
+            s, q.dtype, h // num_heads)
         return grads
     pad = HeadPad(h, num_heads)
     q, k, v, dout = _aligned(*map(pad.pad, (q, k, v, dout.to(q.dtype))),
@@ -1043,7 +1101,7 @@ def short_attention_v1_backward(q, k, v, key_bias, dout, num_heads: int,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
         dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s,
         pad.hidden, num_heads, _DTYPES[q.dtype], pad.scale,
-        *_seed_words(seed), byte_threshold(rate), _stream(q))
+        *_seed_words(seed), check_rate(rate), _stream(q))
     _build.check(code, "short_attention_v1_backward")
     short_attention_v1_backward.launches += 1
     return tuple(map(pad.cut, (dq, dk, dv)))
@@ -1059,7 +1117,7 @@ class _ShortAttentionV1(torch.autograd.Function):
     def forward(ctx, q, k, v, key_bias, num_heads, seed, rate):
         if q.is_cuda:
             out = _v1_forward_kernel(q, k, v, key_bias, num_heads, seed,
-                                     byte_threshold(rate))
+                                     check_rate(rate))
         else:
             out = short_attention_plain(q, k, v, key_bias, num_heads)
         ctx.save_for_backward(q, k, v, key_bias)
@@ -1096,9 +1154,9 @@ def short_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     only."""
     if rate > 0.0 and seed is None:
         raise ValueError("short_attention_v1: dropout needs a seed")
-    threshold = byte_threshold(rate)
+    rate = check_rate(rate)
     if q.device.type == "cpu":
-        if threshold:
+        if rate:
             raise ValueError("short_attention_v1: in-kernel dropout needs CUDA "
                              "tensors; on the CPU give short_attention_plain a "
                              "keep mask")
@@ -1109,7 +1167,7 @@ def short_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _ShortAttentionV1.apply(q, k, v, key_bias, num_heads, seed, rate)
     if q.device.type == "cpu":
         return short_attention_plain(q, k, v, key_bias, num_heads)
-    return _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, threshold)
+    return _v1_forward_kernel(q, k, v, key_bias, num_heads, seed, rate)
 
 
 short_attention.launches = 0

@@ -40,6 +40,10 @@ from msa_tpu_torch.models.weights import (
 from msa_tpu_torch.training import checkpoint as ckpt
 from msa_tpu_torch.training import msgpack_codec as codec
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 PRED_ATOL = 2e-6
 
 

@@ -48,6 +48,11 @@ from msa_tpu_torch.parallel import distributed
 from msa_tpu_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, make_hybrid_mesh, make_mesh)
 from msa_tpu_torch.training.trainer import Trainer
+from test_torch_train import placed
+
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPECIAL_IDS = (0, 2, 3, 4)
@@ -115,7 +120,8 @@ def run_jax():
     trainer = JaxTrainer(exp, mesh=jax_make_mesh(2, 1), mask_token_id=MASK_ID,
                          special_ids=SPECIAL_IDS)
     trainer.mlm_mask_injector = unequal_masks
-    state = trainer.init_state(jax.random.key(0), total_steps=STEPS)
+    state = placed(trainer.init_state(jax.random.key(0), total_steps=STEPS),
+                   trainer.mesh)
     start = (tree_np(state.params), tree_np(state.opt_state))
     step = trainer._build_train_step()
     hist = []

@@ -43,8 +43,12 @@ from msa_tpu_torch.training.trainer import FitResult, Trainer
 from msa_tpu_torch.utils.logging import get_logger, make_date_dir
 from test_cli_end_to_end import data_pkl, vocab_file, workdir  # noqa: F401
 from test_torch_train import (
-    MASK_ID, SPECIAL_IDS, VOCAB, B, L, experiment, mlm_masks, port_experiment,
-    tree_np)
+    MASK_ID, SPECIAL_IDS, VOCAB, B, L, experiment, mlm_masks, placed,
+    port_experiment, tree_np)
+
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HIST_TOL = 1e-5
@@ -92,11 +96,13 @@ def jax_fit(exp, directory, resume=None):
     trainer = JaxTrainer(exp, mesh=make_mesh(1, 1), mask_token_id=MASK_ID,
                          special_ids=SPECIAL_IDS)
     trainer.mlm_mask_injector = mlm_masks
-    state = trainer.init_state(jax.random.key(0), total_steps=3 * EPOCHS)
+    state = placed(trainer.init_state(jax.random.key(0), total_steps=3 * EPOCHS),
+                   trainer.mesh)
     params = tree_np(state.params)
     start_epoch, result = 0, None
     if resume is not None:
         state, meta = jax_ckpt.load_checkpoint(resume, state)
+        state = placed(state, trainer.mesh)
         start_epoch = meta["epoch"] + 1
         result = JaxFitResult.from_meta(meta["fit"], resume)
     state, result = trainer.fit(state, *splits(JaxDataset), checkpoint_dir=directory,

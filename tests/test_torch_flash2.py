@@ -36,6 +36,10 @@ from msa_tpu_torch.ops.attention import attention_route, multi_head_attention
 from msa_tpu_torch.ops.short_attention import short_attention
 from msa_tpu_torch.utils.flops import mmbert_step_flops
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 FWD_TOL = 1e-5
 GRAD_TOL = 2e-4
 BF16_TOL = (2e-3, 8e-3)  # (atol, rtol)
@@ -362,7 +366,7 @@ def test_flash2_bwd_fused_wrapper_hands_the_prepass_its_scratch(dtype, code,
     assert args[7:11] == (delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(),
                           dv.data_ptr())
     assert args[11:16] == (b, s, h, HEADS, code)
-    assert args[-2] == 26  # the rate's byte threshold
+    assert args[-2] == 26 / 256  # the rate itself (the C entry picks its rule)
     assert dq.dtype == dtype and torch.equal(dq.float(), dq32)
 
 
@@ -408,6 +412,6 @@ def test_flash2_bwd_split_wrapper_hands_the_dq_launch_its_delta(dtype, code,
     assert args[7:11] == (delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                           dv.data_ptr())
     assert args[11:16] == (b, s, h, HEADS, code)
-    assert args[-4:-1] == (5, 0, 26)  # the seed's words, the rate's threshold
+    assert args[-4:-1] == (5, 0, 26 / 256)  # the seed's words, the rate
     for g in (dq, dk, dv):
         assert g.shape == q.shape and g.dtype == dtype

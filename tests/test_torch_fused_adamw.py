@@ -42,6 +42,10 @@ from msa_tpu_torch.training.optim import (
     FusedAdamW, linear_warmup_decay, make_fused_optimizer)
 from test_torch_train import STEPS, run_jax, run_port
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # one unit in the last place, relative: 2^-23 (f32), 2^-7 (bf16)

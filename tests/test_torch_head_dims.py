@@ -4,11 +4,12 @@ The kernels build and run only on a card (chip_smoke.py holds them against
 their plain versions there, at head dims 8, 16, 26, 32, 64 and 128); these
 tests hold the Python side of the contract on the CPU:
 
-* every attention entry takes any integer head dim from 1 to 128 and
+* every attention entry takes any integer head dim from 1 to 256 and
   raises for any other, naming the limit; each attention source is built
-  once a head dim of ``HEAD_DIMS`` (16, 32, 64, 128: the instantiations of
-  ``csrc/mma_tiles.cuh::by_head_dim``), and a head dim between runs on the
-  next one up;
+  once a head dim of ``HEAD_DIMS`` (16, 32, 64, 128, 256: the
+  instantiations of ``csrc/mma_tiles.cuh::by_head_dim``; v1's whole-row
+  source up to 128, above which v1 runs on the v2 kernels), and a head dim
+  between runs on the next one up;
 * the wrappers of a head dim off the instantiations (8, 26, 100) pad each
   head with zero columns to the instantiated width and cut the outputs
   back, through a stand-in for the CUDA library that computes attention on
@@ -40,16 +41,20 @@ from msa_tpu_torch.ops import attention as attn
 from msa_tpu_torch.ops import short_attention as sa
 from msa_tpu_torch.ops.ln_quant import supported_hidden
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("d, ok", [(32, True), (64, True), (16, True),
                                    (48, True), (128, True), (1, True),
-                                   (64.5, False), (136, False), (256, False),
-                                   (0, False)])
+                                   (64.5, False), (136, True), (256, True),
+                                   (257, False), (0, False)])
 def test_head_dim_acceptance(d, ok):
     if ok:
         sa.check_head_dim(d, "entry")
     else:
-        with pytest.raises(ValueError, match="integer head dim from 1 to 128"):
+        with pytest.raises(ValueError, match="integer head dim from 1 to 256"):
             sa.check_head_dim(d, "entry")
 
 
@@ -62,20 +67,27 @@ def test_head_dims_are_the_instantiated_ones():
     text = (_build.CSRC / "mma_tiles.cuh").read_text()
     dims = tuple(int(d) for d in re.findall(
         r"if \(d == (\d+)\) return f\(std::integral_constant", text))
-    assert dims == sa.HEAD_DIMS == _build.HEAD_DIMS == (16, 32, 64, 128)
+    assert dims == sa.HEAD_DIMS == _build.HEAD_DIMS == (16, 32, 64, 128, 256)
     assert "MSA_HEAD_DIM" in text
     libraries = _build.libraries()
+    assert len(libraries) == 3 * 5 + 4 + 3  # v1 up to 128, three others
     for name in ("short_attention", "short_attention_v1", "flash2",
                  "flash_attention"):
         assert "by_head_dim(" in (_build.CSRC / f"{name}.cu").read_text(), name
-        for d in sa.HEAD_DIMS:
+        dims = _build.source_head_dims(name)
+        assert dims == (sa.HEAD_DIMS[:4] if name == "short_attention_v1"
+                        else sa.HEAD_DIMS), name
+        for d in dims:
             lib = _build.head_dim_library(name, d)
             assert lib in libraries
             assert f"-DMSA_HEAD_DIM={d}" in _build._flags(lib)
             assert _build._source(lib) == _build.CSRC / f"{name}.cu"
+    with pytest.raises(ValueError, match="no library"):
+        _build.head_dim_library("short_attention_v1", 256)
+    assert sa.V1_MAX_HEAD_DIM == 128
     assert [sa.kernel_head_dim(d) for d in (1, 8, 16, 17, 26, 32, 33, 64, 65,
-                                            100, 128)] == [
-        16, 16, 16, 32, 32, 32, 64, 64, 128, 128, 128]
+                                            100, 128, 129, 192, 256)] == [
+        16, 16, 16, 32, 32, 32, 64, 64, 128, 128, 128, 256, 256, 256]
 
 
 def ln_quant_instantiations():
@@ -220,7 +232,7 @@ def stand_in(monkeypatch):
     return lib
 
 
-PAD_HEAD_DIMS = [8, 26, 100]  # on the instantiations at 16, 32 and 128
+PAD_HEAD_DIMS = [8, 26, 100, 192]  # on the instantiations at 16, 32, 128, 256
 
 
 def _inputs(d, heads=3, b=2, s=7, n=4):
@@ -277,7 +289,7 @@ def test_padded_packed_backward_pads_each_third(stand_in, d):
     torch.testing.assert_close(dqkv, want, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("d", PAD_HEAD_DIMS)
+@pytest.mark.parametrize("d", PAD_HEAD_DIMS[:3])
 def test_padded_head_split_forward(stand_in, d):
     (q, k, v), bias, heads = _inputs(d, n=3)
     split = lambda x: x.reshape(2, 7, heads, d).transpose(1, 2)  # noqa: E731
@@ -287,3 +299,22 @@ def test_padded_head_split_forward(stand_in, d):
     torch.testing.assert_close(
         out, split(sa.short_attention_plain(q, k, v, bias, heads)),
         atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_f32_head_split_runs_the_short_kernels(stand_in, d):
+    """f32 above head dim 128 on the head-split flash entry: its [B, heads,
+    S, d] tensors go to the short-attention library of 256 as one head of
+    each of B x heads rows (the flash kernels' f32 tiles would overfill
+    shared memory there), padded to 256 at the true d's scale, and the
+    output comes back in the head-split layout."""
+    (q, k, v), bias, heads = _inputs(d, n=3)
+    split = lambda x: x.reshape(2, 7, heads, d).transpose(1, 2)  # noqa: E731
+    out, _ = attn._forward_kernel(*map(split, (q, k, v)), bias, 0, 0, False)
+    assert set(stand_in.loaded) == {"short_attention_d256"}
+    assert stand_in.calls == [(256, pytest.approx(1 / math.sqrt(d)))]
+    assert out.shape == (2, heads, 7, d)
+    torch.testing.assert_close(
+        out, split(sa.short_attention_plain(q, k, v, bias, heads)),
+        atol=1e-5, rtol=1e-5)
+

@@ -33,6 +33,10 @@ from msa_tpu_torch.models.mmbert import mmbert_forward
 from msa_tpu_torch.models.weights import (
     cast_for_compute, from_jax_params, init_params)
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-4
 BF16_NOISE_FACTOR = 3.0
 HEADS = ("seq_text", "seq_joint", "align_visual", "align_speech", "nsp_text",

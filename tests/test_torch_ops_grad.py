@@ -37,6 +37,10 @@ from msa_tpu_torch.ops.attention import multi_head_attention
 from msa_tpu_torch.ops.short_attention import (
     dropout_keep_mask, short_attention, short_attention_plain)
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 GRAD_TOL = 2e-5
 SIGMAS = 4.0
 

@@ -43,6 +43,10 @@ from msa_tpu_torch.training import ocdbt, orbax_reader, zstd
 from msa_tpu_torch.training.trainer import Trainer
 from test_checkpoint_orbax import tiny_exp
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "data", "orbax_two_process")
 SPECIAL = dict(mask_token_id=4, special_ids=(0, 2, 3, 4))

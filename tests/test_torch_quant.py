@@ -49,6 +49,10 @@ from msa_tpu_torch.models.weights import cast_for_compute, from_jax_params
 from msa_tpu_torch.ops import quant as tq
 from msa_tpu_torch.ops.ln_quant import ln_quant, ln_quant_plain
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 ENCODER_ATOL = 2e-5
 PRED_ATOL = 2e-6
 BF16_NOISE_FACTOR = 3.0

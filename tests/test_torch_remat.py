@@ -61,6 +61,10 @@ from msa_tpu_torch.ops.short_attention import (
 from msa_tpu_torch.training import trainer as trainer_mod
 from msa_tpu_torch.training.trainer import Trainer
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 BF16_TOL = 2e-2

@@ -39,6 +39,10 @@ from msa_tpu_torch.cli.serve import serve_stream
 from msa_tpu_torch.inference import Predictor
 from msa_tpu_torch.models.weights import from_jax_params
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 BF16_NOISE_FACTOR = 3.0
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -34,6 +34,10 @@ from msa_tpu.ops import short_attention as jax_sa
 from msa_tpu_torch.ops import short_attention as sa
 from msa_tpu_torch.ops.dropout import keep_mask_plain
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 FWD_TOL = 1e-5
 GRAD_TOL = 2e-4
 BF16_TOL = 2e-2
@@ -139,8 +143,11 @@ def test_short_attention_v1_cpu_refuses_in_kernel_dropout():
     with pytest.raises(ValueError, match="CUDA tensors"):
         sa.short_attention_v1(q, q, q, torch.zeros(1, 8), HEADS, 26 / 256,
                               seed=3)
-    with pytest.raises(ValueError, match="multiple of 1/256"):
+    # any rate in [0, 1) is the kernels' (0.1 by the word rule); 1 is not
+    with pytest.raises(ValueError, match="CUDA tensors"):
         sa.short_attention_v1(q, q, q, torch.zeros(1, 8), HEADS, 0.1, seed=3)
+    with pytest.raises(ValueError, match=r"outside \[0, 1\)"):
+        sa.short_attention_v1(q, q, q, torch.zeros(1, 8), HEADS, 1.0, seed=3)
 
 
 def test_short_attention_v1_kernel_entries_refuse_cpu_tensors():

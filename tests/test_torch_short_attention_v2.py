@@ -37,6 +37,10 @@ from msa_tpu.ops.short_attention import short_attention_v2, short_attention_v2p
 from msa_tpu_torch.ops import short_attention as sa
 from test_torch_ops import attention_inputs
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 HEADS = 2
 H = 128
 F32_TOL = 1e-5

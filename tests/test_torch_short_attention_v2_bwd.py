@@ -38,6 +38,10 @@ from msa_tpu_torch import _build
 from msa_tpu_torch.ops import short_attention as sa
 from test_torch_ops_grad import GRAD_TOL, attention_inputs
 
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
+
 BF16_TOL = (2e-3, 8e-3)  # (atol, rtol)
 HEADS = 2
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -110,9 +114,9 @@ def test_v2_backward_launches(entry, dtype, seq, launches):
     entry's counts)."""
     route = (sa.WHOLE_ROW if launches == 1 else
              sa.TILED if dtype == torch.bfloat16 else sa.CUDA_CORES)
-    assert sa.backward_route(seq, dtype) == route, entry
-    assert sa.tensor_core_backward(seq, dtype) == (dtype == torch.bfloat16)
-    assert sa.backward_launches(seq, dtype) == launches, entry
+    assert sa.backward_route(seq, dtype, 64) == route, entry
+    assert sa.tensor_core_backward(seq, dtype, 64) == (dtype == torch.bfloat16)
+    assert sa.backward_launches(seq, dtype, 64) == launches, entry
     assert getattr(sa, entry).tiled.launches >= 0
 
 
@@ -137,7 +141,7 @@ def test_tiled_range_matches_the_template():
     assert int(high) == sa.TC_BWD_MAX_SEQ == sa.MAX_SEQ
     for seq in (int(low) - 1, int(low), int(high)):
         want = sa.WHOLE_ROW if seq < int(low) else sa.TILED
-        assert sa.backward_route(seq, torch.bfloat16) == want, seq
+        assert sa.backward_route(seq, torch.bfloat16, 64) == want, seq
     source = (_build.CSRC / "short_attention.cu").read_text()
     assert '#include "short_bwd_tiled.cuh"' in source
     assert "MSA_TC(msa_short_bwd_tiled, true)" in source

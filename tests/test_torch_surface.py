@@ -49,6 +49,11 @@ from msa_tpu_torch.models.weights import (
 from msa_tpu_torch.ops import masking
 from msa_tpu_torch.training.trainer import Trainer
 from test_cli_end_to_end import data_pkl, vocab_file, workdir  # noqa: F401
+from test_torch_train import placed
+
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
 
 SPECIAL_IDS = (0, 2, 3, 4)
 MASK_ID = 4
@@ -176,7 +181,7 @@ def test_fuse_text_pass_train_steps_match_jax():
     jt = JaxTrainer(exp, mesh=make_mesh(1, 1), mask_token_id=MASK_ID,
                     special_ids=SPECIAL_IDS)
     jt.mlm_mask_injector = mlm_masks
-    state = jt.init_state(jax.random.key(0), total_steps=STEPS)
+    state = placed(jt.init_state(jax.random.key(0), total_steps=STEPS), jt.mesh)
     start = (tree_np(state.params), tree_np(state.opt_state))
     step = jt._build_train_step()
     ref = []

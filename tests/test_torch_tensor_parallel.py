@@ -72,6 +72,11 @@ from msa_tpu_torch.parallel import sharding
 from msa_tpu_torch.parallel.mesh import make_mesh
 from msa_tpu_torch.training import checkpoint as ckpt
 from test_torch_data_parallel import REPO, _free_port, port_split
+from test_torch_train import placed
+
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
 
 L, LP, B, VOCAB = 16, 17, 8, 120
 EVAL_BATCH, EVAL_N = 4, 7
@@ -296,8 +301,8 @@ def run_jax(params, batch, frame_batch, eval_split, serve, sparams):
                              special_ids=(0, 2, 3, 4))
         trainer.mlm_mask_injector = lambda e, i, bb: {}
         state = trainer.init_state(jax.random.key(0), total_steps=2)
-        state = state.replace(params=jax.device_put(
-            params, param_shardings(params, m)))
+        state = placed(state.replace(params=params), m,
+                       param_shardings(params, m) if m is mesh else None)
         step, hist = trainer._build_train_step(), []
         for batch in b:
             state, m = step(state, trainer._shard_batch(batch), trainer.rng(1))

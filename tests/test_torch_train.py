@@ -27,6 +27,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import optax
+from jax.sharding import NamedSharding, PartitionSpec
 
 from msa_tpu.configs import (
     DataConfig, ExperimentConfig, MMBertConfig, TrainConfig, tiny_bert_config)
@@ -49,6 +50,10 @@ from msa_tpu_torch.models.weights import (
 from msa_tpu_torch.ops import losses
 from msa_tpu_torch.training.optim import decay_mask, make_optimizer
 from msa_tpu_torch.training.trainer import Trainer
+
+# One intra-op thread: the lane's xdist workers share the CPUs, and a
+# full torch pool in each of them oversubscribes them (2x the wall time).
+torch.set_num_threads(1)
 
 BF16_NOISE_FACTOR = 3.0
 SPECIAL_IDS = (0, 2, 3, 4)  # synthetic_split's tiny-vocab PAD/CLS/SEP + MASK
@@ -108,12 +113,33 @@ def batches(n_steps, pair_seq_length=None):
 STEPS = 4
 
 
+def placed(state, mesh, param_shardings=None):
+    """``state`` committed to ``mesh`` as the train step returns it: its
+    scalar leaves (the step, the optimizer's counts) replicated, and every
+    parameter-shaped subtree (the params, Adam's moments) sharded by
+    ``param_shardings`` (None: replicated, as the step returns them on a
+    one-device mesh).  Placed otherwise, they are another input type, and
+    the step's second call compiles the same program again."""
+    replicated = NamedSharding(mesh, PartitionSpec())
+    like_params = jax.tree.structure(state.params)
+
+    def place(node):
+        if jax.tree.structure(node) == like_params:
+            return jax.device_put(node, replicated if param_shardings is None
+                                  else param_shardings)
+        return jax.device_put(node, replicated) if np.ndim(node) == 0 else node
+
+    return jax.tree.map(place, state, is_leaf=lambda node: jax.tree.structure(
+        node) == like_params)
+
+
 def run_jax(compute_dtype, pair_seq_length=None, **train):
     exp = experiment(compute_dtype, pair_seq_length=pair_seq_length, **train)
     trainer = JaxTrainer(exp, mesh=make_mesh(1, 1), mask_token_id=MASK_ID,
                          special_ids=SPECIAL_IDS)
     trainer.mlm_mask_injector = mlm_masks
-    state = trainer.init_state(jax.random.key(0), total_steps=STEPS)
+    state = placed(trainer.init_state(jax.random.key(0), total_steps=STEPS),
+                   trainer.mesh)
     start = (tree_np(state.params), tree_np(state.opt_state))
     step = trainer._build_train_step()
     rng = trainer.rng(1)
