@@ -643,25 +643,20 @@ def sdpa_args(q, k, v, bias):
     return split(q), split(k), split(v), bias[:, None, None, :].to(q.dtype)
 
 
-def tensor_core_head_dim():
-    """Whether the phases' head dim (HIDDEN / HEADS) runs the bf16 kernels
-    on the tensor-core templates (a library up to 128), else on the CUDA
-    cores (short attention) and mma.sync (flash) at 256."""
-    from msa_tpu_torch.ops import short_attention as sa
-
-    return sa.kernel_head_dim(HIDDEN // HEADS) <= sa.MAX_TC_HEAD_DIM
-
-
 def fwd_form(s, dtype):
     """The form the short forward takes for (S, dtype) at the phases' head
-    dim: csrc/short_attention.cu::fwd_dispatch."""
+    dim: csrc/short_attention.cu::fwd_dispatch (the whole-row template up
+    to 128 keys at head dims up to 128, else the two-sweep ring)."""
     import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
 
     if dtype != torch.bfloat16:
         return "CUDA cores"
-    if not tensor_core_head_dim():
-        return "CUDA cores, two sweeps rounded as bf16"
-    return "tensor cores, whole row" if s <= 128 else "tensor cores, two-sweep"
+    if s <= 128 and (sa.kernel_head_dim(HIDDEN // HEADS)
+                     <= sa.WHOLE_ROW_MAX_HEAD_DIM):
+        return "tensor cores, whole row"
+    return "tensor cores, two-sweep"
 
 
 def check_train_forward(tag, q, k, v, bias, live, seed, rate, keep,
@@ -1834,19 +1829,27 @@ def check_wide_joint_embed(gen, h=WIDE_EMBED[0], d=WIDE_EMBED[1]):
 
 
 # The widest head dim and the pad onto it (PR 20): (d, H, heads).  d = 256
-# runs bf16 on the CUDA cores (short attention) and mma.sync (flash), f32 on
-# the CUDA cores; d = 192 pads each head to 256.
+# runs bf16 short attention on the tensor cores (the ring forwards and the
+# tiled backward pair at every S, PR 21) and flash on mma.sync, f32 on the
+# CUDA cores; d = 192 pads each head to 256.
 WIDE_HEAD_DIM_CASES = ((256, 1024, 4), (192, 1152, 6))
 HUGE_EMBED = (16384, 47)  # (H, D) of the joint embed's form that holds no row
 
 
-# The short kernels' checks at the wide head dims: a length the whole-row
-# templates take below 128 and one above (every bf16 short kernel runs on
-# the CUDA cores there); the flash entries at a ragged S past 1024.  Then,
-# at the head dim phase_wide_heads runs (256), the shapes that path gives
-# the kernels it launches, in bf16: v2 at the joint pass [2B, 2L], flash2
-# at the frame-level joint pass [2B, L + Lp].
+# The short kernels' checks at the wide head dims: a length below 128 and
+# one above, in both dtypes; in bf16 also the lengths the ring forwards and
+# the tiled pair take there that they take at no other head dim
+# (WIDE_TC_SHAPES: S = 1, one ragged 16-row warp tile, the text pass [B,
+# L], the edges of a 64-row tile and of the whole-row templates' 128 keys,
+# the last short S), and at d = 256 the word rule at WIDE_WORD_RATE; the
+# flash entries at a ragged S past 1024.  Then, at the head dim
+# phase_wide_heads runs (256), the shapes that path gives the kernels it
+# launches, in bf16: v2 at the joint pass [2B, 2L], flash2 at the
+# frame-level joint pass [2B, L + Lp].
 WIDE_SHORT_SHAPES = ((8, 80), (4, 200))
+WIDE_TC_SHAPES = ((4, 1), (4, 17), (BATCH, TEXT_LEN), (4, 64), (4, 65),
+                  (4, 128), (4, 129), (2, 1023))
+WIDE_WORD_RATE = 0.1
 WIDE_FLASH_SHAPE = (2, 1030)
 WIDE_PATH_HEAD_DIM = 256
 
@@ -1886,8 +1889,10 @@ def phase_head_dim_256():
 
 def check_wide_kernels(gen):
     """Every attention entry at the phases' widths, bf16 and f32, rate 0 and
-    26/256 (the plain versions given the exported mask), by the checks the
-    kernel phases use: at ``WIDE_SHORT_SHAPES`` the v2 forward's serving
+    26/256 (the plain versions given the exported mask; bf16 at d = 256
+    also ``WIDE_WORD_RATE``, the word rule), by the checks the kernel
+    phases use: at ``WIDE_SHORT_SHAPES`` (bf16: and ``WIDE_TC_SHAPES``) the
+    v2 forward's serving
     and training forms and v2p's (:func:`check_train_forward`), the v2
     backward through autograd (:func:`check_v2_backward`), v3
     (:func:`check_v3_backward`), v2s's pair (:func:`check_probs_forward`,
@@ -1902,10 +1907,13 @@ def check_wide_kernels(gen):
     from msa_tpu_torch.ops import short_attention as sa
 
     rate_on = phase_rate()
+    wide_path = HIDDEN // HEADS == WIDE_PATH_HEAD_DIM
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
-        for rate in (0.0, rate_on):
-            for b, s in WIDE_SHORT_SHAPES:
+        bf = dtype == torch.bfloat16
+        word = (WIDE_WORD_RATE,) if bf and wide_path else ()
+        for rate in (0.0, rate_on) + word:
+            for b, s in WIDE_SHORT_SHAPES + (WIDE_TC_SHAPES if bf else ()):
                 q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
                 dout = torch.randn(b, s, HIDDEN, device="cuda",
                                    generator=gen).to(dtype)
@@ -1913,16 +1921,19 @@ def check_wide_kernels(gen):
                 keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
                         if rate else None)
                 tag = f"[{b},{s},{HIDDEN}] {dname} rate {rate:g}"
+                # the edge lengths' masked rows as the kernel phases' edges
+                few = (b, s) in WIDE_TC_SHAPES
                 errs = [check_train_forward(f"short_attention {tag}", q, k, v,
-                                            bias, live, seed, rate, keep)[0]]
+                                            bias, live, seed, rate, keep,
+                                            few_keys=few)[0]]
                 errs += check_v2_backward(f"short_attention_backward {tag}",
                                           q, k, v, bias, live, dout, seed,
                                           rate, keep)
                 errs += check_v3_backward(
                     f"short_attention_v3_backward {tag}", q, k, v, bias, live,
-                    dout, seed, rate)[:2]
+                    dout, seed, rate, few_keys=few)[:2]
                 _, probs, _, perr, _ = check_probs_forward(
-                    tag, q, k, v, bias, live, seed, rate, keep)
+                    tag, q, k, v, bias, live, seed, rate, keep, few_keys=few)
                 errs += [perr, *check_probs_backward(tag, q, k, v, bias, live,
                                                      probs, dout, rate, keep)]
                 errs += check_packed(tag, q, k, v, bias, live, dout, seed,
@@ -1949,6 +1960,9 @@ def check_wide_kernels(gen):
                       f"worst error {max(errs):.3e} (v2, v2p, v3, v2s, v1 "
                       f"forward and backward against their plain versions)",
                       flush=True)
+                del q, k, v, dout, keep
+            if rate in word:
+                continue
             b, s = WIDE_FLASH_SHAPE
             q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
             dout = torch.randn(b, s, HIDDEN, device="cuda",
@@ -1974,7 +1988,7 @@ def check_wide_kernels(gen):
                         f"autograd, fused vs split {between:.3e}; head-split")
             print(f"head dim {HIDDEN // HEADS} flash {tag}: {line} forward "
                   f"and backward {herr:.3e}", flush=True)
-    if HIDDEN // HEADS == WIDE_PATH_HEAD_DIM:
+    if wide_path:
         check_wide_path_shapes(gen)
 
 
@@ -2488,8 +2502,9 @@ def phase_tinybert():
 
 def phase_wide_heads():
     """bert-large's widths with 4 heads of 256 (``WIDE_HEADS``: every
-    attention kernel at head dim 256, bf16 short attention on the CUDA
-    cores, flash2 on mma.sync) through :func:`phase_widths`."""
+    attention kernel at head dim 256, bf16 short attention on the ring
+    forwards and the tiled pair, flash2 on mma.sync) through
+    :func:`phase_widths`."""
     return phase_widths(WIDE_HEADS, "bert-large widths at 4 heads of 256",
                         (256, 1024, 30592, 4096, 0.1, 0.1))
 
@@ -3949,7 +3964,7 @@ def phase_probs_packed(gen):
                         pout, qkv_g, dout, retain_graph=True)), lib_bwd,
                     bound_ms(8 * io + b * s * 4, 2.5 * fwd_flops, dname))
                 fwd_cores = ("tensor cores" if dname == "bfloat16"
-                             and tensor_core_head_dim() else "CUDA cores")
+                             else "CUDA cores")
                 cores_of = {"probs": fwd_cores, "packed": fwd_cores,
                             "probs_bwd": sa.backward_route(s, dtype, HIDDEN // HEADS),
                             "packed_bwd": sa.backward_route(s, dtype, HIDDEN // HEADS)}
@@ -4020,27 +4035,35 @@ def rung_launches(policy, layers, steps, frame=False, fused=True,
     packed pair on the short route (all of it word-aligned; the text pass
     in frame-level mode, whose joint pass runs flash2, never re-run under a
     save_* policy).  The v2, v2p and v2s backwards take one launch at S <=
-    128 in bf16 at head dims up to 128 (``head_dim``: the model's,
-    bert-large's 64 unless given)."""
+    128 in bf16 at head dims up to 128, else the tiled pair, counted on
+    ``<entry>_tiled`` too (``head_dim``: the model's, bert-large's 64
+    unless given)."""
     import torch
 
-    from msa_tpu_torch.ops.short_attention import backward_launches
+    from msa_tpu_torch.ops.short_attention import (
+        TILED, backward_launches, backward_route)
 
     again = 2 if policy.split("+")[0] in ("full", "dots") else 1
     seqs = (TEXT_LEN,) if frame else (TEXT_LEN, 2 * TEXT_LEN)
     short_calls = layers * len(seqs)
     bwd = layers * sum(backward_launches(s, torch.bfloat16, head_dim)
                        for s in seqs)
+    tiled = layers * sum(backward_launches(s, torch.bfloat16, head_dim)
+                         for s in seqs
+                         if backward_route(s, torch.bfloat16, head_dim) == TILED)
     counts = {"fused_joint_embed": 2}
     if "+probs" in policy:
         counts.update(short_attention_probs=again * short_calls,
-                      short_attention_probs_backward=bwd)
+                      short_attention_probs_backward=bwd,
+                      short_attention_probs_backward_tiled=tiled)
     elif policy == "save_pack":
         counts.update(short_attention_packed=short_calls,
-                      short_attention_packed_backward=bwd)
+                      short_attention_packed_backward=bwd,
+                      short_attention_packed_backward_tiled=tiled)
     else:
         counts.update(short_attention=again * short_calls,
-                      short_attention_backward=bwd)
+                      short_attention_backward=bwd,
+                      short_attention_backward_tiled=tiled)
     if frame:  # either flash2 backward route is two launches a layer
         counts.update(flash_attention2=again * layers,
                       flash2_bwd_fused=2 * layers if fused else 0,
@@ -4740,10 +4763,130 @@ def frame_short_step_ms():
     return ms, losses
 
 
+def time_wide_short():
+    """Device ms of the bf16 short entries at head dim 256 (``WIDE_HEADS``'
+    H = 1024 in 4 heads) at the joint pass [2B, 2L] and the Lp = 500 joint
+    pass [32, 540], rate 0 and the training dropout: the v2 forward's
+    serving and training forms, v2p, v2s and v1 forwards, the v2, v3, v2s,
+    v2p and v1 backwards (each from its own forward's outputs), and SDPA's
+    forward and backward at rate 0.  Entry points every tree of the port
+    has had since head dim 256 came in, so ``--short-times ROOT`` times
+    another checkout's kernels by this code.  Prints and returns {label:
+    ms}."""
+    times = {}
+    with head_widths(WIDE_HEADS_WIDTHS["hidden_size"],
+                     WIDE_HEADS_WIDTHS["num_attention_heads"]):
+        for b, s in ((2 * BATCH, 2 * TEXT_LEN),
+                     (2 * FRAME_BATCH, TEXT_LEN + FRAME_SHORT_LEN)):
+            times.update(time_wide_short_at(b, s))
+    print(f"bf16 short entries at head dim 256 (H = 1024, 4 heads), ms: "
+          f"{json.dumps(times)}", flush=True)
+    return times
+
+
+def time_wide_short_at(b, s):
+    """:func:`time_wide_short` at [b, s]."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import short_attention as sa
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
+
+    times = {}
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v, dout = (torch.randn(b, s, HIDDEN, device="cuda",
+                                 generator=gen).to(torch.bfloat16)
+                     for _ in range(4))
+    bias = torch.zeros(b, s, device="cuda")
+    qkv = torch.cat([q, k, v], dim=-1)
+    for rate in (0.0, quantize_dropout_rate(ATTN_DROPOUT)):
+        out, lse = sa._forward_kernel(q, k, v, bias, HEADS, 7, rate, True)
+        pout = sa._packed_forward_kernel(qkv, bias, HEADS, 7, rate,
+                                         False)[0]
+        _, probs = sa._probs_forward_kernel(q, k, v, bias, HEADS, 7, rate)
+        runs = {
+            "v2 fwd": lambda: sa._forward_kernel(q, k, v, bias, HEADS, 7,
+                                                 rate, False),
+            "v2 fwd train": lambda: sa._forward_kernel(
+                q, k, v, bias, HEADS, 7, rate, True),
+            "v2p fwd": lambda: sa._packed_forward_kernel(
+                qkv, bias, HEADS, 7, rate, False),
+            "v2s fwd": lambda: sa._probs_forward_kernel(
+                q, k, v, bias, HEADS, 7, rate),
+            "v1 fwd": lambda: sa._v1_forward_kernel(q, k, v, bias, HEADS,
+                                                    7, rate),
+            "v2 bwd": lambda: sa.short_attention_backward(
+                q, k, v, bias, lse, dout, HEADS, 7, rate),
+            "v3 bwd": lambda: sa.short_attention_v3_backward(
+                q, k, v, bias, out, dout, HEADS, 7, rate),
+            "v2s bwd": lambda: sa.short_attention_probs_backward(
+                q, k, v, probs, dout, HEADS, rate),
+            "v2p bwd": lambda: sa.short_attention_packed_backward(
+                qkv, bias, pout, dout, HEADS, 7, rate),
+            "v1 bwd": lambda: sa.short_attention_v1_backward(
+                q, k, v, bias, dout, HEADS, 7, rate)}
+        for name, fn in runs.items():
+            times[f"d256 {name} [{b},{s}] rate {rate:g}"] = cuda_ms(
+                fn, iters=10)
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    sq, sk, sv, sm = sdpa_args(qq, kk, vv, bias)
+    lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm)
+    lib_do = dout.view(b, s, HEADS, -1).transpose(1, 2)
+    times[f"d256 sdpa fwd [{b},{s}]"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm),
+        iters=10)
+    times[f"d256 sdpa bwd [{b},{s}]"] = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qq, kk, vv), lib_do, retain_graph=True), iters=10)
+    return times
+
+
+def wide_heads_step_ms():
+    """ms/step of TINYBERT_STEPS bf16 train steps (after TINYBERT_WARMUP) of
+    bert-large's widths at 4 heads of 256 (``WIDE_HEADS``) at B = 96, L =
+    40, dropout 0.1, as :func:`phase_widths` trains it (host clock around
+    synchronised steps), and the losses: entry points every tree of the
+    port has had since head dim 256 came in, for ``--short-times ROOT``."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.training.trainer import Trainer
+
+    exp = model_experiment(WIDE_HEADS, train_batch_size=BATCH,
+                           compute_dtype="bfloat16", warmup_proportion=0.01,
+                           adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                           data_parallel=1)
+    cfg = exp.model
+    trainer = Trainer(exp, "cuda")
+    state = trainer.init_state(0, total_steps=10_000)
+    split = synthetic_split(2 * BATCH, TEXT_LEN, cfg.visual_dim, cfg.speech_dim,
+                            vocab_size=cfg.bert.vocab_size, seed=4)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, BATCH, drop_last=True))
+    losses = []
+    for i in range(TINYBERT_WARMUP):
+        state, m = trainer.train_step(state, batches[i % len(batches)], 1)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = []
+    for i in range(TINYBERT_STEPS):
+        state, m = trainer.train_step(state, batches[i % len(batches)], 1)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TINYBERT_STEPS
+    losses += [float(m["loss"]) for m in metrics]
+    print(f"{WIDE_HEADS} training bf16 B={BATCH} L={TEXT_LEN}: {ms:.2f} "
+          f"ms/step over {TINYBERT_STEPS} steps after {TINYBERT_WARMUP}; "
+          f"losses {[round(x, 5) for x in losses]}", flush=True)
+    return ms, losses
+
+
 def time_short_path():
-    """``--short-times ROOT``: the short backwards (:func:`time_short_backwards`)
-    and the Lp = 500 frame step (:func:`frame_short_step_ms`) of the tree
-    on sys.path, whose kernels build into its own build/."""
+    """``--short-times ROOT``: the short backwards (:func:`time_short_backwards`),
+    the Lp = 500 frame step (:func:`frame_short_step_ms`), the entries at
+    head dim 256 (:func:`time_wide_short`) and the 4-heads-of-256 step
+    (:func:`wide_heads_step_ms`) of the tree on sys.path, whose kernels
+    build into its own build/."""
     from msa_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -4753,6 +4896,8 @@ def time_short_path():
           f"{ {k: round(v, 1) for k, v in seconds.items()} })", flush=True)
     times = time_short_backwards()
     times["frame step Lp=500"] = frame_short_step_ms()[0]
+    times.update(time_wide_short())
+    times["wide heads step"] = wide_heads_step_ms()[0]
     return times
 
 
@@ -5311,7 +5456,7 @@ def phase_short_v1(gen):
                     times[("bwd", label, dname)] = (bwd_ms, bwd_plain_ms,
                                                     bwd_lib_ms, bwd_bound)
                     cores = ("tensor cores" if dname == "bfloat16"
-                             and tensor_core_head_dim() else "CUDA cores")
+                             else "CUDA cores")
                     line += (f"; forward ({cores}) {ms:.4f} ms (v2 {v2_ms:.4f} "
                              f"ms), plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
                              f"{bound[0]:.4f} ms ({bound[1]}); backward "
@@ -5436,8 +5581,9 @@ def check_v1_long():
 
 
 def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
-    """The bf16 v1 backward kernel (tensor cores; at head dim 256 the v2
-    pair on the CUDA cores) at a few keys: against
+    """The bf16 v1 backward kernel (tensor cores; above 128 keys and at
+    head dim 256 the v2 forward's lse and the tiled pair) at a few keys:
+    against
     its plain rule (dS and the dropped p rounded to bf16) at GRAD_TOL on
     live rows; against autograd through the plain forward in f32 (fully
     masked rows at MASKED_ROW_GRAD_ATOL) within twice the tolerance plus
@@ -5478,7 +5624,7 @@ def check_v1_backward(q, k, v, bias, live, dout, seed, rate):
                                           ~live))
         auto_err = max(auto_err, check_within(f"{tag} {name} against autograd",
                                               g, a, atol, rtol, gap, live))
-    cores = "tensor cores" if tensor_core_head_dim() else "CUDA cores"
+    cores = "tensor cores"
     print(f"{tag} ({cores}): max_abs_err {err:.3e} against the plain "
           f"rule, {auto_err:.3e} against autograd (twice the tolerance plus "
           f"the rounding gap); v2's gradients bit-equal; masked rows "
@@ -5818,6 +5964,10 @@ TC_KERNEL = re.compile(
     r"short_bwd_dkv_kernel)I((?:L[ib]\d+E)+)E")
 # the tiled backward pair (csrc/short_bwd_tiled.cuh): none may spill
 TILED_KERNELS = ("short_bwd_dq_kernel", "short_bwd_dkv_kernel")
+# bf16 at head dim 256 on the tensor cores: the tiled pair and the two-sweep
+# ring forwards, which take every S there; none may spill either
+WIDE_TC_KERNELS = TILED_KERNELS + ("short_attention_fwd_tc_long_kernel",
+                                   "short_attention_probs_fwd_tc_long_kernel")
 
 
 def tc_dynamic_smem(kernel):
@@ -5834,9 +5984,9 @@ def tc_dynamic_smem(kernel):
                  else (2 if probs else 4))
         return (1024 + (5 if probs else 6) * 64 * 2 * args[0]
                 + probs * 2 * 64 * 72 * 2 + stats * 64 * 4)
-    if "tc_long" in kernel:
-        q_rows = 2 * 128 if "probs" in kernel else 128
-        return (q_rows + 4 * 64) * row + 2 * 64 * 4
+    if "tc_long" in kernel:  # v2s: also a probs stage of 64 keys a row
+        stage = 128 * 2 * (64 + 8) if "probs" in kernel else 0
+        return (128 + 4 * 64) * row + stage + 2 * 64 * 4
     rows = 16 * args[1]
     if "short_bwd_tc" in kernel:
         return 4 * rows * row + 2 * rows * (rows + 8) * 2 + rows * 4
@@ -5852,9 +6002,9 @@ def report_tc_resources(usage):
     0 recompute, 1 from o, 2 from the probs>; the tiled pair above 128 keys
     kernel<head dim, dropout, rule>), and fail if, at a head dim of
     NO_SPILL_HEAD_DIMS, a whole-row forward or backward of at most
-    TC_NO_SPILL_TILES tiles, or any kernel of the tiled pair, spills or has
-    a stack frame, or if ptxas serialised a tiled kernel's wgmma products
-    (at any head dim)."""
+    TC_NO_SPILL_TILES tiles, or any kernel of the tiled pair, or at head
+    dim 256 any of WIDE_TC_KERNELS, spills or has a stack frame, or if
+    ptxas serialised a tiled kernel's wgmma products (at any head dim)."""
     tc = [u for u in usage if TC_KERNEL.search(u["kernel"])]
     for name in ("short_fwd_tc_kernel", "short_bwd_tc_kernel",
                  "short_attention_fwd_tc_long_kernel") + TILED_KERNELS:
@@ -5871,7 +6021,8 @@ def report_tc_resources(usage):
         checked = int(args[0]) in NO_SPILL_HEAD_DIMS and (
             m.group(1) in TILED_KERNELS or (
                 m.group(1) in ("short_fwd_tc_kernel", "short_bwd_tc_kernel")
-                and int(args[1]) <= TC_NO_SPILL_TILES))
+                and int(args[1]) <= TC_NO_SPILL_TILES)) or (
+            int(args[0]) == 256 and m.group(1) in WIDE_TC_KERNELS)
         if m.group(1) in TILED_KERNELS and u["serialized"]:
             raise AssertionError(f"ptxas serialised the wgmma products of "
                                  f"{name}: {u['serialized']}")
@@ -6000,9 +6151,10 @@ def report_wgmma(usage):
 
 def report_wide(usage):
     """Print ptxas's registers, stack and spills for every kernel of the
-    libraries of head dim 256 (bf16 and f32 on the CUDA cores for short
-    attention, mma.sync for flash): spills there are written down, not
-    failed on (NO_SPILL_HEAD_DIMS holds 32 and 64 only)."""
+    libraries of head dim 256 (short attention: f32 on the CUDA cores, bf16
+    on the ring forwards and the tiled pair, which report_tc_resources
+    holds to no spill; flash: mma.sync): the other kernels' spills are
+    written down, not failed on."""
     wide = [u for u in usage if u["library"].endswith("_d256")]
     if not wide:
         raise AssertionError("ptxas reported no kernel at head dim 256")

@@ -6,9 +6,10 @@
 // forwards, short_bwd_tc.cuh for the bf16 short-attention backwards).
 //
 // A warp owns 16 query rows.  Operands in shared memory are row-major bf16
-// rows of kStride<kD> elements (kD values and 8 of padding: 272-, 144-, 80-
-// and 48-byte rows at 128, 64, 32 and 16; an odd multiple of 16 bytes, so
-// the eight row addresses of an ldmatrix fall in distinct banks).  Q K^T takes kD / 16
+// rows of kStride<kD> elements (kD values and 8 of padding: 528-, 272-,
+// 144-, 80- and 48-byte rows at 256, 128, 64, 32 and 16; an odd multiple of
+// 16 bytes, so the eight row addresses of an ldmatrix fall in distinct
+// banks).  Q K^T takes kD / 16
 // k-steps, and P V, dQ, dK and dV fill kD / 8 column tiles.  Products
 // are m16n8k16 (bf16 in, f32 accumulate); their outputs stay in registers
 // in mma.sync's accumulator layout, and that layout, packed to bf16, is the

@@ -1,7 +1,7 @@
 // Whole-sequence attention for short sequences (S < 1024, head dim 16, 32,
 // 64, 128 or 256, a template parameter kD of every kernel, picked by the C
-// entries from hidden / num_heads; at 256 every bf16 form below runs on the
-// CUDA cores, kMaxTcHeadDim):
+// entries from hidden / num_heads; bf16 on the tensor cores at every head
+// dim, f32 on the CUDA cores):
 // forward with in-kernel attention-probs dropout, the backward pair, and a
 // keep-mask export.
 //
@@ -31,13 +31,16 @@
 // every kernel reads each q/k/v/dO byte once from device memory, keeps the
 // softmax on chip and stores nothing of size [S, S]:
 //
-//   * forward, bf16 (v2 and v2p): on the tensor cores.  S <= 128 is the
-//     whole-row template of short_fwd_tc.cuh (one CTA per (head, batch
-//     row), each warp's score row in registers, K and V read once); above,
-//     the two-sweep form below v2s's (the same ring without the probs).
-//     Both round the dropped p to bf16 before P V as _fwd_kernel_v2 does.
+//   * forward, bf16 (v2 and v2p): on the tensor cores.  S <= 128 at kD <=
+//     128 is the whole-row template of short_fwd_tc.cuh (one CTA per
+//     (head, batch row), each warp's score row in registers, K and V read
+//     once); above, and at every S at kD = 256 (where a warp's [16 x 256]
+//     f32 accumulator is 128 registers a lane), the two-sweep form below
+//     v2s's (the same ring without the probs).  Both round the dropped p to
+//     bf16 before P V as _fwd_kernel_v2 does.
 //     The training form also writes the row's log2-sum-exp (lse), which
-//     the v2 backward pairs read (bf16 above 128 keys, and f32).
+//     the v2 backward pairs read (bf16 above 128 keys or at kD = 256, and
+//     f32).
 //   * forward, f32: on the CUDA cores (on the tensor cores f32 would be
 //     TF32, three decimal digits).  One CTA per (query tile, head, batch
 //     row); a query tile holds up to 128 rows, so S <= 128 is one tile and
@@ -46,10 +49,11 @@
 //     as f32, 64 keys per tile, under an online softmax that takes 16 keys
 //     per update; the training form also writes the lse.
 //   * backward, bf16 (v2, v2p, v3 and v2s), on the tensor cores: at S <=
-//     128 one launch of the template short_bwd_tc.cuh shares with v1's
-//     backward, which recomputes each row's max and sum from q and k;
-//     above, the dq and dk/dv pair of short_bwd_tiled.cuh over 64-row
-//     tiles (v2 reads the training forward's lse there).  v2 takes v1's
+//     128 and kD <= 128 one launch of the template short_bwd_tc.cuh shares
+//     with v1's backward, which recomputes each row's max and sum from q
+//     and k; above, and at every S at kD = 256, the dq and dk/dv pair of
+//     short_bwd_tiled.cuh over 64-row tiles (v2 reads the training
+//     forward's lse there).  v2 takes v1's
 //     rule, v2p and v3 take delta from the ctx, v2s reads p from its
 //     stashed probs.  Both round dS and the dropped p to bf16 before their
 //     products, as the TPU kernels' .astype does.
@@ -103,63 +107,30 @@ constexpr int kMaxThreads = 2 * kMaxRows;
 constexpr float kLog2e = 1.4426950408889634f;
 
 static_assert(kKeyTile % kKeyChunk == 0, "chunks must tile the key tile");
-// The CUDA-core kernels' staged tiles at head dim kD: the tiles above,
-// halved at 128 and quartered at 256, so that their static shared memory
-// (f32 rows of kD) stays within the 48 KB a kernel may declare.
+// The CUDA-core (f32) kernels' staged tiles at head dim kD: the tiles
+// above, halved at 128 and quartered at 256, so that their static shared
+// memory (f32 rows of kD) stays within the 48 KB a kernel may declare.
 template <int kD>
 inline constexpr int kKeyTileOf = kD == 256 ? kKeyTile / 4 : kD == 128 ? kKeyTile / 2 : kKeyTile;
 template <int kD>
 inline constexpr int kQueryTileOf =
     kD == 256 ? kQueryTile / 4 : kD == 128 ? kQueryTile / 2 : kQueryTile;
 static_assert(kKeyTileOf<256> % kKeyChunk == 0, "chunks must tile the key tile");
-// Head dims above kMaxTcHeadDim run every bf16 kernel on the CUDA cores too
-// (the tensor-core templates stop at 128): the kernels below, instantiated
-// for bf16, round p, pd and dS to bf16 where the tensor-core forms do.
-constexpr int kMaxTcHeadDim = 128;
+// The whole-row templates (short_fwd_tc.cuh, short_bwd_tc.cuh) stop at head
+// dim 128: above it bf16 runs the two-sweep forward and the tiled backward
+// pair at every S.
+constexpr int kMaxWholeRowHeadDim = 128;
 static_assert(kKeyChunk == kGroup, "one Philox draw per key chunk");
 
-// x rounded to the storage type T and widened back (the TPU kernels'
-// .astype before a product).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (sizeof(T) == 2) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-// 16-byte vector loads/stores between global memory (storage type) and f32
-// (the CUDA-core kernels are f32, and bf16 above kMaxTcHeadDim).
+// 16-byte vector loads/stores between global memory and f32 (every
+// CUDA-core kernel here is f32; bf16 runs on the tensor cores).
 __device__ __forceinline__ void load16(const float* src, float* dst) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
 }
 
-__device__ __forceinline__ void load16(const bf16* src, float* dst) {
-  const uint4 x = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store16(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
-}
-
-__device__ __forceinline__ void store16(bf16* dst, const float* src) {
-  uint4 x;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-  *reinterpret_cast<uint4*>(dst) = x;
 }
 
 // Per-thread layout shared by every CUDA-core kernel, head dim kD: the two
@@ -428,107 +399,34 @@ short_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// bf16 above kMaxTcHeadDim, on the CUDA cores: the forward in two sweeps,
-// so that p is rounded where _fwd_kernel_v2 rounds it.  Sweep 1 takes the
-// row's lse (row_lse_sweep, the f32 forward's online max / sum); sweep 2
-// forms p = exp2(s - lse), the dropped pd = keep ? p * scale : 0 rounded
-// to T, and ctx = sum_j pd_j v_j in f32, rounded once at the store.  Same
-// arguments as short_attention_fwd_kernel.
-template <typename T, int kD, bool kDropout, bool kTrain>
-__global__ void __launch_bounds__(kMaxThreads)
-short_attention_fwd_rounded_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                   const T* __restrict__ v,
-                                   const float* __restrict__ key_bias,
-                                   T* __restrict__ out, float* __restrict__ lse, int seq,
-                                   int hidden, int stride, int rows_per_cta,
-                                   float score_mult, Dropout drop) {
-  using L = Layout<T, kD>;
-  __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
-  __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
-  __shared__ float bias_s[kKeyTileOf<kD>];
-
-  const int b = blockIdx.z;
-  const int head = blockIdx.y;
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * rows_per_cta + (threadIdx.x >> 1);
-  const bool active = row < seq;
-  const size_t in_base = (size_t)b * seq * stride + (size_t)head * kD;
-  const size_t out_base = (size_t)b * seq * hidden + (size_t)head * kD;
-  const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
-  const float* bias_row = key_bias + (size_t)b * seq;
-
-  float qr[L::kPart];
-  load_half<T, kD>(q + in_base + (size_t)row * stride, half, active, score_mult, qr);
-  const float row_lse =
-      row_lse_sweep<T, kD>(qr, k, in_base, stride, seq, bias_row, half, k_s, bias_s);
-
-  float acc[L::kPart];
-#pragma unroll
-  for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
-    const int kn = min(kKeyTileOf<kD>, seq - k0);
-    __syncthreads();
-    stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
-    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-      bias_s[j] = bias_row[k0 + j] * kLog2e;
-    }
-    __syncthreads();
-    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
-      uint32_t keep = 0xFFFFu;
-      if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
-#pragma unroll 4
-      for (int jj = 0; jj < kKeyChunk; ++jj) {
-        const int j = j0 + jj;
-        if (j >= kn) break;  // uniform across the CTA
-        float part = dot_half<T, kD>(qr, &k_s[j * kD], half);
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        const float p = exp2f(part + bias_s[j] - row_lse);
-        float pd = p;
-        if constexpr (kDropout) pd = ((keep >> jj) & 1u) ? p * drop.scale : 0.f;
-        axpy_half<T, kD>(acc, round_to<T>(pd), &v_s[j * kD], half);
-      }
-    }
-  }
-  if (active) {
-    store_half<T, kD>(out + out_base + (size_t)row * hidden, half, acc, 1.f);
-    if constexpr (kTrain) {
-      if (half == 0) lse[prob_row] = row_lse;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Backward 1/2: dq (and delta for the dk/dv launch)
 // ---------------------------------------------------------------------------
 
-// f32, and bf16 above kMaxTcHeadDim.  q, k, v and dq have row stride
-// `stride` (H, or 3H in the packed layout, where dq, dk and dv are the
-// thirds of one [B, S, 3H] gradient); o and dout are [B, S, H].  v2 (kV3
-// false, the TPU kernel _bwd_kernel_v2): lse is the training forward's
-// row lse, read, o is not read, and delta = sum_j p_j * dpm_j (:375); in
-// f32, where rounding dS changes nothing, delta is summed in the same pass
-// as dq = scale * (sum_j p_j dpm_j k_j - delta * sum_j p_j k_j); in bf16 dS
-// = p (dpm - delta) is rounded before dS K (:378), so a first sweep sums
-// delta and a second forms dq.  v3 (the TPU kernels _bwd_kernel_v3 and
-// _bwd_kernel_v2p): o is the ctx in the storage type T, delta = dO . o,
-// and the kernel recomputes each row's lse from the scores (row_lse_sweep,
-// one more pass over K) and writes it to `lse` for the dk/dv launch; the
-// forward keeps nothing but its ctx.
-template <typename T, int kD, bool kDropout, bool kV3>
+// f32 only.  q, k, v and dq have row stride `stride` (H, or 3H in the
+// packed layout, where dq, dk and dv are the thirds of one [B, S, 3H]
+// gradient); o and dout are [B, S, H].  v2 (kV3 false, the TPU kernel
+// _bwd_kernel_v2): lse is the training forward's row lse, read, o is not
+// read, and delta = sum_j p_j * dpm_j (:375), summed in the same pass as
+// dq = scale * (sum_j p_j dpm_j k_j - delta * sum_j p_j k_j) (rounding dS
+// changes nothing in f32).  v3 (the TPU kernels _bwd_kernel_v3 and
+// _bwd_kernel_v2p): o is the ctx, delta = dO . o, and the kernel
+// recomputes each row's lse from the scores (row_lse_sweep, one more pass
+// over K) and writes it to `lse` for the dk/dv launch; the forward keeps
+// nothing but its ctx.
+template <int kD, bool kDropout, bool kV3>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v,
+short_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v,
                               const float* __restrict__ key_bias,
-                              const T* __restrict__ o,
-                              const T* __restrict__ dout,
+                              const float* __restrict__ o,
+                              const float* __restrict__ dout,
                               float* __restrict__ lse,
-                              float* __restrict__ delta_out, T* __restrict__ dq,
+                              float* __restrict__ delta_out, float* __restrict__ dq,
                               int seq, int hidden, int stride, int rows_per_cta,
                               float score_mult, float scale, Dropout drop) {
+  using T = float;
   using L = Layout<T, kD>;
-  // v2 in f32: one pass, dq from sum_j p_j dpm_j k_j and sum_j p_j k_j
-  constexpr bool kOnePass = !kV3 && sizeof(T) == 4;
-  constexpr int kSweeps = (kV3 || kOnePass) ? 1 : 2;
   __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
   __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
   __shared__ float bias_s[kKeyTileOf<kD>];
@@ -544,8 +442,9 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          (size_t)row * hidden;
   const uint32_t prob_row = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq + row;
 
+  // v2: one pass, dq from sum_j p_j dpm_j k_j and sum_j p_j k_j
   float qr[L::kPart], dor[L::kPart], acc[L::kPart];
-  float pk[kOnePass ? L::kPart : 1];  // sum_j p_j k_j
+  float pk[kV3 ? 1 : L::kPart];  // sum_j p_j k_j
   load_half<T, kD>(q + in_off, half, active, score_mult, qr);
   load_half<T, kD>(dout + row_off, half, active, 1.f, dor);
   float delta = 0.f;
@@ -562,53 +461,48 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (active && half == 0) lse[prob_row] = row_lse;
   } else {
 #pragma unroll
-    for (int i = 0; i < (kOnePass ? L::kPart : 1); ++i) pk[i] = 0.f;
+    for (int i = 0; i < L::kPart; ++i) pk[i] = 0.f;
     row_lse = active ? lse[prob_row] : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < L::kPart; ++i) acc[i] = 0.f;
 
-  for (int sweep = 0; sweep < kSweeps; ++sweep) {
-    for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
-      const int kn = min(kKeyTileOf<kD>, seq - k0);
-      __syncthreads();
-      stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
-      for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-        bias_s[j] = bias_row[k0 + j] * kLog2e;
-      }
-      __syncthreads();
+  for (int k0 = 0; k0 < seq; k0 += kKeyTileOf<kD>) {
+    const int kn = min(kKeyTileOf<kD>, seq - k0);
+    __syncthreads();
+    stage_pair<T, kD>(k, v, in_base, stride, in_base, stride, k0, kn, 1.f, k_s, v_s);
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+      bias_s[j] = bias_row[k0 + j] * kLog2e;
+    }
+    __syncthreads();
 
-      for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
-        uint32_t keep = 0xFFFFu;
-        if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
+    for (int j0 = 0; j0 < kn; j0 += kKeyChunk) {
+      uint32_t keep = 0xFFFFu;
+      if constexpr (kDropout) keep = keep_bits16(drop, (uint32_t)(k0 + j0) / kGroup, prob_row);
 #pragma unroll 4
-        for (int jj = 0; jj < kKeyChunk; ++jj) {
-          const int j = j0 + jj;
-          if (j >= kn) break;  // uniform across the CTA
-          float s = dot_half<T, kD>(qr, &k_s[j * kD], half);
-          float dp = dot_half<T, kD>(dor, &v_s[j * kD], half);
-          s += __shfl_xor_sync(0xffffffffu, s, 1);
-          dp += __shfl_xor_sync(0xffffffffu, dp, 1);
-          const float p = exp2f(s + bias_s[j] - row_lse);
-          float dpm = dp;
-          if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
-          if constexpr (kOnePass) {
-            const float pdpm = p * dpm;
-            delta += pdpm;
-            axpy_half<T, kD>(acc, pdpm, &k_s[j * kD], half);
-            axpy_half<T, kD>(pk, p, &k_s[j * kD], half);
-          } else if (kV3 || sweep == 1) {
-            // dS rounded as the TPU kernels round it
-            axpy_half<T, kD>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kD], half);
-          } else {
-            delta += p * dpm;
-          }
+      for (int jj = 0; jj < kKeyChunk; ++jj) {
+        const int j = j0 + jj;
+        if (j >= kn) break;  // uniform across the CTA
+        float s = dot_half<T, kD>(qr, &k_s[j * kD], half);
+        float dp = dot_half<T, kD>(dor, &v_s[j * kD], half);
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        dp += __shfl_xor_sync(0xffffffffu, dp, 1);
+        const float p = exp2f(s + bias_s[j] - row_lse);
+        float dpm = dp;
+        if constexpr (kDropout) dpm = ((keep >> jj) & 1u) ? dp * drop.scale : 0.f;
+        if constexpr (kV3) {
+          axpy_half<T, kD>(acc, p * (dpm - delta), &k_s[j * kD], half);
+        } else {
+          const float pdpm = p * dpm;
+          delta += pdpm;
+          axpy_half<T, kD>(acc, pdpm, &k_s[j * kD], half);
+          axpy_half<T, kD>(pk, p, &k_s[j * kD], half);
         }
       }
     }
   }
 
-  if constexpr (kOnePass) {
+  if constexpr (!kV3) {
 #pragma unroll
     for (int i = 0; i < L::kPart; ++i) acc[i] = fmaf(-delta, pk[i], acc[i]);
   }
@@ -622,20 +516,19 @@ short_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Backward 2/2: dk and dv
 // ---------------------------------------------------------------------------
 
-// f32, and bf16 above kMaxTcHeadDim, dS and the dropped p rounded to T
-// before their products (nothing changes in f32); lse and delta are the dq
-// launch's (v2: the forward's lse).
-template <typename T, int kD, bool kDropout>
+// f32 only; lse and delta are the dq launch's (v2: the forward's lse).
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v,
+short_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v,
                                const float* __restrict__ key_bias,
-                               const T* __restrict__ dout,
+                               const float* __restrict__ dout,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
-                               T* __restrict__ dk, T* __restrict__ dv,
+                               float* __restrict__ dk, float* __restrict__ dv,
                                int seq, int hidden, int stride, int rows_per_cta,
                                float score_mult, float dk_mult, Dropout drop) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float q_s[kQueryTileOf<kD> * kD];   // q * score_mult
   __shared__ __align__(16) float do_s[kQueryTileOf<kD> * kD];
@@ -697,8 +590,8 @@ short_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pd = kept ? p * drop.scale : 0.f;
         dpm = kept ? dp * drop.scale : 0.f;
       }
-      axpy_half<T, kD>(dv_acc, round_to<T>(pd), &do_s[i * kD], half);
-      axpy_half<T, kD>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kD], half);
+      axpy_half<T, kD>(dv_acc, pd, &do_s[i * kD], half);
+      axpy_half<T, kD>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kD], half);
     }
   }
 
@@ -767,16 +660,16 @@ __host__ __device__ __forceinline__ int probs_width(int seq) {
   return (seq + kGroup - 1) / kGroup * kGroup;
 }
 
-// f32 on the CUDA cores, and bf16 above kMaxTcHeadDim (the signed probs in
-// bf16, pd rounded to bf16 before P V as _fwd_kernel_v2s rounds it).
-template <typename T, int kD, bool kDropout>
+// f32, on the CUDA cores.
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_probs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                 const T* __restrict__ v,
+short_attention_probs_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v,
                                  const float* __restrict__ key_bias,
-                                 T* __restrict__ out, T* __restrict__ probs,
+                                 float* __restrict__ out, float* __restrict__ probs,
                                  int seq, int hidden, int rows_per_cta,
                                  float score_mult, Dropout drop) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
   __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
@@ -838,7 +731,7 @@ short_attention_probs_fwd_kernel(const T* __restrict__ q, const T* __restrict__ 
         if (j < kn) {
           float pd = p[jj];
           if constexpr (kDropout) pd = ((keep >> jj) & 1u) ? p[jj] * drop.scale : 0.f;
-          axpy_half<T, kD>(acc, round_to<T>(pd), &v_s[j * kD], half);
+          axpy_half<T, kD>(acc, pd, &v_s[j * kD], half);
         }
       }
     }
@@ -977,17 +870,22 @@ short_attention_probs_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __re
   tc::store_tile<kD>(acc, stage, out + base + (size_t)warp * 16 * hidden, hidden, rows);
 }
 
-// 128 < S < 1024: one CTA per (query tile, head, batch row), 2 * rows_per_cta
-// threads; Q tile, K and V rings of two 64-key tiles, the key bias of
-// each, and a [16][kStride<kD>] stage a warp.
+// 128 < S < 1024, and every S at kD = 256: one CTA per (query tile, head,
+// batch row), 2 * rows_per_cta threads; Q tile, K and V rings of two
+// 64-key tiles, the key bias of each, and a [16][kStride<64>] stage a warp
+// for the signed probs of a ring tile (the warp's Q rows are its ctx
+// stage once both sweeps are done).
 constexpr int kRingTile = 64;
 constexpr int kRN = kRingTile / 8;  // 8-key column tiles of a ring tile's scores
 
 template <int kD>
-int probs_tc_long_smem_bytes(int rows_per_cta) {
-  return (2 * rows_per_cta + 4 * kRingTile) * tc::kStride<kD> * (int)sizeof(bf16) +
+constexpr int probs_tc_long_smem_bytes(int rows_per_cta) {
+  return ((rows_per_cta + 4 * kRingTile) * tc::kStride<kD> +
+          rows_per_cta * tc::kStride<kRingTile>) * (int)sizeof(bf16) +
          2 * kRingTile * (int)sizeof(float);
 }
+static_assert(probs_tc_long_smem_bytes<256>(kMaxRows) <= msa_short_bwd_tiled::kMaxSmem,
+              "the probs ring fits one CTA's shared memory");
 
 __device__ __forceinline__ void load_bias_tile(float* dst, const float* bias_row, int k0,
                                                int seq) {
@@ -1095,8 +993,9 @@ short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
   bf16* k_s = reinterpret_cast<bf16*>(smem);  // two buffers
   bf16* v_s = k_s + 2 * kTile;                // two buffers
   bf16* q_s = v_s + 2 * kTile;                // [rows_per_cta][kStride<kD>]
-  bf16* stage_s = q_s + rows_per_cta * tc::kStride<kD>;
-  float* bias_s = reinterpret_cast<float*>(stage_s + rows_per_cta * tc::kStride<kD>);  // [2][64]
+  bf16* stage_s = q_s + rows_per_cta * tc::kStride<kD>;  // [rows_per_cta][kStride<64>]
+  float* bias_s =
+      reinterpret_cast<float*>(stage_s + rows_per_cta * tc::kStride<kRingTile>);  // [2][64]
 
   const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * rows_per_cta;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1105,7 +1004,7 @@ short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
   const float* bias_row = key_bias + (size_t)b * seq;
   const int sp = probs_width(seq);
   const int w0 = q0 + warp * 16;  // this warp's first row
-  bf16* stage = stage_s + warp * 16 * tc::kStride<kD>;
+  bf16* stage = stage_s + warp * 16 * tc::kStride<kRingTile>;
 
   // Sweep 1: the row lse (log2 units) by the online max / sum.
   tc::stage_rows<kD>(q_s, q, base, hidden, q0, rows_per_cta, seq);
@@ -1126,30 +1025,35 @@ short_attention_probs_fwd_tc_long_kernel(const bf16* __restrict__ q,
                if constexpr (kDropout) {
                  tc::keep_words_qmajor(drop, row_base + w0 + (lane >> 2), k0, keep);
                }
-               store_signed_probs<kD, kRN, kDropout>(
+               store_signed_probs<kRingTile, kRN, kDropout>(
                    s, keep, stage, probs + (size_t)(row_base + w0) * sp + k0, sp, seq - w0,
                    (sp - k0) / 8);
                drop_probs<kRN, kDropout>(s, keep, drop.scale);
                tc::mma_nn<kD, kRN>(s, v_tile, acc);
              });
-  tc::store_tile<kD>(acc, stage, out + base + (size_t)w0 * hidden, hidden, seq - w0);
+  tc::store_tile<kD>(acc, q_s + warp * 16 * tc::kStride<kD>, out + base + (size_t)w0 * hidden,
+                     hidden, seq - w0);
 }
 
-// ---- the v2 / v2p forward, bf16, 128 < S < 1024 ----
+// ---- the v2 / v2p forward, bf16, 128 < S < 1024 (every S at kD = 256) ----
 //
 // short_fwd_tc.cuh's rule in the two-sweep form: one CTA per (query tile of
 // <= 128 rows, head, batch row), 2 * rows_per_cta threads, one warp per 16
-// query rows, v2s's ring without its probs.  Sweep 1: the online row max
+// query rows, v2s's ring without its probs.  At kD = 256 a warp's
+// [16 x 256] f32 ctx accumulator is 128 registers a lane and a ring tile's
+// scores 32 more; the rings and a Q tile of 128 rows take 203 KB.  Sweep 1: the online row max
 // and sum (ring_row_stats); sweep 2: the scores again, p = exp2(s - max) *
 // (1 / sum), the dropout, p rounded to bf16 in the pack that feeds P V.  q,
 // k, v at row stride ld; out [B, S, hidden] and lse [B, heads, S]
 // (kTrain).  Shared memory: the K and V rings and their bias, and the Q
 // tile, whose warp rows are the store stage once both sweeps are done.
 template <int kD>
-int fwd_tc_long_smem_bytes(int rows_per_cta) {
+constexpr int fwd_tc_long_smem_bytes(int rows_per_cta) {
   return (rows_per_cta + 4 * kRingTile) * tc::kStride<kD> * (int)sizeof(bf16) +
          2 * kRingTile * (int)sizeof(float);
 }
+static_assert(fwd_tc_long_smem_bytes<256>(kMaxRows) <= msa_short_bwd_tiled::kMaxSmem,
+              "the ring fits one CTA's shared memory");
 
 template <int kD, bool kDropout, bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -1215,14 +1119,15 @@ short_attention_fwd_tc_long_kernel(const bf16* __restrict__ q, const bf16* __res
 // sweep 2 forms ds = p * (dpm - delta) (:931) and accumulates dq = scale *
 // sum_j ds k_j.  delta goes to scratch for the dk/dv launch.  No score,
 // softmax or Philox draw.
-template <typename T, int kD, bool kDropout>
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v,
-                                const T* __restrict__ probs,
-                                const T* __restrict__ dout,
-                                float* __restrict__ delta_out, T* __restrict__ dq,
+short_attention_probs_dq_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                                const float* __restrict__ probs,
+                                const float* __restrict__ dout,
+                                float* __restrict__ delta_out, float* __restrict__ dq,
                                 int seq, int hidden, int rows_per_cta, float scale,
                                 float drop_scale) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float k_s[kKeyTileOf<kD> * kD];
   __shared__ __align__(16) float v_s[kKeyTileOf<kD> * kD];
@@ -1273,7 +1178,7 @@ short_attention_probs_dq_kernel(const T* __restrict__ k, const T* __restrict__ v
           if (sweep == 0) {
             delta = fmaf(p, dpm, delta);
           } else {
-            axpy_half<T, kD>(acc, round_to<T>(p * (dpm - delta)), &k_s[j * kD], half);
+            axpy_half<T, kD>(acc, p * (dpm - delta), &k_s[j * kD], half);
           }
         }
       }
@@ -1295,15 +1200,16 @@ template <int kD>
 inline constexpr int kProbsQueryTileOf =
     kD == 256 ? kProbsQueryTile / 4 : kD == 128 ? kProbsQueryTile / 2 : kProbsQueryTile;
 
-template <typename T, int kD, bool kDropout>
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kMaxThreads)
-short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ v,
-                                 const T* __restrict__ probs,
-                                 const T* __restrict__ dout,
+short_attention_probs_dkv_kernel(const float* __restrict__ q, const float* __restrict__ v,
+                                 const float* __restrict__ probs,
+                                 const float* __restrict__ dout,
                                  const float* __restrict__ delta,
-                                 T* __restrict__ dk, T* __restrict__ dv, int seq,
+                                 float* __restrict__ dk, float* __restrict__ dv, int seq,
                                  int hidden, int rows_per_cta, float scale,
                                  float drop_scale) {
+  using T = float;
   using L = Layout<T, kD>;
   __shared__ __align__(16) float q_s[kProbsQueryTileOf<kD> * kD];
   __shared__ __align__(16) float do_s[kProbsQueryTileOf<kD> * kD];
@@ -1336,7 +1242,7 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
     for (int idx = threadIdx.x; idx < qn * keys_here; idx += blockDim.x) {
       const int i = idx / keys_here;
       const int j = idx - i * keys_here;
-      p_s[i][j] = to_float(probs[(size_t)(head_rows + i0 + i) * width + key0 + j]);
+      p_s[i][j] = probs[(size_t)(head_rows + i0 + i) * width + key0 + j];
     }
     for (int i = threadIdx.x; i < qn; i += blockDim.x) delta_s[i] = delta[head_rows + i0 + i];
     __syncthreads();
@@ -1353,8 +1259,8 @@ short_attention_probs_dkv_kernel(const T* __restrict__ q, const T* __restrict__ 
         pd = kept ? p * drop_scale : 0.f;
         dpm = kept ? dp * drop_scale : 0.f;
       }
-      axpy_half<T, kD>(dv_acc, round_to<T>(pd), &do_s[i * kD], half);
-      axpy_half<T, kD>(dk_acc, round_to<T>(p * (dpm - delta_s[i])), &q_s[i * kD], half);
+      axpy_half<T, kD>(dv_acc, pd, &do_s[i * kD], half);
+      axpy_half<T, kD>(dk_acc, p * (dpm - delta_s[i]), &q_s[i * kD], half);
     }
   }
 
@@ -1401,31 +1307,18 @@ void launch_fwd(const void* q, const void* k, const void* v, const float* bias,
           stride, rows, score_mult, drop);
 }
 
-// bf16 above kMaxTcHeadDim: the two-sweep forward on the CUDA cores.
-template <typename T, int kD, bool kDropout, bool kTrain>
-void launch_fwd_rounded(const void* q, const void* k, const void* v, const float* bias,
-                        void* out, float* lse, int batch, int seq, int hidden, int stride,
-                        int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
-  int n_tiles, rows;
-  tiles(seq, &n_tiles, &rows);
-  short_attention_fwd_rounded_kernel<T, kD, kDropout, kTrain>
-      <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), bias, static_cast<T*>(out), lse, seq, hidden,
-          stride, rows, score_mult, drop);
-}
-
-// The backward pair on the CUDA cores: f32, and bf16 above kMaxTcHeadDim.
-template <typename T, int kD, bool kDropout, bool kV3>
+// The f32 backward pair on the CUDA cores.
+template <int kD, bool kDropout, bool kV3>
 int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
                const void* o, const void* dout, float* lse, float* delta,
                void* dq, void* dk, void* dv, int batch, int seq, int hidden,
                int stride, int num_heads, float scale, Dropout drop, cudaStream_t s) {
+  using T = float;
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
   const float score_mult = scale * kLog2e;
-  short_attention_bwd_dq_kernel<T, kD, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dq_kernel<kD, kDropout, kV3><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), seq, hidden, stride, rows, score_mult, scale, drop);
@@ -1433,20 +1326,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* bias,
   if (err != cudaSuccess) return (int)err;
   // q is staged as q * score_mult, so dk = sum(ds * q_staged) / log2e
   // (scale * score_mult / score_mult = scale in natural units).
-  short_attention_bwd_dkv_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_bwd_dkv_kernel<kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       bias, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), seq, hidden, stride, rows, score_mult, 1.f / kLog2e, drop);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kD, bool kDropout>
+template <int kD, bool kDropout>
 void launch_probs_fwd(const void* q, const void* k, const void* v, const float* bias,
                       void* out, void* probs, int batch, int seq, int hidden,
                       int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+  using T = float;
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
-  short_attention_probs_fwd_kernel<T, kD, kDropout>
+  short_attention_probs_fwd_kernel<kD, kDropout>
       <<<dim3(n_tiles, num_heads, batch), dim3(2 * rows), 0, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), bias, static_cast<T*>(out),
@@ -1476,22 +1370,25 @@ int launch_probs_fwd_tc(const void* q, const void* k, const void* v, const float
 }
 
 // bf16: the tensor-core forward, its whole-row form for the 16-key tiles
-// seq needs up to 128 keys, else the two-sweep form.
+// seq needs up to 128 keys (head dims up to kMaxWholeRowHeadDim), else the
+// two-sweep form.
 template <int kD, bool kDropout>
 int launch_probs_fwd_tc_for(const void* q, const void* k, const void* v, const float* bias,
                             void* out, void* probs, int batch, int seq, int hidden,
                             int num_heads, float score_mult, Dropout drop,
                             cudaStream_t s) {
+  if constexpr (kD <= kMaxWholeRowHeadDim) {
 #define MSA_TC(KT)                                                                       \
   case KT:                                                                               \
     return launch_probs_fwd_tc<kD, KT, kDropout>(q, k, v, bias, out, probs, batch, seq,  \
                                                  hidden, num_heads, score_mult, drop, s)
-  switch ((seq + 15) / 16) {
-    MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
-    MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);
-    default: break;
-  }
+    switch ((seq + 15) / 16) {
+      MSA_TC(1); MSA_TC(2); MSA_TC(3); MSA_TC(4);
+      MSA_TC(5); MSA_TC(6); MSA_TC(7); MSA_TC(8);
+      default: break;
+    }
 #undef MSA_TC
+  }
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   constexpr auto kernel = short_attention_probs_fwd_tc_long_kernel<kD, kDropout>;
@@ -1505,23 +1402,23 @@ int launch_probs_fwd_tc_for(const void* q, const void* k, const void* v, const f
   return (int)cudaGetLastError();
 }
 
-// The '+probs' backward pair on the CUDA cores: f32, and bf16 above
-// kMaxTcHeadDim.
-template <typename T, int kD, bool kDropout>
+// The f32 '+probs' backward pair on the CUDA cores.
+template <int kD, bool kDropout>
 int launch_probs_bwd(const void* q, const void* k, const void* v, const void* probs,
                      const void* dout, float* delta, void* dq, void* dk, void* dv,
                      int batch, int seq, int hidden, int num_heads, float scale,
                      float drop_scale, cudaStream_t s) {
+  using T = float;
   int n_tiles, rows;
   tiles(seq, &n_tiles, &rows);
   const dim3 grid(n_tiles, num_heads, batch);
-  short_attention_probs_dq_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_probs_dq_kernel<kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
       static_cast<T*>(dq), seq, hidden, rows, scale, drop_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  short_attention_probs_dkv_kernel<T, kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
+  short_attention_probs_dkv_kernel<kD, kDropout><<<grid, dim3(2 * rows), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(v),
       static_cast<const T*>(probs), static_cast<const T*>(dout), delta,
       static_cast<T*>(dk), static_cast<T*>(dv), seq, hidden, rows, scale,
@@ -1570,44 +1467,39 @@ int fwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const bool drop = drop_rate > 0.0;
-#define MSA_FWD(F, T, D, W) F<T, kD, D, W>(q, k, v, bias, out, l, batch, seq, hidden, \
-                                           stride, num_heads, sm, d, s)
-#define MSA_FWD_ALL(F, T)                                                  \
-  if (drop) { if (l) MSA_FWD(F, T, true, true); else MSA_FWD(F, T, true, false); } \
-  else { if (l) MSA_FWD(F, T, false, true); else MSA_FWD(F, T, false, false); }
   if (dtype == 0) {
-    MSA_FWD_ALL(launch_fwd, float);
+#define MSA_FWD(D, W) launch_fwd<float, kD, D, W>(q, k, v, bias, out, l, batch, seq, hidden, \
+                                                  stride, num_heads, sm, d, s)
+    if (drop) { if (l) MSA_FWD(true, true); else MSA_FWD(true, false); }
+    else { if (l) MSA_FWD(false, true); else MSA_FWD(false, false); }
+#undef MSA_FWD
     return (int)cudaGetLastError();
   }
-  if constexpr (kD > kMaxTcHeadDim) {
-    MSA_FWD_ALL(launch_fwd_rounded, bf16);
-    return (int)cudaGetLastError();
-  } else {
-#undef MSA_FWD_ALL
-#undef MSA_FWD
 #define MSA_TC(F, D, W) F<kD, D, W>(q, k, v, bias, out, l, batch, seq, stride, hidden, \
                                     num_heads, sm, d, s)
 #define MSA_TC_ALL(F) (drop ? (l ? MSA_TC(F, true, true) : MSA_TC(F, true, false)) \
                             : (l ? MSA_TC(F, false, true) : MSA_TC(F, false, false)))
-    return seq <= msa_short_fwd::kMaxSeq ? MSA_TC_ALL(msa_short_fwd::launch)
-                                         : MSA_TC_ALL(launch_fwd_tc_long);
+  if constexpr (kD <= kMaxWholeRowHeadDim) {
+    if (seq <= msa_short_fwd::kMaxSeq) return MSA_TC_ALL(msa_short_fwd::launch);
+  }
+  return MSA_TC_ALL(launch_fwd_tc_long);
 #undef MSA_TC_ALL
 #undef MSA_TC
-  }
 }
 
 // A bf16 backward on the tensor cores by rule kRule (short_bwd_tc.cuh's
-// arguments): at S <= 128 one launch of short_bwd_tc.cuh (which needs
-// neither lse nor delta, but kFromOut writes both), above it the dq and
-// dk/dv pair of short_bwd_tiled.cuh (delta scratch, and the lse: the
-// training forward's for kRecompute, scratch for kFromOut).  f32 takes the
-// CUDA-core pairs instead.
+// arguments): at S <= 128 and head dims up to kMaxWholeRowHeadDim one
+// launch of short_bwd_tc.cuh (which needs neither lse nor delta, but
+// kFromOut writes both), otherwise the dq and dk/dv pair of
+// short_bwd_tiled.cuh (delta scratch, and the lse: the training forward's
+// for kRecompute, scratch for kFromOut).  f32 takes the CUDA-core pairs
+// instead.
 template <int kD, int kRule>
 int tc_backward(const void* q, const void* k, const void* v, const float* bias,
                 const void* probs, const void* o, const void* dout, void* dq, void* dk,
                 void* dv, float* lse, float* delta, int batch, int seq, int ld, int hidden,
                 int num_heads, float scale, Dropout d, cudaStream_t s) {
-  const bool one = seq <= msa_short_bwd::kMaxSeq;
+  const bool one = kD <= kMaxWholeRowHeadDim && seq <= msa_short_bwd::kMaxSeq;
   if ((!one || kRule == msa_short_bwd::kFromOut) &&
       (delta == nullptr || (kRule != msa_short_bwd::kFromProbs && lse == nullptr))) {
     return (int)cudaErrorInvalidValue;
@@ -1616,14 +1508,17 @@ int tc_backward(const void* q, const void* k, const void* v, const float* bias,
   NS::launch<kD, D, kRule>(q, k, v, bias, probs, o, dout, dq, dk, dv, lse, delta,       \
                            batch, seq, ld, hidden, num_heads, scale * kLog2e, scale, d, s)
   const bool drop = d.active;
-  if (one) return drop ? MSA_TC(msa_short_bwd, true) : MSA_TC(msa_short_bwd, false);
+  if constexpr (kD <= kMaxWholeRowHeadDim) {
+    if (one) return drop ? MSA_TC(msa_short_bwd, true) : MSA_TC(msa_short_bwd, false);
+  }
   return drop ? MSA_TC(msa_short_bwd_tiled, true) : MSA_TC(msa_short_bwd_tiled, false);
 #undef MSA_TC
 }
 
 // kV3: delta from o, the ctx in the storage type, and the lse recomputed
 // and written to `lse` (v3, v2p); else v1's rule (v2), o unread and,
-// except for bf16's one launch, `lse` the training forward's, read.
+// except for bf16's one launch, `lse` the training forward's, read.  bf16
+// on the tensor cores (tc_backward), f32 on the CUDA cores.
 // delta: scratch of the pairs.  q, k, v, dq, dk and dv at row stride
 // `stride`.
 template <int kD, bool kV3>
@@ -1637,21 +1532,15 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
   float* dl = static_cast<float*>(delta);
   const Dropout d = make_dropout(seed_lo, seed_hi, drop_rate);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define MSA_BWD(T, D) launch_bwd<T, kD, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, \
-                                                batch, seq, hidden, stride, num_heads, scale, \
-                                                d, s)
+#define MSA_BWD(D) launch_bwd<kD, D, kV3>(q, k, v, bias, o, dout, l, dl, dq, dk, dv, batch, \
+                                          seq, hidden, stride, num_heads, scale, d, s)
   if (dtype == 1) {
-    if constexpr (kD <= kMaxTcHeadDim) {
-      constexpr int kRule = kV3 ? msa_short_bwd::kFromOut : msa_short_bwd::kRecompute;
-      return tc_backward<kD, kRule>(q, k, v, bias, nullptr, o, dout, dq, dk, dv, l, dl, batch,
-                                    seq, stride, hidden, num_heads, scale, d, s);
-    } else {
-      if (l == nullptr || dl == nullptr) return (int)cudaErrorInvalidValue;
-      return d.active ? MSA_BWD(bf16, true) : MSA_BWD(bf16, false);
-    }
+    constexpr int kRule = kV3 ? msa_short_bwd::kFromOut : msa_short_bwd::kRecompute;
+    return tc_backward<kD, kRule>(q, k, v, bias, nullptr, o, dout, dq, dk, dv, l, dl, batch,
+                                  seq, stride, hidden, num_heads, scale, d, s);
   }
   if (l == nullptr || dl == nullptr) return (int)cudaErrorInvalidValue;
-  return d.active ? MSA_BWD(float, true) : MSA_BWD(float, false);
+  return d.active ? MSA_BWD(true) : MSA_BWD(false);
 #undef MSA_BWD
 }
 
@@ -1664,7 +1553,7 @@ int bwd_dispatch(const void* q, const void* k, const void* v, const void* key_bi
 // [0, 1): 0 = no dropout, else the keep rule of dropout.cuh (the byte rule
 // on the t/256 grid, the word rule off it).  The training forward passes lse ([B, heads, S] f32, the
 // log2-sum-exp of each score row), which the v2 backward pairs read (bf16
-// above 128 keys, f32); the serving forward passes it null, which runs exactly the no-lse
+// above 128 keys or at head dim 256, f32); the serving forward passes it null, which runs exactly the no-lse
 // kernel.  bf16 runs on the tensor cores (fwd_dispatch), f32 on the CUDA
 // cores; both forms give the same out.  Launches once on `stream` and
 // returns cudaGetLastError() (0 on success).  The caller has checked
@@ -1812,21 +1701,16 @@ extern "C" int msa_short_attention_probs_fwd(const void* q, const void* k,
   const bool drop = drop_rate > 0.0;
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-    // f32 on the CUDA cores, bf16 on the tensor cores up to kMaxTcHeadDim
+    // f32 on the CUDA cores, bf16 on the tensor cores
 #define MSA_PFWD(F, D) F<kD, D>(q, k, v, bias, out, probs, batch, seq, hidden, num_heads, sm, d, s)
-#define MSA_PSIMT(T, D) \
-  launch_probs_fwd<T, kD, D>(q, k, v, bias, out, probs, batch, seq, hidden, num_heads, sm, d, s)
+#define MSA_PSIMT(D) \
+  launch_probs_fwd<kD, D>(q, k, v, bias, out, probs, batch, seq, hidden, num_heads, sm, d, s)
     if (dtype == 0) {
-      if (drop) MSA_PSIMT(float, true); else MSA_PSIMT(float, false);
+      if (drop) MSA_PSIMT(true); else MSA_PSIMT(false);
       return (int)cudaGetLastError();
     }
-    if constexpr (kD <= kMaxTcHeadDim) {
-      return drop ? MSA_PFWD(launch_probs_fwd_tc_for, true)
-                  : MSA_PFWD(launch_probs_fwd_tc_for, false);
-    } else {
-      if (drop) MSA_PSIMT(bf16, true); else MSA_PSIMT(bf16, false);
-      return (int)cudaGetLastError();
-    }
+    return drop ? MSA_PFWD(launch_probs_fwd_tc_for, true)
+                : MSA_PFWD(launch_probs_fwd_tc_for, false);
 #undef MSA_PSIMT
 #undef MSA_PFWD
   });
@@ -1834,9 +1718,9 @@ extern "C" int msa_short_attention_probs_fwd(const void* q, const void* k,
 
 // The '+probs' backward (TPU kernel _bwd_kernel_v2s) from q, k, v, the
 // forward's signed probs and dout alone; drop_rate gives the rescale
-// (dropout.cuh's scale).  bf16 at S <= 128: one tensor-core launch
-// (short_bwd_tc.cuh, p and the keep bit read from the probs; delta may be
-// null).  Otherwise a pair, dq (writing delta, [B, heads, S] f32 scratch)
+// (dropout.cuh's scale).  bf16 at S <= 128 and head dims up to 128: one
+// tensor-core launch (short_bwd_tc.cuh, p and the keep bit read from the
+// probs; delta may be null).  Otherwise a pair, dq (writing delta, [B, heads, S] f32 scratch)
 // then dk/dv: bf16 on the tensor cores (short_bwd_tiled.cuh), f32 on the
 // CUDA cores.
 extern "C" int msa_short_attention_probs_bwd(const void* q, const void* k,
@@ -1854,20 +1738,15 @@ extern "C" int msa_short_attention_probs_bwd(const void* q, const void* k,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   return tc::by_head_dim(tc::head_dim_of(hidden, num_heads), [&](auto hd) {
     constexpr int kD = decltype(hd)::value;
-#define MSA_PBWD(T, D) launch_probs_bwd<T, kD, D>(q, k, v, probs, dout, dl, dq, dk, dv, batch, \
-                                                  seq, hidden, num_heads, scale, d.scale, s)
+#define MSA_PBWD(D) launch_probs_bwd<kD, D>(q, k, v, probs, dout, dl, dq, dk, dv, batch, seq, \
+                                            hidden, num_heads, scale, d.scale, s)
     if (dtype == 1) {
-      if constexpr (kD <= kMaxTcHeadDim) {
-        return tc_backward<kD, msa_short_bwd::kFromProbs>(
-            q, k, v, nullptr, probs, nullptr, dout, dq, dk, dv, nullptr, dl, batch, seq, hidden,
-            hidden, num_heads, scale, d, s);
-      } else {
-        if (dl == nullptr) return (int)cudaErrorInvalidValue;
-        return d.active ? MSA_PBWD(bf16, true) : MSA_PBWD(bf16, false);
-      }
+      return tc_backward<kD, msa_short_bwd::kFromProbs>(
+          q, k, v, nullptr, probs, nullptr, dout, dq, dk, dv, nullptr, dl, batch, seq, hidden,
+          hidden, num_heads, scale, d, s);
     }
     if (dl == nullptr) return (int)cudaErrorInvalidValue;
-    return d.active ? MSA_PBWD(float, true) : MSA_PBWD(float, false);
+    return d.active ? MSA_PBWD(true) : MSA_PBWD(false);
 #undef MSA_PBWD
   });
 }

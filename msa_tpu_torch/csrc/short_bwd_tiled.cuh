@@ -1,10 +1,12 @@
-// The bf16 short-attention backward on the tensor cores above 128 keys
-// (129 <= S <= 1023), head dim kD = 16, 32, 64 or 128 (a template
-// parameter): a dq
-// launch and a dk/dv launch over 64-row tiles on Hopper's warpgroup MMA
-// (wgmma_tiles.cuh), with no [S, S] tensor in device memory.  It serves
-// the rules of short_bwd_tc.cuh (its Rule enum), which takes S <= 128 in
-// one launch, for four TPU kernels of msa_tpu/ops/short_attention.py:
+// The bf16 short-attention backward on the tensor cores, head dim kD = 16,
+// 32, 64, 128 or 256 (a template parameter): above 128 keys (129 <= S <=
+// 1023) at kD <= 128, and at every S (1 <= S <= 1023) at kD = 256, where
+// the whole-row template of short_bwd_tc.cuh, which takes S <= 128 in one
+// launch at kD <= 128, would hold a [16 x 256] f32 accumulator and its
+// score rows in registers.  A dq launch and a dk/dv launch over 64-row
+// tiles on Hopper's warpgroup MMA (wgmma_tiles.cuh), with no [S, S] tensor
+// in device memory.  It serves the rules of short_bwd_tc.cuh (its Rule
+// enum) for four TPU kernels of msa_tpu/ops/short_attention.py:
 //
 //   * kRecompute: v2, _bwd_kernel_v2 (:336; msa_short_attention_bwd): p =
 //     exp2(s - lse) from the scores, the key bias and the row lse that the
@@ -55,6 +57,21 @@
 //     keep words of a warp's 16 keys are one Philox draw per query: lane l
 //     draws queries l and l + 32, and the quads take them by shuffles.
 //
+// At kD = 256 a row of a staged tile is four 128-byte swizzle atoms (a
+// 64-row tile is 32 KB, six of them 192 KB of the 227 KB a CTA may take)
+// and the accumulators of a 64-row CTA are 256 columns wide.  The dq
+// launch keeps one warpgroup: dQ [64 x 256] f32 is 128 registers a thread
+// beside the S and dP tiles' 64, and its products dQ += dS K are two of
+// 128 columns (wgmma_tiles.cuh::cols).  The dk/dv launch takes two
+// warpgroups (kDkvGroups), each holding 128 of the columns of dK and dV (2
+// x [64 x 128] f32, 128 registers a thread, where the whole width would be
+// 256) and forming S^T and dP^T whole for itself: those products over all
+// 256 columns are done twice (1.5x the launch's products), at no shared
+// memory and no barrier between the groups.  scripts/short_variants.py
+// holds the alternatives that measured slower: the dq launch's dQ split
+// over two warpgroups likewise, and the dk/dv contraction split between
+// the groups and summed through shared memory.
+//
 // Warp w of the warpgroup holds rows 16 w + g and 16 w + g + 8 of every
 // [64 x 64] tile, columns 8 n + 2 c + {0, 1} (mma.sync's accumulator
 // layout), so the per-element code is short_bwd_tc.cuh's.  Ragged S: K and
@@ -85,20 +102,27 @@ using msa_short_bwd::kFromOut;
 using msa_short_bwd::kFromProbs;
 using msa_short_bwd::kRecompute;
 
-constexpr int kMinSeq = 129;   // S <= 128: short_bwd_tc.cuh's one launch
+constexpr int kMinSeq = 129;   // kD <= 128; S <= 128: short_bwd_tc.cuh's one launch
 constexpr int kMaxSeq = 1023;  // S >= 1024 runs the flash kernels
 static_assert(kMinSeq == msa_short_bwd::kMaxSeq + 1, "the two templates meet");
 
 constexpr int kTile = 64;                    // rows of a CTA's tile and of a ring tile
-constexpr int kThreads = wg::kGroupThreads;  // one warpgroup
 constexpr int kN = kTile / 8;                // 8-column tiles of a [64 x 64] score tile
 constexpr int kPLd = kTile + 8;              // row stride of a probs tile (144 bytes)
-// CTAs an SM that ptxas fits the dq launch's registers to (168 a thread;
-// at head dim 128, whose dQ accumulator alone takes 64, one CTA); the
-// dk/dv launch, which holds two accumulators, names the threads only
+constexpr int kThreads = wg::kGroupThreads;  // the dq launch: one warpgroup
+// Warpgroups of a dk/dv CTA, each holding kD / kDkvGroups of the columns
+// of dK and dV and forming S^T and dP^T whole
 template <int kD>
-constexpr int kDqMinBlocks = kD == 128 ? 1 : 3;
+constexpr int kDkvGroups = kD == 256 ? 2 : 1;
+template <int kD>
+constexpr int kDkvThreads = kDkvGroups<kD> * wg::kGroupThreads;
+// CTAs an SM that ptxas fits the dq launch's registers to (168 a thread;
+// at head dim 128, whose dQ accumulator alone takes 64, and 256, one CTA);
+// the dk/dv launch, which holds two accumulators, names the threads only
+template <int kD>
+constexpr int kDqMinBlocks = kD >= 128 ? 1 : 3;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory an H100 CTA may take
 
 template <int kD>
 __host__ __device__ constexpr int tile_bytes() { return kTile * wg::kRowBytes<kD>; }
@@ -120,9 +144,11 @@ constexpr int dkv_smem_bytes() {
              : wg::kAlign + 6 * tile_bytes<kD>() + 4 * kTile * 4;
 }
 
-// The key bias of keys [k0, k0 + 64) times log2e, -inf past seq.
+// The key bias of keys [k0, k0 + 64) times log2e, -inf past seq.  By every
+// thread of the CTA (kCta of them), as the copies below.
+template <int kCta>
 __device__ __forceinline__ void bias_tile(float* dst, const float* bias_row, int k0, int seq) {
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
+  for (int j = threadIdx.x; j < kTile; j += kCta) {
     dst[j] = k0 + j < seq ? bias_row[k0 + j] * kLog2e : -INFINITY;
   }
 }
@@ -130,9 +156,10 @@ __device__ __forceinline__ void bias_tile(float* dst, const float* bias_row, int
 // Rows [r0, r0 + 64) x keys [c0, c0 + 64) of a head's signed probs (row 0
 // at src, row stride sp) into dst (row stride kPLd), asynchronously; rows
 // past seq and 8-key chunks at or past sp zero-filled.
+template <int kCta>
 __device__ __forceinline__ void stage_probs(bf16* dst, const bf16* src, int sp, int r0, int c0,
                                             int seq) {
-  for (int idx = threadIdx.x; idx < kTile * 8; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < kTile * 8; idx += kCta) {
     const int r = idx >> 3, ch = idx & 7;
     const bool ok = r0 + r < seq && c0 + 8 * ch < sp;
     tc::cp_async16(dst + r * kPLd + 8 * ch, src + (ok ? (size_t)(r0 + r) * sp + c0 + 8 * ch : 0),
@@ -142,8 +169,9 @@ __device__ __forceinline__ void stage_probs(bf16* dst, const bf16* src, int sp, 
 
 // Entries [i0, i0 + 64) of a [S] f32 row (lse or delta) into dst,
 // asynchronously; zero-filled past seq.
+template <int kCta>
 __device__ __forceinline__ void stage_stats(float* dst, const float* src, int i0, int seq) {
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
+  for (int j = threadIdx.x; j < kTile; j += kCta) {
     const bool ok = i0 + j < seq;
     tc::cp_async4(dst + j, src + (ok ? i0 + j : 0), ok);
   }
@@ -187,15 +215,22 @@ __device__ __forceinline__ void nt(float (&s)[kN][4], const unsigned char* a,
 }
 
 // c += F B for F [64 x 64] (A fragments) and B the 64 rows of tile b
-// (MN-major: rows the contracted index); issued, then waited for.
+// (MN-major: rows the contracted index), products of at most 128 columns;
+// issued, then waited for.
 template <int kD>
 __device__ __forceinline__ void nn_wait(float (&c)[kD / 8][4], uint32_t (&f)[kN / 2][4],
                                         const unsigned char* b) {
+  constexpr int kW = kD < 128 ? kD : 128;  // the N of one product
   wg::fence_operand(c);
   wg::fence_operand(f);
   wg::fence();
 #pragma unroll
-  for (int kk = 0; kk < kN / 2; ++kk) wg::mma_rs<kD, 1>(c, f[kk], wg::desc_mn<kD>(b, kk), 1);
+  for (int kk = 0; kk < kN / 2; ++kk) {
+#pragma unroll
+    for (int h = 0; h < kD / kW; ++h) {
+      wg::mma_rs<kW, 1>(wg::cols<kW / 8>(c, h), f[kk], wg::desc_mn<kD>(b, kk, h * kW), 1);
+    }
+  }
   wg::commit();
   wg::wait<0>();
   wg::fence_operand(c);
@@ -212,11 +247,12 @@ __device__ __forceinline__ void drop_pair(bool kept, float scale, float& pd, flo
   }
 }
 
-// A [64 x kD] accumulator's rows row0 and row0 + 8 (this lane's) times
-// mult into out (row stride ld) as bf16 pairs; rows past seq skipped.
-template <int kD>
+// A [64 x kC] accumulator's rows row0 and row0 + 8 (this lane's) times
+// mult into out (its first column; row stride ld) as bf16 pairs; rows past
+// seq skipped.
+template <int kC>
 __device__ __forceinline__ void store_rows(bf16* out, int ld, int row0, int seq,
-                                           const float (&f)[kD / 8][4], float mult) {
+                                           const float (&f)[kC / 8][4], float mult) {
   const int c = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -224,7 +260,7 @@ __device__ __forceinline__ void store_rows(bf16* out, int ld, int row0, int seq,
     if (row >= seq) continue;
     bf16* p = out + (size_t)row * ld + 2 * c;
 #pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
+    for (int n = 0; n < kC / 8; ++n) {
       *reinterpret_cast<uint32_t*>(p + n * 8) =
           tc::pack_bf16(f[n][2 * r] * mult, f[n][2 * r + 1] * mult);
     }
@@ -277,9 +313,10 @@ short_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (with_k) wg::stage_rows<kD>(k_s + st * kT, k, in_base, ld, k0, kTile, seq, tid, kThreads);
       if (with_v) wg::stage_rows<kD>(v_s + st * kT, v, in_base, ld, k0, kTile, seq, tid, kThreads);
       if constexpr (kProbs) {
-        stage_probs(p_s + st * kTile * kPLd, probs + (size_t)row_base * sp, sp, q0, k0, seq);
+        stage_probs<kThreads>(p_s + st * kTile * kPLd, probs + (size_t)row_base * sp, sp, q0,
+                              k0, seq);
       } else {
-        bias_tile(bias_s + st * kTile, key_bias + (size_t)b * seq, k0, seq);
+        bias_tile<kThreads>(bias_s + st * kTile, key_bias + (size_t)b * seq, k0, seq);
       }
     };
   };
@@ -463,9 +500,11 @@ short_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 // lse (not kFromProbs) and delta [B, heads, S] f32 from the dq launch (v2:
-// the training forward's lse).  dk and dv at row stride ld.
+// the training forward's lse).  dk and dv at row stride ld.  Warpgroup
+// grp of the CTA forms S^T and dP^T whole and holds columns [kC grp, kC
+// (grp + 1)) of dK and dV.
 template <int kD, bool kDropout, int kRule>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDkvThreads<kD>)
 short_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ key_bias,
                      const bf16* __restrict__ probs, const bf16* __restrict__ dout,
@@ -474,6 +513,8 @@ short_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float score_mult, float scale, Dropout drop) {
   constexpr bool kProbs = kRule == kFromProbs;
   constexpr int kT = tile_bytes<kD>();
+  constexpr int kC = kD / kDkvGroups<kD>;  // dK and dV columns a warpgroup
+  constexpr int kCtaThreads = kDkvThreads<kD>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* v_s = wg::align_smem(smem_raw);
   unsigned char* q_s = v_s + kT;        // [2] ring stages
@@ -484,7 +525,8 @@ short_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* lse_s = delta_s + 2 * kTile;  // [2], not v2s
 
   const int key0 = blockIdx.x * kTile, head = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int col0 = kC == kD ? 0 : (tid / wg::kGroupThreads) * kC;  // the group's columns
   const int m0 = warp * 16;        // the warp's keys of the tile
   const int wk = key0 + m0;        // its first key of the sequence
   const size_t in_base = (size_t)b * seq * ld + (size_t)head * kD;
@@ -502,13 +544,13 @@ short_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int key = wk + g + 8 * r;
       bias2[r] = key < seq ? key_bias[(size_t)b * seq + key] * kLog2e : -INFINITY;
     }
-    wg::stage_rows<kD>(k_s, k, in_base, ld, key0, kTile, seq, tid, kThreads);
+    wg::stage_rows<kD>(k_s, k, in_base, ld, key0, kTile, seq, tid, kCtaThreads);
   }
-  wg::stage_rows<kD>(v_s, v, in_base, ld, key0, kTile, seq, tid, kThreads);
+  wg::stage_rows<kD>(v_s, v, in_base, ld, key0, kTile, seq, tid, kCtaThreads);
 
-  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];
+  float dk_acc[kC / 8][4], dv_acc[kC / 8][4];
 #pragma unroll
-  for (int n = 0; n < kD / 8; ++n) {
+  for (int n = 0; n < kC / 8; ++n) {
 #pragma unroll
     for (int x = 0; x < 4; ++x) dk_acc[n][x] = dv_acc[n][x] = 0.f;
   }
@@ -516,13 +558,14 @@ short_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ring(
       n_tiles,
       [&](int st, int i0) {
-        wg::stage_rows<kD>(q_s + st * kT, q, in_base, ld, i0, kTile, seq, tid, kThreads);
-        wg::stage_rows<kD>(do_s + st * kT, dout, base, hidden, i0, kTile, seq, tid, kThreads);
-        stage_stats(delta_s + st * kTile, delta + row_base, i0, seq);
+        wg::stage_rows<kD>(q_s + st * kT, q, in_base, ld, i0, kTile, seq, tid, kCtaThreads);
+        wg::stage_rows<kD>(do_s + st * kT, dout, base, hidden, i0, kTile, seq, tid, kCtaThreads);
+        stage_stats<kCtaThreads>(delta_s + st * kTile, delta + row_base, i0, seq);
         if constexpr (kProbs) {
-          stage_probs(p_s + st * kTile * kPLd, probs + (size_t)row_base * sp, sp, i0, key0, seq);
+          stage_probs<kCtaThreads>(p_s + st * kTile * kPLd, probs + (size_t)row_base * sp, sp,
+                                   i0, key0, seq);
         } else {
-          stage_stats(lse_s + st * kTile, lse + row_base, i0, seq);
+          stage_stats<kCtaThreads>(lse_s + st * kTile, lse + row_base, i0, seq);
         }
       },
       [&](int st, int i0) {
@@ -605,11 +648,11 @@ short_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wg::fence();
 #pragma unroll
         for (int kk = 0; kk < kN / 2; ++kk) {
-          wg::mma_rs<kD, 1>(dv_acc, pa[kk], wg::desc_mn<kD>(dot, kk), 1);  // dV += pd^T dO
+          wg::mma_rs<kC, 1>(dv_acc, pa[kk], wg::desc_mn<kD>(dot, kk, col0), 1);  // dV += pd^T dO
         }
 #pragma unroll
         for (int kk = 0; kk < kN / 2; ++kk) {
-          wg::mma_rs<kD, 1>(dk_acc, da[kk], wg::desc_mn<kD>(qt, kk), 1);   // dK += dS^T Q
+          wg::mma_rs<kC, 1>(dk_acc, da[kk], wg::desc_mn<kD>(qt, kk, col0), 1);   // dK += dS^T Q
         }
         wg::commit();
         wg::wait<0>();
@@ -619,11 +662,12 @@ short_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wg::fence_operand(da);
       });
 
-  store_rows<kD>(dk + in_base, ld, wk + g, seq, dk_acc, scale);
-  store_rows<kD>(dv + in_base, ld, wk + g, seq, dv_acc, 1.f);
+  store_rows<kC>(dk + in_base + col0, ld, wk + g, seq, dk_acc, scale);
+  store_rows<kC>(dv + in_base + col0, ld, wk + g, seq, dv_acc, 1.f);
 }
 
-// The pair for kMinSeq <= seq <= kMaxSeq (the caller has checked it), with
+// The pair for kMinSeq <= seq <= kMaxSeq, and for 1 <= seq <= kMaxSeq at
+// kD = 256 (the caller has checked it), with
 // short_bwd_tc.cuh's launch's arguments: bias null for kFromProbs, probs
 // null otherwise, o null unless kFromOut; lse the training forward's
 // (kRecompute) or scratch (kFromOut; null for kFromProbs), delta scratch
@@ -642,6 +686,8 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
 
   constexpr auto dq_kernel = short_bwd_dq_kernel<kD, kDropout, kRule>;
   constexpr int dq_bytes = dq_smem_bytes<kD, kRule>();
+  static_assert(dq_bytes <= kMaxSmem && dkv_smem_bytes<kD, kRule>() <= kMaxSmem,
+                "the tiles fit one CTA's shared memory");
   cudaError_t err =
       cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -655,9 +701,9 @@ int launch(const void* q, const void* k, const void* v, const float* bias, const
   constexpr int dkv_bytes = dkv_smem_bytes<kD, kRule>();
   err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_bytes);
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<<<grid, kThreads, dkv_bytes, s>>>(qb, kb, vb, bias, pb, dob, static_cast<bf16*>(dk),
-                                               static_cast<bf16*>(dv), lse, delta, seq, ld, hidden,
-                                               score_mult, scale, drop);
+  dkv_kernel<<<grid, kDkvThreads<kD>, dkv_bytes, s>>>(
+      qb, kb, vb, bias, pb, dob, static_cast<bf16*>(dk), static_cast<bf16*>(dv), lse, delta, seq,
+      ld, hidden, score_mult, scale, drop);
   return (int)cudaGetLastError();
 }
 

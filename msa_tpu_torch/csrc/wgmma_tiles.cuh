@@ -1,7 +1,7 @@
 // Warpgroup tensor-core tiles (Hopper's wgmma) for a head dim kD of 16,
-// 32, 64 or 128: what the flash kernels of flash_kernels.cuh (rows 10, 12
-// and 13) and the tiled short-attention backward (short_bwd_tiled.cuh)
-// build their bf16 products from.
+// 32, 64, 128 or 256: what the flash kernels of flash_kernels.cuh (rows 10,
+// 12 and 13, kD <= 128) and the tiled short-attention backward
+// (short_bwd_tiled.cuh, every kD) build their bf16 products from.
 //
 // A warpgroup (4 warps, 128 threads) issues one asynchronous product of a
 // 64-row tile, m64nNk16 (bf16 in, f32 accumulate), A read from shared
@@ -14,9 +14,10 @@
 //     chunk c stored at chunk c ^ f(r): the 128-byte swizzle at d = 64 and
 //     128 (f(r) = r % 8, an atom of 1024 bytes), the 64-byte swizzle at d =
 //     32 (f(r) = (r / 2) % 4, 512 bytes) and the 32-byte swizzle at d = 16
-//     (f(r) = (r / 4) % 2, 256 bytes).  At d = 128 a row spans two atoms:
-//     8-row group j holds its left atom at 2048 j and its right one 1024
-//     bytes on (swz), so one descriptor layout serves tiles of any height.
+//     (f(r) = (r / 4) % 2, 256 bytes).  At d = 128 a row spans two atoms
+//     and at 256 four: 8-row group j holds atom a of its rows at
+//     kGroupBytes j + 1024 a (swz), so one descriptor layout serves tiles
+//     of any height.
 //     The hardware applies the pattern to absolute shared addresses, so
 //     every tile starts on a 1024-byte boundary (align_smem).  stage_rows
 //     copies rows into it with cp.async, zero-filling rows past the
@@ -27,18 +28,21 @@
 //                         32 kk bytes into each row's atoms (the next atom
 //                         from 64 values on).  SBO = an 8-row group, LBO
 //                         unused (1);
-//       desc_mn(tile, kk) MN-major (B only, transposed): the tile's rows
-//                         are the contracted index, kD the N index; k-step
-//                         kk starts at row 16 kk.  SBO = an 8-row group;
-//                         LBO, the stride between atoms along N (1024
-//                         bytes at d = 128; unused elsewhere, one atom);
+//       desc_mn(tile, kk, col0)
+//                         MN-major (B only, transposed): the tile's rows
+//                         are the contracted index, its columns from col0
+//                         (a multiple of 64) the N index; k-step kk starts
+//                         at row 16 kk.  SBO = an 8-row group; LBO, the
+//                         stride between atoms along N (1024 bytes at d =
+//                         128 and 256; unused elsewhere, one atom);
 //     fields (PTX ISA, "matrix descriptor"): start address >> 4 in bits
 //     0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, base offset 0 (the
 //     tiles are atom-aligned), swizzle mode in 62-63 (1: 128 B, 2: 64 B,
 //     3: 32 B);
 //   * mma_ss<N, kTransB>(d, desc_a, desc_b, scale_d) and mma_rs<N,
 //     kTransB>(d, a, desc_b, scale_d): d = A B (+ d when scale_d), N = 64
-//     or 128 from shared memory, N = kD (16 ... 128) with A from registers;
+//     or 128 from shared memory, N = 16 ... 128 with A from registers (a
+//     product 256 wide is two of 128: cols);
 //   * fence, commit and wait, and fence_operand, which pins registers that
 //     an asynchronous product reads or writes across the fence / wait pair
 //     so that the compiler neither moves nor reuses them in between (a
@@ -77,7 +81,7 @@ inline constexpr int kAtomChunks = kAtomCols<kD> / 8;
 template <int kD>
 inline constexpr int kAtomBytes = 8 * 2 * kAtomCols<kD>;  // 8 atom rows
 template <int kD>
-inline constexpr int kGroupBytes = 8 * kRowBytes<kD>;  // 8 whole rows: one or two atoms
+inline constexpr int kGroupBytes = 8 * kRowBytes<kD>;  // 8 whole rows: 1, 2 or 4 atoms
 template <int kD>
 inline constexpr uint64_t kSwizzleMode = kD >= 64 ? 1 : kD == 32 ? 2 : 3;
 
@@ -90,12 +94,12 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
 // Byte offset of chunk ch of row r in a swizzled tile.
 template <int kD>
 __device__ __forceinline__ int swz(int r, int ch) {
-  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128,
-                "the tiles take head dim 16, 32, 64 or 128");
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD == 128 || kD == 256,
+                "the tiles take head dim 16, 32, 64, 128 or 256");
   const int f = kD >= 64 ? (r & 7) : kD == 32 ? ((r >> 1) & 3) : ((r >> 2) & 1);
   if constexpr (kD <= 64) {  // one atom a row
     return r * kRowBytes<kD> + ((ch ^ f) << 4);
-  } else {
+  } else {  // kD / 64 atoms a row
     return (r >> 3) * kGroupBytes<kD> + (ch / kAtomChunks<kD>) * kAtomBytes<kD> +
            (r & 7) * 2 * kAtomCols<kD> + (((ch % kAtomChunks<kD>) ^ f) << 4);
   }
@@ -154,11 +158,11 @@ __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int row, i
 }
 
 // MN-major: rows [16 kk, 16 kk + 16) of the tile are k-step kk's K index,
-// the kD columns the N index.
+// its columns from col0 (a multiple of 64) the N index.
 template <int kD>
-__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk) {
-  return make_desc(smem_addr(tile) + kk * 2 * kGroupBytes<kD>, kAtomBytes<kD>, kGroupBytes<kD>,
-                   kSwizzleMode<kD>);
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk, int col0 = 0) {
+  return make_desc(smem_addr(tile) + kk * 2 * kGroupBytes<kD> + (col0 / 64) * kAtomBytes<kD>,
+                   kAtomBytes<kD>, kGroupBytes<kD>, kSwizzleMode<kD>);
 }
 
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -254,6 +258,14 @@ __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, u
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
   }
+}
+
+// Column tiles [kN h, kN (h + 1)) of an accumulator of kW column tiles, as
+// an accumulator of kN tiles (the operand of a product 8 kN wide).
+template <int kN, int kW>
+__device__ __forceinline__ float (&cols(float (&d)[kW][4], int h))[kN][4] {
+  static_assert(kW % kN == 0, "whole column blocks");
+  return *reinterpret_cast<float(*)[kN][4]>(&d[h * kN]);
 }
 
 // d[64 x kN] = A B (+ d if scale_d), A from registers (m64k16 fragment).

@@ -13,10 +13,11 @@ once a head dim of ``HEAD_DIMS`` (16, 32, 64, 128, 256), and a head dim
 between runs on the smallest of them above it, its heads zero-padded to
 that width on the way in and cut back on the way out (:class:`HeadPad`;
 the scores keep the scale of the true head dim); the source's header says
-what bounds them on the H100 and how they are laid out.  Above 128 (the
-library of 256) bf16 runs the CUDA-core kernels that f32 runs, which round
-p, pd and dS to bf16 where the tensor-core forms do, and every backward is
-a dq and dk/dv pair (:func:`backward_route`).  JAX hands
+what bounds them on the H100 and how they are laid out.  bf16 runs on the
+tensor cores at every head dim; above 128 (the library of 256), where the
+whole-row templates do not fit, every forward is the two-sweep ring and
+every backward the tiled dq and dk/dv pair, at every S
+(:func:`backward_route`).  JAX hands
 512 < S < 1024 to XLA under ``use_flash="auto"``; here these kernels take
 it (``ops/attention.py`` routes), and S >= 1024 goes to the blockwise
 flash2 kernels (``ops/flash2.py``).
@@ -33,7 +34,8 @@ Entry points, each launching its kernel for CUDA tensors (or raising):
   :func:`short_attention_backward` (JAX's ``_bwd_kernel_v2`` rule), or,
   with the module switch ``USE_V3_BWD`` on (JAX's ``_USE_V3_BWD``,
   ``_bwd_kernel_v3``), :func:`short_attention_v3_backward`, which reads the
-  ctx.  bf16 runs them on the tensor cores: one launch at S <= 128, which
+  ctx.  bf16 runs them on the tensor cores: one launch at S <= 128 (head
+  dims up to 128), which
   recomputes the softmax, so the pair keeps q, k, v and the bias (v3 also
   the ctx); above, the tiled dq and dk/dv pair (``csrc/short_bwd_tiled.cuh``).
   f32 runs the dq and dk/dv pair on the CUDA cores.  v2's pairs read the
@@ -90,9 +92,12 @@ from .dropout import check_rate
 MAX_SEQ = 1023
 HEAD_DIMS = _build.HEAD_DIMS  # every attention kernel is instantiated for these
 MAX_HEAD_DIM = HEAD_DIMS[-1]
-# The tensor-core templates' widest head dim: a library above it (256) runs
-# bf16 on the CUDA cores (short attention) or on mma.sync (flash).
-MAX_TC_HEAD_DIM = 128
+# The widest head dim of the whole-row templates (csrc/short_fwd_tc.cuh,
+# short_bwd_tc.cuh) and of flash's warpgroup kernels: a library above it
+# (256) runs bf16 short attention on the two-sweep forward and the tiled
+# backward pair at every S, bf16 flash on mma.sync, and f32 flash on this
+# module's CUDA-core kernels (:func:`wide_f32`).
+WHOLE_ROW_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,10 +133,11 @@ _V1_SIGNATURES = {
 V1_WHOLE_ROW_SEQ = 128
 V1_MAX_HEAD_DIM = _build.source_head_dims("short_attention_v1")[-1]
 # The bf16 v2, v2p, v3 and v2s backwards run on the tensor cores at every S
-# the kernels take: in one launch up to WHOLE_ROW_BWD_MAX_SEQ
-# (csrc/short_bwd_tc.cuh: a warp holds its whole score row in registers),
-# above it as the tiled dq and dk/dv pair up to TC_BWD_MAX_SEQ
-# (csrc/short_bwd_tiled.cuh).  f32 takes the CUDA-core pair.
+# the kernels take: in one launch up to WHOLE_ROW_BWD_MAX_SEQ at head dims
+# up to WHOLE_ROW_MAX_HEAD_DIM (csrc/short_bwd_tc.cuh: a warp holds its
+# whole score row in registers), otherwise as the tiled dq and dk/dv pair
+# up to TC_BWD_MAX_SEQ (csrc/short_bwd_tiled.cuh).  f32 takes the CUDA-core
+# pair.
 WHOLE_ROW_BWD_MAX_SEQ = 128
 TC_BWD_MAX_SEQ = MAX_SEQ
 WHOLE_ROW, TILED, CUDA_CORES = "whole row", "tiled", "CUDA cores"
@@ -325,9 +331,9 @@ def launch_forward(source, signatures, entry, what, q, k, v, key_bias,
     None.  ``out32`` (flash2): the entry takes an f32 output, which in
     training it also writes (``ctx`` itself for f32 inputs) for its
     backward; else ctx32 is None.  The short forward runs bf16 on the
-    tensor cores (whole rows in registers up to 128 keys, two sweeps above)
-    and f32 on the CUDA cores; its training form's plain version is
-    :func:`short_attention_train_forward_plain`."""
+    tensor cores (whole rows in registers up to 128 keys at head dims up to
+    128, two sweeps otherwise) and f32 on the CUDA cores; its training
+    form's plain version is :func:`short_attention_train_forward_plain`."""
     b, s, h = q.shape
     rate = check_rate(rate, what)
     pad = HeadPad(h, num_heads)
@@ -368,24 +374,26 @@ def backward_route(seq: int, dtype: torch.dtype, head_dim: int) -> str:
     dim d, the rule of
     ``csrc/short_attention.cu::tc_backward`` and ``bwd_dispatch``:
 
-    * ``WHOLE_ROW``: bf16 at S <= 128, one tensor-core launch
+    * ``WHOLE_ROW``: bf16 at S <= 128 and d <= 128, one tensor-core launch
       (``csrc/short_bwd_tc.cuh``) that recomputes each row's softmax (v2s:
       reads its probs), so the v2 forward keeps no lse for it;
-    * ``TILED``: bf16 at 129 <= S <= 1023, the tensor-core dq and dk/dv
-      pair (``csrc/short_bwd_tiled.cuh``), v2's reading the training
-      forward's lse;
-    * ``CUDA_CORES``: f32, and both dtypes at a head dim above 128 (the
-      library of 256), the dq and dk/dv pair on the CUDA cores (v2's
+    * ``TILED``: bf16 at 129 <= S <= 1023, and at every S above d = 128
+      (the library of 256), the tensor-core dq and dk/dv pair
+      (``csrc/short_bwd_tiled.cuh``), v2's reading the training forward's
+      lse;
+    * ``CUDA_CORES``: f32, the dq and dk/dv pair on the CUDA cores (v2's
       reading the lse too)."""
-    if dtype != torch.bfloat16 or kernel_head_dim(head_dim) > MAX_TC_HEAD_DIM:
+    if dtype != torch.bfloat16:
         return CUDA_CORES
-    return WHOLE_ROW if seq <= WHOLE_ROW_BWD_MAX_SEQ else TILED
+    if (seq <= WHOLE_ROW_BWD_MAX_SEQ
+            and kernel_head_dim(head_dim) <= WHOLE_ROW_MAX_HEAD_DIM):
+        return WHOLE_ROW
+    return TILED
 
 
 def tensor_core_backward(seq: int, dtype: torch.dtype, head_dim: int) -> bool:
     """Whether the backwards at (S, dtype, d) run on the tensor cores: bf16
-    at any S the kernels take, at head dims up to 128
-    (:func:`backward_route`)."""
+    at any S and head dim the kernels take (:func:`backward_route`)."""
     return backward_route(seq, dtype, head_dim) != CUDA_CORES
 
 
@@ -423,9 +431,9 @@ def short_attention_backward(q, k, v, key_bias, lse, dout, num_heads: int,
     delta = rowsum(p * dpm), dS and the dropped p rounded to q's dtype
     before their products (plain version:
     :func:`short_attention_v1_backward_plain`).  No [S, S] tensor is
-    stored.  bf16 at S <= 128: one tensor-core launch, which recomputes
-    each row's max and sum from q and k (``lse`` is not read and may be
-    None).  Otherwise two launches, dq then dk/dv (bf16 on the tensor
+    stored.  bf16 at S <= 128 and d <= 128: one tensor-core launch, which
+    recomputes each row's max and sum from q and k (``lse`` is not read and
+    may be None).  Otherwise two launches, dq then dk/dv (bf16 on the tensor
     cores, f32 on the CUDA cores), which read ``lse``, the training
     forward's row lse for the same inputs (:func:`backward_route`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_backward")
@@ -484,10 +492,10 @@ def short_attention_v3_backward(q, k, v, key_bias, out, dout, num_heads: int,
                                 rate: float = 0.0) -> Tuple[torch.Tensor, ...]:
     """dq, dk, dv of :func:`short_attention` by the v3 kernels (CUDA only):
     ``out`` is the forward's ctx in q's dtype for the same inputs, seed and
-    rate.  bf16 at S <= 128: one tensor-core launch; otherwise two, dq
-    (which recomputes each row's lse and writes it and delta = dO . o to
-    scratch) then dk/dv, bf16 on the tensor cores and f32 on the CUDA
-    cores (:func:`backward_route`)."""
+    rate.  bf16 at S <= 128 and d <= 128: one tensor-core launch;
+    otherwise two, dq (which recomputes each row's lse and writes it and
+    delta = dO . o to scratch) then dk/dv, bf16 on the tensor cores and
+    f32 on the CUDA cores (:func:`backward_route`)."""
     _check(q, k, v, key_bias, num_heads, "short_attention_v3_backward")
     b, s, h = q.shape
     if out.shape != q.shape or out.dtype != q.dtype or dout.shape != q.shape:
@@ -529,7 +537,8 @@ def wide_f32(dtype: torch.dtype, head_dim: int) -> bool:
     where the flash kernels' staged f32 tiles do not fit in shared
     memory.  Those kernels take any S, and their f32 rules are the flash
     rules (in f32 no rounding differs)."""
-    return dtype == torch.float32 and kernel_head_dim(head_dim) > MAX_TC_HEAD_DIM
+    return (dtype == torch.float32
+            and kernel_head_dim(head_dim) > WHOLE_ROW_MAX_HEAD_DIM)
 
 
 def wide_f32_backward(q, k, v, key_bias, out, dout, num_heads, seed, rate,
@@ -565,8 +574,8 @@ class _ShortAttention(torch.autograd.Function):
     """Forward kernel + backward kernel pair.  Saves q, k, v and the bias --
     the seed and rate ride as Python numbers -- and, where a pair runs the
     backward (the tiled or the CUDA-core route of :func:`backward_route`),
-    the row lse of the training forward; bf16 at S <= 128 runs the serving
-    forward and keeps what JAX's ``_v2_fwd`` keeps and the
+    the row lse of the training forward; bf16 at S <= 128 and d <= 128
+    runs the serving forward and keeps what JAX's ``_v2_fwd`` keeps and the
     ``_bwd_kernel_v2`` it pairs with reads.  No gradient for the bias or seed.  Under
     ``USE_V3_BWD`` (read here, in the forward) it saves the ctx instead of
     the lse, and the backward is the v3 pair; on CPU tensors (rate 0) the
@@ -744,10 +753,11 @@ def short_attention_probs_backward(q, k, v, probs, dout, num_heads: int,
     """dq, dk, dv of :func:`short_attention_probs` from the forward's signed
     probs (CUDA only), by JAX's ``_bwd_kernel_v2s`` rule (plain version:
     :func:`short_attention_probs_backward_plain`).  No score, softmax or
-    Philox draw is recomputed.  bf16 at S <= 128: one tensor-core launch
-    that reads p and the keep bit from the probs; otherwise two, dq (which
-    writes delta = sum p * dpm to scratch) then dk/dv, bf16 on the tensor
-    cores and f32 on the CUDA cores (:func:`backward_route`)."""
+    Philox draw is recomputed.  bf16 at S <= 128 and d <= 128: one
+    tensor-core launch that reads p and the keep bit from the probs;
+    otherwise two, dq (which writes delta = sum p * dpm to scratch) then
+    dk/dv, bf16 on the tensor cores and f32 on the CUDA cores
+    (:func:`backward_route`)."""
     _check(q, k, v, None, num_heads, "short_attention_probs_backward")
     b, s, h = q.shape
     if probs.shape != (b, num_heads, s, probs_width(s)) or \
@@ -921,9 +931,10 @@ def short_attention_packed_backward(qkv, key_bias, out, dout, num_heads: int,
     ``out`` is the forward's ctx in qkv's dtype for the same inputs, seed
     and rate, delta = dO . o, the lse recomputed, dS and the dropped p
     rounded; q, k and v are read as the thirds of ``qkv`` in place and dq,
-    dk, dv written into the thirds of one buffer.  bf16 at S <= 128: one
-    tensor-core launch at row stride 3H; otherwise a pair, bf16 on the
-    tensor cores and f32 on the CUDA cores (:func:`backward_route`)."""
+    dk, dv written into the thirds of one buffer.  bf16 at S <= 128 and d
+    <= 128: one tensor-core launch at row stride 3H; otherwise a pair,
+    bf16 on the tensor cores and f32 on the CUDA cores
+    (:func:`backward_route`)."""
     _check_packed(qkv, key_bias, num_heads, "short_attention_packed_backward")
     b, s, h3 = qkv.shape
     if out.shape != (b, s, h3 // 3) or out.dtype != qkv.dtype or \

@@ -19,6 +19,7 @@ design; only its time means something.  Needs nvcc and a card.
 
 from __future__ import annotations
 
+import json
 import shutil
 import subprocess
 import sys
@@ -56,11 +57,12 @@ _BUILD = r"""
 import subprocess, sys
 sys.path.insert(0, sys.argv[1])
 from msa_tpu_torch import _build
+sources, kernels = json.loads(sys.argv[3]), json.loads(sys.argv[4])
 secs = {}
-_build.build_all(["flash2", "flash_attention", "fused_joint_embed"], seconds=secs)
+_build.build_all(sources, seconds=secs)
 lines = [f"{sys.argv[2]}: nvcc s {json.dumps({k: round(v, 1) for k, v in secs.items()})}"]
-usage = [u for u in _build.resource_usage(["flash2", "flash_attention"])
-         if "_wg_kernel" in u["kernel"]]
+usage = [u for u in _build.resource_usage(sources)
+         if any(k in u["kernel"] for k in kernels)]
 names = subprocess.run(["c++filt"], input="\n".join(u["kernel"] for u in usage),
                        capture_output=True, text=True, check=True).stdout.splitlines()
 for u, n in zip(usage, names):
@@ -72,15 +74,22 @@ print("\n".join(lines), flush=True)
 """
 
 
-def main() -> int:
-    args = sys.argv[1:]
+def run_variants(argv, presets, kernels_file, sources, kernels, times_flag,
+                 times_line):
+    """The driver above for ``presets`` of substitutions in
+    ``kernels_file``: ``sources`` built in every tree, ptxas printed for the
+    kernels whose names hold one of ``kernels``, each tree timed by
+    ``chip_smoke.py <times_flag> ROOT`` and its line starting with
+    ``times_line`` printed.  ``argv``: [--parent ROOT] [NAME ...]."""
+    script = Path(sys.argv[0]).name
+    args = list(argv)
     parent = None
     if args[:1] == ["--parent"]:
         parent, args = Path(args[1]).resolve(), args[2:]
-    unknown = [n for n in args if n not in PRESETS]
+    unknown = [n for n in args if n not in presets]
     if unknown:
-        print(f"usage: flash_variants.py [--parent ROOT] [NAME ...] (NAME in "
-              f"{sorted(PRESETS)}); unknown: {unknown}", file=sys.stderr)
+        print(f"usage: {script} [--parent ROOT] [NAME ...] (NAME in "
+              f"{sorted(presets)}); unknown: {unknown}", file=sys.stderr)
         return 2
     trees = {"tree": HERE}
     for name in args:
@@ -89,22 +98,24 @@ def main() -> int:
         shutil.copytree(HERE / "msa_tpu_torch", root / "msa_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         shutil.copy(HERE / "chip_smoke.py", root)
-        text = (root / KERNELS).read_text()
-        for old, new in PRESETS[name].items():
+        text = (root / kernels_file).read_text()
+        for old, new in presets[name].items():
             if text.count(old) != 1:
                 raise SystemExit(f"{name}: {old!r} matches {text.count(old)} times")
             text = text.replace(old, new)
-        (root / KERNELS).write_text(text)
+        (root / kernels_file).write_text(text)
         trees[name] = root
     builds = {name: subprocess.Popen(
-        [sys.executable, "-c", "import json\n" + _BUILD, str(root), name],
+        [sys.executable, "-c", "import json\n" + _BUILD, str(root), name,
+         json.dumps(sources), json.dumps(kernels)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, root in trees.items()}
     if parent is not None:  # the parent's kernels, built by its own _build
         builds["parent"] = subprocess.Popen(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-             "from msa_tpu_torch import _build; _build.build_all(['flash2', "
-             "'flash_attention', 'fused_joint_embed'])", str(parent)],
+            [sys.executable, "-c", "import json, sys; sys.path.insert(0, "
+             "sys.argv[1]); from msa_tpu_torch import _build; "
+             "_build.build_all(json.loads(sys.argv[2]))", str(parent),
+             json.dumps(sources)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         trees["parent"] = parent
     for name, proc in builds.items():
@@ -118,15 +129,21 @@ def main() -> int:
         order = ["parent", *order, "parent"]
     for name in order:
         run = subprocess.run([sys.executable, str(HERE / "chip_smoke.py"),
-                              "--flash-times", str(trees[name])],
+                              times_flag, str(trees[name])],
                              capture_output=True, text=True, cwd=HERE)
         times = [line for line in run.stdout.splitlines()
-                 if line.startswith("flash kernels")]
+                 if line.startswith(times_line)]
         if run.returncode != 0 or not times:
-            raise SystemExit(f"--flash-times {name} failed:\n{run.stdout[-3000:]}"
+            raise SystemExit(f"{times_flag} {name} failed:\n{run.stdout[-3000:]}"
                              f"{run.stderr[-3000:]}")
         print(f"{name}: {times[0].split(': ', 1)[1]}", flush=True)
     return 0
+
+
+def main() -> int:
+    return run_variants(sys.argv[1:], PRESETS, KERNELS,
+                        ["flash2", "flash_attention", "fused_joint_embed"],
+                        ["_wg_kernel"], "--flash-times", "flash kernels")
 
 
 if __name__ == "__main__":
