@@ -8,7 +8,8 @@
     python3 chip_smoke.py --predict-worker OUT RANK PORT
 
 Run from the root of a checkout.  ``--flash-times ROOT`` only times the
-flash kernels and the joint embed (:func:`time_flash_backwards`) of the
+flash kernels and the joint embed, flash at head dims 128, 256 and 192 and
+the frame-level step at 4 heads of 256 (:func:`time_flash_path`) of the
 checkout at ROOT (this one's or another's, whose kernels build into
 ROOT/build/), so two trees are timed by the same code in one run;
 ``--short-times ROOT`` likewise times the bf16 short backwards above 128
@@ -31,8 +32,10 @@ its own), the script:
      and flash2's bf16 fused backward and its pre-pass, none of which may
      spill, and for the warpgroup (wgmma) kernels of rows 10, 12 and 13
      (the bf16 forward, the split backward's dq and dk/dv launches, in
-     flash2.cu and flash_attention.cu), none of which may have its wgmma
-     products serialised or spill at 32 or 64;
+     flash2.cu and flash_attention.cu) and of row 11 at head dim 256
+     (flash2's fused backward), none of which may have its wgmma products
+     serialised or spill at 32 or 64, nor at 256 the forward and the fused
+     backward;
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -1648,6 +1651,124 @@ def time_flash_backwards():
     return times
 
 
+def time_flash_at_head_dims():
+    """Device ms of bf16 flash at ``FLASH_TIMED_HEAD_DIMS`` (d = 128 at H =
+    1024, 8 heads; d = 256 at H = 1024, 4 heads; d = 192 at H = 1152, 6
+    heads, padded onto 256) at the frame-level joint shape [2 x
+    FRAME_BATCH, 1024, H], rate 0 and the training dropout: flash2's
+    serving and training forwards, its fused backward (from its own
+    training forward's f32 output and lse), the head-split serving
+    forward; SDPA's forward and backward at rate 0.  Entry points every
+    tree of the port has had since head dim 256 came in, so
+    ``--flash-times ROOT`` times another checkout's kernels by this code.
+    Prints and returns {label: ms}."""
+    import torch
+    import torch.nn.functional as F
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops import flash2 as F2
+    from msa_tpu_torch.ops.dropout import quantize_dropout_rate
+
+    b, s = 2 * FRAME_BATCH, TEXT_LEN + FRAME_PAIR_LEN
+    times = {}
+    for d, hidden, heads in FLASH_TIMED_HEAD_DIMS:
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        q, k, v, dout = (torch.randn(b, s, hidden, device="cuda", generator=gen)
+                         .to(torch.bfloat16) for _ in range(4))
+        bias = torch.zeros(b, s, device="cuda")
+        qh, kh, vh, doh = (x.view(b, s, heads, d).transpose(1, 2).contiguous()
+                           for x in (q, k, v, dout))
+        for rate in (0.0, quantize_dropout_rate(ATTN_DROPOUT)):
+            _, lse, out32 = F2._forward_kernel(q, k, v, bias, heads, 7, rate,
+                                               True)
+            times[f"d{d} flash2 fwd rate {rate:g}"] = cuda_ms(
+                lambda: F2._forward_kernel(q, k, v, bias, heads, 7, rate,
+                                           False), iters=10)
+            times[f"d{d} flash2 fwd train rate {rate:g}"] = cuda_ms(
+                lambda: F2._forward_kernel(q, k, v, bias, heads, 7, rate,
+                                           True), iters=10)
+            times[f"d{d} flash2 fused rate {rate:g}"] = cuda_ms(
+                lambda: F2.flash_attention2_backward(
+                    q, k, v, bias, out32, lse, dout, heads, 7, rate,
+                    fused=True), iters=10)
+            times[f"d{d} row 13 fwd rate {rate:g}"] = cuda_ms(
+                lambda: A._forward_kernel(qh, kh, vh, bias, 7, rate, False),
+                iters=10)
+        qq, kk, vv = (x.detach().requires_grad_() for x in (qh, kh, vh))
+        mask = bias[:, None, None, :].to(torch.bfloat16)
+        lib_out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+        times[f"d{d} sdpa fwd"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask),
+            iters=10)
+        times[f"d{d} sdpa bwd"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qq, kk, vv), doh, retain_graph=True), iters=10)
+        del q, k, v, dout, qh, kh, vh, doh, qq, kk, vv, lib_out, lse, out32
+    print(f"flash at head dims [{b},{s},H] bfloat16, ms: "
+          f"{json.dumps(times)}", flush=True)
+    return times
+
+
+WIDE_FRAME_STEPS = 3
+
+
+def wide_heads_frame_step_ms():
+    """ms/step of WIDE_FRAME_STEPS bf16 frame-level train steps (B =
+    FRAME_BATCH, Lp = FRAME_PAIR_LEN: the joint pass [32, 1024] on flash2,
+    fused backward) of bert-large's widths at 4 heads of 256
+    (``WIDE_HEADS``, 24 layers) after a warm-up step, as phase_wide_heads
+    trains it (host clock around synchronised steps), and the losses:
+    entry points every tree of the port has had since head dim 256 came
+    in, for ``--flash-times ROOT``."""
+    import torch
+
+    from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.training.trainer import Trainer
+
+    exp = frame_experiment(FRAME_PAIR_LEN, None, WIDE_HEADS,
+                           train_batch_size=FRAME_BATCH,
+                           compute_dtype="bfloat16", warmup_proportion=0.01,
+                           adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
+                           data_parallel=1)
+    cfg = exp.model
+    trainer = Trainer(exp, "cuda")
+    state = trainer.init_state(0, total_steps=10_000)
+    split = synthetic_split(2 * FRAME_BATCH, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=2, pair_seq_length=FRAME_PAIR_LEN)
+    batches = list(MultimodalDataset(split, seed=0).epoch_batches(
+        0, FRAME_BATCH, drop_last=True))
+    state, m = trainer.train_step(state, batches[0], 1)
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = []
+    for i in range(WIDE_FRAME_STEPS):
+        state, m = trainer.train_step(state, batches[(i + 1) % len(batches)],
+                                      1)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / WIDE_FRAME_STEPS
+    losses += [float(m["loss"]) for m in metrics]
+    print(f"wide heads frame step: {WIDE_HEADS} frame-level training bf16 "
+          f"B={FRAME_BATCH} L={TEXT_LEN} Lp={FRAME_PAIR_LEN}: {ms:.2f} "
+          f"ms/step over {WIDE_FRAME_STEPS} steps after 1; losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    return ms, losses
+
+
+def time_flash_path():
+    """``--flash-times ROOT``: the flash kernels and the joint embed
+    (:func:`time_flash_backwards`), bf16 flash at head dims 128, 256 and
+    192 (:func:`time_flash_at_head_dims`) and the frame-level step at 4
+    heads of 256
+    (:func:`wide_heads_frame_step_ms`) of the tree on sys.path, whose
+    kernels build into its own build/."""
+    times = time_flash_backwards()
+    times.update(time_flash_at_head_dims())
+    times["wide heads frame step"] = wide_heads_frame_step_ms()[0]
+    return times
+
+
 def device_ms_by_kernel(fn, calls: int = 5):
     """Device ms a call of ``fn`` for each kernel it launches (by name, cut
     before its template arguments), from ``torch.profiler`` over ``calls``
@@ -1830,9 +1951,13 @@ def check_wide_joint_embed(gen, h=WIDE_EMBED[0], d=WIDE_EMBED[1]):
 
 # The widest head dim and the pad onto it (PR 20): (d, H, heads).  d = 256
 # runs bf16 short attention on the tensor cores (the ring forwards and the
-# tiled backward pair at every S, PR 21) and flash on mma.sync, f32 on the
-# CUDA cores; d = 192 pads each head to 256.
+# tiled backward pair at every S), flash's forward and flash2's fused
+# backward on wgmma and the split pair on mma.sync, f32 on the CUDA cores;
+# d = 192 pads each head to 256.
 WIDE_HEAD_DIM_CASES = ((256, 1024, 4), (192, 1152, 6))
+# The head dims time_flash_at_head_dims takes beside bert-large's 64: the
+# widest below 256 (8 heads of 128), then WIDE_HEAD_DIM_CASES.
+FLASH_TIMED_HEAD_DIMS = ((128, 1024, 8),) + WIDE_HEAD_DIM_CASES
 HUGE_EMBED = (16384, 47)  # (H, D) of the joint embed's form that holds no row
 
 
@@ -1842,7 +1967,10 @@ HUGE_EMBED = (16384, 47)  # (H, D) of the joint embed's form that holds no row
 # (WIDE_TC_SHAPES: S = 1, one ragged 16-row warp tile, the text pass [B,
 # L], the edges of a 64-row tile and of the whole-row templates' 128 keys,
 # the last short S), and at d = 256 the word rule at WIDE_WORD_RATE; the
-# flash entries at a ragged S past 1024.  Then, at the head dim
+# flash entries at a ragged S past 1024, and at d = 256 in bf16 also at the
+# edges of their 64-key and 64- / 128-query tiles (WIDE_FLASH_EDGE_SHAPES:
+# S = 1, a ragged 16-row warp tile, 63-65, 127, 129, the last short S)
+# and at the word rule.  Then, at the head dim
 # phase_wide_heads runs (256), the shapes that path gives the kernels it
 # launches, in bf16: v2 at the joint pass [2B, 2L], flash2 at the
 # frame-level joint pass [2B, L + Lp].
@@ -1851,6 +1979,9 @@ WIDE_TC_SHAPES = ((4, 1), (4, 17), (BATCH, TEXT_LEN), (4, 64), (4, 65),
                   (4, 128), (4, 129), (2, 1023))
 WIDE_WORD_RATE = 0.1
 WIDE_FLASH_SHAPE = (2, 1030)
+WIDE_FLASH_EDGE_SHAPES = ((2, 1), (2, 17), (2, 63), (2, 64), (2, 65), (2, 127),
+                          (2, 129), (2, 1023))
+WIDE_FLASH_EDGE_SEED = 257
 WIDE_PATH_HEAD_DIM = 256
 
 
@@ -1898,16 +2029,18 @@ def check_wide_kernels(gen):
     (:func:`check_v3_backward`), v2s's pair (:func:`check_probs_forward`,
     :func:`check_probs_backward`), v2p's backward (:func:`check_packed`),
     v1 (bf16: :func:`check_v1_backward`, its forward against the plain
-    version and v2's bit for bit); at ``WIDE_FLASH_SHAPE`` flash2's forward
-    and both backwards (:func:`check_flash2_backward`) and the head-split
-    pair (:func:`check_head_split`); at ``WIDE_PATH_HEAD_DIM`` the path's
-    own shapes (:func:`check_wide_path_shapes`)."""
+    version and v2's bit for bit); at ``WIDE_FLASH_SHAPE`` (bf16 at d = 256:
+    and ``WIDE_FLASH_EDGE_SHAPES``, the word rule too) flash2's forward and
+    both backwards and the head-split pair (:func:`check_wide_flash`); at
+    ``WIDE_PATH_HEAD_DIM`` the path's own shapes
+    (:func:`check_wide_path_shapes`)."""
     import torch
 
     from msa_tpu_torch.ops import short_attention as sa
 
     rate_on = phase_rate()
     wide_path = HIDDEN // HEADS == WIDE_PATH_HEAD_DIM
+    egen = torch.Generator(device="cuda").manual_seed(WIDE_FLASH_EDGE_SEED)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         bf = dtype == torch.bfloat16
@@ -1961,35 +2094,49 @@ def check_wide_kernels(gen):
                       f"forward and backward against their plain versions)",
                       flush=True)
                 del q, k, v, dout, keep
-            if rate in word:
-                continue
-            b, s = WIDE_FLASH_SHAPE
-            q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
-            dout = torch.randn(b, s, HIDDEN, device="cuda",
-                               generator=gen).to(dtype)
-            seed = 4300 + s
-            keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
-                    if rate else None)
-            tag = f"[{b},{s},{HIDDEN}] {dname} rate {rate:g}"
-            errs, autos, between, _, _ = check_flash2_backward(
-                tag, q, k, v, bias, live, dout, seed, rate, keep)
-            herr = check_head_split(f"flash_attention {tag}", q, k, v, bias,
-                                    live, dout, seed, rate, keep)
-            if between is None:  # wide_f32: the short kernels, one code
-                line = (f"flash2 forward and backward (both routes the "
-                        f"short-attention CUDA-core forward and v3 pair) "
-                        f"{errs[True]:.3e} against the rounded rule, "
-                        f"{autos[True]:.3e} against f32 autograd; head-split "
-                        f"(the same kernels, one head a row)")
-            else:
-                line = (f"flash2 fused / split {errs[True]:.3e} / "
-                        f"{errs[False]:.3e} against the rounded rule, "
-                        f"{autos[True]:.3e} / {autos[False]:.3e} against f32 "
-                        f"autograd, fused vs split {between:.3e}; head-split")
-            print(f"head dim {HIDDEN // HEADS} flash {tag}: {line} forward "
-                  f"and backward {herr:.3e}", flush=True)
+            if rate not in word:
+                check_wide_flash(gen, *WIDE_FLASH_SHAPE, dtype, rate)
+            if bf and wide_path:  # from a generator of their own
+                shapes = (WIDE_FLASH_SHAPE,) if rate in word else ()
+                for b, s in shapes + WIDE_FLASH_EDGE_SHAPES:
+                    check_wide_flash(egen, b, s, dtype, rate)
     if wide_path:
         check_wide_path_shapes(gen)
+
+
+def check_wide_flash(gen, b, s, dtype, rate):
+    """flash2's forward and both backwards (:func:`check_flash2_backward`)
+    and the head-split pair (:func:`check_head_split`) at [b, s, HIDDEN],
+    rate ``rate`` (the plain versions given the exported mask), one line
+    printed."""
+    import torch
+
+    from msa_tpu_torch.ops import short_attention as sa
+
+    dname = str(dtype).split(".")[1]
+    q, k, v, bias, live = attention_inputs(gen, b, s, dtype)
+    dout = torch.randn(b, s, HIDDEN, device="cuda", generator=gen).to(dtype)
+    seed = 4300 + s
+    keep = (sa.dropout_keep_mask(seed, rate, b, HEADS, s, "cuda")
+            if rate else None)
+    tag = f"[{b},{s},{HIDDEN}] {dname} rate {rate:g}"
+    errs, autos, between, _, _ = check_flash2_backward(
+        tag, q, k, v, bias, live, dout, seed, rate, keep)
+    herr = check_head_split(f"flash_attention {tag}", q, k, v, bias, live,
+                            dout, seed, rate, keep)
+    if between is None:  # wide_f32: the short kernels, one code
+        line = (f"flash2 forward and backward (both routes the "
+                f"short-attention CUDA-core forward and v3 pair) "
+                f"{errs[True]:.3e} against the rounded rule, "
+                f"{autos[True]:.3e} against f32 autograd; head-split (the "
+                f"same kernels, one head a row)")
+    else:
+        line = (f"flash2 fused / split {errs[True]:.3e} / {errs[False]:.3e} "
+                f"against the rounded rule, {autos[True]:.3e} / "
+                f"{autos[False]:.3e} against f32 autograd, fused vs split "
+                f"{between:.3e}; head-split")
+    print(f"head dim {HIDDEN // HEADS} flash {tag}: {line} forward and "
+          f"backward {herr:.3e}", flush=True)
 
 
 def check_wide_path_shapes(gen):
@@ -2503,8 +2650,8 @@ def phase_tinybert():
 def phase_wide_heads():
     """bert-large's widths with 4 heads of 256 (``WIDE_HEADS``: every
     attention kernel at head dim 256, bf16 short attention on the ring
-    forwards and the tiled pair, flash2 on mma.sync) through
-    :func:`phase_widths`."""
+    forwards and the tiled pair, flash2's forward and fused backward on
+    wgmma) through :func:`phase_widths`."""
     return phase_widths(WIDE_HEADS, "bert-large widths at 4 heads of 256",
                         (256, 1024, 30592, 4096, 0.1, 0.1))
 
@@ -5965,9 +6112,14 @@ TC_KERNEL = re.compile(
 # the tiled backward pair (csrc/short_bwd_tiled.cuh): none may spill
 TILED_KERNELS = ("short_bwd_dq_kernel", "short_bwd_dkv_kernel")
 # bf16 at head dim 256 on the tensor cores: the tiled pair and the two-sweep
-# ring forwards, which take every S there; none may spill either
+# ring forwards, which take every S there, and flash's warpgroup forward
+# and flash2's warpgroup fused backward; none may spill either
+# (report_tc_resources holds the short kernels, report_wgmma flash's)
+WIDE_FLASH_KERNELS = ("flash_fwd_wg_kernel", "flash_fwd_wg_overlap_kernel",
+                      "flash2_bwd_fused_wg_kernel")
 WIDE_TC_KERNELS = TILED_KERNELS + ("short_attention_fwd_tc_long_kernel",
-                                   "short_attention_probs_fwd_tc_long_kernel")
+                                   "short_attention_probs_fwd_tc_long_kernel"
+                                   ) + WIDE_FLASH_KERNELS
 
 
 def tc_dynamic_smem(kernel):
@@ -6093,12 +6245,16 @@ def report_redesigned(usage):
                                  "keeps a stack frame")
 
 
-# The warpgroup (wgmma) kernels of rows 10, 12 and 13 (flash_kernels.cuh:
-# flash_fwd_wg_kernel, flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel, each
-# <head dim, head split, dropout[, training form]>): none may spill, keep a
+# The warpgroup (wgmma) kernels of rows 10-13 (flash_kernels.cuh:
+# flash_fwd_wg_kernel, flash_fwd_wg_overlap_kernel (the forward at 256
+# under dropout),
+# flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel, each <head dim, head
+# split, dropout[, training form]>, and flash2_bwd_fused_wg_kernel <head
+# dim, dropout> (flash2's fused backward at 256)): none may spill, keep a
 # stack frame or have its wgmma products serialised by ptxas.
-WGMMA = re.compile(r"(flash_fwd_wg_kernel|flash_bwd_dq_wg_kernel|"
-                   r"flash_bwd_dkv_wg_kernel)I")
+WGMMA = re.compile(r"(flash_fwd_wg_kernel|flash_fwd_wg_overlap_kernel|"
+                   r"flash_bwd_dq_wg_kernel|flash_bwd_dkv_wg_kernel|"
+                   r"flash2_bwd_fused_wg_kernel)I")
 
 
 def wgmma_launch(name, args):
@@ -6107,8 +6263,12 @@ def wgmma_launch(name, args):
     kernels and wg_*_smem_bytes: the alignment slack, the swizzled tiles of
     kD bf16 rows, the bias / lse / delta rows)."""
     row = 2 * int(args[0])
-    if name == "flash_fwd_wg_kernel":  # 128 query rows, two 64-key stages
+    if name in ("flash_fwd_wg_kernel", "flash_fwd_wg_overlap_kernel"):
+        # 128 query rows, two 64-key stages
         return 256, 1024 + (128 + 4 * 64) * row + 2 * 64 * 4
+    if name == "flash2_bwd_fused_wg_kernel":
+        # 64 keys, two 64-query stages, the dS^T tile, lse and delta
+        return 256, 1024 + (2 * 64 + 4 * 64) * row + 64 * 128 + 4 * 64 * 4
     if name == "flash_bwd_dq_wg_kernel":  # 128 query rows, 64 under dropout
         rows = 64 if args[2] == "1" else 128
         return 2 * rows, 1024 + (2 * rows + 4 * 64) * row + 2 * 64 * 4 + rows * 4
@@ -6119,12 +6279,16 @@ def report_wgmma(usage):
     """Print ptxas's registers, shared memory, spills and wgmma notices for
     each instantiation of the warpgroup kernels, with the CTAs an SM holds
     by registers and by shared memory; fail on a serialisation notice, and
-    on a spill or a stack frame at a head dim of NO_SPILL_HEAD_DIMS."""
+    on a spill or a stack frame at a head dim of NO_SPILL_HEAD_DIMS or, for
+    WIDE_FLASH_KERNELS, at 256."""
     found = [u for u in usage if WGMMA.search(u["kernel"])]
-    for name in ("flash_fwd_wg_kernel", "flash_bwd_dq_wg_kernel",
-                 "flash_bwd_dkv_wg_kernel"):
-        for source in ("flash2.cu", "flash_attention.cu"):
-            if not any(name in u["kernel"] and u["source"] == source
+    both = ("flash2.cu", "flash_attention.cu")
+    for name, sources in (
+            ("flash_fwd_wg_kernel", both), ("flash_fwd_wg_overlap_kernel", both),
+            ("flash_bwd_dq_wg_kernel", both), ("flash_bwd_dkv_wg_kernel", both),
+            ("flash2_bwd_fused_wg_kernel", ("flash2.cu",))):
+        for source in sources:
+            if not any(name + "I" in u["kernel"] and u["source"] == source
                        for u in found):
                 raise AssertionError(f"ptxas reported no {name} in {source}")
     for u in found:
@@ -6140,10 +6304,11 @@ def report_wgmma(usage):
               f"{u['stack']} B, spill stores {u['spill_stores']} B, loads "
               f"{u['spill_loads']} B, wgmma serialised: "
               f"{'; '.join(u['serialized']) or 'no'}", flush=True)
-        if int(args[0]) in NO_SPILL_HEAD_DIMS and (
-                u["stack"] or u["spill_stores"] or u["spill_loads"]):
-            raise AssertionError(f"ptxas: {name} in {u['source']} spills or "
-                                 "keeps a stack frame")
+        checked = int(args[0]) in NO_SPILL_HEAD_DIMS or (
+            int(args[0]) == 256 and name in WIDE_FLASH_KERNELS)
+        if checked and (u["stack"] or u["spill_stores"] or u["spill_loads"]):
+            raise AssertionError(f"ptxas: {name}<{', '.join(args)}> in "
+                                 f"{u['source']} spills or keeps a stack frame")
         if u["serialized"]:
             raise AssertionError(f"ptxas serialised the wgmma products of "
                                  f"{name} in {u['source']}")
@@ -6153,8 +6318,9 @@ def report_wide(usage):
     """Print ptxas's registers, stack and spills for every kernel of the
     libraries of head dim 256 (short attention: f32 on the CUDA cores, bf16
     on the ring forwards and the tiled pair, which report_tc_resources
-    holds to no spill; flash: mma.sync): the other kernels' spills are
-    written down, not failed on."""
+    holds to no spill; flash: the forward and the fused backward on wgmma,
+    which report_wgmma holds to no spill, the split pair on mma.sync): the
+    other kernels' spills are written down, not failed on."""
     wide = [u for u in usage if u["library"].endswith("_d256")]
     if not wide:
         raise AssertionError("ptxas reported no kernel at head dim 256")
@@ -7093,7 +7259,7 @@ def main() -> int:
     if len(sys.argv) == 3:  # timings of the tree at ROOT only
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         if sys.argv[1] == "--flash-times":
-            time_flash_backwards()
+            time_flash_path()
         else:
             time_short_path()
         return 0

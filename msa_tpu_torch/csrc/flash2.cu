@@ -34,8 +34,12 @@
 //     registers, V an MN-major tile).  For training it also writes the row
 //     lse ([B, heads, S] f32, log2 units) and the output in f32 (delta =
 //     rowsum(dO o) reads it: the bf16-rounded output would put 2^-9 of
-//     |dO.o| into every ds);
-//   * split backward (row 12), two launches, no atomics: the dq launch
+//     |dO.o| into every ds).  At head dim 256 O [64 x 256] f32 fills half
+//     a thread's registers (one CTA an SM), and under dropout the forward
+//     issues the next key tile's S before this tile's P V, so that the
+//     next softmax runs beside the product (flash_fwd_wg_overlap_kernel);
+//   * split backward (row 12; at head dim 256 still the generic kernels
+//     on mma.sync), two launches, no atomics: the dq launch
 //     (one CTA of two warpgroups per 128 query rows, one per 64 under
 //     dropout, key tiles of 64 in a ring; delta = rowsum(dO o) once a row
 //     from device memory, written to scratch; per tile S = Q K^T and dP =
@@ -54,7 +58,11 @@
 //     from them: dV and dK accumulate in registers, dS^T goes through
 //     shared memory (bf16) to give dQ over the block's 128 keys, added by
 //     16-byte f32 vector atomics into the scratch, which the wrapper casts
-//     (flash_kernels.cuh says more).  Atomics change the summation order
+//     (flash_kernels.cuh says more).  At head dim 256, where a warp's dK
+//     and dV rows alone would fill its registers, the sweep is
+//     flash2_bwd_fused_wg_kernel on wgmma: 64-key CTAs of two warpgroups,
+//     each holding half the columns of dK and dV, dQ from the shared dS^T
+//     tile in products of 64 columns.  Atomics change the summation order
 //     from run to run: dq agrees with a fixed order to f32 rounding of its
 //     partial sums.
 //

@@ -27,8 +27,9 @@
 // Hopper's warpgroup products (wgmma; the forward and the dq launch one CTA
 // of two warpgroups per 128 query rows (the dq launch one per 64 under
 // dropout), the dk/dv launch one warpgroup per 64 keys, every operand tile
-// swizzled in shared memory, p and dS kept in
-// registers as the next product's A operand), f32 on the CUDA cores, the
+// swizzled in shared memory, p and dS kept in registers as the next
+// product's A operand; at head dim 256 the forward as flash2's, the pair
+// on mma.sync), f32 on the CUDA cores, the
 // softmax in registers in base 2 (the lse is converted to natural-log
 // units at its store and back at its loads).  A head's rows are contiguous
 // here (row stride 2d bytes in bf16), so each tile is one block of memory.
@@ -50,8 +51,8 @@
 // else the keep rule of dropout.cuh (the byte rule on the t/256 grid, the
 // word rule off it).  The
 // training forward passes lse ([B, heads, S] f32, natural-log units); the
-// serving forward passes null.  head_dim: the library's (16, 32, 64 or
-// 128; the wrappers zero-pad any other up to it).  Every entry launches
+// serving forward passes null.  head_dim: the library's (16, 32, 64, 128
+// or 256; the wrappers zero-pad any other up to it).  Every entry launches
 // on `stream` and returns cudaGetLastError() (0 on success).  The caller
 // has checked shapes, contiguity and 16-byte alignment.
 extern "C" int msa_flash_attention_fwd(const void* q, const void* k, const void* v,

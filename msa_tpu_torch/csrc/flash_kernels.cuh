@@ -18,23 +18,28 @@
 //
 // Inside, all run the softmax in base 2 (scores carry scale * log2e, exp2
 // replaces exp); the head-split kernels convert their lse at the store
-// and the load.  Three families, by dtype and route:
+// and the load.  The families, by dtype and route:
 //
-//   * bf16 forward and split backward (rows 10, 12, 13): warpgroup kernels
-//     on Hopper's wgmma (wgmma_tiles.cuh), flash_fwd_wg_kernel,
+//   * bf16 forward (rows 10, 13) at every head dim and split backward
+//     (rows 12, 13) up to kMaxWgSplitHeadDim: warpgroup kernels on
+//     Hopper's wgmma (wgmma_tiles.cuh), flash_fwd_wg_kernel,
 //     flash_bwd_dq_wg_kernel and flash_bwd_dkv_wg_kernel below: 64-row
 //     warpgroup tiles whose operands wgmma reads from swizzled shared
 //     memory, probabilities and dS kept in the accumulator registers as
-//     the next product's A operand;
+//     the next product's A operand.  At head dim 256 under dropout the
+//     forward is flash_fwd_wg_overlap_kernel (kFwdOverlap), which issues
+//     the next key tile's scores before this tile's P V product;
 //   * bf16 fused backward (row 11): flash2_bwd_fused_kernel, mma.sync
-//     warp tiles of 32 keys (mma_tiles.cuh) behind a delta pre-pass;
+//     warp tiles of 32 keys (mma_tiles.cuh) behind a delta pre-pass, up to
+//     head dim 128; at 256 flash2_bwd_fused_wg_kernel, two warpgroups a
+//     64-key CTA on wgmma, each holding half the columns of dK and dV;
 //   * f32 (the tests and the f32 checks): flash_fwd_kernel,
 //     flash_bwd_dq_kernel and flash_bwd_dkv_kernel (split and fused) with
 //     the tile products on the CUDA cores (SimtF32), 64-row blocks of 4
-//     warps;
-//   * bf16 at head dim 256 (kMaxWgHeadDim): the same generic kernels on
-//     mma.sync (MmaBf16), the forward and dq in 237-254 registers, dk/dv
-//     spilling 2-3 KB (its dK and dV rows alone fill 256 registers).
+//     warps, up to kMaxF32HeadDim;
+//   * the bf16 split backward at head dim 256: the same generic kernels on
+//     mma.sync (MmaBf16), dq in 252-254 registers, dk/dv spilling 2 KB
+//     (its dK and dV rows alone fill 256 registers).
 //
 // Every family lays a score tile out as mma.sync's m16n8 accumulator (a
 // warp holds rows g and g + 8 of its 16, columns 8n + 2c + {0, 1}), so the
@@ -170,17 +175,19 @@ struct SimtF32 {
   }
 };
 
-// bf16 above kMaxWgHeadDim (head dim 256): the same products on the tensor
-// cores by mma.sync (mma_tiles.cuh), a warp's 16 rows against 64-key
-// tiles, the probabilities and dS rounded to bf16 in the pack that feeds
-// the next product.  Rows of kD + 8 bf16 (an odd multiple of 16 bytes).
+// The bf16 split backward above kMaxWgSplitHeadDim (head dim 256): the
+// same products on the tensor cores by mma.sync (mma_tiles.cuh), a warp's
+// 16 rows against 64-key tiles, the probabilities and dS rounded to bf16 in
+// the pack that feeds the next product (no tn: the fused route takes
+// flash2_bwd_fused_wg_kernel there).  Rows of kD + 8 bf16 (an odd multiple
+// of 16 bytes).
 template <int kDim>
 struct MmaBf16 {
   using T = __nv_bfloat16;
   static constexpr int kD = kDim;
   static constexpr int kON = kD / 8;               // column tiles of an output tile
   static constexpr int kStride = tc::kStride<kD>;  // kD + 8
-  static constexpr int kTStride = kBlock + 8;      // 144-byte rows: conflict-free
+  static constexpr int kTStride = 0;               // no dS^T tile (split only)
   static constexpr int kSStride = 0;               // no stage
   static constexpr int kStageFloats = 0;
   using OFrag = Frag<kON>;
@@ -191,17 +198,17 @@ struct MmaBf16 {
   __device__ static void nn(const SFrag& f, const T* b, OFrag& c, float*) {
     tc::mma_nn<kD, kSN>(f.x, b, c.x);
   }
-  __device__ static void tn(const T* at, int m0, const T* b, OFrag& c, float*) {
-    tc::mma_tn<kD, kBlock / 16>(at, kTStride, m0, b, c.x);
-  }
 };
 
-// The warpgroup kernels (wgmma_tiles.cuh) and the bf16 fused backward take
-// head dims up to this; above it bf16 runs the generic kernels on MmaBf16,
-// and f32, whose staged tiles would not fit in shared memory, is refused
-// here (the Python wrappers run it on the short-attention CUDA-core
-// kernels, which take any S).
-constexpr int kMaxWgHeadDim = 128;
+// The split backward's warpgroup kernels take head dims up to this; above
+// it bf16 runs the generic split kernels on MmaBf16.  The forward's
+// warpgroup kernels take every head dim, and the fused backward takes
+// flash2_bwd_fused_kernel up to this and flash2_bwd_fused_wg_kernel above.
+constexpr int kMaxWgSplitHeadDim = 128;
+// f32's staged tiles fit in shared memory up to this head dim; above it f32
+// is refused here (the Python wrappers run it on the short-attention
+// CUDA-core kernels, which take any S).
+constexpr int kMaxF32HeadDim = 128;
 
 // ---------------------------------------------------------------------------
 // Shared helpers
@@ -1166,10 +1173,21 @@ using WgOutT = std::conditional_t<kHeadSplit, __nv_bfloat16, float>;
 //     own 166 registers; 128 keys in two warpgroups held 1 CTA and ran 9 %
 //     slower), 64-query tiles.
 // At head dim 128 the output accumulators take 64 registers a thread, so
-// the forward and dq launches name one CTA an SM (up to 255 registers).
+// the forward and dq launches name one CTA an SM (up to 255 registers); at
+// 256 the forward's O [64 x 256] f32 takes 128, and its Q tile and two K
+// and V stages 193 KB of shared memory: one CTA an SM either way.
 constexpr int kFwdGroups = 2, kFwdKeys = 64;
 template <int kD>
-constexpr int kFwdMinBlocks = kD == 128 ? 1 : 2;
+constexpr int kFwdMinBlocks = kD >= 128 ? 1 : 2;
+// The forwards that run flash_fwd_wg_overlap_kernel (the next key tile's S
+// = Q K^T issued before this tile's P V): head dim 256 under dropout.  At
+// rate 0 ptxas serialised its products (C7513: "non wgmma instructions
+// defining input registers of a wgmma between start and end of the
+// pipeline stage") in every arrangement measured, where it kept the
+// dropout forms whole, so rate 0 runs flash_fwd_wg_kernel, as every other
+// head dim does.
+template <int kD, bool kDropout>
+constexpr bool kFwdOverlap = kD == 256 && kDropout;
 template <bool kDropout>
 constexpr int kDqGroups = kDropout ? 1 : 2;
 template <int kD, bool kDropout>
@@ -1230,12 +1248,23 @@ __device__ __forceinline__ void wg_nt(float (&s)[kN / 8][4], const unsigned char
 }
 
 // c += F B for F [64 x 16kK] in A fragments and B the 16kK rows of tile b
-// (MN-major: rows the contracted index, kD the output columns).
+// (MN-major: rows the contracted index, kD the output columns); at kD = 256
+// each k-step is two products of 128 columns (wgmma_tiles.cuh::cols).
 template <int kD, int kK>
 __device__ __forceinline__ void wg_nn(float (&c)[kD / 8][4], const uint32_t (&f)[kK][4],
                                       const unsigned char* b) {
+  if constexpr (kD <= 128) {
 #pragma unroll
-  for (int kk = 0; kk < kK; ++kk) wg::mma_rs<kD, 1>(c, f[kk], wg::desc_mn<kD>(b, kk), 1);
+    for (int kk = 0; kk < kK; ++kk) wg::mma_rs<kD, 1>(c, f[kk], wg::desc_mn<kD>(b, kk), 1);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+      for (int h = 0; h < kD / 128; ++h) {
+        wg::mma_rs<128, 1>(wg::cols<16>(c, h), f[kk], wg::desc_mn<kD>(b, kk, 128 * h), 1);
+      }
+    }
+  }
 }
 
 template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
@@ -1361,6 +1390,206 @@ flash_fwd_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     wg::fence_operand(pa);
     __syncthreads();  // every warpgroup is done with this stage
   }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 2);
+  }
+  if constexpr (kHeadSplit) {  // JAX's guard (_flash_kernel: max(l, 1e-30))
+    l_run[0] = fmaxf(l_run[0], 1e-30f);
+    l_run[1] = fmaxf(l_run[1], 1e-30f);
+  }
+  const float inv0 = drop.scale / l_run[0], inv1 = drop.scale / l_run[1];
+  store_frag(out, head_base, ld, row0, seq, acc, inv0, inv1);
+  if constexpr (kTrain) {
+    const float unit = kHeadSplit ? kLn2 : 1.f;  // the head-split lse in natural-log units
+    if (c == 0) {
+      if (row0 < seq) lse[row_base + row0] = (m_run[0] + log2f(l_run[0])) * unit;
+      if (row0 + 8 < seq) lse[row_base + row0 + 8] = (m_run[1] + log2f(l_run[1])) * unit;
+    }
+    if (out32 != nullptr) store_frag(out32, head_base, ld, row0, seq, acc, inv0, inv1);
+  }
+}
+
+// The forward with the warpgroup's products overlapped (kFwdOverlap): the
+// scores of key tile t + 1 and this tile's P V are in flight together, and
+// tile t + 1's softmax runs while P V does, so a warpgroup's tensor cores
+// wait for no softmax but the first.  Per tile t (P_t already in
+// registers, the output rescaled to tile t's running max):
+//
+//   issue S_{t+1} = Q K_{t+1}^T; issue O += P_t V_t;
+//   wait for S_{t+1}; softmax(S_{t+1}) -> P_{t+1}, corr;
+//   wait for P V; O *= corr.
+//
+// K runs a tile ahead of V in the two-stage ring: at tile t the copies of
+// K_{t+2} (and its key bias) and V_{t+1} go into the stages that K_t and
+// V_{t-1} left, after the one barrier of the tile, which also publishes
+// V_t and K_{t+1}.  The rounding is flash_fwd_wg_kernel's: p rounded to
+// bf16 before P V, the normaliser summing the unrounded p.
+template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
+__global__ void __launch_bounds__(wg::kGroupThreads * kFwdGroups, kFwdMinBlocks<kD>)
+flash_fwd_wg_overlap_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ key_bias, __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, float* __restrict__ out32, int seq,
+                            int hidden, float score_mult, Dropout drop) {
+  constexpr int kRows = 64 * kFwdGroups, kThr = wg::kGroupThreads * kFwdGroups;
+  constexpr int kN = kFwdKeys / 8, kTile = kFwdKeys * wg::kRowBytes<kD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* q_s = wg::align_smem(smem_raw);
+  unsigned char* k_s = q_s + kRows * wg::kRowBytes<kD>;  // two stages
+  unsigned char* v_s = k_s + 2 * kTile;                   // two stages
+  float* bias_s = reinterpret_cast<float*>(v_s + 2 * kTile);  // [2][kFwdKeys], K's stages
+
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
+  const int a_row = 64 * (warp >> 2);  // the warpgroup's rows of the Q tile
+  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kRows;
+  const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
+  const int ld = row_stride<kD, kHeadSplit>(hidden);
+  const float* bias_row = key_bias + (size_t)b * seq;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  const int n_tiles = (seq + kFwdKeys - 1) / kFwdKeys;
+
+  auto stage_k = [&](int t) {  // K_t and its key bias into stage t % 2
+    wg::stage_rows<kD>(k_s + (t & 1) * kTile, k, head_base, ld, t * kFwdKeys, kFwdKeys, seq,
+                       tid, kThr);
+    bias_tile<kFwdKeys>(bias_s + (t & 1) * kFwdKeys, bias_row, t * kFwdKeys, seq);
+  };
+  auto stage_v = [&](int t) {
+    wg::stage_rows<kD>(v_s + (t & 1) * kTile, v, head_base, ld, t * kFwdKeys, kFwdKeys, seq,
+                       tid, kThr);
+  };
+
+  // The dropout keep words of this lane's rows for key tile t.  Drawn while
+  // no product is in flight: the draw is a call, and a call between a
+  // product's issue and its wait made ptxas serialise the products.
+  auto keep_of = [&](int t, uint32_t (&keep)[kN / 2]) {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) keep[i] = kFull;
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int h = 0; h < kFwdKeys / 64; ++h) {
+        keep_words_qmajor(drop, row_base + row0, t * kFwdKeys + 64 * h, keep + 4 * h);
+      }
+    }
+  };
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  // The online softmax of tile t's scores (flash_fwd_wg_kernel's), into
+  // bf16 A fragments pa; corr: the factor the output takes before P_t V_t.
+  auto softmax = [&](float (&s)[kN][4], int t, const uint32_t (&keep)[kN / 2],
+                     uint32_t (&pa)[kN / 2][4], float (&corr)[2]) {
+    const float* bias_t = bias_s + (t & 1) * kFwdKeys;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bb = bias_t[n * 8 + 2 * c + e];
+        s[n][e] = fmaf(s[n][e], score_mult, bb);
+        s[n][2 + e] = fmaf(s[n][2 + e], score_mult, bb);
+        mx[0] = fmaxf(mx[0], s[n][e]);
+        mx[1] = fmaxf(mx[1], s[n][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // every tile holds a key < seq: finite
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      corr[r] = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = exp2f(s[n][e] - m_run[0]);
+        const float p1 = exp2f(s[n][2 + e] - m_run[1]);
+        l_run[0] += p0;
+        l_run[1] += p1;
+        const int jj = (n & 1) * 8 + 2 * c + e;
+        const uint32_t w = keep[n >> 1];
+        s[n][e] = ((w >> jj) & 1u) ? p0 : 0.f;
+        s[n][2 + e] = ((w >> (16 + jj)) & 1u) ? p1 : 0.f;
+      }
+    }
+    wg::to_a(s, pa);  // p rounded to bf16 before P V, as JAX's
+  };
+
+  wg::stage_rows<kD>(q_s, q, head_base, ld, q0, kRows, seq, tid, kThr);
+  stage_k(0);
+  cp_async_commit();  // Q, K_0
+  stage_v(0);
+  if (n_tiles > 1) stage_k(1);
+  cp_async_commit();  // V_0, K_1
+  cp_async_wait<1>();
+  wg::fence_proxy_async();
+  __syncthreads();
+
+  Frag<kD / 8> acc;
+  acc.zero();
+  float s[kN][4], corr[2];
+  uint32_t pa[kN / 2][4], keep[kN / 2];
+  keep_of(0, keep);
+  wg::fence();
+  wg_nt<kD, kFwdKeys>(s, q_s, a_row, k_s);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_operand(s);
+  softmax(s, 0, keep, pa, corr);  // the output is zero: no rescale
+
+  // Tile t; kNext: a tile t + 1 follows (the last tile is peeled off, so
+  // that no product is issued on a divergent path)
+  auto step = [&](int t, auto next) {
+    constexpr bool kNext = decltype(next)::value;
+    cp_async_wait<0>();  // V_t and K_{t+1}
+    wg::fence_proxy_async();
+    __syncthreads();  // ... published; every warpgroup is done with K_t and V_{t-1}
+    if (t + 2 < n_tiles) stage_k(t + 2);
+    if (t + 1 < n_tiles) stage_v(t + 1);
+    cp_async_commit();
+    if constexpr (kNext) keep_of(t + 1, keep);
+    wg::fence_operand(acc.x);
+    wg::fence_operand(pa);
+    wg::fence();
+    if constexpr (kNext) {
+      wg_nt<kD, kFwdKeys>(s, q_s, a_row, k_s + ((t + 1) & 1) * kTile);
+      wg::commit();
+    }
+    wg_nn<kD, kN / 2>(acc.x, pa, v_s + (t & 1) * kTile);
+    wg::commit();
+    if constexpr (kNext) {
+      wg::wait<1>();  // S_{t+1}; P_t V_t runs on
+      wg::fence_operand(s);
+      uint32_t pn[kN / 2][4];
+      softmax(s, t + 1, keep, pn, corr);
+      wg::wait<0>();
+      wg::fence_operand(acc.x);
+      wg::fence_operand(pa);
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        acc.x[n][0] *= corr[0];
+        acc.x[n][1] *= corr[0];
+        acc.x[n][2] *= corr[1];
+        acc.x[n][3] *= corr[1];
+      }
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pa[i][x] = pn[i][x];
+      }
+    } else {
+      wg::wait<0>();
+      wg::fence_operand(acc.x);
+      wg::fence_operand(pa);
+    }
+  };
+  for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::true_type{});
+  step(n_tiles - 1, std::false_type{});
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1663,9 +1892,244 @@ flash_bwd_dkv_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   store_frag(dv, head_base, ld, key0, seq, dv_acc, dv_mult, dv_mult);
 }
 
+// flash2's fused backward in bf16 above kMaxWgSplitHeadDim (row 11 at head
+// dim 256), behind flash2_bwd_prep_kernel's delta and zeroed dq32, as
+// flash2_bwd_fused_kernel: one CTA of two warpgroups per (64 keys, head,
+// batch row) over 64-query tiles of q, dO, lse and delta in a two-stage
+// cp.async ring.  At 256 a warpgroup cannot hold dK and dV for its 64 keys
+// (256 registers a thread), so warpgroup w holds their columns [128 w,
+// 128 w + 128) and forms S^T = K Q^T and dP^T = V dO^T whole for itself,
+// as the tiled short backward's dk/dv launch does (short_bwd_tiled.cuh):
+// those products over all 256 columns are done twice.  Per tile each
+// warpgroup then takes p, the dropout keep bits and dS^T in registers, dV
+// += P^T dO and dK += dS^T Q on its columns (P^T and dS^T as register A
+// fragments, rounded to bf16 as JAX rounds them), and writes half of dS^T
+// (bf16, the same rounding) into a [64 keys x 64 queries] swizzled tile;
+// after a barrier it takes dQ = dS K over the block's keys for its 128
+// columns in two products of 64 (dS from that tile as an MN-major A
+// operand, K's columns as B), each added to dq32 by 16-byte atomics as it
+// lands, so that dQ never sits beside S^T and dP^T in the registers.
+// Under dropout dO is folded by 1 / (1 - rate) as it lands (delta took it
+// unscaled) and the kept p is unscaled, as flash2_bwd_fused_kernel's.
+constexpr int kFusedWgGroups = 2, kFusedWgKeys = 64, kFusedWgQueries = 64;
+constexpr int kFusedWgDqCols = 64;  // the columns of one dQ product
+
+template <int kD>
+constexpr int fused_wg_smem_bytes() {
+  // K and V, two ring stages of q and dO, the dS^T tile, two stages of lse
+  // and delta
+  return wg::kAlign + (2 * kFusedWgKeys + 4 * kFusedWgQueries) * wg::kRowBytes<kD> +
+         kFusedWgKeys * wg::kRowBytes<kFusedWgQueries> + 4 * kFusedWgQueries * 4;
+}
+
+template <int kD, bool kDropout>
+__global__ void __launch_bounds__(wg::kGroupThreads * kFusedWgGroups, 1)
+flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const float* __restrict__ key_bias,
+                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, float* __restrict__ dq32,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int seq, int hidden, float score_mult, float scale, Dropout drop) {
+  constexpr int kKeys = kFusedWgKeys, kQ = kFusedWgQueries, kN = kQ / 8;
+  constexpr int kThr = wg::kGroupThreads * kFusedWgGroups;
+  constexpr int kC = kD / kFusedWgGroups;  // dK and dV columns a warpgroup
+  constexpr int kTile = kQ * wg::kRowBytes<kD>;
+  static_assert(kKeys == 64 && kQ == 64, "one warpgroup tile of keys; 64-query keep bits");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* kb_s = wg::align_smem(smem_raw);         // this CTA's keys
+  unsigned char* vb_s = kb_s + kKeys * wg::kRowBytes<kD>;
+  unsigned char* q_s = vb_s + kKeys * wg::kRowBytes<kD>;  // two ring stages
+  unsigned char* do_s = q_s + 2 * kTile;                   // two ring stages
+  unsigned char* dst_s = do_s + 2 * kTile;  // dS^T [key][query], a 64-wide swizzled tile
+  float* lse_s = reinterpret_cast<float*>(dst_s + kKeys * wg::kRowBytes<kQ>);  // [2][kQ]
+  float* delta_s = lse_s + 2 * kQ;                                             // [2][kQ]
+
+  const int tid = threadIdx.x, grp_id = tid / wg::kGroupThreads;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int col0 = grp_id * kC;  // the warpgroup's columns of dK, dV and dQ
+  const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kKeys;
+  const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kD;
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int key0 = kb0 + warp * 16 + g;  // this lane's keys: key0, key0 + 8
+  const uint32_t pgrp = (uint32_t)(kb0 + warp * 16) / 16u;  // the warp's Philox group
+  const int n_tiles = (seq + kQ - 1) / kQ;
+
+  // q, dO rows [i0, i0 + kQ) and their lse and delta into ring stage st;
+  // zero-filled past seq
+  auto load_tile = [&](int st, int i0) {
+    wg::stage_rows<kD>(q_s + st * kTile, q, head_base, hidden, i0, kQ, seq, tid, kThr);
+    wg::stage_rows<kD>(do_s + st * kTile, dout, head_base, hidden, i0, kQ, seq, tid, kThr);
+    for (int j = tid; j < 2 * kQ; j += kThr) {
+      const int jj = j % kQ;
+      const bool ok = i0 + jj < seq;
+      const float* src = (j < kQ ? lse : delta) + row_base + (ok ? i0 + jj : 0);
+      tc::cp_async4((j < kQ ? lse_s : delta_s) + st * kQ + jj, src, ok);
+    }
+  };
+
+  float bias2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    bias2[r] = key < seq ? key_bias[(size_t)b * seq + key] * kLog2e : -INFINITY;
+  }
+  wg::stage_rows<kD>(kb_s, k, head_base, hidden, kb0, kKeys, seq, tid, kThr);
+  wg::stage_rows<kD>(vb_s, v, head_base, hidden, kb0, kKeys, seq, tid, kThr);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  Frag<kC / 8> dk_acc, dv_acc;
+  dk_acc.zero();
+  dv_acc.zero();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, i0 = t * kQ;
+    if (t + 1 < n_tiles) {  // tile t + 1 lands while tile t is computed
+      load_tile(st ^ 1, i0 + kQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const unsigned char* qt = q_s + st * kTile;
+    unsigned char* dot = do_s + st * kTile;
+    // fold 1 / (1 - rate) into the chunks of dO this thread copied (delta
+    // took the unscaled dO)
+    if constexpr (kDropout) {
+      wg::scale_own_rows<kD>(dot, kQ, fold_factor<__nv_bfloat16>(drop.scale), tid, kThr);
+    }
+    wg::fence_proxy_async();
+    __syncthreads();
+
+    // S^T and dP^T: rows = the block's keys, columns = the tile's queries
+    float st_[kN][4], dpt[kN][4];
+    wg::fence();
+    wg_nt<kD, kQ>(st_, kb_s, 0, qt);
+    wg_nt<kD, kQ>(dpt, vb_s, 0, dot);
+    wg::commit();
+    uint32_t mine = kFull;  // keep bits of queries lane, lane + 32 (16 keys each)
+    if constexpr (kDropout) {
+      mine = keep_bits16(drop, pgrp, row_base + i0 + lane) |
+             (keep_bits16(drop, pgrp, row_base + i0 + lane + 32) << 16);
+    }
+    wg::wait<0>();
+    wg::fence_operand(st_);
+    wg::fence_operand(dpt);
+    const float* lt = lse_s + st * kQ;
+    const float* dt = delta_s + st * kQ;
+#pragma unroll
+    for (int n = 0; n < kN / 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t w = kFull;
+        if constexpr (kDropout) w = __shfl_sync(kFull, mine, n * 8 + 2 * c + e);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {  // query columns n*8 + ... and +32
+          const int nn = n + hi * (kN / 2);
+          const int col = nn * 8 + 2 * c + e;
+          const uint32_t bits = w >> (16 * hi);
+          const float l = i0 + col < seq ? lt[col] : INFINITY;  // p = 0 past seq
+          const float dl = dt[col];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float p = exp2f(fmaf(st_[nn][2 * r + e], score_mult, bias2[r]) - l);
+            float pd = p, dpm = dpt[nn][2 * r + e];
+            if constexpr (kDropout) {
+              // the kept p unscaled (dO carries 1 / (1 - rate)); a product
+              // with the keep bit, as in flash_bwd_dkv_kernel
+              const float kept = ((bits >> (g + 8 * r)) & 1u) ? 1.f : 0.f;
+              pd = p * kept;
+              dpm *= kept;
+            }
+            st_[nn][2 * r + e] = p * (dpm - dl);  // dS^T
+            dpt[nn][2 * r + e] = pd;              // P^T with dropout
+          }
+        }
+      }
+    }
+    uint32_t pa[kN / 2][4], da[kN / 2][4];  // rounded to bf16, as JAX's
+    wg::to_a(dpt, pa);
+    wg::to_a(st_, da);
+    // dS^T into the shared tile, warpgroup w its queries [32 w, 32 w + 32):
+    // da[kk] holds rows g, g + 8 of the warp's keys at queries 16 kk + 2 c
+    // and 16 kk + 8 + 2 c
+#pragma unroll
+    for (int kk = 0; kk < kN / 2; ++kk) {
+      if ((kk >> 1) != grp_id) continue;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int row = warp * 16 + g + 8 * (x & 1), col = 16 * kk + 8 * (x >> 1) + 2 * c;
+        *reinterpret_cast<uint32_t*>(dst_s + wg::swz<kQ>(row, col >> 3) + (col & 7) * 2) =
+            da[kk][x];
+      }
+    }
+    wg::fence_operand(dv_acc.x);
+    wg::fence_operand(dk_acc.x);
+    wg::fence_operand(pa);
+    wg::fence_operand(da);
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 2; ++kk) {  // dV += P^T dO
+      wg::mma_rs<kC, 1>(dv_acc.x, pa[kk], wg::desc_mn<kD>(dot, kk, col0), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kN / 2; ++kk) {  // dK += dS^T Q
+      wg::mma_rs<kC, 1>(dk_acc.x, da[kk], wg::desc_mn<kD>(qt, kk, col0), 1);
+    }
+    wg::commit();
+    wg::fence_proxy_async();  // the dS^T stores, for the dQ products
+    __syncthreads();          // dS^T is whole
+    // dV and dK land (their A fragments free their registers before dQ's
+    // accumulator takes some: beside both, ptxas spilled)
+    wg::wait<0>();
+    wg::fence_operand(dv_acc.x);
+    wg::fence_operand(dk_acc.x);
+    wg::fence_operand(pa);
+    wg::fence_operand(da);
+
+    // dQ[i0 .. i0 + 64) += dS K on the warpgroup's columns, 64 at a time
+    const bool odd = c & 1;  // odd lanes add row g + 8, even lanes row g
+    const int row = i0 + warp * 16 + g + (odd ? 8 : 0);
+    float* dst = dq32 + head_base + (size_t)row * hidden + col0 + 2 * (c & ~1);
+#pragma unroll
+    for (int h = 0; h < kC / kFusedWgDqCols; ++h) {
+      float dqp[kFusedWgDqCols / 8][4];
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        wg::mma_ss<kFusedWgDqCols, 1, 1>(dqp, wg::desc_mn<kQ>(dst_s, kk),
+                                         wg::desc_mn<kD>(kb_s, kk, col0 + kFusedWgDqCols * h),
+                                         kk);
+      }
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(dqp);
+#pragma unroll
+      for (int n = 0; n < kFusedWgDqCols / 8; ++n) {
+        // lane pairs swap halves: each lane then holds 4 consecutive columns
+        const float* x = dqp[n];
+        const float r0 = __shfl_xor_sync(kFull, odd ? x[0] : x[2], 1);
+        const float r1 = __shfl_xor_sync(kFull, odd ? x[1] : x[3], 1);
+        const float4 val = odd ? make_float4(r0 * scale, r1 * scale, x[2] * scale, x[3] * scale)
+                               : make_float4(x[0] * scale, x[1] * scale, r0 * scale, r1 * scale);
+        if (row < seq) {
+          atomicAdd(reinterpret_cast<float4*>(dst + kFusedWgDqCols * h + n * 8), val);
+        }
+      }
+    }
+    __syncthreads();  // the ring stage and the dS^T tile are rewritten next
+  }
+  store_frag(dk, head_base + col0, hidden, key0, seq, dk_acc, scale, scale);
+  store_frag(dv, head_base + col0, hidden, key0, seq, dv_acc, 1.f, 1.f);
+}
+
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
+
+// The dynamic shared memory an H100 CTA may take.
+constexpr int kMaxSmem = 232448;
 
 // Kernels above 48 KB of dynamic shared memory must opt in, once per
 // kernel (each instantiation holds its own flag).
@@ -1741,21 +2205,37 @@ int launch_split(const void* q, const void* k, const void* v, const float* bias,
                                                     num_heads, scale, drop, s);
 }
 
-// The bf16 forward and split backward on the warpgroup kernels.
+// The bf16 forward and split backward on the warpgroup kernels: the
+// forward kernel kKernel (flash_fwd_wg_kernel or
+// flash_fwd_wg_overlap_kernel at head dim kD).
+template <auto kKernel, int kD>
+int launch_fwd_wg_kernel(const void* q, const void* k, const void* v, const float* bias,
+                         void* out, float* lse, float* out32, int batch, int seq, int hidden,
+                         int num_heads, float score_mult, Dropout drop, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  constexpr int bytes = wg_fwd_smem_bytes<kD>(), rows = 64 * kFwdGroups;
+  static_assert(bytes <= kMaxSmem, "the forward's tiles fit one CTA's shared memory");
+  cudaError_t err = allow_smem<kKernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  kKernel<<<dim3((seq + rows - 1) / rows, num_heads, batch), wg::kGroupThreads * kFwdGroups,
+            bytes, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), bias, static_cast<T*>(out), lse, out32, seq,
+                        hidden, score_mult, drop);
+  return (int)cudaGetLastError();
+}
+
 template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
 int launch_fwd_wg(const void* q, const void* k, const void* v, const float* bias, void* out,
                   float* lse, float* out32, int batch, int seq, int hidden, int num_heads,
                   float score_mult, Dropout drop, cudaStream_t s) {
-  using T = __nv_bfloat16;
-  constexpr auto kernel = flash_fwd_wg_kernel<kD, kHeadSplit, kDropout, kTrain>;
-  constexpr int bytes = wg_fwd_smem_bytes<kD>(), rows = 64 * kFwdGroups;
-  cudaError_t err = allow_smem<kernel>(bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((seq + rows - 1) / rows, num_heads, batch), wg::kGroupThreads * kFwdGroups,
-           bytes, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                       static_cast<const T*>(v), bias, static_cast<T*>(out), lse, out32, seq,
-                       hidden, score_mult, drop);
-  return (int)cudaGetLastError();
+  if constexpr (kFwdOverlap<kD, kDropout>) {
+    return launch_fwd_wg_kernel<flash_fwd_wg_overlap_kernel<kD, kHeadSplit, kDropout, kTrain>,
+                                kD>(q, k, v, bias, out, lse, out32, batch, seq, hidden,
+                                    num_heads, score_mult, drop, s);
+  } else {
+    return launch_fwd_wg_kernel<flash_fwd_wg_kernel<kD, kHeadSplit, kDropout, kTrain>, kD>(
+        q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
+  }
 }
 
 // dq (writing delta, [B, heads, S] f32, to `delta`), then dk/dv reading it.
@@ -1790,10 +2270,11 @@ int launch_split_wg(const void* q, const void* k, const void* v, const float* bi
 }
 
 // flash2's fused backward: the pre-pass (delta into `delta`, [B, heads, S]
-// f32, and dq32 zeroed), then the sweep: bf16 the tensor-core kernel above,
-// f32 flash_bwd_dkv_kernel<SimtF32, ..., kFused = true> (which takes its
-// own delta per tile and leaves the pre-pass's unread); above
-// kMaxWgHeadDim bf16 runs that kernel on MmaBf16 (f32 refused).
+// f32, and dq32 zeroed), then the sweep: bf16 flash2_bwd_fused_kernel, or
+// above kMaxWgSplitHeadDim flash2_bwd_fused_wg_kernel; f32
+// flash_bwd_dkv_kernel<SimtF32, ..., kFused = true> (which takes its own
+// delta per tile and leaves the pre-pass's unread), refused above
+// kMaxF32HeadDim.
 template <int kD, bool kDropout>
 int launch_fused(const void* q, const void* k, const void* v, const float* bias,
                  const float* o32, const void* dout, const float* lse, float* delta,
@@ -1801,7 +2282,7 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
                  int num_heads, int dtype, float scale, Dropout drop, cudaStream_t s) {
   const long long chunks = (long long)batch * seq * hidden / 8;
   const long long blocks = (chunks + kPrepThreads - 1) / kPrepThreads;
-  if (blocks > 0x7fffffffLL || (kD > kMaxWgHeadDim && dtype == 0)) {
+  if (blocks > 0x7fffffffLL || (kD > kMaxF32HeadDim && dtype == 0)) {
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0) {
@@ -1814,17 +2295,25 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kD > kMaxWgHeadDim) {
-    return launch_dkv<MmaBf16<kD>, false, kDropout, true>(q, k, v, bias, o32, dout, lse,
-                                                          nullptr, dq32, dk, dv, batch, seq,
-                                                          hidden, num_heads, scale, drop, s);
+  using T = __nv_bfloat16;
+  if constexpr (kD > kMaxWgSplitHeadDim) {
+    constexpr auto kernel = flash2_bwd_fused_wg_kernel<kD, kDropout>;
+    constexpr int bytes = fused_wg_smem_bytes<kD>();
+    static_assert(bytes <= kMaxSmem, "the fused sweep's tiles fit one CTA's shared memory");
+    err = allow_smem<kernel>(bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3((seq + kFusedWgKeys - 1) / kFusedWgKeys, num_heads, batch),
+             wg::kGroupThreads * kFusedWgGroups, bytes, s>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+        static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
+        seq, hidden, scale * kLog2e, scale, drop);
+    return (int)cudaGetLastError();
   } else {
     if (dtype == 0) {
       return launch_dkv<SimtF32<kD>, false, kDropout, true>(q, k, v, bias, o32, dout, lse,
                                                             nullptr, dq32, dk, dv, batch, seq,
                                                             hidden, num_heads, scale, drop, s);
     }
-    using T = __nv_bfloat16;
     constexpr auto kernel = flash2_bwd_fused_kernel<kD, kDropout>;
     constexpr int bytes = fused_tc_smem_bytes<kD>();
     err = allow_smem<kernel>(bytes);
@@ -1838,33 +2327,34 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   }
 }
 
-// The forward of either dtype at head dim kD: f32 on SimtF32, bf16 on the
-// warpgroup kernel, or above kMaxWgHeadDim bf16 on MmaBf16 (f32 refused).
+// The forward of either dtype at head dim kD: bf16 on the warpgroup kernels,
+// f32 on SimtF32 (refused above kMaxF32HeadDim).
 template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
 int launch_fwd_for(const void* q, const void* k, const void* v, const float* bias, void* out,
                    float* lse, float* out32, int batch, int seq, int hidden, int num_heads,
                    int dtype, float score_mult, Dropout drop, cudaStream_t s) {
-  if constexpr (kD > kMaxWgHeadDim) {
-    if (dtype == 0) return (int)cudaErrorInvalidValue;
-    return launch_fwd<MmaBf16<kD>, kHeadSplit, kDropout, kTrain>(
-        q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
-  } else {
-    if (dtype == 0) {
+  if (dtype == 0) {
+    if constexpr (kD > kMaxF32HeadDim) {
+      return (int)cudaErrorInvalidValue;
+    } else {
       return launch_fwd<SimtF32<kD>, kHeadSplit, kDropout, kTrain>(
           q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
     }
-    return launch_fwd_wg<kD, kHeadSplit, kDropout, kTrain>(
-        q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
   }
+  return launch_fwd_wg<kD, kHeadSplit, kDropout, kTrain>(
+      q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
 }
 
-// The split backward of either dtype at head dim kD, as launch_fwd_for.
+// The split backward of either dtype at head dim kD: f32 on SimtF32, bf16
+// on the warpgroup kernels, or above kMaxWgSplitHeadDim bf16 on MmaBf16
+// (f32 refused).
 template <int kD, bool kHeadSplit, bool kDropout>
 int launch_split_for(const void* q, const void* k, const void* v, const float* bias,
                      const void* o, const void* dout, const float* lse, float* delta,
                      void* dq, void* dk, void* dv, int batch, int seq, int hidden,
                      int num_heads, int dtype, float scale, Dropout drop, cudaStream_t s) {
-  if constexpr (kD > kMaxWgHeadDim) {
+  static_assert(kMaxF32HeadDim == kMaxWgSplitHeadDim, "f32 refused where MmaBf16 runs");
+  if constexpr (kD > kMaxWgSplitHeadDim) {
     if (dtype == 0) return (int)cudaErrorInvalidValue;
     return launch_split<MmaBf16<kD>, kHeadSplit, kDropout>(
         q, k, v, bias, o, dout, lse, delta, dq, dk, dv, batch, seq, hidden, num_heads, scale,

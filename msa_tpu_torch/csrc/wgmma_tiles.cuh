@@ -1,7 +1,8 @@
 // Warpgroup tensor-core tiles (Hopper's wgmma) for a head dim kD of 16,
-// 32, 64, 128 or 256: what the flash kernels of flash_kernels.cuh (rows 10,
-// 12 and 13, kD <= 128) and the tiled short-attention backward
-// (short_bwd_tiled.cuh, every kD) build their bf16 products from.
+// 32, 64, 128 or 256: what the flash kernels of flash_kernels.cuh (the
+// forward of rows 10 and 13 at every kD, the split pair of rows 12 and 13
+// up to 128, row 11's fused backward at 256) and the tiled short-attention
+// backward (short_bwd_tiled.cuh, every kD) build their bf16 products from.
 //
 // A warpgroup (4 warps, 128 threads) issues one asynchronous product of a
 // 64-row tile, m64nNk16 (bf16 in, f32 accumulate), A read from shared
@@ -39,10 +40,12 @@
 //     0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, base offset 0 (the
 //     tiles are atom-aligned), swizzle mode in 62-63 (1: 128 B, 2: 64 B,
 //     3: 32 B);
-//   * mma_ss<N, kTransB>(d, desc_a, desc_b, scale_d) and mma_rs<N,
-//     kTransB>(d, a, desc_b, scale_d): d = A B (+ d when scale_d), N = 64
-//     or 128 from shared memory, N = 16 ... 128 with A from registers (a
-//     product 256 wide is two of 128: cols);
+//   * mma_ss<N, kTransB, kTransA>(d, desc_a, desc_b, scale_d) and
+//     mma_rs<N, kTransB>(d, a, desc_b, scale_d): d = A B (+ d when
+//     scale_d), N = 64 or 128 from shared memory (kTransA: A MN-major, its
+//     descriptor a desc_mn of a tile whose rows are the K index), N = 16
+//     ... 128 with A from registers (a product 256 wide is two of 128:
+//     cols);
 //   * fence, commit and wait, and fence_operand, which pins registers that
 //     an asynchronous product reads or writes across the fence / wait pair
 //     so that the compiler neither moves nor reuses them in between (a
@@ -211,8 +214,8 @@ __device__ __forceinline__ void to_a(const float (&f)[kN][4], uint32_t (&a)[kN /
 }
 
 // d[64 x kN] = A B (+ d if scale_d), A and B from shared memory; kTransB:
-// B MN-major.  Issued by the whole warpgroup.
-template <int kN, int kTransB>
+// B MN-major, kTransA: A MN-major.  Issued by the whole warpgroup.
+template <int kN, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, uint64_t desc_b,
                                        int scale_d) {
   static_assert(kN == 64 || kN == 128, "shared-memory A products are 64 or 128 wide");
@@ -221,7 +224,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, u
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        "%32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -230,7 +233,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, u
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
   if constexpr (kN == 128) {
     asm volatile(
@@ -239,7 +242,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, u
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        "%64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -256,7 +259,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, u
           "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
 }
 

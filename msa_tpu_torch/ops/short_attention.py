@@ -93,10 +93,11 @@ MAX_SEQ = 1023
 HEAD_DIMS = _build.HEAD_DIMS  # every attention kernel is instantiated for these
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 # The widest head dim of the whole-row templates (csrc/short_fwd_tc.cuh,
-# short_bwd_tc.cuh) and of flash's warpgroup kernels: a library above it
-# (256) runs bf16 short attention on the two-sweep forward and the tiled
-# backward pair at every S, bf16 flash on mma.sync, and f32 flash on this
-# module's CUDA-core kernels (:func:`wide_f32`).
+# short_bwd_tc.cuh) and of flash's f32 kernels: a library above it (256)
+# runs bf16 short attention on the two-sweep forward and the tiled backward
+# pair at every S, and f32 flash on this module's CUDA-core kernels
+# (:func:`wide_f32`); bf16 flash there runs its forward and fused backward
+# on wgmma and its split pair on mma.sync.
 WHOLE_ROW_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p

@@ -11,10 +11,12 @@ longer matches).  It copies ``msa_tpu_torch/`` and ``chip_smoke.py`` into
 this tree and every copy concurrently (one process a tree, each with its
 own ``build/``), prints ptxas's registers, spills and wgmma notices for
 each copy's warpgroup kernels, then times the trees in turns with
-``chip_smoke.py --flash-times`` (``time_flash_backwards``): the parent
-ROOT if given, this tree, each variant, this tree, the parent (with no
-NAME: the parent and this tree in turns).  A probe's output is wrong by
-design; only its time means something.  Needs nvcc and a card.
+``chip_smoke.py --flash-times`` (``time_flash_path``: the flash kernels
+at head dims 64 and 32, flash at 128, 256 and 192, the frame-level step at 4
+heads of 256): the parent ROOT if given, this tree, each variant, this
+tree, the parent (with no NAME: the parent and this tree in turns).  A
+probe's output is wrong by design; only its time means something.  Needs
+nvcc and a card.
 """
 
 from __future__ import annotations
@@ -51,6 +53,18 @@ PRESETS = {
             "const float p = fmaf(st_[nn][2 * r + e], score_mult, bias2[r]) - l;"},
     # probe: the forward without its P V product
     "no_pv": {"    wg_nn<kD, kN / 2>(acc.x, pa, vt);\n": ""},
+    # the forward at head dim 256 under dropout as flash_fwd_wg_kernel (S,
+    # softmax and P V in series) in place of the overlapped
+    # flash_fwd_wg_overlap_kernel; and the overlapped form at rate 0 too
+    # (whose products ptxas serialises)
+    "fwd256_straight": {"constexpr bool kFwdOverlap = kD == 256 && kDropout;":
+                        "constexpr bool kFwdOverlap = false;"},
+    "fwd256_overlap_rate0": {"constexpr bool kFwdOverlap = kD == 256 && kDropout;":
+                             "constexpr bool kFwdOverlap = kD == 256;"},
+    # flash2's fused backward at 256 with dQ in one product of a warpgroup's
+    # 128 columns (64 more registers beside dK and dV) in place of two of 64
+    "fused256_dq128": {"constexpr int kFusedWgDqCols = 64;":
+                       "constexpr int kFusedWgDqCols = 128;"},
 }
 
 _BUILD = r"""
@@ -79,8 +93,8 @@ def run_variants(argv, presets, kernels_file, sources, kernels, times_flag,
     """The driver above for ``presets`` of substitutions in
     ``kernels_file``: ``sources`` built in every tree, ptxas printed for the
     kernels whose names hold one of ``kernels``, each tree timed by
-    ``chip_smoke.py <times_flag> ROOT`` and its line starting with
-    ``times_line`` printed.  ``argv``: [--parent ROOT] [NAME ...]."""
+    ``chip_smoke.py <times_flag> ROOT`` and its lines starting with
+    ``times_line`` (a prefix or a tuple of them) printed.  ``argv``: [--parent ROOT] [NAME ...]."""
     script = Path(sys.argv[0]).name
     args = list(argv)
     parent = None
@@ -136,14 +150,17 @@ def run_variants(argv, presets, kernels_file, sources, kernels, times_flag,
         if run.returncode != 0 or not times:
             raise SystemExit(f"{times_flag} {name} failed:\n{run.stdout[-3000:]}"
                              f"{run.stderr[-3000:]}")
-        print(f"{name}: {times[0].split(': ', 1)[1]}", flush=True)
+        for line in times:
+            print(f"{name}: {line.split(': ', 1)[1]}", flush=True)
     return 0
 
 
 def main() -> int:
     return run_variants(sys.argv[1:], PRESETS, KERNELS,
-                        ["flash2", "flash_attention", "fused_joint_embed"],
-                        ["_wg_kernel"], "--flash-times", "flash kernels")
+                        ["flash2", "flash_attention", "fused_joint_embed",
+                         "short_attention_d256"],
+                        ["_wg_kernel", "_wg_overlap_kernel"], "--flash-times",
+                        ("flash kernels", "flash at head dims", "wide heads frame step"))
 
 
 if __name__ == "__main__":
