@@ -9,7 +9,8 @@
 
 Run from the root of a checkout.  ``--flash-times ROOT`` only times the
 flash kernels and the joint embed, flash at head dims 128, 256 and 192 and
-the frame-level step at 4 heads of 256 (:func:`time_flash_path`) of the
+the frame-level step at 4 heads of 256, on flash2 and under ``USE_FLASH2 =
+False`` (:func:`time_flash_path`) of the
 checkout at ROOT (this one's or another's, whose kernels build into
 ROOT/build/), so two trees are timed by the same code in one run;
 ``--short-times ROOT`` likewise times the bf16 short backwards above 128
@@ -34,8 +35,7 @@ its own), the script:
      (the bf16 forward, the split backward's dq and dk/dv launches, in
      flash2.cu and flash_attention.cu) and of row 11 at head dim 256
      (flash2's fused backward), none of which may have its wgmma products
-     serialised or spill at 32 or 64, nor at 256 the forward and the fused
-     backward;
+     serialised or spill at 32, 64 or 256;
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -1569,8 +1569,9 @@ def time_flash_backwards():
     lse at that rate; at head dim 32 ([32, 1024, 64], rate 0) flash2's
     training forward, fused and split backwards and row 13's forward and
     pair; flash2's split backward at [2, 4096, 1024] (the long-S step's
-    route); and the joint embed (row 2) at [96, 40+40, 1024] and [96,
-    40+40, 64], D = 47.  It calls only entry points that
+    route) at 16 heads of 64, and at [2, 4096, H] at the wide head dims
+    (``WIDE_HEAD_DIM_CASES``) beside SDPA's backward; and the joint embed
+    (row 2) at [96, 40+40, 1024] and [96, 40+40, 64], D = 47.  It calls only entry points that
     every tree of the port has had since row 13 was ported, so
     ``--flash-times ROOT`` times another checkout's kernels by this code.
     Prints and returns {label: ms}."""
@@ -1635,6 +1636,24 @@ def time_flash_backwards():
                                              heads, 7, 0.0, fused=False),
         iters=10)
     del ql, kl, vl, dol, out32_l
+    # and at the wide head dims (4 heads of 256 at H = 1024, where JAX's rule
+    # takes the split route too; 6 of 192 padded), beside SDPA's backward
+    for d, hid, nh in WIDE_HEAD_DIM_CASES:
+        ql, kl, vl, dol = (torch.randn(2, 4096, hid, device="cuda", generator=gl)
+                           .to(torch.bfloat16) for _ in range(4))
+        _, lse_l, out32_l = F2._forward_kernel(ql, kl, vl, bl, nh, 7, 0, True)
+        times[f"flash2 split s4096 d{d} rate 0"] = cuda_ms(
+            lambda: F2.flash_attention2_backward(ql, kl, vl, bl, out32_l, lse_l,
+                                                 dol, nh, 7, 0.0, fused=False),
+            iters=10)
+        qq, kk, vv = (x.detach().requires_grad_() for x in (ql, kl, vl))
+        split = lambda x: x.view(2, 4096, nh, d).transpose(1, 2)  # noqa: E731
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            split(qq), split(kk), split(vv),
+            attn_mask=bl[:, None, None, :].to(torch.bfloat16))
+        times[f"sdpa bwd s4096 d{d}"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qq, kk, vv), split(dol), retain_graph=True), iters=10)
+        del ql, kl, vl, dol, out32_l, qq, kk, vv, lib_out
     for hid in (1024, 64):
         args = joint_embed_args(gen, BATCH, TEXT_LEN, 47, hid, torch.bfloat16)
         times[f"joint embed H={hid}"] = cuda_ms(
@@ -1656,9 +1675,10 @@ def time_flash_at_head_dims():
     1024, 8 heads; d = 256 at H = 1024, 4 heads; d = 192 at H = 1152, 6
     heads, padded onto 256) at the frame-level joint shape [2 x
     FRAME_BATCH, 1024, H], rate 0 and the training dropout: flash2's
-    serving and training forwards, its fused backward (from its own
-    training forward's f32 output and lse), the head-split serving
-    forward; SDPA's forward and backward at rate 0.  Entry points every
+    serving and training forwards, its fused and split backwards (from its
+    own training forward's f32 output and lse), the head-split serving
+    forward and backward pair (from its training forward's output and
+    lse); SDPA's forward and backward at rate 0.  Entry points every
     tree of the port has had since head dim 256 came in, so
     ``--flash-times ROOT`` times another checkout's kernels by this code.
     Prints and returns {label: ms}."""
@@ -1687,13 +1707,21 @@ def time_flash_at_head_dims():
             times[f"d{d} flash2 fwd train rate {rate:g}"] = cuda_ms(
                 lambda: F2._forward_kernel(q, k, v, bias, heads, 7, rate,
                                            True), iters=10)
-            times[f"d{d} flash2 fused rate {rate:g}"] = cuda_ms(
-                lambda: F2.flash_attention2_backward(
-                    q, k, v, bias, out32, lse, dout, heads, 7, rate,
-                    fused=True), iters=10)
+            for fused in (True, False):
+                times[f"d{d} flash2 {'fused' if fused else 'split'} rate "
+                      f"{rate:g}"] = cuda_ms(
+                    lambda: F2.flash_attention2_backward(
+                        q, k, v, bias, out32, lse, dout, heads, 7, rate,
+                        fused=fused), iters=10)
             times[f"d{d} row 13 fwd rate {rate:g}"] = cuda_ms(
                 lambda: A._forward_kernel(qh, kh, vh, bias, 7, rate, False),
                 iters=10)
+            out_h, lse_h = A._forward_kernel(qh, kh, vh, bias, 7, rate, True)
+            times[f"d{d} row 13 bwd rate {rate:g}"] = cuda_ms(
+                lambda: A.flash_attention_backward(qh, kh, vh, bias, out_h,
+                                                   lse_h, doh, 7, rate),
+                iters=10)
+            del out_h, lse_h
         qq, kk, vv = (x.detach().requires_grad_() for x in (qh, kh, vh))
         mask = bias[:, None, None, :].to(torch.bfloat16)
         lib_out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
@@ -1711,17 +1739,19 @@ def time_flash_at_head_dims():
 WIDE_FRAME_STEPS = 3
 
 
-def wide_heads_frame_step_ms():
+def wide_heads_frame_step_ms(flash2=True):
     """ms/step of WIDE_FRAME_STEPS bf16 frame-level train steps (B =
     FRAME_BATCH, Lp = FRAME_PAIR_LEN: the joint pass [32, 1024] on flash2,
-    fused backward) of bert-large's widths at 4 heads of 256
-    (``WIDE_HEADS``, 24 layers) after a warm-up step, as phase_wide_heads
-    trains it (host clock around synchronised steps), and the losses:
-    entry points every tree of the port has had since head dim 256 came
-    in, for ``--flash-times ROOT``."""
+    fused backward; with ``flash2`` False under ``USE_FLASH2 = False``, on
+    the head-split flash attention and its split pair) of bert-large's
+    widths at 4 heads of 256 (``WIDE_HEADS``, 24 layers) after a warm-up
+    step, as phase_wide_heads trains it (host clock around synchronised
+    steps), and the losses: entry points every tree of the port has had
+    since head dim 256 came in, for ``--flash-times ROOT``."""
     import torch
 
     from msa_tpu_torch.data import MultimodalDataset, synthetic_split
+    from msa_tpu_torch.ops import attention as A
     from msa_tpu_torch.training.trainer import Trainer
 
     exp = frame_experiment(FRAME_PAIR_LEN, None, WIDE_HEADS,
@@ -1737,20 +1767,25 @@ def wide_heads_frame_step_ms():
                             seed=2, pair_seq_length=FRAME_PAIR_LEN)
     batches = list(MultimodalDataset(split, seed=0).epoch_batches(
         0, FRAME_BATCH, drop_last=True))
-    state, m = trainer.train_step(state, batches[0], 1)
-    losses = [float(m["loss"])]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    metrics = []
-    for i in range(WIDE_FRAME_STEPS):
-        state, m = trainer.train_step(state, batches[(i + 1) % len(batches)],
-                                      1)
-        metrics.append(m)
-    torch.cuda.synchronize()
+    saved, A.USE_FLASH2 = A.USE_FLASH2, flash2
+    try:
+        state, m = trainer.train_step(state, batches[0], 1)
+        losses = [float(m["loss"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = []
+        for i in range(WIDE_FRAME_STEPS):
+            state, m = trainer.train_step(
+                state, batches[(i + 1) % len(batches)], 1)
+            metrics.append(m)
+        torch.cuda.synchronize()
+    finally:
+        A.USE_FLASH2 = saved
     ms = (time.perf_counter() - t0) * 1e3 / WIDE_FRAME_STEPS
     losses += [float(m["loss"]) for m in metrics]
-    print(f"wide heads frame step: {WIDE_HEADS} frame-level training bf16 "
-          f"B={FRAME_BATCH} L={TEXT_LEN} Lp={FRAME_PAIR_LEN}: {ms:.2f} "
+    switch = "" if flash2 else " (USE_FLASH2 = False)"
+    print(f"wide heads frame step{switch}: {WIDE_HEADS} frame-level training "
+          f"bf16 B={FRAME_BATCH} L={TEXT_LEN} Lp={FRAME_PAIR_LEN}: {ms:.2f} "
           f"ms/step over {WIDE_FRAME_STEPS} steps after 1; losses "
           f"{[round(x, 5) for x in losses]}", flush=True)
     return ms, losses
@@ -1760,12 +1795,14 @@ def time_flash_path():
     """``--flash-times ROOT``: the flash kernels and the joint embed
     (:func:`time_flash_backwards`), bf16 flash at head dims 128, 256 and
     192 (:func:`time_flash_at_head_dims`) and the frame-level step at 4
-    heads of 256
+    heads of 256, on flash2 and under ``USE_FLASH2 = False``
     (:func:`wide_heads_frame_step_ms`) of the tree on sys.path, whose
     kernels build into its own build/."""
     times = time_flash_backwards()
     times.update(time_flash_at_head_dims())
     times["wide heads frame step"] = wide_heads_frame_step_ms()[0]
+    times["wide heads frame step (USE_FLASH2 = False)"] = \
+        wide_heads_frame_step_ms(flash2=False)[0]
     return times
 
 
@@ -1951,8 +1988,8 @@ def check_wide_joint_embed(gen, h=WIDE_EMBED[0], d=WIDE_EMBED[1]):
 
 # The widest head dim and the pad onto it (PR 20): (d, H, heads).  d = 256
 # runs bf16 short attention on the tensor cores (the ring forwards and the
-# tiled backward pair at every S), flash's forward and flash2's fused
-# backward on wgmma and the split pair on mma.sync, f32 on the CUDA cores;
+# tiled backward pair at every S), flash's forward, flash2's fused backward
+# and the split pair of rows 12 and 13 on wgmma, f32 on the CUDA cores;
 # d = 192 pads each head to 256.
 WIDE_HEAD_DIM_CASES = ((256, 1024, 4), (192, 1152, 6))
 # The head dims time_flash_at_head_dims takes beside bert-large's 64: the
@@ -1969,8 +2006,10 @@ HUGE_EMBED = (16384, 47)  # (H, D) of the joint embed's form that holds no row
 # the last short S), and at d = 256 the word rule at WIDE_WORD_RATE; the
 # flash entries at a ragged S past 1024, and at d = 256 in bf16 also at the
 # edges of their 64-key and 64- / 128-query tiles (WIDE_FLASH_EDGE_SHAPES:
-# S = 1, a ragged 16-row warp tile, 63-65, 127, 129, the last short S)
-# and at the word rule.  Then, at the head dim
+# S = 1, a ragged 16-row warp tile, 63-65, 127, 129, the last short S),
+# at the long-S path's length (WIDE_FLASH_LONG_SHAPE, where JAX's rule
+# takes flash2's split route at 4 heads of 256) and at the word rule.
+# Then, at the head dim
 # phase_wide_heads runs (256), the shapes that path gives the kernels it
 # launches, in bf16: v2 at the joint pass [2B, 2L], flash2 at the
 # frame-level joint pass [2B, L + Lp].
@@ -1982,6 +2021,8 @@ WIDE_FLASH_SHAPE = (2, 1030)
 WIDE_FLASH_EDGE_SHAPES = ((2, 1), (2, 17), (2, 63), (2, 64), (2, 65), (2, 127),
                           (2, 129), (2, 1023))
 WIDE_FLASH_EDGE_SEED = 257
+WIDE_FLASH_LONG_SHAPE = (2, 4096)
+WIDE_FLASH_LONG_SEED = 258
 WIDE_PATH_HEAD_DIM = 256
 
 
@@ -2030,7 +2071,8 @@ def check_wide_kernels(gen):
     :func:`check_probs_backward`), v2p's backward (:func:`check_packed`),
     v1 (bf16: :func:`check_v1_backward`, its forward against the plain
     version and v2's bit for bit); at ``WIDE_FLASH_SHAPE`` (bf16 at d = 256:
-    and ``WIDE_FLASH_EDGE_SHAPES``, the word rule too) flash2's forward and
+    and ``WIDE_FLASH_EDGE_SHAPES``, the word rule too, and
+    ``WIDE_FLASH_LONG_SHAPE`` at rate 0 and 26/256) flash2's forward and
     both backwards and the head-split pair (:func:`check_wide_flash`); at
     ``WIDE_PATH_HEAD_DIM`` the path's own shapes
     (:func:`check_wide_path_shapes`)."""
@@ -2041,6 +2083,7 @@ def check_wide_kernels(gen):
     rate_on = phase_rate()
     wide_path = HIDDEN // HEADS == WIDE_PATH_HEAD_DIM
     egen = torch.Generator(device="cuda").manual_seed(WIDE_FLASH_EDGE_SEED)
+    lgen = torch.Generator(device="cuda").manual_seed(WIDE_FLASH_LONG_SEED)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[1]
         bf = dtype == torch.bfloat16
@@ -2100,6 +2143,8 @@ def check_wide_kernels(gen):
                 shapes = (WIDE_FLASH_SHAPE,) if rate in word else ()
                 for b, s in shapes + WIDE_FLASH_EDGE_SHAPES:
                     check_wide_flash(egen, b, s, dtype, rate)
+                if rate not in word:
+                    check_wide_flash(lgen, *WIDE_FLASH_LONG_SHAPE, dtype, rate)
     if wide_path:
         check_wide_path_shapes(gen)
 
@@ -6112,11 +6157,13 @@ TC_KERNEL = re.compile(
 # the tiled backward pair (csrc/short_bwd_tiled.cuh): none may spill
 TILED_KERNELS = ("short_bwd_dq_kernel", "short_bwd_dkv_kernel")
 # bf16 at head dim 256 on the tensor cores: the tiled pair and the two-sweep
-# ring forwards, which take every S there, and flash's warpgroup forward
-# and flash2's warpgroup fused backward; none may spill either
+# ring forwards, which take every S there, and flash's warpgroup forward,
+# flash2's warpgroup fused backward and the warpgroup split pair of rows 12
+# and 13 (its dk/dv launch by role); none may spill either
 # (report_tc_resources holds the short kernels, report_wgmma flash's)
 WIDE_FLASH_KERNELS = ("flash_fwd_wg_kernel", "flash_fwd_wg_overlap_kernel",
-                      "flash2_bwd_fused_wg_kernel")
+                      "flash2_bwd_fused_wg_kernel", "flash_bwd_dq_wg_kernel",
+                      "flash_bwd_dkv_wg_kernel", "flash_bwd_dkv_role_wg_kernel")
 WIDE_TC_KERNELS = TILED_KERNELS + ("short_attention_fwd_tc_long_kernel",
                                    "short_attention_probs_fwd_tc_long_kernel"
                                    ) + WIDE_FLASH_KERNELS
@@ -6248,13 +6295,14 @@ def report_redesigned(usage):
 # The warpgroup (wgmma) kernels of rows 10-13 (flash_kernels.cuh:
 # flash_fwd_wg_kernel, flash_fwd_wg_overlap_kernel (the forward at 256
 # under dropout),
-# flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel, each <head dim, head
-# split, dropout[, training form]>, and flash2_bwd_fused_wg_kernel <head
-# dim, dropout> (flash2's fused backward at 256)): none may spill, keep a
-# stack frame or have its wgmma products serialised by ptxas.
+# flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel (up to 128),
+# flash_bwd_dkv_role_wg_kernel (the dk/dv launch at 256), each <head dim,
+# head split, dropout[, training form]>, and flash2_bwd_fused_wg_kernel
+# <head dim, dropout> (flash2's fused backward at 256)): none may spill,
+# keep a stack frame or have its wgmma products serialised by ptxas.
 WGMMA = re.compile(r"(flash_fwd_wg_kernel|flash_fwd_wg_overlap_kernel|"
                    r"flash_bwd_dq_wg_kernel|flash_bwd_dkv_wg_kernel|"
-                   r"flash2_bwd_fused_wg_kernel)I")
+                   r"flash_bwd_dkv_role_wg_kernel|flash2_bwd_fused_wg_kernel)I")
 
 
 def wgmma_launch(name, args):
@@ -6269,9 +6317,14 @@ def wgmma_launch(name, args):
     if name == "flash2_bwd_fused_wg_kernel":
         # 64 keys, two 64-query stages, the dS^T tile, lse and delta
         return 256, 1024 + (2 * 64 + 4 * 64) * row + 64 * 128 + 4 * 64 * 4
-    if name == "flash_bwd_dq_wg_kernel":  # 128 query rows, 64 under dropout
-        rows = 64 if args[2] == "1" else 128
+    if name == "flash_bwd_dq_wg_kernel":
+        if args[0] == "256":  # 64 query rows, one stage of 32 keys
+            return 128, 1024 + (2 * 64 + 2 * 32) * row + 32 * 4 + 64 * 4
+        rows = 64 if args[2] == "1" else 128  # 128 query rows, 64 under dropout
         return 2 * rows, 1024 + (2 * rows + 4 * 64) * row + 2 * 64 * 4 + rows * 4
+    if name == "flash_bwd_dkv_role_wg_kernel":
+        # 64 keys, two warpgroups by role, the f32 p tile between them
+        return 256, 1024 + (2 * 64 + 4 * 64) * row + 64 * 64 * 4 + 4 * 64 * 4
     return 128, 1024 + (2 * 64 + 4 * 64) * row + 4 * 64 * 4  # 64 keys
 
 
@@ -6286,6 +6339,7 @@ def report_wgmma(usage):
     for name, sources in (
             ("flash_fwd_wg_kernel", both), ("flash_fwd_wg_overlap_kernel", both),
             ("flash_bwd_dq_wg_kernel", both), ("flash_bwd_dkv_wg_kernel", both),
+            ("flash_bwd_dkv_role_wg_kernel", both),
             ("flash2_bwd_fused_wg_kernel", ("flash2.cu",))):
         for source in sources:
             if not any(name + "I" in u["kernel"] and u["source"] == source
@@ -6318,9 +6372,9 @@ def report_wide(usage):
     """Print ptxas's registers, stack and spills for every kernel of the
     libraries of head dim 256 (short attention: f32 on the CUDA cores, bf16
     on the ring forwards and the tiled pair, which report_tc_resources
-    holds to no spill; flash: the forward and the fused backward on wgmma,
-    which report_wgmma holds to no spill, the split pair on mma.sync): the
-    other kernels' spills are written down, not failed on."""
+    holds to no spill; flash: the forward, the fused backward and the split
+    pair on wgmma, which report_wgmma holds to no spill, f32 on the CUDA
+    cores): the other kernels' spills are written down, not failed on."""
     wide = [u for u in usage if u["library"].endswith("_d256")]
     if not wide:
         raise AssertionError("ptxas reported no kernel at head dim 256")

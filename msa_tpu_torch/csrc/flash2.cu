@@ -38,17 +38,21 @@
 //     a thread's registers (one CTA an SM), and under dropout the forward
 //     issues the next key tile's S before this tile's P V, so that the
 //     next softmax runs beside the product (flash_fwd_wg_overlap_kernel);
-//   * split backward (row 12; at head dim 256 still the generic kernels
-//     on mma.sync), two launches, no atomics: the dq launch
+//   * split backward (row 12), two launches, no atomics: the dq launch
 //     (one CTA of two warpgroups per 128 query rows, one per 64 under
-//     dropout, key tiles of 64 in a ring; delta = rowsum(dO o) once a row
-//     from device memory, written to scratch; per tile S = Q K^T and dP =
-//     dO V^T from shared memory, p and dS in registers, dQ += dS K with dS
-//     as the A fragment) and the dk/dv
+//     dropout, key tiles of 64 in a two-stage ring; at head dim 256 one
+//     warpgroup per 64 rows over a one-stage ring of 32-key tiles, two
+//     CTAs an SM; delta = rowsum(dO o) once a row from device memory,
+//     written to scratch; per tile S = Q K^T and dP = dO V^T from shared
+//     memory, p and dS in registers, dQ += dS K with dS as the A
+//     fragment) and the dk/dv
 //     launch (one warpgroup per 64 keys, query tiles of 64 in a ring of q,
 //     dO, lse and delta; S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO
 //     and dK += dS^T Q with P^T and dS^T as A fragments: no shared-memory
-//     dS tile);
+//     dS tile).  At head dim 256, where one warpgroup cannot hold dK and
+//     dV for 64 keys, the dk/dv CTA is two warpgroups split by role: one
+//     forms S^T, p and dV, the other dP^T, dS^T (p from the first through
+//     shared memory, in f32) and dK;
 //   * fused backward, bf16 (row 11, flash-attention-2's backward): a
 //     pre-pass launch takes delta = rowsum(dO o) once per row and zeroes a
 //     [B, S, H] f32 dq scratch; then one CTA of 4 warps (32 keys each, on

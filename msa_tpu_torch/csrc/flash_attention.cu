@@ -28,8 +28,8 @@
 // of two warpgroups per 128 query rows (the dq launch one per 64 under
 // dropout), the dk/dv launch one warpgroup per 64 keys, every operand tile
 // swizzled in shared memory, p and dS kept in registers as the next
-// product's A operand; at head dim 256 the forward as flash2's, the pair
-// on mma.sync), f32 on the CUDA cores, the
+// product's A operand; at head dim 256 the forward and the pair as
+// flash2's), f32 on the CUDA cores, the
 // softmax in registers in base 2 (the lse is converted to natural-log
 // units at its store and back at its loads).  A head's rows are contiguous
 // here (row stride 2d bytes in bf16), so each tile is one block of memory.

@@ -20,15 +20,18 @@
 // replaces exp); the head-split kernels convert their lse at the store
 // and the load.  The families, by dtype and route:
 //
-//   * bf16 forward (rows 10, 13) at every head dim and split backward
-//     (rows 12, 13) up to kMaxWgSplitHeadDim: warpgroup kernels on
-//     Hopper's wgmma (wgmma_tiles.cuh), flash_fwd_wg_kernel,
-//     flash_bwd_dq_wg_kernel and flash_bwd_dkv_wg_kernel below: 64-row
-//     warpgroup tiles whose operands wgmma reads from swizzled shared
-//     memory, probabilities and dS kept in the accumulator registers as
-//     the next product's A operand.  At head dim 256 under dropout the
-//     forward is flash_fwd_wg_overlap_kernel (kFwdOverlap), which issues
-//     the next key tile's scores before this tile's P V product;
+//   * bf16 forward (rows 10, 13) and split backward (rows 12, 13) at
+//     every head dim: warpgroup kernels on Hopper's wgmma
+//     (wgmma_tiles.cuh), flash_fwd_wg_kernel, flash_bwd_dq_wg_kernel and
+//     flash_bwd_dkv_wg_kernel below: 64-row warpgroup tiles whose operands
+//     wgmma reads from swizzled shared memory, probabilities and dS kept
+//     in the accumulator registers as the next product's A operand.  At
+//     head dim 256 under dropout the forward is flash_fwd_wg_overlap_kernel
+//     (kFwdOverlap), which issues the next key tile's scores before this
+//     tile's P V product; the dq launch there is one warpgroup holding dQ
+//     [64 x 256] f32 over 32-key tiles at two CTAs an SM, and the dk/dv
+//     launch flash_bwd_dkv_role_wg_kernel, two warpgroups split by role
+//     (S^T, p and dV; dP^T, dS and dK);
 //   * bf16 fused backward (row 11): flash2_bwd_fused_kernel, mma.sync
 //     warp tiles of 32 keys (mma_tiles.cuh) behind a delta pre-pass, up to
 //     head dim 128; at 256 flash2_bwd_fused_wg_kernel, two warpgroups a
@@ -36,10 +39,7 @@
 //   * f32 (the tests and the f32 checks): flash_fwd_kernel,
 //     flash_bwd_dq_kernel and flash_bwd_dkv_kernel (split and fused) with
 //     the tile products on the CUDA cores (SimtF32), 64-row blocks of 4
-//     warps, up to kMaxF32HeadDim;
-//   * the bf16 split backward at head dim 256: the same generic kernels on
-//     mma.sync (MmaBf16), dq in 252-254 registers, dk/dv spilling 2 KB
-//     (its dK and dV rows alone fill 256 registers).
+//     warps, up to kMaxF32HeadDim.
 //
 // Every family lays a score tile out as mma.sync's m16n8 accumulator (a
 // warp holds rows g and g + 8 of its 16, columns 8n + 2c + {0, 1}), so the
@@ -175,36 +175,14 @@ struct SimtF32 {
   }
 };
 
-// The bf16 split backward above kMaxWgSplitHeadDim (head dim 256): the
-// same products on the tensor cores by mma.sync (mma_tiles.cuh), a warp's
-// 16 rows against 64-key tiles, the probabilities and dS rounded to bf16 in
-// the pack that feeds the next product (no tn: the fused route takes
-// flash2_bwd_fused_wg_kernel there).  Rows of kD + 8 bf16 (an odd multiple
-// of 16 bytes).
-template <int kDim>
-struct MmaBf16 {
-  using T = __nv_bfloat16;
-  static constexpr int kD = kDim;
-  static constexpr int kON = kD / 8;               // column tiles of an output tile
-  static constexpr int kStride = tc::kStride<kD>;  // kD + 8
-  static constexpr int kTStride = 0;               // no dS^T tile (split only)
-  static constexpr int kSStride = 0;               // no stage
-  static constexpr int kStageFloats = 0;
-  using OFrag = Frag<kON>;
-
-  __device__ static void nt(const T* a, int m0, const T* b, SFrag& c, float*) {
-    tc::mma_nt<kD, kSN>(a, m0, b, c.x);
-  }
-  __device__ static void nn(const SFrag& f, const T* b, OFrag& c, float*) {
-    tc::mma_nn<kD, kSN>(f.x, b, c.x);
-  }
-};
-
-// The split backward's warpgroup kernels take head dims up to this; above
-// it bf16 runs the generic split kernels on MmaBf16.  The forward's
-// warpgroup kernels take every head dim, and the fused backward takes
-// flash2_bwd_fused_kernel up to this and flash2_bwd_fused_wg_kernel above.
-constexpr int kMaxWgSplitHeadDim = 128;
+// The widest head dim at which one warpgroup holds whole rows of both dK
+// and dV (2 x [64 x kD] f32: kD registers a thread).  Above it (head dim
+// 256) the backwards split that work over two warpgroups, and the dq
+// launch's dQ [64 x 256] f32 (128 registers) leaves one warpgroup a CTA:
+// the fused backward runs flash2_bwd_fused_kernel up to this and
+// flash2_bwd_fused_wg_kernel above; the split pair's tile choices change
+// above it (kDqGroups, kDkvCols, kDkvByRole).
+constexpr int kMaxWholeDkvHeadDim = 128;
 // f32's staged tiles fit in shared memory up to this head dim; above it f32
 // is refused here (the Python wrappers run it on the short-attention
 // CUDA-core kernels, which take any S).
@@ -1139,7 +1117,7 @@ flash2_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
 // ---------------------------------------------------------------------------
 // bf16 on the warpgroup tensor cores (wgmma): the forward (rows 10 and 13)
-// and the split backward (rows 12 and 13)
+// and the split backward (rows 12 and 13), every head dim
 // ---------------------------------------------------------------------------
 //
 // Every product is a warpgroup's m64nNk16 (wgmma_tiles.cuh): B, and A where
@@ -1175,7 +1153,27 @@ using WgOutT = std::conditional_t<kHeadSplit, __nv_bfloat16, float>;
 // At head dim 128 the output accumulators take 64 registers a thread, so
 // the forward and dq launches name one CTA an SM (up to 255 registers); at
 // 256 the forward's O [64 x 256] f32 takes 128, and its Q tile and two K
-// and V stages 193 KB of shared memory: one CTA an SM either way.
+// and V stages 193 KB of shared memory: one CTA an SM either way.  The
+// split pair at 256 (above kMaxWholeDkvHeadDim; the pair's times at
+// [32, 1024, 1024]):
+//   * dq launch: one warpgroup of 64 query rows a CTA (dQ [64 x 256] f32
+//     is 128 registers a thread beside S and dP's 32; 196-216 registers)
+//     over a one-stage ring of 32-key tiles: Q, dO, K and V 97 KB, so two
+//     CTAs share an SM and one's copies and softmax run beside the other's
+//     products (the pair 1.62 ms).  Measured beside it (kWideDq*): two
+//     64-key stages at one CTA an SM, as the tiled short backward's dq
+//     launch at 256, 1.69 ms; with two warpgroups sharing the 64 rows,
+//     each on its half of every key tile with their partial dQ summed
+//     through shared memory, 2.5 % slower than that; two on 128 rows over
+//     32-key tiles, 1-3 % faster than it at rate 0, 0.4 % slower under
+//     dropout;
+//   * dk/dv launch: 64 keys, two warpgroups split by role (kDkvByRole,
+//     flash_bwd_dkv_role_wg_kernel: S^T, p and dV in one, dP^T, dS and dK
+//     in the other, p handed over in f32 through shared memory: 4 products
+//     of [64 x 64 x 256] a query tile; 230-254 registers).  Split by
+//     columns instead (kDkvCols = 2, each warpgroup forming S^T and dP^T
+//     whole, as flash2_bwd_fused_wg_kernel: 6 products) the pair ran 9-13
+//     % slower.
 constexpr int kFwdGroups = 2, kFwdKeys = 64;
 template <int kD>
 constexpr int kFwdMinBlocks = kD >= 128 ? 1 : 2;
@@ -1188,12 +1186,27 @@ constexpr int kFwdMinBlocks = kD >= 128 ? 1 : 2;
 // head dim does.
 template <int kD, bool kDropout>
 constexpr bool kFwdOverlap = kD == 256 && kDropout;
-template <bool kDropout>
-constexpr int kDqGroups = kDropout ? 1 : 2;
+// The split pair's choices above kMaxWholeDkvHeadDim (scripts/
+// flash_variants.py measures the others).
+constexpr int kWideDqGroups = 1, kWideDqRowGroups = 1, kWideDqKeys = 32;
+constexpr int kWideDqStages = 1, kWideDqMinBlocks = 2;
+constexpr bool kWideDkvByRole = true;
 template <int kD, bool kDropout>
-constexpr int kDqMinBlocks = kD == 128 ? 1 : kDropout ? 3 : 2;
-constexpr int kDqKeys = 64;
+constexpr int kDqGroups = kD > kMaxWholeDkvHeadDim ? kWideDqGroups : kDropout ? 1 : 2;
+template <int kD, bool kDropout>
+constexpr int kDqRowGroups = kD > kMaxWholeDkvHeadDim ? kWideDqRowGroups : kDqGroups<kD, kDropout>;
+template <int kD, bool kDropout>
+constexpr int kDqMinBlocks =
+    kD > kMaxWholeDkvHeadDim ? kWideDqMinBlocks : kD == 128 ? 1 : kDropout ? 3 : 2;
+template <int kD>
+constexpr int kDqKeys = kD > kMaxWholeDkvHeadDim ? kWideDqKeys : 64;
+template <int kD>
+constexpr int kDqStages = kD > kMaxWholeDkvHeadDim ? kWideDqStages : 2;  // of the K / V ring
 constexpr int kDkvGroups = 1, kDkvQueries = 64;
+template <int kD>
+constexpr int kDkvCols = kD > kMaxWholeDkvHeadDim ? 2 : 1;
+template <int kD>
+constexpr bool kDkvByRole = kD > kMaxWholeDkvHeadDim && kWideDkvByRole;
 
 static_assert(kDkvQueries == 64, "the dk/dv launch's keep bits cover 64 queries");
 
@@ -1203,13 +1216,17 @@ constexpr int wg_fwd_smem_bytes() {
 }
 template <int kD, bool kDropout>
 constexpr int wg_dq_smem_bytes() {
-  return wg::kAlign + (2 * 64 * kDqGroups<kDropout> + 4 * kDqKeys) * wg::kRowBytes<kD> +
-         2 * kDqKeys * 4 + 64 * kDqGroups<kDropout> * 4;
+  return wg::kAlign +
+         (2 * 64 * kDqRowGroups<kD, kDropout> + 2 * kDqStages<kD> * kDqKeys<kD>) *
+             wg::kRowBytes<kD> +
+         kDqStages<kD> * kDqKeys<kD> * 4 + 64 * kDqRowGroups<kD, kDropout> * 4;
 }
 template <int kD>
 constexpr int wg_dkv_smem_bytes() {
+  // K and V, two ring stages of q and dO (by role also the p tile, [64 x
+  // 64] f32), two stages of lse and delta
   return wg::kAlign + (2 * 64 * kDkvGroups + 4 * kDkvQueries) * wg::kRowBytes<kD> +
-         4 * kDkvQueries * 4;
+         (kDkvByRole<kD> ? 64 * kDkvQueries * 4 : 0) + 4 * kDkvQueries * 4;
 }
 
 // delta = dO . o of row `row` (dO unscaled, o in its type) from device
@@ -1236,35 +1253,49 @@ __device__ __forceinline__ float row_delta_dev(const __nv_bfloat16* dout, const 
   return sum + __shfl_xor_sync(kFull, sum, 1);
 }
 
-// S = A B^T over kD (A rows from a_row of tile a, B the kN rows of tile b),
-// both K-major in shared memory; the accumulator is overwritten.
+// S = A B^T over kD (A rows from a_row of tile a, B the kN rows of tile b
+// from b_row), both K-major in shared memory; the accumulator is
+// overwritten.
 template <int kD, int kN>
 __device__ __forceinline__ void wg_nt(float (&s)[kN / 8][4], const unsigned char* a, int a_row,
-                                      const unsigned char* b) {
+                                      const unsigned char* b, int b_row = 0) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    wg::mma_ss<kN, 0>(s, wg::desc_k<kD>(a, a_row, kk), wg::desc_k<kD>(b, 0, kk), kk);
+    wg::mma_ss<kN, 0>(s, wg::desc_k<kD>(a, a_row, kk), wg::desc_k<kD>(b, b_row, kk), kk);
   }
 }
 
-// c += F B for F [64 x 16kK] in A fragments and B the 16kK rows of tile b
-// (MN-major: rows the contracted index, kD the output columns); at kD = 256
-// each k-step is two products of 128 columns (wgmma_tiles.cuh::cols).
-template <int kD, int kK>
-__device__ __forceinline__ void wg_nn(float (&c)[kD / 8][4], const uint32_t (&f)[kK][4],
-                                      const unsigned char* b) {
-  if constexpr (kD <= 128) {
+// c += F B for F [64 x 16kK] in A fragments and B rows [16 kk0, 16 (kk0 +
+// kK)) of tile b (MN-major: rows the contracted index), its kC columns
+// from col0 the output columns; above 128 columns each k-step is products
+// of 128 (wgmma_tiles.cuh::cols).
+template <int kD, int kK, int kC = kD>
+__device__ __forceinline__ void wg_nn(float (&c)[kC / 8][4], const uint32_t (&f)[kK][4],
+                                      const unsigned char* b, int kk0 = 0, int col0 = 0) {
+  if constexpr (kC <= 128) {
 #pragma unroll
-    for (int kk = 0; kk < kK; ++kk) wg::mma_rs<kD, 1>(c, f[kk], wg::desc_mn<kD>(b, kk), 1);
+    for (int kk = 0; kk < kK; ++kk) {
+      wg::mma_rs<kC, 1>(c, f[kk], wg::desc_mn<kD>(b, kk0 + kk, col0), 1);
+    }
   } else {
 #pragma unroll
     for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
-      for (int h = 0; h < kD / 128; ++h) {
-        wg::mma_rs<128, 1>(wg::cols<16>(c, h), f[kk], wg::desc_mn<kD>(b, kk, 128 * h), 1);
+      for (int h = 0; h < kC / 128; ++h) {
+        wg::mma_rs<128, 1>(wg::cols<16>(c, h), f[kk],
+                           wg::desc_mn<kD>(b, kk0 + kk, col0 + 128 * h), 1);
       }
     }
   }
+}
+
+// Named barrier `id` (not 0, __syncthreads') of `threads` threads: arrive
+// without waiting (the producer's side), or wait for the others.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
@@ -1614,8 +1645,12 @@ flash_fwd_wg_overlap_kernel(const __nv_bfloat16* __restrict__ q,
 
 // The split backward's dq launch: dS = p (dP - delta) per key tile, dQ +=
 // dS K; delta = rowsum(dO o) once a row, also written for the dk/dv launch.
+// kDqRowGroups warpgroups on their own 64 query rows each; where kDqGroups
+// is twice that, two groups share each row slice, each taking its half of
+// every key tile, and sum their partial dQ through shared memory at the
+// end (kSplit).
 template <int kD, bool kHeadSplit, bool kDropout>
-__global__ void __launch_bounds__(wg::kGroupThreads * kDqGroups<kDropout>,
+__global__ void __launch_bounds__(wg::kGroupThreads * kDqGroups<kD, kDropout>,
                                   kDqMinBlocks<kD, kDropout>)
 flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
@@ -1623,42 +1658,50 @@ flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                        float* __restrict__ delta_out, __nv_bfloat16* __restrict__ dq, int seq,
                        int hidden, float score_mult, float scale, Dropout drop) {
-  constexpr int kRows = 64 * kDqGroups<kDropout>;
-  constexpr int kThr = wg::kGroupThreads * kDqGroups<kDropout>;
-  constexpr int kN = kDqKeys / 8, kTile = kDqKeys * wg::kRowBytes<kD>;
+  constexpr int kGroups = kDqGroups<kD, kDropout>, kRowGroups = kDqRowGroups<kD, kDropout>;
+  constexpr int kSplit = kGroups / kRowGroups;  // warpgroups sharing a row slice
+  constexpr int kKeys = kDqKeys<kD>, kSub = kKeys / kSplit;  // keys of a tile, of a part
+  constexpr int kRows = 64 * kRowGroups, kStages = kDqStages<kD>;
+  constexpr int kThr = wg::kGroupThreads * kGroups;
+  constexpr int kN = kSub / 8, kTile = kKeys * wg::kRowBytes<kD>;
   constexpr bool kFold = kFoldDo<kHeadSplit, kDropout>;
-  static_assert(kThr == 2 * kRows, "delta takes two threads a row");
+  static_assert(kGroups == kRowGroups * kSplit && kSplit <= 2 && kSub % 32 == 0,
+                "one or two whole parts of a key tile");
+  static_assert(kThr >= 2 * kRows, "delta takes two threads a row");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* q_s = wg::align_smem(smem_raw);
   unsigned char* do_s = q_s + kRows * wg::kRowBytes<kD>;
-  unsigned char* k_s = do_s + kRows * wg::kRowBytes<kD>;  // two stages
-  unsigned char* v_s = k_s + 2 * kTile;                    // two stages
-  float* bias_s = reinterpret_cast<float*>(v_s + 2 * kTile);  // [2][kDqKeys]
-  float* delta_s = bias_s + 2 * kDqKeys;                      // [kRows]
+  unsigned char* k_s = do_s + kRows * wg::kRowBytes<kD>;  // kStages stages
+  unsigned char* v_s = k_s + kStages * kTile;              // kStages stages
+  float* bias_s = reinterpret_cast<float*>(v_s + kStages * kTile);  // [kStages][kKeys]
+  float* delta_s = bias_s + kStages * kKeys;                        // [kRows]
 
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, c = tid & 3;
-  const int a_row = 64 * (warp >> 2);
+  // the warpgroup's part of a key tile, its first row in the CTA's slice
+  const int part = kSplit == 1 ? 0 : (warp >> 2) / kRowGroups;
+  const int a_row = 64 * (kSplit == 1 ? warp >> 2 : (warp >> 2) % kRowGroups);
+  const int koff = kSub * part;
   const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kRows;
   const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
   const int ld = row_stride<kD, kHeadSplit>(hidden);
   const float* bias_row = key_bias + (size_t)b * seq;
   const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
-  const int row0 = q0 + warp * 16 + g;
-  const int n_tiles = (seq + kDqKeys - 1) / kDqKeys;
+  const int row0 = q0 + (kSplit == 1 ? warp * 16 : a_row + (warp & 3) * 16) + g;
+  const int n_tiles = (seq + kKeys - 1) / kKeys;
 
   wg::stage_rows<kD>(q_s, q, head_base, ld, q0, kRows, seq, tid, kThr);
   wg::stage_rows<kD>(do_s, dout, head_base, ld, q0, kRows, seq, tid, kThr);
   cp_async_commit();
-  wg::stage_rows<kD>(k_s, k, head_base, ld, 0, kDqKeys, seq, tid, kThr);
-  wg::stage_rows<kD>(v_s, v, head_base, ld, 0, kDqKeys, seq, tid, kThr);
+  wg::stage_rows<kD>(k_s, k, head_base, ld, 0, kKeys, seq, tid, kThr);
+  wg::stage_rows<kD>(v_s, v, head_base, ld, 0, kKeys, seq, tid, kThr);
   cp_async_commit();
-  bias_tile<kDqKeys>(bias_s, bias_row, 0, seq);
-  {  // delta from the unscaled dO in device memory, two threads a row
+  bias_tile<kKeys>(bias_s, bias_row, 0, seq);
+  if (kSplit == 1 || tid < 2 * kRows) {  // delta from the unscaled dO, two threads a row
     const int j = tid >> 1;
     const float d = row_delta_dev<kD>(dout, o, head_base, ld, q0 + j, seq, tid & 1);
     if ((tid & 1) == 0) {
       delta_s[j] = d;
-      if (q0 + j < seq) delta_out[row_base + q0 + j] = d;
+      if (q0 + j < seq && part == 0) delta_out[row_base + q0 + j] = d;
     }
   }
   float lse_r[2];
@@ -1672,18 +1715,27 @@ flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   // flash2 folds 1 / (1 - rate) into the staged dO (delta took it unscaled)
   if constexpr (kFold) wg::scale_own_rows<kD>(do_s, kRows, fold_factor<__nv_bfloat16>(drop.scale), tid, kThr);
   __syncthreads();
-  const float delta_r[2] = {delta_s[warp * 16 + g], delta_s[warp * 16 + g + 8]};
+  const float delta_r[2] = {delta_s[row0 - q0], delta_s[row0 - q0 + 8]};
 
   Frag<kD / 8> dqa;
   dqa.zero();
   for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) {
-      const int nb = buf ^ 1, k1 = (t + 1) * kDqKeys;
-      wg::stage_rows<kD>(k_s + nb * kTile, k, head_base, ld, k1, kDqKeys, seq, tid, kThr);
-      wg::stage_rows<kD>(v_s + nb * kTile, v, head_base, ld, k1, kDqKeys, seq, tid, kThr);
+    const int buf = kStages == 1 ? 0 : t & 1;
+    if (kStages == 1 && t > 0) {
+      // one stage: tile t into the buffers the last barrier freed (other
+      // CTAs on the SM compute meanwhile)
+      const int k1 = t * kKeys;
+      wg::stage_rows<kD>(k_s, k, head_base, ld, k1, kKeys, seq, tid, kThr);
+      wg::stage_rows<kD>(v_s, v, head_base, ld, k1, kKeys, seq, tid, kThr);
       cp_async_commit();
-      bias_tile<kDqKeys>(bias_s + nb * kDqKeys, bias_row, k1, seq);
+      bias_tile<kKeys>(bias_s, bias_row, k1, seq);
+    }
+    if (kStages == 2 && t + 1 < n_tiles) {
+      const int nb = buf ^ 1, k1 = (t + 1) * kKeys;
+      wg::stage_rows<kD>(k_s + nb * kTile, k, head_base, ld, k1, kKeys, seq, tid, kThr);
+      wg::stage_rows<kD>(v_s + nb * kTile, v, head_base, ld, k1, kKeys, seq, tid, kThr);
+      cp_async_commit();
+      bias_tile<kKeys>(bias_s + nb * kKeys, bias_row, k1, seq);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -1695,22 +1747,22 @@ flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
     float s[kN][4], dp[kN][4];
     wg::fence();
-    wg_nt<kD, kDqKeys>(s, q_s, a_row, kt);
-    wg_nt<kD, kDqKeys>(dp, do_s, a_row, vt);
+    wg_nt<kD, kSub>(s, q_s, a_row, kt, koff);
+    wg_nt<kD, kSub>(dp, do_s, a_row, vt, koff);
     wg::commit();
-    uint32_t keep[kN / 2];
+    uint32_t keep[kN / 2 < 4 ? 4 : kN / 2];  // keep_words_qmajor's 64 keys
 #pragma unroll
     for (int i = 0; i < kN / 2; ++i) keep[i] = kFull;
     if constexpr (kDropout) {
 #pragma unroll
-      for (int h = 0; h < kDqKeys / 64; ++h) {
-        keep_words_qmajor(drop, row_base + row0, t * kDqKeys + 64 * h, keep + 4 * h);
+      for (int h = 0; h < (kSub + 63) / 64; ++h) {
+        keep_words_qmajor(drop, row_base + row0, t * kKeys + koff + 64 * h, keep + 4 * h);
       }
     }
     wg::wait<0>();
     wg::fence_operand(s);
     wg::fence_operand(dp);
-    const float* bias_t = bias_s + buf * kDqKeys;
+    const float* bias_t = bias_s + buf * kKeys + koff;
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
 #pragma unroll
@@ -1735,30 +1787,58 @@ flash_bwd_dq_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     wg::fence_operand(dqa.x);
     wg::fence_operand(da);
     wg::fence();
-    wg_nn<kD, kN / 2>(dqa.x, da, kt);
+    wg_nn<kD, kN / 2>(dqa.x, da, kt, koff / 16);
     wg::commit();
     wg::wait<0>();
     wg::fence_operand(dqa.x);
     wg::fence_operand(da);
     __syncthreads();
   }
+  if constexpr (kSplit == 2) {
+    // part 1's dQ into the K and V stages (free now), each thread's values
+    // at float4s 128 apart; part 0 adds them and stores
+    float4* sum_s = reinterpret_cast<float4*>(k_s) + (warp >> 2) % kRowGroups * (kD / 8) * 128;
+    const int tl = tid % wg::kGroupThreads;
+    static_assert(kRowGroups * 64 * kD * 4 <= 2 * kStages * kTile, "the sums fit the stages");
+    if (part == 1) {
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        sum_s[n * 128 + tl] = make_float4(dqa.x[n][0], dqa.x[n][1], dqa.x[n][2], dqa.x[n][3]);
+      }
+    }
+    __syncthreads();
+    if (part == 1) return;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const float4 x = sum_s[n * 128 + tl];
+      dqa.x[n][0] += x.x;
+      dqa.x[n][1] += x.y;
+      dqa.x[n][2] += x.z;
+      dqa.x[n][3] += x.w;
+    }
+  }
   store_frag(dq, head_base, ld, row0, seq, dqa, scale, scale);
 }
 
 // The split backward's dk/dv launch: a CTA's keys against query tiles that
 // a two-stage ring brings in (q, dO, lse, delta); dV += P^T dO and dK +=
-// dS^T Q with P^T and dS^T in registers.
+// dS^T Q with P^T and dS^T in registers.  Above kMaxWholeDkvHeadDim
+// (kDkvCols = 2) two warpgroups share the CTA's 64 keys, each forming S^T
+// and dP^T whole and holding its half of the columns of dK and dV, as
+// flash2_bwd_fused_wg_kernel does.
 template <int kD, bool kHeadSplit, bool kDropout>
-__global__ void __launch_bounds__(wg::kGroupThreads * kDkvGroups)
+__global__ void __launch_bounds__(wg::kGroupThreads * kDkvGroups * kDkvCols<kD>)
 flash_bwd_dkv_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const float* __restrict__ key_bias,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ delta_in, __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int seq, int hidden, float score_mult,
                         float scale, Dropout drop) {
-  constexpr int kKeys = 64 * kDkvGroups, kThr = wg::kGroupThreads * kDkvGroups;
+  constexpr int kCols = kDkvCols<kD>, kC = kD / kCols;  // column groups, their columns
+  constexpr int kKeys = 64 * kDkvGroups, kThr = wg::kGroupThreads * kDkvGroups * kCols;
   constexpr int kQ = kDkvQueries, kN = kQ / 8, kTile = kQ * wg::kRowBytes<kD>;
   constexpr bool kFold = kFoldDo<kHeadSplit, kDropout>;
+  static_assert(kCols == 1 || kDkvGroups == 1, "column groups share one warpgroup's keys");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* kb_s = wg::align_smem(smem_raw);        // this CTA's keys
   unsigned char* vb_s = kb_s + kKeys * wg::kRowBytes<kD>;
@@ -1767,7 +1847,10 @@ flash_bwd_dkv_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTile);  // [2][kQ]
   float* delta_s = lse_s + 2 * kQ;                            // [2][kQ]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  // the key warp (its 16 keys of the CTA's), the warpgroup's columns
+  const int warp = kCols == 1 ? tid >> 5 : (tid >> 5) & 3;
+  const int col0 = kCols == 1 ? 0 : (tid / wg::kGroupThreads) * kC;
   const int a_row = 64 * (warp >> 2);
   const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kKeys;
   const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
@@ -1801,7 +1884,7 @@ flash_bwd_dkv_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   load_tile(0, 0);
   cp_async_commit();
 
-  Frag<kD / 8> dk_acc, dv_acc;
+  Frag<kC / 8> dk_acc, dv_acc;
   dk_acc.zero();
   dv_acc.zero();
   for (int t = 0; t < n_tiles; ++t) {
@@ -1875,8 +1958,8 @@ flash_bwd_dkv_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
     wg::fence_operand(pa);
     wg::fence_operand(da);
     wg::fence();
-    wg_nn<kD, kN / 2>(dv_acc.x, pa, dot);  // dV += P^T dO
-    wg_nn<kD, kN / 2>(dk_acc.x, da, qt);   // dK += dS^T Q
+    wg_nn<kD, kN / 2, kC>(dv_acc.x, pa, dot, 0, col0);  // dV += P^T dO
+    wg_nn<kD, kN / 2, kC>(dk_acc.x, da, qt, 0, col0);   // dK += dS^T Q
     wg::commit();
     wg::wait<0>();
     wg::fence_operand(dv_acc.x);
@@ -1888,11 +1971,188 @@ flash_bwd_dkv_wg_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   // the head-split kernels' dV carries 1 / (1 - rate) from here (JAX's
   // _flash_dkv_kernel scales each tile's f32 product)
   const float dv_mult = kDropout && kHeadSplit ? drop.scale : 1.f;
-  store_frag(dk, head_base, ld, key0, seq, dk_acc, scale, scale);
-  store_frag(dv, head_base, ld, key0, seq, dv_acc, dv_mult, dv_mult);
+  store_frag(dk, head_base + col0, ld, key0, seq, dk_acc, scale, scale);
+  store_frag(dv, head_base + col0, ld, key0, seq, dv_acc, dv_mult, dv_mult);
 }
 
-// flash2's fused backward in bf16 above kMaxWgSplitHeadDim (row 11 at head
+// The dk/dv launch above kMaxWholeDkvHeadDim split by role (kDkvByRole): a
+// CTA of two warpgroups per 64 keys over the ring of 64-query tiles.
+// Warpgroup 0 forms S^T = K Q^T, p and the keep bits, hands p to the other
+// through shared memory in f32 (dS takes the unrounded p, as JAX's rule;
+// dropped values negated: the sign is the keep bit) and takes dV += P^T
+// dO; warpgroup 1 forms dP^T = V dO^T, then,
+// with p, dS^T = p (dpm - delta) and dK += dS^T Q.  Each holds one
+// accumulator [64 x 256] f32 (128 registers), and S^T and dP^T are formed
+// once: 4 products of [64 x 64 x 256] a query tile, where the column split
+// does 6.  Both warpgroups run one code for their products (the operand
+// tiles picked by role), so no wgmma sits on a divergent path; p goes
+// through a named barrier that warpgroup 0 arrives at and warpgroup 1 waits
+// on.  Thread t of warpgroup 1 reads the p that thread t of warpgroup 0
+// wrote (the same keys and queries), as float4s 128 apart.
+template <int kD, bool kHeadSplit, bool kDropout>
+__global__ void __launch_bounds__(2 * wg::kGroupThreads, 1)
+flash_bwd_dkv_role_wg_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v,
+                             const float* __restrict__ key_bias,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta_in,
+                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                             int seq, int hidden, float score_mult, float scale, Dropout drop) {
+  constexpr int kKeys = 64, kQ = kDkvQueries, kN = kQ / 8, kThr = 2 * wg::kGroupThreads;
+  constexpr int kTile = kQ * wg::kRowBytes<kD>;
+  constexpr bool kFold = kFoldDo<kHeadSplit, kDropout>;
+  constexpr int kPBar = 1;  // the named barrier p goes through
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* kb_s = wg::align_smem(smem_raw);         // this CTA's keys
+  unsigned char* vb_s = kb_s + kKeys * wg::kRowBytes<kD>;
+  unsigned char* q_s = vb_s + kKeys * wg::kRowBytes<kD>;  // two ring stages
+  unsigned char* do_s = q_s + 2 * kTile;                   // two ring stages
+  float4* p_s = reinterpret_cast<float4*>(do_s + 2 * kTile);  // [kN][128] float4
+  float* lse_s = reinterpret_cast<float*>(p_s + kN * wg::kGroupThreads);  // [2][kQ]
+  float* delta_s = lse_s + 2 * kQ;                                        // [2][kQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int tl = tid % wg::kGroupThreads, warp = tl >> 5;
+  // 0: S^T, p and dV; 1: dP^T, dS^T and dK (lane 0's, so warp-uniform to ptxas)
+  const int role = __shfl_sync(kFull, tid / wg::kGroupThreads, 0);
+  const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kKeys;
+  const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
+  const int ld = row_stride<kD, kHeadSplit>(hidden);
+  const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+  const int key0 = kb0 + warp * 16 + g;  // this lane's keys: key0, key0 + 8
+  const uint32_t grp = (uint32_t)(kb0 + warp * 16) / 16u;  // the warp's Philox group
+  const int n_tiles = (seq + kQ - 1) / kQ;
+
+  auto load_tile = [&](int st, int i0) {  // as flash_bwd_dkv_wg_kernel's
+    wg::stage_rows<kD>(q_s + st * kTile, q, head_base, ld, i0, kQ, seq, tid, kThr);
+    wg::stage_rows<kD>(do_s + st * kTile, dout, head_base, ld, i0, kQ, seq, tid, kThr);
+    for (int j = tid; j < 2 * kQ; j += kThr) {
+      const int jj = j % kQ;
+      const bool ok = i0 + jj < seq;
+      const float* src = (j < kQ ? lse : delta_in) + row_base + (ok ? i0 + jj : 0);
+      tc::cp_async4((j < kQ ? lse_s : delta_s) + st * kQ + jj, src, ok);
+    }
+  };
+
+  float bias2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    bias2[r] = key < seq ? key_bias[(size_t)b * seq + key] * kLog2e : -INFINITY;
+  }
+  wg::stage_rows<kD>(kb_s, k, head_base, ld, kb0, kKeys, seq, tid, kThr);
+  wg::stage_rows<kD>(vb_s, v, head_base, ld, kb0, kKeys, seq, tid, kThr);
+  load_tile(0, 0);
+  cp_async_commit();
+
+  Frag<kD / 8> acc;  // dV (role 0) or dK (role 1)
+  acc.zero();
+  const unsigned char* a_tile = role == 0 ? kb_s : vb_s;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1, i0 = t * kQ;
+    if (t + 1 < n_tiles) {  // tile t + 1 lands while tile t is computed
+      load_tile(st ^ 1, i0 + kQ);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const unsigned char* qt = q_s + st * kTile;
+    unsigned char* dot = do_s + st * kTile;
+    if constexpr (kFold) wg::scale_own_rows<kD>(dot, kQ, fold_factor<__nv_bfloat16>(drop.scale), tid, kThr);
+    wg::fence_proxy_async();
+    __syncthreads();
+
+    // role 0: S^T = K Q^T; role 1: dP^T = V dO^T (rows: the keys)
+    float x[kN][4];
+    wg::fence();
+    wg_nt<kD, kQ>(x, a_tile, 0, role == 0 ? qt : dot);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(x);
+    const float* lt = lse_s + st * kQ;
+    const float* dt = delta_s + st * kQ;
+    if (role == 0) {
+      uint32_t mine = kFull;  // keep bits of queries lane, lane + 32 (16 keys each)
+      if constexpr (kDropout) {
+        mine = keep_bits16(drop, grp, row_base + i0 + lane) |
+               (keep_bits16(drop, grp, row_base + i0 + lane + 32) << 16);
+      }
+#pragma unroll
+      for (int n = 0; n < kN / 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          uint32_t w = kFull;
+          if constexpr (kDropout) w = __shfl_sync(kFull, mine, n * 8 + 2 * c + e);
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {  // query columns n*8 + ... and +32
+            const int nn = n + hi * (kN / 2);
+            const int col = nn * 8 + 2 * c + e;
+            const uint32_t bits = w >> (16 * hi);
+            // p = 0 past seq; the head-split lse arrives in natural-log units
+            const float l = i0 + col < seq ? lt[col] * (kHeadSplit ? kLog2e : 1.f) : INFINITY;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float p = exp2f(fmaf(x[nn][2 * r + e], score_mult, bias2[r]) - l);
+              // dropped: -p (p >= 0, so the sign bit is the drop)
+              x[nn][2 * r + e] = ((bits >> (g + 8 * r)) & 1u) ? p : -p;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kN; ++n) p_s[n * wg::kGroupThreads + tl] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+      bar_arrive(kPBar, kThr);
+      if constexpr (kDropout) {
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[n][i] = fmaxf(x[n][i], 0.f);  // the kept p unscaled
+        }
+      }
+    } else {
+      bar_sync(kPBar, kThr);
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float4 pv = p_s[n * wg::kGroupThreads + tl];
+        const float ps[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float dl = dt[n * 8 + 2 * c + (i & 1)];
+          float dpm = x[n][i];
+          if constexpr (kDropout) {
+            // a product with the keep bit, as in flash_bwd_dkv_kernel
+            const float kept = (__float_as_uint(ps[i]) >> 31) ? 0.f : 1.f;
+            dpm *= kFold ? kept : kept * drop.scale;
+          }
+          x[n][i] = fabsf(ps[i]) * (dpm - dl);  // dS^T
+        }
+      }
+    }
+    uint32_t a[kN / 2][4];  // P^T (role 0) or dS^T (role 1), rounded to bf16 as JAX's
+    wg::to_a(x, a);
+    wg::fence_operand(acc.x);
+    wg::fence_operand(a);
+    wg::fence();
+    wg_nn<kD, kN / 2>(acc.x, a, role == 0 ? dot : qt);  // dV += P^T dO, dK += dS^T Q
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc.x);
+    wg::fence_operand(a);
+    __syncthreads();  // the ring stage and the p tile are rewritten next
+  }
+  // the head-split kernels' dV carries 1 / (1 - rate) from here (JAX's
+  // _flash_dkv_kernel scales each tile's f32 product)
+  const float dv_mult = kDropout && kHeadSplit ? drop.scale : 1.f;
+  if (role == 0) {
+    store_frag(dv, head_base, ld, key0, seq, acc, dv_mult, dv_mult);
+  } else {
+    store_frag(dk, head_base, ld, key0, seq, acc, scale, scale);
+  }
+}
+
+// flash2's fused backward in bf16 above kMaxWholeDkvHeadDim (row 11 at head
 // dim 256), behind flash2_bwd_prep_kernel's delta and zeroed dq32, as
 // flash2_bwd_fused_kernel: one CTA of two warpgroups per (64 keys, head,
 // batch row) over 64-query tiles of q, dO, lse and delta in a two-stage
@@ -2238,7 +2498,25 @@ int launch_fwd_wg(const void* q, const void* k, const void* v, const float* bias
   }
 }
 
-// dq (writing delta, [B, heads, S] f32, to `delta`), then dk/dv reading it.
+// The dk/dv launch of kernel kKernel (flash_bwd_dkv_wg_kernel or
+// flash_bwd_dkv_role_wg_kernel at head dim kD), `threads` a CTA.
+template <auto kKernel, int kD>
+int launch_dkv_wg(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                  const float* bias, const __nv_bfloat16* dout, const float* lse,
+                  const float* delta, void* dk, void* dv, int batch, int seq, int hidden,
+                  int num_heads, float scale, Dropout drop, cudaStream_t s, int threads) {
+  constexpr int bytes = wg_dkv_smem_bytes<kD>(), keys = 64 * kDkvGroups;
+  static_assert(bytes <= kMaxSmem, "the dk/dv launch's tiles fit one CTA's shared memory");
+  const cudaError_t err = allow_smem<kKernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  kKernel<<<dim3((seq + keys - 1) / keys, num_heads, batch), threads, bytes, s>>>(
+      q, k, v, bias, dout, lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), seq, hidden, scale * kLog2e, scale, drop);
+  return (int)cudaGetLastError();
+}
+
+// dq (writing delta, [B, heads, S] f32, to `delta`), then dk/dv reading it
+// (above kMaxWholeDkvHeadDim by role where kDkvByRole).
 template <int kD, bool kHeadSplit, bool kDropout>
 int launch_split_wg(const void* q, const void* k, const void* v, const float* bias,
                     const void* o, const void* dout, const float* lse, float* delta, void* dq,
@@ -2246,32 +2524,35 @@ int launch_split_wg(const void* q, const void* k, const void* v, const float* bi
                     float scale, Dropout drop, cudaStream_t s) {
   using T = __nv_bfloat16;
   constexpr auto dq_kernel = flash_bwd_dq_wg_kernel<kD, kHeadSplit, kDropout>;
-  constexpr auto dkv_kernel = flash_bwd_dkv_wg_kernel<kD, kHeadSplit, kDropout>;
-  constexpr int dq_bytes = wg_dq_smem_bytes<kD, kDropout>(), dkv_bytes = wg_dkv_smem_bytes<kD>();
-  constexpr int dq_rows = 64 * kDqGroups<kDropout>, dkv_keys = 64 * kDkvGroups;
+  constexpr int dq_bytes = wg_dq_smem_bytes<kD, kDropout>();
+  constexpr int dq_rows = 64 * kDqRowGroups<kD, kDropout>;
+  static_assert(dq_bytes <= kMaxSmem, "the dq launch's tiles fit one CTA's shared memory");
   cudaError_t err = allow_smem<dq_kernel>(dq_bytes);
-  if (err == cudaSuccess) err = allow_smem<dkv_kernel>(dkv_bytes);
   if (err != cudaSuccess) return (int)err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   dq_kernel<<<dim3((seq + dq_rows - 1) / dq_rows, num_heads, batch),
-              wg::kGroupThreads * kDqGroups<kDropout>, dq_bytes, s>>>(
+              wg::kGroupThreads * kDqGroups<kD, kDropout>, dq_bytes, s>>>(
       qt, kt, vt, bias, static_cast<const WgOutT<kHeadSplit>*>(o), dot, lse, delta,
       static_cast<T*>(dq), seq, hidden, scale * kLog2e, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<<<dim3((seq + dkv_keys - 1) / dkv_keys, num_heads, batch),
-               wg::kGroupThreads * kDkvGroups, dkv_bytes, s>>>(
-      qt, kt, vt, bias, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), seq, hidden,
-      scale * kLog2e, scale, drop);
-  return (int)cudaGetLastError();
+  if constexpr (kDkvByRole<kD>) {
+    return launch_dkv_wg<flash_bwd_dkv_role_wg_kernel<kD, kHeadSplit, kDropout>, kD>(
+        qt, kt, vt, bias, dot, lse, delta, dk, dv, batch, seq, hidden, num_heads, scale, drop, s,
+        2 * wg::kGroupThreads);
+  } else {
+    return launch_dkv_wg<flash_bwd_dkv_wg_kernel<kD, kHeadSplit, kDropout>, kD>(
+        qt, kt, vt, bias, dot, lse, delta, dk, dv, batch, seq, hidden, num_heads, scale, drop, s,
+        wg::kGroupThreads * kDkvGroups * kDkvCols<kD>);
+  }
 }
 
 // flash2's fused backward: the pre-pass (delta into `delta`, [B, heads, S]
 // f32, and dq32 zeroed), then the sweep: bf16 flash2_bwd_fused_kernel, or
-// above kMaxWgSplitHeadDim flash2_bwd_fused_wg_kernel; f32
+// above kMaxWholeDkvHeadDim flash2_bwd_fused_wg_kernel; f32
 // flash_bwd_dkv_kernel<SimtF32, ..., kFused = true> (which takes its own
 // delta per tile and leaves the pre-pass's unread), refused above
 // kMaxF32HeadDim.
@@ -2296,7 +2577,7 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   using T = __nv_bfloat16;
-  if constexpr (kD > kMaxWgSplitHeadDim) {
+  if constexpr (kD > kMaxWholeDkvHeadDim) {
     constexpr auto kernel = flash2_bwd_fused_wg_kernel<kD, kDropout>;
     constexpr int bytes = fused_wg_smem_bytes<kD>();
     static_assert(bytes <= kMaxSmem, "the fused sweep's tiles fit one CTA's shared memory");
@@ -2345,30 +2626,25 @@ int launch_fwd_for(const void* q, const void* k, const void* v, const float* bia
       q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
 }
 
-// The split backward of either dtype at head dim kD: f32 on SimtF32, bf16
-// on the warpgroup kernels, or above kMaxWgSplitHeadDim bf16 on MmaBf16
-// (f32 refused).
+// The split backward of either dtype at head dim kD: bf16 on the warpgroup
+// kernels, f32 on SimtF32 (refused above kMaxF32HeadDim).
 template <int kD, bool kHeadSplit, bool kDropout>
 int launch_split_for(const void* q, const void* k, const void* v, const float* bias,
                      const void* o, const void* dout, const float* lse, float* delta,
                      void* dq, void* dk, void* dv, int batch, int seq, int hidden,
                      int num_heads, int dtype, float scale, Dropout drop, cudaStream_t s) {
-  static_assert(kMaxF32HeadDim == kMaxWgSplitHeadDim, "f32 refused where MmaBf16 runs");
-  if constexpr (kD > kMaxWgSplitHeadDim) {
-    if (dtype == 0) return (int)cudaErrorInvalidValue;
-    return launch_split<MmaBf16<kD>, kHeadSplit, kDropout>(
-        q, k, v, bias, o, dout, lse, delta, dq, dk, dv, batch, seq, hidden, num_heads, scale,
-        drop, s);
-  } else {
-    if (dtype == 0) {
+  if (dtype == 0) {
+    if constexpr (kD > kMaxF32HeadDim) {
+      return (int)cudaErrorInvalidValue;
+    } else {
       return launch_split<SimtF32<kD>, kHeadSplit, kDropout>(
           q, k, v, bias, o, dout, lse, delta, dq, dk, dv, batch, seq, hidden, num_heads, scale,
           drop, s);
     }
-    return launch_split_wg<kD, kHeadSplit, kDropout>(q, k, v, bias, o, dout, lse, delta, dq,
-                                                     dk, dv, batch, seq, hidden, num_heads,
-                                                     scale, drop, s);
   }
+  return launch_split_wg<kD, kHeadSplit, kDropout>(q, k, v, bias, o, dout, lse, delta, dq, dk,
+                                                   dv, batch, seq, hidden, num_heads, scale,
+                                                   drop, s);
 }
 
 bool bad_args(int batch, int seq, int hidden, int num_heads, int dtype, double drop_rate) {

@@ -42,7 +42,7 @@
 //     3: 32 B);
 //   * mma_ss<N, kTransB, kTransA>(d, desc_a, desc_b, scale_d) and
 //     mma_rs<N, kTransB>(d, a, desc_b, scale_d): d = A B (+ d when
-//     scale_d), N = 64 or 128 from shared memory (kTransA: A MN-major, its
+//     scale_d), N = 32, 64 or 128 from shared memory (kTransA: A MN-major, its
 //     descriptor a desc_mn of a tile whose rows are the K index), N = 16
 //     ... 128 with A from registers (a product 256 wide is two of 128:
 //     cols);
@@ -218,7 +218,19 @@ __device__ __forceinline__ void to_a(const float (&f)[kN][4], uint32_t (&a)[kN /
 template <int kN, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, uint64_t desc_b,
                                        int scale_d) {
-  static_assert(kN == 64 || kN == 128, "shared-memory A products are 64 or 128 wide");
+  static_assert(kN == 32 || kN == 64 || kN == 128,
+                "shared-memory A products are 32, 64 or 128 wide");
+  if constexpr (kN == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %20, %19;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
+  }
   if constexpr (kN == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"

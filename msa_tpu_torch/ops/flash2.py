@@ -14,10 +14,10 @@ bfloat16, any S >= 1 and any integer head dim from 1 to 256 (the libraries
 of head dim 16, 32, 64, 128 and 256; any other runs zero-padded on the
 next one up, ``short_attention.HeadPad``); the source's header says what
 bounds them on the H100 and how they are laid out.  bf16 runs on the tensor
-cores: the forward on ``wgmma`` at every head dim, the fused backward on
-``mma.sync`` up to 128 and on ``wgmma`` at 256, the split pair on ``wgmma``
-up to 128 and on ``mma.sync`` at 256; f32 on the CUDA cores (at 256 the
-short-attention kernels, ``short_attention.wide_f32``).
+cores: the forward and the split pair on ``wgmma`` at every head dim, the
+fused backward on ``mma.sync`` up to 128 and on ``wgmma`` at 256; f32 on
+the CUDA cores (at 256 the short-attention kernels,
+``short_attention.wide_f32``).
 
 Dropout uses the rule of ``ops/dropout.py`` (Philox of the seed and the
 element's index), the short-attention kernels' rule: at the same seed both
@@ -261,9 +261,9 @@ def flash2_bwd_split(q, k, v, key_bias, out32, lse, dout, num_heads: int,
                      seed: int = 0, rate: float = 0.0
                      ) -> Tuple[torch.Tensor, ...]:
     """dq, dk, dv of :func:`flash_attention2` by the split pair (CUDA only,
-    two launches: dq, which writes delta = rowsum(dO o), then dk/dv; f32
-    above head dim 128 the short-attention CUDA-core pair,
-    :func:`_wide_backward`)."""
+    two launches: dq, which writes delta = rowsum(dO o), then dk/dv; bf16
+    on the warpgroup kernels at every head dim, f32 above head dim 128 the
+    short-attention CUDA-core pair, :func:`_wide_backward`)."""
     if wide_f32(q.dtype, q.shape[2] // num_heads):
         return _wide_backward(q, k, v, key_bias, out32, lse, dout, num_heads,
                               seed, rate, "flash2_bwd_split")

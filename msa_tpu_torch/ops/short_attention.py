@@ -96,8 +96,8 @@ MAX_HEAD_DIM = HEAD_DIMS[-1]
 # short_bwd_tc.cuh) and of flash's f32 kernels: a library above it (256)
 # runs bf16 short attention on the two-sweep forward and the tiled backward
 # pair at every S, and f32 flash on this module's CUDA-core kernels
-# (:func:`wide_f32`); bf16 flash there runs its forward and fused backward
-# on wgmma and its split pair on mma.sync.
+# (:func:`wide_f32`); bf16 flash there runs its forward, fused backward
+# and split pair on wgmma.
 WHOLE_ROW_MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p

@@ -13,8 +13,9 @@ own ``build/``), prints ptxas's registers, spills and wgmma notices for
 each copy's warpgroup kernels, then times the trees in turns with
 ``chip_smoke.py --flash-times`` (``time_flash_path``: the flash kernels
 at head dims 64 and 32, flash at 128, 256 and 192, the frame-level step at 4
-heads of 256): the parent ROOT if given, this tree, each variant, this
-tree, the parent (with no NAME: the parent and this tree in turns).  A
+heads of 256 on flash2 and under ``USE_FLASH2 = False``): the parent ROOT
+if given, this tree, each variant, this tree, the parent (with no NAME:
+the parent and this tree in turns).  A
 probe's output is wrong by design; only its time means something.  Needs
 nvcc and a card.
 """
@@ -30,18 +31,37 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 KERNELS = Path("msa_tpu_torch") / "csrc" / "flash_kernels.cuh"
 
-_DQ_GROUPS = ("constexpr int kDqGroups = kDropout ? 1 : 2;",
-              "constexpr int kDqMinBlocks = kDropout ? 3 : 2;")
+# the split pair's choices above head dim 128 (flash_kernels.cuh)
+_WIDE_DQ = ("constexpr int kWideDqGroups = 1, kWideDqRowGroups = 1, kWideDqKeys = 32;",
+            "constexpr int kWideDqStages = 1, kWideDqMinBlocks = 2;")
+_TWO_STAGES = "constexpr int kWideDqStages = 2, kWideDqMinBlocks = 1;"
+_WIDE_ROLE = "constexpr bool kWideDkvByRole = true;"
+_DQ_GROUPS = ("kDqGroups = kD > kMaxWholeDkvHeadDim ? kWideDqGroups : kDropout ? 1 : 2;",
+              "kD == 128 ? 1 : kDropout ? 3 : 2;")
 PRESETS = {
     # tile choices
     "fwd_keys128": {"kFwdKeys = 64,": "kFwdKeys = 128,"},
     "fwd_groups1": {"constexpr int kFwdGroups = 2,": "constexpr int kFwdGroups = 1,"},
     "fwd_min1": {"kFwdMinBlocks = 2;": "kFwdMinBlocks = 1;"},
-    "dq_groups1": {_DQ_GROUPS[0]: "constexpr int kDqGroups = 1;",
-                   _DQ_GROUPS[1]: "constexpr int kDqMinBlocks = 3;"},
-    "dq_groups2": {_DQ_GROUPS[0]: "constexpr int kDqGroups = 2;",
-                   _DQ_GROUPS[1]: "constexpr int kDqMinBlocks = 2;"},
-    "dkv_groups2": {"constexpr int kDkvGroups = 1,": "constexpr int kDkvGroups = 2,"},
+    "dq_groups1": {_DQ_GROUPS[0]: "kDqGroups = kD > kMaxWholeDkvHeadDim ? kWideDqGroups : 1;",
+                   _DQ_GROUPS[1]: "kD == 128 ? 1 : 3;"},
+    "dq_groups2": {_DQ_GROUPS[0]: "kDqGroups = kD > kMaxWholeDkvHeadDim ? kWideDqGroups : 2;",
+                   _DQ_GROUPS[1]: "kD == 128 ? 1 : 2;"},
+    "dkv_groups2": {"constexpr int kDkvGroups = 1,":
+                    "constexpr int kDkvGroups = MSA_HEAD_DIM > 128 ? 1 : 2,"},
+    # the split pair at 256, in place of its dq launch over a one-stage ring
+    # of 32-key tiles at two CTAs an SM: two 64-key stages at one CTA an SM
+    # (one warpgroup; or two on the halves of each key tile, their partial
+    # dQ summed through shared memory; or two on 128 query rows over
+    # 32-key tiles); and the dk/dv launch split by columns (each warpgroup
+    # forming S^T and dP^T whole) in place of by role
+    "dq256_straight": {_WIDE_DQ[0]: "constexpr int kWideDqGroups = 1, kWideDqRowGroups = 1, "
+                                    "kWideDqKeys = 64;", _WIDE_DQ[1]: _TWO_STAGES},
+    "dq256_keyhalves": {_WIDE_DQ[0]: "constexpr int kWideDqGroups = 2, kWideDqRowGroups = 1, "
+                                     "kWideDqKeys = 64;", _WIDE_DQ[1]: _TWO_STAGES},
+    "dq256_rows128": {_WIDE_DQ[0]: "constexpr int kWideDqGroups = 2, kWideDqRowGroups = 2, "
+                                   "kWideDqKeys = 32;", _WIDE_DQ[1]: _TWO_STAGES},
+    "dkv256_cols": {_WIDE_ROLE: "constexpr bool kWideDkvByRole = false;"},
     # probes: the exponentials of the softmax taken out (forward, dq, dk/dv)
     "no_exp": {
         "const float p0 = exp2f(s[n][e] - m_run[0]);": "const float p0 = s[n][e] - m_run[0];",
@@ -151,7 +171,7 @@ def run_variants(argv, presets, kernels_file, sources, kernels, times_flag,
             raise SystemExit(f"{times_flag} {name} failed:\n{run.stdout[-3000:]}"
                              f"{run.stderr[-3000:]}")
         for line in times:
-            print(f"{name}: {line.split(': ', 1)[1]}", flush=True)
+            print(f"{name}: {line}", flush=True)
     return 0
 
 

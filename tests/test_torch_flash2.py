@@ -370,16 +370,20 @@ def test_flash2_bwd_fused_wrapper_hands_the_prepass_its_scratch(dtype, code,
     assert dq.dtype == dtype and torch.equal(dq.float(), dq32)
 
 
-@pytest.mark.parametrize("dtype,code", [
-    pytest.param(torch.bfloat16, 1, id="bf16"),
-    pytest.param(torch.float32, 0, id="f32")])
-def test_flash2_bwd_split_wrapper_hands_the_dq_launch_its_delta(dtype, code,
+@pytest.mark.parametrize("dtype,code,d", [
+    pytest.param(torch.bfloat16, 1, 32, id="bf16"),
+    pytest.param(torch.float32, 0, 32, id="f32"),
+    pytest.param(torch.bfloat16, 1, 192, id="bf16-d192"),
+    pytest.param(torch.bfloat16, 1, 256, id="bf16-d256")])
+def test_flash2_bwd_split_wrapper_hands_the_dq_launch_its_delta(dtype, code, d,
                                                                 monkeypatch):
     """The split route's host side (its kernels run only on a card): one
-    call of the C entry, its arguments in ``_SIGNATURES`` order, with the
-    delta scratch [B, heads, S] f32 that its dq launch writes for the dk/dv
-    launch, counted as two launches; dq, dk and dv come back in q's dtype."""
-    calls, scratch = [], []
+    call of the C entry of the library of head dim d (d = 192 padded onto
+    256, whose bf16 pair runs the warpgroup kernels there too), its
+    arguments in ``_SIGNATURES`` order, with the delta scratch [B, heads,
+    S] f32 that its dq launch writes for the dk/dv launch, counted as two
+    launches; dq, dk and dv come back in q's dtype at the caller's width."""
+    calls, scratch, loaded = [], [], []
 
     class Lib:
         def msa_flash2_bwd_split(self, *args):
@@ -390,12 +394,17 @@ def test_flash2_bwd_split_wrapper_hands_the_dq_launch_its_delta(dtype, code,
         scratch.append(real(lse))
         return scratch[-1]
 
+    def load(name, sigs):
+        loaded.append(name)
+        return Lib()
+
     real = F2.delta_scratch
-    monkeypatch.setattr(F2._build, "load", lambda name, sigs: Lib())
+    monkeypatch.setattr(F2._build, "load", load)
     monkeypatch.setattr(F2, "_check", lambda *a, **kw: None)
     monkeypatch.setattr(F2, "_stream", lambda x: 0)
     monkeypatch.setattr(F2, "delta_scratch", record)
-    b, s, h = 2, 20, 64
+    kd = 256 if d > 128 else d  # the library's head dim
+    b, s, h = 2, 20, HEADS * d
     q, k, v, dout = (torch.zeros(b, s, h, dtype=dtype) for _ in range(4))
     out32, lse = torch.zeros(b, s, h), torch.zeros(b, HEADS, s)
     before = F2.flash2_bwd_split.launches
@@ -403,15 +412,21 @@ def test_flash2_bwd_split_wrapper_hands_the_dq_launch_its_delta(dtype, code,
     dq, dk, dv = F2.flash2_bwd_split(q, k, v, bias, out32, lse, dout, HEADS,
                                      seed=5, rate=0.1015625)
     assert F2.flash2_bwd_split.launches == before + 2
+    assert loaded == [f"flash2_d{kd}"]
     (args,) = calls
     assert len(args) == len(F2._SIGNATURES["msa_flash2_bwd_split"])
     (delta,) = scratch
     assert delta.shape == (b, HEADS, s) and delta.dtype == torch.float32
-    assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                        out32.data_ptr(), dout.data_ptr(), lse.data_ptr())
-    assert args[7:11] == (delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr())
-    assert args[11:16] == (b, s, h, HEADS, code)
+    if d == kd:  # no pad: the caller's tensors themselves
+        assert args[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            bias.data_ptr(), out32.data_ptr(), dout.data_ptr(),
+                            lse.data_ptr())
+        assert args[7:11] == (delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr())
+    else:
+        assert args[3] == bias.data_ptr() and args[6:8] == (lse.data_ptr(),
+                                                            delta.data_ptr())
+    assert args[11:16] == (b, s, HEADS * kd, HEADS, code)
     assert args[-4:-1] == (5, 0, 26 / 256)  # the seed's words, the rate
     for g in (dq, dk, dv):
         assert g.shape == q.shape and g.dtype == dtype

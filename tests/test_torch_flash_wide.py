@@ -1,10 +1,13 @@
 """The bf16 flash rules at head dim 256 on the CPU against the JAX package.
 
 At head dim 256 the bf16 flash forward (kernel rows 10 and 13: flash2's
-``_fwd_kernel`` and the head-split ``_flash_kernel``) and flash2's fused
-backward (row 11, ``_bwd_fused_kernel``) run warpgroup kernels on the card
+``_fwd_kernel`` and the head-split ``_flash_kernel``), flash2's fused
+backward (row 11, ``_bwd_fused_kernel``) and the split backward pair (row
+12's ``_dq_kernel`` / ``_dkv_kernel``, row 13's ``_flash_dq_kernel`` /
+``_flash_dkv_kernel``) run warpgroup kernels on the card
 (``csrc/flash_kernels.cuh``: ``flash_fwd_wg_overlap_kernel``,
-``flash2_bwd_fused_wg_kernel``).  They build and run only there;
+``flash2_bwd_fused_wg_kernel``, ``flash_bwd_dq_wg_kernel``,
+``flash_bwd_dkv_role_wg_kernel``).  They build and run only there;
 ``chip_smoke.py`` holds them against their plain rules, and these tests
 hold those rules against JAX in bf16:
 
@@ -12,8 +15,14 @@ hold those rules against JAX in bf16:
   bf16 before P V, the row lse in log2 units; the head-split kernel's ctx
   is flash2's, its lse the same in natural-log units);
 * flash2's backward rule ``flash_attention2_backward_plain`` (dS and the
-  kept p rounded to bf16, dO folded by 1 / (1 - rate) and rounded);
-* row 13's backward rule ``flash_attention_backward_plain`` at rate 0.
+  kept p rounded to bf16, dO folded by 1 / (1 - rate) and rounded), the
+  oracle of both of its routes: against the fused kernel and, at rate 0,
+  the split pair;
+* row 13's backward rule ``flash_attention_backward_plain`` (the kept p
+  rounded, dV and dP scaled in f32): at rate 0 against the Pallas pair,
+  under dropout against a dense copy of that pair's order
+  (:func:`jax_order_head_split_backward`), which is held against the
+  Pallas pair at rate 0 too.
 
 At B = 1, 2 heads of 256 (H = 512) and S = 70: two of the kernels' 64-key
 tiles, the second ragged, keys padded from 50 on.  At rate 0 JAX's side is
@@ -21,9 +30,10 @@ its Pallas kernels in interpret mode (``flash_attention2`` with the fused
 backward, ``_flash_attention``), as JAX's own tests run them.  Under
 dropout (26/256) the two frameworks draw other masks, so JAX's side is a
 dense copy of its kernels' order in jnp on the port's exported mask
-(``keep_mask_plain``): the forward's (one key block at S = 70) here, the
-fused backward's ``test_torch_flash2.jax_order_backward``; the copy is
-held against the Pallas forward at rate 0 too.
+(``keep_mask_plain``): the forward's (one key block at S = 70) and row
+13's backward's here, the fused backward's
+``test_torch_flash2.jax_order_backward``; each copy here is held against
+its Pallas kernels at rate 0 too.
 
 Tolerance: ``test_torch_flash2.BF16_TOL`` (2e-3 absolute, 8e-3 relative,
 two bf16 ulps), the bound of the existing bf16 rule test: both sides round
@@ -180,6 +190,34 @@ def test_flash_forward_rule_matches_jax_at_d256(layout, rate):
     assert_bf16_close(copy, ref, f"{layout} JAX's order against its kernel")
 
 
+def flash2_rule_against_vjp(tx, jx, bias, lse):
+    """jax.vjp of JAX's bf16 ``flash_attention2`` (its backward route as
+    ``_FUSED_BWD`` is set, interpret mode) at rate 0, and the rule in bf16
+    and in f32 given JAX's output and ``lse``: (rule, rule in f32, JAX's
+    gradients)."""
+    tbias = torch.from_numpy(bias)
+    jout, vjp = jax.vjp(lambda *x: jax_flash2.flash_attention2(
+        *x, jnp.asarray(bias), None, HEADS, 0.0, True), *jx[:3])
+    ref = [np.asarray(g, np.float32) for g in vjp(jx[3])]
+    out = torch.from_numpy(np.array(jout, np.float32)).to(torch.bfloat16)
+    got = F2.flash_attention2_backward_plain(*tx[:3], tbias, out, lse, tx[3],
+                                             HEADS)
+    wide = F2.flash_attention2_backward_plain(
+        *(x.float() for x in tx[:3]), tbias, out, lse, tx[3].float(), HEADS)
+    return got, wide, ref
+
+
+def assert_rule_nearer(got, wide, ref):
+    """Each bf16 gradient of the rule within BF16_TOL of JAX's, and nearer
+    to it than the rule without its roundings."""
+    for name, g, w, r in zip(("dq", "dk", "dv"), got, wide, ref):
+        assert g.dtype == torch.bfloat16, name
+        assert_bf16_close(g.float().numpy(), r, name)
+        err = np.abs(g.float().numpy() - r).max()
+        err_wide = np.abs(w.to(torch.bfloat16).float().numpy() - r).max()
+        assert err < err_wide, (name, err, err_wide)
+
+
 @pytest.mark.parametrize("rate", RATES)
 def test_flash2_fused_rule_matches_jax_at_d256(rate, monkeypatch):
     """flash_attention2_backward_plain in bf16, given JAX's output and the
@@ -190,39 +228,75 @@ def test_flash2_fused_rule_matches_jax_at_d256(rate, monkeypatch):
     (the rule's forward output and lse for both)."""
     monkeypatch.setattr(jax_flash2, "_FUSED_BWD", True)
     jx, tx, bias = bf16_inputs(seed=257)
-    tbias = torch.from_numpy(bias)
     keep = keep_mask_plain(37, rate, B, HEADS, S) if rate else None
     ctx, lse = port_forward(tx, bias, rate, keep)
-    if rate:
-        out = ctx.float()
-        ref = jax_order_backward(
-            *jx[:3], jnp.asarray(bias), jnp.asarray(out.numpy()),
-            jnp.asarray(lse.numpy()), jx[3], jnp.asarray(keep.numpy()), rate,
-            weak=True)
-    else:
-        jout, vjp = jax.vjp(lambda *x: jax_flash2.flash_attention2(
-            *x, jnp.asarray(bias), None, HEADS, 0.0, True), *jx[:3])
-        ref = [np.asarray(g, np.float32) for g in vjp(jx[3])]
-        out = torch.from_numpy(np.array(jout, np.float32)).to(torch.bfloat16)
-    got = F2.flash_attention2_backward_plain(*tx[:3], tbias, out, lse, tx[3],
-                                             HEADS, rate, keep)
-    wide = F2.flash_attention2_backward_plain(
-        *(x.float() for x in tx[:3]), tbias, out, lse, tx[3].float(), HEADS,
-        rate, keep)
-    for name, g, w, r in zip(("dq", "dk", "dv"), got, wide, ref):
+    if not rate:
+        assert_rule_nearer(*flash2_rule_against_vjp(tx, jx, bias, lse))
+        return
+    out = ctx.float()
+    ref = jax_order_backward(
+        *jx[:3], jnp.asarray(bias), jnp.asarray(out.numpy()),
+        jnp.asarray(lse.numpy()), jx[3], jnp.asarray(keep.numpy()), rate,
+        weak=True)
+    got = F2.flash_attention2_backward_plain(*tx[:3], torch.from_numpy(bias),
+                                             out, lse, tx[3], HEADS, rate,
+                                             keep)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == torch.bfloat16, name
         assert_bf16_close(g.float().numpy(), r, name)
-        if not rate:
-            err = np.abs(g.float().numpy() - r).max()
-            err_wide = np.abs(w.to(torch.bfloat16).float().numpy() - r).max()
-            assert err < err_wide, (name, err, err_wide)
+
+
+def test_flash2_split_rule_matches_jax_at_d256(monkeypatch):
+    """flash_attention2_backward_plain in bf16 (the oracle of the split
+    pair too), given JAX's output and the row lse, against jax.vjp of
+    ``flash_attention2`` through JAX's split pair (``_FUSED_BWD = False``:
+    ``_dq_kernel`` and ``_dkv_kernel`` in interpret mode) at rate 0; the
+    rule also lies nearer to JAX's gradients than the same rule without
+    its roundings."""
+    monkeypatch.setattr(jax_flash2, "_FUSED_BWD", False)
+    jx, tx, bias = bf16_inputs(seed=259)
+    _, lse = port_forward(tx, bias, 0.0, None)
+    assert_rule_nearer(*flash2_rule_against_vjp(tx, jx, bias, lse))
+
+
+def jax_order_head_split_backward(q, k, v, bias, out, lse, dout, keep, rate):
+    """JAX's ``_flash_dq_kernel`` and ``_flash_dkv_kernel``
+    (msa_tpu/ops/attention.py:171, :211) in jnp on dense [B, heads, S, S]
+    tiles of [B, heads, S, d] bf16 inputs with a given keep mask (None at
+    rate 0): p = exp(s - lse) from the natural-log lse, delta = rowsum(dO
+    o) in f32; the dq kernel's dpm the kept dP divided by 1 - rate, the
+    dk/dv kernel's times 1 / (1 - rate) (:237-245); dS = p (dpm - delta)
+    rounded to bf16; dV the kept p rounded, times dO, its f32 sum times 1 /
+    (1 - rate).  Returns dq, dk, dv as f32 numpy arrays of bf16 values."""
+    f32 = jnp.float32
+    scale = 1.0 / np.sqrt(D)
+    s = jnp.einsum("bnqd,bnkd->bnqk", q, k, preferred_element_type=f32) \
+        * scale + bias[:, None, None, :]
+    p = jnp.exp(s - lse[..., None])
+    delta = jnp.sum(dout.astype(f32) * out.astype(f32), -1, keepdims=True)
+    dp = jnp.einsum("bnqd,bnkd->bnqk", dout, v, preferred_element_type=f32)
+    pd, dp_q, dp_k, dv_mult = p, dp, dp, 1.0
+    if keep is not None:
+        inv = 1.0 / (1.0 - rate)
+        pd = jnp.where(keep, p, 0.0)
+        dp_q = jnp.where(keep, dp, 0.0) / (1.0 - rate)
+        dp_k = jnp.where(keep, dp, 0.0) * inv
+        dv_mult = inv
+    dq = jnp.einsum("bnqk,bnkd->bnqd", (p * (dp_q - delta)).astype(q.dtype),
+                    k, preferred_element_type=f32) * scale
+    dk = jnp.einsum("bnqk,bnqd->bnkd", (p * (dp_k - delta)).astype(q.dtype),
+                    q, preferred_element_type=f32) * scale
+    dv = jnp.einsum("bnqk,bnqd->bnkd", pd.astype(dout.dtype), dout,
+                    preferred_element_type=f32) * dv_mult
+    return [np.asarray(x.astype(q.dtype), np.float32) for x in (dq, dk, dv)]
 
 
 def test_flash_attention_backward_rule_matches_jax_at_d256():
     """Row 13's backward rule (``flash_attention_backward_plain``, the
     oracle of its split pair) in bf16, given JAX's output and natural-log
     lse, against jax.vjp of ``_flash_attention`` (its dq and dk/dv kernels
-    in interpret mode) at rate 0."""
+    in interpret mode) at rate 0; and :func:`jax_order_head_split_backward`
+    against the same kernels."""
     jx, _, bias = bf16_inputs(seed=258)
     hx = [heads(x) for x in jx]
     bq = min(jax_attention._FLASH_BQ, -(-S // 128) * 128)
@@ -238,6 +312,35 @@ def test_flash_attention_backward_rule_matches_jax_at_d256():
     lse = torch.from_numpy(np.array(jlse, np.float32)[:, :, 0, :S])
     got = A.flash_attention_backward_plain(tq, tk, tv, torch.from_numpy(bias),
                                            tout, lse, tdo)
+    copy = jax_order_head_split_backward(
+        *hx[:3], jnp.asarray(bias), jout, jnp.asarray(lse.numpy()), hx[3],
+        None, 0.0)
+    for name, g, c, r in zip(("dq", "dk", "dv"), got, copy, ref):
+        assert g.dtype == torch.bfloat16, name
+        assert_bf16_close(g.float().numpy(), r, name)
+        assert_bf16_close(c, r, f"{name}: JAX's order against its kernels")
+
+
+def test_flash_attention_backward_rule_dropout_order_at_d256():
+    """Row 13's backward rule in bf16 at rate 26/256 against
+    :func:`jax_order_head_split_backward` on the same exported keep mask,
+    both given the rule's forward output (bf16) and natural-log lse."""
+    rate = 26 / 256
+    jx, tx, bias = bf16_inputs(seed=260)
+    keep = keep_mask_plain(41, rate, B, HEADS, S)
+    tq, tk, tv, tdo = (x.reshape(B, S, HEADS, D).transpose(1, 2)
+                       for x in tx)
+    tbias = torch.from_numpy(bias)
+    out, lse = A.flash_attention_plain(
+        *(x.float() for x in (tq, tk, tv)), tbias, rate, keep, with_lse=True)
+    out = out.to(torch.bfloat16)
+    got = A.flash_attention_backward_plain(tq, tk, tv, tbias, out, lse, tdo,
+                                           rate, keep)
+    ref = jax_order_head_split_backward(
+        *(heads(x) for x in jx[:3]), jnp.asarray(bias),
+        jnp.asarray(out.float().numpy(), jnp.bfloat16),
+        jnp.asarray(lse.numpy()), heads(jx[3]), jnp.asarray(keep.numpy()),
+        rate)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == torch.bfloat16, name
         assert_bf16_close(g.float().numpy(), r, name)
