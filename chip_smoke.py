@@ -1568,7 +1568,9 @@ def time_flash_backwards():
     pair (row 13), each backward from its own training forward's output and
     lse at that rate; at head dim 32 ([32, 1024, 64], rate 0) flash2's
     training forward, fused and split backwards and row 13's forward and
-    pair; flash2's split backward at [2, 4096, 1024] (the long-S step's
+    pair; at head dim 16 ([32, 1024, 128], rate 0) flash2's fused and split
+    backwards; SDPA's backward at head dims 64, 32 and 16 at those shapes;
+    flash2's split backward at [2, 4096, 1024] (the long-S step's
     route) at 16 heads of 64, and at [2, 4096, H] at the wide head dims
     (``WIDE_HEAD_DIM_CASES``) beside SDPA's backward; and the joint embed
     (row 2) at [96, 40+40, 1024] and [96, 40+40, 64], D = 47.  It calls only entry points that
@@ -1625,6 +1627,25 @@ def time_flash_backwards():
     times["row 13 d32 rate 0"] = cuda_ms(
         lambda: A.flash_attention_backward(q32h, k32h, v32h, bias, out, lse_h,
                                            do32h, 7, 0.0), iters=10)
+    # both flash2 backwards at head dim 16 ([32, 1024, 128], 8 heads), and
+    # SDPA's backward at head dims 64, 32 and 16 beside them
+    q16, k16, v16, do16 = (x[..., :128].contiguous() for x in (q, k, v, dout))
+    _, lse, out32 = F2._forward_kernel(q16, k16, v16, bias, 8, 7, 0, True)
+    for fused in (True, False):
+        times[f"flash2 {'fused' if fused else 'split'} d16 rate 0"] = \
+            cuda_ms(lambda: F2.flash_attention2_backward(
+                q16, k16, v16, bias, out32, lse, do16, 8, 7, 0.0,
+                fused=fused), iters=10)
+    mask = bias[:, None, None, :].to(torch.bfloat16)
+    for d, xs in ((64, (q, k, v, dout)), (32, (q32, k32, v32, do32)),
+                  (16, (q16, k16, v16, do16))):
+        qq, kk, vv = (x.detach().requires_grad_() for x in xs[:3])
+        split = lambda x: x.view(b, s, -1, d).transpose(1, 2)  # noqa: E731
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            split(qq), split(kk), split(vv), attn_mask=mask)
+        times[f"sdpa bwd d{d}"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qq, kk, vv), split(xs[3]), retain_graph=True), iters=10)
+        del qq, kk, vv, lib_out
     # row 12 where the long-S step takes it: [2, 4096, 1024], rate 0
     gl = torch.Generator(device="cuda").manual_seed(1)
     ql, kl, vl, dol = (torch.randn(2, 4096, h, device="cuda", generator=gl)
@@ -1739,22 +1760,26 @@ def time_flash_at_head_dims():
 WIDE_FRAME_STEPS = 3
 
 
-def wide_heads_frame_step_ms(flash2=True):
+def frame_step_ms(model=None, flash2=True):
     """ms/step of WIDE_FRAME_STEPS bf16 frame-level train steps (B =
     FRAME_BATCH, Lp = FRAME_PAIR_LEN: the joint pass [32, 1024] on flash2,
     fused backward; with ``flash2`` False under ``USE_FLASH2 = False``, on
-    the head-split flash attention and its split pair) of bert-large's
-    widths at 4 heads of 256 (``WIDE_HEADS``, 24 layers) after a warm-up
-    step, as phase_wide_heads trains it (host clock around synchronised
-    steps), and the losses: entry points every tree of the port has had
-    since head dim 256 came in, for ``--flash-times ROOT``."""
+    the head-split flash attention and its split pair) of ``model``:
+    bert-large's widths at 4 heads of 256 (``WIDE_HEADS``, 24 layers; the
+    default), as
+    phase_wide_heads trains it, or bert-large itself (16 heads of 64, as
+    phase_frame_training trains it), after a warm-up step (host clock
+    around synchronised steps), and the losses: entry points every tree of
+    the port has had since head dim 256 came in, for ``--flash-times
+    ROOT``."""
     import torch
 
     from msa_tpu_torch.data import MultimodalDataset, synthetic_split
     from msa_tpu_torch.ops import attention as A
     from msa_tpu_torch.training.trainer import Trainer
 
-    exp = frame_experiment(FRAME_PAIR_LEN, None, WIDE_HEADS,
+    model = model or WIDE_HEADS
+    exp = frame_experiment(FRAME_PAIR_LEN, None, model,
                            train_batch_size=FRAME_BATCH,
                            compute_dtype="bfloat16", warmup_proportion=0.01,
                            adam_mu_dtype="bfloat16", adam_nu_dtype="bfloat16",
@@ -1784,7 +1809,8 @@ def wide_heads_frame_step_ms(flash2=True):
     ms = (time.perf_counter() - t0) * 1e3 / WIDE_FRAME_STEPS
     losses += [float(m["loss"]) for m in metrics]
     switch = "" if flash2 else " (USE_FLASH2 = False)"
-    print(f"wide heads frame step{switch}: {WIDE_HEADS} frame-level training "
+    label = "wide heads" if model == WIDE_HEADS else model.split("-uncased")[0]
+    print(f"{label} frame step{switch}: {model} frame-level training "
           f"bf16 B={FRAME_BATCH} L={TEXT_LEN} Lp={FRAME_PAIR_LEN}: {ms:.2f} "
           f"ms/step over {WIDE_FRAME_STEPS} steps after 1; losses "
           f"{[round(x, 5) for x in losses]}", flush=True)
@@ -1794,15 +1820,17 @@ def wide_heads_frame_step_ms(flash2=True):
 def time_flash_path():
     """``--flash-times ROOT``: the flash kernels and the joint embed
     (:func:`time_flash_backwards`), bf16 flash at head dims 128, 256 and
-    192 (:func:`time_flash_at_head_dims`) and the frame-level step at 4
-    heads of 256, on flash2 and under ``USE_FLASH2 = False``
-    (:func:`wide_heads_frame_step_ms`) of the tree on sys.path, whose
-    kernels build into its own build/."""
+    192 (:func:`time_flash_at_head_dims`), the frame-level step at 4
+    heads of 256, on flash2 and under ``USE_FLASH2 = False``, and
+    bert-large's (16 heads of 64, 24 fused sweeps a step) on flash2
+    (:func:`frame_step_ms`) of the tree on sys.path, whose kernels build
+    into its own build/."""
     times = time_flash_backwards()
     times.update(time_flash_at_head_dims())
-    times["wide heads frame step"] = wide_heads_frame_step_ms()[0]
+    times["wide heads frame step"] = frame_step_ms()[0]
     times["wide heads frame step (USE_FLASH2 = False)"] = \
-        wide_heads_frame_step_ms(flash2=False)[0]
+        frame_step_ms(flash2=False)[0]
+    times["bert-large frame step"] = frame_step_ms("bert-large-uncased")[0]
     return times
 
 
@@ -6230,8 +6258,9 @@ def report_tc_resources(usage):
                                  "keeps a stack frame")
 
 
-# The redesigned kernels of rows 2 and 11 (the joint embed's
-# tiles, flash2's bf16 fused sweep and its delta pre-pass): none may spill
+# The redesigned kernels of rows 2 and 11 (the joint embed's tiles,
+# flash2's bf16 fused sweep up to head dim 32 and its delta pre-pass; the
+# sweep from 64 on is a warpgroup kernel, report_wgmma's): none may spill
 # or keep a stack frame.  Their threads a CTA, the fused sweep's dynamic
 # shared memory by head dim (csrc/flash_kernels.cuh::fused_tc_smem_bytes)
 # and the H100's registers and shared memory per SM, for the CTAs an SM
@@ -6240,7 +6269,7 @@ REDESIGNED = re.compile(r"(fused_joint_embed_kernel|flash2_bwd_fused_kernel|"
                         r"flash2_bwd_prep_kernel)I")
 REDESIGNED_THREADS = {"fused_joint_embed_kernel": 256,
                       "flash2_bwd_fused_kernel": 128, "flash2_bwd_prep_kernel": 256}
-FUSED_TC_SMEM = {128: 114688, 64: 93184, 32: 60416, 16: 44032}
+FUSED_TC_SMEM = {32: 60416, 16: 44032}
 SM_REGISTERS, SM_SMEM, SM_SMEM_PER_CTA = 65536, 233472, 1024
 
 
@@ -6267,8 +6296,7 @@ def report_redesigned(usage):
     redesigned kernels, with the CTAs an SM holds by registers (and, for
     the fused sweep, by shared memory); fail on a spill or a stack frame."""
     found = [u for u in usage if REDESIGNED.search(u["kernel"])]
-    for name in ("fused_joint_embed_kernel", "flash2_bwd_fused_kernel",
-                 "flash2_bwd_prep_kernel"):
+    for name in REDESIGNED_THREADS:
         if not any(name in u["kernel"] for u in found):
             raise AssertionError(f"ptxas reported no {name}")
     for u in found:
@@ -6298,11 +6326,21 @@ def report_redesigned(usage):
 # flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel (up to 128),
 # flash_bwd_dkv_role_wg_kernel (the dk/dv launch at 256), each <head dim,
 # head split, dropout[, training form]>, and flash2_bwd_fused_wg_kernel
-# <head dim, dropout> (flash2's fused backward at 256)): none may spill,
-# keep a stack frame or have its wgmma products serialised by ptxas.
+# <head dim, dropout> (flash2's fused backward, bf16, at every head dim of
+# FUSED_HEAD_DIMS; below them flash2_bwd_fused_kernel, report_redesigned's)):
+# none may have its wgmma products serialised by ptxas, and none may spill
+# or keep a stack frame at a head dim of NO_SPILL_HEAD_DIMS
+# (WIDE_FLASH_KERNELS at 256 too).
 WGMMA = re.compile(r"(flash_fwd_wg_kernel|flash_fwd_wg_overlap_kernel|"
                    r"flash_bwd_dq_wg_kernel|flash_bwd_dkv_wg_kernel|"
                    r"flash_bwd_dkv_role_wg_kernel|flash2_bwd_fused_wg_kernel)I")
+FUSED_HEAD_DIMS = (64, 128, 256)
+# The fused warpgroup sweep's choices at 64 and 128 (flash_kernels.cuh::
+# kNarrowFusedKeyGroups, kNarrowFusedStages, kFusedTmaDq): warpgroups a
+# CTA, each on 64 keys; ring stages; dQ staged as a [64 x d] f32 tile for
+# the bulk tensor reductions.  At 256 one CTA of two warpgroups on 64 keys,
+# dQ by atomics.
+FUSED_KEY_GROUPS, FUSED_STAGES, FUSED_TMA_DQ = 2, 2, True
 
 
 def wgmma_launch(name, args):
@@ -6315,8 +6353,14 @@ def wgmma_launch(name, args):
         # 128 query rows, two 64-key stages
         return 256, 1024 + (128 + 4 * 64) * row + 2 * 64 * 4
     if name == "flash2_bwd_fused_wg_kernel":
-        # 64 keys, two 64-query stages, the dS^T tile, lse and delta
-        return 256, 1024 + (2 * 64 + 4 * 64) * row + 64 * 128 + 4 * 64 * 4
+        # K and V, the 64-query ring stages of q and dO, the dS^T tile, the
+        # staged dQ tile, the stages' lse and delta
+        d = int(args[0])
+        groups, stages, tma = ((1, 2, False) if d == 256 else (
+            FUSED_KEY_GROUPS, FUSED_STAGES, FUSED_TMA_DQ))
+        return 256 if d == 256 else 128 * groups, (
+            1024 + (2 * 64 * groups + 2 * stages * 64) * row + 64 * groups * 128
+            + tma * 64 * d * 4 + 2 * stages * 64 * 4)
     if name == "flash_bwd_dq_wg_kernel":
         if args[0] == "256":  # 64 query rows, one stage of 32 keys
             return 128, 1024 + (2 * 64 + 2 * 32) * row + 32 * 4 + 64 * 4
@@ -6331,10 +6375,18 @@ def wgmma_launch(name, args):
 def report_wgmma(usage):
     """Print ptxas's registers, shared memory, spills and wgmma notices for
     each instantiation of the warpgroup kernels, with the CTAs an SM holds
-    by registers and by shared memory; fail on a serialisation notice, and
+    by registers and by shared memory; fail if flash2.cu lacks the fused
+    sweep at a head dim of FUSED_HEAD_DIMS, on a serialisation notice, and
     on a spill or a stack frame at a head dim of NO_SPILL_HEAD_DIMS or, for
     WIDE_FLASH_KERNELS, at 256."""
     found = [u for u in usage if WGMMA.search(u["kernel"])]
+    fused_at = {int(template_args(u["kernel"], WGMMA.search(u["kernel"]))[0])
+                for u in found if u["source"] == "flash2.cu"
+                and "flash2_bwd_fused_wg_kernelI" in u["kernel"]}
+    if fused_at != set(FUSED_HEAD_DIMS):
+        raise AssertionError(f"ptxas reported flash2_bwd_fused_wg_kernel at "
+                             f"head dims {sorted(fused_at)}, not "
+                             f"{list(FUSED_HEAD_DIMS)}")
     both = ("flash2.cu", "flash_attention.cu")
     for name, sources in (
             ("flash_fwd_wg_kernel", both), ("flash_fwd_wg_overlap_kernel", both),

@@ -21,10 +21,11 @@
 // byte at which the tensor cores rather than memory are the limit.  The
 // split backward recomputes S and dP in both of its launches: 7 tile
 // products where the fused route does 5.  So the bf16 products run on the
-// tensor cores, and the forward and split backward on Hopper's warpgroup
-// products (wgmma, wgmma_tiles.cuh), which read B (and A where it is a
-// staged tile) straight from shared memory: the ldmatrix fragment traffic
-// that bound the mma.sync form of these kernels is gone.
+// tensor cores, the forward and both backwards on Hopper's warpgroup
+// products (wgmma, wgmma_tiles.cuh; the fused backward from head dim 64),
+// which read B (and A where it is a staged tile) straight from shared
+// memory: the ldmatrix fragment traffic that bound the mma.sync form of
+// these kernels is gone.
 //
 //   * forward (rows 10, 13): one CTA of two warpgroups per 128 query rows
 //     of a (head, batch row), looping over key tiles of 64 in a two-stage
@@ -55,20 +56,21 @@
 //     shared memory, in f32) and dK;
 //   * fused backward, bf16 (row 11, flash-attention-2's backward): a
 //     pre-pass launch takes delta = rowsum(dO o) once per row and zeroes a
-//     [B, S, H] f32 dq scratch; then one CTA of 4 warps (32 keys each, on
-//     mma.sync) per (128-key block, head, batch row) loops over query tiles
-//     of 64 in a two-stage cp.async ring.  Per tile it recomputes s, p =
-//     exp2(s - lse) and the dropout mask once and feeds all three gradients
-//     from them: dV and dK accumulate in registers, dS^T goes through
-//     shared memory (bf16) to give dQ over the block's 128 keys, added by
-//     16-byte f32 vector atomics into the scratch, which the wrapper casts
-//     (flash_kernels.cuh says more).  At head dim 256, where a warp's dK
-//     and dV rows alone would fill its registers, the sweep is
-//     flash2_bwd_fused_wg_kernel on wgmma: 64-key CTAs of two warpgroups,
-//     each holding half the columns of dK and dV, dQ from the shared dS^T
-//     tile in products of 64 columns.  Atomics change the summation order
-//     from run to run: dq agrees with a fixed order to f32 rounding of its
-//     partial sums.
+//     [B, S, H] f32 dq scratch; then one sweep per (block of keys, head,
+//     batch row) over query tiles of 64 in a cp.async ring recomputes S^T
+//     = K Q^T, p = exp2(s - lse) and the dropout mask once and feeds all
+//     three gradients from them: dV += P^T dO and dK += dS^T Q from
+//     registers, dS^T through a shared tile (bf16) into dQ = dS K, summed
+//     into the scratch, which the wrapper casts (flash_kernels.cuh says
+//     more): 5 products a tile, where the split pair takes 7.  From head
+//     dim 64 the sweep is flash2_bwd_fused_wg_kernel on wgmma (two
+//     warpgroups of 64 keys a CTA at 64 and 128, dQ reduced into the
+//     scratch by the tensor memory accelerator; at 256 two on 64 keys,
+//     each holding half the columns of dK and dV, dQ by atomics); at 16 and
+//     32, where it measured faster, flash2_bwd_fused_kernel on mma.sync
+//     (4 warps of 32 keys, dQ by atomics).  The reductions change the
+//     summation order from run to run: dq agrees with a fixed order to f32
+//     rounding of its partial sums.
 //
 // f32 inputs (the tests and the f32 checks) run the earlier design on the
 // CUDA cores in full f32 (SimtF32: 64-row blocks of 4 warps; the fused

@@ -20,22 +20,24 @@
 // replaces exp); the head-split kernels convert their lse at the store
 // and the load.  The families, by dtype and route:
 //
-//   * bf16 forward (rows 10, 13) and split backward (rows 12, 13) at
-//     every head dim: warpgroup kernels on Hopper's wgmma
-//     (wgmma_tiles.cuh), flash_fwd_wg_kernel, flash_bwd_dq_wg_kernel and
-//     flash_bwd_dkv_wg_kernel below: 64-row warpgroup tiles whose operands
-//     wgmma reads from swizzled shared memory, probabilities and dS kept
-//     in the accumulator registers as the next product's A operand.  At
-//     head dim 256 under dropout the forward is flash_fwd_wg_overlap_kernel
-//     (kFwdOverlap), which issues the next key tile's scores before this
-//     tile's P V product; the dq launch there is one warpgroup holding dQ
-//     [64 x 256] f32 over 32-key tiles at two CTAs an SM, and the dk/dv
-//     launch flash_bwd_dkv_role_wg_kernel, two warpgroups split by role
-//     (S^T, p and dV; dP^T, dS and dK);
-//   * bf16 fused backward (row 11): flash2_bwd_fused_kernel, mma.sync
-//     warp tiles of 32 keys (mma_tiles.cuh) behind a delta pre-pass, up to
-//     head dim 128; at 256 flash2_bwd_fused_wg_kernel, two warpgroups a
-//     64-key CTA on wgmma, each holding half the columns of dK and dV;
+//   * bf16 forward (rows 10, 13) and split backward (rows 12, 13) at every
+//     head dim, and fused backward (row 11) from head dim 64: warpgroup
+//     kernels on Hopper's wgmma (wgmma_tiles.cuh), flash_fwd_wg_kernel,
+//     flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel and, behind a delta
+//     pre-pass, flash2_bwd_fused_wg_kernel below: 64-row warpgroup tiles
+//     whose operands wgmma reads from swizzled shared memory, probabilities
+//     and dS kept in the accumulator registers as the next product's A
+//     operand.  At head dim 256 under dropout the forward is
+//     flash_fwd_wg_overlap_kernel (kFwdOverlap), which issues the next key
+//     tile's scores before this tile's P V product; the dq launch there is
+//     one warpgroup holding dQ [64 x 256] f32 over 32-key tiles at two CTAs
+//     an SM, the dk/dv launch flash_bwd_dkv_role_wg_kernel, two warpgroups
+//     split by role (S^T, p and dV; dP^T, dS and dK), and the fused sweep's
+//     two warpgroups share a CTA's 64 keys, each holding half the columns
+//     of dK and dV;
+//   * bf16 fused backward (row 11) at head dims 16 and 32:
+//     flash2_bwd_fused_kernel, mma.sync warp tiles of 32 keys
+//     (mma_tiles.cuh) behind the same pre-pass;
 //   * f32 (the tests and the f32 checks): flash_fwd_kernel,
 //     flash_bwd_dq_kernel and flash_bwd_dkv_kernel (split and fused) with
 //     the tile products on the CUDA cores (SimtF32), 64-row blocks of 4
@@ -48,6 +50,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -179,9 +182,8 @@ struct SimtF32 {
 // and dV (2 x [64 x kD] f32: kD registers a thread).  Above it (head dim
 // 256) the backwards split that work over two warpgroups, and the dq
 // launch's dQ [64 x 256] f32 (128 registers) leaves one warpgroup a CTA:
-// the fused backward runs flash2_bwd_fused_kernel up to this and
-// flash2_bwd_fused_wg_kernel above; the split pair's tile choices change
-// above it (kDqGroups, kDkvCols, kDkvByRole).
+// the tile choices of the fused sweep (kFusedColGroups) and of the split
+// pair (kDqGroups, kDkvCols, kDkvByRole) change above it.
 constexpr int kMaxWholeDkvHeadDim = 128;
 // f32's staged tiles fit in shared memory up to this head dim; above it f32
 // is refused here (the Python wrappers run it on the short-attention
@@ -611,7 +613,7 @@ flash_bwd_dq_kernel(const typename P::T* __restrict__ q, const typename P::T* __
 // dk/dv: the split backward's second launch (rows 12 and 13, kFused =
 // false, delta from the dq launch) and flash2's fused single-sweep backward
 // in f32 (row 11, kFused = true: delta per query tile, dq by f32 atomics;
-// bf16 takes flash2_bwd_fused_kernel below)
+// bf16 takes flash2_bwd_fused_kernel or flash2_bwd_fused_wg_kernel below)
 // ---------------------------------------------------------------------------
 
 template <class P, bool kFused>
@@ -768,52 +770,17 @@ flash_bwd_dkv_kernel(const typename P::T* __restrict__ q, const typename P::T* _
 }
 
 // ---------------------------------------------------------------------------
-// The fused backward in bf16 (row 11): flash-attention-2's backward on this
-// card, a pre-pass launch and one sweep
+// The fused backward's pre-pass (row 11, both dtypes)
 // ---------------------------------------------------------------------------
 //
-// The pre-pass (flash2_bwd_prep_kernel) takes delta = rowsum(dO o32) from
-// the unscaled dO once per row ([B, heads, S] f32) and zeroes the f32 dq
-// scratch; the sweep (flash2_bwd_fused_kernel) then runs one CTA of 4 warps
-// per 128 keys of a (head, batch row), each warp 32 keys (two 16-key mma
-// tiles), over query tiles of 64 that a two-stage cp.async ring brings in
-// (q, dO, and the tile's lse and delta) while the tile before is computed.
-// A warp takes each tile in two halves of 32 queries, so its score tiles
-// are 2 x [16 x 32]: S^T and dP^T by mma.sync (each q and dO fragment
-// loaded once for both key tiles: half the shared-memory reads per product
-// of 16-key warps, which ran 1.77 ms against 1.44 at [32,1024,1024]), p and
-// dS in registers, dV += P^T dO and dK += dS^T Q, and dS^T (bf16) into a
-// [128 keys][64 queries] shared tile.  After a barrier each warp takes
-// dQ[16 queries x d] = dS K over the block's 128 keys and adds it to the
-// f32 scratch by 16-byte vector atomics (lane pairs swap halves so that
-// each lane holds 4 consecutive columns of one row): one partial sum per
-// 128 keys, half the old kernel's count, in a quarter of its atomic
-// operations.  The wrapper casts the scratch (the last CTA of a head
-// casting it in the sweep ran 0.17 ms slower).  ~250 registers a thread,
-// 2 CTAs an SM.  At head dim 128 a warp's dK and dV rows would double
-// that: there a warp takes one 16-key tile and a CTA 64 keys (the
-// accumulator registers of two tiles at 64).
+// flash2_bwd_prep_kernel takes delta = rowsum(dO o32) from the unscaled dO
+// once per row ([B, heads, S] f32) and zeroes the f32 dq scratch that the
+// sweep then sums into (bf16: flash2_bwd_fused_kernel up to
+// kFusedMmaMaxDim, flash2_bwd_fused_wg_kernel above; f32:
+// flash_bwd_dkv_kernel<SimtF32, ..., kFused = true>, which takes its own
+// delta per tile and reads only the zeroed scratch).
 
-template <int kD>
-inline constexpr int kFM = kD == 128 ? 1 : 2;  // 16-key mma tiles a warp
-template <int kD>
-inline constexpr int kFKeys = 64 * kFM<kD>;    // keys of a fused CTA
-constexpr int kFThreads = 128;                 // 4 warps
-constexpr int kFQ = 64;                        // queries of a ring tile
-constexpr int kFTStride = kFQ + 8;             // dS^T rows: 144 bytes, conflict-free
 constexpr int kPrepThreads = 256;
-static_assert(kFThreads == 2 * kFQ, "the dQ step: a warp per 16 queries");
-static_assert(kFThreads == 32 * kFKeys<64> / (16 * kFM<64>) &&
-                  kFThreads == 32 * kFKeys<128> / (16 * kFM<128>),
-              "a warp per 16 kFM keys");
-
-template <int kD>
-constexpr int fused_tc_smem_bytes() {
-  // K and V blocks, two ring stages of q and dO, the dS^T tile, two stages
-  // of lse and delta
-  return (2 * kFKeys<kD> + 4 * kFQ) * tc::kStride<kD> * 2 + kFKeys<kD> * kFTStride * 2 +
-         4 * kFQ * 4;
-}
 
 // Eight consecutive values as f32.
 __device__ __forceinline__ void load8(const float* p, float* x) {
@@ -865,8 +832,42 @@ flash2_bwd_prep_kernel(const float* __restrict__ o32, const T* __restrict__ dout
   }
 }
 
-// c[m] = a[m0 + 16 m .. +16) . b[0 .. 8kN)^T over kD columns, m < kM: the b
-// fragments loaded once for the kM row tiles.
+// ---------------------------------------------------------------------------
+// The fused sweep in bf16 up to kFusedMmaMaxDim (row 11 at head dims 16 and
+// 32, and the head dims padded onto them)
+// ---------------------------------------------------------------------------
+//
+// flash2_bwd_fused_kernel runs one CTA of 4 warps per 128 keys of a (head,
+// batch row), each warp 32 keys (two 16-key mma.sync tiles,
+// mma_tiles.cuh), over query tiles of 64 that a two-stage cp.async ring
+// brings in (q, dO, and the tile's lse and delta) while the tile before is
+// computed.  A warp takes each tile in two halves of 32 queries, so its
+// score tiles are 2 x [16 x 32]: S^T and dP^T (each q and dO fragment
+// loaded once for both key tiles), p and dS in registers, dV += P^T dO and
+// dK += dS^T Q, and dS^T (bf16) into a [128 keys][64 queries] shared tile.
+// After a barrier each warp takes dQ[16 queries x d] = dS K over the
+// block's 128 keys and adds it to the f32 scratch by 16-byte vector
+// atomics (lane pairs swap halves so that each lane holds 4 consecutive
+// columns of one row).  At these head dims a tile's products are one or two
+// k-steps deep, and the warpgroup sweep below, whose warpgroups wait on
+// their products and barriers in step, measured slower than these eight
+// independent warps an SM (PERF.md §6), so they keep this form.
+constexpr int kFusedMmaMaxDim = 32;
+constexpr int kFM = 2;                // 16-key mma tiles a warp
+constexpr int kFKeys = 64 * kFM;      // keys of a CTA
+constexpr int kFThreads = 128;        // 4 warps
+constexpr int kFQ = 64;               // queries of a ring tile
+constexpr int kFTStride = kFQ + 8;    // dS^T rows: 144 bytes, conflict-free
+static_assert(kFThreads == 2 * kFQ, "the dQ step: a warp per 16 queries");
+static_assert(kFThreads == 32 * kFKeys / (16 * kFM), "a warp per 16 kFM keys");
+
+template <int kD>
+constexpr int fused_tc_smem_bytes() {
+  // K and V blocks, two ring stages of q and dO, the dS^T tile, two stages
+  // of lse and delta
+  return (2 * kFKeys + 4 * kFQ) * tc::kStride<kD> * 2 + kFKeys * kFTStride * 2 + 4 * kFQ * 4;
+}
+
 template <int kD, int kM, int kN>
 __device__ __forceinline__ void mma_nt_m(const __nv_bfloat16* a, int m0,
                                          const __nv_bfloat16* b, float (&c)[kM][kN][4]) {
@@ -934,8 +935,9 @@ flash2_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                         int seq, int hidden, float score_mult, float scale, Dropout drop) {
   using T = __nv_bfloat16;
-  constexpr int kM = kFM<kD>;
-  constexpr int kKeys = kFKeys<kD>;
+  static_assert(kD <= kFusedMmaMaxDim, "the warpgroup sweep takes the wider head dims");
+  constexpr int kM = kFM;
+  constexpr int kKeys = kFKeys;
   constexpr int ld = tc::kStride<kD>;
   constexpr int kStage = kFQ * ld;         // elements of a ring tile
   constexpr int kChunks = kD / 8;          // 16-byte chunks of a head row
@@ -2152,38 +2154,103 @@ flash_bwd_dkv_role_wg_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// flash2's fused backward in bf16 above kMaxWholeDkvHeadDim (row 11 at head
-// dim 256), behind flash2_bwd_prep_kernel's delta and zeroed dq32, as
-// flash2_bwd_fused_kernel: one CTA of two warpgroups per (64 keys, head,
-// batch row) over 64-query tiles of q, dO, lse and delta in a two-stage
-// cp.async ring.  At 256 a warpgroup cannot hold dK and dV for its 64 keys
-// (256 registers a thread), so warpgroup w holds their columns [128 w,
-// 128 w + 128) and forms S^T = K Q^T and dP^T = V dO^T whole for itself,
-// as the tiled short backward's dk/dv launch does (short_bwd_tiled.cuh):
-// those products over all 256 columns are done twice.  Per tile each
-// warpgroup then takes p, the dropout keep bits and dS^T in registers, dV
-// += P^T dO and dK += dS^T Q on its columns (P^T and dS^T as register A
-// fragments, rounded to bf16 as JAX rounds them), and writes half of dS^T
-// (bf16, the same rounding) into a [64 keys x 64 queries] swizzled tile;
-// after a barrier it takes dQ = dS K over the block's keys for its 128
-// columns in two products of 64 (dS from that tile as an MN-major A
-// operand, K's columns as B), each added to dq32 by 16-byte atomics as it
-// lands, so that dQ never sits beside S^T and dP^T in the registers.
-// Under dropout dO is folded by 1 / (1 - rate) as it lands (delta took it
-// unscaled) and the kept p is unscaled, as flash2_bwd_fused_kernel's.
-constexpr int kFusedWgGroups = 2, kFusedWgKeys = 64, kFusedWgQueries = 64;
-constexpr int kFusedWgDqCols = 64;  // the columns of one dQ product
+// flash2's fused backward in bf16 above kFusedMmaMaxDim (row 11 at head
+// dims 64, 128 and 256), behind flash2_bwd_prep_kernel's delta and zeroed
+// dq32: one CTA per (block of keys, head, batch row) over 64-query tiles of
+// q, dO, lse and delta in a cp.async ring.  Per tile a warpgroup forms S^T
+// = K Q^T and dP^T = V dO^T for its 64 keys once, takes p = exp2(s - lse),
+// the dropout keep bits and dS^T = p (dP - delta) in registers, then dV +=
+// P^T dO and dK += dS^T Q with P^T and dS^T as register A fragments
+// (rounded to bf16 as JAX rounds them), and writes dS^T (bf16, the same
+// rounding) into a [keys x 64 queries] swizzled tile; after a barrier it
+// takes its columns of dQ = dS K over the CTA's keys (dS from that tile as
+// an MN-major A operand, K's rows as B), waiting for dV and dK to land
+// first so that dQ's accumulator never sits beside S^T, dP^T and their
+// fragments in the registers: 5 products a tile.  The warpgroups of a CTA:
+//   * up to kMaxWholeDkvHeadDim (64 and 128) kFusedKeyGroups = 2, each
+//     holding dK and dV for its own 64 keys (kD registers a thread) and
+//     half of dQ's columns over the CTA's 128 keys (a column offset inside
+//     a swizzle atom at 64: wgmma_tiles.cuh::desc_mn);
+//   * above it (256) two on the CTA's 64 keys, warpgroup w holding their
+//     columns [128 w, 128 w + 128) of dK, dV and dQ (kFusedColGroups) and
+//     forming S^T and dP^T whole for itself, as the tiled short backward's
+//     dk/dv launch does (short_bwd_tiled.cuh); each writes half of dS^T's
+//     queries and takes its dQ 64 columns a product.
+// What binds the sweep is dQ's way into dq32: one f32 [64 x kD] tile a
+// query tile and CTA, reduced in L2 (1 GB of them at [32, 1024, 1024] and
+// 128 keys a CTA).  As 16-byte vector atomics from the warpgroups they
+// held each warpgroup until issued (0.32 of a 1.25 ms sweep at head dim
+// 64 on the H100, PERF.md §6).  So up to kMaxWholeDkvHeadDim (kFusedTmaDq)
+// the warpgroups stage the CTA's dQ tile in shared memory, and one thread
+// hands it to the tensor memory accelerator as bulk tensor reductions
+// (cp.reduce.async.bulk.tensor: dq32 as a 3-D tensor map whose box is one
+// head's [64 rows x kFusedDqBox columns], rows past seq outside it), issued
+// after the next tile's first barrier (whose proxy fence publishes the
+// staged tile to the accelerator) and read out before the next tile's dQ
+// is staged.  The staged tile is kD / kFusedDqBox boxes in the map's
+// swizzle (128-byte: a box row's 16-byte chunk j at j ^ (row % 8); 64-byte
+// for 16 columns: j ^ (row / 2 % 4)), so a half warp's float2 stores land
+// in distinct banks (staged unswizzled, rows 256 bytes apart, the sweep ran
+// 0.07 ms slower than with atomics).  At 256 the staged tile would
+// overfill shared memory: each warpgroup adds its dQ by atomics.  Either
+// way dQ's summation order changes from run to run: dq agrees with a fixed
+// order to f32 rounding of its partial sums.  Under dropout dO is folded by
+// 1 / (1 - rate) as it lands (delta took it unscaled) and the kept p is
+// unscaled.
+constexpr int kNarrowFusedKeyGroups = 2, kNarrowFusedStages = 2;
+constexpr int kFusedQueries = 64;
+template <int kD>
+constexpr int kFusedColGroups = kD > kMaxWholeDkvHeadDim ? 2 : 1;
+template <int kD>
+constexpr int kFusedKeyGroups = kD > kMaxWholeDkvHeadDim ? 1 : kNarrowFusedKeyGroups;
+template <int kD>
+constexpr int kFusedStages = kD > kMaxWholeDkvHeadDim ? 2 : kNarrowFusedStages;
+template <int kD>
+constexpr bool kFusedTmaDq = kD <= kMaxWholeDkvHeadDim;
+template <int kD>  // dQ columns a box of the bulk tensor reductions
+constexpr int kFusedDqBox = kD < 32 ? kD : 32;
+template <int kD>  // dQ columns a warpgroup
+constexpr int kFusedDqWidth = kD / (kFusedKeyGroups<kD> * kFusedColGroups<kD>);
+template <int kD>  // dQ columns a product
+constexpr int kFusedDqCols = kD > kMaxWholeDkvHeadDim ? 64 : kFusedDqWidth<kD>;
+template <int kD>
+constexpr int kFusedThreads = wg::kGroupThreads * kFusedKeyGroups<kD> * kFusedColGroups<kD>;
 
 template <int kD>
 constexpr int fused_wg_smem_bytes() {
-  // K and V, two ring stages of q and dO, the dS^T tile, two stages of lse
-  // and delta
-  return wg::kAlign + (2 * kFusedWgKeys + 4 * kFusedWgQueries) * wg::kRowBytes<kD> +
-         kFusedWgKeys * wg::kRowBytes<kFusedWgQueries> + 4 * kFusedWgQueries * 4;
+  // K and V, the ring stages of q and dO, the dS^T tile, the staged dQ
+  // tile, the ring stages of lse and delta
+  return wg::kAlign +
+         (2 * 64 * kFusedKeyGroups<kD> + 2 * kFusedStages<kD> * kFusedQueries) * wg::kRowBytes<kD> +
+         64 * kFusedKeyGroups<kD> * wg::kRowBytes<kFusedQueries> +
+         (kFusedTmaDq<kD> ? kFusedQueries * kD * 4 : 0) + 2 * kFusedStages<kD> * kFusedQueries * 4;
+}
+
+// src, a box in shared memory laid out as tensor map `map` names, added in
+// f32 to the box at coordinates (c0, c1, c2) by the tensor memory
+// accelerator (boxes outside the tensor clipped): asynchronous, committed
+// as a bulk group by the issuing thread, which waits for the group's reads
+// of src (bulk_wait_read) before src is rewritten and for the whole group
+// (bulk_wait) before the CTA exits.  src's writes are fenced
+// (wg::fence_proxy_async) and published by a barrier first.
+__device__ __forceinline__ void bulk_reduce_tile(const CUtensorMap* map, const float* src, int c0,
+                                                 int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group [%0, {%1, %2, %3}], "
+      "[%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(tc::smem_addr(src))
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <int kD, bool kDropout>
-__global__ void __launch_bounds__(wg::kGroupThreads * kFusedWgGroups, 1)
+__global__ void __launch_bounds__(kFusedThreads<kD>, 1)
 flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -2191,29 +2258,43 @@ flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                            const float* __restrict__ delta, float* __restrict__ dq32,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                           int seq, int hidden, float score_mult, float scale, Dropout drop) {
-  constexpr int kKeys = kFusedWgKeys, kQ = kFusedWgQueries, kN = kQ / 8;
-  constexpr int kThr = wg::kGroupThreads * kFusedWgGroups;
-  constexpr int kC = kD / kFusedWgGroups;  // dK and dV columns a warpgroup
+                           int seq, int hidden, float score_mult, float scale, Dropout drop,
+                           const __grid_constant__ CUtensorMap dq_map) {
+  constexpr int kKG = kFusedKeyGroups<kD>, kCG = kFusedColGroups<kD>;
+  constexpr int kKeys = 64 * kKG, kQ = kFusedQueries, kN = kQ / 8, kStages = kFusedStages<kD>;
+  constexpr int kThr = kFusedThreads<kD>;
+  constexpr int kC = kD / kCG;                 // dK and dV columns a warpgroup
+  constexpr int kDqW = kFusedDqWidth<kD>;      // dQ columns a warpgroup
+  constexpr int kDqC = kFusedDqCols<kD>;       // dQ columns a product
+  constexpr bool kTma = kFusedTmaDq<kD>;
+  constexpr int kBox = kFusedDqBox<kD>;
   constexpr int kTile = kQ * wg::kRowBytes<kD>;
-  static_assert(kKeys == 64 && kQ == 64, "one warpgroup tile of keys; 64-query keep bits");
+  static_assert(kQ == 64, "the keep bits cover 64 queries");
+  static_assert(kKG * kCG <= 2 && kDqW % kDqC == 0 && kDqC % 8 == 0 && kStages >= 2,
+                "the fused sweep's shape");
+  static_assert(!kTma || kCG == 1, "the staged dQ tile holds every column of the CTA's dQ");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* kb_s = wg::align_smem(smem_raw);         // this CTA's keys
   unsigned char* vb_s = kb_s + kKeys * wg::kRowBytes<kD>;
-  unsigned char* q_s = vb_s + kKeys * wg::kRowBytes<kD>;  // two ring stages
-  unsigned char* do_s = q_s + 2 * kTile;                   // two ring stages
-  unsigned char* dst_s = do_s + 2 * kTile;  // dS^T [key][query], a 64-wide swizzled tile
-  float* lse_s = reinterpret_cast<float*>(dst_s + kKeys * wg::kRowBytes<kQ>);  // [2][kQ]
-  float* delta_s = lse_s + 2 * kQ;                                             // [2][kQ]
+  unsigned char* q_s = vb_s + kKeys * wg::kRowBytes<kD>;  // kStages ring stages
+  unsigned char* do_s = q_s + kStages * kTile;             // kStages ring stages
+  unsigned char* dst_s = do_s + kStages * kTile;  // dS^T [key][query], a 64-wide swizzled tile
+  // kTma: the staged dQ tile, kD / kBox boxes of [kQ][kBox] f32, swizzled
+  float* dq_s = reinterpret_cast<float*>(dst_s + kKeys * wg::kRowBytes<kQ>);
+  float* lse_s = dq_s + (kTma ? kQ * kD : 0);  // [kStages][kQ]
+  float* delta_s = lse_s + kStages * kQ;       // [kStages][kQ]
 
-  const int tid = threadIdx.x, grp_id = tid / wg::kGroupThreads;
+  const int tid = threadIdx.x, grp = tid / wg::kGroupThreads;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, c = lane & 3;
-  const int col0 = grp_id * kC;  // the warpgroup's columns of dK, dV and dQ
+  const int kg = kCG == 1 ? grp : 0;  // the warpgroup's keys [64 kg, 64 kg + 64) of the CTA's
+  const int col0 = kCG == 1 ? 0 : grp * kC;  // its columns of dK and dV
+  const int dq0 = grp * kDqW;                // its columns of dQ
+  const int a_row = 64 * kg;
   const int b = blockIdx.z, head = blockIdx.y, kb0 = blockIdx.x * kKeys;
   const size_t head_base = (size_t)b * seq * hidden + (size_t)head * kD;
   const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
-  const int key0 = kb0 + warp * 16 + g;  // this lane's keys: key0, key0 + 8
-  const uint32_t pgrp = (uint32_t)(kb0 + warp * 16) / 16u;  // the warp's Philox group
+  const int key0 = kb0 + a_row + warp * 16 + g;  // this lane's keys: key0, key0 + 8
+  const uint32_t pgrp = (uint32_t)(kb0 + a_row + warp * 16) / 16u;  // the warp's Philox group
   const int n_tiles = (seq + kQ - 1) / kQ;
 
   // q, dO rows [i0, i0 + kQ) and their lse and delta into ring stage st;
@@ -2229,6 +2310,15 @@ flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
+  // kTma: the staged dQ of the tile at query row i0 into dq32, a box of
+  // kBox columns at a time
+  auto reduce_dq = [&](int i0) {
+#pragma unroll
+    for (int x = 0; x < kD / kBox; ++x) {
+      bulk_reduce_tile(&dq_map, dq_s + x * kQ * kBox, head * kD + kBox * x, i0, b);
+    }
+  };
+
   float bias2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -2237,21 +2327,22 @@ flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
   }
   wg::stage_rows<kD>(kb_s, k, head_base, hidden, kb0, kKeys, seq, tid, kThr);
   wg::stage_rows<kD>(vb_s, v, head_base, hidden, kb0, kKeys, seq, tid, kThr);
-  load_tile(0, 0);
-  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st + 1 < kStages; ++st) {  // one commit group a stage
+    if (st < n_tiles) load_tile(st, st * kQ);
+    cp_async_commit();
+  }
 
   Frag<kC / 8> dk_acc, dv_acc;
   dk_acc.zero();
   dv_acc.zero();
   for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1, i0 = t * kQ;
-    if (t + 1 < n_tiles) {  // tile t + 1 lands while tile t is computed
-      load_tile(st ^ 1, i0 + kQ);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int st = t % kStages, i0 = t * kQ;
+    // tile t + kStages - 1 lands while tile t is computed (into the stage
+    // that tile t - 1 left, after the last tile's closing barrier)
+    if (t + kStages - 1 < n_tiles) load_tile((t + kStages - 1) % kStages, i0 + (kStages - 1) * kQ);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
     const unsigned char* qt = q_s + st * kTile;
     unsigned char* dot = do_s + st * kTile;
     // fold 1 / (1 - rate) into the chunks of dO this thread copied (delta
@@ -2259,14 +2350,15 @@ flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
     if constexpr (kDropout) {
       wg::scale_own_rows<kD>(dot, kQ, fold_factor<__nv_bfloat16>(drop.scale), tid, kThr);
     }
-    wg::fence_proxy_async();
+    wg::fence_proxy_async();  // the ring's tile t, and the last tile's staged dQ
     __syncthreads();
+    if (kTma && t > 0 && tid == 0) reduce_dq(i0 - kQ);
 
-    // S^T and dP^T: rows = the block's keys, columns = the tile's queries
+    // S^T and dP^T: rows = the warpgroup's keys, columns = the tile's queries
     float st_[kN][4], dpt[kN][4];
     wg::fence();
-    wg_nt<kD, kQ>(st_, kb_s, 0, qt);
-    wg_nt<kD, kQ>(dpt, vb_s, 0, dot);
+    wg_nt<kD, kQ>(st_, kb_s, a_row, qt);
+    wg_nt<kD, kQ>(dpt, vb_s, a_row, dot);
     wg::commit();
     uint32_t mine = kFull;  // keep bits of queries lane, lane + 32 (16 keys each)
     if constexpr (kDropout) {
@@ -2297,7 +2389,7 @@ flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
             float pd = p, dpm = dpt[nn][2 * r + e];
             if constexpr (kDropout) {
               // the kept p unscaled (dO carries 1 / (1 - rate)); a product
-              // with the keep bit, as in flash_bwd_dkv_kernel
+            // with the keep bit, as in flash_bwd_dkv_kernel
               const float kept = ((bits >> (g + 8 * r)) & 1u) ? 1.f : 0.f;
               pd = p * kept;
               dpm *= kept;
@@ -2311,15 +2403,16 @@ flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
     uint32_t pa[kN / 2][4], da[kN / 2][4];  // rounded to bf16, as JAX's
     wg::to_a(dpt, pa);
     wg::to_a(st_, da);
-    // dS^T into the shared tile, warpgroup w its queries [32 w, 32 w + 32):
+    // dS^T into the shared tile, the warpgroup's key rows (above
+    // kMaxWholeDkvHeadDim warpgroup w its queries [32 w, 32 w + 32)):
     // da[kk] holds rows g, g + 8 of the warp's keys at queries 16 kk + 2 c
     // and 16 kk + 8 + 2 c
 #pragma unroll
     for (int kk = 0; kk < kN / 2; ++kk) {
-      if ((kk >> 1) != grp_id) continue;
+      if (kCG == 2 && (kk >> 1) != grp) continue;
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        const int row = warp * 16 + g + 8 * (x & 1), col = 16 * kk + 8 * (x >> 1) + 2 * c;
+        const int row = a_row + warp * 16 + g + 8 * (x & 1), col = 16 * kk + 8 * (x >> 1) + 2 * c;
         *reinterpret_cast<uint32_t*>(dst_s + wg::swz<kQ>(row, col >> 3) + (col & 7) * 2) =
             da[kk][x];
       }
@@ -2339,46 +2432,68 @@ flash2_bwd_fused_wg_kernel(const __nv_bfloat16* __restrict__ q,
     }
     wg::commit();
     wg::fence_proxy_async();  // the dS^T stores, for the dQ products
-    __syncthreads();          // dS^T is whole
+    if (kTma && tid == 0) bulk_wait_read();  // the last tile's dQ has left the staged tile
+    __syncthreads();          // dS^T is whole, the staged tile free
     // dV and dK land (their A fragments free their registers before dQ's
-    // accumulator takes some: beside both, ptxas spilled)
+    // accumulator takes some: beside both, ptxas spilled at 256)
     wg::wait<0>();
     wg::fence_operand(dv_acc.x);
     wg::fence_operand(dk_acc.x);
     wg::fence_operand(pa);
     wg::fence_operand(da);
 
-    // dQ[i0 .. i0 + 64) += dS K on the warpgroup's columns, 64 at a time
-    const bool odd = c & 1;  // odd lanes add row g + 8, even lanes row g
-    const int row = i0 + warp * 16 + g + (odd ? 8 : 0);
-    float* dst = dq32 + head_base + (size_t)row * hidden + col0 + 2 * (c & ~1);
+    // dQ[i0 .. i0 + 64) += dS K over the CTA's keys on the warpgroup's
+    // columns, kDqC a product
 #pragma unroll
-    for (int h = 0; h < kC / kFusedWgDqCols; ++h) {
-      float dqp[kFusedWgDqCols / 8][4];
+    for (int h = 0; h < kDqW / kDqC; ++h) {
+      float dqp[kDqC / 8][4];
       wg::fence();
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) {
-        wg::mma_ss<kFusedWgDqCols, 1, 1>(dqp, wg::desc_mn<kQ>(dst_s, kk),
-                                         wg::desc_mn<kD>(kb_s, kk, col0 + kFusedWgDqCols * h),
-                                         kk);
+        wg::mma_ss<kDqC, 1, 1>(dqp, wg::desc_mn<kQ>(dst_s, kk),
+                               wg::desc_mn<kD>(kb_s, kk, dq0 + kDqC * h), kk);
       }
       wg::commit();
       wg::wait<0>();
       wg::fence_operand(dqp);
+      if constexpr (kTma) {  // into the staged tile, rows g and g + 8 of the warp's
 #pragma unroll
-      for (int n = 0; n < kFusedWgDqCols / 8; ++n) {
-        // lane pairs swap halves: each lane then holds 4 consecutive columns
-        const float* x = dqp[n];
-        const float r0 = __shfl_xor_sync(kFull, odd ? x[0] : x[2], 1);
-        const float r1 = __shfl_xor_sync(kFull, odd ? x[1] : x[3], 1);
-        const float4 val = odd ? make_float4(r0 * scale, r1 * scale, x[2] * scale, x[3] * scale)
-                               : make_float4(x[0] * scale, x[1] * scale, r0 * scale, r1 * scale);
-        if (row < seq) {
-          atomicAdd(reinterpret_cast<float4*>(dst + kFusedWgDqCols * h + n * 8), val);
+        for (int n = 0; n < kDqC / 8; ++n) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + 8 * r, col = dq0 + kDqC * h + n * 8 + 2 * c;
+            const int phase = kBox == 32 ? row & 7 : (row >> 1) & 3;  // the swizzle's
+            *reinterpret_cast<float2*>(dq_s + col / kBox * kQ * kBox + row * kBox +
+                                       ((col % kBox / 4 ^ phase) << 2) + (col & 3)) =
+                make_float2(dqp[n][2 * r] * scale, dqp[n][2 * r + 1] * scale);
+          }
+        }
+      } else {
+        // lane pairs swap halves: each lane then holds 4 consecutive
+        // columns of one row, odd lanes row g + 8, even lanes row g
+        const bool odd = c & 1;
+        const int row = i0 + warp * 16 + g + (odd ? 8 : 0);
+        float* dst = dq32 + head_base + (size_t)row * hidden + dq0 + kDqC * h + 2 * (c & ~1);
+#pragma unroll
+        for (int n = 0; n < kDqC / 8; ++n) {
+          const float* x = dqp[n];
+          const float r0 = __shfl_xor_sync(kFull, odd ? x[0] : x[2], 1);
+          const float r1 = __shfl_xor_sync(kFull, odd ? x[1] : x[3], 1);
+          const float4 val = odd ? make_float4(r0 * scale, r1 * scale, x[2] * scale, x[3] * scale)
+                                 : make_float4(x[0] * scale, x[1] * scale, r0 * scale, r1 * scale);
+          if (row < seq) atomicAdd(reinterpret_cast<float4*>(dst + n * 8), val);
         }
       }
     }
-    __syncthreads();  // the ring stage and the dS^T tile are rewritten next
+    __syncthreads();  // the ring stage, the dS^T and staged dQ tiles are rewritten next
+  }
+  if constexpr (kTma) {  // the last tile's dQ
+    wg::fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      reduce_dq((n_tiles - 1) * kQ);
+      bulk_wait();
+    }
   }
   store_frag(dk, head_base + col0, hidden, key0, seq, dk_acc, scale, scale);
   store_frag(dv, head_base + col0, hidden, key0, seq, dv_acc, 1.f, 1.f);
@@ -2550,12 +2665,70 @@ int launch_split_wg(const void* q, const void* k, const void* v, const float* bi
   }
 }
 
+// The f32 dq scratch [batch, seq, hidden] as a 3-D tensor map (columns,
+// rows, batch rows) of boxes [1 x 64 x box] in the 128-byte swizzle (the
+// 64-byte one for 16 columns): the fused sweep's bulk tensor reductions'
+// destination.  cuTensorMapEncodeTiled lives in libcuda; the runtime hands
+// over its entry point (cudaGetDriverEntryPoint), so nothing links libcuda.
+inline cudaError_t dq_tensor_map(CUtensorMap* map, float* dq32, int batch, int seq, int hidden,
+                                 int box) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)hidden, (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)hidden * 4, (cuuint64_t)seq * hidden * 4};
+  const cuuint32_t boxes[3] = {(cuuint32_t)box, (cuuint32_t)kFusedQueries, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dq32, dims, strides, boxes,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              box == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The bf16 fused sweep kKernel (flash2_bwd_fused_wg_kernel at head dim
+// kD): kKeys keys and kThreads threads a CTA, kBytes of dynamic shared
+// memory; kBox > 0: dq32 reduced into through dq_tensor_map's boxes of kBox
+// columns.
+template <auto kKernel, int kBytes, int kKeys, int kThreads, int kBox>
+int launch_fused_sweep(const void* q, const void* k, const void* v, const float* bias,
+                       const void* dout, const float* lse, const float* delta, float* dq32,
+                       void* dk, void* dv, int batch, int seq, int hidden, int num_heads,
+                       float scale, Dropout drop, cudaStream_t s) {
+  using T = __nv_bfloat16;
+  static_assert(kBytes <= kMaxSmem, "the fused sweep's tiles fit one CTA's shared memory");
+  cudaError_t err = allow_smem<kKernel>(kBytes);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap map = {};
+  if constexpr (kBox > 0) {
+    err = dq_tensor_map(&map, dq32, batch, seq, hidden, kBox);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kKernel<<<dim3((seq + kKeys - 1) / kKeys, num_heads, batch), kThreads, kBytes, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
+      seq, hidden, scale * kLog2e, scale, drop, map);
+  return (int)cudaGetLastError();
+}
+
 // flash2's fused backward: the pre-pass (delta into `delta`, [B, heads, S]
-// f32, and dq32 zeroed), then the sweep: bf16 flash2_bwd_fused_kernel, or
-// above kMaxWholeDkvHeadDim flash2_bwd_fused_wg_kernel; f32
-// flash_bwd_dkv_kernel<SimtF32, ..., kFused = true> (which takes its own
-// delta per tile and leaves the pre-pass's unread), refused above
-// kMaxF32HeadDim.
+// f32, and dq32 zeroed), then the sweep: bf16 flash2_bwd_fused_kernel up to
+// kFusedMmaMaxDim, flash2_bwd_fused_wg_kernel above; f32
+// flash_bwd_dkv_kernel<SimtF32, ..., kFused = true>
+// (which takes its own delta per tile and leaves the pre-pass's unread),
+// refused above kMaxF32HeadDim.
 template <int kD, bool kDropout>
 int launch_fused(const void* q, const void* k, const void* v, const float* bias,
                  const float* o32, const void* dout, const float* lse, float* delta,
@@ -2576,35 +2749,30 @@ int launch_fused(const void* q, const void* k, const void* v, const float* bias,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  using T = __nv_bfloat16;
-  if constexpr (kD > kMaxWholeDkvHeadDim) {
-    constexpr auto kernel = flash2_bwd_fused_wg_kernel<kD, kDropout>;
-    constexpr int bytes = fused_wg_smem_bytes<kD>();
-    static_assert(bytes <= kMaxSmem, "the fused sweep's tiles fit one CTA's shared memory");
-    err = allow_smem<kernel>(bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3((seq + kFusedWgKeys - 1) / kFusedWgKeys, num_heads, batch),
-             wg::kGroupThreads * kFusedWgGroups, bytes, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-        static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
-        seq, hidden, scale * kLog2e, scale, drop);
-    return (int)cudaGetLastError();
-  } else {
+  if constexpr (kD <= kMaxF32HeadDim) {
     if (dtype == 0) {
       return launch_dkv<SimtF32<kD>, false, kDropout, true>(q, k, v, bias, o32, dout, lse,
                                                             nullptr, dq32, dk, dv, batch, seq,
                                                             hidden, num_heads, scale, drop, s);
     }
+  }
+  using T = __nv_bfloat16;
+  if constexpr (kD <= kFusedMmaMaxDim) {
     constexpr auto kernel = flash2_bwd_fused_kernel<kD, kDropout>;
     constexpr int bytes = fused_tc_smem_bytes<kD>();
     err = allow_smem<kernel>(bytes);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3((seq + kFKeys<kD> - 1) / kFKeys<kD>, num_heads, batch), kFThreads, bytes,
-             s>>>(
+    kernel<<<dim3((seq + kFKeys - 1) / kFKeys, num_heads, batch), kFThreads, bytes, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
         static_cast<const T*>(dout), lse, delta, dq32, static_cast<T*>(dk), static_cast<T*>(dv),
         seq, hidden, scale * kLog2e, scale, drop);
     return (int)cudaGetLastError();
+  } else {
+    return launch_fused_sweep<flash2_bwd_fused_wg_kernel<kD, kDropout>, fused_wg_smem_bytes<kD>(),
+                              64 * kFusedKeyGroups<kD>, kFusedThreads<kD>,
+                              kFusedTmaDq<kD> ? kFusedDqBox<kD> : 0>(
+        q, k, v, bias, dout, lse, delta, dq32, dk, dv, batch, seq, hidden, num_heads, scale, drop,
+        s);
   }
 }
 

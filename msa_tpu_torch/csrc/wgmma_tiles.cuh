@@ -1,7 +1,7 @@
 // Warpgroup tensor-core tiles (Hopper's wgmma) for a head dim kD of 16,
 // 32, 64, 128 or 256: what the flash kernels of flash_kernels.cuh (the
-// forward of rows 10 and 13 at every kD, the split pair of rows 12 and 13
-// up to 128, row 11's fused backward at 256) and the tiled short-attention
+// forward of rows 10 and 13 and the split pair of rows 12 and 13 at every
+// kD, row 11's fused backward from 64) and the tiled short-attention
 // backward (short_bwd_tiled.cuh, every kD) build their bf16 products from.
 //
 // A warpgroup (4 warps, 128 threads) issues one asynchronous product of a
@@ -30,19 +30,22 @@
 //                         from 64 values on).  SBO = an 8-row group, LBO
 //                         unused (1);
 //       desc_mn(tile, kk, col0)
-//                         MN-major (B only, transposed): the tile's rows
-//                         are the contracted index, its columns from col0
-//                         (a multiple of 64) the N index; k-step kk starts
-//                         at row 16 kk.  SBO = an 8-row group; LBO, the
-//                         stride between atoms along N (1024 bytes at d =
-//                         128 and 256; unused elsewhere, one atom);
+//                         MN-major (transposed): the tile's rows are the
+//                         contracted index, its columns from col0 (a
+//                         multiple of 8) the N (or M) index; k-step kk
+//                         starts at row 16 kk, and a col0 inside an atom
+//                         moves the start 2 col0 bytes into its rows, as a
+//                         K-major k-step moves it.  SBO = an 8-row group;
+//                         LBO, the stride between atoms along N (1024
+//                         bytes at d = 128 and 256; unused elsewhere, one
+//                         atom);
 //     fields (PTX ISA, "matrix descriptor"): start address >> 4 in bits
 //     0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, base offset 0 (the
 //     tiles are atom-aligned), swizzle mode in 62-63 (1: 128 B, 2: 64 B,
 //     3: 32 B);
 //   * mma_ss<N, kTransB, kTransA>(d, desc_a, desc_b, scale_d) and
 //     mma_rs<N, kTransB>(d, a, desc_b, scale_d): d = A B (+ d when
-//     scale_d), N = 32, 64 or 128 from shared memory (kTransA: A MN-major, its
+//     scale_d), N = 16 ... 128 from shared memory (kTransA: A MN-major, its
 //     descriptor a desc_mn of a tile whose rows are the K index), N = 16
 //     ... 128 with A from registers (a product 256 wide is two of 128:
 //     cols);
@@ -161,10 +164,11 @@ __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int row, i
 }
 
 // MN-major: rows [16 kk, 16 kk + 16) of the tile are k-step kk's K index,
-// its columns from col0 (a multiple of 64) the N index.
+// its columns from col0 (a multiple of 8) the N index.
 template <int kD>
 __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk, int col0 = 0) {
-  return make_desc(smem_addr(tile) + kk * 2 * kGroupBytes<kD> + (col0 / 64) * kAtomBytes<kD>,
+  return make_desc(smem_addr(tile) + kk * 2 * kGroupBytes<kD> +
+                       (col0 / kAtomCols<kD>) * kAtomBytes<kD> + (col0 % kAtomCols<kD>) * 2,
                    kAtomBytes<kD>, kGroupBytes<kD>, kSwizzleMode<kD>);
 }
 
@@ -218,8 +222,17 @@ __device__ __forceinline__ void to_a(const float (&f)[kN][4], uint32_t (&a)[kN /
 template <int kN, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[kN / 8][4], uint64_t desc_a, uint64_t desc_b,
                                        int scale_d) {
-  static_assert(kN == 32 || kN == 64 || kN == 128,
-                "shared-memory A products are 32, 64 or 128 wide");
+  static_assert(kN == 16 || kN == 32 || kN == 64 || kN == 128,
+                "shared-memory A products are 16, 32, 64 or 128 wide");
+  if constexpr (kN == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %12, %11;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
+  }
   if constexpr (kN == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"

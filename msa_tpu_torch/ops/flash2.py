@@ -15,8 +15,8 @@ of head dim 16, 32, 64, 128 and 256; any other runs zero-padded on the
 next one up, ``short_attention.HeadPad``); the source's header says what
 bounds them on the H100 and how they are laid out.  bf16 runs on the tensor
 cores: the forward and the split pair on ``wgmma`` at every head dim, the
-fused backward on ``mma.sync`` up to 128 and on ``wgmma`` at 256; f32 on
-the CUDA cores (at 256 the short-attention kernels,
+fused backward on ``wgmma`` from 64 (``mma.sync`` at 16 and 32); f32 on the
+CUDA cores (at 256 the short-attention kernels,
 ``short_attention.wide_f32``).
 
 Dropout uses the rule of ``ops/dropout.py`` (Philox of the seed and the

@@ -5,15 +5,16 @@ choices, and probes that take a piece of work out to show what binds.
     python3 scripts/flash_variants.py [--parent ROOT] [NAME ...]
 
 Each NAME is a preset of PRESETS: text substitutions in
-``msa_tpu_torch/csrc/flash_kernels.cuh`` (the script fails if one no
-longer matches).  It copies ``msa_tpu_torch/`` and ``chip_smoke.py`` into
+``msa_tpu_torch/csrc/flash_kernels.cuh``, each replaced wherever it
+occurs (the script fails if one no longer matches).  It copies ``msa_tpu_torch/`` and ``chip_smoke.py`` into
 ``build/variants/NAME`` (git-ignored), applies the substitutions, builds
 this tree and every copy concurrently (one process a tree, each with its
 own ``build/``), prints ptxas's registers, spills and wgmma notices for
 each copy's warpgroup kernels, then times the trees in turns with
 ``chip_smoke.py --flash-times`` (``time_flash_path``: the flash kernels
-at head dims 64 and 32, flash at 128, 256 and 192, the frame-level step at 4
-heads of 256 on flash2 and under ``USE_FLASH2 = False``): the parent ROOT
+at head dims 64, 32 and 16, flash at 128, 256 and 192, the frame-level step
+at 4 heads of 256 on flash2 and under ``USE_FLASH2 = False`` and bert-large's
+on flash2): the parent ROOT
 if given, this tree, each variant, this tree, the parent (with no NAME:
 the parent and this tree in turns).  A
 probe's output is wrong by design; only its time means something.  Needs
@@ -38,11 +39,17 @@ _TWO_STAGES = "constexpr int kWideDqStages = 2, kWideDqMinBlocks = 1;"
 _WIDE_ROLE = "constexpr bool kWideDkvByRole = true;"
 _DQ_GROUPS = ("kDqGroups = kD > kMaxWholeDkvHeadDim ? kWideDqGroups : kDropout ? 1 : 2;",
               "kD == 128 ? 1 : kDropout ? 3 : 2;")
+# the fused sweep's choices (flash_kernels.cuh)
+_FUSED_NARROW = "constexpr int kNarrowFusedKeyGroups = 2, kNarrowFusedStages = 2;"
+_FUSED_EXP = "const float p = exp2f(fmaf(st[nn][2 * r + e], score_mult, bias2[r]) - l);"
+_FUSED_ATOMIC = "if (row < seq) atomicAdd(reinterpret_cast<float4*>(dst + n * 8), val);"
+_FUSED_DQ_COLS = ("constexpr int kFusedDqCols = kD > kMaxWholeDkvHeadDim ? 64 : "
+                  "kFusedDqWidth<kD>;")
 PRESETS = {
     # tile choices
-    "fwd_keys128": {"kFwdKeys = 64,": "kFwdKeys = 128,"},
+    "fwd_keys128": {"kFwdKeys = 64;": "kFwdKeys = 128;"},
     "fwd_groups1": {"constexpr int kFwdGroups = 2,": "constexpr int kFwdGroups = 1,"},
-    "fwd_min1": {"kFwdMinBlocks = 2;": "kFwdMinBlocks = 1;"},
+    "fwd_min1": {"kFwdMinBlocks = kD >= 128 ? 1 : 2;": "kFwdMinBlocks = 1;"},
     "dq_groups1": {_DQ_GROUPS[0]: "kDqGroups = kD > kMaxWholeDkvHeadDim ? kWideDqGroups : 1;",
                    _DQ_GROUPS[1]: "kD == 128 ? 1 : 3;"},
     "dq_groups2": {_DQ_GROUPS[0]: "kDqGroups = kD > kMaxWholeDkvHeadDim ? kWideDqGroups : 2;",
@@ -83,8 +90,35 @@ PRESETS = {
                              "constexpr bool kFwdOverlap = kD == 256;"},
     # flash2's fused backward at 256 with dQ in one product of a warpgroup's
     # 128 columns (64 more registers beside dK and dV) in place of two of 64
-    "fused256_dq128": {"constexpr int kFusedWgDqCols = 64;":
-                       "constexpr int kFusedWgDqCols = 128;"},
+    "fused256_dq128": {_FUSED_DQ_COLS: "constexpr int kFusedDqCols = kD > "
+                                       "kMaxWholeDkvHeadDim ? 128 : kFusedDqWidth<kD>;"},
+    # flash2's fused warpgroup sweep at 64 and 128: dQ added to dq32 by
+    # each warpgroup's 16-byte atomics in place of the staged tile's bulk
+    # tensor reductions; one warpgroup (64 keys) a CTA in place of two on
+    # 128; a third ring stage at 64; dQ at 128 in two products of 32
+    # columns a warpgroup in place of one of 64; and the warpgroup sweep at
+    # 16 and 32 too (one warpgroup a CTA), in place of flash2_bwd_fused_kernel
+    "fused_atomics": {"constexpr bool kFusedTmaDq = kD <= kMaxWholeDkvHeadDim;":
+                      "constexpr bool kFusedTmaDq = false;"},
+    "fused_keys64": {_FUSED_NARROW: _FUSED_NARROW.replace("KeyGroups = 2", "KeyGroups = 1")},
+    "fused_stages3": {"constexpr int kFusedStages = kD > kMaxWholeDkvHeadDim ? 2 : kNarrowFusedStages;":
+                      "constexpr int kFusedStages = kD < kMaxWholeDkvHeadDim ? 3 : 2;"},
+    "fused128_dq32": {_FUSED_DQ_COLS: "constexpr int kFusedDqCols = kD > kMaxWholeDkvHeadDim ? 64 : "
+                                      "kD == 128 ? 32 : kFusedDqWidth<kD>;"},
+    "fused_wg_narrow": {"constexpr int kFusedMmaMaxDim = 32;": "constexpr int kFusedMmaMaxDim = 0;",
+                        "constexpr int kFusedKeyGroups = kD > kMaxWholeDkvHeadDim ? 1 : "
+                        "kNarrowFusedKeyGroups;":
+                        "constexpr int kFusedKeyGroups = kD > kMaxWholeDkvHeadDim || kD < 64 ? 1 : "
+                        "kNarrowFusedKeyGroups;"},
+    # probes of it (outputs wrong by design): its exponentials, its dq32
+    # atomics, its dQ products and atomics taken out
+    "fused_no_exp": {_FUSED_EXP: "const float p = fmaf(st[nn][2 * r + e], score_mult, bias2[r]) - l;"},
+    "fused_no_atomics": {_FUSED_ATOMIC: _FUSED_ATOMIC.replace("row < seq", "row < 0"),
+                         "if (kTma && t > 0 && tid == 0)": "if (kTma && t < 0 && tid == 0)",
+                         "      reduce_dq((n_tiles - 1) * kQ);": ""},
+    "fused_no_dq": {"for (int h = 0; h < kDqW / kDqC; ++h) {": "for (int h = 0; h < 0; ++h) {",
+                    "if (kTma && t > 0 && tid == 0)": "if (kTma && t < 0 && tid == 0)",
+                    "      reduce_dq((n_tiles - 1) * kQ);": ""},
 }
 
 _BUILD = r"""
@@ -108,6 +142,24 @@ print("\n".join(lines), flush=True)
 """
 
 
+def variant_tree(name, subs, kernels_file):
+    """``build/variants/name``: a copy of ``msa_tpu_torch/`` and
+    ``chip_smoke.py`` with each text of ``subs`` replaced in
+    ``kernels_file`` wherever it occurs (none matching is an error)."""
+    root = HERE / "build" / "variants" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(HERE / "msa_tpu_torch", root / "msa_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(HERE / "chip_smoke.py", root)
+    text = (root / kernels_file).read_text()
+    for old, new in subs.items():
+        if not text.count(old):
+            raise SystemExit(f"{name}: {old!r} matches nothing")
+        text = text.replace(old, new)
+    (root / kernels_file).write_text(text)
+    return root
+
+
 def run_variants(argv, presets, kernels_file, sources, kernels, times_flag,
                  times_line):
     """The driver above for ``presets`` of substitutions in
@@ -127,18 +179,7 @@ def run_variants(argv, presets, kernels_file, sources, kernels, times_flag,
         return 2
     trees = {"tree": HERE}
     for name in args:
-        root = HERE / "build" / "variants" / name
-        shutil.rmtree(root, ignore_errors=True)
-        shutil.copytree(HERE / "msa_tpu_torch", root / "msa_tpu_torch",
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        shutil.copy(HERE / "chip_smoke.py", root)
-        text = (root / kernels_file).read_text()
-        for old, new in presets[name].items():
-            if text.count(old) != 1:
-                raise SystemExit(f"{name}: {old!r} matches {text.count(old)} times")
-            text = text.replace(old, new)
-        (root / kernels_file).write_text(text)
-        trees[name] = root
+        trees[name] = variant_tree(name, presets[name], kernels_file)
     builds = {name: subprocess.Popen(
         [sys.executable, "-c", "import json\n" + _BUILD, str(root), name,
          json.dumps(sources), json.dumps(kernels)],
@@ -180,7 +221,8 @@ def main() -> int:
                         ["flash2", "flash_attention", "fused_joint_embed",
                          "short_attention_d256"],
                         ["_wg_kernel", "_wg_overlap_kernel"], "--flash-times",
-                        ("flash kernels", "flash at head dims", "wide heads frame step"))
+                        ("flash kernels", "flash at head dims", "wide heads frame step",
+                         "bert-large frame step"))
 
 
 if __name__ == "__main__":

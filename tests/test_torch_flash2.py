@@ -30,11 +30,13 @@ import jax.numpy as jnp
 import msa_tpu.ops.flash2 as jax_flash2
 from msa_tpu.configs import build_experiment
 from msa_tpu.utils.flops import mmbert_step_flops as jax_step_flops
+from msa_tpu_torch import _build
 from msa_tpu_torch.configs import ExperimentConfig as PortExperimentConfig
 from msa_tpu_torch.ops import flash2 as F2
 from msa_tpu_torch.ops.attention import attention_route, multi_head_attention
-from msa_tpu_torch.ops.short_attention import short_attention
+from msa_tpu_torch.ops.short_attention import kernel_head_dim, short_attention
 from msa_tpu_torch.utils.flops import mmbert_step_flops
+from test_torch_wide_tc import Recorder
 
 # One intra-op thread: the lane's xdist workers share the CPUs, and a
 # full torch pool in each of them oversubscribes them (2x the wall time).
@@ -118,14 +120,17 @@ def check_plain_against_jax(s, h, fused, monkeypatch):
 
 @pytest.mark.parametrize("fused,h", [
     pytest.param(True, 128, id="fused"), pytest.param(False, 128, id="split"),
-    pytest.param(True, 64, id="fused-d32")])
+    pytest.param(True, 64, id="fused-d32"),
+    pytest.param(True, 256, id="fused-d128"),
+    pytest.param(True, 32, id="fused-d16")])
 def test_flash2_rounded_backward_rule_matches_jax_bf16(fused, h, monkeypatch):
     """flash_attention2_backward_plain in bf16 at rate 0, given JAX's bf16
     output (its backward's ``o``) and the row lse in log2 units, against
     jax.vjp of JAX's flash2 (interpret mode) through the fused kernel or
     the split pair; and the rule with its roundings lies closer to JAX's
     gradients than the same rule without them (the f32 gradient of the bf16
-    inputs), for every gradient."""
+    inputs), for every gradient.  The fused route at head dims 16, 32, 64
+    and 128: the rule its sweeps are held to on the card."""
     monkeypatch.setattr(jax_flash2, "_FUSED_BWD", fused)
     q, k, v, dout, bias = inputs(2, 200, h, seed=7)
     jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, dout))
@@ -191,7 +196,8 @@ def jax_order_backward(q, k, v, bias, out, lse, dout, keep, rate, weak):
 
 
 @pytest.mark.parametrize("h", [pytest.param(128, id="d64"),
-                               pytest.param(64, id="d32")])
+                               pytest.param(64, id="d32"),
+                               pytest.param(256, id="d128")])
 def test_flash2_rounded_backward_rule_dropout_order(h):
     """flash_attention2_backward_plain in bf16 under dropout (rate 26/256)
     against :func:`jax_order_backward` on the same keep mask, the same f32
@@ -224,6 +230,56 @@ def test_flash2_rounded_backward_rule_dropout_order(h):
         np.testing.assert_allclose(g, r, atol=BF16_TOL[0], rtol=BF16_TOL[1],
                                    err_msg=name)
         assert np.abs(g - r).mean() < np.abs(g - f).mean(), name
+
+
+def check_fused_entry(d, monkeypatch):
+    """flash2_bwd_fused at head dim ``d`` in bf16 through a stand-in
+    library: one call of the C entry of ``flash2_d<kd>`` (kd the kernel
+    head dim d runs on), its arguments in ``_SIGNATURES`` order, with the
+    delta scratch [B, heads, S] f32 that the pre-pass writes and the f32 dq
+    buffer [B, S, heads x kd] that it zeroes and the sweep sums into,
+    counted as two launches; dq, dk and dv come back in bf16 at the
+    caller's width."""
+    lib, scratch, kd = Recorder(), [], kernel_head_dim(d)
+
+    def record(q, lse):
+        scratch.append((torch.empty_like(lse),
+                        torch.empty(q.shape, dtype=torch.float32)))
+        return scratch[-1]
+
+    monkeypatch.setattr(_build, "load", lib.load)
+    monkeypatch.setattr(F2, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(F2, "_stream", lambda x: 0)
+    monkeypatch.setattr(F2, "fused_scratch", record)
+    b, s = 2, 20
+    q, k, v, dout = (torch.zeros(b, s, HEADS * d, dtype=torch.bfloat16)
+                     for _ in range(4))
+    out32 = torch.zeros(b, s, HEADS * d)
+    lse, bias = torch.zeros(b, HEADS, s), torch.zeros(b, s)
+    before = F2.flash2_bwd_fused.launches
+    grads = F2.flash2_bwd_fused(q, k, v, bias, out32, lse, dout, HEADS,
+                                seed=5, rate=26 / 256)
+    assert F2.flash2_bwd_fused.launches == before + 2
+    assert lib.loaded == [f"flash2_d{kd}"]
+    ((entry, args),) = lib.calls
+    assert entry == "msa_flash2_bwd_fused"
+    assert len(args) == len(F2._SIGNATURES[entry])
+    ((delta, dq32),) = scratch
+    assert delta.shape == (b, HEADS, s) and delta.dtype == torch.float32
+    assert dq32.shape == (b, s, HEADS * kd) and dq32.dtype == torch.float32
+    assert args[7:9] == (delta.data_ptr(), dq32.data_ptr())
+    assert args[11:16] == (b, s, HEADS * kd, HEADS, 1)  # bf16
+    assert args[-4:-1] == (5, 0, 26 / 256)  # the seed's words, the rate
+    for g in grads:
+        assert g.shape == q.shape and g.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_fused_entry_hands_the_sweep_its_scratch(d, monkeypatch):
+    """The bf16 fused entry at d = 16, 32, 64 and 128, each on its own
+    library (the warpgroup sweep from 64, the mma.sync one at 16 and 32),
+    by :func:`check_fused_entry`."""
+    check_fused_entry(d, monkeypatch)
 
 
 @pytest.mark.parametrize("dtype,s,fused", [

@@ -61,14 +61,13 @@ import jax.numpy as jnp
 
 import msa_tpu.ops.flash2 as jax_flash2
 from msa_tpu.ops import attention as jax_attention
-from msa_tpu_torch import _build
 from msa_tpu_torch.ops import attention as A
 from msa_tpu_torch.ops import flash2 as F2
 from msa_tpu_torch.ops.dropout import keep_mask_plain
 from msa_tpu_torch.ops.short_attention import (
     short_attention_train_forward_plain)
-from test_torch_flash2 import BF16_TOL, HEADS, jax_order_backward
-from test_torch_wide_tc import Recorder
+from test_torch_flash2 import (BF16_TOL, HEADS, check_fused_entry,
+                               jax_order_backward)
 
 torch.set_num_threads(1)
 
@@ -349,41 +348,8 @@ def test_flash_attention_backward_rule_dropout_order_at_d256():
 @pytest.mark.parametrize("d", [192, 256])
 def test_wide_fused_entry_hands_the_sweep_its_scratch(d, monkeypatch):
     """The fused entry at d = 192 and 256 (the library of 256; f32 there
-    runs the short kernels, bf16 this route): one call of the C entry of
-    ``flash2_d256``, its arguments in ``_SIGNATURES`` order, with the delta
-    scratch [B, heads, S] f32 that the pre-pass writes and the f32 dq
-    buffer [B, S, heads x 256] that it zeroes and the sweep sums into,
-    counted as two launches; dq, dk and dv come back in bf16 at the caller's
-    width."""
-    lib, scratch = Recorder(), []
-
-    def record(q, lse):
-        scratch.append((torch.empty_like(lse),
-                        torch.empty(q.shape, dtype=torch.float32)))
-        return scratch[-1]
-
-    monkeypatch.setattr(_build, "load", lib.load)
-    monkeypatch.setattr(F2, "_check", lambda *a, **k: None)
-    monkeypatch.setattr(F2, "_stream", lambda x: 0)
-    monkeypatch.setattr(F2, "fused_scratch", record)
-    b, s = 2, 20
-    q, k, v, dout = (torch.zeros(b, s, HEADS * d, dtype=torch.bfloat16)
-                     for _ in range(4))
-    out32 = torch.zeros(b, s, HEADS * d)
-    lse, bias = torch.zeros(b, HEADS, s), torch.zeros(b, s)
-    before = F2.flash2_bwd_fused.launches
-    grads = F2.flash2_bwd_fused(q, k, v, bias, out32, lse, dout, HEADS,
-                                seed=5, rate=26 / 256)
-    assert F2.flash2_bwd_fused.launches == before + 2
-    assert lib.loaded == ["flash2_d256"]
-    ((entry, args),) = lib.calls
-    assert entry == "msa_flash2_bwd_fused"
-    assert len(args) == len(F2._SIGNATURES[entry])
-    ((delta, dq32),) = scratch
-    assert delta.shape == (b, HEADS, s) and delta.dtype == torch.float32
-    assert dq32.shape == (b, s, HEADS * 256) and dq32.dtype == torch.float32
-    assert args[7:9] == (delta.data_ptr(), dq32.data_ptr())
-    assert args[11:16] == (b, s, HEADS * 256, HEADS, 1)  # bf16
-    assert args[-4:-1] == (5, 0, 26 / 256)  # the seed's words, the rate
-    for g in grads:
-        assert g.shape == q.shape and g.dtype == torch.bfloat16
+    runs the short kernels, bf16 this route), by
+    :func:`test_torch_flash2.check_fused_entry`: one call of the C entry of
+    ``flash2_d256`` with the delta and f32 dq scratch in ``_SIGNATURES``
+    order, counted as two launches."""
+    check_fused_entry(d, monkeypatch)
