@@ -8,9 +8,10 @@
     python3 chip_smoke.py --predict-worker OUT RANK PORT
 
 Run from the root of a checkout.  ``--flash-times ROOT`` only times the
-flash kernels and the joint embed, flash at head dims 128, 256 and 192 and
+flash kernels and the joint embed, flash at head dims 128, 256 and 192,
 the frame-level step at 4 heads of 256, on flash2 and under ``USE_FLASH2 =
-False`` (:func:`time_flash_path`) of the
+False``, and bert-large's frame-level step and serving batch
+(:func:`time_flash_path`) of the
 checkout at ROOT (this one's or another's, whose kernels build into
 ROOT/build/), so two trees are timed by the same code in one run;
 ``--short-times ROOT`` likewise times the bf16 short backwards above 128
@@ -35,7 +36,10 @@ its own), the script:
      (the bf16 forward, the split backward's dq and dk/dv launches, in
      flash2.cu and flash_attention.cu) and of row 11 at head dim 256
      (flash2's fused backward), none of which may have its wgmma products
-     serialised or spill at 32, 64 or 256;
+     serialised or spill at 32, 64 or 256; the warp-specialised forward
+     of rows 10 and 13 (``flash_fwd_ws_kernel``) with the registers a
+     thread of its producer and its consumers (``setmaxnreg``), which may
+     not spill at 64 or 128, nor have a ``setmaxnreg`` ignored;
   3. holds each kernel against its plain PyTorch version on the card, in
      bf16 and f32, and times both (and, where one exists, the PyTorch
      library call that computes the same function):
@@ -106,6 +110,12 @@ its own), the script:
      training forwards against the plain rule, the split backwards against
      their rounded rules and f32 autograd, their gradients bit-equal
      across two calls;
+  3a'. holds the bf16 flash forward of rows 10 and 13 at head dims 64 and
+     128 (the warp-specialised kernel) at S = 80, 200, 1000, 1024, 1030 and
+     4096, rate 0 and 26/256, both layouts, serving and training forms,
+     with a batch row whose keys are all masked and one with a single live
+     key (``phase_flash_forward``), and names the kernels each head dim's
+     forward launches (``torch.profiler``);
   3b. probes flash2's fused-backward dq at [32, 1024] bf16 on four more
      inputs: its distance to f32 autograd and to the rounded rule; times
      the flash kernels (flash2's forward, its fused and split backwards,
@@ -1415,6 +1425,61 @@ def probe_flash2_dq():
                               dout, 0, 0.0, None)
 
 
+def check_flash_forwards(tag, q, k, v, bias, live, seed, rate, keep):
+    """The bf16 flash forward of both layouts (flash2 and, on the heads of
+    :func:`split_heads`, the head-split form) at one seed: in each layout
+    the serving form bit-equal to the training form, flash2's out32
+    rounding to its ctx bit for bit, the head-split ctx bit-equal to
+    flash2's; the training ctx against the plain rule
+    (``short_attention_train_forward_plain``: p rounded to bf16 before P V)
+    at ATTN_TOL on rows with a live key, rows with every key masked at
+    MASKED_ROW_ATOL (up to 128 keys by :func:`check_masked_rows`), the lse
+    of either layout at TRAIN_LSE_TOL (log2 units for flash2, natural for
+    the head-split form).  Returns (ctx error, lse error, flash2's (out,
+    lse, out32), the head-split (out, lse))."""
+    import torch
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops import flash2 as F2
+    from msa_tpu_torch.ops.short_attention import (
+        short_attention_train_forward_plain)
+
+    atol, rtol = ATTN_TOL["bfloat16"]
+    serve = F2._forward_kernel(q, k, v, bias, HEADS, seed, rate, False)[0]
+    out, lse, out32 = F2._forward_kernel(q, k, v, bias, HEADS, seed, rate,
+                                         True)
+    qh, kh, vh = (split_heads(x) for x in (q, k, v))
+    serve_h = A._forward_kernel(qh, kh, vh, bias, seed, rate, False)[0]
+    out_h, lse_h = A._forward_kernel(qh, kh, vh, bias, seed, rate, True)
+    rctx, rlse = short_attention_train_forward_plain(q, k, v, bias, HEADS,
+                                                     rate, keep)
+    torch.cuda.synchronize()
+    for what, a, c in (("flash2 serving vs training", serve, out),
+                       ("head-split serving vs training", serve_h, out_h),
+                       ("flash2 out32 rounded vs ctx", out32.to(out.dtype),
+                        out),
+                       ("head-split vs flash2 ctx", merge_heads(out_h), out)):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{tag}: {what} differ")
+    err = check_close(f"{tag} ctx", out, rctx, atol, rtol, mask=live)
+    if q.shape[1] <= 128:
+        # a few keys: the kernel applies 1 / (1 - rate) in f32 after P V,
+        # the rule rounds p / (1 - rate) (1.109375 in bf16 at one key), as
+        # for the short forwards at a few keys
+        check_masked_rows(tag, out, q, k, v, bias, live, rate, keep)
+    else:
+        check_close(f"{tag} ctx masked row", out, rctx, MASKED_ROW_ATOL, 0.0,
+                    mask=~live)
+    lse_err = 0.0
+    for what, got, want in (("flash2 lse", lse, rlse),
+                            ("head-split lse", lse_h, rlse * math.log(2.0))):
+        lse_err = max(lse_err, check_close(f"{tag} {what}", got, want,
+                                           *TRAIN_LSE_TOL, mask=live))
+        check_close(f"{tag} {what} masked row", got, want, MASKED_ROW_ATOL,
+                    0.0, mask=~live)
+    return err, lse_err, (out, lse, out32), (out_h, lse_h)
+
+
 # The warpgroup kernels' tile edges: their 128-row query blocks (127, 129),
 # ragged tails (70, 1000), a single key, and the long shapes.
 WG_SEQS = (1, 70, 127, 129, 1000, 1024, 2048, 4096)
@@ -1432,8 +1497,8 @@ def phase_wgmma_flash():
     MASKED_ROW_ATOL; up to 128 keys the ctx of those rows by
     :func:`check_masked_rows`), flash2's out32 rounding to its ctx bit for
     bit, the head-split ctx bit-equal to flash2's (one kernel, another
-    addressing);
-    the split backward of each layout by :func:`check_rounded_backward`
+    addressing; :func:`check_flash_forwards`); the split backward of each layout by
+    :func:`check_rounded_backward`
     (its rounded rule at GRAD_TOL, f32 autograd within twice it plus the
     rule's rounding gap), its dq, dk and dv bit-equal across two calls (no
     atomics).  Returns the worst errors."""
@@ -1442,8 +1507,6 @@ def phase_wgmma_flash():
     from msa_tpu_torch.ops import attention as A
     from msa_tpu_torch.ops import flash2 as F2
     from msa_tpu_torch.ops.dropout import keep_mask_plain
-    from msa_tpu_torch.ops.short_attention import (
-        short_attention_train_forward_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(15)
     rate_on = phase_rate()
@@ -1461,52 +1524,14 @@ def phase_wgmma_flash():
                                                            torch.bfloat16)
                     dout = torch.randn(q.shape, device="cuda",
                                        generator=gen).to(torch.bfloat16)
-                    seed, t = 1400 + s, rate
+                    seed = 1400 + s
                     keep = (keep_mask_plain(seed, rate, b, HEADS, s,
                                             device="cuda") if rate else None)
                     tag = f"wgmma d={d} [{b},{s},{HIDDEN}] rate {rate:g}"
-                    serve = F2._forward_kernel(q, k, v, bias, HEADS, seed, t,
-                                               False)[0]
-                    out, lse, out32 = F2._forward_kernel(q, k, v, bias, HEADS,
-                                                         seed, t, True)
+                    err, lse_err, (_, lse, out32), (out_h, lse_h) = \
+                        check_flash_forwards(tag, q, k, v, bias, live, seed,
+                                             rate, keep)
                     qh, kh, vh, doh = (split_heads(x) for x in (q, k, v, dout))
-                    serve_h = A._forward_kernel(qh, kh, vh, bias, seed, t,
-                                                False)[0]
-                    out_h, lse_h = A._forward_kernel(qh, kh, vh, bias, seed, t,
-                                                     True)
-                    rctx, rlse = short_attention_train_forward_plain(
-                        q, k, v, bias, HEADS, rate, keep)
-                    torch.cuda.synchronize()
-                    for what, a, c in (("flash2 serving vs training", serve, out),
-                                       ("head-split serving vs training",
-                                        serve_h, out_h),
-                                       ("flash2 out32 rounded vs ctx",
-                                        out32.to(out.dtype), out),
-                                       ("head-split vs flash2 ctx",
-                                        merge_heads(out_h), out)):
-                        if not torch.equal(a, c):
-                            raise AssertionError(f"{tag}: {what} differ")
-                    err = check_close(f"{tag} ctx", out, rctx, atol, rtol,
-                                      mask=live)
-                    if s <= 128:
-                        # a few keys: the kernel applies 1 / (1 - rate) in
-                        # f32 after P V, the rule rounds p / (1 - rate)
-                        # (1.109375 in bf16 at one key), as for the short
-                        # forwards at a few keys
-                        check_masked_rows(tag, out, q, k, v, bias, live, rate,
-                                          keep)
-                    else:
-                        check_close(f"{tag} ctx masked row", out, rctx,
-                                    MASKED_ROW_ATOL, 0.0, mask=~live)
-                    lse_err = 0.0
-                    for what, got, want in (("flash2 lse", lse, rlse),
-                                            ("head-split lse", lse_h,
-                                             rlse * math.log(2.0))):
-                        lse_err = max(lse_err, check_close(
-                            f"{tag} {what}", got, want, *TRAIN_LSE_TOL,
-                            mask=live))
-                        check_close(f"{tag} {what} masked row", got, want,
-                                    MASKED_ROW_ATOL, 0.0, mask=~live)
                     # the split backwards, twice each
                     runs = [F2.flash2_bwd_split(q, k, v, bias, out32, lse, dout,
                                                 HEADS, seed, rate)
@@ -1560,6 +1585,113 @@ def phase_wgmma_flash():
     return worst
 
 
+# The bf16 flash forward's checks at the head dims of its warp-specialised
+# kernel (flash_fwd_ws_kernel: 64 at H = 1024, 16 heads; 128 at H = 1024, 8
+# heads): S off the 64-key tile and the 128-row query tile (80, 200, 1000,
+# 1030), on both (1024) and long (4096).
+WS_WIDTHS = ((1024, 16), (1024, 8))
+WS_SEQS = (80, 200, 1000, 1024, 1030, 4096)
+# (H, heads) of each head dim whose forward kernel is named by the profiler
+FWD_KERNEL_WIDTHS = ((32, 2), (64, 2), (128, 2), (256, 2), (512, 2))
+
+
+def few_key_inputs(gen, b, s):
+    """q, k, v [b, s, HIDDEN] bf16 and the additive key bias: batch row 0
+    with every key masked, row 1 with every key but the first, the rest
+    ragged; and the rows with a live key."""
+    import torch
+
+    q, k, v = (torch.randn(b, s, HIDDEN, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    lengths = torch.randint(1, s + 1, (b,), device="cuda", generator=gen)
+    lengths[0], lengths[1] = 0, 1
+    mask = torch.arange(s, device="cuda")[None] < lengths[:, None]
+    return q, k, v, (1.0 - mask.float()) * -10000.0, lengths > 0
+
+
+def forward_kernel_names():
+    """{layout: {head dim: the kernels one bf16 training forward launches}}
+    (``torch.profiler``, :func:`device_ms_by_kernel`) at [2, 200, H] for
+    the head dims of FWD_KERNEL_WIDTHS, rate 26/256."""
+    import torch
+
+    from msa_tpu_torch.ops import attention as A
+    from msa_tpu_torch.ops import flash2 as F2
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    names = {"flash2": {}, "head_split": {}}
+    for hidden, heads in FWD_KERNEL_WIDTHS:
+        with head_widths(hidden, heads):
+            q, k, v, bias, _ = few_key_inputs(gen, 2, 200)
+            qh, kh, vh = (split_heads(x) for x in (q, k, v))
+            for layout, fn in (
+                    ("flash2", lambda: F2._forward_kernel(
+                        q, k, v, bias, HEADS, 3, phase_rate(), True)),
+                    ("head_split", lambda: A._forward_kernel(
+                        qh, kh, vh, bias, 3, phase_rate(), True))):
+                names[layout][str(hidden // heads)] = sorted(
+                    device_ms_by_kernel(fn, calls=1))
+    return names
+
+
+def phase_flash_forward():
+    """The bf16 flash forward (rows 10 and 13) at head dims 64 and 128
+    (WS_WIDTHS; flash_fwd_ws_kernel) at every S of WS_SEQS, rate 0 and
+    26/256, B = 3 (:func:`few_key_inputs`), from a generator of its own, by
+    :func:`check_flash_forwards`; then the kernels each head dim's forward
+    launches (:func:`forward_kernel_names`).  Returns (the worst ctx and
+    lse errors, those names)."""
+    import torch
+
+    from msa_tpu_torch.ops.dropout import keep_mask_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    atol, rtol = ATTN_TOL["bfloat16"]
+    worst = {"ctx": 0.0, "lse": 0.0}
+    t0 = time.perf_counter()
+    for hidden, heads in WS_WIDTHS:
+        with head_widths(hidden, heads):
+            d = HIDDEN // HEADS
+            for s in WS_SEQS:
+                for rate in (0.0, phase_rate()):
+                    b = 3
+                    q, k, v, bias, live = few_key_inputs(gen, b, s)
+                    seed = 1600 + s
+                    keep = (keep_mask_plain(seed, rate, b, HEADS, s,
+                                            device="cuda") if rate else None)
+                    tag = f"flash forward d={d} [{b},{s},{HIDDEN}] rate {rate:g}"
+                    err, lse_err, _, _ = check_flash_forwards(
+                        tag, q, k, v, bias, live, seed, rate, keep)
+                    worst["ctx"] = max(worst["ctx"], err)
+                    worst["lse"] = max(worst["lse"], lse_err)
+                    print(f"{tag}: ctx {err:.3e} (atol {atol}, rtol {rtol}), "
+                          f"lse {lse_err:.3e} (atol {TRAIN_LSE_TOL[0]}, rtol "
+                          f"{TRAIN_LSE_TOL[1]}); serving = training, out32 "
+                          f"rounds to ctx, head-split = flash2", flush=True)
+                    del keep
+    names = forward_kernel_names()
+    print(f"flash forward: every check passed in "
+          f"{time.perf_counter() - t0:.1f} s; kernels a bf16 training "
+          f"forward launches by head dim: {json.dumps(names)}", flush=True)
+    return worst, names
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds a call of ``fn`` takes to return, while a spin
+    kernel holds the stream (no call waits on the card), after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
 def time_flash_backwards():
     """Device ms of the flash kernels at the frame-level joint shape [2 x
     FRAME_BATCH, 1024, 1024] bf16 (16 heads), at rate 0 and at the training
@@ -1598,6 +1730,9 @@ def time_flash_backwards():
         times[f"flash2 fwd rate {rate:g}"] = cuda_ms(
             lambda: F2._forward_kernel(q, k, v, bias, heads, 7, t, True),
             iters=10)
+        times[f"flash2 fwd serving rate {rate:g}"] = cuda_ms(
+            lambda: F2._forward_kernel(q, k, v, bias, heads, 7, t, False),
+            iters=10)
         for fused in (True, False):
             times[f"flash2 {'fused' if fused else 'split'} rate {rate:g}"] = \
                 cuda_ms(lambda: F2.flash_attention2_backward(
@@ -1606,9 +1741,21 @@ def time_flash_backwards():
         out, lse_h = A._forward_kernel(qh, kh, vh, bias, 7, t, True)
         times[f"row 13 fwd rate {rate:g}"] = cuda_ms(
             lambda: A._forward_kernel(qh, kh, vh, bias, 7, t, True), iters=10)
+        times[f"row 13 fwd serving rate {rate:g}"] = cuda_ms(
+            lambda: A._forward_kernel(qh, kh, vh, bias, 7, t, False), iters=10)
         times[f"row 13 rate {rate:g}"] = cuda_ms(
             lambda: A.flash_attention_backward(qh, kh, vh, bias, out, lse_h,
                                                doh, 7, rate), iters=10)
+    times["sdpa fwd d64"] = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias[:, None, None, :].to(torch.bfloat16)),
+        iters=10)
+    # the host's part of a forward call (the wrapper, the C entry's tensor
+    # maps and the launch), a stream held so that no call waits on the card
+    times["flash2 fwd host us"] = host_us(
+        lambda: F2._forward_kernel(q, k, v, bias, heads, 7, 0.0, False))
+    times["row 13 fwd host us"] = host_us(
+        lambda: A._forward_kernel(qh, kh, vh, bias, 7, 0.0, False))
     q32, k32, v32, do32 = (x[..., :64].contiguous() for x in (q, k, v, dout))
     _, lse, out32 = F2._forward_kernel(q32, k32, v32, bias, 2, 7, 0, True)
     for fused in (True, False):
@@ -1823,15 +1970,52 @@ def time_flash_path():
     192 (:func:`time_flash_at_head_dims`), the frame-level step at 4
     heads of 256, on flash2 and under ``USE_FLASH2 = False``, and
     bert-large's (16 heads of 64, 24 fused sweeps a step) on flash2
-    (:func:`frame_step_ms`) of the tree on sys.path, whose kernels build
-    into its own build/."""
+    (:func:`frame_step_ms`), and bert-large's frame-level serving batch (24
+    flash2 forwards, :func:`frame_serve_ms`) of the tree on sys.path, whose
+    kernels build into its own build/."""
     times = time_flash_backwards()
     times.update(time_flash_at_head_dims())
     times["wide heads frame step"] = frame_step_ms()[0]
     times["wide heads frame step (USE_FLASH2 = False)"] = \
         frame_step_ms(flash2=False)[0]
     times["bert-large frame step"] = frame_step_ms("bert-large-uncased")[0]
+    times["bert-large frame serving batch"] = frame_serve_ms()
     return times
+
+
+def frame_serve_ms():
+    """ms a batch of bert-large's bf16 frame-level serving (B = FRAME_BATCH,
+    L = TEXT_LEN, Lp = FRAME_PAIR_LEN: the joint pass [32, 1024] on the
+    flash2 forward, 24 launches a batch) over FRAME_SERVE samples after a
+    warm-up pass (host clock; the pass ends in a device-to-host copy),
+    random weights from a seed: entry points every tree of the port has had
+    since the frame-level path came in, for ``--flash-times ROOT``."""
+    import torch
+
+    from msa_tpu_torch.data import synthetic_split
+    from msa_tpu_torch.inference import Predictor
+    from msa_tpu_torch.models.weights import init_params
+
+    exp = frame_experiment(FRAME_PAIR_LEN)
+    cfg = exp.model
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    split = synthetic_split(FRAME_SERVE, TEXT_LEN, cfg.visual_dim,
+                            cfg.speech_dim, vocab_size=cfg.bert.vocab_size,
+                            seed=1, pair_seq_length=FRAME_PAIR_LEN)
+    pred = Predictor(exp, params, FRAME_BATCH, "cuda")
+    n_batches = -(-FRAME_SERVE // FRAME_BATCH)
+    pred.predict_split(split)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pred.predict_split(split)
+        runs.append((time.perf_counter() - t0) * 1e3 / n_batches)
+    print(f"bert-large frame serving: bf16 B={FRAME_BATCH} L={TEXT_LEN} "
+          f"Lp={FRAME_PAIR_LEN}, {FRAME_SERVE} samples in {n_batches} "
+          f"batches: {runs[0]:.2f} / {runs[1]:.2f} ms a batch", flush=True)
+    del pred, params
+    torch.cuda.empty_cache()
+    return min(runs)
 
 
 def device_ms_by_kernel(fn, calls: int = 5):
@@ -6332,8 +6516,19 @@ def report_redesigned(usage):
 # or keep a stack frame at a head dim of NO_SPILL_HEAD_DIMS
 # (WIDE_FLASH_KERNELS at 256 too).
 WGMMA = re.compile(r"(flash_fwd_wg_kernel|flash_fwd_wg_overlap_kernel|"
+                   r"flash_fwd_ws_kernel|"
                    r"flash_bwd_dq_wg_kernel|flash_bwd_dkv_wg_kernel|"
                    r"flash_bwd_dkv_role_wg_kernel|flash2_bwd_fused_wg_kernel)I")
+# The warp-specialised forward (flash_kernels.cuh::flash_fwd_ws_kernel, the
+# bf16 forward of rows 10 and 13 at WS_HEAD_DIMS): consumer warpgroups of 64
+# query rows beside one producer warpgroup, ring stages, the registers a
+# thread of the producer and of the consumers, and the keys a tile by head
+# dim (kWsGroups, kWsStages, kWsProducerRegs, kWsConsumerRegs, kWsKeys).  None
+# may spill or keep a stack frame at WS_HEAD_DIMS, and ptxas may ignore no
+# setmaxnreg.
+WS_HEAD_DIMS = (64, 128)
+WS_GROUPS, WS_STAGES, WS_REGS = 2, 3, (24, 240)
+WS_KEYS = {64: 128, 128: 64}
 FUSED_HEAD_DIMS = (64, 128, 256)
 # The fused warpgroup sweep's choices at 64 and 128 (flash_kernels.cuh::
 # kNarrowFusedKeyGroups, kNarrowFusedStages, kFusedTmaDq): warpgroups a
@@ -6349,6 +6544,12 @@ def wgmma_launch(name, args):
     kernels and wg_*_smem_bytes: the alignment slack, the swizzled tiles of
     kD bf16 rows, the bias / lse / delta rows)."""
     row = 2 * int(args[0])
+    if name == "flash_fwd_ws_kernel":
+        # Q, the ring's K and V tiles and key-bias rows, the mbarriers
+        keys = WS_KEYS[int(args[0])]
+        return 128 * (WS_GROUPS + 1), (
+            1024 + (64 * WS_GROUPS + 2 * WS_STAGES * keys) * row
+            + WS_STAGES * keys * 4 + (1 + 2 * WS_STAGES) * 8)
     if name in ("flash_fwd_wg_kernel", "flash_fwd_wg_overlap_kernel"):
         # 128 query rows, two 64-key stages
         return 256, 1024 + (128 + 4 * 64) * row + 2 * 64 * 4
@@ -6375,10 +6576,14 @@ def wgmma_launch(name, args):
 def report_wgmma(usage):
     """Print ptxas's registers, shared memory, spills and wgmma notices for
     each instantiation of the warpgroup kernels, with the CTAs an SM holds
-    by registers and by shared memory; fail if flash2.cu lacks the fused
-    sweep at a head dim of FUSED_HEAD_DIMS, on a serialisation notice, and
-    on a spill or a stack frame at a head dim of NO_SPILL_HEAD_DIMS or, for
-    WIDE_FLASH_KERNELS, at 256."""
+    by registers and by shared memory (the warp-specialised forward: the
+    registers a thread of each role, WS_REGS, beside ptxas's count at
+    entry); fail if flash2.cu lacks the fused sweep at a head dim of
+    FUSED_HEAD_DIMS or either source the warp-specialised forward at one of
+    WS_HEAD_DIMS, on a serialisation notice, on a spill or a stack frame at
+    a head dim of NO_SPILL_HEAD_DIMS, for WIDE_FLASH_KERNELS at 256 and for
+    the warp-specialised forward at WS_HEAD_DIMS, and on a setmaxnreg that
+    ptxas ignored."""
     found = [u for u in usage if WGMMA.search(u["kernel"])]
     fused_at = {int(template_args(u["kernel"], WGMMA.search(u["kernel"]))[0])
                 for u in found if u["source"] == "flash2.cu"
@@ -6388,6 +6593,14 @@ def report_wgmma(usage):
                              f"head dims {sorted(fused_at)}, not "
                              f"{list(FUSED_HEAD_DIMS)}")
     both = ("flash2.cu", "flash_attention.cu")
+    for source in both:
+        ws_at = {int(template_args(u["kernel"], WGMMA.search(u["kernel"]))[0])
+                 for u in found if u["source"] == source
+                 and "flash_fwd_ws_kernelI" in u["kernel"]}
+        if not set(WS_HEAD_DIMS) <= ws_at:
+            raise AssertionError(f"ptxas reported flash_fwd_ws_kernel in "
+                                 f"{source} at head dims {sorted(ws_at)}, not "
+                                 f"{list(WS_HEAD_DIMS)}")
     for name, sources in (
             ("flash_fwd_wg_kernel", both), ("flash_fwd_wg_overlap_kernel", both),
             ("flash_bwd_dq_wg_kernel", both), ("flash_bwd_dkv_wg_kernel", both),
@@ -6403,15 +6616,25 @@ def report_wgmma(usage):
         threads, smem = wgmma_launch(name, args)
         by_regs = SM_REGISTERS // (max(u["registers"], 1) * threads)
         by_smem = SM_SMEM // (smem + u["static_smem"] + SM_SMEM_PER_CTA)
-        print(f"ptxas {u['source']} {name}<{', '.join(args)}>: "
-              f"{u['registers']} registers ({by_regs} CTAs of {threads} "
-              f"threads an SM by them), {u['static_smem']} B static + {smem} "
+        ws = name == "flash_fwd_ws_kernel"
+        regs = (f"{u['registers']} registers at entry; by setmaxnreg the "
+                f"producer {WS_REGS[0]}, the {WS_GROUPS} consumer warpgroups "
+                f"{WS_REGS[1]} a thread" if ws else
+                f"{u['registers']} registers ({by_regs} CTAs of {threads} "
+                f"threads an SM by them)")
+        print(f"ptxas {u['source']} {name}<{', '.join(args)}>: {regs}, "
+              f"{u['static_smem']} B static + {smem} "
               f"B dynamic smem ({by_smem} CTAs an SM by it), stack "
               f"{u['stack']} B, spill stores {u['spill_stores']} B, loads "
               f"{u['spill_loads']} B, wgmma serialised: "
-              f"{'; '.join(u['serialized']) or 'no'}", flush=True)
+              f"{'; '.join(u['serialized']) or 'no'}, setmaxnreg ignored: "
+              f"{'; '.join(u['setmaxnreg']) or 'no'}", flush=True)
+        if u["setmaxnreg"]:
+            raise AssertionError(f"ptxas ignored a setmaxnreg of {name} in "
+                                 f"{u['source']}")
         checked = int(args[0]) in NO_SPILL_HEAD_DIMS or (
-            int(args[0]) == 256 and name in WIDE_FLASH_KERNELS)
+            int(args[0]) == 256 and name in WIDE_FLASH_KERNELS) or (
+            ws and int(args[0]) in WS_HEAD_DIMS)
         if checked and (u["stack"] or u["spill_stores"] or u["spill_loads"]):
             raise AssertionError(f"ptxas: {name}<{', '.join(args)}> in "
                                  f"{u['source']} spills or keeps a stack frame")
@@ -7413,6 +7636,7 @@ def main() -> int:
     fa_err, fa_times = timed(phase_flash_attention, gen)
     v1_err, v1_times = timed(phase_short_v1, gen)
     timed(phase_wgmma_flash)
+    _, fwd_kernels = timed(phase_flash_forward)
     timed(probe_flash2_dq)
     timed(time_flash_backwards)
     timed(phase_head_dim_32)
@@ -7702,6 +7926,10 @@ def main() -> int:
                                  "ln_quant_dynamic", "fused_adamw"):
             # every attention kernel draws by either rule of dropout.cuh
             entry["dropout_rules"] = ["byte (t/256)", "word (any rate)"]
+        if entry["name"] in ("flash2_fwd", "flash_attention_fwd"):
+            # the kernels its bf16 training forward launched, by head dim
+            entry["kernels_by_head_dim"] = fwd_kernels[
+                "flash2" if entry["name"] == "flash2_fwd" else "head_split"]
         if entry["name"] in RATE_TIMED:
             entry["ms_by_rate"] = {
                 f"{rate:g}": ms

@@ -235,9 +235,10 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
     ``names`` (:func:`libraries`; built first where they are not), read from
     the report the build keeps beside each: dicts of source (its file
     name), library, kernel (its mangled name), registers, static shared
-    memory, stack frame and spill bytes, and ``serialized``: the ptxas
+    memory, stack frame and spill bytes, ``serialized``: the ptxas
     notices that it serialised the kernel's ``wgmma.mma_async``
-    instructions (a notice names its function, else it is the kernel being
+    instructions, and ``setmaxnreg``: its notices that it ignored a
+    ``setmaxnreg`` (a notice names its function, else it is the kernel being
     compiled).  Dynamic shared memory is the launcher's and is not in it."""
     found = []
     for name, lib in build_all(names).items():
@@ -251,13 +252,16 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
                 entry = {"source": _source(name).name, "library": name,
-                         "kernel": m.group(1), "serialized": []}
+                         "kernel": m.group(1), "serialized": [],
+                         "setmaxnreg": []}
                 found.append(entry)
                 continue
-            if "wgmma" in line and "serializ" in line:
+            kind = ("serialized" if "wgmma" in line and "serializ" in line
+                    else "setmaxnreg" if "setmaxnreg" in line else None)
+            if kind:
                 named = re.search(r"'(_Z[^']+)'", line)
                 notices.append((named.group(1) if named else entry and
-                                entry["kernel"], line.strip()))
+                                entry["kernel"], kind, line.strip()))
                 continue
             if entry is None:
                 continue
@@ -272,11 +276,11 @@ def resource_usage(names: Sequence[str]) -> List[Dict[str, object]]:
                 smem = re.search(r"(\d+) bytes smem", line)
                 entry["static_smem"] = int(smem.group(1)) if smem else 0
         by_name = {e["kernel"]: e for e in found[start:]}
-        for kernel, line in notices:
+        for kernel, kind, line in notices:
             if kernel not in by_name:
-                raise RuntimeError(f"{name}: a wgmma notice for no kernel "
+                raise RuntimeError(f"{name}: a {kind} notice for no kernel "
                                    f"ptxas compiled: {line}")
-            by_name[kernel]["serialized"].append(line)
+            by_name[kernel][kind].append(line)
     return found
 
 

@@ -27,18 +27,25 @@
 // memory: the ldmatrix fragment traffic that bound the mma.sync form of
 // these kernels is gone.
 //
-//   * forward (rows 10, 13): one CTA of two warpgroups per 128 query rows
-//     of a (head, batch row), looping over key tiles of 64 in a two-stage
-//     cp.async ring (K, V and the key bias).  Per tile a warpgroup takes S
-//     = Q K^T (m64n64, Q and K from shared memory), the online softmax on
-//     the accumulator in registers, p rounded to bf16 and O += P V (P from
-//     registers, V an MN-major tile).  For training it also writes the row
-//     lse ([B, heads, S] f32, log2 units) and the output in f32 (delta =
-//     rowsum(dO o) reads it: the bf16-rounded output would put 2^-9 of
-//     |dO.o| into every ds).  At head dim 256 O [64 x 256] f32 fills half
-//     a thread's registers (one CTA an SM), and under dropout the forward
-//     issues the next key tile's S before this tile's P V, so that the
-//     next softmax runs beside the product (flash_fwd_wg_overlap_kernel);
+//   * forward (rows 10, 13): one CTA per 128 query rows of a (head, batch
+//     row), two consumer warpgroups of 64 rows looping over key tiles.  Per
+//     tile a warpgroup takes S = Q K^T (Q and K from shared memory), the
+//     online softmax on the accumulator in registers, p rounded to bf16 and
+//     O += P V (P from registers, V an MN-major tile).  At head dims 64 and
+//     128 the CTA is warp-specialised (flash_fwd_ws_kernel): a producer
+//     warpgroup with few registers keeps the tensor memory accelerator
+//     filling a ring of three stages of K, V, the key bias and the dropout
+//     keep words, and the consumers, with the registers it gave up, take
+//     turns at their products and issue the next tile's S before this
+//     tile's P V, so that softmax and products overlap within and across
+//     warpgroups (128-key tiles at 64, 64-key tiles at 128).  At 16, 32 and
+//     256 every thread copies 64-key tiles into a two-stage cp.async ring,
+//     one block barrier a tile (flash_fwd_wg_kernel; at 256 under dropout
+//     with the next tile's S issued before this tile's P V,
+//     flash_fwd_wg_overlap_kernel).  For training the forward also writes
+//     the row lse ([B, heads, S] f32, log2 units) and the output in f32
+//     (delta = rowsum(dO o) reads it: the bf16-rounded output would put
+//     2^-9 of |dO.o| into every ds);
 //   * split backward (row 12), two launches, no atomics: the dq launch
 //     (one CTA of two warpgroups per 128 query rows, one per 64 under
 //     dropout, key tiles of 64 in a two-stage ring; at head dim 256 one

@@ -24,9 +24,11 @@
 // 1024, above the ~295 at which the tensor cores are the limit; the pair
 // recomputes S and dP in both launches, 7 tile products).  The kernels are
 // flash2.cu's (flash_kernels.cuh) with the head-split layout: bf16 on
-// Hopper's warpgroup products (wgmma; the forward and the dq launch one CTA
-// of two warpgroups per 128 query rows (the dq launch one per 64 under
-// dropout), the dk/dv launch one warpgroup per 64 keys, every operand tile
+// Hopper's warpgroup products (wgmma; the forward one CTA per 128 query
+// rows, warp-specialised at head dims 64 and 128 as flash2's, its tensor
+// maps [B x heads, S, d]; the dq launch one CTA of two warpgroups per 128
+// query rows (one per 64 under dropout), the dk/dv launch one warpgroup per
+// 64 keys, every operand tile
 // swizzled in shared memory, p and dS kept in registers as the next
 // product's A operand; at head dim 256 the forward and the pair as
 // flash2's), f32 on the CUDA cores, the

@@ -22,16 +22,25 @@
 //
 //   * bf16 forward (rows 10, 13) and split backward (rows 12, 13) at every
 //     head dim, and fused backward (row 11) from head dim 64: warpgroup
-//     kernels on Hopper's wgmma (wgmma_tiles.cuh), flash_fwd_wg_kernel,
-//     flash_bwd_dq_wg_kernel, flash_bwd_dkv_wg_kernel and, behind a delta
-//     pre-pass, flash2_bwd_fused_wg_kernel below: 64-row warpgroup tiles
+//     kernels on Hopper's wgmma (wgmma_tiles.cuh): 64-row warpgroup tiles
 //     whose operands wgmma reads from swizzled shared memory, probabilities
 //     and dS kept in the accumulator registers as the next product's A
-//     operand.  At head dim 256 under dropout the forward is
-//     flash_fwd_wg_overlap_kernel (kFwdOverlap), which issues the next key
-//     tile's scores before this tile's P V product; the dq launch there is
-//     one warpgroup holding dQ [64 x 256] f32 over 32-key tiles at two CTAs
-//     an SM, the dk/dv launch flash_bwd_dkv_role_wg_kernel, two warpgroups
+//     operand.  The forward at head dims 64 and 128 is
+//     flash_fwd_ws_kernel (kFwdWarpSpecialised), warp-specialised: a
+//     producer warpgroup hands Q, K and V to the tensor memory accelerator
+//     (3-D tensor maps, panels of 64 columns) into a ring of stages that
+//     mbarriers guard, and draws the dropout keep words beside them; two
+//     consumer warpgroups, their registers raised by setmaxnreg, take turns
+//     at issuing their products and each issues the next key tile's scores
+//     before this tile's P V.  At 16 and 32 the forward is
+//     flash_fwd_wg_kernel (every thread copies by cp.async, a block barrier
+//     a tile), at 256 that kernel at rate 0 and, under dropout,
+//     flash_fwd_wg_overlap_kernel (kFwdOverlap: the next tile's scores
+//     before this tile's P V).  The split pair is flash_bwd_dq_wg_kernel and
+//     flash_bwd_dkv_wg_kernel; the fused backward, behind a delta
+//     pre-pass, flash2_bwd_fused_wg_kernel.  At 256 the dq launch is one
+//     warpgroup holding dQ [64 x 256] f32 over 32-key tiles at two CTAs an
+//     SM, the dk/dv launch flash_bwd_dkv_role_wg_kernel, two warpgroups
 //     split by role (S^T, p and dV; dP^T, dS and dK), and the fused sweep's
 //     two warpgroups share a CTA's 64 keys, each holding half the columns
 //     of dK and dV;
@@ -1142,9 +1151,15 @@ using WgOutT = std::conditional_t<kHeadSplit, __nv_bfloat16, float>;
 // The tile choices, measured on the H100 (PERF.md §6): warpgroups
 // a CTA (64 rows each), the width of a loop tile, and the CTAs an SM that
 // ptxas fits the registers to (__launch_bounds__).
-//   * forward: 128 query rows, 64-key tiles, 2 CTAs an SM (128 registers;
-//     the dropout forms took 170 and held 1 CTA, 27 % slower; 128-key
-//     tiles took 180 and ran 27 % slower);
+//   * forward at 64 and 128: flash_fwd_ws_kernel and its choices (kWs*,
+//     below it).  At 16, 32 and 256 flash_fwd_wg_kernel: 128 query rows,
+//     64-key tiles, 2 CTAs an SM below 128 (128 registers; at 64, before
+//     the warp-specialised kernel took it, the dropout forms took 170 and
+//     held 1 CTA, 27 % slower, and 128-key tiles took 180 and ran 27 %
+//     slower), at 256 one CTA an SM (O [64 x 256] f32 takes 128 registers,
+//     the Q tile and two K and V stages 193 KB of shared memory); the
+//     warp-specialised kernel there (two stages in its shared memory) ran
+//     31 % slower at rate 0 and 62 % under dropout;
 //   * dq launch: 128 query rows at rate 0 (2 CTAs an SM); under dropout
 //     the head-split form spills at 128 registers, so 64 rows and 3 CTAs
 //     (up to 170 registers), which also ran 4-6 % faster there and 3-6 %
@@ -1153,11 +1168,9 @@ using WgOutT = std::conditional_t<kHeadSplit, __nv_bfloat16, float>;
 //     own 166 registers; 128 keys in two warpgroups held 1 CTA and ran 9 %
 //     slower), 64-query tiles.
 // At head dim 128 the output accumulators take 64 registers a thread, so
-// the forward and dq launches name one CTA an SM (up to 255 registers); at
-// 256 the forward's O [64 x 256] f32 takes 128, and its Q tile and two K
-// and V stages 193 KB of shared memory: one CTA an SM either way.  The
-// split pair at 256 (above kMaxWholeDkvHeadDim; the pair's times at
-// [32, 1024, 1024]):
+// the dq launch names one CTA an SM (up to 255 registers).  The split pair
+// at 256 (above kMaxWholeDkvHeadDim; the pair's times at [32, 1024,
+// 1024]):
 //   * dq launch: one warpgroup of 64 query rows a CTA (dQ [64 x 256] f32
 //     is 128 registers a thread beside S and dP's 32; 196-216 registers)
 //     over a one-stage ring of 32-key tiles: Q, dO, K and V 97 KB, so two
@@ -1642,6 +1655,446 @@ flash_fwd_wg_overlap_kernel(const __nv_bfloat16* __restrict__ q,
       if (row0 + 8 < seq) lse[row_base + row0 + 8] = (m_run[1] + log2f(l_run[1])) * unit;
     }
     if (out32 != nullptr) store_frag(out32, head_base, ld, row0, seq, acc, inv0, inv1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forward at head dims 64 and 128, warp-specialised
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_ws_kernel (kFwdWarpSpecialised): a CTA of 64 kWsGroups query
+// rows is one producer warpgroup and kWsGroups consumer warpgroups of 64
+// rows each.
+//   * The producer gives its registers back (setmaxnreg.dec to
+//     kWsProducerRegs) and one of its warps feeds a ring of kWsStages
+//     stages: one thread hands the tensor memory accelerator Q once and
+//     each key tile's K and V (3-D tensor maps, panels of 64 columns in the
+//     128-byte swizzle; rows past seq are zero-filled, never the next batch
+//     row's), the warp's lanes write the tile's key bias in log2 units (-inf
+//     past seq, bias_tile's rule: the bias rows need not be 16-byte
+//     aligned, so the accelerator does not copy them), and the stage's
+//     `full` mbarrier completes on the 32 lanes' arrivals and the tiles'
+//     bytes.  It waits on the stage's `empty` mbarrier before refilling it.
+//   * The consumers take the registers (setmaxnreg.inc to kWsConsumerRegs)
+//     and run the online softmax of flash_fwd_wg_kernel on their rows.
+//     With kWsOverlap a warpgroup issues the next tile's S = Q K^T before
+//     this tile's P V and takes the next softmax in the score registers
+//     while P V runs, packing it into the P fragments only once P V has
+//     retired, so that no register an in-flight product reads is written;
+//     each warp arrives on the stage's `empty` once its P V has retired.
+//     The warpgroups take turns at issuing (named barriers 1 ...
+//     kWsGroups, each handed on to the next group after its issue), so one
+//     warpgroup's softmax runs under the other's products.
+//     Each consumer warp draws its own dropout keep words, and the
+//     accumulators are zeroed, while no product of the warpgroup is in
+//     flight: a call or a write there made ptxas serialise the products.
+// Nothing in the key loop waits on a block barrier.  The rounding is
+// flash_fwd_wg_kernel's: p rounded to bf16 before P V, the normaliser summing
+// every p, drop.scale / l applied at the end.
+// The choices, measured on the H100 at [32, 1024, H] against the others
+// that scripts/flash_variants.py's ws_* presets set (PERF.md §6):
+//   * keys a tile: 128 at 64 (64 keys ran 11 % slower), 64 at 128 (128
+//     keys spill at 240 registers and serialise the products, 16 % slower);
+//   * three ring stages: with two, a warpgroup holding K_{t+1} and V_t
+//     together leaves the producer no stage to fill ahead (18-42 % slower);
+//     four ran within 1.5 % of three;
+//   * two consumer warpgroups: three at 64 (160 registers a thread, so
+//     64-key tiles) ran 6-24 % slower; without the turns 2-8 % slower;
+//   * the next tile's S issued before this tile's P V (kWsOverlap) but in
+//     the training form under dropout at 64, where a warpgroup's S,
+//     softmax and P V in series ran 5-8 % faster (and 4-18 % slower in
+//     every other form).
+template <int kD>
+constexpr int kWsKeys = kD == 64 ? 128 : 64;  // keys a tile
+template <int kD>
+constexpr int kWsStages = kD > 128 ? 2 : 3;   // stages of the ring
+template <int kD, bool kDropout, bool kTrain>
+constexpr bool kWsOverlap = !(kD == 64 && kDropout && kTrain);
+template <int kD>
+constexpr int kWsGroups = 2;  // consumer warpgroups
+// The registers a thread of each role (setmaxnreg): a consumer takes only
+// what the producer gave back of the CTA's allocation at entry (ptxas's
+// count under __launch_bounds__(384, 1), 168, times 384 threads), so 128
+// producer and 128 kWsGroups consumer threads share those 64,512.
+template <int kD>
+constexpr int kWsProducerRegs = kWsGroups<kD> == 2 ? 24 : 32;
+template <int kD>
+constexpr int kWsConsumerRegs = kWsGroups<kD> == 2 ? 240 : 160;
+// The head dims whose bf16 forward is flash_fwd_ws_kernel.
+template <int kD>
+constexpr bool kFwdWarpSpecialised = kD == 64 || kD == 128;
+
+template <int kD>
+constexpr int ws_fwd_smem_bytes() {
+  // Q, the ring's K and V tiles and key-bias rows, the mbarriers (Q's, and
+  // each stage's full and empty)
+  return wg::kAlign +
+         (64 * kWsGroups<kD> + 2 * kWsStages<kD> * kWsKeys<kD>) * wg::kRowBytes<kD> +
+         kWsStages<kD> * kWsKeys<kD> * 4 + (1 + 2 * kWsStages<kD>) * 8;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(tc::smem_addr(bar)) : "memory");
+}
+// An arrival that also expects `bytes` more of the accelerator's copies,
+// and the expectation alone.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   tc::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Until the phase of parity `parity` has completed.  Every wait of the
+// forward ends within microseconds; one that fails kMbarTries tries is a
+// fault, and traps (a launch error) rather than hang the card.
+constexpr uint32_t kMbarTries = 1u << 24;
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = tc::smem_addr(bar);
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == kMbarTries) __trap();
+  }
+}
+// The box of tensor map `map` at coordinates (c0, c1, c2) into dst, its
+// bytes counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%3, %4, %5}], [%2];\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(tc::smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+template <int kRegs>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// S = A B^T over kD, A's rows from a_row of a panel tile of kARows rows, B
+// a panel tile of kN rows; the accumulator is overwritten.
+template <int kD, int kN, int kARows>
+__device__ __forceinline__ void ws_nt(float (&s)[kN / 8][4], const unsigned char* a, int a_row,
+                                      const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    wg::mma_ss<kN, 0>(s, wg::desc_k_panel<kARows>(a, a_row, kk), wg::desc_k_panel<kN>(b, 0, kk),
+                      kk);
+  }
+}
+
+// c += F B for F [64 x 16 kK] in A fragments and B a panel tile of 16 kK
+// rows (MN-major: rows the contracted index); above 128 columns each k-step
+// is products of 128.
+template <int kD, int kK>
+__device__ __forceinline__ void ws_nn(float (&c)[kD / 8][4], const uint32_t (&f)[kK][4],
+                                      const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk) {
+    if constexpr (kD <= 128) {
+      wg::mma_rs<kD, 1>(c, f[kk], wg::desc_mn_panel<16 * kK>(b, kk), 1);
+    } else {
+#pragma unroll
+      for (int h = 0; h < kD / 128; ++h) {
+        wg::mma_rs<128, 1>(wg::cols<16>(c, h), f[kk], wg::desc_mn_panel<16 * kK>(b, kk, 128 * h),
+                           1);
+      }
+    }
+  }
+}
+
+// The online softmax of one key tile's scores (flash_fwd_wg_kernel's), in
+// place: s scaled and biased (bias_t: the tile's key bias in log2 units,
+// -inf past seq), the running max and sum of this lane's rows moved on, s
+// the kept p in f32; corr: the factor the output takes before this tile's
+// P V.
+template <int kN>
+__device__ __forceinline__ void ws_softmax(float (&s)[kN][4], const float* bias_t,
+                                           float score_mult, const uint32_t (&keep)[kN / 2],
+                                           float (&m_run)[2], float (&l_run)[2],
+                                           float (&corr)[2]) {
+  const int c = threadIdx.x & 3;
+  float mx[2] = {-INFINITY, -INFINITY};  // this tile's row maxima
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float bb = bias_t[n * 8 + 2 * c + e];
+      s[n][e] = fmaf(s[n][e], score_mult, bb);
+      s[n][2 + e] = fmaf(s[n][2 + e], score_mult, bb);
+      mx[0] = fmaxf(mx[0], s[n][e]);
+      mx[1] = fmaxf(mx[1], s[n][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // every tile holds a key < seq: finite
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    corr[r] = exp2f(m_run[r] - m_new);
+    m_run[r] = m_new;
+    l_run[r] *= corr[r];
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float p0 = exp2f(s[n][e] - m_run[0]);
+      const float p1 = exp2f(s[n][2 + e] - m_run[1]);
+      l_run[0] += p0;
+      l_run[1] += p1;
+      const int jj = (n & 1) * 8 + 2 * c + e;
+      const uint32_t w = keep[n >> 1];
+      s[n][e] = ((w >> jj) & 1u) ? p0 : 0.f;
+      s[n][2 + e] = ((w >> (16 + jj)) & 1u) ? p1 : 0.f;
+    }
+  }
+}
+
+template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
+__global__ void __launch_bounds__(wg::kGroupThreads * (kWsGroups<kD> + 1), 1)
+flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, const float* __restrict__ key_bias,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    float* __restrict__ out32, int seq, int hidden, float score_mult,
+                    Dropout drop) {
+  constexpr int kG = kWsGroups<kD>, kRows = 64 * kG, kBk = kWsKeys<kD>, kS = kWsStages<kD>;
+  constexpr int kN = kBk / 8, kPanels = kD / 64;
+  constexpr int kTile = kBk * wg::kRowBytes<kD>;  // a K or V tile: kPanels panels of kBk rows
+  constexpr uint32_t kQBytes = kRows * wg::kRowBytes<kD>;
+  static_assert(kD % 64 == 0 && kBk % 64 == 0 && kBk <= 256 && kRows <= 256 && kS >= 2,
+                "panels of 64 columns, boxes of at most 256 rows, a ring of two stages or more");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* q_s = wg::align_smem(smem_raw);
+  unsigned char* k_s = q_s + kQBytes;   // kS stages
+  unsigned char* v_s = k_s + kS * kTile;  // kS stages
+  float* bias_s = reinterpret_cast<float*>(v_s + kS * kTile);  // [kS][kBk], log2 units
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(bias_s + kS * kBk);
+  uint64_t* full = q_full + 1;   // [kS]: the stage's K, V and key bias landed
+  uint64_t* empty = full + kS;   // [kS]: every consumer warp is done with the stage
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, head = blockIdx.y, q0 = blockIdx.x * kRows;
+  const int n_tiles = (seq + kBk - 1) / kBk;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(full + i, 32);  // the producer warp's lanes
+      mbar_init(empty + i, 4 * kG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kG) {  // the producer warpgroup: one warp feeds the ring
+    regs_dec<kWsProducerRegs<kD>>();
+    if (warp == 4 * kG) {
+      const int col = kHeadSplit ? 0 : head * kD;            // panel 0's first column
+      const int z = kHeadSplit ? b * gridDim.y + head : b;   // the map's outer index
+      const float* bias_row = key_bias + (size_t)b * seq;
+      if (lane == 0) {
+        mbar_arrive_tx(q_full, kQBytes);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(q_s + p * kRows * 128, &q_map, q_full, col + 64 * p, q0, z);
+        }
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kS, k0 = t * kBk;
+        float bias[kBk / 32];  // read before the wait, written after it
+#pragma unroll
+        for (int j = 0; j < kBk / 32; ++j) {
+          const int key = k0 + 32 * j + lane;
+          bias[j] = key < seq ? bias_row[key] * kLog2e : -INFINITY;
+        }
+        mbar_wait(empty + st, ((t / kS) & 1) ^ 1);  // the first round passes
+        if (lane == 0) {
+          mbar_expect_tx(full + st, 2 * kTile);
+#pragma unroll
+          for (int p = 0; p < kPanels; ++p) {
+            tma_load(k_s + st * kTile + p * kBk * 128, &k_map, full + st, col + 64 * p, k0, z);
+            tma_load(v_s + st * kTile + p * kBk * 128, &v_map, full + st, col + 64 * p, k0, z);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kBk / 32; ++j) bias_s[st * kBk + 32 * j + lane] = bias[j];
+        mbar_arrive(full + st);
+      }
+    }
+  } else {  // a consumer warpgroup: 64 query rows
+    regs_inc<kWsConsumerRegs<kD>>();
+    const int g = lane >> 2, grp = warp >> 2;
+    const int a_row = 64 * grp;  // the warpgroup's rows of the Q tile
+    const size_t head_base = head_offset<kD, kHeadSplit>(b, head, seq, hidden);
+    const int ld = row_stride<kD, kHeadSplit>(hidden);
+    const uint32_t row_base = ((uint32_t)b * gridDim.y + head) * (uint32_t)seq;
+    const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+    // The turns at issuing: group grp waits on barrier 1 + grp, then hands
+    // the turn to the next group; the last group starts the first round
+    // and skips its last hand-over, which no group would wait for.
+    constexpr int kTurn = 2 * wg::kGroupThreads;
+    constexpr bool kTurns = kG > 1;
+    auto turn_begin = [&]() {
+      if constexpr (kTurns) bar_sync(1 + grp, kTurn);
+    };
+    auto turn_end = [&](bool last) {
+      if constexpr (kTurns) {
+        if (!last || grp != kG - 1) bar_arrive(1 + (grp + 1) % kG, kTurn);
+      }
+    };
+    if constexpr (kTurns) {
+      if (grp == kG - 1) bar_arrive(1, kTurn);
+    }
+
+    uint32_t keep[kN / 2];
+    auto keep_of = [&](int t) {  // this lane's keep words of key tile t
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) keep[i] = kFull;
+      if constexpr (kDropout) {
+#pragma unroll
+        for (int h = 0; h < kBk / 64; ++h) {
+          keep_words_qmajor(drop, row_base + row0, t * kBk + 64 * h, keep + 4 * h);
+        }
+      }
+    };
+    auto wait_full = [&](int t) { mbar_wait(full + t % kS, (t / kS) & 1); };
+    auto release = [&](int t) {  // after this warp's last product on tile t
+      if (lane == 0) mbar_arrive(empty + t % kS);
+    };
+    Frag<kD / 8> acc;
+    acc.zero();
+    auto rescale = [&](const float (&corr)[2]) {
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        acc.x[n][0] *= corr[0];
+        acc.x[n][1] *= corr[0];
+        acc.x[n][2] *= corr[1];
+        acc.x[n][3] *= corr[1];
+      }
+    };
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    float s[kN][4], corr[2];
+    uint32_t pa[kN / 2][4];
+
+    mbar_wait(q_full, 0);
+    if constexpr (kWsOverlap<kD, kDropout, kTrain>) {
+      wait_full(0);
+      keep_of(0);
+      turn_begin();
+      wg::fence();
+      ws_nt<kD, kBk, kRows>(s, q_s, a_row, k_s);
+      wg::commit();
+      turn_end(false);
+      wg::wait<0>();
+      wg::fence_operand(s);
+      ws_softmax(s, bias_s, score_mult, keep, m_run, l_run, corr);  // O is zero
+      wg::to_a(s, pa);  // p rounded to bf16 before P V, as JAX's
+
+      // Tile t, P_t in pa: S_{t+1} = Q K_{t+1}^T and O += P_t V_t in
+      // flight together, the softmax of S_{t+1} in s while P V runs, P_{t+1}
+      // packed into pa once P V has retired (kNext: a tile t + 1 follows;
+      // the last tile is peeled off, so that no product is issued on a
+      // divergent path).
+      auto step = [&](int t, auto next) {
+        constexpr bool kNext = decltype(next)::value;
+        if constexpr (kNext) {
+          wait_full(t + 1);
+          keep_of(t + 1);
+        }
+        turn_begin();
+        wg::fence_operand(acc.x);
+        wg::fence_operand(pa);
+        wg::fence();
+        if constexpr (kNext) {
+          ws_nt<kD, kBk, kRows>(s, q_s, a_row, k_s + ((t + 1) % kS) * kTile);
+          wg::commit();
+        }
+        ws_nn<kD, kN / 2>(acc.x, pa, v_s + (t % kS) * kTile);
+        wg::commit();
+        turn_end(!kNext);
+        if constexpr (kNext) {
+          wg::wait<1>();  // S_{t+1}; P_t V_t runs on
+          wg::fence_operand(s);
+          ws_softmax(s, bias_s + ((t + 1) % kS) * kBk, score_mult, keep, m_run, l_run, corr);
+        }
+        wg::wait<0>();
+        wg::fence_operand(acc.x);
+        wg::fence_operand(pa);
+        release(t);
+        if constexpr (kNext) {
+          wg::to_a(s, pa);
+          rescale(corr);
+        }
+      };
+      for (int t = 0; t + 1 < n_tiles; ++t) step(t, std::true_type{});
+      step(n_tiles - 1, std::false_type{});
+    } else {  // S, softmax and P V of a tile in series
+      for (int t = 0; t < n_tiles; ++t) {
+        wait_full(t);
+        keep_of(t);
+        turn_begin();
+        wg::fence();
+        ws_nt<kD, kBk, kRows>(s, q_s, a_row, k_s + (t % kS) * kTile);
+        wg::commit();
+        turn_end(t + 1 == n_tiles);
+        wg::wait<0>();
+        wg::fence_operand(s);
+        ws_softmax(s, bias_s + (t % kS) * kBk, score_mult, keep, m_run, l_run, corr);
+        wg::to_a(s, pa);
+        rescale(corr);
+        wg::fence_operand(acc.x);
+        wg::fence_operand(pa);
+        wg::fence();
+        ws_nn<kD, kN / 2>(acc.x, pa, v_s + (t % kS) * kTile);
+        wg::commit();
+        wg::wait<0>();
+        wg::fence_operand(acc.x);
+        wg::fence_operand(pa);
+        release(t);
+      }
+    }
+
+    const int c = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(kFull, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(kFull, l_run[r], 2);
+    }
+    if constexpr (kHeadSplit) {  // JAX's guard (_flash_kernel: max(l, 1e-30))
+      l_run[0] = fmaxf(l_run[0], 1e-30f);
+      l_run[1] = fmaxf(l_run[1], 1e-30f);
+    }
+    const float inv0 = drop.scale / l_run[0], inv1 = drop.scale / l_run[1];
+    store_frag(out, head_base, ld, row0, seq, acc, inv0, inv1);
+    if constexpr (kTrain) {
+      const float unit = kHeadSplit ? kLn2 : 1.f;  // the head-split lse in natural-log units
+      if (c == 0) {
+        if (row0 < seq) lse[row_base + row0] = (m_run[0] + log2f(l_run[0])) * unit;
+        if (row0 + 8 < seq) lse[row_base + row0 + 8] = (m_run[1] + log2f(l_run[1])) * unit;
+      }
+      if (out32 != nullptr) store_frag(out32, head_base, ld, row0, seq, acc, inv0, inv1);
+    }
   }
 }
 
@@ -2599,11 +3052,82 @@ int launch_fwd_wg_kernel(const void* q, const void* k, const void* v, const floa
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, which lives in libcuda: the runtime hands over
+// its entry point (cudaGetDriverEntryPoint), so nothing links libcuda.
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+inline cudaError_t tensor_map_encoder(TensorMapEncode* out) {
+  static TensorMapEncode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<TensorMapEncode>(fn);
+  }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A bf16 tensor [outer, rows, cols] (row-major) as a 3-D tensor map of boxes
+// [1 x box_rows x 64] in the 128-byte swizzle: flash_fwd_ws_kernel's panels
+// (natural layout: cols = hidden, outer = batch; head-split: cols = the head
+// dim, outer = batch x heads).  Rows past `rows` are outside the tensor, so
+// a box there is zero-filled and never reads the next outer index's rows.
+inline cudaError_t panel_tensor_map(CUtensorMap* map, const void* x, int cols, int rows,
+                                    int outer, int box_rows) {
+  TensorMapEncode encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t boxes[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                              strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// flash_fwd_ws_kernel at head dim kD: Q, K and V encoded as panel maps (Q's
+// boxes the CTA's query rows, K's and V's a key tile), then the launch.
+template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
+int launch_fwd_ws(const void* q, const void* k, const void* v, const float* bias, void* out,
+                  float* lse, float* out32, int batch, int seq, int hidden, int num_heads,
+                  float score_mult, Dropout drop, cudaStream_t s) {
+  constexpr auto kernel = flash_fwd_ws_kernel<kD, kHeadSplit, kDropout, kTrain>;
+  constexpr int bytes = ws_fwd_smem_bytes<kD>(), rows = 64 * kWsGroups<kD>;
+  static_assert(bytes <= kMaxSmem, "the forward's tiles fit one CTA's shared memory");
+  cudaError_t err = allow_smem<kernel>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int cols = kHeadSplit ? kD : hidden, outer = kHeadSplit ? batch * num_heads : batch;
+  CUtensorMap maps[3];
+  const void* src[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    err = panel_tensor_map(&maps[i], src[i], cols, seq, outer, i == 0 ? rows : kWsKeys<kD>);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3((seq + rows - 1) / rows, num_heads, batch),
+           wg::kGroupThreads * (kWsGroups<kD> + 1), bytes, s>>>(
+      maps[0], maps[1], maps[2], bias, static_cast<__nv_bfloat16*>(out), lse, out32, seq, hidden,
+      score_mult, drop);
+  return (int)cudaGetLastError();
+}
+
 template <int kD, bool kHeadSplit, bool kDropout, bool kTrain>
 int launch_fwd_wg(const void* q, const void* k, const void* v, const float* bias, void* out,
                   float* lse, float* out32, int batch, int seq, int hidden, int num_heads,
                   float score_mult, Dropout drop, cudaStream_t s) {
-  if constexpr (kFwdOverlap<kD, kDropout>) {
+  if constexpr (kFwdWarpSpecialised<kD>) {
+    return launch_fwd_ws<kD, kHeadSplit, kDropout, kTrain>(
+        q, k, v, bias, out, lse, out32, batch, seq, hidden, num_heads, score_mult, drop, s);
+  } else if constexpr (kFwdOverlap<kD, kDropout>) {
     return launch_fwd_wg_kernel<flash_fwd_wg_overlap_kernel<kD, kHeadSplit, kDropout, kTrain>,
                                 kD>(q, k, v, bias, out, lse, out32, batch, seq, hidden,
                                     num_heads, score_mult, drop, s);
@@ -2668,24 +3192,12 @@ int launch_split_wg(const void* q, const void* k, const void* v, const float* bi
 // The f32 dq scratch [batch, seq, hidden] as a 3-D tensor map (columns,
 // rows, batch rows) of boxes [1 x 64 x box] in the 128-byte swizzle (the
 // 64-byte one for 16 columns): the fused sweep's bulk tensor reductions'
-// destination.  cuTensorMapEncodeTiled lives in libcuda; the runtime hands
-// over its entry point (cudaGetDriverEntryPoint), so nothing links libcuda.
+// destination.
 inline cudaError_t dq_tensor_map(CUtensorMap* map, float* dq32, int batch, int seq, int hidden,
                                  int box) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
+  TensorMapEncode encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)hidden, (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)hidden * 4, (cuuint64_t)seq * hidden * 4};
   const cuuint32_t boxes[3] = {(cuuint32_t)box, (cuuint32_t)kFusedQueries, 1};

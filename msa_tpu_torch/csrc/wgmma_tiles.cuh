@@ -43,6 +43,10 @@
 //     0-13, LBO >> 4 in 16-29, SBO >> 4 in 32-45, base offset 0 (the
 //     tiles are atom-aligned), swizzle mode in 62-63 (1: 128 B, 2: 64 B,
 //     3: 32 B);
+//   * descriptors of panel tiles, as the tensor memory accelerator writes
+//     boxes of 64 columns in the 128-byte swizzle (desc_k_panel,
+//     desc_mn_panel; the warp-specialised forward's Q, K and V): a tile of
+//     kD columns is kD / 64 panels, each its rows x 128 bytes;
 //   * mma_ss<N, kTransB, kTransA>(d, desc_a, desc_b, scale_d) and
 //     mma_rs<N, kTransB>(d, a, desc_b, scale_d): d = A B (+ d when
 //     scale_d), N = 16 ... 128 from shared memory (kTransA: A MN-major, its
@@ -170,6 +174,30 @@ __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int kk, i
   return make_desc(smem_addr(tile) + kk * 2 * kGroupBytes<kD> +
                        (col0 / kAtomCols<kD>) * kAtomBytes<kD> + (col0 % kAtomCols<kD>) * 2,
                    kAtomBytes<kD>, kGroupBytes<kD>, kSwizzleMode<kD>);
+}
+
+// Panel tiles, as the tensor memory accelerator writes a box of [kRows x 64]
+// bf16 values in the 128-byte swizzle: a tile of kD columns (kD a multiple
+// of 64) is kD / 64 panels of kRows rows, panel p (columns [64 p, 64 p +
+// 64)) at 128 kRows p bytes, row r at 128 r, its 16-byte chunk c at c ^ (r
+// % 8).  At d = 64 one panel, the swizzled row tile above.
+//   desc_k_panel<kRows>(tile, row, kk)   K-major, rows from `row` (a
+//                                        multiple of 8); k-step kk in panel
+//                                        kk / 4, 32 (kk % 4) bytes into its
+//                                        rows.  SBO = 8 rows;
+//   desc_mn_panel<kRows>(tile, kk, col0) MN-major, rows [16 kk, 16 kk + 16)
+//                                        the K index, columns from col0 (a
+//                                        multiple of 64) the N index.  SBO =
+//                                        8 rows, LBO = a panel (the next 64
+//                                        columns).
+template <int kRows>
+__device__ __forceinline__ uint64_t desc_k_panel(const unsigned char* tile, int row, int kk) {
+  return make_desc(smem_addr(tile) + (kk >> 2) * kRows * 128 + row * 128 + (kk & 3) * 32, 16,
+                   1024, 1);
+}
+template <int kRows>
+__device__ __forceinline__ uint64_t desc_mn_panel(const unsigned char* tile, int kk, int col0 = 0) {
+  return make_desc(smem_addr(tile) + (col0 >> 6) * kRows * 128 + kk * 2048, kRows * 128, 1024, 1);
 }
 
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }

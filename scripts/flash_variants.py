@@ -45,7 +45,36 @@ _FUSED_EXP = "const float p = exp2f(fmaf(st[nn][2 * r + e], score_mult, bias2[r]
 _FUSED_ATOMIC = "if (row < seq) atomicAdd(reinterpret_cast<float4*>(dst + n * 8), val);"
 _FUSED_DQ_COLS = ("constexpr int kFusedDqCols = kD > kMaxWholeDkvHeadDim ? 64 : "
                   "kFusedDqWidth<kD>;")
+# the warp-specialised forward's choices (flash_kernels.cuh)
+_WS_KEYS = "constexpr int kWsKeys = kD == 64 ? 128 : 64;"
+_WS_STAGES = "constexpr int kWsStages = kD > 128 ? 2 : 3;"
+_WS_GROUPS = "template <int kD>\nconstexpr int kWsGroups = 2;"
+_WS_OVERLAP = "constexpr bool kWsOverlap = !(kD == 64 && kDropout && kTrain);"
+_WS_DIMS = "constexpr bool kFwdWarpSpecialised = kD == 64 || kD == 128;"
 PRESETS = {
+    # the warp-specialised forward at 64 and 128: 64-key tiles at 64 too,
+    # or 128-key tiles at 128 too; two or four ring stages; three consumer
+    # warpgroups at 64 (192 query rows a CTA, 160 registers a consumer
+    # thread, 64-key tiles); the warpgroups issuing without turns; a
+    # warpgroup's S, softmax and P V in series in every form, or the next
+    # tile's S before this tile's P V in every form; and the kernel at head
+    # dim 256 too (two stages), in place of flash_fwd_wg_kernel and
+    # flash_fwd_wg_overlap_kernel
+    "ws_keys64": {_WS_KEYS: "constexpr int kWsKeys = 64;"},
+    "ws_keys128": {_WS_KEYS: "constexpr int kWsKeys = 128;"},
+    "ws_stages2": {_WS_STAGES: "constexpr int kWsStages = 2;"},
+    "ws_stages4": {_WS_STAGES: "constexpr int kWsStages = kD > 128 ? 2 : 4;"},
+    "ws_groups3": {_WS_GROUPS: "template <int kD>\nconstexpr int kWsGroups = kD == 64 ? 3 : 2;",
+                   _WS_KEYS: "constexpr int kWsKeys = 64;"},
+    "ws_no_turns": {"    constexpr bool kTurns = kG > 1;": "    constexpr bool kTurns = false;"},
+    "ws_serial": {_WS_OVERLAP: "constexpr bool kWsOverlap = false;"},
+    "ws_overlap": {_WS_OVERLAP: "constexpr bool kWsOverlap = true;"},
+    "ws256": {_WS_DIMS: "constexpr bool kFwdWarpSpecialised = kD >= 64;"},
+    # probe: the warp-specialised forward without its softmax (the scores
+    # packed as they are), whether the products or the exponentials bind
+    "ws_no_softmax": {"  float mx[2] = {-INFINITY, -INFINITY};  // this tile's row maxima":
+                      "  corr[0] = corr[1] = 1.f;\n  return;\n"
+                      "  float mx[2] = {-INFINITY, -INFINITY};"},
     # tile choices
     "fwd_keys128": {"kFwdKeys = 64;": "kFwdKeys = 128;"},
     "fwd_groups1": {"constexpr int kFwdGroups = 2,": "constexpr int kFwdGroups = 1,"},
@@ -220,9 +249,9 @@ def main() -> int:
     return run_variants(sys.argv[1:], PRESETS, KERNELS,
                         ["flash2", "flash_attention", "fused_joint_embed",
                          "short_attention_d256"],
-                        ["_wg_kernel", "_wg_overlap_kernel"], "--flash-times",
+                        ["_wg_kernel", "_wg_overlap_kernel", "_ws_kernel"], "--flash-times",
                         ("flash kernels", "flash at head dims", "wide heads frame step",
-                         "bert-large frame step"))
+                         "bert-large frame step", "bert-large frame serving"))
 
 
 if __name__ == "__main__":

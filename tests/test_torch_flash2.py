@@ -32,7 +32,9 @@ from msa_tpu.configs import build_experiment
 from msa_tpu.utils.flops import mmbert_step_flops as jax_step_flops
 from msa_tpu_torch import _build
 from msa_tpu_torch.configs import ExperimentConfig as PortExperimentConfig
+from msa_tpu_torch.ops import attention as A
 from msa_tpu_torch.ops import flash2 as F2
+from msa_tpu_torch.ops import short_attention as sa
 from msa_tpu_torch.ops.attention import attention_route, multi_head_attention
 from msa_tpu_torch.ops.short_attention import kernel_head_dim, short_attention
 from msa_tpu_torch.utils.flops import mmbert_step_flops
@@ -280,6 +282,56 @@ def test_fused_entry_hands_the_sweep_its_scratch(d, monkeypatch):
     library (the warpgroup sweep from 64, the mma.sync one at 16 and 32),
     by :func:`check_fused_entry`."""
     check_fused_entry(d, monkeypatch)
+
+
+@pytest.mark.parametrize("layout", ["flash2", "head_split"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_forward_entry_launches_once_on_its_head_dims_library(d, layout,
+                                                              monkeypatch):
+    """The bf16 training forward of either layout at head dim ``d`` through
+    a stand-in library: one call of its C entry (``msa_flash2_fwd``, or
+    ``msa_flash_attention_fwd`` for the head-split layout) on the head
+    dim's library (``flash2_d<d>`` / ``flash_attention_d<d>``, which picks
+    the kernel: the warp-specialised forward at 64 and 128), its arguments
+    in ``_SIGNATURES`` order (the buffers it returns, the widths, the
+    scale, the seed's words, the rate, the stream), counted as one
+    launch."""
+    lib = Recorder()
+    monkeypatch.setattr(_build, "load", lib.load)
+    monkeypatch.setattr(sa, "_stream", lambda x: 0)
+    monkeypatch.setattr(A, "_stream", lambda x: 0)
+    b, s, rate = 2, 20, 26 / 256
+    bias = torch.zeros(b, s)
+    if layout == "flash2":
+        q, k, v = (torch.zeros(b, s, HEADS * d, dtype=torch.bfloat16)
+                   for _ in range(3))
+        counter, entry, signatures = (F2.flash_attention2, "msa_flash2_fwd",
+                                      F2._SIGNATURES)
+        before = counter.launches
+        out, lse, out32 = F2._forward_kernel(q, k, v, bias, HEADS, 5, rate,
+                                             True)
+        buffers, widths = (out, lse, out32), (b, s, HEADS * d, HEADS, 1)
+    else:
+        q, k, v = (torch.zeros(b, HEADS, s, d, dtype=torch.bfloat16)
+                   for _ in range(3))
+        counter, entry, signatures = (A.flash_attention,
+                                      "msa_flash_attention_fwd", A._SIGNATURES)
+        before = counter.launches
+        out, lse = A._forward_kernel(q, k, v, bias, 5, rate, True)
+        buffers, widths = (out, lse), (b, HEADS, s, d, 1)
+    assert counter.launches == before + 1
+    library = "flash2" if layout == "flash2" else "flash_attention"
+    assert lib.loaded == [f"{library}_d{d}"]
+    ((name, args),) = lib.calls
+    assert name == entry and len(args) == len(signatures[entry])
+    n = 4 + len(buffers)  # q, k, v, the bias, then the outputs
+    assert all(isinstance(x, int) for x in args[:n])
+    assert args[4:n] == tuple(x.data_ptr() for x in buffers)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert lse.shape == (b, HEADS, s) and lse.dtype == torch.float32
+    assert args[n:n + 5] == widths  # bf16
+    assert args[n + 5] == pytest.approx(1 / np.sqrt(d))
+    assert args[n + 6:] == (5, 0, rate, 0)  # the seed's words, rate, stream
 
 
 @pytest.mark.parametrize("dtype,s,fused", [

@@ -25,7 +25,9 @@ hold those rules against JAX in bf16:
   Pallas pair at rate 0 too.
 
 At B = 1, 2 heads of 256 (H = 512) and S = 70: two of the kernels' 64-key
-tiles, the second ragged, keys padded from 50 on.  At rate 0 JAX's side is
+tiles, the second ragged, keys padded from 50 on.  The forward rule is
+held at head dims 64 and 128 too (2 heads each), where the forward of both
+rows is the warp-specialised ``flash_fwd_ws_kernel``.  At rate 0 JAX's side is
 its Pallas kernels in interpret mode (``flash_attention2`` with the fused
 backward, ``_flash_attention``), as JAX's own tests run them.  Under
 dropout (26/256) the two frameworks draw other masks, so JAX's side is a
@@ -77,12 +79,12 @@ LSE_TOL = 1e-5
 RATES = [pytest.param(0.0, id="rate0"), pytest.param(26 / 256, id="rate26")]
 
 
-def bf16_inputs(seed):
-    """q, k, v, dO as JAX bf16 arrays and their bf16 torch twins, [B, S, H];
-    the additive key bias [B, S] f32 (keys from 50 on padded)."""
+def bf16_inputs(seed, d=D):
+    """q, k, v, dO as JAX bf16 arrays and their bf16 torch twins, [B, S,
+    HEADS d]; the additive key bias [B, S] f32 (keys from 50 on padded)."""
     rng = np.random.default_rng(seed)
-    jx = [jnp.asarray(rng.standard_normal((B, S, H)).astype(np.float32),
-                      jnp.bfloat16) for _ in range(4)]
+    jx = [jnp.asarray(rng.standard_normal((B, S, HEADS * d)).astype(
+        np.float32), jnp.bfloat16) for _ in range(4)]
     tx = [torch.from_numpy(np.array(x, np.float32)).to(torch.bfloat16)
           for x in jx]
     mask = np.ones((B, S), np.float32)
@@ -93,7 +95,7 @@ def bf16_inputs(seed):
 
 def heads(x):
     """[B, S, H] -> [B, heads, S, d]."""
-    return x.reshape(B, S, HEADS, D).transpose(0, 2, 1, 3)
+    return x.reshape(B, S, HEADS, -1).transpose(0, 2, 1, 3)
 
 
 def jax_order_forward(q, k, v, bias, keep, rate):
@@ -105,7 +107,7 @@ def jax_order_forward(q, k, v, bias, keep, rate):
     f32 = jnp.float32
     log2e = 1.0 / np.log(2.0)
     s = jnp.einsum("bnqd,bnkd->bnqk", q, k, preferred_element_type=f32) \
-        * (log2e / np.sqrt(D)) + (bias * log2e)[:, None, None, :]
+        * (log2e / np.sqrt(q.shape[-1])) + (bias * log2e)[:, None, None, :]
     m = jnp.max(s, -1, keepdims=True)
     p = jnp.exp2(s - m)
     l = jnp.sum(p, -1, keepdims=True)
@@ -140,24 +142,32 @@ def rounding_gap(tx, bias, rate, keep):
     """2^-8 sum_j p_j |v_j| [B, S, H]: one bf16 rounding (2^-9 relative) of
     every kept p on each side, the rule's of p / (1 - rate) normalised and
     JAX's of the unnormalised p, carried through P V."""
-    q, k, v = (x.float().reshape(B, S, HEADS, D) for x in tx[:3])
-    p = torch.softmax(torch.einsum("bqnd,bknd->bnqk", q, k) / math.sqrt(D)
+    q, k, v = (x.float().reshape(B, S, HEADS, -1) for x in tx[:3])
+    p = torch.softmax(torch.einsum("bqnd,bknd->bnqk", q, k)
+                      / math.sqrt(q.shape[-1])
                       + torch.from_numpy(bias)[:, None, None, :], dim=-1)
     if keep is not None:
         p = torch.where(keep, p / (1.0 - rate), 0.0)
     return (2.0 ** -8 * torch.einsum("bnqk,bknd->bqnd", p, v.abs())
-            ).reshape(B, S, H).numpy()
+            ).reshape(B, S, -1).numpy()
 
 
-@pytest.mark.parametrize("layout", ["flash2", "head_split"])
-@pytest.mark.parametrize("rate", RATES)
-def test_flash_forward_rule_matches_jax_at_d256(layout, rate):
-    """The forward rule's ctx and lse against JAX's bf16 forward: at rate 0
-    the Pallas kernel (flash2's ``flash_attention2``, or the head-split
-    ``_flash_forward_dispatch`` with its natural-log lse) in interpret
-    mode, and the dense copy of its order beside it; at 26/256 that copy
-    on the exported mask."""
-    jx, tx, bias = bf16_inputs(seed=256)
+# (rate, layout, head dim): d = 256, and d = 64 and 128, where the kernels
+# are the warp-specialised flash_fwd_ws_kernel
+FORWARD_CASES = [pytest.param(r.values[0], layout, d, id="-".join(
+    (r.id, layout) + (() if d == D else (f"d{d}",))))
+    for d in (D, 64, 128) for r in RATES for layout in ("flash2", "head_split")]
+
+
+@pytest.mark.parametrize("rate,layout,d", FORWARD_CASES)
+def test_flash_forward_rule_matches_jax_at_d256(rate, layout, d):
+    """The forward rule's ctx and lse against JAX's bf16 forward at head dim
+    ``d`` (2 heads, S = 70): at rate 0 the Pallas kernel (flash2's
+    ``flash_attention2``, or the head-split ``_flash_forward_dispatch`` with
+    its natural-log lse) in interpret mode, and the dense copy of its order
+    beside it; at 26/256 that copy on the exported mask."""
+    h = HEADS * d
+    jx, tx, bias = bf16_inputs(seed=d, d=d)
     keep = keep_mask_plain(31, rate, B, HEADS, S) if rate else None
     ctx, lse = port_forward(tx, bias, rate, keep)
     got = ctx.float().numpy()
@@ -165,7 +175,7 @@ def test_flash_forward_rule_matches_jax_at_d256(layout, rate):
     copy, copy_lse = jax_order_forward(
         *(heads(x) for x in jx[:3]), jnp.asarray(bias),
         None if keep is None else jnp.asarray(keep.numpy()), rate)
-    copy = copy.transpose(0, 2, 1, 3).reshape(B, S, H)
+    copy = copy.transpose(0, 2, 1, 3).reshape(B, S, h)
     assert_bf16_close(got, copy, f"{layout} ctx against JAX's order", gap)
     np.testing.assert_allclose(lse.numpy(), copy_lse, atol=LSE_TOL,
                                rtol=LSE_TOL)
@@ -181,7 +191,7 @@ def test_flash_forward_rule_matches_jax_at_d256(layout, rate):
             *(heads(x) for x in jx[:3]), jnp.asarray(bias), None, bq, bq,
             0.0, with_lse=True, interpret=True)
         ref = np.asarray(ref, np.float32).transpose(0, 2, 1, 3).reshape(
-            B, S, H)
+            B, S, h)
         np.testing.assert_allclose(lse.numpy() * math.log(2.0),
                                    np.asarray(ref_lse)[:, :, 0, :S],
                                    atol=LSE_TOL, rtol=LSE_TOL)
